@@ -1,0 +1,176 @@
+"""Columnar partition blocks: the dense tier's unit of data.
+
+Counterpart of vega_tpu/tpu/block.py. A Block holds named columns, each a
+[n_shards, capacity] tensor on the mesh's device, plus a per-shard valid-row
+count: rows [0, counts[s]) of row s are shard s's valid rows. Static
+capacity keeps shapes stable; raggedness lives in `counts`, never in shapes.
+
+The block dtype contract is the reference's 32-bit one (_check_dtype):
+int64 narrows to int32 when its values fit and raises VegaError when they
+do not; float64 narrows to float32. Wide int64 (`.lo`) columns and string
+dictionaries are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.mesh import ShardMesh
+
+KEY = "k"  # canonical key column
+VALUE = "v"  # canonical value column
+
+
+@dataclasses.dataclass
+class Block:
+    cols: Dict[str, torch.Tensor]  # each [n_shards, capacity]
+    counts: torch.Tensor  # int32[n_shards], valid rows per shard
+    capacity: int  # per-shard row capacity (static)
+    mesh: ShardMesh
+    # Host copy of counts, cached: constructors that know the counts
+    # (from_numpy, block_range, exchanges that fetched them with the
+    # overflow flags) pass them in; otherwise the first counts_np fetches.
+    counts_host: Optional[np.ndarray] = None
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.n_shards
+
+    @property
+    def counts_np(self) -> np.ndarray:
+        if self.counts_host is None:
+            self.counts_host = self.counts.cpu().numpy().astype(np.int32)
+        return self.counts_host
+
+    @property
+    def num_rows(self) -> int:
+        return int(np.sum(self.counts_np))
+
+    def _host_cols(self) -> Dict[str, np.ndarray]:
+        return {name: c.cpu().numpy() for name, c in self.cols.items()}
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        """Valid rows of every column on the host, shard order preserved."""
+        counts = self.counts_np
+        host = self._host_cols()
+        return {name: np.concatenate([col[s, :counts[s]]
+                                      for s in range(self.n_shards)])
+                for name, col in host.items()}
+
+    def shard_rows(self, shard: int) -> Dict[str, np.ndarray]:
+        c = int(self.counts_np[shard])
+        return {name: col[shard, :c].cpu().numpy()
+                for name, col in self.cols.items()}
+
+
+def _round_capacity(c: int) -> int:
+    """Round per-shard capacity to a shape-stable bucket: the next power of
+    two (>= 128) up to 1M rows, the next multiple of 1M above (the
+    reference's block._round_capacity)."""
+    c = max(c, 128)
+    if c <= (1 << 20):
+        return 1 << (c - 1).bit_length()
+    step = 1 << 20
+    return -(-c // step) * step
+
+
+def _check_dtype(name: str, src: np.ndarray) -> np.ndarray:
+    """The 32-bit block dtype contract: narrow 64-bit inputs, refusing
+    loudly where narrowing would silently corrupt."""
+    if src.dtype.kind in "OUS":
+        raise VegaError(
+            f"column {name!r} has dtype {src.dtype} which has no device "
+            "representation in vega_tpu_torch (string columns are not "
+            "ported yet)")
+    if src.dtype in (np.int64, np.uint64, np.uint32):
+        # torch has no uint32 arithmetic on every device, so unsigned
+        # columns narrow to int32 too, under the same range check
+        info = np.iinfo(np.int32)
+        if len(src) and (src.min() < info.min or src.max() > info.max):
+            raise VegaError(
+                f"column {name!r} has {src.dtype} values outside int32 "
+                "range — values would silently collide (wide int64 columns "
+                "are not ported yet)")
+        return src.astype(np.int32)
+    if src.dtype == np.float64:
+        return src.astype(np.float32)
+    return src
+
+
+def from_numpy(columns: Dict[str, np.ndarray], mesh: ShardMesh,
+               capacity: Optional[int] = None) -> Block:
+    """Row-shard host columns (equal lengths) over the mesh: shard s gets
+    rows [s*per, (s+1)*per), per = ceil(n / n_shards), like the reference's
+    from_numpy."""
+    n_shards = mesh.n_shards
+    names = list(columns)
+    n = len(columns[names[0]]) if names else 0
+    per = -(-n // n_shards) if n else 0
+    cap = _round_capacity(capacity or max(per, 1))
+    counts = np.array([max(0, min(per, n - s * per)) for s in range(n_shards)],
+                      dtype=np.int32)
+    cols = {}
+    for name in names:
+        src = _check_dtype(name, np.asarray(columns[name]))
+        if len(src) != n:
+            raise VegaError(f"column {name!r} has {len(src)} rows, "
+                            f"expected {n}")
+        dst = np.zeros((n_shards, cap) + src.shape[1:], dtype=src.dtype)
+        for s in range(n_shards):
+            c = counts[s]
+            if c:
+                dst[s, :c] = src[s * per:s * per + c]
+        cols[name] = torch.from_numpy(dst).to(mesh.device)
+    return Block(cols=cols, counts=torch.from_numpy(counts).to(mesh.device),
+                 capacity=cap, mesh=mesh, counts_host=counts)
+
+
+def from_reference_arrays(cols: Dict[str, np.ndarray], counts: np.ndarray,
+                          capacity: int, mesh: ShardMesh) -> Block:
+    """Carry a vega_tpu Block's exported state across with identical
+    placement: flat [n_shards * capacity] columns laid out as the reference
+    lays them out (rows [s*capacity, s*capacity + counts[s]) are shard s's)
+    plus the per-shard counts."""
+    counts = np.asarray(counts, dtype=np.int32).reshape(-1)
+    if counts.shape[0] != mesh.n_shards:
+        raise VegaError(f"counts has {counts.shape[0]} shards, the mesh "
+                        f"{mesh.n_shards}")
+    if counts.size and (counts.min() < 0 or counts.max() > capacity):
+        raise VegaError("counts must lie in [0, capacity]")
+    out = {}
+    for name, col in cols.items():
+        col = _check_dtype(name, np.asarray(col))
+        if col.shape[0] != mesh.n_shards * capacity:
+            raise VegaError(
+                f"column {name!r} has {col.shape[0]} rows, expected "
+                f"n_shards * capacity = {mesh.n_shards * capacity}")
+        out[name] = torch.from_numpy(np.array(
+            col.reshape((mesh.n_shards, capacity) + col.shape[1:]))
+        ).to(mesh.device)
+    return Block(cols=out, counts=torch.from_numpy(counts.copy()).to(
+        mesh.device), capacity=capacity, mesh=mesh,
+        counts_host=counts.copy())
+
+
+def block_range(n: int, mesh: ShardMesh, dtype=torch.int32,
+                start: int = 0) -> Block:
+    """Iota block built on the device: shard s holds
+    [start + s*per, start + s*per + counts[s]) in its valid rows, and the
+    iota continues through its padding rows, as in the reference."""
+    n_shards = mesh.n_shards
+    per = -(-n // n_shards)
+    cap = _round_capacity(per)
+    counts = np.array([max(0, min(per, n - s * per)) for s in range(n_shards)],
+                      dtype=np.int32)
+    dev = mesh.device
+    vals = (start + torch.arange(n_shards, device=dev,
+                                 dtype=torch.int64)[:, None] * per
+            + torch.arange(cap, device=dev, dtype=torch.int64)[None, :])
+    return Block(cols={VALUE: vals.to(dtype)},
+                 counts=torch.from_numpy(counts).to(dev), capacity=cap,
+                 mesh=mesh, counts_host=counts)

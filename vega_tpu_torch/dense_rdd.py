@@ -1,0 +1,656 @@
+"""Dense lineage: RDD nodes whose partitions are shard rows of Blocks.
+
+Counterpart of vega_tpu/tpu/dense_rdd.py for the main path:
+dense_range / dense_from_numpy -> map -> reduce_by_key(op=) -> join ->
+count / collect. Each node materializes once into a Block
+([n_shards, capacity] columns on one device). Narrow nodes (map) are not
+materialized in front of an exchange: their chain is applied to the root
+block's columns inside the exchange, once per materialization.
+
+The reference resolves three plan settings per backend; on an accelerator
+they are dense_rbk_plan="fused_sort", dense_table_plan="off" and
+dense_sort_impl="xla", and those are the only plans ported (Context holds
+them). Exchanges run the blocking form of the reference's _run_exchange:
+the counts, the extra outputs and the overflow flags come back in one
+fetch, and an overflow retries at larger capacities, up to 6 rounds.
+
+There is no host tier to fall back to: a row function that does not run on
+column tensors raises VegaError.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from vega_tpu_torch import block as block_lib
+from vega_tpu_torch import kernels
+from vega_tpu_torch import cuda_kernels
+from vega_tpu_torch.block import KEY, VALUE, Block
+from vega_tpu_torch.errors import VegaError
+
+log = logging.getLogger(__name__)
+
+Schema = Tuple[Tuple[str, torch.dtype], ...]
+
+_HINT_STORE_MAX = 4096
+_EXCHANGE_ROUNDS = 6
+
+
+def _fp(f) -> str:
+    """Structural fingerprint of a row function for capacity-hint keys:
+    its code and constants plus the values its closure captured. Two
+    functions that collide only share a capacity guess; the overflow retry
+    keeps that safe."""
+    code = getattr(f, "__code__", None)
+    if code is None:
+        return f"id:{id(f)}"
+    cells = tuple(repr(c.cell_contents) for c in (f.__closure__ or ()))
+    blob = repr((code.co_code, code.co_consts, code.co_names, cells))
+    return hashlib.sha1(blob.encode()).hexdigest()[:16]
+
+
+class DenseRDD:
+    """Base dense node. Subclasses implement _materialize() -> Block and
+    _schema()."""
+
+    def __init__(self, ctx, mesh, parents: Sequence["DenseRDD"] = ()):
+        self.context = ctx
+        self.mesh = mesh
+        self._dense_parents = tuple(parents)
+        self._block: Optional[Block] = None
+
+    # --- device plane -------------------------------------------------------
+    def block(self) -> Block:
+        """This node's Block, materialized once."""
+        if self._block is None:
+            self._block = self._materialize()
+        return self._block
+
+    def _materialize(self) -> Block:
+        raise NotImplementedError
+
+    def _schema(self) -> Schema:
+        """(name, dtype) of the output columns, without materializing."""
+        raise NotImplementedError
+
+    def _fp_extra(self):
+        return ()
+
+    def _lineage_fp(self):
+        """Structural identity of the lineage (node types and parameters,
+        not node identities): a re-run of the same pipeline shares it."""
+        memo = getattr(self, "_fp_memo", None)
+        if memo is None:
+            memo = (type(self).__name__, self._fp_extra()) + tuple(
+                p._lineage_fp() for p in self._dense_parents)
+            self._fp_memo = memo
+        return memo
+
+    def _counts_fp(self):
+        """Leaf sources' counts: the input sizes under the lineage."""
+        if not self._dense_parents:
+            return self.block().counts_np.tobytes()
+        return tuple(p._counts_fp() for p in self._dense_parents)
+
+    def _hint_key(self):
+        return (self._lineage_fp(), self._counts_fp())
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.n_shards
+
+    @property
+    def is_pair(self) -> bool:
+        return KEY in dict(self._schema())
+
+    @property
+    def hash_placed(self) -> bool:
+        """True when every key's rows provably live only on shard
+        hash(key) % n (the output of a hash exchange): a downstream keyed
+        exchange over it is elided."""
+        return False
+
+    @property
+    def key_sorted(self) -> bool:
+        """True when each shard's valid rows are provably key-sorted."""
+        return False
+
+    def _settle_placement(self) -> None:
+        """Make hash_placed/key_sorted answer for the materialized node."""
+
+    # --- transformations ----------------------------------------------------
+    def map(self, f: Callable) -> "DenseRDD":
+        """Row map run on whole column tensors: f gets the row's columns
+        (x, or (k, v) for a pair) as [n_shards, capacity] tensors and
+        returns a value or a (key, value) pair of them."""
+        return _MapRDD(self, f)
+
+    def reduce_by_key(self, func=None, *, op: Optional[str] = None):
+        """Device shuffle: map-side combine, exchange, reduce-side merge.
+        Only the named ops add/min/max/prod are ported."""
+        if not self.is_pair:
+            raise VegaError("reduce_by_key on non-pair DenseRDD")
+        if op is None:
+            raise VegaError(
+                "vega_tpu_torch reduces only with a named op "
+                f"({', '.join(kernels.SEGMENT_OPS)}); traced reduce "
+                f"functions ({func!r}) are not ported yet")
+        if op not in kernels.SEGMENT_OPS:
+            raise VegaError(f"unknown op {op!r}; expected one of "
+                            f"{kernels.SEGMENT_OPS}")
+        return _ReduceByKeyRDD(self, op)
+
+    def join(self, other: "DenseRDD") -> "DenseRDD":
+        """Device sort-merge inner join with full duplicate-key semantics:
+        (k, (lv, rv)) rows."""
+        if not (isinstance(other, DenseRDD) and self.is_pair
+                and other.is_pair):
+            raise VegaError("join needs two dense pair RDDs")
+        if other.mesh != self.mesh:
+            raise VegaError("join sides live on different meshes")
+        for side in (self, other):
+            if [nm for nm, _ in side._schema()] != [KEY, VALUE]:
+                raise VegaError("join needs the canonical (k, v) layout on "
+                                f"both sides, got {side._schema()}")
+        lk, rk = dict(self._schema())[KEY], dict(other._schema())[KEY]
+        if lk != rk:
+            raise VegaError(f"join key dtypes differ ({lk} vs {rk}): equal "
+                            "keys would hash apart")
+        return _JoinRDD(self, other)
+
+    # --- actions ------------------------------------------------------------
+    def count(self) -> int:
+        return self.block().num_rows
+
+    def collect(self) -> list:
+        cols = self.block().to_numpy()
+        if KEY not in cols:
+            return cols[VALUE].tolist()
+        return list(zip(cols[KEY].tolist(), cols[VALUE].tolist()))
+
+    def collect_arrays(self) -> Dict[str, np.ndarray]:
+        """Columnar collect: no per-row Python objects."""
+        return self.block().to_numpy()
+
+
+class _SourceRDD(DenseRDD):
+    def __init__(self, ctx, blk: Block):
+        super().__init__(ctx, blk.mesh)
+        self._block = blk
+
+    def _materialize(self) -> Block:
+        return self._block
+
+    def _schema(self):
+        return tuple((n, c.dtype) for n, c in self._block.cols.items())
+
+    def _fp_extra(self):
+        return (tuple((n, str(c.dtype)) for n, c in self._block.cols.items()),
+                self._block.capacity)
+
+
+def dense_range(ctx, n: int, dtype=torch.int32) -> DenseRDD:
+    """Iota source built on the device (int32 by default)."""
+    return _SourceRDD(ctx, block_lib.block_range(n, ctx.mesh, dtype))
+
+
+def dense_from_numpy(ctx, columns) -> DenseRDD:
+    """columns: one array (values) or two arrays (keys, values)."""
+    if len(columns) == 1:
+        cols = {VALUE: np.asarray(columns[0])}
+    elif len(columns) == 2:
+        cols = {KEY: np.asarray(columns[0]), VALUE: np.asarray(columns[1])}
+    else:
+        raise VegaError("dense_from_numpy takes (values) or (keys, values); "
+                        "named multi-column sources are not ported yet")
+    return _SourceRDD(ctx, block_lib.from_numpy(cols, ctx.mesh))
+
+
+def dense_from_block(ctx, blk: Block) -> DenseRDD:
+    """Source over an existing Block (e.g. one from_reference_arrays
+    carried across from vega_tpu)."""
+    return _SourceRDD(ctx, blk)
+
+
+# ---------------------------------------------------------------------------
+# narrow nodes
+# ---------------------------------------------------------------------------
+
+
+def _cols_to_row(cols, schema):
+    if KEY in dict(schema):
+        return (cols[KEY], cols[VALUE])
+    return cols[VALUE]
+
+
+def _trace_row_fn(f, schema, mesh):
+    """Run f once on tiny column tensors of the schema to learn its output
+    structure; returns (out_schema, cols_fn), where cols_fn maps a column
+    dict to a column dict. A function that does not run on tensors, or
+    returns anything but a tensor or a pair of tensors, raises VegaError
+    (there is no host tier to fall back to)."""
+    probe = {n: torch.zeros((mesh.n_shards, 1), dtype=dt, device=mesh.device)
+             for n, dt in schema}
+    try:
+        out = f(_cols_to_row(probe, schema))
+    except Exception as e:  # noqa: BLE001 — any failure means "not ported"
+        raise VegaError(
+            f"row function {f!r} does not run on column tensors ({e}); "
+            "vega_tpu_torch has no host tier to fall back to") from e
+
+    def as_col(x, what):
+        if not isinstance(x, torch.Tensor):
+            raise VegaError(f"row function {what} must be a tensor computed "
+                            f"from the row, got {type(x).__name__}")
+        if x.shape != (mesh.n_shards, 1):
+            raise VegaError(f"row function {what} must be one scalar per "
+                            f"row, got shape {tuple(x.shape)} for one row "
+                            "per shard")
+        return x
+
+    if isinstance(out, tuple) and len(out) == 2:
+        k, v = as_col(out[0], "key"), as_col(out[1], "value")
+        out_schema = ((KEY, k.dtype), (VALUE, v.dtype))
+
+        def cols_fn(cols):
+            k, v = f(_cols_to_row(cols, schema))
+            return {KEY: k, VALUE: v}
+    else:
+        v = as_col(out, "output")
+        out_schema = ((VALUE, v.dtype),)
+
+        def cols_fn(cols):
+            return {VALUE: f(_cols_to_row(cols, schema))}
+
+    for name, dt in out_schema:
+        if dt not in (torch.int32, torch.float32):
+            raise VegaError(
+                f"row function output {name!r} has dtype {dt}; the block "
+                "dtype contract is 32-bit (int32/float32)")
+    return out_schema, cols_fn
+
+
+class _NarrowRDD(DenseRDD):
+    """A narrow op: shard-local (cols, count) -> (cols, count)."""
+
+    def __init__(self, parent: DenseRDD, out_schema):
+        super().__init__(parent.context, parent.mesh, [parent])
+        self.parent = parent
+        self._out_schema = tuple(out_schema)
+
+    def _schema(self):
+        return self._out_schema
+
+    def _shard_fn(self, cols, count):
+        raise NotImplementedError
+
+    def _materialize(self) -> Block:
+        chain, root = _narrow_chain(self)
+        blk = root.block()
+        cols, count = _apply_chain(chain, dict(blk.cols), blk.counts)
+        return Block(cols=cols, counts=count, capacity=blk.capacity,
+                     mesh=self.mesh, counts_host=blk.counts_host)
+
+
+class _MapRDD(_NarrowRDD):
+    def __init__(self, parent: DenseRDD, f):
+        out_schema, cols_fn = _trace_row_fn(f, parent._schema(), parent.mesh)
+        super().__init__(parent, out_schema)
+        self._cols_fn = cols_fn
+        self._user_fn = f
+
+    def _fp_extra(self):
+        return (_fp(self._user_fn),)
+
+    def _shard_fn(self, cols, count):
+        out = self._cols_fn(cols)
+        return {n: c.contiguous() for n, c in out.items()}, count
+
+
+def _narrow_chain(node):
+    """(chain, root): the longest not-yet-materialized narrow run ending at
+    `node` (possibly empty) and the nearest materialization point above
+    it. Exchanges apply the chain to the root's columns themselves instead
+    of materializing an intermediate block."""
+    chain: List[_NarrowRDD] = []
+    cur = node
+    while isinstance(cur, _NarrowRDD) and cur._block is None:
+        chain.append(cur)
+        cur = cur.parent
+    chain.reverse()
+    return chain, cur
+
+
+def _apply_chain(chain, cols, count):
+    for nd in chain:
+        cols, count = nd._shard_fn(cols, count)
+    return cols, count
+
+
+# ---------------------------------------------------------------------------
+# exchange nodes
+# ---------------------------------------------------------------------------
+
+
+def _cap_round(c: int) -> int:
+    return block_lib._round_capacity(c)
+
+
+def _exchange_capacities(counts: np.ndarray, n_shards: int,
+                         attempt: int) -> Tuple[int, int]:
+    """Heuristic slot/out capacities with growth on retry."""
+    max_count = int(counts.max()) if counts.size else 1
+    total = int(counts.sum())
+    grow = 2 ** attempt
+    slot = min(
+        _cap_round(max_count),
+        _cap_round((math.ceil(max_count / max(n_shards, 1)) * 2 + 64) * grow),
+    )
+    out = min(
+        _cap_round(total),
+        _cap_round((math.ceil(total / max(n_shards, 1)) * 2 + 64) * grow),
+    )
+    return slot, out
+
+
+def _histogram_capacities(hists: List[np.ndarray], attempt: int,
+                          slot_hists: Optional[List[np.ndarray]] = None
+                          ) -> Tuple[int, int]:
+    """Exact slot/out capacities from [n_shards, n_shards] destination
+    histograms (hist[s, t] = rows shard s sends to target t): slot holds the
+    largest cell, out the largest per-target column sum. slot_hists, when
+    given, restricts slot sizing to the sides that send."""
+    grow = 2 ** attempt
+    src = hists if slot_hists is None else slot_hists
+    slot = max((int(h.max()) for h in src), default=1)
+    out = max(int(h.sum(axis=0).max()) for h in hists)
+    return _cap_round(max(slot, 1) * grow), _cap_round(max(out, 1) * grow)
+
+
+def _bucket_cols(cols, n: int) -> torch.Tensor:
+    """Hash-bucket each row by its key through the hash_bucket kernel."""
+    key = cols[KEY]
+    if key.dtype == torch.float32:
+        key = key.view(torch.int32)
+    if key.dtype != torch.int32:
+        raise VegaError(f"keys must be int32 or float32, got {key.dtype}")
+    return cuda_kernels.hash_bucket(key.contiguous(), n)
+
+
+def _elide_out_cap(blk: Block) -> int:
+    """Output capacity of an elided exchange: rows stay put, so the largest
+    shard count bounds it when host-known, else the parent's capacity."""
+    if blk.counts_host is not None and blk.counts_host.size:
+        return block_lib._round_capacity(max(int(blk.counts_host.max()), 1))
+    return blk.capacity
+
+
+class _ExchangeRDD(DenseRDD):
+    """Common exchange loop: run the exchange, check the overflow flags,
+    retry with grown capacities."""
+
+    _last_counts_host: Optional[np.ndarray] = None
+    _last_extra_host: Optional[List[np.ndarray]] = None
+    _last_attempts = 0
+
+    def _hash_histogram(self, cols, count) -> Optional[np.ndarray]:
+        """One counting pass over the keys: hist[s, t] = rows shard s will
+        send to target t under hash bucketing, fetched as one tiny [n, n]
+        array; buys exactly-sized exchange capacities."""
+        n = self.n_shards
+        if n == 1:
+            return None
+        cap = cols[KEY].shape[1]
+        bucket = torch.where(kernels.valid_mask(cap, count),
+                             _bucket_cols(cols, n), n)
+        hist = cuda_kernels.bucket_hist(bucket, n + 1)[:, :n]
+        return hist.cpu().numpy()
+
+    def _run_exchange(self, build, counts, make_hists=None, hint_key=None,
+                      fixed_caps=None):
+        """Run `build(slot, out_cap) -> ((count, extras, cols), overflow)`
+        with capacity sizing: `fixed_caps` (elided passthroughs), else a
+        capacity hint remembered for this lineage and input sizes, else
+        exact histograms from make_hists(), else the heuristic growth on
+        `counts()`. Each round fetches counts, extras and overflow flags in
+        one transfer; an overflow retries, at most 6 rounds."""
+        n = self.n_shards
+        hint_store = self.context._capacity_hints
+        hinted = hint_key is not None and hint_key in hint_store
+        hist_pair = None
+        attempt = 0
+        for round_i in range(_EXCHANGE_ROUNDS):
+            if fixed_caps is not None and round_i == 0:
+                slot, out_cap = fixed_caps
+            elif hinted and round_i == 0:
+                slot, out_cap = hint_store[hint_key]
+            else:
+                if hist_pair is None:
+                    hist_pair = make_hists() if make_hists else ([], None)
+                hs = [h for h in hist_pair[0] if h is not None]
+                if hs:
+                    slot, out_cap = _histogram_capacities(hs, attempt,
+                                                          hist_pair[1])
+                else:
+                    slot, out_cap = _exchange_capacities(counts(), n, attempt)
+                attempt += 1
+            (count, extras, cols), overflow = build(slot, out_cap)
+            self._last_attempts = round_i + 1
+            head = torch.cat([count.to(torch.int64)]
+                             + [e.to(torch.int64) for e in extras]
+                             + [overflow.to(torch.int64)]).cpu().numpy()
+            parts = head.reshape(2 + len(extras), n)
+            if not parts[-1].any():
+                self._last_counts_host = parts[0].astype(np.int32)
+                self._last_extra_host = list(parts[1:-1])
+                if hint_key is not None:
+                    hint_store.pop(hint_key, None)  # refresh recency
+                    hint_store[hint_key] = (slot, out_cap)
+                    while len(hint_store) > _HINT_STORE_MAX:
+                        hint_store.pop(next(iter(hint_store)))
+                return count, extras, cols, out_cap
+            log.info("exchange overflow (slot=%d out=%d), retrying", slot,
+                     out_cap)
+        raise VegaError(
+            "exchange capacity overflow after retries — key skew exceeds "
+            "capacity growth; repartition the data")
+
+
+class _ReduceByKeyRDD(_ExchangeRDD):
+    """reduce_by_key with a named op on the fused_sort plan: one stable
+    (bucket, key) sort feeds the presorted map-side combine and a
+    pregrouped exchange; the reduce side sorts and merges. A hash-placed
+    parent elides the exchange."""
+
+    def __init__(self, parent: DenseRDD, op: str):
+        super().__init__(parent.context, parent.mesh, [parent])
+        self.parent = parent
+        self._op = op
+
+    @property
+    def hash_placed(self) -> bool:
+        return self._block is not None
+
+    @property
+    def key_sorted(self) -> bool:
+        return self._block is not None
+
+    def _settle_placement(self) -> None:
+        self.block()
+
+    def _schema(self):
+        return self.parent._schema()
+
+    def _fp_extra(self):
+        return (self._op,)
+
+    def _materialize(self) -> Block:
+        n = self.n_shards
+        op = self._op
+        self.parent._settle_placement()
+        elide = self.parent.hash_placed and n > 1
+        elide_sorted = elide and self.parent.key_sorted
+        chain, root = (_narrow_chain(self.parent) if n > 1 and not elide
+                       else ([], self.parent))
+        blk = root.block()
+        src_cols, src_count = _apply_chain(chain, dict(blk.cols), blk.counts)
+        names = [nm for nm, _ in self.parent._schema()]
+
+        def build(slot, out_cap):
+            cols, count = dict(src_cols), src_count
+            capacity = cols[KEY].shape[1]
+            if n > 1 and not elide:
+                mask = kernels.valid_mask(capacity, count)
+                bucket = torch.where(mask, _bucket_cols(cols, n), n)
+                cols, bucket = kernels.bucket_key_sort(cols, count, bucket,
+                                                       KEY)
+                # map-side combine over the (bucket, key)-sorted rows
+                cols, count = kernels.segment_reduce_named(
+                    cols, count, KEY, op, presorted=True)
+                # compact kept (bucket, key) order; re-derive the combined
+                # rows' buckets from their keys
+                bucket = _bucket_cols(cols, n)
+                cols, count, overflow = kernels.bucket_exchange(
+                    cols, count, bucket, n, slot, out_cap, pregrouped=True)
+            elif not elide:
+                bucket = torch.zeros_like(cols[KEY], dtype=torch.int32)
+                cols, count, overflow = kernels.bucket_exchange(
+                    cols, count, bucket, n, slot, out_cap)
+            else:
+                cols, count, overflow = kernels.passthrough_exchange(
+                    cols, count, capacity, out_cap)
+            # reduce-side merge
+            cols, count = kernels.segment_reduce_named(
+                cols, count, KEY, op, presorted=elide_sorted)
+            return (count, [], {nm: cols[nm] for nm in names}), overflow
+
+        if elide:
+            count, _, cols, out_cap = self._run_exchange(
+                build, lambda: blk.counts_np,
+                fixed_caps=(0, _elide_out_cap(blk)))
+        else:
+            count, _, cols, out_cap = self._run_exchange(
+                build, lambda: blk.counts_np,
+                make_hists=lambda: (
+                    [self._hash_histogram(src_cols, src_count)], None),
+                hint_key=self._hint_key())
+        return Block(cols=cols, counts=count, capacity=out_cap,
+                     mesh=self.mesh, counts_host=self._last_counts_host)
+
+
+class _JoinRDD(_ExchangeRDD):
+    """Device sort-merge inner join with full duplicate-key semantics. A
+    hash-placed side (a reduce output) skips its exchange; a product
+    beyond the exchange-sized capacity reruns once at its exact size."""
+
+    def __init__(self, left: DenseRDD, right: DenseRDD):
+        super().__init__(left.context, left.mesh, [left, right])
+        self.left = left
+        self.right = right
+
+    @property
+    def hash_placed(self) -> bool:
+        return True  # joined rows stay on their key's shard
+
+    @property
+    def key_sorted(self) -> bool:
+        return True  # output follows the left sort order
+
+    def _schema(self):
+        ls, rs = dict(self.left._schema()), dict(self.right._schema())
+        return ((KEY, ls[KEY]), ("lv", ls[VALUE]), ("rv", rs[VALUE]))
+
+    def _materialize(self) -> Block:
+        n = self.n_shards
+        self.left._settle_placement()
+        self.right._settle_placement()
+        l_elide = self.left.hash_placed and n > 1
+        r_elide = self.right.hash_placed and n > 1
+        l_sorted = l_elide and self.left.key_sorted
+        r_sorted = r_elide and self.right.key_sorted
+
+        def side_input(node, elide):
+            chain, root = (_narrow_chain(node) if n > 1 and not elide
+                           else ([], node))
+            blk = root.block()
+            cols, count = _apply_chain(chain, dict(blk.cols), blk.counts)
+            return blk, cols, count
+
+        lblk, lcols0, lcount0 = side_input(self.left, l_elide)
+        rblk, rcols0, rcount0 = side_input(self.right, r_elide)
+        join_cap_override: List[Optional[int]] = [None]
+        join_cap_used = [0]
+
+        def one_side(cols, count, elide, slot, out_cap):
+            if elide:
+                return kernels.passthrough_exchange(
+                    cols, count, cols[KEY].shape[1], out_cap)
+            bucket = (_bucket_cols(cols, n) if n > 1
+                      else torch.zeros_like(cols[KEY], dtype=torch.int32))
+            return kernels.bucket_exchange(cols, count, bucket, n, slot,
+                                           out_cap)
+
+        def build(slot, out_cap):
+            join_cap = join_cap_override[0] or out_cap
+            join_cap_used[0] = join_cap
+            lc, lcount, lof = one_side(dict(lcols0), lcount0, l_elide, slot,
+                                       out_cap)
+            rc, rcount, rof = one_side(dict(rcols0), rcount0, r_elide, slot,
+                                       out_cap)
+            joined, jcount, jtotal = kernels.merge_join_expand(
+                lc, lcount, rc, rcount, KEY, join_cap,
+                left_sorted=l_sorted, right_sorted=r_sorted)
+            cols = {KEY: joined[KEY], "lv": joined[VALUE],
+                    "rv": joined[f"r_{VALUE}"]}
+            return (jcount, [jtotal], cols), lof | rof
+
+        counts_fn = lambda: np.concatenate([lblk.counts_np, rblk.counts_np])
+
+        def make_hists():
+            hs = [np.diag(lblk.counts_np) if l_elide
+                  else self._hash_histogram(lcols0, lcount0),
+                  np.diag(rblk.counts_np) if r_elide
+                  else self._hash_histogram(rcols0, rcount0)]
+            # elided (diagonal) sides never send: keep them out of slots
+            return hs, [h for h, el in zip(hs, (l_elide, r_elide)) if not el]
+
+        hint = self._hint_key()
+        hint_store = self.context._capacity_hints
+        jc_key = (hint, "join_cap")
+        if jc_key in hint_store:
+            join_cap_override[0] = hint_store[jc_key]
+
+        def product_fits() -> bool:
+            jtot = int(self._last_extra_host[0].max(initial=0))
+            if jtot >= kernels.INT32_MAX:
+                raise VegaError(
+                    "dense join product exceeds 2^31 rows on one shard — "
+                    "cannot materialize; filter or pre-aggregate the heavy "
+                    "keys")
+            if jtot > join_cap_used[0]:
+                hint_store[jc_key] = _cap_round(jtot)
+                return False
+            return True
+
+        count, _, cols, _ = self._run_exchange(
+            build, counts_fn, make_hists=make_hists, hint_key=hint)
+        if not product_fits():
+            # The kernel reported the exact product size: one resized
+            # rerun is guaranteed to fit.
+            join_cap_override[0] = hint_store[jc_key]
+            count, _, cols, _ = self._run_exchange(
+                build, counts_fn, make_hists=make_hists, hint_key=hint)
+            product_fits()
+        return Block(cols=cols, counts=count, capacity=join_cap_used[0],
+                     mesh=self.mesh, counts_host=self._last_counts_host)
+
+    def collect(self) -> list:
+        cols = self.block().to_numpy()
+        return [(k, (lv, rv)) for k, lv, rv in zip(
+            cols[KEY].tolist(), cols["lv"].tolist(), cols["rv"].tolist())]

@@ -1,0 +1,373 @@
+"""Shard-batched device algorithms of the dense tier.
+
+Counterpart of vega_tpu/tpu/kernels.py. The reference runs each function
+per shard inside shard_map; here every column is the batched
+[n_shards, capacity] tensor and `count` is int[n_shards], so one call covers
+all shards. Row placement and per-shard row order equal the reference's.
+
+Everything stays static-shape: raggedness is (count, validity mask), never a
+dynamic dimension, so nothing here waits for the device except where a
+caller fetches counts and overflow flags. Capacity overflow is reported per
+shard as a flag the caller checks before it retries larger.
+
+Only the `xla` sort form of the reference is ported (stable torch sorts);
+the radix and packed forms, traced reduces and wide int64 keys come later.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from vega_tpu_torch import cuda_kernels
+from vega_tpu_torch.errors import VegaError
+
+Cols = Dict[str, torch.Tensor]
+
+INT32_MAX = 2**31 - 1
+
+# ---------------------------------------------------------------------------
+# hashing / masks / compaction
+# ---------------------------------------------------------------------------
+
+hash32 = cuda_kernels.hash32
+
+
+def valid_mask(capacity: int, count: torch.Tensor) -> torch.Tensor:
+    """[n_shards, capacity] bool: row i of shard s is valid iff
+    i < count[s]."""
+    return (torch.arange(capacity, device=count.device)[None, :]
+            < count[:, None])
+
+
+def _shard_offsets(n_shards: int, width: int, device) -> torch.Tensor:
+    return torch.arange(n_shards, device=device, dtype=torch.int64)[:, None] \
+        * width
+
+
+def row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int64 prefix sums along dim 1 of [n_shards, capacity],
+    taken as ONE scan over the flattened tensor minus each row's offset:
+    torch's dim-1 scan runs a row per block, which leaves the card nearly
+    idle with 8 rows; exact, since the sums are integers."""
+    flat = torch.cumsum(x.reshape(-1), 0, dtype=torch.int64).view(x.shape)
+    before = torch.zeros_like(flat[:, :1])
+    before[1:] = flat[:-1, -1:]
+    return flat - before
+
+
+def _scatter_rows(col: torch.Tensor, idx: torch.Tensor,
+                  out_capacity: int) -> torch.Tensor:
+    """dst[s, idx[s, i]] = col[s, i] into a zeroed [n_shards, out_capacity]
+    tensor; rows whose idx is out of [0, out_capacity) are dropped (the
+    reference's .at[idx].set(mode="drop"))."""
+    n_shards = col.shape[0]
+    ok = (idx >= 0) & (idx < out_capacity)
+    flat = torch.where(
+        ok, idx + _shard_offsets(n_shards, out_capacity, col.device),
+        n_shards * out_capacity)
+    dst = col.new_zeros((n_shards * out_capacity + 1,) + col.shape[2:])
+    dst.index_put_((flat.reshape(-1),), col.reshape((-1,) + col.shape[2:]))
+    return dst[:-1].view((n_shards, out_capacity) + col.shape[2:])
+
+
+def compact(cols: Cols, keep: torch.Tensor,
+            out_capacity: int) -> Tuple[Cols, torch.Tensor]:
+    """Move each shard's rows where keep is True to its front, stably;
+    returns (cols [n_shards, out_capacity], new_count int32[n_shards]).
+    Rows past out_capacity are dropped; new_count still counts them, so the
+    caller can see the overflow."""
+    pos = row_cumsum(keep) - 1
+    idx = torch.where(keep, pos, out_capacity)
+    out = {n: _scatter_rows(c, idx, out_capacity) for n, c in cols.items()}
+    return out, keep.sum(dim=1).to(torch.int32)
+
+
+def gather_rows(cols: Cols, idx: torch.Tensor) -> Cols:
+    """out[s, j] = col[s, idx[s, j]] for every column."""
+    return {n: torch.gather(c, 1, idx) for n, c in cols.items()}
+
+
+# ---------------------------------------------------------------------------
+# exchange: the device shuffle on one device
+# ---------------------------------------------------------------------------
+
+
+def passthrough_exchange(cols: Cols, count: torch.Tensor, capacity: int,
+                         out_capacity: int):
+    """Rows stay on their shard: re-capacity the block. Returns
+    (cols, count, overflow[n_shards])."""
+    out, new_count = compact(cols, valid_mask(capacity, count), out_capacity)
+    return out, new_count, new_count > out_capacity
+
+
+def _group_by_bucket(cols: Cols, bucket: torch.Tensor, n_shards: int):
+    """Stable-group each shard's rows by target bucket (values in
+    [0, n_shards], n_shards the ghost bucket of invalid rows); returns
+    (grouped cols, counts_to int32[n_shards, n_shards],
+    starts int[n_shards, n_shards]).
+
+    Up to 64 shards a counting partition: the histogram kernel gives the
+    per-bucket counts and the rank kernel each row's position, one scatter
+    per column places it. More shards take the stable sort by bucket."""
+    counts_all = cuda_kernels.bucket_hist(bucket, n_shards + 1)
+    counts_to = counts_all[:, :n_shards]
+    starts_all = (torch.cumsum(counts_all, dim=1, dtype=torch.int32)
+                  - counts_all)
+    starts = starts_all[:, :n_shards]
+    if n_shards <= 64:
+        pos = cuda_kernels.partition_pos(bucket, n_shards + 1,
+                                         starts_all.contiguous())
+        capacity = bucket.shape[1]
+        grouped = {name: _scatter_rows(col, pos.to(torch.int64), capacity)
+                   for name, col in cols.items()}
+        return grouped, counts_to, starts
+    order = torch.sort(bucket, dim=1, stable=True).indices
+    return gather_rows(cols, order), counts_to, starts
+
+
+def partition_by_bucket(cols: Cols, bucket: torch.Tensor,
+                        n_shards: int) -> Tuple[Cols, torch.Tensor]:
+    """Stable counting partition: each shard's rows become contiguous per
+    bucket (the ghost bucket last), in-bucket order kept. Returns
+    (grouped cols, grouped bucket)."""
+    grouped, _cto, _starts = _group_by_bucket(
+        dict(cols, __bucket=bucket), bucket, n_shards)
+    b = grouped.pop("__bucket")
+    return grouped, b
+
+
+def pregrouped_group(bucket: torch.Tensor, n_shards: int):
+    """(counts_to, starts) for rows already contiguous per bucket: the
+    histogram shortcut instead of _group_by_bucket."""
+    counts_all = cuda_kernels.bucket_hist(bucket, n_shards + 1)
+    counts_to = counts_all[:, :n_shards]
+    starts = (torch.cumsum(counts_all, dim=1, dtype=torch.int32)
+              - counts_all)[:, :n_shards]
+    return counts_to, starts
+
+
+def bucket_exchange(cols: Cols, count: torch.Tensor, bucket: torch.Tensor,
+                    n_shards: int, slot_capacity: int, out_capacity: int,
+                    pregrouped: bool = False):
+    """All-to-all by bucket id on one device. Returns
+    (cols [n_shards, out_capacity], new_count int32[n_shards],
+    overflow bool[n_shards]).
+
+    Send side: group each shard's rows by target (or trust a pregrouped
+    layout) and cut n_shards slots of slot_capacity rows. The wire: where
+    the reference runs lax.all_to_all over ICI, the [src, dst, slot] send
+    buffers are gathered into [dst, src * slot]. Receive side: mask and
+    compact the received rows."""
+    capacity = bucket.shape[1]
+    if n_shards == 1:
+        return passthrough_exchange(cols, count, capacity, out_capacity)
+    mask = valid_mask(capacity, count)
+    bucket = torch.where(mask, bucket, n_shards)  # invalid rows -> ghost
+    if pregrouped:
+        counts_to, starts = pregrouped_group(bucket, n_shards)
+        sorted_cols = cols
+    else:
+        sorted_cols, counts_to, starts = _group_by_bucket(cols, bucket,
+                                                          n_shards)
+    overflow_send = (counts_to > slot_capacity).any(dim=1)
+
+    dev = bucket.device
+    slot_ar = torch.arange(slot_capacity, device=dev)
+    # [src, dst, slot]: row of the sender's grouped block that fills a slot
+    slot_rows = (starts.to(torch.int64)[:, :, None] + slot_ar).clamp_(
+        0, capacity - 1)
+    slot_valid = slot_ar < counts_to[:, :, None]
+    send_counts = torch.clamp(counts_to, max=slot_capacity)
+    recv_counts = send_counts.t()  # [dst, src]
+
+    received: Cols = {}
+    flat_rows = slot_rows.view(n_shards, -1)
+    for name, col in sorted_cols.items():
+        buf = torch.gather(col, 1, flat_rows).view(n_shards, n_shards,
+                                                   slot_capacity)
+        buf = torch.where(slot_valid, buf, torch.zeros((), dtype=col.dtype,
+                                                       device=dev))
+        received[name] = buf.transpose(0, 1).reshape(
+            n_shards, n_shards * slot_capacity)
+    recv_valid = (slot_ar < recv_counts[:, :, None]).reshape(
+        n_shards, n_shards * slot_capacity)
+    new_count = recv_counts.sum(dim=1).to(torch.int32)
+    out_cols, _ = compact(received, recv_valid, out_capacity)
+    return out_cols, new_count, overflow_send | (new_count > out_capacity)
+
+
+# ---------------------------------------------------------------------------
+# sorts (the reference's `xla` form: stable multi-key sorts)
+# ---------------------------------------------------------------------------
+
+
+def _orderable_u32(col: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) whose order equals the column's order (int32:
+    sign bit flipped; float32: sign-magnitude flip)."""
+    if col.dtype == torch.int32:
+        return (col.to(torch.int64) & 0xFFFFFFFF) ^ 0x80000000
+    if col.dtype == torch.float32:
+        u = col.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        neg = (u >> 31) != 0
+        return torch.where(neg, u ^ 0xFFFFFFFF, u ^ 0x80000000)
+    raise VegaError(f"sort keys must be int32 or float32, got {col.dtype}")
+
+
+def _orderable_max(col: torch.Tensor):
+    if col.dtype.is_floating_point:
+        return torch.tensor(float("inf"), dtype=col.dtype, device=col.device)
+    return torch.tensor(torch.iinfo(col.dtype).max, dtype=col.dtype,
+                        device=col.device)
+
+
+def sort_by_column(cols: Cols, count: torch.Tensor, key_name: str) -> Cols:
+    """Stable sort of each shard's valid rows by one column; invalid rows
+    sink to the end."""
+    key = cols[key_name]
+    mask = valid_mask(key.shape[1], count)
+    order = torch.sort(torch.where(mask, key, _orderable_max(key)), dim=1,
+                       stable=True).indices
+    return gather_rows(cols, order)
+
+
+def bucket_key_sort(cols: Cols, count: torch.Tensor, bucket: torch.Tensor,
+                    key_name: str) -> Tuple[Cols, torch.Tensor]:
+    """One stable sort per shard by (bucket major, key minor), as a single
+    stable sort of the packed int64 (bucket << 32) | orderable(key). Rows
+    become bucket-grouped with a key-sorted run per bucket, feeding both the
+    presorted map-side combine and a pregrouped exchange. The caller has
+    ghosted invalid rows (bucket = n_shards) so they sink to the end.
+    Returns (cols, bucket), both permuted."""
+    del count  # ghosted buckets already order the invalid rows last
+    packed = (bucket.to(torch.int64) << 32) | _orderable_u32(cols[key_name])
+    order = torch.sort(packed, dim=1, stable=True).indices
+    return gather_rows(cols, order), torch.gather(bucket, 1, order)
+
+
+# ---------------------------------------------------------------------------
+# sorted-run segment operations (the reduce side)
+# ---------------------------------------------------------------------------
+
+SEGMENT_OPS = ("add", "min", "max", "prod")
+
+
+def segment_reduce_named(cols: Cols, count: torch.Tensor, key_name: str,
+                         op: str, presorted: bool = False
+                         ) -> Tuple[Cols, torch.Tensor]:
+    """Per-shard reduce of every value column over runs of equal keys with
+    a named monoid (add/min/max/prod). Returns compacted (cols, count):
+    segment i of shard s in row i, key-sorted, zeros past the count."""
+    if op not in SEGMENT_OPS:
+        raise VegaError(f"unknown segment op {op!r}; expected one of "
+                        f"{SEGMENT_OPS}")
+    if not presorted:
+        cols = sort_by_column(cols, count, key_name)
+    keys = cols[key_name]
+    n_shards, capacity = keys.shape
+    mask = valid_mask(capacity, count)
+    first = torch.ones_like(mask)
+    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    first &= mask
+    seg_ids = row_cumsum(first) - 1
+    n_segments = first.sum(dim=1).to(torch.int32)
+    offsets = _shard_offsets(n_shards, capacity, keys.device)
+    dump = n_shards * capacity  # dropped rows land in one extra slot
+    flat_seg = torch.where(mask, seg_ids + offsets, dump).reshape(-1)
+    seg_valid = valid_mask(capacity, n_segments)
+    out: Cols = {}
+    for name, col in cols.items():
+        if name == key_name:
+            continue
+        flat_col = col.reshape(-1)
+        if op == "add":
+            acc = col.new_zeros(dump + 1).index_add_(0, flat_seg, flat_col)
+        else:
+            reduce = {"min": "amin", "max": "amax", "prod": "prod"}[op]
+            acc = col.new_zeros(dump + 1).scatter_reduce_(
+                0, flat_seg, flat_col, reduce, include_self=False)
+        vals = acc[:-1].view(n_shards, capacity)
+        out[name] = torch.where(seg_valid, vals, torch.zeros(
+            (), dtype=col.dtype, device=col.device))
+    # key of segment i = key at the i-th segment start
+    flat_first = torch.where(first, seg_ids + offsets, dump).reshape(-1)
+    key_out = keys.new_zeros(dump + 1)
+    key_out.index_put_((flat_first,), keys.reshape(-1))
+    out[key_name] = key_out[:-1].view(n_shards, capacity)
+    return out, n_segments
+
+
+# ---------------------------------------------------------------------------
+# joins
+# ---------------------------------------------------------------------------
+
+
+def ragged_expand(counts_per_row: torch.Tensor, out_capacity: int):
+    """Slot ownership for ragged expansion, per shard: row i emits
+    counts_per_row[s, i] contiguous output slots. Returns (owner, offset,
+    total): output slot j of shard s belongs to row owner[s, j] at position
+    offset[s, j] of that row's run; total[s] is the exact output size,
+    saturated to INT32_MAX (the reference's int32 wrap guard), so the
+    caller fails loudly instead of truncating."""
+    n_shards, n_rows = counts_per_row.shape
+    m = counts_per_row.to(torch.int64)
+    starts = row_cumsum(m) - m
+    total = torch.clamp(m.sum(dim=1), max=INT32_MAX)
+    j = torch.arange(out_capacity, device=m.device).expand(
+        n_shards, out_capacity).contiguous()
+    owner = (torch.searchsorted(starts, j, right=True) - 1).clamp_(
+        0, max(n_rows - 1, 0))
+    offset = j - torch.gather(starts, 1, owner)
+    return owner, offset, total
+
+
+def merge_join_expand(left: Cols, left_count: torch.Tensor, right: Cols,
+                      right_count: torch.Tensor, key_name: str,
+                      out_capacity: int, outer: bool = False,
+                      fill_value=0, left_sorted: bool = False,
+                      right_sorted: bool = False):
+    """Per-shard sort-merge join with duplicate keys on both sides (the
+    full dup x dup product per key; left outer keeps unmatched left rows
+    with fill_value). Output rows follow the left sort order in a fixed
+    out_capacity. Returns (cols, count, total): count = min(total,
+    out_capacity) and total the exact product size, which the caller uses
+    to size one exact retry. Right value columns come out as "r_<name>"."""
+    if not left_sorted:
+        left = sort_by_column(left, left_count, key_name)
+    if not right_sorted:
+        right = sort_by_column(right, right_count, key_name)
+    lkeys = left[key_name]
+    rkeys = right[key_name]
+    lcap, rcap = lkeys.shape[1], rkeys.shape[1]
+    rmask = valid_mask(rcap, right_count)
+    rkeys = torch.where(rmask, rkeys, _orderable_max(rkeys)).contiguous()
+    lmask = valid_mask(lcap, left_count)
+    rc = right_count.to(torch.int64)[:, None]
+    # Per-left-row match range in the sorted right rows; min() clips the
+    # sentinel padding out when a valid key equals the sentinel.
+    lo = torch.minimum(torch.searchsorted(rkeys, lkeys.contiguous()), rc)
+    hi = torch.minimum(torch.searchsorted(rkeys, lkeys.contiguous(),
+                                          right=True), rc)
+    n_match = hi - lo
+    if outer:
+        m = torch.where(lmask, torch.clamp(n_match, min=1), 0)
+    else:
+        m = torch.where(lmask, n_match, 0)
+    li, off, total = ragged_expand(m, out_capacity)
+    ri = (torch.gather(lo, 1, li) + off).clamp_(0, rcap - 1)
+    row_matched = torch.gather(n_match > 0, 1, li)
+    out: Cols = {key_name: torch.gather(lkeys, 1, li)}
+    for name, col in left.items():
+        if name != key_name:
+            out[name] = torch.gather(col, 1, li)
+    for name, col in right.items():
+        if name == key_name:
+            continue
+        taken = torch.gather(col, 1, ri)
+        if outer:
+            taken = torch.where(row_matched, taken, torch.tensor(
+                fill_value, dtype=col.dtype, device=col.device))
+        out[f"r_{name}"] = taken
+    count = torch.clamp(total, max=out_capacity).to(torch.int32)
+    return out, count, total
