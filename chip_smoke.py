@@ -6,17 +6,24 @@ Phases, in order; any failure exits non-zero before the last line:
   1. card: print the card's name and power limit (nvidia-smi) and build
      the CUDA kernels from vega_tpu_torch/csrc at first use;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, at the main path's shapes and at edge shapes (ragged lengths,
-     9/65/256 bins, a skewed bucket column): exact equality, since all
-     three are integer functions; then each one's time, bound, plain
-     version's time and library yardstick;
+     card, exactly (all three are integer functions): at the main path's
+     shapes; at edge shapes (a ghost-only shard inside a batch, cap not a
+     multiple of 4, an unaligned base, one bin, every row in one bin,
+     out-of-range bins and digits, arbitrary starts) at 1/9/65/256 bins; at
+     the radix shape [8, 3145728] x 256 bins, uniform and 90% skewed (768
+     look-back tiles per shard); and partition_pos 50 times on one input,
+     every result equal. Then each one's time (20 launches per event pair
+     replayed from a CUDA graph, L2 flushed before each of 5 runs: median,
+     min, max), bound, plain version's time and yardstick call, at the
+     main path's shapes and at the radix shape;
   3. main path: Context(n_shards=8) on the card runs the bench pipeline
      dense_range(N).map(lambda x: (x % K, x * 0.5)).reduce_by_key(op="add")
      .join(K-row table).count() at N = 20,000,000 rows and K = 1,000,000
      keys; the result must equal a plain numpy reference, and every
      kernel's launch count must have grown during that run. Then the warm
-     rows/s, median of 3 runs.
-Prints the kernel table as one JSON line, the card line, and last
+     rows/s, median of 3 runs, and the launches of one warm run.
+Prints the radix-shape rows, the main path's rows/s, the kernel table as
+one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
@@ -35,6 +42,10 @@ N_KEYS = 1_000_000
 N_SHARDS = 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit peak
+L2_FLUSH_BYTES = 64 << 20      # written before each timed run (L2: 50 MB)
+LAUNCHES_PER_RUN = 20          # back-to-back calls between two events
+RUNS = 5                       # timed runs per kernel: median, min, max
+REPEATS = 50                   # partition_pos launches on one input
 SOURCE = "vega_tpu_torch/csrc/shuffle_kernels.cu"
 REPLACES = {
     "hash_bucket": "vega_tpu/tpu/pallas_kernels.py:42",
@@ -63,21 +74,50 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps=15, warm=3):
-    """Median time of fn on the card over reps, from CUDA events."""
-    for _ in range(warm):
+_FLUSH = []  # the 64 MB tensor written before each timed run
+
+
+def time_ms(torch, fns, graph=True, launches=LAUNCHES_PER_RUN, runs=RUNS):
+    """One call's time on the card: `launches` back-to-back calls (cycling
+    over fns, e.g. over copies of an input that together exceed L2) between
+    two CUDA events, divided by `launches`; the median, min and max over
+    `runs` such runs. Before each run a 64 MB tensor is written, which
+    flushes the card's 50 MB L2. With graph, the calls are captured once in
+    a CUDA graph and replayed, so the host's per-call cost (tens of
+    microseconds through ctypes) does not pace the card; plain versions and
+    library calls, which may synchronise, are called eagerly."""
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                                  device="cuda"))
+    for fn in fns:  # warm-up, outside any capture
         fn()
     torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(launches):
+                fns[i % len(fns)]()
+        torch.cuda.synchronize()
+
+        def run():
+            g.replay()
+    else:
+        def run():
+            for i in range(launches):
+                fns[i % len(fns)]()
     times = []
-    for _ in range(reps):
+    for r in range(runs):
+        _FLUSH[0].fill_(r)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        run()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / launches)
+    return dict(ms=statistics.median(times), ms_min=min(times),
+                ms_max=max(times))
 
 
 def bound(n_bytes, n_ops):
@@ -96,13 +136,62 @@ def check_equal(torch, name, got, exp):
     log(f"{name}: equal to the plain version, shape {tuple(got.shape)}")
 
 
-def phase_kernels(torch, ck, main_cap, join_cap):
-    """Every kernel against its plain version on the card; returns the
-    kernel table rows without launches."""
-    from vega_tpu_torch import kernels
+def starts_of(torch, ck, b, nb):
+    """Exclusive prefix of the per-shard bin counts: a permutation's
+    starts."""
+    h = ck.digit_hist_plain(b, nb)
+    return (torch.cumsum(h, 1, dtype=torch.int32) - h).contiguous()
 
+
+def hist_bytes(rows, n, nb):
+    """digit_hist: each digit read once, the [n, nb] counts written once."""
+    return 4 * rows + 4 * n * nb
+
+
+def pos_bytes(ck, n, cap, nb):
+    """partition_pos: each bucket read and each position written once, the
+    starts read once, and each look-back status word (and the ticket)
+    zeroed, written and read once."""
+    status = n * -(-cap // ck.TILE) * nb + 1
+    return 8 * n * cap + 4 * n * nb + 12 * status
+
+
+def edge_inputs(torch, gen, dev, nb):
+    """(label, [N_SHARDS, cap] int32) edge cases for a kernel at nb bins."""
+    n = N_SHARDS
+    i32 = torch.int32
+
+    def rand_bins(cap):
+        return torch.randint(0, nb, (n, cap), generator=gen, device=dev,
+                             dtype=i32)
+
+    cases = []
+    b = rand_bins(3 * 4096 + 5)
+    b[3] = nb - 1  # a shard of length 0: every row a ghost
+    cases.append(("empty shard in batch", b))
+    cases.append(("cap % 4 == 3", rand_bins(2 * 4097 + 3)))
+    flat = torch.randint(0, nb, (n * 8192 + 1,), generator=gen, device=dev,
+                         dtype=i32)
+    unaligned = flat[1:].view(n, 8192)  # contiguous, 4 B past a boundary
+    if unaligned.data_ptr() % 16 == 0 or not unaligned.is_contiguous():
+        fail("the unaligned-base case is not unaligned")
+    cases.append(("unaligned base", unaligned))
+    cases.append(("every row in one bin",
+                  torch.full((n, 20000), nb // 2, device=dev, dtype=i32)))
+    b = rand_bins(50001)
+    bad = torch.rand((n, 50001), generator=gen, device=dev) < 0.1
+    outside = torch.tensor([-1, nb, -2**31], device=dev, dtype=i32)
+    pick = torch.randint(0, 3, (n, 50001), generator=gen, device=dev)
+    cases.append(("out-of-range bins", torch.where(bad, outside[pick], b)))
+    return cases
+
+
+def check_kernels(torch, ck, inp):
+    """Every kernel against its plain version on the card: the main path's
+    shapes, edge shapes and the radix shape; exact, as all three are
+    integer functions."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
     n = N_SHARDS
     i32 = torch.int32
 
@@ -110,15 +199,8 @@ def phase_kernels(torch, ck, main_cap, join_cap):
         return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
                              device=dev, dtype=torch.int64).to(i32)
 
-    # main path shapes: the map's keys over [8, cap] for the reduce, the
-    # K-row table's keys for the join
-    per = math.ceil(N_ROWS / n)
-    x = (torch.arange(n, device=dev)[:, None] * per
-         + torch.arange(main_cap, device=dev)[None, :])
-    main_keys = (x % N_KEYS).to(i32).contiguous()
-    edge = torch.tensor([0, -1, -2**31, 2**31 - 1], dtype=i32, device=dev)
-
     # hash_bucket: main keys, random keys with edge values, ragged lengths
+    edge = torch.tensor([0, -1, -2**31, 2**31 - 1], dtype=i32, device=dev)
     for nb in (n, 9, 65, 1):
         keys = rand_keys((n, 1_000_003))
         keys[0, :4] = edge
@@ -126,101 +208,212 @@ def phase_kernels(torch, ck, main_cap, join_cap):
             torch, f"hash_bucket n={nb} cap=1000003",
             ck.hash_bucket(keys, nb), ck.hash_bucket_plain(keys, nb))
     check_equal(
-        torch, "hash_bucket main", ck.hash_bucket(main_keys, n),
-        ck.hash_bucket_plain(main_keys, n))
-    sliced = rand_keys((3, 4097))[:, 1:].contiguous()  # unaligned base
-    check_equal(torch, "hash_bucket cap=4096 offset rows",
+        torch, "hash_bucket main", ck.hash_bucket(inp["main_keys"], n),
+        ck.hash_bucket_plain(inp["main_keys"], n))
+    flat = rand_keys((3 * 4096 + 1,))
+    sliced = flat[1:].view(3, 4096)  # unaligned base: the scalar path
+    check_equal(torch, "hash_bucket cap=4096 unaligned base",
                 ck.hash_bucket(sliced, n), ck.hash_bucket_plain(sliced, n))
 
-    # digit_hist: the main path's ghosted buckets (n + 1 bins), then
-    # 9/65/256 bins, ragged and skewed
+    # the main path's shapes
+    check_equal(
+        torch, "digit_hist main",
+        ck.digit_hist(inp["main_bucket"], n + 1),
+        ck.digit_hist_plain(inp["main_bucket"], n + 1))
+    check_equal(
+        torch, "partition_pos main",
+        ck.partition_pos(inp["join_bucket"], n + 1, inp["join_starts"]),
+        ck.partition_pos_plain(inp["join_bucket"], n + 1, inp["join_starts"]))
+
+    # edge shapes at 1/9/65/256 bins
+    for nb in (1, 9, 65, 256):
+        for label, b in edge_inputs(torch, gen, dev, nb):
+            check_equal(torch, f"digit_hist {label} bins={nb}",
+                        ck.digit_hist(b, nb), ck.digit_hist_plain(b, nb))
+            st = starts_of(torch, ck, b, nb)
+            check_equal(torch, f"partition_pos {label} bins={nb}",
+                        ck.partition_pos(b, nb, st),
+                        ck.partition_pos_plain(b, nb, st))
+        b = torch.randint(0, nb, (n, 1_000_003), generator=gen, device=dev,
+                          dtype=i32)
+        st = torch.randint(-1000, 1000, (n, nb), generator=gen, device=dev,
+                           dtype=i32)
+        check_equal(torch, f"partition_pos arbitrary starts bins={nb}",
+                    ck.partition_pos(b, nb, st),
+                    ck.partition_pos_plain(b, nb, st))
+        check_equal(torch, f"digit_hist cap=1000003 bins={nb}",
+                    ck.digit_hist(b, nb), ck.digit_hist_plain(b, nb))
+
+    # the radix shape: [8, main_cap] at 256 bins, uniform and skewed, and
+    # partition_pos at 9 bins; many tiles per shard
+    tiles = -(-inp["main_cap"] // ck.TILE)
+    if tiles < 700:
+        fail(f"the radix shape has only {tiles} look-back tiles per shard")
+    for label in ("uniform", "skewed"):
+        d = inp[f"radix_{label}"]
+        check_equal(torch, f"digit_hist radix {label} bins=256",
+                    ck.digit_hist(d, 256), ck.digit_hist_plain(d, 256))
+        check_equal(torch, f"partition_pos radix {label} bins=256 "
+                    f"({tiles} tiles per shard)",
+                    ck.partition_pos(d, 256, inp[f"radix_{label}_starts"]),
+                    ck.partition_pos_plain(d, 256,
+                                           inp[f"radix_{label}_starts"]))
+    check_equal(torch, "partition_pos main-cap bins=9",
+                ck.partition_pos(inp["main_bucket"], n + 1,
+                                 inp["main_starts"]),
+                ck.partition_pos_plain(inp["main_bucket"], n + 1,
+                                       inp["main_starts"]))
+
+    # repeats: an ordering race in the look-back would show as a result
+    # that differs from run to run
+    for label, b, nb, st in (
+            ("radix skewed", inp["radix_skewed"], 256,
+             inp["radix_skewed_starts"]),
+            ("main", inp["join_bucket"], n + 1, inp["join_starts"])):
+        exp = ck.partition_pos_plain(b, nb, st)
+        for rep in range(REPEATS):
+            if not torch.equal(ck.partition_pos(b, nb, st), exp):
+                fail(f"partition_pos {label}: launch {rep + 1} of "
+                     f"{REPEATS} differs from the plain version")
+        log(f"partition_pos {label}: {REPEATS} launches all equal")
+
+
+def make_inputs(torch, ck, main_cap, join_cap):
+    """The kernels' inputs at the main path's shapes and the radix shape."""
+    from vega_tpu_torch import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = N_SHARDS
+    i32 = torch.int32
+    inp = dict(main_cap=main_cap, join_cap=join_cap)
+    # the map's keys over [8, cap] for the reduce, bucketed and ghosted
+    per = math.ceil(N_ROWS / n)
+    x = (torch.arange(n, device=dev)[:, None] * per
+         + torch.arange(main_cap, device=dev)[None, :])
+    inp["main_keys"] = (x % N_KEYS).to(i32).contiguous()
     counts = torch.full((n,), per, device=dev, dtype=i32)
     counts[-1] = N_ROWS - per * (n - 1)
     mask = kernels.valid_mask(main_cap, counts)
-    main_bucket = torch.where(mask, ck.hash_bucket(main_keys, n), n)
-    check_equal(
-        torch, "digit_hist main", ck.digit_hist(main_bucket, n + 1),
-        ck.digit_hist_plain(main_bucket, n + 1))
-    for nb in (9, 65, 256):
-        for cap in (1_000_003, 4096):
-            d = torch.randint(0, nb, (n, cap), generator=gen, device=dev,
-                              dtype=i32)
-            skew = torch.rand((n, cap), generator=gen, device=dev) < 0.9
-            d_skew = torch.where(skew, nb // 3, d).to(i32)
-            for label, dd in (("uniform", d), ("skewed", d_skew)):
-                check_equal(torch, f"digit_hist {label} bins={nb} cap={cap}",
-                            ck.digit_hist(dd, nb), ck.digit_hist_plain(dd, nb))
-
-    # partition_pos: the join side's [8, 131072] ghosted buckets, then
-    # 9/65/256 bins with many equal buckets across tiles, ragged lengths
+    inp["main_bucket"] = torch.where(
+        mask, ck.hash_bucket_plain(inp["main_keys"], n), n).to(i32)
+    inp["main_starts"] = starts_of(torch, ck, inp["main_bucket"], n + 1)
+    # the K-row table's keys for the join side's counting partition
     tper = math.ceil(N_KEYS / n)
     tkeys = (torch.arange(n, device=dev)[:, None] * tper
              + torch.arange(join_cap, device=dev)[None, :]).to(i32)
     tcounts = torch.full((n,), tper, device=dev, dtype=i32)
     tcounts[-1] = N_KEYS - tper * (n - 1)
     tmask = kernels.valid_mask(join_cap, tcounts)
-    join_bucket = torch.where(tmask, ck.hash_bucket(tkeys, n), n).to(i32)
+    inp["join_bucket"] = torch.where(
+        tmask, ck.hash_bucket_plain(tkeys, n), n).to(i32).contiguous()
+    inp["join_starts"] = starts_of(torch, ck, inp["join_bucket"], n + 1)
+    # one radix pass's 8-bit digits over the main capacity: uniform, and
+    # 90% of rows in one bin
+    d = torch.randint(0, 256, (n, main_cap), generator=gen, device=dev,
+                      dtype=i32)
+    skew = torch.rand((n, main_cap), generator=gen, device=dev) < 0.9
+    inp["radix_uniform"] = d
+    inp["radix_skewed"] = torch.where(skew, 85, d).to(i32)
+    for label in ("uniform", "skewed"):
+        inp[f"radix_{label}_starts"] = starts_of(
+            torch, ck, inp[f"radix_{label}"], 256)
+    return inp
 
-    def starts_of(b, nb):
-        h = ck.digit_hist_plain(b, nb)
-        return (torch.cumsum(h, 1, dtype=i32) - h).contiguous()
 
-    join_starts = starts_of(join_bucket, n + 1)
-    check_equal(
-        torch, "partition_pos main",
-        ck.partition_pos(join_bucket, n + 1, join_starts),
-        ck.partition_pos_plain(join_bucket, n + 1, join_starts))
-    for nb in (9, 65, 256):
-        for cap in (1_000_003, 131072, 1000):
-            b = torch.randint(0, nb, (n, cap), generator=gen, device=dev,
-                              dtype=i32)
-            skew = torch.rand((n, cap), generator=gen, device=dev) < 0.8
-            b = torch.where(skew, nb - 1, b).to(i32).contiguous()
-            st = starts_of(b, nb)
-            check_equal(torch, f"partition_pos skewed bins={nb} cap={cap}",
-                        ck.partition_pos(b, nb, st),
-                        ck.partition_pos_plain(b, nb, st))
+def flat_bins(torch, b, nb):
+    """bincount's input: shard s's bin v as s * nb + v."""
+    return (b.to(torch.int64) + torch.arange(
+        b.shape[0], device=b.device)[:, None] * nb).reshape(-1)
 
-    # times at the main path's shapes (every check above was exact, so
-    # each max_abs_err is 0)
-    rows_main = n * main_cap
-    rows_join = n * join_cap
-    flat = (main_bucket.to(torch.int64)
-            + torch.arange(n, device=dev)[:, None] * (n + 1)).reshape(-1)
-    table = []
-    t_hash = bound(8 * rows_main, 10 * rows_main)
-    table.append(dict(
-        name="hash_bucket", shape=[n, main_cap],
-        ms=time_ms(torch, lambda: ck.hash_bucket(main_keys, n)),
-        plain_ms=time_ms(torch, lambda: ck.hash_bucket_plain(main_keys, n)),
-        bound_ms=t_hash[0], bound_by=t_hash[1], library_ms=None,
-        max_abs_err=0.0))
-    t_hist = bound(4 * rows_main + 4 * n * (n + 1), 2 * rows_main)
-    table.append(dict(
-        name="digit_hist", shape=[n, main_cap], n_bins=n + 1,
-        ms=time_ms(torch, lambda: ck.digit_hist(main_bucket, n + 1)),
-        plain_ms=time_ms(torch,
-                         lambda: ck.digit_hist_plain(main_bucket, n + 1)),
-        bound_ms=t_hist[0], bound_by=t_hist[1],
-        library_ms=time_ms(torch, lambda: torch.bincount(
-            flat, minlength=n * (n + 1))),
-        max_abs_err=0.0))
-    t_pos = bound(8 * rows_join + 4 * n * (n + 1), 4 * rows_join)
-    table.append(dict(
-        name="partition_pos", shape=[n, join_cap], n_bins=n + 1,
-        ms=time_ms(torch, lambda: ck.partition_pos(
-            join_bucket, n + 1, join_starts)),
-        plain_ms=time_ms(torch, lambda: ck.partition_pos_plain(
-            join_bucket, n + 1, join_starts)),
-        bound_ms=t_pos[0], bound_by=t_pos[1], library_ms=None,
-        max_abs_err=0.0,
-        stable_argsort_ms=time_ms(torch, lambda: torch.sort(
-            join_bucket, dim=1, stable=True))))
-    for row in table:
-        log(f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} "
-            f"ms by {row['bound_by']}, plain {row['plain_ms']:.4f} ms, "
-            f"library {row['library_ms']})")
-    return table
+
+def argsort_pos(torch, b, ar):
+    """vega_tpu's _xla_argsort_pos formulation: a stable sort and one
+    scatter_ (two PyTorch calls) give each row's place in bin order."""
+    order = torch.sort(b, dim=1, stable=True).indices
+    out = torch.empty_like(order)
+    out.scatter_(1, order, ar)
+    return out
+
+
+def time_kernels(torch, ck, inp):
+    """Times, bounds, plain versions and yardsticks: the main path's
+    shapes (the kernel line's rows) and the radix shape."""
+    n = N_SHARDS
+    main_cap, join_cap = inp["main_cap"], inp["join_cap"]
+    rows_main, rows_join = n * main_cap, n * join_cap
+    table, radix = [], []
+
+    def row(name, shape, n_bins, t_kernel, t_plain, t_bound, library,
+            **extra):
+        return dict(name=name, shape=shape, n_bins=n_bins,
+                    ms=t_kernel["ms"], ms_min=t_kernel["ms_min"],
+                    ms_max=t_kernel["ms_max"], plain_ms=t_plain["ms"],
+                    bound_ms=t_bound[0], bound_by=t_bound[1],
+                    bound_share=t_bound[0] / t_kernel["ms"],
+                    library_ms=library, max_abs_err=0.0, **extra)
+
+    keys = inp["main_keys"]
+    table.append(row(
+        "hash_bucket", [n, main_cap], None,
+        time_ms(torch, lambda: ck.hash_bucket(keys, n)),
+        time_ms(torch, lambda: ck.hash_bucket_plain(keys, n), graph=False),
+        bound(8 * rows_main, 10 * rows_main), None,
+        l2="input 100 MB, larger than L2"))
+
+    def hist_row(label, b, nb, into):
+        flat = flat_bins(torch, b, nb)
+        lib = time_ms(torch, lambda: torch.bincount(flat, minlength=n * nb),
+                      graph=False)
+        into.append(row(
+            "digit_hist", list(b.shape), nb,
+            time_ms(torch, lambda: ck.digit_hist(b, nb)),
+            time_ms(torch, lambda: ck.digit_hist_plain(b, nb), graph=False),
+            bound(hist_bytes(b.numel(), n, nb), 2 * b.numel()),
+            lib["ms"], input=label, library_call="torch.bincount",
+            l2="input 100 MB, larger than L2"))
+
+    def pos_row(label, b, nb, st, into, l2, copies=1):
+        cap = b.shape[1]
+        ar = torch.arange(cap, device=b.device).expand(n, cap).contiguous()
+        yard = time_ms(torch, lambda: argsort_pos(torch, b, ar), graph=False)
+        bs = [b] + [b.clone() for _ in range(copies - 1)]
+        into.append(row(
+            "partition_pos", list(b.shape), nb,
+            time_ms(torch, [lambda bb=bb: ck.partition_pos(bb, nb, st)
+                            for bb in bs]),
+            time_ms(torch, lambda: ck.partition_pos_plain(b, nb, st),
+                    graph=False),
+            bound(pos_bytes(ck, n, cap, nb), 4 * b.numel()), None,
+            input=label, l2=l2, launches_per_call=1,
+            argsort_scatter_ms=yard["ms"],
+            argsort_scatter="torch.sort(stable) + scatter_: two calls"))
+
+    hist_row("main path: ghosted buckets", inp["main_bucket"], n + 1, table)
+    pos_row("main path: join side's ghosted buckets", inp["join_bucket"],
+            n + 1, inp["join_starts"], table,
+            "warm: the 4 MB input stays in L2 across the run, as on the "
+            "main path, where it was just written")
+    # the join shape again with 16 copies of its input (64 MB): cold
+    pos_row("main path: join side, cold", inp["join_bucket"], n + 1,
+            inp["join_starts"], radix,
+            "cold: 16 copies of the input, 64 MB, cycled", copies=16)
+    pos_row("main-cap ghosted buckets", inp["main_bucket"], n + 1,
+            inp["main_starts"], radix, "input 100 MB, larger than L2")
+    for label in ("uniform", "skewed"):
+        d = inp[f"radix_{label}"]
+        hist_row(f"radix {label}", d, 256, radix)
+        pos_row(f"radix {label}", d, 256, inp[f"radix_{label}_starts"],
+                radix, "input 100 MB, larger than L2")
+    for r in table + radix:
+        log(f"{r['name']} {r['shape']} bins={r['n_bins']} "
+            f"{r.get('input', '')}: {r['ms']:.4f} ms "
+            f"({r['ms_min']:.4f}-{r['ms_max']:.4f}), bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({100 * r['bound_share']:.0f}%), plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']}, "
+            f"argsort+scatter {r.get('argsort_scatter_ms')}")
+    return table, radix
 
 
 def pipeline(ctx, np):
@@ -266,21 +459,25 @@ def phase_main_path(torch, np, ck, vt):
     log(f"main path matches numpy: max rel err of sums {rel.max():.3g}")
 
     warm = []
-    for _ in range(3):
+    ck.reset_launches()
+    for i in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         c = pipeline(ctx, np).count()
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
+        if i == 0:
+            warm_launches = dict(ck.LAUNCHES)
         if c != N_KEYS:
             fail(f"warm run count() = {c}")
     ctx.stop()
     med = statistics.median(warm)
     log(f"main path warm: {warm} s, median {med:.4f} s, "
-        f"{N_ROWS / med:,.0f} rows/s")
+        f"{N_ROWS / med:,.0f} rows/s; launches of one warm run "
+        f"{warm_launches}")
     return dict(count=count, cold_s=cold_s, warm_s=warm, median_s=med,
                 rows_per_s=N_ROWS / med, max_rel_err=float(rel.max()),
-                launches=launches)
+                launches=launches, warm_launches=warm_launches)
 
 
 def main():
@@ -309,7 +506,11 @@ def main():
     # 2. kernels against their plain versions
     main_cap = block_lib._round_capacity(math.ceil(N_ROWS / N_SHARDS))
     join_cap = block_lib._round_capacity(math.ceil(N_KEYS / N_SHARDS))
-    table = phase_kernels(torch, ck, main_cap, join_cap)
+    inp = make_inputs(torch, ck, main_cap, join_cap)
+    check_kernels(torch, ck, inp)
+    table, radix = time_kernels(torch, ck, inp)
+    del inp
+    torch.cuda.empty_cache()
 
     # 3. main path
     main_path = phase_main_path(torch, np, ck, vt)
@@ -326,7 +527,11 @@ def main():
     details = dict(card=card, kind=kind, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,
                    n_rows=N_ROWS, n_keys=N_KEYS, n_shards=N_SHARDS,
-                   kernels=table, main_path=main_path)
+                   timing=dict(launches_per_run=LAUNCHES_PER_RUN, runs=RUNS,
+                               l2_flush_bytes=L2_FLUSH_BYTES,
+                               kernels="CUDA graph replay",
+                               plain_and_library="eager calls"),
+                   kernels=table, radix_and_cold=radix, main_path=main_path)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -334,6 +539,12 @@ def main():
     print(f"main path: {main_path['rows_per_s']:.1f} rows/s warm median of 3 "
           f"({N_ROWS} rows, {N_KEYS} keys, {N_SHARDS} shards) on {card}",
           flush=True)
+    print("radix and cold rows: " + json.dumps([
+        {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
+                               "ms_min", "ms_max", "bound_ms", "bound_share",
+                               "plain_ms", "library_ms",
+                               "argsort_scatter_ms")}
+        for r in radix]), flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -86,8 +86,11 @@ def test_digit_hist_matches_pallas(n_bins, cap, skew):
 
 
 def test_digit_hist_skips_out_of_range_digits():
-    digits = np.array([[0, 1, 1, 5, -1, 2]], dtype=np.int32)
+    digits = np.array([[0, 1, 1, 5, -1, 2, I32.min, 3, I32.max]],
+                      dtype=np.int32)  # 3 == n_bins
     got = cuda_kernels.digit_hist_plain(_t(digits), 3).numpy()
+    np.testing.assert_array_equal(got, [[1, 2, 1]])
+    got = cuda_kernels.digit_hist(_t(digits), 3).numpy()
     np.testing.assert_array_equal(got, [[1, 2, 1]])
 
 
@@ -124,6 +127,55 @@ def test_partition_pos_arbitrary_starts():
     starts = np.array([[100, 50, 7]], dtype=np.int32)
     got = cuda_kernels.partition_pos(_t(bucket), 3, _t(starts))
     np.testing.assert_array_equal(got.numpy(), [[7, 100, 8, 50, 9, 101]])
+
+
+def _partition_pos_loop(bucket, n_bins, starts):
+    """Row-by-row reference: -1 for a bin outside [0, n_bins)."""
+    pos = np.full(bucket.shape, -1, dtype=np.int64)
+    for s in range(bucket.shape[0]):
+        seen = np.zeros(n_bins, dtype=np.int64)
+        for i, b in enumerate(bucket[s]):
+            if 0 <= b < n_bins:
+                pos[s, i] = starts[s, b] + seen[b]
+                seen[b] += 1
+    return pos.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_bins", [1, 9, 256])
+def test_partition_pos_out_of_range_bins_get_minus_one(n_bins):
+    """Rows whose bin is -1, n_bins or INT32_MIN get -1 and do not move the
+    ranks of the rows around them; a shard may hold no row in range."""
+    rng = np.random.RandomState(n_bins)
+    bucket = rng.randint(0, n_bins, size=(3, 600)).astype(np.int32)
+    bad = rng.rand(3, 600) < 0.2
+    bucket[bad] = rng.choice([-1, n_bins, I32.min, I32.max], size=bad.sum())
+    bucket[2] = n_bins  # a shard with every row out of range
+    starts = rng.randint(-50, 50, size=(3, n_bins)).astype(np.int32)
+    got = cuda_kernels.partition_pos(_t(bucket), n_bins, _t(starts)).numpy()
+    np.testing.assert_array_equal(got,
+                                  _partition_pos_loop(bucket, n_bins, starts))
+    assert (got[bucket != np.clip(bucket, 0, n_bins - 1)] == -1).all()
+
+
+@pytest.mark.parametrize("cap", [0, 1, 4097])
+def test_partition_pos_and_digit_hist_edge_shapes(cap):
+    """One bin; every row in one bin; a ghost-only shard; cap not a
+    multiple of 4 (the CUDA kernels' tile edges are CPU-checked through
+    the plain versions here and on the card by chip_smoke.py)."""
+    rng = np.random.RandomState(cap)
+    for n_bins in (1, 9):
+        bucket = np.full((4, cap), n_bins - 1, dtype=np.int32)
+        if cap:
+            bucket[1] = rng.randint(0, n_bins, size=cap)
+        starts = _starts_of(bucket, n_bins) if cap else \
+            np.zeros((4, n_bins), dtype=np.int32)
+        got = cuda_kernels.partition_pos(_t(bucket), n_bins, _t(starts))
+        np.testing.assert_array_equal(
+            got.numpy(), _partition_pos_loop(bucket, n_bins, starts))
+        hist = cuda_kernels.digit_hist(_t(bucket), n_bins).numpy()
+        exp = np.stack([np.bincount(b, minlength=n_bins) for b in bucket]) \
+            if cap else np.zeros((4, n_bins), dtype=np.int64)
+        np.testing.assert_array_equal(hist, exp)
 
 
 def test_wrappers_refuse_bad_inputs():

@@ -238,16 +238,20 @@ def bucket_hist(bucket: torch.Tensor, n_bins: int) -> torch.Tensor:
 # partition_pos
 # ---------------------------------------------------------------------------
 
-TILE = 1024  # rows per tile of the CUDA rank kernel (csrc kTile)
+TILE = 4096  # rows per tile of the CUDA look-back kernel (csrc kPosTile)
+MAX_POS_ROWS = 2**30  # status words keep a prefix in 30 bits
 
 
 def partition_pos_plain(bucket: torch.Tensor, n_bins: int,
                         starts: torch.Tensor) -> torch.Tensor:
     """Plain version of the partition_pos kernel:
     pos[s, i] = starts[s, b] + #{j < i : bucket[s, j] == b}, b = bucket[s, i],
-    from one stable sort per shard (O(cap) memory, whatever n_bins)."""
+    for b in [0, n_bins), and -1 for a row whose bin is out of range; from
+    one stable sort per shard (O(cap) memory, whatever n_bins)."""
     n_shards, cap = bucket.shape
     b = bucket.to(torch.int64)
+    ok = (b >= 0) & (b < n_bins)
+    b = torch.where(ok, b, n_bins)  # out-of-range rows sort after every bin
     order = torch.sort(b, dim=1, stable=True).indices
     rank_sorted = torch.empty_like(order)
     rank_sorted.scatter_(
@@ -255,16 +259,19 @@ def partition_pos_plain(bucket: torch.Tensor, n_bins: int,
         torch.arange(cap, device=b.device).expand(n_shards, cap).contiguous())
     hist = digit_hist_plain(bucket, n_bins).to(torch.int64)
     first = torch.cumsum(hist, dim=1) - hist  # where bin b begins, sorted
-    pos = (starts.to(torch.int64).gather(1, b) + rank_sorted
-           - first.gather(1, b))
-    return pos.to(torch.int32)
+    bc = b.clamp(max=n_bins - 1)
+    pos = (starts.to(torch.int64).gather(1, bc) + rank_sorted
+           - first.gather(1, bc))
+    return torch.where(ok, pos, -1).to(torch.int32)
 
 
 def partition_pos(bucket: torch.Tensor, n_bins: int,
                   starts: torch.Tensor) -> torch.Tensor:
     """Stable counting-partition positions for buckets [n_shards, cap] in
-    [0, n_bins), starts int32 [n_shards, n_bins], n_bins <= 256: the CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    [0, n_bins) (-1 for a row whose bin is out of range), starts int32
+    [n_shards, n_bins], n_bins <= 256, cap < 2^30: the CUDA kernel (one
+    launch after one memset of its scratch) on a CUDA tensor, the plain
+    version on a CPU tensor."""
     _check_batched("partition_pos", bucket)
     _check_batched("partition_pos", starts)
     _check_bins("partition_pos", n_bins)
@@ -277,9 +284,13 @@ def partition_pos(bucket: torch.Tensor, n_bins: int,
     if _on_cpu("partition_pos", bucket):
         return partition_pos_plain(bucket, n_bins, starts)
     n_shards, cap = bucket.shape
-    n_tiles = -(-cap // TILE)
+    if cap >= MAX_POS_ROWS:
+        raise VegaError(f"partition_pos: a shard holds {cap} rows; the CUDA "
+                        f"kernel takes fewer than {MAX_POS_ROWS}")
     pos = torch.empty_like(bucket)
-    scratch = torch.empty((n_shards, n_bins, max(n_tiles, 1)),
+    # the look-back's status words [n_shards, n_tiles, n_bins], then its
+    # ticket counter; the launch zeroes both
+    scratch = torch.empty(n_shards * -(-cap // TILE) * n_bins + 1,
                           dtype=torch.int32, device=bucket.device)
     with torch.cuda.device(bucket.device):
         err = _load().vt_partition_pos(
