@@ -148,12 +148,17 @@ def hist_bytes(rows, n, nb):
     return 4 * rows + 4 * n * nb
 
 
-def pos_bytes(ck, n, cap, nb):
+def pos_bytes(n, cap, nb):
     """partition_pos: each bucket read and each position written once, the
-    starts read once, and each look-back status word (and the ticket)
-    zeroed, written and read once."""
-    status = n * -(-cap // ck.TILE) * nb + 1
-    return 8 * n * cap + 4 * n * nb + 12 * status
+    starts read once. The kernel's look-back scratch is not the function's
+    and is reported beside the bound (scratch_bytes), not in it."""
+    return 8 * n * cap + 4 * n * nb
+
+
+def pos_scratch_bytes(ck, n, cap, nb):
+    """The look-back's status words and ticket, each zeroed, written and
+    read once."""
+    return 12 * ck.partition_pos_scratch_words(n, cap, nb)
 
 
 def edge_inputs(torch, gen, dev, nb):
@@ -246,7 +251,7 @@ def check_kernels(torch, ck, inp):
 
     # the radix shape: [8, main_cap] at 256 bins, uniform and skewed, and
     # partition_pos at 9 bins; many tiles per shard
-    tiles = -(-inp["main_cap"] // ck.TILE)
+    tiles = ck.partition_pos_scratch_words(1, inp["main_cap"], 1) - 1
     if tiles < 700:
         fail(f"the radix shape has only {tiles} look-back tiles per shard")
     for label in ("uniform", "skewed"):
@@ -384,8 +389,9 @@ def time_kernels(torch, ck, inp):
                             for bb in bs]),
             time_ms(torch, lambda: ck.partition_pos_plain(b, nb, st),
                     graph=False),
-            bound(pos_bytes(ck, n, cap, nb), 4 * b.numel()), None,
+            bound(pos_bytes(n, cap, nb), 4 * b.numel()), None,
             input=label, l2=l2, launches_per_call=1,
+            scratch_bytes=pos_scratch_bytes(ck, n, cap, nb),
             argsort_scatter_ms=yard["ms"],
             argsort_scatter="torch.sort(stable) + scatter_: two calls"))
 
@@ -542,7 +548,7 @@ def main():
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
-                               "plain_ms", "library_ms",
+                               "scratch_bytes", "plain_ms", "library_ms",
                                "argsort_scatter_ms")}
         for r in radix]), flush=True)
     print(json.dumps(kernels_line), flush=True)

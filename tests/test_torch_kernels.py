@@ -104,8 +104,10 @@ def _starts_of(bucket, n_bins):
     (9, 777, False), (9, 3000, True), (65, 777, False), (65, 3000, True),
     (256, 3000, True)])
 def test_partition_pos_matches_pallas(n_bins, cap, skew):
-    """Stability across tiles: many equal buckets spread over several
-    1024-row tiles must keep their row order."""
+    """Stability across tiles: many equal buckets spread over several of
+    the Pallas kernel's 1024-row tiles must keep their row order. (The CUDA
+    kernel's 4096-row tiles are checked on the card by chip_smoke.py; on
+    the CPU the wrapper runs the plain version.)"""
     rng = np.random.RandomState(n_bins + cap)
     bucket = rng.randint(0, n_bins, size=(2, cap)).astype(np.int32)
     if skew:
@@ -159,9 +161,10 @@ def test_partition_pos_out_of_range_bins_get_minus_one(n_bins):
 
 @pytest.mark.parametrize("cap", [0, 1, 4097])
 def test_partition_pos_and_digit_hist_edge_shapes(cap):
-    """One bin; every row in one bin; a ghost-only shard; cap not a
-    multiple of 4 (the CUDA kernels' tile edges are CPU-checked through
-    the plain versions here and on the card by chip_smoke.py)."""
+    """The plain versions (what the wrappers run on a CPU tensor) against
+    the Pallas kernels in interpret mode at edge shapes: one bin; every row
+    in one bin; a ghost-only shard; no rows; cap not a multiple of 4. The
+    CUDA kernels meet the same shapes on the card in chip_smoke.py."""
     rng = np.random.RandomState(cap)
     for n_bins in (1, 9):
         bucket = np.full((4, cap), n_bins - 1, dtype=np.int32)
@@ -169,13 +172,20 @@ def test_partition_pos_and_digit_hist_edge_shapes(cap):
             bucket[1] = rng.randint(0, n_bins, size=cap)
         starts = _starts_of(bucket, n_bins) if cap else \
             np.zeros((4, n_bins), dtype=np.int32)
-        got = cuda_kernels.partition_pos(_t(bucket), n_bins, _t(starts))
-        np.testing.assert_array_equal(
-            got.numpy(), _partition_pos_loop(bucket, n_bins, starts))
+        got = cuda_kernels.partition_pos(_t(bucket), n_bins,
+                                         _t(starts)).numpy()
         hist = cuda_kernels.digit_hist(_t(bucket), n_bins).numpy()
-        exp = np.stack([np.bincount(b, minlength=n_bins) for b in bucket]) \
-            if cap else np.zeros((4, n_bins), dtype=np.int64)
-        np.testing.assert_array_equal(hist, exp)
+        assert got.shape == (4, cap) and hist.shape == (4, n_bins)
+        if not cap:  # the Pallas kernels take no empty input
+            np.testing.assert_array_equal(hist, 0)
+            continue
+        for s in range(4):
+            exp = partition_pos_pallas(jnp.asarray(bucket[s]), n_bins,
+                                       jnp.asarray(starts[s]), True)
+            np.testing.assert_array_equal(got[s], np.asarray(exp))
+            exp = digit_hist_pallas(jnp.asarray(bucket[s]), n_bins,
+                                    interpret=True)
+            np.testing.assert_array_equal(hist[s], np.asarray(exp))
 
 
 def test_wrappers_refuse_bad_inputs():

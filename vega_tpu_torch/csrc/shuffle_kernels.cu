@@ -6,7 +6,9 @@
 // ONE launch. The host functions return the cudaError_t of their launches;
 // the Python wrappers in cuda_kernels.py allocate every output and scratch
 // buffer and raise on a non-zero return. Grids are sized from the device's
-// own SM count, queried once per device.
+// own SM count and each kernel's resident blocks per SM, queried once per
+// device (and shared-memory size) and cached, so a launch's host work is a
+// table read.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libshuffle_kernels.so shuffle_kernels.cu
@@ -14,34 +16,53 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxBins = 256;
 constexpr int kMaxDevices = 64;
 
-// Streaming multiprocessors of the current device, queried once per device.
-int sm_count() {
-  static int cached[kMaxDevices] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
-    return 132;  // the error surfaces at the launch's cudaGetLastError
+// The current device, or an error (also for a device index past the caches).
+cudaError_t current_device(int* dev) {
+  const cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  return *dev >= 0 && *dev < kMaxDevices ? cudaSuccess
+                                         : cudaErrorInvalidDevice;
+}
+
+// A per-device value that `query` computes once (a positive int); concurrent
+// first callers may both query, and store the same value.
+template <class Query>
+cudaError_t cached_value(std::atomic<int>& slot, int* out, Query query) {
+  int v = slot.load(std::memory_order_relaxed);
+  if (v == 0) {
+    const cudaError_t err = query(&v);
+    if (err != cudaSuccess) return err;
+    if (v < 1) v = 1;
+    slot.store(v, std::memory_order_relaxed);
   }
-  if (cached[dev] == 0) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    cached[dev] = n > 0 ? n : 1;
-  }
-  return cached[dev];
+  *out = v;
+  return cudaSuccess;
+}
+
+// Streaming multiprocessors of device `dev`.
+cudaError_t sm_count(int dev, int* out) {
+  static std::atomic<int> cached[kMaxDevices];
+  return cached_value(cached[dev], out, [dev](int* v) {
+    return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, dev);
+  });
 }
 
 // Blocks per shard for a grid that walks `units` work units per shard with
 // `per_block` units per block per step: about `resident` blocks per SM over
-// the card, shared between the shards, never more than the work needs.
+// the card's `sms` SMs, shared between the shards, never more than the work
+// needs.
 int grid_x_for(int64_t units, int64_t per_block, int64_t n_shards,
-               int resident) {
+               int resident, int sms) {
   const int64_t want = (units + per_block - 1) / per_block;
-  int64_t budget = static_cast<int64_t>(sm_count()) * resident /
+  int64_t budget = static_cast<int64_t>(sms) * resident /
                    (n_shards > 0 ? n_shards : 1);
   if (budget < 1) budget = 1;
   return static_cast<int>(want < budget ? (want > 0 ? want : 1) : budget);
@@ -341,11 +362,10 @@ __global__ void __launch_bounds__(kHistThreads)
 //     __ballot_sync votes (a template parameter, so the loop unrolls), each
 //     folded into the mask with one XOR-select, give each lane the lanes
 //     holding its bin (as fast as __match_any_sync at 9 bins, and faster at
-//     65 and 256: scripts/kernel_variants.py); __popc(peers & lanemask_lt)
-//     is the lane's rank in the slot, plus the warp's running count of the
-//     bin in shared memory. Slots go in row
-//     order, so ranks are stable. One thread per bin then scans the
-//     kPosWarps counts.
+//     65 and 256 on an H100); __popc(peers & lanemask_lt) is the lane's
+//     rank in the slot, plus the warp's running count of the bin in shared
+//     memory. Slots go in row order, so ranks are stable. One thread per bin
+//     then scans the kPosWarps counts.
 //   - Publish and look back, one thread per bin: the tile's count goes out as
 //     an AGGREGATE status word, then the thread walks back over earlier tiles
 //     of its shard, adding aggregates, until an INCLUSIVE word, and publishes
@@ -481,6 +501,35 @@ __global__ void __launch_bounds__(kPosThreads, 6)
   }
 }
 
+// digit_hist's shared-memory words per block at n_bins (0 on the register
+// path).
+size_t hist_smem(int n_bins) {
+  return n_bins <= kPackedBins
+             ? 0
+             : sizeof(uint32_t) * ((n_bins + 3) / 4) * kHistThreads;
+}
+
+// Blocks of digit_hist's kernel for n_bins resident per SM on device `dev`,
+// cached per (device, shared-memory size). The private kernel's dynamic
+// shared-memory limit is raised once per device to what 256 bins need.
+cudaError_t hist_blocks_per_sm(int dev, int n_bins, int* out) {
+  static std::atomic<int> cached[kMaxDevices][kMaxBins / 4 + 1];
+  const size_t smem = hist_smem(n_bins);
+  const size_t words = smem / (sizeof(uint32_t) * kHistThreads);
+  return cached_value(cached[dev][words], out, [smem](int* v) {
+    if (smem == 0) {
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          v, digit_hist_packed_kernel, kHistThreads, 0);
+    }
+    const cudaError_t err = cudaFuncSetAttribute(
+        digit_hist_private_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(hist_smem(kMaxBins)));
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        v, digit_hist_private_kernel, kHistThreads, smem);
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -490,8 +539,12 @@ int vt_hash_bucket(const int32_t* keys, int32_t* out, int64_t n_shards,
   if (n_shards == 0 || cap == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 256;
+  int dev = 0, sms = 0;
+  cudaError_t err = current_device(&dev);
+  if (err == cudaSuccess) err = sm_count(dev, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // Each thread handles four rows per step on the vector path.
-  dim3 grid(grid_x_for((cap + 3) / 4, threads, n_shards, 8),
+  dim3 grid(grid_x_for((cap + 3) / 4, threads, n_shards, 8, sms),
             static_cast<unsigned>(n_shards));
   hash_bucket_kernel<<<grid, threads, 0, s>>>(
       keys, out, cap, static_cast<uint32_t>(n_buckets));
@@ -506,39 +559,37 @@ int vt_digit_hist(const int32_t* digits, int32_t* hist, int64_t n_shards,
   if (err != cudaSuccess || n_shards == 0 || cap == 0) {
     return static_cast<int>(err);
   }
+  int dev = 0, sms = 0, resident = 0;
+  err = current_device(&dev);
+  if (err == cudaSuccess) err = sm_count(dev, &sms);
+  if (err == cudaSuccess) err = hist_blocks_per_sm(dev, n_bins, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // rows one block covers per step
   const int64_t per_block =
       static_cast<int64_t>(kHistThreads) * kHistUnroll * 4;
-  if (n_bins <= kPackedBins) {
-    int resident = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, digit_hist_packed_kernel, kHistThreads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(grid_x_for(cap, per_block, n_shards, resident),
-              static_cast<unsigned>(n_shards));
+  dim3 grid(grid_x_for(cap, per_block, n_shards, resident, sms),
+            static_cast<unsigned>(n_shards));
+  const size_t smem = hist_smem(n_bins);
+  if (smem == 0) {
     digit_hist_packed_kernel<<<grid, kHistThreads, 0, s>>>(digits, hist, cap,
                                                            n_bins);
   } else {
-    const size_t smem = sizeof(uint32_t) * ((n_bins + 3) / 4) * kHistThreads;
-    err = cudaFuncSetAttribute(digit_hist_private_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int resident = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, digit_hist_private_kernel, kHistThreads, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(grid_x_for(cap, per_block, n_shards, resident),
-              static_cast<unsigned>(n_shards));
     digit_hist_private_kernel<<<grid, kHistThreads, smem, s>>>(digits, hist,
                                                                cap, n_bins);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: uint32[n_shards * n_tiles * n_bins + 1], n_tiles = ceil(cap /
-// kPosTile): the status words, then the ticket counter. Both are zeroed
-// here, on the stream, before the one launch. cap < 2^30 (status values).
+// The scratch vt_partition_pos takes, in uint32 words: the look-back's status
+// words [n_shards, ceil(cap / kPosTile), n_bins], then the ticket counter.
+int64_t vt_partition_pos_scratch_words(int64_t n_shards, int64_t cap,
+                                       int n_bins) {
+  return n_shards * ((cap + kPosTile - 1) / kPosTile) * n_bins + 1;
+}
+
+// scratch: vt_partition_pos_scratch_words(n_shards, cap, n_bins) uint32
+// words, zeroed here, on the stream, before the one launch. cap < 2^30
+// (status values).
 int vt_partition_pos(const int32_t* bucket, const int32_t* starts,
                      int32_t* pos, uint32_t* scratch, int64_t n_shards,
                      int64_t cap, int n_bins, void* stream) {

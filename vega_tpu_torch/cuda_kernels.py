@@ -95,6 +95,8 @@ def _load() -> ctypes.CDLL:
             lib.vt_digit_hist.argtypes = [ptr, ptr, i64, i64, i32, ptr]
             lib.vt_partition_pos.argtypes = [ptr, ptr, ptr, ptr, i64, i64,
                                              i32, ptr]
+            lib.vt_partition_pos_scratch_words.argtypes = [i64, i64, i32]
+            lib.vt_partition_pos_scratch_words.restype = i64
             for fn in (lib.vt_hash_bucket, lib.vt_digit_hist,
                        lib.vt_partition_pos):
                 fn.restype = ctypes.c_int
@@ -238,7 +240,6 @@ def bucket_hist(bucket: torch.Tensor, n_bins: int) -> torch.Tensor:
 # partition_pos
 # ---------------------------------------------------------------------------
 
-TILE = 4096  # rows per tile of the CUDA look-back kernel (csrc kPosTile)
 MAX_POS_ROWS = 2**30  # status words keep a prefix in 30 bits
 
 
@@ -265,6 +266,13 @@ def partition_pos_plain(bucket: torch.Tensor, n_bins: int,
     return torch.where(ok, pos, -1).to(torch.int32)
 
 
+def partition_pos_scratch_words(n_shards: int, cap: int, n_bins: int) -> int:
+    """int32 words of scratch the CUDA kernel takes: its look-back status
+    words [n_shards, n_tiles, n_bins], then its ticket counter. The layout
+    is the kernel source's alone (needs the built library)."""
+    return _load().vt_partition_pos_scratch_words(n_shards, cap, n_bins)
+
+
 def partition_pos(bucket: torch.Tensor, n_bins: int,
                   starts: torch.Tensor) -> torch.Tensor:
     """Stable counting-partition positions for buckets [n_shards, cap] in
@@ -288,9 +296,9 @@ def partition_pos(bucket: torch.Tensor, n_bins: int,
         raise VegaError(f"partition_pos: a shard holds {cap} rows; the CUDA "
                         f"kernel takes fewer than {MAX_POS_ROWS}")
     pos = torch.empty_like(bucket)
-    # the look-back's status words [n_shards, n_tiles, n_bins], then its
-    # ticket counter; the launch zeroes both
-    scratch = torch.empty(n_shards * -(-cap // TILE) * n_bins + 1,
+    # the look-back's status words and ticket counter; the launch zeroes
+    # them
+    scratch = torch.empty(partition_pos_scratch_words(n_shards, cap, n_bins),
                           dtype=torch.int32, device=bucket.device)
     with torch.cuda.device(bucket.device):
         err = _load().vt_partition_pos(
