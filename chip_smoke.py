@@ -9,21 +9,33 @@ Phases, in order; any failure exits non-zero before the last line:
      card, exactly (all three are integer functions): at the main path's
      shapes; at edge shapes (a ghost-only shard inside a batch, cap not a
      multiple of 4, an unaligned base, one bin, every row in one bin,
-     out-of-range bins and digits, arbitrary starts) at 1/9/65/256 bins; at
-     the radix shape [8, 3145728] x 256 bins, uniform and 90% skewed (768
-     look-back tiles per shard); and partition_pos 50 times on one input,
-     every result equal. Then each one's time (20 launches per event pair
-     replayed from a CUDA graph, L2 flushed before each of 5 runs: median,
-     min, max), bound, plain version's time and yardstick call, at the
-     main path's shapes and at the radix shape;
+     out-of-range bins and digits, arbitrary starts) at 1/9/16/65/256 bins;
+     at the radix shapes [8, 3145728] x 256 and x 16 bins, uniform and 90%
+     skewed (768 look-back tiles per shard); partition_pos 50 times on
+     one input, every result equal. Then each one's time (20 launches per
+     event pair replayed from a CUDA graph, L2 flushed before each of 5
+     runs: median, min, max), bound, plain version's time and yardstick
+     call, at the main path's shapes and at the radix shapes;
   3. main path: Context(n_shards=8) on the card runs the bench pipeline
      dense_range(N).map(lambda x: (x % K, x * 0.5)).reduce_by_key(op="add")
      .join(K-row table).count() at N = 20,000,000 rows and K = 1,000,000
      keys; the result must equal a plain numpy reference, and every
      kernel's launch count must have grown during that run. Then the warm
-     rows/s, median of 3 runs, and the launches of one warm run.
-Prints the radix-shape rows, the main path's rows/s, the kernel table as
-one JSON line, the card line, and last
+     rows/s, median of 3 runs, and the launches of one warm run. The
+     Context's 'auto' plans must have resolved to xla / fused_sort / off,
+     and each warm join's block must carry a pending settlement before
+     count() (its fetches deferred) and none after;
+  4. plans: the same pipeline at 8 shards in a fresh Context under each of
+     dense_sort_impl="radix", "radix4", "packed", dense_rbk_plan=
+     "sort_partition" with "radix", and dense_table_plan="on": the cold run
+     equals numpy, three warm runs give a median rows/s, and every kernel
+     launches in the cold and in a warm run. On the radix plans one warm
+     run's digit_hist and partition_pos launches exceed the default plan's
+     by at least the radix passes of the plan's sorts (radix_passes). The
+     table plan's warm run must take the table, and a run with a poisoned
+     key-range hint must be repaired and equal numpy.
+Prints the radix-shape rows, the main path's rows/s, each plan's line, the
+kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
@@ -46,6 +58,15 @@ L2_FLUSH_BYTES = 64 << 20      # written before each timed run (L2: 50 MB)
 LAUNCHES_PER_RUN = 20          # back-to-back calls between two events
 RUNS = 5                       # timed runs per kernel: median, min, max
 REPEATS = 50                   # partition_pos launches on one input
+# phase 4: (label, Context settings); the default plan is phase 3's
+PLANS = [
+    ("radix", dict(dense_sort_impl="radix")),
+    ("radix4", dict(dense_sort_impl="radix4")),
+    ("packed", dict(dense_sort_impl="packed")),
+    ("sort_partition+radix", dict(dense_rbk_plan="sort_partition",
+                                  dense_sort_impl="radix")),
+    ("table", dict(dense_table_plan="on")),
+]
 SOURCE = "vega_tpu_torch/csrc/shuffle_kernels.cu"
 REPLACES = {
     "hash_bucket": "vega_tpu/tpu/pallas_kernels.py:42",
@@ -230,8 +251,8 @@ def check_kernels(torch, ck, inp):
         ck.partition_pos(inp["join_bucket"], n + 1, inp["join_starts"]),
         ck.partition_pos_plain(inp["join_bucket"], n + 1, inp["join_starts"]))
 
-    # edge shapes at 1/9/65/256 bins
-    for nb in (1, 9, 65, 256):
+    # edge shapes at 1/9/16/65/256 bins
+    for nb in (1, 9, 16, 65, 256):
         for label, b in edge_inputs(torch, gen, dev, nb):
             check_equal(torch, f"digit_hist {label} bins={nb}",
                         ck.digit_hist(b, nb), ck.digit_hist_plain(b, nb))
@@ -254,15 +275,15 @@ def check_kernels(torch, ck, inp):
     tiles = ck.partition_pos_scratch_words(1, inp["main_cap"], 1) - 1
     if tiles < 700:
         fail(f"the radix shape has only {tiles} look-back tiles per shard")
-    for label in ("uniform", "skewed"):
-        d = inp[f"radix_{label}"]
-        check_equal(torch, f"digit_hist radix {label} bins=256",
-                    ck.digit_hist(d, 256), ck.digit_hist_plain(d, 256))
-        check_equal(torch, f"partition_pos radix {label} bins=256 "
-                    f"({tiles} tiles per shard)",
-                    ck.partition_pos(d, 256, inp[f"radix_{label}_starts"]),
-                    ck.partition_pos_plain(d, 256,
-                                           inp[f"radix_{label}_starts"]))
+    for prefix, nb in (("radix", 256), ("radix16", 16)):
+        for label in ("uniform", "skewed"):
+            d, st = inp[f"{prefix}_{label}"], inp[f"{prefix}_{label}_starts"]
+            check_equal(torch, f"digit_hist radix {label} bins={nb}",
+                        ck.digit_hist(d, nb), ck.digit_hist_plain(d, nb))
+            check_equal(torch, f"partition_pos radix {label} bins={nb} "
+                        f"({tiles} tiles per shard)",
+                        ck.partition_pos(d, nb, st),
+                        ck.partition_pos_plain(d, nb, st))
     check_equal(torch, "partition_pos main-cap bins=9",
                 ck.partition_pos(inp["main_bucket"], n + 1,
                                  inp["main_starts"]),
@@ -313,16 +334,17 @@ def make_inputs(torch, ck, main_cap, join_cap):
     inp["join_bucket"] = torch.where(
         tmask, ck.hash_bucket_plain(tkeys, n), n).to(i32).contiguous()
     inp["join_starts"] = starts_of(torch, ck, inp["join_bucket"], n + 1)
-    # one radix pass's 8-bit digits over the main capacity: uniform, and
-    # 90% of rows in one bin
-    d = torch.randint(0, 256, (n, main_cap), generator=gen, device=dev,
-                      dtype=i32)
+    # one radix pass's digits over the main capacity, 8-bit (radix) and
+    # 4-bit (radix4): uniform, and 90% of rows in one bin
     skew = torch.rand((n, main_cap), generator=gen, device=dev) < 0.9
-    inp["radix_uniform"] = d
-    inp["radix_skewed"] = torch.where(skew, 85, d).to(i32)
-    for label in ("uniform", "skewed"):
-        inp[f"radix_{label}_starts"] = starts_of(
-            torch, ck, inp[f"radix_{label}"], 256)
+    for prefix, nb in (("radix", 256), ("radix16", 16)):
+        d = torch.randint(0, nb, (n, main_cap), generator=gen, device=dev,
+                          dtype=i32)
+        inp[f"{prefix}_uniform"] = d
+        inp[f"{prefix}_skewed"] = torch.where(skew, nb // 3, d).to(i32)
+        for label in ("uniform", "skewed"):
+            inp[f"{prefix}_{label}_starts"] = starts_of(
+                torch, ck, inp[f"{prefix}_{label}"], nb)
     return inp
 
 
@@ -406,11 +428,12 @@ def time_kernels(torch, ck, inp):
             "cold: 16 copies of the input, 64 MB, cycled", copies=16)
     pos_row("main-cap ghosted buckets", inp["main_bucket"], n + 1,
             inp["main_starts"], radix, "input 100 MB, larger than L2")
-    for label in ("uniform", "skewed"):
-        d = inp[f"radix_{label}"]
-        hist_row(f"radix {label}", d, 256, radix)
-        pos_row(f"radix {label}", d, 256, inp[f"radix_{label}_starts"],
-                radix, "input 100 MB, larger than L2")
+    for prefix, nb in (("radix", 256), ("radix16", 16)):
+        for label in ("uniform", "skewed"):
+            d = inp[f"{prefix}_{label}"]
+            hist_row(f"radix {label}", d, nb, radix)
+            pos_row(f"radix {label}", d, nb, inp[f"{prefix}_{label}_starts"],
+                    radix, "input 100 MB, larger than L2")
     for r in table + radix:
         log(f"{r['name']} {r['shape']} bins={r['n_bins']} "
             f"{r.get('input', '')}: {r['ms']:.4f} ms "
@@ -430,10 +453,48 @@ def pipeline(ctx, np):
     return reduced.join(table)
 
 
-def phase_main_path(torch, np, ck, vt):
-    ctx = vt.Context(n_shards=N_SHARDS)
+def check_numpy(np, joined, what):
+    """The joined rows against numpy: every key once, sums within rtol
+    1e-5 of the float64 reference, table values exact. Returns the max
+    relative error of the sums and the host arrays made for the check."""
+    got = joined.collect_arrays()
+    x = np.arange(N_ROWS, dtype=np.int64)
+    sums = np.bincount(x % N_KEYS, weights=x * 0.5, minlength=N_KEYS)
+    order = np.argsort(got["k"], kind="stable")
+    if not np.array_equal(got["k"][order], np.arange(N_KEYS)):
+        fail(f"{what}: joined keys differ from the numpy reference")
+    lv = got["lv"][order].astype(np.float64)
+    rel = np.abs(lv - sums) / np.maximum(np.abs(sums), 1e-30)
+    if not np.allclose(lv, sums, rtol=1e-5, atol=0):
+        fail(f"{what}: reduced sums differ from numpy: max rel err "
+             f"{rel.max():.3g}")
+    if not np.array_equal(got["rv"][order], np.arange(N_KEYS) * 2.0):
+        fail(f"{what}: table values differ from the numpy reference")
+    log(f"{what} matches numpy: max rel err of sums {rel.max():.3g}")
+    return float(rel.max()), (got, x, sums, order, lv, rel)
+
+
+def check_launched(launches, what):
+    for name, c in launches.items():
+        if c <= 0:
+            fail(f"kernel {name} was not launched in {what}")
+
+
+def run_plan(torch, np, ck, vt, label, settings):
+    """One Context under `settings`: the cold run (launches counted from
+    0, result against numpy), then three timed warm runs (rows/s; launches
+    of the first counted from 0), then one untimed warm run whose join must
+    carry a pending settlement before count() and none after (and, under
+    the table plan, must take the table and equal numpy). Each timed run
+    reports its host-side build apart from its count(), which is also timed
+    on CUDA events. Under the table plan one more run with a poisoned (too
+    small) key-range hint must be repaired and equal numpy."""
+    ctx = vt.Context(n_shards=N_SHARDS, **settings)
     if ctx.device.type != "cuda":
         fail(f"Context() chose {ctx.device}, not the card")
+    plans = dict(dense_sort_impl=ctx.dense_sort_impl,
+                 dense_rbk_plan=ctx.dense_rbk_plan,
+                 dense_table_plan=ctx.dense_table_plan)
     ck.reset_launches()
     t0 = time.perf_counter()
     joined = pipeline(ctx, np)
@@ -441,49 +502,137 @@ def phase_main_path(torch, np, ck, vt):
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
-    log(f"main path (cold): count={count} in {cold_s:.3f} s, "
-        f"launches {launches}")
+    log(f"{label} (cold): count={count} in {cold_s:.3f} s, launches "
+        f"{launches}, plans {plans}")
     if count != N_KEYS:
-        fail(f"count() = {count}, expected {N_KEYS}")
-    for name, c in launches.items():
-        if c <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-
-    got = joined.collect_arrays()
-    x = np.arange(N_ROWS, dtype=np.int64)
-    sums = np.bincount(x % N_KEYS, weights=x * 0.5, minlength=N_KEYS)
-    order = np.argsort(got["k"], kind="stable")
-    keys = got["k"][order]
-    if not np.array_equal(keys, np.arange(N_KEYS)):
-        fail("joined keys differ from the numpy reference")
-    lv = got["lv"][order].astype(np.float64)
-    rel = np.abs(lv - sums) / np.maximum(np.abs(sums), 1e-30)
-    if not np.allclose(lv, sums, rtol=1e-5, atol=0):
-        fail(f"reduced sums differ from numpy: max rel err {rel.max():.3g}")
-    if not np.array_equal(got["rv"][order], np.arange(N_KEYS) * 2.0):
-        fail("table values differ from the numpy reference")
-    log(f"main path matches numpy: max rel err of sums {rel.max():.3g}")
-
-    warm = []
+        fail(f"{label}: count() = {count}, expected {N_KEYS}")
+    check_launched(launches, f"the {label} cold run")
+    # the cold run's lineage and the check's host arrays stay alive until
+    # the Context stops, as phase 3 always kept them: freed before the
+    # warm runs, they let glibc hand a warm run's host build (the K-row
+    # table's arrays) fresh pages, whose first touch slows that build by
+    # 7-15 ms a run (scripts/warm_split.py, PERF.md)
+    rel, cold_arrays = check_numpy(np, joined, f"{label} (cold)")
+    cold = joined
+    warm, build_ms, count_ms, count_dev_ms = [], [], [], []
     ck.reset_launches()
     for i in range(3):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        c = pipeline(ctx, np).count()
+        joined = pipeline(ctx, np)
+        t1 = time.perf_counter()
+        ev0.record()
+        c = joined.count()
+        ev1.record()
         torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
+        t2 = time.perf_counter()
+        del joined
+        warm.append(t2 - t0)
+        # the host-side build of the lineage and its K-row table, and
+        # count() on the host clock and between events on the stream
+        build_ms.append((t1 - t0) * 1e3)
+        count_ms.append((t2 - t1) * 1e3)
+        count_dev_ms.append(ev0.elapsed_time(ev1))
         if i == 0:
             warm_launches = dict(ck.LAUNCHES)
+            check_launched(warm_launches, f"the {label} warm run")
         if c != N_KEYS:
-            fail(f"warm run count() = {c}")
-    ctx.stop()
+            fail(f"{label}: warm run count() = {c}")
+    joined = pipeline(ctx, np)
+    blk = joined.block_spec()
+    deferred = blk.settle is not None
+    if joined.count() != N_KEYS or not deferred or blk.settle is not None:
+        fail(f"{label}: warm join's block had pending settlement {deferred} "
+             f"before count() and {blk.settle is not None} after; expected "
+             "True, then False")
+    table_taken = joined.left._table_plan
+    if plans["dense_table_plan"] == "on":
+        if not table_taken:
+            fail(f"{label}: the warm run did not take the table plan")
+        rel = max(rel, check_numpy(np, joined, f"{label} (warm)")[0])
+    del joined, blk
     med = statistics.median(warm)
-    log(f"main path warm: {warm} s, median {med:.4f} s, "
-        f"{N_ROWS / med:,.0f} rows/s; launches of one warm run "
-        f"{warm_launches}")
-    return dict(count=count, cold_s=cold_s, warm_s=warm, median_s=med,
-                rows_per_s=N_ROWS / med, max_rel_err=float(rel.max()),
-                launches=launches, warm_launches=warm_launches)
+    res = dict(label=label, settings=settings, plans=plans, count=count,
+               cold_s=cold_s, warm_s=warm, median_s=med,
+               warm_build_ms=build_ms, warm_count_ms=count_ms,
+               warm_count_device_ms=count_dev_ms,
+               rows_per_s=N_ROWS / med, max_rel_err=rel, launches=launches,
+               warm_launches=warm_launches, warm_deferred=True,
+               table_taken=table_taken)
+    log(f"{label} warm: {warm} s, median {med:.4f} s, "
+        f"{N_ROWS / med:,.0f} rows/s; host build {build_ms} ms, count() "
+        f"{count_ms} ms on the host, {count_dev_ms} ms on the stream; "
+        "launches of one warm run "
+        f"{warm_launches}; each warm join deferred its fetches to count()")
+    if plans["dense_table_plan"] == "on":
+        joined = pipeline(ctx, np)
+        reduced = joined.left
+        ctx._key_range_hints[reduced._hint_key()] = (0, 99)  # too small
+        t0 = time.perf_counter()
+        joined.block_spec()
+        if not reduced._table_plan:
+            fail(f"{label}: the poisoned run did not launch the table plan")
+        c = joined.count()
+        torch.cuda.synchronize()
+        # settlement saw the range flag and rebuilt the reduce through the
+        # standard plan, in place
+        if reduced._table_plan:
+            fail(f"{label}: the poisoned table launch was not repaired")
+        if c != N_KEYS:
+            fail(f"{label}: poisoned run count() = {c}")
+        res["poisoned"] = dict(
+            s=time.perf_counter() - t0, table_launched=True, repaired=True,
+            max_rel_err=check_numpy(
+                np, joined, f"{label} (poisoned range, repaired)")[0])
+    ctx.stop()
+    del cold, cold_arrays
+    return res
+
+
+def phase_main_path(torch, np, ck, vt):
+    res = run_plan(torch, np, ck, vt, "main path", {})
+    if res["plans"] != dict(dense_sort_impl="xla", dense_rbk_plan="fused_sort",
+                            dense_table_plan="off"):
+        fail(f"'auto' resolved to {res['plans']} on the card, expected "
+             "xla / fused_sort / off")
+    return res
+
+
+def radix_passes(settings):
+    """Digit passes of one warm run's radix sorts, from the sorts the code
+    runs: fused_sort sorts (bucket, key) with a 32-bit key word and the
+    8-bit bucket word; sort_partition sorts the key alone; then both sort
+    the reduce side's keys (32 bits) and the join's right side (32 bits;
+    the left side, a reduce output, is elided and already sorted). Each
+    word of w bits takes ceil(w / bits) passes, and each pass launches
+    digit_hist and partition_pos once."""
+    impl = settings.get("dense_sort_impl")
+    if impl not in ("radix", "radix4"):
+        return 0
+    bits = 4 if impl == "radix4" else 8
+    words = ([32, 32, 32] if settings.get("dense_rbk_plan") == "sort_partition"
+             else [32, 8, 32, 32])
+    return sum(-(-w // bits) for w in words)
+
+
+def phase_plans(torch, np, ck, vt, default):
+    out = []
+    for label, settings in PLANS:
+        res = run_plan(torch, np, ck, vt, label, settings)
+        passes = radix_passes(settings)
+        res["radix_passes"] = passes
+        for name in ("digit_hist", "partition_pos"):
+            more = res["warm_launches"][name] - default["warm_launches"][name]
+            if passes and more < passes:
+                fail(f"{label}: a warm run launched {name} {more} times more "
+                     f"than the default plan; its radix sorts take {passes} "
+                     "passes")
+        log(f"{label}: {passes} radix passes per warm run; warm launches "
+            f"{res['warm_launches']} vs default {default['warm_launches']}")
+        out.append(res)
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -518,8 +667,9 @@ def main():
     del inp
     torch.cuda.empty_cache()
 
-    # 3. main path
+    # 3. main path, 4. the other plans
     main_path = phase_main_path(torch, np, ck, vt)
+    plans = phase_plans(torch, np, ck, vt, main_path)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -537,7 +687,8 @@ def main():
                                l2_flush_bytes=L2_FLUSH_BYTES,
                                kernels="CUDA graph replay",
                                plain_and_library="eager calls"),
-                   kernels=table, radix_and_cold=radix, main_path=main_path)
+                   kernels=table, radix_and_cold=radix, main_path=main_path,
+                   plans=plans)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -545,6 +696,13 @@ def main():
     print(f"main path: {main_path['rows_per_s']:.1f} rows/s warm median of 3 "
           f"({N_ROWS} rows, {N_KEYS} keys, {N_SHARDS} shards) on {card}",
           flush=True)
+    for r in plans:
+        print(f"plan {r['label']}: {r['rows_per_s']:.1f} rows/s warm median "
+              f"of 3, cold {r['cold_s']:.3f} s, launches of one warm run "
+              f"{json.dumps(r['warm_launches'])}, radix passes "
+              f"{r['radix_passes']}, table taken {r['table_taken']}"
+              f"{', poisoned range repaired' if 'poisoned' in r else ''} "
+              f"on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",

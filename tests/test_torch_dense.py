@@ -45,7 +45,9 @@ def ref_ctx():
 
 @pytest.fixture()
 def port_ctx():
-    with vt.Context(device="cpu", n_shards=N_SHARDS) as context:
+    """The port pinned to the same accelerator plans, which are what
+    'auto' resolves to on the card."""
+    with vt.Context(device="cpu", n_shards=N_SHARDS, **ACCEL_PLANS) as context:
         yield context
 
 
@@ -111,8 +113,10 @@ def _skewed_keys(n_keys, n_shards):
 @pytest.mark.parametrize("op", ["add", "min", "max"])
 def test_skew_forces_overflow_retry(ref_ctx, port_ctx, op):
     """A capacity hint learned on uniform keys is too small for a skewed
-    run of the same lineage and sizes: the exchange overflows, retries at
-    histogram-sized capacities, and still equals the reference."""
+    run of the same lineage and sizes: the hinted launch is deferred, its
+    overflow shows at settlement, the repair reruns at histogram-sized
+    capacities (replacing the hint), and the result still equals the
+    reference."""
     rng = np.random.RandomState(7)
     n = 8_000
     uniform = rng.randint(0, 1_000, size=n).astype(np.int32)
@@ -125,9 +129,14 @@ def test_skew_forces_overflow_retry(ref_ctx, port_ctx, op):
     first = run(port_ctx, uniform)
     first.count()
     assert first._last_attempts == 1
+    hint = port_ctx._capacity_hints[first._hint_key()]
     got = run(port_ctx, skewed)
+    blk = got.block_spec()
+    assert blk.settle is not None  # hinted: launched deferred
     got.count()
-    assert got._last_attempts > 1  # the hinted capacities overflowed
+    # the hinted capacities overflowed: the repair sized them anew
+    assert port_ctx._capacity_hints[got._hint_key()] != hint
+    assert blk.settle is None and not port_ctx._pending
     exp = run(ref_ctx, skewed)
     np.testing.assert_array_equal(got.block().counts_np,
                                   exp.block().counts_np)

@@ -14,7 +14,7 @@ dictionaries are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -36,6 +36,12 @@ class Block:
     # (from_numpy, block_range, exchanges that fetched them with the
     # overflow flags) pass them in; otherwise the first counts_np fetches.
     counts_host: Optional[np.ndarray] = None
+    # Blocks of deferred exchanges (dense_rdd's speculative launches) carry
+    # a settle callable: it fetches every pending overflow flag in one
+    # transfer and, on a failed speculation, repairs this block IN PLACE
+    # (same object) from a clean rerun. Every host read settles first:
+    # reading an unsettled block could observe capacity-truncated data.
+    settle: Optional[Callable[[], None]] = None
 
     @property
     def n_shards(self) -> int:
@@ -43,6 +49,8 @@ class Block:
 
     @property
     def counts_np(self) -> np.ndarray:
+        if self.settle is not None:
+            self.settle()  # may replace cols/counts/capacity in place
         if self.counts_host is None:
             self.counts_host = self.counts.cpu().numpy().astype(np.int32)
         return self.counts_host
@@ -55,7 +63,9 @@ class Block:
         return {name: c.cpu().numpy() for name, c in self.cols.items()}
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
-        """Valid rows of every column on the host, shard order preserved."""
+        """Valid rows of every column on the host, shard order preserved.
+        counts_np settles first, so the columns read are the settled
+        ones."""
         counts = self.counts_np
         host = self._host_cols()
         return {name: np.concatenate([col[s, :counts[s]]

@@ -8,6 +8,18 @@ sources of vega_tpu/context.py).
 A Context runs on CUDA unless the caller passes device="cpu"; with no card
 and no device it raises. Its n_shards virtual shards (default 8, the
 reference test mesh) are the leading dimension of every column tensor.
+
+Three plan settings, the reference's Configuration knobs, choose how dense
+programs sort and reduce; each takes 'auto', resolved by the Context's
+device as the reference resolves it by backend:
+
+    setting           values                         auto: cpu / cuda
+    dense_sort_impl   xla | packed | radix | radix4  packed / xla
+    dense_rbk_plan    fused_sort | sort_partition    sort_partition /
+                                                     fused_sort
+    dense_table_plan  on | off                       on / off
+
+A misspelt value raises VegaError naming the allowed values.
 """
 
 from __future__ import annotations
@@ -17,21 +29,35 @@ from typing import Optional
 import torch
 
 from vega_tpu_torch import dense_rdd
+from vega_tpu_torch import kernels
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.mesh import make_mesh
 
 
 class Context:
-    # The reference resolves these per backend; these are its choices on an
-    # accelerator and the only plans ported.
-    dense_rbk_plan = "fused_sort"
-    dense_table_plan = "off"
-    dense_sort_impl = "xla"
-
-    def __init__(self, device: Optional[str] = None, n_shards: int = 8):
+    def __init__(self, device: Optional[str] = None, n_shards: int = 8,
+                 dense_sort_impl: str = "auto", dense_rbk_plan: str = "auto",
+                 dense_table_plan: str = "auto"):
         self.mesh = make_mesh(n_shards, device)
+        dev = self.mesh.device
+        self.dense_sort_impl = kernels.resolve_backend_mode(
+            "dense_sort_impl", dense_sort_impl, kernels.SORT_IMPLS,
+            "packed", "xla", dev)
+        self.dense_rbk_plan = kernels.resolve_backend_mode(
+            "dense_rbk_plan", dense_rbk_plan, kernels.RBK_PLANS,
+            "sort_partition", "fused_sort", dev)
+        self.dense_table_plan = kernels.resolve_backend_mode(
+            "dense_table_plan", dense_table_plan, kernels.TABLE_PLANS,
+            "on", "off", dev)
         # capacity hints: (lineage, input sizes) -> (slot, out) capacities
         self._capacity_hints: dict = {}
+        # observed key ranges: (lineage, input sizes) -> (kmin, kmax), for
+        # the table plan
+        self._key_range_hints: dict = {}
+        # deferred exchanges awaiting settlement, in launch order
+        self._pending: list = []
+        # set while a settlement repairs: every exchange runs blocking
+        self._no_defer = False
         self._stopped = False
 
     @property
@@ -53,8 +79,18 @@ class Context:
         return dense_rdd.dense_from_numpy(self, columns)
 
     def stop(self) -> None:
-        self._capacity_hints.clear()
-        self._stopped = True
+        """Settle the deferred exchanges, so blocks a caller holds stay
+        readable and the Context holds no block after it stops; then
+        stop. If settlement raises, its leftover blocks raise on read."""
+        try:
+            dense_rdd._settle_pending(self)
+        finally:
+            for entry in self._pending:
+                entry["block"].settle = dense_rdd._unrepaired_raise
+            self._pending.clear()
+            self._capacity_hints.clear()
+            self._key_range_hints.clear()
+            self._stopped = True
 
     def __enter__(self):
         return self

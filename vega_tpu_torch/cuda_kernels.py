@@ -8,9 +8,13 @@ Three kernels live in csrc/shuffle_kernels.cu (CUDA C++ for sm_90a):
   partition_pos  <- pallas_kernels.partition_pos_pallas
 
 Each takes the batched [n_shards, cap] int32 tensor of a Block column and
-handles every shard in one launch. The source is compiled with nvcc at first
-use into vega_tpu_torch/_build/ (a shared library with a plain C interface,
-loaded with ctypes), so importing this module needs neither nvcc nor a card.
+handles every shard in one launch. The dispatcher bucket_hist (the
+reference's name) routes the exchange's bucket counts to digit_hist; each
+radix pass calls digit_hist and partition_pos directly, at 256 bins for
+8-bit digits and 16 for 4-bit (the reference's radix_hist / radix_pos). The
+source is compiled with nvcc at first use into vega_tpu_torch/_build/ (a
+shared library with a plain C interface, loaded with ctypes), so importing
+this module needs neither nvcc nor a card.
 
 Every wrapper runs its kernel on a CUDA tensor (or raises) and its plain
 PyTorch version on a CPU tensor; nothing falls back. `LAUNCHES` counts the
@@ -232,8 +236,14 @@ def digit_hist(digits: torch.Tensor, n_bins: int) -> torch.Tensor:
 
 def bucket_hist(bucket: torch.Tensor, n_bins: int) -> torch.Tensor:
     """Per-bucket counts (the reference dispatcher's name): every row of
-    every shard is counted, ghost rows in the top bin."""
-    return digit_hist(bucket, n_bins)
+    every shard is counted, ghost rows in the top bin. Up to MAX_BINS bins
+    the digit_hist kernel; above its range a per-shard bincount over
+    s * n_bins + b, the rule of the reference dispatcher, which takes
+    jnp.bincount above its kernel's range on every backend (so any number
+    of shards works)."""
+    if n_bins <= MAX_BINS:
+        return digit_hist(bucket, n_bins)
+    return digit_hist_plain(bucket, n_bins)
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,22 @@ count / collect. Each node materializes once into a Block
 materialized in front of an exchange: their chain is applied to the root
 block's columns inside the exchange, once per materialization.
 
-The reference resolves three plan settings per backend; on an accelerator
-they are dense_rbk_plan="fused_sort", dense_table_plan="off" and
-dense_sort_impl="xla", and those are the only plans ported (Context holds
-them). Exchanges run the blocking form of the reference's _run_exchange:
+Every plan of the reference is ported; the Context resolves them
+(context.py): dense_sort_impl (xla / packed / radix / radix4) for every
+sort of an exchange, dense_rbk_plan (fused_sort: one (bucket, key) sort
+feeds the map-side combine and a pregrouped exchange; sort_partition: a
+key sort, the combine, then a counting partition by bucket) and
+dense_table_plan (a warm reduce whose key range was observed small runs as
+a dense per-key table, with no sort and no row exchange).
+
+Exchanges run the reference's _run_exchange in both its forms. Blocking:
 the counts, the extra outputs and the overflow flags come back in one
 fetch, and an overflow retries at larger capacities, up to 6 rounds.
+Deferred (a hinted or fixed-capacity launch, unless a repair is running):
+the launch keeps its flags on the device and records a pending entry on
+the Context; the next host read (Block.counts_np, to_numpy, shard_rows, or
+DenseRDD.block()) settles every pending entry in one fetch and repairs a
+failed speculation, and what depends on it, in place.
 
 There is no host tier to fall back to: a row function that does not run on
 column tensors raises VegaError.
@@ -67,7 +77,19 @@ class DenseRDD:
 
     # --- device plane -------------------------------------------------------
     def block(self) -> Block:
-        """This node's Block, materialized once."""
+        """This node's Block, materialized once and SETTLED: a pending
+        deferred exchange is verified (and repaired on overflow) before the
+        block is handed out."""
+        blk = self.block_spec()
+        if blk.settle is not None:
+            blk.settle()
+        return blk
+
+    def block_spec(self) -> Block:
+        """block() without settlement: the Block may still carry an
+        unverified overflow flag. Only for exchange materializers, which
+        register their own pending entry, so a failed speculation
+        invalidates and repairs them too; everything else uses block()."""
         if self._block is None:
             self._block = self._materialize()
         return self._block
@@ -333,6 +355,22 @@ def _apply_chain(chain, cols, count):
     return cols, count
 
 
+def _chain_source(chain, blk: Block):
+    """A callable giving (cols, count): the root block's columns with the
+    narrow chain applied, computed at the first call and reused by every
+    later one (the sizing histograms and each build round). An exchange
+    reads its root unsettled (block_spec); its blocking path settles the
+    backlog first, where a repair may replace the root's columns in place,
+    so the first call must come at launch, never before."""
+    memo = []
+
+    def source():
+        if not memo:
+            memo.append(_apply_chain(chain, dict(blk.cols), blk.counts))
+        return memo[0]
+    return source
+
+
 # ---------------------------------------------------------------------------
 # exchange nodes
 # ---------------------------------------------------------------------------
@@ -391,13 +429,147 @@ def _elide_out_cap(blk: Block) -> int:
     return blk.capacity
 
 
+def _head(count: torch.Tensor, extras, overflow: torch.Tensor
+          ) -> torch.Tensor:
+    """One flat int64 device tensor of what a host read needs from a
+    launch: [count | extras... | overflow], n_shards entries each, so the
+    lot comes back in one transfer."""
+    return torch.cat([count.to(torch.int64)]
+                     + [e.to(torch.int64) for e in extras]
+                     + [overflow.to(torch.int64)])
+
+
+def _remember(store: dict, key, value) -> None:
+    """Insert with refreshed recency (pop, then insert at the young end)
+    and bound the store, dropping its oldest entries."""
+    store.pop(key, None)
+    store[key] = value
+    while len(store) > _HINT_STORE_MAX:
+        store.pop(next(iter(store)))
+
+
+def _settle_pending(ctx) -> None:
+    """Verify every deferred exchange of the Context in ONE device fetch;
+    repair failures in place (the reference's _settle_pending).
+
+    Per entry, in launch order: commit (write counts_host, refresh the
+    capacity hint, run on_success) when its flags are clean, its validator
+    agrees and no failed entry lies in its lineage; otherwise it fails.
+    Every failed entry's node is invalidated and rebuilt under _no_defer
+    (the blocking, histogram-sized path), and the clean result is copied
+    into the SAME Block object, so every reference a caller holds sees the
+    repair. If settlement dies part-way (a validator's hard error), every
+    entry not yet committed goes back on the backlog, in order."""
+    pend = ctx._pending
+    if not pend:
+        return
+    entries = list(pend)
+    pend.clear()  # repairs below re-enter _run_exchange -> _settle_pending
+    hint_store = ctx._capacity_hints
+
+    def depends_on(rdd, failed_rdds) -> bool:
+        seen, stack = set(), [rdd]
+        while stack:
+            node = stack.pop()
+            if id(node) in seen:
+                continue
+            seen.add(id(node))
+            if id(node) in failed_rdds:
+                return True
+            stack.extend(node._dense_parents)
+        return False
+
+    failed: List[dict] = []
+    failed_rdds: set = set()
+    i = 0
+    try:
+        fetched = torch.cat([e["head"] for e in entries]).cpu().numpy()
+        offset = 0
+        for i, e in enumerate(entries):
+            n = e["rdd"].n_shards
+            rows = 2 + e["n_extra"]
+            parts = fetched[offset:offset + rows * n].reshape(rows, n)
+            offset += rows * n
+            head, overflow = list(parts[:-1]), parts[-1]
+            if not (failed_rdds and depends_on(e["rdd"], failed_rdds)):
+                ok = not overflow.any()
+                validator_said_no = False
+                if ok and e["validate"] is not None:
+                    ok = e["validate"](head)  # may raise (join product)
+                    validator_said_no = not ok
+                if ok:
+                    # clean flags and no failed ancestor: commit, even after
+                    # an unrelated entry failed
+                    blk = e["block"]
+                    blk.counts_host = head[0].astype(np.int32)
+                    blk.settle = None
+                    if e["hint_key"] is not None:
+                        _remember(hint_store, e["hint_key"], e["caps"])
+                    if e["on_success"] is not None:
+                        e["on_success"](head)
+                    continue
+                # an overflow means the hinted capacities were wrong: drop
+                # the hint so the repair sizes from histograms (a validator
+                # failure keeps it: the validator stashed its own fix)
+                if e["hint_key"] is not None and not validator_said_no:
+                    hint_store.pop(e["hint_key"], None)
+            failed.append(e)
+            failed_rdds.add(id(e["rdd"]))
+    except BaseException:
+        # every entry not committed goes back, failed ones included:
+        # re-processing is idempotent, a stranded entry would serve
+        # truncated data
+        pend[:0] = failed + entries[i:]
+        raise
+    if not failed:
+        return
+    log.info("deferred exchange failed (%d of %d entries); repairing",
+             len(failed), len(entries))
+    for e in failed:
+        e["rdd"]._block = None
+        # until repaired, reads through held references fail loudly
+        e["block"].settle = _unrepaired_raise
+    ctx._no_defer = True
+    try:
+        for e in failed:
+            rdd, old = e["rdd"], e["block"]
+            fresh = rdd.block()  # blocking path: sized, fetched, verified
+            old.cols = fresh.cols
+            old.counts = fresh.counts
+            old.capacity = fresh.capacity
+            old.counts_host = fresh.counts_np
+            old.settle = None
+            rdd._block = old  # keep the object identity callers hold
+    finally:
+        ctx._no_defer = False
+
+
+def _unrepaired_raise():
+    raise VegaError(
+        "deferred block was invalidated by an exchange overflow and its "
+        "repair did not complete; re-run the pipeline")
+
+
 class _ExchangeRDD(DenseRDD):
     """Common exchange loop: run the exchange, check the overflow flags,
-    retry with grown capacities."""
+    retry with grown capacities; or launch deferred and settle later."""
 
     _last_counts_host: Optional[np.ndarray] = None
     _last_extra_host: Optional[List[np.ndarray]] = None
     _last_attempts = 0
+    _deferred_entry: Optional[dict] = None
+
+    def _attach_pending(self, blk: Block) -> Block:
+        """Register the deferred entry _run_exchange left behind (if any)
+        against the just-built Block; returns blk either way."""
+        entry, self._deferred_entry = self._deferred_entry, None
+        if entry is None:
+            return blk
+        entry["block"] = blk
+        ctx = self.context
+        ctx._pending.append(entry)
+        blk.settle = lambda: _settle_pending(ctx)
+        return blk
 
     def _hash_histogram(self, cols, count) -> Optional[np.ndarray]:
         """One counting pass over the keys: hist[s, t] = rows shard s will
@@ -413,16 +585,40 @@ class _ExchangeRDD(DenseRDD):
         return hist.cpu().numpy()
 
     def _run_exchange(self, build, counts, make_hists=None, hint_key=None,
-                      fixed_caps=None):
+                      fixed_caps=None, validate=None, on_success=None):
         """Run `build(slot, out_cap) -> ((count, extras, cols), overflow)`
-        with capacity sizing: `fixed_caps` (elided passthroughs), else a
-        capacity hint remembered for this lineage and input sizes, else
-        exact histograms from make_hists(), else the heuristic growth on
-        `counts()`. Each round fetches counts, extras and overflow flags in
-        one transfer; an overflow retries, at most 6 rounds."""
+        with capacity sizing: `fixed_caps` (elided passthroughs, the table
+        plan), else a capacity hint remembered for this lineage and input
+        sizes, else exact histograms from make_hists(), else the heuristic
+        growth on `counts()`. Returns (count, extras, cols, out_cap).
+
+        Deferred (fixed or hinted caps, unless a repair is running): one
+        launch without a fetch; the flags stay on the device in a pending
+        entry that _attach_pending registers and the next host read
+        settles, where `validate(head)` (a False sends the entry to repair)
+        and `on_success(head)` run. Blocking: settle the backlog first
+        (sizing must not trust truncated blocks), then each round fetches
+        counts, extras and overflow flags in one transfer; an overflow
+        retries, at most 6 rounds."""
         n = self.n_shards
-        hint_store = self.context._capacity_hints
+        ctx = self.context
+        hint_store = ctx._capacity_hints
         hinted = hint_key is not None and hint_key in hint_store
+        if (fixed_caps is not None or hinted) and not ctx._no_defer:
+            slot, out_cap = (fixed_caps if fixed_caps is not None
+                             else hint_store[hint_key])
+            (count, extras, cols), overflow = build(slot, out_cap)
+            self._last_attempts = 1
+            self._last_counts_host = None
+            self._last_extra_host = None
+            self._deferred_entry = dict(
+                rdd=self, head=_head(count, extras, overflow),
+                n_extra=len(extras),
+                hint_key=None if fixed_caps is not None else hint_key,
+                caps=(slot, out_cap), validate=validate,
+                on_success=on_success)
+            return count, extras, cols, out_cap
+        _settle_pending(ctx)
         hist_pair = None
         attempt = 0
         for round_i in range(_EXCHANGE_ROUNDS):
@@ -442,18 +638,13 @@ class _ExchangeRDD(DenseRDD):
                 attempt += 1
             (count, extras, cols), overflow = build(slot, out_cap)
             self._last_attempts = round_i + 1
-            head = torch.cat([count.to(torch.int64)]
-                             + [e.to(torch.int64) for e in extras]
-                             + [overflow.to(torch.int64)]).cpu().numpy()
-            parts = head.reshape(2 + len(extras), n)
+            parts = _head(count, extras, overflow).cpu().numpy().reshape(
+                2 + len(extras), n)
             if not parts[-1].any():
                 self._last_counts_host = parts[0].astype(np.int32)
                 self._last_extra_host = list(parts[1:-1])
                 if hint_key is not None:
-                    hint_store.pop(hint_key, None)  # refresh recency
-                    hint_store[hint_key] = (slot, out_cap)
-                    while len(hint_store) > _HINT_STORE_MAX:
-                        hint_store.pop(next(iter(hint_store)))
+                    _remember(hint_store, hint_key, (slot, out_cap))
                 return count, extras, cols, out_cap
             log.info("exchange overflow (slot=%d out=%d), retrying", slot,
                      out_cap)
@@ -463,10 +654,15 @@ class _ExchangeRDD(DenseRDD):
 
 
 class _ReduceByKeyRDD(_ExchangeRDD):
-    """reduce_by_key with a named op on the fused_sort plan: one stable
-    (bucket, key) sort feeds the presorted map-side combine and a
-    pregrouped exchange; the reduce side sorts and merges. A hash-placed
-    parent elides the exchange."""
+    """reduce_by_key with a named op under the Context's plans.
+    fused_sort: one stable (bucket, key) sort feeds the presorted map-side
+    combine and a pregrouped exchange. sort_partition: a key-only sort, the
+    presorted combine, then a stable counting partition by bucket and a
+    pregrouped exchange. The reduce side sorts and merges. A hash-placed
+    parent elides the exchange. With the table plan on, a warm run whose
+    key range was observed small reduces through a dense table instead."""
+
+    _table_plan = False  # whether the last materialization took the table
 
     def __init__(self, parent: DenseRDD, op: str):
         super().__init__(parent.context, parent.mesh, [parent])
@@ -482,7 +678,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         return self._block is not None
 
     def _settle_placement(self) -> None:
-        self.block()
+        self.block_spec()
 
     def _schema(self):
         return self.parent._schema()
@@ -490,26 +686,87 @@ class _ReduceByKeyRDD(_ExchangeRDD):
     def _fp_extra(self):
         return (self._op,)
 
+    def _bank_range(self, lo: np.ndarray, hi: np.ndarray) -> None:
+        """Remember the observed key range of this lineage and input sizes
+        (per-shard minima and maxima; empty shards report INT32_MAX /
+        INT32_MIN and fall out of the global min / max)."""
+        kmin, kmax = int(lo.min()), int(hi.max())
+        if kmin <= kmax:
+            _remember(self.context._key_range_hints, self._hint_key(),
+                      (kmin, kmax))
+
+    def _table_range(self, capacity: int) -> Optional[Tuple[int, int]]:
+        """(kmin, spread) of the table from the remembered key range, or
+        None: kmin aligned down to 4096 and the spread rounded to a
+        capacity bucket (a wider table is sound: extra slots end with no
+        rows and emit nothing), capped at min(2^22, 2 * capacity * n)."""
+        rng = self.context._key_range_hints.get(self._hint_key())
+        if rng is None:
+            return None
+        kmin = (int(rng[0]) >> 12) << 12  # floor, sign-safe
+        spread = block_lib._round_capacity(int(rng[1]) - kmin + 1)
+        if 0 < spread <= min(1 << 22, 2 * capacity * self.n_shards) \
+                and kmin + spread - 1 <= kernels.INT32_MAX:
+            return kmin, spread
+        return None
+
     def _materialize(self) -> Block:
         n = self.n_shards
         op = self._op
+        ctx = self.context
+        sort_impl = ctx.dense_sort_impl
+        plan = ctx.dense_rbk_plan
         self.parent._settle_placement()
         elide = self.parent.hash_placed and n > 1
         elide_sorted = elide and self.parent.key_sorted
         chain, root = (_narrow_chain(self.parent) if n > 1 and not elide
                        else ([], self.parent))
-        blk = root.block()
-        src_cols, src_count = _apply_chain(chain, dict(blk.cols), blk.counts)
-        names = [nm for nm, _ in self.parent._schema()]
+        blk = root.block_spec()  # we register our own pending entry
+        source = _chain_source(chain, blk)
+        schema = self.parent._schema()
+        names = [nm for nm, _ in schema]
+        # The table plan, and the key-range learning that arms it: named
+        # add/min/max over one 32-bit value column with an int32 key.
+        vnames = [nm for nm in names if nm != KEY]
+        learn_range = (
+            ctx.dense_table_plan == "on" and op in ("add", "min", "max")
+            and len(vnames) == 1 and dict(schema)[KEY] == torch.int32
+            and dict(schema)[vnames[0]] in (torch.int32, torch.float32))
+        table = (self._table_range(blk.capacity)
+                 if learn_range and not elide else None)
+        # _no_defer is checked right before the launch: under a repair the
+        # table plan is off, and a bad range repairs through the standard
+        # plan below
+        if table is not None and not ctx._no_defer:
+            self._table_plan = True
+            return self._run_table_plan(source, vnames[0], *table)
+        self._table_plan = False
 
         def build(slot, out_cap):
-            cols, count = dict(src_cols), src_count
-            capacity = cols[KEY].shape[1]
-            if n > 1 and not elide:
+            cols, count = source()
+            cols = dict(cols)
+            if n > 1 and not elide and plan == "sort_partition":
+                # key-only sort -> presorted map-side combine -> counting
+                # partition of the (often much smaller) combined rows;
+                # equal keys share a bucket, so combining across bucket
+                # boundaries is safe
+                cols = kernels.sort_by_column(cols, count, KEY,
+                                              impl=sort_impl)
+                cols, count = kernels.segment_reduce_named(
+                    cols, count, KEY, op, presorted=True)
+                capacity = cols[KEY].shape[1]
+                bucket = torch.where(kernels.valid_mask(capacity, count),
+                                     _bucket_cols(cols, n), n)
+                cols, bucket = kernels.partition_by_bucket(
+                    cols, bucket, n, sort_impl=sort_impl)
+                cols, count, overflow = kernels.bucket_exchange(
+                    cols, count, bucket, n, slot, out_cap, pregrouped=True)
+            elif n > 1 and not elide:
+                capacity = cols[KEY].shape[1]
                 mask = kernels.valid_mask(capacity, count)
                 bucket = torch.where(mask, _bucket_cols(cols, n), n)
-                cols, bucket = kernels.bucket_key_sort(cols, count, bucket,
-                                                       KEY)
+                cols, bucket = kernels.bucket_key_sort(
+                    cols, count, bucket, KEY, impl=sort_impl, n_shards=n)
                 # map-side combine over the (bucket, key)-sorted rows
                 cols, count = kernels.segment_reduce_named(
                     cols, count, KEY, op, presorted=True)
@@ -521,27 +778,111 @@ class _ReduceByKeyRDD(_ExchangeRDD):
             elif not elide:
                 bucket = torch.zeros_like(cols[KEY], dtype=torch.int32)
                 cols, count, overflow = kernels.bucket_exchange(
-                    cols, count, bucket, n, slot, out_cap)
+                    cols, count, bucket, n, slot, out_cap,
+                    sort_impl=sort_impl)
             else:
                 cols, count, overflow = kernels.passthrough_exchange(
-                    cols, count, capacity, out_cap)
+                    cols, count, cols[KEY].shape[1], out_cap)
             # reduce-side merge
             cols, count = kernels.segment_reduce_named(
-                cols, count, KEY, op, presorted=elide_sorted)
-            return (count, [], {nm: cols[nm] for nm in names}), overflow
+                cols, count, KEY, op, presorted=elide_sorted,
+                sort_impl=sort_impl)
+            extras = []
+            if learn_range:
+                # the output's key range rides the counts fetch: it arms
+                # the table plan for the next warm run
+                keys = cols[KEY]
+                mask = kernels.valid_mask(keys.shape[1], count)
+                extras = [torch.where(mask, keys, kernels.INT32_MAX).amin(1),
+                          torch.where(mask, keys, kernels.INT32_MIN).amax(1)]
+            return (count, extras, {nm: cols[nm] for nm in names}), overflow
 
+        # deferred launches bank the range when they commit
+        on_success = ((lambda head: self._bank_range(head[-2], head[-1]))
+                      if learn_range else None)
         if elide:
             count, _, cols, out_cap = self._run_exchange(
                 build, lambda: blk.counts_np,
-                fixed_caps=(0, _elide_out_cap(blk)))
+                fixed_caps=(0, _elide_out_cap(blk)), on_success=on_success)
         else:
             count, _, cols, out_cap = self._run_exchange(
                 build, lambda: blk.counts_np,
                 make_hists=lambda: (
-                    [self._hash_histogram(src_cols, src_count)], None),
-                hint_key=self._hint_key())
-        return Block(cols=cols, counts=count, capacity=out_cap,
-                     mesh=self.mesh, counts_host=self._last_counts_host)
+                    [self._hash_histogram(*source())], None),
+                hint_key=self._hint_key(), on_success=on_success)
+        if learn_range and self._last_extra_host is not None:
+            self._bank_range(*self._last_extra_host[-2:])  # blocking path
+        return self._attach_pending(Block(
+            cols=cols, counts=count, capacity=out_cap, mesh=self.mesh,
+            counts_host=self._last_counts_host))
+
+    def _run_table_plan(self, source, vname: str, kmin: int,
+                        spread: int) -> Block:
+        """The reduce as a dense table over keys [kmin, kmin + spread):
+        each shard scatters its rows into its own [spread] table, the
+        tables reduce over the shard dimension (the reference's
+        collective), and each shard keeps the keys it owns
+        (hash_bucket(key) == s, count > 0) through compact. No sort, no
+        row exchange; the output is hash-placed and key-sorted.
+
+        Always a deferred fixed-capacity launch: a valid key outside the
+        range (checked on the raw key values, never by a subtraction that
+        could wrap) or an output overflow sets the shard's flag, and
+        settlement repairs through the standard plan."""
+        n = self.n_shards
+        op = self._op
+        out_cap = block_lib._round_capacity(
+            min(spread, int(spread / max(n, 1) * 1.3) + 128))
+
+        def build(slot, out_cap_):
+            src_cols, src_count = source()
+            keys, vals = src_cols[KEY], src_cols[vname]
+            dev = keys.device
+            valid = kernels.valid_mask(keys.shape[1], src_count)
+            in_range = (keys >= kmin) & (keys <= kmin + spread - 1)
+            bad = (valid & ~in_range).any(dim=1)
+            # dropped rows land in slot `spread` of their shard's table
+            idx = torch.where(valid & in_range, keys.to(torch.int64) - kmin,
+                              spread)
+            flat = (idx + torch.arange(n, device=dev)[:, None]
+                    * (spread + 1)).reshape(-1)
+            size = n * (spread + 1)
+            if op == "add":
+                tbl = vals.new_zeros(size).index_add_(0, flat,
+                                                      vals.reshape(-1))
+                tbl = tbl.view(n, spread + 1)[:, :spread].sum(
+                    dim=0, dtype=vals.dtype)
+            else:
+                # the identity of the op fills keys a shard does not hold
+                # and the reduction over shards is the op itself
+                if vals.dtype.is_floating_point:
+                    init = float("inf") if op == "min" else float("-inf")
+                else:
+                    init = kernels.INT32_MAX if op == "min" \
+                        else kernels.INT32_MIN
+                tbl = vals.new_full((size,), init).scatter_reduce_(
+                    0, flat, vals.reshape(-1), "amin" if op == "min"
+                    else "amax")
+                tbl = tbl.view(n, spread + 1)[:, :spread]
+                tbl = tbl.amin(dim=0) if op == "min" else tbl.amax(dim=0)
+            cnt = torch.zeros(size, dtype=torch.int32, device=dev)
+            cnt.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+            cnt = cnt.view(n, spread + 1)[:, :spread].sum(dim=0)
+            table_keys = (kmin + torch.arange(spread, device=dev)).to(
+                torch.int32)
+            owner = _bucket_cols({KEY: table_keys[None, :]}, n)
+            mine = (owner == torch.arange(n, device=dev)[:, None]) \
+                & (cnt > 0)[None, :]  # absent keys emit no row
+            out, count = kernels.compact(
+                {KEY: table_keys.expand(n, spread),
+                 vname: tbl.expand(n, spread)}, mine, out_cap_)
+            return (count, [], out), bad | (count > out_cap_)
+
+        count, _, cols, _ = self._run_exchange(
+            build, None, fixed_caps=(0, out_cap))
+        return self._attach_pending(Block(
+            cols=cols, counts=count, capacity=out_cap, mesh=self.mesh,
+            counts_host=self._last_counts_host))
 
 
 class _JoinRDD(_ExchangeRDD):
@@ -568,6 +909,7 @@ class _JoinRDD(_ExchangeRDD):
 
     def _materialize(self) -> Block:
         n = self.n_shards
+        sort_impl = self.context.dense_sort_impl
         self.left._settle_placement()
         self.right._settle_placement()
         l_elide = self.left.hash_placed and n > 1
@@ -578,34 +920,34 @@ class _JoinRDD(_ExchangeRDD):
         def side_input(node, elide):
             chain, root = (_narrow_chain(node) if n > 1 and not elide
                            else ([], node))
-            blk = root.block()
-            cols, count = _apply_chain(chain, dict(blk.cols), blk.counts)
-            return blk, cols, count
+            blk = root.block_spec()  # we register our own pending entry
+            return blk, _chain_source(chain, blk)
 
-        lblk, lcols0, lcount0 = side_input(self.left, l_elide)
-        rblk, rcols0, rcount0 = side_input(self.right, r_elide)
+        lblk, lsource = side_input(self.left, l_elide)
+        rblk, rsource = side_input(self.right, r_elide)
         join_cap_override: List[Optional[int]] = [None]
         join_cap_used = [0]
 
-        def one_side(cols, count, elide, slot, out_cap):
+        def one_side(source, elide, slot, out_cap):
+            cols, count = source()
+            cols = dict(cols)
             if elide:
                 return kernels.passthrough_exchange(
                     cols, count, cols[KEY].shape[1], out_cap)
             bucket = (_bucket_cols(cols, n) if n > 1
                       else torch.zeros_like(cols[KEY], dtype=torch.int32))
             return kernels.bucket_exchange(cols, count, bucket, n, slot,
-                                           out_cap)
+                                           out_cap, sort_impl=sort_impl)
 
         def build(slot, out_cap):
             join_cap = join_cap_override[0] or out_cap
             join_cap_used[0] = join_cap
-            lc, lcount, lof = one_side(dict(lcols0), lcount0, l_elide, slot,
-                                       out_cap)
-            rc, rcount, rof = one_side(dict(rcols0), rcount0, r_elide, slot,
-                                       out_cap)
+            lc, lcount, lof = one_side(lsource, l_elide, slot, out_cap)
+            rc, rcount, rof = one_side(rsource, r_elide, slot, out_cap)
             joined, jcount, jtotal = kernels.merge_join_expand(
                 lc, lcount, rc, rcount, KEY, join_cap,
-                left_sorted=l_sorted, right_sorted=r_sorted)
+                left_sorted=l_sorted, right_sorted=r_sorted,
+                sort_impl=sort_impl)
             cols = {KEY: joined[KEY], "lv": joined[VALUE],
                     "rv": joined[f"r_{VALUE}"]}
             return (jcount, [jtotal], cols), lof | rof
@@ -613,10 +955,11 @@ class _JoinRDD(_ExchangeRDD):
         counts_fn = lambda: np.concatenate([lblk.counts_np, rblk.counts_np])
 
         def make_hists():
+            # blocking path only (after settlement), so counts_np is free
             hs = [np.diag(lblk.counts_np) if l_elide
-                  else self._hash_histogram(lcols0, lcount0),
+                  else self._hash_histogram(*lsource()),
                   np.diag(rblk.counts_np) if r_elide
-                  else self._hash_histogram(rcols0, rcount0)]
+                  else self._hash_histogram(*rsource())]
             # elided (diagonal) sides never send: keep them out of slots
             return hs, [h for h, el in zip(hs, (l_elide, r_elide)) if not el]
 
@@ -626,8 +969,11 @@ class _JoinRDD(_ExchangeRDD):
         if jc_key in hint_store:
             join_cap_override[0] = hint_store[jc_key]
 
-        def product_fits() -> bool:
-            jtot = int(self._last_extra_host[0].max(initial=0))
+        def validate(head) -> bool:
+            """The product-size policy of both paths: raise past 2^31 rows
+            on a shard; a product beyond the capacity used stashes its
+            exact capacity for the rerun and fails."""
+            jtot = int(head[1].max(initial=0))
             if jtot >= kernels.INT32_MAX:
                 raise VegaError(
                     "dense join product exceeds 2^31 rows on one shard — "
@@ -638,17 +984,28 @@ class _JoinRDD(_ExchangeRDD):
                 return False
             return True
 
-        count, _, cols, _ = self._run_exchange(
-            build, counts_fn, make_hists=make_hists, hint_key=hint)
-        if not product_fits():
-            # The kernel reported the exact product size: one resized
-            # rerun is guaranteed to fit.
-            join_cap_override[0] = hint_store[jc_key]
-            count, _, cols, _ = self._run_exchange(
-                build, counts_fn, make_hists=make_hists, hint_key=hint)
-            product_fits()
-        return Block(cols=cols, counts=count, capacity=join_cap_used[0],
-                     mesh=self.mesh, counts_host=self._last_counts_host)
+        def on_success(_head):
+            if join_cap_override[0]:
+                _remember(hint_store, jc_key, join_cap_override[0])
+
+        def run():
+            return self._run_exchange(build, counts_fn, make_hists=make_hists,
+                                      hint_key=hint, validate=validate,
+                                      on_success=on_success)
+
+        count, _, cols, _ = run()
+        if self._deferred_entry is None:
+            # blocking path: the same checks the deferred entry runs at
+            # settlement; the kernel reported the exact product size, so
+            # one resized rerun is guaranteed to fit
+            if not validate([None, self._last_extra_host[0]]):
+                join_cap_override[0] = hint_store[jc_key]
+                count, _, cols, _ = run()
+            if self._deferred_entry is None and join_cap_override[0]:
+                on_success(None)
+        return self._attach_pending(Block(
+            cols=cols, counts=count, capacity=join_cap_used[0],
+            mesh=self.mesh, counts_host=self._last_counts_host))
 
     def collect(self) -> list:
         cols = self.block().to_numpy()

@@ -10,13 +10,16 @@ dynamic dimension, so nothing here waits for the device except where a
 caller fetches counts and overflow flags. Capacity overflow is reported per
 shard as a flag the caller checks before it retries larger.
 
-Only the `xla` sort form of the reference is ported (stable torch sorts);
-the radix and packed forms, traced reduces and wide int64 keys come later.
+Every sort form of the reference is ported (dense_sort_impl): `xla` (stable
+torch sorts), `packed` (one int64 sort of (word << 31) | position per
+word), and `radix` / `radix4` (stable LSD passes of 8- or 4-bit digits, each
+through the digit_hist and partition_pos kernels at 256 or 16 bins).
+Traced reduces and wide int64 keys come later.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -26,6 +29,33 @@ from vega_tpu_torch.errors import VegaError
 Cols = Dict[str, torch.Tensor]
 
 INT32_MAX = 2**31 - 1
+INT32_MIN = -2**31
+
+# ---------------------------------------------------------------------------
+# plan resolution
+# ---------------------------------------------------------------------------
+
+SORT_IMPLS = ("auto", "xla", "packed", "radix", "radix4")
+RBK_PLANS = ("auto", "fused_sort", "sort_partition")
+TABLE_PLANS = ("auto", "on", "off")
+
+
+def resolve_backend_mode(name: str, value: str, allowed: tuple,
+                         cpu_choice: str, other_choice: str,
+                         device: torch.device) -> str:
+    """Validate a per-backend plan setting (dense_sort_impl,
+    dense_rbk_plan, dense_table_plan) and resolve 'auto' by the device the
+    Context runs on, as the reference resolves it by backend: cpu_choice on
+    the CPU, other_choice on an accelerator. A misspelt value raises rather
+    than silently running the default."""
+    if value not in allowed:
+        raise VegaError(
+            f"{name} must be one of {', '.join(repr(a) for a in allowed)}; "
+            f"got {value!r}")
+    if value == "auto":
+        return cpu_choice if torch.device(device).type == "cpu" \
+            else other_choice
+    return value
 
 # ---------------------------------------------------------------------------
 # hashing / masks / compaction
@@ -102,7 +132,8 @@ def passthrough_exchange(cols: Cols, count: torch.Tensor, capacity: int,
     return out, new_count, new_count > out_capacity
 
 
-def _group_by_bucket(cols: Cols, bucket: torch.Tensor, n_shards: int):
+def _group_by_bucket(cols: Cols, bucket: torch.Tensor, n_shards: int,
+                     sort_impl: str = "xla"):
     """Stable-group each shard's rows by target bucket (values in
     [0, n_shards], n_shards the ghost bucket of invalid rows); returns
     (grouped cols, counts_to int32[n_shards, n_shards],
@@ -110,7 +141,13 @@ def _group_by_bucket(cols: Cols, bucket: torch.Tensor, n_shards: int):
 
     Up to 64 shards a counting partition: the histogram kernel gives the
     per-bucket counts and the rank kernel each row's position, one scatter
-    per column places it. More shards take the stable sort by bucket."""
+    per column places it. More shards take the stable sort by bucket: the
+    packed sort under sort_impl='packed', else torch's stable sort.
+
+    The reference's prefer_low_memory has no counterpart: the rank kernel
+    streams in O(cap) on the card and its plain version is one stable sort,
+    so neither builds the O(cap * n_shards) one-hot intermediates that the
+    reference's low-memory form avoids."""
     counts_all = cuda_kernels.bucket_hist(bucket, n_shards + 1)
     counts_to = counts_all[:, :n_shards]
     starts_all = (torch.cumsum(counts_all, dim=1, dtype=torch.int32)
@@ -123,17 +160,24 @@ def _group_by_bucket(cols: Cols, bucket: torch.Tensor, n_shards: int):
         grouped = {name: _scatter_rows(col, pos.to(torch.int64), capacity)
                    for name, col in cols.items()}
         return grouped, counts_to, starts
-    order = torch.sort(bucket, dim=1, stable=True).indices
+    if sort_impl == "packed":
+        every_row = torch.full((bucket.shape[0],), bucket.shape[1],
+                               dtype=torch.int32, device=bucket.device)
+        order = packed_sort_perm(orderable_words([bucket]), every_row)
+    else:
+        order = torch.sort(bucket, dim=1, stable=True).indices
     return gather_rows(cols, order), counts_to, starts
 
 
-def partition_by_bucket(cols: Cols, bucket: torch.Tensor,
-                        n_shards: int) -> Tuple[Cols, torch.Tensor]:
+def partition_by_bucket(cols: Cols, bucket: torch.Tensor, n_shards: int,
+                        sort_impl: str = "xla"
+                        ) -> Tuple[Cols, torch.Tensor]:
     """Stable counting partition: each shard's rows become contiguous per
-    bucket (the ghost bucket last), in-bucket order kept. Returns
-    (grouped cols, grouped bucket)."""
+    bucket (the ghost bucket last), in-bucket order kept: the
+    sort_partition reduce plan's grouping step. Returns (grouped cols,
+    grouped bucket)."""
     grouped, _cto, _starts = _group_by_bucket(
-        dict(cols, __bucket=bucket), bucket, n_shards)
+        dict(cols, __bucket=bucket), bucket, n_shards, sort_impl=sort_impl)
     b = grouped.pop("__bucket")
     return grouped, b
 
@@ -150,7 +194,7 @@ def pregrouped_group(bucket: torch.Tensor, n_shards: int):
 
 def bucket_exchange(cols: Cols, count: torch.Tensor, bucket: torch.Tensor,
                     n_shards: int, slot_capacity: int, out_capacity: int,
-                    pregrouped: bool = False):
+                    pregrouped: bool = False, sort_impl: str = "xla"):
     """All-to-all by bucket id on one device. Returns
     (cols [n_shards, out_capacity], new_count int32[n_shards],
     overflow bool[n_shards]).
@@ -169,8 +213,8 @@ def bucket_exchange(cols: Cols, count: torch.Tensor, bucket: torch.Tensor,
         counts_to, starts = pregrouped_group(bucket, n_shards)
         sorted_cols = cols
     else:
-        sorted_cols, counts_to, starts = _group_by_bucket(cols, bucket,
-                                                          n_shards)
+        sorted_cols, counts_to, starts = _group_by_bucket(
+            cols, bucket, n_shards, sort_impl=sort_impl)
     overflow_send = (counts_to > slot_capacity).any(dim=1)
 
     dev = bucket.device
@@ -199,50 +243,196 @@ def bucket_exchange(cols: Cols, count: torch.Tensor, bucket: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# sorts (the reference's `xla` form: stable multi-key sorts)
+# sorts: the `xla` form (stable torch sorts), the `packed` form (one int64
+# sort per word) and the `radix` / `radix4` forms (LSD passes through the
+# digit_hist and partition_pos kernels)
 # ---------------------------------------------------------------------------
+
+_WORD_MAX = 0xFFFFFFFF  # the largest orderable word
 
 
 def _orderable_u32(col: torch.Tensor) -> torch.Tensor:
     """int64 in [0, 2^32) whose order equals the column's order (int32:
-    sign bit flipped; float32: sign-magnitude flip)."""
+    sign bit flipped; float32: sign-magnitude flip). torch has no uint32
+    arithmetic on every device, so words are int64 holding uint32 values:
+    bit-identical to the reference's uint32 words."""
     if col.dtype == torch.int32:
-        return (col.to(torch.int64) & 0xFFFFFFFF) ^ 0x80000000
+        return (col.to(torch.int64) & _WORD_MAX) ^ 0x80000000
     if col.dtype == torch.float32:
-        u = col.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        u = col.view(torch.int32).to(torch.int64) & _WORD_MAX
         neg = (u >> 31) != 0
-        return torch.where(neg, u ^ 0xFFFFFFFF, u ^ 0x80000000)
+        return torch.where(neg, u ^ _WORD_MAX, u ^ 0x80000000)
     raise VegaError(f"sort keys must be int32 or float32, got {col.dtype}")
 
 
+def orderable_words(cols) -> List[torch.Tensor]:
+    """[_orderable_u32(c)] for a sequence of 32-bit columns: the one site
+    that builds radix and packed words from columns."""
+    return [_orderable_u32(c) for c in cols]
+
+
+def _radix_supported(key: torch.Tensor) -> bool:
+    return key.dtype in (torch.int32, torch.float32)
+
+
 def _orderable_max(col: torch.Tensor):
+    """The column dtype's largest value, as a Python scalar: a scalar
+    tensor built on the card would be a host-to-device copy, which torch
+    follows with a stream synchronize, stalling the host behind every
+    launch still in flight (a deferred exchange's above all)."""
     if col.dtype.is_floating_point:
-        return torch.tensor(float("inf"), dtype=col.dtype, device=col.device)
-    return torch.tensor(torch.iinfo(col.dtype).max, dtype=col.dtype,
-                        device=col.device)
+        return float("inf")
+    return torch.iinfo(col.dtype).max
 
 
-def sort_by_column(cols: Cols, count: torch.Tensor, key_name: str) -> Cols:
+def radix_sort_perm(words: List[torch.Tensor], count: torch.Tensor,
+                    descending: bool = False, bits: int = 8,
+                    word_bits: Optional[List[int]] = None) -> torch.Tensor:
+    """Stable LSD radix sort permutation of each shard's rows over
+    orderable words (int64 [n_shards, cap] holding uint32 values, LEAST
+    significant word first); ghost rows (index >= count) sink to the end.
+    Returns int64 [n_shards, cap]: output row j of shard s is source row
+    perm[s, j] (gather_rows semantics).
+
+    Each pass extracts one digit per row as contiguous int32, counts the
+    digits (digit_hist, the reference's radix_hist), takes each shard's
+    exclusive prefix as the starts, ranks the rows (partition_pos, the
+    reference's radix_pos) and scatters the still-needed words and the
+    permutation to their positions; payload columns move once, through the
+    returned permutation. word_bits gives each word's significant width
+    (default 32 each): a bucket id carried as the most significant word at
+    8 bits costs one pass instead of four. Narrow words must be bounded by
+    their width; descending needs full-width words (the flip is
+    w ^ 0xFFFFFFFF, the reference's ~w on uint32)."""
+    if word_bits is None:
+        word_bits = [32] * len(words)
+    if descending and any(b != 32 for b in word_bits):
+        raise VegaError("radix_sort_perm: descending needs 32-bit words")
+    n_shards, cap = words[0].shape
+    mask = valid_mask(cap, count)
+    active = []
+    for w, wb in zip(words, word_bits):
+        if descending:
+            w = w ^ _WORD_MAX
+        # ghosts get the word's maximum on every pass: they start last
+        # and stay last under stability
+        active.append(torch.where(mask, w, (1 << wb) - 1))
+    widths = list(word_bits)
+    perm = torch.arange(cap, device=count.device).expand(n_shards,
+                                                         cap).contiguous()
+    n_bins = 1 << bits
+    while active:
+        for shift in range(0, widths[0], bits):
+            digits = ((active[0] >> shift) & (n_bins - 1)).to(torch.int32)
+            hist = cuda_kernels.digit_hist(digits, n_bins)
+            starts = (torch.cumsum(hist, dim=1, dtype=torch.int32)
+                      - hist).contiguous()
+            # a full permutation of each shard: every digit is in range
+            pos = cuda_kernels.partition_pos(digits, n_bins,
+                                             starts).to(torch.int64)
+            active = [torch.empty_like(a).scatter_(1, pos, a)
+                      for a in active]
+            perm = torch.empty_like(perm).scatter_(1, pos, perm)
+        active = active[1:]  # this word's digits are consumed
+        widths = widths[1:]
+    return perm
+
+
+def packed_sort_perm(words: List[torch.Tensor], count: torch.Tensor,
+                     descending: bool = False) -> torch.Tensor:
+    """Stable sort permutation over orderable words (LSD first) from one
+    int64 sort per word of (word << 31) | position: the position in the
+    low 31 bits is the stability tie-break, so each pass is a sort of
+    distinct values. Ghost rows (index >= count) get the maximal word and,
+    tying with valid rows at most, stay behind them by position. Returns
+    int64 [n_shards, cap].
+
+    The reference skips a more-significant word that is constant over the
+    valid rows with a device-side lax.cond; running that pass gives the
+    identical permutation (every valid row ties, ghosts stay last), so this
+    runs it and never asks the host. Needs cap < 2^31 (the position must
+    fit 31 bits; word << 31 then stays below 2^63)."""
+    n_shards, cap = words[0].shape
+    if cap >= (1 << 31):
+        raise VegaError("packed_sort_perm: capacity must fit 31 bits")
+    mask = valid_mask(cap, count)
+    position = torch.arange(cap, device=count.device)
+    order = None
+    for w in words:  # LSD -> MSD: one stable pass per word
+        if descending:
+            w = w ^ _WORD_MAX
+        w = torch.where(mask, w, _WORD_MAX)
+        wp = w if order is None else torch.gather(w, 1, order)
+        pos = torch.sort((wp << 31) | position, dim=1).values & INT32_MAX
+        order = pos if order is None else torch.gather(order, 1, pos)
+    return order
+
+
+def _sort_words_perm(words, count, impl: str, descending: bool = False,
+                     word_bits=None) -> torch.Tensor:
+    """The permutation of the packed or radix form over orderable words."""
+    if impl == "packed":
+        return packed_sort_perm(words, count, descending)
+    return radix_sort_perm(words, count, descending,
+                           bits=4 if impl == "radix4" else 8,
+                           word_bits=word_bits)
+
+
+def sort_by_column(cols: Cols, count: torch.Tensor, key_name: str,
+                   descending: bool = False, impl: str = "xla") -> Cols:
     """Stable sort of each shard's valid rows by one column; invalid rows
-    sink to the end."""
+    sink to the end. impl (the Context's dense_sort_impl) 'radix' /
+    'radix4' / 'packed' sorts int32 and float32 keys by their orderable
+    words; 'xla' (and any other key dtype) takes torch's stable sort."""
     key = cols[key_name]
+    if impl in ("radix", "radix4", "packed") and _radix_supported(key):
+        order = _sort_words_perm(orderable_words([key]), count, impl,
+                                 descending)
+        return gather_rows(cols, order)
     mask = valid_mask(key.shape[1], count)
+    if descending:
+        # bitwise-not is the overflow-free order flip for ints (negation
+        # wraps INT32_MIN onto itself); floats negate exactly
+        key = -key if key.dtype.is_floating_point else torch.bitwise_not(key)
     order = torch.sort(torch.where(mask, key, _orderable_max(key)), dim=1,
                        stable=True).indices
     return gather_rows(cols, order)
 
 
 def bucket_key_sort(cols: Cols, count: torch.Tensor, bucket: torch.Tensor,
-                    key_name: str) -> Tuple[Cols, torch.Tensor]:
-    """One stable sort per shard by (bucket major, key minor), as a single
-    stable sort of the packed int64 (bucket << 32) | orderable(key). Rows
-    become bucket-grouped with a key-sorted run per bucket, feeding both the
+                    key_name: str, impl: str = "xla",
+                    n_shards: Optional[int] = None
+                    ) -> Tuple[Cols, torch.Tensor]:
+    """One stable sort per shard by (bucket major, key minor). Rows become
+    bucket-grouped with a key-sorted run per bucket, feeding both the
     presorted map-side combine and a pregrouped exchange. The caller has
     ghosted invalid rows (bucket = n_shards) so they sink to the end.
-    Returns (cols, bucket), both permuted."""
-    del count  # ghosted buckets already order the invalid rows last
-    packed = (bucket.to(torch.int64) << 32) | _orderable_u32(cols[key_name])
-    order = torch.sort(packed, dim=1, stable=True).indices
+    Returns (cols, bucket), both permuted.
+
+    impl 'xla': a single stable sort of the packed int64
+    (bucket << 32) | orderable(key). 'radix' / 'radix4': the key's word
+    passes plus one narrow pass (two at 4 bits) for the bucket as an 8-bit
+    most significant word, which needs n_shards < 255 so the ghost bucket
+    fits; more shards keep the 'xla' form. 'packed': one packed pass for
+    the key word, then one for the bucket word."""
+    key = cols[key_name]
+    if impl.startswith("radix") and n_shards is not None \
+            and n_shards < 255 and _radix_supported(key):
+        words = orderable_words([key]) + [bucket.to(torch.int64)]
+        order = _sort_words_perm(words, count, impl, word_bits=[32, 8])
+    elif impl == "packed" and _radix_supported(key):
+        order = _sort_words_perm(orderable_words([key, bucket]), count,
+                                 impl)
+    else:
+        # ghosted buckets already order the invalid rows last. The
+        # reference's comparator sort ties -0.0 with +0.0 and every NaN
+        # with every other (after +inf): canonical values give the words
+        # the same ties
+        if key.dtype.is_floating_point:
+            key = torch.where(key == 0, 0.0, key)
+            key = torch.where(torch.isnan(key), float("nan"), key)
+        packed = (bucket.to(torch.int64) << 32) | _orderable_u32(key)
+        order = torch.sort(packed, dim=1, stable=True).indices
     return gather_rows(cols, order), torch.gather(bucket, 1, order)
 
 
@@ -254,16 +444,18 @@ SEGMENT_OPS = ("add", "min", "max", "prod")
 
 
 def segment_reduce_named(cols: Cols, count: torch.Tensor, key_name: str,
-                         op: str, presorted: bool = False
+                         op: str, presorted: bool = False,
+                         sort_impl: str = "xla"
                          ) -> Tuple[Cols, torch.Tensor]:
     """Per-shard reduce of every value column over runs of equal keys with
     a named monoid (add/min/max/prod). Returns compacted (cols, count):
-    segment i of shard s in row i, key-sorted, zeros past the count."""
+    segment i of shard s in row i, key-sorted, zeros past the count.
+    Unless presorted, the rows are first sorted by key with sort_impl."""
     if op not in SEGMENT_OPS:
         raise VegaError(f"unknown segment op {op!r}; expected one of "
                         f"{SEGMENT_OPS}")
     if not presorted:
-        cols = sort_by_column(cols, count, key_name)
+        cols = sort_by_column(cols, count, key_name, impl=sort_impl)
     keys = cols[key_name]
     n_shards, capacity = keys.shape
     mask = valid_mask(capacity, count)
@@ -326,17 +518,18 @@ def merge_join_expand(left: Cols, left_count: torch.Tensor, right: Cols,
                       right_count: torch.Tensor, key_name: str,
                       out_capacity: int, outer: bool = False,
                       fill_value=0, left_sorted: bool = False,
-                      right_sorted: bool = False):
+                      right_sorted: bool = False, sort_impl: str = "xla"):
     """Per-shard sort-merge join with duplicate keys on both sides (the
     full dup x dup product per key; left outer keeps unmatched left rows
     with fill_value). Output rows follow the left sort order in a fixed
     out_capacity. Returns (cols, count, total): count = min(total,
     out_capacity) and total the exact product size, which the caller uses
-    to size one exact retry. Right value columns come out as "r_<name>"."""
+    to size one exact retry. Right value columns come out as "r_<name>".
+    An unsorted side is sorted by key with sort_impl."""
     if not left_sorted:
-        left = sort_by_column(left, left_count, key_name)
+        left = sort_by_column(left, left_count, key_name, impl=sort_impl)
     if not right_sorted:
-        right = sort_by_column(right, right_count, key_name)
+        right = sort_by_column(right, right_count, key_name, impl=sort_impl)
     lkeys = left[key_name]
     rkeys = right[key_name]
     lcap, rcap = lkeys.shape[1], rkeys.shape[1]
@@ -366,8 +559,7 @@ def merge_join_expand(left: Cols, left_count: torch.Tensor, right: Cols,
             continue
         taken = torch.gather(col, 1, ri)
         if outer:
-            taken = torch.where(row_matched, taken, torch.tensor(
-                fill_value, dtype=col.dtype, device=col.device))
+            taken = torch.where(row_matched, taken, fill_value)
         out[f"r_{name}"] = taken
     count = torch.clamp(total, max=out_capacity).to(torch.int32)
     return out, count, total
