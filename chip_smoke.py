@@ -33,10 +33,23 @@ Phases, in order; any failure exits non-zero before the last line:
      run's digit_hist and partition_pos launches exceed the default plan's
      by at least the radix passes of the plan's sorts (radix_passes). The
      table plan's warm run must take the table, and a run with a poisoned
-     key-range hint must be repaired and equal numpy.
-Prints the radix-shape rows, the main path's rows/s, each plan's line, the
-kernel table as one JSON line, the card line, and last
-{"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+     key-range hint must be repaired and equal numpy;
+  5. keyed: BASELINE configs 1, 4 and 5 (benchmarks/suite.py's
+     generators), each in a fresh Context(n_shards=8): config 1
+     group_by_key().collect_grouped() over 10M (int64 key beyond int32,
+     float64 value) pairs with 250,000 keys; config 4 cogroup of two
+     50M-row int32-keyed sides (count() and collect_grouped()) and the
+     cartesian product of two 10,000-row sides (count()); config 5
+     sort_by_key().take(10) and take_ordered(10) over 125M pairs with
+     int64 keys uniform in [-2^45, 2^45). A cold run equals numpy, three
+     warm runs give a median rows/s (the host build of the sources and
+     each step timed apart), and the cold and first warm run must launch digit_hist and
+     partition_pos (config 4 hash_bucket too); the peak device memory is
+     reported.
+Prints the radix-shape rows, the main path's rows/s, each plan's line,
+each keyed config's line, the kernel table as one JSON line, the card
+line, and last {"ok": true, "device": {...}}. Details go to
+chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
 """
@@ -58,6 +71,9 @@ L2_FLUSH_BYTES = 64 << 20      # written before each timed run (L2: 50 MB)
 LAUNCHES_PER_RUN = 20          # back-to-back calls between two events
 RUNS = 5                       # timed runs per kernel: median, min, max
 REPEATS = 50                   # partition_pos launches on one input
+C1_ROWS, C1_KEYS = 10_000_000, 250_000   # phase 5, config 1
+C4_ROWS, C4_CART = 50_000_000, 10_000    # config 4: each side; m
+C5_ROWS = 125_000_000                    # config 5
 # phase 4: (label, Context settings); the default plan is phase 3's
 PLANS = [
     ("radix", dict(dense_sort_impl="radix")),
@@ -635,6 +651,286 @@ def phase_plans(torch, np, ck, vt, default):
     return out
 
 
+def valid_sum(torch, blk, name):
+    """The int64 sum of a column's valid rows, on the card."""
+    from vega_tpu_torch import kernels
+    col = blk.cols[name]
+    mask = kernels.valid_mask(col.shape[1], blk.counts)
+    return int(torch.where(mask, col.to(torch.int64), 0).sum())
+
+
+def config1_data(np):
+    """BASELINE config 1 (benchmarks/suite.py:56-61) at 10M pairs."""
+    n = C1_ROWS
+    i = np.arange(n, dtype=np.int64)
+    return dict(keys=(1 << 40) + (i * 2654435761 % C1_KEYS), vals=i * 0.5)
+
+
+def config1_run(ctx, data):
+    """(held sources, steps): each step stores its result in `out`."""
+    src = ctx.dense_from_numpy(data["keys"], data["vals"])
+    grouped = src.group_by_key()
+    return src, [
+        ("group_by_key (settled block)", lambda out: grouped.block()),
+        ("collect_grouped()",
+         lambda out: out.update(grouped=grouped.collect_grouped()))]
+
+
+def config1_check(np, data, got):
+    """Group keys and sizes equal np.unique's; each group's values, as a
+    multiset, equal numpy's (float64 narrowed to float32 by the 32-bit
+    contract)."""
+    gk, offs, gv = got["grouped"]
+    keys, vals = data["keys"], data["vals"].astype(np.float32)
+    uk, uc = np.unique(keys, return_counts=True)
+    order = np.argsort(gk, kind="stable")
+    if not (np.array_equal(gk[order], uk)
+            and np.array_equal(np.diff(offs)[order], uc)):
+        fail("config 1: group keys or sizes differ from np.unique")
+    row_keys = np.repeat(gk, np.diff(offs))
+    g = np.lexsort([gv, row_keys])
+    e = np.lexsort([vals, keys])
+    if not (np.array_equal(row_keys[g], keys[e])
+            and np.array_equal(gv[g], vals[e])):
+        fail("config 1: grouped values differ from numpy")
+    return dict(groups=int(len(gk)))
+
+
+def config4_data(np):
+    """BASELINE config 4 (benchmarks/suite.py:157-166) at two sides of
+    50M rows, k = n / 20, and a 10,000-row cartesian side."""
+    n, k = C4_ROWS, C4_ROWS // 20
+    i = np.arange(n, dtype=np.int32)
+    return dict(ak=i % k, av=i.astype(np.float32), bk=(i * 3) % k,
+                bv=i.astype(np.float32) * 2.0, k=k,
+                cx=np.arange(C4_CART, dtype=np.int32))
+
+
+def config4_run(ctx, data):
+    a = ctx.dense_from_numpy(data["ak"], data["av"])
+    b = ctx.dense_from_numpy(data["bk"], data["bv"])
+    cx = ctx.dense_from_numpy(data["cx"])
+    cy = ctx.dense_from_numpy(data["cx"])
+    cg = a.cogroup(b)
+
+    def cartesian(out):
+        out["cart"] = cx.cartesian(cy)
+        out["cart_count"] = out["cart"].count()
+    return (a, b, cx, cy), [
+        ("cogroup: both sides grouped (settled blocks)",
+         lambda out: (cg.left_grouped.block(), cg.right_grouped.block())),
+        ("cogroup count()", lambda out: out.update(count=cg.count())),
+        ("cogroup collect_grouped()",
+         lambda out: out.update(grouped=cg.collect_grouped())),
+        ("cartesian count()", cartesian)]
+
+
+def config4_check(np, torch, data, got):
+    """count = the key union's size; per-key left / right sizes equal
+    np.bincount; per-key left / right value sums equal np.bincount's with
+    weights, exactly (every value is an integer below 2^27 and a key has
+    about 20, so float64 sums them exactly in any order); cartesian count
+    = m^2 and each product column's int64 sum = m * sum(cx)."""
+    count, (keys, lo, lv, ro, rv) = got["count"], got["grouped"]
+    cart_count, cart = got["cart_count"], got["cart"]
+    k, m = data["k"], C4_CART
+    lsize = np.bincount(data["ak"], minlength=k)
+    rsize = np.bincount(data["bk"], minlength=k)
+    union = np.flatnonzero(lsize + rsize)
+    if count != len(union) or not np.array_equal(np.sort(keys), union):
+        fail(f"config 4: cogroup count {count}, union {len(union)}")
+    if not (np.array_equal(np.diff(lo), lsize[keys])
+            and np.array_equal(np.diff(ro), rsize[keys])):
+        fail("config 4: per-key group sizes differ from np.bincount")
+    group = np.arange(len(keys))
+    for side, offs, vals, src_k, src_v in (("left", lo, lv, "ak", "av"),
+                                           ("right", ro, rv, "bk", "bv")):
+        got_sum = np.bincount(np.repeat(group, np.diff(offs)), weights=vals,
+                              minlength=len(keys))
+        want_sum = np.bincount(data[src_k], weights=data[src_v],
+                               minlength=k)[keys]
+        if not np.array_equal(got_sum, want_sum):
+            fail(f"config 4: per-key {side} value sums differ from numpy")
+    blk = cart.block()
+    want = m * int(data["cx"].astype(np.int64).sum())
+    sums = [valid_sum(torch, blk, nm) for nm in ("k", "v")]
+    if cart_count != m * m or sums != [want, want]:
+        fail(f"config 4: cartesian count {cart_count} sums {sums}, "
+             f"expected {m * m} and {want}")
+    return dict(keys=int(count), cartesian_rows=int(cart_count))
+
+
+def config5_data(np):
+    """BASELINE config 5 (benchmarks/suite.py:201-204) at 125M pairs."""
+    rng = np.random.default_rng(7)
+    keys = rng.integers(-(1 << 45), 1 << 45, size=C5_ROWS, dtype=np.int64)
+    return dict(keys=keys,
+                vals=rng.standard_normal(C5_ROWS).astype(np.float32))
+
+
+def config5_run(ctx, data):
+    r = ctx.dense_from_numpy(data["keys"], data["vals"])
+    srt = r.sort_by_key()
+    return r, [
+        ("sort_by_key (settled block)",
+         lambda out: out.update(srt=srt, blk=srt.block())),
+        ("take(10)", lambda out: out.update(first=srt.take(10))),
+        ("take_ordered(10)", lambda out: out.update(top=r.take_ordered(10)))]
+
+
+def value_sums(np, torch, blk, keys, vals):
+    """Values travel with their keys through the sort: the value sum and
+    the sum of value x (key & 0xFFFF), in float64 on the card shard by
+    shard, equal numpy's within 1e-9 of the sum of the terms' magnitudes.
+    Float64 sums of float32 terms in any order err by ~1e-14 of it; one
+    value dropped or moved to a key of other low bits moves a sum by more
+    than that bound."""
+    counts = blk.counts_np
+    got = [0.0, 0.0]
+    for s in range(len(counts)):
+        v = blk.cols["v"][s, :counts[s]].double()
+        # the biased low word keeps the key's low 16 bits
+        w = (blk.cols["k.lo"][s, :counts[s]] & 0xFFFF).double()
+        got[0] += float(v.sum())
+        got[1] += float((v * w).sum())
+    v64 = vals.astype(np.float64)
+    w64 = (keys & 0xFFFF).astype(np.float64)
+    want = [float(v64.sum()), float(np.dot(w64, v64))]
+    mag = [float(np.abs(v64).sum()), float(np.dot(w64, np.abs(v64)))]
+    for what, g, e, m in zip(("value sum", "key-weighted value sum"), got,
+                             want, mag):
+        if not abs(g - e) <= 1e-9 * m:
+            fail(f"config 5: sorted {what} {g!r}, numpy {e!r}")
+
+
+def config5_check(np, torch, data, got):
+    """The sorted block: count equal, keys non-decreasing within and
+    across shards, key sum (mod 2^64) equal, and the values still with
+    their keys (value_sums); take(10) = numpy's stable sort's first 10
+    (key, value) rows; take_ordered(10) = the 10 smallest (key, value)
+    tuples."""
+    from vega_tpu_torch import kernels
+    srt, first, top = got["srt"], got["first"], got["top"]
+    keys, vals = data["keys"], data["vals"]
+    blk = srt.block()
+    counts = blk.counts_np
+    if int(counts.sum()) != len(keys):
+        fail(f"config 5: sorted count {int(counts.sum())}")
+    k64 = kernels.wide_i64(blk.cols["k"], blk.cols["k.lo"])
+    mask = kernels.valid_mask(k64.shape[1], blk.counts)
+    inner = (k64[:, 1:] >= k64[:, :-1]) | ~mask[:, 1:]
+    if not bool(inner.all()):
+        fail("config 5: keys decrease inside a shard")
+    ends = [(int(k64[s, 0]), int(k64[s, counts[s] - 1]))
+            for s in range(len(counts)) if counts[s]]
+    if any(ends[i][1] > ends[i + 1][0] for i in range(len(ends) - 1)):
+        fail("config 5: keys decrease across shards")
+    # the int64 sum mod 2^64 from the words: no sum can overflow
+    hi_sum = valid_sum(torch, blk, "k")
+    lo_sum = int(torch.where(mask, (blk.cols["k.lo"].to(torch.int64)
+                                    & 0xFFFFFFFF) ^ 0x80000000, 0).sum())
+    got_sum = ((hi_sum << 32) + lo_sum) % (1 << 64)
+    if got_sum != int(keys.view(np.uint64).sum(dtype=np.uint64)):
+        fail("config 5: sorted key sum differs from numpy's")
+    value_sums(np, torch, blk, keys, vals)
+    cut = np.sort(np.partition(keys, 10)[:11])[9]
+    pick = np.flatnonzero(keys <= cut)  # in arrival order
+    first_rows = pick[np.argsort(keys[pick], kind="stable")][:10]
+    if first != list(zip(keys[first_rows].tolist(),
+                         vals[first_rows].tolist())):
+        fail("config 5: take(10) differs from numpy's stable sort")
+    rows = sorted(zip(keys[pick].tolist(), vals[pick].tolist()))[:10]
+    if top != rows:
+        fail("config 5: take_ordered(10) differs from numpy")
+    return dict(first_keys=[k_ for k_, _ in first])
+
+
+def run_steps(torch, run, ctx, data):
+    """One run: the host build of the sources, then each step, timed
+    apart (host clock, a synchronize after each). Returns (held, out,
+    build ms, [step ms], whole s)."""
+    t0 = time.perf_counter()
+    held, steps = run(ctx, data)
+    t1 = time.perf_counter()
+    out, step_ms = {}, []
+    for _label, fn in steps:
+        s0 = time.perf_counter()
+        fn(out)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+    return (held, out, (t1 - t0) * 1e3, step_ms,
+            time.perf_counter() - t0), [label for label, _ in steps]
+
+
+def run_config(torch, np, ck, vt, label, rows, data, run, check, must):
+    """A cold run checked against numpy, then three warm runs (host build
+    of the sources and each step timed apart), in one fresh Context; the
+    launches of the cold and the first warm run, and the peak device
+    memory."""
+    ctx = vt.Context(n_shards=N_SHARDS)
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    (held, got, _b, cold_steps, cold_s), labels = run_steps(
+        torch, run, ctx, data)
+    cold_launches = dict(ck.LAUNCHES)
+    checked = check(got)
+    del got, held
+    warm, build_ms, step_ms = [], [], []
+    warm_launches = None
+    for i in range(3):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        (held, got, b_ms, s_ms, whole), _ = run_steps(torch, run, ctx, data)
+        warm.append(whole)
+        build_ms.append(b_ms)
+        step_ms.append(s_ms)
+        if i == 0:
+            warm_launches = dict(ck.LAUNCHES)
+        del got, held
+    peak = torch.cuda.max_memory_allocated()
+    ctx.stop()
+    for what, launches in (("cold", cold_launches), ("warm", warm_launches)):
+        for name in must:
+            if launches[name] <= 0:
+                fail(f"{label}: kernel {name} was not launched in the "
+                     f"{what} run")
+    med = statistics.median(warm)
+    steps = {lb: statistics.median(r[i] for r in step_ms)
+             for i, lb in enumerate(labels)}
+    res = dict(label=label, rows=rows, cold_s=cold_s,
+               cold_step_ms=dict(zip(labels, cold_steps)), warm_s=warm,
+               median_s=med, rows_per_s=rows / med, warm_build_ms=build_ms,
+               warm_step_ms=[dict(zip(labels, r)) for r in step_ms],
+               median_step_ms=steps, launches=cold_launches,
+               warm_launches=warm_launches, peak_bytes=peak, check=checked)
+    log(f"{label}: {rows / med:,.0f} rows/s warm median of 3 ({warm} s; "
+        f"host build {build_ms} ms; median step ms {steps}), cold "
+        f"{cold_s:.3f} s, launches cold {cold_launches} warm "
+        f"{warm_launches}, peak {peak} B, {checked}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_keyed(torch, np, ck, vt):
+    """Phase 5: BASELINE configs 1, 4 and 5 on the card."""
+    out = []
+    hdu = ("hash_bucket", "digit_hist", "partition_pos")
+    for label, rows, make, run, check, must in (
+            ("config 1: group_by_key, int64 keys", C1_ROWS, config1_data,
+             config1_run, lambda d, g: config1_check(np, d, g), hdu[1:]),
+            ("config 4: cogroup + cartesian", 2 * C4_ROWS + C4_CART ** 2,
+             config4_data, config4_run,
+             lambda d, g: config4_check(np, torch, d, g), hdu),
+            ("config 5: sort_by_key + take_ordered, int64 keys", C5_ROWS,
+             config5_data, config5_run,
+             lambda d, g: config5_check(np, torch, d, g), hdu[1:])):
+        data = make(np)
+        out.append(run_config(torch, np, ck, vt, label, rows, data, run,
+                              lambda g, d=data, c=check: c(d, g), must))
+        del data
+    return out
+
+
 def main():
     try:
         import torch
@@ -670,6 +966,8 @@ def main():
     # 3. main path, 4. the other plans
     main_path = phase_main_path(torch, np, ck, vt)
     plans = phase_plans(torch, np, ck, vt, main_path)
+    # 5. the keyed configs
+    keyed = phase_keyed(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -688,7 +986,7 @@ def main():
                                kernels="CUDA graph replay",
                                plain_and_library="eager calls"),
                    kernels=table, radix_and_cold=radix, main_path=main_path,
-                   plans=plans)
+                   plans=plans, keyed=keyed)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -703,6 +1001,14 @@ def main():
               f"{r['radix_passes']}, table taken {r['table_taken']}"
               f"{', poisoned range repaired' if 'poisoned' in r else ''} "
               f"on {card}", flush=True)
+    for r in keyed:
+        print(f"{r['label']}: {r['rows_per_s']:.1f} rows/s warm median of 3 "
+              f"({r['rows']} rows), host build "
+              f"{statistics.median(r['warm_build_ms']):.1f} ms, cold "
+              f"{r['cold_s']:.3f} s, median step ms "
+              f"{json.dumps(r['median_step_ms'])}, launches of one warm run "
+              f"{json.dumps(r['warm_launches'])}, peak "
+              f"{r['peak_bytes']} bytes on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",

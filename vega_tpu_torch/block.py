@@ -7,8 +7,10 @@ capacity keeps shapes stable; raggedness lives in `counts`, never in shapes.
 
 The block dtype contract is the reference's 32-bit one (_check_dtype):
 int64 narrows to int32 when its values fit and raises VegaError when they
-do not; float64 narrows to float32. Wide int64 (`.lo`) columns and string
-dictionaries are not ported yet.
+do not; float64 narrows to float32. An int64 KEY beyond int32 takes the
+reference's two-column encoding (KEY = high word, KEY_LO = biased low
+word; encode_key_columns) and host reads reassemble it. Wide int64 value
+columns and string dictionaries are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +26,45 @@ from vega_tpu_torch.mesh import ShardMesh
 
 KEY = "k"  # canonical key column
 VALUE = "v"  # canonical value column
+# Wide (two-column int64) keys, as in the reference: <name> holds the high
+# 32 bits (signed: keeps the order) and <name>.lo the low 32 bits with the
+# sign bit flipped, so signed (<name>, <name>.lo) order is int64 order.
+LO_SUFFIX = ".lo"
+KEY_LO = KEY + LO_SUFFIX
+_LO_BIAS = np.uint32(0x80000000)
+
+
+def lo_of(name: str) -> str:
+    return name + LO_SUFFIX
+
+
+def is_lo(name: str) -> bool:
+    return name.endswith(LO_SUFFIX)
+
+
+def encode_i64(src: np.ndarray):
+    """int64 column -> (hi int32, biased-lo int32), order-preserving."""
+    a = src.astype(np.int64, copy=False)
+    hi = (a >> 32).astype(np.int32)
+    lo = ((a & np.int64(0xFFFFFFFF)).astype(np.uint32)
+          ^ _LO_BIAS).view(np.int32)
+    return hi, lo
+
+
+def decode_i64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """Inverse of encode_i64."""
+    lo_u = (np.asarray(lo).view(np.uint32) ^ _LO_BIAS).astype(np.int64)
+    return (np.asarray(hi).astype(np.int64) << 32) | lo_u
+
+
+def _decode_key_cols(cols: dict) -> dict:
+    """Reassemble every (name, name.lo) pair into one int64 column for
+    host reads; other columns pass through, order kept."""
+    if not any(is_lo(n) for n in cols):
+        return cols
+    return {name: (col if lo_of(name) not in cols
+                   else decode_i64(col, cols[lo_of(name)]))
+            for name, col in cols.items() if not is_lo(name)}
 
 
 @dataclasses.dataclass
@@ -68,14 +109,20 @@ class Block:
         ones."""
         counts = self.counts_np
         host = self._host_cols()
-        return {name: np.concatenate([col[s, :counts[s]]
-                                      for s in range(self.n_shards)])
-                for name, col in host.items()}
+        return _decode_key_cols({
+            name: np.concatenate([col[s, :counts[s]]
+                                  for s in range(self.n_shards)])
+            for name, col in host.items()})
 
-    def shard_rows(self, shard: int) -> Dict[str, np.ndarray]:
+    def shard_rows(self, shard: int, limit: Optional[int] = None
+                   ) -> Dict[str, np.ndarray]:
+        """Shard `shard`'s valid rows on the host (the first `limit` of
+        them when given), wide keys reassembled."""
         c = int(self.counts_np[shard])
-        return {name: col[shard, :c].cpu().numpy()
-                for name, col in self.cols.items()}
+        if limit is not None:
+            c = min(c, limit)
+        return _decode_key_cols({name: col[shard, :c].cpu().numpy()
+                                 for name, col in self.cols.items()})
 
 
 def _round_capacity(c: int) -> int:
@@ -104,20 +151,66 @@ def _check_dtype(name: str, src: np.ndarray) -> np.ndarray:
         if len(src) and (src.min() < info.min or src.max() > info.max):
             raise VegaError(
                 f"column {name!r} has {src.dtype} values outside int32 "
-                "range — values would silently collide (wide int64 columns "
-                "are not ported yet)")
+                "range — values would silently collide (wide int64 value "
+                "columns come with a later slice of the port; only the key "
+                "takes the two-column encoding)")
         return src.astype(np.int32)
     if src.dtype == np.float64:
         return src.astype(np.float32)
     return src
 
 
+def encode_key_columns(columns: Dict[str, np.ndarray]
+                       ) -> Dict[str, np.ndarray]:
+    """Split an int64 KEY beyond int32 into (KEY, KEY_LO), KEY_LO right
+    after KEY; an in-range integer key keeps the narrow path
+    (_check_dtype). Already-encoded columns pass through."""
+    if KEY_LO in columns:
+        if KEY not in columns or \
+                np.asarray(columns[KEY_LO]).dtype != np.int32:
+            raise VegaError(f"column name {KEY_LO!r} is reserved for the "
+                            "low word of two-column int64 keys")
+        return columns
+    src = columns.get(KEY)
+    if src is None:
+        return columns
+    src = np.asarray(src)
+    if src.dtype not in (np.int64, np.uint64) or len(src) == 0:
+        return columns
+    if src.dtype == np.uint64 and src.max() > np.uint64(2**63 - 1):
+        raise VegaError("uint64 keys beyond int64 range have no device "
+                        "representation")
+    info = np.iinfo(np.int32)
+    if info.min <= src.min() and src.max() <= info.max:
+        return columns  # fits int32; _check_dtype narrows it
+    hi, lo = encode_i64(src)
+    out: Dict[str, np.ndarray] = {}
+    for name, col in columns.items():
+        if name == KEY:
+            out[KEY] = hi
+            out[KEY_LO] = lo
+        else:
+            out[name] = col
+    return out
+
+
+def _refuse_wide_values(names) -> None:
+    for name in names:
+        if is_lo(name) and name != KEY_LO:
+            raise VegaError(
+                f"column {name!r}: wide int64 value columns come with a "
+                "later slice of the port; only the key takes the "
+                "two-column encoding")
+
+
 def from_numpy(columns: Dict[str, np.ndarray], mesh: ShardMesh,
                capacity: Optional[int] = None) -> Block:
     """Row-shard host columns (equal lengths) over the mesh: shard s gets
     rows [s*per, (s+1)*per), per = ceil(n / n_shards), like the reference's
-    from_numpy."""
+    from_numpy. An int64 KEY beyond int32 is encoded first, as there."""
     n_shards = mesh.n_shards
+    _refuse_wide_values(columns)
+    columns = encode_key_columns(dict(columns))
     names = list(columns)
     n = len(columns[names[0]]) if names else 0
     per = -(-n // n_shards) if n else 0
@@ -145,7 +238,11 @@ def from_reference_arrays(cols: Dict[str, np.ndarray], counts: np.ndarray,
     """Carry a vega_tpu Block's exported state across with identical
     placement: flat [n_shards * capacity] columns laid out as the reference
     lays them out (rows [s*capacity, s*capacity + counts[s]) are shard s's)
-    plus the per-shard counts."""
+    plus the per-shard counts. A wide key's (KEY, KEY_LO) words carry
+    across as they are."""
+    _refuse_wide_values(cols)
+    if KEY_LO in cols and KEY not in cols:
+        raise VegaError(f"column {KEY_LO!r} needs its high word {KEY!r}")
     counts = np.asarray(counts, dtype=np.int32).reshape(-1)
     if counts.shape[0] != mesh.n_shards:
         raise VegaError(f"counts has {counts.shape[0]} shards, the mesh "

@@ -1,11 +1,13 @@
 """Dense lineage: RDD nodes whose partitions are shard rows of Blocks.
 
-Counterpart of vega_tpu/tpu/dense_rdd.py for the main path:
-dense_range / dense_from_numpy -> map -> reduce_by_key(op=) -> join ->
-count / collect. Each node materializes once into a Block
-([n_shards, capacity] columns on one device). Narrow nodes (map) are not
-materialized in front of an exchange: their chain is applied to the root
-block's columns inside the exchange, once per materialization.
+Counterpart of vega_tpu/tpu/dense_rdd.py. Sources (dense_range,
+dense_from_numpy) and map feed the keyed nodes: reduce_by_key(op=), join,
+group_by_key, sort_by_key and cogroup (two group_by_keys), the cartesian
+product, and the actions count / collect / take / take_ordered / top.
+Each node materializes once into a Block ([n_shards, capacity] columns on
+one device). Narrow nodes (map) are not materialized in front of an
+exchange: their chain is applied to the root block's columns inside the
+exchange, once per materialization.
 
 Every plan of the reference is ported; the Context resolves them
 (context.py): dense_sort_impl (xla / packed / radix / radix4) for every
@@ -24,8 +26,13 @@ the Context; the next host read (Block.counts_np, to_numpy, shard_rows, or
 DenseRDD.block()) settles every pending entry in one fetch and repairs a
 failed speculation, and what depends on it, in place.
 
-There is no host tier to fall back to: a row function that does not run on
-column tensors raises VegaError.
+An int64 key beyond int32 is the two-column (KEY, KEY_LO) encoding:
+group_by_key, sort_by_key, cogroup of two such sides, take and
+take_ordered / top run on it; map, reduce_by_key, join and a cogroup
+against a narrow side raise VegaError until a later slice ports them.
+There is no host tier to fall back to: a row function that does not run
+on column tensors raises VegaError, and so does every request the
+reference would hand to its host tier.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch
 from vega_tpu_torch import block as block_lib
 from vega_tpu_torch import kernels
 from vega_tpu_torch import cuda_kernels
-from vega_tpu_torch.block import KEY, VALUE, Block
+from vega_tpu_torch.block import KEY, KEY_LO, VALUE, Block
 from vega_tpu_torch.errors import VegaError
 
 log = logging.getLogger(__name__)
@@ -50,6 +57,10 @@ Schema = Tuple[Tuple[str, torch.dtype], ...]
 
 _HINT_STORE_MAX = 4096
 _EXCHANGE_ROUNDS = 6
+_SORT_SAMPLE = 4096  # sort_by_key's key samples, over all shards
+# the cartesian gate on the CPU, which has no free-memory query as cheap as
+# the card's: the reference's default dense_hbm_budget
+CPU_CARTESIAN_BUDGET = 4 << 30
 
 
 def _fp(f) -> str:
@@ -120,8 +131,8 @@ class DenseRDD:
             return self.block().counts_np.tobytes()
         return tuple(p._counts_fp() for p in self._dense_parents)
 
-    def _hint_key(self):
-        return (self._lineage_fp(), self._counts_fp())
+    def _hint_key(self, *extra):
+        return (self._lineage_fp(), self._counts_fp(), extra)
 
     @property
     def n_shards(self) -> int:
@@ -130,6 +141,19 @@ class DenseRDD:
     @property
     def is_pair(self) -> bool:
         return KEY in dict(self._schema())
+
+    @property
+    def wide_key(self) -> bool:
+        """True when the key is the two-column int64 encoding."""
+        return KEY_LO in dict(self._schema())
+
+    def _refuse_wide(self, op: str) -> None:
+        if self.wide_key:
+            raise VegaError(
+                f"{op} over a two-column int64 key comes with a later slice "
+                "of vega_tpu_torch; only group_by_key, sort_by_key, cogroup "
+                "of two int64-keyed sides, take and take_ordered / top run "
+                "on it now")
 
     @property
     def hash_placed(self) -> bool:
@@ -151,6 +175,7 @@ class DenseRDD:
         """Row map run on whole column tensors: f gets the row's columns
         (x, or (k, v) for a pair) as [n_shards, capacity] tensors and
         returns a value or a (key, value) pair of them."""
+        self._refuse_wide("map")
         return _MapRDD(self, f)
 
     def reduce_by_key(self, func=None, *, op: Optional[str] = None):
@@ -158,6 +183,7 @@ class DenseRDD:
         Only the named ops add/min/max/prod are ported."""
         if not self.is_pair:
             raise VegaError("reduce_by_key on non-pair DenseRDD")
+        self._refuse_wide("reduce_by_key")
         if op is None:
             raise VegaError(
                 "vega_tpu_torch reduces only with a named op "
@@ -176,6 +202,8 @@ class DenseRDD:
             raise VegaError("join needs two dense pair RDDs")
         if other.mesh != self.mesh:
             raise VegaError("join sides live on different meshes")
+        self._refuse_wide("join")
+        other._refuse_wide("join")
         for side in (self, other):
             if [nm for nm, _ in side._schema()] != [KEY, VALUE]:
                 raise VegaError("join needs the canonical (k, v) layout on "
@@ -185,6 +213,61 @@ class DenseRDD:
             raise VegaError(f"join key dtypes differ ({lk} vs {rk}): equal "
                             "keys would hash apart")
         return _JoinRDD(self, other)
+
+    def _check_keyed(self, op: str) -> None:
+        if not self.is_pair:
+            raise VegaError(f"{op} on non-pair DenseRDD")
+        names = [nm for nm, _ in self._schema() if nm not in (KEY, KEY_LO)]
+        if names != [VALUE]:
+            raise VegaError(f"{op} needs the canonical (k, v) layout, got "
+                            f"{self._schema()}")
+
+    def group_by_key(self) -> "DenseRDD":
+        """Device group_by_key: exchange by key hash, sort within each
+        shard; collect() assembles (key, [values]) on the host and
+        collect_grouped() returns the columnar form."""
+        self._check_keyed("group_by_key")
+        return _GroupByKeyRDD(self)
+
+    def sort_by_key(self, ascending: bool = True) -> "DenseRDD":
+        """Distributed sample sort: strided key samples fetched in one
+        transfer give host range bounds, then a range exchange and a local
+        sort."""
+        if not self.is_pair:
+            raise VegaError("sort_by_key on non-pair DenseRDD")
+        return _SortByKeyRDD(self, ascending)
+
+    def cogroup(self, other: "DenseRDD") -> "_DenseCoGroupRDD":
+        """Dense-dense cogroup: both sides group by key on the device
+        (equal keys hash to one shard); (k, ([lvs], [rvs])) assembly, or
+        its columnar form, happens on the host."""
+        if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
+            raise VegaError("cogroup needs two dense pair RDDs on one mesh")
+        self._check_keyed("cogroup")
+        other._check_keyed("cogroup")
+        if self.wide_key != other.wide_key:
+            raise VegaError(
+                "cogroup of a two-column int64 key against an int32 key "
+                "(the reference's _WidenKeyRDD) comes with a later slice of "
+                "vega_tpu_torch")
+        lk, rk = dict(self._schema())[KEY], dict(other._schema())[KEY]
+        if lk != rk:
+            raise VegaError(f"cogroup key dtypes differ ({lk} vs {rk}): "
+                            "equal keys would hash apart")
+        return _DenseCoGroupRDD(self, other)
+
+    def cartesian(self, other: "DenseRDD") -> "DenseRDD":
+        """Device cross product of two value RDDs as (left, right) pairs:
+        the right side is replicated and each shard ragged-expands its
+        left rows against it. A product whose estimated footprint passes
+        the device's free memory raises VegaError (there is no host tier
+        to stream it)."""
+        if not (isinstance(other, DenseRDD) and other.mesh == self.mesh
+                and [n for n, _ in self._schema()] == [VALUE]
+                and [n for n, _ in other._schema()] == [VALUE]):
+            raise VegaError("cartesian needs two dense value RDDs (one "
+                            "column each) on one mesh")
+        return _CartesianDenseRDD(self, other)
 
     # --- actions ------------------------------------------------------------
     def count(self) -> int:
@@ -199,6 +282,87 @@ class DenseRDD:
     def collect_arrays(self) -> Dict[str, np.ndarray]:
         """Columnar collect: no per-row Python objects."""
         return self.block().to_numpy()
+
+    def take(self, n: int) -> list:
+        """The first n rows in shard order, read shard by shard (only the
+        rows still needed from each), never a full collect."""
+        out: list = []
+        blk = self.block()
+        for s in range(blk.n_shards):
+            rows = blk.shard_rows(s, limit=max(n - len(out), 0))
+            if list(rows) == [VALUE]:
+                out.extend(rows[VALUE].tolist())
+            else:
+                out.extend(zip(*[c.tolist() for c in rows.values()]))
+            if len(out) >= n:
+                break
+        return out[:n]
+
+    def take_ordered(self, n: int, key=None) -> list:
+        """The n smallest elements: a per-shard top-k (values) or row sort
+        (pairs, ordered like host tuples: key, then value), then a merge
+        of the n_shards * n survivors on the host."""
+        if key is not None:
+            raise VegaError("take_ordered(key=...) needs the host tier, "
+                            "which vega_tpu_torch does not have")
+        if self.is_pair:
+            return self._device_topk_rows(n, largest=False)
+        return self._device_topk(n, largest=False)
+
+    def top(self, n: int, key=None) -> list:
+        """The n largest elements, as take_ordered orders them, reversed."""
+        if key is not None:
+            raise VegaError("top(key=...) needs the host tier, which "
+                            "vega_tpu_torch does not have")
+        if self.is_pair:
+            return self._device_topk_rows(n, largest=True)
+        return self._device_topk(n, largest=True)
+
+    def _device_topk(self, n: int, largest: bool) -> list:
+        blk = self.block()
+        k = min(n, blk.capacity)
+        best = kernels.topk_values(blk.cols[VALUE], blk.counts, k,
+                                   largest).cpu().numpy()
+        n_valid = np.minimum(blk.counts_np, k)
+        candidates = np.sort(np.concatenate(
+            [best[s, :n_valid[s]] for s in range(blk.n_shards)]))
+        if largest:
+            candidates = candidates[::-1]
+        return candidates[:n].tolist()
+
+    def _device_topk_rows(self, n: int, largest: bool) -> list:
+        """First / last n rows in the order of the tuples collect() emits:
+        per shard, one stable row sort over (validity, every column in
+        schema order; a wide key's (KEY, KEY_LO) words sit adjacent, so
+        schema order is int64 order), the first n taken; the host merges
+        the survivors with the same lexicographic order. As on the host,
+        the result is well-defined only for NaN-free data."""
+        blk = self.block()
+        schema = self._schema()
+        names = [nm for nm, _ in schema]
+        k = min(max(n, 1), blk.capacity)
+        impl = self.context.dense_sort_impl
+        use_words = impl in ("radix", "radix4", "packed") and all(
+            dt in (torch.int32, torch.float32) for _, dt in schema)
+        cols = [blk.cols[nm] for nm in names]
+        order = kernels.row_sort_perm(cols, blk.counts, largest,
+                                      impl if use_words else "xla")[:, :k]
+        per_col = [torch.gather(c, 1, order).cpu().numpy() for c in cols]
+        n_valid = np.minimum(blk.counts_np, k)
+        keep = [s for s in range(blk.n_shards) if n_valid[s]]
+        if not keep:
+            return []
+        merged = block_lib._decode_key_cols(
+            {nm: np.concatenate([col[s, :n_valid[s]] for s in keep])
+             for nm, col in zip(names, per_col)})
+        order_cols = list(merged.values())
+        # np.lexsort: the last key is primary; stable like the device sort
+        order_host = np.lexsort([c if not largest else
+                                 (-c if np.issubdtype(c.dtype, np.floating)
+                                  else ~c)
+                                 for c in reversed(order_cols)])
+        return [tuple(c[i].item() for c in order_cols)
+                for i in order_host[:n]]
 
 
 class _SourceRDD(DenseRDD):
@@ -412,7 +576,13 @@ def _histogram_capacities(hists: List[np.ndarray], attempt: int,
 
 
 def _bucket_cols(cols, n: int) -> torch.Tensor:
-    """Hash-bucket each row by its key through the hash_bucket kernel."""
+    """Hash-bucket each row by its key: an int32 / float32 key through the
+    hash_bucket kernel; a two-column int64 key by hash32_pair of both
+    words (torch ops, as the reference computes it outside its kernel),
+    so equal int64 keys, and only those, share a bucket."""
+    if KEY_LO in cols:
+        return (kernels.hash32_pair(cols[KEY], cols[KEY_LO]) % n).to(
+            torch.int32)
     key = cols[KEY]
     if key.dtype == torch.float32:
         key = key.view(torch.int32)
@@ -571,18 +741,31 @@ class _ExchangeRDD(DenseRDD):
         blk.settle = lambda: _settle_pending(ctx)
         return blk
 
-    def _hash_histogram(self, cols, count) -> Optional[np.ndarray]:
-        """One counting pass over the keys: hist[s, t] = rows shard s will
-        send to target t under hash bucketing, fetched as one tiny [n, n]
-        array; buys exactly-sized exchange capacities."""
+    def _dest_histogram(self, bucket: torch.Tensor,
+                        count: torch.Tensor) -> np.ndarray:
+        """hist[s, t] = valid rows shard s will send to target t, fetched
+        as one tiny [n, n] array; buys exactly-sized exchange
+        capacities."""
         n = self.n_shards
-        if n == 1:
+        bucket = torch.where(kernels.valid_mask(bucket.shape[1], count),
+                             bucket, n)
+        return cuda_kernels.bucket_hist(bucket, n + 1)[:, :n].cpu().numpy()
+
+    def _hash_histogram(self, cols, count) -> Optional[np.ndarray]:
+        """The destination histogram under hash bucketing."""
+        if self.n_shards == 1:
             return None
-        cap = cols[KEY].shape[1]
-        bucket = torch.where(kernels.valid_mask(cap, count),
-                             _bucket_cols(cols, n), n)
-        hist = cuda_kernels.bucket_hist(bucket, n + 1)[:, :n]
-        return hist.cpu().numpy()
+        return self._dest_histogram(_bucket_cols(cols, self.n_shards), count)
+
+    def _range_histogram(self, cols, count, bounds, ascending: bool,
+                         bounds_lo=None) -> Optional[np.ndarray]:
+        """The destination histogram under range partitioning (sort_by_key),
+        through the exchange's own range_bucket."""
+        if self.n_shards == 1:
+            return None
+        return self._dest_histogram(kernels.range_bucket(
+            bounds, cols[KEY], ascending, bounds_lo=bounds_lo,
+            keys_lo=cols.get(KEY_LO)), count)
 
     def _run_exchange(self, build, counts, make_hists=None, hint_key=None,
                       fixed_caps=None, validate=None, on_success=None):
@@ -1011,3 +1194,402 @@ class _JoinRDD(_ExchangeRDD):
         cols = self.block().to_numpy()
         return [(k, (lv, rv)) for k, lv, rv in zip(
             cols[KEY].tolist(), cols["lv"].tolist(), cols["rv"].tolist())]
+
+
+class _GroupByKeyRDD(_ExchangeRDD):
+    """Hash exchange, then a local key sort: the block holds key-sorted
+    runs per shard. A hash-placed parent (a reduce or group output) skips
+    the exchange, a key-sorted one the sort too. The launch defers like
+    the reduce's (hinted capacities, settled at the next host read)."""
+
+    hash_placed = True  # output rows live on shard hash(key) % n
+    key_sorted = True
+
+    def __init__(self, parent: DenseRDD):
+        super().__init__(parent.context, parent.mesh, [parent])
+        self.parent = parent
+
+    def _schema(self):
+        return self.parent._schema()
+
+    def _materialize(self) -> Block:
+        n = self.n_shards
+        sort_impl = self.context.dense_sort_impl
+        self.parent._settle_placement()
+        elide = self.parent.hash_placed and n > 1
+        elide_sorted = elide and self.parent.key_sorted
+        chain, root = (_narrow_chain(self.parent) if n > 1 and not elide
+                       else ([], self.parent))
+        blk = root.block_spec()  # we register our own pending entry
+        source = _chain_source(chain, blk)
+        names = [nm for nm, _ in self.parent._schema()]
+        lo_name = KEY_LO if KEY_LO in names else None
+
+        def build(slot, out_cap):
+            cols, count = source()
+            cols = dict(cols)
+            if elide:
+                cols, count, overflow = kernels.passthrough_exchange(
+                    cols, count, cols[KEY].shape[1], out_cap)
+            else:
+                bucket = (_bucket_cols(cols, n) if n > 1
+                          else torch.zeros_like(cols[KEY], dtype=torch.int32))
+                cols, count, overflow = kernels.bucket_exchange(
+                    cols, count, bucket, n, slot, out_cap,
+                    sort_impl=sort_impl)
+            if not elide_sorted:
+                cols = kernels.sort_by_column(cols, count, KEY,
+                                              impl=sort_impl,
+                                              lo_name=lo_name)
+            return (count, [], {nm: cols[nm] for nm in names}), overflow
+
+        if elide:
+            count, _, cols, out_cap = self._run_exchange(
+                build, lambda: blk.counts_np,
+                fixed_caps=(0, _elide_out_cap(blk)))
+        else:
+            count, _, cols, out_cap = self._run_exchange(
+                build, lambda: blk.counts_np,
+                make_hists=lambda: ([self._hash_histogram(*source())], None),
+                hint_key=self._hint_key())
+        return self._attach_pending(Block(
+            cols=cols, counts=count, capacity=out_cap, mesh=self.mesh,
+            counts_host=self._last_counts_host))
+
+    def count(self) -> int:
+        """The number of groups (distinct keys): first-of-run flags summed
+        on the device over each shard's sorted runs."""
+        blk = self.block()
+        first = _run_starts(blk.cols, blk.counts)
+        return int(first.sum())
+
+    def collect_grouped(self):
+        """Columnar grouped collect: (keys, offsets, values), group i's
+        values being values[offsets[i]:offsets[i+1]]; no per-row or
+        per-key Python objects. Shards are key-sorted and hash-disjoint,
+        so one vectorized pass over the concatenated rows finds every
+        boundary."""
+        cols = self.block().to_numpy()
+        return _grouped_columnar(cols[KEY], cols[VALUE])
+
+    def collect(self) -> list:
+        cols = self.block().to_numpy()
+        return list(_sorted_runs(cols[KEY], cols[VALUE]))
+
+
+def _run_starts(cols, count) -> torch.Tensor:
+    """[n_shards, cap] bool: valid rows that start a run of equal keys
+    (both words of a wide key) in key-sorted shards."""
+    keys = cols[KEY]
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    if KEY_LO in cols:
+        lo = cols[KEY_LO]
+        first[:, 1:] |= lo[:, 1:] != lo[:, :-1]
+    return first & kernels.valid_mask(keys.shape[1], count)
+
+
+class _SortByKeyRDD(_ExchangeRDD):
+    """Sample sort: a strided sample of each shard's keys comes back with
+    the post-chain counts in one transfer (the one blocking read), the
+    host picks n - 1 range bounds, then a range exchange and a local sort
+    in the requested direction."""
+
+    def __init__(self, parent: DenseRDD, ascending: bool):
+        super().__init__(parent.context, parent.mesh, [parent])
+        self.parent = parent
+        self.ascending = ascending
+
+    def _fp_extra(self):
+        return (self.ascending,)
+
+    def _schema(self):
+        return self.parent._schema()
+
+    def _sample(self, source, capacity: int):
+        """(post-chain counts, sampled keys per shard): the reference's
+        strided sampler, stride = max(1, count // m) over 2m positions
+        clipped to the capacity, fetched in one transfer as int64 words."""
+        n = self.n_shards
+        m = max(1, _SORT_SAMPLE // n)
+        cols, count = source()
+        keycols = [cols[KEY]] + ([cols[KEY_LO]] if KEY_LO in cols else [])
+        stride = torch.clamp(count.to(torch.int64) // m, min=1)
+        pos = (torch.arange(2 * m, device=count.device)[None, :]
+               * stride[:, None]).clamp_(0, max(capacity - 1, 0))
+        parts = [count.to(torch.int64)] + [
+            torch.gather(kc.view(torch.int32) if kc.dtype.is_floating_point
+                         else kc, 1, pos).to(torch.int64).reshape(-1)
+            for kc in keycols]
+        fetched = torch.cat(parts).cpu().numpy()
+        counts_host = fetched[:n].astype(np.int32)
+        words = [fetched[n + i * n * 2 * m:n + (i + 1) * n * 2 * m]
+                 .astype(np.int32).reshape(n, 2 * m)
+                 for i in range(len(keycols))]
+        if cols[KEY].dtype == torch.float32:
+            words[0] = words[0].view(np.float32)
+        samples = []
+        for s in range(n):
+            c = int(counts_host[s])
+            if c == 0:
+                continue
+            stride_s = max(1, c // m)
+            n_valid = min(2 * m, -(-c // stride_s))
+            keys = words[0][s, :n_valid]
+            if len(words) == 2:
+                keys = block_lib.decode_i64(keys, words[1][s, :n_valid])
+            samples.append(keys)
+        return counts_host, samples
+
+    def _bounds(self, samples) -> np.ndarray:
+        """n - 1 range bounds from the sorted samples (reversed when
+        descending): allk[int(len * i / n)], as the reference picks
+        them."""
+        n = self.n_shards
+        if samples:
+            allk = np.sort(np.concatenate(samples))
+            if not self.ascending:
+                allk = allk[::-1]
+            return allk[[int(len(allk) * i / n) for i in range(1, n)]]
+        if self.wide_key:
+            return np.zeros((n - 1,), np.int64)
+        dt = dict(self.parent._schema())[KEY]
+        return np.zeros((n - 1,), np.float32 if dt == torch.float32
+                        else np.int32)
+
+    def _materialize(self) -> Block:
+        n = self.n_shards
+        sort_impl = self.context.dense_sort_impl
+        ascending = self.ascending
+        chain, root = (_narrow_chain(self.parent) if n > 1
+                       else ([], self.parent))
+        blk = root.block()  # settled: the sampler reads it now
+        source = _chain_source(chain, blk)
+        names = [nm for nm, _ in self.parent._schema()]
+        lo_name = KEY_LO if KEY_LO in names else None
+        counts_host, samples = self._sample(source, blk.capacity)
+        bounds = self._bounds_host = self._bounds(samples)
+        # the bounds go to the device once per materialization
+        dev = self.mesh.device
+        if lo_name is not None:
+            hi, lo = block_lib.encode_i64(bounds)
+            bounds_dev = torch.from_numpy(hi).to(dev)
+            bounds_lo_dev = torch.from_numpy(lo).to(dev)
+        else:
+            bounds_dev = torch.from_numpy(np.ascontiguousarray(bounds)).to(dev)
+            bounds_lo_dev = None
+
+        def build(slot, out_cap):
+            cols, count = source()
+            cols = dict(cols)
+            if n == 1:
+                bucket = torch.zeros_like(cols[KEY], dtype=torch.int32)
+            else:
+                bucket = kernels.range_bucket(
+                    bounds_dev, cols[KEY], ascending, bounds_lo=bounds_lo_dev,
+                    keys_lo=cols.get(lo_name))
+            cols, count, overflow = kernels.bucket_exchange(
+                cols, count, bucket, n, slot, out_cap, sort_impl=sort_impl)
+            cols = kernels.sort_by_column(cols, count, KEY,
+                                          descending=not ascending,
+                                          impl=sort_impl, lo_name=lo_name)
+            return (count, [], {nm: cols[nm] for nm in names}), overflow
+
+        count, _, cols, out_cap = self._run_exchange(
+            build, lambda: counts_host,
+            make_hists=lambda: ([self._range_histogram(
+                *source(), bounds_dev, ascending, bounds_lo_dev)], None),
+            # the bounds come from the data: the same data gives the same
+            # bounds, a changed distribution others, so they key the hint
+            # with the post-chain counts the sampler fetched
+            hint_key=self._hint_key(counts_host.tobytes(), bounds.tobytes()))
+        return self._attach_pending(Block(
+            cols=cols, counts=count, capacity=out_cap, mesh=self.mesh,
+            counts_host=self._last_counts_host))
+
+
+def _cartesian_budget(device: torch.device) -> int:
+    """Bytes a cartesian product may take: on the card, its free memory
+    plus what PyTorch's allocator holds unused; on the CPU,
+    CPU_CARTESIAN_BUDGET."""
+    if device.type != "cuda":
+        return CPU_CARTESIAN_BUDGET
+    free, _total = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - \
+        torch.cuda.memory_allocated(device)
+
+
+class _CartesianDenseRDD(DenseRDD):
+    """Device cross product: the right side replicated, each shard
+    ragged-expanding its left rows against every right row (m = right
+    total per valid left row). The parents materialize at construction:
+    the memory gate needs real counts."""
+
+    def __init__(self, left: DenseRDD, right: DenseRDD):
+        lblk = left.block()
+        rblk = right.block()
+        r_total = rblk.num_rows
+        l_counts = lblk.counts_np
+        max_l = int(l_counts.max()) if l_counts.size else 0
+        out_cap = block_lib._round_capacity(max(max_l * max(r_total, 1), 1))
+        # per product row: its two columns and ragged_expand's four int64
+        # slot indices (slot, owner, offset, run start)
+        row_bytes = sum(c.element_size() for c in lblk.cols.values()) + \
+            sum(c.element_size() for c in rblk.cols.values()) + 4 * 8
+        need = lblk.n_shards * out_cap * row_bytes
+        budget = _cartesian_budget(left.mesh.device)
+        if need > budget:
+            raise VegaError(
+                f"cartesian product (~{out_cap} rows per shard, ~{need} "
+                f"bytes) exceeds the device's free memory ({budget} bytes); "
+                "vega_tpu_torch has no host tier to stream it")
+        super().__init__(left.context, left.mesh, [left, right])
+        self.left = left
+        self.right = right
+        self._r_total = r_total
+        self._out_cap = out_cap
+
+    def _schema(self):
+        # canonical (KEY, VALUE): the product is a pair RDD
+        return ((KEY, dict(self.left._schema())[VALUE]),
+                (VALUE, dict(self.right._schema())[VALUE]))
+
+    def _materialize(self) -> Block:
+        lblk = self.left.block()
+        r_total, out_cap = self._r_total, self._out_cap
+        if r_total == 0:
+            # an empty right side gives an empty product
+            schema = dict(self._schema())
+            return block_lib.from_numpy(
+                {KEY: torch.zeros(0, dtype=schema[KEY]).numpy(),
+                 VALUE: torch.zeros(0, dtype=schema[VALUE]).numpy()},
+                self.mesh)
+        # the right side's valid rows in shard order, compacted on the card
+        rblk = self.right.block()
+        rcol = rblk.cols[VALUE]
+        keep = kernels.valid_mask(rcol.shape[1], rblk.counts).reshape(1, -1)
+        rvals = kernels.compact({VALUE: rcol.reshape(1, -1)}, keep,
+                                r_total)[0][VALUE][0]
+        lvals = lblk.cols[VALUE]
+        m = torch.where(kernels.valid_mask(lvals.shape[1], lblk.counts),
+                        r_total, 0)
+        owner, off, total = kernels.ragged_expand(m, out_cap)
+        return Block(cols={KEY: torch.gather(lvals, 1, owner),
+                           VALUE: rvals[off.clamp(0, r_total - 1)]},
+                     counts=total.to(torch.int32), capacity=out_cap,
+                     mesh=self.mesh)
+
+
+def _grouped_columnar(keys: np.ndarray, vals: np.ndarray):
+    """(group_keys, offsets, values) from key-sorted runs: group i's values
+    are values[offsets[i]:offsets[i+1]]. Rows of different shards never
+    share a key (hash placement), so a key change marks every boundary,
+    shard boundaries included."""
+    if len(keys) == 0:
+        return keys, np.zeros(1, dtype=np.int64), vals
+    starts = np.concatenate(
+        [[0], np.flatnonzero(keys[1:] != keys[:-1]) + 1]).astype(np.int64)
+    offsets = np.concatenate([starts, [len(keys)]])
+    return keys[starts], offsets, vals
+
+
+def _sorted_runs(keys: np.ndarray, vals: np.ndarray):
+    """(key, [values]) pairs from key-sorted runs: the host view of
+    _grouped_columnar, with Python cost per group, never per row."""
+    group_keys, offsets, values = _grouped_columnar(keys, vals)
+    for i, k in enumerate(group_keys.tolist()):
+        yield k, values[offsets[i]:offsets[i + 1]].tolist()
+
+
+class _DenseCoGroupRDD:
+    """cogroup over two device group_by_keys (one hash placement, so
+    co-keyed rows share a shard). The reference's node is a host-tier RDD;
+    the port has no host tier, so this object carries its three actions:
+    collect, collect_grouped and count."""
+
+    def __init__(self, left: DenseRDD, right: DenseRDD):
+        self.left_grouped = _GroupByKeyRDD(left)
+        self.right_grouped = _GroupByKeyRDD(right)
+        self.mesh = left.mesh
+
+    def collect(self) -> list:
+        """(k, ([lvs], [rvs])) per key: shard by shard, keys ascending
+        within a shard, from the columnar form."""
+        keys, lo, lv, ro, rv = self.collect_grouped()
+        return [(k, (lv[lo[i]:lo[i + 1]].tolist(),
+                     rv[ro[i]:ro[i + 1]].tolist()))
+                for i, k in enumerate(keys.tolist())]
+
+    def collect_grouped(self):
+        """Columnar cogroup: (keys, l_offsets, l_values, r_offsets,
+        r_values); group i's left values are
+        l_values[l_offsets[i]:l_offsets[i+1]] (resp. right). Per shard the
+        two sides align with one union and searchsorted pass; no per-row
+        or per-key Python."""
+        def expand_offsets(gk, goff, union):
+            # gk is a subset of the sorted union: one scatter places each
+            # group's length at its union slot
+            lengths = np.zeros(len(union), dtype=np.int64)
+            lengths[np.searchsorted(union, gk)] = goff[1:] - goff[:-1]
+            return np.concatenate([[0], np.cumsum(lengths)])
+
+        lblk = self.left_grouped.block()
+        rblk = self.right_grouped.block()
+        lall, rall = lblk.to_numpy(), rblk.to_numpy()
+        lsplit = np.cumsum(lblk.counts_np)[:-1]
+        rsplit = np.cumsum(rblk.counts_np)[:-1]
+        lk_s, lv_s = (np.split(lall[KEY], lsplit),
+                      np.split(lall[VALUE], lsplit))
+        rk_s, rv_s = (np.split(rall[KEY], rsplit),
+                      np.split(rall[VALUE], rsplit))
+        keys_parts, lv_parts, rv_parts = [], [], []
+        lo_parts, ro_parts = [np.zeros(1, np.int64)], [np.zeros(1, np.int64)]
+        l_base = r_base = 0
+        for s in range(self.mesh.n_shards):
+            lk, loff, lv = _grouped_columnar(lk_s[s], lv_s[s])
+            rk, roff, rv = _grouped_columnar(rk_s[s], rv_s[s])
+            union = np.union1d(lk, rk)
+            if not len(union):
+                continue
+            keys_parts.append(union)
+            lo = expand_offsets(lk, loff, union)
+            ro = expand_offsets(rk, roff, union)
+            lo_parts.append(lo[1:] + l_base)
+            ro_parts.append(ro[1:] + r_base)
+            l_base += lo[-1]
+            r_base += ro[-1]
+            lv_parts.append(lv)
+            rv_parts.append(rv)
+        if not keys_parts:
+            zero = np.zeros(1, np.int64)
+            return (lall[KEY][:0], zero, lall[VALUE][:0], zero,
+                    rall[VALUE][:0])
+        return (np.concatenate(keys_parts), np.concatenate(lo_parts),
+                np.concatenate(lv_parts), np.concatenate(ro_parts),
+                np.concatenate(rv_parts))
+
+    def count(self) -> int:
+        """The number of keys in the union of both sides, column-wise:
+        each side's group keys come from its key columns alone (one fetch
+        each), and per shard |L| + |R| - |L & R|. The reference counts its
+        host RDD's per-key Python lists, which at millions of keys takes
+        minutes; the count is the same."""
+        total = 0
+        for lk, rk in zip(_shard_group_keys(self.left_grouped.block()),
+                          _shard_group_keys(self.right_grouped.block())):
+            total += len(lk) + len(rk) - len(
+                np.intersect1d(lk, rk, assume_unique=True))
+        return total
+
+
+def _shard_group_keys(blk: Block) -> List[np.ndarray]:
+    """Each shard's distinct keys (int64 for a wide key), from a grouped
+    block's key-sorted runs: the first-of-run mask and the key words come
+    back in one transfer per column, never the values."""
+    counts = blk.counts_np
+    key_cols = {nm: c for nm, c in blk.cols.items() if nm in (KEY, KEY_LO)}
+    first = _run_starts(key_cols, blk.counts).cpu().numpy()
+    host = block_lib._decode_key_cols(
+        {nm: c.cpu().numpy() for nm, c in key_cols.items()})[KEY]
+    return [host[s, :counts[s]][first[s, :counts[s]]]
+            for s in range(blk.n_shards)]

@@ -14,12 +14,14 @@ Every sort form of the reference is ported (dense_sort_impl): `xla` (stable
 torch sorts), `packed` (one int64 sort of (word << 31) | position per
 word), and `radix` / `radix4` (stable LSD passes of 8- or 4-bit digits, each
 through the digit_hist and partition_pos kernels at 256 or 16 bins).
-Traced reduces and wide int64 keys come later.
+A two-column int64 key (block.KEY_LO) sorts, hashes (hash32_pair) and
+range-partitions (searchsorted2, range_bucket) by both words. Traced
+reduces come later.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,6 +64,58 @@ def resolve_backend_mode(name: str, value: str, allowed: tuple,
 # ---------------------------------------------------------------------------
 
 hash32 = cuda_kernels.hash32
+
+
+def hash32_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The bucket hash of a two-column int64 key, bit-identical to
+    vega_tpu.tpu.kernels.hash32_pair: a hash-combine of the two words'
+    lowbias32 digests and one more finalizer round. uint32 arithmetic is
+    emulated in int64 masked to 32 bits at every step that could carry
+    past it; returns int64 values in [0, 2^32)."""
+    a = hash32(hi)
+    b = hash32(lo)
+    x = a ^ ((b + 0x9E3779B9 + ((a << 6) & _WORD_MAX) + (a >> 2)) & _WORD_MAX)
+    x = x ^ (x >> 16)
+    x = cuda_kernels._mul32(x, 0x7FEB352D)
+    return x ^ (x >> 15)
+
+
+def wide_i64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The int64 a (hi, biased-lo) word pair encodes (block.decode_i64 on
+    the device): its order is the pair's lexicographic signed order."""
+    return (hi.to(torch.int64) << 32) | (
+        (lo.to(torch.int64) & _WORD_MAX) ^ 0x80000000)
+
+
+def searchsorted2(rh: torch.Tensor, rl: torch.Tensor, qh: torch.Tensor,
+                  ql: torch.Tensor, side: str = "left") -> torch.Tensor:
+    """Positions of queries (qh, ql) in 1-D rows (rh, rl) sorted by (rh
+    major, rl minor), lexicographic signed compare: the reference's
+    two-word binary search. Each word pair is one int64 here (wide_i64
+    keeps the order), so one torch.searchsorted does it. Returns int64 of
+    the queries' shape."""
+    rows = wide_i64(rh, rl).contiguous()
+    return torch.searchsorted(rows, wide_i64(qh, ql).contiguous(),
+                              right=side == "right")
+
+
+def range_bucket(bounds: torch.Tensor, keys: torch.Tensor, ascending: bool,
+                 bounds_lo: Optional[torch.Tensor] = None,
+                 keys_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Range-partition bucket ids (int32, keys' shape) from sorted split
+    bounds (1-D): sort_by_key's partitioner, shared by its exchange and
+    its sizing histogram. Descending flips ints with bitwise-not (negation
+    wraps INT32_MIN onto itself) and negates floats, as the reference
+    does; (bounds_lo, keys_lo) carry a two-column int64 key's low words."""
+    if not ascending:
+        # on both words of a wide key, bitwise-not reverses the pair order
+        bounds, keys = _order_flip(bounds), _order_flip(keys)
+        if bounds_lo is not None:
+            bounds_lo, keys_lo = _order_flip(bounds_lo), _order_flip(keys_lo)
+    if bounds_lo is None:
+        return torch.searchsorted(bounds.contiguous(),
+                                  keys.contiguous()).to(torch.int32)
+    return searchsorted2(bounds, bounds_lo, keys, keys_lo).to(torch.int32)
 
 
 def valid_mask(capacity: int, count: torch.Tensor) -> torch.Tensor:
@@ -275,6 +329,22 @@ def _radix_supported(key: torch.Tensor) -> bool:
     return key.dtype in (torch.int32, torch.float32)
 
 
+def _order_flip(col: torch.Tensor) -> torch.Tensor:
+    """The descending flip: bitwise-not for ints (negation wraps INT32_MIN
+    onto itself), negation for floats (exact)."""
+    return -col if col.dtype.is_floating_point else torch.bitwise_not(col)
+
+
+def _comparator_key(col: torch.Tensor) -> torch.Tensor:
+    """A float column as the reference's comparator sort sees it: -0.0
+    ties +0.0 and every NaN ties every other, after +inf. Canonical values
+    give torch's sort the same ties on every device."""
+    if not col.dtype.is_floating_point:
+        return col
+    col = torch.where(col == 0, 0.0, col)
+    return torch.where(torch.isnan(col), float("nan"), col)
+
+
 def _orderable_max(col: torch.Tensor):
     """The column dtype's largest value, as a Python scalar: a scalar
     tensor built on the card would be a host-to-device copy, which torch
@@ -379,22 +449,30 @@ def _sort_words_perm(words, count, impl: str, descending: bool = False,
 
 
 def sort_by_column(cols: Cols, count: torch.Tensor, key_name: str,
-                   descending: bool = False, impl: str = "xla") -> Cols:
-    """Stable sort of each shard's valid rows by one column; invalid rows
+                   descending: bool = False, impl: str = "xla",
+                   lo_name: Optional[str] = None) -> Cols:
+    """Stable sort of each shard's valid rows by one column, or by a
+    two-column int64 key when lo_name names its low word; invalid rows
     sink to the end. impl (the Context's dense_sort_impl) 'radix' /
-    'radix4' / 'packed' sorts int32 and float32 keys by their orderable
-    words; 'xla' (and any other key dtype) takes torch's stable sort."""
+    'radix4' / 'packed' sorts int32, float32 and wide keys by their
+    orderable words (a wide key's are [lo, hi]: the stored low word's
+    signed order is the true low word's unsigned order); 'xla' (and any
+    other key dtype) takes torch's stable sort, for a wide key one sort of
+    the int64 the pair encodes (the same order)."""
     key = cols[key_name]
-    if impl in ("radix", "radix4", "packed") and _radix_supported(key):
-        order = _sort_words_perm(orderable_words([key]), count, impl,
-                                 descending)
+    if impl in ("radix", "radix4", "packed") and (
+            lo_name is not None or _radix_supported(key)):
+        words = orderable_words([cols[lo_name], key] if lo_name is not None
+                                else [key])
+        order = _sort_words_perm(words, count, impl, descending)
         return gather_rows(cols, order)
     mask = valid_mask(key.shape[1], count)
+    if lo_name is not None:
+        key = wide_i64(key, cols[lo_name])
     if descending:
-        # bitwise-not is the overflow-free order flip for ints (negation
-        # wraps INT32_MIN onto itself); floats negate exactly
-        key = -key if key.dtype.is_floating_point else torch.bitwise_not(key)
-    order = torch.sort(torch.where(mask, key, _orderable_max(key)), dim=1,
+        key = _order_flip(key)
+    order = torch.sort(torch.where(mask, _comparator_key(key),
+                                   _orderable_max(key)), dim=1,
                        stable=True).indices
     return gather_rows(cols, order)
 
@@ -424,16 +502,65 @@ def bucket_key_sort(cols: Cols, count: torch.Tensor, bucket: torch.Tensor,
         order = _sort_words_perm(orderable_words([key, bucket]), count,
                                  impl)
     else:
-        # ghosted buckets already order the invalid rows last. The
-        # reference's comparator sort ties -0.0 with +0.0 and every NaN
-        # with every other (after +inf): canonical values give the words
-        # the same ties
-        if key.dtype.is_floating_point:
-            key = torch.where(key == 0, 0.0, key)
-            key = torch.where(torch.isnan(key), float("nan"), key)
-        packed = (bucket.to(torch.int64) << 32) | _orderable_u32(key)
+        # ghosted buckets already order the invalid rows last; canonical
+        # floats give the words the comparator sort's ties
+        packed = (bucket.to(torch.int64) << 32) | _orderable_u32(
+            _comparator_key(key))
         order = torch.sort(packed, dim=1, stable=True).indices
     return gather_rows(cols, order), torch.gather(bucket, 1, order)
+
+
+# ---------------------------------------------------------------------------
+# selection: take_ordered / top
+# ---------------------------------------------------------------------------
+
+
+def topk_values(vals: torch.Tensor, count: torch.Tensor, k: int,
+                largest: bool) -> torch.Tensor:
+    """Each shard's k largest (or smallest) values, best first, as
+    [n_shards, k]; rows past a shard's count are the reference's
+    sentinels (-inf / INT32_MIN for largest, +inf / INT32_MAX for
+    smallest). Selected over orderable words, i.e. in the total order
+    lax.top_k uses (-NaN < -inf, -0.0 < +0.0, +inf < +NaN), so the chosen
+    values are the reference's bit for bit."""
+    if largest:
+        sentinel = float("-inf") if vals.dtype.is_floating_point \
+            else INT32_MIN
+    else:
+        sentinel = _orderable_max(vals)
+    # a valid value equal to the sentinel ties with the ghost rows, so the
+    # values come from the masked column: either pick gives the same bits
+    masked = torch.where(valid_mask(vals.shape[1], count), vals, sentinel)
+    idx = torch.topk(_orderable_u32(masked), k, dim=1, largest=largest,
+                     sorted=True).indices
+    return torch.gather(masked, 1, idx)
+
+
+def row_sort_perm(cols: Sequence[torch.Tensor], count: torch.Tensor,
+                  descending: bool, impl: str = "xla") -> torch.Tensor:
+    """Stable permutation of each shard's rows in lexicographic order of
+    the columns (first column most significant), ghost rows last:
+    take_ordered / top's row sort. 'radix' / 'radix4' / 'packed' (32-bit
+    columns only) sort every column's orderable word, as the reference
+    does; 'xla' is the reference's one stable lax.sort over (invalid flag,
+    every column, each flipped when descending: floats negated, ints
+    bitwise-not) as stable torch sorts, least significant column first."""
+    if impl in ("radix", "radix4", "packed"):
+        return _sort_words_perm(orderable_words(list(reversed(cols))), count,
+                                impl, descending)
+    n_shards, cap = cols[0].shape
+
+    def stable_pass(order, key):
+        step = torch.sort(torch.gather(key, 1, order), dim=1,
+                          stable=True).indices
+        return torch.gather(order, 1, step)
+
+    order = torch.arange(cap, device=count.device).expand(n_shards,
+                                                          cap).contiguous()
+    for col in reversed(cols):
+        order = stable_pass(order, _comparator_key(
+            _order_flip(col) if descending else col))
+    return stable_pass(order, (~valid_mask(cap, count)).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
