@@ -43,15 +43,36 @@ Phases, in order; any failure exits non-zero before the last line:
      sort_by_key().take(10) and take_ordered(10) over 125M pairs with
      int64 keys uniform in [-2^45, 2^45). A cold run equals numpy, three
      warm runs give a median rows/s (the host build of the sources and
-     each step timed apart), and the cold and first warm run must launch digit_hist and
-     partition_pos (config 4 hash_bucket too); the peak device memory is
-     reported.
+     each step timed apart), and the cold and first warm run must launch
+     digit_hist and partition_pos (config 4 hash_bucket too); the peak
+     device memory is reported;
+  6. named, narrow, set and action ops: (a) BASELINE config 3, the word
+     count dense_from_columns({"word_id": ids}, key="word_id")
+     .count_by_key_dense().collect() over 100M ids with 2.5M distinct
+     (suite.py's generator), as phase 5 runs a config: the collected dict
+     equals np.bincount exactly, and hash_bucket and digit_hist launch
+     (the fused_sort reduce's exchange is pregrouped, so partition_pos is
+     not on this path); (b) at the main path's size (N = 20M, K = 1M),
+     each new op once cold (launches counted from 0, result against
+     numpy: integers exactly, float sums within stated tolerances, min /
+     max and histogram bins exactly) and three warm runs (median ms,
+     rows/s): map + filter + map_values, the
+     traced reduce_by_key(xor) (it must take the segmented scan),
+     left_outer_join, distinct / intersection / subtract, union / zip /
+     zip_with_index, sum / mean / min / max / stats / histogram(10) and
+     reduce(xor); every kernel launches in them.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
-each keyed config's line, the kernel table as one JSON line, the card
-line, and last {"ok": true, "device": {...}}. Details go to
-chiprun_out/chip_smoke.json.
+each keyed config's line, config 3's line, one line per new op, the
+kernel table as one JSON line (with phase 6's launches beside the main
+path's), the card line, and last {"ok": true, "device": {...}}. Details
+go to chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
+
+    python3 chip_smoke.py --main-path-ab DIR_A DIR_B DIR_B DIR_A
+
+runs only phase 3, of each checkout DIR in turns (its own chip_smoke.py
+and package, a process each): the main path of two trees in one call.
 """
 
 import json
@@ -74,6 +95,7 @@ REPEATS = 50                   # partition_pos launches on one input
 C1_ROWS, C1_KEYS = 10_000_000, 250_000   # phase 5, config 1
 C4_ROWS, C4_CART = 50_000_000, 10_000    # config 4: each side; m
 C5_ROWS = 125_000_000                    # config 5
+C3_ROWS = 100_000_000                    # phase 6, config 3
 # phase 4: (label, Context settings); the default plan is phase 3's
 PLANS = [
     ("radix", dict(dense_sort_impl="radix")),
@@ -931,6 +953,256 @@ def phase_keyed(torch, np, ck, vt):
     return out
 
 
+def config3_data(np):
+    """BASELINE config 3 (benchmarks/suite.py:105-118): the parquet
+    column's word ids, n = 100M and k = n / 40, built with numpy (the
+    parquet read stays the host tier's)."""
+    n = C3_ROWS
+    k = max(1000, n // 40)
+    ids = ((np.arange(n, dtype=np.uint64) * np.uint64(11400714819323198485))
+           % np.uint64(k)).astype(np.int32)
+    return dict(ids=ids, k=k)
+
+
+def config3_run(ctx, data):
+    """suite.py's dev_run: dense_from_columns(key=) is the host build; the
+    word count up to a settled block, then its collect into a dict."""
+    src = ctx.dense_from_columns({"word_id": data["ids"]}, key="word_id")
+    counted = src.count_by_key_dense()
+    return src, [
+        ("count_by_key_dense (settled block)",
+         lambda out: counted.block()),
+        ("collect()", lambda out: out.update(counts=dict(counted.collect())))]
+
+
+def config3_check(np, data, got):
+    """The collected dict equals np.bincount(ids) over its nonzero ids,
+    exactly."""
+    counts, want = got["counts"], np.bincount(data["ids"],
+                                              minlength=data["k"])
+    nz = np.flatnonzero(want)
+    keys = np.fromiter(counts.keys(), np.int64, len(counts))
+    vals = np.fromiter(counts.values(), np.int64, len(counts))
+    order = np.argsort(keys)
+    if not (len(counts) == len(nz) and np.array_equal(keys[order], nz)
+            and np.array_equal(vals[order], want[nz])):
+        fail("config 3: word counts differ from np.bincount")
+    return dict(words=int(len(counts)), rows=int(vals.sum()))
+
+
+def time_op(torch, ck, label, rows, run, check):
+    """One op of phase 6(b): the cold run with the launch counts set to 0
+    just before it and read just after, its result checked by check(out);
+    then three warm runs, each ended by a synchronize (host clock, ms)."""
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ck.LAUNCHES)
+    checked = check(out)
+    del out
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+        del out
+    med = statistics.median(warm)
+    res = dict(label=label, rows=rows, cold_ms=cold_ms, warm_ms=warm,
+               median_ms=med, rows_per_s=rows / (med / 1e3),
+               launches=launches, check=checked)
+    log(f"{label}: {med:.3f} ms warm median of 3 ({warm}), "
+        f"{res['rows_per_s']:,.0f} rows/s, cold {cold_ms:.3f} ms, launches "
+        f"{launches}, {checked}")
+    return res
+
+
+def expect(what, ok):
+    if not ok:
+        fail(f"new ops: {what} differs from numpy")
+
+
+def new_op_cases(torch, np, ctx):
+    """(label, rows, run, check) of phase 6(b) at the main path's size.
+    Sources are built once and held; run() drives one op over them to a
+    settled block (or an action's value); check() holds the cold result
+    against numpy: integers exactly, float sums and stdev within stated
+    tolerances, min / max and histogram bins exactly."""
+    n, k = N_ROWS, N_KEYS
+    x = np.arange(n, dtype=np.int64)
+    keep = x % 3 != 0
+    v = x ^ 0x5A5A
+    xor = np.bitwise_xor.reduce(np.where(keep, v, 0).reshape(n // k, k), 0)
+
+    def kv():
+        return ctx.dense_range(n).map(lambda r: (r % N_KEYS, r)) \
+            .filter(lambda r: r[1] % 3 != 0).map_values(lambda r: r ^ 0x5A5A)
+
+    def xor_reduce():
+        return kv().reduce_by_key(lambda a, b: a ^ b)
+
+    def check_kv(node):
+        got = node.block().to_numpy()
+        expect("filter / map_values", np.array_equal(got["k"], (x % k)[keep])
+               and np.array_equal(got["v"], v[keep]))
+        return dict(rows=int(keep.sum()))
+
+    def check_xor(node):
+        if node._op is not None:
+            fail(f"reduce_by_key(xor) took the named op {node._op!r}, not "
+                 "the segmented scan")
+        got = node.block().to_numpy()
+        o = np.argsort(got["k"])
+        expect("reduce_by_key(xor)", np.array_equal(got["k"][o], np.arange(k))
+               and np.array_equal(got["v"][o], xor))
+        return dict(keys=int(len(o)), scan=True)
+
+    red = xor_reduce()
+    red.block()
+    tk = np.arange(0, k, 2, dtype=np.int32)
+    table = ctx.dense_from_numpy(tk, (tk // 2 * 7).astype(np.int32))
+
+    def check_join(node):
+        got = node.block().to_numpy()
+        o = np.argsort(got["k"])
+        kk = got["k"][o]
+        expect("left_outer_join", len(o) == k and np.array_equal(
+            kk, np.arange(k)) and np.array_equal(got["lv"][o], xor)
+            and np.array_equal(got["rv"][o],
+                               np.where(kk % 2 == 0, kk // 2 * 7, -1)))
+        return dict(rows=int(len(o)), unmatched=int((got["rv"] == -1).sum()))
+
+    a_np, b_np = x % (n // 7), x % (n // 11)
+    a, b = ctx.dense_from_numpy(a_np), ctx.dense_from_numpy(b_np)
+
+    def check_set(want):
+        def check(node):
+            got = np.sort(node.block().to_numpy()["v"])
+            expect("a set op", np.array_equal(got, want))
+            return dict(rows=int(len(got)))
+        return check
+
+    ua, ub = ctx.dense_range(n), ctx.dense_range(n).map(lambda r: r * 3)
+    per = -(-n // N_SHARDS)
+    union_want = np.concatenate([np.concatenate([
+        x[s * per:(s + 1) * per], 3 * x[s * per:(s + 1) * per]])
+        for s in range(N_SHARDS)])
+
+    def check_cols(what, want):
+        def check(node):
+            got = node.block().to_numpy()
+            expect(what, all(np.array_equal(got[c], w)
+                             for c, w in want.items()))
+            return dict(rows=int(len(next(iter(got.values())))))
+        return check
+
+    halves = ctx.dense_range(n).map(lambda r: r * 0.5)
+    halves.block()
+    h64 = x * 0.5  # exact in float64
+    h32 = x.astype(np.float32) * np.float32(0.5)  # the card's values
+
+    def close(what, got, want, rtol):
+        if not abs(got - want) <= rtol * abs(want):
+            fail(f"new ops: {what} {got!r}, numpy {want!r} (rtol {rtol})")
+        return dict(value=got, numpy=want, rel_err=abs(got - want)
+                    / abs(want), rtol=rtol)
+
+    def check_stats(st):
+        ok = (st["count"] == n and st["min"] == float(h32.min())
+              and st["max"] == float(h32.max()))
+        expect("stats count / min / max", ok)
+        return dict(mean=close("stats mean", st["mean"], h64.mean(), 1e-5),
+                    stdev=close("stats stdev", st["stdev"], h64.std(),
+                                1e-4))
+
+    def check_min_max(got):
+        expect("min / max", got == (float(h32.min()), float(h32.max())))
+        return dict(min=got[0], max=got[1])
+
+    def check_hist(res):
+        edges, counts = res
+        e32 = np.asarray(edges, dtype=np.float32)
+        nb = len(edges) - 1
+        mask = (h32 >= e32[0]) & (h32 <= e32[-1])
+        idx = np.clip(np.searchsorted(e32, h32, side="right") - 1, 0, nb - 1)
+        want = np.bincount(idx[mask], minlength=nb)
+        expect("histogram(10)", len(counts) == nb == 10
+               and edges[0] == float(h32.min())
+               and edges[-1] == float(h32.max())
+               and np.array_equal(np.asarray(counts), want))
+        return dict(counts=list(counts))
+
+    # n - 1 rows: the xor of 0..n-1 is 0 when 4 divides n
+    ints = ctx.dense_range(n - 1)
+    ints.block()
+    xor_all = int(np.bitwise_xor.reduce(x[:-1].astype(np.int32)))
+
+    def check_reduce(got):
+        expect("reduce(xor)", got == xor_all)
+        return dict(value=got)
+
+    def built(make):
+        def run():
+            node = make()
+            node.block()
+            return node
+        return run
+
+    return [
+        ("map + filter + map_values", n, built(kv), check_kv),
+        ("reduce_by_key(lambda a, b: a ^ b)", int(keep.sum()),
+         built(xor_reduce), check_xor),
+        ("left_outer_join(K/2 even keys, fill_value=-1)", k,
+         built(lambda: red.left_outer_join(table, fill_value=-1)),
+         check_join),
+        ("distinct", n, built(a.distinct), check_set(np.unique(a_np))),
+        ("intersection", 2 * n, built(lambda: a.intersection(b)),
+         check_set(np.intersect1d(a_np, b_np))),
+        ("subtract", 2 * n, built(lambda: a.subtract(b)),
+         check_set(np.sort(a_np[~np.isin(a_np, b_np)]))),
+        ("union", 2 * n, built(lambda: ua.union(ub)),
+         check_cols("union", {"v": union_want})),
+        ("zip", 2 * n, built(lambda: ua.zip(ub)),
+         check_cols("zip", {"k": x, "v": 3 * x})),
+        ("zip_with_index", n, built(ub.zip_with_index),
+         check_cols("zip_with_index", {"k": 3 * x, "v": x})),
+        ("sum", n, halves.sum,
+         lambda got: close("sum", got, h64.sum(), 1e-5)),
+        ("mean", n, halves.mean,
+         lambda got: close("mean", got, h64.mean(), 1e-5)),
+        ("min / max", n, lambda: (halves.min(), halves.max()),
+         check_min_max),
+        ("stats", n, halves.stats, check_stats),
+        ("histogram(10)", n, lambda: halves.histogram(10), check_hist),
+        ("reduce(lambda a, b: a ^ b)", n - 1,
+         lambda: ints.reduce(lambda p, q: p ^ q), check_reduce),
+    ]
+
+
+def phase_new_ops(torch, np, ck, vt):
+    """Phase 6(b): every new op at the main path's size in one Context;
+    the launch counts of the cold runs are summed and every kernel must
+    have launched in them."""
+    ctx = vt.Context(n_shards=N_SHARDS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cases = new_op_cases(torch, np, ctx)
+    setup_s = time.perf_counter() - t0
+    out = [time_op(torch, ck, *case) for case in cases]
+    peak = torch.cuda.max_memory_allocated()
+    ctx.stop()
+    launches = {name: sum(r["launches"][name] for r in out)
+                for name in ck.LAUNCHES}
+    check_launched(launches, "phase 6(b)'s cold runs")
+    torch.cuda.empty_cache()
+    return dict(ops=out, launches=launches, peak_bytes=peak,
+                setup_s=setup_s)
+
+
 def main():
     try:
         import torch
@@ -968,6 +1240,19 @@ def main():
     plans = phase_plans(torch, np, ck, vt, main_path)
     # 5. the keyed configs
     keyed = phase_keyed(torch, np, ck, vt)
+    # 6. (a) config 3, (b) the new ops
+    data = config3_data(np)
+    # the fused_sort reduce groups its combined rows by bucket in its
+    # sort, so its exchange is pregrouped: digit_hist counts it and
+    # partition_pos (the join's ranking of unsorted rows) has no part in
+    # this path
+    config3 = run_config(
+        torch, np, ck, vt, "config 3: word count, count_by_key_dense",
+        C3_ROWS, data, config3_run,
+        lambda g, d=data: config3_check(np, d, g),
+        ("hash_bucket", "digit_hist"))
+    del data
+    new_ops = phase_new_ops(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -975,7 +1260,9 @@ def main():
          "launches": main_path["launches"][r["name"]],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "config3_launches": config3["launches"][r["name"]],
+         "new_ops_launches": new_ops["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -986,7 +1273,8 @@ def main():
                                kernels="CUDA graph replay",
                                plain_and_library="eager calls"),
                    kernels=table, radix_and_cold=radix, main_path=main_path,
-                   plans=plans, keyed=keyed)
+                   plans=plans, keyed=keyed, config3=config3,
+                   new_ops=new_ops)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -1009,6 +1297,22 @@ def main():
               f"{json.dumps(r['median_step_ms'])}, launches of one warm run "
               f"{json.dumps(r['warm_launches'])}, peak "
               f"{r['peak_bytes']} bytes on {card}", flush=True)
+    r = config3
+    print(f"{r['label']}: {r['rows_per_s']:.1f} rows/s warm median of 3 "
+          f"({r['rows']} rows, {r['check']['words']} words), host build "
+          f"{statistics.median(r['warm_build_ms']):.1f} ms, cold "
+          f"{r['cold_s']:.3f} s, median step ms "
+          f"{json.dumps(r['median_step_ms'])}, launches cold "
+          f"{json.dumps(r['launches'])} warm {json.dumps(r['warm_launches'])}"
+          f", peak {r['peak_bytes']} bytes on {card}", flush=True)
+    for r in new_ops["ops"]:
+        print(f"new op {r['label']}: {r['median_ms']:.3f} ms warm median of "
+              f"3, {r['rows_per_s']:.1f} rows/s ({r['rows']} rows), cold "
+              f"{r['cold_ms']:.3f} ms, launches {json.dumps(r['launches'])} "
+              f"on {card}", flush=True)
+    print(f"new ops: peak {new_ops['peak_bytes']} bytes, launches of the "
+          f"cold runs {json.dumps(new_ops['launches'])} on {card}",
+          flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
@@ -1022,5 +1326,66 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def main_path_leg(checkout):
+    """One leg of --main-path-ab, in a process of its own: `checkout`'s
+    own chip_smoke.phase_main_path over its own package (its CUDA kernels
+    built in its own tree); prints one JSON line."""
+    import importlib.util
+
+    checkout = os.path.abspath(checkout)
+    sys.path.insert(0, checkout)
+    import numpy as np
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "leg_chip_smoke", os.path.join(checkout, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import vega_tpu_torch as vt
+    from vega_tpu_torch import cuda_kernels as ck
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    if not vt.__file__.startswith(checkout):
+        fail(f"loaded {vt.__file__}, not the package of {checkout}")
+    ck.build()
+    res = cs.phase_main_path(torch, np, ck, vt)
+    keys = ("rows_per_s", "median_s", "warm_s", "warm_build_ms",
+            "warm_count_ms", "warm_count_device_ms", "cold_s",
+            "warm_launches")
+    print(json.dumps(dict({"checkout": checkout},
+                          **{k: res[k] for k in keys})), flush=True)
+
+
+def main_path_ab(checkouts):
+    """--main-path-ab DIR...: phase 3 of each checkout in turns on one card
+    (e.g. the parent unpacked with git archive into the gitignored _ab/:
+    _ab/parent . . _ab/parent), each leg in a process of its own. Prints
+    one JSON line per leg and the card line; writes
+    chiprun_out/main_path_ab.json."""
+    card = card_line()
+    legs = []
+    for checkout in checkouts:
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--main-path-leg",
+             checkout], capture_output=True, text=True, timeout=900,
+            check=False)
+        if res.returncode != 0:
+            fail(f"leg {checkout} failed ({res.returncode}):\n"
+                 f"{res.stderr[-4000:]}")
+        legs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(json.dumps(legs[-1]), flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "main_path_ab.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump({"card": card, "legs": legs}, fh, indent=1)
+    print(f"card: {card}", flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--main-path-ab"] and len(sys.argv) > 2:
+        main_path_ab(sys.argv[2:])
+    elif sys.argv[1:2] == ["--main-path-leg"] and len(sys.argv) == 3:
+        main_path_leg(sys.argv[2])
+    else:
+        main()

@@ -78,6 +78,14 @@ class Context:
         self._check_running()
         return dense_rdd.dense_from_numpy(self, columns)
 
+    def dense_from_columns(self, columns: Optional[dict] = None,
+                           key: Optional[str] = None, **kwcolumns):
+        """Dense source from named host columns; key= names the shuffle
+        key column."""
+        self._check_running()
+        return dense_rdd.dense_from_columns(self, columns, key=key,
+                                            **kwcolumns)
+
     def stop(self) -> None:
         """Settle the deferred exchanges, so blocks a caller holds stay
         readable and the Context holds no block after it stops; then

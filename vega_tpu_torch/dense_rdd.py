@@ -1,13 +1,21 @@
 """Dense lineage: RDD nodes whose partitions are shard rows of Blocks.
 
 Counterpart of vega_tpu/tpu/dense_rdd.py. Sources (dense_range,
-dense_from_numpy) and map feed the keyed nodes: reduce_by_key(op=), join,
-group_by_key, sort_by_key and cogroup (two group_by_keys), the cartesian
-product, and the actions count / collect / take / take_ordered / top.
-Each node materializes once into a Block ([n_shards, capacity] columns on
-one device). Narrow nodes (map) are not materialized in front of an
-exchange: their chain is applied to the root block's columns inside the
-exchange, once per materialization.
+dense_from_numpy, dense_from_columns with named columns) and the narrow
+nodes (map, filter, map_values, select, rename, keys / values, the ones
+column of count_by_key_dense) feed the keyed nodes: reduce_by_key (a named
+op, or a traced binop through a segmented scan), join and
+left_outer_join, group_by_key, sort_by_key and cogroup (two
+group_by_keys), the set ops built on them (distinct, intersection,
+subtract), union, zip, zip_with_index, the cartesian product, and the
+actions count / collect / take / take_ordered / top / reduce / sum / min
+/ max / mean / stats / histogram / count_by_value. Each node materializes
+once into a Block ([n_shards, capacity] columns on one device). Narrow
+nodes are not materialized in front of an exchange: their chain is
+applied to the root block's columns inside the exchange, once per
+materialization. Nodes that keep keys and row order (filter, map_values,
+select of the key, rename, the ones column) pass a parent's hash placement
+and key order through, so the next exchange over them is elided.
 
 Every plan of the reference is ported; the Context resolves them
 (context.py): dense_sort_impl (xla / packed / radix / radix4) for every
@@ -27,9 +35,10 @@ DenseRDD.block()) settles every pending entry in one fetch and repairs a
 failed speculation, and what depends on it, in place.
 
 An int64 key beyond int32 is the two-column (KEY, KEY_LO) encoding:
-group_by_key, sort_by_key, cogroup of two such sides, take and
-take_ordered / top run on it; map, reduce_by_key, join and a cogroup
-against a narrow side raise VegaError until a later slice ports them.
+group_by_key, sort_by_key, cogroup of two such sides, select, map_values,
+union, take and take_ordered / top run on it; map, filter, reduce_by_key,
+join and a cogroup against a narrow side raise VegaError until a later
+slice ports them.
 There is no host tier to fall back to: a row function that does not run
 on column tensors raises VegaError, and so does every request the
 reference would hand to its host tier.
@@ -40,6 +49,7 @@ from __future__ import annotations
 import hashlib
 import logging
 import math
+import operator
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -74,6 +84,46 @@ def _fp(f) -> str:
     cells = tuple(repr(c.cell_contents) for c in (f.__closure__ or ()))
     blob = repr((code.co_code, code.co_consts, code.co_names, cells))
     return hashlib.sha1(blob.encode()).hexdigest()[:16]
+
+
+def _canonical_monoid_codes():
+    """co_code of the canonical monoid lambdas for this interpreter."""
+    return {
+        (lambda a, b: a + b).__code__.co_code: "add",
+        (lambda a, b: a * b).__code__.co_code: "prod",
+    }
+
+
+_MONOID_CODES = _canonical_monoid_codes()
+
+
+def _infer_named_op(func) -> Optional[str]:
+    """The named op a binop is, recognized soundly (the port's copy of
+    vega_tpu/rdd/pair.py's): operator.add / mul, builtin min / max, and
+    lambdas whose bytecode equals the canonical `lambda a, b: a + b` /
+    `a * b` with no free variables, names or constants. Anything else runs
+    as a traced binop."""
+    if func is operator.add:
+        return "add"
+    if func is operator.mul:
+        return "prod"
+    if func is min:
+        return "min"
+    if func is max:
+        return "max"
+    code = getattr(func, "__code__", None)
+    if (code is not None and code.co_argcount == 2
+            and not code.co_freevars and not code.co_names
+            and code.co_consts in ((), (None,))
+            and getattr(func, "__closure__", None) is None):
+        return _MONOID_CODES.get(code.co_code)
+    return None
+
+
+def _no_host_tier(what: str) -> VegaError:
+    """The error for a request the reference hands to its host tier."""
+    return VegaError(f"{what}: the reference hands this to its host tier, "
+                     "which vega_tpu_torch does not have")
 
 
 class DenseRDD:
@@ -152,8 +202,15 @@ class DenseRDD:
             raise VegaError(
                 f"{op} over a two-column int64 key comes with a later slice "
                 "of vega_tpu_torch; only group_by_key, sort_by_key, cogroup "
-                "of two int64-keyed sides, take and take_ordered / top run "
-                "on it now")
+                "of two int64-keyed sides, select, map_values, union, take "
+                "and take_ordered / top run on it now")
+
+    @property
+    def columns(self) -> List[str]:
+        return [n for n, _ in self._schema()]
+
+    def _value_names(self) -> List[str]:
+        return [n for n, _ in self._schema() if n not in (KEY, KEY_LO)]
 
     @property
     def hash_placed(self) -> bool:
@@ -178,49 +235,168 @@ class DenseRDD:
         self._refuse_wide("map")
         return _MapRDD(self, f)
 
+    def filter(self, predicate: Callable) -> "DenseRDD":
+        """Keep the rows whose predicate (run on whole column tensors, as
+        map's f) is true; each shard compacts stably, so placement and key
+        order pass through."""
+        self._refuse_wide("filter")
+        return _FilterRDD(self, predicate)
+
+    def key_by(self, f: Callable) -> "DenseRDD":
+        return self.map(lambda x: (f(x), x))
+
+    def map_values(self, f: Callable) -> "DenseRDD":
+        """f over the one value column, keys (and a wide key's low word)
+        untouched, so placement and key order pass through."""
+        if not self.is_pair:
+            raise VegaError("map_values on non-pair DenseRDD")
+        value_names = self._value_names()
+        if len(value_names) != 1:
+            raise VegaError(
+                "map_values needs exactly one value column (have "
+                f"{value_names}); use select(...) or a tuple-valued "
+                "reduce_by_key on multi-column blocks")
+        return _MapValuesRDD(self, f)
+
+    def select(self, *names: str) -> "DenseRDD":
+        """Project a subset of columns, in the order given. Selecting a
+        wide key keeps its low word; the low word alone is refused (it
+        would decode to nothing on host reads)."""
+        schema = dict(self._schema())
+        for n in names:
+            if n not in schema:
+                raise VegaError(f"no such column: {n!r}")
+            base = n[:-len(block_lib.LO_SUFFIX)]
+            if block_lib.is_lo(n) and base not in names:
+                raise VegaError(
+                    f"{n!r} is the low word of a wide int64 column; select "
+                    f"{base!r} instead (the pair travels together)")
+        expanded = []
+        for n in names:
+            expanded.append(n)
+            lo = block_lib.lo_of(n)
+            if lo in schema and lo not in names:
+                expanded.append(lo)
+        return _SelectRDD(self, tuple(expanded))
+
+    def rename(self, mapping: dict) -> "DenseRDD":
+        """Rename value columns. The key columns cannot be renamed (or
+        renamed onto), nor can a column take the reserved '.lo' suffix."""
+        schema = dict(self._schema())
+        for old, new in mapping.items():
+            if old not in schema:
+                raise VegaError(f"no such column: {old!r}")
+            if old in (KEY, KEY_LO) or new in (KEY, KEY_LO):
+                raise VegaError(
+                    "the key columns cannot be renamed (or renamed onto): a "
+                    "value column renamed to the key name would fabricate a "
+                    "pair RDD out of non-key data")
+            if block_lib.is_lo(old) or block_lib.is_lo(new):
+                raise VegaError(
+                    f"the {block_lib.LO_SUFFIX!r} suffix is reserved for "
+                    "wide int64 low words; rename the base column instead")
+        out_names = [mapping.get(nm, nm) for nm in schema]
+        if len(set(out_names)) != len(out_names):
+            raise VegaError(f"rename would collide columns: {out_names}")
+        return _RenameRDD(self, mapping)
+
+    def keys_dense(self) -> "DenseRDD":
+        """The key column as a value RDD."""
+        if self.wide_key:
+            raise _no_host_tier("keys_dense of a two-column int64 key (one "
+                                "value column cannot hold it)")
+        return _ProjectRDD(self, KEY)
+
+    def values_dense(self) -> "DenseRDD":
+        return _ProjectRDD(self, VALUE)
+
     def reduce_by_key(self, func=None, *, op: Optional[str] = None):
-        """Device shuffle: map-side combine, exchange, reduce-side merge.
-        Only the named ops add/min/max/prod are ported."""
+        """Device shuffle: map-side combine, exchange, reduce-side merge of
+        every value column per key. A named op (add/min/max/prod, or a
+        binop _infer_named_op recognizes) takes the segment fast path; any
+        other binop runs traced, through kernels.segment_reduce_sorted: a
+        scalar binop over one value column, a tuple binop (one scalar per
+        column) over several."""
         if not self.is_pair:
             raise VegaError("reduce_by_key on non-pair DenseRDD")
+        if op is None and func is None:
+            raise TypeError("need func or op")
         self._refuse_wide("reduce_by_key")
         if op is None:
-            raise VegaError(
-                "vega_tpu_torch reduces only with a named op "
-                f"({', '.join(kernels.SEGMENT_OPS)}); traced reduce "
-                f"functions ({func!r}) are not ported yet")
+            op = _infer_named_op(func)
+        if op is None:
+            return _ReduceByKeyRDD(self, None, func)
         if op not in kernels.SEGMENT_OPS:
             raise VegaError(f"unknown op {op!r}; expected one of "
                             f"{kernels.SEGMENT_OPS}")
         return _ReduceByKeyRDD(self, op)
 
+    def sum_by_key(self) -> "DenseRDD":
+        return self.reduce_by_key(op="add")
+
+    def count_by_key_dense(self) -> "DenseRDD":
+        """(key, occurrence count) pairs over any keyed block (pair,
+        key-only or named): a ones column replaces the value columns before
+        the exchange moves any data, then reduce_by_key(op="add")."""
+        if not self.is_pair:
+            raise VegaError("count_by_key_dense on un-keyed DenseRDD")
+        return _OnesValueRDD(self).reduce_by_key(op="add")
+
+    def combine_by_key(self, create_combiner: Callable,
+                       merge_value: Callable, merge_combiners: Callable
+                       ) -> "DenseRDD":
+        """map_values(create_combiner), then a reduce by merge_combiners
+        (named when _infer_named_op recognizes it, else traced): the host
+        semantics under the combiner contract merge_value(c, v) ==
+        merge_combiners(c, create_combiner(v))."""
+        if not self.is_pair:
+            raise VegaError("combine_by_key on non-pair DenseRDD")
+        self._refuse_wide("combine_by_key")
+        if not self._value_names():
+            raise VegaError("combine_by_key needs a value column")
+        mapped = _MapValuesRDD(self, create_combiner)
+        op = _infer_named_op(merge_combiners)
+        return _ReduceByKeyRDD(mapped, op, None if op else merge_combiners)
+
+    def _join_sides(self, other, op: str) -> None:
+        """The checks join and left_outer_join share: two dense pair RDDs
+        on one mesh, narrow keys of one dtype, each side in the canonical
+        (k, v) layout (the join names its outputs lv / rv)."""
+        if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
+            raise VegaError(f"{op} needs two dense pair RDDs on one mesh")
+        for side in (self, other):
+            side._refuse_wide(op)
+            side._check_keyed(op)
+        lk, rk = dict(self._schema())[KEY], dict(other._schema())[KEY]
+        if lk != rk:
+            raise _no_host_tier(f"{op} of key dtypes {lk} and {rk} (equal "
+                                "keys would hash apart on the device)")
+
     def join(self, other: "DenseRDD") -> "DenseRDD":
         """Device sort-merge inner join with full duplicate-key semantics:
         (k, (lv, rv)) rows."""
-        if not (isinstance(other, DenseRDD) and self.is_pair
-                and other.is_pair):
-            raise VegaError("join needs two dense pair RDDs")
-        if other.mesh != self.mesh:
-            raise VegaError("join sides live on different meshes")
-        self._refuse_wide("join")
-        other._refuse_wide("join")
-        for side in (self, other):
-            if [nm for nm, _ in side._schema()] != [KEY, VALUE]:
-                raise VegaError("join needs the canonical (k, v) layout on "
-                                f"both sides, got {side._schema()}")
-        lk, rk = dict(self._schema())[KEY], dict(other._schema())[KEY]
-        if lk != rk:
-            raise VegaError(f"join key dtypes differ ({lk} vs {rk}): equal "
-                            "keys would hash apart")
+        self._join_sides(other, "join")
         return _JoinRDD(self, other)
+
+    def left_outer_join(self, other: "DenseRDD",
+                        fill_value=0) -> "DenseRDD":
+        """Device left-outer join (duplicate keys on both sides): a left
+        row with no match keeps fill_value, cast to the right column's
+        dtype, in rv."""
+        if fill_value is None:
+            raise _no_host_tier("left_outer_join with fill_value=None (a "
+                                "dense column cannot hold None)")
+        self._join_sides(other, "left_outer_join")
+        return _JoinRDD(self, other, outer=True, fill_value=fill_value)
 
     def _check_keyed(self, op: str) -> None:
         if not self.is_pair:
             raise VegaError(f"{op} on non-pair DenseRDD")
-        names = [nm for nm, _ in self._schema() if nm not in (KEY, KEY_LO)]
-        if names != [VALUE]:
-            raise VegaError(f"{op} needs the canonical (k, v) layout, got "
-                            f"{self._schema()}")
+        if self._value_names() != [VALUE]:
+            raise VegaError(
+                f"{op} needs the canonical (k, v) layout, got "
+                f"{self._schema()}; select(...) down to one value column "
+                f"and rename(...) it to {VALUE!r} first")
 
     def group_by_key(self) -> "DenseRDD":
         """Device group_by_key: exchange by key hash, sort within each
@@ -269,15 +445,87 @@ class DenseRDD:
                             "column each) on one mesh")
         return _CartesianDenseRDD(self, other)
 
+    def _one_value_column(self, op: str) -> None:
+        if self.columns != [VALUE]:
+            raise VegaError(f"{op} needs a value RDD of one {VALUE!r} column "
+                            f"(columns: {self.columns})")
+
+    def distinct(self) -> "DenseRDD":
+        """Each value once: the value moves to the key, a keyed
+        min-reduce dedups it, the keys come back as values."""
+        if self.is_pair:
+            raise _no_host_tier("distinct over pairs")
+        self._one_value_column("distinct")
+        return _ReduceByKeyRDD(_MapRDD(self, _value_key_zero), "min") \
+            .keys_dense()
+
+    def _set_op_sides(self, other, op: str) -> None:
+        """Value RDDs on one mesh with equal value dtypes: an int32 2 and
+        a float32 2.0 hash apart on the device but compare equal on the
+        host, so a mismatch is the host tier's."""
+        if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
+            raise VegaError(f"{op} needs two dense RDDs on one mesh")
+        if self.is_pair or other.is_pair:
+            raise _no_host_tier(f"{op} over pairs")
+        self._one_value_column(op)
+        other._one_value_column(op)
+        ld, rd = dict(self._schema())[VALUE], dict(other._schema())[VALUE]
+        if ld != rd:
+            raise _no_host_tier(f"{op} of value dtypes {ld} and {rd}")
+
+    def intersection(self, other: "DenseRDD") -> "DenseRDD":
+        """The values of both, each once: both sides dedup through a keyed
+        reduce (hash-placed and key-sorted, so the join elides both
+        exchanges and sorts), then the joined keys."""
+        self._set_op_sides(other, "intersection")
+
+        def dedup(side):
+            return _ReduceByKeyRDD(_MapRDD(side, _value_key_zero), "min")
+        return _JoinRDD(dedup(self), dedup(other)).keys_dense()
+
+    def subtract(self, other: "DenseRDD") -> "DenseRDD":
+        """self's values (duplicates kept) that never occur in other: a
+        left outer join against other's deduped values marked 1 (fill 0),
+        filtered on the mark; the marks side is a reduce output, so its
+        exchange is elided."""
+        self._set_op_sides(other, "subtract")
+        keyed = _MapRDD(self, _value_key_one)
+        marks = _ReduceByKeyRDD(_MapRDD(other, _value_key_one), "min")
+        joined = _JoinRDD(keyed, marks, outer=True, fill_value=0)
+        return _FilterRDD(joined.select(KEY, "rv"), _unmarked).keys_dense()
+
+    def union(self, other: "DenseRDD") -> "DenseRDD":
+        """Per-shard concatenation of two RDDs of one schema."""
+        if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
+            raise VegaError("union needs two dense RDDs on one mesh")
+        if dict(self._schema()) != dict(other._schema()):
+            raise _no_host_tier(f"union of schemas {self._schema()} and "
+                                f"{other._schema()}")
+        return _DenseUnionRDD(self, other)
+
+    def zip(self, other: "DenseRDD") -> "DenseRDD":
+        """(left value, right value) pairs of co-indexed rows: the shards'
+        counts must be equal."""
+        if not (isinstance(other, DenseRDD) and other.mesh == self.mesh
+                and self.columns == [VALUE] and other.columns == [VALUE]):
+            raise _no_host_tier("zip of anything but two one-column value "
+                                "RDDs on one mesh")
+        return _DenseZipRDD(self, other)
+
+    def zip_with_index(self) -> "DenseRDD":
+        """(value, global index) pairs: each shard's offset is the count
+        of the shards before it, on the device."""
+        if self.is_pair:
+            raise VegaError("zip_with_index on pair DenseRDD — use values()")
+        self._one_value_column("zip_with_index")
+        return _ZipWithIndexRDD(self)
+
     # --- actions ------------------------------------------------------------
     def count(self) -> int:
         return self.block().num_rows
 
     def collect(self) -> list:
-        cols = self.block().to_numpy()
-        if KEY not in cols:
-            return cols[VALUE].tolist()
-        return list(zip(cols[KEY].tolist(), cols[VALUE].tolist()))
+        return _host_rows(self.block().to_numpy())
 
     def collect_arrays(self) -> Dict[str, np.ndarray]:
         """Columnar collect: no per-row Python objects."""
@@ -289,14 +537,145 @@ class DenseRDD:
         out: list = []
         blk = self.block()
         for s in range(blk.n_shards):
-            rows = blk.shard_rows(s, limit=max(n - len(out), 0))
-            if list(rows) == [VALUE]:
-                out.extend(rows[VALUE].tolist())
-            else:
-                out.extend(zip(*[c.tolist() for c in rows.values()]))
+            out.extend(_host_rows(blk.shard_rows(s,
+                                                 limit=max(n - len(out), 0))))
             if len(out) >= n:
                 break
         return out[:n]
+
+    # --- value actions ------------------------------------------------------
+    def _value_block(self, op: str) -> Block:
+        if self.is_pair:
+            raise VegaError(f"{op}() on pair DenseRDD — reduce values "
+                            "instead")
+        self._one_value_column(op)
+        return self.block()
+
+    def _named_reduce(self, op: str):
+        """One per-shard masked reduce, the n_shards partials fetched at
+        once and reduced on the host as the reference reduces them."""
+        blk = self._value_block(op)
+        partials = kernels.masked_reduce(blk.cols[VALUE], blk.counts,
+                                         op).cpu().numpy()
+        if op == "add":
+            return partials.sum(axis=0).item()
+        return (partials.min(axis=0) if op == "min"
+                else partials.max(axis=0)).item()
+
+    def sum(self):
+        return self._named_reduce("add")
+
+    def min(self):
+        return self._named_reduce("min")
+
+    def max(self):
+        return self._named_reduce("max")
+
+    def mean(self):
+        n = self.count()
+        if n == 0:
+            raise VegaError("mean of empty DenseRDD")
+        return self.sum() / n
+
+    def reduce(self, f: Callable):
+        """A traced binop: each shard folds its rows through the segmented
+        scan (one segment), the n_shards partials and their non-empty
+        flags come back in one fetch, and the host folds them with f on
+        CPU tensors. An empty RDD raises."""
+        if self.is_pair:
+            raise _no_host_tier("reduce(f) over pairs")
+        blk = self._value_block("reduce")
+        vals = blk.cols[VALUE]
+        _check_binop(f, [vals.dtype], vals.device, "reduce")
+        keyed = {"__k": torch.zeros_like(vals, dtype=torch.int32),
+                 VALUE: vals}
+        out, n_out = kernels.segment_reduce_sorted(
+            keyed, blk.counts, "__k",
+            lambda a, b: {VALUE: f(a[VALUE], b[VALUE])}, presorted=True)
+        partials, nonempty = _fetch_words(
+            [out[VALUE][:, 0], (n_out > 0).to(torch.int32)])
+        picked = [torch.from_numpy(partials[s:s + 1])[0]
+                  for s in range(len(nonempty)) if nonempty[s]]
+        if not picked:
+            raise VegaError("reduce() of empty RDD")
+        acc = picked[0]
+        for x in picked[1:]:
+            acc = f(acc, x)
+        return acc.item()
+
+    def stats(self) -> dict:
+        """count / mean / stdev / min / max in one pass and one fetch:
+        float32 partials (sum, sum of squares, min, max) per shard and the
+        integer counts, combined on the host as the reference combines
+        them."""
+        blk = self._value_block("stats")
+        v = blk.cols[VALUE].to(torch.float32)
+        parts = torch.stack([kernels.masked_reduce(v, blk.counts, "add"),
+                             kernels.masked_reduce(v * v, blk.counts, "add"),
+                             kernels.masked_reduce(v, blk.counts, "min"),
+                             kernels.masked_reduce(v, blk.counts, "max")],
+                            dim=1)
+        counts, parts = _fetch_words([blk.counts, parts])
+        n = int(counts.sum())
+        s = float(parts[:, 0].sum())
+        ss = float(parts[:, 1].sum())
+        valid = counts > 0
+        mn = float(parts[valid, 2].min()) if valid.any() else float("inf")
+        mx = float(parts[valid, 3].max()) if valid.any() else float("-inf")
+        mean = s / n if n else float("nan")
+        var = max(0.0, ss / n - mean * mean) if n else float("nan")
+        return {"count": n, "mean": mean,
+                "stdev": math.sqrt(var) if n else float("nan"),
+                "min": mn, "max": mx}
+
+    def _min_max(self):
+        """min and max in one pass and one fetch."""
+        blk = self._value_block("histogram")
+        vals = blk.cols[VALUE]
+        parts = torch.stack([kernels.masked_reduce(vals, blk.counts, "min"),
+                             kernels.masked_reduce(vals, blk.counts, "max")],
+                            dim=1)
+        parts, counts = _fetch_words([parts, blk.counts])
+        valid = counts > 0
+        if not valid.any():
+            raise VegaError("min/max of empty DenseRDD")
+        return parts[valid, 0].min().item(), parts[valid, 1].max().item()
+
+    def histogram(self, buckets):
+        """(edges, counts): `buckets` edges, or that many even buckets
+        between min and max. Values and edges compare in float32, a value
+        lands in searchsorted(edges, v, right) - 1, clipped to the last
+        bucket, and values outside [edges[0], edges[-1]] are dropped; the
+        per-shard counts are summed on the card and fetched once."""
+        blk = self._value_block("histogram")
+        if isinstance(buckets, int):
+            lo, hi = self._min_max()
+            if lo == hi:
+                return [lo, hi], [self.count()]
+            step = (hi - lo) / buckets
+            edges = [lo + i * step for i in range(buckets)] + [hi]
+        else:
+            edges = list(buckets)
+        n_bins = len(edges) - 1
+        dev = self.mesh.device
+        bnds = torch.tensor(edges, dtype=torch.float32, device=dev)
+        v = blk.cols[VALUE].to(torch.float32)
+        mask = kernels.valid_mask(v.shape[1], blk.counts) \
+            & (v >= bnds[0]) & (v <= bnds[-1])
+        idx = (torch.searchsorted(bnds, v, right=True) - 1).clamp_(
+            0, n_bins - 1)
+        idx = torch.where(mask, idx, n_bins)
+        counts = torch.bincount(idx.reshape(-1), minlength=n_bins + 1)
+        return edges, counts[:n_bins].cpu().tolist()
+
+    def count_by_value(self) -> dict:
+        """{value: occurrences}: the value moves to the key, a ones column
+        rides it through reduce_by_key(op="add")."""
+        if self.is_pair:
+            raise _no_host_tier("count_by_value over pairs")
+        self._one_value_column("count_by_value")
+        return dict(_ReduceByKeyRDD(_MapRDD(self, _value_key_one),
+                                    "add").collect())
 
     def take_ordered(self, n: int, key=None) -> list:
         """The n smallest elements: a per-shard top-k (values) or row sort
@@ -387,15 +766,49 @@ def dense_range(ctx, n: int, dtype=torch.int32) -> DenseRDD:
 
 
 def dense_from_numpy(ctx, columns) -> DenseRDD:
-    """columns: one array (values) or two arrays (keys, values)."""
+    """columns: one array (values), two arrays (keys, values), or three
+    and more, named c0, c1, ... (an un-keyed named block)."""
     if len(columns) == 1:
         cols = {VALUE: np.asarray(columns[0])}
     elif len(columns) == 2:
         cols = {KEY: np.asarray(columns[0]), VALUE: np.asarray(columns[1])}
     else:
-        raise VegaError("dense_from_numpy takes (values) or (keys, values); "
-                        "named multi-column sources are not ported yet")
+        cols = {f"c{i}": np.asarray(c) for i, c in enumerate(columns)}
     return _SourceRDD(ctx, block_lib.from_numpy(cols, ctx.mesh))
+
+
+def dense_from_columns(ctx, columns: Optional[dict] = None,
+                       key: Optional[str] = None, **kwcolumns) -> DenseRDD:
+    """Named-column source: any number of columns, from a dict (any names,
+    "key" included) and / or keywords; key= names the column that becomes
+    the shuffle key KEY. reduce_by_key with a named op then reduces every
+    other column per key, e.g. a parquet table with no pivoting:
+
+        rdd = ctx.dense_from_columns(pq.read_table(p).to_pydict(), key="ip")
+        per_ip = rdd.reduce_by_key(op="add")
+    """
+    named = {}
+    for source in (columns or {}), kwcolumns:
+        for name, col in source.items():
+            if name in named:
+                raise VegaError(f"duplicate column {name!r}")
+            if block_lib.is_lo(name):
+                raise VegaError(
+                    f"column name {name!r} is reserved (the "
+                    f"{block_lib.LO_SUFFIX!r} suffix marks low words of "
+                    "two-column int64 encodings) — rename the column")
+            named[name] = np.asarray(col)
+    lengths = {name: len(col) for name, col in named.items()}
+    if len(set(lengths.values())) > 1:
+        raise VegaError(f"columns have unequal lengths: {lengths}")
+    if key is not None:
+        if key not in named:
+            raise VegaError(f"key column {key!r} not in columns")
+        if KEY in named and key != KEY:
+            raise VegaError(f"column {KEY!r} already exists; key={key!r} "
+                            "would overwrite it — rename one of them")
+        named[KEY] = named.pop(key)
+    return _SourceRDD(ctx, block_lib.from_numpy(named, ctx.mesh))
 
 
 def dense_from_block(ctx, blk: Block) -> DenseRDD:
@@ -410,9 +823,89 @@ def dense_from_block(ctx, blk: Block) -> DenseRDD:
 
 
 def _cols_to_row(cols, schema):
-    if KEY in dict(schema):
+    """The row a row function sees, as the reference forms it: (k, v) for
+    the canonical pair, v for one value column, else a tuple of every
+    column in schema order (a key-only block gives a 1-tuple)."""
+    names = [n for n, _ in schema]
+    if set(names) == {KEY, VALUE}:
         return (cols[KEY], cols[VALUE])
-    return cols[VALUE]
+    if names == [VALUE]:
+        return cols[VALUE]
+    return tuple(cols[n] for n in names)
+
+
+def _host_rows(cols: Dict[str, np.ndarray]) -> list:
+    """Host rows in the same forms: values, (k, v) pairs, or tuples of
+    every column in block order."""
+    names = list(cols)
+    if names == [VALUE]:
+        return cols[VALUE].tolist()
+    if set(names) == {KEY, VALUE}:
+        return list(zip(cols[KEY].tolist(), cols[VALUE].tolist()))
+    return list(zip(*[cols[n].tolist() for n in names]))
+
+
+def _value_key_zero(v):
+    return v, torch.zeros_like(v, dtype=torch.int32)
+
+
+def _value_key_one(v):
+    return v, torch.ones_like(v, dtype=torch.int32)
+
+
+def _unmarked(row):
+    return row[1] == 0
+
+
+def _fetch_words(tensors) -> List[np.ndarray]:
+    """Several int32 / float32 tensors (other integers as int32) in ONE
+    device-to-host transfer: their bits as one int32 vector, split and
+    viewed back as numpy arrays of their own dtypes and shapes."""
+    tensors = [t if t.dtype in (torch.int32, torch.float32)
+               else t.to(torch.int32) for t in tensors]
+    host = torch.cat([t.contiguous().view(torch.int32).reshape(-1)
+                      for t in tensors]).cpu().numpy()
+    out, offset = [], 0
+    for t in tensors:
+        np_dtype = np.float32 if t.dtype == torch.float32 else np.int32
+        out.append(host[offset:offset + t.numel()].view(np_dtype)
+                   .reshape(tuple(t.shape)))
+        offset += t.numel()
+    return out
+
+
+def _check_binop(func, dtypes, device, what: str) -> None:
+    """The reference's checks of a traced binop, run once on probe
+    columns of ones: over one value column it maps two column tensors to
+    one of the same shape and dtype; over several, two tuples of them to a
+    tuple with one such tensor per column. A binop that fails them, or
+    does not run on tensors, raises VegaError (there is no host tier)."""
+    probe = [torch.ones((1, 1), dtype=dt, device=device) for dt in dtypes]
+    arg = probe[0] if len(probe) == 1 else tuple(probe)
+    try:
+        out = func(arg, arg)
+    except Exception as e:  # noqa: BLE001 — any failure means "no trace"
+        raise _no_host_tier(f"{what} binop {func!r} does not run on column "
+                            f"tensors ({e})") from e
+    outs = [out] if len(probe) == 1 else out
+    if not isinstance(outs, (tuple, list)) or len(outs) != len(probe):
+        raise _no_host_tier(f"{what} binop over {len(probe)} value columns "
+                            f"must return a {len(probe)}-tuple")
+    for p, o in zip(probe, outs):
+        if not isinstance(o, torch.Tensor) or o.shape != p.shape:
+            raise _no_host_tier(f"{what} binop must return one scalar per "
+                                "value column")
+        if o.dtype != p.dtype:
+            raise _no_host_tier(
+                f"{what} binop changes the value dtype ({p.dtype} -> "
+                f"{o.dtype}); cast the column first so the block schema "
+                "stays truthful")
+
+
+def _probe_cols(schema, mesh):
+    """Probe columns of a schema: one zero row per shard."""
+    return {n: torch.zeros((mesh.n_shards, 1), dtype=dt, device=mesh.device)
+            for n, dt in schema}
 
 
 def _trace_row_fn(f, schema, mesh):
@@ -421,10 +914,8 @@ def _trace_row_fn(f, schema, mesh):
     dict to a column dict. A function that does not run on tensors, or
     returns anything but a tensor or a pair of tensors, raises VegaError
     (there is no host tier to fall back to)."""
-    probe = {n: torch.zeros((mesh.n_shards, 1), dtype=dt, device=mesh.device)
-             for n, dt in schema}
     try:
-        out = f(_cols_to_row(probe, schema))
+        out = f(_cols_to_row(_probe_cols(schema, mesh), schema))
     except Exception as e:  # noqa: BLE001 — any failure means "not ported"
         raise VegaError(
             f"row function {f!r} does not run on column tensors ({e}); "
@@ -463,7 +954,13 @@ def _trace_row_fn(f, schema, mesh):
 
 
 class _NarrowRDD(DenseRDD):
-    """A narrow op: shard-local (cols, count) -> (cols, count)."""
+    """A narrow op: shard-local (cols, count) -> (cols, count).
+    _keeps_counts: the op keeps every row (not a filter). _keeps_placement:
+    it keeps keys and row order, so the parent's hash placement and key
+    order hold for it too."""
+
+    _keeps_counts = True
+    _keeps_placement = False
 
     def __init__(self, parent: DenseRDD, out_schema):
         super().__init__(parent.context, parent.mesh, [parent])
@@ -473,6 +970,18 @@ class _NarrowRDD(DenseRDD):
     def _schema(self):
         return self._out_schema
 
+    @property
+    def hash_placed(self) -> bool:
+        return self._keeps_placement and self.parent.hash_placed
+
+    @property
+    def key_sorted(self) -> bool:
+        return self._keeps_placement and self.parent.key_sorted
+
+    def _settle_placement(self) -> None:
+        if self._keeps_placement:
+            self.parent._settle_placement()
+
     def _shard_fn(self, cols, count):
         raise NotImplementedError
 
@@ -480,8 +989,10 @@ class _NarrowRDD(DenseRDD):
         chain, root = _narrow_chain(self)
         blk = root.block()
         cols, count = _apply_chain(chain, dict(blk.cols), blk.counts)
+        keeps = all(nd._keeps_counts for nd in chain)
         return Block(cols=cols, counts=count, capacity=blk.capacity,
-                     mesh=self.mesh, counts_host=blk.counts_host)
+                     mesh=self.mesh,
+                     counts_host=blk.counts_host if keeps else None)
 
 
 class _MapRDD(_NarrowRDD):
@@ -497,6 +1008,146 @@ class _MapRDD(_NarrowRDD):
     def _shard_fn(self, cols, count):
         out = self._cols_fn(cols)
         return {n: c.contiguous() for n, c in out.items()}, count
+
+
+def _probe_scalar(f, arg, what: str) -> torch.Tensor:
+    """f's output on probe columns ([n_shards, 1] tensors): one tensor
+    per row, else VegaError (there is no host tier to fall back to)."""
+    try:
+        out = f(arg)
+    except Exception as e:  # noqa: BLE001 — any failure means "no trace"
+        raise VegaError(
+            f"{what} {f!r} does not run on column tensors ({e}); "
+            "vega_tpu_torch has no host tier to fall back to") from e
+    shape = (arg[0] if isinstance(arg, tuple) else arg).shape
+    if not isinstance(out, torch.Tensor) or out.shape != shape:
+        raise VegaError(f"{what} must return one scalar tensor per row")
+    return out
+
+
+class _FilterRDD(_NarrowRDD):
+    """Rows whose predicate holds, compacted stably in each shard."""
+
+    _keeps_counts = False
+    _keeps_placement = True
+
+    def __init__(self, parent: DenseRDD, pred):
+        schema = parent._schema()
+        _probe_scalar(pred, _cols_to_row(_probe_cols(schema, parent.mesh),
+                                         schema), "filter predicate")
+        super().__init__(parent, schema)
+        self._pred = pred
+
+    def _fp_extra(self):
+        return (_fp(self._pred),)
+
+    def _shard_fn(self, cols, count):
+        cap = next(iter(cols.values())).shape[1]
+        keep = self._pred(_cols_to_row(cols, self._out_schema))
+        keep = keep.to(torch.bool) & kernels.valid_mask(cap, count)
+        return kernels.compact(cols, keep, cap)
+
+
+class _MapValuesRDD(_NarrowRDD):
+    """f over the first value column (map_values has checked there is one;
+    combine_by_key takes the first, as the reference does); the key
+    columns pass through."""
+
+    _keeps_placement = True
+
+    def __init__(self, parent: DenseRDD, f):
+        pschema = dict(parent._schema())
+        self._vname = parent._value_names()[0]
+        out = _probe_scalar(f, _probe_cols(
+            [(self._vname, pschema[self._vname])], parent.mesh)[self._vname],
+            "map_values function")
+        if out.dtype not in (torch.int32, torch.float32):
+            raise VegaError(
+                f"map_values output has dtype {out.dtype}; the block dtype "
+                "contract is 32-bit (int32/float32)")
+        key_schema = tuple((nm, pschema[nm]) for nm in (KEY, KEY_LO)
+                           if nm in pschema)
+        super().__init__(parent, key_schema + ((self._vname, out.dtype),))
+        self._f = f
+
+    def _fp_extra(self):
+        return (_fp(self._f),)
+
+    def _shard_fn(self, cols, count):
+        out = {nm: cols[nm] for nm, _ in self._out_schema
+               if nm != self._vname}
+        out[self._vname] = self._f(cols[self._vname]).contiguous()
+        return out, count
+
+
+class _SelectRDD(_NarrowRDD):
+    def __init__(self, parent: DenseRDD, names):
+        pschema = dict(parent._schema())
+        super().__init__(parent, tuple((n, pschema[n]) for n in names))
+        self._names = tuple(names)
+        self._keeps_placement = KEY in self._names
+
+    def _fp_extra(self):
+        return (self._names,)
+
+    def _shard_fn(self, cols, count):
+        return {n: cols[n] for n in self._names}, count
+
+
+class _RenameRDD(_NarrowRDD):
+    """Value-column rename: keys untouched, so placement and order
+    survive."""
+
+    _keeps_placement = True
+
+    def __init__(self, parent: DenseRDD, mapping: dict):
+        super().__init__(parent, tuple(
+            (mapping.get(nm, nm), dt) for nm, dt in parent._schema()))
+        self._mapping = dict(mapping)
+
+    def _fp_extra(self):
+        return (tuple(sorted(self._mapping.items())),)
+
+    def _shard_fn(self, cols, count):
+        return {self._mapping.get(nm, nm): col
+                for nm, col in cols.items()}, count
+
+
+class _OnesValueRDD(_NarrowRDD):
+    """The key columns and an int32 ones VALUE column: count_by_key_dense's
+    map side (the value columns are dropped before the exchange moves any
+    data; the VALUE name keeps the (k, count) row form)."""
+
+    _keeps_placement = True
+
+    def __init__(self, parent: DenseRDD):
+        pschema = dict(parent._schema())
+        out = [(nm, pschema[nm]) for nm in (KEY, KEY_LO) if nm in pschema]
+        super().__init__(parent, tuple(out) + ((VALUE, torch.int32),))
+
+    def _shard_fn(self, cols, count):
+        out = {nm: cols[nm] for nm in (KEY, KEY_LO) if nm in cols}
+        out[VALUE] = torch.ones_like(cols[KEY], dtype=torch.int32)
+        return out, count
+
+
+class _ProjectRDD(_NarrowRDD):
+    """One column as the VALUE of a value RDD (keys_dense /
+    values_dense)."""
+
+    def __init__(self, parent: DenseRDD, col: str):
+        pschema = dict(parent._schema())
+        if col not in pschema:
+            raise VegaError(f"no {col!r} column on this DenseRDD (columns: "
+                            f"{list(pschema)})")
+        super().__init__(parent, ((VALUE, pschema[col]),))
+        self._col = col
+
+    def _fp_extra(self):
+        return (self._col,)
+
+    def _shard_fn(self, cols, count):
+        return {VALUE: cols[self._col]}, count
 
 
 def _narrow_chain(node):
@@ -837,20 +1488,54 @@ class _ExchangeRDD(DenseRDD):
 
 
 class _ReduceByKeyRDD(_ExchangeRDD):
-    """reduce_by_key with a named op under the Context's plans.
-    fused_sort: one stable (bucket, key) sort feeds the presorted map-side
-    combine and a pregrouped exchange. sort_partition: a key-only sort, the
-    presorted combine, then a stable counting partition by bucket and a
-    pregrouped exchange. The reduce side sorts and merges. A hash-placed
-    parent elides the exchange. With the table plan on, a warm run whose
-    key range was observed small reduces through a dense table instead."""
+    """reduce_by_key of every value column, with a named op or a traced
+    binop (func; op None), under the Context's plans. fused_sort: one
+    stable (bucket, key) sort feeds the presorted map-side combine and a
+    pregrouped exchange. sort_partition: a key-only sort, the presorted
+    combine, then a stable counting partition by bucket and a pregrouped
+    exchange. The reduce side sorts and merges. A hash-placed parent
+    elides the exchange. With the table plan on, a warm run of a named op
+    whose key range was observed small reduces through a dense table
+    instead."""
 
     _table_plan = False  # whether the last materialization took the table
 
-    def __init__(self, parent: DenseRDD, op: str):
+    def __init__(self, parent: DenseRDD, op: Optional[str], func=None):
         super().__init__(parent.context, parent.mesh, [parent])
         self.parent = parent
         self._op = op
+        self._func = func
+        self._value_cols = parent._value_names()
+        if func is not None:
+            if not self._value_cols:
+                raise VegaError("reduce_by_key(func) needs a value column; "
+                                "count_by_key_dense counts a key-only block")
+            dtypes = dict(parent._schema())
+            _check_binop(func, [dtypes[nm] for nm in self._value_cols],
+                         parent.mesh.device, "reduce_by_key")
+
+    def _segment_reduce(self, cols, count, presorted: bool,
+                        sort_impl: str = "xla"):
+        """The combine of both sides: the named op's segment reduce, or
+        the traced binop's segmented scan (a scalar binop over one value
+        column, a tuple binop over several)."""
+        if self._op is not None:
+            return kernels.segment_reduce_named(
+                cols, count, KEY, self._op, presorted=presorted,
+                sort_impl=sort_impl)
+        f, names = self._func, self._value_cols
+        if len(names) == 1:
+            nm0 = names[0]
+
+            def combine(a, b):
+                return {nm0: f(a[nm0], b[nm0])}
+        else:
+            def combine(a, b):
+                return dict(zip(names, f(tuple(a[nm] for nm in names),
+                                         tuple(b[nm] for nm in names))))
+        return kernels.segment_reduce_sorted(
+            cols, count, KEY, combine, presorted=presorted,
+            sort_impl=sort_impl)
 
     @property
     def hash_placed(self) -> bool:
@@ -867,7 +1552,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         return self.parent._schema()
 
     def _fp_extra(self):
-        return (self._op,)
+        return (self._op or _fp(self._func),)
 
     def _bank_range(self, lo: np.ndarray, hi: np.ndarray) -> None:
         """Remember the observed key range of this lineage and input sizes
@@ -935,8 +1620,8 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                 # boundaries is safe
                 cols = kernels.sort_by_column(cols, count, KEY,
                                               impl=sort_impl)
-                cols, count = kernels.segment_reduce_named(
-                    cols, count, KEY, op, presorted=True)
+                cols, count = self._segment_reduce(cols, count,
+                                                   presorted=True)
                 capacity = cols[KEY].shape[1]
                 bucket = torch.where(kernels.valid_mask(capacity, count),
                                      _bucket_cols(cols, n), n)
@@ -951,8 +1636,8 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                 cols, bucket = kernels.bucket_key_sort(
                     cols, count, bucket, KEY, impl=sort_impl, n_shards=n)
                 # map-side combine over the (bucket, key)-sorted rows
-                cols, count = kernels.segment_reduce_named(
-                    cols, count, KEY, op, presorted=True)
+                cols, count = self._segment_reduce(cols, count,
+                                                   presorted=True)
                 # compact kept (bucket, key) order; re-derive the combined
                 # rows' buckets from their keys
                 bucket = _bucket_cols(cols, n)
@@ -967,9 +1652,8 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                 cols, count, overflow = kernels.passthrough_exchange(
                     cols, count, cols[KEY].shape[1], out_cap)
             # reduce-side merge
-            cols, count = kernels.segment_reduce_named(
-                cols, count, KEY, op, presorted=elide_sorted,
-                sort_impl=sort_impl)
+            cols, count = self._segment_reduce(
+                cols, count, presorted=elide_sorted, sort_impl=sort_impl)
             extras = []
             if learn_range:
                 # the output's key range rides the counts fetch: it arms
@@ -1069,14 +1753,22 @@ class _ReduceByKeyRDD(_ExchangeRDD):
 
 
 class _JoinRDD(_ExchangeRDD):
-    """Device sort-merge inner join with full duplicate-key semantics. A
-    hash-placed side (a reduce output) skips its exchange; a product
+    """Device sort-merge join with full duplicate-key semantics: inner, or
+    left outer (outer=True: an unmatched left row keeps fill_value in rv).
+    A hash-placed side (a reduce output) skips its exchange; a product
     beyond the exchange-sized capacity reruns once at its exact size."""
 
-    def __init__(self, left: DenseRDD, right: DenseRDD):
+    def __init__(self, left: DenseRDD, right: DenseRDD, outer: bool = False,
+                 fill_value=0):
         super().__init__(left.context, left.mesh, [left, right])
         self.left = left
         self.right = right
+        self.outer = outer
+        self.fill_value = fill_value
+
+    def _fp_extra(self):
+        # repr keeps a NaN fill's hints stable (nan != nan)
+        return (self.outer, repr(self.fill_value))
 
     @property
     def hash_placed(self) -> bool:
@@ -1128,8 +1820,9 @@ class _JoinRDD(_ExchangeRDD):
             lc, lcount, lof = one_side(lsource, l_elide, slot, out_cap)
             rc, rcount, rof = one_side(rsource, r_elide, slot, out_cap)
             joined, jcount, jtotal = kernels.merge_join_expand(
-                lc, lcount, rc, rcount, KEY, join_cap,
-                left_sorted=l_sorted, right_sorted=r_sorted,
+                lc, lcount, rc, rcount, KEY, join_cap, outer=self.outer,
+                fill_value=self.fill_value, left_sorted=l_sorted,
+                right_sorted=r_sorted,
                 sort_impl=sort_impl)
             cols = {KEY: joined[KEY], "lv": joined[VALUE],
                     "rv": joined[f"r_{VALUE}"]}
@@ -1478,6 +2171,104 @@ class _CartesianDenseRDD(DenseRDD):
                            VALUE: rvals[off.clamp(0, r_total - 1)]},
                      counts=total.to(torch.int32), capacity=out_cap,
                      mesh=self.mesh)
+
+
+class _DenseUnionRDD(DenseRDD):
+    """Per-shard concatenation of two RDDs of one schema: each shard's
+    rows of the first, then of the second, compacted into a capacity
+    sized from the host counts when both sides know them (else the sum of
+    the capacities). Hash-placed when both sides are."""
+
+    def __init__(self, first: DenseRDD, second: DenseRDD):
+        super().__init__(first.context, first.mesh, [first, second])
+        self.first = first
+        self.second = second
+
+    @property
+    def hash_placed(self) -> bool:
+        return self.first.hash_placed and self.second.hash_placed
+
+    def _settle_placement(self) -> None:
+        self.first._settle_placement()
+        self.second._settle_placement()
+
+    def _schema(self):
+        return self.first._schema()
+
+    def _materialize(self) -> Block:
+        a, b = self.first.block(), self.second.block()
+        counts_host = None
+        if a.counts_host is not None and b.counts_host is not None:
+            counts_host = a.counts_host + b.counts_host
+            out_cap = block_lib._round_capacity(
+                max(int(counts_host.max()), 1))
+        else:
+            out_cap = block_lib._round_capacity(a.capacity + b.capacity)
+        idx = torch.arange(a.capacity + b.capacity,
+                           device=self.mesh.device)[None, :]
+        keep = (idx < a.counts[:, None]) | (
+            (idx >= a.capacity) & (idx < a.capacity + b.counts[:, None]))
+        cols, count = kernels.compact(
+            {nm: torch.cat([a.cols[nm], b.cols[nm]], dim=1)
+             for nm, _ in self._schema()}, keep, out_cap)
+        return Block(cols=cols, counts=count, capacity=out_cap,
+                     mesh=self.mesh, counts_host=counts_host)
+
+
+class _DenseZipRDD(DenseRDD):
+    """(left value, right value) of co-indexed rows; the per-shard counts
+    must be equal."""
+
+    def __init__(self, left: DenseRDD, right: DenseRDD):
+        super().__init__(left.context, left.mesh, [left, right])
+        self.left = left
+        self.right = right
+
+    def _schema(self):
+        return ((KEY, dict(self.left._schema())[VALUE]),
+                (VALUE, dict(self.right._schema())[VALUE]))
+
+    def _materialize(self) -> Block:
+        lb, rb = self.left.block(), self.right.block()
+        if not np.array_equal(lb.counts_np, rb.counts_np):
+            raise VegaError(
+                "dense zip requires equal per-shard counts; repartition "
+                "first (vega_tpu_torch has no host tier to zip rows)")
+        cap = max(lb.capacity, rb.capacity)
+
+        def padded(col):
+            if col.shape[1] == cap:
+                return col
+            out = col.new_zeros((col.shape[0], cap))
+            out[:, :col.shape[1]] = col
+            return out
+        return Block(cols={KEY: padded(lb.cols[VALUE]),
+                           VALUE: padded(rb.cols[VALUE])},
+                     counts=lb.counts, capacity=cap, mesh=self.mesh,
+                     counts_host=lb.counts_np)
+
+
+class _ZipWithIndexRDD(DenseRDD):
+    """(value, global index): shard s's rows count on from the rows of the
+    shards before it (an exclusive cumsum of the counts on the device)."""
+
+    def __init__(self, parent: DenseRDD):
+        super().__init__(parent.context, parent.mesh, [parent])
+        self.parent = parent
+
+    def _schema(self):
+        return ((KEY, dict(self.parent._schema())[VALUE]),
+                (VALUE, torch.int32))
+
+    def _materialize(self) -> Block:
+        blk = self.parent.block()
+        counts = blk.counts.to(torch.int64)
+        offsets = torch.cumsum(counts, 0) - counts
+        pos = (offsets[:, None] + torch.arange(
+            blk.capacity, device=counts.device)[None, :]).to(torch.int32)
+        return Block(cols={KEY: blk.cols[VALUE], VALUE: pos},
+                     counts=blk.counts, capacity=blk.capacity,
+                     mesh=self.mesh, counts_host=blk.counts_host)
 
 
 def _grouped_columnar(keys: np.ndarray, vals: np.ndarray):

@@ -16,7 +16,8 @@ word), and `radix` / `radix4` (stable LSD passes of 8- or 4-bit digits, each
 through the digit_hist and partition_pos kernels at 256 or 16 bins).
 A two-column int64 key (block.KEY_LO) sorts, hashes (hash32_pair) and
 range-partitions (searchsorted2, range_bucket) by both words. Traced
-reduces come later.
+reduces (segment_reduce_sorted) run a log-step segmented scan in plain
+torch ops; value actions reduce per shard (masked_reduce).
 """
 
 from __future__ import annotations
@@ -686,7 +687,113 @@ def merge_join_expand(left: Cols, left_count: torch.Tensor, right: Cols,
             continue
         taken = torch.gather(col, 1, ri)
         if outer:
-            taken = torch.where(row_matched, taken, fill_value)
+            taken = torch.where(row_matched, taken,
+                                _fill_scalar(fill_value, col.dtype))
         out[f"r_{name}"] = taken
     count = torch.clamp(total, max=out_capacity).to(torch.int32)
     return out, count, total
+
+
+def _fill_scalar(fill_value, dtype: torch.dtype):
+    """fill_value cast to a column's dtype, as the reference's
+    jnp.asarray(fill_value, dtype=col.dtype): a float fill over an integer
+    column truncates toward zero (0.5 -> 0, -1.5 -> -1), so torch.where
+    keeps the column's dtype instead of promoting it to float. Returned as
+    a Python scalar: a tensor built on the card would be a copy and a
+    synchronize. A fill the dtype cannot hold raises."""
+    try:
+        if dtype.is_floating_point:
+            return float(fill_value)
+        value = int(fill_value)
+    except (TypeError, ValueError, OverflowError) as e:
+        raise VegaError(f"fill_value {fill_value!r} has no {dtype} "
+                        "form") from e
+    info = torch.iinfo(dtype)
+    if not info.min <= value <= info.max:
+        raise VegaError(f"fill_value {fill_value!r} is outside {dtype}")
+    return value
+
+
+# ---------------------------------------------------------------------------
+# traced reduces and per-shard value reductions
+# ---------------------------------------------------------------------------
+
+
+def segment_reduce_sorted(cols: Cols, count: torch.Tensor, key_name: str,
+                          combine, presorted: bool = False,
+                          sort_impl: str = "xla",
+                          lo_name: Optional[str] = None
+                          ) -> Tuple[Cols, torch.Tensor]:
+    """Per-shard reduce over runs of equal keys with a traced combiner
+    (value-column dict x value-column dict -> value-column dict): the
+    reference's segmented associative scan, whose segment ends carry each
+    run's reduction. Returns compacted (cols, count), key-sorted, the key
+    (and lo_name, a two-column int64 key's low word) riding along.
+
+    lax.associative_scan has no torch counterpart on the card, so the scan
+    is the log-step (Hillis-Steele) form along dim 1: ceil(log2 cap)
+    steps, each combining every row with the row `step` before it over
+    whole shifted tensors, unless the row's window already holds a segment
+    start; the start flags OR along. Plain torch ops: it runs the same on
+    the CPU and on the card. Integer combiners give the reference's bits;
+    float ones associate in another order."""
+    if not presorted:
+        cols = sort_by_column(cols, count, key_name, impl=sort_impl,
+                              lo_name=lo_name)
+    keys = cols[key_name]
+    n_shards, capacity = keys.shape
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    if lo_name is not None:
+        lo = cols[lo_name]
+        first[:, 1:] |= lo[:, 1:] != lo[:, :-1]
+    key_set = {key_name} if lo_name is None else {key_name, lo_name}
+    vals = {nm: c for nm, c in cols.items() if nm not in key_set}
+    flags = first
+    step = 1
+    while step < capacity:
+        head = {nm: v[:, step:] for nm, v in vals.items()}
+        merged = combine({nm: v[:, :-step] for nm, v in vals.items()}, head)
+        starts = flags[:, step:]
+        vals = {nm: torch.cat([v[:, :step], torch.where(
+            starts, head[nm], merged[nm])], dim=1)
+            for nm, v in vals.items()}
+        flags = torch.cat([flags[:, :step], flags[:, :-step] | starts],
+                          dim=1)
+        step *= 2
+    mask = valid_mask(capacity, count)
+    next_first = torch.ones_like(first)
+    next_first[:, :-1] = first[:, 1:]
+    last = torch.arange(capacity, device=keys.device)[None, :] \
+        == (count.to(torch.int64) - 1)[:, None]
+    out = dict(vals)
+    for nm in key_set:
+        out[nm] = cols[nm]
+    return compact(out, mask & (next_first | last), capacity)
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2^32, two's complement: an int32 sum as the
+    reference's int32 accumulator wraps it."""
+    return (((x + 2**31) & _WORD_MAX) - 2**31).to(torch.int32)
+
+
+def masked_reduce(col: torch.Tensor, count: torch.Tensor,
+                  op: str) -> torch.Tensor:
+    """Each shard's add / min / max over its valid rows: [n_shards]
+    partials in the column's dtype (an int32 sum wraps like the
+    reference's); an empty shard gives the op's identity (0, the dtype's
+    max for min, its min for max)."""
+    mask = valid_mask(col.shape[1], count)
+    if op == "add":
+        if col.dtype.is_floating_point:
+            return torch.where(mask, col, 0).sum(dim=1, dtype=col.dtype)
+        return _wrap_i32(torch.where(mask, col, 0).sum(dim=1,
+                                                       dtype=torch.int64))
+    if op == "min":
+        return torch.where(mask, col, _orderable_max(col)).amin(dim=1)
+    if op == "max":
+        low = float("-inf") if col.dtype.is_floating_point \
+            else torch.iinfo(col.dtype).min
+        return torch.where(mask, col, low).amax(dim=1)
+    raise VegaError(f"unknown reduction {op!r}")
