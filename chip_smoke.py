@@ -60,12 +60,36 @@ Phases, in order; any failure exits non-zero before the last line:
      traced reduce_by_key(xor) (it must take the segmented scan),
      left_outer_join, distinct / intersection / subtract, union / zip /
      zip_with_index, sum / mean / min / max / stats / histogram(10) and
-     reduce(xor); every kernel launches in them.
+     reduce(xor); every kernel launches in them;
+  7. row functions, wide int64 columns, expansions and sample, in one
+     Context, each line timed as 6(b)'s (cold with launches counted from
+     0, then three warm runs): (a) config 3's ids the Spark way,
+     map(lambda w: (w, 1)).reduce_by_key(op="add").collect() and the same
+     with reduce_by_key(lambda a, b: a + b) (which must take the named
+     add), both equal to np.bincount; (b) int64 values 2^33 + (i * 7919)
+     mod 10^6 under keys i mod K at N = 20M: reduce_by_key add / min / max
+     exact against numpy, the sums joined to phase 3's table,
+     values_dense().sum() / min() / max(), and 1,000 rows of 2^62 under one
+     key (the reduce raises "int64 range", the keyless sum is the exact
+     bignum; the port has no host fold); (c) config 1's int64 keys:
+     reduce_by_key(op="add") (float sums within rtol 1e-5), its join
+     against a 250,000-row table of the same keys, and a left_outer_join
+     of a mixed-width side (half the keys beyond int32) against an int32
+     table, which widens; (d) map_expand (factor 4) and the digit
+     flat_map_ragged (max_out 8) of dense_range(N), each reduced and
+     exact; (e) sample(False, 0.01, seed=7) of dense_range(N) equal row
+     for row to the port's CPU run, its count within 6 sigma, and
+     threefry / fold_in / uniform equal to jax's known answers; (f) the
+     queue-3 inputs (constant outputs, 100 // x, bool columns, NaN keys
+     through reduce / group / join / sort) exact at their small sizes.
+     (a), (b) and (d) must launch hash_bucket and digit_hist, the joins
+     partition_pos too; wide keys (c) hash in torch ops.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
-each keyed config's line, config 3's line, one line per new op, the
-kernel table as one JSON line (with phase 6's launches beside the main
-path's), the card line, and last {"ok": true, "device": {...}}. Details
-go to chiprun_out/chip_smoke.json.
+each keyed config's line, config 3's line, one line per new op, one line
+per phase-7 line and phase 7's summary, the kernel table as one JSON line
+(with phases 6 and 7's launches beside the main path's), the card line,
+and last {"ok": true, "device": {...}}. Details go to
+chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
 
@@ -1203,6 +1227,450 @@ def phase_new_ops(torch, np, ck, vt):
                 setup_s=setup_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the row-function repairs, wide int64 values and keys, the
+# expansions and sample
+# ---------------------------------------------------------------------------
+
+# threefry2x32 of jax 0.9.0 (jax._src.prng.threefry2x32_p) at fixed
+# ((key words), (counter words)) -> (output words), computed once with jax
+# on the CPU: this script imports no jax
+THREEFRY_KAT = [
+    ((0, 7), (0, 0), (3625411723, 1954958720)),
+    ((0, 7), (0, 1), (195045567, 4062205631)),
+    ((0, 7), (0, 12345), (3187294848, 248916179)),
+    ((0x12345678, 0x9ABCDEF0), (0xDEADBEEF, 0x01234567),
+     (4091565387, 4026977628)),
+    ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+     (481924860, 3137350631)),
+]
+# jax.random.fold_in(PRNGKey(7), 3) and the float32 bits of
+# jax.random.uniform(that key, (4,))
+FOLD_IN_KAT = ((7, 3), (276534068, 1641862660))
+UNIFORM_KAT = [1047323352, 1050808692, 1061857446, 1057546926]
+SAMPLE_FRACTION, SAMPLE_SEED = 0.01, 7
+WIDE_BASE = 1 << 33
+
+
+def p7_check(what, ok):
+    if not ok:
+        fail(f"phase 7: {what}")
+
+
+def p7_line(torch, ck, label, rows, run, check, must=()):
+    """One phase-7 line: time_op's cold run (launches counted from 0) and
+    three warm runs; `must` names the kernels the cold run must launch."""
+    res = time_op(torch, ck, label, rows, run, check)
+    for name in must:
+        if res["launches"][name] <= 0:
+            fail(f"phase 7 {label}: kernel {name} was not launched")
+    return res
+
+
+def p7_wordcount(torch, np, ck, ctx, c3):
+    """(a) BASELINE config 3 the Spark way: map(lambda w: (w, 1)), then
+    the named add and the add closure (which must take the named add)."""
+    src = ctx.dense_from_numpy(c3["ids"])
+    src.block()
+
+    def named():
+        return dict(src.map(lambda w: (w, 1)).reduce_by_key(op="add")
+                    .collect())
+
+    def closure():
+        node = src.map(lambda w: (w, 1)).reduce_by_key(lambda a, b: a + b)
+        p7_check("reduce_by_key(lambda a, b: a + b) took the named add",
+                 node._op == "add")
+        return dict(node.collect())
+
+    def check(got):
+        return config3_check(np, c3, {"counts": got})
+
+    must = ("hash_bucket", "digit_hist")
+    return [p7_line(torch, ck, "7a word count map((w, 1)).reduce_by_key("
+                    "op='add').collect()", C3_ROWS, named, check, must),
+            p7_line(torch, ck, "7a word count reduce_by_key(lambda a, b: "
+                    "a + b).collect()", C3_ROWS, closure, check, must)]
+
+
+def p7_wide_values(torch, np, ck, vt, ctx):
+    """(b) int64 values beyond int32 (the (v, v.lo) pair) at the main
+    path's size: the named reduces, a join of the sums against phase 3's
+    table, the keyless actions, and the overflow case."""
+    n, k = N_ROWS, N_KEYS
+    i = np.arange(n, dtype=np.int64)
+    vals = WIDE_BASE + (i * 7919) % 10**6
+    src = ctx.dense_from_numpy((i % k).astype(np.int32), vals)
+    p7_check("the wide value takes the pair encoding",
+             src.columns == ["k", "v", "v.lo"])
+    src.block()
+    per_key = vals.reshape(n // k, k)
+    want = {"add": per_key.sum(axis=0), "min": per_key.min(axis=0),
+            "max": per_key.max(axis=0)}
+    table = ctx.dense_from_numpy(np.arange(k, dtype=np.int32),
+                                 np.arange(k, dtype=np.float32) * 2.0)
+    table.block()
+
+    def reduced(op):
+        def run():
+            node = src.reduce_by_key(op=op)
+            node.block()
+            return node
+        return run
+
+    def check_reduce(op):
+        def check(node):
+            got = node.collect_arrays()
+            o = np.argsort(got["k"])
+            p7_check(f"wide reduce_by_key(op={op!r}) equals numpy int64",
+                     got["v"].dtype == np.int64
+                     and np.array_equal(got["k"][o], np.arange(k))
+                     and np.array_equal(got["v"][o], want[op]))
+            return dict(keys=int(len(o)))
+        return check
+
+    red = src.reduce_by_key(op="add")
+    red.block()
+
+    def joined():
+        node = red.join(table)
+        node.block()
+        return node
+
+    def check_join(node):
+        got = node.collect_arrays()
+        o = np.argsort(got["k"])
+        p7_check("the join of the wide sums equals numpy",
+                 np.array_equal(got["k"][o], np.arange(k))
+                 and np.array_equal(got["lv"][o], want["add"])
+                 and np.array_equal(got["rv"][o],
+                                    np.arange(k, dtype=np.float32) * 2.0))
+        return dict(rows=int(len(o)))
+
+    values = src.values_dense()
+
+    def keyless():
+        return values.sum(), values.min(), values.max()
+
+    def check_keyless(got):
+        exact = (int(vals.sum()), int(vals.min()), int(vals.max()))
+        p7_check("values_dense sum / min / max equal numpy", got == exact)
+        return dict(sum=got[0], min=got[1], max=got[2])
+
+    hdu = ("hash_bucket", "digit_hist", "partition_pos")
+    lines = [p7_line(torch, ck, f"7b wide values reduce_by_key(op={op!r})",
+                     n, reduced(op), check_reduce(op), hdu[:2])
+             for op in ("add", "min", "max")]
+    lines.append(p7_line(torch, ck, "7b wide sums .join(K-row table)", k,
+                         joined, check_join, hdu))
+    lines.append(p7_line(torch, ck, "7b values_dense().sum() / min() / "
+                         "max()", n, keyless, check_keyless))
+    big = ctx.dense_from_numpy(np.zeros(1000, np.int32),
+                               np.full(1000, 1 << 62, np.int64))
+    try:
+        big.reduce_by_key(op="add").collect()
+        fail("phase 7: a wide sum beyond int64 did not raise")
+    except vt.VegaError as e:
+        p7_check("the overflow names the int64 range",
+                 "int64 range" in str(e))
+    bignum = big.values_dense().sum()
+    p7_check("the keyless sum beyond int64 is the exact bignum",
+             bignum == 1000 * (1 << 62))
+    log(f"7b overflow: reduce_by_key(op='add') raised VegaError, keyless "
+        f"sum {bignum} exact; host folds: none (the port has no host fold: "
+        "a wide sum's range is decided exactly on the card)")
+    return lines, dict(overflow_raised=True, bignum=str(bignum),
+                       host_folds="none: no host fold path")
+
+
+def p7_wide_keys(torch, np, ck, ctx):
+    """(c) BASELINE config 1's int64 keys: reduce_by_key(op='add') joined
+    against a table of the same keys, and a mixed-width left outer join
+    (the int32 table widens, _WidenKeyRDD)."""
+    data = config1_data(np)
+    keys, vals = data["keys"], data["vals"]
+    src = ctx.dense_from_numpy(keys, vals)
+    src.block()
+    uk = np.unique(keys)
+    rel = keys - (1 << 40)
+    sums = np.bincount(rel, weights=vals.astype(np.float32))
+    counts = np.bincount(rel)
+    table = ctx.dense_from_numpy(uk, np.arange(len(uk), dtype=np.int32))
+    table.block()
+    red = src.reduce_by_key(op="add")
+
+    def run_red():
+        node = src.reduce_by_key(op="add")
+        node.block()
+        return node
+
+    def check_red(node):
+        got = node.collect_arrays()
+        o = np.argsort(got["k"])
+        p7_check("wide-key reduce keys", np.array_equal(got["k"][o], uk))
+        err = np.max(np.abs(got["v"][o] - sums[uk - (1 << 40)])
+                     / np.maximum(np.abs(sums[uk - (1 << 40)]), 1))
+        p7_check(f"wide-key float sums within rtol 1e-5 ({err})",
+                 err <= 1e-5)
+        return dict(keys=int(len(o)), max_rel_err=float(err))
+
+    def run_join():
+        node = red.join(table)
+        node.block()
+        return node
+
+    def check_join(node):
+        got = node.collect_arrays()
+        o = np.argsort(got["k"])
+        p7_check("wide-key join keys and table values",
+                 np.array_equal(got["k"][o], uk)
+                 and np.array_equal(got["rv"][o], np.arange(len(uk))))
+        err = np.max(np.abs(got["lv"][o] - sums[uk - (1 << 40)])
+                     / np.maximum(np.abs(sums[uk - (1 << 40)]), 1))
+        p7_check(f"wide-key join sums within rtol 1e-5 ({err})", err <= 1e-5)
+        return dict(rows=int(len(o)), max_rel_err=float(err))
+
+    n = C1_ROWS
+    i = np.arange(n, dtype=np.int64)
+    base = (i * 2654435761) % (C1_KEYS // 2)
+    mkeys = np.where(i % 2 == 0, base, (1 << 40) + base)
+    mixed = ctx.dense_from_numpy(mkeys, i.astype(np.int32))
+    p7_check("the mixed side is wide", mixed.wide_key)
+    t32 = ctx.dense_from_numpy(np.arange(C1_KEYS, dtype=np.int32),
+                               np.arange(C1_KEYS, dtype=np.int32) * 3)
+    mixed.block()
+    t32.block()
+
+    def run_outer():
+        node = mixed.left_outer_join(t32, fill_value=-1)
+        node.block()
+        return node
+
+    def check_outer(node):
+        got = node.collect_arrays()
+        o = np.lexsort([got["lv"], got["k"]])
+        e = np.lexsort([i, mkeys])
+        want_rv = np.where(mkeys < C1_KEYS, mkeys * 3, -1)
+        p7_check("mixed-width left_outer_join equals numpy",
+                 len(got["k"]) == n
+                 and np.array_equal(got["k"][o], mkeys[e])
+                 and np.array_equal(got["lv"][o], i[e])
+                 and np.array_equal(got["rv"][o], want_rv[e]))
+        return dict(rows=int(len(o)), unmatched=int((got["rv"] == -1).sum()))
+
+    must = ("digit_hist", "partition_pos")
+    out = [p7_line(torch, ck, "7c wide keys reduce_by_key(op='add')", n,
+                   run_red, check_red, must[:1])]
+    red.block()
+    out.append(p7_line(torch, ck, "7c wide keys sums .join(250,000-row "
+                       "int64 table)", n, run_join, check_join, must))
+    out.append(p7_line(torch, ck, "7c mixed-width left_outer_join(int32 "
+                       "table, fill_value=-1)", n, run_outer, check_outer,
+                       must))
+    return out
+
+
+def p7_expansions(torch, np, ck, ctx):
+    """(d) map_expand (factor 4) and the digit flat_map_ragged (max_out 8)
+    over dense_range(N), each into reduce_by_key(op='add')."""
+    n, k = N_ROWS, N_KEYS
+    src = ctx.dense_range(n)
+    src.block()
+    pows = [10 ** d for d in range(8)]
+
+    def expand(x):
+        keys = torch.stack([(4 * x + j) % N_KEYS for j in range(4)], dim=-1)
+        return keys, torch.ones_like(keys)
+
+    def digits(x):
+        d = torch.stack([(x // p) % 10 for p in pows], dim=-1)
+        nd = 1 + sum((x >= p).to(torch.int32) for p in pows[1:])
+        return (d, torch.ones_like(d)), nd
+
+    def run(node_fn):
+        def go():
+            node = node_fn()
+            node.block()
+            return node
+        return go
+
+    x = np.arange(n, dtype=np.int64)
+    digit_want = np.zeros(10, np.int64)
+    for p in pows:
+        live = (x >= p) | (p == 1)
+        digit_want += np.bincount((x[live] // p) % 10, minlength=10)
+
+    def check_expand(node):
+        got = node.collect_arrays()
+        o = np.argsort(got["k"])
+        p7_check("map_expand counts: every key 4N/K times",
+                 np.array_equal(got["k"][o], np.arange(k))
+                 and (got["v"] == 4 * n // k).all())
+        return dict(keys=int(len(o)), rows_out=4 * n)
+
+    def check_digits(node):
+        got = node.collect_arrays()
+        o = np.argsort(got["k"])
+        p7_check("digit counts equal numpy",
+                 np.array_equal(got["k"][o], np.arange(10))
+                 and np.array_equal(got["v"][o], digit_want))
+        return dict(digits=int(digit_want.sum()))
+
+    must = ("hash_bucket", "digit_hist")
+    return [
+        p7_line(torch, ck, "7d map_expand(factor 4).reduce_by_key('add')",
+                n, run(lambda: src.map_expand(expand, 4)
+                       .reduce_by_key(op="add")), check_expand, must),
+        p7_line(torch, ck, "7d flat_map_ragged(digits, 8).reduce_by_key("
+                "'add')", n, run(lambda: src.flat_map_ragged(digits, 8)
+                                 .reduce_by_key(op="add")), check_digits,
+                must)]
+
+
+def p7_sample(torch, np, ck, vt, ctx):
+    """(e) sample(False, 0.01, seed=7) of dense_range(N): the rows equal
+    the port's CPU run of the same lineage, the count lies within 6 sigma
+    of N * 0.01, and the threefry words equal jax's at fixed inputs."""
+    from vega_tpu_torch import kernels
+    dev = ctx.device
+    for (k0, k1), (x0, x1), want in THREEFRY_KAT:
+        got = kernels.threefry2x32(
+            k0, k1, torch.tensor([x0], device=dev, dtype=torch.int64),
+            torch.tensor([x1], device=dev, dtype=torch.int64))
+        p7_check(f"threefry2x32 {(k0, k1)} {(x0, x1)} on the card",
+                 (int(got[0][0]), int(got[1][0])) == want)
+    (seed, data), want = FOLD_IN_KAT
+    key = kernels.fold_in(*kernels.prng_key(seed), data)
+    p7_check("fold_in(PRNGKey(7), 3)", tuple(key) == want)
+    u = kernels.uniform_f32(*key, torch.arange(4, device=dev))
+    p7_check("uniform's float32 bits on the card",
+             u.view(torch.int32).tolist() == UNIFORM_KAT)
+    n = N_ROWS
+    src = ctx.dense_range(n)
+    src.block()
+    with vt.Context(device="cpu", n_shards=N_SHARDS) as cpu:
+        cpu_node = cpu.dense_range(n).sample(False, SAMPLE_FRACTION,
+                                             SAMPLE_SEED)
+        cpu_rows = cpu_node.collect_arrays()["v"]
+        cpu_counts = cpu_node.block().counts_np.copy()
+
+    def run():
+        node = src.sample(False, SAMPLE_FRACTION, SAMPLE_SEED)
+        node.block()
+        return node
+
+    def check(node):
+        rows = node.collect_arrays()["v"]
+        sigma = math.sqrt(n * SAMPLE_FRACTION * (1 - SAMPLE_FRACTION))
+        p7_check("the card's sample rows equal the CPU run's",
+                 np.array_equal(rows, cpu_rows)
+                 and np.array_equal(node.block().counts_np, cpu_counts))
+        p7_check("the sample count within 6 sigma of N * fraction",
+                 abs(len(rows) - n * SAMPLE_FRACTION) <= 6 * sigma)
+        return dict(kept=int(len(rows)), sigma=sigma, kat="threefry, "
+                    "fold_in and uniform equal jax's")
+
+    return [p7_line(torch, ck, "7e sample(False, 0.01, seed=7)", n, run,
+                    check)]
+
+
+def p7_queue3(torch, np, ck, ctx):
+    """(f) queue 3's inputs on the card at their small sizes, each exact
+    against numpy / Python semantics."""
+    a = np.arange(1, 40, dtype=np.int32)
+    d = ctx.dense_from_numpy(a)
+    al = a.tolist()
+    cases = [
+        ("F1 word count", lambda: sorted(d.map(lambda x: (x % 3, 1))
+                                        .reduce_by_key(op="add").collect()),
+         [(0, 13), (1, 13), (2, 13)]),
+        ("F1 map(lambda x: 7)", lambda: d.map(lambda x: 7).collect(),
+         [7] * len(al)),
+        ("F1 map(lambda x: (x, 0.5))",
+         lambda: d.map(lambda x: (x, 0.5)).collect(),
+         [(x, 0.5) for x in al]),
+        ("F1 key_by(lambda x: 0)", lambda: d.key_by(lambda x: 0).collect(),
+         [(0, x) for x in al]),
+        ("F1 map_values(lambda v: 1)",
+         lambda: d.map(lambda x: (x, x)).map_values(lambda v: 1).collect(),
+         [(x, 1) for x in al]),
+        ("F1 filter(lambda x: True)",
+         lambda: d.filter(lambda x: True).collect(), al),
+        ("F2 map(lambda x: (x % 3, 100 // x))",
+         lambda: d.map(lambda x: (x % 3, 100 // x)).collect(),
+         [(x % 3, 100 // x) for x in al]),
+        ("F2 filter(lambda x: 100 // x > 5)",
+         lambda: d.filter(lambda x: 100 // x > 5).collect(),
+         [x for x in al if 100 // x > 5]),
+        ("F4 bool column", lambda: d.map(lambda x: (x % 3, x > 5)).collect(),
+         [(x % 3, x > 5) for x in al]),
+        ("F4 bool column through group_by_key",
+         lambda: sorted((k_, sorted(v_)) for k_, v_ in d.map(
+             lambda x: (x % 3, x > 5)).group_by_key().collect()),
+         sorted((r, sorted(x > 5 for x in al if x % 3 == r))
+                for r in range(3))),
+        ("F4 (x % 3 == 0) * 1 is int32",
+         lambda: d.map(lambda x: (x, (x % 3 == 0) * 1)).collect(),
+         [(x, int(x % 3 == 0)) for x in al]),
+    ]
+    nk = np.array([np.nan, 1, np.nan, 2, 1, np.nan, 3, np.nan], np.float32)
+    nv = np.arange(1, 9, dtype=np.int32)
+    nan_src = ctx.dense_from_numpy(nk, nv)
+    nan_right = ctx.dense_from_numpy(np.float32([1, np.nan]),
+                                     np.int32([10, 20]))
+
+    def canonical(rows):
+        return repr(sorted(rows, key=lambda r: (np.isnan(r[0]),
+                                                0 if np.isnan(r[0]) else r[0],
+                                                repr(r))))
+
+    nan_rows = [(float("nan"), int(x)) for k_, x in zip(nk, nv)
+                if np.isnan(k_)]
+    cases += [
+        ("F5 reduce_by_key", lambda: canonical(
+            nan_src.reduce_by_key(op="add").collect()),
+         canonical([(1.0, 7), (2.0, 4), (3.0, 7)] + nan_rows)),
+        ("F5 group_by_key", lambda: canonical(
+            [(k_, sorted(v_)) for k_, v_ in
+             nan_src.group_by_key().collect()]),
+         canonical([(1.0, [2, 5]), (2.0, [4]), (3.0, [7])]
+                   + [(k_, [x]) for k_, x in nan_rows])),
+        ("F5 join", lambda: canonical(nan_src.join(nan_right).collect()),
+         canonical([(1.0, (2, 10)), (1.0, (5, 10))])),
+        ("F5 sort_by_key", lambda: repr(nan_src.sort_by_key().collect()),
+         repr([(1.0, 2), (1.0, 5), (2.0, 4), (3.0, 7)] + nan_rows)),
+    ]
+    out = []
+    for label, run, want in cases:
+        got = run()
+        p7_check(f"{label}: {got!r} != {want!r}", got == want)
+        out.append(label)
+    log(f"7f queue 3 on the card: {len(out)} inputs equal numpy: {out}")
+    return out
+
+
+def phase_seven(torch, np, ck, vt, c3):
+    """Phase 7 in one Context: (a)-(e) each a timed line, (f) the checks;
+    the launches of the cold runs summed for the kernel line."""
+    ctx = vt.Context(n_shards=N_SHARDS)
+    torch.cuda.reset_peak_memory_stats()
+    lines = p7_wordcount(torch, np, ck, ctx, c3)
+    wide_lines, overflow = p7_wide_values(torch, np, ck, vt, ctx)
+    lines += wide_lines
+    lines += p7_wide_keys(torch, np, ck, ctx)
+    lines += p7_expansions(torch, np, ck, ctx)
+    lines += p7_sample(torch, np, ck, vt, ctx)
+    queue3 = p7_queue3(torch, np, ck, ctx)
+    peak = torch.cuda.max_memory_allocated()
+    ctx.stop()
+    launches = {name: sum(r["launches"][name] for r in lines)
+                for name in ck.LAUNCHES}
+    check_launched(launches, "phase 7's cold runs")
+    torch.cuda.empty_cache()
+    return dict(lines=lines, launches=launches, peak_bytes=peak,
+                overflow=overflow, queue3=queue3)
+
+
 def main():
     try:
         import torch
@@ -1251,8 +1719,11 @@ def main():
         C3_ROWS, data, config3_run,
         lambda g, d=data: config3_check(np, d, g),
         ("hash_bucket", "digit_hist"))
-    del data
     new_ops = phase_new_ops(torch, np, ck, vt)
+    # 7. the row-function repairs, wide values and keys, the expansions,
+    # sample
+    seven = phase_seven(torch, np, ck, vt, data)
+    del data
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -1262,7 +1733,8 @@ def main():
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "config3_launches": config3["launches"][r["name"]],
-         "new_ops_launches": new_ops["launches"][r["name"]]}
+         "new_ops_launches": new_ops["launches"][r["name"]],
+         "phase7_launches": seven["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -1274,7 +1746,7 @@ def main():
                                plain_and_library="eager calls"),
                    kernels=table, radix_and_cold=radix, main_path=main_path,
                    plans=plans, keyed=keyed, config3=config3,
-                   new_ops=new_ops)
+                   new_ops=new_ops, phase7=seven)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -1313,6 +1785,18 @@ def main():
     print(f"new ops: peak {new_ops['peak_bytes']} bytes, launches of the "
           f"cold runs {json.dumps(new_ops['launches'])} on {card}",
           flush=True)
+    for r in seven["lines"]:
+        extra = (f" (6a count_by_key_dense {config3['rows_per_s']:.1f} "
+                 "rows/s in this run)" if r["label"].startswith("7a") else "")
+        print(f"phase {r['label']}: {r['median_ms']:.3f} ms warm median of "
+              f"3, {r['rows_per_s']:.1f} rows/s ({r['rows']} rows){extra}, "
+              f"cold {r['cold_ms']:.3f} ms, launches "
+              f"{json.dumps(r['launches'])} on {card}", flush=True)
+    print(f"phase 7: peak {seven['peak_bytes']} bytes, launches of the cold "
+          f"runs {json.dumps(seven['launches'])}, wide overflow raised and "
+          f"keyless bignum {seven['overflow']['bignum']} exact, host folds: "
+          f"{seven['overflow']['host_folds']}, queue-3 inputs equal numpy: "
+          f"{len(seven['queue3'])} on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",

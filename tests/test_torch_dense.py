@@ -211,9 +211,9 @@ def test_from_reference_arrays_round_trip(port_ctx):
 
 
 def test_dtype_contract(port_ctx):
-    """int64 narrows to int32 when it fits; beyond int32 a key takes the
-    two-column encoding and a value column raises; float64 narrows to
-    float32; a row function that needs the host raises (no host tier)."""
+    """int64 narrows to int32 when it fits; beyond int32 a key or a value
+    column takes the two-column encoding; float64 narrows to float32; a
+    row function that needs the host raises (no host tier)."""
     r = port_ctx.dense_from_numpy(np.arange(10, dtype=np.int64),
                                   np.arange(10, dtype=np.float64))
     assert dict(r._schema()) == {"k": torch.int32, "v": torch.float32}
@@ -221,9 +221,11 @@ def test_dtype_contract(port_ctx):
                                      np.zeros(2))
     assert dict(wide._schema()) == {"k": torch.int32, "k.lo": torch.int32,
                                     "v": torch.float32}
-    with pytest.raises(VegaError):
-        port_ctx.dense_from_numpy(np.zeros(2, dtype=np.int32),
-                                  np.array([0, 2**40], dtype=np.int64))
+    wide_v = port_ctx.dense_from_numpy(np.zeros(2, dtype=np.int32),
+                                       np.array([0, 2**40], dtype=np.int64))
+    assert dict(wide_v._schema()) == {"k": torch.int32, "v": torch.int32,
+                                      "v.lo": torch.int32}
+    assert wide_v.collect() == [(0, 0), (0, 2**40)]
     with pytest.raises(VegaError):
         port_ctx.dense_range(10).map(lambda x: (int(x), str(x)))
     with pytest.raises(VegaError):

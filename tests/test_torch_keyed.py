@@ -267,6 +267,17 @@ def test_take_ordered_top_match_reference(ref_env, impl):
         for name, exp in exp_cases.items():
             got = got_cases[name]
             for n in (0, 9, 5_000):  # 5_000 > the 3_000 rows
+                if n > 3_000 and "NaN, inf" in name:
+                    # Every value comes back. The reference ranks its
+                    # ghost-row sentinels before a valid NaN, so it loses
+                    # one (ROADMAP queue 3, F5's topk_values site).
+                    every = np.sort(np.array(got.collect(), np.float32))
+                    np.testing.assert_array_equal(got.take_ordered(n),
+                                                  every)
+                    np.testing.assert_array_equal(got.top(n), every[::-1])
+                    assert np.isnan(exp.take_ordered(n)).sum() < \
+                        np.isnan(every).sum()
+                    continue
                 _assert_rows_same(got.take_ordered(n), exp.take_ordered(n))
                 _assert_rows_same(got.top(n), exp.top(n))
         with pytest.raises(VegaError, match="host tier"):

@@ -157,8 +157,14 @@ def test_sort_by_column_matches_reference(impl, dtype, descending):
         exp = ref_kernels.sort_by_column(
             {"k": jnp.asarray(keys[s]), "v": jnp.asarray(vals[s])},
             jnp.int32(COUNTS[s]), "k", descending=descending, impl=impl)
+        # The port keeps every valid row before the ghost rows. The
+        # reference's xla form masks ghosts with +inf, which its valid NaN
+        # keys sort after (ROADMAP queue 3, F5): its order with the valid
+        # rows moved first, stably, is the port's.
+        first = np.argsort(np.asarray(exp["v"]) - s * CAP >= COUNTS[s],
+                           kind="stable")
         for nm in ("k", "v"):
-            _assert_same(got[nm][s].numpy(), exp[nm])
+            _assert_same(got[nm][s].numpy(), np.asarray(exp[nm])[first])
 
 
 @pytest.mark.parametrize("impl", IMPLS + ["xla"])

@@ -6,11 +6,11 @@ count: rows [0, counts[s]) of row s are shard s's valid rows. Static
 capacity keeps shapes stable; raggedness lives in `counts`, never in shapes.
 
 The block dtype contract is the reference's 32-bit one (_check_dtype):
-int64 narrows to int32 when its values fit and raises VegaError when they
-do not; float64 narrows to float32. An int64 KEY beyond int32 takes the
-reference's two-column encoding (KEY = high word, KEY_LO = biased low
-word; encode_key_columns) and host reads reassemble it. Wide int64 value
-columns and string dictionaries are not ported yet.
+int64 narrows to int32 when its values fit; float64 narrows to float32.
+An int64 column beyond int32, the KEY or a value, takes the reference's
+two-column encoding (<name> = high word, <name>.lo = biased low word;
+encode_key_columns, encode_value_columns) and host reads reassemble it.
+String dictionaries are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,9 +26,10 @@ from vega_tpu_torch.mesh import ShardMesh
 
 KEY = "k"  # canonical key column
 VALUE = "v"  # canonical value column
-# Wide (two-column int64) keys, as in the reference: <name> holds the high
-# 32 bits (signed: keeps the order) and <name>.lo the low 32 bits with the
-# sign bit flipped, so signed (<name>, <name>.lo) order is int64 order.
+# Wide (two-column int64) keys and values, as in the reference: <name>
+# holds the high 32 bits (signed: keeps the order) and <name>.lo the low 32
+# bits with the sign bit flipped, so signed (<name>, <name>.lo) order is
+# int64 order.
 LO_SUFFIX = ".lo"
 KEY_LO = KEY + LO_SUFFIX
 _LO_BIAS = np.uint32(0x80000000)
@@ -40,6 +41,14 @@ def lo_of(name: str) -> str:
 
 def is_lo(name: str) -> bool:
     return name.endswith(LO_SUFFIX)
+
+
+def wide_value_pairs(names) -> dict:
+    """{base: base + '.lo'} for every wide value column pair (not the
+    key's) among names."""
+    s = set(names)
+    return {nm: lo_of(nm) for nm in names
+            if not is_lo(nm) and nm != KEY and lo_of(nm) in s}
 
 
 def encode_i64(src: np.ndarray):
@@ -57,9 +66,9 @@ def decode_i64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     return (np.asarray(hi).astype(np.int64) << 32) | lo_u
 
 
-def _decode_key_cols(cols: dict) -> dict:
-    """Reassemble every (name, name.lo) pair into one int64 column for
-    host reads; other columns pass through, order kept."""
+def decode_wide_cols(cols: dict) -> dict:
+    """Reassemble every (name, name.lo) pair, key or value, into one int64
+    column for host reads; other columns pass through, order kept."""
     if not any(is_lo(n) for n in cols):
         return cols
     return {name: (col if lo_of(name) not in cols
@@ -109,7 +118,7 @@ class Block:
         ones."""
         counts = self.counts_np
         host = self._host_cols()
-        return _decode_key_cols({
+        return decode_wide_cols({
             name: np.concatenate([col[s, :counts[s]]
                                   for s in range(self.n_shards)])
             for name, col in host.items()})
@@ -121,7 +130,7 @@ class Block:
         c = int(self.counts_np[shard])
         if limit is not None:
             c = min(c, limit)
-        return _decode_key_cols({name: col[shard, :c].cpu().numpy()
+        return decode_wide_cols({name: col[shard, :c].cpu().numpy()
                                  for name, col in self.cols.items()})
 
 
@@ -151,9 +160,7 @@ def _check_dtype(name: str, src: np.ndarray) -> np.ndarray:
         if len(src) and (src.min() < info.min or src.max() > info.max):
             raise VegaError(
                 f"column {name!r} has {src.dtype} values outside int32 "
-                "range — values would silently collide (wide int64 value "
-                "columns come with a later slice of the port; only the key "
-                "takes the two-column encoding)")
+                "range — values would silently collide")
         return src.astype(np.int32)
     if src.dtype == np.float64:
         return src.astype(np.float32)
@@ -194,23 +201,37 @@ def encode_key_columns(columns: Dict[str, np.ndarray]
     return out
 
 
-def _refuse_wide_values(names) -> None:
-    for name in names:
-        if is_lo(name) and name != KEY_LO:
-            raise VegaError(
-                f"column {name!r}: wide int64 value columns come with a "
-                "later slice of the port; only the key takes the "
-                "two-column encoding")
+def encode_value_columns(columns: Dict[str, np.ndarray]
+                         ) -> Dict[str, np.ndarray]:
+    """Split every int64 / uint64 value column beyond int32 into the wide
+    (name, name.lo) pair, the low word right after its column; in-range
+    integers keep the narrow path (_check_dtype). A pre-encoded '.lo'
+    column passes through; uint64 beyond int64 raises."""
+    out: Dict[str, np.ndarray] = {}
+    for name, col in columns.items():
+        src = np.asarray(col)
+        if is_lo(name) or name == KEY or \
+                src.dtype not in (np.int64, np.uint64) or len(src) == 0:
+            out[name] = col
+            continue
+        if src.dtype == np.uint64 and src.max() > np.uint64(2**63 - 1):
+            raise VegaError(f"uint64 column {name!r} beyond int64 range has "
+                            "no device representation")
+        info = np.iinfo(np.int32)
+        if info.min <= src.min() and src.max() <= info.max:
+            out[name] = col
+            continue
+        out[name], out[lo_of(name)] = encode_i64(src)
+    return out
 
 
 def from_numpy(columns: Dict[str, np.ndarray], mesh: ShardMesh,
                capacity: Optional[int] = None) -> Block:
     """Row-shard host columns (equal lengths) over the mesh: shard s gets
     rows [s*per, (s+1)*per), per = ceil(n / n_shards), like the reference's
-    from_numpy. An int64 KEY beyond int32 is encoded first, as there."""
+    from_numpy. int64 columns beyond int32 are encoded first, as there."""
     n_shards = mesh.n_shards
-    _refuse_wide_values(columns)
-    columns = encode_key_columns(dict(columns))
+    columns = encode_value_columns(encode_key_columns(dict(columns)))
     names = list(columns)
     n = len(columns[names[0]]) if names else 0
     per = -(-n // n_shards) if n else 0
@@ -238,11 +259,12 @@ def from_reference_arrays(cols: Dict[str, np.ndarray], counts: np.ndarray,
     """Carry a vega_tpu Block's exported state across with identical
     placement: flat [n_shards * capacity] columns laid out as the reference
     lays them out (rows [s*capacity, s*capacity + counts[s]) are shard s's)
-    plus the per-shard counts. A wide key's (KEY, KEY_LO) words carry
-    across as they are."""
-    _refuse_wide_values(cols)
-    if KEY_LO in cols and KEY not in cols:
-        raise VegaError(f"column {KEY_LO!r} needs its high word {KEY!r}")
+    plus the per-shard counts. Wide (name, name.lo) words carry across as
+    they are."""
+    for name in cols:
+        if is_lo(name) and name[:-len(LO_SUFFIX)] not in cols:
+            raise VegaError(f"column {name!r} needs its high word "
+                            f"{name[:-len(LO_SUFFIX)]!r}")
     counts = np.asarray(counts, dtype=np.int32).reshape(-1)
     if counts.shape[0] != mesh.n_shards:
         raise VegaError(f"counts has {counts.shape[0]} shards, the mesh "

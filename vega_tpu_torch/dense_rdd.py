@@ -2,8 +2,10 @@
 
 Counterpart of vega_tpu/tpu/dense_rdd.py. Sources (dense_range,
 dense_from_numpy, dense_from_columns with named columns) and the narrow
-nodes (map, filter, map_values, select, rename, keys / values, the ones
-column of count_by_key_dense) feed the keyed nodes: reduce_by_key (a named
+nodes (map, filter, map_values, select, rename, keys / values, sample, the
+ones column of count_by_key_dense, the key widening of a mixed-width join)
+and the expansions (map_expand, flat_map_ragged) feed the keyed nodes:
+reduce_by_key (a named
 op, or a traced binop through a segmented scan), join and
 left_outer_join, group_by_key, sort_by_key and cogroup (two
 group_by_keys), the set ops built on them (distinct, intersection,
@@ -34,11 +36,17 @@ the Context; the next host read (Block.counts_np, to_numpy, shard_rows, or
 DenseRDD.block()) settles every pending entry in one fetch and repairs a
 failed speculation, and what depends on it, in place.
 
-An int64 key beyond int32 is the two-column (KEY, KEY_LO) encoding:
-group_by_key, sort_by_key, cogroup of two such sides, select, map_values,
-union, take and take_ordered / top run on it; map, filter, reduce_by_key,
-join and a cogroup against a narrow side raise VegaError until a later
-slice ports them.
+Row functions and binops are traced once on empty probe columns (dtypes,
+no values), as the reference traces on abstract values: a Python
+constant broadcasts to a column of the reference's weak type, bool columns
+are carried, 64-bit outputs narrow to 32 bits, and a branch on a value
+raises VegaError when the op is built.
+
+An int64 column beyond int32, key or value, is the two-column (<name>,
+<name>.lo) encoding. Every keyed op runs on a wide key (an int32 key
+meeting it in a join or cogroup widens, _WidenKeyRDD); named reduces run
+exactly over wide values, a total outside int64 raising VegaError. Row
+functions over a wide column have no device row form.
 There is no host tier to fall back to: a row function that does not run
 on column tensors raises VegaError, and so does every request the
 reference would hand to its host tier.
@@ -197,13 +205,17 @@ class DenseRDD:
         """True when the key is the two-column int64 encoding."""
         return KEY_LO in dict(self._schema())
 
-    def _refuse_wide(self, op: str) -> None:
-        if self.wide_key:
-            raise VegaError(
-                f"{op} over a two-column int64 key comes with a later slice "
-                "of vega_tpu_torch; only group_by_key, sort_by_key, cogroup "
-                "of two int64-keyed sides, select, map_values, union, take "
-                "and take_ordered / top run on it now")
+    def _wide_value(self) -> bool:
+        """True when VALUE is the two-column int64 encoding."""
+        return block_lib.lo_of(VALUE) in dict(self._schema())
+
+    def _refuse_wide_rows(self, op: str) -> None:
+        """A row function has no row form over a wide key or value (an
+        int64 scalar, which the reference's 32-bit trace cannot hold): the
+        reference hands it to its host tier."""
+        if any(block_lib.is_lo(nm) for nm in self.columns):
+            raise _no_host_tier(f"{op} over a two-column int64 column (no "
+                                "device row form)")
 
     @property
     def columns(self) -> List[str]:
@@ -227,20 +239,63 @@ class DenseRDD:
     def _settle_placement(self) -> None:
         """Make hash_placed/key_sorted answer for the materialized node."""
 
+    def _check_sortable_key(self, op: str) -> None:
+        """A bool key has no device exchange: the reference's key sorts
+        refuse it (a ValueError from its sentinel of the key dtype), so
+        the port refuses it when the op is built."""
+        if dict(self._schema()).get(KEY) == torch.bool:
+            raise VegaError(f"{op} over a bool key: the reference's device "
+                            "sorts refuse a bool key; cast it to int32 "
+                            "first")
+
     # --- transformations ----------------------------------------------------
     def map(self, f: Callable) -> "DenseRDD":
         """Row map run on whole column tensors: f gets the row's columns
         (x, or (k, v) for a pair) as [n_shards, capacity] tensors and
-        returns a value or a (key, value) pair of them."""
-        self._refuse_wide("map")
+        returns a value or a (key, value) pair, each a tensor of that
+        shape or a Python constant (broadcast to a column: int -> int32,
+        float -> float32, bool -> bool). int64 / float64 outputs narrow to
+        int32 / float32, as the reference's 32-bit trace gives them."""
+        self._refuse_wide_rows("map")
         return _MapRDD(self, f)
 
     def filter(self, predicate: Callable) -> "DenseRDD":
         """Keep the rows whose predicate (run on whole column tensors, as
         map's f) is true; each shard compacts stably, so placement and key
         order pass through."""
-        self._refuse_wide("filter")
+        self._refuse_wide_rows("filter")
         return _FilterRDD(self, predicate)
+
+    def map_expand(self, f: Callable, factor: int) -> "DenseRDD":
+        """Fixed-arity flat map: f gets the row's columns as map's f does
+        and returns `factor` outputs per row with a trailing dim of
+        `factor` (e.g. torch.stack([x, x + 1000], dim=-1)), one such
+        tensor or a (key, value) pair of them. Row i's outputs come out
+        contiguous and in order, at capacity round(capacity * factor)."""
+        self._refuse_wide_rows("map_expand")
+        return _MapExpandRDD(self, f, factor)
+
+    def flat_map_ragged(self, f: Callable,
+                        max_out_per_row: int) -> "DenseRDD":
+        """Variable-arity flat map with a bound: f returns (payload,
+        n_valid), the payload as map_expand's with a trailing dim of
+        max_out_per_row and n_valid (a tensor of the row shape, or a
+        constant) how many of a row's leading entries are real, clipped
+        to [0, max_out_per_row]. Output capacity is capacity *
+        max_out_per_row, so nothing can overflow."""
+        self._refuse_wide_rows("flat_map_ragged")
+        return _FlatMapRaggedRDD(self, f, max_out_per_row)
+
+    def sample(self, with_replacement: bool, fraction: float,
+               seed: Optional[int] = None) -> "DenseRDD":
+        """Bernoulli sampling on the device: row i of shard s stays when
+        jax.random.uniform(fold_in(PRNGKey(seed), s), ...)[i] < fraction,
+        the reference's threefry stream bit for bit (kernels.threefry2x32),
+        so the rows kept equal the reference's on every device. Sampling
+        with replacement (Poisson) is the reference's host tier's."""
+        if with_replacement:
+            raise _no_host_tier("sample(with_replacement=True)")
+        return _SampleRDD(self, fraction, seed or 0)
 
     def key_by(self, f: Callable) -> "DenseRDD":
         return self.map(lambda x: (f(x), x))
@@ -251,6 +306,9 @@ class DenseRDD:
         if not self.is_pair:
             raise VegaError("map_values on non-pair DenseRDD")
         value_names = self._value_names()
+        if block_lib.wide_value_pairs(value_names):
+            raise _no_host_tier("map_values over a wide int64 value column "
+                                "(no device row form)")
         if len(value_names) != 1:
             raise VegaError(
                 "map_values needs exactly one value column (have "
@@ -280,8 +338,9 @@ class DenseRDD:
         return _SelectRDD(self, tuple(expanded))
 
     def rename(self, mapping: dict) -> "DenseRDD":
-        """Rename value columns. The key columns cannot be renamed (or
-        renamed onto), nor can a column take the reserved '.lo' suffix."""
+        """Rename value columns; a wide column's low word follows it. The
+        key columns cannot be renamed (or renamed onto), nor can a column
+        take the reserved '.lo' suffix."""
         schema = dict(self._schema())
         for old, new in mapping.items():
             if old not in schema:
@@ -295,10 +354,14 @@ class DenseRDD:
                 raise VegaError(
                     f"the {block_lib.LO_SUFFIX!r} suffix is reserved for "
                     "wide int64 low words; rename the base column instead")
-        out_names = [mapping.get(nm, nm) for nm in schema]
+        full = dict(mapping)
+        for old, new in mapping.items():
+            if block_lib.lo_of(old) in schema:
+                full[block_lib.lo_of(old)] = block_lib.lo_of(new)
+        out_names = [full.get(nm, nm) for nm in schema]
         if len(set(out_names)) != len(out_names):
             raise VegaError(f"rename would collide columns: {out_names}")
-        return _RenameRDD(self, mapping)
+        return _RenameRDD(self, full)
 
     def keys_dense(self) -> "DenseRDD":
         """The key column as a value RDD."""
@@ -308,27 +371,39 @@ class DenseRDD:
         return _ProjectRDD(self, KEY)
 
     def values_dense(self) -> "DenseRDD":
+        """The value column as a value RDD; a wide value keeps its pair."""
+        if self._wide_value():
+            return self.select(VALUE)
         return _ProjectRDD(self, VALUE)
 
     def reduce_by_key(self, func=None, *, op: Optional[str] = None):
         """Device shuffle: map-side combine, exchange, reduce-side merge of
-        every value column per key. A named op (add/min/max/prod, or a
-        binop _infer_named_op recognizes) takes the segment fast path; any
-        other binop runs traced, through kernels.segment_reduce_sorted: a
-        scalar binop over one value column, a tuple binop (one scalar per
-        column) over several."""
+        every value column per key (a wide key's two words are the key).
+        A named op (add/min/max/prod, or a binop _infer_named_op
+        recognizes) takes the segment fast path; any other binop runs
+        traced, through kernels.segment_reduce_sorted: a scalar binop over
+        one value column, a tuple binop (one scalar per column) over
+        several. Wide int64 values take add / min / max, exact: a total
+        outside int64 raises VegaError."""
         if not self.is_pair:
             raise VegaError("reduce_by_key on non-pair DenseRDD")
         if op is None and func is None:
             raise TypeError("need func or op")
-        self._refuse_wide("reduce_by_key")
+        wide = block_lib.wide_value_pairs(self.columns)
         if op is None:
             op = _infer_named_op(func)
-        if op is None:
+        if op is None or (wide and func is not None and op == "prod"):
+            if wide:
+                raise _no_host_tier("a traced binop over wide int64 values "
+                                    "(no scalar row form)")
             return _ReduceByKeyRDD(self, None, func)
         if op not in kernels.SEGMENT_OPS:
             raise VegaError(f"unknown op {op!r}; expected one of "
                             f"{kernels.SEGMENT_OPS}")
+        if op == "prod" and wide:
+            raise VegaError("reduce_by_key(op='prod') over int64 (wide) "
+                            "values has no device path; the reference's "
+                            "host tier keeps exact products")
         return _ReduceByKeyRDD(self, op)
 
     def sum_by_key(self) -> "DenseRDD":
@@ -351,32 +426,30 @@ class DenseRDD:
         merge_combiners(c, create_combiner(v))."""
         if not self.is_pair:
             raise VegaError("combine_by_key on non-pair DenseRDD")
-        self._refuse_wide("combine_by_key")
+        if block_lib.wide_value_pairs(self.columns):
+            raise _no_host_tier("combine_by_key over wide int64 values (no "
+                                "device row form)")
         if not self._value_names():
             raise VegaError("combine_by_key needs a value column")
         mapped = _MapValuesRDD(self, create_combiner)
         op = _infer_named_op(merge_combiners)
         return _ReduceByKeyRDD(mapped, op, None if op else merge_combiners)
 
-    def _join_sides(self, other, op: str) -> None:
-        """The checks join and left_outer_join share: two dense pair RDDs
-        on one mesh, narrow keys of one dtype, each side in the canonical
-        (k, v) layout (the join names its outputs lv / rv)."""
+    def _join_sides(self, other, op: str):
+        """The checks join, left_outer_join and cogroup share: two dense
+        pair RDDs on one mesh, each in the canonical (k, v) layout (the
+        join names its outputs lv / rv); returns the sides _align_keys
+        makes key-compatible."""
         if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
             raise VegaError(f"{op} needs two dense pair RDDs on one mesh")
         for side in (self, other):
-            side._refuse_wide(op)
             side._check_keyed(op)
-        lk, rk = dict(self._schema())[KEY], dict(other._schema())[KEY]
-        if lk != rk:
-            raise _no_host_tier(f"{op} of key dtypes {lk} and {rk} (equal "
-                                "keys would hash apart on the device)")
+        return _align_keys(self, other, op)
 
     def join(self, other: "DenseRDD") -> "DenseRDD":
         """Device sort-merge inner join with full duplicate-key semantics:
-        (k, (lv, rv)) rows."""
-        self._join_sides(other, "join")
-        return _JoinRDD(self, other)
+        (k, (lv, rv)) rows. An int32 key meeting an int64 one widens."""
+        return _JoinRDD(*self._join_sides(other, "join"))
 
     def left_outer_join(self, other: "DenseRDD",
                         fill_value=0) -> "DenseRDD":
@@ -386,13 +459,18 @@ class DenseRDD:
         if fill_value is None:
             raise _no_host_tier("left_outer_join with fill_value=None (a "
                                 "dense column cannot hold None)")
-        self._join_sides(other, "left_outer_join")
-        return _JoinRDD(self, other, outer=True, fill_value=fill_value)
+        if isinstance(other, DenseRDD) and other._wide_value():
+            raise _no_host_tier("left_outer_join with a wide int64 right "
+                                "value (the fill would land in its encoded "
+                                "words)")
+        return _JoinRDD(*self._join_sides(other, "left_outer_join"),
+                        outer=True, fill_value=fill_value)
 
     def _check_keyed(self, op: str) -> None:
         if not self.is_pair:
             raise VegaError(f"{op} on non-pair DenseRDD")
-        if self._value_names() != [VALUE]:
+        if self._value_names() not in ([VALUE],
+                                       [VALUE, block_lib.lo_of(VALUE)]):
             raise VegaError(
                 f"{op} needs the canonical (k, v) layout, got "
                 f"{self._schema()}; select(...) down to one value column "
@@ -417,20 +495,7 @@ class DenseRDD:
         """Dense-dense cogroup: both sides group by key on the device
         (equal keys hash to one shard); (k, ([lvs], [rvs])) assembly, or
         its columnar form, happens on the host."""
-        if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
-            raise VegaError("cogroup needs two dense pair RDDs on one mesh")
-        self._check_keyed("cogroup")
-        other._check_keyed("cogroup")
-        if self.wide_key != other.wide_key:
-            raise VegaError(
-                "cogroup of a two-column int64 key against an int32 key "
-                "(the reference's _WidenKeyRDD) comes with a later slice of "
-                "vega_tpu_torch")
-        lk, rk = dict(self._schema())[KEY], dict(other._schema())[KEY]
-        if lk != rk:
-            raise VegaError(f"cogroup key dtypes differ ({lk} vs {rk}): "
-                            "equal keys would hash apart")
-        return _DenseCoGroupRDD(self, other)
+        return _DenseCoGroupRDD(*self._join_sides(other, "cogroup"))
 
     def cartesian(self, other: "DenseRDD") -> "DenseRDD":
         """Device cross product of two value RDDs as (left, right) pairs:
@@ -455,6 +520,7 @@ class DenseRDD:
         min-reduce dedups it, the keys come back as values."""
         if self.is_pair:
             raise _no_host_tier("distinct over pairs")
+        self._refuse_wide_rows("distinct")
         self._one_value_column("distinct")
         return _ReduceByKeyRDD(_MapRDD(self, _value_key_zero), "min") \
             .keys_dense()
@@ -467,6 +533,8 @@ class DenseRDD:
             raise VegaError(f"{op} needs two dense RDDs on one mesh")
         if self.is_pair or other.is_pair:
             raise _no_host_tier(f"{op} over pairs")
+        self._refuse_wide_rows(op)
+        other._refuse_wide_rows(op)
         self._one_value_column(op)
         other._one_value_column(op)
         ld, rd = dict(self._schema())[VALUE], dict(other._schema())[VALUE]
@@ -517,6 +585,7 @@ class DenseRDD:
         of the shards before it, on the device."""
         if self.is_pair:
             raise VegaError("zip_with_index on pair DenseRDD — use values()")
+        self._refuse_wide_rows("zip_with_index")
         self._one_value_column("zip_with_index")
         return _ZipWithIndexRDD(self)
 
@@ -544,17 +613,21 @@ class DenseRDD:
         return out[:n]
 
     # --- value actions ------------------------------------------------------
-    def _value_block(self, op: str) -> Block:
+    def _value_block(self, op: str, wide_ok: bool = False) -> Block:
         if self.is_pair:
             raise VegaError(f"{op}() on pair DenseRDD — reduce values "
                             "instead")
-        self._one_value_column(op)
+        if not (wide_ok and self._wide_value()):
+            self._refuse_wide_rows(op)
+            self._one_value_column(op)
         return self.block()
 
     def _named_reduce(self, op: str):
         """One per-shard masked reduce, the n_shards partials fetched at
         once and reduced on the host as the reference reduces them."""
-        blk = self._value_block(op)
+        blk = self._value_block(op, wide_ok=True)
+        if self._wide_value():
+            return _named_reduce_wide(blk, op)
         partials = kernels.masked_reduce(blk.cols[VALUE], blk.counts,
                                          op).cpu().numpy()
         if op == "add":
@@ -584,14 +657,19 @@ class DenseRDD:
         CPU tensors. An empty RDD raises."""
         if self.is_pair:
             raise _no_host_tier("reduce(f) over pairs")
+        self._refuse_wide_rows("reduce(f)")
+        dtype = dict(self._schema()).get(VALUE)
+        binop = _check_binop(f, [dtype], "reduce")
         blk = self._value_block("reduce")
-        vals = blk.cols[VALUE]
-        _check_binop(f, [vals.dtype], vals.device, "reduce")
+        inputs = _row_inputs({VALUE: blk.cols[VALUE]}, blk.counts)
+        if inputs is None:
+            raise VegaError("reduce() of empty RDD")
+        vals = inputs[VALUE]  # padded rows: a valid row's values (CPU)
         keyed = {"__k": torch.zeros_like(vals, dtype=torch.int32),
                  VALUE: vals}
         out, n_out = kernels.segment_reduce_sorted(
             keyed, blk.counts, "__k",
-            lambda a, b: {VALUE: f(a[VALUE], b[VALUE])}, presorted=True)
+            lambda a, b: {VALUE: binop(a[VALUE], b[VALUE])}, presorted=True)
         partials, nonempty = _fetch_words(
             [out[VALUE][:, 0], (n_out > 0).to(torch.int32)])
         picked = [torch.from_numpy(partials[s:s + 1])[0]
@@ -600,7 +678,7 @@ class DenseRDD:
             raise VegaError("reduce() of empty RDD")
         acc = picked[0]
         for x in picked[1:]:
-            acc = f(acc, x)
+            acc = binop(acc, x)
         return acc.item()
 
     def stats(self) -> dict:
@@ -673,6 +751,7 @@ class DenseRDD:
         rides it through reduce_by_key(op="add")."""
         if self.is_pair:
             raise _no_host_tier("count_by_value over pairs")
+        self._refuse_wide_rows("count_by_value")
         self._one_value_column("count_by_value")
         return dict(_ReduceByKeyRDD(_MapRDD(self, _value_key_one),
                                     "add").collect())
@@ -684,8 +763,6 @@ class DenseRDD:
         if key is not None:
             raise VegaError("take_ordered(key=...) needs the host tier, "
                             "which vega_tpu_torch does not have")
-        if self.is_pair:
-            return self._device_topk_rows(n, largest=False)
         return self._device_topk(n, largest=False)
 
     def top(self, n: int, key=None) -> list:
@@ -693,11 +770,16 @@ class DenseRDD:
         if key is not None:
             raise VegaError("top(key=...) needs the host tier, which "
                             "vega_tpu_torch does not have")
-        if self.is_pair:
-            return self._device_topk_rows(n, largest=True)
         return self._device_topk(n, largest=True)
 
     def _device_topk(self, n: int, largest: bool) -> list:
+        """Values: a per-shard top-k of the value column; pairs, named
+        blocks and a wide value: the row sort of _device_topk_rows (a
+        wide value's rows are 1-tuples, unwrapped)."""
+        if self.is_pair:
+            return self._device_topk_rows(n, largest)
+        if self._wide_value():
+            return [r[0] for r in self._device_topk_rows(n, largest)]
         blk = self.block()
         k = min(n, blk.capacity)
         best = kernels.topk_values(blk.cols[VALUE], blk.counts, k,
@@ -731,7 +813,7 @@ class DenseRDD:
         keep = [s for s in range(blk.n_shards) if n_valid[s]]
         if not keep:
             return []
-        merged = block_lib._decode_key_cols(
+        merged = block_lib.decode_wide_cols(
             {nm: np.concatenate([col[s, :n_valid[s]] for s in keep])
              for nm, col in zip(names, per_col)})
         order_cols = list(merged.values())
@@ -874,19 +956,144 @@ def _fetch_words(tensors) -> List[np.ndarray]:
     return out
 
 
-def _check_binop(func, dtypes, device, what: str) -> None:
-    """The reference's checks of a traced binop, run once on probe
-    columns of ones: over one value column it maps two column tensors to
-    one of the same shape and dtype; over several, two tuples of them to a
-    tuple with one such tensor per column. A binop that fails them, or
-    does not run on tensors, raises VegaError (there is no host tier)."""
-    probe = [torch.ones((1, 1), dtype=dt, device=device) for dt in dtypes]
-    arg = probe[0] if len(probe) == 1 else tuple(probe)
+def _named_reduce_wide(blk: Block, op: str) -> int:
+    """sum / min / max of a keyless wide VALUE as a Python int. add: each
+    shard's exact int64 sums of the high words and of the unsigned low
+    words (kernels.wide_sum_words) come back in one fetch, and the host
+    adds them as Python ints, so a total past int64 is the exact bignum
+    with no refold of the rows. min / max: each shard's extreme of the
+    int64 the words encode; an empty RDD raises."""
+    hi, lo = blk.cols[VALUE], blk.cols[block_lib.lo_of(VALUE)]
+    mask = kernels.valid_mask(hi.shape[1], blk.counts)
+    if op == "add":
+        h, low = kernels.wide_sum_words(hi, lo)
+        hs, ls = torch.stack([torch.where(mask, h, 0).sum(dim=1),
+                              torch.where(mask, low, 0).sum(dim=1)]
+                             ).cpu().numpy()
+        return sum(int(a) << 32 for a in hs) + sum(int(b) for b in ls)
+    info = torch.iinfo(torch.int64)
+    w = torch.where(mask, kernels.wide_i64(hi, lo),
+                    info.max if op == "min" else info.min)
+    ext = w.amin(dim=1) if op == "min" else w.amax(dim=1)
+    ext, counts = torch.stack([ext, blk.counts.to(torch.int64)]
+                              ).cpu().numpy()
+    picked = [int(x) for x, c in zip(ext, counts) if c > 0]
+    if not picked:
+        raise VegaError(f"{op}() of empty DenseRDD")
+    return min(picked) if op == "min" else max(picked)
+
+
+# ---------------------------------------------------------------------------
+# tracing: row functions and binops run once on empty probe columns
+# ---------------------------------------------------------------------------
+# 64-bit outputs narrow to 32 bits, as the reference's trace (jax_enable_x64
+# off) gives them: the low 32 bits of add / sub / mul agree.
+_CANONICAL = {torch.int64: torch.int32, torch.float64: torch.float32}
+_COLUMN_DTYPES = (torch.int32, torch.float32, torch.bool)
+
+
+def _probe_cols(schema, n_shards: int):
+    """Probe columns of a schema: [n_shards, 0] tensors on the CPU, dtypes
+    and no values, as the reference traces on abstract values. Nothing is
+    computed, so no value can raise (100 // x), and control flow on a
+    value (an `if`, max() of two tensors) raises, as bool() of a tensor
+    with no values does. Empty tensors rather than the meta device: the
+    first meta op of a process imports torch's meta registrations, which
+    took seconds on the card's machine (PERF.md section 6)."""
+    return {n: torch.empty((n_shards, 0), dtype=dt) for n, dt in schema}
+
+
+def _traced(f, args, what: str):
+    """f(*args) on probe tensors; a failure means f does not run on column
+    tensors: the reference would hand it to its host tier."""
     try:
-        out = func(arg, arg)
+        return f(*args)
     except Exception as e:  # noqa: BLE001 — any failure means "no trace"
-        raise _no_host_tier(f"{what} binop {func!r} does not run on column "
-                            f"tensors ({e})") from e
+        raise _no_host_tier(f"{what} {f!r} does not run on column tensors "
+                            f"({type(e).__name__}: {e})") from e
+
+
+def _column_dtype(x, shape, what: str) -> torch.dtype:
+    """The block dtype of one traced output. A tensor computed from the
+    row (of the probe's shape) keeps its dtype; a constant (a Python or
+    numpy scalar) broadcasts with the reference's weak type: int -> int32,
+    float -> float32, bool -> bool. 64-bit dtypes narrow (_CANONICAL)."""
+    if isinstance(x, torch.Tensor):
+        if tuple(x.shape) != tuple(shape):
+            raise VegaError(f"{what} must be one scalar per row, got shape "
+                            f"{tuple(x.shape)} for rows {tuple(shape)} (a "
+                            "constant is a Python scalar)")
+        dt = x.dtype
+    elif isinstance(x, (bool, np.bool_)):
+        dt = torch.bool
+    elif isinstance(x, int):
+        if not kernels.INT32_MIN <= x <= kernels.INT32_MAX:
+            raise _no_host_tier(f"{what}: constant {x} outside int32")
+        dt = torch.int32
+    elif isinstance(x, float):
+        dt = torch.float32
+    elif isinstance(x, np.generic):
+        dt = torch.from_numpy(np.asarray(x)).dtype
+    else:
+        raise _no_host_tier(f"{what} of type {type(x).__name__} (neither a "
+                            "tensor nor a constant)")
+    dt = _CANONICAL.get(dt, dt)
+    if dt not in _COLUMN_DTYPES:
+        raise VegaError(f"{what} has dtype {dt}; the block dtype contract "
+                        "is int32 / float32 / bool")
+    return dt
+
+
+def _as_column(x, dtype: torch.dtype, like: torch.Tensor) -> torch.Tensor:
+    """One output as a column of like's [n_shards, capacity] shape and
+    device in its traced dtype: a constant broadcasts, a tensor casts."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full(like.shape[:2], x.item() if isinstance(
+            x, np.generic) else x, dtype=dtype, device=like.device)
+    return x if x.dtype == dtype else x.to(dtype)
+
+
+def _row_inputs(cols, count):
+    """The columns a row function runs on. On the CPU, where torch raises
+    on integer division by zero, each padded row takes a valid row's
+    values (its shard's first row, or the first non-empty shard's for an
+    empty shard); valid rows keep theirs. None when no shard holds a
+    valid row: the caller emits zero columns without calling the
+    function. The card computes padded rows without trapping, and every
+    caller masks them out after, so it gets the columns as they are."""
+    like = next(iter(cols.values()))
+    if like.device.type != "cpu":
+        return cols
+    nonempty = count > 0
+    if not bool(nonempty.any()):
+        return None
+    src = int(torch.argmax(nonempty.to(torch.int32)))
+    mask = kernels.valid_mask(like.shape[1], count)
+    out = {}
+    for nm, c in cols.items():
+        tail = (1,) * (c.dim() - 2)
+        fill = torch.where(nonempty.view((-1, 1) + tail), c[:, :1],
+                           c[src:src + 1, :1])
+        out[nm] = torch.where(mask.view(mask.shape + tail), c, fill)
+    return out
+
+
+def _zero_cols(schema, like: torch.Tensor):
+    return {nm: torch.zeros(like.shape[:2], dtype=dt, device=like.device)
+            for nm, dt in schema}
+
+
+def _check_binop(func, dtypes, what: str):
+    """The reference's checks of a traced binop, traced once on probe
+    columns: over one value column it maps two column tensors to one of
+    the same dtype; over several, two tuples of them to a tuple with one
+    such tensor per column (64-bit outputs narrow, as in row functions).
+    Returns the binop with that narrowing applied. A binop that fails the
+    checks, or branches on a value, raises VegaError when the op is
+    built."""
+    probe = [torch.empty((1, 0), dtype=dt) for dt in dtypes]
+    arg = probe[0] if len(probe) == 1 else tuple(probe)
+    out = _traced(func, (arg, arg), f"{what} binop")
     outs = [out] if len(probe) == 1 else out
     if not isinstance(outs, (tuple, list)) or len(outs) != len(probe):
         raise _no_host_tier(f"{what} binop over {len(probe)} value columns "
@@ -895,61 +1102,41 @@ def _check_binop(func, dtypes, device, what: str) -> None:
         if not isinstance(o, torch.Tensor) or o.shape != p.shape:
             raise _no_host_tier(f"{what} binop must return one scalar per "
                                 "value column")
-        if o.dtype != p.dtype:
+        if _CANONICAL.get(o.dtype, o.dtype) != p.dtype:
             raise _no_host_tier(
                 f"{what} binop changes the value dtype ({p.dtype} -> "
                 f"{o.dtype}); cast the column first so the block schema "
                 "stays truthful")
 
+    def narrow(x, dt):
+        return x if x.dtype == dt else x.to(dt)
 
-def _probe_cols(schema, mesh):
-    """Probe columns of a schema: one zero row per shard."""
-    return {n: torch.zeros((mesh.n_shards, 1), dtype=dt, device=mesh.device)
-            for n, dt in schema}
+    if len(dtypes) == 1:
+        return lambda a, b: narrow(func(a, b), dtypes[0])
+    return lambda a, b: tuple(narrow(x, dt)
+                              for x, dt in zip(func(a, b), dtypes))
 
 
-def _trace_row_fn(f, schema, mesh):
-    """Run f once on tiny column tensors of the schema to learn its output
-    structure; returns (out_schema, cols_fn), where cols_fn maps a column
-    dict to a column dict. A function that does not run on tensors, or
-    returns anything but a tensor or a pair of tensors, raises VegaError
-    (there is no host tier to fall back to)."""
-    try:
-        out = f(_cols_to_row(_probe_cols(schema, mesh), schema))
-    except Exception as e:  # noqa: BLE001 — any failure means "not ported"
-        raise VegaError(
-            f"row function {f!r} does not run on column tensors ({e}); "
-            "vega_tpu_torch has no host tier to fall back to") from e
+def _trace_row_fn(f, schema, n_shards: int):
+    """Trace f once on probe columns to learn its output structure: a
+    value or a (key, value) pair, each a column or a constant
+    (_column_dtype). Returns (out_schema, cols_fn), where cols_fn maps a
+    column dict to a column dict; anything else raises VegaError (there
+    is no host tier to fall back to)."""
+    shape = (n_shards, 0)
+    out = _traced(f, (_cols_to_row(_probe_cols(schema, n_shards), schema),),
+                  "row function")
+    pair = isinstance(out, tuple) and len(out) == 2
+    names = (KEY, VALUE) if pair else (VALUE,)
+    out_schema = tuple(
+        (nm, _column_dtype(x, shape, f"row function output {nm!r}"))
+        for nm, x in zip(names, out if pair else (out,)))
 
-    def as_col(x, what):
-        if not isinstance(x, torch.Tensor):
-            raise VegaError(f"row function {what} must be a tensor computed "
-                            f"from the row, got {type(x).__name__}")
-        if x.shape != (mesh.n_shards, 1):
-            raise VegaError(f"row function {what} must be one scalar per "
-                            f"row, got shape {tuple(x.shape)} for one row "
-                            "per shard")
-        return x
-
-    if isinstance(out, tuple) and len(out) == 2:
-        k, v = as_col(out[0], "key"), as_col(out[1], "value")
-        out_schema = ((KEY, k.dtype), (VALUE, v.dtype))
-
-        def cols_fn(cols):
-            k, v = f(_cols_to_row(cols, schema))
-            return {KEY: k, VALUE: v}
-    else:
-        v = as_col(out, "output")
-        out_schema = ((VALUE, v.dtype),)
-
-        def cols_fn(cols):
-            return {VALUE: f(_cols_to_row(cols, schema))}
-
-    for name, dt in out_schema:
-        if dt not in (torch.int32, torch.float32):
-            raise VegaError(
-                f"row function output {name!r} has dtype {dt}; the block "
-                "dtype contract is 32-bit (int32/float32)")
+    def cols_fn(cols):
+        res = f(_cols_to_row(cols, schema))
+        like = next(iter(cols.values()))
+        return {nm: _as_column(x, dt, like).contiguous()
+                for (nm, dt), x in zip(out_schema, res if pair else (res,))}
     return out_schema, cols_fn
 
 
@@ -997,7 +1184,8 @@ class _NarrowRDD(DenseRDD):
 
 class _MapRDD(_NarrowRDD):
     def __init__(self, parent: DenseRDD, f):
-        out_schema, cols_fn = _trace_row_fn(f, parent._schema(), parent.mesh)
+        out_schema, cols_fn = _trace_row_fn(f, parent._schema(),
+                                            parent.n_shards)
         super().__init__(parent, out_schema)
         self._cols_fn = cols_fn
         self._user_fn = f
@@ -1006,23 +1194,11 @@ class _MapRDD(_NarrowRDD):
         return (_fp(self._user_fn),)
 
     def _shard_fn(self, cols, count):
-        out = self._cols_fn(cols)
-        return {n: c.contiguous() for n, c in out.items()}, count
-
-
-def _probe_scalar(f, arg, what: str) -> torch.Tensor:
-    """f's output on probe columns ([n_shards, 1] tensors): one tensor
-    per row, else VegaError (there is no host tier to fall back to)."""
-    try:
-        out = f(arg)
-    except Exception as e:  # noqa: BLE001 — any failure means "no trace"
-        raise VegaError(
-            f"{what} {f!r} does not run on column tensors ({e}); "
-            "vega_tpu_torch has no host tier to fall back to") from e
-    shape = (arg[0] if isinstance(arg, tuple) else arg).shape
-    if not isinstance(out, torch.Tensor) or out.shape != shape:
-        raise VegaError(f"{what} must return one scalar tensor per row")
-    return out
+        inputs = _row_inputs(cols, count)
+        if inputs is None:
+            return _zero_cols(self._out_schema,
+                              next(iter(cols.values()))), count
+        return self._cols_fn(inputs), count
 
 
 class _FilterRDD(_NarrowRDD):
@@ -1033,8 +1209,11 @@ class _FilterRDD(_NarrowRDD):
 
     def __init__(self, parent: DenseRDD, pred):
         schema = parent._schema()
-        _probe_scalar(pred, _cols_to_row(_probe_cols(schema, parent.mesh),
-                                         schema), "filter predicate")
+        n = parent.n_shards
+        _column_dtype(_traced(pred, (_cols_to_row(_probe_cols(schema, n),
+                                                  schema),),
+                              "filter predicate"),
+                      (n, 0), "filter predicate")
         super().__init__(parent, schema)
         self._pred = pred
 
@@ -1042,10 +1221,13 @@ class _FilterRDD(_NarrowRDD):
         return (_fp(self._pred),)
 
     def _shard_fn(self, cols, count):
-        cap = next(iter(cols.values())).shape[1]
-        keep = self._pred(_cols_to_row(cols, self._out_schema))
-        keep = keep.to(torch.bool) & kernels.valid_mask(cap, count)
-        return kernels.compact(cols, keep, cap)
+        like = next(iter(cols.values()))
+        keep = kernels.valid_mask(like.shape[1], count)
+        inputs = _row_inputs(cols, count)
+        if inputs is not None:
+            keep = keep & _as_column(self._pred(_cols_to_row(
+                inputs, self._out_schema)), torch.bool, like)
+        return kernels.compact(cols, keep, like.shape[1])
 
 
 class _MapValuesRDD(_NarrowRDD):
@@ -1058,16 +1240,14 @@ class _MapValuesRDD(_NarrowRDD):
     def __init__(self, parent: DenseRDD, f):
         pschema = dict(parent._schema())
         self._vname = parent._value_names()[0]
-        out = _probe_scalar(f, _probe_cols(
-            [(self._vname, pschema[self._vname])], parent.mesh)[self._vname],
-            "map_values function")
-        if out.dtype not in (torch.int32, torch.float32):
-            raise VegaError(
-                f"map_values output has dtype {out.dtype}; the block dtype "
-                "contract is 32-bit (int32/float32)")
+        n = parent.n_shards
+        probe = _probe_cols([(self._vname, pschema[self._vname])], n)
+        self._dtype = _column_dtype(
+            _traced(f, (probe[self._vname],), "map_values function"),
+            (n, 0), "map_values output")
         key_schema = tuple((nm, pschema[nm]) for nm in (KEY, KEY_LO)
                            if nm in pschema)
-        super().__init__(parent, key_schema + ((self._vname, out.dtype),))
+        super().__init__(parent, key_schema + ((self._vname, self._dtype),))
         self._f = f
 
     def _fp_extra(self):
@@ -1076,8 +1256,92 @@ class _MapValuesRDD(_NarrowRDD):
     def _shard_fn(self, cols, count):
         out = {nm: cols[nm] for nm, _ in self._out_schema
                if nm != self._vname}
-        out[self._vname] = self._f(cols[self._vname]).contiguous()
+        col = cols[self._vname]
+        inputs = _row_inputs({self._vname: col}, count)
+        out[self._vname] = (
+            torch.zeros(col.shape[:2], dtype=self._dtype, device=col.device)
+            if inputs is None else
+            _as_column(self._f(inputs[self._vname]), self._dtype,
+                       col).contiguous())
         return out, count
+
+
+class _WidenKeyRDD(_NarrowRDD):
+    """An int32 KEY re-encoded as the two-column int64 key (hi = the sign
+    word, lo = the bits with the sign bit flipped: block.encode_i64 on the
+    device), so the side can meet an int64-keyed one in a join or
+    cogroup: equal keys hash alike under hash32_pair. Placement resets
+    (the default False): the int32 hash says nothing about the pair
+    hash's."""
+
+    def __init__(self, parent: DenseRDD):
+        out = []
+        for nm, dt in parent._schema():
+            out.append((nm, dt))
+            if nm == KEY:
+                out.append((KEY_LO, torch.int32))
+        super().__init__(parent, tuple(out))
+
+    def _shard_fn(self, cols, count):
+        out = {}
+        for nm, col in cols.items():
+            if nm == KEY:
+                out[KEY] = col >> 31
+                out[KEY_LO] = col ^ kernels.INT32_MIN
+            else:
+                out[nm] = col
+        return out, count
+
+
+def _align_keys(a: DenseRDD, b: DenseRDD, op: str):
+    """Two pair sides made key-compatible for the device: equal keys must
+    hash to one shard and compare equal in the merge. Sides of one key
+    dtype and width pass as they are; an int32 key meeting a two-column
+    int64 key widens (_WidenKeyRDD). Any other mix raises: an int32 2 and
+    a float32 2.0 hash apart on the device but compare equal on the host,
+    so the reference hands it to its host tier."""
+    sa, sb = dict(a._schema()), dict(b._schema())
+    if a.wide_key == b.wide_key:
+        if sa[KEY] == sb[KEY]:
+            return a, b
+    else:
+        narrow = b if a.wide_key else a
+        if dict(narrow._schema())[KEY] == torch.int32:
+            widened = _WidenKeyRDD(narrow)
+            return (a, widened) if a.wide_key else (widened, b)
+    describe = {True: "two-column int64"}
+    raise _no_host_tier(
+        f"{op}: key dtypes differ ({describe.get(a.wide_key, sa[KEY])} vs "
+        f"{describe.get(b.wide_key, sb[KEY])}), and equal keys would hash "
+        "apart on the device")
+
+
+class _SampleRDD(_NarrowRDD):
+    """Per-shard Bernoulli sampling on the reference's stream: shard s
+    keys threefry with fold_in(PRNGKey(seed), s), row i keeps when
+    uniform(key)[i] < fraction, and the kept rows compact stably (so
+    placement and key order pass through)."""
+
+    _keeps_counts = False
+    _keeps_placement = True
+
+    def __init__(self, parent: DenseRDD, fraction: float, seed: int):
+        super().__init__(parent, parent._schema())
+        self._fraction = float(fraction)
+        self._key = kernels.prng_key(int(seed))
+
+    def _fp_extra(self):
+        return (self._fraction, self._key)
+
+    def _shard_fn(self, cols, count):
+        like = next(iter(cols.values()))
+        n_shards, cap = like.shape[:2]
+        dev = like.device
+        k0, k1 = kernels.fold_in(
+            *self._key, torch.arange(n_shards, device=dev)[:, None])
+        u = kernels.uniform_f32(k0, k1, torch.arange(cap, device=dev))
+        keep = (u < self._fraction) & kernels.valid_mask(cap, count)
+        return kernels.compact(cols, keep, cap)
 
 
 class _SelectRDD(_NarrowRDD):
@@ -1148,6 +1412,135 @@ class _ProjectRDD(_NarrowRDD):
 
     def _shard_fn(self, cols, count):
         return {VALUE: cols[self._col]}, count
+
+
+def _payload_schema(payload, n_shards: int, width: int, what: str):
+    """The schema of an expansion's payload: one tensor (VALUE) or a
+    (key, value) pair of them, each computed from the row with a trailing
+    dim of `width` (probe shape [n_shards, 0, width])."""
+    shape = (n_shards, 0, width)
+    pair = isinstance(payload, tuple) and len(payload) == 2
+    out = []
+    for nm, x in zip((KEY, VALUE) if pair else (VALUE,),
+                     payload if pair else (payload,)):
+        if not (isinstance(x, torch.Tensor) and tuple(x.shape) == shape):
+            raise _no_host_tier(
+                f"{what} output {nm!r} must be a tensor computed from the "
+                f"row with a trailing dim of {width} (e.g. torch.stack(..., "
+                "dim=-1))")
+        out.append((nm, _column_dtype(x, shape, f"{what} output {nm!r}")))
+    return tuple(out)
+
+
+class _ExpandRDD(DenseRDD):
+    """Base of the expansion nodes (map_expand, flat_map_ragged): each
+    output row set has its own capacity, so the node is a chain break: it
+    materializes its parent and runs on its own, never fused into the
+    next exchange (the reference's _chainable = False)."""
+
+    def __init__(self, parent: DenseRDD, f, width: int, what: str):
+        if width <= 0:
+            raise VegaError(f"{what} needs a positive output width, got "
+                            f"{width}")
+        super().__init__(parent.context, parent.mesh, [parent])
+        self.parent = parent
+        self._f = f
+        self._width = width
+        schema = parent._schema()
+        self._probe_out = _traced(f, (_cols_to_row(_probe_cols(
+            schema, parent.n_shards), schema),), what)
+
+    def _schema(self):
+        return self._out_schema
+
+    def _fp_extra(self):
+        return (_fp(self._f), self._width)
+
+    def _run(self):
+        """(f's output on the parent's rows, parent block, output
+        capacity); the output is None when no shard holds a row."""
+        blk = self.parent.block()
+        cap_out = block_lib._round_capacity(blk.capacity * self._width)
+        inputs = _row_inputs(dict(blk.cols), blk.counts)
+        if inputs is None:
+            return None, blk, cap_out
+        return self._f(_cols_to_row(inputs, self.parent._schema())), blk, \
+            cap_out
+
+    def _payload(self, payload):
+        """The payload's columns as [n_shards, capacity * width] tensors
+        of the traced dtypes, row i's outputs at [i * width, (i+1) *
+        width)."""
+        pair = len(self._out_schema) == 2
+        return {nm: x.to(dt).reshape(x.shape[0], -1)
+                for (nm, dt), x in zip(self._out_schema,
+                                       payload if pair else (payload,))}
+
+    def _empty(self, blk: Block, cap_out: int) -> Block:
+        like = next(iter(blk.cols.values()))
+        cols = {nm: torch.zeros((like.shape[0], cap_out), dtype=dt,
+                                device=like.device)
+                for nm, dt in self._out_schema}
+        return Block(cols=cols, counts=torch.zeros_like(blk.counts),
+                     capacity=cap_out, mesh=self.mesh,
+                     counts_host=np.zeros(self.n_shards, np.int32))
+
+
+class _MapExpandRDD(_ExpandRDD):
+    """Fixed-factor expansion: row i of a shard becomes output rows
+    [i * factor, (i+1) * factor), in order; the valid rows stay a prefix,
+    count * factor long, at capacity round(capacity * factor)."""
+
+    def __init__(self, parent: DenseRDD, f, factor: int):
+        super().__init__(parent, f, factor, "map_expand")
+        self._out_schema = _payload_schema(self._probe_out, parent.n_shards,
+                                           factor, "map_expand")
+
+    def _materialize(self) -> Block:
+        payload, blk, cap_out = self._run()
+        if payload is None:
+            return self._empty(blk, cap_out)
+        cols = {nm: torch.nn.functional.pad(flat, (0, cap_out - flat.shape[1]))
+                for nm, flat in self._payload(payload).items()}
+        counts_host = (None if blk.counts_host is None
+                       else blk.counts_host * self._width)
+        return Block(cols=cols, counts=blk.counts * self._width,
+                     capacity=cap_out, mesh=self.mesh,
+                     counts_host=counts_host)
+
+
+class _FlatMapRaggedRDD(_ExpandRDD):
+    """Bounded variable-arity expansion: f(row) -> (payload, n_valid).
+    n_valid clips to [0, max_out] (0 on invalid rows); each output slot
+    finds its row by kernels.ragged_expand and gathers its entry. Output
+    capacity is capacity * max_out, so it cannot overflow."""
+
+    def __init__(self, parent: DenseRDD, f, max_out: int):
+        super().__init__(parent, f, max_out, "flat_map_ragged")
+        out = self._probe_out
+        if not (isinstance(out, tuple) and len(out) == 2):
+            raise _no_host_tier("flat_map_ragged function must return "
+                                "(payload, n_valid)")
+        self._out_schema = _payload_schema(out[0], parent.n_shards,
+                                           max_out, "flat_map_ragged")
+        _column_dtype(out[1], (parent.n_shards, 0),
+                      "flat_map_ragged n_valid")
+
+    def _materialize(self) -> Block:
+        out, blk, cap_out = self._run()
+        if out is None:
+            return self._empty(blk, cap_out)
+        payload, n_valid = out
+        like = next(iter(blk.cols.values()))
+        n_valid = _as_column(n_valid, torch.int64, like)
+        m = torch.where(kernels.valid_mask(like.shape[1], blk.counts),
+                        n_valid.clamp(0, self._width), 0)
+        owner, off, total = kernels.ragged_expand(m, cap_out)
+        idx = owner * self._width + off.clamp_(0, self._width - 1)
+        cols = {nm: torch.gather(flat, 1, idx)
+                for nm, flat in self._payload(payload).items()}
+        return Block(cols=cols, counts=total.to(torch.int32),
+                     capacity=cap_out, mesh=self.mesh)
 
 
 def _narrow_chain(node):
@@ -1240,6 +1633,40 @@ def _bucket_cols(cols, n: int) -> torch.Tensor:
     if key.dtype != torch.int32:
         raise VegaError(f"keys must be int32 or float32, got {key.dtype}")
     return cuda_kernels.hash_bucket(key.contiguous(), n)
+
+
+def _wide_working_form(cols, wide: dict, op: Optional[str]):
+    """A named reduce's working form of each wide value pair {name:
+    name.lo}: for add, its two exact int64 addends
+    (kernels.wide_sum_words) in the pair's columns; for min / max, the
+    int64 the pair encodes in the name column, the low word dropped. The
+    segment ops, sorts and exchanges carry either form like any column."""
+    cols = dict(cols)
+    for nm, lo in wide.items():
+        if op == "add":
+            cols[nm], cols[lo] = kernels.wide_sum_words(cols[nm], cols[lo])
+        else:
+            cols[nm] = kernels.wide_i64(cols[nm], cols.pop(lo))
+    return cols
+
+
+def _wide_stored_form(cols, count, wide: dict, op: Optional[str]):
+    """The reduced working form back in the stored (int32, biased int32)
+    words. Returns (cols, out_of_range): out_of_range[s] is set when a
+    valid row of shard s holds an add total outside int64."""
+    out_of_range = torch.zeros_like(count, dtype=torch.bool)
+    if not wide:
+        return cols, out_of_range
+    cols = dict(cols)
+    mask = kernels.valid_mask(cols[KEY].shape[1], count)
+    for nm, lo in wide.items():
+        if op == "add":
+            cols[nm], cols[lo], bad = kernels.wide_from_sums(cols[nm],
+                                                             cols[lo])
+            out_of_range |= (bad & mask).any(dim=1)
+        else:
+            cols[nm], cols[lo] = kernels.wide_words(cols[nm])
+    return cols, out_of_range
 
 
 def _elide_out_cap(blk: Block) -> int:
@@ -1501,6 +1928,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
     _table_plan = False  # whether the last materialization took the table
 
     def __init__(self, parent: DenseRDD, op: Optional[str], func=None):
+        parent._check_sortable_key("reduce_by_key")
         super().__init__(parent.context, parent.mesh, [parent])
         self.parent = parent
         self._op = op
@@ -1511,19 +1939,33 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                 raise VegaError("reduce_by_key(func) needs a value column; "
                                 "count_by_key_dense counts a key-only block")
             dtypes = dict(parent._schema())
-            _check_binop(func, [dtypes[nm] for nm in self._value_cols],
-                         parent.mesh.device, "reduce_by_key")
+            self._func = _check_binop(
+                func, [dtypes[nm] for nm in self._value_cols],
+                "reduce_by_key")
+            self._user_fn = func
 
     def _segment_reduce(self, cols, count, presorted: bool,
                         sort_impl: str = "xla"):
         """The combine of both sides: the named op's segment reduce, or
         the traced binop's segmented scan (a scalar binop over one value
-        column, a tuple binop over several)."""
+        column, a tuple binop over several), whose padded rows hold a
+        valid row's values on the CPU (_row_inputs): the scan combines
+        them too, and discards them. A wide key's low word rides with the
+        key."""
+        lo_name = KEY_LO if KEY_LO in cols else None
         if self._op is not None:
             return kernels.segment_reduce_named(
                 cols, count, KEY, self._op, presorted=presorted,
-                sort_impl=sort_impl)
+                sort_impl=sort_impl, lo_name=lo_name)
         f, names = self._func, self._value_cols
+        if not presorted:
+            cols = kernels.sort_by_column(cols, count, KEY, impl=sort_impl,
+                                          lo_name=lo_name)
+        inputs = _row_inputs({nm: cols[nm] for nm in names}, count)
+        if inputs is None:  # no valid row: nothing to combine
+            return kernels.compact(cols, kernels.valid_mask(
+                cols[KEY].shape[1], count), cols[KEY].shape[1])
+        cols = dict(cols, **inputs)
         if len(names) == 1:
             nm0 = names[0]
 
@@ -1534,8 +1976,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                 return dict(zip(names, f(tuple(a[nm] for nm in names),
                                          tuple(b[nm] for nm in names))))
         return kernels.segment_reduce_sorted(
-            cols, count, KEY, combine, presorted=presorted,
-            sort_impl=sort_impl)
+            cols, count, KEY, combine, presorted=True, lo_name=lo_name)
 
     @property
     def hash_placed(self) -> bool:
@@ -1552,7 +1993,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         return self.parent._schema()
 
     def _fp_extra(self):
-        return (self._op or _fp(self._func),)
+        return (self._op or _fp(self._user_fn),)
 
     def _bank_range(self, lo: np.ndarray, hi: np.ndarray) -> None:
         """Remember the observed key range of this lineage and input sizes
@@ -1593,6 +2034,10 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         source = _chain_source(chain, blk)
         schema = self.parent._schema()
         names = [nm for nm, _ in schema]
+        lo_name = KEY_LO if KEY_LO in names else None
+        # wide value pairs reduce in their exact working form
+        wide = block_lib.wide_value_pairs(names) if op else {}
+        track_range = bool(wide) and op == "add"
         # The table plan, and the key-range learning that arms it: named
         # add/min/max over one 32-bit value column with an int32 key.
         vnames = [nm for nm in names if nm != KEY]
@@ -1612,14 +2057,15 @@ class _ReduceByKeyRDD(_ExchangeRDD):
 
         def build(slot, out_cap):
             cols, count = source()
-            cols = dict(cols)
+            cols = _wide_working_form(cols, wide, op)
             if n > 1 and not elide and plan == "sort_partition":
                 # key-only sort -> presorted map-side combine -> counting
                 # partition of the (often much smaller) combined rows;
                 # equal keys share a bucket, so combining across bucket
                 # boundaries is safe
                 cols = kernels.sort_by_column(cols, count, KEY,
-                                              impl=sort_impl)
+                                              impl=sort_impl,
+                                              lo_name=lo_name)
                 cols, count = self._segment_reduce(cols, count,
                                                    presorted=True)
                 capacity = cols[KEY].shape[1]
@@ -1634,7 +2080,8 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                 mask = kernels.valid_mask(capacity, count)
                 bucket = torch.where(mask, _bucket_cols(cols, n), n)
                 cols, bucket = kernels.bucket_key_sort(
-                    cols, count, bucket, KEY, impl=sort_impl, n_shards=n)
+                    cols, count, bucket, KEY, impl=sort_impl, n_shards=n,
+                    lo_name=lo_name)
                 # map-side combine over the (bucket, key)-sorted rows
                 cols, count = self._segment_reduce(cols, count,
                                                    presorted=True)
@@ -1654,7 +2101,8 @@ class _ReduceByKeyRDD(_ExchangeRDD):
             # reduce-side merge
             cols, count = self._segment_reduce(
                 cols, count, presorted=elide_sorted, sort_impl=sort_impl)
-            extras = []
+            cols, out_of_range = _wide_stored_form(cols, count, wide, op)
+            extras = [out_of_range] if track_range else []
             if learn_range:
                 # the output's key range rides the counts fetch: it arms
                 # the table plan for the next warm run
@@ -1664,21 +2112,34 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                           torch.where(mask, keys, kernels.INT32_MIN).amax(1)]
             return (count, extras, {nm: cols[nm] for nm in names}), overflow
 
-        # deferred launches bank the range when they commit
+        # deferred launches bank the range when they commit; a wide sum
+        # outside int64 fails its settlement, and the repair's blocking
+        # rerun raises
         on_success = ((lambda head: self._bank_range(head[-2], head[-1]))
                       if learn_range else None)
+        validate = ((lambda head: not head[1].any()) if track_range
+                    else None)
         if elide:
             count, _, cols, out_cap = self._run_exchange(
                 build, lambda: blk.counts_np,
-                fixed_caps=(0, _elide_out_cap(blk)), on_success=on_success)
+                fixed_caps=(0, _elide_out_cap(blk)), validate=validate,
+                on_success=on_success)
         else:
             count, _, cols, out_cap = self._run_exchange(
                 build, lambda: blk.counts_np,
                 make_hists=lambda: (
                     [self._hash_histogram(*source())], None),
-                hint_key=self._hint_key(), on_success=on_success)
-        if learn_range and self._last_extra_host is not None:
-            self._bank_range(*self._last_extra_host[-2:])  # blocking path
+                hint_key=self._hint_key(), validate=validate,
+                on_success=on_success)
+        extra = self._last_extra_host  # None on the deferred path
+        if track_range and extra is not None and extra[0].any():
+            raise VegaError(
+                "reduce_by_key(op='add'): an exact total of a wide int64 "
+                "column lies outside the int64 range and has no device "
+                "representation (the reference's host tier keeps exact "
+                "bignum sums)")
+        if learn_range and extra is not None:
+            self._bank_range(*extra[-2:])  # blocking path
         return self._attach_pending(Block(
             cols=cols, counts=count, capacity=out_cap, mesh=self.mesh,
             counts_host=self._last_counts_host))
@@ -1760,6 +2221,7 @@ class _JoinRDD(_ExchangeRDD):
 
     def __init__(self, left: DenseRDD, right: DenseRDD, outer: bool = False,
                  fill_value=0):
+        left._check_sortable_key("join")
         super().__init__(left.context, left.mesh, [left, right])
         self.left = left
         self.right = right
@@ -1779,8 +2241,14 @@ class _JoinRDD(_ExchangeRDD):
         return True  # output follows the left sort order
 
     def _schema(self):
-        ls, rs = dict(self.left._schema()), dict(self.right._schema())
-        return ((KEY, ls[KEY]), ("lv", ls[VALUE]), ("rv", rs[VALUE]))
+        """(k[, k.lo], lv[, lv.lo], rv[, rv.lo]): a wide key or value
+        keeps its pair."""
+        out = [(nm, dt) for nm, dt in self.left._schema()
+               if nm in (KEY, KEY_LO)]
+        for side, prefix in ((self.left, "lv"), (self.right, "rv")):
+            out += [(_join_name(nm, prefix), dt)
+                    for nm, dt in side._schema() if nm not in (KEY, KEY_LO)]
+        return tuple(out)
 
     def _materialize(self) -> Block:
         n = self.n_shards
@@ -1798,6 +2266,7 @@ class _JoinRDD(_ExchangeRDD):
             blk = root.block_spec()  # we register our own pending entry
             return blk, _chain_source(chain, blk)
 
+        names = [nm for nm, _ in self._schema()]
         lblk, lsource = side_input(self.left, l_elide)
         rblk, rsource = side_input(self.right, r_elide)
         join_cap_override: List[Optional[int]] = [None]
@@ -1822,11 +2291,16 @@ class _JoinRDD(_ExchangeRDD):
             joined, jcount, jtotal = kernels.merge_join_expand(
                 lc, lcount, rc, rcount, KEY, join_cap, outer=self.outer,
                 fill_value=self.fill_value, left_sorted=l_sorted,
-                right_sorted=r_sorted,
-                sort_impl=sort_impl)
-            cols = {KEY: joined[KEY], "lv": joined[VALUE],
-                    "rv": joined[f"r_{VALUE}"]}
-            return (jcount, [jtotal], cols), lof | rof
+                right_sorted=r_sorted, sort_impl=sort_impl,
+                lo_name=KEY_LO if KEY_LO in lc else None)
+            cols = {}
+            for nm, col in joined.items():
+                right = nm.startswith("r_")
+                base = nm[2:] if right else nm
+                cols[base if base in (KEY, KEY_LO) else _join_name(
+                    base, "rv" if right else "lv")] = col
+            return (jcount, [jtotal], {nm: cols[nm] for nm in names}), \
+                lof | rof
 
         counts_fn = lambda: np.concatenate([lblk.counts_np, rblk.counts_np])
 
@@ -1884,9 +2358,14 @@ class _JoinRDD(_ExchangeRDD):
             mesh=self.mesh, counts_host=self._last_counts_host))
 
     def collect(self) -> list:
-        cols = self.block().to_numpy()
+        cols = self.block().to_numpy()  # wide pairs decoded
         return [(k, (lv, rv)) for k, lv, rv in zip(
             cols[KEY].tolist(), cols["lv"].tolist(), cols["rv"].tolist())]
+
+
+def _join_name(nm: str, prefix: str) -> str:
+    """VALUE -> lv / rv and VALUE.lo -> lv.lo / rv.lo."""
+    return block_lib.lo_of(prefix) if block_lib.is_lo(nm) else prefix
 
 
 class _GroupByKeyRDD(_ExchangeRDD):
@@ -1899,6 +2378,7 @@ class _GroupByKeyRDD(_ExchangeRDD):
     key_sorted = True
 
     def __init__(self, parent: DenseRDD):
+        parent._check_sortable_key("group_by_key")
         super().__init__(parent.context, parent.mesh, [parent])
         self.parent = parent
 
@@ -1973,13 +2453,9 @@ class _GroupByKeyRDD(_ExchangeRDD):
 def _run_starts(cols, count) -> torch.Tensor:
     """[n_shards, cap] bool: valid rows that start a run of equal keys
     (both words of a wide key) in key-sorted shards."""
-    keys = cols[KEY]
-    first = torch.ones_like(keys, dtype=torch.bool)
-    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
-    if KEY_LO in cols:
-        lo = cols[KEY_LO]
-        first[:, 1:] |= lo[:, 1:] != lo[:, :-1]
-    return first & kernels.valid_mask(keys.shape[1], count)
+    first = kernels.run_heads([cols[nm] for nm in (KEY, KEY_LO)
+                               if nm in cols])
+    return first & kernels.valid_mask(first.shape[1], count)
 
 
 class _SortByKeyRDD(_ExchangeRDD):
@@ -1989,6 +2465,7 @@ class _SortByKeyRDD(_ExchangeRDD):
     in the requested direction."""
 
     def __init__(self, parent: DenseRDD, ascending: bool):
+        parent._check_sortable_key("sort_by_key")
         super().__init__(parent.context, parent.mesh, [parent])
         self.parent = parent
         self.ascending = ascending
@@ -2039,6 +2516,10 @@ class _SortByKeyRDD(_ExchangeRDD):
         descending): allk[int(len * i / n)], as the reference picks
         them."""
         n = self.n_shards
+        # a NaN key goes to the last range (range_bucket), never a bound
+        samples = [x[~np.isnan(x)] if x.dtype.kind == "f" else x
+                   for x in samples]
+        samples = [x for x in samples if len(x)]
         if samples:
             allk = np.sort(np.concatenate(samples))
             if not self.ascending:
@@ -2380,7 +2861,7 @@ def _shard_group_keys(blk: Block) -> List[np.ndarray]:
     counts = blk.counts_np
     key_cols = {nm: c for nm, c in blk.cols.items() if nm in (KEY, KEY_LO)}
     first = _run_starts(key_cols, blk.counts).cpu().numpy()
-    host = block_lib._decode_key_cols(
+    host = block_lib.decode_wide_cols(
         {nm: c.cpu().numpy() for nm, c in key_cols.items()})[KEY]
     return [host[s, :counts[s]][first[s, :counts[s]]]
             for s in range(blk.n_shards)]

@@ -17,7 +17,11 @@ through the digit_hist and partition_pos kernels at 256 or 16 bins).
 A two-column int64 key (block.KEY_LO) sorts, hashes (hash32_pair) and
 range-partitions (searchsorted2, range_bucket) by both words. Traced
 reduces (segment_reduce_sorted) run a log-step segmented scan in plain
-torch ops; value actions reduce per shard (masked_reduce).
+torch ops; value actions reduce per shard (masked_reduce). Wide int64
+values add exactly as two int64 addends (wide_sum_words, wide_from_sums);
+the reference's pairwise forms (wide_add, wide_add_checked, wide_select)
+are here too, bit-identical. threefry2x32, prng_key, fold_in and
+uniform_f32 are jax.random's stream in int64 ops (sample's).
 """
 
 from __future__ import annotations
@@ -107,7 +111,19 @@ def range_bucket(bounds: torch.Tensor, keys: torch.Tensor, ascending: bool,
     bounds (1-D): sort_by_key's partitioner, shared by its exchange and
     its sizing histogram. Descending flips ints with bitwise-not (negation
     wraps INT32_MIN onto itself) and negates floats, as the reference
-    does; (bounds_lo, keys_lo) carry a two-column int64 key's low words."""
+    does; (bounds_lo, keys_lo) carry a two-column int64 key's low words.
+    A NaN key goes past every bound in either direction (the last
+    bucket), as the comparator sort puts it last either way; the bounds
+    hold no NaN."""
+    if keys.dtype.is_floating_point:
+        nan = torch.isnan(keys)
+        b = _range_bucket(bounds, torch.where(nan, 0.0, keys), ascending,
+                          None, None)
+        return torch.where(nan, bounds.shape[0], b)
+    return _range_bucket(bounds, keys, ascending, bounds_lo, keys_lo)
+
+
+def _range_bucket(bounds, keys, ascending, bounds_lo, keys_lo):
     if not ascending:
         # on both words of a wide key, bitwise-not reverses the pair order
         bounds, keys = _order_flip(bounds), _order_flip(keys)
@@ -467,41 +483,72 @@ def sort_by_column(cols: Cols, count: torch.Tensor, key_name: str,
                                 else [key])
         order = _sort_words_perm(words, count, impl, descending)
         return gather_rows(cols, order)
+    return gather_rows(cols, torch.sort(
+        _sort_column(key, count, descending,
+                     None if lo_name is None else cols[lo_name]),
+        dim=1, stable=True).indices)
+
+
+def _sort_column(key: torch.Tensor, count: torch.Tensor, descending: bool,
+                 lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The column one stable torch sort orders a shard's rows by (the
+    reference's comparator sort: descending flips the key first), invalid
+    rows after every valid one. A float32 key sorts as its canonical
+    comparator words (-0.0 ties +0.0, every NaN ties every other, after
+    +inf, in either direction), invalid rows at 2^32, past every word;
+    the reference masks them with +inf, which a valid NaN sorts after
+    (its NaN keys vanish in an exchange). An integer key (a wide key as
+    the int64 its words encode) holds its dtype's maximum on invalid
+    rows, which a valid row may tie: valid rows are a prefix, so
+    stability keeps them first."""
     mask = valid_mask(key.shape[1], count)
-    if lo_name is not None:
-        key = wide_i64(key, cols[lo_name])
+    if lo is not None:
+        key = wide_i64(key, lo)
     if descending:
         key = _order_flip(key)
-    order = torch.sort(torch.where(mask, _comparator_key(key),
-                                   _orderable_max(key)), dim=1,
-                       stable=True).indices
-    return gather_rows(cols, order)
+    if key.dtype == torch.float32:
+        return torch.where(mask, _orderable_u32(_comparator_key(key)),
+                           1 << 32)
+    return torch.where(mask, _comparator_key(key), _orderable_max(key))
 
 
 def bucket_key_sort(cols: Cols, count: torch.Tensor, bucket: torch.Tensor,
                     key_name: str, impl: str = "xla",
-                    n_shards: Optional[int] = None
+                    n_shards: Optional[int] = None,
+                    lo_name: Optional[str] = None
                     ) -> Tuple[Cols, torch.Tensor]:
     """One stable sort per shard by (bucket major, key minor). Rows become
     bucket-grouped with a key-sorted run per bucket, feeding both the
     presorted map-side combine and a pregrouped exchange. The caller has
     ghosted invalid rows (bucket = n_shards) so they sink to the end.
-    Returns (cols, bucket), both permuted.
+    Returns (cols, bucket), both permuted. lo_name names a two-column
+    int64 key's low word: the key words are [lo, hi].
 
     impl 'xla': a single stable sort of the packed int64
-    (bucket << 32) | orderable(key). 'radix' / 'radix4': the key's word
-    passes plus one narrow pass (two at 4 bits) for the bucket as an 8-bit
-    most significant word, which needs n_shards < 255 so the ghost bucket
-    fits; more shards keep the 'xla' form. 'packed': one packed pass for
-    the key word, then one for the bucket word."""
+    (bucket << 32) | orderable(key); for a wide key, a stable sort of the
+    int64 the words encode, then a stable sort by bucket. 'radix' /
+    'radix4': the key's word passes plus one narrow pass (two at 4 bits)
+    for the bucket as an 8-bit most significant word, which needs
+    n_shards < 255 so the ghost bucket fits; more shards keep the 'xla'
+    form. 'packed': one packed pass per key word, then one for the bucket
+    word."""
     key = cols[key_name]
+    words_ok = lo_name is not None or _radix_supported(key)
+    key_words = (lambda: orderable_words(
+        [cols[lo_name], key] if lo_name is not None else [key]))
     if impl.startswith("radix") and n_shards is not None \
-            and n_shards < 255 and _radix_supported(key):
-        words = orderable_words([key]) + [bucket.to(torch.int64)]
-        order = _sort_words_perm(words, count, impl, word_bits=[32, 8])
-    elif impl == "packed" and _radix_supported(key):
-        order = _sort_words_perm(orderable_words([key, bucket]), count,
-                                 impl)
+            and n_shards < 255 and words_ok:
+        words = key_words() + [bucket.to(torch.int64)]
+        order = _sort_words_perm(words, count, impl,
+                                 word_bits=[32] * (len(words) - 1) + [8])
+    elif impl == "packed" and words_ok:
+        order = _sort_words_perm(key_words() + orderable_words([bucket]),
+                                 count, impl)
+    elif lo_name is not None:
+        by_key = torch.sort(wide_i64(key, cols[lo_name]), dim=1,
+                            stable=True).indices
+        order = torch.gather(by_key, 1, torch.sort(
+            torch.gather(bucket, 1, by_key), dim=1, stable=True).indices)
     else:
         # ghosted buckets already order the invalid rows last; canonical
         # floats give the words the comparator sort's ties
@@ -523,18 +570,20 @@ def topk_values(vals: torch.Tensor, count: torch.Tensor, k: int,
     sentinels (-inf / INT32_MIN for largest, +inf / INT32_MAX for
     smallest). Selected over orderable words, i.e. in the total order
     lax.top_k uses (-NaN < -inf, -0.0 < +0.0, +inf < +NaN), so the chosen
-    values are the reference's bit for bit."""
+    values are the reference's bit for bit, except that ghost rows take a
+    word past every value's: the reference's sentinels rank before a
+    valid +NaN when the smallest are taken (or a -NaN when the largest),
+    and a shard with fewer rows than k loses it to them."""
     if largest:
         sentinel = float("-inf") if vals.dtype.is_floating_point \
             else INT32_MIN
     else:
         sentinel = _orderable_max(vals)
-    # a valid value equal to the sentinel ties with the ghost rows, so the
-    # values come from the masked column: either pick gives the same bits
-    masked = torch.where(valid_mask(vals.shape[1], count), vals, sentinel)
-    idx = torch.topk(_orderable_u32(masked), k, dim=1, largest=largest,
-                     sorted=True).indices
-    return torch.gather(masked, 1, idx)
+    words = torch.where(valid_mask(vals.shape[1], count),
+                        _orderable_u32(vals), -1 if largest else 1 << 32)
+    idx = torch.topk(words, k, dim=1, largest=largest, sorted=True).indices
+    return torch.where(valid_mask(k, count), torch.gather(vals, 1, idx),
+                       sentinel)
 
 
 def row_sort_perm(cols: Sequence[torch.Tensor], count: torch.Tensor,
@@ -573,23 +622,26 @@ SEGMENT_OPS = ("add", "min", "max", "prod")
 
 def segment_reduce_named(cols: Cols, count: torch.Tensor, key_name: str,
                          op: str, presorted: bool = False,
-                         sort_impl: str = "xla"
+                         sort_impl: str = "xla",
+                         lo_name: Optional[str] = None
                          ) -> Tuple[Cols, torch.Tensor]:
     """Per-shard reduce of every value column over runs of equal keys with
     a named monoid (add/min/max/prod). Returns compacted (cols, count):
     segment i of shard s in row i, key-sorted, zeros past the count.
-    Unless presorted, the rows are first sorted by key with sort_impl."""
+    Unless presorted, the rows are first sorted by key with sort_impl.
+    lo_name names a two-column int64 key's low word, which rides with the
+    key. Each NaN key is a segment of its own (NaN != NaN)."""
     if op not in SEGMENT_OPS:
         raise VegaError(f"unknown segment op {op!r}; expected one of "
                         f"{SEGMENT_OPS}")
     if not presorted:
-        cols = sort_by_column(cols, count, key_name, impl=sort_impl)
+        cols = sort_by_column(cols, count, key_name, impl=sort_impl,
+                              lo_name=lo_name)
     keys = cols[key_name]
     n_shards, capacity = keys.shape
     mask = valid_mask(capacity, count)
-    first = torch.ones_like(mask)
-    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
-    first &= mask
+    key_set = [key_name] if lo_name is None else [key_name, lo_name]
+    first = run_heads([cols[nm] for nm in key_set]) & mask
     seg_ids = row_cumsum(first) - 1
     n_segments = first.sum(dim=1).to(torch.int32)
     offsets = _shard_offsets(n_shards, capacity, keys.device)
@@ -598,7 +650,7 @@ def segment_reduce_named(cols: Cols, count: torch.Tensor, key_name: str,
     seg_valid = valid_mask(capacity, n_segments)
     out: Cols = {}
     for name, col in cols.items():
-        if name == key_name:
+        if name in key_set:
             continue
         flat_col = col.reshape(-1)
         if op == "add":
@@ -612,10 +664,22 @@ def segment_reduce_named(cols: Cols, count: torch.Tensor, key_name: str,
             (), dtype=col.dtype, device=col.device))
     # key of segment i = key at the i-th segment start
     flat_first = torch.where(first, seg_ids + offsets, dump).reshape(-1)
-    key_out = keys.new_zeros(dump + 1)
-    key_out.index_put_((flat_first,), keys.reshape(-1))
-    out[key_name] = key_out[:-1].view(n_shards, capacity)
+    for nm in key_set:
+        key_out = cols[nm].new_zeros(dump + 1)
+        key_out.index_put_((flat_first,), cols[nm].reshape(-1))
+        out[nm] = key_out[:-1].view(n_shards, capacity)
     return out, n_segments
+
+
+def run_heads(key_cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[n_shards, cap] bool: row 0 and every row whose key (any of the
+    key's words) differs from the row before it."""
+    first = torch.ones_like(key_cols[0], dtype=torch.bool)
+    diff = key_cols[0][:, 1:] != key_cols[0][:, :-1]
+    for kc in key_cols[1:]:
+        diff |= kc[:, 1:] != kc[:, :-1]
+    first[:, 1:] = diff
+    return first
 
 
 # ---------------------------------------------------------------------------
@@ -646,31 +710,43 @@ def merge_join_expand(left: Cols, left_count: torch.Tensor, right: Cols,
                       right_count: torch.Tensor, key_name: str,
                       out_capacity: int, outer: bool = False,
                       fill_value=0, left_sorted: bool = False,
-                      right_sorted: bool = False, sort_impl: str = "xla"):
+                      right_sorted: bool = False, sort_impl: str = "xla",
+                      lo_name: Optional[str] = None):
     """Per-shard sort-merge join with duplicate keys on both sides (the
     full dup x dup product per key; left outer keeps unmatched left rows
     with fill_value). Output rows follow the left sort order in a fixed
     out_capacity. Returns (cols, count, total): count = min(total,
     out_capacity) and total the exact product size, which the caller uses
     to size one exact retry. Right value columns come out as "r_<name>".
-    An unsorted side is sorted by key with sort_impl."""
+    An unsorted side is sorted by key with sort_impl. lo_name names a
+    two-column int64 key's low word (searched as the int64 the words
+    encode). A NaN key matches nothing, as NaN != NaN."""
     if not left_sorted:
-        left = sort_by_column(left, left_count, key_name, impl=sort_impl)
+        left = sort_by_column(left, left_count, key_name, impl=sort_impl,
+                              lo_name=lo_name)
     if not right_sorted:
-        right = sort_by_column(right, right_count, key_name, impl=sort_impl)
+        right = sort_by_column(right, right_count, key_name, impl=sort_impl,
+                               lo_name=lo_name)
     lkeys = left[key_name]
-    rkeys = right[key_name]
-    lcap, rcap = lkeys.shape[1], rkeys.shape[1]
-    rmask = valid_mask(rcap, right_count)
-    rkeys = torch.where(rmask, rkeys, _orderable_max(rkeys)).contiguous()
+    lcap, rcap = lkeys.shape[1], right[key_name].shape[1]
+    # the search columns: sorted right rows, invalid ones at the end
+    rsearch = _sort_column(right[key_name], right_count, False,
+                           None if lo_name is None else right[lo_name])
+    lsearch = lkeys
+    if lo_name is not None:
+        lsearch = wide_i64(lsearch, left[lo_name])
+    elif lsearch.dtype == torch.float32:
+        lsearch = _orderable_u32(_comparator_key(lsearch))
+    rsearch, lsearch = rsearch.contiguous(), lsearch.contiguous()
     lmask = valid_mask(lcap, left_count)
     rc = right_count.to(torch.int64)[:, None]
     # Per-left-row match range in the sorted right rows; min() clips the
     # sentinel padding out when a valid key equals the sentinel.
-    lo = torch.minimum(torch.searchsorted(rkeys, lkeys.contiguous()), rc)
-    hi = torch.minimum(torch.searchsorted(rkeys, lkeys.contiguous(),
-                                          right=True), rc)
+    lo = torch.minimum(torch.searchsorted(rsearch, lsearch), rc)
+    hi = torch.minimum(torch.searchsorted(rsearch, lsearch, right=True), rc)
     n_match = hi - lo
+    if lkeys.dtype.is_floating_point:
+        n_match = torch.where(torch.isnan(lkeys), 0, n_match)
     if outer:
         m = torch.where(lmask, torch.clamp(n_match, min=1), 0)
     else:
@@ -683,7 +759,7 @@ def merge_join_expand(left: Cols, left_count: torch.Tensor, right: Cols,
         if name != key_name:
             out[name] = torch.gather(col, 1, li)
     for name, col in right.items():
-        if name == key_name:
+        if name in (key_name, lo_name):
             continue
         taken = torch.gather(col, 1, ri)
         if outer:
@@ -742,12 +818,8 @@ def segment_reduce_sorted(cols: Cols, count: torch.Tensor, key_name: str,
                               lo_name=lo_name)
     keys = cols[key_name]
     n_shards, capacity = keys.shape
-    first = torch.ones_like(keys, dtype=torch.bool)
-    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
-    if lo_name is not None:
-        lo = cols[lo_name]
-        first[:, 1:] |= lo[:, 1:] != lo[:, :-1]
-    key_set = {key_name} if lo_name is None else {key_name, lo_name}
+    key_set = [key_name] if lo_name is None else [key_name, lo_name]
+    first = run_heads([cols[nm] for nm in key_set])
     vals = {nm: c for nm, c in cols.items() if nm not in key_set}
     flags = first
     step = 1
@@ -797,3 +869,120 @@ def masked_reduce(col: torch.Tensor, count: torch.Tensor,
             else torch.iinfo(col.dtype).min
         return torch.where(mask, col, low).amax(dim=1)
     raise VegaError(f"unknown reduction {op!r}")
+
+
+# ---------------------------------------------------------------------------
+# wide (two-column int64) value arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _wide_unbias(lo: torch.Tensor) -> torch.Tensor:
+    """Stored (biased int32) low word -> the true unsigned low word, as
+    int64 in [0, 2^32)."""
+    return (lo.to(torch.int64) & _WORD_MAX) ^ 0x80000000
+
+
+def _wide_rebias(lo_u: torch.Tensor) -> torch.Tensor:
+    """An unsigned low word (int64 in [0, 2^32)) -> the stored int32."""
+    return _wrap_i32(lo_u ^ 0x80000000)
+
+
+def wide_add(a_hi, a_lo, b_hi, b_lo):
+    """int64 addition over the wide (hi int32, biased-lo int32) encoding,
+    bit-identical to the reference's: the unsigned low words add with a
+    carry into the high word, wrapping mod 2^64."""
+    s = _wide_unbias(a_lo) + _wide_unbias(b_lo)
+    hi = a_hi.to(torch.int64) + b_hi.to(torch.int64) + (s >> 32)
+    return _wrap_i32(hi), _wide_rebias(s & _WORD_MAX)
+
+
+def wide_add_checked(a_hi, a_lo, b_hi, b_lo):
+    """wide_add plus the reference's signed-overflow predicate: operands
+    of one sign whose sum's sign differs wrapped past the int64 range."""
+    r_hi, r_lo = wide_add(a_hi, a_lo, b_hi, b_lo)
+    ovf = ((a_hi < 0) == (b_hi < 0)) & ((r_hi < 0) != (a_hi < 0))
+    return r_hi, r_lo, ovf
+
+
+def wide_select(a_hi, a_lo, b_hi, b_lo, take_min: bool):
+    """Lexicographic (hi, biased-lo) min / max: signed compares of the
+    stored words are int64 order."""
+    a_less = (a_hi < b_hi) | ((a_hi == b_hi) & (a_lo < b_lo))
+    pick_a = a_less if take_min else ~a_less
+    return torch.where(pick_a, a_hi, b_hi), torch.where(pick_a, a_lo, b_lo)
+
+
+def wide_words(x: torch.Tensor):
+    """int64 -> its stored (hi int32, biased-lo int32) words: the inverse
+    of wide_i64 (block.encode_i64 on the device)."""
+    return (x >> 32).to(torch.int32), _wide_rebias(x & _WORD_MAX)
+
+
+def wide_sum_words(hi: torch.Tensor, lo: torch.Tensor):
+    """A wide column as two int64 addends whose sums are exact: the high
+    words as they are and the unsigned low words. Summed over fewer than
+    2^31 rows neither sum can wrap (|hi sum| < 2^62, lo sum < 2^63), so
+    wide_from_sums recovers the exact total and knows whether it fits
+    int64: the overflow decision is exact, where the reference's sticky
+    pairwise flag is conservative and refolds on the host."""
+    return hi.to(torch.int64), _wide_unbias(lo)
+
+
+def wide_from_sums(hi_sum: torch.Tensor, lo_sum: torch.Tensor):
+    """(hi int32, biased-lo int32, out_of_range bool) of the exact total
+    hi_sum * 2^32 + lo_sum: out_of_range where it lies outside int64
+    (the words then hold its value mod 2^64)."""
+    hi = hi_sum + (lo_sum >> 32)
+    return (_wrap_i32(hi), _wide_rebias(lo_sum & _WORD_MAX),
+            (hi < INT32_MIN) | (hi > INT32_MAX))
+
+
+# ---------------------------------------------------------------------------
+# the random stream: threefry2x32 as jax.random computes it
+# ---------------------------------------------------------------------------
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds) of jax.random, on
+    uint32 values held in int64 and masked to 32 bits after every add:
+    key words (k0, k1) and counter words (x0, x1), each a Python int or
+    an int64 tensor (they broadcast). Returns the two output words, bit
+    for bit jax's threefry2x32_p on the same inputs, on every device."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _WORD_MAX
+    x1 = (x1 + ks[1]) & _WORD_MAX
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _WORD_MAX
+            x1 = (((x1 << r) & _WORD_MAX) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _WORD_MAX
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _WORD_MAX
+    return x0, x1
+
+
+def prng_key(seed: int) -> Tuple[int, int]:
+    """jax.random.PRNGKey(seed) (jax_enable_x64 off) for a seed in the
+    int32 range: the key words (0, seed mod 2^32)."""
+    if not INT32_MIN <= seed <= INT32_MAX:
+        raise VegaError(f"seed {seed} is outside the int32 range that the "
+                        "reference's PRNGKey takes without x64")
+    return 0, seed & _WORD_MAX
+
+
+def fold_in(k0, k1, data):
+    """jax.random.fold_in: the key words of threefry2x32(key, (0, data)),
+    data a Python int or an int64 tensor of uint32 values."""
+    return threefry2x32(k0, k1, 0, data)
+
+
+def uniform_f32(k0, k1, index: torch.Tensor) -> torch.Tensor:
+    """jax.random.uniform(key, shape) in float32 at flat positions `index`
+    (int64 below 2^32) under jax_threefry_partitionable: the bits of
+    position i are the xor of threefry2x32(key, (0, i))'s two words, the
+    top 23 become the mantissa of a float in [1, 2), and 1 is
+    subtracted."""
+    b0, b1 = threefry2x32(k0, k1, 0, index)
+    f = ((b0 ^ b1) >> 9) | 0x3F800000
+    return f.to(torch.int32).view(torch.float32) - 1.0
