@@ -83,13 +83,33 @@ Phases, in order; any failure exits non-zero before the last line:
      queue-3 inputs (constant outputs, 100 // x, bool columns, NaN keys
      through reduce / group / join / sort) exact at their small sizes.
      (a), (b) and (d) must launch hash_bucket and digit_hist, the joins
-     partition_pos too; wide keys (c) hash in torch ops.
+     partition_pos too; wide keys (c) hash in torch ops;
+  8. streamed sources, npz checkpoints and the block lifetime, in a fresh
+     Context(n_shards=8) at the default 4 GiB budget: (a) BASELINE's north
+     star with no cut (benchmarks/stream_1b.py): dense_range(1e9) must be
+     a StreamedDenseRDD of 6 chunks of 178,257,920 rows, and
+     .map(lambda x: (x % K, x)).reduce_by_key(op="add").join(K-row table
+     of 2k).count() == K = 1e6, every joined row exact ((1000k +
+     499,500,000,000) mod 2^32 as int32, and 2k), cold once and 3 warm
+     runs (rows/s = N / wall), each chunk's fold ms, the launches of each
+     run (all three kernels), peak memory beside the budget; (b)
+     take_ordered(10) / top(10) of the stream, exact; (c) the streamed
+     join .map((x % K, x)).join(table).count() == N, the table re-placed
+     once per run (by the partition_pos launches), the first chunk's
+     joined rows exact as columns on the card; (d) save_npz /
+     dense_load_npz of (a)'s reduced block (resident and 8 chunks) and of
+     config 1's 10M pairs (4 chunks; the streamed reduce equals the
+     resident one), under chiprun_out/, removed after; (e) bench-main at
+     a 256 MiB budget: streamed and resident with a held block evicted
+     and rematerialized equal, numpy-checked, dense_hbm_in_use() bounded
+     after each materialization, unpersist() releasing its bytes; (f)
+     range_bucket of float32 subnormals on the card equal to the CPU's.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
-per phase-7 line and phase 7's summary, the kernel table as one JSON line
-(with phases 6 and 7's launches beside the main path's), the card line,
-and last {"ok": true, "device": {...}}. Details go to
-chiprun_out/chip_smoke.json.
+per phase-7 line and phase 7's summary, one line per phase-8 item, the
+kernel table as one JSON line (with phases 6, 7 and 8's launches beside
+the main path's), the card line, and last {"ok": true, "device": {...}}.
+Details go to chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
 
@@ -891,21 +911,32 @@ def config5_check(np, torch, data, got):
     return dict(first_keys=[k_ for k_, _ in first])
 
 
+def step_memory(torch, ctx):
+    """The allocator's bytes in use and its peak so far, beside the
+    Context's tracked block bytes (dense_hbm_in_use)."""
+    return dict(allocated=torch.cuda.memory_allocated(),
+                peak=torch.cuda.max_memory_allocated(),
+                tracked=ctx.dense_hbm_in_use())
+
+
 def run_steps(torch, run, ctx, data):
     """One run: the host build of the sources, then each step, timed
-    apart (host clock, a synchronize after each). Returns (held, out,
-    build ms, [step ms], whole s)."""
+    apart (host clock, a synchronize after each), with step_memory after
+    the build and after each step. Returns (held, out, build ms,
+    [step ms], whole s, [memory]) and the step labels."""
     t0 = time.perf_counter()
     held, steps = run(ctx, data)
     t1 = time.perf_counter()
     out, step_ms = {}, []
+    mem = [step_memory(torch, ctx)]
     for _label, fn in steps:
         s0 = time.perf_counter()
         fn(out)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - s0) * 1e3)
+        mem.append(step_memory(torch, ctx))
     return (held, out, (t1 - t0) * 1e3, step_ms,
-            time.perf_counter() - t0), [label for label, _ in steps]
+            time.perf_counter() - t0, mem), [label for label, _ in steps]
 
 
 def run_config(torch, np, ck, vt, label, rows, data, run, check, must):
@@ -916,7 +947,7 @@ def run_config(torch, np, ck, vt, label, rows, data, run, check, must):
     ctx = vt.Context(n_shards=N_SHARDS)
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
-    (held, got, _b, cold_steps, cold_s), labels = run_steps(
+    (held, got, _b, cold_steps, cold_s, cold_mem), labels = run_steps(
         torch, run, ctx, data)
     cold_launches = dict(ck.LAUNCHES)
     checked = check(got)
@@ -926,7 +957,8 @@ def run_config(torch, np, ck, vt, label, rows, data, run, check, must):
     for i in range(3):
         torch.cuda.synchronize()
         ck.reset_launches()
-        (held, got, b_ms, s_ms, whole), _ = run_steps(torch, run, ctx, data)
+        (held, got, b_ms, s_ms, whole, _m), _ = run_steps(torch, run, ctx,
+                                                          data)
         warm.append(whole)
         build_ms.append(b_ms)
         step_ms.append(s_ms)
@@ -948,7 +980,8 @@ def run_config(torch, np, ck, vt, label, rows, data, run, check, must):
                median_s=med, rows_per_s=rows / med, warm_build_ms=build_ms,
                warm_step_ms=[dict(zip(labels, r)) for r in step_ms],
                median_step_ms=steps, launches=cold_launches,
-               warm_launches=warm_launches, peak_bytes=peak, check=checked)
+               warm_launches=warm_launches, peak_bytes=peak, check=checked,
+               cold_memory=dict(zip(["host build"] + labels, cold_mem)))
     log(f"{label}: {rows / med:,.0f} rows/s warm median of 3 ({warm} s; "
         f"host build {build_ms} ms; median step ms {steps}), cold "
         f"{cold_s:.3f} s, launches cold {cold_launches} warm "
@@ -1671,6 +1704,430 @@ def phase_seven(torch, np, ck, vt, c3):
                 overflow=overflow, queue3=queue3)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: streamed sources, npz checkpoints and the block lifetime
+# ---------------------------------------------------------------------------
+
+P8_ROWS = 1_000_000_000        # BASELINE's north star, no cut
+P8_KEYS = 1_000_000
+P8_CHUNK_ROWS = 178_257_920    # 4 GiB / (4 B x 6), rounded down to 1M rows
+P8_CHUNKS = 6
+P8_RELOAD_CHUNK_ROWS = 131_072    # (d): 8 chunks of the 1M reduced keys
+C1_RELOAD_CHUNK_ROWS = 2_500_000  # (d): 4 chunks of config 1's pairs
+LIFETIME_BUDGET = 256 << 20
+P8_NPZ_DIR = os.path.join("chiprun_out", "phase8_npz")
+
+
+def p8_check(what, ok):
+    if not ok:
+        fail(f"phase 8: {what}")
+
+
+def p8_table(ctx, np):
+    return ctx.dense_from_numpy(np.arange(P8_KEYS, dtype=np.int32),
+                                2 * np.arange(P8_KEYS, dtype=np.int32))
+
+
+class _ChunkTimes:
+    """Times of the stream's per-chunk fold records (the reference's own
+    log line, stream.py's logger at INFO), for the fold ms of each
+    chunk."""
+
+    def __init__(self, logging):
+        self.created = []
+        self._logging = logging
+        self._log = logging.getLogger("vega_tpu_torch.stream")
+        self._handler = logging.Handler()
+        self._handler.emit = self._emit
+
+    def _emit(self, record):
+        if record.getMessage().startswith("streamed reduce_by_key: chunk"):
+            self.created.append(record.created)
+
+    def __enter__(self):
+        self._level = self._log.level
+        self._log.setLevel(self._logging.INFO)
+        self._log.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._log.removeHandler(self._handler)
+        self._log.setLevel(self._level)
+        return False
+
+    def fold_ms(self, t0_wall):
+        ts = [t0_wall] + self.created
+        return [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
+
+
+def p8_north_star(torch, np, ck, stream, ctx, src):
+    """(a) benchmarks/stream_1b.py's group_by+join at N = 1e9, K = 1e6:
+    the streamed fold, a join against the K-row table, count(); cold
+    once, then three warm runs that each re-stream from the source."""
+    import logging
+
+    def run():
+        reduced = src.map(lambda x: (x % P8_KEYS, x)).reduce_by_key(op="add")
+        joined = reduced.join(p8_table(ctx, np))
+        return reduced, joined, joined.count()
+
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(4):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        with _ChunkTimes(logging) as times:
+            t_wall = time.time()
+            t0 = time.perf_counter()
+            reduced, joined, count = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        p8_check(f"run {i}: count() = {count}, expected {P8_KEYS}",
+                 count == P8_KEYS)
+        p8_check(f"run {i}: {len(times.created)} chunk folds, expected "
+                 f"{P8_CHUNKS}", len(times.created) == P8_CHUNKS)
+        check_launched(launches, f"phase 8(a) run {i}")
+        runs.append(dict(wall_s=wall, launches=launches,
+                         fold_ms=times.fold_ms(t_wall)))
+        if i == 0:
+            got = joined.collect_arrays()
+            o = np.argsort(got["k"])
+            # x = k + K j for j < N / K: per-key sum (N / K) k + K (N / K)
+            # (N / K - 1) / 2 = 1000k + 499,500,000,000, wrapped to int32
+            k = np.arange(P8_KEYS, dtype=np.int64)
+            per = P8_ROWS // P8_KEYS
+            want = ((per * k + P8_KEYS * per * (per - 1) // 2) % (1 << 32)
+                    ).astype(np.uint32).view(np.int32)
+            p8_check("every joined row: key k carries (1000k + "
+                     "499,500,000,000) mod 2^32 as int32 and 2k",
+                     np.array_equal(got["k"][o], k)
+                     and got["lv"].dtype == np.int32
+                     and np.array_equal(got["lv"][o], want)
+                     and np.array_equal(got["rv"][o], 2 * k))
+            kept = reduced
+            del got
+        del reduced, joined
+    peak = torch.cuda.max_memory_allocated()
+    warm = [r["wall_s"] for r in runs[1:]]
+    med = statistics.median(warm)
+    res = dict(rows=P8_ROWS, keys=P8_KEYS, chunks=P8_CHUNKS,
+               chunk_rows=P8_CHUNK_ROWS, cold_s=runs[0]["wall_s"],
+               warm_s=warm, median_s=med, rows_per_s=P8_ROWS / med,
+               cold_fold_ms=runs[0]["fold_ms"],
+               warm_fold_ms=[r["fold_ms"] for r in runs[1:]],
+               launches=runs[0]["launches"],
+               warm_launches=[r["launches"] for r in runs[1:]],
+               peak_bytes=peak, budget=ctx.dense_hbm_budget)
+    log(f"8a 1B group_by+join: {P8_ROWS / med:,.0f} rows/s warm median of 3 "
+        f"({warm} s), cold {runs[0]['wall_s']:.3f} s, fold ms cold "
+        f"{runs[0]['fold_ms']} warm {res['warm_fold_ms']}, launches cold "
+        f"{runs[0]['launches']} warm {res['warm_launches']}, peak {peak} B "
+        f"beside the budget {ctx.dense_hbm_budget} B")
+    return res, kept
+
+
+def p8_order_stats(torch, src):
+    """(b) take_ordered(10) and top(10) of the streamed source."""
+    out = {}
+    for name, want in (("take_ordered", list(range(10))),
+                       ("top", list(range(P8_ROWS - 1, P8_ROWS - 11, -1)))):
+        times = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = getattr(src, name)(10)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            p8_check(f"{name}(10) = {got}, expected {want}", got == want)
+        med = statistics.median(times[1:])
+        out[name] = dict(cold_ms=times[0], warm_ms=times[1:], median_ms=med,
+                         rows_per_s=P8_ROWS / (med / 1e3))
+        log(f"8b {name}(10): {med:.3f} ms warm median of 3 ({times[1:]}), "
+            f"cold {times[0]:.3f} ms, {P8_ROWS / (med / 1e3):,.0f} rows/s")
+    return out
+
+
+def p8_enrichment_join(torch, np, ck, src, ctx):
+    """(c) the streamed enrichment join src.map((x % K, x)).join(table):
+    count() == N, the table re-placed once per run (its partition_pos
+    launches, measured alone, are the whole difference against a join of
+    the same stream with a table placed beforehand, whatever the number
+    of chunks), and the first chunk's joined rows exact, as columns on
+    the card."""
+    from vega_tpu_torch import kernels
+
+    table = p8_table(ctx, np)
+    times, launches = [], None
+    for i in range(4):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        joined = src.map(lambda x: (x % P8_KEYS, x)).join(table)
+        count = joined.count()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        p8_check(f"the streamed join's count() = {count}, expected "
+                 f"{P8_ROWS}", count == P8_ROWS)
+        if i == 0:
+            launches = dict(ck.LAUNCHES)
+            check_launched(launches, "phase 8(c)'s cold run")
+    fresh_pos = dict(ck.LAUNCHES)["partition_pos"]  # the last warm run
+    ck.reset_launches()
+    placed = table.group_by_key()
+    placed.block()
+    table_pos = ck.LAUNCHES["partition_pos"]
+    ck.reset_launches()
+    p8_check("the pre-placed join counts N",
+             src.map(lambda x: (x % P8_KEYS, x)).join(placed).count()
+             == P8_ROWS)
+    placed_pos = ck.LAUNCHES["partition_pos"]
+    p8_check(f"the table re-placed once per run: partition_pos {fresh_pos} "
+             f"with the table, {placed_pos} with it placed beforehand, "
+             f"{table_pos} to place it alone",
+             table_pos >= 1 and fresh_pos - placed_pos == table_pos
+             and placed_pos >= P8_CHUNKS)
+    first = next(iter(joined._make_chunks()))
+    blk = first.block()
+    mask = kernels.valid_mask(blk.capacity, blk.counts)
+    k, lv, rv = (blk.cols[nm][mask] for nm in ("k", "lv", "rv"))
+    p8_check("the first chunk's joined rows are (x % K, (x, 2 (x % K))) "
+             "for x < 178,257,920, each once",
+             k.numel() == P8_CHUNK_ROWS
+             and bool(torch.equal(k, lv % P8_KEYS))
+             and bool(torch.equal(rv, 2 * k))
+             and bool(torch.equal(torch.sort(lv).values, torch.arange(
+                 P8_CHUNK_ROWS, device=lv.device, dtype=lv.dtype))))
+    del first, blk, mask, k, lv, rv, joined
+    med = statistics.median(times[1:])
+    res = dict(cold_s=times[0], warm_s=times[1:], median_s=med,
+               rows_per_s=P8_ROWS / med, launches=launches,
+               partition_pos=dict(with_table=fresh_pos,
+                                  table_placed_before=placed_pos,
+                                  table_alone=table_pos))
+    log(f"8c streamed join: {P8_ROWS / med:,.0f} rows/s warm median of 3 "
+        f"({times[1:]} s), cold {times[0]:.3f} s, launches cold {launches}, "
+        f"partition_pos {res['partition_pos']}; first chunk exact")
+    return res
+
+
+def p8_checkpoints(torch, np, stream, ctx, reduced):
+    """(d) save_npz / dense_load_npz: (a)'s reduced block, reloaded
+    resident and streamed in 8 chunks; config 1's 10M int64-keyed pairs,
+    reloaded streamed in 4 chunks and reduced as the resident source."""
+    os.makedirs(P8_NPZ_DIR, exist_ok=True)
+    out = {}
+    try:
+        path = reduced.save_npz(os.path.join(P8_NPZ_DIR, "reduced.npz"))
+        want = reduced.collect_arrays()
+        t0 = time.perf_counter()
+        back = ctx.dense_load_npz(path)
+        p8_check("the reduced block reloads resident",
+                 not isinstance(back, stream.StreamedDenseRDD))
+        got = back.collect_arrays()
+        p8_check("the resident reload equals the saved rows",
+                 list(got) == list(want) and all(
+                     np.array_equal(got[nm], want[nm]) for nm in want))
+        st = ctx.dense_load_npz(path, chunk_rows=P8_RELOAD_CHUNK_ROWS)
+        p8_check(f"chunk_rows={P8_RELOAD_CHUNK_ROWS} streams the reload",
+                 isinstance(st, stream.StreamedDenseRDD) and st.n_chunks
+                 == -(-P8_KEYS // P8_RELOAD_CHUNK_ROWS))
+        parts = [c.collect_arrays() for c in st._make_chunks()]
+        p8_check("the streamed reload's chunks equal the saved rows",
+                 all(np.array_equal(np.concatenate([p[nm] for p in parts]),
+                                    want[nm]) for nm in want))
+        out["reduced"] = dict(rows=int(len(want["k"])), chunks=st.n_chunks,
+                              bytes=os.path.getsize(path),
+                              ms=(time.perf_counter() - t0) * 1e3)
+        del want, got, back, st, parts
+
+        data = config1_data(np)
+        src = ctx.dense_from_numpy(data["keys"], data["vals"])
+        t0 = time.perf_counter()
+        path = src.save_npz(os.path.join(P8_NPZ_DIR, "config1.npz"))
+        st = ctx.dense_load_npz(path, chunk_rows=C1_RELOAD_CHUNK_ROWS)
+        p8_check("config 1's pairs reload streamed",
+                 isinstance(st, stream.StreamedDenseRDD) and st.n_chunks
+                 == -(-C1_ROWS // C1_RELOAD_CHUNK_ROWS))
+        got = st.reduce_by_key(op="add").collect_arrays()
+        want = src.reduce_by_key(op="add").collect_arrays()
+        og, ow = np.argsort(got["k"]), np.argsort(want["k"])
+        p8_check("the streamed reduce of the reloaded config-1 pairs "
+                 "equals the resident reduce (keys exact, sums rtol 1e-5)",
+                 got["k"].dtype == np.int64
+                 and np.array_equal(got["k"][og], want["k"][ow])
+                 and np.allclose(got["v"][og], want["v"][ow], rtol=1e-5,
+                                 atol=0))
+        out["config1"] = dict(rows=C1_ROWS, keys=int(len(og)),
+                              chunks=st.n_chunks,
+                              bytes=os.path.getsize(path),
+                              ms=(time.perf_counter() - t0) * 1e3)
+    finally:
+        for name in ("reduced.npz", "config1.npz"):
+            p = os.path.join(P8_NPZ_DIR, name)
+            if os.path.exists(p):
+                os.remove(p)
+    log(f"8d checkpoints: {out}")
+    return out
+
+
+def p8_lifetime(torch, np, vt, dense_rdd, stream):
+    """(e) bench-main's pipeline in a Context of a 256 MiB budget: the
+    source streams (2 chunks) and equals numpy; then, on its resident
+    build with the mapped block held, a second mapped block evicts the
+    first, which rematerializes with equal rows, and the pipeline equals
+    numpy again; unpersist() drops its bytes from dense_hbm_in_use().
+    After each materialization dense_hbm_in_use() is at most the budget
+    plus the newest block and the blocks whose settlement is pending."""
+    from vega_tpu_torch import kernels
+
+    ctx = vt.Context(n_shards=N_SHARDS, dense_hbm_budget=LIFETIME_BUDGET)
+    orig = dense_rdd._lifetime_register
+    stats = dict(registered=0, evicted=0, max_in_use=0, max_over=0)
+
+    def checked(rdd):
+        lru = rdd.context._dense_block_lru
+        before = [nd for nd in (ref() for ref in lru.values())
+                  if nd is not None and nd._block is not None]
+        orig(rdd)
+        live = [nd for nd in (ref() for ref in lru.values())
+                if nd is not None and nd._block is not None]
+        stats["registered"] += 1
+        stats["evicted"] += sum(1 for nd in before if nd._block is None)
+        in_use = dense_rdd.dense_hbm_in_use(rdd.context)
+        spared = sum(nd._block.nbytes for nd in live
+                     if nd is rdd or nd._block.settle is not None)
+        stats["max_in_use"] = max(stats["max_in_use"], in_use)
+        stats["max_over"] = max(stats["max_over"],
+                                in_use - LIFETIME_BUDGET)
+        p8_check(f"dense_hbm_in_use() {in_use} B past the budget "
+                 f"{LIFETIME_BUDGET} B plus the newest and pending blocks "
+                 f"({spared} B)", in_use <= LIFETIME_BUDGET + spared)
+
+    def pipeline_on(source):
+        kv = source.map(lambda x: (x % N_KEYS, x * 0.5))
+        reduced = kv.reduce_by_key(op="add")
+        table = ctx.dense_from_numpy(np.arange(N_KEYS, dtype=np.int32),
+                                     np.arange(N_KEYS, dtype=np.float32) * 2)
+        return kv, reduced, reduced.join(table)
+
+    budget = f"{LIFETIME_BUDGET} B"
+    dense_rdd._lifetime_register = checked
+    try:
+        src = ctx.dense_range(N_ROWS)
+        rows = stream.planned_chunk_rows(N_ROWS, 4, LIFETIME_BUDGET)
+        p8_check(f"bench-main's source streams under a {LIFETIME_BUDGET} B "
+                 "budget", isinstance(src, stream.StreamedDenseRDD)
+                 and src.n_chunks == -(-N_ROWS // rows) >= 2)
+        t0 = time.perf_counter()
+        _, _, joined = pipeline_on(src)
+        check_numpy(np, joined, f"8e streamed bench-main at {budget}")
+        streamed_s = time.perf_counter() - t0
+        del joined
+
+        res = src.resident()
+        kv, reduced, joined = pipeline_on(res)
+        blk = kv.block()
+        mask = kernels.valid_mask(blk.capacity, blk.counts)
+        held = {nm: c[mask].clone() for nm, c in blk.cols.items()}
+        del blk
+        check_numpy(np, joined, f"8e resident bench-main at {budget}")
+        other = res.map(lambda x: (x % N_KEYS, x * 1.5))
+        other.block()
+        p8_check("the held mapped block was evicted", kv._block is None)
+        blk = kv.block()
+        mask = kernels.valid_mask(blk.capacity, blk.counts)
+        p8_check("the evicted block rematerialized with equal rows",
+                 all(bool(torch.equal(blk.cols[nm][mask], c))
+                     for nm, c in held.items()))
+        del blk, mask, held
+        again = reduced.join(ctx.dense_from_numpy(
+            np.arange(N_KEYS, dtype=np.int32),
+            np.arange(N_KEYS, dtype=np.float32) * 2))
+        check_numpy(np, again, f"8e rejoin after eviction at {budget}")
+        before = ctx.dense_hbm_in_use()
+        nbytes = again.block().nbytes
+        p8_check("the rejoined block is tracked", again._block is not None)
+        again.unpersist()
+        after = ctx.dense_hbm_in_use()
+        p8_check(f"unpersist() dropped {before - after} B of "
+                 f"dense_hbm_in_use(), the block holds {nbytes} B",
+                 before - after == nbytes and again._block is None)
+        p8_check(f"at least one eviction ({stats['evicted']})",
+                 stats["evicted"] >= 1)
+    finally:
+        dense_rdd._lifetime_register = orig
+        ctx.stop()
+    out = dict(stats, budget=LIFETIME_BUDGET, chunks=src.n_chunks,
+               streamed_s=streamed_s, unpersist_bytes=nbytes)
+    log(f"8e lifetime at {LIFETIME_BUDGET} B: {out}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def p8_range_bucket(torch, np):
+    """(f) kernels.range_bucket of float32 subnormal keys and bounds on
+    the card against the port's CPU result (and numpy's IEEE order),
+    exactly, both directions."""
+    from vega_tpu_torch import kernels
+
+    tiny = np.finfo(np.float32).tiny
+    sub = np.array([1e-45, 1e-42, 1e-40, 5e-39, 1.1e-38], np.float32)
+    keys = np.concatenate([sub, -sub, [0.0, -0.0, tiny, -tiny, 1.0, -1.0]]
+                          ).astype(np.float32)
+    keys = np.tile(keys, 8 * 64)[:8 * 512].reshape(8, 512)
+    out = {}
+    for ascending in (True, False):
+        bounds = np.array([-1e-40, -1e-45, 0.0, 1e-45, 1e-42, 5e-39, tiny],
+                          np.float32)
+        if not ascending:
+            bounds = bounds[::-1].copy()
+        cpu = kernels.range_bucket(torch.from_numpy(bounds),
+                                   torch.from_numpy(keys), ascending)
+        card = kernels.range_bucket(torch.from_numpy(bounds).cuda(),
+                                    torch.from_numpy(keys).cuda(), ascending)
+        flip = 1 if ascending else -1
+        ieee = np.searchsorted(flip * bounds, flip * keys.reshape(-1))
+        p8_check(f"range_bucket of subnormals (ascending={ascending}) on "
+                 "the card equals the CPU result and IEEE order",
+                 bool(torch.equal(card.cpu(), cpu))
+                 and np.array_equal(cpu.reshape(-1).numpy(), ieee))
+        out["ascending" if ascending else "descending"] = int(
+            (keys != 0).sum())
+    log(f"8f range_bucket subnormals: card == CPU == IEEE ({out} "
+        "nonzero keys per direction)")
+    return out
+
+
+def phase_eight(torch, np, ck, vt):
+    """Phase 8 in a fresh Context(n_shards=8) at the default budget: (a)
+    the 1B group_by+join, (b) take_ordered / top, (c) the streamed join,
+    (d) the checkpoints; then (e) the lifetime in a 256 MiB Context and
+    (f) the range_bucket subnormals."""
+    from vega_tpu_torch import dense_rdd, stream
+
+    ctx = vt.Context(n_shards=N_SHARDS)
+    src = ctx.dense_range(P8_ROWS)
+    p8_check(f"dense_range(1e9) is a StreamedDenseRDD of {P8_CHUNKS} chunks "
+             f"of {P8_CHUNK_ROWS} rows at the default budget",
+             isinstance(src, stream.StreamedDenseRDD)
+             and src.n_chunks == P8_CHUNKS
+             and stream.planned_chunk_rows(P8_ROWS, 4, ctx.dense_hbm_budget)
+             == P8_CHUNK_ROWS)
+    north, reduced = p8_north_star(torch, np, ck, stream, ctx, src)
+    order = p8_order_stats(torch, src)
+    enrich = p8_enrichment_join(torch, np, ck, src, ctx)
+    checkpoints = p8_checkpoints(torch, np, stream, ctx, reduced)
+    del reduced
+    ctx.stop()
+    torch.cuda.empty_cache()
+    lifetime = p8_lifetime(torch, np, vt, dense_rdd, stream)
+    subnormals = p8_range_bucket(torch, np)
+    return dict(north_star=north, order=order, join=enrich,
+                checkpoints=checkpoints, lifetime=lifetime,
+                range_bucket=subnormals, launches=north["launches"])
+
+
 def main():
     try:
         import torch
@@ -1724,6 +2181,8 @@ def main():
     # sample
     seven = phase_seven(torch, np, ck, vt, data)
     del data
+    # 8. streamed sources, checkpoints and the block lifetime
+    eight = phase_eight(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -1734,7 +2193,8 @@ def main():
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "config3_launches": config3["launches"][r["name"]],
          "new_ops_launches": new_ops["launches"][r["name"]],
-         "phase7_launches": seven["launches"][r["name"]]}
+         "phase7_launches": seven["launches"][r["name"]],
+         "phase8_launches": eight["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -1746,7 +2206,7 @@ def main():
                                plain_and_library="eager calls"),
                    kernels=table, radix_and_cold=radix, main_path=main_path,
                    plans=plans, keyed=keyed, config3=config3,
-                   new_ops=new_ops, phase7=seven)
+                   new_ops=new_ops, phase7=seven, phase8=eight)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -1776,7 +2236,8 @@ def main():
           f"{r['cold_s']:.3f} s, median step ms "
           f"{json.dumps(r['median_step_ms'])}, launches cold "
           f"{json.dumps(r['launches'])} warm {json.dumps(r['warm_launches'])}"
-          f", peak {r['peak_bytes']} bytes on {card}", flush=True)
+          f", peak {r['peak_bytes']} bytes, memory after each cold step "
+          f"{json.dumps(r['cold_memory'])} on {card}", flush=True)
     for r in new_ops["ops"]:
         print(f"new op {r['label']}: {r['median_ms']:.3f} ms warm median of "
               f"3, {r['rows_per_s']:.1f} rows/s ({r['rows']} rows), cold "
@@ -1797,6 +2258,29 @@ def main():
           f"keyless bignum {seven['overflow']['bignum']} exact, host folds: "
           f"{seven['overflow']['host_folds']}, queue-3 inputs equal numpy: "
           f"{len(seven['queue3'])} on {card}", flush=True)
+    r = eight["north_star"]
+    print(f"phase 8a 1B group_by+join: {r['rows_per_s']:.1f} rows/s warm "
+          f"median of 3 ({r['rows']} rows, {r['keys']} keys, {r['chunks']} "
+          f"chunks of {r['chunk_rows']}), cold {r['cold_s']:.3f} s, fold ms "
+          f"per chunk cold {json.dumps(r['cold_fold_ms'])} warm "
+          f"{json.dumps(r['warm_fold_ms'])}, launches per warm run "
+          f"{json.dumps(r['warm_launches'])}, peak {r['peak_bytes']} bytes "
+          f"beside the budget {r['budget']} on {card}", flush=True)
+    for name, r in eight["order"].items():
+        print(f"phase 8b {name}(10): {r['median_ms']:.3f} ms warm median of "
+              f"3, {r['rows_per_s']:.1f} rows/s, cold {r['cold_ms']:.3f} ms "
+              f"on {card}", flush=True)
+    r = eight["join"]
+    print(f"phase 8c streamed join: {r['rows_per_s']:.1f} rows/s warm median "
+          f"of 3, cold {r['cold_s']:.3f} s, partition_pos "
+          f"{json.dumps(r['partition_pos'])}, first chunk exact on {card}",
+          flush=True)
+    print(f"phase 8d checkpoints: {json.dumps(eight['checkpoints'])} on "
+          f"{card}", flush=True)
+    print(f"phase 8e lifetime: {json.dumps(eight['lifetime'])} on {card}",
+          flush=True)
+    print(f"phase 8f range_bucket subnormals equal on the card and the CPU: "
+          f"{json.dumps(eight['range_bucket'])} on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",

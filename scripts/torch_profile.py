@@ -1,13 +1,17 @@
 """Where the time of vega_tpu_torch's main path goes on one CUDA card.
 
-    python3 scripts/torch_profile.py
+    python3 scripts/torch_profile.py [--stream-1b]
 
 Runs chip_smoke.py's bench pipeline (20,000,000 rows, 1,000,000 keys,
 8 shards) warm on the card: first the reduce and the join timed apart
 (host clock around work that ends in a synchronize, median of 3), then one
 whole run under torch.profiler. Prints the top operations by device time,
 the device's busy share of the profiled run, and the card's name and power
-limit; writes the same to chiprun_out/torch_profile.json.
+limit; writes the same to chiprun_out/torch_profile.json. With
+--stream-1b the pipeline is chip_smoke.py phase 8a's instead: 1e9 rows
+streamed in 6 chunks through the fold, then the join of the 1M sums
+(the "reduce" stage is the whole streamed fold), written to
+chiprun_out/torch_profile_stream_1b.json.
 """
 
 import json
@@ -50,21 +54,42 @@ def main():
         sys.exit("no CUDA card: this script measures the card")
     from torch.profiler import ProfilerActivity, profile
 
+    stream_1b = "--stream-1b" in sys.argv[1:]
     card = chip_smoke.card_line()
     ctx = vt.Context(n_shards=chip_smoke.N_SHARDS)
-    chip_smoke.pipeline(ctx, np).count()  # cold: build, capacity hints
+    if stream_1b:
+        src = ctx.dense_range(chip_smoke.P8_ROWS)
+        n_rows, n_keys = chip_smoke.P8_ROWS, chip_smoke.P8_KEYS
+
+        def reduce():
+            return src.map(lambda x: (x % n_keys, x)).reduce_by_key(
+                op="add")
+
+        def pipeline():
+            return reduce().join(chip_smoke.p8_table(ctx, np))
+    else:
+        n_rows, n_keys = chip_smoke.N_ROWS, chip_smoke.N_KEYS
+
+        def pipeline():
+            return chip_smoke.pipeline(ctx, np)
+    pipeline().count()  # cold: build, capacity hints
 
     stages = {"reduce_s": [], "join_s": [], "whole_s": []}
     for _ in range(3):
-        joined = chip_smoke.pipeline(ctx, np)
-        stages["reduce_s"].append(_timed(lambda: joined.left.block()))
-        stages["join_s"].append(_timed(lambda: joined.block()))
-        stages["whole_s"].append(
-            _timed(lambda: chip_smoke.pipeline(ctx, np).count()))
+        if stream_1b:  # the fold runs when reduce_by_key is called
+            out = []
+            stages["reduce_s"].append(_timed(lambda: out.append(reduce())))
+            stages["join_s"].append(_timed(lambda: out[0].join(
+                chip_smoke.p8_table(ctx, np)).count()))
+        else:
+            joined = pipeline()
+            stages["reduce_s"].append(_timed(lambda: joined.left.block()))
+            stages["join_s"].append(_timed(lambda: joined.block()))
+        stages["whole_s"].append(_timed(lambda: pipeline().count()))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = _timed(lambda: chip_smoke.pipeline(ctx, np).count())
+        wall = _timed(lambda: pipeline().count())
     from torch.autograd import DeviceType
 
     averages = prof.key_averages()
@@ -83,7 +108,7 @@ def main():
     busy_ms = sum(r["self_device_ms"] for r in rows)
     out = {
         "card": card, "torch": torch.__version__,
-        "n_rows": chip_smoke.N_ROWS, "n_keys": chip_smoke.N_KEYS,
+        "n_rows": n_rows, "n_keys": n_keys,
         "stages_median_s": {k: statistics.median(v)
                             for k, v in stages.items()},
         "stages_s": stages,
@@ -93,7 +118,9 @@ def main():
         "top_host_ops": ops[:30],
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "torch_profile.json"), "w",
+    name = ("torch_profile_stream_1b.json" if stream_1b
+            else "torch_profile.json")
+    with open(os.path.join(ROOT, "chiprun_out", name), "w",
               encoding="utf-8") as fh:
         json.dump(out, fh, indent=1)
     for r in rows[:20]:

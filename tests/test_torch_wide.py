@@ -125,7 +125,10 @@ def _bounds_and_keys(kind, ascending):
 def test_range_bucket_matches_reference(kind, ascending):
     """Also pins NaN keys (float32): both packages put them past every
     bound in either direction (the last shard). A subnormal key
-    differs by the reference's platform (ROADMAP queue 3)."""
+    differs by the reference's platform (ROADMAP queue 3). On the card
+    the port's range_bucket equals its CPU result on float32 subnormal
+    keys and bounds, both directions (chip_smoke.py phase 8f, NVIDIA
+    H100): the port orders subnormals as IEEE does on both devices."""
     bounds, keys = _bounds_and_keys(kind, ascending)
     if kind == "wide":
         bh, bl = port_block.encode_i64(bounds)

@@ -109,6 +109,14 @@ class Block:
     def num_rows(self) -> int:
         return int(np.sum(self.counts_np))
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the columns at full static capacity (padding
+        rows occupy memory like any others; counts excluded): the
+        lifetime LRU's accounting. Sizing before materialization, which
+        has only row counts, is stream.planned_chunk_rows'."""
+        return sum(c.numel() * c.element_size() for c in self.cols.values())
+
     def _host_cols(self) -> Dict[str, np.ndarray]:
         return {name: c.cpu().numpy() for name, c in self.cols.items()}
 

@@ -20,10 +20,18 @@ device as the reference resolves it by backend:
     dense_table_plan  on | off                       on / off
 
 A misspelt value raises VegaError naming the allowed values.
+
+dense_hbm_budget (bytes, default 4 GiB, the reference's Configuration
+field) bounds device memory twice, as in the reference: a source whose
+one-shot exchange would need more (6x its bytes) streams in chunks
+(stream.py), and materialized intermediates beyond it are evicted in LRU
+order and recomputed from their lineage when read again
+(dense_hbm_in_use).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import torch
@@ -37,7 +45,12 @@ from vega_tpu_torch.mesh import make_mesh
 class Context:
     def __init__(self, device: Optional[str] = None, n_shards: int = 8,
                  dense_sort_impl: str = "auto", dense_rbk_plan: str = "auto",
-                 dense_table_plan: str = "auto"):
+                 dense_table_plan: str = "auto",
+                 dense_hbm_budget: int = 4 << 30):
+        if dense_hbm_budget < 0:
+            raise VegaError(f"dense_hbm_budget must be >= 0 bytes, got "
+                            f"{dense_hbm_budget}")
+        self.dense_hbm_budget = int(dense_hbm_budget)
         self.mesh = make_mesh(n_shards, device)
         dev = self.mesh.device
         self.dense_sort_impl = kernels.resolve_backend_mode(
@@ -58,6 +71,10 @@ class Context:
         self._pending: list = []
         # set while a settlement repairs: every exchange runs blocking
         self._no_defer = False
+        # materialized intermediates, least recently used first:
+        # rdd_id -> weakref to the node (dense_rdd's lifetime LRU)
+        self._dense_block_lru: dict = {}
+        self._rdd_ids = itertools.count()
         self._stopped = False
 
     @property
@@ -68,10 +85,13 @@ class Context:
         if self._stopped:
             raise VegaError("Context is stopped")
 
-    def dense_range(self, n: int, dtype=torch.int32):
-        """Device iota source of n rows (int32 unless dtype says)."""
+    def dense_range(self, n: int, dtype=torch.int32,
+                    chunk_rows: Optional[int] = None):
+        """Device iota source of n rows (int32 unless dtype says). It
+        streams in chunks (a StreamedDenseRDD) when 6x its bytes exceed
+        dense_hbm_budget, or when chunk_rows is given and below n."""
         self._check_running()
-        return dense_rdd.dense_range(self, n, dtype)
+        return dense_rdd.dense_range(self, n, dtype, chunk_rows=chunk_rows)
 
     def dense_from_numpy(self, *columns):
         """Dense source from host arrays: (values) or (keys, values)."""
@@ -85,6 +105,19 @@ class Context:
         self._check_running()
         return dense_rdd.dense_from_columns(self, columns, key=key,
                                             **kwcolumns)
+
+    def dense_load_npz(self, path: str, chunk_rows: Optional[int] = None):
+        """Reload a DenseRDD written by save_npz (either package's),
+        re-sharded onto this Context's shards; streams as dense_range
+        does."""
+        self._check_running()
+        return dense_rdd.dense_load_npz(self, path, chunk_rows=chunk_rows)
+
+    def dense_hbm_in_use(self) -> int:
+        """Tracked device bytes of materialized dense intermediates
+        (sources excluded), the quantity eviction holds to
+        dense_hbm_budget; not the allocator's count."""
+        return dense_rdd.dense_hbm_in_use(self)
 
     def stop(self) -> None:
         """Settle the deferred exchanges, so blocks a caller holds stay

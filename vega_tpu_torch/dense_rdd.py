@@ -50,6 +50,15 @@ functions over a wide column have no device row form.
 There is no host tier to fall back to: a row function that does not run
 on column tensors raises VegaError, and so does every request the
 reference would hand to its host tier.
+
+Block lifetime (the reference's single-process LRU): a node that
+materializes registers its block in the Context's LRU; past
+Context.dense_hbm_budget the least recently used blocks are dropped and
+their nodes rematerialize from lineage when read again. Sources never
+register (their block is the data), and neither the node just registered
+nor a block whose settlement is pending is evicted. save_npz writes a
+node's valid rows as a plain .npz of column arrays, which dense_load_npz
+reloads as a source, streamed (stream.py) when it exceeds the budget.
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ import hashlib
 import logging
 import math
 import operator
+import os
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,6 +77,7 @@ import torch
 from vega_tpu_torch import block as block_lib
 from vega_tpu_torch import kernels
 from vega_tpu_torch import cuda_kernels
+from vega_tpu_torch import stream
 from vega_tpu_torch.block import KEY, KEY_LO, VALUE, Block
 from vega_tpu_torch.errors import VegaError
 
@@ -134,6 +146,72 @@ def _no_host_tier(what: str) -> VegaError:
                      "which vega_tpu_torch does not have")
 
 
+# ---------------------------------------------------------------------------
+# block lifetime: the reference's single-process LRU (dense_rdd.py:207-333)
+# ---------------------------------------------------------------------------
+
+def _lifetime_touch(rdd) -> None:
+    lru = rdd.context._dense_block_lru
+    ref = lru.pop(rdd.rdd_id, None)
+    if ref is not None:
+        lru[rdd.rdd_id] = ref  # re-insert at the most recent end
+
+
+def _lifetime_register(rdd) -> None:
+    lru = rdd.context._dense_block_lru
+    lru.pop(rdd.rdd_id, None)
+    lru[rdd.rdd_id] = weakref.ref(rdd)
+    _lifetime_evict(rdd.context, keep=rdd.rdd_id)
+
+
+def _lifetime_forget(rdd) -> None:
+    rdd.context._dense_block_lru.pop(rdd.rdd_id, None)
+
+
+def _lifetime_sweep(lru: dict) -> Tuple[int, list]:
+    """(live tracked bytes, live keys least recently used first); prunes
+    entries whose node died or holds no block."""
+    live = []
+    total = 0
+    for key in list(lru):
+        rdd = lru[key]()
+        blk = rdd._block if rdd is not None else None
+        if blk is None:
+            del lru[key]
+            continue
+        total += blk.nbytes
+        live.append(key)
+    return total, live
+
+
+def dense_hbm_in_use(ctx) -> int:
+    """Tracked device bytes of materialized dense intermediates, sources
+    excluded (the reference's meaning; not the allocator's count)."""
+    return _lifetime_sweep(ctx._dense_block_lru)[0]
+
+
+def _lifetime_evict(ctx, keep: Optional[int] = None) -> None:
+    """Drop least recently used blocks until the tracked bytes fit
+    ctx.dense_hbm_budget, sparing `keep` and every block whose settlement
+    is pending (it must settle or repair through the same object)."""
+    lru = ctx._dense_block_lru
+    total, live = _lifetime_sweep(lru)
+    for key in live:
+        if total <= ctx.dense_hbm_budget:
+            break
+        if key == keep:
+            continue
+        rdd = lru[key]()
+        blk = rdd._block if rdd is not None else None
+        if blk is None or blk.settle is not None:
+            continue  # collected since the sweep (the next one prunes it)
+        total -= blk.nbytes
+        rdd._block = None
+        del lru[key]
+        log.debug("dense lifetime: evicted block of rdd %s (%d bytes)",
+                  rdd.rdd_id, blk.nbytes)
+
+
 class DenseRDD:
     """Base dense node. Subclasses implement _materialize() -> Block and
     _schema()."""
@@ -141,6 +219,7 @@ class DenseRDD:
     def __init__(self, ctx, mesh, parents: Sequence["DenseRDD"] = ()):
         self.context = ctx
         self.mesh = mesh
+        self.rdd_id = next(ctx._rdd_ids)
         self._dense_parents = tuple(parents)
         self._block: Optional[Block] = None
 
@@ -159,9 +238,26 @@ class DenseRDD:
         unverified overflow flag. Only for exchange materializers, which
         register their own pending entry, so a failed speculation
         invalidates and repairs them too; everything else uses block()."""
-        if self._block is None:
-            self._block = self._materialize()
-        return self._block
+        blk = self._block
+        if blk is None:
+            blk = self._block = self._materialize()
+            # sources set _block when built and never take this branch
+            _lifetime_register(self)
+        else:
+            _lifetime_touch(self)
+        return blk
+
+    def unpersist(self) -> "DenseRDD":
+        """Release this node's block (a pending settlement settles first,
+        so a Block a caller holds never reads truncated data); the next
+        access rematerializes it from lineage. Returns self."""
+        blk = self._block
+        if blk is not None:
+            if blk.settle is not None:
+                blk.settle()
+            self._block = None
+            _lifetime_forget(self)
+        return self
 
     def _materialize(self) -> Block:
         raise NotImplementedError
@@ -439,7 +535,9 @@ class DenseRDD:
         """The checks join, left_outer_join and cogroup share: two dense
         pair RDDs on one mesh, each in the canonical (k, v) layout (the
         join names its outputs lv / rv); returns the sides _align_keys
-        makes key-compatible."""
+        makes key-compatible. A streamed operand joins as its resident
+        build."""
+        other = _resident(other)
         if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
             raise VegaError(f"{op} needs two dense pair RDDs on one mesh")
         for side in (self, other):
@@ -459,6 +557,7 @@ class DenseRDD:
         if fill_value is None:
             raise _no_host_tier("left_outer_join with fill_value=None (a "
                                 "dense column cannot hold None)")
+        other = _resident(other)
         if isinstance(other, DenseRDD) and other._wide_value():
             raise _no_host_tier("left_outer_join with a wide int64 right "
                                 "value (the fill would land in its encoded "
@@ -563,7 +662,9 @@ class DenseRDD:
         return _FilterRDD(joined.select(KEY, "rv"), _unmarked).keys_dense()
 
     def union(self, other: "DenseRDD") -> "DenseRDD":
-        """Per-shard concatenation of two RDDs of one schema."""
+        """Per-shard concatenation of two RDDs of one schema (a streamed
+        operand as its resident build)."""
+        other = _resident(other)
         if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
             raise VegaError("union needs two dense RDDs on one mesh")
         if dict(self._schema()) != dict(other._schema()):
@@ -599,6 +700,26 @@ class DenseRDD:
     def collect_arrays(self) -> Dict[str, np.ndarray]:
         """Columnar collect: no per-row Python objects."""
         return self.block().to_numpy()
+
+    def save_npz(self, path: str) -> str:
+        """Write the settled block's valid rows, in shard order, as one
+        .npz of column arrays (wide int64 columns as one int64 array),
+        through a .tmp file replaced into place: the dense checkpoint,
+        which dense_load_npz re-sources with no lineage. Grouped and
+        joined nodes, whose elements are derived from their columns,
+        refuse. Returns path."""
+        if type(self).collect is not DenseRDD.collect:
+            raise VegaError(
+                "save_npz persists raw columns; this RDD's elements are "
+                "derived from them (grouped/joined) — save an upstream RDD "
+                "or collect() instead")
+        cols = self.block().to_numpy()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:  # a file object: savez keeps the name
+            np.savez(f, **cols)
+        os.replace(tmp, path)
+        return path
 
     def take(self, n: int) -> list:
         """The first n rows in shard order, read shard by shard (only the
@@ -827,23 +948,52 @@ class DenseRDD:
 
 
 class _SourceRDD(DenseRDD):
-    def __init__(self, ctx, blk: Block):
+    """A Block as data. hash_placed declares its rows hash-placed (a
+    streamed fold's accumulator), so the next keyed exchange is elided."""
+
+    def __init__(self, ctx, blk: Block, hash_placed: bool = False):
         super().__init__(ctx, blk.mesh)
         self._block = blk
+        self._hash_placed = hash_placed
+
+    @property
+    def hash_placed(self) -> bool:
+        return self._hash_placed
 
     def _materialize(self) -> Block:
         return self._block
+
+    def unpersist(self) -> "DenseRDD":
+        """No-op: a source's block is its data, with no lineage to
+        rebuild it from."""
+        return self
 
     def _schema(self):
         return tuple((n, c.dtype) for n, c in self._block.cols.items())
 
     def _fp_extra(self):
         return (tuple((n, str(c.dtype)) for n, c in self._block.cols.items()),
-                self._block.capacity)
+                self._block.capacity, self._hash_placed)
 
 
-def dense_range(ctx, n: int, dtype=torch.int32) -> DenseRDD:
-    """Iota source built on the device (int32 by default)."""
+def _resident(rdd):
+    """A streamed operand's resident build; anything else as it is."""
+    if isinstance(rdd, stream.StreamedDenseRDD):
+        return rdd.resident()
+    return rdd
+
+
+def dense_range(ctx, n: int, dtype=torch.int32,
+                chunk_rows: Optional[int] = None):
+    """Iota source built on the device (int32 by default). When the
+    one-shot exchange footprint of the whole block (6x its bytes) exceeds
+    ctx.dense_hbm_budget, or chunk_rows is given and below n, a
+    StreamedDenseRDD of chunks instead."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    rows = stream.planned_chunk_rows(n, itemsize, ctx.dense_hbm_budget,
+                                     chunk_rows)
+    if rows is not None and rows < n:
+        return stream.streamed_range(ctx, n, rows, dtype)
     return _SourceRDD(ctx, block_lib.block_range(n, ctx.mesh, dtype))
 
 
@@ -893,10 +1043,29 @@ def dense_from_columns(ctx, columns: Optional[dict] = None,
     return _SourceRDD(ctx, block_lib.from_numpy(named, ctx.mesh))
 
 
-def dense_from_block(ctx, blk: Block) -> DenseRDD:
+def dense_from_block(ctx, blk: Block, hash_placed: bool = False
+                     ) -> DenseRDD:
     """Source over an existing Block (e.g. one from_reference_arrays
-    carried across from vega_tpu)."""
-    return _SourceRDD(ctx, blk)
+    carried across from vega_tpu); hash_placed as _SourceRDD's."""
+    return _SourceRDD(ctx, blk, hash_placed=hash_placed)
+
+
+def dense_load_npz(ctx, path: str, chunk_rows: Optional[int] = None):
+    """Load a file save_npz wrote (in either package), re-sharded onto
+    ctx's shards: a source, or a StreamedDenseRDD when 6x the file's
+    bytes exceed the budget (the host holds the file once; the device one
+    chunk), or chunk_rows is given and below its rows."""
+    with np.load(path, allow_pickle=False) as data:
+        cols = {n: data[n] for n in data.files}
+    n = len(next(iter(cols.values()))) if cols else 0
+    bytes_per_row = sum(
+        c.dtype.itemsize * int(np.prod(c.shape[1:], dtype=np.int64))
+        for c in cols.values()) or 1
+    rows = stream.planned_chunk_rows(n, bytes_per_row, ctx.dense_hbm_budget,
+                                     chunk_rows)
+    if rows is not None and rows < n:
+        return stream.streamed_npz(ctx, cols, rows)
+    return _SourceRDD(ctx, block_lib.from_numpy(cols, ctx.mesh))
 
 
 # ---------------------------------------------------------------------------
