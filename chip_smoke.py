@@ -20,8 +20,10 @@ Phases, in order; any failure exits non-zero before the last line:
      dense_range(N).map(lambda x: (x % K, x * 0.5)).reduce_by_key(op="add")
      .join(K-row table).count() at N = 20,000,000 rows and K = 1,000,000
      keys; the result must equal a plain numpy reference, and every
-     kernel's launch count must have grown during that run. Then the warm
-     rows/s, median of 3 runs, and the launches of one warm run. The
+     kernel's launch count must have grown during that run; the reduce's
+     exchange, planned under dense_exchange="auto", must be all_to_all.
+     Then the warm rows/s, median of 3 runs, and the launches of one warm
+     run. The
      Context's 'auto' plans must have resolved to xla / fused_sort / off,
      and each warm join's block must carry a pending settlement before
      count() (its fetches deferred) and none after;
@@ -85,7 +87,9 @@ Phases, in order; any failure exits non-zero before the last line:
      (a), (b) and (d) must launch hash_bucket and digit_hist, the joins
      partition_pos too; wide keys (c) hash in torch ops;
   8. streamed sources, npz checkpoints and the block lifetime, in a fresh
-     Context(n_shards=8) at the default 4 GiB budget: (a) BASELINE's north
+     Context(n_shards=8, dense_exchange="all_to_all") at the default 4 GiB
+     budget (the legacy chunking; 9b runs (a) under the planner): (a)
+     BASELINE's north
      star with no cut (benchmarks/stream_1b.py): dense_range(1e9) must be
      a StreamedDenseRDD of 6 chunks of 178,257,920 rows, and
      .map(lambda x: (x % K, x)).reduce_by_key(op="add").join(K-row table
@@ -102,13 +106,36 @@ Phases, in order; any failure exits non-zero before the last line:
      resident one), under chiprun_out/, removed after; (e) bench-main at
      a 256 MiB budget: streamed and resident with a held block evicted
      and rematerialized equal, numpy-checked, dense_hbm_in_use() bounded
-     after each materialization, unpersist() releasing its bytes; (f)
-     range_bucket of float32 subnormals on the card equal to the CPU's.
+     after each materialization, unpersist() releasing its bytes (the
+     source streams in 3 chunks under the planner); (f) range_bucket of
+     float32 subnormals on the card equal to the CPU's;
+  9. the exchange planner's programs and string columns: (a) at
+     bench-main's 20M int32 pairs over 1M keys with dense_table_plan="off",
+     group_by_key().count() (every row crosses) and reduce_by_key(op="add")
+     .join(1M-row table).count(), each under forced all_to_all, forced
+     staged (at a budget half way between the all_to_all and ring legs'
+     estimates of the largest launch, so the planner's staged search takes
+     a group of 2 or more) and forced ring: each planned exchange measured
+     (the allocator's peak over the call above what was allocated at its
+     start), the step's peak, the plan, warm ms (median of 3, ended by a
+     synchronize); every leg equal to the all_to_all leg and to numpy, and
+     the measured exchange peaks ordered all_to_all > staged >= ring,
+     printed beside the model's 8 x est_peak_bytes; (b) stream-1b under
+     dense_exchange="auto": dense_range(1e9) in the planner's 5 chunks of
+     221,249,536 rows, the pipeline and checks of 8a, beside 8a's 6 chunks;
+     (c) benchmarks/strings_ab.py's query: 10M rows of sku-%06d keys over
+     100,000 words reduced, joined with a 100,000-row dims table (half its
+     words shared: a merged dictionary of 150,000 words, past the default
+     65,536-entry remap table, so each side retries once), sorted and
+     collected, the host encode and each device step timed apart, exact
+     against numpy; (d) the reduced string block through save_npz /
+     dense_load_npz in 4 chunks, exact.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
-per phase-7 line and phase 7's summary, one line per phase-8 item, the
-kernel table as one JSON line (with phases 6, 7 and 8's launches beside
-the main path's), the card line, and last {"ok": true, "device": {...}}.
+per phase-7 line and phase 7's summary, one line per phase-8 item, one
+line per phase-9 leg and item, the kernel table as one JSON line (with
+phases 6, 7, 8 and 9's launches beside the main path's), the card line,
+and last {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
@@ -596,6 +623,11 @@ def run_plan(torch, np, ck, vt, label, settings):
     # 7-15 ms a run (scripts/warm_split.py, PERF.md)
     rel, cold_arrays = check_numpy(np, joined, f"{label} (cold)")
     cold = joined
+    plan = joined.left._exchange_plan  # the reduce's exchange
+    exchange = None if plan is None else dict(
+        program=plan.program, group=plan.group, rounds=plan.rounds,
+        est_peak_bytes=plan.est_peak_bytes, fits=plan.fits,
+        budget_bytes=plan.budget_bytes)
     warm, build_ms, count_ms, count_dev_ms = [], [], [], []
     ck.reset_launches()
     for i in range(3):
@@ -641,7 +673,7 @@ def run_plan(torch, np, ck, vt, label, settings):
                warm_count_device_ms=count_dev_ms,
                rows_per_s=N_ROWS / med, max_rel_err=rel, launches=launches,
                warm_launches=warm_launches, warm_deferred=True,
-               table_taken=table_taken)
+               table_taken=table_taken, exchange=exchange)
     log(f"{label} warm: {warm} s, median {med:.4f} s, "
         f"{N_ROWS / med:,.0f} rows/s; host build {build_ms} ms, count() "
         f"{count_ms} ms on the host, {count_dev_ms} ms on the stream; "
@@ -678,6 +710,11 @@ def phase_main_path(torch, np, ck, vt):
                             dense_table_plan="off"):
         fail(f"'auto' resolved to {res['plans']} on the card, expected "
              "xla / fused_sort / off")
+    # dense_exchange="auto" at the default budget plans the one-shot
+    if (res["exchange"] or {}).get("program") != "all_to_all":
+        fail(f"the main path's exchange planned {res['exchange']}, "
+             "expected all_to_all")
+    log(f"main path exchange plan: {res['exchange']}")
     return res
 
 
@@ -1760,10 +1797,13 @@ class _ChunkTimes:
         return [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
 
 
-def p8_north_star(torch, np, ck, stream, ctx, src):
+def p8_north_star(torch, np, ck, stream, ctx, src, chunks=P8_CHUNKS,
+                  chunk_rows=P8_CHUNK_ROWS, label="8a"):
     """(a) benchmarks/stream_1b.py's group_by+join at N = 1e9, K = 1e6:
     the streamed fold, a join against the K-row table, count(); cold
-    once, then three warm runs that each re-stream from the source."""
+    once, then three warm runs that each re-stream from the source, in
+    `chunks` chunks of `chunk_rows` (phase 9b runs it under the
+    planner's chunking)."""
     import logging
 
     def run():
@@ -1785,9 +1825,9 @@ def p8_north_star(torch, np, ck, stream, ctx, src):
         launches = dict(ck.LAUNCHES)
         p8_check(f"run {i}: count() = {count}, expected {P8_KEYS}",
                  count == P8_KEYS)
-        p8_check(f"run {i}: {len(times.created)} chunk folds, expected "
-                 f"{P8_CHUNKS}", len(times.created) == P8_CHUNKS)
-        check_launched(launches, f"phase 8(a) run {i}")
+        p8_check(f"{label} run {i}: {len(times.created)} chunk folds, "
+                 f"expected {chunks}", len(times.created) == chunks)
+        check_launched(launches, f"phase {label} run {i}")
         runs.append(dict(wall_s=wall, launches=launches,
                          fold_ms=times.fold_ms(t_wall)))
         if i == 0:
@@ -1811,15 +1851,17 @@ def p8_north_star(torch, np, ck, stream, ctx, src):
     peak = torch.cuda.max_memory_allocated()
     warm = [r["wall_s"] for r in runs[1:]]
     med = statistics.median(warm)
-    res = dict(rows=P8_ROWS, keys=P8_KEYS, chunks=P8_CHUNKS,
-               chunk_rows=P8_CHUNK_ROWS, cold_s=runs[0]["wall_s"],
+    res = dict(rows=P8_ROWS, keys=P8_KEYS, chunks=chunks,
+               chunk_rows=chunk_rows, exchange=ctx.dense_exchange,
+               cold_s=runs[0]["wall_s"],
                warm_s=warm, median_s=med, rows_per_s=P8_ROWS / med,
                cold_fold_ms=runs[0]["fold_ms"],
                warm_fold_ms=[r["fold_ms"] for r in runs[1:]],
                launches=runs[0]["launches"],
                warm_launches=[r["launches"] for r in runs[1:]],
                peak_bytes=peak, budget=ctx.dense_hbm_budget)
-    log(f"8a 1B group_by+join: {P8_ROWS / med:,.0f} rows/s warm median of 3 "
+    log(f"{label} 1B group_by+join under dense_exchange="
+        f"{ctx.dense_exchange!r}: {P8_ROWS / med:,.0f} rows/s warm median of 3 "
         f"({warm} s), cold {runs[0]['wall_s']:.3f} s, fold ms cold "
         f"{runs[0]['fold_ms']} warm {res['warm_fold_ms']}, launches cold "
         f"{runs[0]['launches']} warm {res['warm_launches']}, peak {peak} B "
@@ -1973,7 +2015,7 @@ def p8_checkpoints(torch, np, stream, ctx, reduced):
 
 def p8_lifetime(torch, np, vt, dense_rdd, stream):
     """(e) bench-main's pipeline in a Context of a 256 MiB budget: the
-    source streams (2 chunks) and equals numpy; then, on its resident
+    source streams (3 chunks under the planner) and equals numpy; then, on its resident
     build with the mapped block held, a second mapped block evicts the
     first, which rematerializes with equal rows, and the pipeline equals
     numpy again; unpersist() drops its bytes from dense_hbm_in_use().
@@ -2015,7 +2057,9 @@ def p8_lifetime(torch, np, vt, dense_rdd, stream):
     dense_rdd._lifetime_register = checked
     try:
         src = ctx.dense_range(N_ROWS)
-        rows = stream.planned_chunk_rows(N_ROWS, 4, LIFETIME_BUDGET)
+        rows = stream.planned_chunk_rows(N_ROWS, 4, LIFETIME_BUDGET,
+                                         n_shards=N_SHARDS,
+                                         exchange=ctx.dense_exchange)
         p8_check(f"bench-main's source streams under a {LIFETIME_BUDGET} B "
                  "budget", isinstance(src, stream.StreamedDenseRDD)
                  and src.n_chunks == -(-N_ROWS // rows) >= 2)
@@ -2100,16 +2144,19 @@ def p8_range_bucket(torch, np):
 
 
 def phase_eight(torch, np, ck, vt):
-    """Phase 8 in a fresh Context(n_shards=8) at the default budget: (a)
-    the 1B group_by+join, (b) take_ordered / top, (c) the streamed join,
-    (d) the checkpoints; then (e) the lifetime in a 256 MiB Context and
-    (f) the range_bucket subnormals."""
+    """Phase 8 in a fresh Context(n_shards=8) at the default budget under
+    a forced all_to_all (the legacy chunking, 6 chunks; phase 9b
+    runs (a) under the planner): (a) the 1B group_by+join, (b)
+    take_ordered / top, (c) the streamed join, (d) the checkpoints; then
+    (e) the lifetime in a 256 MiB Context and (f) the range_bucket
+    subnormals."""
     from vega_tpu_torch import dense_rdd, stream
 
-    ctx = vt.Context(n_shards=N_SHARDS)
+    ctx = vt.Context(n_shards=N_SHARDS, dense_exchange="all_to_all")
     src = ctx.dense_range(P8_ROWS)
     p8_check(f"dense_range(1e9) is a StreamedDenseRDD of {P8_CHUNKS} chunks "
-             f"of {P8_CHUNK_ROWS} rows at the default budget",
+             f"of {P8_CHUNK_ROWS} rows at the default budget under a forced "
+             "all_to_all",
              isinstance(src, stream.StreamedDenseRDD)
              and src.n_chunks == P8_CHUNKS
              and stream.planned_chunk_rows(P8_ROWS, 4, ctx.dense_hbm_budget)
@@ -2126,6 +2173,429 @@ def phase_eight(torch, np, ck, vt):
     return dict(north_star=north, order=order, join=enrich,
                 checkpoints=checkpoints, lifetime=lifetime,
                 range_bucket=subnormals, launches=north["launches"])
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the exchange planner's programs, stream-1b under the planner,
+# string columns
+# ---------------------------------------------------------------------------
+
+P9_PROGRAMS = ("all_to_all", "staged", "ring")
+P9_CHUNKS = 5                  # the reference planner's count for 1e9 rows
+P9_CHUNK_ROWS = 221_249_536    # at 4 GiB, 8 shards, 4-byte rows
+P9_STR_ROWS = 10_000_000
+P9_VOCAB = 100_000             # sku-%06d words
+P9_DIMS = 100_000              # dims rows; half of their words shared
+P9_RELOAD_CHUNK_ROWS = 25_000  # (d): 4 chunks of the 100,000 sums
+P9_NPZ_DIR = os.path.join("chiprun_out", "phase9_npz")
+
+
+def p9_check(what, ok):
+    if not ok:
+        fail(f"phase 9: {what}")
+
+
+class _ExchangeMeter:
+    """Wraps exchange_plan.exchange_callable while installed: each planned
+    exchange call records its plan, its capacities and the allocator's
+    peak during the call above what was allocated when it began (the
+    measured exchange peak; the peak statistic is reset at each call's
+    start, and the peak before it kept, so the step's peak is the larger
+    of those and the peak after the last call)."""
+
+    def __init__(self, torch, exchange_plan):
+        self.torch = torch
+        self.mod = exchange_plan
+        self.calls = []
+        self.peak_before = 0
+
+    def __enter__(self):
+        torch, orig = self.torch, self.mod.exchange_callable
+        self._orig = orig
+
+        def wrapped(plan):
+            fn = orig(plan)
+
+            def measured(cols, count, bucket, n, slot, out_cap, **kw):
+                self.peak_before = max(self.peak_before,
+                                       torch.cuda.max_memory_allocated())
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = fn(cols, count, bucket, n, slot, out_cap, **kw)
+                self.calls.append(dict(
+                    program=plan.program, group=plan.group,
+                    rounds=plan.rounds, est_peak_bytes=plan.est_peak_bytes,
+                    fits=plan.fits, budget_bytes=plan.budget_bytes,
+                    capacity=int(bucket.shape[1]), slot=int(slot),
+                    out=int(out_cap), row_bytes=sum(
+                        c.element_size() for c in cols.values()),
+                    base_bytes=base,
+                    peak_above_bytes=torch.cuda.max_memory_allocated()
+                    - base))
+                return out
+            return measured
+
+        self.mod.exchange_callable = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.exchange_callable = self._orig
+        return False
+
+    def largest(self):
+        return max(self.calls, key=lambda c: c["est_peak_bytes"])
+
+
+def p9_gbk(ctx, src):
+    return src.map(lambda x: (x % N_KEYS, x)).group_by_key()
+
+
+def p9_rbk_join(ctx, src, table):
+    return (src.map(lambda x: (x % N_KEYS, x)).reduce_by_key(op="add")
+            .join(table))
+
+
+def p9_gbk_result(torch, np, node):
+    """group_by_key's block as order-free sums (the programs deliver a
+    key's rows in different orders) and exact per-shard keys: counts,
+    the key column of each shard (key-sorted), sum(v) and sum((k *
+    2654435761 + v) mod 2^32), all on the card."""
+    from vega_tpu_torch import kernels
+
+    blk = node.block()
+    mask = kernels.valid_mask(blk.capacity, blk.counts)
+    k = blk.cols["k"][mask].to(torch.int64)
+    vv = blk.cols["v"][mask].to(torch.int64)
+    mix = ((k * 2654435761 + vv) & 0xFFFFFFFF).sum().item()
+    return dict(groups=node.count(), counts=blk.counts_np.tolist(),
+                keys=blk.cols["k"][mask].clone(), sum_v=vv.sum().item(),
+                mix=mix)
+
+
+def p9_gbk_expected(np):
+    x = np.arange(N_ROWS, dtype=np.int64)
+    k = x % N_KEYS
+    return dict(groups=N_KEYS, sum_v=int(x.sum()),
+                mix=int(((k * 2654435761 + x) & 0xFFFFFFFF).sum()))
+
+
+def p9_rbk_result(torch, np, node):
+    got = node.collect_arrays()
+    o = np.argsort(got["k"])
+    return dict(k=got["k"][o], lv=got["lv"][o], rv=got["rv"][o],
+                count=node.count())
+
+
+def p9_rbk_expected(np):
+    # x = k + K j, j < N / K: sum = (N / K) k + K (N / K)(N / K - 1) / 2
+    k = np.arange(N_KEYS, dtype=np.int64)
+    per = N_ROWS // N_KEYS
+    return dict(k=k, lv=per * k + N_KEYS * per * (per - 1) // 2, rv=2 * k)
+
+
+def p9_leg(torch, np, ck, vt, exchange_plan, label, program, budget,
+           pipeline):
+    """One program of one pipeline in a fresh Context(n_shards=8,
+    dense_table_plan="off", dense_exchange=program, dense_hbm_budget=
+    budget): the source held (resident); a cold run with every planned
+    exchange measured (_ExchangeMeter) and the step's peak above the
+    pre-step allocation; its result; then three warm runs, host clock to
+    a synchronize."""
+    ctx = vt.Context(n_shards=N_SHARDS, dense_table_plan="off",
+                     dense_exchange=program, dense_hbm_budget=budget)
+    src = ctx.dense_range(N_ROWS, chunk_rows=N_ROWS)  # resident
+    table = p8_table(ctx, np)
+
+    def run():
+        if pipeline == "gbk":
+            node = p9_gbk(ctx, src)
+            return node, node.count()
+        node = p9_rbk_join(ctx, src, table)
+        return node, node.count()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    with _ExchangeMeter(torch, exchange_plan) as meter:
+        t0 = time.perf_counter()
+        node, count = run()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    step_peak = max(meter.peak_before,
+                    torch.cuda.max_memory_allocated()) - base
+    launches = dict(ck.LAUNCHES)
+    check_launched(launches, f"phase 9a {pipeline} {label}")
+    p9_check(f"9a {pipeline} {label}: count() = {count}, expected "
+             f"{N_KEYS}", count == N_KEYS)
+    p9_check(f"9a {pipeline} {label}: every planned exchange ran "
+             f"{program}", meter.calls and all(
+                 c["program"] == program for c in meter.calls))
+    result = (p9_gbk_result(torch, np, node) if pipeline == "gbk"
+              else p9_rbk_result(torch, np, node))
+    del node
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        node, c = run()
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+        p9_check(f"9a {pipeline} {label} warm count() = {c}", c == N_KEYS)
+        del node
+    big = meter.largest()
+    res = dict(label=label, pipeline=pipeline, program=program,
+               budget=budget, plan={k: big[k] for k in (
+                   "program", "group", "rounds", "est_peak_bytes", "fits",
+                   "capacity", "slot", "out", "row_bytes")},
+               launches_planned=len(meter.calls),
+               exchange_peak_bytes=max(c["peak_above_bytes"]
+                                       for c in meter.calls),
+               model_peak_bytes=N_SHARDS * big["est_peak_bytes"],
+               step_peak_bytes=step_peak, cold_s=cold_s, warm_ms=warm,
+               median_ms=statistics.median(warm),
+               rows_per_s=N_ROWS / (statistics.median(warm) / 1e3),
+               launches=launches)
+    ctx.stop()
+    torch.cuda.empty_cache()
+    return res, result
+
+
+def p9_programs(torch, np, ck, vt):
+    """(a) each pipeline under forced all_to_all, forced staged at a
+    budget below the all_to_all estimate of its largest launch (half way
+    to ring's, so the staged search picks a group of 2 or more), and
+    forced ring; every leg equal to the all_to_all leg and to numpy; the
+    measured exchange peaks ordered all_to_all > staged >= ring. The
+    plan's capacities and row bytes are the largest launch's: the
+    recorded row bytes are those the exchange moved (after the map), the
+    planner's those of the root block."""
+    from vega_tpu_torch import exchange_plan
+
+    gbk_exp, rbk_exp = p9_gbk_expected(np), p9_rbk_expected(np)
+    lines = []
+    for pipeline in ("gbk", "rbk_join"):
+        legs, results = {}, {}
+        # staged last: its budget lies half way between the estimates the
+        # all_to_all and ring legs planned for their largest launch (the
+        # planner's row bytes are the root block's, before the map)
+        for program in ("all_to_all", "ring", "staged"):
+            budget = 4 << 30
+            if program == "staged":
+                budget = (legs["ring"]["plan"]["est_peak_bytes"]
+                          + legs["all_to_all"]["plan"]["est_peak_bytes"]) // 2
+            legs[program], results[program] = p9_leg(
+                torch, np, ck, vt, exchange_plan, f"{pipeline}/{program}",
+                program, budget, pipeline)
+            log(f"9a {pipeline} {program}: {json.dumps(legs[program])}")
+        p9_check(f"9a {pipeline}: staged chose a group of 2 or more and "
+                 "more than one round under a budget below all_to_all's",
+                 legs["staged"]["plan"]["group"] >= 2
+                 and legs["staged"]["plan"]["rounds"] > 1
+                 and legs["staged"]["budget"]
+                 < legs["all_to_all"]["plan"]["est_peak_bytes"])
+        ref = results["all_to_all"]
+        for program, got in results.items():
+            if pipeline == "gbk":
+                same = (got["groups"] == ref["groups"] == gbk_exp["groups"]
+                        and got["counts"] == ref["counts"]
+                        and bool(torch.equal(got["keys"], ref["keys"]))
+                        and got["sum_v"] == ref["sum_v"] == gbk_exp["sum_v"]
+                        and got["mix"] == ref["mix"] == gbk_exp["mix"])
+            else:
+                same = (got["count"] == N_KEYS and all(
+                    np.array_equal(got[nm], ref[nm])
+                    and np.array_equal(got[nm].astype(np.int64),
+                                       rbk_exp[nm])
+                    for nm in ("k", "lv", "rv")))
+            p9_check(f"9a {pipeline} {program} equals the all_to_all leg "
+                     "and numpy", same)
+        peaks = {p: legs[p]["exchange_peak_bytes"] for p in P9_PROGRAMS}
+        p9_check(f"9a {pipeline}: measured exchange peak ordered all_to_all "
+                 f"> staged >= ring: {peaks}",
+                 peaks["all_to_all"] > peaks["staged"] >= peaks["ring"])
+        lines += [legs[p] for p in P9_PROGRAMS]
+        del results, ref
+    return lines
+
+
+def p9_strings_data(np):
+    rng = np.random.RandomState(9)
+    vocab = np.array([f"sku-{i:06d}" for i in range(P9_VOCAB)])
+    idx = rng.randint(0, P9_VOCAB, size=P9_STR_ROWS)
+    idx[:P9_VOCAB] = np.arange(P9_VOCAB)  # every word occurs
+    vals = rng.randint(0, 100, size=P9_STR_ROWS).astype(np.int32)
+    # dims: the upper half of the vocabulary and as many new words
+    lo = P9_VOCAB // 2
+    dims_k = np.array([f"sku-{i:06d}" for i in range(lo, lo + P9_DIMS)])
+    dims_v = np.arange(P9_DIMS, dtype=np.int32)
+    return dict(vocab=vocab, idx=idx, keys=vocab[idx], vals=vals,
+                dims_k=dims_k, dims_v=dims_v)
+
+
+def p9_strings_expected(np, data):
+    sums = np.bincount(data["idx"], weights=data["vals"],
+                       minlength=P9_VOCAB).astype(np.int64)
+    lo = P9_VOCAB // 2
+    shared = np.arange(lo, P9_VOCAB)
+    return dict(k=data["vocab"][shared], lv=sums[shared],
+                rv=(shared - lo).astype(np.int64), sums=sums)
+
+
+def p9_strings(torch, np, ck, vt):
+    """(c) benchmarks/strings_ab.py's query on the card: reduce_by_key
+    (add) on 10M rows of string keys over 100,000 words -> join with a
+    100,000-row dims table (half its words shared) -> sort_by_key ->
+    collect; the host encode and each device step timed apart (cold, then
+    two warm runs); the merged dictionary (150,000 words) past the
+    default 65,536-entry remap table takes a doubling retry on each side;
+    exact against numpy. (d) the reduced block through save_npz /
+    dense_load_npz, streamed in 4 chunks, exact."""
+    from vega_tpu_torch import dense_rdd
+
+    data = p9_strings_data(np)
+    exp = p9_strings_expected(np, data)
+    ctx = vt.Context(n_shards=N_SHARDS)
+    runs = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        fact = ctx.dense_from_numpy(data["keys"], data["vals"])
+        dims = ctx.dense_from_numpy(data["dims_k"], data["dims_v"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reduced = fact.reduce_by_key(op="add")
+        reduced.block()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        joined = reduced.join(dims)
+        joined.block()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        srt = joined.sort_by_key()
+        srt.block()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        rows = srt.collect()
+        t5 = time.perf_counter()
+        unify = [nd for nd in (joined.left, joined.right)
+                 if isinstance(nd, dense_rdd._DictUnifyRDD)]
+        retries = [nd._dict_retries for nd in unify]
+        runs.append(dict(encode_ms=(t1 - t0) * 1e3,
+                         reduce_ms=(t2 - t1) * 1e3, join_ms=(t3 - t2) * 1e3,
+                         sort_ms=(t4 - t3) * 1e3,
+                         collect_ms=(t5 - t4) * 1e3,
+                         device_ms=(t4 - t1) * 1e3, total_s=t5 - t0,
+                         retries=retries, launches=dict(ck.LAUNCHES)))
+        p9_check(f"9c run {i}: both join sides remapped onto the merged "
+                 f"dictionary, each with a capacity retry ({retries})",
+                 len(unify) == 2 and all(r >= 1 for r in retries)
+                 and len(joined._dicts()["k"]) == P9_VOCAB + P9_DIMS // 2)
+        if i == 0:
+            check_launched(runs[0]["launches"], "phase 9c's cold run")
+            keys = np.array([r[0] for r in rows])
+            p9_check("9c: the sorted joined rows equal numpy (keys, sums, "
+                     "dims values)",
+                     len(rows) == len(exp["k"])
+                     and np.array_equal(keys, exp["k"])
+                     and np.array_equal(np.array([r[1] for r in rows]),
+                                        exp["lv"])
+                     and np.array_equal(np.array([r[2] for r in rows]),
+                                        exp["rv"]))
+            kept = reduced
+        else:
+            p9_check(f"9c run {i}: rows equal the cold run's",
+                     len(rows) == len(exp["k"]) and rows[0][0] == exp["k"][0]
+                     and rows[-1][1] == exp["lv"][-1])
+        del fact, dims, joined, srt, rows, unify
+    reload = p9_reload(np, ctx, kept, exp, data["vocab"])
+    ctx.stop()
+    del kept
+    torch.cuda.empty_cache()
+    warm = runs[1:]
+    res = dict(rows=P9_STR_ROWS, vocab=P9_VOCAB, dims=P9_DIMS,
+               merged_words=P9_VOCAB + P9_DIMS // 2, runs=runs,
+               median_encode_ms=statistics.median(r["encode_ms"]
+                                                  for r in warm),
+               median_device_ms=statistics.median(r["device_ms"]
+                                                  for r in warm),
+               median_total_s=statistics.median(r["total_s"] for r in warm),
+               reload=reload)
+    log(f"9c strings: {json.dumps(res)}")
+    return res
+
+
+def p9_reload(np, ctx, reduced, exp, vocab):
+    """(d) the reduced string block saved and reloaded in 4 chunks."""
+    from vega_tpu_torch import stream
+
+    os.makedirs(P9_NPZ_DIR, exist_ok=True)
+    path = os.path.join(P9_NPZ_DIR, "strings.npz")
+    try:
+        t0 = time.perf_counter()
+        reduced.save_npz(path)
+        st = ctx.dense_load_npz(path, chunk_rows=P9_RELOAD_CHUNK_ROWS)
+        p9_check("9d: the reload streams in 4 chunks",
+                 isinstance(st, stream.StreamedDenseRDD)
+                 and st.n_chunks == 4)
+        got = st.reduce_by_key(op="add").collect_arrays()
+        o = np.argsort(got["k"])
+        p9_check("9d: the streamed reload's sums equal numpy per word",
+                 got["k"].dtype.kind == "U"
+                 and np.array_equal(got["k"][o], vocab)
+                 and np.array_equal(got["v"][o].astype(np.int64),
+                                    exp["sums"]))
+        out = dict(rows=int(len(o)), chunks=st.n_chunks,
+                   bytes=os.path.getsize(path),
+                   ms=(time.perf_counter() - t0) * 1e3)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    log(f"9d string checkpoint: {out}")
+    return out
+
+
+def phase_nine(torch, np, ck, vt):
+    """Phase 9: (a) the programs at bench-main scale, (b) stream-1b under
+    dense_exchange="auto" (the planner's 5 chunks), (c) the string query
+    and (d) its checkpoint. Launches are counted over the whole phase."""
+    from vega_tpu_torch import stream
+
+    launches = {name: 0 for name in ck.LAUNCHES}
+
+    def add(d):
+        for name, c in d.items():
+            launches[name] += c
+
+    programs = p9_programs(torch, np, ck, vt)
+    for r in programs:
+        add(r["launches"])
+    ctx = vt.Context(n_shards=N_SHARDS)
+    src = ctx.dense_range(P8_ROWS)
+    p9_check(f"9b: under auto, dense_range(1e9) streams in {P9_CHUNKS} "
+             f"chunks of {P9_CHUNK_ROWS} rows (the reference planner's)",
+             ctx.dense_exchange == "auto"
+             and isinstance(src, stream.StreamedDenseRDD)
+             and src.n_chunks == P9_CHUNKS
+             and stream.planned_chunk_rows(
+                 P8_ROWS, 4, ctx.dense_hbm_budget, n_shards=N_SHARDS)
+             == P9_CHUNK_ROWS)
+    north, reduced = p8_north_star(torch, np, ck, stream, ctx, src,
+                                   chunks=P9_CHUNKS,
+                                   chunk_rows=P9_CHUNK_ROWS, label="9b")
+    north["exchange_plans"] = ctx.exchange_plans()
+    for r in [dict(launches=north["launches"])] + [
+            dict(launches=w) for w in north["warm_launches"]]:
+        add(r["launches"])
+    del reduced, src
+    ctx.stop()
+    torch.cuda.empty_cache()
+    strings = p9_strings(torch, np, ck, vt)
+    for r in strings["runs"]:
+        add(r["launches"])
+    return dict(programs=programs, north_star=north, strings=strings,
+                launches=launches)
 
 
 def main():
@@ -2183,6 +2653,8 @@ def main():
     del data
     # 8. streamed sources, checkpoints and the block lifetime
     eight = phase_eight(torch, np, ck, vt)
+    # 9. the exchange programs, stream-1b under the planner, strings
+    nine = phase_nine(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -2194,7 +2666,8 @@ def main():
          "config3_launches": config3["launches"][r["name"]],
          "new_ops_launches": new_ops["launches"][r["name"]],
          "phase7_launches": seven["launches"][r["name"]],
-         "phase8_launches": eight["launches"][r["name"]]}
+         "phase8_launches": eight["launches"][r["name"]],
+         "phase9_launches": nine["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -2206,7 +2679,8 @@ def main():
                                plain_and_library="eager calls"),
                    kernels=table, radix_and_cold=radix, main_path=main_path,
                    plans=plans, keyed=keyed, config3=config3,
-                   new_ops=new_ops, phase7=seven, phase8=eight)
+                   new_ops=new_ops, phase7=seven, phase8=eight,
+                   phase9=nine)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -2281,6 +2755,29 @@ def main():
           flush=True)
     print(f"phase 8f range_bucket subnormals equal on the card and the CPU: "
           f"{json.dumps(eight['range_bucket'])} on {card}", flush=True)
+    for r in nine["programs"]:
+        print(f"phase 9a {r['label']}: {r['median_ms']:.3f} ms warm median "
+              f"of 3 ({r['rows_per_s']:.1f} rows/s), cold {r['cold_s']:.3f} "
+              f"s, plan {json.dumps(r['plan'])} at budget {r['budget']}, "
+              f"measured exchange peak {r['exchange_peak_bytes']} bytes, "
+              f"step peak {r['step_peak_bytes']} bytes, model 8 x est "
+              f"{r['model_peak_bytes']} bytes on {card}", flush=True)
+    r = nine["north_star"]
+    a = eight["north_star"]
+    print(f"phase 9b 1B group_by+join under auto: {r['rows_per_s']:.1f} "
+          f"rows/s warm median of 3 ({r['chunks']} chunks of "
+          f"{r['chunk_rows']}), fold ms per chunk warm "
+          f"{json.dumps(r['warm_fold_ms'])}, peak {r['peak_bytes']} bytes, "
+          f"plans {json.dumps(r['exchange_plans'])}; beside 8a under "
+          f"all_to_all: {a['rows_per_s']:.1f} rows/s ({a['chunks']} chunks), "
+          f"peak {a['peak_bytes']} bytes on {card}", flush=True)
+    r = nine["strings"]
+    print(f"phase 9c strings ({r['rows']} rows, {r['vocab']} words, "
+          f"{r['merged_words']} merged): host encode "
+          f"{r['median_encode_ms']:.1f} ms, device steps "
+          f"{r['median_device_ms']:.1f} ms, whole {r['median_total_s']:.3f} "
+          f"s warm median of 2, runs {json.dumps(r['runs'])}; 9d checkpoint "
+          f"{json.dumps(r['reload'])} on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",

@@ -1,20 +1,18 @@
 """Streamed dense sources and .npz checkpoints of vega_tpu_torch against
 vega_tpu, on the CPU.
 
-One case for each test of tests/test_stream.py that applies to the port
-(the two exchange-planner tests do not: the planner is not ported, so both
-packages size chunks by the reference's legacy rule here, the reference
-with dense_exchange="all_to_all"). Each lineage runs through a vega_tpu
-Context("local") on the 8-device CPU mesh and through vega_tpu_torch's
-Context(device="cpu", n_shards=8), under the card's plans (xla sorts,
-fused_sort, no table plan). Integers are bit-identical, floats within
-rtol 1e-5.
+One case for each test of tests/test_stream.py that applies to the port.
+Each lineage runs through a vega_tpu Context("local") on the 8-device CPU
+mesh and through vega_tpu_torch's Context(device="cpu", n_shards=8), under
+the card's plans (xla sorts, fused_sort, no table plan) and both packages'
+default dense_exchange="auto", so chunks are sized by the exchange planner
+in both; the legacy 6x rule is held under a forced all_to_all. Integers
+are bit-identical, floats within rtol 1e-5.
 
 Recorded differences, pinned here: an untraceable closure on a stream
 falls back to the reference's host tier and raises VegaError in the port
 when the op is built (it has no host tier); a key function in
-take_ordered / top likewise; a string column in a streamed npz raises
-(dictionary encoding is not ported).
+take_ordered / top likewise.
 """
 
 import jax.numpy as jnp
@@ -32,24 +30,25 @@ from vega_tpu_torch.stream import StreamedDenseRDD
 N_SHARDS = 8
 PLANS = {"dense_rbk_plan": "fused_sort", "dense_table_plan": "off",
          "dense_sort_impl": "xla"}
-# the reference's chunk sizing equals the port's under a forced exchange
-REF_CONF = dict(PLANS, dense_exchange="all_to_all")
 
 
 class _Ctxs:
-    """A reference Context and a port Context of one budget."""
+    """A reference Context and a port Context of one budget and one
+    dense_exchange."""
 
-    def __init__(self, budget=4 << 30):
+    def __init__(self, budget=4 << 30, exchange="auto"):
         from vega_tpu.env import Env
 
         self.ref = v.Context("local", num_workers=2)
         conf = Env.get().conf
-        self._restore = {k: getattr(conf, k)
-                         for k in list(REF_CONF) + ["dense_hbm_budget"]}
-        for k, val in dict(REF_CONF, dense_hbm_budget=budget).items():
+        ref_conf = dict(PLANS, dense_hbm_budget=budget,
+                        dense_exchange=exchange)
+        self._restore = {k: getattr(conf, k) for k in ref_conf}
+        for k, val in ref_conf.items():
             setattr(conf, k, val)
         self.port = vt.Context(device="cpu", n_shards=N_SHARDS,
-                               dense_hbm_budget=budget, **PLANS)
+                               dense_hbm_budget=budget,
+                               dense_exchange=exchange, **PLANS)
 
     def stop(self):
         from vega_tpu.env import Env
@@ -87,38 +86,90 @@ GRID = [
     (5, 4, 0, None), (10**12, 8, 1 << 20, None), (100, 4, 1, None),
     (1_000_000, 12, 4 << 30, 7),
 ]
+# the planner's cases (n_shards given, dense_exchange="auto", the
+# reference at its default): the 1B north star, bench-main at phase 8e's
+# 256 MiB, a source that fits, tiny budgets, a forced chunk_rows
+AUTO_GRID = [
+    (1_000_000_000, 4, 4 << 30, None, 8), (1_000_000_000, 8, 4 << 30, None, 8),
+    (20_000_000, 4, 256 << 20, None, 8), (1000, 4, 4 << 30, None, 8),
+    (2_000_000, 4, 1 << 20, None, 8), (60_000, 4, 1 << 19, None, 8),
+    (10_000_000, 1024, 1 << 30, None, 8), (1_000_000, 12, 4 << 30, 7, 8),
+    (5_000_000, 4, 1 << 24, None, 4), (300_000, 8, 1 << 22, None, 1),
+]
 
 
-@pytest.mark.parametrize("n_rows,bpr,budget,chunk_rows", GRID)
+@pytest.mark.parametrize(
+    "n_rows,bpr,budget,chunk_rows,n_shards",
+    [pytest.param(*g, None, id="-".join(map(str, g))) for g in GRID]
+    + [pytest.param(*g, id="auto-" + "-".join(map(str, g)))
+       for g in AUTO_GRID])
 def test_planned_chunk_rows_matches_reference(n_rows, bpr, budget,
-                                              chunk_rows):
-    """The legacy rule: None when 6x the bytes fit, else 1M-row multiples
-    rounded down, or a power of two of at least 128 below 1M."""
-    got = stream.planned_chunk_rows(n_rows, bpr, budget, chunk_rows)
+                                              chunk_rows, n_shards):
+    """Without n_shards, the legacy rule: None when 6x the bytes fit,
+    else 1M-row multiples rounded down, or a power of two of at least 128
+    below 1M. With n_shards under "auto" (the reference at its default),
+    the exchange planner's chunk, whose aggregate planned peak fits the
+    budget."""
+    from vega_tpu.env import Env
+    from vega_tpu_torch import exchange_plan
+
+    assert Env.get().conf.dense_exchange == "auto"
+    got = stream.planned_chunk_rows(n_rows, bpr, budget, chunk_rows,
+                                    n_shards=n_shards)
     assert got == ref_stream.planned_chunk_rows(n_rows, bpr, budget,
-                                                chunk_rows)
-    if got is not None and chunk_rows is None and got >= 128:
+                                                chunk_rows,
+                                                n_shards=n_shards)
+    if got is None or chunk_rows is not None or got < 128:
+        return
+    if n_shards is None:
         assert got * bpr * 6 <= budget or got == 128
+    else:
+        plan = exchange_plan.predict_for_rows(got, bpr, n_shards, budget)
+        assert n_shards * plan.est_peak_bytes <= budget or got == 128
 
 
-def test_one_billion_rows_stream_in_six_chunks(ctxs):
-    """BASELINE's north star at the default budget: 6 chunks of 170 *
-    2^20 rows in both packages, and nothing of the 1B rows built."""
+def test_one_billion_rows_stream_in_six_chunks():
+    """BASELINE's north star at the default budget under a forced
+    all_to_all (the legacy 6x rule): 6 chunks of 170 * 2^20 rows in both
+    packages, and nothing of the 1B rows built."""
+    c = _Ctxs(exchange="all_to_all")
+    ref, port = c.ref, c.port
+    try:
+        s = port.dense_range(1_000_000_000)
+        r = ref.dense_range(1_000_000_000)
+        assert isinstance(s, StreamedDenseRDD)
+        assert isinstance(r, ref_stream.StreamedDenseRDD)
+        assert s.n_chunks == r.n_chunks == 6
+        assert stream.planned_chunk_rows(10**9, 4, 4 << 30) == 178_257_920
+        assert s._resident_memo is None
+        assert port.dense_hbm_in_use() == 0
+        # a second source of the same size at the default budget of a
+        # Context built with no arguments but the device and the program
+        plain = vt.Context(device="cpu", dense_exchange="all_to_all")
+        try:
+            assert plain.dense_hbm_budget == 4 << 30
+            assert plain.dense_range(1_000_000_000).n_chunks == 6
+        finally:
+            plain.stop()
+    finally:
+        c.stop()
+
+
+def test_one_billion_rows_stream_in_five_chunks_under_auto(ctxs):
+    """The same source under both packages' default dense_exchange="auto":
+    the planner's 5 chunks of 221,249,536 rows (the reference's count)."""
     ref, port = ctxs
     s = port.dense_range(1_000_000_000)
     r = ref.dense_range(1_000_000_000)
     assert isinstance(s, StreamedDenseRDD)
-    assert isinstance(r, ref_stream.StreamedDenseRDD)
-    assert s.n_chunks == r.n_chunks == 6
-    assert stream.planned_chunk_rows(10**9, 4, 4 << 30) == 178_257_920
+    assert s.n_chunks == r.n_chunks == 5
+    assert stream.planned_chunk_rows(10**9, 4, 4 << 30,
+                                     n_shards=N_SHARDS) == 221_249_536
     assert s._resident_memo is None
-    assert port.dense_hbm_in_use() == 0
-    # a second source of the same size at the default budget of a
-    # Context built with no arguments but the device
     plain = vt.Context(device="cpu")
     try:
-        assert plain.dense_hbm_budget == 4 << 30
-        assert plain.dense_range(1_000_000_000).n_chunks == 6
+        assert plain.dense_exchange == "auto"
+        assert plain.dense_range(1_000_000_000).n_chunks == 5
     finally:
         plain.stop()
 
@@ -590,18 +641,39 @@ def test_streamed_wide_value_reduce_equals_resident(ctxs):
 
 
 def test_streamed_npz_string_column_raises(ctxs, tmp_path):
-    """Pinned difference: the reference dictionary-encodes a string
-    column once over the file; the port raises until dictionary encoding
-    is ported."""
+    """A string column raises only under dense_dict_enabled=False, as the
+    reference's encoding does. Otherwise it is dictionary-encoded once
+    over the file, so every chunk shares one dictionary and the fold
+    merges without a unification; the streamed reduce equals the
+    reference's, and a save_npz / dense_load_npz round trip (either
+    package's file, resident and streamed) keeps the strings."""
     ref, port = ctxs
     words = np.array(["a", "bb", "a", "c"] * 10)
     cols = {"k": words, "v": np.arange(40, dtype=np.int32)}
     r = ref_stream.streamed_npz(ref, cols, chunk_rows=7)
-    assert dict(r.reduce_by_key(op="add").collect())["a"] == \
-        sum(range(0, 40, 4)) + sum(range(2, 40, 4))
-    with pytest.raises(VegaError, match="string"):
-        stream.streamed_npz(port, cols, chunk_rows=7)
-    path = str(tmp_path / "s.npz")
-    np.savez(path, **cols)
-    with pytest.raises(VegaError, match="string"):
-        port.dense_load_npz(path)
+    s = stream.streamed_npz(port, cols, chunk_rows=7)
+    assert s.n_chunks == r.n_chunks == 6
+    chunks = list(s._make_chunks())
+    assert all(c._dicts()["k"] is chunks[0]._dicts()["k"] for c in chunks)
+    got = dict(s.reduce_by_key(op="add").collect())
+    assert got == dict(r.reduce_by_key(op="add").collect())
+    assert got["a"] == sum(range(0, 40, 4)) + sum(range(2, 40, 4))
+    for writer in (port, ref):
+        path = str(tmp_path / f"s_{writer is port}.npz")
+        writer.dense_from_numpy(words, cols["v"]).save_npz(path)
+        with np.load(path) as z:
+            assert z["k"].dtype.kind == "U"
+            np.testing.assert_array_equal(z["k"], words)
+        assert port.dense_load_npz(path).collect() == \
+            ref.dense_load_npz(path).collect()
+        sp = port.dense_load_npz(path, chunk_rows=10)
+        sr = ref.dense_load_npz(path, chunk_rows=10)
+        assert sp.n_chunks == sr.n_chunks == 4
+        assert dict(sp.reduce_by_key(op="max").collect()) == \
+            dict(sr.reduce_by_key(op="max").collect())
+    with vt.Context(device="cpu", n_shards=N_SHARDS,
+                    dense_dict_enabled=False) as off:
+        with pytest.raises(VegaError, match="dense_dict_enabled"):
+            stream.streamed_npz(off, cols, chunk_rows=7)
+        with pytest.raises(VegaError, match="dense_dict_enabled"):
+            off.dense_load_npz(path)

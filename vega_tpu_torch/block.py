@@ -10,7 +10,8 @@ int64 narrows to int32 when its values fit; float64 narrows to float32.
 An int64 column beyond int32, the KEY or a value, takes the reference's
 two-column encoding (<name> = high word, <name>.lo = biased low word;
 encode_key_columns, encode_value_columns) and host reads reassemble it.
-String dictionaries are not ported yet.
+A string column becomes int32 rank codes plus its sorted dictionary in
+Block.dicts (dict_encoding.py); host reads decode it (_decode_dict_cols).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from vega_tpu_torch import dict_encoding
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.mesh import ShardMesh
 
@@ -76,6 +78,16 @@ def decode_wide_cols(cols: dict) -> dict:
             for name, col in cols.items() if not is_lo(name)}
 
 
+def _decode_dict_cols(cols: dict, dicts) -> dict:
+    """Dictionary-encoded int32 code columns back to their strings, for
+    host reads; other columns pass through, order kept. Runs after
+    decode_wide_cols (a dictionary column never has a '.lo' word)."""
+    if not dicts:
+        return cols
+    return {name: (dicts[name][np.asarray(col)] if name in dicts else col)
+            for name, col in cols.items()}
+
+
 @dataclasses.dataclass
 class Block:
     cols: Dict[str, torch.Tensor]  # each [n_shards, capacity]
@@ -92,6 +104,10 @@ class Block:
     # (same object) from a clean rerun. Every host read settles first:
     # reading an unsettled block could observe capacity-truncated data.
     settle: Optional[Callable[[], None]] = None
+    # Dictionaries of the string columns: {name -> sorted host numpy array},
+    # the column holding int32 codes into it. Host metadata only, never on
+    # the device; None when no column is dictionary-encoded.
+    dicts: Optional[Dict[str, np.ndarray]] = None
 
     @property
     def n_shards(self) -> int:
@@ -126,20 +142,22 @@ class Block:
         ones."""
         counts = self.counts_np
         host = self._host_cols()
-        return decode_wide_cols({
+        return _decode_dict_cols(decode_wide_cols({
             name: np.concatenate([col[s, :counts[s]]
                                   for s in range(self.n_shards)])
-            for name, col in host.items()})
+            for name, col in host.items()}), self.dicts)
 
     def shard_rows(self, shard: int, limit: Optional[int] = None
                    ) -> Dict[str, np.ndarray]:
         """Shard `shard`'s valid rows on the host (the first `limit` of
-        them when given), wide keys reassembled."""
+        them when given), wide keys reassembled, strings decoded."""
         c = int(self.counts_np[shard])
         if limit is not None:
             c = min(c, limit)
-        return decode_wide_cols({name: col[shard, :c].cpu().numpy()
-                                 for name, col in self.cols.items()})
+        return _decode_dict_cols(
+            decode_wide_cols({name: col[shard, :c].cpu().numpy()
+                              for name, col in self.cols.items()}),
+            self.dicts)
 
 
 def _round_capacity(c: int) -> int:
@@ -159,8 +177,8 @@ def _check_dtype(name: str, src: np.ndarray) -> np.ndarray:
     if src.dtype.kind in "OUS":
         raise VegaError(
             f"column {name!r} has dtype {src.dtype} which has no device "
-            "representation in vega_tpu_torch (string columns are not "
-            "ported yet)")
+            "representation (a string column is dictionary-encoded "
+            "first; an object column of anything but strings has none)")
     if src.dtype in (np.int64, np.uint64, np.uint32):
         # torch has no uint32 arithmetic on every device, so unsigned
         # columns narrow to int32 too, under the same range check
@@ -234,12 +252,19 @@ def encode_value_columns(columns: Dict[str, np.ndarray]
 
 
 def from_numpy(columns: Dict[str, np.ndarray], mesh: ShardMesh,
-               capacity: Optional[int] = None) -> Block:
+               capacity: Optional[int] = None,
+               dicts: Optional[Dict[str, np.ndarray]] = None,
+               dict_enabled: bool = True) -> Block:
     """Row-shard host columns (equal lengths) over the mesh: shard s gets
     rows [s*per, (s+1)*per), per = ceil(n / n_shards), like the reference's
-    from_numpy. int64 columns beyond int32 are encoded first, as there."""
+    from_numpy. String columns are dictionary-encoded first (dicts: the
+    dictionaries of code columns a caller encoded already; dict_enabled
+    False makes a string column raise), then int64 columns beyond int32,
+    as there."""
     n_shards = mesh.n_shards
-    columns = encode_value_columns(encode_key_columns(dict(columns)))
+    columns, dicts = dict_encoding.encode_string_columns(
+        dict(columns), dicts, enabled=dict_enabled)
+    columns = encode_value_columns(encode_key_columns(columns))
     names = list(columns)
     n = len(columns[names[0]]) if names else 0
     per = -(-n // n_shards) if n else 0
@@ -259,7 +284,7 @@ def from_numpy(columns: Dict[str, np.ndarray], mesh: ShardMesh,
                 dst[s, :c] = src[s * per:s * per + c]
         cols[name] = torch.from_numpy(dst).to(mesh.device)
     return Block(cols=cols, counts=torch.from_numpy(counts).to(mesh.device),
-                 capacity=cap, mesh=mesh, counts_host=counts)
+                 capacity=cap, mesh=mesh, counts_host=counts, dicts=dicts)
 
 
 def from_reference_arrays(cols: Dict[str, np.ndarray], counts: np.ndarray,

@@ -9,24 +9,43 @@ A Context runs on CUDA unless the caller passes device="cpu"; with no card
 and no device it raises. Its n_shards virtual shards (default 8, the
 reference test mesh) are the leading dimension of every column tensor.
 
-Three plan settings, the reference's Configuration knobs, choose how dense
-programs sort and reduce; each takes 'auto', resolved by the Context's
-device as the reference resolves it by backend:
+Four plan settings, the reference's Configuration knobs, choose how dense
+programs sort, reduce and exchange; each takes 'auto'. The first three
+resolve by the Context's device as the reference resolves them by backend;
+dense_exchange resolves per exchange launch on every device:
 
     setting           values                         auto: cpu / cuda
     dense_sort_impl   xla | packed | radix | radix4  packed / xla
     dense_rbk_plan    fused_sort | sort_partition    sort_partition /
                                                      fused_sort
     dense_table_plan  on | off                       on / off
+    dense_exchange    all_to_all | staged | ring     planned per launch
 
-A misspelt value raises VegaError naming the allowed values.
+dense_exchange picks each exchange's program: 'auto' plans every launch
+with the cost model of exchange_plan.py (the one-shot all_to_all when its
+estimated peak fits dense_hbm_budget, else the staged exchange with the
+largest group that fits, else ring); the others force a program, as an
+op's exchange= keyword does for its own exchange. exchange_plans() counts
+the launches per program and those over the budget; each exchange node
+keeps its last plan in _exchange_plan.
+
+A misspelt value of any of these raises VegaError naming the allowed
+values.
 
 dense_hbm_budget (bytes, default 4 GiB, the reference's Configuration
-field) bounds device memory twice, as in the reference: a source whose
-one-shot exchange would need more (6x its bytes) streams in chunks
-(stream.py), and materialized intermediates beyond it are evicted in LRU
-order and recomputed from their lineage when read again
+field) bounds device memory three times, as in the reference: a source
+whose planned exchange would need more streams in chunks (stream.py; under
+a forced program, the legacy rule of 6x its bytes), each exchange launch
+plans against it, and materialized intermediates beyond it are evicted in
+LRU order and recomputed from their lineage when read again
 (dense_hbm_in_use).
+
+String columns of a host source are dictionary-encoded (dict_encoding.py)
+into int32 rank codes with a sorted host dictionary per column, decoded
+only when rows come back to the host. dense_dict_enabled=False makes a
+string column raise instead; dense_dict_capacity (default 65536) is the
+first size of the remap tables that put two sides' codes onto one merged
+dictionary (doubled and retried on overflow).
 """
 
 from __future__ import annotations
@@ -37,6 +56,7 @@ from typing import Optional
 import torch
 
 from vega_tpu_torch import dense_rdd
+from vega_tpu_torch import exchange_plan
 from vega_tpu_torch import kernels
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.mesh import make_mesh
@@ -46,11 +66,23 @@ class Context:
     def __init__(self, device: Optional[str] = None, n_shards: int = 8,
                  dense_sort_impl: str = "auto", dense_rbk_plan: str = "auto",
                  dense_table_plan: str = "auto",
-                 dense_hbm_budget: int = 4 << 30):
+                 dense_hbm_budget: int = 4 << 30,
+                 dense_exchange: str = "auto",
+                 dense_dict_enabled: bool = True,
+                 dense_dict_capacity: int = 65536):
         if dense_hbm_budget < 0:
             raise VegaError(f"dense_hbm_budget must be >= 0 bytes, got "
                             f"{dense_hbm_budget}")
         self.dense_hbm_budget = int(dense_hbm_budget)
+        self.dense_exchange = exchange_plan.check_mode(dense_exchange)
+        self.dense_dict_enabled = bool(dense_dict_enabled)
+        if int(dense_dict_capacity) < 1:
+            raise VegaError(f"dense_dict_capacity must be >= 1, got "
+                            f"{dense_dict_capacity}")
+        self.dense_dict_capacity = int(dense_dict_capacity)
+        # the planned exchange launches of this Context
+        # (exchange_plan.add_to_summary)
+        self._exchange_plans = exchange_plan.new_plan_summary()
         self.mesh = make_mesh(n_shards, device)
         dev = self.mesh.device
         self.dense_sort_impl = kernels.resolve_backend_mode(
@@ -88,8 +120,9 @@ class Context:
     def dense_range(self, n: int, dtype=torch.int32,
                     chunk_rows: Optional[int] = None):
         """Device iota source of n rows (int32 unless dtype says). It
-        streams in chunks (a StreamedDenseRDD) when 6x its bytes exceed
-        dense_hbm_budget, or when chunk_rows is given and below n."""
+        streams in chunks (a StreamedDenseRDD) when its planned exchange
+        would pass dense_hbm_budget (stream.planned_chunk_rows), or when
+        chunk_rows is given and below n."""
         self._check_running()
         return dense_rdd.dense_range(self, n, dtype, chunk_rows=chunk_rows)
 
@@ -112,6 +145,14 @@ class Context:
         does."""
         self._check_running()
         return dense_rdd.dense_load_npz(self, path, chunk_rows=chunk_rows)
+
+    def exchange_plans(self) -> dict:
+        """The exchange launches this Context planned: per program
+        (all_to_all, staged, ring), the staged rounds summed, the largest
+        estimated per-shard peak and how many launches were over the
+        budget even as ring (the reference's
+        metrics_summary()["exchange_plans"])."""
+        return dict(self._exchange_plans)
 
     def dense_hbm_in_use(self) -> int:
         """Tracked device bytes of materialized dense intermediates

@@ -27,6 +27,13 @@ key sort, the combine, then a counting partition by bucket) and
 dense_table_plan (a warm reduce whose key range was observed small runs as
 a dense per-key table, with no sort and no row exchange).
 
+Each exchange launch runs the program _ExchangeRDD._resolve_exchange picks
+at its capacities: under dense_exchange="auto" the exchange planner's
+(exchange_plan.py: the one-shot kernels.bucket_exchange when its estimated
+peak fits dense_hbm_budget, else ring.staged_exchange with the largest
+group that fits, else ring.ring_exchange), or the program the Context or
+the op's exchange= keyword forces. Elided exchanges plan nothing.
+
 Exchanges run the reference's _run_exchange in both its forms. Blocking:
 the counts, the extra outputs and the overflow flags come back in one
 fetch, and an overflow retries at larger capacities, up to 6 rounds.
@@ -41,6 +48,12 @@ no values), as the reference traces on abstract values: a Python
 constant broadcasts to a column of the reference's weak type, bool columns
 are carried, 64-bit outputs narrow to 32 bits, and a branch on a value
 raises VegaError when the op is built.
+
+A string column is int32 rank codes plus a host dictionary (_dicts, known
+from the lineage; block.dicts once materialized), decoded at host reads.
+Binary ops put two sides' dictionaries onto their merged one first
+(_unify_dict_cols: _DictUnifyRDD's remap gather, its table doubled and
+retried on overflow); a row function over a string column raises.
 
 An int64 column beyond int32, key or value, is the two-column (<name>,
 <name>.lo) encoding. Every keyed op runs on a wide key (an int32 key
@@ -75,6 +88,8 @@ import numpy as np
 import torch
 
 from vega_tpu_torch import block as block_lib
+from vega_tpu_torch import dict_encoding
+from vega_tpu_torch import exchange_plan
 from vega_tpu_torch import kernels
 from vega_tpu_torch import cuda_kernels
 from vega_tpu_torch import stream
@@ -240,7 +255,16 @@ class DenseRDD:
         invalidates and repairs them too; everything else uses block()."""
         blk = self._block
         if blk is None:
-            blk = self._block = self._materialize()
+            blk = self._materialize()
+            if blk.dicts is None:
+                # the one place the dictionaries of string columns attach:
+                # materializers build plain code-column blocks, and the
+                # lineage's dictionaries (_dicts) hang on here so host
+                # reads decode (sources carry theirs from from_numpy)
+                d = self._dicts()
+                if d:
+                    blk.dicts = dict(d)
+            self._block = blk
             # sources set _block when built and never take this branch
             _lifetime_register(self)
         else:
@@ -268,6 +292,41 @@ class DenseRDD:
 
     def _fp_extra(self):
         return ()
+
+    def _dicts(self) -> Dict[str, np.ndarray]:
+        """{column name -> sorted host dictionary} of every string
+        (dictionary-encoded) column of this node's output, known from the
+        lineage without materializing. By default the parents' (the first
+        parent wins a name), kept to this node's schema; a node that mints
+        or moves columns sets _dict_renames ({out name -> parent name}),
+        which replaces the walk ({}: every output column is new).
+        Memoized."""
+        memo = getattr(self, "_dicts_memo", None)
+        if memo is not None:
+            return memo
+        parent_dicts: Dict[str, np.ndarray] = {}
+        for p in self._dense_parents:
+            for nm, d in p._dicts().items():
+                parent_dicts.setdefault(nm, d)
+        renames = getattr(self, "_dict_renames", None)
+        if renames is not None:
+            out = {out_nm: parent_dicts[src]
+                   for out_nm, src in renames.items() if src in parent_dicts}
+        else:
+            out = parent_dicts
+        names = {nm for nm, _ in self._schema()}
+        res = {nm: d for nm, d in out.items() if nm in names}
+        self._dicts_memo = res
+        return res
+
+    def _refuse_dict_rows(self, op: str) -> None:
+        """A row function over a string column would see its int32 codes,
+        not the strings: the reference hands it to its host tier, where
+        it sees the strings."""
+        d = self._dicts()
+        if d:
+            raise _no_host_tier(f"{op} over the string (dictionary-encoded) "
+                                f"columns {sorted(d)}")
 
     def _lineage_fp(self):
         """Structural identity of the lineage (node types and parameters,
@@ -353,6 +412,7 @@ class DenseRDD:
         float -> float32, bool -> bool). int64 / float64 outputs narrow to
         int32 / float32, as the reference's 32-bit trace gives them."""
         self._refuse_wide_rows("map")
+        self._refuse_dict_rows("map")
         return _MapRDD(self, f)
 
     def filter(self, predicate: Callable) -> "DenseRDD":
@@ -360,6 +420,7 @@ class DenseRDD:
         map's f) is true; each shard compacts stably, so placement and key
         order pass through."""
         self._refuse_wide_rows("filter")
+        self._refuse_dict_rows("filter")
         return _FilterRDD(self, predicate)
 
     def map_expand(self, f: Callable, factor: int) -> "DenseRDD":
@@ -369,6 +430,7 @@ class DenseRDD:
         tensor or a (key, value) pair of them. Row i's outputs come out
         contiguous and in order, at capacity round(capacity * factor)."""
         self._refuse_wide_rows("map_expand")
+        self._refuse_dict_rows("map_expand")
         return _MapExpandRDD(self, f, factor)
 
     def flat_map_ragged(self, f: Callable,
@@ -380,6 +442,7 @@ class DenseRDD:
         to [0, max_out_per_row]. Output capacity is capacity *
         max_out_per_row, so nothing can overflow."""
         self._refuse_wide_rows("flat_map_ragged")
+        self._refuse_dict_rows("flat_map_ragged")
         return _FlatMapRaggedRDD(self, f, max_out_per_row)
 
     def sample(self, with_replacement: bool, fraction: float,
@@ -410,6 +473,9 @@ class DenseRDD:
                 "map_values needs exactly one value column (have "
                 f"{value_names}); use select(...) or a tuple-valued "
                 "reduce_by_key on multi-column blocks")
+        if value_names[0] in self._dicts():
+            raise _no_host_tier("map_values over a string "
+                                "(dictionary-encoded) value column")
         return _MapValuesRDD(self, f)
 
     def select(self, *names: str) -> "DenseRDD":
@@ -472,7 +538,8 @@ class DenseRDD:
             return self.select(VALUE)
         return _ProjectRDD(self, VALUE)
 
-    def reduce_by_key(self, func=None, *, op: Optional[str] = None):
+    def reduce_by_key(self, func=None, *, op: Optional[str] = None,
+                      exchange: Optional[str] = None):
         """Device shuffle: map-side combine, exchange, reduce-side merge of
         every value column per key (a wide key's two words are the key).
         A named op (add/min/max/prod, or a binop _infer_named_op
@@ -480,7 +547,10 @@ class DenseRDD:
         traced, through kernels.segment_reduce_sorted: a scalar binop over
         one value column, a tuple binop (one scalar per column) over
         several. Wide int64 values take add / min / max, exact: a total
-        outside int64 raises VegaError."""
+        outside int64 raises VegaError. String values take min / max (of
+        their rank codes). exchange= forces the exchange's program
+        (all_to_all, staged, ring) or plans it (auto); None follows the
+        Context's dense_exchange."""
         if not self.is_pair:
             raise VegaError("reduce_by_key on non-pair DenseRDD")
         if op is None and func is None:
@@ -488,11 +558,21 @@ class DenseRDD:
         wide = block_lib.wide_value_pairs(self.columns)
         if op is None:
             op = _infer_named_op(func)
+        dict_vals = sorted(nm for nm in self._dicts()
+                           if nm not in (KEY, KEY_LO))
+        if dict_vals and op not in ("min", "max"):
+            # rank codes: min / max of codes are those of the strings; any
+            # other fold would compute on code values
+            raise _no_host_tier(f"reduce_by_key over the string "
+                                f"(dictionary-encoded) value columns "
+                                f"{dict_vals} with op={op!r} (only min / "
+                                "max have a meaning on the codes)")
         if op is None or (wide and func is not None and op == "prod"):
             if wide:
                 raise _no_host_tier("a traced binop over wide int64 values "
                                     "(no scalar row form)")
-            return _ReduceByKeyRDD(self, None, func)
+            return _with_exchange(_ReduceByKeyRDD(self, None, func),
+                                  exchange)
         if op not in kernels.SEGMENT_OPS:
             raise VegaError(f"unknown op {op!r}; expected one of "
                             f"{kernels.SEGMENT_OPS}")
@@ -500,7 +580,7 @@ class DenseRDD:
             raise VegaError("reduce_by_key(op='prod') over int64 (wide) "
                             "values has no device path; the reference's "
                             "host tier keeps exact products")
-        return _ReduceByKeyRDD(self, op)
+        return _with_exchange(_ReduceByKeyRDD(self, op), exchange)
 
     def sum_by_key(self) -> "DenseRDD":
         return self.reduce_by_key(op="add")
@@ -514,8 +594,8 @@ class DenseRDD:
         return _OnesValueRDD(self).reduce_by_key(op="add")
 
     def combine_by_key(self, create_combiner: Callable,
-                       merge_value: Callable, merge_combiners: Callable
-                       ) -> "DenseRDD":
+                       merge_value: Callable, merge_combiners: Callable,
+                       *, exchange: Optional[str] = None) -> "DenseRDD":
         """map_values(create_combiner), then a reduce by merge_combiners
         (named when _infer_named_op recognizes it, else traced): the host
         semantics under the combiner contract merge_value(c, v) ==
@@ -525,11 +605,16 @@ class DenseRDD:
         if block_lib.wide_value_pairs(self.columns):
             raise _no_host_tier("combine_by_key over wide int64 values (no "
                                 "device row form)")
+        if any(nm not in (KEY, KEY_LO) for nm in self._dicts()):
+            raise _no_host_tier("combine_by_key over string "
+                                "(dictionary-encoded) values")
         if not self._value_names():
             raise VegaError("combine_by_key needs a value column")
         mapped = _MapValuesRDD(self, create_combiner)
         op = _infer_named_op(merge_combiners)
-        return _ReduceByKeyRDD(mapped, op, None if op else merge_combiners)
+        return _with_exchange(
+            _ReduceByKeyRDD(mapped, op, None if op else merge_combiners),
+            exchange)
 
     def _join_sides(self, other, op: str):
         """The checks join, left_outer_join and cogroup share: two dense
@@ -544,16 +629,20 @@ class DenseRDD:
             side._check_keyed(op)
         return _align_keys(self, other, op)
 
-    def join(self, other: "DenseRDD") -> "DenseRDD":
+    def join(self, other: "DenseRDD", *,
+             exchange: Optional[str] = None) -> "DenseRDD":
         """Device sort-merge inner join with full duplicate-key semantics:
-        (k, (lv, rv)) rows. An int32 key meeting an int64 one widens."""
-        return _JoinRDD(*self._join_sides(other, "join"))
+        (k, (lv, rv)) rows. An int32 key meeting an int64 one widens;
+        string keys of two dictionaries meet on their merged one.
+        exchange= as reduce_by_key's."""
+        return _with_exchange(_JoinRDD(*self._join_sides(other, "join")),
+                              exchange)
 
-    def left_outer_join(self, other: "DenseRDD",
-                        fill_value=0) -> "DenseRDD":
+    def left_outer_join(self, other: "DenseRDD", fill_value=0, *,
+                        exchange: Optional[str] = None) -> "DenseRDD":
         """Device left-outer join (duplicate keys on both sides): a left
         row with no match keeps fill_value, cast to the right column's
-        dtype, in rv."""
+        dtype, in rv. exchange= as reduce_by_key's."""
         if fill_value is None:
             raise _no_host_tier("left_outer_join with fill_value=None (a "
                                 "dense column cannot hold None)")
@@ -562,8 +651,13 @@ class DenseRDD:
             raise _no_host_tier("left_outer_join with a wide int64 right "
                                 "value (the fill would land in its encoded "
                                 "words)")
-        return _JoinRDD(*self._join_sides(other, "left_outer_join"),
-                        outer=True, fill_value=fill_value)
+        if isinstance(other, DenseRDD) and any(
+                nm not in (KEY, KEY_LO) for nm in other._dicts()):
+            raise _no_host_tier("left_outer_join with a string right value "
+                                "(the fill would land in its codes)")
+        return _with_exchange(
+            _JoinRDD(*self._join_sides(other, "left_outer_join"),
+                     outer=True, fill_value=fill_value), exchange)
 
     def _check_keyed(self, op: str) -> None:
         if not self.is_pair:
@@ -575,20 +669,24 @@ class DenseRDD:
                 f"{self._schema()}; select(...) down to one value column "
                 f"and rename(...) it to {VALUE!r} first")
 
-    def group_by_key(self) -> "DenseRDD":
+    def group_by_key(self, *, exchange: Optional[str] = None
+                     ) -> "DenseRDD":
         """Device group_by_key: exchange by key hash, sort within each
         shard; collect() assembles (key, [values]) on the host and
-        collect_grouped() returns the columnar form."""
+        collect_grouped() returns the columnar form. exchange= as
+        reduce_by_key's."""
         self._check_keyed("group_by_key")
-        return _GroupByKeyRDD(self)
+        return _with_exchange(_GroupByKeyRDD(self), exchange)
 
-    def sort_by_key(self, ascending: bool = True) -> "DenseRDD":
+    def sort_by_key(self, ascending: bool = True, *,
+                    exchange: Optional[str] = None) -> "DenseRDD":
         """Distributed sample sort: strided key samples fetched in one
         transfer give host range bounds, then a range exchange and a local
-        sort."""
+        sort (string keys sort by their rank codes, so as strings).
+        exchange= as reduce_by_key's."""
         if not self.is_pair:
             raise VegaError("sort_by_key on non-pair DenseRDD")
-        return _SortByKeyRDD(self, ascending)
+        return _with_exchange(_SortByKeyRDD(self, ascending), exchange)
 
     def cogroup(self, other: "DenseRDD") -> "_DenseCoGroupRDD":
         """Dense-dense cogroup: both sides group by key on the device
@@ -607,6 +705,9 @@ class DenseRDD:
                 and [n for n, _ in other._schema()] == [VALUE]):
             raise VegaError("cartesian needs two dense value RDDs (one "
                             "column each) on one mesh")
+        if self._dicts() or other._dicts():
+            raise _no_host_tier("cartesian of string (dictionary-encoded) "
+                                "values")
         return _CartesianDenseRDD(self, other)
 
     def _one_value_column(self, op: str) -> None:
@@ -621,13 +722,14 @@ class DenseRDD:
             raise _no_host_tier("distinct over pairs")
         self._refuse_wide_rows("distinct")
         self._one_value_column("distinct")
-        return _ReduceByKeyRDD(_MapRDD(self, _value_key_zero), "min") \
-            .keys_dense()
+        return _ReduceByKeyRDD(_value_to_key(self, _value_key_zero),
+                               "min").keys_dense()
 
-    def _set_op_sides(self, other, op: str) -> None:
+    def _set_op_sides(self, other, op: str):
         """Value RDDs on one mesh with equal value dtypes: an int32 2 and
         a float32 2.0 hash apart on the device but compare equal on the
-        host, so a mismatch is the host tier's."""
+        host, so a mismatch is the host tier's. Returns the two sides,
+        string values put onto one dictionary (_unify_dict_cols)."""
         if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
             raise VegaError(f"{op} needs two dense RDDs on one mesh")
         if self.is_pair or other.is_pair:
@@ -639,38 +741,43 @@ class DenseRDD:
         ld, rd = dict(self._schema())[VALUE], dict(other._schema())[VALUE]
         if ld != rd:
             raise _no_host_tier(f"{op} of value dtypes {ld} and {rd}")
+        return _unify_or_refuse(self, other, (VALUE,), op)
 
     def intersection(self, other: "DenseRDD") -> "DenseRDD":
         """The values of both, each once: both sides dedup through a keyed
         reduce (hash-placed and key-sorted, so the join elides both
-        exchanges and sorts), then the joined keys."""
-        self._set_op_sides(other, "intersection")
+        exchanges and sorts), then the joined keys. String values meet on
+        their merged dictionary."""
+        left, right = self._set_op_sides(other, "intersection")
 
         def dedup(side):
-            return _ReduceByKeyRDD(_MapRDD(side, _value_key_zero), "min")
-        return _JoinRDD(dedup(self), dedup(other)).keys_dense()
+            return _ReduceByKeyRDD(_value_to_key(side, _value_key_zero),
+                                   "min")
+        return _JoinRDD(dedup(left), dedup(right)).keys_dense()
 
     def subtract(self, other: "DenseRDD") -> "DenseRDD":
         """self's values (duplicates kept) that never occur in other: a
         left outer join against other's deduped values marked 1 (fill 0),
         filtered on the mark; the marks side is a reduce output, so its
         exchange is elided."""
-        self._set_op_sides(other, "subtract")
-        keyed = _MapRDD(self, _value_key_one)
-        marks = _ReduceByKeyRDD(_MapRDD(other, _value_key_one), "min")
+        left, right = self._set_op_sides(other, "subtract")
+        keyed = _value_to_key(left, _value_key_one)
+        marks = _ReduceByKeyRDD(_value_to_key(right, _value_key_one), "min")
         joined = _JoinRDD(keyed, marks, outer=True, fill_value=0)
         return _FilterRDD(joined.select(KEY, "rv"), _unmarked).keys_dense()
 
     def union(self, other: "DenseRDD") -> "DenseRDD":
         """Per-shard concatenation of two RDDs of one schema (a streamed
-        operand as its resident build)."""
+        operand as its resident build); string columns of two
+        dictionaries meet on their merged one."""
         other = _resident(other)
         if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
             raise VegaError("union needs two dense RDDs on one mesh")
         if dict(self._schema()) != dict(other._schema()):
             raise _no_host_tier(f"union of schemas {self._schema()} and "
                                 f"{other._schema()}")
-        return _DenseUnionRDD(self, other)
+        return _DenseUnionRDD(*_unify_or_refuse(
+            self, other, self.columns, "union"))
 
     def zip(self, other: "DenseRDD") -> "DenseRDD":
         """(left value, right value) pairs of co-indexed rows: the shards'
@@ -745,10 +852,25 @@ class DenseRDD:
 
     def _named_reduce(self, op: str):
         """One per-shard masked reduce, the n_shards partials fetched at
-        once and reduced on the host as the reference reduces them."""
+        once and reduced on the host as the reference reduces them. A
+        string column takes min / max of its rank codes, decoded."""
+        vdict = self._dicts().get(VALUE)
+        if vdict is not None and op == "add":
+            raise VegaError(
+                "sum() over a string (dictionary-encoded) column has no "
+                "meaning; min()/max() are the defined string reductions")
         blk = self._value_block(op, wide_ok=True)
         if self._wide_value():
             return _named_reduce_wide(blk, op)
+        if vdict is not None:
+            # empty shards report the op's identity, never a code
+            partials, counts = _fetch_words([kernels.masked_reduce(
+                blk.cols[VALUE], blk.counts, op), blk.counts])
+            picked = partials[counts > 0]
+            if not picked.size:
+                raise VegaError(f"{op}() of empty DenseRDD")
+            code = picked.min() if op == "min" else picked.max()
+            return vdict[int(code)].item()
         partials = kernels.masked_reduce(blk.cols[VALUE], blk.counts,
                                          op).cpu().numpy()
         if op == "add":
@@ -779,6 +901,7 @@ class DenseRDD:
         if self.is_pair:
             raise _no_host_tier("reduce(f) over pairs")
         self._refuse_wide_rows("reduce(f)")
+        self._refuse_dict_rows("reduce(f)")
         dtype = dict(self._schema()).get(VALUE)
         binop = _check_binop(f, [dtype], "reduce")
         blk = self._value_block("reduce")
@@ -807,6 +930,7 @@ class DenseRDD:
         float32 partials (sum, sum of squares, min, max) per shard and the
         integer counts, combined on the host as the reference combines
         them."""
+        self._refuse_dict_rows("stats")
         blk = self._value_block("stats")
         v = blk.cols[VALUE].to(torch.float32)
         parts = torch.stack([kernels.masked_reduce(v, blk.counts, "add"),
@@ -846,6 +970,7 @@ class DenseRDD:
         lands in searchsorted(edges, v, right) - 1, clipped to the last
         bucket, and values outside [edges[0], edges[-1]] are dropped; the
         per-shard counts are summed on the card and fetched once."""
+        self._refuse_dict_rows("histogram")
         blk = self._value_block("histogram")
         if isinstance(buckets, int):
             lo, hi = self._min_max()
@@ -874,7 +999,7 @@ class DenseRDD:
             raise _no_host_tier("count_by_value over pairs")
         self._refuse_wide_rows("count_by_value")
         self._one_value_column("count_by_value")
-        return dict(_ReduceByKeyRDD(_MapRDD(self, _value_key_one),
+        return dict(_ReduceByKeyRDD(_value_to_key(self, _value_key_one),
                                     "add").collect())
 
     def take_ordered(self, n: int, key=None) -> list:
@@ -910,6 +1035,10 @@ class DenseRDD:
             [best[s, :n_valid[s]] for s in range(blk.n_shards)]))
         if largest:
             candidates = candidates[::-1]
+        vdict = self._dicts().get(VALUE)
+        if vdict is not None:
+            # rank codes order as their strings: decode the survivors
+            candidates = vdict[candidates[:n].astype(np.int64)]
         return candidates[:n].tolist()
 
     def _device_topk_rows(self, n: int, largest: bool) -> list:
@@ -939,11 +1068,14 @@ class DenseRDD:
              for nm, col in zip(names, per_col)})
         order_cols = list(merged.values())
         # np.lexsort: the last key is primary; stable like the device sort
+        # (string columns as their rank codes, which order as the strings)
         order_host = np.lexsort([c if not largest else
                                  (-c if np.issubdtype(c.dtype, np.floating)
                                   else ~c)
                                  for c in reversed(order_cols)])
-        return [tuple(c[i].item() for c in order_cols)
+        out_cols = list(block_lib._decode_dict_cols(
+            merged, self._dicts()).values())
+        return [tuple(c[i].item() for c in out_cols)
                 for i in order_host[:n]]
 
 
@@ -971,6 +1103,9 @@ class _SourceRDD(DenseRDD):
     def _schema(self):
         return tuple((n, c.dtype) for n, c in self._block.cols.items())
 
+    def _dicts(self):
+        return dict(self._block.dicts or {})
+
     def _fp_extra(self):
         return (tuple((n, str(c.dtype)) for n, c in self._block.cols.items()),
                 self._block.capacity, self._hash_placed)
@@ -986,12 +1121,14 @@ def _resident(rdd):
 def dense_range(ctx, n: int, dtype=torch.int32,
                 chunk_rows: Optional[int] = None):
     """Iota source built on the device (int32 by default). When the
-    one-shot exchange footprint of the whole block (6x its bytes) exceeds
-    ctx.dense_hbm_budget, or chunk_rows is given and below n, a
+    planned exchange of the whole block would pass ctx.dense_hbm_budget
+    (stream.planned_chunk_rows: the planner under dense_exchange="auto",
+    else 6x its bytes), or chunk_rows is given and below n, a
     StreamedDenseRDD of chunks instead."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     rows = stream.planned_chunk_rows(n, itemsize, ctx.dense_hbm_budget,
-                                     chunk_rows)
+                                     chunk_rows, n_shards=ctx.mesh.n_shards,
+                                     exchange=ctx.dense_exchange)
     if rows is not None and rows < n:
         return stream.streamed_range(ctx, n, rows, dtype)
     return _SourceRDD(ctx, block_lib.block_range(n, ctx.mesh, dtype))
@@ -1006,7 +1143,8 @@ def dense_from_numpy(ctx, columns) -> DenseRDD:
         cols = {KEY: np.asarray(columns[0]), VALUE: np.asarray(columns[1])}
     else:
         cols = {f"c{i}": np.asarray(c) for i, c in enumerate(columns)}
-    return _SourceRDD(ctx, block_lib.from_numpy(cols, ctx.mesh))
+    return _SourceRDD(ctx, block_lib.from_numpy(
+        cols, ctx.mesh, dict_enabled=ctx.dense_dict_enabled))
 
 
 def dense_from_columns(ctx, columns: Optional[dict] = None,
@@ -1040,7 +1178,8 @@ def dense_from_columns(ctx, columns: Optional[dict] = None,
             raise VegaError(f"column {KEY!r} already exists; key={key!r} "
                             "would overwrite it — rename one of them")
         named[KEY] = named.pop(key)
-    return _SourceRDD(ctx, block_lib.from_numpy(named, ctx.mesh))
+    return _SourceRDD(ctx, block_lib.from_numpy(
+        named, ctx.mesh, dict_enabled=ctx.dense_dict_enabled))
 
 
 def dense_from_block(ctx, blk: Block, hash_placed: bool = False
@@ -1052,9 +1191,10 @@ def dense_from_block(ctx, blk: Block, hash_placed: bool = False
 
 def dense_load_npz(ctx, path: str, chunk_rows: Optional[int] = None):
     """Load a file save_npz wrote (in either package), re-sharded onto
-    ctx's shards: a source, or a StreamedDenseRDD when 6x the file's
-    bytes exceed the budget (the host holds the file once; the device one
-    chunk), or chunk_rows is given and below its rows."""
+    ctx's shards: a source, or a StreamedDenseRDD when its planned
+    exchange would pass the budget, as dense_range's (the host holds the
+    file once; the device one chunk), or chunk_rows is given and below its
+    rows. String columns (saved decoded) are dictionary-encoded again."""
     with np.load(path, allow_pickle=False) as data:
         cols = {n: data[n] for n in data.files}
     n = len(next(iter(cols.values()))) if cols else 0
@@ -1062,10 +1202,12 @@ def dense_load_npz(ctx, path: str, chunk_rows: Optional[int] = None):
         c.dtype.itemsize * int(np.prod(c.shape[1:], dtype=np.int64))
         for c in cols.values()) or 1
     rows = stream.planned_chunk_rows(n, bytes_per_row, ctx.dense_hbm_budget,
-                                     chunk_rows)
+                                     chunk_rows, n_shards=ctx.mesh.n_shards,
+                                     exchange=ctx.dense_exchange)
     if rows is not None and rows < n:
         return stream.streamed_npz(ctx, cols, rows)
-    return _SourceRDD(ctx, block_lib.from_numpy(cols, ctx.mesh))
+    return _SourceRDD(ctx, block_lib.from_numpy(
+        cols, ctx.mesh, dict_enabled=ctx.dense_dict_enabled))
 
 
 # ---------------------------------------------------------------------------
@@ -1094,6 +1236,14 @@ def _host_rows(cols: Dict[str, np.ndarray]) -> list:
     if set(names) == {KEY, VALUE}:
         return list(zip(cols[KEY].tolist(), cols[VALUE].tolist()))
     return list(zip(*[cols[n].tolist() for n in names]))
+
+
+def _value_to_key(side: DenseRDD, f) -> "_MapRDD":
+    """The value moved to the key by one of the set ops' own row
+    functions: a string value's dictionary follows it to the key."""
+    keyed = _MapRDD(side, f)
+    keyed._dict_renames = {KEY: VALUE}
+    return keyed
 
 
 def _value_key_zero(v):
@@ -1358,6 +1508,10 @@ class _MapRDD(_NarrowRDD):
         super().__init__(parent, out_schema)
         self._cols_fn = cols_fn
         self._user_fn = f
+        # the function mints its outputs: no dictionary rides through
+        # (the set ops' own functions, which move a value to the key, set
+        # {KEY: VALUE}: _value_to_key)
+        self._dict_renames = {}
 
     def _fp_extra(self):
         return (_fp(self._user_fn),)
@@ -1418,6 +1572,7 @@ class _MapValuesRDD(_NarrowRDD):
                            if nm in pschema)
         super().__init__(parent, key_schema + ((self._vname, self._dtype),))
         self._f = f
+        self._dict_renames = {KEY: KEY}  # the value is minted by f
 
     def _fp_extra(self):
         return (_fp(self._f),)
@@ -1464,11 +1619,14 @@ class _WidenKeyRDD(_NarrowRDD):
 
 def _align_keys(a: DenseRDD, b: DenseRDD, op: str):
     """Two pair sides made key-compatible for the device: equal keys must
-    hash to one shard and compare equal in the merge. Sides of one key
-    dtype and width pass as they are; an int32 key meeting a two-column
-    int64 key widens (_WidenKeyRDD). Any other mix raises: an int32 2 and
-    a float32 2.0 hash apart on the device but compare equal on the host,
-    so the reference hands it to its host tier."""
+    hash to one shard and compare equal in the merge. String keys of two
+    dictionaries are remapped onto their merged one (_unify_dict_cols).
+    Sides of one key dtype and width pass as they are; an int32 key
+    meeting a two-column int64 key widens (_WidenKeyRDD). Any other mix
+    raises: an int32 2 and a float32 2.0 hash apart on the device but
+    compare equal on the host, so the reference hands it to its host
+    tier."""
+    a, b = _unify_or_refuse(a, b, (KEY,), op)
     sa, sb = dict(a._schema()), dict(b._schema())
     if a.wide_key == b.wide_key:
         if sa[KEY] == sb[KEY]:
@@ -1483,6 +1641,145 @@ def _align_keys(a: DenseRDD, b: DenseRDD, op: str):
         f"{op}: key dtypes differ ({describe.get(a.wide_key, sa[KEY])} vs "
         f"{describe.get(b.wide_key, sb[KEY])}), and equal keys would hash "
         "apart on the device")
+
+
+class _DictUnification:
+    """The host merge of one binary op's dictionaries, shared by both
+    sides' _DictUnifyRDD, so it runs once and both sides agree on the
+    merged codes. Lazy: building the op merges nothing."""
+
+    def __init__(self, left_dicts, right_dicts, names):
+        self.names = tuple(names)
+        self._left = {nm: left_dicts[nm] for nm in self.names}
+        self._right = {nm: right_dicts[nm] for nm in self.names}
+        self._memo = None
+
+    def tables(self):
+        """(merged, left_maps, right_maps): per name the merged sorted
+        dictionary and each side's int32 remap (old code -> merged
+        code)."""
+        if self._memo is None:
+            merged, lmaps, rmaps = {}, {}, {}
+            for nm in self.names:
+                merged[nm], lmaps[nm], rmaps[nm] = dict_encoding.merge_dicts(
+                    self._left[nm], self._right[nm])
+            self._memo = (merged, lmaps, rmaps)
+        return self._memo
+
+    def token(self):
+        """A cheap identity for capacity-hint keys: the input
+        dictionaries' sizes and ends (a collision only shares a hint)."""
+        out = []
+        for nm in self.names:
+            for d in (self._left[nm], self._right[nm]):
+                out.append((nm, len(d), str(d[0]) if len(d) else "",
+                            str(d[-1]) if len(d) else ""))
+        return tuple(out)
+
+
+_DICT_REMAP_ROUNDS = 8
+
+
+class _DictUnifyRDD(DenseRDD):
+    """One side's codes remapped onto the merged dictionary: one device
+    gather per unified column through a remap table staged at
+    Context.dense_dict_capacity entries (at least 128). The staged size
+    is a real capacity: a valid code at or past the staged prefix (checked
+    on the raw codes) sets the overflow flag, and the remap reruns with
+    the capacity doubled, at most 8 rounds. The remap keeps order (sorted
+    dictionaries in, a sorted merge out), so key order survives; hash
+    placement does not (the codes that hash changed). A chain break: it
+    materializes its parent and runs on its own, as the reference's
+    _chainable = False node."""
+
+    def __init__(self, parent: DenseRDD, unif: _DictUnification, side: int):
+        super().__init__(parent.context, parent.mesh, [parent])
+        self.parent = parent
+        self._unif = unif
+        self._side = side
+        self._dict_retries = 0  # overflow -> doubled-capacity rounds
+
+    def _schema(self):
+        return self.parent._schema()
+
+    def _fp_extra(self):
+        return ("dict_unify", self._side, self._unif.token())
+
+    def _dicts(self):
+        merged = self._unif.tables()[0]
+        out = dict(self.parent._dicts())
+        for nm in self._unif.names:
+            if nm in out:
+                out[nm] = merged[nm]
+        return out
+
+    @property
+    def key_sorted(self) -> bool:
+        return self.parent.key_sorted  # the remap keeps order
+
+    def _settle_placement(self) -> None:
+        self.parent._settle_placement()
+
+    def _materialize(self) -> Block:
+        blk = self.parent.block()
+        _, lmaps, rmaps = self._unif.tables()
+        side_tables = lmaps if self._side == 0 else rmaps
+        names = self._unif.names  # string columns of both sides' schema
+        dev = self.mesh.device
+        cap_tab = max(128, self.context.dense_dict_capacity)
+        valid = kernels.valid_mask(blk.capacity, blk.counts)
+        for _round in range(_DICT_REMAP_ROUNDS):
+            out = dict(blk.cols)
+            flag = torch.zeros((), dtype=torch.bool, device=dev)
+            for nm in names:
+                staged_n = min(len(side_tables[nm]), cap_tab)
+                tab = np.zeros(cap_tab, dtype=np.int32)
+                tab[:staged_n] = side_tables[nm][:staged_n]
+                tab = torch.from_numpy(tab).to(dev)
+                codes = blk.cols[nm]
+                flag = flag | (valid & ((codes < 0) | (codes >= staged_n))
+                               ).any()
+                out[nm] = tab[codes.clamp(0, cap_tab - 1).to(torch.int64)]
+            if not bool(flag):
+                return Block(cols=out, counts=blk.counts,
+                             capacity=blk.capacity, mesh=self.mesh,
+                             counts_host=blk.counts_host)
+            self._dict_retries += 1
+            cap_tab *= 2
+        raise VegaError(
+            f"dictionary remap overflowed "
+            f"{max(len(side_tables[nm]) for nm in names)} entries after "
+            f"{_DICT_REMAP_ROUNDS} capacity-doubling retries — raise "
+            "dense_dict_capacity")
+
+
+def _unify_dict_cols(a: DenseRDD, b: DenseRDD, names):
+    """The two sides with the named string columns put onto one merged
+    dictionary, so equal codes are equal strings: (a, b) as they are when
+    nothing needs a remap (no string column, or one dictionary object on
+    both sides); None when a name is a string column on one side only
+    (codes against plain values compare only on the host)."""
+    da, db = a._dicts(), b._dicts()
+    shared = [nm for nm in names if nm in da or nm in db]
+    if not shared:
+        return a, b
+    if any((nm in da) != (nm in db) for nm in shared):
+        return None
+    todo = [nm for nm in shared if da[nm] is not db[nm]]
+    if not todo:
+        return a, b
+    unif = _DictUnification(da, db, todo)
+    return _DictUnifyRDD(a, unif, 0), _DictUnifyRDD(b, unif, 1)
+
+
+def _unify_or_refuse(a: DenseRDD, b: DenseRDD, names, op: str):
+    """_unify_dict_cols, raising where the reference hands the op to its
+    host tier (a string column against plain values)."""
+    pair = _unify_dict_cols(a, b, names)
+    if pair is None:
+        raise _no_host_tier(f"{op} of a string (dictionary-encoded) column "
+                            "against plain values")
+    return pair
 
 
 class _SampleRDD(_NarrowRDD):
@@ -1537,6 +1834,9 @@ class _RenameRDD(_NarrowRDD):
         super().__init__(parent, tuple(
             (mapping.get(nm, nm), dt) for nm, dt in parent._schema()))
         self._mapping = dict(mapping)
+        # dictionaries follow their columns to the new names
+        self._dict_renames = {mapping.get(nm, nm): nm
+                              for nm, _ in parent._schema()}
 
     def _fp_extra(self):
         return (tuple(sorted(self._mapping.items())),)
@@ -1557,6 +1857,7 @@ class _OnesValueRDD(_NarrowRDD):
         pschema = dict(parent._schema())
         out = [(nm, pschema[nm]) for nm in (KEY, KEY_LO) if nm in pschema]
         super().__init__(parent, tuple(out) + ((VALUE, torch.int32),))
+        self._dict_renames = {KEY: KEY}  # VALUE is fresh ones
 
     def _shard_fn(self, cols, count):
         out = {nm: cols[nm] for nm in (KEY, KEY_LO) if nm in cols}
@@ -1575,6 +1876,7 @@ class _ProjectRDD(_NarrowRDD):
                             f"{list(pschema)})")
         super().__init__(parent, ((VALUE, pschema[col]),))
         self._col = col
+        self._dict_renames = {VALUE: col}
 
     def _fp_extra(self):
         return (self._col,)
@@ -1615,6 +1917,7 @@ class _ExpandRDD(DenseRDD):
         self.parent = parent
         self._f = f
         self._width = width
+        self._dict_renames = {}  # f mints its outputs
         schema = parent._schema()
         self._probe_out = _traced(f, (_cols_to_row(_probe_cols(
             schema, parent.n_shards), schema),), what)
@@ -1967,14 +2270,62 @@ def _unrepaired_raise():
         "repair did not complete; re-run the pipeline")
 
 
+def _with_exchange(node, exchange: Optional[str]):
+    """An op's exchange= keyword: forces (or, 'auto', plans) the node's
+    exchange program; None keeps the Context's dense_exchange."""
+    if exchange is not None:
+        node.exchange_mode = exchange_plan.check_mode(exchange)
+    return node
+
+
 class _ExchangeRDD(DenseRDD):
     """Common exchange loop: run the exchange, check the overflow flags,
-    retry with grown capacities; or launch deferred and settle later."""
+    retry with grown capacities; or launch deferred and settle later. The
+    exchange's program (one-shot all_to_all, staged or ring) is resolved
+    per launch by exchange_plan.py under dense_exchange="auto", or forced
+    by the Context's dense_exchange or the node's exchange_mode."""
 
     _last_counts_host: Optional[np.ndarray] = None
     _last_extra_host: Optional[List[np.ndarray]] = None
     _last_attempts = 0
     _deferred_entry: Optional[dict] = None
+    _exchange_mode: Optional[str] = None
+    # the last launch's plan; None at one shard and on elided paths, which
+    # plan nothing
+    _exchange_plan: Optional[exchange_plan.ExchangePlan] = None
+
+    @property
+    def exchange_mode(self) -> str:
+        return self._exchange_mode or self.context.dense_exchange
+
+    @exchange_mode.setter
+    def exchange_mode(self, mode: str) -> None:
+        self._exchange_mode = mode
+
+    def _resolve_exchange(self, blks, slot_capacity: int,
+                          out_capacity: int):
+        """The exchange function of ONE launch, planned at its capacities
+        (a retry's grown slot may change the plan): a forced mode takes its
+        program; 'auto' the fewest-rounds program whose estimated
+        per-shard peak fits dense_hbm_budget. blks are the operand blocks
+        the launch moves (a join's non-elided sides, modeled together).
+        Records the plan on the node (_exchange_plan), in the module
+        counters and in Context.exchange_plans()."""
+        n = self.n_shards
+        if n == 1:
+            return kernels.bucket_exchange  # the passthrough plans nothing
+        budget = self.context.dense_hbm_budget
+        blocks = [(b.capacity, exchange_plan.block_row_bytes(b))
+                  for b in blks]
+        plan = exchange_plan.plan_exchange(
+            n_shards=n, capacity=max(cap for cap, _ in blocks),
+            slot_capacity=slot_capacity, out_capacity=out_capacity,
+            row_bytes=max(rb for _, rb in blocks), budget_bytes=budget,
+            mode=self.exchange_mode, blocks=blocks)
+        self._exchange_plan = plan
+        exchange_plan.record_plan(plan)
+        exchange_plan.add_to_summary(self.context._exchange_plans, plan)
+        return exchange_plan.exchange_callable(plan)
 
     def _attach_pending(self, blk: Block) -> Block:
         """Register the deferred entry _run_exchange left behind (if any)
@@ -2225,6 +2576,9 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         self._table_plan = False
 
         def build(slot, out_cap):
+            # an elided exchange plans nothing
+            exchange = (None if elide else
+                        self._resolve_exchange((blk,), slot, out_cap))
             cols, count = source()
             cols = _wide_working_form(cols, wide, op)
             if n > 1 and not elide and plan == "sort_partition":
@@ -2242,7 +2596,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                                      _bucket_cols(cols, n), n)
                 cols, bucket = kernels.partition_by_bucket(
                     cols, bucket, n, sort_impl=sort_impl)
-                cols, count, overflow = kernels.bucket_exchange(
+                cols, count, overflow = exchange(
                     cols, count, bucket, n, slot, out_cap, pregrouped=True)
             elif n > 1 and not elide:
                 capacity = cols[KEY].shape[1]
@@ -2257,11 +2611,11 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                 # compact kept (bucket, key) order; re-derive the combined
                 # rows' buckets from their keys
                 bucket = _bucket_cols(cols, n)
-                cols, count, overflow = kernels.bucket_exchange(
+                cols, count, overflow = exchange(
                     cols, count, bucket, n, slot, out_cap, pregrouped=True)
             elif not elide:
                 bucket = torch.zeros_like(cols[KEY], dtype=torch.int32)
-                cols, count, overflow = kernels.bucket_exchange(
+                cols, count, overflow = exchange(
                     cols, count, bucket, n, slot, out_cap,
                     sort_impl=sort_impl)
             else:
@@ -2409,6 +2763,20 @@ class _JoinRDD(_ExchangeRDD):
     def key_sorted(self) -> bool:
         return True  # output follows the left sort order
 
+    def _dicts(self):
+        """The key's dictionary (both sides share it: _align_keys unified
+        them), and each side's value dictionary under lv / rv."""
+        out = {}
+        ld, rd = self.left._dicts(), self.right._dicts()
+        if KEY in ld:
+            out[KEY] = ld[KEY]
+        for prefix, side_d, side in (("lv", ld, self.left),
+                                     ("rv", rd, self.right)):
+            for nm, _dt in side._schema():
+                if nm not in (KEY, KEY_LO) and nm in side_d:
+                    out[_join_name(nm, prefix)] = side_d[nm]
+        return out
+
     def _schema(self):
         """(k[, k.lo], lv[, lv.lo], rv[, rv.lo]): a wide key or value
         keeps its pair."""
@@ -2441,7 +2809,7 @@ class _JoinRDD(_ExchangeRDD):
         join_cap_override: List[Optional[int]] = [None]
         join_cap_used = [0]
 
-        def one_side(source, elide, slot, out_cap):
+        def one_side(source, elide, slot, out_cap, exchange):
             cols, count = source()
             cols = dict(cols)
             if elide:
@@ -2449,14 +2817,21 @@ class _JoinRDD(_ExchangeRDD):
                     cols, count, cols[KEY].shape[1], out_cap)
             bucket = (_bucket_cols(cols, n) if n > 1
                       else torch.zeros_like(cols[KEY], dtype=torch.int32))
-            return kernels.bucket_exchange(cols, count, bucket, n, slot,
-                                           out_cap, sort_impl=sort_impl)
+            return exchange(cols, count, bucket, n, slot, out_cap,
+                            sort_impl=sort_impl)
 
         def build(slot, out_cap):
             join_cap = join_cap_override[0] or out_cap
             join_cap_used[0] = join_cap
-            lc, lcount, lof = one_side(lsource, l_elide, slot, out_cap)
-            rc, rcount, rof = one_side(rsource, r_elide, slot, out_cap)
+            moving = [b for b, el in ((lblk, l_elide), (rblk, r_elide))
+                      if not el]
+            # both sides elided: nothing moves, nothing is planned
+            exchange = (self._resolve_exchange(moving, slot, out_cap)
+                        if moving else None)
+            lc, lcount, lof = one_side(lsource, l_elide, slot, out_cap,
+                                       exchange)
+            rc, rcount, rof = one_side(rsource, r_elide, slot, out_cap,
+                                       exchange)
             joined, jcount, jtotal = kernels.merge_join_expand(
                 lc, lcount, rc, rcount, KEY, join_cap, outer=self.outer,
                 fill_value=self.fill_value, left_sorted=l_sorted,
@@ -2574,9 +2949,10 @@ class _GroupByKeyRDD(_ExchangeRDD):
                 cols, count, overflow = kernels.passthrough_exchange(
                     cols, count, cols[KEY].shape[1], out_cap)
             else:
+                exchange = self._resolve_exchange((blk,), slot, out_cap)
                 bucket = (_bucket_cols(cols, n) if n > 1
                           else torch.zeros_like(cols[KEY], dtype=torch.int32))
-                cols, count, overflow = kernels.bucket_exchange(
+                cols, count, overflow = exchange(
                     cols, count, bucket, n, slot, out_cap,
                     sort_impl=sort_impl)
             if not elide_sorted:
@@ -2723,6 +3099,7 @@ class _SortByKeyRDD(_ExchangeRDD):
             bounds_lo_dev = None
 
         def build(slot, out_cap):
+            exchange = self._resolve_exchange((blk,), slot, out_cap)
             cols, count = source()
             cols = dict(cols)
             if n == 1:
@@ -2731,7 +3108,7 @@ class _SortByKeyRDD(_ExchangeRDD):
                 bucket = kernels.range_bucket(
                     bounds_dev, cols[KEY], ascending, bounds_lo=bounds_lo_dev,
                     keys_lo=cols.get(lo_name))
-            cols, count, overflow = kernels.bucket_exchange(
+            cols, count, overflow = exchange(
                 cols, count, bucket, n, slot, out_cap, sort_impl=sort_impl)
             cols = kernels.sort_by_column(cols, count, KEY,
                                           descending=not ascending,
@@ -2878,6 +3255,17 @@ class _DenseZipRDD(DenseRDD):
         return ((KEY, dict(self.left._schema())[VALUE]),
                 (VALUE, dict(self.right._schema())[VALUE]))
 
+    def _dicts(self):
+        # each side keeps its own dictionary (a zip compares nothing)
+        out = {}
+        ld = self.left._dicts().get(VALUE)
+        rd = self.right._dicts().get(VALUE)
+        if ld is not None:
+            out[KEY] = ld
+        if rd is not None:
+            out[VALUE] = rd
+        return out
+
     def _materialize(self) -> Block:
         lb, rb = self.left.block(), self.right.block()
         if not np.array_equal(lb.counts_np, rb.counts_np):
@@ -2905,6 +3293,7 @@ class _ZipWithIndexRDD(DenseRDD):
     def __init__(self, parent: DenseRDD):
         super().__init__(parent.context, parent.mesh, [parent])
         self.parent = parent
+        self._dict_renames = {KEY: VALUE}  # the index is fresh
 
     def _schema(self):
         return ((KEY, dict(self.parent._schema())[VALUE]),

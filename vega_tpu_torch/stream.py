@@ -1,10 +1,9 @@
 """Streamed dense sources: datasets bigger than the device memory budget.
 
 Counterpart of vega_tpu/tpu/stream.py. A StreamedDenseRDD holds a recipe
-for its data as a sequence of chunk DenseRDDs, each small enough that a
-one-shot exchange over it fits Context.dense_hbm_budget
-(planned_chunk_rows), and runs the ordinary device pipelines chunk by
-chunk:
+for its data as a sequence of chunk DenseRDDs, each small enough that its
+planned exchange fits Context.dense_hbm_budget (planned_chunk_rows), and
+runs the ordinary device pipelines chunk by chunk:
 
   narrow ops (map, filter, map_values, map_expand, flat_map_ragged) and a
   join against a resident table compose per chunk and stay streamed;
@@ -25,9 +24,10 @@ host tier when a closure does not trace; the port has none, so the same
 probe (a few-row block of the stream's schema) raises the VegaError of the
 op's build-time checks before any chunk runs.
 
-Chunks are sized by the reference's legacy rule (6x the chunk's bytes
-within the budget). Its exchange planner, which sizes larger chunks under
-dense_exchange=auto, is not ported.
+Chunks are sized as the reference sizes them (planned_chunk_rows): by the
+exchange planner under Context(dense_exchange="auto"), so a chunk is the
+largest whose planned exchange fits the budget; by the legacy rule (6x the
+chunk's bytes within the budget) under a forced program.
 """
 
 from __future__ import annotations
@@ -35,18 +35,20 @@ from __future__ import annotations
 import logging
 from typing import Callable, Iterator, Optional
 
-import numpy as np
 import torch
 
 from vega_tpu_torch import block as block_lib
 from vega_tpu_torch import dense_rdd
+from vega_tpu_torch import dict_encoding
+from vega_tpu_torch import exchange_plan
 from vega_tpu_torch.errors import VegaError
 
 log = logging.getLogger(__name__)
 
-# A one-shot exchange holds about this many transient copies of its operand
-# block (operand, sorted copy, send slots, received block), so a chunk is
-# sized such that chunk_bytes * footprint <= budget.
+# Without a plan (a forced exchange program, or a caller with no shards in
+# hand): a one-shot exchange holds about this many transient copies of its
+# operand block (operand, sorted copy, send slots, received block), so a
+# chunk is sized such that chunk_bytes * footprint <= budget.
 _EXCHANGE_FOOTPRINT = 6
 
 
@@ -58,17 +60,29 @@ def _legacy_chunk_rows(n_rows: int, bytes_per_row: int,
 
 
 def planned_chunk_rows(n_rows: int, bytes_per_row: int, budget_bytes: int,
-                       chunk_rows: Optional[int] = None) -> Optional[int]:
+                       chunk_rows: Optional[int] = None,
+                       n_shards: Optional[int] = None,
+                       exchange: str = "auto") -> Optional[int]:
     """None when the whole source fits the budget (no streaming), else the
     chunk size in rows, rounded down to a shape-stable bucket (a multiple
     of 1M rows, or a power of two of at least 128 below 1M) so each
     chunk stays within the budget and chunk capacities repeat. An explicit
-    chunk_rows wins; below 1 it raises."""
+    chunk_rows wins; below 1 it raises.
+
+    With n_shards given and exchange (the Context's dense_exchange)
+    'auto', the exchange planner sizes the chunk: the largest whose
+    planned exchange keeps its aggregate estimated peak within the budget
+    (exchange_plan.planned_stream_rows). A forced program, or no n_shards,
+    keeps the legacy 6x rule."""
     if chunk_rows is not None:
         if int(chunk_rows) < 1:
             raise VegaError(f"chunk_rows must be >= 1, got {chunk_rows}")
         return int(chunk_rows)
-    rows = _legacy_chunk_rows(n_rows, bytes_per_row, budget_bytes)
+    if n_shards is not None and exchange == "auto":
+        rows = exchange_plan.planned_stream_rows(n_rows, bytes_per_row,
+                                                 budget_bytes, n_shards)
+    else:
+        rows = _legacy_chunk_rows(n_rows, bytes_per_row, budget_bytes)
     if rows is None:
         return None
     step = 1 << 20
@@ -155,16 +169,16 @@ class StreamedDenseRDD:
         return self._per_chunk(
             lambda c: c.flat_map_ragged(f, max_out_per_row))
 
-    def join(self, other):
+    def join(self, other, *, exchange: Optional[str] = None):
         """Streamed join against a resident right side: a left row's
         matches depend only on the table, so each chunk joins on its own
         and the result streams. The table is hash-placed once up front
         (one group_by_key exchange), so every chunk's join elides its
         side; it must fit the budget itself. A streamed right side joins
-        as its resident build."""
+        as its resident build. exchange= goes to each chunk's join."""
         other = dense_rdd._resident(other)
         if not isinstance(other, dense_rdd.DenseRDD):
-            return self.resident().join(other)
+            return self.resident().join(other, exchange=exchange)
         other._settle_placement()
         if not other.hash_placed:
             other = dense_rdd._GroupByKeyRDD(other)
@@ -174,24 +188,26 @@ class StreamedDenseRDD:
                 "streamed join: right side is %.1f MiB — chunk sizing "
                 "does not account for it; lower chunk_rows if device "
                 "memory overflows", blk.nbytes / 2**20)
-        return self._per_chunk(lambda c: c.join(other))
+        return self._per_chunk(lambda c: c.join(other, exchange=exchange))
 
     # --- streaming aggregations --------------------------------------------
-    def reduce_by_key(self, func=None, *, op: Optional[str] = None):
+    def reduce_by_key(self, func=None, *, op: Optional[str] = None,
+                      exchange: Optional[str] = None):
         """The multi-pass fold: each chunk's reduce merges into the
         accumulator through a union and a reduce with its exchange elided;
         after each merge only the block is kept, as a hash-placed source,
         so the chunk's lineage frees before the next chunk builds. Returns
-        a resident DenseRDD bounded by the number of keys."""
+        a resident DenseRDD bounded by the number of keys. exchange= goes
+        to every reduce."""
         probe = self._make_probe()
         if probe is not None:
-            probe.reduce_by_key(func, op=op)  # build-time checks
+            probe.reduce_by_key(func, op=op, exchange=exchange)  # checks
         acc = None
         for i, chunk in enumerate(self._make_chunks()):
-            partial = chunk.reduce_by_key(func, op=op)
+            partial = chunk.reduce_by_key(func, op=op, exchange=exchange)
             merged = (partial if acc is None else
                       dense_rdd._DenseUnionRDD(acc, partial).reduce_by_key(
-                          func, op=op))
+                          func, op=op, exchange=exchange))
             blk = merged.block()
             # placement from the materialized node, not assumed
             acc = dense_rdd.dense_from_block(self.context, blk,
@@ -280,17 +296,15 @@ def streamed_range(ctx, n: int, chunk_rows: int,
 
 def streamed_npz(ctx, cols: dict, chunk_rows: int) -> StreamedDenseRDD:
     """Chunked dense_load_npz over host columns already loaded (the host
-    holds the file once; the device one chunk). int64 keys and values are
-    encoded once over the whole column, so every chunk has one schema,
-    which the accumulator's union needs. String columns raise: their
-    dictionary encoding is not ported."""
+    holds the file once; the device one chunk). String columns are
+    dictionary-encoded, and int64 keys and values encoded, once over the
+    whole column, so every chunk has one schema and one dictionary per
+    string column: the accumulator's union needs both (a dictionary per
+    chunk would make every merge a unification)."""
     mesh = ctx.mesh
-    for name, col in cols.items():
-        if np.asarray(col).dtype.kind in "OUS":
-            raise VegaError(f"column {name!r} is a string column; "
-                            "vega_tpu_torch has no dictionary encoding yet")
-    cols = block_lib.encode_value_columns(
-        block_lib.encode_key_columns(dict(cols)))
+    cols, dicts = dict_encoding.encode_string_columns(
+        dict(cols), enabled=ctx.dense_dict_enabled)
+    cols = block_lib.encode_value_columns(block_lib.encode_key_columns(cols))
     n = len(next(iter(cols.values()))) if cols else 0
     n_chunks = max(1, -(-n // chunk_rows))
 
@@ -299,16 +313,18 @@ def streamed_npz(ctx, cols: dict, chunk_rows: int) -> StreamedDenseRDD:
             lo = i * chunk_rows
             hi = min(lo + chunk_rows, n)
             yield dense_rdd.dense_from_block(ctx, block_lib.from_numpy(
-                {name: col[lo:hi] for name, col in cols.items()}, mesh))
+                {name: col[lo:hi] for name, col in cols.items()}, mesh,
+                dicts=dicts))
 
     def resident():
-        return dense_rdd.dense_from_block(ctx,
-                                          block_lib.from_numpy(cols, mesh))
+        return dense_rdd.dense_from_block(ctx, block_lib.from_numpy(
+            cols, mesh, dicts=dicts))
 
     def probe():
         if n == 0:
             return None
         return dense_rdd.dense_from_block(ctx, block_lib.from_numpy(
-            {name: col[:min(n, 8)] for name, col in cols.items()}, mesh))
+            {name: col[:min(n, 8)] for name, col in cols.items()}, mesh,
+            dicts=dicts))
 
     return StreamedDenseRDD(ctx, chunks, resident, n_chunks, probe)
