@@ -129,12 +129,29 @@ Phases, in order; any failure exits non-zero before the last line:
      65,536-entry remap table, so each side retries once), sorted and
      collected, the host encode and each device step timed apart, exact
      against numpy; (d) the reduced string block through save_npz /
-     dense_load_npz in 4 chunks, exact.
+     dense_load_npz in 4 chunks, exact;
+ 10. the frame layer (vega_tpu_torch/frame): (a) benchmarks/frame_ab.py's
+     query at 20M events rows (6 int64 columns, k uniform over 1M keys)
+     and a 1M-row dims table, filter(x < 600) -> group_by(k).agg(sum) ->
+     join(dims.group_by(k).agg(sum)) -> sort(k) -> collect_columns(), as
+     the hand-written DenseRDD chain, the frame under hint(fuse=False,
+     pushdown=False) and the fused frame: a cold run of each (all three
+     bit-identical and equal to numpy; the fused leg must launch
+     hash_bucket and digit_hist), then three interleaved warm rounds (ms,
+     rows/s, the host build apart, the step peak, launches); (b) the
+     mixed aggregates sum / min / max / count / mean on (a)'s events (the
+     traced tuple combiner; integers exact, the mean within rtol 1e-5);
+     (c) 2M rows of sku-%06d string keys grouped and joined to a
+     100,000-row dims frame on the key, exact, the host encode apart;
+     (d) an untraceable UDF raising VegaError at explain() before any
+     device work. All on create_frame: the card's machine has no pyarrow,
+     so the parquet scan is held against the reference on the CPU only.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
-line per phase-9 leg and item, the kernel table as one JSON line (with
-phases 6, 7, 8 and 9's launches beside the main path's), the card line,
+line per phase-9 leg and item, one line per phase-10 leg and item, the
+kernel table as one JSON line (with phases 6-10's launches beside the main
+path's), the card line,
 and last {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 
@@ -2598,6 +2615,367 @@ def phase_nine(torch, np, ck, vt):
                 launches=launches)
 
 
+P10_ROWS = 20_000_000          # frame_ab.py's events table at bench-main's size
+P10_KEYS = 1_000_000           # k uniform in [0, P10_KEYS); the dims rows
+P10_THRESHOLD = 600            # x < 600 keeps ~60% (frame_ab.py FILTER_FRAC)
+P10_LEGS = ("rdd_chain", "unfused", "fused")
+# 10c is smaller than 10a because the host encode (np.unique over the
+# strings) took 7.1-8.1 s per 10M strings on the card's machine (phase 9c,
+# PERF.md section 6): 2M rows keep it near 1.5 s a run
+P10_STR_ROWS = 2_000_000
+P10_VOCAB = 100_000            # sku-%06d words, every one occurring
+P10_STR_DIMS = 100_000         # dims rows; half of their words shared
+
+
+def p10_check(what, ok):
+    if not ok:
+        fail(f"phase 10: {what}")
+
+
+class _FrameTimer:
+    """While installed, times (host clock, from a synchronize to a
+    synchronize, so device work queued before is not counted) each
+    frame compile (planner.compile_plan: plan algebra, dtype checks, the
+    string encode of a join's unification, the stage probes) and each
+    columns source's materialization (the astype / encode and
+    block.from_numpy onto the card), and separately each string encode:
+    the host build of a frame run, apart from its device steps."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = dict(compile=0.0, source=0.0, encode=0.0)
+
+    def _wrap(self, owner, name, key):
+        orig = getattr(owner, name)
+        torch, ms = self.torch, self.ms
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()  # device work queued before is not ours
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                ms[key] += (time.perf_counter() - t0) * 1e3
+        setattr(owner, name, timed)
+        self._saved.append((owner, name, orig))
+
+    def __enter__(self):
+        from vega_tpu_torch.frame import api, physical
+
+        self._saved = []
+        self._wrap(api.planner_lib, "compile_plan", "compile")
+        self._wrap(physical._ColumnsSource, "_materialize", "source")
+        self._wrap(physical._ColumnsSource, "_encode", "encode")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        return False
+
+
+def p10_data(np):
+    """benchmarks/frame_ab.py's tables at P10_ROWS: events of 6 int64
+    columns (k uniform in [0, P10_KEYS), x in [0, 1000), 4 pads in
+    [0, 2^20)); dims of P10_KEYS rows, k = arange, y = (k * 2654435761)
+    % 997."""
+    rng = np.random.default_rng(7)
+    ev = {"k": rng.integers(0, P10_KEYS, P10_ROWS),
+          "x": rng.integers(0, 1000, P10_ROWS)}
+    for i in range(4):
+        ev[f"pad{i}"] = rng.integers(0, 1 << 20, P10_ROWS)
+    dk = np.arange(P10_KEYS, dtype=np.int64)
+    return ev, {"k": dk, "y": (dk * 2654435761) % 997}
+
+
+def p10_expected(np, ev, dims):
+    keep = ev["x"] < P10_THRESHOLD
+    k, x = ev["k"][keep], ev["x"][keep]
+    counts = np.bincount(k, minlength=P10_KEYS)
+    sums = np.bincount(k, weights=x, minlength=P10_KEYS).astype(np.int64)
+    keys = np.flatnonzero(counts)
+    return {"k": keys, "sx": sums[keys], "sy": dims["y"][keys]}
+
+
+def p10_query(ctx, ev, dims):
+    """The frame_ab query: filter -> group_by(k).agg(sum(x)) -> join
+    dims.group_by(k).agg(sum(y)) on k -> sort(k)."""
+    from vega_tpu_torch.frame import F, col
+
+    e = ctx.create_frame(ev)
+    d = ctx.create_frame(dims)
+    return (e.filter(col("x") < P10_THRESHOLD)
+            .group_by("k").agg(F.sum("x", "sx"))
+            .join(d.group_by("k").agg(F.sum("y", "sy")), on="k")
+            .sort("k"))
+
+
+def p10_rdd_chain(torch, np, ctx, ev, dims):
+    """frame_ab.py's hand-written leg over the port: the two needed
+    columns narrowed by hand, dense_from_columns + filter + reduce_by_key
+    + join + sort_by_key. Returns (columns, host build ms)."""
+    t0 = time.perf_counter()
+    src = ctx.dense_from_columns({"k": ev["k"].astype(np.int32),
+                                  "x": ev["x"].astype(np.int32)}, key="k")
+    right_src = ctx.dense_from_columns(
+        {"k": dims["k"].astype(np.int32), "y": dims["y"].astype(np.int32)},
+        key="k")
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    xi = src.columns.index("x")  # key= moves "k" to the schema tail
+    left = (src.filter(lambda row: row[xi] < P10_THRESHOLD)
+            .reduce_by_key(op="add").rename({"x": "v"}))
+    right = right_src.reduce_by_key(op="add").rename({"y": "v"})
+    out = left.join(right).sort_by_key().collect_arrays()
+    return {"k": out["k"], "sx": out["lv"], "sy": out["rv"]}, build_ms
+
+
+def p10_run(torch, ck, ctx, leg, run):
+    """One run of one leg: launches counted from 0, the allocator's peak
+    above what was allocated at its start, the whole wall (host clock,
+    ending in a synchronize) and the host build apart."""
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _FrameTimer(torch) as timer:
+        t0 = time.perf_counter()
+        out, build_ms = run()
+        torch.cuda.synchronize()
+        whole = (time.perf_counter() - t0) * 1e3
+    if build_ms is None:  # a frame leg: the compile and the sources
+        build_ms = timer.ms["compile"] + timer.ms["source"]
+    return out, dict(leg=leg, ms=whole, host_build_ms=build_ms,
+                     device_ms=whole - build_ms, encode_ms=timer.ms["encode"],
+                     peak_bytes=torch.cuda.max_memory_allocated() - base,
+                     launches=dict(ck.LAUNCHES))
+
+
+def p10_frame_ab(torch, np, ck, vt, ev, dims, exp):
+    """(a) the three legs, each once cold (checked: bit-identical to one
+    another and equal to numpy), then three interleaved warm rounds."""
+    from vega_tpu_torch import exchange_plan
+
+    ctx = vt.Context(n_shards=N_SHARDS)
+    legs = {
+        "rdd_chain": lambda: p10_rdd_chain(torch, np, ctx, ev, dims),
+        "unfused": lambda: (p10_query(ctx, ev, dims).hint(
+            fuse=False, pushdown=False).collect_columns(), None),
+        "fused": lambda: (p10_query(ctx, ev, dims).collect_columns(), None),
+    }
+    cold, outs = {}, {}
+    for leg in P10_LEGS:
+        outs[leg], cold[leg] = p10_run(torch, ck, ctx, leg, legs[leg])
+    for leg in P10_LEGS:
+        got = outs[leg]
+        p10_check(f"10a {leg}: columns equal numpy (k, sx, sy)",
+                  all(np.array_equal(got[nm], exp[nm])
+                      for nm in ("k", "sx", "sy")))
+        p10_check(f"10a {leg}: bit-identical to rdd_chain",
+                  all(got[nm].dtype == outs["rdd_chain"][nm].dtype
+                      and np.array_equal(got[nm], outs["rdd_chain"][nm])
+                      for nm in ("k", "sx", "sy")))
+    del outs
+    for name in ("hash_bucket", "digit_hist"):
+        p10_check(f"10a fused leg launched {name} "
+                  f"({cold['fused']['launches']})",
+                  cold["fused"]["launches"][name] > 0)
+    warm = {leg: [] for leg in P10_LEGS}
+    for _ in range(3):
+        for leg in P10_LEGS:  # interleaved: drift hits every leg alike
+            out, r = p10_run(torch, ck, ctx, leg, legs[leg])
+            p10_check(f"10a {leg} warm: {len(out['k'])} rows",
+                      len(out["k"]) == len(exp["k"]))
+            warm[leg].append(r)
+            del out
+    explain = p10_query(ctx, ev, dims).explain().replace("\n", " | ")
+    pred = exchange_plan.predict_for_rows(P10_ROWS, 8, N_SHARDS,
+                                          ctx.dense_hbm_budget)
+    plans = ctx.exchange_plans()
+    ctx.stop()
+    torch.cuda.empty_cache()
+    res = dict(rows=P10_ROWS, keys=P10_KEYS, out_rows=int(len(exp["k"])),
+               explain=explain, planner_prediction=dict(
+                   program=pred.program, est_peak_bytes=pred.est_peak_bytes,
+                   budget=ctx.dense_hbm_budget),
+               exchange_plans=plans, legs={})
+    for leg in P10_LEGS:
+        med = statistics.median(r["ms"] for r in warm[leg])
+        res["legs"][leg] = dict(
+            cold=cold[leg], warm=warm[leg], median_ms=med,
+            rows_per_s=P10_ROWS / (med / 1e3),
+            median_host_build_ms=statistics.median(
+                r["host_build_ms"] for r in warm[leg]),
+            median_device_ms=statistics.median(
+                r["device_ms"] for r in warm[leg]),
+            peak_bytes=max(r["peak_bytes"] for r in warm[leg]),
+            warm_launches=warm[leg][0]["launches"])
+        log(f"10a {leg}: {json.dumps(res['legs'][leg])}")
+    log(f"10a explain: {explain}")
+    return res
+
+
+def p10_mixed(torch, np, ck, vt, ev):
+    """(b) group_by(k).agg(sum, min, max, count, mean of x): the traced
+    tuple combiner; integers exact, the mean within rtol 1e-5."""
+    from vega_tpu_torch.frame import F
+
+    order = np.sort(ev["k"] * 1024 + ev["x"])  # one sort: runs by key
+    ks, xs = order >> 10, order & 1023
+    heads = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    tails = np.r_[heads[1:], len(ks)] - 1
+    keys = ks[heads]
+    cnt = np.bincount(ev["k"], minlength=P10_KEYS)[keys]
+    total = np.bincount(ev["k"], weights=ev["x"],
+                        minlength=P10_KEYS).astype(np.int64)[keys]
+    exp = dict(k=keys, sum_x=total, min_x=xs[heads], max_x=xs[tails],
+               count=cnt, mean_x=total / cnt)
+    del order, ks, xs
+    ctx = vt.Context(n_shards=N_SHARDS)
+
+    def run():
+        q = ctx.create_frame(k=ev["k"], x=ev["x"]).group_by("k").agg(
+            F.sum("x"), F.min("x"), F.max("x"), F.count(), F.mean("x"))
+        return q.collect_columns(), None
+
+    out, cold = p10_run(torch, ck, ctx, "mixed", run)
+    o = np.argsort(out["k"])
+    got = {nm: c[o] for nm, c in out.items()}
+    p10_check("10b: keys, sum, min, max and count equal numpy exactly",
+              all(np.array_equal(got[nm], exp[nm])
+                  for nm in ("k", "sum_x", "min_x", "max_x", "count")))
+    rel = float(np.max(np.abs(got["mean_x"] - exp["mean_x"])
+                       / np.abs(exp["mean_x"]).clip(1e-30)))
+    p10_check(f"10b: mean within rtol 1e-5 of numpy (max rel err {rel})",
+              np.allclose(got["mean_x"], exp["mean_x"], rtol=1e-5, atol=0))
+    del out, got
+    explain = ctx.create_frame(k=ev["k"][:8], x=ev["x"][:8]).group_by(
+        "k").agg(F.sum("x"), F.min("x"), F.max("x"), F.count(),
+                 F.mean("x")).explain()
+    p10_check("10b takes the traced tuple combiner",
+              "tuple combiner" in explain)
+    warm = [p10_run(torch, ck, ctx, "mixed", run)[1] for _ in range(3)]
+    ctx.stop()
+    torch.cuda.empty_cache()
+    med = statistics.median(r["ms"] for r in warm)
+    res = dict(rows=P10_ROWS, keys=int(len(keys)), cold=cold, warm=warm,
+               median_ms=med, rows_per_s=P10_ROWS / (med / 1e3),
+               median_host_build_ms=statistics.median(
+                   r["host_build_ms"] for r in warm),
+               median_device_ms=statistics.median(
+                   r["device_ms"] for r in warm),
+               mean_max_rel_err=rel, launches=cold["launches"])
+    log(f"10b mixed aggregates: {json.dumps(res)}")
+    return res
+
+
+def p10_strings(torch, np, ck, vt):
+    """(c) P10_STR_ROWS rows of sku-%06d keys over P10_VOCAB words,
+    group_by(w).agg(sum(x)) joined to a P10_STR_DIMS-row dims frame on
+    the string key (the upper half of the vocabulary and as many new
+    words), sorted; exact against numpy. The host encode apart."""
+    from vega_tpu_torch.frame import F
+
+    rng = np.random.RandomState(10)
+    vocab = np.array([f"sku-{i:06d}" for i in range(P10_VOCAB)])
+    idx = rng.randint(0, P10_VOCAB, size=P10_STR_ROWS)
+    idx[:P10_VOCAB] = np.arange(P10_VOCAB)
+    words = vocab[idx]
+    vals = rng.randint(0, 100, size=P10_STR_ROWS)
+    lo = P10_VOCAB // 2
+    dims_w = np.array([f"sku-{i:06d}" for i in range(lo, lo + P10_STR_DIMS)])
+    dims_z = np.arange(P10_STR_DIMS)
+    sums = np.bincount(idx, weights=vals, minlength=P10_VOCAB).astype(
+        np.int64)
+    shared = np.arange(lo, P10_VOCAB)
+    exp = dict(w=vocab[shared], sx=sums[shared], z=shared - lo)
+    ctx = vt.Context(n_shards=N_SHARDS)
+
+    def run():
+        q = (ctx.create_frame(w=words, x=vals).group_by("w")
+             .agg(F.sum("x", "sx"))
+             .join(ctx.create_frame(w=dims_w, z=dims_z), on="w").sort("w"))
+        return q.collect_columns(), None
+
+    out, cold = p10_run(torch, ck, ctx, "strings", run)
+    p10_check("10c: the sorted joined rows equal numpy (words, sums, dims "
+              "values)", out["w"].dtype.kind == "U"
+              and all(np.array_equal(out[nm], exp[nm])
+                      for nm in ("w", "sx", "z")))
+    del out
+    warm = [p10_run(torch, ck, ctx, "strings", run)[1] for _ in range(3)]
+    ctx.stop()
+    torch.cuda.empty_cache()
+    res = dict(rows=P10_STR_ROWS, vocab=P10_VOCAB, dims=P10_STR_DIMS,
+               out_rows=int(len(shared)), cold=cold, warm=warm,
+               median_ms=statistics.median(r["ms"] for r in warm),
+               median_encode_ms=statistics.median(
+                   r["encode_ms"] for r in warm),
+               median_host_build_ms=statistics.median(
+                   r["host_build_ms"] for r in warm),
+               median_device_ms=statistics.median(
+                   r["device_ms"] for r in warm),
+               launches=cold["launches"])
+    log(f"10c strings: {json.dumps(res)}")
+    return res
+
+
+def p10_untraceable(torch, np, ck, vt, dense_rdd):
+    """(d) an untraceable UDF raises VegaError at explain(), before any
+    device work: no chain applied, no kernel launched, nothing
+    allocated."""
+    from vega_tpu_torch.frame import col, udf
+
+    ctx = vt.Context(n_shards=N_SHARDS)
+    df = ctx.create_frame(k=np.arange(1000) % 7, x=np.arange(1000))
+    q = df.with_column("m", udf(lambda c: np.asarray(c) + 1, col("x")))
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    mints = dense_rdd.program_mints()
+    allocated = torch.cuda.memory_allocated()
+    try:
+        q.explain()
+        raised = None
+    except vt.VegaError as e:
+        raised = str(e)
+    torch.cuda.synchronize()
+    p10_check(f"10d: explain() of an untraceable UDF raises VegaError "
+              f"({raised})", raised is not None
+              and "stage does not trace" in raised)
+    p10_check("10d: no device work before the error",
+              dense_rdd.program_mints() == mints
+              and all(c == 0 for c in ck.LAUNCHES.values())
+              and torch.cuda.memory_allocated() == allocated)
+    ctx.stop()
+    log(f"10d untraceable UDF: {raised}")
+    return dict(raised=raised)
+
+
+def phase_ten(torch, np, ck, vt):
+    """Phase 10: the frame layer on the card: (a) frame_ab's three legs at
+    20M rows, (b) mixed aggregates, (c) string keys, (d) the untraceable
+    UDF. Launches are summed over every run of the phase."""
+    from vega_tpu_torch import dense_rdd
+
+    ev, dims = p10_data(np)
+    exp = p10_expected(np, ev, dims)
+    ab = p10_frame_ab(torch, np, ck, vt, ev, dims, exp)
+    del exp
+    mixed = p10_mixed(torch, np, ck, vt, ev)
+    del ev, dims
+    strings = p10_strings(torch, np, ck, vt)
+    untraceable = p10_untraceable(torch, np, ck, vt, dense_rdd)
+    runs = [r for leg in ab["legs"].values()
+            for r in [leg["cold"]] + leg["warm"]]
+    runs += [mixed["cold"]] + mixed["warm"]
+    runs += [strings["cold"]] + strings["warm"]
+    launches = {name: sum(r["launches"][name] for r in runs)
+                for name in ck.LAUNCHES}
+    return dict(frame_ab=ab, mixed=mixed, strings=strings,
+                untraceable=untraceable, launches=launches)
+
+
 def main():
     try:
         import torch
@@ -2655,6 +3033,8 @@ def main():
     eight = phase_eight(torch, np, ck, vt)
     # 9. the exchange programs, stream-1b under the planner, strings
     nine = phase_nine(torch, np, ck, vt)
+    # 10. the frame layer
+    ten = phase_ten(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -2667,7 +3047,8 @@ def main():
          "new_ops_launches": new_ops["launches"][r["name"]],
          "phase7_launches": seven["launches"][r["name"]],
          "phase8_launches": eight["launches"][r["name"]],
-         "phase9_launches": nine["launches"][r["name"]]}
+         "phase9_launches": nine["launches"][r["name"]],
+         "phase10_launches": ten["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -2680,7 +3061,7 @@ def main():
                    kernels=table, radix_and_cold=radix, main_path=main_path,
                    plans=plans, keyed=keyed, config3=config3,
                    new_ops=new_ops, phase7=seven, phase8=eight,
-                   phase9=nine)
+                   phase9=nine, phase10=ten)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -2778,6 +3159,36 @@ def main():
           f"{r['median_device_ms']:.1f} ms, whole {r['median_total_s']:.3f} "
           f"s warm median of 2, runs {json.dumps(r['runs'])}; 9d checkpoint "
           f"{json.dumps(r['reload'])} on {card}", flush=True)
+    r = ten["frame_ab"]
+    for leg in P10_LEGS:
+        x = r["legs"][leg]
+        print(f"phase 10a {leg}: {x['median_ms']:.3f} ms warm median of 3 "
+              f"({x['rows_per_s']:.1f} rows/s over {r['rows']} rows, "
+              f"{r['out_rows']} rows out), host build "
+              f"{x['median_host_build_ms']:.3f} ms, device steps "
+              f"{x['median_device_ms']:.3f} ms, cold {x['cold']['ms']:.3f} "
+              f"ms, step peak {x['peak_bytes']} bytes, launches cold "
+              f"{json.dumps(x['cold']['launches'])} warm "
+              f"{json.dumps(x['warm_launches'])} on {card}", flush=True)
+    print(f"phase 10a explain (fused): {r['explain']} || exchange planner "
+          f"at {r['rows']} rows: {json.dumps(r['planner_prediction'])}, "
+          f"launches planned {json.dumps(r['exchange_plans'])}", flush=True)
+    r = ten["mixed"]
+    print(f"phase 10b mixed aggregates: {r['median_ms']:.3f} ms warm median "
+          f"of 3 ({r['rows_per_s']:.1f} rows/s, {r['keys']} keys), host "
+          f"build {r['median_host_build_ms']:.3f} ms, device steps "
+          f"{r['median_device_ms']:.3f} ms, cold {r['cold']['ms']:.3f} ms, "
+          f"mean max rel err {r['mean_max_rel_err']:.3g}, launches "
+          f"{json.dumps(r['launches'])} on {card}", flush=True)
+    r = ten["strings"]
+    print(f"phase 10c strings ({r['rows']} rows, {r['vocab']} words, "
+          f"{r['out_rows']} joined): {r['median_ms']:.3f} ms warm median of "
+          f"3, host encode {r['median_encode_ms']:.3f} ms, host build "
+          f"{r['median_host_build_ms']:.3f} ms, device steps "
+          f"{r['median_device_ms']:.3f} ms, cold {r['cold']['ms']:.3f} ms, "
+          f"launches {json.dumps(r['launches'])} on {card}", flush=True)
+    print(f"phase 10d untraceable UDF raised at explain(): "
+          f"{ten['untraceable']['raised']}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",

@@ -67,6 +67,31 @@ print("OK")
     assert res.stdout.strip().endswith("OK")
 
 
+def test_frame_layer_runs_without_pyarrow():
+    """The frame package imports pyarrow only inside its parquet helpers:
+    with pyarrow (and jax, vega_tpu) unimportable, frames over in-memory
+    columns still build and run."""
+    script = """
+import sys
+for name in ("jax", "jaxlib", "vega_tpu", "pyarrow"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import numpy as np
+import vega_tpu_torch as vt
+from vega_tpu_torch.frame import F, col
+with vt.Context(device="cpu", n_shards=8) as ctx:
+    df = ctx.create_frame(k=np.arange(1000) % 7, x=np.arange(1000))
+    rows = (df.filter(col("x") < 500).group_by("k")
+            .agg(F.sum("x", "s")).sort("k").collect())
+    assert rows == [(k, sum(range(k, 500, 7))) for k in range(7)], rows
+print("OK")
+"""
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=False)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
 def test_context_without_device_never_runs_on_cpu():
     if torch.cuda.is_available():
         with vt.Context() as ctx:

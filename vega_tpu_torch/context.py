@@ -21,6 +21,9 @@ dense_exchange resolves per exchange launch on every device:
     dense_table_plan  on | off                       on / off
     dense_exchange    all_to_all | staged | ring     planned per launch
 
+create_frame(columns) and read_parquet(path) give a DataFrame
+(frame/), whose verbs lower onto the nodes above.
+
 dense_exchange picks each exchange's program: 'auto' plans every launch
 with the cost model of exchange_plan.py (the one-shot all_to_all when its
 estimated peak fits dense_hbm_budget, else the staged exchange with the
@@ -59,6 +62,7 @@ from vega_tpu_torch import dense_rdd
 from vega_tpu_torch import exchange_plan
 from vega_tpu_torch import kernels
 from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.frame.api import DataFrame
 from vega_tpu_torch.mesh import make_mesh
 
 
@@ -145,6 +149,26 @@ class Context:
         does."""
         self._check_running()
         return dense_rdd.dense_load_npz(self, path, chunk_rows=chunk_rows)
+
+    def create_frame(self, columns: Optional[dict] = None, **kwcolumns):
+        """In-memory columns (a dict and / or keywords) -> DataFrame
+        (frame/api.py), the frame-layer sibling of dense_from_columns.
+        Nothing is coerced or copied to the device until an action."""
+        self._check_running()
+        data = dict(columns or {})
+        for name, c in kwcolumns.items():
+            if name in data:
+                raise VegaError(f"duplicate column {name!r}")
+            data[name] = c
+        return DataFrame.from_columns(self, data)
+
+    def read_parquet(self, path: str, columns: Optional[list] = None):
+        """Parquet -> DataFrame: the planner pushes column pruning and
+        supported predicates into the reader (frame/parquet.py, which
+        needs pyarrow) and applies each narrow verb chain as one stage.
+        columns= pre-prunes at the entry point."""
+        self._check_running()
+        return DataFrame.from_parquet(self, path, columns)
 
     def exchange_plans(self) -> dict:
         """The exchange launches this Context planned: per program

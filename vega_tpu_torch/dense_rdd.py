@@ -3,7 +3,8 @@
 Counterpart of vega_tpu/tpu/dense_rdd.py. Sources (dense_range,
 dense_from_numpy, dense_from_columns with named columns) and the narrow
 nodes (map, filter, map_values, select, rename, keys / values, sample, the
-ones column of count_by_key_dense, the key widening of a mixed-width join)
+ones column of count_by_key_dense, the key widening of a mixed-width join,
+and dense_pipeline, the frame layer's whole-stage node)
 and the expansions (map_expand, flat_map_ragged) feed the keyed nodes:
 reduce_by_key (a named
 op, or a traced binop through a segmented scan), join and
@@ -15,7 +16,9 @@ actions count / collect / take / take_ordered / top / reduce / sum / min
 once into a Block ([n_shards, capacity] columns on one device). Narrow
 nodes are not materialized in front of an exchange: their chain is
 applied to the root block's columns inside the exchange, once per
-materialization. Nodes that keep keys and row order (filter, map_values,
+materialization (program_mints() counts those applications); a chain
+break (_chainable False) materializes through a chain of its own. Nodes
+that keep keys and row order (filter, map_values,
 select of the key, rename, the ones column) pass a parent's hash placement
 and key order through, so the next exchange over them is elided.
 
@@ -155,10 +158,13 @@ def _infer_named_op(func) -> Optional[str]:
     return None
 
 
+HOST_TIER_SUFFIX = (": the reference hands this to its host tier, which "
+                    "vega_tpu_torch does not have")
+
+
 def _no_host_tier(what: str) -> VegaError:
     """The error for a request the reference hands to its host tier."""
-    return VegaError(f"{what}: the reference hands this to its host tier, "
-                     "which vega_tpu_torch does not have")
+    return VegaError(what + HOST_TIER_SUFFIX)
 
 
 # ---------------------------------------------------------------------------
@@ -1463,10 +1469,12 @@ class _NarrowRDD(DenseRDD):
     """A narrow op: shard-local (cols, count) -> (cols, count).
     _keeps_counts: the op keeps every row (not a filter). _keeps_placement:
     it keeps keys and row order, so the parent's hash placement and key
-    order hold for it too."""
+    order hold for it too. _chainable False: a chain break, which
+    materializes through a chain of its own (_ColsPipelineRDD unfused)."""
 
     _keeps_counts = True
     _keeps_placement = False
+    _chainable = True
 
     def __init__(self, parent: DenseRDD, out_schema):
         super().__init__(parent.context, parent.mesh, [parent])
@@ -1885,6 +1893,52 @@ class _ProjectRDD(_NarrowRDD):
         return {VALUE: cols[self._col]}, count
 
 
+class _ColsPipelineRDD(_NarrowRDD):
+    """One narrow node applying a whole (cols, count) -> (cols, count)
+    stage with a declared output schema: the frame planner lowers a
+    select / filter / with_column run onto one, so the stage rides the
+    next exchange's chain like any narrow node. fused=False makes it a
+    chain break: it materializes through a chain of its own over its
+    materialized parent (the frame's unfused leg). token is the stage's
+    structural description (keys capacity hints); dict_renames maps the
+    output columns that pass a string parent column through to it."""
+
+    _keeps_counts = False  # a stage may filter
+
+    def __init__(self, parent: DenseRDD, cols_fn, out_schema, token,
+                 fused: bool = True, dict_renames=None):
+        super().__init__(parent, out_schema)
+        self._cols_fn = cols_fn
+        self._user_fn = token
+        self._dict_renames = dict(dict_renames or {})
+        if not fused:
+            self._chainable = False
+
+    def _fp_extra(self):
+        return (repr(self._user_fn),)
+
+    def _shard_fn(self, cols, count):
+        return self._cols_fn(cols, count)
+
+    def _materialize(self) -> Block:
+        if self._chainable:
+            return _NarrowRDD._materialize(self)
+        blk = self.parent.block()
+        cols, count = _apply_chain([self], dict(blk.cols), blk.counts)
+        return Block(cols=cols, counts=count, capacity=blk.capacity,
+                     mesh=self.mesh)
+
+
+def dense_pipeline(parent: DenseRDD, cols_fn, out_schema, token,
+                   fused: bool = True, dict_renames=None) -> DenseRDD:
+    """A _ColsPipelineRDD (the frame planner's whole-stage node):
+    out_schema ((name, dtype), ...), token a stable description of the
+    stage, dict_renames {output column -> string parent column it passes
+    through}."""
+    return _ColsPipelineRDD(parent, cols_fn, out_schema, token, fused=fused,
+                            dict_renames=dict_renames)
+
+
 def _payload_schema(payload, n_shards: int, width: int, what: str):
     """The schema of an expansion's payload: one tensor (VALUE) or a
     (key, value) pair of them, each computed from the row with a trailing
@@ -2016,20 +2070,38 @@ class _FlatMapRaggedRDD(_ExpandRDD):
 
 
 def _narrow_chain(node):
-    """(chain, root): the longest not-yet-materialized narrow run ending at
-    `node` (possibly empty) and the nearest materialization point above
-    it. Exchanges apply the chain to the root's columns themselves instead
-    of materializing an intermediate block."""
+    """(chain, root): the longest not-yet-materialized chainable narrow run
+    ending at `node` (possibly empty) and the nearest materialization
+    point above it. Exchanges apply the chain to the root's columns
+    themselves instead of materializing an intermediate block."""
     chain: List[_NarrowRDD] = []
     cur = node
-    while isinstance(cur, _NarrowRDD) and cur._block is None:
+    while isinstance(cur, _NarrowRDD) and cur._block is None \
+            and cur._chainable:
         chain.append(cur)
         cur = cur.parent
     chain.reverse()
     return chain, cur
 
 
+# narrow-chain applications in this process (non-empty chains only)
+_CHAIN_APPLIES = 0
+
+
+def program_mints() -> int:
+    """Narrow chains applied in this process: the port's counterpart of
+    the reference's program_mints(), which counts compiled shard programs.
+    The port compiles nothing and caches nothing, so it counts each
+    application of a non-empty chain: a fused frame stage applies one, an
+    unfused one (hint(fuse=False)) one per verb, and a warm rerun applies
+    them again."""
+    return _CHAIN_APPLIES
+
+
 def _apply_chain(chain, cols, count):
+    global _CHAIN_APPLIES
+    if chain:
+        _CHAIN_APPLIES += 1
     for nd in chain:
         cols, count = nd._shard_fn(cols, count)
     return cols, count
