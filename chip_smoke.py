@@ -145,12 +145,30 @@ Phases, in order; any failure exits non-zero before the last line:
      100,000-row dims frame on the key, exact, the host encode apart;
      (d) an untraceable UDF raising VegaError at explain() before any
      device work. All on create_frame: the card's machine has no pyarrow,
-     so the parquet scan is held against the reference on the CPU only.
+     so the parquet scan is held against the reference on the CPU only;
+ 11. persist(level), the GF(256) decode and the streaming fold: (a)
+     bench-main's reduce persist("MEMORY_AND_DISK") at K = 1M and K = 20M
+     (every row its own key, a [8, 3145728] block): demoted under a zero
+     budget (spill ms, snapshot bytes), promoted 3 times with
+     _materialize poisoned (promote ms to a synchronize; no kernel
+     launched; equal to numpy), hash-placed, a downstream reduce eliding
+     its exchange with no launch, the join with phase 3's table equal to
+     numpy, one flipped byte in the snapshot read as a miss and
+     recomputed (disk_read_errors 1), unpersist removing the file and
+     stop() the session directory, then the warm recompute ms; (b)
+     kernels.gf256_accumulate at [4, 67108864] and [128, 1048576] under
+     the XOR, RS Cauchy and masked coefficients, bit-identical to a numpy
+     twin, a seeded small input's digest equal to the reference's, median
+     ms beside the bound and the peak; (c) state_fold.fold_pairs_device
+     on 1M Python (int, int) pairs over 100,000 keys, add / min / max /
+     prod exact against a dict fold with Python ints, the host build
+     apart, a kernel launched per op, and a total beyond int64 None.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
-line per phase-9 leg and item, one line per phase-10 leg and item, the
-kernel table as one JSON line (with phases 6-10's launches beside the main
+line per phase-9 leg and item, one line per phase-10 leg and item, one
+line per phase-11 size, gf256 row and fold op, the
+kernel table as one JSON line (with phases 6-11's launches beside the main
 path's), the card line,
 and last {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
@@ -2976,6 +2994,387 @@ def phase_ten(torch, np, ck, vt):
                 untraceable=untraceable, launches=launches)
 
 
+P11_KEYS = (1_000_000, 20_000_000)  # bench-main's keys; every row its own key
+P11_PROMOTES = 3                    # promote samples per size (median)
+P11_RECOMPUTES = 3                  # recompute samples after unpersist
+P11_GF_SHAPES = ((4, 67_108_864), (128, 1_048_576))  # a group of 4; k <= 128
+P11_GF_SCHEMES = ("xor", "rs", "masked")
+# sha256 of coding._accumulate_np's outputs on RandomState(11) inputs of
+# (1, 17), (4, 256), (7, 1023), (128, 64) x the three schemes (p11_gf_small),
+# computed once with the reference package on the CPU
+P11_GF_DIGEST = \
+    "7cba0f652f3ce1c4ad1a05a01a3c5385d08c213a8c750e33b63eb9b28b54abc0"
+P11_FOLD_PAIRS = 1_000_000
+P11_FOLD_KEYS = 100_000
+
+
+def p11_check(what, ok):
+    if not ok:
+        fail(f"phase 11: {what}")
+
+
+def p11_sums(np, k):
+    """float64 per-key sums of x * 0.5 over x < N_ROWS keyed x % k."""
+    x = np.arange(N_ROWS, dtype=np.int64)
+    return np.bincount(x % k, weights=x * 0.5, minlength=k)
+
+
+def p11_rows(np, what, got, sums, value="v"):
+    """Collected (k, value) columns against numpy: every key of
+    [0, len(sums)) exactly once, the sums within rtol 1e-5 (scattered by
+    key: a sort of 20M keys would cost seconds per check)."""
+    n, keys = len(sums), got["k"].astype(np.int64)
+    ok = len(keys) == n and keys.min() >= 0 and keys.max() < n
+    if ok:
+        seen = np.zeros(n, dtype=bool)
+        seen[keys] = True
+        ok = bool(seen.all())
+    p11_check(f"{what}: keys differ from numpy", ok)
+    v = np.empty(n, dtype=np.float64)
+    v[keys] = got[value]
+    p11_check(f"{what}: sums differ from numpy beyond rtol 1e-5",
+              np.allclose(v, sums, rtol=1e-5, atol=0))
+    return keys
+
+
+def p11_none_launched(ck, what):
+    moved = {n: c for n, c in ck.LAUNCHES.items() if c}
+    p11_check(f"{what} launched {moved}", not moved)
+
+
+def p11_synced_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def p11_persist(torch, np, ck, vt, dense_rdd, k):
+    """(a) at one key count: the persisted reduce demoted under a zero
+    budget, promoted with _materialize poisoned and no kernel launched,
+    a downstream reduce eliding its exchange, the join with phase 3's
+    table, a corrupted snapshot recomputed, unpersist and stop removing
+    the snapshot and the session directory; spill / promote / recompute
+    ms and the snapshot's bytes."""
+    def kv(x):
+        return x % k, x * 0.5
+
+    def refuse():
+        raise AssertionError("a promoted access recomputed its lineage")
+
+    def evict():
+        ctx.dense_hbm_budget = 0
+        try:
+            dense_rdd._lifetime_evict(ctx)
+        finally:
+            ctx.dense_hbm_budget = budget
+        p11_check(f"K={k}: the zero-budget sweep evicted the node",
+                  node._block is None)
+
+    ctx = vt.Context(n_shards=N_SHARDS)
+    budget = ctx.dense_hbm_budget
+    session = os.path.dirname(ctx._spill.root)
+    sums = p11_sums(np, k)
+    launches = {name: 0 for name in ck.LAUNCHES}
+    try:
+        ck.reset_launches()
+        node = (ctx.dense_range(N_ROWS).map(kv).reduce_by_key(op="add")
+                .persist("MEMORY_AND_DISK"))
+        p11_rows(np, f"K={k} cold", node.collect_arrays(), sums)
+        block_bytes = node.block().nbytes
+        shape = list(node.block().cols["k"].shape)
+        for name, c in ck.LAUNCHES.items():
+            launches[name] += c
+        _, spill_ms = p11_synced_ms(torch, evict)
+        st = ctx.spill_status()
+        p11_check(f"K={k}: spilled_bytes {st['spilled_bytes']}",
+                  st["spilled_bytes"] > 0 and st["spill_count"] == 1)
+        snapshot_bytes = st["disk_bytes"]
+        key = dense_rdd._dense_spill_key(node)
+        path = ctx._spill.path_of(key)
+
+        promote_ms = []
+        node._materialize = refuse
+        for i in range(P11_PROMOTES):
+            if i:
+                evict()
+            ck.reset_launches()
+            _, ms = p11_synced_ms(torch, node.block)
+            promote_ms.append(ms)
+            p11_rows(np, f"K={k} promoted", node.collect_arrays(), sums)
+            p11_none_launched(ck, f"K={k}: the promoted access")
+        st = ctx.spill_status()
+        p11_check(f"K={k}: promote_count {st['promote_count']}",
+                  st["promote_count"] == P11_PROMOTES
+                  and st["spill_count"] == 1)
+        p11_check(f"K={k}: the promoted node is hash-placed",
+                  node.hash_placed and node.key_sorted)
+        del node.__dict__["_materialize"]
+
+        ck.reset_launches()
+        again = node.reduce_by_key(op="add")
+        p11_rows(np, f"K={k} downstream reduce", again.collect_arrays(), sums)
+        p11_check(f"K={k}: the downstream reduce planned "
+                  f"{again._exchange_plan}", again._exchange_plan is None)
+        p11_none_launched(ck, f"K={k}: the downstream reduce")
+        ck.reset_launches()
+        table = ctx.dense_from_numpy(np.arange(N_KEYS, dtype=np.int32),
+                                     np.arange(N_KEYS, dtype=np.float32) * 2)
+        got = node.join(table).collect_arrays()
+        jkeys = p11_rows(np, f"K={k} join", got, sums[:N_KEYS], value="lv")
+        p11_check(f"K={k} join: table values differ from numpy",
+                  np.array_equal(got["rv"], jkeys * 2.0))
+        for name, c in ck.LAUNCHES.items():
+            launches[name] += c
+        del again, table, got, jkeys
+
+        # one byte flipped: the checksummed read misses, the node
+        # recomputes (its exchange launches again)
+        evict()
+        with open(path, "r+b") as fh:
+            fh.seek(os.path.getsize(path) // 2)
+            b = fh.read(1)
+            fh.seek(-1, os.SEEK_CUR)
+            fh.write(bytes([b[0] ^ 0xFF]))
+        ck.reset_launches()
+        p11_rows(np, f"K={k} after a corrupt snapshot", node.collect_arrays(),
+                 sums)
+        st = ctx.spill_status()
+        p11_check(f"K={k}: the corrupt snapshot counted "
+                  f"{st['disk_read_errors']} read errors and "
+                  f"{st['promote_count']} promotes",
+                  st["disk_read_errors"] == 1
+                  and st["promote_count"] == P11_PROMOTES
+                  and not os.path.exists(path))
+        recomputed = dict(ck.LAUNCHES)
+        p11_check(f"K={k}: the corrupt snapshot's recompute launched "
+                  f"{recomputed}", any(recomputed.values()))
+        for name, c in ck.LAUNCHES.items():
+            launches[name] += c
+        _, respill_ms = p11_synced_ms(torch, evict)
+        p11_check(f"K={k}: the recomputed block demoted afresh",
+                  ctx.spill_status()["spill_count"] == 2
+                  and os.path.exists(ctx._spill.path_of(key)))
+        path = ctx._spill.path_of(key)
+        node.unpersist()
+        p11_check(f"K={k}: unpersist removed the snapshot",
+                  not os.path.exists(path)
+                  and ctx.spill_status()["disk_entries"] == 0)
+
+        recompute_ms = []
+        for _ in range(P11_RECOMPUTES):
+            ck.reset_launches()
+            _, ms = p11_synced_ms(torch, node.block)
+            recompute_ms.append(ms)
+            for name, c in ck.LAUNCHES.items():
+                launches[name] += c
+            node.unpersist()
+        # the warm block (capacities from the cold run's hints) through a
+        # demotion and a promotion, with the steps each recorded
+        p11_rows(np, f"K={k} recomputed", node.collect_arrays(), sums)
+        warm_shape = list(node.block().cols["k"].shape)
+        for kind in dense_rdd.SPILL_STEPS:
+            dense_rdd.SPILL_STEPS[kind] = {}
+        _, warm_spill_ms = p11_synced_ms(torch, evict)
+        warm_snapshot_bytes = ctx.spill_status()["disk_bytes"]
+        node._materialize = refuse
+        ck.reset_launches()
+        _, warm_promote_ms = p11_synced_ms(torch, node.block)
+        p11_none_launched(ck, f"K={k}: the warm block's promotion")
+        parts = {**dense_rdd.SPILL_STEPS["demote"],
+                 **dense_rdd.SPILL_STEPS["promote"]}
+        p11_check(f"K={k}: the warm demotion and promotion recorded "
+                  f"{sorted(parts)}", len(parts) == 6)
+        del node.__dict__["_materialize"]
+        p11_rows(np, f"K={k} warm block promoted", node.collect_arrays(),
+                 sums)
+        status = ctx.spill_status()
+    finally:
+        ctx.stop()
+    p11_check(f"K={k}: stop() removed the session directory {session}",
+              not os.path.exists(session))
+    out = dict(keys=k, rows=N_ROWS, shape=shape, block_bytes=block_bytes,
+               snapshot_bytes=snapshot_bytes, spill_ms=spill_ms,
+               respill_ms=respill_ms, promote_ms=promote_ms,
+               median_promote_ms=statistics.median(promote_ms),
+               recompute_ms=recompute_ms,
+               median_recompute_ms=statistics.median(recompute_ms),
+               warm_shape=warm_shape, warm_spill_ms=warm_spill_ms,
+               warm_promote_ms=warm_promote_ms,
+               warm_snapshot_bytes=warm_snapshot_bytes, parts=parts,
+               status=status, launches=launches)
+    log(f"11a K={k}: {out}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def p11_gf_coeffs(np, kernels, scheme, n):
+    """The coefficients of one scheme: XOR all ones, RS Cauchy entries
+    inverse((255 - 0) ^ i) (the port's tables), masked every other
+    member."""
+    if scheme == "xor":
+        return np.ones(n, dtype=np.uint8)
+    if scheme == "rs":
+        return np.array([kernels.GF_EXP[255 - int(kernels.GF_LOG[255 ^ i])]
+                         for i in range(n)], dtype=np.uint8)
+    return np.array([(0 if i % 2 else 143) for i in range(n)],
+                    dtype=np.uint8)
+
+
+def p11_gf_twin(np, kernels, blocks, coeffs):
+    """numpy twin with the port's tables: member i's 256 products
+    exp[log b + log c_i] (zero operands masked), then one lookup per byte
+    and an XOR over the members."""
+    byte = np.arange(256)
+    out = np.zeros(blocks.shape[1], dtype=np.uint8)
+    for i, c in enumerate(coeffs):
+        row = kernels.GF_EXP[kernels.GF_LOG[byte] + kernels.GF_LOG[int(c)]]
+        row[(byte == 0) | (c == 0)] = 0
+        out ^= row[blocks[i]]
+    return out
+
+
+def p11_gf_small(np, kernels):
+    """The seeded small inputs' digest on the card, numpy in (so the
+    entry's default device, the card), against the reference's."""
+    import hashlib
+
+    h = hashlib.sha256()
+    rng = np.random.RandomState(11)
+    for n, w in ((1, 17), (4, 256), (7, 1023), (128, 64)):
+        b = rng.randint(0, 256, size=(n, w)).astype(np.uint8)
+        for scheme in P11_GF_SCHEMES:
+            out = kernels.gf256_accumulate(b, p11_gf_coeffs(np, kernels,
+                                                             scheme, n))
+            p11_check("gf256 of numpy input ran off the card",
+                      out.device.type == "cuda")
+            h.update(out.cpu().numpy().tobytes())
+    p11_check(f"gf256 digest {h.hexdigest()} differs from the "
+              f"reference's {P11_GF_DIGEST}", h.hexdigest() == P11_GF_DIGEST)
+    return h.hexdigest()
+
+
+def p11_gf256(torch, np, kernels):
+    """(b) gf256_accumulate on the card at each shape and scheme:
+    bit-identical to the numpy twin, the median ms (time_ms), the bound
+    (n*L + L + n bytes over the HBM rate), the share and the peak."""
+    digest = p11_gf_small(np, kernels)
+    gen = torch.Generator(device="cuda")
+    rows = []
+    for n, width in P11_GF_SHAPES:
+        gen.manual_seed(1000 + n)
+        blocks = torch.randint(0, 256, (n, width), dtype=torch.uint8,
+                               device="cuda", generator=gen)
+        host = blocks.cpu().numpy()
+        for scheme in P11_GF_SCHEMES:
+            c_np = p11_gf_coeffs(np, kernels, scheme, n)
+            coeffs = torch.from_numpy(c_np).cuda()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = kernels.gf256_accumulate(blocks, coeffs)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            p11_check(f"gf256 [{n}, {width}] {scheme}: differs from the "
+                      "numpy twin", np.array_equal(
+                          out.cpu().numpy(),
+                          p11_gf_twin(np, kernels, host, c_np)))
+            del out
+            t = time_ms(torch, lambda: kernels.gf256_accumulate(blocks,
+                                                                coeffs))
+            b_ms, b_by = bound(n * width + width + n, 2 * n * width)
+            rows.append(dict(shape=[n, width], scheme=scheme, ms=t["ms"],
+                             ms_min=t["ms_min"], ms_max=t["ms_max"],
+                             bound_ms=b_ms, bound_by=b_by,
+                             bound_share=b_ms / t["ms"], peak_bytes=peak))
+            log(f"11b gf256 {rows[-1]}")
+        del blocks, host
+        torch.cuda.empty_cache()
+    return dict(digest=digest, rows=rows)
+
+
+def p11_fold(torch, np, ck, vt):
+    """(c) fold_pairs_device on one micro-batch of P11_FOLD_PAIRS Python
+    (int, int) pairs over P11_FOLD_KEYS keys, per named op: exact against
+    a plain dict fold with Python int types, the host build (list to
+    numpy, up to the source's build) apart from the rest, the launches;
+    then a total beyond int64 returns None."""
+    import operator
+
+    from vega_tpu_torch import state_fold
+
+    rng = np.random.RandomState(13)
+    keys = rng.randint(0, P11_FOLD_KEYS, size=P11_FOLD_PAIRS).tolist()
+    vals = rng.randint(-1000, 1000, size=P11_FOLD_PAIRS).tolist()
+    # prod over values in {1, 2} (2 with p = 0.1): about one 2 per key,
+    # the products far inside int32
+    twos = (rng.rand(P11_FOLD_PAIRS) < 0.1).astype(np.int64) + 1
+    batches = {"add": list(zip(keys, vals)), "min": list(zip(keys, vals)),
+               "max": list(zip(keys, vals)),
+               "prod": list(zip(keys, twos.tolist()))}
+    fns = {"add": operator.add, "min": min, "max": max, "prod": operator.mul}
+    ctx = vt.Context(n_shards=N_SHARDS)
+    marks = {}
+    built = ctx.dense_from_numpy
+
+    def marked(*cols):
+        marks["built"] = time.perf_counter()
+        return built(*cols)
+    ctx.dense_from_numpy = marked
+    rows = []
+    launches = {name: 0 for name in ck.LAUNCHES}
+    try:
+        for op, pairs in batches.items():
+            want = {}
+            fn = fns[op]
+            for k, x in pairs:
+                want[k] = fn(want[k], x) if k in want else x
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            got = state_fold.fold_pairs_device(ctx, pairs, op)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p11_check(f"11c {op}: the fold differs from a dict fold",
+                      got == want)
+            p11_check(f"11c {op}: not every key and value a Python int",
+                      all(type(a) is int and type(b) is int
+                          for a, b in got.items()))
+            fired = [name for name, c in ck.LAUNCHES.items() if c]
+            p11_check(f"11c {op}: no kernel launched", fired)
+            for name, c in ck.LAUNCHES.items():
+                launches[name] += c
+            rows.append(dict(op=op, pairs=len(pairs), keys=len(want),
+                             ms=(t1 - t0) * 1e3,
+                             host_build_ms=(marks["built"] - t0) * 1e3,
+                             device_ms=(t1 - marks["built"]) * 1e3,
+                             launched=fired))
+            log(f"11c {rows[-1]}")
+        over = state_fold.fold_pairs_device(
+            ctx, [(1, 2**62), (1, 2**62), (2, 1)], "add")
+        p11_check(f"11c: a total beyond int64 gave {over}, not None",
+                  over is None)
+    finally:
+        ctx.stop()
+    return dict(rows=rows, overflow_none=True, launches=launches)
+
+
+def phase_eleven(torch, np, ck, vt):
+    """Phase 11: (a) persist(MEMORY_AND_DISK) at bench-main, at K = 1M
+    and K = 20M; (b) the GF(256) decode; (c) the streaming state fold.
+    Launches are summed over every run of the phase."""
+    from vega_tpu_torch import dense_rdd, kernels
+
+    persist = [p11_persist(torch, np, ck, vt, dense_rdd, k)
+               for k in P11_KEYS]
+    gf = p11_gf256(torch, np, kernels)
+    fold = p11_fold(torch, np, ck, vt)
+    launches = {name: sum(r["launches"][name] for r in persist)
+                + fold["launches"][name] for name in ck.LAUNCHES}
+    return dict(persist=persist, gf256=gf, fold=fold, launches=launches)
+
+
 def main():
     try:
         import torch
@@ -3035,6 +3434,8 @@ def main():
     nine = phase_nine(torch, np, ck, vt)
     # 10. the frame layer
     ten = phase_ten(torch, np, ck, vt)
+    # 11. persist(level) and the spill tier, the GF(256) decode, the fold
+    eleven = phase_eleven(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -3048,7 +3449,8 @@ def main():
          "phase7_launches": seven["launches"][r["name"]],
          "phase8_launches": eight["launches"][r["name"]],
          "phase9_launches": nine["launches"][r["name"]],
-         "phase10_launches": ten["launches"][r["name"]]}
+         "phase10_launches": ten["launches"][r["name"]],
+         "phase11_launches": eleven["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -3061,7 +3463,7 @@ def main():
                    kernels=table, radix_and_cold=radix, main_path=main_path,
                    plans=plans, keyed=keyed, config3=config3,
                    new_ops=new_ops, phase7=seven, phase8=eight,
-                   phase9=nine, phase10=ten)
+                   phase9=nine, phase10=ten, phase11=eleven)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -3189,6 +3591,36 @@ def main():
           f"launches {json.dumps(r['launches'])} on {card}", flush=True)
     print(f"phase 10d untraceable UDF raised at explain(): "
           f"{ten['untraceable']['raised']}", flush=True)
+    for r in eleven["persist"]:
+        print(f"phase 11a persist K={r['keys']} (block {r['shape']}, "
+              f"{r['block_bytes']} B): spill {r['spill_ms']:.3f} ms "
+              f"(re-spill {r['respill_ms']:.3f}), promote "
+              f"{r['median_promote_ms']:.3f} ms median of "
+              f"{len(r['promote_ms'])} {json.dumps(r['promote_ms'])}, "
+              f"snapshot {r['snapshot_bytes']} B, warm recompute after "
+              f"unpersist {r['median_recompute_ms']:.3f} ms median of "
+              f"{len(r['recompute_ms'])}; warm block {r['warm_shape']}: "
+              f"spill {r['warm_spill_ms']:.3f} ms, promote "
+              f"{r['warm_promote_ms']:.3f} ms, snapshot "
+              f"{r['warm_snapshot_bytes']} B; parts "
+              f"{json.dumps(r['parts'])}; promoted access and downstream "
+              f"reduce launched nothing, corrupt snapshot recomputed, "
+              f"status {json.dumps(r['status'])} on {card}", flush=True)
+    for r in eleven["gf256"]["rows"]:
+        print(f"phase 11b gf256 {r['shape']} {r['scheme']}: {r['ms']:.4f} "
+              f"ms median ({r['ms_min']:.4f}-{r['ms_max']:.4f}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+              f"{r['bound_share']:.1%}, peak {r['peak_bytes']} B, "
+              f"bit-identical to the numpy twin on {card}", flush=True)
+    print(f"phase 11b gf256 reference digest equal: "
+          f"{eleven['gf256']['digest']}", flush=True)
+    for r in eleven["fold"]["rows"]:
+        print(f"phase 11c fold {r['op']} ({r['pairs']} pairs, {r['keys']} "
+              f"keys): {r['ms']:.3f} ms, host build {r['host_build_ms']:.3f}"
+              f" ms, device and collect {r['device_ms']:.3f} ms, exact with "
+              f"Python ints, launched {r['launched']} on {card}",
+              flush=True)
+    print("phase 11c fold: a total beyond int64 returned None", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",

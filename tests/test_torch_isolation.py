@@ -101,3 +101,39 @@ def test_context_without_device_never_runs_on_cpu():
             vt.Context()
     with pytest.raises(vt.VegaError):
         vt.Context(device="cpu", n_shards=0)
+
+
+def test_spill_fold_and_decode_run_with_jax_and_vega_tpu_unimportable():
+    """The walk covers store/ and state_fold.py, and persist / the spill
+    tier, fold_pairs_device and gf256_accumulate run with jax and
+    vega_tpu unimportable."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("store/__init__.py", "store/level.py", "store/disk.py",
+                "state_fold.py", "kernels.py"):
+        assert os.path.join("vega_tpu_torch", rel) in files
+    script = """
+import sys
+for name in ("jax", "jaxlib", "vega_tpu"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import numpy as np
+import vega_tpu_torch as vt
+from vega_tpu_torch import dense_rdd, kernels, state_fold
+with vt.Context(device="cpu", n_shards=8) as ctx:
+    r = (ctx.dense_range(5000).map(lambda x: (x % 100, x))
+         .reduce_by_key(op="add").persist("MEMORY_AND_DISK"))
+    want = dict(r.collect())
+    ctx.dense_hbm_budget = 0
+    dense_rdd._lifetime_evict(ctx)
+    assert dict(r.collect()) == want
+    assert ctx.spill_status()["promote_count"] == 1
+    assert state_fold.fold_pairs_device(ctx, [(1, 2), (1, 3)], "add") == {1: 5}
+out = kernels.gf256_accumulate(np.array([[1, 2], [3, 4]], np.uint8),
+                               np.array([1, 1], np.uint8), device="cpu")
+assert out.tolist() == [2, 6]
+print("OK")
+"""
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=False)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")

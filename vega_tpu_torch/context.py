@@ -49,11 +49,20 @@ only when rows come back to the host. dense_dict_enabled=False makes a
 string column raise instead; dense_dict_capacity (default 65536) is the
 first size of the remap tables that put two sides' codes onto one merged
 dictionary (doubled and retried on overflow).
+
+spill_dir is where persisted nodes demote their blocks (the reference's
+Configuration.spill_dir): the Context's disk store lives in
+<spill_dir or tempfile.gettempdir()/vega-tpu/spill>/session-<id>/cache, the
+reference's layout with a session id of its own per Context, made at the
+first demotion and removed by stop(). spill_status() gives its counters.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
+import tempfile
+import uuid
 from typing import Optional
 
 import torch
@@ -64,6 +73,7 @@ from vega_tpu_torch import kernels
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame.api import DataFrame
 from vega_tpu_torch.mesh import make_mesh
+from vega_tpu_torch.store import DiskStore
 
 
 class Context:
@@ -73,7 +83,8 @@ class Context:
                  dense_hbm_budget: int = 4 << 30,
                  dense_exchange: str = "auto",
                  dense_dict_enabled: bool = True,
-                 dense_dict_capacity: int = 65536):
+                 dense_dict_capacity: int = 65536,
+                 spill_dir: Optional[str] = None):
         if dense_hbm_budget < 0:
             raise VegaError(f"dense_hbm_budget must be >= 0 bytes, got "
                             f"{dense_hbm_budget}")
@@ -111,6 +122,12 @@ class Context:
         # rdd_id -> weakref to the node (dense_rdd's lifetime LRU)
         self._dense_block_lru: dict = {}
         self._rdd_ids = itertools.count()
+        # the disk tier of persisted nodes (paths only: the store makes its
+        # directory at the first demotion)
+        base = spill_dir or os.path.join(tempfile.gettempdir(), "vega-tpu",
+                                         "spill")
+        self._spill = DiskStore(os.path.join(
+            base, f"session-{uuid.uuid4().hex[:12]}", "cache"))
         self._stopped = False
 
     @property
@@ -184,10 +201,17 @@ class Context:
         dense_hbm_budget; not the allocator's count."""
         return dense_rdd.dense_hbm_in_use(self)
 
+    def spill_status(self) -> dict:
+        """The disk tier's counters, under the reference's status() keys:
+        disk_bytes, disk_entries, spill_count, spilled_bytes,
+        promote_count, promoted_bytes, disk_read_errors."""
+        return self._spill.status()
+
     def stop(self) -> None:
         """Settle the deferred exchanges, so blocks a caller holds stay
-        readable and the Context holds no block after it stops; then
-        stop. If settlement raises, its leftover blocks raise on read."""
+        readable and the Context holds no block after it stops; remove
+        the spill directory; then stop. If settlement raises, its
+        leftover blocks raise on read."""
         try:
             dense_rdd._settle_pending(self)
         finally:
@@ -196,6 +220,7 @@ class Context:
             self._pending.clear()
             self._capacity_hints.clear()
             self._key_range_hints.clear()
+            self._spill.close()
             self._stopped = True
 
     def __enter__(self):

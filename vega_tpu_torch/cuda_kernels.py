@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.errors import KernelError
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "csrc", "shuffle_kernels.cu")
@@ -65,7 +65,7 @@ def _nvcc() -> str:
     path = os.path.join(home, "bin", "nvcc")
     if os.path.exists(path):
         return path
-    raise VegaError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
+    raise KernelError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
                     "vega_tpu_torch are built from source at first use")
 
 
@@ -82,7 +82,7 @@ def build(verbose: bool = False) -> str:
            "-o", tmp, SOURCE]
     res = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if res.returncode != 0:
-        raise VegaError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise KernelError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     if verbose and res.stderr:
         print(res.stderr)
     os.replace(tmp, LIBRARY)  # atomic: a concurrent loader never sees half
@@ -110,7 +110,7 @@ def _load() -> ctypes.CDLL:
 
 def _check_batched(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
-        raise VegaError(
+        raise KernelError(
             f"{name}: expected a contiguous int32 [n_shards, cap] tensor, "
             f"got {t.dtype} of shape {tuple(t.shape)}"
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
@@ -118,12 +118,12 @@ def _check_batched(name: str, t: torch.Tensor) -> None:
 
 def _check_launch(name: str, err: int) -> None:
     if err != 0:
-        raise VegaError(f"{name}: CUDA launch failed with cudaError_t {err}")
+        raise KernelError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
 def _check_bins(name: str, n_bins: int) -> None:
     if not 1 <= n_bins <= MAX_BINS:
-        raise VegaError(f"{name}: n_bins must lie in [1, {MAX_BINS}], "
+        raise KernelError(f"{name}: n_bins must lie in [1, {MAX_BINS}], "
                         f"got {n_bins}")
 
 
@@ -131,7 +131,7 @@ def _on_cpu(name: str, t: torch.Tensor) -> bool:
     """True for a CPU tensor (plain version); False for a CUDA tensor
     (kernel); raises for any other device."""
     if t.device.type not in ("cpu", "cuda"):
-        raise VegaError(f"{name}: tensors on {t.device} are not supported")
+        raise KernelError(f"{name}: tensors on {t.device} are not supported")
     return t.device.type == "cpu"
 
 
@@ -183,7 +183,7 @@ def hash_bucket(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
     a CPU tensor."""
     _check_batched("hash_bucket", keys)
     if not 1 <= n_buckets < 2**31:
-        raise VegaError(f"hash_bucket: n_buckets out of range: {n_buckets}")
+        raise KernelError(f"hash_bucket: n_buckets out of range: {n_buckets}")
     if _on_cpu("hash_bucket", keys):
         return hash_bucket_plain(keys, n_buckets)
     out = torch.empty_like(keys)
@@ -295,7 +295,7 @@ def partition_pos(bucket: torch.Tensor, n_bins: int,
     _check_bins("partition_pos", n_bins)
     if starts.shape != (bucket.shape[0], n_bins) \
             or starts.device != bucket.device:
-        raise VegaError(
+        raise KernelError(
             f"partition_pos: starts must be [{bucket.shape[0]}, {n_bins}] "
             f"on {bucket.device}, got {tuple(starts.shape)} on "
             f"{starts.device}")
@@ -303,7 +303,7 @@ def partition_pos(bucket: torch.Tensor, n_bins: int,
         return partition_pos_plain(bucket, n_bins, starts)
     n_shards, cap = bucket.shape
     if cap >= MAX_POS_ROWS:
-        raise VegaError(f"partition_pos: a shard holds {cap} rows; the CUDA "
+        raise KernelError(f"partition_pos: a shard holds {cap} rows; the CUDA "
                         f"kernel takes fewer than {MAX_POS_ROWS}")
     pos = torch.empty_like(bucket)
     # the look-back's status words and ticket counter; the launch zeroes

@@ -72,7 +72,13 @@ materializes registers its block in the Context's LRU; past
 Context.dense_hbm_budget the least recently used blocks are dropped and
 their nodes rematerialize from lineage when read again. Sources never
 register (their block is the data), and neither the node just registered
-nor a block whose settlement is pending is evicted. save_npz writes a
+nor a block whose settlement is pending is evicted. A node persisted at
+a disk level (persist("MEMORY_AND_DISK") or "DISK_ONLY") is demoted
+instead of dropped: its settled block is written to the Context's disk
+store (store/disk.py) as an .npz snapshot of its padded columns and
+counts, and its next access promotes it back to the device with the same
+placement, without recomputing its lineage; a corrupt or unreadable
+snapshot is a miss, and the node recomputes. save_npz writes a
 node's valid rows as a plain .npz of column arrays, which dense_load_npz
 reloads as a source, streamed (stream.py) when it exceeds the budget.
 """
@@ -80,11 +86,14 @@ reloads as a source, streamed (stream.py) when it exceeds the budget.
 from __future__ import annotations
 
 import hashlib
+import io
 import logging
 import math
 import operator
 import os
+import time
 import weakref
+import zipfile
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -98,6 +107,7 @@ from vega_tpu_torch import cuda_kernels
 from vega_tpu_torch import stream
 from vega_tpu_torch.block import KEY, KEY_LO, VALUE, Block
 from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.store import StorageLevel
 
 log = logging.getLogger(__name__)
 
@@ -214,7 +224,9 @@ def dense_hbm_in_use(ctx) -> int:
 def _lifetime_evict(ctx, keep: Optional[int] = None) -> None:
     """Drop least recently used blocks until the tracked bytes fit
     ctx.dense_hbm_budget, sparing `keep` and every block whose settlement
-    is pending (it must settle or repair through the same object)."""
+    is pending (it must settle or repair through the same object). A
+    node persisted at a disk level is demoted to the disk store first;
+    the byte accounting is the same either way."""
     lru = ctx._dense_block_lru
     total, live = _lifetime_sweep(lru)
     for key in live:
@@ -226,6 +238,9 @@ def _lifetime_evict(ctx, keep: Optional[int] = None) -> None:
         blk = rdd._block if rdd is not None else None
         if blk is None or blk.settle is not None:
             continue  # collected since the sweep (the next one prunes it)
+        level = rdd._storage_level
+        if level is not None and level.use_disk:
+            _demote_block_to_disk(rdd, blk)
         total -= blk.nbytes
         rdd._block = None
         del lru[key]
@@ -233,9 +248,103 @@ def _lifetime_evict(ctx, keep: Optional[int] = None) -> None:
                   rdd.rdd_id, blk.nbytes)
 
 
+# Step times (ms) of the newest demotion (to_host_ms, savez_ms, write_ms:
+# the store's crc32 and file) and promotion (read_crc_ms, extract_ms,
+# to_device_ms), for diagnostics; also logged at DEBUG.
+SPILL_STEPS: Dict[str, Dict[str, float]] = {"demote": {}, "promote": {}}
+
+
+def _dense_spill_key(rdd) -> str:
+    return f"dense-{rdd.rdd_id}"
+
+
+def _demote_block_to_disk(rdd, blk: Block) -> None:
+    """Write an evicted node's settled block to the Context's disk store as
+    the reference's snapshot: an np.savez of counts, capacity and each
+    column flattened to [n_shards * capacity] under col:<name>, padding
+    rows included, so that promotion places every row where it was (the
+    node's hash_placed / key_sorted stay true). Code columns only: the
+    dictionaries re-attach from the lineage in block_spec. A write that
+    fails with OSError is logged and the node recomputes when read."""
+    store = rdd.context._spill
+    key = _dense_spill_key(rdd)
+    if store.contains_raw(key):
+        return  # a node's block never changes: one snapshot serves
+    t0 = time.perf_counter()
+    arrays = {f"col:{nm}": c.reshape((-1,) + c.shape[2:])
+              for nm, c in blk._host_cols().items()}
+    t1 = time.perf_counter()
+    buf = io.BytesIO()
+    np.savez(buf, counts=blk.counts_np, capacity=np.int64(blk.capacity),
+             **arrays)
+    t2 = time.perf_counter()
+    try:
+        store.spill_raw(key, buf.getbuffer())
+    except OSError:
+        log.exception("dense block spill failed; the node will recompute")
+        return
+    _record_spill_steps("demote", rdd, ("to_host_ms", "savez_ms", "write_ms"),
+                        (t0, t1, t2, time.perf_counter()))
+
+
+def _load_spilled_block(rdd) -> Optional[Block]:
+    """Promote a demoted node's block back onto the device, every column
+    with its own dtype (a checksummed read through the disk store). None
+    (the node recomputes) for a node not persisted at a disk level, no
+    snapshot, a corrupt or unreadable one, or one of another shard
+    count."""
+    level = rdd._storage_level
+    if level is None or not level.use_disk:
+        return None
+    store = rdd.context._spill
+    key = _dense_spill_key(rdd)
+    t0 = time.perf_counter()
+    data = store.read_raw(key)
+    if data is None:
+        return None
+    t1 = time.perf_counter()
+    try:
+        with np.load(io.BytesIO(data)) as z:
+            counts = np.asarray(z["counts"], dtype=np.int32)
+            capacity = int(z["capacity"])
+            cols = {nm[len("col:"):]: z[nm]
+                    for nm in z.files if nm.startswith("col:")}
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        log.warning("dense spill snapshot unreadable; recomputing",
+                    exc_info=True)
+        store.remove_raw(key)
+        return None
+    n = rdd.n_shards
+    if len(counts) != n:
+        return None  # another shard count than the node's: recompute
+    t2 = time.perf_counter()
+    dev = rdd.mesh.device
+    # a copy from pageable host memory returns once it has landed
+    blk = Block(
+        cols={nm: torch.from_numpy(c.reshape((n, capacity) + c.shape[1:]))
+              .to(dev) for nm, c in cols.items()},
+        counts=torch.from_numpy(counts).to(dev), capacity=capacity,
+        mesh=rdd.mesh, counts_host=counts)
+    _record_spill_steps("promote", rdd,
+                        ("read_crc_ms", "extract_ms", "to_device_ms"),
+                        (t0, t1, t2, time.perf_counter()))
+    return blk
+
+
+def _record_spill_steps(kind: str, rdd, names, stamps) -> None:
+    """SPILL_STEPS[kind] = {name i: ms from stamps[i] to stamps[i + 1]}."""
+    steps = {name: (b - a) * 1e3
+             for name, a, b in zip(names, stamps, stamps[1:])}
+    SPILL_STEPS[kind] = steps
+    log.debug("dense %s of rdd %s: %s", kind, rdd.rdd_id,
+              ", ".join(f"{n} {ms:.3f}" for n, ms in steps.items()))
+
+
 class DenseRDD:
     """Base dense node. Subclasses implement _materialize() -> Block and
     _schema()."""
+
+    _storage_level: Optional[StorageLevel] = None
 
     def __init__(self, ctx, mesh, parents: Sequence["DenseRDD"] = ()):
         self.context = ctx
@@ -261,7 +370,11 @@ class DenseRDD:
         invalidates and repairs them too; everything else uses block()."""
         blk = self._block
         if blk is None:
-            blk = self._materialize()
+            # a demoted block promotes from the disk store (a disk hit,
+            # not a recompute); anything else rematerializes from lineage
+            blk = _load_spilled_block(self)
+            if blk is None:
+                blk = self._materialize()
             if blk.dicts is None:
                 # the one place the dictionaries of string columns attach:
                 # materializers build plain code-column blocks, and the
@@ -277,16 +390,29 @@ class DenseRDD:
             _lifetime_touch(self)
         return blk
 
+    def persist(self, level=None) -> "DenseRDD":
+        """Storage level of this node's block (a StorageLevel, its name in
+        any case or its value; None is MEMORY_ONLY). The block is
+        materialized once either way; at MEMORY_AND_DISK or DISK_ONLY an
+        eviction past dense_hbm_budget demotes it to the Context's disk
+        store and the next access promotes it back instead of
+        recomputing. DISK_ONLY behaves like MEMORY_AND_DISK: a dense
+        block must be on the device to compute. Returns self."""
+        self._storage_level = StorageLevel.coerce(level)
+        return self
+
     def unpersist(self) -> "DenseRDD":
         """Release this node's block (a pending settlement settles first,
-        so a Block a caller holds never reads truncated data); the next
-        access rematerializes it from lineage. Returns self."""
+        so a Block a caller holds never reads truncated data) and its disk
+        snapshot; the next access rematerializes it from lineage. Returns
+        self."""
         blk = self._block
         if blk is not None:
             if blk.settle is not None:
                 blk.settle()
             self._block = None
             _lifetime_forget(self)
+        self.context._spill.remove_raw(_dense_spill_key(self))
         return self
 
     def _materialize(self) -> Block:

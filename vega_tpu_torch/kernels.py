@@ -22,15 +22,19 @@ values add exactly as two int64 addends (wide_sum_words, wide_from_sums);
 the reference's pairwise forms (wide_add, wide_add_checked, wide_select)
 are here too, bit-identical. threefry2x32, prng_key, fold_in and
 uniform_f32 are jax.random's stream in int64 ops (sample's).
+gf256_accumulate is the coded shuffle's GF(256) decode step over the
+port's own log / exp tables (GF_EXP, GF_LOG).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from vega_tpu_torch import cuda_kernels
+from vega_tpu_torch import mesh as mesh_lib
 from vega_tpu_torch.errors import VegaError
 
 Cols = Dict[str, torch.Tensor]
@@ -986,3 +990,104 @@ def uniform_f32(k0, k1, index: torch.Tensor) -> torch.Tensor:
     b0, b1 = threefry2x32(k0, k1, 0, index)
     f = ((b0 ^ b1) >> 9) | 0x3F800000
     return f.to(torch.int32).view(torch.float32) - 1.0
+
+
+# ---------------------------------------------------------------------------
+# GF(256) decode (the coded shuffle's, vega_tpu/shuffle/coding.py)
+# ---------------------------------------------------------------------------
+
+def _build_gf_tables():
+    """GF(256) exp / log tables, primitive polynomial 0x11D, generator 2;
+    exp doubled to 512 entries so that log(a) + log(b) needs no mod 255
+    (the port's copy of the reference's coding._build_tables)."""
+    exp = np.zeros(512, dtype=np.uint8)
+    log = np.zeros(256, dtype=np.int32)  # log[0] stays 0; callers mask
+    x = 1
+    for i in range(255):
+        exp[i] = x
+        log[x] = i
+        x <<= 1
+        if x & 0x100:
+            x ^= 0x11D
+    exp[255:510] = exp[0:255]
+    return exp, log
+
+
+GF_EXP, GF_LOG = _build_gf_tables()
+_GF_TILE = 1 << 25  # input bytes per tile: bounds the int32 index transients
+_gf_device_tables: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _gf_tables_on(dev: torch.device):
+    """The tables on `dev`, copied once: a host-to-device copy inside a
+    call could not be captured in a CUDA graph."""
+    tabs = _gf_device_tables.get(dev)
+    if tabs is None:
+        tabs = (torch.from_numpy(GF_EXP).to(dev),
+                torch.from_numpy(GF_LOG.astype(np.int64)).to(dev))
+        _gf_device_tables[dev] = tabs
+    return tabs
+
+
+def _xor_rows(x: torch.Tensor) -> torch.Tensor:
+    """XOR of the rows of x [n >= 1, T], a halving tree."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        top = x[:h] ^ x[h:2 * h]
+        if x.shape[0] % 2:
+            top[0] ^= x[2 * h]
+        x = top
+    return x[0]
+
+
+def gf256_accumulate(blocks, coeffs, device=None) -> torch.Tensor:
+    """out = XOR_i c_i * B_i over GF(256): the decode step of the coded
+    shuffle (the reference's kernels.gf256_accumulate). blocks: uint8
+    [n, L] byte rows, coeffs: uint8 [n] (all ones for the XOR scheme,
+    Cauchy entries for rs(k, m)); returns uint8 [L], bit-identical to
+    coding._accumulate_np.
+
+    Runs on the device of a tensor input; numpy input goes to
+    mesh.resolve_device(device), the card unless device says otherwise.
+    Each member's 256-entry product row c_i * b comes from the log gathers
+    and the exp gather with the zero operands masked, as in the
+    reference; then each byte is one gather from its member's row (int32
+    indices), tiled over columns so the transients stay near 5 bytes per
+    byte of a tile, and the members' products are XORed in a halving
+    tree."""
+    if isinstance(blocks, torch.Tensor):
+        dev = blocks.device
+    elif isinstance(coeffs, torch.Tensor):
+        dev = coeffs.device
+    else:
+        dev = mesh_lib.resolve_device(device)
+    if not isinstance(blocks, torch.Tensor):
+        blocks = torch.from_numpy(np.ascontiguousarray(blocks,
+                                                       dtype=np.uint8))
+    if not isinstance(coeffs, torch.Tensor):
+        coeffs = torch.from_numpy(np.ascontiguousarray(coeffs,
+                                                       dtype=np.uint8))
+    blocks = blocks.to(device=dev, dtype=torch.uint8)
+    coeffs = coeffs.to(device=dev, dtype=torch.uint8).reshape(-1)
+    if blocks.dim() != 2 or coeffs.shape[0] != blocks.shape[0]:
+        raise VegaError(f"gf256_accumulate: blocks [n, L] and coeffs [n], "
+                        f"got {tuple(blocks.shape)} and "
+                        f"{tuple(coeffs.shape)}")
+    n, width = blocks.shape
+    out = torch.zeros(width, dtype=torch.uint8, device=dev)
+    if n == 0 or width == 0:
+        return out
+    exp_t, log_t = _gf_tables_on(dev)
+    byte = torch.arange(256, device=dev)
+    rows = exp_t[log_t[byte][None, :] + log_t[coeffs.long()][:, None]]
+    rows = torch.where((byte == 0)[None, :] | (coeffs == 0)[:, None],
+                       torch.zeros((), dtype=torch.uint8, device=dev), rows)
+    flat = rows.reshape(-1)  # member i's row at [256 * i, 256 * i + 256)
+    base = (torch.arange(n, device=dev, dtype=torch.int32) * 256)[:, None]
+    tile = max(1, _GF_TILE // n)
+    for s in range(0, width, tile):
+        e = min(width, s + tile)
+        idx = blocks[:, s:e].to(torch.int32) + base
+        prod = flat.index_select(0, idx.reshape(-1)).view(n, e - s)
+        out[s:e] = _xor_rows(prod)
+    return out
