@@ -162,14 +162,43 @@ Phases, in order; any failure exits non-zero before the last line:
      ms beside the bound and the peak; (c) state_fold.fold_pairs_device
      on 1M Python (int, int) pairs over 100,000 keys, add / min / max /
      prod exact against a dict fold with Python ints, the host build
-     apart, a kernel launched per op, and a total beyond int64 None.
+     apart, a kernel launched per op, and a total beyond int64 None;
+ 12. narrow and uint32 columns, the host API's device forms and
+     ctx.profiler, each line a cold run checked against numpy and three
+     warm runs (host build of the sources from numpy apart), the cold
+     run's launches and peak: (a) network-flow rollups at N = 20M rows:
+     uint16 ports (65,536 keys) with int32 bytes reduced and joined to a
+     65,536-row uint16 table, sorted (take(10)); int8 flags
+     count_by_value() over 256 values; int8 values whose per-key sums
+     wrap (numpy's int8 wrap); float16 readings over 1M int32 keys (rtol
+     2e-3 of numpy's float16 sums); the uint16 reduce+join must launch
+     all three kernels; (b) 20M rows over 1M uint32 IPv4 addresses, half
+     >= 2^31: reduce+join to the address table (all three kernels),
+     sort_by_key().take(10) both ways in unsigned order, a uint32 value
+     column reduced (add wraps mod 2^32) and its exact sum(); each value
+     reduce of (a) and (b) also timed with count() alone; (c) on
+     bench-main's reduce: first, is_empty, keys().count(), values().sum(),
+     count_by_key of the 20M pairs, collect_as_map, lookup x3 and a
+     right_outer_join with a 1M-row table half missing (None exactly
+     where numpy says), each exact and timed warm; (d) one warm bench-main
+     run inside ctx.profiler(), twice: counts equal to an unprofiled
+     run's, the first trace naming hash_bucket_kernel,
+     digit_hist_*_kernel and partition_pos_kernel, its five longest
+     device ops and device busy share, profiled beside unprofiled ms,
+     the profiler's start / stop / write ms of each session, and a third
+     session over the int8 value reduce with its collect: its ms, device
+     busy ms over its span and its eight longest device ops (the traces
+     under chiprun_out/phase12_trace, removed after); (e) a named bool
+     add raising VegaError, tuple keys folding to
+     None, a 2-D key raising VegaError (not KernelError). Prints phase
+     12's wall time.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
 line per phase-9 leg and item, one line per phase-10 leg and item, one
-line per phase-11 size, gf256 row and fold op, the
-kernel table as one JSON line (with phases 6-11's launches beside the main
-path's), the card line,
+line per phase-11 size, gf256 row and fold op, one line per phase-12
+item, the kernel table as one JSON line (with phases 6-12's launches
+beside the main path's), the card line,
 and last {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 
@@ -3375,6 +3404,549 @@ def phase_eleven(torch, np, ck, vt):
     return dict(persist=persist, gf256=gf, fold=fold, launches=launches)
 
 
+P12_PORTS = 65_536             # uint16 destination ports: every value a key
+P12_FLAGS = 256                # int8 flags: every value a key
+P12_WRAP_KEYS = 100_000        # int8 values, 200 per key: sums wrap
+P12_F16_KEYS = 1_000_000       # float16 readings over 1M int32 keys
+P12_ADDRS = 1_000_000          # uint32 IPv4 addresses, half >= 2^31
+P12_LOOKUPS = (0, 499_999, 999_999)
+P12_TRACE_DIR = os.path.join("chiprun_out", "phase12_trace")
+
+
+def p12_check(what, ok):
+    if not ok:
+        fail(f"phase 12: {what}")
+
+
+def p12_step(torch, ck, fn):
+    """fn() between two synchronizes with the launches counted from 0 and
+    the allocator's peak reset: (result, ms, launches, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, dict(ck.LAUNCHES), torch.cuda.max_memory_allocated()
+
+
+def p12_timed(torch, ck, label, build, run, check, must=()):
+    """One line of 12a-c: a cold run (build + run, checked), then three
+    warm ones, each its host build (the sources from numpy) and its device
+    steps (run, ended by a synchronize) timed apart; the launches of the
+    cold run's steps, which must include `must`, and the steps' peak."""
+    src, build_ms, _, _ = p12_step(torch, ck, build)
+    out, ms, launches, peak = p12_step(torch, ck, lambda: run(src))
+    check(out)
+    missing = [n for n in must if launches[n] <= 0]
+    p12_check(f"{label}: kernels {missing} not launched ({launches})",
+              not missing)
+    warm, warm_build = [], []
+    for _ in range(3):
+        src, b_ms, _, _ = p12_step(torch, ck, build)
+        out, w_ms, _, _ = p12_step(torch, ck, lambda: run(src))
+        warm.append(w_ms)
+        warm_build.append(b_ms)
+    del src, out
+    row = dict(label=label, cold_ms=ms, cold_build_ms=build_ms,
+               warm_ms=warm, median_ms=statistics.median(warm),
+               warm_build_ms=warm_build,
+               median_build_ms=statistics.median(warm_build),
+               rows_per_s=N_ROWS / (statistics.median(warm) / 1e3),
+               launches=launches, peak_bytes=peak)
+    log(f"phase 12 {label}: warm {row['median_ms']:.3f} ms (host build "
+        f"{row['median_build_ms']:.3f} ms), cold {ms:.3f} ms, launches "
+        f"{launches}, peak {peak} B")
+    return row
+
+
+def p12_sums(np, idx, vals, n):
+    """Exact per-index sums (int64) of integer vals."""
+    return np.bincount(idx, weights=vals.astype(np.float64),
+                       minlength=n).astype(np.int64)
+
+
+def p12_narrow(torch, np, ck, vt):
+    """(a) network-flow rollups over narrow columns at N_ROWS rows: uint16
+    ports with int32 byte counts reduced, joined to a 65,536-row uint16
+    port table, sorted (take(10)); int8 flags counted by value; int8
+    values whose per-key sums wrap; float16 readings summed per key."""
+    rng = np.random.RandomState(31)
+    ports = rng.randint(0, P12_PORTS, N_ROWS).astype(np.uint16)
+    nbytes = rng.randint(40, 1500, N_ROWS).astype(np.int32)
+    names = np.arange(P12_PORTS, dtype=np.uint16)
+    port_sums = p12_sums(np, ports, nbytes, P12_PORTS)
+    present = np.flatnonzero(np.bincount(ports, minlength=P12_PORTS))
+    ctx = vt.Context(n_shards=N_SHARDS)
+    rows = []
+    try:
+        def check_ports(out):
+            cnt, got = out
+            p12_check(f"12a ports: join count {cnt}", cnt == len(present))
+            p12_check("12a ports: key dtypes",
+                      got["k"].dtype == np.uint16
+                      and got["rv"].dtype == np.int32)
+            order = np.argsort(got["k"])
+            p12_check("12a ports: per-port sums differ from numpy",
+                      np.array_equal(got["k"][order], present)
+                      and np.array_equal(got["lv"][order],
+                                         port_sums[present])
+                      and np.array_equal(got["rv"][order], present * 3))
+
+        def run_ports(src):
+            joined = src[0].reduce_by_key(op="add").join(src[1])
+            return joined.count(), joined.collect_arrays()
+        rows.append(p12_timed(
+            torch, ck, "12a uint16 ports reduce+join",
+            lambda: (ctx.dense_from_numpy(ports, nbytes),
+                     ctx.dense_from_numpy(names,
+                                          names.astype(np.int32) * 3)),
+            run_ports, check_ports,
+            ("hash_bucket", "digit_hist", "partition_pos")))
+
+        first10 = np.sort(ports)[:10]
+
+        def check_sorted(out):
+            keys = np.array([k for k, _ in out], dtype=np.int64)
+            p12_check("12a sort_by_key().take(10) keys",
+                      np.array_equal(keys, first10))
+            for k, b in out:
+                p12_check(f"12a take(10): ({k}, {b}) is no input row",
+                          b in set(nbytes[ports == k].tolist()))
+        rows.append(p12_timed(
+            torch, ck, "12a uint16 sort_by_key().take(10)",
+            lambda: ctx.dense_from_numpy(ports, nbytes),
+            lambda src: src.sort_by_key().take(10), check_sorted,
+            ("digit_hist", "partition_pos")))
+
+        flags = rng.randint(-128, 128, N_ROWS).astype(np.int8)
+        flag_counts = np.bincount(flags.astype(np.int64) + 128,
+                                  minlength=P12_FLAGS)
+
+        def check_flags(out):
+            got = np.zeros(P12_FLAGS, np.int64)
+            for k, c in out.items():
+                got[k + 128] = c
+            p12_check("12a int8 count_by_value differs from np.bincount",
+                      len(out) == P12_FLAGS
+                      and np.array_equal(got, flag_counts))
+        rows.append(p12_timed(
+            torch, ck, "12a int8 flags count_by_value",
+            lambda: ctx.dense_from_numpy(flags),
+            lambda src: src.count_by_value(), check_flags,
+            ("hash_bucket", "digit_hist")))
+
+        wkeys = rng.randint(0, P12_WRAP_KEYS, N_ROWS).astype(np.int32)
+        wvals = rng.randint(-128, 128, N_ROWS).astype(np.int8)
+        wrapped = p12_sums(np, wkeys, wvals, P12_WRAP_KEYS).astype(np.int8)
+
+        def check_wrap(got):
+            order = np.argsort(got["k"])
+            p12_check("12a int8 sums: dtype", got["v"].dtype == np.int8)
+            p12_check("12a int8 sums differ from numpy's int8 wrap",
+                      np.array_equal(got["k"][order],
+                                     np.arange(P12_WRAP_KEYS))
+                      and np.array_equal(got["v"][order], wrapped))
+        rows.append(p12_timed(
+            torch, ck, "12a int8 values reduce (wrapping)",
+            lambda: ctx.dense_from_numpy(wkeys, wvals),
+            lambda src: src.reduce_by_key(op="add").collect_arrays(),
+            check_wrap, ("hash_bucket", "digit_hist")))
+        rows.append(p12_timed(
+            torch, ck, "12a int8 values reduce, count() alone",
+            lambda: ctx.dense_from_numpy(wkeys, wvals),
+            lambda src: src.reduce_by_key(op="add").count(),
+            lambda c: p12_check(f"12a int8 reduce count() {c}",
+                                c == P12_WRAP_KEYS),
+            ("hash_bucket", "digit_hist")))
+
+        fkeys = rng.randint(0, P12_F16_KEYS, N_ROWS).astype(np.int32)
+        fvals = (rng.rand(N_ROWS) * 4).astype(np.float16)
+        fsums = np.bincount(fkeys, weights=fvals.astype(np.float64),
+                            minlength=P12_F16_KEYS).astype(np.float16)
+
+        def check_f16(got):
+            p12_check("12a float16 sums: dtype", got["v"].dtype == np.float16)
+            v = np.zeros(P12_F16_KEYS, np.float64)
+            v[got["k"]] = got["v"]
+            seen = np.bincount(got["k"], minlength=P12_F16_KEYS)
+            want = fsums.astype(np.float64)
+            p12_check("12a float16 sums beyond rtol 2e-3 of numpy's",
+                      np.array_equal(seen, (np.bincount(
+                          fkeys, minlength=P12_F16_KEYS) > 0).astype(
+                              np.int64))
+                      and np.allclose(v, want, rtol=2e-3, atol=0))
+        rows.append(p12_timed(
+            torch, ck, "12a float16 values reduce",
+            lambda: ctx.dense_from_numpy(fkeys, fvals),
+            lambda src: src.reduce_by_key(op="add").collect_arrays(),
+            check_f16, ("hash_bucket", "digit_hist")))
+        n_fkeys = int(np.count_nonzero(np.bincount(fkeys)))
+        rows.append(p12_timed(
+            torch, ck, "12a float16 values reduce, count() alone",
+            lambda: ctx.dense_from_numpy(fkeys, fvals),
+            lambda src: src.reduce_by_key(op="add").count(),
+            lambda c: p12_check(f"12a float16 reduce count() {c}",
+                                c == n_fkeys),
+            ("hash_bucket", "digit_hist")))
+    finally:
+        ctx.stop()
+    return rows
+
+
+def p12_uint32(torch, np, ck, vt):
+    """(b) IPv4-address keys: N_ROWS rows over P12_ADDRS distinct uint32
+    addresses, half of them >= 2^31: reduced and joined to the address
+    table, sorted (take(10), unsigned order); a uint32 value column
+    reduced by key (add wraps mod 2^32) and its exact sum()."""
+    rng = np.random.RandomState(32)
+    half = P12_ADDRS // 2
+    lo = np.unique(rng.randint(0, 2**31, 2 * half, dtype=np.int64))[:half]
+    hi = np.unique(rng.randint(2**31, 2**32, 2 * half,
+                               dtype=np.int64))[:half]
+    addrs = rng.permutation(np.concatenate([lo, hi])).astype(np.uint32)
+    idx = rng.randint(0, P12_ADDRS, N_ROWS)
+    keys = addrs[idx]
+    nbytes = rng.randint(40, 1500, N_ROWS).astype(np.int32)
+    addr_sums = p12_sums(np, idx, nbytes, P12_ADDRS)
+    used = np.bincount(idx, minlength=P12_ADDRS) > 0
+    table_v = np.arange(P12_ADDRS, dtype=np.int32)
+    ctx = vt.Context(n_shards=N_SHARDS)
+    rows = []
+    try:
+        def check_join(out):
+            cnt, got = out
+            p12_check(f"12b join count {cnt}", cnt == int(used.sum()))
+            p12_check("12b dtypes", got["k"].dtype == np.uint32)
+            p12_check("12b joined rows differ from numpy",
+                      np.array_equal(addrs[got["rv"]], got["k"])
+                      and np.array_equal(got["lv"], addr_sums[got["rv"]])
+                      and np.array_equal(np.sort(got["rv"]),
+                                         np.flatnonzero(used)))
+
+        def run_join(src):
+            joined = src[0].reduce_by_key(op="add").join(src[1])
+            return joined.count(), joined.collect_arrays()
+        rows.append(p12_timed(
+            torch, ck, "12b uint32 addresses reduce+join",
+            lambda: (ctx.dense_from_numpy(keys, nbytes),
+                     ctx.dense_from_numpy(addrs, table_v)),
+            run_join, check_join,
+            ("hash_bucket", "digit_hist", "partition_pos")))
+
+        first10 = np.sort(keys)[:10]
+        last10 = np.sort(keys)[::-1][:10]
+
+        def check_sorted(out):
+            asc, desc = out
+            p12_check("12b sort_by_key().take(10) not unsigned order",
+                      np.array_equal(np.array([k for k, _ in asc],
+                                              np.uint32), first10)
+                      and np.array_equal(np.array([k for k, _ in desc],
+                                                  np.uint32), last10))
+        rows.append(p12_timed(
+            torch, ck, "12b uint32 sort_by_key().take(10) both ways",
+            lambda: ctx.dense_from_numpy(keys, nbytes),
+            lambda src: (src.sort_by_key().take(10),
+                         src.sort_by_key(False).take(10)), check_sorted,
+            ("digit_hist", "partition_pos")))
+
+        vkeys = (np.arange(N_ROWS) % P12_ADDRS).astype(np.int32)
+        vals = rng.randint(0, 2**32, N_ROWS, dtype=np.int64).astype(
+            np.uint32)
+        wrapped = (p12_sums(np, vkeys, vals, P12_ADDRS) % 2**32).astype(
+            np.uint32)
+        exact = int(vals.astype(np.uint64).sum())
+
+        def check_vals(out):
+            got, total = out
+            p12_check("12b uint32 value sums: dtypes",
+                      got["v"].dtype == np.uint32
+                      and got["k"].dtype == np.int32)
+            v = np.zeros(P12_ADDRS, np.uint32)
+            v[got["k"]] = got["v"]
+            p12_check("12b uint32 value sums do not wrap mod 2^32",
+                      len(got["k"]) == P12_ADDRS
+                      and np.array_equal(v, wrapped))
+            p12_check(f"12b sum() {total} != {exact}",
+                      type(total) is int and total == exact)
+        rows.append(p12_timed(
+            torch, ck, "12b uint32 values reduce + exact sum()",
+            lambda: (ctx.dense_from_numpy(vkeys, vals),
+                     ctx.dense_from_numpy(vals)),
+            lambda src: (src[0].reduce_by_key(op="add").collect_arrays(),
+                         src[1].sum()), check_vals,
+            ("hash_bucket", "digit_hist")))
+        rows.append(p12_timed(
+            torch, ck, "12b uint32 values reduce, count() alone",
+            lambda: ctx.dense_from_numpy(vkeys, vals),
+            lambda src: src.reduce_by_key(op="add").count(),
+            lambda c: p12_check(f"12b uint32 reduce count() {c}",
+                                c == P12_ADDRS),
+            ("hash_bucket", "digit_hist")))
+    finally:
+        ctx.stop()
+    return rows
+
+
+def p12_hostapi(torch, np, ck, vt):
+    """(c) the host API's device forms on bench-main's reduce (1M keys):
+    first, is_empty, keys().count(), values().sum(), count_by_key of the
+    20M pairs, collect_as_map, lookup of 3 keys, right_outer_join with a
+    1M-row table half of whose keys the reduce lacks; each exact (sums
+    within rtol 1e-5 of float64 numpy), each timed warm (the second of
+    two calls), launches and peak of the first."""
+    x = np.arange(N_ROWS, dtype=np.int64)
+    sums = np.bincount(x % N_KEYS, weights=x * 0.5, minlength=N_KEYS)
+    tk = np.arange(N_KEYS // 2, N_KEYS // 2 + N_KEYS, dtype=np.int32)
+    tv = tk.astype(np.float32) * 2
+    ctx = vt.Context(n_shards=N_SHARDS)
+    rows = []
+
+    def close(a, b):
+        return np.allclose(a, b, rtol=1e-5, atol=0)
+
+    def item(label, fn, check):
+        out, ms, launches, peak = p12_step(torch, ck, fn)
+        check(out)
+        _, warm_ms, _, _ = p12_step(torch, ck, fn)
+        rows.append(dict(label=label, cold_ms=ms, warm_ms=warm_ms,
+                         launches=launches, peak_bytes=peak))
+        log(f"phase 12 12c {label}: warm {warm_ms:.3f} ms, cold {ms:.3f} "
+            f"ms, launches {launches}, peak {peak} B")
+    try:
+        kv = ctx.dense_range(N_ROWS).map(lambda v: (v % N_KEYS, v * 0.5))
+        red = kv.reduce_by_key(op="add")
+        red.count()
+
+        def check_first(r):
+            k, s = r
+            p12_check(f"12c first() {r}", 0 <= k < N_KEYS
+                      and close(s, sums[k]))
+        item("first()", red.first, check_first)
+        item("is_empty()", red.is_empty,
+             lambda r: p12_check("12c is_empty()", r is False))
+        item("keys().count()", lambda: red.keys().count(),
+             lambda r: p12_check(f"12c keys().count() {r}", r == N_KEYS))
+        item("values().sum()", lambda: red.values().sum(),
+             lambda r: p12_check(f"12c values().sum() {r}",
+                                 close(r, sums.sum())))
+
+        def check_cbk(r):
+            p12_check("12c count_by_key(): not 1M keys of 20 rows",
+                      len(r) == N_KEYS and set(r.values()) ==
+                      {N_ROWS // N_KEYS} and all(type(k) is int
+                                                  for k in list(r)[:100]))
+        item("count_by_key() of the 20M pairs", kv.count_by_key, check_cbk)
+
+        def check_map(r):
+            ks = np.fromiter(r.keys(), np.int64, len(r))
+            vs = np.fromiter(r.values(), np.float64, len(r))
+            p12_check("12c collect_as_map() differs from numpy",
+                      len(r) == N_KEYS and close(vs, sums[ks]))
+        item("collect_as_map()", red.collect_as_map, check_map)
+
+        def check_lookups(r):
+            for k, got in zip(P12_LOOKUPS, r):
+                p12_check(f"12c lookup({k}) {got}", len(got) == 1
+                          and close(got[0], sums[k]))
+        item("lookup() x3", lambda: [red.lookup(k) for k in P12_LOOKUPS],
+             check_lookups)
+
+        def run_roj():
+            res = red.right_outer_join(ctx.dense_from_numpy(tk, tv))
+            return res.count(), res.collect()
+
+        def check_roj(out):
+            cnt, got = out
+            p12_check(f"12c right_outer_join count {cnt}", cnt == N_KEYS
+                      and len(got) == N_KEYS)
+            ks = np.array([k for k, _ in got], np.int64)
+            none = np.array([lv is None for _, (lv, _r) in got])
+            p12_check("12c right_outer_join: None not exactly at the "
+                      "missing keys", np.array_equal(none, ks >= N_KEYS)
+                      and np.array_equal(np.sort(ks), tk))
+            lv = np.array([lv for _, (lv, _r) in got if lv is not None])
+            rv = np.array([r for _, (_lv, r) in got], np.float64)
+            p12_check("12c right_outer_join values differ from numpy",
+                      close(lv, sums[ks[~none]])
+                      and np.array_equal(rv, ks * 2.0))
+        item("right_outer_join(1M table, half missing)", run_roj,
+             check_roj)
+    finally:
+        ctx.stop()
+    return rows
+
+
+def p12_trace_ops(json_mod, path, top=5):
+    """(kernel names found, the `top` device ops by summed duration as
+    (name, ms, calls), device busy ms, the device events' span ms) from a
+    Chrome trace's kernel / memcpy / memset events."""
+    with open(path, encoding="utf-8") as fh:
+        events = json_mod.load(fh).get("traceEvents", [])
+    dur, calls = {}, {}
+    lo, hi = float("inf"), float("-inf")
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            nm = e.get("name", "")
+            d = float(e.get("dur", 0))
+            dur[nm] = dur.get(nm, 0.0) + d / 1e3
+            calls[nm] = calls.get(nm, 0) + 1
+            lo = min(lo, float(e["ts"]))
+            hi = max(hi, float(e["ts"]) + d)
+    ranked = sorted(dur, key=dur.get, reverse=True)[:top]
+    return (set(dur), [(nm[:120], dur[nm], calls[nm]) for nm in ranked],
+            sum(dur.values()), max(hi - lo, 0.0) / 1e3)
+
+
+def p12_profiler(torch, np, ck, vt):
+    """(d) one warm bench-main run (phase 3's pipeline) inside
+    ctx.profiler(), twice (the first profiler of a process pays the
+    tracer's set-up): each count equal to an unprofiled run's, the first
+    trace's CUDA kernel events naming all three kernels, its five longest
+    device ops and its device busy share (busy ms over the span of its
+    device events), and each profiled run's ms (the run alone,
+    synchronized) beside two unprofiled ones', the profiler's start, stop
+    and trace write apart."""
+    import glob
+    import shutil
+
+    ctx = vt.Context(n_shards=N_SHARDS)
+    shutil.rmtree(P12_TRACE_DIR, ignore_errors=True)
+    sessions = []
+    try:
+        pipeline(ctx, np).count()  # cold
+        plain = []
+        for _ in range(2):
+            c, ms, _, _ = p12_step(torch, ck, lambda: pipeline(ctx, np)
+                                   .count())
+            plain.append(ms)
+        p12_check(f"12d unprofiled count {c}", c == N_KEYS)
+        for i in range(2):
+            out_dir = os.path.join(P12_TRACE_DIR, str(i))
+            t0 = time.perf_counter()
+            with ctx.profiler(out_dir):
+                # the run alone, between the profiler's start and its stop
+                pc, prof_ms, launches, _ = p12_step(
+                    torch, ck, lambda: pipeline(ctx, np).count())
+            whole_ms = (time.perf_counter() - t0) * 1e3
+            p12_check(f"12d profiled count {pc} != unprofiled {c}",
+                      pc == c)
+            files = glob.glob(os.path.join(out_dir, "*.pt.trace.json"))
+            p12_check(f"12d trace files {files}", len(files) == 1)
+            names, top, busy, span = p12_trace_ops(json, files[0])
+            sessions.append(dict(
+                profiled_ms=prof_ms, start_stop_write_ms=whole_ms - prof_ms,
+                trace_bytes=os.path.getsize(files[0]), top_device_ops=top,
+                device_busy_ms=busy, device_span_ms=span,
+                busy_share=busy / span if span else None,
+                launches=launches))
+            if i == 0:
+                want = {"hash_bucket": "hash_bucket_kernel",
+                        "digit_hist": "digit_hist_",
+                        "partition_pos": "partition_pos_kernel"}
+                found = {k: sorted(nm[:60] for nm in names if w in nm
+                                   and "kernel" in nm)
+                         for k, w in want.items()}
+                missing = [k for k, nms in found.items() if not nms]
+                p12_check("12d the trace lacks CUDA kernel events of "
+                          f"{missing}", not missing)
+        # a narrow-value reduce with its collect (12a's int8 values),
+        # warm: how much of its time the card is busy, and on what
+        rng = np.random.RandomState(33)
+        src = ctx.dense_from_numpy(
+            rng.randint(0, P12_WRAP_KEYS, N_ROWS).astype(np.int32),
+            rng.randint(-128, 128, N_ROWS).astype(np.int8))
+        src.reduce_by_key(op="add").collect_arrays()  # cold
+        out_dir = os.path.join(P12_TRACE_DIR, "value_reduce")
+        with ctx.profiler(out_dir):
+            got, vr_ms, _, _ = p12_step(
+                torch, ck, lambda: src.reduce_by_key(op="add")
+                .collect_arrays())
+        p12_check("12d value reduce rows", len(got["k"]) == P12_WRAP_KEYS)
+        files = glob.glob(os.path.join(out_dir, "*.pt.trace.json"))
+        p12_check(f"12d value reduce trace files {files}", len(files) == 1)
+        _, vtop, vbusy, vspan = p12_trace_ops(json, files[0], top=8)
+        value_reduce = dict(profiled_ms=vr_ms, top_device_ops=vtop,
+                            device_busy_ms=vbusy, device_span_ms=vspan)
+        del src, got
+    finally:
+        ctx.stop()
+        shutil.rmtree(P12_TRACE_DIR, ignore_errors=True)
+    first = sessions[0]
+    row = dict(first, unprofiled_ms=plain,
+               overhead=first["profiled_ms"] / statistics.median(plain) - 1,
+               kernel_events=found, second=sessions[1],
+               value_reduce=value_reduce)
+    log(f"phase 12 12d profiler: profiled {first['profiled_ms']:.3f} ms "
+        f"vs unprofiled {plain} ms, start + stop + trace write "
+        f"{first['start_stop_write_ms']:.1f} ms (second profiler "
+        f"{sessions[1]['start_stop_write_ms']:.1f} ms), device busy "
+        f"{first['device_busy_ms']:.3f} of {first['device_span_ms']:.3f} "
+        f"ms, trace {first['trace_bytes']} B, kernels {found}, top ops "
+        f"{first['top_device_ops']}")
+    log(f"phase 12 12d int8 value reduce + collect profiled: "
+        f"{vr_ms:.3f} ms, device busy {vbusy:.3f} ms of a {vspan:.3f} ms "
+        f"span, top ops {vtop}")
+    return row
+
+
+def p12_refusals(np, vt):
+    """(e) the repairs' refusals on the card: a named add over bool
+    values raises VegaError, fold_pairs_device leaves tuple keys to the
+    host (None), a 2-D key raises VegaError and not KernelError."""
+    from vega_tpu_torch import state_fold
+    from vega_tpu_torch.errors import KernelError, VegaError
+
+    ctx = vt.Context(n_shards=N_SHARDS)
+    out = {}
+    try:
+        try:
+            ctx.dense_range(1000).map(lambda x: (x % 7, x % 3 == 0)) \
+                .reduce_by_key(op="add").collect()
+            out["bool_add"] = "no error"
+        except VegaError as e:
+            out["bool_add"] = type(e).__name__
+        out["tuple_fold"] = state_fold.fold_pairs_device(
+            ctx, [((1, 2), 3)], "add")
+        try:
+            ctx.dense_from_numpy(np.array([[1, 2], [3, 4]], np.int32),
+                                 np.array([1, 2], np.int32)).reduce_by_key(
+                                     op="add").collect()
+            out["key_2d"] = "no error"
+        except KernelError as e:
+            out["key_2d"] = f"KernelError: {e}"
+        except VegaError as e:
+            out["key_2d"] = type(e).__name__
+    finally:
+        ctx.stop()
+    p12_check(f"12e refusals {out}", out == dict(
+        bool_add="VegaError", tuple_fold=None, key_2d="VegaError"))
+    log(f"phase 12 12e refusals: {out}")
+    return out
+
+
+def phase_twelve(torch, np, ck, vt):
+    """Phase 12: (a) narrow columns, (b) uint32 beyond int32, (c) the
+    host API's device forms, (d) ctx.profiler, (e) the refusals; the
+    launches summed over (a)-(c)'s cold runs and (d)'s profiled run."""
+    t0 = time.perf_counter()
+    narrow = p12_narrow(torch, np, ck, vt)
+    uint32 = p12_uint32(torch, np, ck, vt)
+    hostapi = p12_hostapi(torch, np, ck, vt)
+    prof = p12_profiler(torch, np, ck, vt)
+    refusals = p12_refusals(np, vt)
+    launches = {name: sum(r["launches"][name]
+                          for r in narrow + uint32 + hostapi)
+                + prof["launches"][name] for name in ck.LAUNCHES}
+    wall_s = time.perf_counter() - t0
+    log(f"phase 12 took {wall_s:.1f} s")
+    return dict(narrow=narrow, uint32=uint32, hostapi=hostapi,
+                profiler=prof, refusals=refusals, launches=launches,
+                wall_s=wall_s)
+
+
 def main():
     try:
         import torch
@@ -3436,6 +4008,8 @@ def main():
     ten = phase_ten(torch, np, ck, vt)
     # 11. persist(level) and the spill tier, the GF(256) decode, the fold
     eleven = phase_eleven(torch, np, ck, vt)
+    # 12. narrow and uint32 columns, the host API, the profiler
+    twelve = phase_twelve(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -3450,7 +4024,8 @@ def main():
          "phase8_launches": eight["launches"][r["name"]],
          "phase9_launches": nine["launches"][r["name"]],
          "phase10_launches": ten["launches"][r["name"]],
-         "phase11_launches": eleven["launches"][r["name"]]}
+         "phase11_launches": eleven["launches"][r["name"]],
+         "phase12_launches": twelve["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -3463,7 +4038,8 @@ def main():
                    kernels=table, radix_and_cold=radix, main_path=main_path,
                    plans=plans, keyed=keyed, config3=config3,
                    new_ops=new_ops, phase7=seven, phase8=eight,
-                   phase9=nine, phase10=ten, phase11=eleven)
+                   phase9=nine, phase10=ten, phase11=eleven,
+                   phase12=twelve)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -3621,6 +4197,34 @@ def main():
               f"Python ints, launched {r['launched']} on {card}",
               flush=True)
     print("phase 11c fold: a total beyond int64 returned None", flush=True)
+    for r in twelve["narrow"] + twelve["uint32"]:
+        print(f"phase {r['label']}: {r['median_ms']:.3f} ms warm median of "
+              f"3 ({r['rows_per_s']:.1f} rows/s), host build "
+              f"{r['median_build_ms']:.3f} ms, cold {r['cold_ms']:.3f} ms, "
+              f"launches {json.dumps(r['launches'])}, peak "
+              f"{r['peak_bytes']} B on {card}", flush=True)
+    for r in twelve["hostapi"]:
+        print(f"phase 12c {r['label']}: {r['warm_ms']:.3f} ms warm, cold "
+              f"{r['cold_ms']:.3f} ms, launches {json.dumps(r['launches'])}"
+              f", peak {r['peak_bytes']} B on {card}", flush=True)
+    r = twelve["profiler"]
+    print(f"phase 12d profiler: profiled run {r['profiled_ms']:.3f} ms, "
+          f"unprofiled {json.dumps(r['unprofiled_ms'])} ms (overhead "
+          f"{r['overhead']:.1%}), the profiler's start, stop and trace "
+          f"write {r['start_stop_write_ms']:.1f} ms (a second profiler: "
+          f"{r['second']['start_stop_write_ms']:.1f} ms, its run "
+          f"{r['second']['profiled_ms']:.3f} ms), device busy "
+          f"{r['device_busy_ms']:.3f} ms of a {r['device_span_ms']:.3f} ms "
+          f"span ({r['busy_share']:.1%}), trace {r['trace_bytes']} B naming "
+          f"{json.dumps(r['kernel_events'])}; top device ops "
+          f"{json.dumps(r['top_device_ops'])} on {card}", flush=True)
+    v = r["value_reduce"]
+    print(f"phase 12d int8 value reduce + collect, profiled: "
+          f"{v['profiled_ms']:.3f} ms, device busy {v['device_busy_ms']:.3f}"
+          f" ms of a {v['device_span_ms']:.3f} ms span; top device ops "
+          f"{json.dumps(v['top_device_ops'])} on {card}", flush=True)
+    print(f"phase 12e refusals: {json.dumps(twelve['refusals'])}; phase 12 "
+          f"{twelve['wall_s']:.1f} s", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",

@@ -12,6 +12,10 @@ two-column encoding (<name> = high word, <name>.lo = biased low word;
 encode_key_columns, encode_value_columns) and host reads reassemble it.
 A string column becomes int32 rank codes plus its sorted dictionary in
 Block.dicts (dict_encoding.py); host reads decode it (_decode_dict_cols).
+An int8 / int16 / uint8 / uint16 / uint32 / float16 column is stored in 32
+bits under its logical dtype in Block.logical (coltypes.py), which host
+reads restore. The key column is one value per row: a key with trailing
+dims is refused.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from vega_tpu_torch import coltypes
 from vega_tpu_torch import dict_encoding
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.mesh import ShardMesh
@@ -108,6 +113,10 @@ class Block:
     # the column holding int32 codes into it. Host metadata only, never on
     # the device; None when no column is dictionary-encoded.
     dicts: Optional[Dict[str, np.ndarray]] = None
+    # Logical dtypes of the columns stored in 32 bits under another dtype
+    # ({name -> torch dtype}, coltypes.py); host reads restore them. None
+    # when no column is one.
+    logical: Optional[Dict[str, torch.dtype]] = None
 
     @property
     def n_shards(self) -> int:
@@ -142,10 +151,16 @@ class Block:
         ones."""
         counts = self.counts_np
         host = self._host_cols()
-        return _decode_dict_cols(decode_wide_cols({
+        return self._decode({
             name: np.concatenate([col[s, :counts[s]]
                                   for s in range(self.n_shards)])
-            for name, col in host.items()}), self.dicts)
+            for name, col in host.items()})
+
+    def _decode(self, cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Stored host columns as the user's: wide pairs reassembled,
+        logical dtypes restored, strings decoded."""
+        return _decode_dict_cols(coltypes.decode_cols(
+            decode_wide_cols(cols), self.logical), self.dicts)
 
     def shard_rows(self, shard: int, limit: Optional[int] = None
                    ) -> Dict[str, np.ndarray]:
@@ -154,10 +169,8 @@ class Block:
         c = int(self.counts_np[shard])
         if limit is not None:
             c = min(c, limit)
-        return _decode_dict_cols(
-            decode_wide_cols({name: col[shard, :c].cpu().numpy()
-                              for name, col in self.cols.items()}),
-            self.dicts)
+        return self._decode({name: col[shard, :c].cpu().numpy()
+                             for name, col in self.cols.items()})
 
 
 def _round_capacity(c: int) -> int:
@@ -171,26 +184,31 @@ def _round_capacity(c: int) -> int:
     return -(-c // step) * step
 
 
-def _check_dtype(name: str, src: np.ndarray) -> np.ndarray:
-    """The 32-bit block dtype contract: narrow 64-bit inputs, refusing
-    loudly where narrowing would silently corrupt."""
+def _check_dtype(name: str, src: np.ndarray):
+    """The 32-bit block dtype contract: (stored array, logical dtype or
+    None). 64-bit inputs narrow, refusing loudly where narrowing would
+    silently corrupt; int8 / int16 / uint8 / uint16 / uint32 / float16
+    are stored in 32 bits under their logical dtype (coltypes.py); the
+    key column must hold one value per row."""
+    if name == KEY and src.ndim != 1:
+        raise VegaError(
+            f"the key column must be 1-D (one key per row), got shape "
+            f"{src.shape}: a tuple key has no device form")
     if src.dtype.kind in "OUS":
         raise VegaError(
             f"column {name!r} has dtype {src.dtype} which has no device "
             "representation (a string column is dictionary-encoded "
             "first; an object column of anything but strings has none)")
-    if src.dtype in (np.int64, np.uint64, np.uint32):
-        # torch has no uint32 arithmetic on every device, so unsigned
-        # columns narrow to int32 too, under the same range check
+    if src.dtype in (np.int64, np.uint64):
         info = np.iinfo(np.int32)
         if len(src) and (src.min() < info.min or src.max() > info.max):
             raise VegaError(
                 f"column {name!r} has {src.dtype} values outside int32 "
                 "range — values would silently collide")
-        return src.astype(np.int32)
+        return src.astype(np.int32), None
     if src.dtype == np.float64:
-        return src.astype(np.float32)
-    return src
+        return src.astype(np.float32), None
+    return coltypes.from_numpy(src)
 
 
 def encode_key_columns(columns: Dict[str, np.ndarray]
@@ -272,8 +290,11 @@ def from_numpy(columns: Dict[str, np.ndarray], mesh: ShardMesh,
     counts = np.array([max(0, min(per, n - s * per)) for s in range(n_shards)],
                       dtype=np.int32)
     cols = {}
+    logical = {}
     for name in names:
-        src = _check_dtype(name, np.asarray(columns[name]))
+        src, dt = _check_dtype(name, np.asarray(columns[name]))
+        if dt is not None:
+            logical[name] = dt
         if len(src) != n:
             raise VegaError(f"column {name!r} has {len(src)} rows, "
                             f"expected {n}")
@@ -284,7 +305,8 @@ def from_numpy(columns: Dict[str, np.ndarray], mesh: ShardMesh,
                 dst[s, :c] = src[s * per:s * per + c]
         cols[name] = torch.from_numpy(dst).to(mesh.device)
     return Block(cols=cols, counts=torch.from_numpy(counts).to(mesh.device),
-                 capacity=cap, mesh=mesh, counts_host=counts, dicts=dicts)
+                 capacity=cap, mesh=mesh, counts_host=counts, dicts=dicts,
+                 logical=logical or None)
 
 
 def from_reference_arrays(cols: Dict[str, np.ndarray], counts: np.ndarray,
@@ -305,8 +327,11 @@ def from_reference_arrays(cols: Dict[str, np.ndarray], counts: np.ndarray,
     if counts.size and (counts.min() < 0 or counts.max() > capacity):
         raise VegaError("counts must lie in [0, capacity]")
     out = {}
+    logical = {}
     for name, col in cols.items():
-        col = _check_dtype(name, np.asarray(col))
+        col, dt = _check_dtype(name, np.asarray(col))
+        if dt is not None:
+            logical[name] = dt
         if col.shape[0] != mesh.n_shards * capacity:
             raise VegaError(
                 f"column {name!r} has {col.shape[0]} rows, expected "
@@ -316,14 +341,15 @@ def from_reference_arrays(cols: Dict[str, np.ndarray], counts: np.ndarray,
         ).to(mesh.device)
     return Block(cols=out, counts=torch.from_numpy(counts.copy()).to(
         mesh.device), capacity=capacity, mesh=mesh,
-        counts_host=counts.copy())
+        counts_host=counts.copy(), logical=logical or None)
 
 
 def block_range(n: int, mesh: ShardMesh, dtype=torch.int32,
                 start: int = 0) -> Block:
     """Iota block built on the device: shard s holds
     [start + s*per, start + s*per + counts[s]) in its valid rows, and the
-    iota continues through its padding rows, as in the reference."""
+    iota continues through its padding rows, as in the reference (whose
+    int32 shard base makes a narrow or unsigned integer dtype int32)."""
     n_shards = mesh.n_shards
     per = -(-n // n_shards)
     cap = _round_capacity(per)
@@ -333,6 +359,13 @@ def block_range(n: int, mesh: ShardMesh, dtype=torch.int32,
     vals = (start + torch.arange(n_shards, device=dev,
                                  dtype=torch.int64)[:, None] * per
             + torch.arange(cap, device=dev, dtype=torch.int64)[None, :])
-    return Block(cols={VALUE: vals.to(dtype)},
+    if coltypes.is_logical(dtype) and not dtype.is_floating_point:
+        # the reference adds an iota of the dtype to an int32 shard base,
+        # which promotes a narrow or unsigned integer iota to int32
+        dtype = torch.int32
+    # float16 is stored in float32 under its logical dtype (coltypes.py)
+    return Block(cols={VALUE: coltypes.to_physical(vals, dtype)},
                  counts=torch.from_numpy(counts).to(dev), capacity=cap,
-                 mesh=mesh, counts_host=counts)
+                 mesh=mesh, counts_host=counts,
+                 logical={VALUE: dtype} if coltypes.is_logical(dtype)
+                 else None)

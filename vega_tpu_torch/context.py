@@ -55,10 +55,17 @@ Configuration.spill_dir): the Context's disk store lives in
 <spill_dir or tempfile.gettempdir()/vega-tpu/spill>/session-<id>/cache, the
 reference's layout with a session id of its own per Context, made at the
 first demotion and removed by stop(). spill_status() gives its counters.
+
+profiler(log_dir) traces a block of work with torch.profiler (the
+reference's Context.profiler traces with jax.profiler): CPU activity
+always, the card's kernels when the Context runs on CUDA, written on exit
+as a Chrome trace under log_dir that TensorBoard's profiler plugin also
+reads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import tempfile
@@ -206,6 +213,40 @@ class Context:
         disk_bytes, disk_entries, spill_count, spilled_bytes,
         promote_count, promoted_bytes, disk_read_errors."""
         return self._spill.status()
+
+    @contextlib.contextmanager
+    def profiler(self, log_dir: str):
+        """A torch.profiler trace over a block of work, the counterpart of
+        the reference's jax.profiler one:
+
+            with ctx.profiler("/tmp/trace") as prof:
+                rdd.reduce_by_key(op="add").collect()
+
+        Records CPU activity, and CUDA activity when the Context's device
+        is a card (a synchronize first, so the block's kernels are in).
+        On exit, an exception from the block included, the trace stops and
+        is written under log_dir as <host>_<pid>.<time>.pt.trace.json
+        (torch.profiler.tensorboard_trace_handler's name): open it in
+        chrome://tracing or Perfetto, or point TensorBoard's profiler
+        plugin at log_dir. Yields the torch.profiler.profile object
+        (key_averages() and the rest). Changes no result."""
+        from torch.profiler import ProfilerActivity, profile, \
+            tensorboard_trace_handler
+
+        cuda = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if cuda else [])
+        prof = profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(log_dir))
+        prof.start()
+        try:
+            yield prof
+        finally:
+            try:
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+            finally:
+                prof.stop()  # writes the trace (on_trace_ready)
 
     def stop(self) -> None:
         """Settle the deferred exchanges, so blocks a caller holds stay

@@ -100,6 +100,7 @@ import numpy as np
 import torch
 
 from vega_tpu_torch import block as block_lib
+from vega_tpu_torch import coltypes
 from vega_tpu_torch import dict_encoding
 from vega_tpu_torch import exchange_plan
 from vega_tpu_torch import kernels
@@ -175,6 +176,56 @@ HOST_TIER_SUFFIX = (": the reference hands this to its host tier, which "
 def _no_host_tier(what: str) -> VegaError:
     """The error for a request the reference hands to its host tier."""
     return VegaError(what + HOST_TIER_SUFFIX)
+
+
+# The reference's RDD API: the public names of vega_tpu/rdd/base.py's RDD
+# with its pair ops (rdd/pair.py), and its DenseRDD's to_rdd. The port's
+# own copy (it imports nothing of vega_tpu); a name a port object does not
+# define raises VegaError ending in HOST_TIER_SUFFIX (_HostTierRefusals).
+REFERENCE_RDD_API = frozenset((
+    "aggregate", "aggregate_by_key", "cache", "cached_splits", "cartesian",
+    "checkpoint", "coalesce", "cogroup", "collect", "collect_as_map",
+    "collect_async", "combine_by_key", "compute", "count", "count_approx",
+    "count_approx_distinct", "count_async", "count_by_key",
+    "count_by_value", "count_by_value_approx", "dense", "distinct",
+    "filter", "first", "flat_map", "flat_map_values", "fold",
+    "fold_by_key", "for_each", "for_each_partition", "full_outer_join",
+    "get_dependencies", "glom", "group_by", "group_by_key", "group_with",
+    "histogram", "id", "intersection", "is_empty", "is_pinned", "iterator",
+    "join", "key_by", "keys", "left_outer_join", "lookup", "map",
+    "map_partitions", "map_partitions_with_index", "map_values",
+    "mask_keys", "max", "mean_approx", "min", "num_partitions",
+    "partition_by", "partition_by_key", "partitioner", "persist", "pin",
+    "pipe", "preferred_locations", "random_split", "reduce", "reduce_async",
+    "reduce_by_key", "repartition", "right_outer_join", "sample",
+    "save_as_text_file", "sort_by", "sort_by_key", "splits", "stats",
+    "subtract", "subtract_by_key", "take", "take_ordered", "take_sample",
+    "to_debug_string", "to_local_iterator", "top", "union", "unpersist",
+    "values", "zip", "zip_with_index", "to_rdd"))
+
+
+class HostTierRefusal(VegaError, AttributeError):
+    """A reference RDD API name that a port object does not define: a
+    VegaError ending in HOST_TIER_SUFFIX, and an AttributeError too, so
+    hasattr() and getattr(obj, name, default) keep their contract."""
+
+
+def _host_name_refused(owner: str, name: str) -> HostTierRefusal:
+    return HostTierRefusal(f"{owner}.{name}" + HOST_TIER_SUFFIX)
+
+
+class _HostTierRefusals:
+    """A reference RDD API name (REFERENCE_RDD_API) that the class does
+    not define raises HostTierRefusal when read, as the reference answers
+    it on its host tier; any other missing name stays a plain
+    AttributeError, so a misspelt name of the port's own still fails as
+    one."""
+
+    def __getattr__(self, name):
+        if name in REFERENCE_RDD_API:
+            raise _host_name_refused(type(self).__name__, name)
+        raise AttributeError(f"{type(self).__name__!r} object has no "
+                             f"attribute {name!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +391,7 @@ def _record_spill_steps(kind: str, rdd, names, stamps) -> None:
               ", ".join(f"{n} {ms:.3f}" for n, ms in steps.items()))
 
 
-class DenseRDD:
+class DenseRDD(_HostTierRefusals):
     """Base dense node. Subclasses implement _materialize() -> Block and
     _schema()."""
 
@@ -383,6 +434,10 @@ class DenseRDD:
                 d = self._dicts()
                 if d:
                     blk.dicts = dict(d)
+            if blk.logical is None:
+                # likewise the logical dtypes of columns stored in 32 bits
+                # (coltypes.py), from the schema
+                blk.logical = coltypes.logical_of(self._schema()) or None
             self._block = blk
             # sources set _block when built and never take this branch
             _lifetime_register(self)
@@ -972,6 +1027,108 @@ class DenseRDD:
                 break
         return out[:n]
 
+    # --- the host RDD API's device forms ------------------------------------
+    def first(self):
+        """The first row in shard order (take(1)); an empty RDD raises."""
+        rows = self.take(1)
+        if not rows:
+            raise VegaError("first() of empty RDD")
+        return rows[0]
+
+    def is_empty(self) -> bool:
+        """Whether no shard holds a row: the per-shard counts, one fetch
+        (never a pass over the rows)."""
+        return self.block().num_rows == 0
+
+    def keys(self) -> "DenseRDD":
+        """The keys as a value DenseRDD (keys_dense); the reference gives a
+        host RDD."""
+        if not self.is_pair:
+            raise VegaError("keys() on non-pair DenseRDD")
+        return self.keys_dense()
+
+    def values(self) -> "DenseRDD":
+        """The values as a value DenseRDD (values_dense); the reference
+        gives a host RDD."""
+        if not self.is_pair:
+            raise VegaError("values() on non-pair DenseRDD")
+        return self.values_dense()
+
+    def count_by_key(self) -> dict:
+        """{key: rows under it} as Python ints: count_by_key_dense on the
+        device, collected."""
+        return {k: int(c) for k, c in self.count_by_key_dense().collect()}
+
+    def collect_as_map(self) -> dict:
+        """dict(collect()): with duplicate keys the last row in collect()
+        order wins, as the reference's dict over its collect()."""
+        return dict(self.collect())
+
+    def lookup(self, key) -> list:
+        """The values of the rows under `key`, in row order: a device mask
+        on the key column(s) compacts each shard, and only the matching
+        rows come back. A key no row can hold (outside the key's dtype, a
+        string absent from the dictionary) gives []."""
+        self._check_keyed("lookup")
+        words = self._key_words(key)
+        if words is None:
+            return []
+
+        def matching(cols, count):
+            like = cols[KEY]
+            keep = kernels.valid_mask(like.shape[1], count)
+            for nm, w in words.items():
+                keep = keep & (cols[nm] == w)
+            return kernels.compact(cols, keep, like.shape[1])
+        names = self.columns
+        node = dense_pipeline(self, matching, self._schema(),
+                              ("lookup", repr(key)),
+                              dict_renames={nm: nm for nm in names})
+        return [v for _, v in node.collect()]
+
+    def _key_words(self, key) -> Optional[dict]:
+        """{key column: stored word} of rows whose key equals `key`; None
+        when no row can hold it."""
+        kd = self._dicts().get(KEY)
+        if kd is not None:
+            i = int(np.searchsorted(kd, key)) if isinstance(
+                key, (str, np.str_)) else len(kd)
+            return {KEY: i} if i < len(kd) and kd[i] == key else None
+        if isinstance(key, (bool, np.bool_)) or not isinstance(
+                key, (int, float, np.integer, np.floating)):
+            return None
+        dt = dict(self._schema())[KEY]
+        if dt.is_floating_point:
+            # a key the column's float dtype does not hold exactly equals
+            # no row (the reference compares the rows' Python floats)
+            held = coltypes.numpy_dtype(dt).type(key)
+            return {KEY: float(held)} if float(held) == float(key) else None
+        if key != int(key):
+            return None
+        k = int(key)
+        if self.wide_key:
+            if not -2**63 <= k < 2**63:
+                return None
+            hi, lo = block_lib.encode_i64(np.array([k], np.int64))
+            return {KEY: int(hi[0]), KEY_LO: int(lo[0])}
+        if dt == torch.int32 and not \
+                kernels.INT32_MIN <= k <= kernels.INT32_MAX:
+            return None
+        try:
+            return {KEY: coltypes.stored_scalar(k, dt)}
+        except VegaError:
+            return None  # outside the key's dtype
+
+    def right_outer_join(self, other: "DenseRDD") -> "_DenseRightOuterJoin":
+        """(k, (lv or None, rv)) for every row of other: the device inner
+        join, plus other's rows whose key self lacks, with None on the
+        left. A dense column cannot hold None, so the result is an object
+        in _DenseCoGroupRDD's style whose collect() assembles the rows on
+        the host (count() needs no rows). The device left_outer_join fills
+        a missing side with a value, not None."""
+        return _DenseRightOuterJoin(*self._join_sides(other,
+                                                      "right_outer_join"))
+
     # --- value actions ------------------------------------------------------
     def _value_block(self, op: str, wide_ok: bool = False) -> Block:
         if self.is_pair:
@@ -1003,12 +1160,26 @@ class DenseRDD:
                 raise VegaError(f"{op}() of empty DenseRDD")
             code = picked.min() if op == "min" else picked.max()
             return vdict[int(code)].item()
-        partials = kernels.masked_reduce(blk.cols[VALUE], blk.counts,
-                                         op).cpu().numpy()
+        dt = dict(self._schema())[VALUE]
+        col = blk.cols[VALUE]
+        if op == "add" and dt in (torch.uint8, torch.uint16, torch.uint32):
+            # unsigned: int64 partials per shard, summed on the host as
+            # Python ints, exact; the reference's uint32 partial wraps
+            # once a shard's sum passes 2^32 (pinned in
+            # tests/test_torch_dtypes.py)
+            u = coltypes.to_row(col, dt).to(torch.int64)
+            parts = torch.where(kernels.valid_mask(u.shape[1], blk.counts),
+                                u, 0).sum(dim=1).cpu().numpy()
+            return sum(int(x) for x in parts)
+        partials = kernels.masked_reduce(col, blk.counts, op).cpu().numpy()
         if op == "add":
-            return partials.sum(axis=0).item()
-        return (partials.min(axis=0) if op == "min"
-                else partials.max(axis=0)).item()
+            total = partials.sum(axis=0)
+            # float16 partials are the reference's float16 words
+            return (np.float16(total) if dt == torch.float16
+                    else total).item()
+        # stored words order as their logical values: pick, then restore
+        ext = partials.min(axis=0) if op == "min" else partials.max(axis=0)
+        return coltypes.to_numpy(np.asarray(ext), dt).item()
 
     def sum(self):
         return self._named_reduce("add")
@@ -1055,7 +1226,7 @@ class DenseRDD:
         acc = picked[0]
         for x in picked[1:]:
             acc = binop(acc, x)
-        return acc.item()
+        return coltypes.to_numpy(acc.numpy(), dtype).item()
 
     def stats(self) -> dict:
         """count / mean / stdev / min / max in one pass and one fetch:
@@ -1064,7 +1235,7 @@ class DenseRDD:
         them."""
         self._refuse_dict_rows("stats")
         blk = self._value_block("stats")
-        v = blk.cols[VALUE].to(torch.float32)
+        v = coltypes.to_float32(blk.cols[VALUE], dict(self._schema())[VALUE])
         parts = torch.stack([kernels.masked_reduce(v, blk.counts, "add"),
                              kernels.masked_reduce(v * v, blk.counts, "add"),
                              kernels.masked_reduce(v, blk.counts, "min"),
@@ -1094,6 +1265,7 @@ class DenseRDD:
         valid = counts > 0
         if not valid.any():
             raise VegaError("min/max of empty DenseRDD")
+        parts = coltypes.to_numpy(parts, dict(self._schema())[VALUE])
         return parts[valid, 0].min().item(), parts[valid, 1].max().item()
 
     def histogram(self, buckets):
@@ -1115,7 +1287,7 @@ class DenseRDD:
         n_bins = len(edges) - 1
         dev = self.mesh.device
         bnds = torch.tensor(edges, dtype=torch.float32, device=dev)
-        v = blk.cols[VALUE].to(torch.float32)
+        v = coltypes.to_float32(blk.cols[VALUE], dict(self._schema())[VALUE])
         mask = kernels.valid_mask(v.shape[1], blk.counts) \
             & (v >= bnds[0]) & (v <= bnds[-1])
         idx = (torch.searchsorted(bnds, v, right=True) - 1).clamp_(
@@ -1171,7 +1343,9 @@ class DenseRDD:
         if vdict is not None:
             # rank codes order as their strings: decode the survivors
             candidates = vdict[candidates[:n].astype(np.int64)]
-        return candidates[:n].tolist()
+        # stored words order as their logical values (coltypes.py)
+        return coltypes.to_numpy(candidates[:n],
+                                 dict(self._schema())[VALUE]).tolist()
 
     def _device_topk_rows(self, n: int, largest: bool) -> list:
         """First / last n rows in the order of the tuples collect() emits:
@@ -1205,8 +1379,8 @@ class DenseRDD:
                                  (-c if np.issubdtype(c.dtype, np.floating)
                                   else ~c)
                                  for c in reversed(order_cols)])
-        out_cols = list(block_lib._decode_dict_cols(
-            merged, self._dicts()).values())
+        out_cols = list(block_lib._decode_dict_cols(coltypes.decode_cols(
+            merged, coltypes.logical_of(schema)), self._dicts()).values())
         return [tuple(c[i].item() for c in out_cols)
                 for i in order_host[:n]]
 
@@ -1233,13 +1407,15 @@ class _SourceRDD(DenseRDD):
         return self
 
     def _schema(self):
-        return tuple((n, c.dtype) for n, c in self._block.cols.items())
+        logical = self._block.logical or {}
+        return tuple((n, logical.get(n, c.dtype))
+                     for n, c in self._block.cols.items())
 
     def _dicts(self):
         return dict(self._block.dicts or {})
 
     def _fp_extra(self):
-        return (tuple((n, str(c.dtype)) for n, c in self._block.cols.items()),
+        return (tuple((n, str(dt)) for n, dt in self._schema()),
                 self._block.capacity, self._hash_placed)
 
 
@@ -1438,9 +1614,11 @@ def _named_reduce_wide(blk: Block, op: str) -> int:
 # tracing: row functions and binops run once on empty probe columns
 # ---------------------------------------------------------------------------
 # 64-bit outputs narrow to 32 bits, as the reference's trace (jax_enable_x64
-# off) gives them: the low 32 bits of add / sub / mul agree.
-_CANONICAL = {torch.int64: torch.int32, torch.float64: torch.float32}
-_COLUMN_DTYPES = (torch.int32, torch.float32, torch.bool)
+# off) gives them: the low 32 bits of add / sub / mul agree
+# (coltypes.logical_dtype). The narrow and unsigned dtypes are logical
+# column dtypes stored in 32 bits (coltypes.py).
+_COLUMN_DTYPES = (torch.int32, torch.float32, torch.bool) + tuple(
+    coltypes.PHYSICAL)
 
 
 def _probe_cols(schema, n_shards: int):
@@ -1450,8 +1628,21 @@ def _probe_cols(schema, n_shards: int):
     value (an `if`, max() of two tensors) raises, as bool() of a tensor
     with no values does. Empty tensors rather than the meta device: the
     first meta op of a process imports torch's meta registrations, which
-    took seconds on the card's machine (PERF.md section 6)."""
-    return {n: torch.empty((n_shards, 0), dtype=dt) for n, dt in schema}
+    took seconds on the card's machine (PERF.md section 6). A logical
+    column probes in its row form (coltypes.to_row)."""
+    return {n: _probe(dt, (n_shards, 0)) for n, dt in schema}
+
+
+def _probe(dt: torch.dtype, shape) -> torch.Tensor:
+    return coltypes.to_row(torch.empty(shape, dtype=coltypes.physical(dt)),
+                           dt)
+
+
+def _row_view(cols, schema):
+    """Stored columns as row functions see them (coltypes.to_row): the
+    logical columns converted, the rest as they are."""
+    return {nm: coltypes.to_row(cols[nm], dt) for nm, dt in schema
+            if nm in cols}
 
 
 def _traced(f, args, what: str):
@@ -1465,16 +1656,18 @@ def _traced(f, args, what: str):
 
 
 def _column_dtype(x, shape, what: str) -> torch.dtype:
-    """The block dtype of one traced output. A tensor computed from the
-    row (of the probe's shape) keeps its dtype; a constant (a Python or
-    numpy scalar) broadcasts with the reference's weak type: int -> int32,
-    float -> float32, bool -> bool. 64-bit dtypes narrow (_CANONICAL)."""
+    """The logical block dtype of one traced output. A tensor computed
+    from the row (of the probe's shape) keeps its logical dtype
+    (coltypes.logical_dtype: 64-bit dtypes narrow, a uint16 / uint32
+    RowTensor is its own); a constant (a Python or numpy scalar)
+    broadcasts with the reference's weak type: int -> int32, float ->
+    float32, bool -> bool."""
     if isinstance(x, torch.Tensor):
         if tuple(x.shape) != tuple(shape):
             raise VegaError(f"{what} must be one scalar per row, got shape "
                             f"{tuple(x.shape)} for rows {tuple(shape)} (a "
                             "constant is a Python scalar)")
-        dt = x.dtype
+        dt = coltypes.logical_dtype(x)
     elif isinstance(x, (bool, np.bool_)):
         dt = torch.bool
     elif isinstance(x, int):
@@ -1488,20 +1681,22 @@ def _column_dtype(x, shape, what: str) -> torch.dtype:
     else:
         raise _no_host_tier(f"{what} of type {type(x).__name__} (neither a "
                             "tensor nor a constant)")
-    dt = _CANONICAL.get(dt, dt)
     if dt not in _COLUMN_DTYPES:
         raise VegaError(f"{what} has dtype {dt}; the block dtype contract "
-                        "is int32 / float32 / bool")
+                        "is int32 / float32 / bool and the narrow int8 / "
+                        "int16 / uint8 / uint16 / uint32 / float16")
     return dt
 
 
 def _as_column(x, dtype: torch.dtype, like: torch.Tensor) -> torch.Tensor:
-    """One output as a column of like's [n_shards, capacity] shape and
-    device in its traced dtype: a constant broadcasts, a tensor casts."""
+    """One output as a stored column of like's [n_shards, capacity] shape
+    and device for its traced (logical) dtype: a constant broadcasts, a
+    tensor casts (coltypes.to_physical)."""
     if not isinstance(x, torch.Tensor):
-        return torch.full(like.shape[:2], x.item() if isinstance(
-            x, np.generic) else x, dtype=dtype, device=like.device)
-    return x if x.dtype == dtype else x.to(dtype)
+        value = x.item() if isinstance(x, np.generic) else x
+        return torch.full(like.shape[:2], coltypes.stored_scalar(value, dtype),
+                          dtype=coltypes.physical(dtype), device=like.device)
+    return coltypes.to_physical(x, dtype)
 
 
 def _row_inputs(cols, count):
@@ -1530,7 +1725,8 @@ def _row_inputs(cols, count):
 
 
 def _zero_cols(schema, like: torch.Tensor):
-    return {nm: torch.zeros(like.shape[:2], dtype=dt, device=like.device)
+    return {nm: torch.zeros(like.shape[:2], dtype=coltypes.physical(dt),
+                            device=like.device)
             for nm, dt in schema}
 
 
@@ -1539,33 +1735,38 @@ def _check_binop(func, dtypes, what: str):
     columns: over one value column it maps two column tensors to one of
     the same dtype; over several, two tuples of them to a tuple with one
     such tensor per column (64-bit outputs narrow, as in row functions).
-    Returns the binop with that narrowing applied. A binop that fails the
-    checks, or branches on a value, raises VegaError when the op is
-    built."""
-    probe = [torch.empty((1, 0), dtype=dt) for dt in dtypes]
+    Returns the binop over stored columns: a logical column's values go
+    in as the row form (coltypes.to_row) and the result comes back stored,
+    wrapped to its dtype. A binop that fails the checks, or branches on a
+    value, raises VegaError when the op is built. (A traced + of two bool
+    columns is a logical or, as jnp's; the NAMED add / prod over bool is
+    what the reference refuses: _ReduceByKeyRDD.)"""
+    probe = [_probe(dt, (1, 0)) for dt in dtypes]
     arg = probe[0] if len(probe) == 1 else tuple(probe)
     out = _traced(func, (arg, arg), f"{what} binop")
     outs = [out] if len(probe) == 1 else out
     if not isinstance(outs, (tuple, list)) or len(outs) != len(probe):
         raise _no_host_tier(f"{what} binop over {len(probe)} value columns "
                             f"must return a {len(probe)}-tuple")
-    for p, o in zip(probe, outs):
+    for p, o, dt in zip(probe, outs, dtypes):
         if not isinstance(o, torch.Tensor) or o.shape != p.shape:
             raise _no_host_tier(f"{what} binop must return one scalar per "
                                 "value column")
-        if _CANONICAL.get(o.dtype, o.dtype) != p.dtype:
+        if coltypes.logical_dtype(o) != dt:
             raise _no_host_tier(
-                f"{what} binop changes the value dtype ({p.dtype} -> "
-                f"{o.dtype}); cast the column first so the block schema "
+                f"{what} binop changes the value dtype ({dt} -> "
+                f"{coltypes.logical_dtype(o)}); cast the column first so the block schema "
                 "stays truthful")
 
-    def narrow(x, dt):
-        return x if x.dtype == dt else x.to(dt)
-
     if len(dtypes) == 1:
-        return lambda a, b: narrow(func(a, b), dtypes[0])
-    return lambda a, b: tuple(narrow(x, dt)
-                              for x, dt in zip(func(a, b), dtypes))
+        dt0 = dtypes[0]
+        return lambda a, b: coltypes.to_physical(
+            func(coltypes.to_row(a, dt0), coltypes.to_row(b, dt0)), dt0)
+    return lambda a, b: tuple(
+        coltypes.to_physical(x, dt) for x, dt in zip(
+            func(tuple(coltypes.to_row(c, dt) for c, dt in zip(a, dtypes)),
+                 tuple(coltypes.to_row(c, dt) for c, dt in zip(b, dtypes))),
+            dtypes))
 
 
 def _trace_row_fn(f, schema, n_shards: int):
@@ -1584,7 +1785,7 @@ def _trace_row_fn(f, schema, n_shards: int):
         for nm, x in zip(names, out if pair else (out,)))
 
     def cols_fn(cols):
-        res = f(_cols_to_row(cols, schema))
+        res = f(_cols_to_row(_row_view(cols, schema), schema))
         like = next(iter(cols.values()))
         return {nm: _as_column(x, dt, like).contiguous()
                 for (nm, dt), x in zip(out_schema, res if pair else (res,))}
@@ -1683,7 +1884,8 @@ class _FilterRDD(_NarrowRDD):
         inputs = _row_inputs(cols, count)
         if inputs is not None:
             keep = keep & _as_column(self._pred(_cols_to_row(
-                inputs, self._out_schema)), torch.bool, like)
+                _row_view(inputs, self._out_schema), self._out_schema)),
+                torch.bool, like)
         return kernels.compact(cols, keep, like.shape[1])
 
 
@@ -1698,7 +1900,8 @@ class _MapValuesRDD(_NarrowRDD):
         pschema = dict(parent._schema())
         self._vname = parent._value_names()[0]
         n = parent.n_shards
-        probe = _probe_cols([(self._vname, pschema[self._vname])], n)
+        self._in_dtype = pschema[self._vname]
+        probe = _probe_cols([(self._vname, self._in_dtype)], n)
         self._dtype = _column_dtype(
             _traced(f, (probe[self._vname],), "map_values function"),
             (n, 0), "map_values output")
@@ -1717,10 +1920,12 @@ class _MapValuesRDD(_NarrowRDD):
         col = cols[self._vname]
         inputs = _row_inputs({self._vname: col}, count)
         out[self._vname] = (
-            torch.zeros(col.shape[:2], dtype=self._dtype, device=col.device)
+            torch.zeros(col.shape[:2], dtype=coltypes.physical(self._dtype),
+                        device=col.device)
             if inputs is None else
-            _as_column(self._f(inputs[self._vname]), self._dtype,
-                       col).contiguous())
+            _as_column(self._f(coltypes.to_row(inputs[self._vname],
+                                               self._in_dtype)),
+                       self._dtype, col).contiguous())
         return out, count
 
 
@@ -2116,21 +2321,23 @@ class _ExpandRDD(DenseRDD):
         inputs = _row_inputs(dict(blk.cols), blk.counts)
         if inputs is None:
             return None, blk, cap_out
-        return self._f(_cols_to_row(inputs, self.parent._schema())), blk, \
-            cap_out
+        schema = self.parent._schema()
+        return self._f(_cols_to_row(_row_view(inputs, schema), schema)), \
+            blk, cap_out
 
     def _payload(self, payload):
         """The payload's columns as [n_shards, capacity * width] tensors
         of the traced dtypes, row i's outputs at [i * width, (i+1) *
         width)."""
         pair = len(self._out_schema) == 2
-        return {nm: x.to(dt).reshape(x.shape[0], -1)
+        return {nm: coltypes.to_physical(x, dt).reshape(x.shape[0], -1)
                 for (nm, dt), x in zip(self._out_schema,
                                        payload if pair else (payload,))}
 
     def _empty(self, blk: Block, cap_out: int) -> Block:
         like = next(iter(blk.cols.values()))
-        cols = {nm: torch.zeros((like.shape[0], cap_out), dtype=dt,
+        cols = {nm: torch.zeros((like.shape[0], cap_out),
+                                dtype=coltypes.physical(dt),
                                 device=like.device)
                 for nm, dt in self._out_schema}
         return Block(cols=cols, counts=torch.zeros_like(blk.counts),
@@ -2145,8 +2352,8 @@ class _MapExpandRDD(_ExpandRDD):
 
     def __init__(self, parent: DenseRDD, f, factor: int):
         super().__init__(parent, f, factor, "map_expand")
-        self._out_schema = _payload_schema(self._probe_out, parent.n_shards,
-                                           factor, "map_expand")
+        self._out_schema = _payload_schema(
+            self._probe_out, parent.n_shards, factor, "map_expand")
 
     def _materialize(self) -> Block:
         payload, blk, cap_out = self._run()
@@ -2173,8 +2380,8 @@ class _FlatMapRaggedRDD(_ExpandRDD):
         if not (isinstance(out, tuple) and len(out) == 2):
             raise _no_host_tier("flat_map_ragged function must return "
                                 "(payload, n_valid)")
-        self._out_schema = _payload_schema(out[0], parent.n_shards,
-                                           max_out, "flat_map_ragged")
+        self._out_schema = _payload_schema(
+            out[0], parent.n_shards, max_out, "flat_map_ragged")
         _column_dtype(out[1], (parent.n_shards, 0),
                       "flat_map_ragged n_valid")
 
@@ -2289,15 +2496,17 @@ def _histogram_capacities(hists: List[np.ndarray], attempt: int,
     return _cap_round(max(slot, 1) * grow), _cap_round(max(out, 1) * grow)
 
 
-def _bucket_cols(cols, n: int) -> torch.Tensor:
+def _bucket_cols(cols, n: int, key_dtype=None) -> torch.Tensor:
     """Hash-bucket each row by its key: an int32 / float32 key through the
-    hash_bucket kernel; a two-column int64 key by hash32_pair of both
-    words (torch ops, as the reference computes it outside its kernel),
-    so equal int64 keys, and only those, share a bucket."""
+    hash_bucket kernel, a logical key (key_dtype, the schema's) by the word
+    coltypes.hash_input gives it (the reference's bits); a two-column
+    int64 key by hash32_pair of both words (torch ops, as the reference
+    computes it outside its kernel), so equal int64 keys, and only those,
+    share a bucket."""
     if KEY_LO in cols:
         return (kernels.hash32_pair(cols[KEY], cols[KEY_LO]) % n).to(
             torch.int32)
-    key = cols[KEY]
+    key = coltypes.hash_input(cols[KEY], key_dtype)
     if key.dtype == torch.float32:
         key = key.view(torch.int32)
     if key.dtype != torch.int32:
@@ -2337,6 +2546,22 @@ def _wide_stored_form(cols, count, wide: dict, op: Optional[str]):
         else:
             cols[nm], cols[lo] = kernels.wide_words(cols[nm])
     return cols, out_of_range
+
+
+def _logical_form(cols, logical: dict, op: Optional[str],
+                  back: bool = False):
+    """A named reduce's form of the logical value columns {name: dtype}:
+    add / prod run on a uint32's unbiased bits (coltypes.reduce_form, its
+    own inverse), and back=True wraps each narrow result mod 2^width
+    (coltypes.wrap), so the stored result is the reference's. min / max
+    compare the stored words as they are."""
+    if not logical or op not in ("add", "prod"):
+        return cols
+    cols = dict(cols)
+    for nm, dt in logical.items():
+        col = coltypes.reduce_form(cols[nm], dt)
+        cols[nm] = coltypes.wrap(col, dt) if back else col
+    return cols
 
 
 def _elide_out_cap(blk: Block) -> int:
@@ -2547,11 +2772,16 @@ class _ExchangeRDD(DenseRDD):
                              bucket, n)
         return cuda_kernels.bucket_hist(bucket, n + 1)[:, :n].cpu().numpy()
 
+    def _key_dtype(self):
+        """The key's logical dtype (the hash's input form)."""
+        return dict(self._schema()).get(KEY)
+
     def _hash_histogram(self, cols, count) -> Optional[np.ndarray]:
         """The destination histogram under hash bucketing."""
         if self.n_shards == 1:
             return None
-        return self._dest_histogram(_bucket_cols(cols, self.n_shards), count)
+        return self._dest_histogram(
+            _bucket_cols(cols, self.n_shards, self._key_dtype()), count)
 
     def _range_histogram(self, cols, count, bounds, ascending: bool,
                          bounds_lo=None) -> Optional[np.ndarray]:
@@ -2647,6 +2877,16 @@ class _ReduceByKeyRDD(_ExchangeRDD):
 
     def __init__(self, parent: DenseRDD, op: Optional[str], func=None):
         parent._check_sortable_key("reduce_by_key")
+        if op in ("add", "prod"):
+            pschema = parent._schema()
+            bools = [nm for nm, dt in pschema
+                     if dt == torch.bool and nm not in (KEY, KEY_LO)]
+            if bools:
+                jnp_op = "add" if op == "add" else "mul"
+                raise VegaError(
+                    f"reduce_by_key(op={op!r}) over the bool value columns "
+                    f"{bools}: the reference refuses it ({jnp_op} does not "
+                    "accept dtype bool); cast to int32 first to count")
         super().__init__(parent.context, parent.mesh, [parent])
         self.parent = parent
         self._op = op
@@ -2753,8 +2993,12 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         schema = self.parent._schema()
         names = [nm for nm, _ in schema]
         lo_name = KEY_LO if KEY_LO in names else None
-        # wide value pairs reduce in their exact working form
+        # wide value pairs reduce in their exact working form; logical
+        # (narrow, uint32) value columns in 32 bits, wrapped back after
         wide = block_lib.wide_value_pairs(names) if op else {}
+        logical = ({nm: dt for nm, dt in coltypes.logical_of(schema).items()
+                    if nm not in (KEY, KEY_LO)} if op else {})
+        key_dt = dict(schema)[KEY]
         track_range = bool(wide) and op == "add"
         # The table plan, and the key-range learning that arms it: named
         # add/min/max over one 32-bit value column with an int32 key.
@@ -2779,6 +3023,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                         self._resolve_exchange((blk,), slot, out_cap))
             cols, count = source()
             cols = _wide_working_form(cols, wide, op)
+            cols = _logical_form(cols, logical, op)
             if n > 1 and not elide and plan == "sort_partition":
                 # key-only sort -> presorted map-side combine -> counting
                 # partition of the (often much smaller) combined rows;
@@ -2791,7 +3036,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                                                    presorted=True)
                 capacity = cols[KEY].shape[1]
                 bucket = torch.where(kernels.valid_mask(capacity, count),
-                                     _bucket_cols(cols, n), n)
+                                     _bucket_cols(cols, n, key_dt), n)
                 cols, bucket = kernels.partition_by_bucket(
                     cols, bucket, n, sort_impl=sort_impl)
                 cols, count, overflow = exchange(
@@ -2799,7 +3044,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
             elif n > 1 and not elide:
                 capacity = cols[KEY].shape[1]
                 mask = kernels.valid_mask(capacity, count)
-                bucket = torch.where(mask, _bucket_cols(cols, n), n)
+                bucket = torch.where(mask, _bucket_cols(cols, n, key_dt), n)
                 cols, bucket = kernels.bucket_key_sort(
                     cols, count, bucket, KEY, impl=sort_impl, n_shards=n,
                     lo_name=lo_name)
@@ -2808,7 +3053,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                                                    presorted=True)
                 # compact kept (bucket, key) order; re-derive the combined
                 # rows' buckets from their keys
-                bucket = _bucket_cols(cols, n)
+                bucket = _bucket_cols(cols, n, key_dt)
                 cols, count, overflow = exchange(
                     cols, count, bucket, n, slot, out_cap, pregrouped=True)
             elif not elide:
@@ -2823,6 +3068,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
             cols, count = self._segment_reduce(
                 cols, count, presorted=elide_sorted, sort_impl=sort_impl)
             cols, out_of_range = _wide_stored_form(cols, count, wide, op)
+            cols = _logical_form(cols, logical, op, back=True)
             extras = [out_of_range] if track_range else []
             if learn_range:
                 # the output's key range rides the counts fetch: it arms
@@ -3001,7 +3247,12 @@ class _JoinRDD(_ExchangeRDD):
             blk = root.block_spec()  # we register our own pending entry
             return blk, _chain_source(chain, blk)
 
-        names = [nm for nm, _ in self._schema()]
+        schema = dict(self._schema())
+        names = list(schema)
+        key_dt = schema[KEY]
+        # a logical right value takes the fill as its stored word
+        fill = (coltypes.stored_scalar(self.fill_value, schema["rv"])
+                if self.outer else self.fill_value)
         lblk, lsource = side_input(self.left, l_elide)
         rblk, rsource = side_input(self.right, r_elide)
         join_cap_override: List[Optional[int]] = [None]
@@ -3013,7 +3264,7 @@ class _JoinRDD(_ExchangeRDD):
             if elide:
                 return kernels.passthrough_exchange(
                     cols, count, cols[KEY].shape[1], out_cap)
-            bucket = (_bucket_cols(cols, n) if n > 1
+            bucket = (_bucket_cols(cols, n, key_dt) if n > 1
                       else torch.zeros_like(cols[KEY], dtype=torch.int32))
             return exchange(cols, count, bucket, n, slot, out_cap,
                             sort_impl=sort_impl)
@@ -3032,7 +3283,7 @@ class _JoinRDD(_ExchangeRDD):
                                        exchange)
             joined, jcount, jtotal = kernels.merge_join_expand(
                 lc, lcount, rc, rcount, KEY, join_cap, outer=self.outer,
-                fill_value=self.fill_value, left_sorted=l_sorted,
+                fill_value=fill, left_sorted=l_sorted,
                 right_sorted=r_sorted, sort_impl=sort_impl,
                 lo_name=KEY_LO if KEY_LO in lc else None)
             cols = {}
@@ -3148,7 +3399,7 @@ class _GroupByKeyRDD(_ExchangeRDD):
                     cols, count, cols[KEY].shape[1], out_cap)
             else:
                 exchange = self._resolve_exchange((blk,), slot, out_cap)
-                bucket = (_bucket_cols(cols, n) if n > 1
+                bucket = (_bucket_cols(cols, n, self._key_dtype()) if n > 1
                           else torch.zeros_like(cols[KEY], dtype=torch.int32))
                 cols, count, overflow = exchange(
                     cols, count, bucket, n, slot, out_cap,
@@ -3270,7 +3521,7 @@ class _SortByKeyRDD(_ExchangeRDD):
             return allk[[int(len(allk) * i / n) for i in range(1, n)]]
         if self.wide_key:
             return np.zeros((n - 1,), np.int64)
-        dt = dict(self.parent._schema())[KEY]
+        dt = coltypes.physical(dict(self.parent._schema())[KEY])
         return np.zeros((n - 1,), np.float32 if dt == torch.float32
                         else np.int32)
 
@@ -3379,9 +3630,8 @@ class _CartesianDenseRDD(DenseRDD):
             # an empty right side gives an empty product
             schema = dict(self._schema())
             return block_lib.from_numpy(
-                {KEY: torch.zeros(0, dtype=schema[KEY]).numpy(),
-                 VALUE: torch.zeros(0, dtype=schema[VALUE]).numpy()},
-                self.mesh)
+                {nm: np.zeros(0, dtype=coltypes.numpy_dtype(schema[nm]))
+                 for nm in (KEY, VALUE)}, self.mesh)
         # the right side's valid rows in shard order, compacted on the card
         rblk = self.right.block()
         rcol = rblk.cols[VALUE]
@@ -3529,11 +3779,12 @@ def _sorted_runs(keys: np.ndarray, vals: np.ndarray):
         yield k, values[offsets[i]:offsets[i + 1]].tolist()
 
 
-class _DenseCoGroupRDD:
+class _DenseCoGroupRDD(_HostTierRefusals):
     """cogroup over two device group_by_keys (one hash placement, so
     co-keyed rows share a shard). The reference's node is a host-tier RDD;
     the port has no host tier, so this object carries its three actions:
-    collect, collect_grouped and count."""
+    collect, collect_grouped and count (every other name of the
+    reference's RDD API raises VegaError)."""
 
     def __init__(self, left: DenseRDD, right: DenseRDD):
         self.left_grouped = _GroupByKeyRDD(left)
@@ -3608,6 +3859,35 @@ class _DenseCoGroupRDD:
             total += len(lk) + len(rk) - len(
                 np.intersect1d(lk, rk, assume_unique=True))
         return total
+
+
+def _last_unmarked(row):
+    return row[-1] == 0
+
+
+class _DenseRightOuterJoin(_HostTierRefusals):
+    """right_outer_join's result: the device inner join of the two sides,
+    and the right side's rows whose key the left lacks (a left outer join
+    of the right against the left's deduplicated keys, marked 1, kept
+    where the mark is the fill 0). collect() gives (k, (lv, rv)) rows, then
+    (k, (None, rv)) rows; count() sums the two row counts. Every other
+    name of the reference's RDD API raises VegaError."""
+
+    def __init__(self, left: DenseRDD, right: DenseRDD):
+        self.mesh = left.mesh
+        self.inner = _JoinRDD(left, right)
+        marks = _ReduceByKeyRDD(_OnesValueRDD(left), "min")
+        probe = _JoinRDD(right, marks, outer=True, fill_value=0)
+        self.unmatched = _FilterRDD(probe, _last_unmarked).select(KEY, "lv")
+
+    def collect(self) -> list:
+        cols = self.unmatched.collect_arrays()
+        return self.inner.collect() + [
+            (k, (None, rv)) for k, rv in zip(cols[KEY].tolist(),
+                                             cols["lv"].tolist())]
+
+    def count(self) -> int:
+        return self.inner.count() + self.unmatched.count()
 
 
 def _shard_group_keys(blk: Block) -> List[np.ndarray]:

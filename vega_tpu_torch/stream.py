@@ -127,6 +127,10 @@ class StreamedDenseRDD:
         # recursion when an attribute is probed before __init__ ran
         if name in StreamedDenseRDD._INTERNALS:
             raise AttributeError(name)
+        if name in dense_rdd.REFERENCE_RDD_API and \
+                not hasattr(dense_rdd.DenseRDD, name):
+            # a host-tier name refuses before any chunk is built
+            raise dense_rdd._host_name_refused("StreamedDenseRDD", name)
         return getattr(self.resident(), name)
 
     # --- narrow ops: compose per chunk -------------------------------------
