@@ -139,8 +139,9 @@ Phases, in order; any failure exits non-zero before the last line:
      bit-identical and equal to numpy; the fused leg must launch
      hash_bucket and digit_hist), then three interleaved warm rounds (ms,
      rows/s, the host build apart, the step peak, launches); (b) the
-     mixed aggregates sum / min / max / count / mean on (a)'s events (the
-     traced tuple combiner; integers exact, the mean within rtol 1e-5);
+     mixed aggregates sum / min / max / count / mean on (a)'s events (one
+     reduce with a named monoid per column; integers exact, the mean
+     within rtol 1e-5);
      (c) 2M rows of sku-%06d string keys grouped and joined to a
      100,000-row dims frame on the key, exact, the host encode apart;
      (d) an untraceable UDF raising VegaError at explain() before any
@@ -235,24 +236,47 @@ Phases, in order; any failure exits non-zero before the last line:
      add) / aggregate of dense_range(N), exact past 2^31; (c) fold_by_key,
      full_outer_join, subtract_by_key, sort_by and fold at 2M rows in one
      process, then on two ranks sharing the card over gloo (--phase14c-rank
-     RANK PORT), each rank's rows bit-identical to the one process's.
+     RANK PORT), each rank's rows bit-identical to the one process's;
+ 15. the frame plans the reference answers on its host tier, from
+     create_frame: 20M fact rows (k over 1M keys, x the row id, y, big in
+     [2^40, 2^40 + 2^31), a float32 key f of 1M distinct values with
+     +-0.0 and 1,000 NaN rows) and a 1M-row dimension frame (k = 2i, so
+     half the fact keys are missing, sku-%06d names of a permutation, a
+     second name column equal on even rows, a float32 w): (a) an inner and
+     a left join carrying x, y, big and name, w (unmatched rows '0' and
+     0.0); (b) the join filtered on name == "sku-000123", on name <
+     "sku-500000" and on name == name2; (c) the join grouped by k // 8
+     (four names a group) with min / max of name, sum(x), mean(y); (d) sum / max / mean of big by k,
+     a sort on big, a group-by keyed on big; (e) group_by(f). Each query
+     once cold, held to numpy (integers and strings exact, floats within
+     rtol 1e-5, NaN groups counted), then three warm runs: the warm
+     median ms, the host build apart, the step peak and the cold run's
+     launches (hash_bucket and digit_hist in every query whose exchange
+     hashes an int32 / float32 key, digit_hist in the others), and
+     -0.0 / 0.0 hashed to one bucket by the kernel.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
 line per phase-9 leg and item, one line per phase-10 leg and item, one
 line per phase-11 size, gf256 row and fold op, one line per phase-12
 item, one line per phase-13 leg and rank and per 13d query (one process
-and each rank), one line per phase-14 item and 14c rank, the kernel table
-as one JSON line (with phases 6-14's launches beside the main path's), the card line, and last {"ok": true,
+and each rank), one line per phase-14 item and 14c rank, one line per
+phase-15 query, the kernel table
+as one JSON line (with phases 6-15's launches beside the main path's), the card line, and last {"ok": true,
 "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
 
-    python3 chip_smoke.py --main-path-ab DIR_A DIR_B DIR_B DIR_A
+    python3 chip_smoke.py --main-path-ab [--leg LEG] DIR_A DIR_B DIR_B DIR_A
 
-runs only phase 3, of each checkout DIR in turns (its own chip_smoke.py
-and package, a process each): the main path of two trees in one call.
+runs one leg of each checkout DIR in turns (its own chip_smoke.py and
+package, a process each), to compare two trees in one call: by default
+(--leg main) phase 3, the main path; --leg frame 10a's fused frame query
+and 10b's mixed aggregates, each cold and three times warm (medians of
+the whole, the host build and the rest); --leg frame-profile three warm
+10b runs under torch.profiler, their device time by kind (the copies
+each way, the other device ops) and the ten costliest ops.
 """
 
 import json
@@ -2910,8 +2934,9 @@ def p10_frame_ab(torch, np, ck, vt, ev, dims, exp):
 
 
 def p10_mixed(torch, np, ck, vt, ev):
-    """(b) group_by(k).agg(sum, min, max, count, mean of x): the traced
-    tuple combiner; integers exact, the mean within rtol 1e-5."""
+    """(b) group_by(k).agg(sum, min, max, count, mean of x): one reduce
+    with a named monoid per column; integers exact, the mean within rtol
+    1e-5."""
     from vega_tpu_torch.frame import F
 
     order = np.sort(ev["k"] * 1024 + ev["x"])  # one sort: runs by key
@@ -2946,8 +2971,8 @@ def p10_mixed(torch, np, ck, vt, ev):
     explain = ctx.create_frame(k=ev["k"][:8], x=ev["x"][:8]).group_by(
         "k").agg(F.sum("x"), F.min("x"), F.max("x"), F.count(),
                  F.mean("x")).explain()
-    p10_check("10b takes the traced tuple combiner",
-              "tuple combiner" in explain)
+    p10_check("10b takes a named monoid per column",
+              "a named monoid per column" in explain)
     warm = [p10_run(torch, ck, ctx, "mixed", run)[1] for _ in range(3)]
     ctx.stop()
     torch.cuda.empty_cache()
@@ -4977,6 +5002,282 @@ def phase_fourteen(torch, np, ck, vt):
                 launches=launches, wall_s=wall_s)
 
 
+P15_ROWS = 20_000_000          # frame_ab.py's events rows at bench-main's size
+P15_KEYS = 1_000_000           # fact k uniform in [0, P15_KEYS)
+P15_DIMS = 1_000_000           # dimension rows, keys 2 * i: half the fact keys
+#                                match, and half the dimension keys never occur
+P15_NANS = 1_000               # NaN rows of the float key
+P15_BIG = 1 << 40              # big in [2^40, 2^40 + 2^31)
+P15_EQ_ROW = 61                # the dimension row holding "sku-000123"
+P15_GROUP = 8                  # c_mixed groups k // 8: four names a group
+P15_QUERIES = ("a_inner", "a_left", "b_eq", "b_lt", "b_cols", "c_mixed",
+               "d_agg", "d_sort", "d_key", "e_float")
+# the queries whose exchanges hash an int32 or float32 key: hash_bucket
+# must launch there (d_sort's range exchange and d_key's wide key, hashed
+# by hash32_pair in torch ops, do not hash through it)
+P15_HASHED = ("a_inner", "a_left", "b_eq", "b_lt", "b_cols", "c_mixed",
+              "d_agg", "e_float")
+
+
+def p15_check(what, ok):
+    if not ok:
+        fail(f"phase 15: {what}")
+
+
+def p15_data(np):
+    """A 20M-row fact table (k over 1M keys, x the row id, y in [0, 1000),
+    big in [2^40, 2^40 + 2^31), f a float32 key of 1M distinct values
+    with 0.0 among them, half its zeros -0.0 and P15_NANS rows NaN) and a
+    1M-row dimension table (k = 2 * i, name sku-%06d of a permutation,
+    name2 equal to name on even rows, w float32)."""
+    rng = np.random.default_rng(15)
+    n = P15_ROWS
+    k = rng.integers(0, P15_KEYS, n)
+    f = ((k - P15_KEYS // 2) * 0.25).astype(np.float32)
+    zeros = np.flatnonzero(f == 0)
+    f[zeros[::2]] = -0.0
+    f[rng.choice(n, P15_NANS, replace=False)] = np.nan
+    fact = {"k": k, "x": np.arange(n, dtype=np.int64),
+            "y": rng.integers(0, 1000, n),
+            "big": P15_BIG + rng.integers(0, 1 << 31, n), "f": f}
+    perm = rng.permutation(P15_DIMS)
+    at = int(np.flatnonzero(perm == 123)[0])
+    perm[[at, P15_EQ_ROW]] = perm[[P15_EQ_ROW, at]]
+    alt = np.where(np.arange(P15_DIMS) % 2 == 0, perm,
+                   (perm + 1) % P15_DIMS)
+    words = np.char.mod("sku-%06d", np.arange(P15_DIMS))
+    dims = {"k": 2 * np.arange(P15_DIMS, dtype=np.int64),
+            "name": words[perm], "name2": words[alt],
+            "w": rng.random(P15_DIMS).astype(np.float32)}
+    return fact, dims, words, perm
+
+
+def p15_query(ctx, fact, dims, q):
+    """One of phase 15's queries over frames built from the host columns
+    (the build is part of the run, timed apart as its host build)."""
+    from vega_tpu_torch.frame import F, col, lit
+
+    def fa(*cols):
+        return ctx.create_frame(**{c: fact[c] for c in cols})
+
+    def dm(*cols):
+        return ctx.create_frame(**{c: dims[c] for c in ("k",) + cols})
+
+    if q in ("a_inner", "a_left"):
+        return fa("k", "x", "y", "big").join(
+            dm("name", "w"), on="k", how="inner" if q == "a_inner" else "left")
+    if q == "b_eq":
+        return fa("k", "x").join(dm("name"), on="k").filter(
+            col("name") == lit("sku-000123"))
+    if q == "b_lt":
+        return fa("k", "x").join(dm("name"), on="k").filter(
+            col("name") < lit("sku-500000")).select("k", "x")
+    if q == "b_cols":
+        return fa("k", "x").join(dm("name", "name2"), on="k").filter(
+            col("name") == col("name2")).select("k", "x")
+    if q == "c_mixed":
+        return fa("k", "x", "y").join(dm("name"), on="k").with_column(
+            "g", col("k") // P15_GROUP).group_by("g").agg(
+                F.min("name", "lo"), F.max("name", "hi"), F.sum("x", "sx"),
+                F.mean("y", "my"))
+    if q == "d_agg":
+        return fa("k", "big").group_by("k").agg(
+            F.sum("big", "s"), F.max("big", "mx"), F.mean("big", "m"))
+    if q == "d_sort":
+        return fa("x", "big").sort("big")
+    if q == "d_key":
+        return fa("big").group_by("big").agg(F.count("n")).sort("big")
+    return fa("f", "x").group_by("f").agg(F.sum("x", "s"), F.count("n"))
+
+
+def p15_rows_by_id(np, n, out_x):
+    """(mask of fact rows present, exactly once each) from the x column."""
+    seen = np.bincount(out_x, minlength=n)
+    return seen == 1, bool((seen <= 1).all())
+
+
+def p15_expect(torch, np, q, got, fact, dims, words, perm):
+    """Hold one query's columns to numpy: integers and strings exactly,
+    floats within rtol 1e-5, NaN groups counted. Returns a note."""
+    n = P15_ROWS
+    k, x = fact["k"], fact["x"]
+    even = k % 2 == 0
+    if q in ("a_inner", "a_left", "b_lt", "b_cols"):
+        if q == "a_inner" or q == "b_lt" or q == "b_cols":
+            keep = even.copy()
+            if q == "b_lt":
+                keep &= perm[np.minimum(k // 2, P15_DIMS - 1)] < 500_000
+            if q == "b_cols":
+                keep &= (k // 2) % 2 == 0
+        else:
+            keep = np.ones(n, bool)
+        present, once = p15_rows_by_id(np, n, got["x"])
+        p15_check(f"{q}: each expected row once ({int(present.sum())} rows, "
+                  f"{int(keep.sum())} expected)",
+                  once and np.array_equal(present, keep))
+        ox = got["x"]
+        p15_check(f"{q}: k exact", np.array_equal(got["k"], k[ox]))
+        if q in ("a_inner", "a_left"):
+            j = got["k"] // 2
+            matched = got["k"] % 2 == 0
+            jm = np.where(matched, j, 0)
+            p15_check(f"{q}: y and big exact",
+                      np.array_equal(got["y"], fact["y"][ox])
+                      and np.array_equal(got["big"], fact["big"][ox])
+                      and got["big"].dtype == np.int64)
+            want_name = np.where(matched, words[perm[jm]], "0")
+            want_w = np.where(matched, dims["w"][jm], np.float32(0))
+            p15_check(f"{q}: name exact ('0' where unmatched) and w exact",
+                      np.array_equal(got["name"], want_name)
+                      and np.array_equal(got["w"], want_w))
+        return f"{len(ox)} rows"
+    if q == "b_eq":
+        want = np.flatnonzero(k == 2 * P15_EQ_ROW)
+        o = np.argsort(got["x"])
+        p15_check(f"b_eq: rows exact ({len(o)} vs {len(want)})",
+                  np.array_equal(got["x"][o], want)
+                  and (got["name"] == "sku-000123").all()
+                  and np.array_equal(got["k"], k[got["x"]]))
+        return f"{len(o)} rows"
+    if q == "c_mixed":
+        # the joined rows: even k; group g = k // P15_GROUP holds the names
+        # of its matched keys (words are in rank order, so codes compare)
+        m = even
+        g = k[m] // P15_GROUP
+        n_g = P15_KEYS // P15_GROUP
+        cnt = np.bincount(g, minlength=n_g)
+        groups = np.flatnonzero(cnt)
+        code = perm[k[m] // 2]
+        lo = np.full(n_g, P15_DIMS)
+        hi = np.full(n_g, -1)
+        np.minimum.at(lo, g, code)
+        np.maximum.at(hi, g, code)
+        sx = np.bincount(g, weights=x[m], minlength=n_g).astype(np.int64)
+        sy = np.bincount(g, weights=fact["y"][m], minlength=n_g)
+        o = np.argsort(got["g"])
+        p15_check("c_mixed: groups, min / max name and sum(x) exact",
+                  np.array_equal(got["g"][o], groups)
+                  and np.array_equal(got["lo"][o], words[lo[groups]])
+                  and np.array_equal(got["hi"][o], words[hi[groups]])
+                  and np.array_equal(got["sx"][o], sx[groups]))
+        p15_check("c_mixed: mean(y) within rtol 1e-5",
+                  np.allclose(got["my"][o], sy[groups] / cnt[groups],
+                              rtol=1e-5, atol=0))
+        apart = float((lo[groups] != hi[groups]).mean())
+        p15_check(f"c_mixed: min and max name differ in most groups "
+                  f"({apart:.4f})", apart > 0.9)
+        return f"{len(o)} groups, min != max name in {apart:.4f}"
+    if q == "d_agg":
+        cnt = np.bincount(k, minlength=P15_KEYS)
+        keys = np.flatnonzero(cnt)
+        low = np.bincount(k, weights=fact["big"] - P15_BIG,
+                          minlength=P15_KEYS).astype(np.int64)
+        s = cnt.astype(np.int64) * P15_BIG + low
+        mx = np.full(P15_KEYS, np.iinfo(np.int64).min)
+        np.maximum.at(mx, k, fact["big"])
+        o = np.argsort(got["k"])
+        p15_check("d_agg: keys, sum(big) and max(big) exact int64",
+                  np.array_equal(got["k"][o], keys)
+                  and np.array_equal(got["s"][o], s[keys])
+                  and np.array_equal(got["mx"][o], mx[keys])
+                  and got["s"].dtype == np.int64)
+        p15_check("d_agg: mean(big) float64, within rtol 1e-5",
+                  got["m"].dtype == np.float64
+                  and np.allclose(got["m"][o], s[keys] / cnt[keys],
+                                  rtol=1e-5, atol=0))
+        return f"{len(o)} groups, sums to {int(s.max())}"
+    if q == "d_sort":
+        present, once = p15_rows_by_id(np, n, got["x"])
+        p15_check("d_sort: every row once, big ascending and exact",
+                  once and bool(present.all())
+                  and np.array_equal(got["big"], fact["big"][got["x"]])
+                  and bool((got["big"][1:] >= got["big"][:-1]).all()))
+        return f"{n} rows"
+    if q == "d_key":
+        keys, cnt = np.unique(fact["big"], return_counts=True)
+        p15_check("d_key: wide keys and counts exact, in order",
+                  np.array_equal(got["big"], keys)
+                  and np.array_equal(got["n"], cnt))
+        return f"{len(keys)} groups"
+    f = fact["f"]
+    nan = np.isnan(f)
+    keys, inv = np.unique(f[~nan] + np.float32(0), return_inverse=True)
+    cnt = np.bincount(inv)
+    sums = np.bincount(inv, weights=x[~nan]).astype(np.int64)
+    gn = np.isnan(got["f"])
+    o = np.argsort(got["f"][~gn])
+    p15_check(f"e_float: {int(gn.sum())} NaN groups of one row each, their "
+              f"x exact (want {P15_NANS})",
+              int(gn.sum()) == int(nan.sum()) and (got["n"][gn] == 1).all()
+              and np.array_equal(np.sort(got["s"][gn]), np.sort(x[nan])))
+    p15_check("e_float: the other groups exact (-0.0 and 0.0 one group)",
+              np.array_equal(got["f"][~gn][o], keys)
+              and np.array_equal(got["n"][~gn][o], cnt)
+              and np.array_equal(got["s"][~gn][o], sums))
+    z = int(np.flatnonzero(got["f"] == 0)[0])
+    return (f"{len(keys)} groups + {int(gn.sum())} NaN groups; the zero "
+            f"group holds {int(got['n'][z])} rows, sign "
+            f"{'-' if np.signbit(got['f'][z]) else '+'}")
+
+
+def phase_fifteen(torch, np, ck, vt):
+    """Phase 15: the frame plans the reference answers on its host tier,
+    at P15_ROWS fact rows and a P15_DIMS-row dimension table. Each query
+    once cold (held to numpy) and three times warm; the warm median ms,
+    the host build apart, the step peak and the cold run's launches."""
+    from vega_tpu_torch import dense_rdd
+
+    t0 = time.perf_counter()
+    card = card_line()
+    # -0.0 and 0.0 share a bucket on the card (the hash_bucket kernel)
+    zb = dense_rdd._bucket_cols(
+        {"k": torch.tensor([[0.0, -0.0, 2.5]], device="cuda")}, N_SHARDS,
+        zeros_one_key=True)
+    p15_check("15e: -0.0 and 0.0 hash to one bucket on the card",
+              int(zb[0, 0]) == int(zb[0, 1]))
+    fact, dims, words, perm = p15_data(np)
+    ctx = vt.Context(n_shards=N_SHARDS)
+    rows, launches = [], {name: 0 for name in ck.LAUNCHES}
+    for q in P15_QUERIES:
+        def run(q=q):
+            return p15_query(ctx, fact, dims, q).collect_columns(), None
+
+        out, cold = p10_run(torch, ck, ctx, q, run)
+        note = p15_expect(torch, np, q, out, fact, dims, words, perm)
+        del out
+        need = (("hash_bucket", "digit_hist") if q in P15_HASHED
+                else ("digit_hist",))
+        for name in need:
+            p15_check(f"{q} launched {name} ({cold['launches']})",
+                      cold["launches"][name] > 0)
+        for name in launches:
+            launches[name] += cold["launches"][name]
+        warm = [p10_run(torch, ck, ctx, q, run)[1] for _ in range(3)]
+        med = statistics.median(r["ms"] for r in warm)
+        r = dict(label=q, note=note, cold=cold, warm=warm, median_ms=med,
+                 median_host_build_ms=statistics.median(
+                     x["host_build_ms"] for x in warm),
+                 median_device_ms=statistics.median(
+                     x["device_ms"] for x in warm),
+                 peak_bytes=max(x["peak_bytes"] for x in warm + [cold]),
+                 launches=cold["launches"])
+        rows.append(r)
+        log(f"15 {q}: {note}; {med:.3f} ms warm median of 3, host build "
+            f"{r['median_host_build_ms']:.3f} ms, cold {cold['ms']:.3f} ms, "
+            f"peak {r['peak_bytes']} B, launches "
+            f"{json.dumps(cold['launches'])} on {card}")
+    explain = p15_query(ctx, fact, dims, "c_mixed").explain().replace(
+        "\n", " | ")
+    ctx.stop()
+    del fact, dims
+    torch.cuda.empty_cache()
+    check_launched(launches, "phase 15")
+    wall_s = time.perf_counter() - t0
+    log(f"phase 15 took {wall_s:.1f} s")
+    return dict(rows=rows, launches=launches, explain=explain, card=card,
+                wall_s=wall_s)
+
+
 def main():
     try:
         import torch
@@ -5044,6 +5345,8 @@ def main():
     thirteen = phase_thirteen(torch, np, ck, vt, main_path)
     # 14. the RDD API's repairs and item 7's forms
     fourteen = phase_fourteen(torch, np, ck, vt)
+    # 15. the frame plans the reference answers on its host tier
+    fifteen = phase_fifteen(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -5061,7 +5364,8 @@ def main():
          "phase11_launches": eleven["launches"][r["name"]],
          "phase12_launches": twelve["launches"][r["name"]],
          "phase13_launches": thirteen["launches"][r["name"]],
-         "phase14_launches": fourteen["launches"][r["name"]]}
+         "phase14_launches": fourteen["launches"][r["name"]],
+         "phase15_launches": fifteen["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -5075,7 +5379,8 @@ def main():
                    plans=plans, keyed=keyed, config3=config3,
                    new_ops=new_ops, phase7=seven, phase8=eight,
                    phase9=nine, phase10=ten, phase11=eleven,
-                   phase12=twelve, phase13=thirteen, phase14=fourteen)
+                   phase12=twelve, phase13=thirteen, phase14=fourteen,
+                   phase15=fifteen)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -5330,6 +5635,16 @@ def main():
               f"the one-process run on {card}", flush=True)
     print(f"phase 14 launches {json.dumps(fourteen['launches'])}; phase 14 "
           f"{fourteen['wall_s']:.1f} s", flush=True)
+    for r in fifteen["rows"]:
+        print(f"phase 15 {r['label']} ({P15_ROWS} fact rows, {P15_DIMS} "
+              f"dimension rows; {r['note']}): {r['median_ms']:.3f} ms warm "
+              f"median of 3, host build {r['median_host_build_ms']:.3f} ms, "
+              f"device steps {r['median_device_ms']:.3f} ms, cold "
+              f"{r['cold']['ms']:.3f} ms, step peak {r['peak_bytes']} B, "
+              f"launches {json.dumps(r['launches'])} on {card}", flush=True)
+    print(f"phase 15 launches {json.dumps(fifteen['launches'])}; explain "
+          f"(c_mixed): {fifteen['explain']}; phase 15 "
+          f"{fifteen['wall_s']:.1f} s on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
@@ -5343,10 +5658,91 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def main_path_leg(checkout):
+AB_LEGS = ("main", "frame", "frame-profile")
+
+
+def ab_frame_leg(torch, np, ck, vt, cs):
+    """The frame leg of --main-path-ab: over `cs`'s (a checkout's
+    chip_smoke) phase-10 tables, 10a's fused frame query and 10b's mixed
+    aggregates (sum / min / max / count / mean by key), each once cold and
+    three times warm; the warm medians of the whole run, the host build
+    and the rest (ms)."""
+    from vega_tpu_torch.frame import F
+
+    ev, dims = cs.p10_data(np)
+    ctx = vt.Context(n_shards=cs.N_SHARDS)
+    runs = {
+        "fused": lambda: (cs.p10_query(ctx, ev, dims).collect_columns(),
+                          None),
+        "mixed": lambda: (ctx.create_frame(k=ev["k"], x=ev["x"]).group_by(
+            "k").agg(F.sum("x"), F.min("x"), F.max("x"), F.count(),
+                     F.mean("x")).collect_columns(), None)}
+    out = {}
+    for name, run in runs.items():
+        cs.p10_run(torch, ck, ctx, name, run)
+        warm = [cs.p10_run(torch, ck, ctx, name, run)[1] for _ in range(3)]
+        out[name] = {k: statistics.median(w[k] for w in warm)
+                     for k in ("ms", "host_build_ms", "device_ms")}
+    ctx.stop()
+    return out
+
+
+def ab_frame_profile_leg(torch, np, ck, vt, cs):
+    """The frame-profile leg of --main-path-ab: 10b's mixed aggregates
+    once cold, then three warm runs under torch.profiler. Returns the
+    device time of the three summed by kind (ms): the device-to-host and
+    host-to-device copies, the profiler's own records, every other device
+    op, and the ten device ops that took the most, with the wall ms of
+    each run."""
+    from vega_tpu_torch.frame import F
+
+    ev, _dims = cs.p10_data(np)
+    ctx = vt.Context(n_shards=cs.N_SHARDS)
+
+    def run():
+        return ctx.create_frame(k=ev["k"], x=ev["x"]).group_by("k").agg(
+            F.sum("x"), F.min("x"), F.max("x"), F.count(),
+            F.mean("x")).collect_columns()
+
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    walls = []
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    ctx.stop()
+    kinds = {"dtoh_ms": 0.0, "htod_ms": 0.0, "ops_ms": 0.0,
+             "profiler_ms": 0.0}
+    ops = []
+    for e in prof.key_averages():
+        # the device's own records, as the profiler's table sums them
+        if e.device_type.name != "CUDA" or e.is_user_annotation:
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) / 1e3
+        kind = ("dtoh_ms" if e.key.startswith("Memcpy DtoH") else
+                "htod_ms" if e.key.startswith("Memcpy HtoD") else
+                "profiler_ms" if e.key in ("Activity Buffer Request",
+                                           "Command Buffer Full")
+                else "ops_ms")
+        kinds[kind] += ms
+        if kind == "ops_ms":
+            ops.append((ms, e.key[:70], e.count))
+    ops.sort(reverse=True)
+    return dict(kinds, wall_ms=walls, top_device_ops=[
+        {"name": nm, "ms": ms, "calls": n} for ms, nm, n in ops[:10]])
+
+
+def main_path_leg(leg, checkout):
     """One leg of --main-path-ab, in a process of its own: `checkout`'s
-    own chip_smoke.phase_main_path over its own package (its CUDA kernels
-    built in its own tree); prints one JSON line."""
+    own chip_smoke (phase_main_path, or the phase-10 tables of a frame
+    leg) over its own package (its CUDA kernels built in its own tree);
+    prints one JSON line."""
     import importlib.util
 
     checkout = os.path.abspath(checkout)
@@ -5366,26 +5762,32 @@ def main_path_leg(checkout):
     if not vt.__file__.startswith(checkout):
         fail(f"loaded {vt.__file__}, not the package of {checkout}")
     ck.build()
-    res = cs.phase_main_path(torch, np, ck, vt)
-    keys = ("rows_per_s", "median_s", "warm_s", "warm_build_ms",
+    if leg == "frame":
+        res = ab_frame_leg(torch, np, ck, vt, cs)
+    elif leg == "frame-profile":
+        res = ab_frame_profile_leg(torch, np, ck, vt, cs)
+    else:
+        res = cs.phase_main_path(torch, np, ck, vt)
+        res = {k: res[k] for k in (
+            "rows_per_s", "median_s", "warm_s", "warm_build_ms",
             "warm_count_ms", "warm_count_device_ms", "cold_s",
-            "warm_launches")
-    print(json.dumps(dict({"checkout": checkout},
-                          **{k: res[k] for k in keys})), flush=True)
+            "warm_launches")}
+    print(json.dumps(dict({"checkout": checkout, "leg": leg}, **res)),
+          flush=True)
 
 
-def main_path_ab(checkouts):
-    """--main-path-ab DIR...: phase 3 of each checkout in turns on one card
-    (e.g. the parent unpacked with git archive into the gitignored _ab/:
-    _ab/parent . . _ab/parent), each leg in a process of its own. Prints
-    one JSON line per leg and the card line; writes
-    chiprun_out/main_path_ab.json."""
+def main_path_ab(leg, checkouts):
+    """--main-path-ab [--leg LEG] DIR...: one leg (AB_LEGS; phase 3 by
+    default) of each checkout in turns on one card (e.g. the parent
+    unpacked with git archive into the gitignored _ab/: _ab/parent . .
+    _ab/parent), each in a process of its own. Prints one JSON line per
+    leg and the card line; writes chiprun_out/ab_<leg>.json."""
     card = card_line()
     legs = []
     for checkout in checkouts:
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--main-path-leg",
-             checkout], capture_output=True, text=True, timeout=900,
+             leg, checkout], capture_output=True, text=True, timeout=900,
             check=False)
         if res.returncode != 0:
             fail(f"leg {checkout} failed ({res.returncode}):\n"
@@ -5393,15 +5795,18 @@ def main_path_ab(checkouts):
         legs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps(legs[-1]), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "main_path_ab.json"), "w",
+    with open(os.path.join("chiprun_out", f"ab_{leg}.json"), "w",
               encoding="utf-8") as fh:
         json.dump({"card": card, "legs": legs}, fh, indent=1)
     print(f"card: {card}", flush=True)
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--main-path-ab"] and len(sys.argv) > 2:
-        main_path_ab(sys.argv[2:])
+    if sys.argv[1:3] == ["--main-path-ab", "--leg"] and len(sys.argv) > 4 \
+            and sys.argv[3] in AB_LEGS:
+        main_path_ab(sys.argv[3], sys.argv[4:])
+    elif sys.argv[1:2] == ["--main-path-ab"] and len(sys.argv) > 2:
+        main_path_ab("main", sys.argv[2:])
     elif sys.argv[1:2] == ["--phase13a"] and len(sys.argv) == 3:
         phase13a_leg(int(sys.argv[2]))
     elif sys.argv[1:2] == ["--phase13-rank"] and len(sys.argv) == 6:
@@ -5411,7 +5816,7 @@ if __name__ == "__main__":
         phase13d_rank_leg(int(sys.argv[2]), int(sys.argv[3]))
     elif sys.argv[1:2] == ["--phase14c-rank"] and len(sys.argv) == 4:
         phase14c_rank_leg(int(sys.argv[2]), int(sys.argv[3]))
-    elif sys.argv[1:2] == ["--main-path-leg"] and len(sys.argv) == 3:
-        main_path_leg(sys.argv[2])
+    elif sys.argv[1:2] == ["--main-path-leg"] and len(sys.argv) == 4:
+        main_path_leg(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -308,6 +308,39 @@ def test_segment_reduce_named_matches_reference(op, dtype):
                                        np.asarray(exp["v"]), rtol=1e-6)
 
 
+def test_segment_reduce_named_per_column_ops_match_reference():
+    """A {column: monoid} map: columns of one monoid and dtype reduce
+    together (three int32 adds, two int32 maxes), the others alone; each
+    column equals the reference's reduce of that column by its monoid."""
+    rng = np.random.RandomState(6)
+    cap = 512
+    keys = rng.randint(0, 40, size=(N_SHARDS, cap)).astype(np.int32)
+    ops = {"a": "add", "b": "add", "c": "add", "f": "add", "lo": "min",
+           "hi": "max", "hi2": "max", "p": "prod"}
+    cols = {nm: rng.randint(-1000, 1000, size=(N_SHARDS, cap)).astype(
+        np.float32 if nm == "f" else np.int32) for nm in ops}
+    cols["p"] = rng.choice([1, 2, -1], size=(N_SHARDS, cap)).astype(np.int32)
+    count = np.array([512, 0, 77, 300], dtype=np.int32)
+    got, got_count = kernels.segment_reduce_named(
+        dict({"k": _t(keys)}, **{nm: _t(c) for nm, c in cols.items()}),
+        _t(count), "k", ops)
+    assert list(got) == list(ops) + ["k"]
+    for s in range(N_SHARDS):
+        for nm, op in ops.items():
+            exp, exp_count = ref_kernels.segment_reduce_named(
+                {"k": jnp.asarray(keys[s]), "v": jnp.asarray(cols[nm][s])},
+                jnp.int32(count[s]), "k", op)
+            assert int(got_count[s]) == int(exp_count)
+            np.testing.assert_array_equal(got["k"][s].numpy(),
+                                          np.asarray(exp["k"]))
+            if nm == "f":
+                np.testing.assert_allclose(got[nm][s].numpy(),
+                                           np.asarray(exp["v"]), rtol=1e-6)
+            else:
+                np.testing.assert_array_equal(got[nm][s].numpy(),
+                                              np.asarray(exp["v"]))
+
+
 def test_merge_join_expand_matches_reference():
     """Duplicate keys on both sides: the full dup x dup product, with a
     capacity too small for it reporting the exact total."""

@@ -26,7 +26,10 @@ add / min / max / prod and a tuple key (None).
 
 One port-only case pins a recorded difference: both ranks save_npz to ONE
 path; the port's first rank to name a path writes it alone, where the
-reference has every process write the same .tmp and replace it.
+reference has every process write the same .tmp and replace it. Another
+runs a frame stage of wide int64 arithmetic after a filter that empties
+rank 1's shards, whose overflow flag both ranks must read (the reference
+answers that plan on its host tier).
 """
 
 import json
@@ -327,6 +330,13 @@ try:
         host_gets=mesh_lib.WIRE["host_get"] - before["host_get"],
         tmp_left=os.path.exists(shared + ".tmp"),
         reloaded=[list(r) for r in ctx.dense_load_npz(shared).collect()])
+    # a wide int64 stage after a filter that leaves rank 1's shards with
+    # no row: the stage's overflow flag is still read on both ranks
+    from vega_tpu_torch.frame import col
+
+    wide = ctx.create_frame(k=np.arange(40), big=(1 << 40) + np.arange(40))
+    res["wide_after_filter"] = sorted(list(r) for r in wide.filter(
+        col("k") < 5).with_column("b2", col("big") * 2).collect())
     with open(out_path, "w") as f:
         json.dump(res, f)
     print("PORT_OPS_OK", pid, flush=True)
@@ -434,3 +444,13 @@ def test_save_npz_to_one_path_has_one_writer(sessions):
         assert got["returned"] and got["exists"] and not got["tmp_left"]
         assert got["host_gets"] == 3  # to_numpy's gather, the tags, the ack
         _close(got["reloaded"], sessions["shared_rows"], f"rank{rank}")
+
+
+def test_wide_stage_reads_its_flag_on_every_rank(sessions):
+    """A frame stage with wide int64 arithmetic reads its overflow flag
+    through one mesh.host_get, a collective: a rank whose shards hold no
+    row after the stage's filter (rank 1 here) must read it too, or the
+    other rank waits alone. Both ranks return the exact rows."""
+    want = [[k, (1 << 40) + k, 2 * ((1 << 40) + k)] for k in range(5)]
+    for rank in (0, 1):
+        assert sessions["port"][rank]["wide_after_filter"] == want

@@ -1229,7 +1229,7 @@ class DenseRDD(_HostTierRefusals):
         if words is None:
             return []
 
-        def matching(cols, count):
+        def matching(cols, count, _dicts):
             like = cols[KEY]
             keep = kernels.valid_mask(like.shape[1], count)
             for nm, w in words.items():
@@ -2571,7 +2571,11 @@ class _ColsPipelineRDD(_NarrowRDD):
     chain break: it materializes through a chain of its own over its
     materialized parent (the frame's unfused leg). token is the stage's
     structural description (keys capacity hints); dict_renames maps the
-    output columns that pass a string parent column through to it."""
+    output columns that pass a string parent column through to it.
+    cols_fn(cols, count, dicts) also gets the parent's dictionaries
+    ({column: sorted host dictionary}) at each application, so what it
+    derives from them (a string literal's code) is read from the data it
+    runs on, never fixed when the node was built."""
 
     _keeps_counts = False  # a stage may filter
 
@@ -2588,7 +2592,7 @@ class _ColsPipelineRDD(_NarrowRDD):
         return (repr(self._user_fn),)
 
     def _shard_fn(self, cols, count):
-        return self._cols_fn(cols, count)
+        return self._cols_fn(cols, count, self.parent._dicts())
 
     def _materialize(self) -> Block:
         if self._chainable:
@@ -2604,7 +2608,7 @@ def dense_pipeline(parent: DenseRDD, cols_fn, out_schema, token,
     """A _ColsPipelineRDD (the frame planner's whole-stage node):
     out_schema ((name, dtype), ...), token a stable description of the
     stage, dict_renames {output column -> string parent column it passes
-    through}."""
+    through}; cols_fn(cols, count, dicts) returns (cols, count)."""
     return _ColsPipelineRDD(parent, cols_fn, out_schema, token, fused=fused,
                             dict_renames=dict_renames)
 
@@ -2838,40 +2842,71 @@ def _histogram_capacities(hists: List[np.ndarray], attempt: int,
     return _cap_round(max(slot, 1) * grow), _cap_round(max(out, 1) * grow)
 
 
-def _bucket_cols(cols, n: int, key_dtype=None) -> torch.Tensor:
+def _bucket_cols(cols, n: int, key_dtype=None,
+                 zeros_one_key: bool = False) -> torch.Tensor:
     """Hash-bucket each row by its key: an int32 / float32 key through the
     hash_bucket kernel, a logical key (key_dtype, the schema's) by the word
     coltypes.hash_input gives it (the reference's bits); a two-column
     int64 key by hash32_pair of both words (torch ops, as the reference
     computes it outside its kernel), so equal int64 keys, and only those,
-    share a bucket."""
+    share a bucket. A float32 key hashes its bits, as the reference's
+    device tier does, so -0.0 and 0.0 may land apart; zeros_one_key reads
+    -0.0 as 0.0 first, so the two zeros, which compare equal in the merge
+    join and the segment reduce, share a bucket (the frame layer's keys,
+    where the reference's host tier makes them one key)."""
     if KEY_LO in cols:
         return (kernels.hash32_pair(cols[KEY], cols[KEY_LO]) % n).to(
             torch.int32)
     key = coltypes.hash_input(cols[KEY], key_dtype)
     if key.dtype == torch.float32:
+        if zeros_one_key:
+            key = torch.where(key == 0, 0.0, key)
         key = key.view(torch.int32)
     if key.dtype != torch.int32:
         raise VegaError(f"keys must be int32 or float32, got {key.dtype}")
     return cuda_kernels.hash_bucket(key.contiguous(), n)
 
 
-def _wide_working_form(cols, wide: dict, op: Optional[str]):
+def _op_of(op, name: str) -> Optional[str]:
+    """The named monoid a reduce applies to one value column: op itself,
+    or, for a per-column reduce (a tuple of (column, monoid) pairs), the
+    column's own (a wide column's low word takes its base's)."""
+    if op is None or isinstance(op, str):
+        return op
+    base = name[:-len(block_lib.LO_SUFFIX)] if block_lib.is_lo(name) \
+        else name
+    return dict(op)[base]
+
+
+def _f64_order(bits: torch.Tensor) -> torch.Tensor:
+    """The int64 bits of float64 values -> int64 words in the floats'
+    order (a negative float's magnitude bits flipped); its own inverse."""
+    return bits ^ ((bits >> 63) & (2**63 - 1))
+
+
+def _wide_working_form(cols, wide: dict, op, float64=frozenset()):
     """A named reduce's working form of each wide value pair {name:
     name.lo}: for add, its two exact int64 addends
     (kernels.wide_sum_words) in the pair's columns; for min / max, the
-    int64 the pair encodes in the name column, the low word dropped. The
-    segment ops, sorts and exchanges carry either form like any column."""
+    int64 the pair encodes in the name column, the low word dropped. A
+    pair of float64 bits (named in float64) works as its float64 value
+    under add and as its bits in the floats' order (_f64_order) under
+    min / max, the low word dropped. The segment ops, sorts and exchanges
+    carry every form like any column."""
     cols = dict(cols)
     for nm, lo in wide.items():
-        if op == "add":
+        if nm in float64:
+            bits = kernels.wide_i64(cols[nm], cols.pop(lo))
+            cols[nm] = (bits.view(torch.float64) if _op_of(op, nm) == "add"
+                        else _f64_order(bits))
+        elif _op_of(op, nm) == "add":
             cols[nm], cols[lo] = kernels.wide_sum_words(cols[nm], cols[lo])
         else:
             cols[nm] = kernels.wide_i64(cols[nm], cols.pop(lo))
     return cols
 
 
-def _wide_stored_form(cols, count, wide: dict, op: Optional[str]):
+def _wide_stored_form(cols, count, wide: dict, op, float64=frozenset()):
     """The reduced working form back in the stored (int32, biased int32)
     words. Returns (cols, out_of_range): out_of_range[s] is set when a
     valid row of shard s holds an add total outside int64."""
@@ -2881,7 +2916,12 @@ def _wide_stored_form(cols, count, wide: dict, op: Optional[str]):
     cols = dict(cols)
     mask = kernels.valid_mask(cols[KEY].shape[1], count)
     for nm, lo in wide.items():
-        if op == "add":
+        if nm in float64:
+            x = cols[nm]
+            cols[nm], cols[lo] = kernels.wide_words(
+                x.view(torch.int64) if x.dtype == torch.float64
+                else _f64_order(x))
+        elif _op_of(op, nm) == "add":
             cols[nm], cols[lo], bad = kernels.wide_from_sums(cols[nm],
                                                              cols[lo])
             out_of_range |= (bad & mask).any(dim=1)
@@ -2890,17 +2930,16 @@ def _wide_stored_form(cols, count, wide: dict, op: Optional[str]):
     return cols, out_of_range
 
 
-def _logical_form(cols, logical: dict, op: Optional[str],
-                  back: bool = False):
+def _logical_form(cols, logical: dict, op, back: bool = False):
     """A named reduce's form of the logical value columns {name: dtype}:
     add / prod run on a uint32's unbiased bits (coltypes.reduce_form, its
     own inverse), and back=True wraps each narrow result mod 2^width
     (coltypes.wrap), so the stored result is the reference's. min / max
     compare the stored words as they are."""
-    if not logical or op not in ("add", "prod"):
-        return cols
     cols = dict(cols)
     for nm, dt in logical.items():
+        if _op_of(op, nm) not in ("add", "prod"):
+            continue
         col = coltypes.reduce_form(cols[nm], dt)
         cols[nm] = coltypes.wrap(col, dt) if back else col
     return cols
@@ -3076,6 +3115,13 @@ class _ExchangeRDD(DenseRDD):
     # the last launch's plan; None at one shard and on elided paths, which
     # plan nothing
     _exchange_plan: Optional[exchange_plan.ExchangePlan] = None
+    # a float32 key's -0.0 and 0.0 hash to one bucket (_bucket_cols): set
+    # by the frame layer's joins and reduces, whose keys follow the
+    # reference's host tier
+    _zeros_one_key = False
+
+    def _buckets(self, cols, n: int) -> torch.Tensor:
+        return _bucket_cols(cols, n, self._key_dtype(), self._zeros_one_key)
 
     @property
     def exchange_mode(self) -> str:
@@ -3147,7 +3193,7 @@ class _ExchangeRDD(DenseRDD):
         if self.n_shards == 1:
             return None
         return self._dest_histogram(
-            _bucket_cols(cols, self.n_shards, self._key_dtype()), count)
+            self._buckets(cols, self.n_shards), count)
 
     def _range_histogram(self, cols, count, bounds, ascending: bool,
                          bounds_lo=None) -> Optional[np.ndarray]:
@@ -3240,19 +3286,20 @@ class _ReduceByKeyRDD(_ExchangeRDD):
     instead."""
 
     _table_plan = False  # whether the last materialization took the table
+    _float64 = frozenset()  # reduce_columns' pairs of float64 bits
 
-    def __init__(self, parent: DenseRDD, op: Optional[str], func=None):
+    def __init__(self, parent: DenseRDD, op, func=None):
         parent._check_sortable_key("reduce_by_key")
-        if op in ("add", "prod"):
-            pschema = parent._schema()
-            bools = [nm for nm, dt in pschema
-                     if dt == torch.bool and nm not in (KEY, KEY_LO)]
-            if bools:
-                jnp_op = "add" if op == "add" else "mul"
-                raise VegaError(
-                    f"reduce_by_key(op={op!r}) over the bool value columns "
-                    f"{bools}: the reference refuses it ({jnp_op} does not "
-                    "accept dtype bool); cast to int32 first to count")
+        bools = [nm for nm, dt in parent._schema()
+                 if dt == torch.bool and nm not in (KEY, KEY_LO)
+                 and _op_of(op, nm) in ("add", "prod")]
+        if bools:
+            bop = _op_of(op, bools[0])
+            jnp_op = "add" if bop == "add" else "mul"
+            raise VegaError(
+                f"reduce_by_key(op={bop!r}) over the bool value columns "
+                f"{bools}: the reference refuses it ({jnp_op} does not "
+                "accept dtype bool); cast to int32 first to count")
         super().__init__(parent.context, parent.mesh, [parent])
         self.parent = parent
         self._op = op
@@ -3278,8 +3325,11 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         key."""
         lo_name = KEY_LO if KEY_LO in cols else None
         if self._op is not None:
+            op = self._op if isinstance(self._op, str) else {
+                nm: _op_of(self._op, nm) for nm in cols
+                if nm not in (KEY, KEY_LO)}
             return kernels.segment_reduce_named(
-                cols, count, KEY, self._op, presorted=presorted,
+                cols, count, KEY, op, presorted=presorted,
                 sort_impl=sort_impl, lo_name=lo_name)
         f, names = self._func, self._value_cols
         if not presorted:
@@ -3365,7 +3415,8 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         logical = ({nm: dt for nm, dt in coltypes.logical_of(schema).items()
                     if nm not in (KEY, KEY_LO)} if op else {})
         key_dt = dict(schema)[KEY]
-        track_range = bool(wide) and op == "add"
+        track_range = any(_op_of(op, nm) == "add" for nm in wide
+                          if nm not in self._float64)
         # The table plan, and the key-range learning that arms it: named
         # add/min/max over one 32-bit value column with an int32 key.
         vnames = [nm for nm in names if nm != KEY]
@@ -3388,7 +3439,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
             exchange = (None if elide else
                         self._resolve_exchange((blk,), slot, out_cap))
             cols, count = source()
-            cols = _wide_working_form(cols, wide, op)
+            cols = _wide_working_form(cols, wide, op, self._float64)
             cols = _logical_form(cols, logical, op)
             if n > 1 and not elide and plan == "sort_partition":
                 # key-only sort -> presorted map-side combine -> counting
@@ -3402,7 +3453,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                                                    presorted=True)
                 capacity = cols[KEY].shape[1]
                 bucket = torch.where(kernels.valid_mask(capacity, count),
-                                     _bucket_cols(cols, n, key_dt), n)
+                                     self._buckets(cols, n), n)
                 cols, bucket = kernels.partition_by_bucket(
                     cols, bucket, n, sort_impl=sort_impl)
                 cols, count, overflow = exchange(
@@ -3410,7 +3461,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
             elif n > 1 and not elide:
                 capacity = cols[KEY].shape[1]
                 mask = kernels.valid_mask(capacity, count)
-                bucket = torch.where(mask, _bucket_cols(cols, n, key_dt), n)
+                bucket = torch.where(mask, self._buckets(cols, n), n)
                 cols, bucket = kernels.bucket_key_sort(
                     cols, count, bucket, KEY, impl=sort_impl, n_shards=n,
                     lo_name=lo_name)
@@ -3419,7 +3470,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                                                    presorted=True)
                 # compact kept (bucket, key) order; re-derive the combined
                 # rows' buckets from their keys
-                bucket = _bucket_cols(cols, n, key_dt)
+                bucket = self._buckets(cols, n)
                 cols, count, overflow = exchange(
                     cols, count, bucket, n, slot, out_cap, pregrouped=True)
             elif not elide:
@@ -3433,7 +3484,8 @@ class _ReduceByKeyRDD(_ExchangeRDD):
             # reduce-side merge
             cols, count = self._segment_reduce(
                 cols, count, presorted=elide_sorted, sort_impl=sort_impl)
-            cols, out_of_range = _wide_stored_form(cols, count, wide, op)
+            cols, out_of_range = _wide_stored_form(cols, count, wide, op,
+                                                   self._float64)
             cols = _logical_form(cols, logical, op, back=True)
             extras = [out_of_range] if track_range else []
             if learn_range:
@@ -3554,20 +3606,26 @@ class _JoinRDD(_ExchangeRDD):
     """Device sort-merge join with full duplicate-key semantics: inner, or
     left outer (outer=True: an unmatched left row keeps fill_value in rv).
     A hash-placed side (a reduce output) skips its exchange; a product
-    beyond the exchange-sized capacity reruns once at its exact size."""
+    beyond the exchange-sized capacity reruns once at its exact size.
+    named=True (frame_join): each side carries any value columns, which
+    keep their own names, and an unmatched left row fills each right
+    column in its own form (_named_fills)."""
+
+    _float64 = frozenset()  # frame_join's right pairs of float64 bits
 
     def __init__(self, left: DenseRDD, right: DenseRDD, outer: bool = False,
-                 fill_value=0):
+                 fill_value=0, named: bool = False):
         left._check_sortable_key("join")
         super().__init__(left.context, left.mesh, [left, right])
         self.left = left
         self.right = right
         self.outer = outer
         self.fill_value = fill_value
+        self._named = named
 
     def _fp_extra(self):
         # repr keeps a NaN fill's hints stable (nan != nan)
-        return (self.outer, repr(self.fill_value))
+        return (self.outer, repr(self.fill_value), self._named)
 
     @property
     def hash_placed(self) -> bool:
@@ -3588,7 +3646,8 @@ class _JoinRDD(_ExchangeRDD):
                                      ("rv", rd, self.right)):
             for nm, _dt in side._schema():
                 if nm not in (KEY, KEY_LO) and nm in side_d:
-                    out[_join_name(nm, prefix)] = side_d[nm]
+                    out[nm if self._named else _join_name(nm, prefix)] = \
+                        side_d[nm]
         return out
 
     def _schema(self):
@@ -3597,9 +3656,36 @@ class _JoinRDD(_ExchangeRDD):
         out = [(nm, dt) for nm, dt in self.left._schema()
                if nm in (KEY, KEY_LO)]
         for side, prefix in ((self.left, "lv"), (self.right, "rv")):
-            out += [(_join_name(nm, prefix), dt)
+            out += [(nm if self._named else _join_name(nm, prefix), dt)
                     for nm, dt in side._schema() if nm not in (KEY, KEY_LO)]
         return tuple(out)
+
+    def _named_fills(self) -> Dict[str, object]:
+        """{right column: stored fill word} of a named left join, as the
+        reference's host tier fills: fill_value cast to a number column's
+        dtype, its (hi, biased lo) words in a wide int64 pair (the
+        encoding of the value, never raw words; of float(fill_value)'s
+        bits in a float64 pair) and, in a string column, the code of
+        str(fill_value), which frame_join added to the column's
+        dictionary."""
+        schema = dict(self.right._schema())
+        dicts = self.right._dicts()
+        out: Dict[str, object] = {}
+        for nm, dt in schema.items():
+            if nm in (KEY, KEY_LO) or block_lib.is_lo(nm):
+                continue
+            if block_lib.lo_of(nm) in schema:
+                word = (np.array([float(self.fill_value)]).view(np.int64)
+                        if nm in self._float64
+                        else np.array([int(self.fill_value)], np.int64))
+                hi, lo = block_lib.encode_i64(word)
+                out[nm], out[block_lib.lo_of(nm)] = int(hi[0]), int(lo[0])
+            elif nm in dicts:
+                out[nm] = int(np.searchsorted(dicts[nm],
+                                              str(self.fill_value)))
+            else:
+                out[nm] = coltypes.stored_scalar(self.fill_value, dt)
+        return out
 
     def _materialize(self) -> Block:
         n = self.n_shards
@@ -3621,8 +3707,12 @@ class _JoinRDD(_ExchangeRDD):
         names = list(schema)
         key_dt = schema[KEY]
         # a logical right value takes the fill as its stored word
-        fill = (coltypes.stored_scalar(self.fill_value, schema["rv"])
-                if self.outer else self.fill_value)
+        if not self.outer:
+            fill = self.fill_value
+        elif self._named:
+            fill = self._named_fills()
+        else:
+            fill = coltypes.stored_scalar(self.fill_value, schema["rv"])
         lblk, lsource = side_input(self.left, l_elide)
         rblk, rsource = side_input(self.right, r_elide)
         join_cap_override: List[Optional[int]] = [None]
@@ -3634,7 +3724,7 @@ class _JoinRDD(_ExchangeRDD):
             if elide:
                 return kernels.passthrough_exchange(
                     cols, count, cols[KEY].shape[1], out_cap)
-            bucket = (_bucket_cols(cols, n, key_dt) if n > 1
+            bucket = (self._buckets(cols, n) if n > 1
                       else torch.zeros_like(cols[KEY], dtype=torch.int32))
             return exchange(cols, count, bucket, n, slot, out_cap,
                             sort_impl=sort_impl)
@@ -3658,10 +3748,10 @@ class _JoinRDD(_ExchangeRDD):
                 lo_name=KEY_LO if KEY_LO in lc else None)
             cols = {}
             for nm, col in joined.items():
-                right = nm.startswith("r_")
+                right = nm.startswith("r_") and nm not in lc
                 base = nm[2:] if right else nm
-                cols[base if base in (KEY, KEY_LO) else _join_name(
-                    base, "rv" if right else "lv")] = col
+                cols[base if base in (KEY, KEY_LO) or self._named
+                     else _join_name(base, "rv" if right else "lv")] = col
             return (jcount, [jtotal], {nm: cols[nm] for nm in names}), \
                 lof | rof
 
@@ -3721,9 +3811,131 @@ class _JoinRDD(_ExchangeRDD):
             mesh=self.mesh, counts_host=self._last_counts_host))
 
     def collect(self) -> list:
+        if self._named:
+            return super().collect()
         cols = self.block().to_numpy()  # wide pairs decoded
         return [(k, (lv, rv)) for k, lv, rv in zip(
             cols[KEY].tolist(), cols["lv"].tolist(), cols["rv"].tolist())]
+
+
+def reduce_columns(node: DenseRDD, ops: Dict[str, str],
+                   exchange: Optional[str] = None,
+                   float64=()) -> DenseRDD:
+    """The frame layer's group-by: one keyed reduce of every value column
+    by its own named monoid ({column: add / min / max}; a wide column
+    under its base name), through the segment reduce of a named op (the
+    named op itself when one monoid covers every column). A wide int64
+    column reduces exactly as under reduce_by_key's named op; a pair
+    named in float64 holds float64 bits and reduces as float64 (a sum in
+    float64, min / max in the floats' order); a string column takes min /
+    max of its rank codes, any other monoid raises. A float32 key's -0.0
+    and 0.0 are one key, as on the reference's host tier."""
+    if not node.is_pair:
+        raise VegaError("reduce_columns on non-pair DenseRDD")
+    dicts = node._dicts()
+    for nm, op in ops.items():
+        if op not in kernels.SEGMENT_OPS:
+            raise VegaError(f"unknown op {op!r}; expected one of "
+                            f"{kernels.SEGMENT_OPS}")
+        if nm in dicts and op not in ("min", "max"):
+            raise _no_host_tier(f"reduce over the string value column "
+                                f"{nm!r} with op={op!r} (only min / max "
+                                "have a meaning on the codes)")
+        if op == "prod" and block_lib.lo_of(nm) in node.columns:
+            raise _no_host_tier(f"prod over the wide int64 column {nm!r}")
+    if sorted(ops) != sorted(nm for nm in node._value_names()
+                             if not block_lib.is_lo(nm)):
+        raise VegaError(f"reduce_columns needs one monoid per value column "
+                        f"of {node._value_names()}, got {sorted(ops)}")
+    uniform = set(ops.values())
+    red = _ReduceByKeyRDD(node, uniform.pop() if len(uniform) == 1
+                          else tuple(sorted(ops.items())))
+    red._zeros_one_key = True
+    red._float64 = frozenset(float64)
+    return _with_exchange(red, exchange)
+
+
+class _DictExtendRDD(_NarrowRDD):
+    """String value columns whose dictionaries gain one word each
+    ({column: word}): a word already there changes nothing; a new one
+    takes its sorted rank, and every code at or past that rank moves up
+    one, so the codes stay rank codes. Keys and row order pass through.
+    The ranks come from the parent's dictionaries when the node runs."""
+
+    _keeps_placement = True
+
+    def __init__(self, parent: DenseRDD, words: Dict[str, str]):
+        super().__init__(parent, parent._schema())
+        self._words = dict(words)
+        self._memo = None
+
+    def _fp_extra(self):
+        return tuple(sorted(self._words.items()))
+
+    def _extended(self):
+        """{column: (extended dictionary, the new word's rank or None)}."""
+        if self._memo is None:
+            pd, self._memo = self.parent._dicts(), {}
+            for nm, word in self._words.items():
+                d = pd[nm]
+                i = int(np.searchsorted(d, word))
+                if i < len(d) and d[i] == word:
+                    self._memo[nm] = (d, None)
+                else:
+                    self._memo[nm] = (np.concatenate(
+                        [d[:i], np.array([word]), d[i:]]), i)
+        return self._memo
+
+    def _dicts(self):
+        out = dict(self.parent._dicts())
+        out.update({nm: d for nm, (d, _i) in self._extended().items()})
+        return out
+
+    def _shard_fn(self, cols, count):
+        cols = dict(cols)
+        for nm, (_d, i) in self._extended().items():
+            if i is not None:
+                cols[nm] = cols[nm] + (cols[nm] >= i).to(cols[nm].dtype)
+        return cols, count
+
+
+def frame_join(left: DenseRDD, right: DenseRDD, outer: bool = False,
+               fill_value=0, exchange: Optional[str] = None,
+               float64=()) -> DenseRDD:
+    """The frame layer's join: two keyed sides (a k column, or a wide
+    k / k.lo pair) with any number of value columns, their names disjoint,
+    in one sort-merge join that gathers every column by the matched row
+    indices. Output columns keep their names: the key, the left values,
+    the right values. A left join fills an unmatched row's right columns
+    as the reference's host tier does: fill_value in a number column (0
+    and 0.0 by default), the encoding of fill_value in a wide int64 one,
+    and the string str(fill_value) in a string column, whose dictionary
+    gains that word; the right pairs named in float64 hold float64 bits
+    and take the bits of float(fill_value). Keys meet as join's do
+    (_align_keys); a float32 key's -0.0 and 0.0 match, as on the
+    reference's host tier."""
+    for side in (left, right):
+        if not side.is_pair:
+            raise VegaError("frame_join on non-pair DenseRDD")
+    rnames = right._value_names()
+    overlap = set(left._value_names()) & set(
+        rnames + ["r_" + nm for nm in rnames])  # merge_join_expand's names
+    if overlap:
+        raise VegaError(f"frame_join: both sides carry {sorted(overlap)}")
+    left, right = _align_keys(left, right, "join")
+    if outer:
+        if fill_value is None:
+            raise _no_host_tier("a left join with fill_value=None (a dense "
+                                "column cannot hold None)")
+        strings = {nm: str(fill_value) for nm in right._dicts()
+                   if nm not in (KEY, KEY_LO)}
+        if strings:
+            right = _DictExtendRDD(right, strings)
+    joined = _JoinRDD(left, right, outer=outer, fill_value=fill_value,
+                      named=True)
+    joined._zeros_one_key = True
+    joined._float64 = frozenset(float64)
+    return _with_exchange(joined, exchange)
 
 
 def _join_name(nm: str, prefix: str) -> str:
@@ -3769,7 +3981,7 @@ class _HashExchangeRDD(_ExchangeRDD):
                     cols, count, cols[KEY].shape[1], out_cap)
             else:
                 exchange = self._resolve_exchange((blk,), slot, out_cap)
-                bucket = (_bucket_cols(cols, n, self._key_dtype()) if n > 1
+                bucket = (self._buckets(cols, n) if n > 1
                           else torch.zeros_like(cols[KEY], dtype=torch.int32))
                 cols, count, overflow = exchange(
                     cols, count, bucket, n, slot, out_cap,

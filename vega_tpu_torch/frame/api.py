@@ -223,6 +223,8 @@ class DataFrame:
         compiled = self._compiled()
         blk_cols = compiled.rdd.collect_arrays()
         out = {fn: np.asarray(blk_cols[bn]) for fn, bn in compiled.out}
+        for fn in compiled.float64:  # decoded as int64: the float64 bits
+            out[fn] = out[fn].view(np.float64)
         if compiled.limit is not None:
             out = {nm: c[:compiled.limit] for nm, c in out.items()}
         return out

@@ -1,0 +1,354 @@
+"""Column forms inside a frame stage that plain torch operators do not
+give: exact int64 arithmetic over wide columns, and comparisons of string
+columns, whose device form is rank codes into a sorted dictionary.
+
+A wide int64 column (block.encode_i64's hi / biased-lo word pair) enters
+a stage as a `WideInt` over its int64 values. Python operators on it give
+another WideInt (+ - * // % and negation, exact), a bool column
+(comparisons) or a float64 column (true division, a float operand).
+Where an operation leaves int64, or divides by zero, the row is recorded
+in the stage's sink; the stage raises VegaError when a valid row is
+recorded (the reference's host tier computes on Python ints, which never
+overflow, so the port refuses rather than wrap).
+
+A comparison of a string column with a string literal, or of two string
+columns, becomes a `DictCmp`. Its codes are resolved when the stage runs,
+from the dictionaries of the block it runs on (`resolve`): a literal
+becomes a code or a rank boundary, two dictionaries a pair of remap
+tables onto their merge. Nothing derived from one dictionary is kept in
+the stage or its token, so one stage over two sources with different
+dictionaries gives each its own rows."""
+
+from __future__ import annotations
+
+import operator
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from vega_tpu_torch import dict_encoding
+from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.frame.expr import (_BIN_OPS, BinOp, Col, Expr, Lit,
+                                       UnaryOp, Udf)
+
+I64_MIN, I64_MAX = -2**63, 2**63 - 1
+# the environment key under which a stage passes its resolved dictionary
+# inputs to DictCmp (no frame column is named so)
+RESOLVED = "\x00resolved"
+_CMP_OPS = ("==", "!=", "<", "<=", ">", ">=")
+_FLIP = {"==": "==", "!=": "!=", "<": ">", "<=": ">=", ">": "<",
+         ">=": "<="}
+
+
+# ---------------------------------------------------------------------------
+# wide int64 values
+# ---------------------------------------------------------------------------
+
+
+class WideInt:
+    """Exact int64 values of a wide column inside a stage: v is the int64
+    tensor, sink the stage's list of per-row overflow flags, to which
+    every operation that can leave int64 appends its own."""
+
+    __slots__ = ("v", "sink")
+
+    def __init__(self, v: torch.Tensor, sink: list):
+        self.v = v
+        self.sink = sink
+
+    def __bool__(self):
+        raise TypeError("a wide int64 column has no truth value (a branch "
+                        "on a value)")
+
+    def _other(self, o):
+        """o as an int64 tensor or Python int; None for a float operand
+        (the result is then a float64 column)."""
+        if isinstance(o, WideInt):
+            return o.v
+        if isinstance(o, bool):
+            return int(o)
+        if isinstance(o, int):
+            if not I64_MIN <= o <= I64_MAX:
+                raise VegaError(f"constant {o} is outside int64")
+            return o
+        if isinstance(o, torch.Tensor) and not o.dtype.is_floating_point:
+            return o.to(torch.int64)
+        return None
+
+    def _wrap(self, r, bad=None):
+        if bad is not None:
+            self.sink.append(bad)
+        return WideInt(r, self.sink)
+
+    def _float(self, op, o, reflected=False):
+        a = self.v.to(torch.float64)
+        return op(o, a) if reflected else op(a, o)
+
+    def __add__(self, o):
+        b = self._other(o)
+        if b is None:
+            return self._float(operator.add, o)
+        r = self.v + b
+        return self._wrap(r, ((self.v ^ r) & (r ^ b)) < 0)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        b = self._other(o)
+        if b is None:
+            return self._float(operator.sub, o)
+        r = self.v - b
+        return self._wrap(r, ((self.v ^ r) & (self.v ^ b)) < 0)
+
+    def __rsub__(self, o):
+        b = self._other(o)
+        if b is None:
+            return self._float(operator.sub, o, True)
+        r = b - self.v
+        return self._wrap(r, ((r ^ b) & (self.v ^ b)) < 0)
+
+    def __mul__(self, o):
+        b = self._other(o)
+        if b is None:
+            return self._float(operator.mul, o)
+        a = self.v
+        r = a * b
+        if isinstance(b, int):
+            if b == 0:
+                return self._wrap(r)
+            # the a whose product fits, clamped to int64 (b == -1 gives
+            # hi = 2^63: only MIN * -1 leaves it, as under negation)
+            lo, hi = ((-((-I64_MIN) // b), I64_MAX // b) if b > 0
+                      else (-((-I64_MAX) // b), I64_MIN // b))
+            return self._wrap(r, (a < max(lo, I64_MIN))
+                              | (a > min(hi, I64_MAX)))
+        # r // a recovers b exactly iff a * b did not wrap; a == -1 is
+        # checked apart (MIN // -1 itself overflows)
+        safe = torch.where((a == 0) | (a == -1), 1, a)
+        bad = torch.where(a == -1, b == I64_MIN, (a != 0) & (r // safe != b))
+        return self._wrap(r, bad)
+
+    __rmul__ = __mul__
+
+    def _divmod(self, a, b, op):
+        """a // b or a % b over int64 with the two traps guarded: b == 0
+        (recorded) and MIN // -1 (recorded for //; MIN % -1 is 0)."""
+        if isinstance(a, int):
+            a = torch.full_like(self.v, a)
+        zero = b == 0
+        trap = (a == I64_MIN) & (b == -1)
+        safe = torch.where(zero | trap, 1, b)
+        r = op(a, safe)
+        if op is operator.mod:
+            return self._wrap(torch.where(trap, 0, r), zero)
+        return self._wrap(r, zero | trap)
+
+    def __floordiv__(self, o):
+        b = self._other(o)
+        if b is None:
+            return self._float(operator.floordiv, o)
+        return self._divmod(self.v, b, operator.floordiv)
+
+    def __rfloordiv__(self, o):
+        b = self._other(o)
+        if b is None:
+            return self._float(operator.floordiv, o, True)
+        return self._divmod(b, self.v, operator.floordiv)
+
+    def __mod__(self, o):
+        b = self._other(o)
+        if b is None:
+            return self._float(operator.mod, o)
+        return self._divmod(self.v, b, operator.mod)
+
+    def __rmod__(self, o):
+        b = self._other(o)
+        if b is None:
+            return self._float(operator.mod, o, True)
+        return self._divmod(b, self.v, operator.mod)
+
+    def __truediv__(self, o):
+        b = self._other(o)
+        return self.v.to(torch.float64) / (o if b is None else b)
+
+    def __rtruediv__(self, o):
+        b = self._other(o)
+        return (o if b is None else b) / self.v.to(torch.float64)
+
+    def __neg__(self):
+        return self._wrap(-self.v, self.v == I64_MIN)
+
+    def __invert__(self):
+        return self._wrap(~self.v)
+
+    def _bits(op):  # noqa: N805 — builds the bitwise operators
+        def run(self, o):
+            b = self._other(o)
+            if b is None:
+                return NotImplemented
+            return self._wrap(op(self.v, b))
+        return run
+
+    __and__ = __rand__ = _bits(operator.and_)
+    __or__ = __ror__ = _bits(operator.or_)
+    __xor__ = __rxor__ = _bits(operator.xor)
+
+    def _cmp(op):  # noqa: N805 — builds the comparisons
+        def run(self, o):
+            b = self._other(o)
+            if b is None:
+                return op(self.v.to(torch.float64), o)
+            return op(self.v, b)
+        return run
+
+    __eq__ = _cmp(operator.eq)
+    __ne__ = _cmp(operator.ne)
+    __lt__ = _cmp(operator.lt)
+    __le__ = _cmp(operator.le)
+    __gt__ = _cmp(operator.gt)
+    __ge__ = _cmp(operator.ge)
+    __hash__ = None
+    del _bits, _cmp
+
+
+# ---------------------------------------------------------------------------
+# string comparisons
+# ---------------------------------------------------------------------------
+
+
+class DictCmp(Expr):
+    """`left op right` over string columns: left a string column, right a
+    string literal (lit) or another string column. src_left / src_right
+    name the stage-input block columns whose dictionaries apply; slot is
+    this comparison's index into the stage's resolved inputs."""
+
+    def __init__(self, op: str, left: Col, src_left: str,
+                 right: Optional[Col] = None, src_right: Optional[str] = None,
+                 lit: Optional[str] = None):
+        self.op = op
+        self.left = left
+        self.src_left = src_left
+        self.right = right
+        self.src_right = src_right
+        self.lit = lit
+        self.slot = 0  # set by rewrite_string_cmps
+
+    def _eval(self, env: dict):
+        r = env[RESOLVED][self.slot]
+        codes = self.left._eval(env)
+        if self.lit is not None:
+            # r: the literal's code (-1 when absent) for == / !=, else the
+            # rank boundary resolve() chose for the order
+            if self.op in ("==", "!="):
+                return _BIN_OPS[self.op](codes, r)
+            return codes < r if self.op in ("<", "<=") else codes >= r
+        other = self.right._eval(env)
+        if r is not None:  # two dictionaries: compare on their merge
+            ta, tb = r
+            codes = ta[codes.clamp(0, ta.numel() - 1).to(torch.int64)]
+            other = tb[other.clamp(0, tb.numel() - 1).to(torch.int64)]
+        return _BIN_OPS[self.op](codes, other)
+
+    def references(self, out: set) -> None:
+        self.left.references(out)
+        if self.right is not None:
+            self.right.references(out)
+
+    def token(self) -> tuple:
+        # the literal's text, never its code: the code depends on the data
+        other = (("lit", self.lit) if self.lit is not None
+                 else self.right.token())
+        return ("dictcmp", self.op, self.left.token(), other)
+
+    def __repr__(self) -> str:
+        other = repr(self.lit) if self.lit is not None else self.right.name
+        return f"({self.left.name} {self.op} {other})"
+
+
+def rewrite_string_cmps(e: Expr, live: set, origin: Dict[str, str],
+                        cmps: List[DictCmp]) -> Expr:
+    """e with every comparison of a string column (one of `live`, which
+    passes the stage-input block column origin[name] through) against a
+    string literal or another string column replaced by a DictCmp,
+    appended to cmps; the rest of the tree is kept."""
+    if isinstance(e, BinOp):
+        lft, rgt = e.left, e.right
+        if e.op in _CMP_OPS:
+            ls = isinstance(lft, Col) and lft.name in live
+            rs = isinstance(rgt, Col) and rgt.name in live
+            node = None
+            if ls and rs:
+                node = DictCmp(e.op, lft, origin[lft.name], rgt,
+                               origin[rgt.name])
+            elif ls and isinstance(rgt, Lit) and isinstance(rgt.value, str):
+                node = DictCmp(e.op, lft, origin[lft.name], lit=rgt.value)
+            elif rs and isinstance(lft, Lit) and isinstance(lft.value, str):
+                node = DictCmp(_FLIP[e.op], rgt, origin[rgt.name],
+                               lit=lft.value)
+            if node is not None:
+                node.slot = len(cmps)
+                cmps.append(node)
+                return node
+        return BinOp(e.op, rewrite_string_cmps(lft, live, origin, cmps),
+                     rewrite_string_cmps(rgt, live, origin, cmps))
+    if isinstance(e, UnaryOp):
+        return UnaryOp(e.op, rewrite_string_cmps(e.operand, live, origin,
+                                                 cmps))
+    return e
+
+
+def computing_refs(e: Expr) -> set:
+    """The columns an expression computes on: every reference but those a
+    DictCmp resolves through a dictionary."""
+    if isinstance(e, DictCmp):
+        return set()
+    if isinstance(e, Col):
+        return {e.name}
+    if isinstance(e, BinOp):
+        return computing_refs(e.left) | computing_refs(e.right)
+    if isinstance(e, UnaryOp):
+        return computing_refs(e.operand)
+    if isinstance(e, Udf):
+        out: set = set()
+        for a in e.args:
+            out |= computing_refs(a)
+        return out
+    return set()
+
+
+def resolve(cmps: List[DictCmp], dicts: Dict[str, np.ndarray],
+            device: torch.device, memo: dict) -> list:
+    """Each comparison's input from the dictionaries of the block the
+    stage runs on ({block column: sorted dictionary}; {} at the probe):
+    a literal's code under == / != (-1, which no code takes, when the
+    literal is absent), its left rank boundary under < and >=, its right
+    one under <= and >; for two columns, None when they share one
+    dictionary, else their remap tables onto the merged dictionary
+    (memoized per pair of dictionaries)."""
+    out = []
+    for c in cmps:
+        d = dicts.get(c.src_left)
+        if c.lit is not None:
+            if d is None:
+                out.append(0)
+                continue
+            side = "right" if c.op in ("<=", ">") else "left"
+            i = int(np.searchsorted(d, c.lit, side=side))
+            if c.op in ("==", "!="):
+                i = i if i < len(d) and d[i] == c.lit else -1
+            out.append(i)
+            continue
+        e = dicts.get(c.src_right)
+        if d is None or e is None or d is e:
+            out.append(None)
+            continue
+        key = (id(d), id(e))
+        hit = memo.get(key)
+        if hit is None or hit[0] is not d or hit[1] is not e:
+            _merged, lmap, rmap = dict_encoding.merge_dicts(d, e)
+            tables = tuple(torch.from_numpy(np.append(m, 0).astype(
+                np.int32)).to(device) for m in (lmap, rmap))
+            hit = memo[key] = (d, e, tables)
+        out.append(hit[2])
+    return out

@@ -7,12 +7,14 @@ Context's device (planning itself never touches data or the device).
 
 Dtype contract at the device boundary (the reference's, the same degrade
 block.from_numpy applies): int64 / uint64 / uint32 columns whose values
-fit int32 narrow to int32; float64 narrows to float32; bool widens to
-int32; strings become int32 dictionary codes plus a sorted host
-dictionary (dict_encoding.py). Anything else (object columns of anything
-but strings, out-of-range int64) raises VegaError when the plan compiles:
-the reference compiles such a plan on its host tier, which the port does
-not have."""
+fit int32 narrow to int32, and the others take the wide int64 pair
+(block.encode_i64: <name> the high word, <name>.lo the biased low word),
+where the reference compiles the plan on its host tier; float64 narrows
+to float32; bool widens to int32; strings become int32 dictionary codes
+plus a sorted host dictionary (dict_encoding.py). Anything else (object
+columns of anything but strings, uint64 beyond int64) raises VegaError
+when the plan compiles: the reference compiles such a plan on its host
+tier, which the port does not have."""
 
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ def no_device_lowering(reason: str) -> VegaError:
 
 def coerce_dtype(np_dtype, dict_enabled: bool = True) -> str:
     """numpy dtype -> device dtype name ("int32", "float32", "dict32" for
-    a string column, or "int64?" when a value-range check must decide),
+    a string column, or "int64?" when a value range decides between int32
+    and the wide pair),
     or raise. Object dtypes are decided by coerced_dtype, which may scan
     the values."""
     dt = np.dtype(np_dtype)
@@ -68,8 +71,9 @@ def coerce_dtype(np_dtype, dict_enabled: bool = True) -> str:
 def coerced_dtype(name: str, col: np.ndarray,
                   dict_enabled: bool = True) -> Tuple[str, bool]:
     """(device dtype name one host column coerces to, is_dictionary): the
-    CHECK only (dtype kind, the int64 range proof, the all-str object
-    scan), no copy; the astype / encode runs at materialization."""
+    CHECK only (dtype kind, the int64 range check, the all-str object
+    scan), no copy; the astype / encode runs at materialization. An
+    integer column beyond int32 is "wide"."""
     col = np.asarray(col)
     if col.dtype.kind == "O":
         # object columns have a device form only when every element is a
@@ -87,11 +91,28 @@ def coerced_dtype(name: str, col: np.ndarray,
         return "int32", True
     if kind == "int64?":
         info = np.iinfo(np.int32)
-        if len(col) and (col.min() < info.min or col.max() > info.max):
-            raise no_device_lowering(
-                f"column {name!r} holds int64 values beyond int32 range")
         kind = "int32"
+        if len(col) and (col.min() < info.min or col.max() > info.max):
+            if col.dtype == np.uint64 and col.max() > np.uint64(2**63 - 1):
+                raise no_device_lowering(
+                    f"column {name!r} holds uint64 values beyond int64")
+            kind = "wide"
     return kind, False
+
+
+def _host_column(src: np.ndarray, dtype: str, bn: str, out: dict) -> None:
+    """One non-string host column in its device form under block name bn:
+    the astype, or for "wide" the (bn, bn.lo) words of its int64
+    values."""
+    if dtype == "wide":
+        if src.dtype == np.uint64 and len(src) and \
+                src.max() > np.uint64(2**63 - 1):
+            raise VegaError(f"column {bn!r} holds uint64 values beyond "
+                            "int64, which no device column holds")
+        out[bn], out[block_lib.lo_of(bn)] = block_lib.encode_i64(
+            src.astype(np.int64))
+    else:
+        out[bn] = src.astype(dtype, copy=False)
 
 
 # ---------------------------------------------------------------------------
@@ -117,8 +138,13 @@ class _FrameSource(dense_rdd.DenseRDD):
             fn for fn, bn in names if bn in self._dict_bns)
 
     def _schema(self):
-        return tuple((bn, _TORCH_DTYPES[self._dtypes[bn]])
-                     for _fn, bn in self._names)
+        out = []
+        for _fn, bn in self._names:
+            if self._dtypes[bn] == "wide":
+                out += [(bn, torch.int32), (block_lib.lo_of(bn), torch.int32)]
+            else:
+                out.append((bn, _TORCH_DTYPES[self._dtypes[bn]]))
+        return tuple(out)
 
     def block_spec(self):
         if self._block is None:
@@ -165,8 +191,8 @@ class _ColumnsSource(_FrameSource):
             if bn in self._dict_bns:
                 cols[bn], dicts[bn] = self._encode(fn, bn)
             else:
-                cols[bn] = np.asarray(self._data[fn]).astype(
-                    self._dtypes[bn], copy=False)
+                _host_column(np.asarray(self._data[fn]), self._dtypes[bn],
+                             bn, cols)
         return self._build(cols, dicts)
 
 
@@ -215,7 +241,7 @@ class _ParquetSource(_FrameSource):
                     self._files, sub, self._predicate,
                     arrow_columns=set(sub)):
                 for fn in sub:
-                    pieces[fn].append(batch[fn][1])
+                    pieces[fn].append(_string_part(batch[fn])[1])
             for fn, bn in self._names:
                 if bn in self._dict_bns:
                     self._dict_memo[bn] = _merged(pieces[fn])
@@ -235,19 +261,29 @@ class _ParquetSource(_FrameSource):
         cols, dicts = {}, {}
         for fn, bn in self._names:
             if bn in self._dict_bns:
+                pairs = [_string_part(p) for p in parts[fn]]
                 merged = self._dict_memo.setdefault(
-                    bn, _merged([v for _c, v in parts[fn]]))
+                    bn, _merged([v for _c, v in pairs]))
                 cols[bn] = (np.concatenate([
                     np.searchsorted(merged, v).astype(
                         dict_encoding.CODE_DTYPE)[c]
-                    for c, v in parts[fn]]) if parts[fn]
+                    for c, v in pairs]) if pairs
                     else np.zeros(0, dict_encoding.CODE_DTYPE))
                 dicts[bn] = merged
             else:
                 stacked = (np.concatenate(parts[fn]) if parts[fn]
                            else np.empty((0,), self._file_dtypes[fn]))
-                cols[bn] = stacked.astype(self._dtypes[bn], copy=False)
+                _host_column(stacked, self._dtypes[bn], bn, cols)
         return self._build(cols, dicts)
+
+
+def _string_part(part):
+    """One batch of a string column as (codes, values): the reader gives a
+    column a pushed-down conjunct reads as its flat values, any other as
+    the arrow dictionary's pair."""
+    if isinstance(part, tuple):
+        return part
+    return dict_encoding.encode_array(np.asarray(part))
 
 
 def _merged(values: list) -> np.ndarray:
@@ -264,13 +300,14 @@ def make_parquet_source(ctx, path: str, columns: List[str], predicate,
     min / max and null statistics); the files are read at the first
     materialization."""
     string_cols = parquet_lib.parquet_string_columns(path)
-    for nm, _op, _lit in predicate:
-        if nm in string_cols:
-            # a pushed-down conjunct evaluates as a numpy mask inside the
-            # reader; there is no device-side literal encode
+    for nm in sorted({nm for nm, _op, _lit in predicate} & string_cols):
+        # a pushed-down conjunct compares the reader's values, where a null
+        # has no order
+        nulls = parquet_lib.parquet_column_nulls(path, nm)
+        if nulls is None or nulls > 0:
             raise no_device_lowering(
-                f"pushed-down predicate on string column {nm!r} — "
-                "host tier filters it")
+                f"parquet string column {nm!r} has nulls (or no "
+                "null-count statistics) under a pushed-down predicate")
     out_dtypes, dict_bns = {}, set()
     for fn, bn in names:
         if fn in string_cols:
@@ -294,13 +331,13 @@ def make_parquet_source(ctx, path: str, columns: List[str], predicate,
                 f"parquet column {fn!r}: string dtype without an arrow "
                 "string type — host tier serves it")
         if kind == "int64?":
+            # int32 where the statistics prove it fits; otherwise (missing
+            # statistics or out of range) the wide pair, which holds any
+            # int64 (a uint64 beyond int64 raises when it is read)
             mm = parquet_lib.parquet_column_minmax(path, fn)
             info = np.iinfo(np.int32)
-            if mm is None or mm[0] < info.min or mm[1] > info.max:
-                raise no_device_lowering(
-                    f"parquet column {fn!r} is int64 with no proof it "
-                    "fits int32 (missing stats or out of range)")
-            kind = "int32"
+            kind = ("wide" if mm is None or mm[0] < info.min
+                    or mm[1] > info.max else "int32")
         out_dtypes[bn] = kind
     files = parquet_lib.discover_parquet_files(path)
     return _ParquetSource(ctx, files, columns, predicate, names, out_dtypes,

@@ -32,7 +32,7 @@ port's own log / exp tables (GF_EXP, GF_LOG).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -638,26 +638,30 @@ SEGMENT_OPS = ("add", "min", "max", "prod")
 
 
 def segment_reduce_named(cols: Cols, count: torch.Tensor, key_name: str,
-                         op: str, presorted: bool = False,
+                         op, presorted: bool = False,
                          sort_impl: str = "xla",
                          lo_name: Optional[str] = None
                          ) -> Tuple[Cols, torch.Tensor]:
     """Per-shard reduce of every value column over runs of equal keys with
-    a named monoid (add/min/max/prod). Returns compacted (cols, count):
-    segment i of shard s in row i, key-sorted, zeros past the count.
-    Unless presorted, the rows are first sorted by key with sort_impl.
-    lo_name names a two-column int64 key's low word, which rides with the
-    key. Each NaN key is a segment of its own (NaN != NaN)."""
-    if op not in SEGMENT_OPS:
-        raise VegaError(f"unknown segment op {op!r}; expected one of "
-                        f"{SEGMENT_OPS}")
+    a named monoid (add/min/max/prod), one for every column or a mapping
+    {column: monoid}. Returns compacted (cols, count): segment i of shard
+    s in row i, key-sorted, zeros past the count. Unless presorted, the
+    rows are first sorted by key with sort_impl. lo_name names a
+    two-column int64 key's low word, which rides with the key. Each NaN
+    key is a segment of its own (NaN != NaN)."""
+    key_set = [key_name] if lo_name is None else [key_name, lo_name]
+    for o in (set(op.values()) if isinstance(op, Mapping) else (op,)):
+        if o not in SEGMENT_OPS:
+            raise VegaError(f"unknown segment op {o!r}; expected one of "
+                            f"{SEGMENT_OPS}")
+    if not isinstance(op, Mapping):
+        op = dict.fromkeys(cols, op)
     if not presorted:
         cols = sort_by_column(cols, count, key_name, impl=sort_impl,
                               lo_name=lo_name)
     keys = cols[key_name]
     n_shards, capacity = keys.shape
     mask = valid_mask(capacity, count)
-    key_set = [key_name] if lo_name is None else [key_name, lo_name]
     first = run_heads([cols[nm] for nm in key_set]) & mask
     seg_ids = row_cumsum(first) - 1
     n_segments = first.sum(dim=1).to(torch.int32)
@@ -666,19 +670,29 @@ def segment_reduce_named(cols: Cols, count: torch.Tensor, key_name: str,
     flat_seg = torch.where(mask, seg_ids + offsets, dump).reshape(-1)
     seg_valid = valid_mask(capacity, n_segments)
     out: Cols = {}
+    # the value columns of one monoid and dtype reduce together, as the
+    # columns of one [rows, width] tensor
+    batches: Dict[tuple, List[str]] = {}
     for name, col in cols.items():
-        if name in key_set:
-            continue
-        flat_col = col.reshape(-1)
-        if op == "add":
-            acc = col.new_zeros(dump + 1).index_add_(0, flat_seg, flat_col)
+        if name not in key_set:
+            batches.setdefault((op[name], col.dtype), []).append(name)
+    for (col_op, dtype), names in batches.items():
+        src = (cols[names[0]].reshape(-1) if len(names) == 1 else
+               torch.stack([cols[nm].reshape(-1) for nm in names], dim=1))
+        acc = src.new_zeros((dump + 1,) + src.shape[1:])
+        if col_op == "add":
+            acc.index_add_(0, flat_seg, src)
         else:
-            reduce = {"min": "amin", "max": "amax", "prod": "prod"}[op]
-            acc = col.new_zeros(dump + 1).scatter_reduce_(
-                0, flat_seg, flat_col, reduce, include_self=False)
-        vals = acc[:-1].view(n_shards, capacity)
-        out[name] = torch.where(seg_valid, vals, torch.zeros(
-            (), dtype=col.dtype, device=col.device))
+            reduce = {"min": "amin", "max": "amax", "prod": "prod"}[col_op]
+            idx = (flat_seg if len(names) == 1 else
+                   flat_seg.unsqueeze(1).expand(-1, len(names)))
+            acc.scatter_reduce_(0, idx, src, reduce, include_self=False)
+        zero = torch.zeros((), dtype=dtype, device=src.device)
+        for i, name in enumerate(names):
+            vals = (acc if len(names) == 1 else acc[:, i])[:-1]
+            out[name] = torch.where(seg_valid,
+                                    vals.reshape(n_shards, capacity), zero)
+    out = {nm: out[nm] for nm in cols if nm in out}
     # key of segment i = key at the i-th segment start
     flat_first = torch.where(first, seg_ids + offsets, dump).reshape(-1)
     for nm in key_set:
@@ -735,9 +749,11 @@ def merge_join_expand(left: Cols, left_count: torch.Tensor, right: Cols,
     out_capacity. Returns (cols, count, total): count = min(total,
     out_capacity) and total the exact product size, which the caller uses
     to size one exact retry. Right value columns come out as "r_<name>".
-    An unsorted side is sorted by key with sort_impl. lo_name names a
-    two-column int64 key's low word (searched as the int64 the words
-    encode). A NaN key matches nothing, as NaN != NaN."""
+    fill_value is one scalar for every right column or a mapping {right
+    column: its stored fill word}. An unsorted side is sorted by key with
+    sort_impl. lo_name names a two-column int64 key's low word (searched
+    as the int64 the words encode). A NaN key matches nothing, as NaN !=
+    NaN, and -0.0 matches 0.0."""
     if not left_sorted:
         left = sort_by_column(left, left_count, key_name, impl=sort_impl,
                               lo_name=lo_name)
@@ -780,8 +796,10 @@ def merge_join_expand(left: Cols, left_count: torch.Tensor, right: Cols,
             continue
         taken = torch.gather(col, 1, ri)
         if outer:
+            fill = (fill_value[name] if isinstance(fill_value, Mapping)
+                    else fill_value)
             taken = torch.where(row_matched, taken,
-                                _fill_scalar(fill_value, col.dtype))
+                                _fill_scalar(fill, col.dtype))
         out[f"r_{name}"] = taken
     count = torch.clamp(total, max=out_capacity).to(torch.int32)
     return out, count, total
