@@ -253,7 +253,17 @@ Phases, in order; any failure exits non-zero before the last line:
      median ms, the host build apart, the step peak and the cold run's
      launches (hash_bucket and digit_hist in every query whose exchange
      hashes an int32 / float32 key, digit_hist in the others), and
-     -0.0 / 0.0 hashed to one bucket by the kernel.
+     -0.0 / 0.0 hashed to one bucket by the kernel;
+ 16. the reference's tier rules on phase 15's tables, with a float64 key
+     g = 1e6 + k * 1e-3 (1M values float32 would merge) and a float64
+     value v = +-1e8 + y on the fact frame and two int columns on the
+     dimension frame: sum / mean of y > 950 beside max(x) by k (the
+     reference's device tier: a logical or), the same beside min(name)
+     over the join by k // 8 (its host tier: a count), a group-by on
+     y > 950, a group-by and a join on g, a left join filling 0.5 into
+     the two int columns, sum / mean of v beside min(name). Each query's
+     reference tier checked, once cold, held to numpy exactly, then three
+     warm runs, reported as phase 15's.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
@@ -261,9 +271,9 @@ line per phase-9 leg and item, one line per phase-10 leg and item, one
 line per phase-11 size, gf256 row and fold op, one line per phase-12
 item, one line per phase-13 leg and rank and per 13d query (one process
 and each rank), one line per phase-14 item and 14c rank, one line per
-phase-15 query, the kernel table
-as one JSON line (with phases 6-15's launches beside the main path's), the card line, and last {"ok": true,
-"device": {...}}.
+phase-15 and phase-16 query, the kernel table as one JSON line (with
+phases 6-16's launches beside the main path's), the card line, and last
+{"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
@@ -276,7 +286,10 @@ package, a process each), to compare two trees in one call: by default
 and 10b's mixed aggregates, each cold and three times warm (medians of
 the whole, the host build and the rest); --leg frame-profile three warm
 10b runs under torch.profiler, their device time by kind (the copies
-each way, the other device ops) and the ten costliest ops.
+each way, the other device ops) and the ten costliest ops; --leg
+p16-profile one warm run each of phase 16's f13_key and f12_or under
+torch.profiler with memory: the costliest ops by time and by allocation,
+the peak and each exchange's plan.
 """
 
 import json
@@ -5278,6 +5291,257 @@ def phase_fifteen(torch, np, ck, vt):
                 wall_s=wall_s)
 
 
+
+P16_QUERIES = ("f12_or", "f12_count", "f13_key", "f14_group", "f14_join",
+               "f15_fill", "f16_sum")
+# the queries whose exchanges hash an int32 or float32 key (a bool key is
+# int32 0 / 1): hash_bucket must launch there; a float64 key is a wide
+# pair, hashed by hash32_pair in torch ops
+P16_HASHED = ("f12_or", "f12_count", "f13_key", "f15_fill", "f16_sum")
+P16_CUT = 950                  # the computed bool is y > P16_CUT
+P16_FILL = 0.5                 # f15_fill's fill_value
+# each query and the tier the reference picks for it
+P16_TIERS = {"f12_or": "device", "f12_count": "host", "f13_key": "host",
+             "f14_group": "host", "f14_join": "host", "f15_fill": "host",
+             "f16_sum": "host"}
+
+
+def p16_check(what, ok):
+    if not ok:
+        fail(f"phase 16: {what}")
+
+
+def p16_data(np):
+    """Phase 15's tables (p15_data) with phase 16's columns: on the fact
+    table a float64 key g = 1e6 + k * 1e-3 (1M distinct values, which
+    float32 would merge into about 16,000) and a float64 value v = +-1e8
+    (alternating by row) + y, integers below 2^53, so every order of
+    summation is exact; on the dimension table the same g of its keys and
+    two int columns d1 = 3 * i, d2 = i % 1000 - 500."""
+    fact, dims, words, perm = p15_data(np)
+    fact["g"] = 1e6 + fact["k"] * 1e-3
+    sign = np.where(np.arange(P15_ROWS) % 2 == 0, 1.0, -1.0)
+    fact["v"] = sign * 1e8 + fact["y"]
+    i = np.arange(P15_DIMS, dtype=np.int64)
+    dims["g"] = 1e6 + dims["k"] * 1e-3
+    dims["d1"], dims["d2"] = 3 * i, i % 1000 - 500
+    return fact, dims, words, perm
+
+
+def p16_query(ctx, fact, dims, q):
+    """One of phase 16's queries over frames built from the host columns
+    (the build is part of the run, timed apart as its host build)."""
+    from vega_tpu_torch.frame import F, col
+
+    def fa(*cols):
+        return ctx.create_frame(**{c: fact[c] for c in cols})
+
+    def dm(key, *cols):
+        return ctx.create_frame(**{c: dims[c] for c in (key,) + cols})
+
+    if q == "f12_or":
+        return fa("k", "x", "y").with_column("b", col("y") > P16_CUT) \
+            .group_by("k").agg(F.sum("b", "sb"), F.mean("b", "mb"),
+                               F.max("x", "mx"))
+    if q == "f12_count":
+        return fa("k", "y").join(dm("k", "name"), on="k").with_column(
+            "b", col("y") > P16_CUT).with_column(
+                "g8", col("k") // P15_GROUP).group_by("g8").agg(
+                    F.sum("b", "sb"), F.mean("b", "mb"),
+                    F.min("name", "lo"))
+    if q == "f13_key":
+        return fa("x", "y").with_column("b", col("y") > P16_CUT).group_by(
+            "b").agg(F.count("n"), F.min("x", "lo"), F.max("x", "hi"))
+    if q == "f14_group":
+        return fa("g", "x").group_by("g").agg(F.count("n"),
+                                               F.min("x", "lo"))
+    if q == "f14_join":
+        return fa("g", "x").join(dm("g", "name"), on="g")
+    if q == "f15_fill":
+        return fa("k", "x").join(dm("k", "d1", "d2"), on="k", how="left",
+                                 fill_value=P16_FILL)
+    return fa("k", "v").join(dm("k", "name"), on="k").group_by("k").agg(
+        F.sum("v", "sv"), F.mean("v", "mv"), F.min("name", "lo"))
+
+
+def p16_expect(np, q, got, fact, dims, words, perm):
+    """Hold one query's columns to numpy, exactly: integers, bools,
+    strings, float64 keys and v's sums and means (an exact integer sum
+    divided by the count), and the float32 means of f12_or (a bool over
+    a count). Returns a note."""
+    n = P15_ROWS
+    k, x, y = fact["k"], fact["x"], fact["y"]
+    b = y > P16_CUT
+    even = k % 2 == 0
+    if q == "f12_or":
+        cnt = np.bincount(k, minlength=P15_KEYS)
+        keys = np.flatnonzero(cnt)
+        anyb = np.bincount(k, weights=b, minlength=P15_KEYS) > 0
+        mx = np.full(P15_KEYS, -1)
+        np.maximum.at(mx, k, x)
+        o = np.argsort(got["k"])
+        p16_check("f12_or: keys, sum(b) the logical or, max(x) exact",
+                  np.array_equal(got["k"][o], keys)
+                  and got["sb"].dtype == np.bool_
+                  and np.array_equal(got["sb"][o], anyb[keys])
+                  and np.array_equal(got["mx"][o], mx[keys]))
+        want = (anyb[keys].astype(np.float32)
+                / cnt[keys].astype(np.float32))
+        p16_check("f12_or: mean(b) the or over the count, float32 exact",
+                  got["mb"].dtype == np.float32
+                  and np.array_equal(got["mb"][o], want))
+        return f"{len(keys)} groups, or true in {int(anyb[keys].sum())}"
+    if q == "f12_count":
+        g8 = k[even] // P15_GROUP
+        n_g = P15_KEYS // P15_GROUP
+        cnt = np.bincount(g8, minlength=n_g)
+        groups = np.flatnonzero(cnt)
+        sb = np.bincount(g8, weights=b[even], minlength=n_g).astype(np.int64)
+        lo = np.full(n_g, P15_DIMS)
+        np.minimum.at(lo, g8, perm[k[even] // 2])
+        o = np.argsort(got["g8"])
+        p16_check("f12_count: groups, sum(b) the count, min(name) exact",
+                  np.array_equal(got["g8"][o], groups)
+                  and np.array_equal(got["sb"][o], sb[groups])
+                  and np.array_equal(got["lo"][o], words[lo[groups]]))
+        p16_check("f12_count: mean(b) float64, the count over the rows "
+                  "exact",
+                  got["mb"].dtype == np.float64
+                  and np.array_equal(got["mb"][o], sb[groups] / cnt[groups]))
+        return (f"{len(groups)} groups, {int(sb.sum())} true of "
+                f"{int(cnt.sum())} rows")
+    if q == "f13_key":
+        want = {False: (int((~b).sum()), int(np.flatnonzero(~b)[0]),
+                        int(np.flatnonzero(~b)[-1])),
+                True: (int(b.sum()), int(np.flatnonzero(b)[0]),
+                       int(np.flatnonzero(b)[-1]))}
+        rows = {bool(bb): (int(c), int(lo), int(hi)) for bb, c, lo, hi in
+                zip(got["b"], got["n"], got["lo"], got["hi"])}
+        p16_check(f"f13_key: two bool groups, counts and min / max x "
+                  f"exact ({rows} vs {want})",
+                  got["b"].dtype == np.bool_ and rows == want)
+        return f"{want[True][0]} true rows"
+    if q == "f14_group":
+        keys, first, cnt = np.unique(fact["g"], return_index=True,
+                                     return_counts=True)
+        o = np.argsort(got["g"])
+        p16_check("f14_group: float64 keys bit-exact, counts and min(x) "
+                  "exact",
+                  got["g"].dtype == np.float64
+                  and np.array_equal(got["g"][o].view(np.int64),
+                                     keys.view(np.int64))
+                  and np.array_equal(got["n"][o], cnt)
+                  and np.array_equal(got["lo"][o], x[first]))
+        narrow = len(np.unique(fact["g"].astype(np.float32)))
+        return f"{len(keys)} groups (float32 would give {narrow})"
+    if q == "f14_join":
+        present, once = p15_rows_by_id(np, n, got["x"])
+        p16_check(f"f14_join: each even-k row once ({int(present.sum())} "
+                  f"rows, {int(even.sum())} expected)",
+                  once and np.array_equal(present, even))
+        ox = got["x"]
+        p16_check("f14_join: g bit-exact and name exact",
+                  np.array_equal(got["g"].view(np.int64),
+                                 fact["g"][ox].view(np.int64))
+                  and np.array_equal(got["name"], words[perm[k[ox] // 2]]))
+        return f"{len(ox)} rows"
+    if q == "f15_fill":
+        present, once = p15_rows_by_id(np, n, got["x"])
+        p16_check("f15_fill: every fact row once",
+                  once and bool(present.all()))
+        ox = got["x"]
+        j = k[ox] // 2
+        matched = k[ox] % 2 == 0
+        d1 = np.where(matched, dims["d1"][np.where(matched, j, 0)], P16_FILL)
+        d2 = np.where(matched, dims["d2"][np.where(matched, j, 0)], P16_FILL)
+        p16_check("f15_fill: d1 and d2 float64, exact, the fill 0.5 where "
+                  "unmatched",
+                  got["d1"].dtype == got["d2"].dtype == np.float64
+                  and np.array_equal(got["k"], k[ox])
+                  and np.array_equal(got["d1"], d1)
+                  and np.array_equal(got["d2"], d2))
+        return f"{len(ox)} rows, {int((~matched).sum())} filled"
+    ke = k[even]
+    sign = np.where(np.arange(n) % 2 == 0, 1, -1)[even]
+    cnt = np.bincount(ke, minlength=P15_KEYS)
+    keys = np.flatnonzero(cnt)
+    sv = (np.bincount(ke, weights=sign, minlength=P15_KEYS).astype(np.int64)
+          * 100_000_000
+          + np.bincount(ke, weights=y[even], minlength=P15_KEYS)
+          .astype(np.int64))
+    o = np.argsort(got["k"])
+    p16_check("f16_sum: keys, sum(v) float64 exact, mean(v) the exact sum "
+              "over the count, min(name) exact",
+              np.array_equal(got["k"][o], keys)
+              and got["sv"].dtype == got["mv"].dtype == np.float64
+              and np.array_equal(got["sv"][o], sv[keys].astype(np.float64))
+              and np.array_equal(got["mv"][o],
+                                 sv[keys].astype(np.float64) / cnt[keys])
+              and np.array_equal(got["lo"][o], words[perm[keys // 2]]))
+    narrow = float(np.abs(sv[keys].astype(np.float32).astype(np.float64)
+                          - sv[keys]).max())
+    return f"{len(keys)} groups, sums to {int(np.abs(sv).max())} " \
+        f"(float32 inputs would be off by up to {narrow:.0f})"
+
+
+def phase_sixteen(torch, np, ck, vt):
+    """Phase 16: the reference's tier rules at P15_ROWS fact rows and the
+    P15_DIMS-row dimension table: a computed bool summed beside other
+    monoids (a logical or on the reference's device tier, a count on its
+    host tier), a bool group key, a float64 group and join key, a left
+    join's float fill and a float64 value summed. Each query once cold
+    (held to numpy) and three times warm; the warm median ms, the host
+    build apart, the step peak and the cold run's launches."""
+    t0 = time.perf_counter()
+    card = card_line()
+    fact, dims, words, perm = p16_data(np)
+    ctx = vt.Context(n_shards=N_SHARDS)
+    rows, launches = [], {name: 0 for name in ck.LAUNCHES}
+    for q in P16_QUERIES:
+        tier = p16_query(ctx, fact, dims, q)._compiled().reference[0]
+        p16_check(f"{q}: the reference's tier is {P16_TIERS[q]} (got "
+                  f"{tier})", tier == P16_TIERS[q])
+
+        def run(q=q):
+            return p16_query(ctx, fact, dims, q).collect_columns(), None
+
+        out, cold = p10_run(torch, ck, ctx, q, run)
+        note = p16_expect(np, q, out, fact, dims, words, perm)
+        del out
+        need = (("hash_bucket", "digit_hist") if q in P16_HASHED
+                else ("digit_hist",))
+        for name in need:
+            p16_check(f"{q} launched {name} ({cold['launches']})",
+                      cold["launches"][name] > 0)
+        for name in launches:
+            launches[name] += cold["launches"][name]
+        warm = [p10_run(torch, ck, ctx, q, run)[1] for _ in range(3)]
+        med = statistics.median(r["ms"] for r in warm)
+        r = dict(label=q, tier=tier, note=note, cold=cold, warm=warm,
+                 median_ms=med,
+                 median_host_build_ms=statistics.median(
+                     x["host_build_ms"] for x in warm),
+                 median_device_ms=statistics.median(
+                     x["device_ms"] for x in warm),
+                 peak_bytes=max(x["peak_bytes"] for x in warm + [cold]),
+                 launches=cold["launches"])
+        rows.append(r)
+        log(f"16 {q} (reference tier {tier}): {note}; {med:.3f} ms warm "
+            f"median of 3, host build {r['median_host_build_ms']:.3f} ms, "
+            f"cold {cold['ms']:.3f} ms, peak {r['peak_bytes']} B, launches "
+            f"{json.dumps(cold['launches'])} on {card}")
+    explain = p16_query(ctx, fact, dims, "f12_count").explain().replace(
+        "\n", " | ")
+    ctx.stop()
+    del fact, dims
+    torch.cuda.empty_cache()
+    check_launched(launches, "phase 16")
+    wall_s = time.perf_counter() - t0
+    log(f"phase 16 took {wall_s:.1f} s")
+    return dict(rows=rows, launches=launches, explain=explain, card=card,
+                wall_s=wall_s)
+
+
 def main():
     try:
         import torch
@@ -5347,6 +5611,8 @@ def main():
     fourteen = phase_fourteen(torch, np, ck, vt)
     # 15. the frame plans the reference answers on its host tier
     fifteen = phase_fifteen(torch, np, ck, vt)
+    # 16. the reference's tier rules: bools, float64 keys and values, fills
+    sixteen = phase_sixteen(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -5365,7 +5631,8 @@ def main():
          "phase12_launches": twelve["launches"][r["name"]],
          "phase13_launches": thirteen["launches"][r["name"]],
          "phase14_launches": fourteen["launches"][r["name"]],
-         "phase15_launches": fifteen["launches"][r["name"]]}
+         "phase15_launches": fifteen["launches"][r["name"]],
+         "phase16_launches": sixteen["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -5380,7 +5647,7 @@ def main():
                    new_ops=new_ops, phase7=seven, phase8=eight,
                    phase9=nine, phase10=ten, phase11=eleven,
                    phase12=twelve, phase13=thirteen, phase14=fourteen,
-                   phase15=fifteen)
+                   phase15=fifteen, phase16=sixteen)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -5645,6 +5912,17 @@ def main():
     print(f"phase 15 launches {json.dumps(fifteen['launches'])}; explain "
           f"(c_mixed): {fifteen['explain']}; phase 15 "
           f"{fifteen['wall_s']:.1f} s on {card}", flush=True)
+    for r in sixteen["rows"]:
+        print(f"phase 16 {r['label']} ({P15_ROWS} fact rows, {P15_DIMS} "
+              f"dimension rows; reference tier {r['tier']}; {r['note']}): "
+              f"{r['median_ms']:.3f} ms warm median of 3, host build "
+              f"{r['median_host_build_ms']:.3f} ms, device steps "
+              f"{r['median_device_ms']:.3f} ms, cold {r['cold']['ms']:.3f} "
+              f"ms, step peak {r['peak_bytes']} B, launches "
+              f"{json.dumps(r['launches'])} on {card}", flush=True)
+    print(f"phase 16 launches {json.dumps(sixteen['launches'])}; explain "
+          f"(f12_count): {sixteen['explain']}; phase 16 "
+          f"{sixteen['wall_s']:.1f} s on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
@@ -5658,7 +5936,7 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-AB_LEGS = ("main", "frame", "frame-profile")
+AB_LEGS = ("main", "frame", "frame-profile", "p16-profile")
 
 
 def ab_frame_leg(torch, np, ck, vt, cs):
@@ -5738,6 +6016,76 @@ def ab_frame_profile_leg(torch, np, ck, vt, cs):
         {"name": nm, "ms": ms, "calls": n} for ms, nm, n in ops[:10]])
 
 
+def ab_p16_profile_leg(torch, np, ck, vt, cs):
+    """The p16-profile leg of --main-path-ab: phase 16's f13_key (two
+    groups) and f12_or (1M groups, the same shape of aggregates) each
+    once cold, then one warm run under torch.profiler with its memory:
+    per query the wall ms, the allocator's peak above the start, the ten
+    device ops that took the most (with their input shapes), the eight
+    ops that allocated the most device memory, the plan of each exchange
+    the warm run launched, and the (slot, out) capacities that the cold
+    run sized from its destination histograms (rows per shard pair, rows
+    per target shard), which the warm run reuses."""
+    from vega_tpu_torch import dense_rdd, exchange_plan
+
+    fact, dims, _words, _perm = cs.p16_data(np)
+    ctx = vt.Context(n_shards=cs.N_SHARDS)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for q in ("f13_key", "f12_or"):
+        caps, size = [], dense_rdd._histogram_capacities
+        dense_rdd._histogram_capacities = lambda *a: (caps.append(size(*a))
+                                                      or caps[-1])
+        try:
+            cs.p16_query(ctx, fact, dims, q).collect_columns()
+        finally:
+            dense_rdd._histogram_capacities = size
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        plans, record = [], exchange_plan.record_plan
+        exchange_plan.record_plan = lambda plan: (plans.append(plan),
+                                                  record(plan))
+        try:
+            with torch.profiler.profile(activities=acts, profile_memory=True,
+                                        record_shapes=True) as prof:
+                t0 = time.perf_counter()
+                cs.p16_query(ctx, fact, dims, q).collect_columns()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            exchange_plan.record_plan = record
+        peak = torch.cuda.max_memory_allocated() - base
+        ops, mem = [], []
+        for e in prof.key_averages(group_by_input_shape=True):
+            ms = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) / 1e3
+            nbytes = getattr(e, "self_device_memory_usage",
+                             getattr(e, "self_cuda_memory_usage", 0))
+            shapes = str(e.input_shapes)[:120]
+            if ms > 0:
+                ops.append((ms, e.key[:70], e.count, shapes))
+            if nbytes > 0:
+                mem.append((nbytes, e.key[:70], e.count, shapes))
+        ops.sort(reverse=True)
+        mem.sort(reverse=True)
+        out[q] = dict(
+            wall_ms=wall, peak_bytes=peak,
+            device_ms=sum(ms for ms, *_ in ops),
+            top_device_ops=[dict(name=nm, ms=ms, calls=n, shapes=sh)
+                            for ms, nm, n, sh in ops[:10]],
+            top_memory_ops=[dict(name=nm, bytes=b, calls=n, shapes=sh)
+                            for b, nm, n, sh in mem[:8]],
+            exchanges=[dict(program=p.program, rounds=p.rounds,
+                            est_peak_bytes=p.est_peak_bytes,
+                            est_bytes_moved=p.est_bytes_moved)
+                       for p in plans],
+            cold_capacities=[dict(slot=a, out=b) for a, b in caps])
+    ctx.stop()
+    return out
+
+
 def main_path_leg(leg, checkout):
     """One leg of --main-path-ab, in a process of its own: `checkout`'s
     own chip_smoke (phase_main_path, or the phase-10 tables of a frame
@@ -5766,6 +6114,8 @@ def main_path_leg(leg, checkout):
         res = ab_frame_leg(torch, np, ck, vt, cs)
     elif leg == "frame-profile":
         res = ab_frame_profile_leg(torch, np, ck, vt, cs)
+    elif leg == "p16-profile":
+        res = ab_p16_profile_leg(torch, np, ck, vt, cs)
     else:
         res = cs.phase_main_path(torch, np, ck, vt)
         res = {k: res[k] for k in (

@@ -20,9 +20,11 @@ column, float64 for a float computed from one, such as its mean) where
 the host tier's are numpy's of Python values; an expression over a wide
 column whose result leaves int64 raises VegaError where the reference's
 host tier wraps it in numpy int64 (block layout) or keeps a Python int
-(row layout); such a float64 as a group, join or sort key raises
-VegaError. The merged -0.0 / 0.0 group takes the sign of the first zero
-in row order on both sides.
+(row layout). A float64 group, join or sort key (a float64 source
+column, a float computed from a wide one) is the float64 itself. The
+merged -0.0 / 0.0 group takes the sign of the first zero in row order
+on both sides. The rules of the two tiers for bools, float64 and fills
+are held in tests/test_torch_frame_tiers.py.
 
 Also held here: a string literal's code is read from the dictionary of
 the block the stage runs on, when it runs (one stage over two sources
@@ -238,6 +240,15 @@ CASES = {
         .join(ctx.create_frame(f=np.array([0.5, 0.0, np.nan]),
                                y=np.arange(3)), on="f"),
         False, [(-0.0, 2, 1), (0.5, 0, 0)]),
+    # a float64 computed from a wide column as a group key: the key is the
+    # float64 itself (kernels.f64_key), where float32 would merge it
+    "float64_group_key": (
+        lambda ctx, fr: ctx.create_frame(k=np.array([1, 1, 2, 3]),
+                                         big=np.array([2**40, 2**40 + 3, 5,
+                                                       2**40 + 2]))
+        .group_by("k").agg(fr.F.mean("big", "m")).group_by("m")
+        .agg(fr.F.count("n")),
+        False, [(5.0, 1), (2**40 + 1.5, 1), (2**40 + 2.0, 1)]),
 }
 
 
@@ -358,8 +369,9 @@ def test_parquet_int64_without_proof_it_fits_int32(ctxs, tmp_path):
 def test_dtypes_are_the_device_forms(ctxs):
     """The host tier's columns are numpy's of Python values (int64,
     float64); the port's are its device forms: a wide column int64, a
-    narrow one int32, a float computed from a wide column float64, a
-    float source column float32, a comparison bool."""
+    narrow one int32, a float computed from a wide or an int32 column
+    float64 (the host tier's numpy promotion; its values are held at
+    rtol 1e-12 in test_torch_frame_tiers.py), a comparison bool."""
     ref, port = ctxs
 
     def build(ctx, fr):
@@ -372,7 +384,7 @@ def test_dtypes_are_the_device_forms(ctxs):
     assert [str(rc[c].dtype) for c in names] == \
         ["int64", "int64", "float64", "bool", "float64"]
     assert [str(pc[c].dtype) for c in names] == \
-        ["int32", "int64", "float64", "bool", "float32"]
+        ["int32", "int64", "float64", "bool", "float64"]
 
 
 def test_wide_mean_is_the_hosts_float64(ctxs):
@@ -551,12 +563,6 @@ def test_plus_and_minus_zero_share_a_bucket(ctxs):
 # ------------------------------------------------------------ still refused
 
 REFUSED = {
-    "float64_group_key": (
-        lambda ctx, fr: ctx.create_frame(k=np.array([1, 1, 2]),
-                                         big=np.array([2**40, 2**40 + 3, 5]))
-        .group_by("k").agg(fr.F.mean("big", "m")).group_by("m")
-        .agg(fr.F.count("n")),
-        "float64 computed from an int64 column"),
     "string_arithmetic": (
         lambda ctx, fr: ctx.create_frame(name=NAMES, x=np.arange(6))
         .group_by("name").agg(fr.F.sum("name", "s")),
@@ -574,8 +580,8 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_still_refused(ctxs, name):
-    """Arithmetic over a string column and a float64 exchange key have no
-    device form giving the host tier's rows: VegaError at compile."""
+    """Arithmetic over a string column has no device form giving the host
+    tier's rows: VegaError at compile."""
     build, reason = REFUSED[name]
     ref, port = ctxs
     assert "host tier" in build(ref, ref_frame).explain()

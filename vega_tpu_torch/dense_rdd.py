@@ -2878,19 +2878,13 @@ def _op_of(op, name: str) -> Optional[str]:
     return dict(op)[base]
 
 
-def _f64_order(bits: torch.Tensor) -> torch.Tensor:
-    """The int64 bits of float64 values -> int64 words in the floats'
-    order (a negative float's magnitude bits flipped); its own inverse."""
-    return bits ^ ((bits >> 63) & (2**63 - 1))
-
-
 def _wide_working_form(cols, wide: dict, op, float64=frozenset()):
     """A named reduce's working form of each wide value pair {name:
     name.lo}: for add, its two exact int64 addends
     (kernels.wide_sum_words) in the pair's columns; for min / max, the
     int64 the pair encodes in the name column, the low word dropped. A
     pair of float64 bits (named in float64) works as its float64 value
-    under add and as its bits in the floats' order (_f64_order) under
+    under add and as its bits in the floats' order (kernels.f64_order) under
     min / max, the low word dropped. The segment ops, sorts and exchanges
     carry every form like any column."""
     cols = dict(cols)
@@ -2898,7 +2892,7 @@ def _wide_working_form(cols, wide: dict, op, float64=frozenset()):
         if nm in float64:
             bits = kernels.wide_i64(cols[nm], cols.pop(lo))
             cols[nm] = (bits.view(torch.float64) if _op_of(op, nm) == "add"
-                        else _f64_order(bits))
+                        else kernels.f64_order(bits))
         elif _op_of(op, nm) == "add":
             cols[nm], cols[lo] = kernels.wide_sum_words(cols[nm], cols[lo])
         else:
@@ -2920,7 +2914,7 @@ def _wide_stored_form(cols, count, wide: dict, op, float64=frozenset()):
             x = cols[nm]
             cols[nm], cols[lo] = kernels.wide_words(
                 x.view(torch.int64) if x.dtype == torch.float64
-                else _f64_order(x))
+                else kernels.f64_order(x))
         elif _op_of(op, nm) == "add":
             cols[nm], cols[lo], bad = kernels.wide_from_sums(cols[nm],
                                                              cols[lo])

@@ -17,8 +17,9 @@ This module is the one place in vega_tpu_torch/frame/ that materializes.
 Fusion, pushdown and per-exchange policy live in planner.py; `hint()`
 exposes the knobs (fuse / pushdown / tier / exchange / shuffle_plan). The
 port has only the device tier: tier="host" and to_rdd() raise VegaError,
-and shuffle_plan (the host tier's) is accepted and changes nothing, as on
-the reference's device plans."""
+tier="device" raises as the reference's does on a plan it compiles on
+its host tier, and shuffle_plan (the host tier's) is accepted and changes
+nothing, as on the reference's device plans."""
 
 from __future__ import annotations
 
@@ -174,7 +175,8 @@ class DataFrame:
     }
 
     def hint(self, **hints) -> "DataFrame":
-        """Planner knobs: fuse=, pushdown=, tier=('auto'|'device'; 'host'
+        """Planner knobs: fuse=, pushdown=, tier=('auto'|'device': the
+        reference's error where it would compile its host tier; 'host'
         raises: the port has no host tier),
         exchange=('auto'|'all_to_all'|'ring'|'staged') — 'auto' routes
         through the exchange planner — and shuffle_plan=('pull'|'push'),
@@ -225,6 +227,8 @@ class DataFrame:
         out = {fn: np.asarray(blk_cols[bn]) for fn, bn in compiled.out}
         for fn in compiled.float64:  # decoded as int64: the float64 bits
             out[fn] = out[fn].view(np.float64)
+        for fn in compiled.bools:  # 0 / 1 int32 words
+            out[fn] = out[fn] != 0
         if compiled.limit is not None:
             out = {nm: c[:compiled.limit] for nm, c in out.items()}
         return out

@@ -1,6 +1,9 @@
 """Column forms inside a frame stage that plain torch operators do not
-give: exact int64 arithmetic over wide columns, and comparisons of string
-columns, whose device form is rank codes into a sorted dictionary.
+give: exact int64 arithmetic over wide columns, comparisons of string
+columns, whose device form is rank codes into a sorted dictionary, and
+the forms by which the planner applies the reference's host-tier rules:
+its numpy arithmetic (HostArith), the float64 cast of a sum (Cast) and
+the float64 key's decode (KeyFloat64).
 
 A wide int64 column (block.encode_i64's hi / biased-lo word pair) enters
 a stage as a `WideInt` over its int64 values. Python operators on it give
@@ -36,6 +39,9 @@ I64_MIN, I64_MAX = -2**63, 2**63 - 1
 # the environment key under which a stage passes its resolved dictionary
 # inputs to DictCmp (no frame column is named so)
 RESOLVED = "\x00resolved"
+# the environment key under which a stage passes its overflow sink to
+# HostArith's int64 arithmetic
+SINK = "\x00sink"
 _CMP_OPS = ("==", "!=", "<", "<=", ">", ">=")
 _FLIP = {"==": "==", "!=": "!=", "<": ">", "<=": ">=", ">": "<",
          ">=": "<="}
@@ -212,6 +218,120 @@ class WideInt:
     del _bits, _cmp
 
 
+class Cast(Expr):
+    """e as float64, where the reference's host tier divides a sum it
+    holds as a Python int (a mean of an integer column)."""
+
+    def __init__(self, e: Expr):
+        self.e = e
+
+    def _eval(self, env: dict):
+        x = self.e._eval(env)
+        return (x.v if isinstance(x, WideInt)
+                else torch.as_tensor(x)).to(torch.float64)
+
+    def references(self, out: set) -> None:
+        self.e.references(out)
+
+    def token(self) -> tuple:
+        return ("cast", "float64", self.e.token())
+
+    def __repr__(self) -> str:
+        return f"float64({self.e!r})"
+
+
+_ARITH_OPS = ("+", "-", "*", "/", "//", "%")
+
+
+def _is_int(x) -> bool:
+    return isinstance(x, torch.Tensor) and not x.dtype.is_floating_point
+
+
+def _is_int32(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.dtype == torch.int32
+
+
+def _is_float(x) -> bool:
+    return isinstance(x, float) or (isinstance(x, torch.Tensor)
+                                    and x.dtype.is_floating_point)
+
+
+class HostArith(Expr):
+    """An arithmetic BinOp as the reference's host tier computes it, on
+    numpy columns of int64 and bool: where an integer or bool column
+    meets a float (a column or a constant), or divides with /, both
+    operands become float64 first, so the result is numpy's float64 and
+    not torch's float32; + - * of an int32 column and an integer is a
+    WideInt, exact in int64 as numpy's is (an int64 overflow flags its
+    row). A float32 column beside a constant stays float32, as in numpy;
+    a wide column computes as WideInt does."""
+
+    def __init__(self, e: BinOp):
+        self.e = e
+
+    def _eval(self, env: dict):
+        a, b = self.e.left._eval(env), self.e.right._eval(env)
+        if isinstance(a, WideInt) or isinstance(b, WideInt) or not (
+                _is_int(a) or _is_int(b)):
+            pass
+        elif self.e.op == "/" or _is_float(a) or _is_float(b):
+            a, b = (x.to(torch.float64) if isinstance(x, torch.Tensor)
+                    else x for x in (a, b))
+        elif self.e.op in ("+", "-", "*") and (_is_int32(a) or _is_int32(b)):
+            a, b = (WideInt(x.to(torch.int64), env[SINK]) if _is_int32(x)
+                    else x for x in (a, b))
+        return _BIN_OPS[self.e.op](a, b)
+
+    def references(self, out: set) -> None:
+        self.e.references(out)
+
+    def token(self) -> tuple:
+        return ("host", self.e.token())
+
+    def __repr__(self) -> str:
+        return repr(self.e)
+
+
+def host_arith(e: Expr) -> Expr:
+    """e with each arithmetic BinOp a HostArith (the reference's host
+    tier's numpy arithmetic); the rest of the tree, a Udf's arguments
+    too, is kept."""
+    if isinstance(e, BinOp):
+        node = BinOp(e.op, host_arith(e.left), host_arith(e.right))
+        return HostArith(node) if e.op in _ARITH_OPS else node
+    if isinstance(e, UnaryOp):
+        return UnaryOp(e.op, host_arith(e.operand))
+    if isinstance(e, Cast):
+        return Cast(host_arith(e.e))
+    return e
+
+
+class KeyFloat64(Expr):
+    """The float64 values of a float64 exchange key (kernels.f64_key's
+    words, a wide column) and the sign of a zero key: the low bit of
+    sign, the wide column a group-by keeps of the key's first row."""
+
+    def __init__(self, key: Col, sign: Col):
+        self.key = key
+        self.sign = sign
+
+    def _eval(self, env: dict):
+        from vega_tpu_torch import kernels
+
+        sign = self.sign._eval(env).v
+        return kernels.f64_from_key(self.key._eval(env).v, (sign & 1) == 1)
+
+    def references(self, out: set) -> None:
+        self.key.references(out)
+        self.sign.references(out)
+
+    def token(self) -> tuple:
+        return ("keyfloat64", self.key.token(), self.sign.token())
+
+    def __repr__(self) -> str:
+        return f"float64({self.key.name})"
+
+
 # ---------------------------------------------------------------------------
 # string comparisons
 # ---------------------------------------------------------------------------
@@ -295,6 +415,8 @@ def rewrite_string_cmps(e: Expr, live: set, origin: Dict[str, str],
     if isinstance(e, UnaryOp):
         return UnaryOp(e.op, rewrite_string_cmps(e.operand, live, origin,
                                                  cmps))
+    if isinstance(e, Cast):
+        return Cast(rewrite_string_cmps(e.e, live, origin, cmps))
     return e
 
 
@@ -309,6 +431,8 @@ def computing_refs(e: Expr) -> set:
         return computing_refs(e.left) | computing_refs(e.right)
     if isinstance(e, UnaryOp):
         return computing_refs(e.operand)
+    if isinstance(e, Cast):
+        return computing_refs(e.e)
     if isinstance(e, Udf):
         out: set = set()
         for a in e.args:

@@ -5,20 +5,27 @@ Plan compilation builds the source node and checks the dtypes; the first
 block() reads the file or coerces the arrays and shards them onto the
 Context's device (planning itself never touches data or the device).
 
-Dtype contract at the device boundary (the reference's, the same degrade
-block.from_numpy applies): int64 / uint64 / uint32 columns whose values
-fit int32 narrow to int32, and the others take the wide int64 pair
-(block.encode_i64: <name> the high word, <name>.lo the biased low word),
-where the reference compiles the plan on its host tier; float64 narrows
-to float32; bool widens to int32; strings become int32 dictionary codes
-plus a sorted host dictionary (dict_encoding.py). Anything else (object
-columns of anything but strings, uint64 beyond int64) raises VegaError
-when the plan compiles: the reference compiles such a plan on its host
-tier, which the port does not have."""
+Dtype contract at the device boundary. The scan's forms (columns_forms,
+parquet_forms) classify each column once, with the reference's verdict
+beside it: int64 / uint64 / uint32 columns whose values fit int32 narrow
+to int32, and the others take the wide int64 pair (block.encode_i64:
+<name> the high word, <name>.lo the biased low word), where the
+reference compiles the plan on its host tier; strings become int32
+dictionary codes plus a sorted host dictionary (dict_encoding.py). The
+rest follows the tier the reference would pick for the plan
+(planner.reference_tier), since its two tiers hold these values apart:
+on its device tier float64 narrows to float32 and bool widens to int32;
+on its host tier a float64 column stays float64 (the words of its bits,
+a pair like the wide one) and a bool column stays a bool (0 / 1 int32
+words read back as bools). Anything else (object columns of anything
+but strings, uint64 beyond int64) raises VegaError when the plan
+compiles: the reference compiles such a plan on its host tier, which
+the port does not have. What a stage computes from these columns
+follows the same tier (planner._Stage)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +37,8 @@ from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame import parquet as parquet_lib
 
 _TORCH_DTYPES = {"int32": torch.int32, "float32": torch.float32}
+# the stored words of a pair: the wide int64 and the float64 bits
+_PAIRS = ("wide", "float64")
 
 
 def no_device_lowering(reason: str) -> VegaError:
@@ -41,78 +50,197 @@ def no_device_lowering(reason: str) -> VegaError:
 
 
 # ---------------------------------------------------------------------------
-# dtype coercion at the device boundary
+# dtype forms at the device boundary
 # ---------------------------------------------------------------------------
 
 
-def coerce_dtype(np_dtype, dict_enabled: bool = True) -> str:
-    """numpy dtype -> device dtype name ("int32", "float32", "dict32" for
-    a string column, or "int64?" when a value range decides between int32
-    and the wide pair),
-    or raise. Object dtypes are decided by coerced_dtype, which may scan
-    the values."""
-    dt = np.dtype(np_dtype)
+class ScanForms:
+    """A scan's columns as the plan compiles them: kinds {frame name:
+    "int32" | "bool" | "wide" | "float32" | "float64" | "dict"}, the
+    reference's reason for compiling the plan on its host tier at this
+    scan (its first HostFallback here; None when its device tier takes
+    the scan) and the port's own refusal (the VegaError of the first
+    column with no device form, or None); a parquet scan's file dtypes."""
+
+    def __init__(self, kinds: Dict[str, str], reference: Optional[str],
+                 error: Optional[VegaError], file_dtypes=None):
+        self.kinds = kinds
+        self.reference = reference
+        self.error = error
+        self.file_dtypes = file_dtypes
+
+    def check(self) -> None:
+        if self.error is not None:
+            raise self.error
+
+
+def _number_kind(dt: np.dtype) -> Optional[str]:
+    """The kind of a bool / int / float dtype ("int64?" when a value range
+    decides between int32 and the wide pair), None for any other."""
     if dt == np.bool_:
-        return "int32"
+        return "bool"
     if dt.kind in ("i", "u"):
-        if dt.itemsize <= 4 and dt != np.uint32:
-            return "int32"
-        return "int64?"  # needs a value-range check (fits-int32 proof)
+        return "int32" if dt.itemsize <= 4 and dt != np.uint32 else "int64?"
     if dt.kind == "f":
-        return "float32"
-    if dt.kind in ("U", "S"):
-        if dict_enabled:
-            return "dict32"
-        raise no_device_lowering(
-            f"string column (dtype {dt}) with dense_dict_enabled off")
-    raise no_device_lowering(f"dtype {dt} has no device column form")
+        return "float64" if dt.itemsize >= 8 else "float32"
+    return None
 
 
-def coerced_dtype(name: str, col: np.ndarray,
-                  dict_enabled: bool = True) -> Tuple[str, bool]:
-    """(device dtype name one host column coerces to, is_dictionary): the
-    CHECK only (dtype kind, the int64 range check, the all-str object
-    scan), no copy; the astype / encode runs at materialization. An
-    integer column beyond int32 is "wide"."""
+def _column_form(name: str, col: np.ndarray, dict_enabled: bool):
+    """(kind or None, the reference's host-tier reason or None, the port's
+    refusal reason or None) of one in-memory column: the dtype kind, the
+    int64 range check, the all-str object scan."""
     col = np.asarray(col)
-    if col.dtype.kind == "O":
+    dt = col.dtype
+    if dt.kind == "O":
         # object columns have a device form only when every element is a
         # str (the pandas pivot shape): a full scan, the same class of
         # compile-time value check as the int64 range proof below
-        if dict_encoding.is_string_array(col):
-            if dict_enabled:
-                return "int32", True
-            raise no_device_lowering(
-                f"string column {name!r} with dense_dict_enabled off")
-        raise no_device_lowering(
-            f"column {name!r} (object dtype) has no device column form")
-    kind = coerce_dtype(col.dtype, dict_enabled)
-    if kind == "dict32":
-        return "int32", True
-    if kind == "int64?":
-        info = np.iinfo(np.int32)
-        kind = "int32"
-        if len(col) and (col.min() < info.min or col.max() > info.max):
-            if col.dtype == np.uint64 and col.max() > np.uint64(2**63 - 1):
-                raise no_device_lowering(
-                    f"column {name!r} holds uint64 values beyond int64")
-            kind = "wide"
-    return kind, False
+        if not dict_encoding.is_string_array(col):
+            why = f"column {name!r} (object dtype) has no device column form"
+            return None, why, why
+        if not dict_enabled:
+            why = f"string column {name!r} with dense_dict_enabled off"
+            return None, why, why
+        return "dict", None, None
+    if dt.kind in ("U", "S"):
+        if not dict_enabled:
+            why = f"string column (dtype {dt}) with dense_dict_enabled off"
+            return None, why, why
+        return "dict", None, None
+    kind = _number_kind(dt)
+    if kind is None:
+        why = f"dtype {dt} has no device column form"
+        return None, why, why
+    if kind != "int64?":
+        return kind, None, None
+    info = np.iinfo(np.int32)
+    if not len(col) or (col.min() >= info.min and col.max() <= info.max):
+        return "int32", None, None
+    why = f"column {name!r} holds int64 values beyond int32 range"
+    if dt == np.uint64 and col.max() > np.uint64(2**63 - 1):
+        return None, why, f"column {name!r} holds uint64 values beyond int64"
+    return "wide", why, None
+
+
+def _forms(checked) -> ScanForms:
+    """ScanForms of (frame name, (kind, reference reason, refusal)) in the
+    scan's column order; the first reason of each side counts."""
+    kinds, reference, error = {}, None, None
+    for fn, (kind, why, refusal) in checked:
+        kinds[fn] = kind
+        reference = reference or why
+        if error is None and refusal:
+            error = no_device_lowering(refusal)
+    return ScanForms(kinds, reference, error)
+
+
+def columns_forms(data: Dict[str, np.ndarray],
+                  dict_enabled: bool = True) -> ScanForms:
+    """The forms of in-memory columns (create_frame), in their order."""
+    return _forms((fn, _column_form(fn, data[fn], dict_enabled))
+                  for fn in data)
+
+
+def parquet_forms(path: str, columns: List[str], predicate,
+                  dtypes: Dict[str, np.dtype],
+                  dict_enabled: bool = True) -> ScanForms:
+    """The forms of a parquet scan's columns from its footers only (schema,
+    min / max and null statistics). The reference's verdicts: a string
+    conjunct pushed into the reader, a string column with nulls (or no
+    null statistics), an int64 column with no statistics proving it fits
+    int32. The port filters a pushed-down string conjunct in the reader
+    (it refuses one over a column with nulls) and reads an unproven int64
+    column as the wide pair."""
+    string_cols = parquet_lib.parquet_string_columns(path)
+
+    def nulls_of(nm):
+        nulls = parquet_lib.parquet_column_nulls(path, nm)
+        return nulls is None or nulls > 0
+
+    head = []
+    strings = [nm for nm, _op, _lit in predicate if nm in string_cols]
+    if strings:
+        # a pushed-down conjunct compares the reader's values, where a null
+        # has no order
+        bad = [nm for nm in sorted(set(strings)) if nulls_of(nm)]
+        head.append((None, (None, (
+            f"pushed-down predicate on string column {strings[0]!r} — host "
+            "tier filters it"), bad and (
+                f"parquet string column {bad[0]!r} has nulls (or no "
+                "null-count statistics) under a pushed-down predicate"))))
+    checked = []
+    for fn in columns:
+        if fn in string_cols:
+            if not dict_enabled:
+                why = (f"parquet string column {fn!r} with "
+                       "dense_dict_enabled off")
+                checked.append((fn, (None, why, why)))
+            elif nulls_of(fn):
+                why = (f"parquet string column {fn!r} has nulls (or no "
+                       "null-count statistics); codes have no null slot")
+                checked.append((fn, (None, why, why)))
+            else:
+                checked.append((fn, ("dict", None, None)))
+            continue
+        dt = np.dtype(dtypes[fn])
+        kind = _number_kind(dt)
+        if dt.kind in ("U", "S"):
+            why = (f"parquet column {fn!r}: string dtype without an arrow "
+                   "string type — host tier serves it")
+            checked.append((fn, (None, why, why)))
+        elif kind is None:
+            why = f"dtype {dt} has no device column form"
+            checked.append((fn, (None, why, why)))
+        elif kind == "int64?":
+            # int32 where the statistics prove it fits; otherwise (missing
+            # statistics or out of range) the wide pair, which holds any
+            # int64 (a uint64 beyond int64 raises when it is read)
+            mm = parquet_lib.parquet_column_minmax(path, fn)
+            info = np.iinfo(np.int32)
+            if mm is None or mm[0] < info.min or mm[1] > info.max:
+                checked.append((fn, ("wide", (
+                    f"parquet column {fn!r} is int64 with no proof it fits "
+                    "int32 (missing stats or out of range)"), None)))
+            else:
+                checked.append((fn, ("int32", None, None)))
+        else:
+            checked.append((fn, (kind, None, None)))
+    forms = _forms(head + checked)
+    forms.kinds.pop(None, None)
+    forms.file_dtypes = dtypes
+    return forms
+
+
+def stored_kind(kind: str, host: bool) -> str:
+    """The stored form of a column kind under the reference's tier (host:
+    True for its host tier): "int32", "float32", "wide" or "float64" (a
+    pair of words) or "dict" (int32 codes). A float64 column narrows to
+    float32 unless the host tier holds it, a bool column is 0 / 1 int32
+    words."""
+    if kind == "bool":
+        return "int32"
+    if kind == "float64" and not host:
+        return "float32"
+    return kind
 
 
 def _host_column(src: np.ndarray, dtype: str, bn: str, out: dict) -> None:
-    """One non-string host column in its device form under block name bn:
-    the astype, or for "wide" the (bn, bn.lo) words of its int64
-    values."""
-    if dtype == "wide":
+    """One non-string host column in its stored form under block name bn:
+    the astype, or the (bn, bn.lo) words of its int64 values ("wide") or
+    of its float64 bits ("float64")."""
+    if dtype == "float64":
+        words = src.astype(np.float64).view(np.int64)
+    elif dtype == "wide":
         if src.dtype == np.uint64 and len(src) and \
                 src.max() > np.uint64(2**63 - 1):
             raise VegaError(f"column {bn!r} holds uint64 values beyond "
                             "int64, which no device column holds")
-        out[bn], out[block_lib.lo_of(bn)] = block_lib.encode_i64(
-            src.astype(np.int64))
+        words = src.astype(np.int64)
     else:
         out[bn] = src.astype(dtype, copy=False)
+        return
+    out[bn], out[block_lib.lo_of(bn)] = block_lib.encode_i64(words)
 
 
 # ---------------------------------------------------------------------------
@@ -121,26 +249,33 @@ def _host_column(src: np.ndarray, dtype: str, bn: str, out: dict) -> None:
 
 
 class _FrameSource(dense_rdd.DenseRDD):
-    """A lazy source: names are (frame name, block name) pairs, dtypes the
-    device dtype name of each block column, dict_bns the block columns
-    that are dictionary codes. It materializes once at its first block()
-    and, as every source, never enters the lifetime LRU (its host copy is
-    the data)."""
+    """A lazy source: names are (frame name, block name) pairs, kinds each
+    frame column's kind (ScanForms), host whether the reference compiles
+    the plan on its host tier (stored_kind). It materializes once at its
+    first block() and, as every source, never enters the lifetime LRU
+    (its host copy is the data)."""
 
     def __init__(self, ctx, names: List[Tuple[str, str]],
-                 dtypes: Dict[str, str], dict_bns: set):
+                 kinds: Dict[str, str], host: bool):
         super().__init__(ctx, ctx.mesh)
         self._names = list(names)
-        self._dtypes = dict(dtypes)
-        self._dict_bns = set(dict_bns)
-        # frame columns that are dictionary codes (the planner's gates)
+        stored = {fn: stored_kind(kinds[fn], host) for fn, _bn in names}
+        self._dict_bns = {bn for fn, bn in names if stored[fn] == "dict"}
+        self._dtypes = {bn: "int32" if bn in self._dict_bns else stored[fn]
+                        for fn, bn in names}
+        # frame columns that are dictionary codes (the planner's gates),
+        # float64 bits and bools on 0 / 1 words
         self._frame_dict_cols = frozenset(
             fn for fn, bn in names if bn in self._dict_bns)
+        self._frame_f64_cols = frozenset(
+            fn for fn, _bn in names if stored[fn] == "float64")
+        self._frame_bool_cols = frozenset(
+            fn for fn, _bn in names if host and kinds[fn] == "bool")
 
     def _schema(self):
         out = []
         for _fn, bn in self._names:
-            if self._dtypes[bn] == "wide":
+            if self._dtypes[bn] in _PAIRS:
                 out += [(bn, torch.int32), (block_lib.lo_of(bn), torch.int32)]
             else:
                 out.append((bn, _TORCH_DTYPES[self._dtypes[bn]]))
@@ -163,9 +298,9 @@ class _FrameSource(dense_rdd.DenseRDD):
 class _ColumnsSource(_FrameSource):
     """In-memory columns (create_frame)."""
 
-    def __init__(self, ctx, data: Dict[str, np.ndarray], names, dtypes,
-                 dict_bns):
-        super().__init__(ctx, names, dtypes, dict_bns)
+    def __init__(self, ctx, data: Dict[str, np.ndarray], names, kinds,
+                 host):
+        super().__init__(ctx, names, kinds, host)
         self._data = data
         self._encoded: Dict[str, tuple] = {}  # bn -> (codes, dictionary)
 
@@ -197,26 +332,24 @@ class _ColumnsSource(_FrameSource):
 
 
 def make_columns_source(ctx, data: Dict[str, np.ndarray],
-                        names: List[Tuple[str, str]]) -> _ColumnsSource:
+                        names: List[Tuple[str, str]], forms: ScanForms,
+                        host: bool) -> _ColumnsSource:
     """Lazy source over in-memory columns; names maps (frame name, block
-    name). The dtypes are checked now (pure numpy); the data is coerced
-    and sharded onto the device at the first materialization."""
-    dtypes, dict_bns = {}, set()
-    for fn, bn in names:
-        dtypes[bn], is_dict = coerced_dtype(fn, data[fn],
-                                            ctx.dense_dict_enabled)
-        if is_dict:
-            dict_bns.add(bn)
-    return _ColumnsSource(ctx, data, names, dtypes, dict_bns)
+    name), forms are the columns' (columns_forms: checked when the plan
+    compiles) and host whether the reference compiles the plan on its
+    host tier. The data is coerced and sharded onto the device at the
+    first materialization."""
+    forms.check()
+    return _ColumnsSource(ctx, data, names, forms.kinds, host)
 
 
 class _ParquetSource(_FrameSource):
     """A parquet path read with column pruning and the pushed-down
     predicate applied inside the reader."""
 
-    def __init__(self, ctx, files, columns, predicate, names, dtypes,
-                 dict_bns, file_dtypes):
-        super().__init__(ctx, names, dtypes, dict_bns)
+    def __init__(self, ctx, files, columns, predicate, names, kinds, host,
+                 file_dtypes):
+        super().__init__(ctx, names, kinds, host)
         self._files = files
         self._columns = list(columns)
         self._predicate = [tuple(p) for p in predicate]
@@ -294,51 +427,13 @@ def _merged(values: list) -> np.ndarray:
 
 def make_parquet_source(ctx, path: str, columns: List[str], predicate,
                         names: List[Tuple[str, str]],
-                        dtypes: Dict[str, np.dtype]) -> _ParquetSource:
+                        dtypes: Dict[str, np.dtype], forms: ScanForms,
+                        host: bool) -> _ParquetSource:
     """Lazy source over a parquet path with pruning and predicate pushdown
-    applied inside the reader. Compile time reads footers only (schema,
-    min / max and null statistics); the files are read at the first
+    applied inside the reader; forms are parquet_forms' (footers only),
+    host as make_columns_source's. The files are read at the first
     materialization."""
-    string_cols = parquet_lib.parquet_string_columns(path)
-    for nm in sorted({nm for nm, _op, _lit in predicate} & string_cols):
-        # a pushed-down conjunct compares the reader's values, where a null
-        # has no order
-        nulls = parquet_lib.parquet_column_nulls(path, nm)
-        if nulls is None or nulls > 0:
-            raise no_device_lowering(
-                f"parquet string column {nm!r} has nulls (or no "
-                "null-count statistics) under a pushed-down predicate")
-    out_dtypes, dict_bns = {}, set()
-    for fn, bn in names:
-        if fn in string_cols:
-            if not ctx.dense_dict_enabled:
-                raise no_device_lowering(
-                    f"parquet string column {fn!r} with "
-                    "dense_dict_enabled off")
-            # dictionary codes have no null slot: the device path needs a
-            # statistics PROOF the column is null-free (metadata only)
-            nulls = parquet_lib.parquet_column_nulls(path, fn)
-            if nulls is None or nulls > 0:
-                raise no_device_lowering(
-                    f"parquet string column {fn!r} has nulls (or no "
-                    "null-count statistics); codes have no null slot")
-            out_dtypes[bn] = "int32"
-            dict_bns.add(bn)
-            continue
-        kind = coerce_dtype(dtypes[fn], ctx.dense_dict_enabled)
-        if kind == "dict32":
-            raise no_device_lowering(
-                f"parquet column {fn!r}: string dtype without an arrow "
-                "string type — host tier serves it")
-        if kind == "int64?":
-            # int32 where the statistics prove it fits; otherwise (missing
-            # statistics or out of range) the wide pair, which holds any
-            # int64 (a uint64 beyond int64 raises when it is read)
-            mm = parquet_lib.parquet_column_minmax(path, fn)
-            info = np.iinfo(np.int32)
-            kind = ("wide" if mm is None or mm[0] < info.min
-                    or mm[1] > info.max else "int32")
-        out_dtypes[bn] = kind
-    files = parquet_lib.discover_parquet_files(path)
-    return _ParquetSource(ctx, files, columns, predicate, names, out_dtypes,
-                          dict_bns, dtypes)
+    forms.check()
+    return _ParquetSource(ctx, parquet_lib.discover_parquet_files(path),
+                          columns, predicate, names, forms.kinds, host,
+                          dtypes)

@@ -679,6 +679,9 @@ def segment_reduce_named(cols: Cols, count: torch.Tensor, key_name: str,
     for (col_op, dtype), names in batches.items():
         src = (cols[names[0]].reshape(-1) if len(names) == 1 else
                torch.stack([cols[nm].reshape(-1) for nm in names], dim=1))
+        if dtype == torch.bool:
+            # CUDA's scatter_reduce_ has no bool form: min / max of 0 / 1
+            src = src.to(torch.int32)
         acc = src.new_zeros((dump + 1,) + src.shape[1:])
         if col_op == "add":
             acc.index_add_(0, flat_seg, src)
@@ -687,6 +690,7 @@ def segment_reduce_named(cols: Cols, count: torch.Tensor, key_name: str,
             idx = (flat_seg if len(names) == 1 else
                    flat_seg.unsqueeze(1).expand(-1, len(names)))
             acc.scatter_reduce_(0, idx, src, reduce, include_self=False)
+        acc = acc.to(dtype)
         zero = torch.zeros((), dtype=dtype, device=src.device)
         for i, name in enumerate(names):
             vals = (acc if len(names) == 1 else acc[:, i])[:-1]
@@ -970,6 +974,42 @@ def wide_from_sums(hi_sum: torch.Tensor, lo_sum: torch.Tensor):
     hi = hi_sum + (lo_sum >> 32)
     return (_wrap_i32(hi), _wide_rebias(lo_sum & _WORD_MAX),
             (hi < INT32_MIN) | (hi > INT32_MAX))
+
+
+def f64_order(bits: torch.Tensor) -> torch.Tensor:
+    """The int64 bits of float64 values -> int64 words in the floats'
+    order (a negative float's magnitude bits flipped); its own inverse."""
+    return bits ^ ((bits >> 63) & (2**63 - 1))
+
+
+_QUIET_NAN = 0x7FF8000000000000
+_NAN_ROW_BITS = (1 << 50) - 1
+
+
+def f64_key(x: torch.Tensor, order: torch.Tensor,
+            side: Optional[int] = None) -> torch.Tensor:
+    """A float64 exchange key as the int64 (wide key words) whose order and
+    equality are those of Python floats, as the reference's host tier
+    keys them: -0.0 reads as 0.0, so the two zeros are one key; a NaN,
+    which equals nothing there, takes a quiet NaN whose payload is its
+    row's order (int64, unique per row), after +inf, and side 0 or 1 sets
+    bit 50, so a NaN of one join side never meets one of the other.
+    side None (a sort) gives every NaN one key after +inf."""
+    x = torch.where(x == 0, 0.0, x).contiguous()
+    bits = x.view(torch.int64)
+    if side is None:
+        nan = torch.full_like(bits, _QUIET_NAN)
+    else:
+        nan = _QUIET_NAN | (side << 50) | (order & _NAN_ROW_BITS)
+    return f64_order(torch.where(torch.isnan(x), nan, bits))
+
+
+def f64_from_key(words: torch.Tensor,
+                 negative_zero: torch.Tensor) -> torch.Tensor:
+    """The float64 values of f64_key's words; negative_zero (bool) gives a
+    zero key its sign back."""
+    x = f64_order(words).contiguous().view(torch.float64)
+    return torch.where((x == 0) & negative_zero, -0.0, x)
 
 
 # ---------------------------------------------------------------------------
