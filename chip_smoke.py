@@ -263,7 +263,20 @@ Phases, in order; any failure exits non-zero before the last line:
      y > 950, a group-by and a join on g, a left join filling 0.5 into
      the two int columns, sum / mean of v beside min(name). Each query's
      reference tier checked, once cold, held to numpy exactly, then three
-     warm runs, reported as phase 15's.
+     warm runs, reported as phase 15's;
+ 17. the reference's literal rule and numpy's integer widths on phase
+     15's tables, with m = x - 2^31 (an int64 column holding -2^31, which
+     the port holds as int32) and an int32 column i = x * 48271 mod 2^31:
+     (a) filter(x < 2^40), which keeps every row, then counts and sum(x)
+     by k; (b) the packed key k * 2^32 + y grouped with sum(x) and count;
+     (c) -m beside m, left-joined to the dimension frame's w; (d) i * i
+     and i * 3 + 7 beside big, which wrap in numpy's int32; (e) the RDD
+     filter(lambda x: x < 2^40), which must refuse at build. (a)-(d) run
+     on the reference's host tier (checked), each once cold, held to
+     numpy under that tier's rules (exact int64, int32 wrapping), then
+     three warm runs, reported as phase 15's; hash_bucket and digit_hist
+     in (a) and (c), digit_hist in (b) (its key is a wide pair),
+     partition_pos in (c).
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
@@ -271,8 +284,9 @@ line per phase-9 leg and item, one line per phase-10 leg and item, one
 line per phase-11 size, gf256 row and fold op, one line per phase-12
 item, one line per phase-13 leg and rank and per 13d query (one process
 and each rank), one line per phase-14 item and 14c rank, one line per
-phase-15 and phase-16 query, the kernel table as one JSON line (with
-phases 6-16's launches beside the main path's), the card line, and last
+phase-15, phase-16 and phase-17 query, the kernel table as one JSON line
+(with phases 6-17's launches beside the main path's), the card line, and
+last
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 
@@ -5542,6 +5556,212 @@ def phase_sixteen(torch, np, ck, vt):
                 wall_s=wall_s)
 
 
+P17_QUERIES = ("a_filter", "b_packed", "c_negate", "d_wrap")
+# the kernels each query must launch: a and c exchange on the int32 key
+# k, b on its packed key (a wide pair, hashed by hash32_pair in torch
+# ops), c joins; d has no exchange
+P17_NEED = {"a_filter": ("hash_bucket", "digit_hist"),
+            "b_packed": ("digit_hist",),
+            "c_negate": ("hash_bucket", "digit_hist", "partition_pos"),
+            "d_wrap": ()}
+P17_BIG = 1 << 40              # the literal past int32 of (a) and (e)
+P17_FILL = 0.5                 # c_negate's fill_value
+
+
+def p17_check(what, ok):
+    if not ok:
+        fail(f"phase 17: {what}")
+
+
+def p17_data(np):
+    """Phase 15's tables (p15_data) with m = x - 2^31 (int64, -2^31 on
+    row 0: the port holds it as int32 because it fits) and i = x * 48271
+    mod 2^31 as int32 (a numpy int32 source)."""
+    fact, dims, words, perm = p15_data(np)
+    fact["m"] = fact["x"] - 2**31
+    fact["i"] = (fact["x"] * 48271 % 2**31).astype(np.int32)
+    return fact, dims, words, perm
+
+
+def p17_query(ctx, fact, dims, q):
+    """One of phase 17's frame queries over frames built from the host
+    columns (the build is part of the run, timed apart as its host
+    build)."""
+    from vega_tpu_torch.frame import F, col
+
+    def fa(*cols):
+        return ctx.create_frame(**{c: fact[c] for c in cols})
+
+    if q == "a_filter":
+        return fa("k", "x").filter(col("x") < P17_BIG).group_by("k").agg(
+            F.count("n"), F.sum("x", "sx"))
+    if q == "b_packed":
+        return fa("k", "y", "x").with_column(
+            "p", col("k") * 2**32 + col("y")).group_by("p").agg(
+                F.sum("x", "sx"), F.count("n"))
+    if q == "c_negate":
+        return fa("k", "x", "m").with_column("n", -col("m")).join(
+            ctx.create_frame(k=dims["k"], w=dims["w"]), on="k", how="left",
+            fill_value=P17_FILL)
+    return fa("x", "i", "big").with_column("p", col("i") * col("i")) \
+        .with_column("q", col("i") * 3 + 7)
+
+
+def p17_expect(np, q, got, fact, dims):
+    """Hold one query's columns to numpy under the reference's host-tier
+    rules, exactly: int64 arithmetic over the int64 columns, int32
+    wrapping over the int32 one, int64 counts. Returns a note."""
+    n = P15_ROWS
+    k, x = fact["k"], fact["x"]
+    if q == "a_filter":
+        cnt = np.bincount(k, minlength=P15_KEYS)
+        sx = np.bincount(k, weights=x, minlength=P15_KEYS).astype(np.int64)
+        keys = np.flatnonzero(cnt)
+        o = np.argsort(got["k"])
+        p17_check("a_filter: every row kept, counts int64 and sum(x) exact",
+                  np.array_equal(got["k"][o], keys)
+                  and got["n"].dtype == np.int64
+                  and np.array_equal(got["n"][o], cnt[keys])
+                  and int(got["n"].sum()) == n
+                  and np.array_equal(got["sx"][o], sx[keys]))
+        return f"{n} rows kept, {len(keys)} groups"
+    if q == "b_packed":
+        p = k * 2**32 + fact["y"]
+        keys, inv, cnt = np.unique(p, return_inverse=True,
+                                   return_counts=True)
+        sx = np.bincount(inv, weights=x).astype(np.int64)
+        o = np.argsort(got["p"])
+        p17_check("b_packed: int64 keys past int32 exact, sum(x) and the "
+                  "int64 count exact",
+                  got["p"].dtype == np.int64
+                  and np.array_equal(got["p"][o], keys)
+                  and np.array_equal(got["sx"][o], sx)
+                  and got["n"].dtype == np.int64
+                  and np.array_equal(got["n"][o], cnt))
+        return f"{len(keys)} groups, keys up to {int(keys[-1])}"
+    if q == "c_negate":
+        present, once = p15_rows_by_id(np, n, got["x"])
+        p17_check("c_negate: every fact row once", once
+                  and bool(present.all()))
+        ox = got["x"]
+        m = fact["m"][ox]
+        matched = k[ox] % 2 == 0
+        w = np.where(matched, dims["w"][np.where(matched, k[ox] // 2, 0)]
+                     .astype(np.float64), P17_FILL)
+        p17_check("c_negate: -m int64 and exact (2^31 at m = -2^31), m "
+                  "exact, w float64 with the fill",
+                  got["n"].dtype == np.int64
+                  and np.array_equal(got["n"], -m)
+                  and np.array_equal(got["m"], m)
+                  and int(got["n"].max()) == 2**31
+                  and got["w"].dtype == np.float64
+                  and np.array_equal(got["w"], w))
+        return f"{len(ox)} rows, -m up to {int(got['n'].max())}"
+    ox = got["x"]
+    i = fact["i"][ox]
+    with np.errstate(over="ignore"):
+        pp, qq = i * i, i * np.int32(3) + np.int32(7)
+    wrapped = int((pp.astype(np.int64)
+                   != i.astype(np.int64) * i.astype(np.int64)).sum())
+    p17_check("d_wrap: i * i and i * 3 + 7 wrap in numpy's int32, big "
+              "exact",
+              len(ox) == n and np.array_equal(np.sort(ox), x)
+              and np.array_equal(got["p"], pp)
+              and np.array_equal(got["q"], qq)
+              and np.array_equal(got["big"], fact["big"][ox])
+              and wrapped > 0)
+    return f"{n} rows, {wrapped} products wrapped"
+
+
+def phase_seventeen(torch, np, ck, vt):
+    """Phase 17: the reference's literal rule (a Python int past int32
+    sends a plan to its host tier) and its host tier's integer widths at
+    P15_ROWS fact rows. Each frame query's reference tier checked, once
+    cold (held to numpy) and three times warm; the warm median ms, the
+    host build apart, the step peak and the cold run's launches. Then
+    the RDD filter with a constant past int32, refused at build."""
+    from vega_tpu_torch import dense_rdd
+    from vega_tpu_torch.errors import VegaError
+
+    from vega_tpu_torch.frame import col, lit
+
+    t0 = time.perf_counter()
+    card = card_line()
+    fact, dims, _words, _perm = p17_data(np)
+    ctx = vt.Context(n_shards=N_SHARDS)
+    # the int32 forms the range proof keeps on the card: % by a column
+    # at -2^31 % -1 (guarded: C's remainder may trap there) and // 8
+    x4 = np.array([-2**31, 7, -9, 2**31 - 1])
+    z4 = np.array([-1, -1, 4, -1])
+    got = ctx.create_frame(x=x4, z=z4, s=np.array(list("abcd"), object)) \
+        .filter(col("s") != lit("z")).with_column("r", col("x") % col("z")) \
+        .with_column("d", col("x") // 8).collect_columns()
+    o = np.argsort(got["x"])
+    p17_check(f"x % z and x // 8 int32 on the card ({got})",
+              got["r"].dtype == got["d"].dtype == np.int32
+              and got["r"][o].tolist() == (x4 % z4)[np.argsort(x4)].tolist()
+              and got["d"][o].tolist() == np.sort(x4 // 8).tolist())
+    log(f"17 int32 forms on the card: x % z {got['r'][o].tolist()}, "
+        f"x // 8 {got['d'][o].tolist()}")
+    rows, launches = [], {name: 0 for name in ck.LAUNCHES}
+    for q in P17_QUERIES:
+        tier, why = p17_query(ctx, fact, dims, q)._compiled().reference
+        p17_check(f"{q}: the reference's tier is host (got {tier})",
+                  tier == "host")
+
+        def run(q=q):
+            return p17_query(ctx, fact, dims, q).collect_columns(), None
+
+        out, cold = p10_run(torch, ck, ctx, q, run)
+        note = p17_expect(np, q, out, fact, dims)
+        del out
+        for name in P17_NEED[q]:
+            p17_check(f"{q} launched {name} ({cold['launches']})",
+                      cold["launches"][name] > 0)
+        for name in launches:
+            launches[name] += cold["launches"][name]
+        warm = [p10_run(torch, ck, ctx, q, run)[1] for _ in range(3)]
+        med = statistics.median(r["ms"] for r in warm)
+        r = dict(label=q, tier=tier, why=why, note=note, cold=cold,
+                 warm=warm, median_ms=med,
+                 median_host_build_ms=statistics.median(
+                     x["host_build_ms"] for x in warm),
+                 median_device_ms=statistics.median(
+                     x["device_ms"] for x in warm),
+                 peak_bytes=max(x["peak_bytes"] for x in warm + [cold]),
+                 launches=cold["launches"])
+        rows.append(r)
+        log(f"17 {q} (reference tier {tier}: {why}): {note}; {med:.3f} ms "
+            f"warm median of 3, host build "
+            f"{r['median_host_build_ms']:.3f} ms, cold {cold['ms']:.3f} ms, "
+            f"peak {r['peak_bytes']} B, launches "
+            f"{json.dumps(cold['launches'])} on {card}")
+    # (e) the RDD API: the closure refuses when the node is built
+    ck.reset_launches()
+    t1 = time.perf_counter()
+    try:
+        ctx.dense_range(P15_ROWS).filter(lambda x: x < P17_BIG)
+        refusal = None
+    except VegaError as e:
+        refusal = str(e)
+    build_ms = (time.perf_counter() - t1) * 1e3
+    p17_check(f"e_rdd: filter(lambda x: x < 2**40) refused at build "
+              f"({refusal})", refusal is not None
+              and refusal.endswith(dense_rdd.HOST_TIER_SUFFIX)
+              and "outside int32" in refusal
+              and not any(ck.LAUNCHES.values()))
+    rows.append(dict(label="e_rdd", tier="host", note=refusal,
+                     median_ms=build_ms, launches=dict(ck.LAUNCHES)))
+    log(f"17 e_rdd: refused at build in {build_ms:.3f} ms: {refusal}")
+    ctx.stop()
+    del fact, dims
+    torch.cuda.empty_cache()
+    check_launched(launches, "phase 17")
+    wall_s = time.perf_counter() - t0
+    log(f"phase 17 took {wall_s:.1f} s")
+    return dict(rows=rows, launches=launches, card=card, wall_s=wall_s)
+
+
 def main():
     try:
         import torch
@@ -5613,6 +5833,8 @@ def main():
     fifteen = phase_fifteen(torch, np, ck, vt)
     # 16. the reference's tier rules: bools, float64 keys and values, fills
     sixteen = phase_sixteen(torch, np, ck, vt)
+    # 17. the reference's literal rule and numpy's integer widths
+    seventeen = phase_seventeen(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -5632,7 +5854,8 @@ def main():
          "phase13_launches": thirteen["launches"][r["name"]],
          "phase14_launches": fourteen["launches"][r["name"]],
          "phase15_launches": fifteen["launches"][r["name"]],
-         "phase16_launches": sixteen["launches"][r["name"]]}
+         "phase16_launches": sixteen["launches"][r["name"]],
+         "phase17_launches": seventeen["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -5647,7 +5870,7 @@ def main():
                    new_ops=new_ops, phase7=seven, phase8=eight,
                    phase9=nine, phase10=ten, phase11=eleven,
                    phase12=twelve, phase13=thirteen, phase14=fourteen,
-                   phase15=fifteen, phase16=sixteen)
+                   phase15=fifteen, phase16=sixteen, phase17=seventeen)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -5923,6 +6146,21 @@ def main():
     print(f"phase 16 launches {json.dumps(sixteen['launches'])}; explain "
           f"(f12_count): {sixteen['explain']}; phase 16 "
           f"{sixteen['wall_s']:.1f} s on {card}", flush=True)
+    for r in seventeen["rows"]:
+        if r["label"] == "e_rdd":
+            print(f"phase 17 e_rdd: refused at build in "
+                  f"{r['median_ms']:.3f} ms, launches "
+                  f"{json.dumps(r['launches'])} on {card}", flush=True)
+            continue
+        print(f"phase 17 {r['label']} ({P15_ROWS} fact rows; reference "
+              f"tier {r['tier']}: {r['why']}; {r['note']}): "
+              f"{r['median_ms']:.3f} ms warm median of 3, host build "
+              f"{r['median_host_build_ms']:.3f} ms, device steps "
+              f"{r['median_device_ms']:.3f} ms, cold {r['cold']['ms']:.3f} "
+              f"ms, step peak {r['peak_bytes']} B, launches "
+              f"{json.dumps(r['launches'])} on {card}", flush=True)
+    print(f"phase 17 launches {json.dumps(seventeen['launches'])}; phase 17 "
+          f"{seventeen['wall_s']:.1f} s on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",

@@ -443,6 +443,8 @@ UINT32_OPS = {
         lambda y: (y % 1000, 1)).reduce_by_key(op="add").collect_arrays(),
     "filter": lambda c, x: c.dense_from_numpy(x).filter(
         lambda y: y > U31).collect(),
+    "filter_at_int32_max": lambda c, x: c.dense_from_numpy(x).filter(
+        lambda y: y > U31 - 1).collect(),
     "reduce_xor": lambda c, x: c.dense_from_numpy(x).reduce(
         lambda a, b: a ^ b),
     "collect_arrays": lambda c, x: c.dense_from_numpy(
@@ -450,15 +452,31 @@ UINT32_OPS = {
 }
 
 
+# ops whose closure holds a Python int past int32: the reference's trace
+# refuses it (its literal rule) and its host tier compares exactly; the
+# port traces under the same rule and refuses the closure at build
+UINT32_REFUSED = ("filter",)
+
+
 @pytest.mark.parametrize("op", sorted(UINT32_OPS))
 def test_uint32_ops(ctxs, op):
     """The actions and row ops over a uint32 column on both sides of 2^31
-    (2^32 - 1 included) equal the reference's, dtypes included."""
+    (2^32 - 1 included) equal the reference's, dtypes included, or, with
+    a constant past int32 in the closure, refuse as the literal rule
+    says."""
     ref, port = ctxs
     rng = np.random.RandomState(7)
     x = np.concatenate([rng.randint(0, 2**32, 300, dtype=np.int64),
                         [2**32 - 1, U31, U31 - 1, 0, 0]]).astype(np.uint32)
     exp = UINT32_OPS[op](ref, x)
+    if op in UINT32_REFUSED:
+        assert exp == [int(y) for y in x if y > U31]
+        with pytest.raises(VegaError, match="outside int32") as ei:
+            UINT32_OPS[op](port, x)
+        assert str(ei.value).endswith(": the reference hands this to its "
+                                      "host tier, which vega_tpu_torch "
+                                      "does not have")
+        return
     got = UINT32_OPS[op](port, x)
     if isinstance(exp, dict) and isinstance(next(iter(exp.values())),
                                             np.ndarray):

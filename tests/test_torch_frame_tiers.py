@@ -60,10 +60,20 @@ ACCEL_PLANS = {"dense_rbk_plan": "fused_sort", "dense_table_plan": "off",
                "dense_sort_impl": "xla"}
 X6 = np.arange(6)
 X8 = np.arange(8)
+# an int64 source whose values fit int32 (the port holds it as int32) and
+# an int32 one
+X64 = np.array([5, -2**31, 3, 2**31 - 1])
+X32 = np.array([100000, -2**31, 3, 7], np.int32)
 
 
 def S(*words):
     return np.array(words, dtype=object)
+
+
+def _rows_of(*cols):
+    """Rows of Python ints from numpy columns (their own wrapping)."""
+    with np.errstate(over="ignore"):
+        return [tuple(int(v) for v in row) for row in zip(*cols)]
 
 
 @pytest.fixture(scope="module")
@@ -390,7 +400,119 @@ CASES = {
                 fr.F.min("s")),
         "host", None, [(0, 3 * 2**30, float(2**30), 3, "a"),
                        (1, 5, 5.0, 1, "d")]),
+    # F18: a constant past int32 does not trace on the reference's device
+    # tier, so the plan runs on its host tier, exact over the int64
+    # source (X64 holds -2^31 and 2^31 - 1, int32 in the port)
+    "f18_filter_below_2_40": (
+        lambda ctx, fr: ctx.create_frame(x=X64).filter(fr.col("x") < 2**40),
+        "host", None, [(-2**31,), (3,), (5,), (2**31 - 1,)]),
+    "f18_filter_equal_past_int32": (
+        lambda ctx, fr: ctx.create_frame(x=X64).filter(
+            fr.col("x") == 2**32 + 5), "host", None, []),
+    "f18_add_and_multiply_past_int32": (
+        lambda ctx, fr: ctx.create_frame(x=X64)
+        .with_column("q", fr.col("x") + 2**31)
+        .with_column("m", fr.col("x") * 2**31),
+        "host", None, [(int(x), int(x) + 2**31, int(x) * 2**31)
+                       for x in X64]),
+    "f18_group_key_past_int32": (
+        lambda ctx, fr: ctx.create_frame(x=X64).with_column(
+            "g", fr.col("x") % 2 + 2**40).group_by("g").count(),
+        "host", None, [(2**40, 1), (2**40 + 1, 3)]),
+    "f18_bool_times_past_int32": (
+        lambda ctx, fr: ctx.create_frame(x=X64).with_column(
+            "b", (fr.col("x") > 4) * 3_000_000_000).select("b"),
+        "host", None, [(0,), (0,), (3_000_000_000,), (3_000_000_000,)]),
+    "f18_constant_past_int32": (
+        lambda ctx, fr: ctx.create_frame(x=X64[:2]).with_column(
+            "c", fr.lit(2**40)), "host", None,
+        [(-2**31, 2**40), (5, 2**40)]),
+    # F19: an int32 source on the host tier computes in numpy's int32
+    # and wraps; int32 beside an int64 source gives int64
+    "f19_int32_source_wraps": (
+        lambda ctx, fr: ctx.create_frame(
+            x=X32, y=X64, s=S("a", "b", "c", "d"))
+        .filter(fr.col("s") != fr.lit("z"))
+        .with_column("p", fr.col("x") * fr.col("x"))
+        .with_column("t", fr.col("x") * 3)
+        .with_column("d", fr.col("x") + fr.col("x"))
+        .with_column("n", -fr.col("x"))
+        .with_column("w", fr.col("x") + fr.col("y"))
+        .select("x", "p", "t", "d", "n", "w"),
+        "host", None, _rows_of(X32, X32 * X32, X32 * np.int32(3), X32 + X32,
+                               -X32, X32 + X64)),
+    "f19_int32_division_by_zero_and_minus_one": (
+        lambda ctx, fr: ctx.create_frame(
+            x=X32, z=np.array([0, -1, 2, 0], np.int32),
+            s=S("a", "b", "c", "d"))
+        .filter(fr.col("s") != fr.lit("z"))
+        .with_column("q", fr.col("x") // fr.col("z"))
+        .with_column("r", fr.col("x") % fr.col("z"))
+        .select("x", "q", "r"),
+        "host", None, [(100000, 0, 0), (-2**31, -2**31, 0), (3, 1, 1),
+                       (7, 0, 0)]),
+    "f19_narrow_sources_wrap_in_their_width": (
+        lambda ctx, fr: ctx.create_frame(
+            a=np.array([100, -100, 7], np.int8),
+            u=np.array([3, 2**32 - 1, 0], np.uint32),
+            h=np.array([40000, 1, 65535], np.uint16),
+            s=S("a", "b", "c"))
+        .filter(fr.col("s") != fr.lit("z"))
+        .with_column("a2", fr.col("a") * 2)
+        .with_column("u5", fr.col("u") - 5)
+        .with_column("h2", fr.col("h") * fr.col("h"))
+        .with_column("au", fr.col("a") + fr.col("u"))
+        .select("a2", "u5", "h2", "au"),
+        "host", None, [(-56, 2**32 - 2, 40000 * 40000 % 2**16, 103),
+                       (56, 2**32 - 6, 1, 2**32 - 101),
+                       (14, 2**32 - 5, 1, 7)]),
+    "f19_int32_source_sums_exactly": (
+        lambda ctx, fr: ctx.create_frame(
+            k=np.array([0, 0, 1], np.int32),
+            x=np.array([2**30, 2**30, 5], np.int32), s=S("a", "b", "c"))
+        .with_column("x2", fr.col("x") * 2)
+        .group_by("k").agg(fr.F.sum("x2"), fr.F.min("s")),
+        "host", None, [(0, -2**32, "a"), (1, 10, "c")]),
+    "f19_after_an_exchange_ints_are_pythons": (
+        lambda ctx, fr: ctx.create_frame(
+            k=np.array([100000, -70000, 100000], np.int32),
+            x=np.array([2**31 - 1, 5, 2**31 - 1], np.int32),
+            s=S("a", "b", "c"))
+        .group_by("k").agg(fr.F.max("x", "mx"), fr.F.min("s"))
+        .with_column("kk", fr.col("k") * fr.col("k"))
+        .with_column("m3", fr.col("mx") * 3).select("k", "kk", "m3"),
+        "host", None, [(100000, 10**10, 3 * (2**31 - 1)),
+                       (-70000, 49 * 10**8, 15)]),
+    # F17's rest: an int64 source's negation and floor division by -1 or
+    # by a column leave int32; // by another literal and % stay in it
+    "f17_negation_and_floor_division_of_int64": (
+        lambda ctx, fr: ctx.create_frame(
+            x=X64, z=np.array([-1, -1, 2, -1]), s=S("a", "b", "c", "d"))
+        .filter(fr.col("s") != fr.lit("z"))
+        .with_column("n", -fr.col("x"))
+        .with_column("d", fr.col("x") // -1)
+        .with_column("c", fr.col("x") // fr.col("z"))
+        .with_column("e", fr.col("x") // 8)
+        .with_column("r", fr.col("x") % fr.col("z"))
+        .select("x", "n", "d", "c", "e", "r"),
+        "host", None, [(int(x), -int(x), -int(x), int(x) // int(z),
+                        int(x) // 8, int(x) % int(z))
+                       for x, z in zip(X64, (-1, -1, 2, -1))]),
+    "f17_key_by_floor_division": (
+        lambda ctx, fr: ctx.create_frame(
+            k=np.arange(40) - 20, s=S(*("ab" * 20)))
+        .with_column("g", fr.col("k") // 8).group_by("g").agg(
+            fr.F.count("n"), fr.F.min("s")),
+        "host", None, [(-3, 4, "a"), (-2, 8, "a"), (-1, 8, "a"), (0, 8, "a"),
+                       (1, 8, "a"), (2, 4, "a")]),
     # the agreements
+    "agree_int32_and_int64_sources_on_the_device_tier": (
+        lambda ctx, fr: ctx.create_frame(x=X32, y=X64)
+        .with_column("m", fr.col("x") % 7)
+        .with_column("d", fr.col("y") // -1)
+        .with_column("s", fr.col("x") + fr.col("y")),
+        "device", None, _rows_of(X32, X64, X32 % 7, -X64.astype(np.int32),
+                                 X32 + X64.astype(np.int32))),
     "agree_float32_times_a_constant_on_the_host_tier": (
         lambda ctx, fr: ctx.create_frame(
             k=np.arange(3), f=np.array([0.1, 0.3, 0.7], np.float32),
@@ -458,9 +580,11 @@ def test_dtypes_follow_the_tier(ctxs):
     fill makes an int32 column float64 and an int fill past int32 a wide
     one; a float64 source and its mean stay float64 on the host tier and
     narrow on the device tier; a bool key comes back bool; a host-tier
-    bool sum is an int32 count and its mean a float64; a host-tier int32
-    sum is an int64 (a count stays int32), a float32 sum a float64, and
-    the host's numpy arithmetic gives float64 and int64."""
+    bool sum counts the True rows and its mean is a float64; a host-tier
+    int32 sum is an int64, a float32 sum a float64, and the host's numpy
+    arithmetic gives float64 and int64. A host-tier count and bool sum are
+    int64, as numpy holds the host's Python ints; a device-tier count
+    stays int32 (test_device_tier_count_stays_int32)."""
     _ref, port = ctxs
     cols = CASES["f15_float_fill"][0](port, port_frame).collect_columns()
     assert cols["w"].dtype == cols["v"].dtype == np.float64
@@ -477,10 +601,13 @@ def test_dtypes_follow_the_tier(ctxs):
     assert cols["b"].dtype == np.bool_
     cols = CASES["f12_count_beside_wide"][0](
         port, port_frame).collect_columns()
-    assert cols["n"].dtype == np.int32 and cols["m"].dtype == np.float64
+    assert cols["n"].dtype == np.int64 and cols["m"].dtype == np.float64
     cols = CASES["f17_int_sum_past_int32"][0](
         port, port_frame).collect_columns()
-    assert cols["sum_x"].dtype == np.int64 and cols["n"].dtype == np.int32
+    assert cols["sum_x"].dtype == np.int64 and cols["n"].dtype == np.int64
+    cols = CASES["f18_group_key_past_int32"][0](
+        port, port_frame).collect_columns()
+    assert cols["g"].dtype == cols["count"].dtype == np.int64
     cols = CASES["f17_float32_sum_beside_string_min"][0](
         port, port_frame).collect_columns()
     assert cols["sum_f"].dtype == cols["m"].dtype == np.float64
@@ -488,6 +615,141 @@ def test_dtypes_follow_the_tier(ctxs):
         port, port_frame).collect_columns()
     assert [str(cols[c].dtype) for c in "ghijm"] == \
         ["float64", "float64", "float64", "float64", "int64"]
+
+
+# one column of each numpy dtype a frame source may have (no zero, so
+# every integer divides by every other), and a string column whose
+# predicate sends the plan to the reference's host tier
+NP_COLUMNS = {
+    "i8": np.array([100, -100, 7, -3, 127, -128], np.int8),
+    "u8": np.array([200, 1, 255, 7, 3, 128], np.uint8),
+    "i16": np.array([30000, -30000, 7, -3, 32767, -32768], np.int16),
+    "u16": np.array([60000, 1, 65535, 7, 3, 40000], np.uint16),
+    "i32": np.array([2**31 - 1, -2**31, 100000, -70000, 3, -5], np.int32),
+    "u32": np.array([2**32 - 1, 2**31, 5, 100000, 3, 7], np.uint32),
+    "i64": np.array([5, -2**31, 3, 2**31 - 1, -9, 11]),
+    "b": np.array([True, False, True, True, False, True]),
+    "f32": np.array([0.5, -1.5, 3.25, 100.0, -7.0, 1e-3], np.float32),
+}
+NP_OPS = ("+", "-", "*", "/", "//", "%", "<", "==", "&")
+
+
+@pytest.mark.parametrize("op", NP_OPS)
+def test_host_arithmetic_is_numpys(ctxs, op):
+    """Every pair of source dtypes under one operator, each column with the
+    constants 3 and 100 on either side, and - and ~ of each column, on
+    the reference's host tier before its first exchange: the port's rows
+    equal numpy's, wrapping in each narrow dtype, exact in int64, float32
+    where numpy keeps it. numpy refuses bool - bool and & with a float;
+    bools do not divide (an int64 column divided by False raises in the
+    port, where numpy gives 0)."""
+    ref, port = ctxs
+    names = list(NP_COLUMNS)
+    exprs = []
+    for a, b in [(a, b) for a in names for b in names + [3, 100]] + [
+            (c, b) for c in (3, 100) for b in names]:
+        if "f32" in (a, b) and op == "&":
+                continue
+        if a == "b" and b == "b" and op == "-":
+            continue
+        if op in ("//", "%", "/") and "b" in (a, b):
+            continue
+        exprs.append((a, b))
+
+    def build(ctx, fr):
+        q = ctx.create_frame(**NP_COLUMNS, s=S(*"abcdef")).filter(
+            fr.col("s") != fr.lit("z"))
+        out = []
+        for i, (a, b) in enumerate(exprs):
+            lhs, rhs = (fr.col(x) if isinstance(x, str) else fr.lit(x)
+                        for x in (a, b))
+            q = q.with_column(f"e{i}", fr.expr.BinOp(op, lhs, rhs))
+            out.append(f"e{i}")
+        for i, (a, kind) in enumerate(
+                (a, kind) for a in names for kind in "-~"
+                if not (a == "b" and kind == "-")
+                and not (a == "f32" and kind == "~")):
+            q = q.with_column(f"u{i}", fr.expr.UnaryOp(kind, fr.col(a)))
+            out.append(f"u{i}")
+        return q.select(*out)
+
+    rq, pq = build(ref, ref_frame), build(port, port_frame)
+    assert _ref_tier(rq) == "host"
+    with np.errstate(all="ignore"):
+        want = rq.collect()
+    got = pq.collect()
+    for i in range(len(want[0])):
+        _exact(sorted([(r[i],) for r in got], key=_order_key),
+               sorted([(r[i],) for r in want], key=_order_key))
+
+
+def test_device_tier_count_stays_int32(ctxs):
+    _ref, port = ctxs
+    cols = CASES["agree_count_beside_bool_max"][0](
+        port, port_frame).collect_columns()
+    assert cols["n"].dtype == np.int32
+
+
+def _exchange_key_words(q) -> int:
+    """How many words the exchange key of a group-by takes: 1 for an
+    int32 key, which the hash_bucket kernel hashes, 2 for a wide one
+    (hash32_pair)."""
+    node = q._compiled().rdd
+    while not isinstance(node, dense_rdd._ReduceByKeyRDD):
+        node = node.parent
+    schema = dict(node.parent._schema())
+    return 2 if dense_rdd.KEY_LO in schema else 1
+
+
+@pytest.mark.parametrize("key, words", [
+    (lambda fr: fr.col("k") // 8, 1), (lambda fr: fr.col("k") % 5, 1),
+    (lambda fr: fr.col("k") % fr.col("z"), 1),
+    (lambda fr: fr.col("k") // -1, 2), (lambda fr: -fr.col("k"), 2),
+    (lambda fr: fr.col("k") // fr.col("z"), 2),
+    (lambda fr: fr.col("k") + 1, 2)], ids=[
+        "floordiv_8", "mod_5", "mod_column", "floordiv_minus_1", "negate",
+        "floordiv_column", "plus_1"])
+def test_host_tier_keys_stay_int32_where_proven(ctxs, key, words):
+    """A host-tier key over an int64 source held as int32 keeps one word
+    where its value provably fits int32 (// by a literal other than 0 and
+    -1, % by anything of int32), and takes the wide pair where it may
+    leave int32; the rows equal the reference's either way."""
+    ref, port = ctxs
+    k = np.array([-2**31, -9, 0, 7, 2**31 - 1, 16])
+    z = np.array([3, -1, 5, -1, 7, 2])
+
+    def build(ctx, fr):
+        return ctx.create_frame(k=k, z=z, s=S(*"abcdef")).with_column(
+            "g", key(fr)).group_by("g").agg(fr.F.count("n"), fr.F.min("s"))
+
+    rq, pq = build(ref, ref_frame), build(port, port_frame)
+    assert _ref_tier(rq) == "host"
+    _exact(sorted(pq.collect(), key=_order_key),
+           sorted(rq.collect(), key=_order_key))
+    assert _exchange_key_words(pq) == words
+
+
+@pytest.mark.parametrize("host", [False, True], ids=["alone", "host_plan"])
+def test_int32_source_past_int32_raises(ctxs, host):
+    """An int32 source meets a constant past int32: the reference's trace
+    refuses it and its host tier's numpy raises OverflowError (NEP 50);
+    the port raises VegaError naming it, when the plan compiles."""
+    ref, port = ctxs
+
+    def build(ctx, fr):
+        q = ctx.create_frame(x=X32, s=S("a", "b", "c", "d"))
+        if host:
+            q = q.filter(fr.col("s") != fr.lit("z"))
+        return q.with_column("q", fr.col("x") + 2**40)
+
+    with pytest.raises(Exception, match="OverflowError.*out of bounds"):
+        build(ref, ref_frame).collect()
+    q = build(port, port_frame)
+    assert _port_tier(q)[0] == "host"
+    for action in (q.collect, q.explain):
+        with pytest.raises(VegaError, match="OverflowError: Python integer "
+                           "1099511627776 out of bounds for int32"):
+            action()
 
 
 def test_explain_names_the_reference_tier(ctxs):

@@ -21,6 +21,7 @@ import torch
 
 import vega_tpu as v
 import vega_tpu_torch as vt
+from vega_tpu_torch import dense_rdd
 from vega_tpu_torch.errors import VegaError
 
 N_SHARDS = 8
@@ -225,15 +226,70 @@ def test_division_by_zero_on_a_valid_row(ctxs):
 
 
 def test_int64_intermediate_past_int32(ctxs):
-    """Recorded difference: a Python constant beyond int32 sends the
-    reference's trace to its host tier (exact Python ints), while torch
-    promotes to int64 and the port narrows the result to int32."""
+    """A Python constant beyond int32 sends the reference's trace to its
+    host tier (exact Python ints); the port traces under the same literal
+    rule and refuses the row function when it is built, never wrapping
+    the value."""
     ref, port = ctxs
     big = 3_000_000_000
     exp = ref.dense_from_numpy(A).map(lambda x: (x > 5) * big).collect()
     assert exp[-1] == big
-    got = port.dense_from_numpy(A).map(lambda x: (x > 5) * big).collect()
-    assert got[-1] == big - 2**32
+    with pytest.raises(VegaError, match="outside int32") as ei:
+        port.dense_from_numpy(A).map(lambda x: (x > 5) * big)
+    assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+
+
+# F18: a Python int past int32 in a closure. The reference's trace refuses
+# it and its host tier computes exact Python ints; the port refuses the
+# closure when the node is built. name -> (build(ctx), the reference's
+# rows or None where its host tier raises too)
+R4 = np.arange(4, dtype=np.int32)
+F18_CLOSURES = {
+    "filter": (lambda ctx: ctx.dense_range(4).filter(lambda x: x < 2**40),
+               [0, 1, 2, 3]),
+    "map_pair": (lambda ctx: ctx.dense_range(4).map(
+        lambda x: (x, x + 2**40)), [(i, i + 2**40) for i in range(4)]),
+    "map_values": (lambda ctx: ctx.dense_from_numpy(R4, R4).map_values(
+        lambda v: v * 2**31), [(i, i * 2**31) for i in range(4)]),
+    "map_constant_sum": (lambda ctx: ctx.dense_range(4).map(
+        lambda x: x - 2**31 - 1), [i - 2**31 - 1 for i in range(4)]),
+    "reduce_by_key": (lambda ctx: ctx.dense_from_numpy(R4 % 2, R4)
+                      .reduce_by_key(lambda a, b: a + b + 2**40),
+                      [(0, 2 + 2**40), (1, 4 + 2**40)]),
+    # the reference's host tier calls f on one Python int a row, which
+    # no array expansion takes: its job fails
+    "flat_map_ragged": (lambda ctx: ctx.dense_range(4).flat_map_ragged(
+        lambda x: (x[..., None] + 2**40, 1), 1), None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(F18_CLOSURES))
+def test_closure_with_a_constant_past_int32_refuses(ctxs, name):
+    ref, port = ctxs
+    build, want = F18_CLOSURES[name]
+    if want is None:
+        with pytest.raises(Exception, match="not subscriptable"):
+            build(ref).collect()
+    else:
+        assert sorted(build(ref).collect()) == want
+    with pytest.raises(VegaError, match="outside int32") as ei:
+        build(port)
+    assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+
+
+def test_stream_closure_with_a_constant_past_int32_refuses(ctxs):
+    """A streamed source's closure: the reference hands it to its host
+    tier (exact Python ints); the port refuses it at build, before any
+    chunk runs."""
+    ref, port = ctxs
+    r = ref.dense_range(10_000, chunk_rows=2_000).map(lambda x: x * 2**31)
+    assert r.take(3) == [0, 2**31, 2**32]
+    s = port.dense_range(10_000, chunk_rows=2_000)
+    for build in (lambda: s.map(lambda x: x * 2**31),
+                  lambda: s.filter(lambda x: x < 2**40)):
+        with pytest.raises(VegaError, match="outside int32") as ei:
+            build()
+        assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
 
 
 # ---------------------------------------------------------------------------

@@ -124,6 +124,7 @@ from vega_tpu_torch import kernels
 from vega_tpu_torch import cuda_kernels
 from vega_tpu_torch import mesh as mesh_lib
 from vega_tpu_torch import stream
+from vega_tpu_torch import tracing
 from vega_tpu_torch.block import KEY, KEY_LO, VALUE, Block
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.store import StorageLevel
@@ -1907,9 +1908,11 @@ def _scan_partials(blk: Block, vals: torch.Tensor, binop):
 
 def _wide_binop(f, wide: torch.dtype, what: str):
     """f traced once on empty int64 / float64 probes: it must map two such
-    columns to one of the same dtype and shape; returns f."""
+    columns to one of the same dtype and shape; returns f. The reference
+    folds these on Python numbers and never traces f, so its literal rule
+    does not apply: a constant past int32 is exact in int64."""
     p = torch.empty((1, 0), dtype=wide)
-    out = _traced(f, (p, p), f"{what} binop")
+    out = _traced(f, (p, p), f"{what} binop", literal_rule=False)
     if not isinstance(out, torch.Tensor) or out.shape != p.shape \
             or out.dtype != wide:
         raise _no_host_tier(f"{what} binop {f!r} must map two {wide} "
@@ -1981,11 +1984,16 @@ def _row_view(cols, schema):
             if nm in cols}
 
 
-def _traced(f, args, what: str):
-    """f(*args) on probe tensors; a failure means f does not run on column
-    tensors: the reference would hand it to its host tier."""
+def _traced(f, args, what: str, literal_rule: bool = True):
+    """f(*args) on probe tensors, under the reference's literal rule
+    (tracing.int32_literals: a Python int past int32 raises); a failure
+    means f does not run on column tensors: the reference would hand it
+    to its host tier."""
     try:
-        return f(*args)
+        if not literal_rule:
+            return f(*args)
+        with tracing.int32_literals():
+            return f(*args)
     except Exception as e:  # noqa: BLE001 — any failure means "no trace"
         raise _no_host_tier(f"{what} {f!r} does not run on column tensors "
                             f"({type(e).__name__}: {e})") from e

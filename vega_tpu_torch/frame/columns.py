@@ -2,8 +2,9 @@
 give: exact int64 arithmetic over wide columns, comparisons of string
 columns, whose device form is rank codes into a sorted dictionary, and
 the forms by which the planner applies the reference's host-tier rules:
-its numpy arithmetic (HostArith), the float64 cast of a sum (Cast) and
-the float64 key's decode (KeyFloat64).
+its numpy arithmetic (host_binop, host_unary, over NpInt columns of
+numpy's own width), the float64 cast of a sum (Cast) and the float64
+key's decode (KeyFloat64).
 
 A wide int64 column (block.encode_i64's hi / biased-lo word pair) enters
 a stage as a `WideInt` over its int64 values. Python operators on it give
@@ -32,10 +33,11 @@ import torch
 
 from vega_tpu_torch import dict_encoding
 from vega_tpu_torch.errors import VegaError
-from vega_tpu_torch.frame.expr import (_BIN_OPS, BinOp, Col, Expr, Lit,
-                                       UnaryOp, Udf)
+from vega_tpu_torch.frame.expr import (_BIN_OPS, _UNARY_OPS, BinOp, Col,
+                                       Expr, Lit, UnaryOp, Udf)
 
 I64_MIN, I64_MAX = -2**63, 2**63 - 1
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
 # the environment key under which a stage passes its resolved dictionary
 # inputs to DictCmp (no frame column is named so)
 RESOLVED = "\x00resolved"
@@ -227,7 +229,7 @@ class Cast(Expr):
 
     def _eval(self, env: dict):
         x = self.e._eval(env)
-        return (x.v if isinstance(x, WideInt)
+        return (x.v if isinstance(x, (WideInt, NpInt))
                 else torch.as_tensor(x)).to(torch.float64)
 
     def references(self, out: set) -> None:
@@ -243,44 +245,284 @@ class Cast(Expr):
 _ARITH_OPS = ("+", "-", "*", "/", "//", "%")
 
 
-def _is_int(x) -> bool:
-    return isinstance(x, torch.Tensor) and not x.dtype.is_floating_point
+class NumpyOverflow(VegaError):
+    """A Python int that numpy 2 (NEP 50) refuses beside a column of a
+    narrower integer dtype: the reference's host tier raises
+    OverflowError there, so the port raises this when the plan
+    compiles."""
+
+    def __init__(self, value: int, dt: np.dtype):
+        super().__init__(
+            "the reference's host tier computes this stage in numpy, which "
+            f"raises OverflowError: Python integer {value} out of bounds "
+            f"for {dt}")
 
 
-def _is_int32(x) -> bool:
-    return isinstance(x, torch.Tensor) and x.dtype == torch.int32
+class NpInt:
+    """The values of a numpy integer column of 32 bits or fewer inside a
+    host-tier stage before its first exchange (the reference's blocks
+    layout, where numpy holds each source column in its own dtype): v the
+    exact values as int64, dt the numpy dtype. host_binop computes on it
+    as numpy 2 does: in dt, wrapping, beside another such column or a
+    Python int that fits dt (one that does not raises NumpyOverflow);
+    in int64 (a WideInt) beside an int64 column. stored() is its block
+    form: int32 words, or the wide pair for a uint32 column, whose
+    values may pass int32."""
+
+    __slots__ = ("v", "dt")
+
+    def __init__(self, v: torch.Tensor, dt):
+        self.v = v.to(torch.int64)
+        self.dt = np.dtype(dt)
+
+    def __bool__(self):
+        raise TypeError("an integer column has no truth value (a branch "
+                        "on a value)")
+
+    def stored(self):
+        if self.dt == np.uint32:
+            return WideInt(self.v, [])
+        return self.v.to(torch.int32)
+
+    def tensor(self) -> torch.Tensor:
+        """The values in the torch dtype closest to dt (a Udf's input)."""
+        return self.v.to(_TORCH_OF_NP.get(self.dt, torch.int32))
 
 
-def _is_float(x) -> bool:
-    return isinstance(x, float) or (isinstance(x, torch.Tensor)
-                                    and x.dtype.is_floating_point)
+# numpy dtype -> the torch dtype that holds it (the rest: int32)
+_TORCH_OF_NP = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+                np.dtype(np.uint8): torch.uint8,
+                np.dtype(np.uint32): torch.int64}
+
+
+def _wrapped(r: torch.Tensor, dt: np.dtype) -> NpInt:
+    """int64 values r taken mod 2^width into dt's range, as numpy wraps."""
+    bits = dt.itemsize * 8
+    mask = (1 << bits) - 1
+    if dt.kind == "u":
+        return NpInt(r & mask, dt)
+    half = 1 << (bits - 1)
+    return NpInt(((r + half) & mask) - half, dt)
+
+
+def _np_kind(x):
+    """numpy's view of one operand of a host-tier stage: its dtype, a weak
+    Python scalar (False, 0, 0.0: NEP 50 gives it the other operand's
+    kind), or None for anything else (a string). A plain int32 column is
+    int64 to numpy: an int64 source held as int32 because it fits, or a
+    Python int after an exchange."""
+    if isinstance(x, NpInt):
+        return x.dt
+    if isinstance(x, WideInt):
+        return np.dtype(np.int64)
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bool:
+            return np.dtype(np.bool_)
+        if x.dtype.is_floating_point:
+            return np.dtype(str(x.dtype).replace("torch.", ""))
+        return np.dtype(np.int64)
+    if isinstance(x, np.generic):
+        return x.dtype
+    if isinstance(x, (bool, int, float)):
+        return type(x)(0)
+    return None
+
+
+def _scalar(x):
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def _i64(x):
+    """An integer or bool operand as exact int64 values (a Python scalar
+    stays one)."""
+    if isinstance(x, (NpInt, WideInt)):
+        return x.v
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64)
+    return int(_scalar(x))
+
+
+def _fits_int32(x) -> bool:
+    """Whether an operand's values provably lie in int32: a plain int32 or
+    bool column, a numpy column narrower than uint32, a Python int in
+    range."""
+    if isinstance(x, NpInt):
+        return x.dt != np.uint32
+    if isinstance(x, torch.Tensor):
+        return x.dtype in (torch.int32, torch.bool)
+    x = _scalar(x)
+    return isinstance(x, int) and I32_MIN <= x <= I32_MAX
+
+
+def _i32(x):
+    if isinstance(x, NpInt):
+        return x.v.to(torch.int32)
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int32)
+    return int(_scalar(x))
+
+
+def _divmod_guarded(op, x, y):
+    """x // y or x % y over integers, one of them a tensor, with a zero
+    divisor giving 0 (numpy's answer, with its warning)."""
+    if not isinstance(y, torch.Tensor):
+        return torch.zeros_like(x) if y == 0 else op(x, y)
+    zero = y == 0
+    return torch.where(zero, 0, op(x, torch.where(zero, 1, y)))
+
+
+def _int32_form(op, a, b, sink):
+    """a op b where int32 holds the result (the range proof keeps an int32
+    key, which the hash_bucket kernel hashes): // by a literal not in
+    {0, -1}, % by an int32 operand, & | ^ of two; else None. A zero
+    divisor in % is recorded in sink, as WideInt records it."""
+    if not (_fits_int32(a) and _fits_int32(b)):
+        return None
+    bs = _scalar(b)
+    if op == "//" and isinstance(bs, int) and bs not in (0, -1) and \
+            isinstance(a, (torch.Tensor, NpInt)):
+        return _i32(a) // bs
+    if op in ("&", "|", "^"):
+        return _BIN_OPS[op](_i32(a), _i32(b))
+    if op != "%" or not isinstance(a, (torch.Tensor, NpInt)):
+        return None
+    x = _i32(a)
+    if not isinstance(b, (torch.Tensor, NpInt)):
+        if bs == 0:
+            return None
+        return torch.zeros_like(x) if bs == -1 else x % bs
+    y = _i32(b)
+    # -2^31 % -1 is 0, which C's remainder may trap on: both guarded
+    odd = (y == 0) | (y == -1)
+    sink.append(y == 0)
+    return torch.where(odd, 0, x % torch.where(odd, 1, y))
+
+
+def host_binop(op: str, a, b, sink: list):
+    """a op b as the reference's host tier computes it (numpy 2 before the
+    first exchange, Python numbers after it), on the port's forms of its
+    values: the result dtype is numpy's (np.result_type, a Python scalar
+    weak); / of integers is float64. A float result computes in that
+    float dtype; a bool one with torch's bool ops. An integer comparison
+    is exact (numpy 2 compares a Python int out of range exactly). An
+    integer result of 32 bits or fewer wraps in its dtype (NpInt); a
+    Python int outside that dtype raises NumpyOverflow. An int64 result
+    keeps the int32 form where the range proof holds (_int32_form), else
+    is a WideInt, exact, whose int64 overflow flags its row."""
+    ka, kb = _np_kind(a), _np_kind(b)
+    tensors = [x for x in (a, b)
+               if isinstance(x, (torch.Tensor, NpInt, WideInt))]
+    if ka is None or kb is None or not tensors:
+        return _BIN_OPS[op](a, b)
+    rt = np.result_type(ka, kb)
+    if op == "/" and rt.kind in "biu":
+        rt = np.dtype(np.float64)
+    if rt.kind == "f":
+        t = getattr(torch, rt.name)
+        a, b = ((x.v if isinstance(x, (NpInt, WideInt)) else x).to(t)
+                if isinstance(x, (torch.Tensor, NpInt, WideInt))
+                else _scalar(x) for x in (a, b))
+        # a constant as a column of the operation's dtype: torch divides
+        # a scalar by a tensor through its reciprocal, which rounds twice
+        like = a if isinstance(a, torch.Tensor) else b
+        a, b = (x if isinstance(x, torch.Tensor)
+                else torch.full_like(like, x) for x in (a, b))
+        r = _BIN_OPS[op](a, b)
+        if op == "%":
+            # numpy's (and Python's) zero remainder takes the divisor's
+            # sign; torch's the dividend's
+            r = torch.where(r == 0, torch.copysign(torch.zeros_like(r), b),
+                            r)
+        return r
+    if rt.kind == "b":
+        return _BIN_OPS[op](a, b)
+    if op in _CMP_OPS:
+        return _BIN_OPS[op](_i64(a), _i64(b))
+    if rt.itemsize < 8:
+        for x in (a, b):
+            x = _scalar(x)
+            if isinstance(x, int) and not isinstance(x, bool) and \
+                    not np.iinfo(rt).min <= x <= np.iinfo(rt).max:
+                raise NumpyOverflow(x, rt)
+        x, y = _i64(a), _i64(b)
+        if op in ("//", "%"):
+            r = _divmod_guarded(_BIN_OPS[op], x, y)
+        else:
+            r = _BIN_OPS[op](x, y)
+        return _wrapped(r, rt)
+    r = _int32_form(op, a, b, sink)
+    if r is not None:
+        return r
+    a, b = (WideInt(_i64(x), sink)
+            if isinstance(x, (torch.Tensor, NpInt)) else _scalar(x)
+            for x in (a, b))
+    return _BIN_OPS[op](a, b)
+
+
+def host_unary(op: str, x, sink: list):
+    """-x or ~x on the host tier: a numpy column of 32 bits or fewer wraps
+    in its dtype; the negation of an int64 column held as int32 is a
+    WideInt (-(-2^31) leaves int32); the rest as torch and WideInt
+    compute it."""
+    if isinstance(x, NpInt):
+        return _wrapped(-x.v if op == "-" else ~x.v, x.dt)
+    if op == "-" and isinstance(x, torch.Tensor) and not (
+            x.dtype.is_floating_point or x.dtype == torch.bool):
+        return -WideInt(x.to(torch.int64), sink)
+    return _UNARY_OPS[op](x)
 
 
 class HostArith(Expr):
-    """An arithmetic BinOp as the reference's host tier computes it, on
-    numpy columns of int64 and bool: where an integer or bool column
-    meets a float (a column or a constant), or divides with /, both
-    operands become float64 first, so the result is numpy's float64 and
-    not torch's float32; + - * of an int32 column and an integer is a
-    WideInt, exact in int64 as numpy's is (an int64 overflow flags its
-    row). A float32 column beside a constant stays float32, as in numpy;
-    a wide column computes as WideInt does."""
+    """A BinOp as the reference's host tier computes it (host_binop): its
+    numpy arithmetic, comparisons and bitwise operators."""
 
     def __init__(self, e: BinOp):
         self.e = e
 
     def _eval(self, env: dict):
-        a, b = self.e.left._eval(env), self.e.right._eval(env)
-        if isinstance(a, WideInt) or isinstance(b, WideInt) or not (
-                _is_int(a) or _is_int(b)):
-            pass
-        elif self.e.op == "/" or _is_float(a) or _is_float(b):
-            a, b = (x.to(torch.float64) if isinstance(x, torch.Tensor)
-                    else x for x in (a, b))
-        elif self.e.op in ("+", "-", "*") and (_is_int32(a) or _is_int32(b)):
-            a, b = (WideInt(x.to(torch.int64), env[SINK]) if _is_int32(x)
-                    else x for x in (a, b))
-        return _BIN_OPS[self.e.op](a, b)
+        return host_binop(self.e.op, self.e.left._eval(env),
+                          self.e.right._eval(env), env[SINK])
+
+    def references(self, out: set) -> None:
+        self.e.references(out)
+
+    def token(self) -> tuple:
+        return ("host", self.e.token())
+
+    def __repr__(self) -> str:
+        return repr(self.e)
+
+
+class HostUnary(Expr):
+    """A UnaryOp as the reference's host tier computes it (host_unary)."""
+
+    def __init__(self, e: UnaryOp):
+        self.e = e
+
+    def _eval(self, env: dict):
+        return host_unary(self.e.op, self.e.operand._eval(env), env[SINK])
+
+    def references(self, out: set) -> None:
+        self.e.references(out)
+
+    def token(self) -> tuple:
+        return ("host", self.e.token())
+
+    def __repr__(self) -> str:
+        return repr(self.e)
+
+
+class HostUdf(Expr):
+    """A Udf on the host tier: a numpy-width column reaches it as a tensor
+    of its closest torch dtype (NpInt.tensor)."""
+
+    def __init__(self, e: Udf):
+        self.e = e
+
+    def _eval(self, env: dict):
+        args = [a._eval(env) for a in self.e.args]
+        return self.e.fn(*[a.tensor() if isinstance(a, NpInt) else a
+                           for a in args])
 
     def references(self, out: set) -> None:
         self.e.references(out)
@@ -293,14 +535,17 @@ class HostArith(Expr):
 
 
 def host_arith(e: Expr) -> Expr:
-    """e with each arithmetic BinOp a HostArith (the reference's host
-    tier's numpy arithmetic); the rest of the tree, a Udf's arguments
-    too, is kept."""
+    """e with each BinOp a HostArith, each UnaryOp a HostUnary and each
+    Udf a HostUdf (the reference's host tier's numpy rules), through the
+    whole tree."""
     if isinstance(e, BinOp):
-        node = BinOp(e.op, host_arith(e.left), host_arith(e.right))
-        return HostArith(node) if e.op in _ARITH_OPS else node
+        return HostArith(BinOp(e.op, host_arith(e.left),
+                               host_arith(e.right)))
     if isinstance(e, UnaryOp):
-        return UnaryOp(e.op, host_arith(e.operand))
+        return HostUnary(UnaryOp(e.op, host_arith(e.operand)))
+    if isinstance(e, Udf):
+        return HostUdf(Udf(e.fn, *[host_arith(a) for a in e.args],
+                           name=e.name))
     if isinstance(e, Cast):
         return Cast(host_arith(e.e))
     return e

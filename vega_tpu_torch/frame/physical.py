@@ -16,12 +16,14 @@ rest follows the tier the reference would pick for the plan
 (planner.reference_tier), since its two tiers hold these values apart:
 on its device tier float64 narrows to float32 and bool widens to int32;
 on its host tier a float64 column stays float64 (the words of its bits,
-a pair like the wide one) and a bool column stays a bool (0 / 1 int32
-words read back as bools). Anything else (object columns of anything
-but strings, uint64 beyond int64) raises VegaError when the plan
-compiles: the reference compiles such a plan on its host tier, which
-the port does not have. What a stage computes from these columns
-follows the same tier (planner._Stage)."""
+a pair like the wide one), a bool column stays a bool (0 / 1 int32
+words read back as bools), and an integer column of 32 bits or fewer
+keeps its numpy dtype beside its int32 words (ScanForms.np_ints), which
+numpy computes in before the first exchange. Anything else (object
+columns of anything but strings, uint64 beyond int64) raises VegaError
+when the plan compiles: the reference compiles such a plan on its host
+tier, which the port does not have. What a stage computes from these
+columns follows the same tier (planner._Stage)."""
 
 from __future__ import annotations
 
@@ -60,7 +62,11 @@ class ScanForms:
     reference's reason for compiling the plan on its host tier at this
     scan (its first HostFallback here; None when its device tier takes
     the scan) and the port's own refusal (the VegaError of the first
-    column with no device form, or None); a parquet scan's file dtypes."""
+    column with no device form, or None); a parquet scan's file dtypes.
+    np_ints {frame name: numpy dtype} names the integer columns of 32
+    bits or fewer (int8 to int32, uint8 to uint32): numpy computes in
+    their own width on the reference's host tier, where an int64 column
+    held as int32 because it fits computes in int64."""
 
     def __init__(self, kinds: Dict[str, str], reference: Optional[str],
                  error: Optional[VegaError], file_dtypes=None):
@@ -68,6 +74,7 @@ class ScanForms:
         self.reference = reference
         self.error = error
         self.file_dtypes = file_dtypes
+        self.np_ints: Dict[str, np.dtype] = {}
 
     def check(self) -> None:
         if self.error is not None:
@@ -123,6 +130,12 @@ def _column_form(name: str, col: np.ndarray, dict_enabled: bool):
     return "wide", why, None
 
 
+def _np_ints(dtypes) -> Dict[str, np.dtype]:
+    """The integer columns of 32 bits or fewer of {frame name: dtype}."""
+    return {fn: dt for fn, dt in dtypes
+            if dt.kind in ("i", "u") and dt.itemsize <= 4}
+
+
 def _forms(checked) -> ScanForms:
     """ScanForms of (frame name, (kind, reference reason, refusal)) in the
     scan's column order; the first reason of each side counts."""
@@ -138,8 +151,11 @@ def _forms(checked) -> ScanForms:
 def columns_forms(data: Dict[str, np.ndarray],
                   dict_enabled: bool = True) -> ScanForms:
     """The forms of in-memory columns (create_frame), in their order."""
-    return _forms((fn, _column_form(fn, data[fn], dict_enabled))
-                  for fn in data)
+    forms = _forms((fn, _column_form(fn, data[fn], dict_enabled))
+                   for fn in data)
+    forms.np_ints = _np_ints((fn, np.asarray(data[fn]).dtype)
+                             for fn in data)
+    return forms
 
 
 def parquet_forms(path: str, columns: List[str], predicate,
@@ -209,6 +225,7 @@ def parquet_forms(path: str, columns: List[str], predicate,
     forms = _forms(head + checked)
     forms.kinds.pop(None, None)
     forms.file_dtypes = dtypes
+    forms.np_ints = _np_ints((fn, np.dtype(dtypes[fn])) for fn in columns)
     return forms
 
 
@@ -250,13 +267,15 @@ def _host_column(src: np.ndarray, dtype: str, bn: str, out: dict) -> None:
 
 class _FrameSource(dense_rdd.DenseRDD):
     """A lazy source: names are (frame name, block name) pairs, kinds each
-    frame column's kind (ScanForms), host whether the reference compiles
-    the plan on its host tier (stored_kind). It materializes once at its
-    first block() and, as every source, never enters the lifetime LRU
-    (its host copy is the data)."""
+    frame column's kind and np_ints the numpy integer dtypes of 32 bits
+    or fewer (ScanForms), host whether the reference compiles the plan on
+    its host tier (stored_kind). It materializes once at its first
+    block() and, as every source, never enters the lifetime LRU (its host
+    copy is the data)."""
 
     def __init__(self, ctx, names: List[Tuple[str, str]],
-                 kinds: Dict[str, str], host: bool):
+                 kinds: Dict[str, str], host: bool,
+                 np_ints: Dict[str, np.dtype]):
         super().__init__(ctx, ctx.mesh)
         self._names = list(names)
         stored = {fn: stored_kind(kinds[fn], host) for fn, _bn in names}
@@ -271,6 +290,9 @@ class _FrameSource(dense_rdd.DenseRDD):
             fn for fn, _bn in names if stored[fn] == "float64")
         self._frame_bool_cols = frozenset(
             fn for fn, _bn in names if host and kinds[fn] == "bool")
+        # frame columns numpy computes on in their own width (host tier)
+        self._frame_np_ints = {fn: np_ints[fn] for fn, _bn in names
+                               if host and fn in np_ints}
 
     def _schema(self):
         out = []
@@ -299,8 +321,8 @@ class _ColumnsSource(_FrameSource):
     """In-memory columns (create_frame)."""
 
     def __init__(self, ctx, data: Dict[str, np.ndarray], names, kinds,
-                 host):
-        super().__init__(ctx, names, kinds, host)
+                 host, np_ints):
+        super().__init__(ctx, names, kinds, host, np_ints)
         self._data = data
         self._encoded: Dict[str, tuple] = {}  # bn -> (codes, dictionary)
 
@@ -340,7 +362,8 @@ def make_columns_source(ctx, data: Dict[str, np.ndarray],
     host tier. The data is coerced and sharded onto the device at the
     first materialization."""
     forms.check()
-    return _ColumnsSource(ctx, data, names, forms.kinds, host)
+    return _ColumnsSource(ctx, data, names, forms.kinds, host,
+                          forms.np_ints)
 
 
 class _ParquetSource(_FrameSource):
@@ -348,8 +371,8 @@ class _ParquetSource(_FrameSource):
     predicate applied inside the reader."""
 
     def __init__(self, ctx, files, columns, predicate, names, kinds, host,
-                 file_dtypes):
-        super().__init__(ctx, names, kinds, host)
+                 file_dtypes, np_ints):
+        super().__init__(ctx, names, kinds, host, np_ints)
         self._files = files
         self._columns = list(columns)
         self._predicate = [tuple(p) for p in predicate]
@@ -436,4 +459,4 @@ def make_parquet_source(ctx, path: str, columns: List[str], predicate,
     forms.check()
     return _ParquetSource(ctx, parquet_lib.discover_parquet_files(path),
                           columns, predicate, names, forms.kinds, host,
-                          dtypes)
+                          dtypes, forms.np_ints)

@@ -20,8 +20,10 @@ the whole plan or raises HostFallback somewhere, and its host tier runs
 the whole plan. The two tiers hold bools, float64 and fill values apart.
 reference_tier() is the port's copy of that decision (every HostFallback
 site of the reference's device lowering, over the same optimized plan and
-source dtypes); the port runs every plan on its device tier and applies
-the picked tier's rules:
+source dtypes; its stages traced under the reference's literal rule,
+tracing.int32_literals, so a Python int past int32 sends the plan to the
+host tier); the port runs every plan on its device tier and applies the
+picked tier's rules:
 
 * reference device tier: float64 narrows to float32 and bool widens to
   int32 at the source; a sum of a computed bool beside other monoids is
@@ -30,17 +32,22 @@ the picked tier's rules:
 * reference host tier (numpy columns and Python values): a float64
   source column stays float64 (the words of its bits) through stages,
   aggregates, joins and sorts; a bool stays a bool, and its sum counts
-  the True rows; the stage arithmetic is numpy's (columns.HostArith: an
-  int or bool column beside a float, or under /, computes in float64,
-  and + - * of int32 columns in int64, a wide column); a sum of an int32
-  column is a wide int64 and of a float32 one a float64; a mean of an
-  integer column divides in float64; a bool key (a computed one, a
-  string comparison) is an int32 0 / 1 exchange key given back as a
-  bool; a float64 key is kernels.f64_key's order-preserving int64 (-0.0
-  and 0.0 one key, each NaN its own group, a NaN joins nothing), and a
-  join key meeting one is the float64 Python compares it with; a left
-  join's float fill makes an int32, wide or float32 right column
-  float64 and an int fill past int32 makes an int32 one wide.
+  the True rows; the stage arithmetic is numpy 2's (columns.host_binop:
+  numpy's result dtype, float64 for an int beside a float or under /;
+  before the first exchange an integer source of 32 bits or fewer
+  computes in its own width and wraps (columns.NpInt), a Python int
+  outside that width raising; an int64 source held as int32, and every
+  int after an exchange (a Python int), computes exactly in int64, kept
+  int32 only where the result provably fits); a count and a sum of
+  bools or of an int32 column is a wide int64 and of a float32 one a
+  float64; a mean of an integer column divides in float64; a bool key
+  (a computed one, a string comparison) is an int32 0 / 1 exchange key
+  given back as a bool; a float64 key is kernels.f64_key's
+  order-preserving int64 (-0.0 and 0.0 one key, each NaN its own group,
+  a NaN joins nothing), and a join key meeting one is the float64 Python
+  compares it with; a left join's float fill makes an int32, wide or
+  float32 right column float64 and an int fill past int32 makes an
+  int32 one wide.
 
 The plans the reference compiles on its host tier because its device
 tier refuses them (joins with several value columns a side, string
@@ -68,6 +75,7 @@ from vega_tpu_torch import dense_rdd as dr
 from vega_tpu_torch import exchange_plan
 from vega_tpu_torch import kernels
 from vega_tpu_torch import mesh as mesh_lib
+from vega_tpu_torch import tracing
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame import columns as C
 from vega_tpu_torch.frame import logical as L
@@ -257,6 +265,8 @@ def _ref_column(x) -> torch.Tensor:
     if isinstance(x, bool):
         return torch.zeros(0, dtype=torch.bool)
     if isinstance(x, int):
+        if tracing.past_int32(x):
+            raise OverflowError(f"Python int {x} is outside int32")
         return torch.zeros(0, dtype=torch.int32)
     if isinstance(x, float):
         return torch.zeros(0, dtype=torch.float32)
@@ -271,20 +281,24 @@ def _ref_string_error(kind: str, cols) -> _RefHost:
 
 
 def _ref_flush(st: _RefState, out_pairs) -> Dict[str, torch.dtype]:
-    """The reference's _flush: its string checks, then the stage traced;
-    the dtype of each output."""
+    """The reference's _flush: its string checks, then the stage traced
+    under its literal rule (tracing.int32_literals: a Python int past
+    int32 does not trace); the dtype of each output."""
     _string_steps(st.steps, out_pairs, st.dict_cols, {}, _refs,
                   _ref_string_error)
+
+    def traced(e, env):
+        with tracing.int32_literals():
+            return _ref_column(evaluate(e, env))
+
     try:
         env = {fn: torch.zeros(0, dtype=dt) for fn, dt in st.types.items()}
         for kind, payload in st.steps:
             if kind == "project":
-                env = {nm: _ref_column(evaluate(e, env))
-                       for nm, e in payload}
+                env = {nm: traced(e, env) for nm, e in payload}
             else:
-                _ref_column(evaluate(payload, env)).to(torch.bool)
-        return {bn: _ref_column(evaluate(e, env)).dtype
-                for bn, e in out_pairs}
+                traced(payload, env).to(torch.bool)
+        return {bn: traced(e, env).dtype for bn, e in out_pairs}
     except Exception as e:  # noqa: BLE001 — any trace failure: host tier
         raise _RefHost(f"stage does not trace: {e}") from e
 
@@ -462,7 +476,7 @@ class _DState:
     of the current stage."""
 
     def __init__(self, node, colmap: List[Tuple[str, str]],
-                 dict_cols=(), f64_cols=(), bool_cols=()):
+                 dict_cols=(), f64_cols=(), bool_cols=(), np_ints=None):
         self.node = node
         self.colmap = list(colmap)
         self.steps: List[tuple] = []
@@ -480,17 +494,24 @@ class _DState:
         # frame columns of the node on 0 / 1 int32 words that are bools:
         # a bool key, and a bool source column the host tier keeps
         self.bool_cols = set(bool_cols)
+        # {frame column: numpy dtype} of the integer columns the host tier
+        # holds in numpy's own width of 32 bits or fewer: a source column
+        # and what a stage computes from it, up to the first exchange
+        # (after it the host holds Python ints)
+        self.np_ints = dict(np_ints or {})
 
 
 class _Flushed(NamedTuple):
     """A flushed stage: the node, its output block columns of float64
-    bits (f64) and of 0 / 1 int32 words standing for bools (bools), and
+    bits (f64) and of 0 / 1 int32 words standing for bools (bools),
     whether "k" holds kernels.f64_key's words of a float64 key (f64_key),
-    with its companion K_SIGN or K_RAW."""
+    with its companion K_SIGN or K_RAW, and {output block column: numpy
+    dtype} of its numpy-width integer outputs (np_ints)."""
     node: dr.DenseRDD
     f64: frozenset
     bools: frozenset
     f64_key: bool
+    np_ints: dict
 
 
 def _step_token(step) -> tuple:
@@ -580,17 +601,23 @@ def _as_float64(x) -> torch.Tensor:
     return torch.where(exact, f, torch.nan)
 
 
+def _settled(x):
+    """A numpy-width value (columns.NpInt) in its block form; any other
+    value as it is."""
+    return x.stored() if isinstance(x, C.NpInt) else x
+
+
 def _cast(x, to: str, like: torch.Tensor):
-    """One output in the wider form a host-tier rule picked: "int32" (a
-    bool counted by a sum), "float64" (a float32 sum; an int32, wide,
-    float32 or bool column beside a float fill) or "wide" (an int32
-    column beside an int fill past int32)."""
+    """One output in the wider form a host-tier rule picked: "float64" (a
+    float32 sum; an int32, wide, float32 or bool column beside a float
+    fill) or "wide" (a count, a sum of bools or of an int32 column; an
+    int32 column beside an int fill past int32)."""
     x = x.v if isinstance(x, C.WideInt) else torch.as_tensor(x)
     if x.dim() == 0:
         x = x.to(like.device).expand(tuple(like.shape[:2]))
     if to == "wide":
         return C.WideInt(x.to(torch.int64), [])
-    return x.to(torch.float64 if to == "float64" else torch.int32)
+    return x.to(torch.float64)
 
 
 # the NaN side of kernels.f64_key for each exchange role
@@ -623,6 +650,8 @@ class _Stage:
         self.bool_in = {fn for fn, _bn in st.colmap if fn in st.bool_cols}
         self.wide_in = {fn for fn, bn in st.colmap
                         if block_lib.lo_of(bn) in self.in_names} - self.f64_in
+        self.np_in = {fn: st.np_ints[fn] for fn, _bn in st.colmap
+                      if fn in st.np_ints}
         # `origin` tracks which parent block column each live string
         # column passes through: a DictCmp reads that column's dictionary,
         # and the surviving passthroughs become the pipeline's
@@ -650,6 +679,8 @@ class _Stage:
                 True, bad)
             self.kinds = {bn: self._kind(x, like, bn)
                           for bn, x in vals.items()}
+        except C.NumpyOverflow:
+            raise
         except Exception as e:  # noqa: BLE001 — any probe failure
             why = (str(e).split(dr.HOST_TIER_SUFFIX)[0]
                    if isinstance(e, VegaError)
@@ -664,6 +695,7 @@ class _Stage:
                 and x.dtype == torch.float64)
 
     def _kind(self, x, like, bn) -> torch.dtype:
+        x = _settled(x)
         if isinstance(x, C.WideInt):
             return torch.int64
         if self._is_f64(x):
@@ -688,7 +720,9 @@ class _Stage:
                 env[fn] = cols[bn] != 0
             else:
                 env[fn] = cols[bn]
-        wide = set(self.wide_in)
+        # numpy-width columns (host tier, before the first exchange)
+        npi = dict(self.np_in)
+        wide = set(self.wide_in) - set(npi)
         resolved = C.resolve(self.cmps, dicts, like.device, self.memo)
         sink: list = []
 
@@ -696,7 +730,8 @@ class _Stage:
             ins = env if probe else dr._row_inputs(env, count)
             if ins is None:
                 return None
-            ins = {fn: C.WideInt(c, sink) if fn in wide else c
+            ins = {fn: C.WideInt(c, sink) if fn in wide
+                   else C.NpInt(c, npi[fn]) if fn in npi else c
                    for fn, c in ins.items()}
             ins[C.RESOLVED] = resolved
             ins[C.SINK] = sink
@@ -714,24 +749,41 @@ class _Stage:
             if ins is None:
                 return None, count, like
             if kind == "project":
-                vals = {nm: evaluate(e, ins) for nm, e in payload}
+                vals = {nm: self._const(evaluate(e, ins), like, sink)
+                        for nm, e in payload}
                 settle()
                 wide = {nm for nm, x in vals.items()
                         if isinstance(x, C.WideInt)}
-                env = {nm: (x.v if nm in wide else x if self._is_f64(x)
+                npi = {nm: x.dt for nm, x in vals.items()
+                       if isinstance(x, C.NpInt)}
+                env = {nm: (x.v if nm in wide or nm in npi
+                            else x if self._is_f64(x)
                             else _column(x, like, nm))
                        for nm, x in vals.items()}
             else:
-                keep = _column(evaluate(payload, ins), like, "filter")
+                keep = _column(_settled(evaluate(payload, ins)), like,
+                               "filter")
                 settle()
                 keep = keep.to(torch.bool) & kernels.valid_mask(cap, count)
                 env, count = kernels.compact(env, keep, cap)
         ins = inputs()
         if ins is None:
             return None, count, like
-        vals = {bn: evaluate(e, ins) for bn, e in self.pairs}
+        vals = {bn: self._const(evaluate(e, ins), like, sink)
+                for bn, e in self.pairs}
         settle()
         return vals, count, like
+
+    def _const(self, x, like, sink):
+        """A Python int output past int32 on the host tier: a WideInt
+        column of it, as numpy broadcasts it (int64)."""
+        if self.lw.host and tracing.past_int32(x):
+            if not C.I64_MIN <= x <= C.I64_MAX:
+                raise VegaError(f"constant {x} is outside int64")
+            return C.WideInt(torch.full(tuple(like.shape[:2]), x,
+                                        dtype=torch.int64,
+                                        device=like.device), sink)
+        return x
 
     def _key_words(self, x, like, out: dict, key: str, key_f64: bool,
                    seen: dict) -> bool:
@@ -773,6 +825,9 @@ class _Stage:
         form, and wide values and float64 bits as word pairs."""
         out = {}
         for bn, x in vals.items():
+            if isinstance(x, C.NpInt):
+                seen["np_ints"][bn] = x.dt
+            x = _settled(x)
             if bn in casts:
                 x = _cast(x, casts[bn], like)
             if bn == "k" and key is not None and self._key_words(
@@ -814,8 +869,11 @@ class _Stage:
                 node, frozenset(bn for bn, e in self.out_pairs
                                 if e.name in self.f64_in),
                 frozenset(bn for bn, e in self.out_pairs
-                          if e.name in self.bool_in), False)
-        seen: dict = {"f64": set(), "bools": set(), "f64_key": False}
+                          if e.name in self.bool_in), False,
+                {bn: self.np_in[e.name] for bn, e in self.out_pairs
+                 if e.name in self.np_in})
+        seen: dict = {"f64": set(), "bools": set(), "f64_key": False,
+                      "np_ints": {}}
         vals, like = self._probe
         out_schema = tuple((bn, x.dtype) for bn, x in self._finish(
             vals, like, key, key_f64, casts, seen).items())
@@ -841,7 +899,7 @@ class _Stage:
                 return dr._zero_cols(out_schema, like), count
             return self._finish(vals, like, key, key_f64, casts,
                                 {"f64": set(), "bools": set(),
-                                 "f64_key": False}), count
+                                 "f64_key": False, "np_ints": {}}), count
 
         token = ("frame_stage", tuple(st.colmap),
                  tuple(_step_token(s) for s in self.steps),
@@ -850,7 +908,8 @@ class _Stage:
         node = dr.dense_pipeline(node, stage, out_schema, token, fused=fused,
                                  dict_renames=self.dict_renames)
         return _Flushed(node, frozenset(seen["f64"]),
-                        frozenset(seen["bools"]), seen["f64_key"])
+                        frozenset(seen["bools"]), seen["f64_key"],
+                        seen["np_ints"])
 
 
 def _flush(lw: _Lowering, st: _DState, out_pairs: List[Tuple[str, Expr]],
@@ -911,7 +970,8 @@ def _pick_exchange(lw: _Lowering, st: _DState, width: int) -> Optional[str]:
 def _source_state(node, names, est_rows) -> _DState:
     st = _DState(node, names, dict_cols=node._frame_dict_cols,
                  f64_cols=node._frame_f64_cols,
-                 bool_cols=node._frame_bool_cols)
+                 bool_cols=node._frame_bool_cols,
+                 np_ints=node._frame_np_ints)
     st.est_rows = est_rows
     return st
 
@@ -997,12 +1057,15 @@ def _lower_group_agg(lw: _Lowering, plan: L.GroupAgg) -> _DState:
     bool_adds = [bn for bn, dt in adds.items() if dt == torch.bool]
     casts = {}
     if lw.host:
-        # the host tier sums Python values: each True counts one, an
-        # int32 column's sum is an int (a wide int64 here) and a float32
-        # column's a float (float64); a count stays int32
-        forms = {torch.bool: "int32", torch.int32: "wide",
+        # the host tier sums Python values: each True counts one, and the
+        # sum of bools or of an int32 column is an int (a wide int64
+        # here), of a float32 column a float (float64); a count is an int
+        # too (a mean's own count stays int32: it only divides)
+        forms = {torch.bool: "wide", torch.int32: "wide",
                  torch.float32: "float64"}
         casts = {bn: forms[dt] for bn, dt in adds.items() if dt in forms}
+        casts.update({specs[slot[1]][0]: "wide" for a, slot in zip(
+            plan.aggs, slots) if a.op == "count"})
     elif bool_adds and len(set(names)) > 1:
         # the reference's traced tuple combiner adds bools with jnp.add, a
         # logical or (F8's rule), which max of bools is; a sum over bools
@@ -1142,6 +1205,8 @@ def _unfused_break(lw: _Lowering, st: _DState, cols: List[str]) -> _DState:
                   f64_cols={c for c, (bn, _e) in zip(cols, pairs)
                             if bn in f.f64},
                   bool_cols={c for c, (bn, _e) in zip(cols, pairs)
-                             if bn in f.bools})
+                             if bn in f.bools},
+                  np_ints={c: f.np_ints[bn] for c, (bn, _e) in zip(
+                      cols, pairs) if bn in f.np_ints})
     out.est_rows = st.est_rows
     return out
