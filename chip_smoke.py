@@ -271,12 +271,34 @@ Phases, in order; any failure exits non-zero before the last line:
      by k; (b) the packed key k * 2^32 + y grouped with sum(x) and count;
      (c) -m beside m, left-joined to the dimension frame's w; (d) i * i
      and i * 3 + 7 beside big, which wrap in numpy's int32; (e) the RDD
-     filter(lambda x: x < 2^40), which must refuse at build. (a)-(d) run
+     filter(lambda x: x < 2^40), which takes the host tier's row form at
+     build (launching nothing) and keeps every row. (a)-(d) run
      on the reference's host tier (checked), each once cold, held to
      numpy under that tier's rules (exact int64, int32 wrapping), then
      three warm runs, reported as phase 15's; hash_bucket and digit_hist
      in (a) and (c), digit_hist in (b) (its key is a wide pair),
-     partition_pos in (c).
+     partition_pos in (c);
+ 18. the RDD API's host-tier answers on the card at 20M pairs (x % K, x)
+     over K = 1M keys and a float32 column (numpy seed 18), 8 shards:
+     (a) closures past int32 in the host tier's row form: map(lambda x:
+     (x % K, x + 2^40)).reduce_by_key(lambda a, b: a + b) (exact int64
+     sums; hash_bucket and digit_hist launch), the same joined to the
+     K-row table and counted (partition_pos launches), filter(x < 2^40),
+     map_values(v * 2^31), a float32 value * 2^40 as float64; (b)
+     sample(True, 0.1, 7), take_sample(False / True, 1000, 7) and
+     random_split([0.8, 0.2], 7), each equal to numpy's replay of the
+     reference's PCG64 streams (the bands disjoint and covering); (c)
+     count_approx_distinct at relative_sd 0.05 and 0.01 over the key and
+     the (k, v) rows, equal to a numpy HyperLogLog of splitmix64 hashes;
+     (d) count_approx, mean_approx, count_by_value_approx: final and
+     exact; (e) to_local_iterator (rows in order, the host peak sampled),
+     for_each, for_each_partition and save_as_text_file (bytes equal to
+     numpy's formatting; the files removed after) at P18E_ROWS = 2M pairs
+     (cut from 20M, where 18e alone took 233 s); (f)
+     count_async and collect_async submitted back to back, reduce_async,
+     on the main path's reduce, equal to the synchronous results. Each
+     case once cold (checked, launches counted from 0) and three times
+     warm: median ms, the host part apart, the step peak.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
@@ -284,8 +306,9 @@ line per phase-9 leg and item, one line per phase-10 leg and item, one
 line per phase-11 size, gf256 row and fold op, one line per phase-12
 item, one line per phase-13 leg and rank and per 13d query (one process
 and each rank), one line per phase-14 item and 14c rank, one line per
-phase-15, phase-16 and phase-17 query, the kernel table as one JSON line
-(with phases 6-17's launches beside the main path's), the card line, and
+phase-15, phase-16 and phase-17 query, one line per phase-18 case, the
+kernel table as one JSON line (with phases 6-18's launches beside the
+main path's), the card line, and
 last
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
@@ -303,11 +326,16 @@ the whole, the host build and the rest); --leg frame-profile three warm
 each way, the other device ops) and the ten costliest ops; --leg
 p16-profile one warm run each of phase 16's f13_key and f12_or under
 torch.profiler with memory: the costliest ops by time and by allocation,
-the peak and each exchange's plan.
+the peak and each exchange's plan; --leg p1516 phases 15 and 16 as the
+whole script runs them (warm medians of each query); --leg f14-profile
+phase 16's f14_group and f14_join warm, plainly, under cProfile (the
+package's host functions, the per-node checks apart) and under
+torch.profiler (device ms and ops).
 """
 
 import json
 import math
+import operator
 import os
 import shutil
 import statistics
@@ -5679,10 +5707,8 @@ def phase_seventeen(torch, np, ck, vt):
     P15_ROWS fact rows. Each frame query's reference tier checked, once
     cold (held to numpy) and three times warm; the warm median ms, the
     host build apart, the step peak and the cold run's launches. Then
-    the RDD filter with a constant past int32, refused at build."""
-    from vega_tpu_torch import dense_rdd
-    from vega_tpu_torch.errors import VegaError
-
+    the RDD filter with a constant past int32, in the host tier's row
+    form."""
     from vega_tpu_torch.frame import col, lit
 
     t0 = time.perf_counter()
@@ -5736,23 +5762,21 @@ def phase_seventeen(torch, np, ck, vt):
             f"{r['median_host_build_ms']:.3f} ms, cold {cold['ms']:.3f} ms, "
             f"peak {r['peak_bytes']} B, launches "
             f"{json.dumps(cold['launches'])} on {card}")
-    # (e) the RDD API: the closure refuses when the node is built
+    # (e) the RDD API: the closure fails the literal rule and takes the
+    # host tier's row form when the node is built (phase 18 drives it)
     ck.reset_launches()
     t1 = time.perf_counter()
-    try:
-        ctx.dense_range(P15_ROWS).filter(lambda x: x < P17_BIG)
-        refusal = None
-    except VegaError as e:
-        refusal = str(e)
+    node = ctx.dense_range(P15_ROWS).filter(lambda x: x < P17_BIG)
     build_ms = (time.perf_counter() - t1) * 1e3
-    p17_check(f"e_rdd: filter(lambda x: x < 2**40) refused at build "
-              f"({refusal})", refusal is not None
-              and refusal.endswith(dense_rdd.HOST_TIER_SUFFIX)
-              and "outside int32" in refusal
-              and not any(ck.LAUNCHES.values()))
-    rows.append(dict(label="e_rdd", tier="host", note=refusal,
+    p17_check("e_rdd: filter(lambda x: x < 2**40) takes the host-row form "
+              "at build, launching nothing",
+              node.host_rows and not any(ck.LAUNCHES.values()))
+    kept = node.count()
+    p17_check(f"e_rdd: every row kept ({kept})", kept == P15_ROWS)
+    note = f"host-row form, {kept} rows kept"
+    rows.append(dict(label="e_rdd", tier="host", note=note,
                      median_ms=build_ms, launches=dict(ck.LAUNCHES)))
-    log(f"17 e_rdd: refused at build in {build_ms:.3f} ms: {refusal}")
+    log(f"17 e_rdd: built in {build_ms:.3f} ms: {note}")
     ctx.stop()
     del fact, dims
     torch.cuda.empty_cache()
@@ -5760,6 +5784,637 @@ def phase_seventeen(torch, np, ck, vt):
     wall_s = time.perf_counter() - t0
     log(f"phase 17 took {wall_s:.1f} s")
     return dict(rows=rows, launches=launches, card=card, wall_s=wall_s)
+
+
+P18_ROWS = N_ROWS              # bench-main's 20M pairs (x % K, x)
+P18_KEYS = N_KEYS
+# 18e's host-row actions, cut from 20M rows: at 20M they took 233 s of
+# phase 18's 291 s (NVIDIA H100 80GB HBM3, 700.00 W), past its 150 s
+P18E_ROWS = 2_000_000
+P18_WARM = 3
+P18_BIG = 1 << 40
+P18_TEXT_DIR = "p18_text.tmp"  # 18e's files, removed after the phase
+P18_MASK = (1 << 64) - 1
+
+
+def p18_check(what, ok):
+    if not ok:
+        fail(f"phase 18: {what}")
+
+
+class _P18Clock:
+    """While installed, adds the host-clock time of each call of the
+    wrapped functions (from a synchronize to a synchronize, so device
+    work queued before is not counted) to ms: a case's host part (the
+    samplers' numpy draws, row formation, the HLL estimate), or, for the
+    host-row actions, their device reads (Block.shard_rows)."""
+
+    def __init__(self, torch, targets):
+        self.torch = torch
+        self.targets = targets
+        self.ms = 0.0
+        self._saved = []
+
+    def __enter__(self):
+        torch = self.torch
+        for owner, name in self.targets:
+            orig = getattr(owner, name)
+
+            def timed(*a, _orig=orig, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    self.ms += (time.perf_counter() - t0) * 1e3
+            setattr(owner, name, timed)
+            self._saved.append((owner, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        return False
+
+
+def p18_rss():
+    """This process's resident set in bytes (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def p18_data(np):
+    x = np.arange(P18_ROWS, dtype=np.int32)
+    rng = np.random.default_rng(18)
+    return dict(x=x, k=(x % P18_KEYS).astype(np.int32),
+                f=rng.standard_normal(P18_ROWS).astype(np.float32))
+
+
+def p18_shards(n):
+    """dense_from_numpy's placement of n rows on N_SHARDS shards: shard
+    s holds rows [s * per, s * per + counts[s])."""
+    per = -(-n // N_SHARDS)
+    return [(s * per, min(n, (s + 1) * per)) for s in range(N_SHARDS)]
+
+
+def p18_rng(np, seed, split):
+    """The reference's host samplers' stream: PCG64([seed, split])."""
+    return np.random.Generator(np.random.PCG64(
+        [seed if seed is not None else 0xC0FFEE, split]))
+
+
+def p18_fraction(size, total, with_replacement):
+    """The reference's compute_fraction_for_sample_size."""
+    if with_replacement and size < 12:
+        return float(size) / total * 4.0
+    frac = float(size) / total
+    gamma = -math.log(1e-4) / total
+    return min(1.0, max(1e-10, frac + gamma + math.sqrt(
+        gamma * gamma + 2 * gamma * frac)))
+
+
+def p18_poisson_rows(np, k, v, fraction, seed):
+    """numpy's replay of sample(True, fraction, seed) over the pairs:
+    each shard's rows repeated by its PCG64 stream's Poisson draws."""
+    ks, vs = [], []
+    for s, (a, b) in enumerate(p18_shards(len(k))):
+        reps = p18_rng(np, seed, s).poisson(fraction, size=b - a)
+        ks.append(np.repeat(k[a:b], reps))
+        vs.append(np.repeat(v[a:b], reps))
+    return np.concatenate(ks), np.concatenate(vs)
+
+
+def p18_splitmix(np, x):
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def p18_hash_ints(np, a):
+    """The reference's hash_key of ints: splitmix64 of the 64-bit word."""
+    return p18_splitmix(np, a.astype(np.int64).view(np.uint64))
+
+
+def p18_hash_pairs(np, hk, hv):
+    """hash_key of (k, v) tuples: the fold from 0x345678."""
+    h = np.full(len(hk), 0x345678, np.uint64)
+    with np.errstate(over="ignore"):
+        for item in (hk, hv):
+            h = p18_splitmix(np, (h * np.uint64(1000003)) ^ item)
+    return h
+
+
+def p18_hll(np, h, relative_sd):
+    """The reference's HyperLogLog over uint64 hashes, in numpy."""
+    p = max(4, min(18, math.ceil(2 * math.log2(1.04 / relative_sd))))
+    idx = (h >> np.uint64(64 - p)).astype(np.int64)
+    rest = h << np.uint64(p)
+    n = np.zeros(len(h), np.int64)
+    r = rest.copy()
+    for s in (32, 16, 8, 4, 2, 1):
+        t = r >> np.uint64(s)
+        big = t != 0
+        n += np.where(big, s, 0)
+        r = np.where(big, t, r)
+    bits = n + (r != 0)
+    rank = np.where(rest == 0, 64 - p + 1, 64 - bits + 1)
+    reg = np.zeros(1 << p, np.int64)
+    np.maximum.at(reg, idx, rank)
+    m = float(1 << p)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    raw = alpha * m * m / float(np.sum(np.exp2(-reg.astype(np.float64))))
+    if raw <= 2.5 * m:
+        zeros = int(np.count_nonzero(reg == 0))
+        return int(round(m * math.log(m / zeros))) if zeros \
+            else int(round(raw)), p
+    two64 = 2.0 ** 64
+    if raw > two64 / 30.0:
+        return int(round(-two64 * math.log1p(-raw / two64))), p
+    return int(round(raw)), p
+
+
+def p18_text(np, k, v):
+    """numpy's formatting of (k, v) rows, one "(k, v)\\n" a row."""
+    parts = np.char.add(np.char.add(np.char.add("(", k.astype(str)), ", "),
+                        np.char.add(v.astype(str), ")\n"))
+    return "".join(parts.tolist())
+
+
+def p18_case(torch, ck, ctx, label, run, check, clock=(), kind="host",
+             need=()):
+    """One case: a cold run (launches counted from 0, checked), then warm
+    runs: their median ms, the host part apart (the time in `clock`'s
+    functions, or for kind "device" the time outside them), the step
+    peak and the cold run's launches."""
+    def timed():
+        with _P18Clock(torch, clock) as c:
+            out = run()
+        return out, c.ms
+
+    def one():
+        out, cold = p10_run(torch, ck, ctx, label, lambda: timed())
+        if kind == "device":  # the clock timed the device reads
+            cold["host_build_ms"], cold["device_ms"] = \
+                cold["ms"] - cold["host_build_ms"], cold["host_build_ms"]
+        return out, cold
+
+    out, cold = one()
+    note = check(out)
+    del out
+    for name in need:
+        p18_check(f"{label} launched {name} ({cold['launches']})",
+                  cold["launches"][name] > 0)
+    warm = P18_WARM
+    runs = [one()[1] for _ in range(warm)]
+    med = statistics.median(r["ms"] for r in runs)
+    r = dict(label=label, note=note, cold=cold, warm=runs, median_ms=med,
+             median_host_ms=statistics.median(x["host_build_ms"]
+                                              for x in runs),
+             median_device_ms=statistics.median(x["device_ms"]
+                                                for x in runs),
+             peak_bytes=max(x["peak_bytes"] for x in runs + [cold]),
+             launches=cold["launches"])
+    log(f"18 {label}: {note}; {med:.3f} ms warm median of {warm}, host "
+        f"part {r['median_host_ms']:.3f} ms, device part "
+        f"{r['median_device_ms']:.3f} ms, cold {cold['ms']:.3f} ms, peak "
+        f"{r['peak_bytes']} B, launches {json.dumps(cold['launches'])}")
+    return r
+
+
+def p18_part_a(torch, np, ck, vt, ctx, d):
+    """18a: closures past int32 in the host tier's row form."""
+    from vega_tpu_torch import dense_rdd
+
+    k, x, f = d["k"], d["x"], d["f"]
+    rows = []
+
+    def wide_sums():
+        node = ctx.dense_range(P18_ROWS).map(
+            lambda x: (x % P18_KEYS, x + P18_BIG)).reduce_by_key(
+                lambda a, b: a + b)
+        p18_check("a_wide_sums is a host-row node", node.host_rows)
+        return node.collect_arrays()
+
+    def wide_sums_check(got):
+        reps = P18_ROWS // P18_KEYS
+        keys = np.arange(P18_KEYS, dtype=np.int64)
+        want = reps * keys + P18_KEYS * (reps * (reps - 1) // 2) \
+            + reps * P18_BIG
+        o = np.argsort(got["k"])
+        p18_check("a_wide_sums: every key once, int64 sums exact",
+                  np.array_equal(got["k"][o], keys)
+                  and got["v"].dtype == np.int64
+                  and np.array_equal(got["v"][o], want))
+        return f"{P18_KEYS} keys, sums up to {int(want.max())}"
+
+    rows.append(p18_case(torch, ck, ctx, "a_wide_sums", wide_sums,
+                         wide_sums_check,
+                         clock=[(dense_rdd.DenseRDD, "map")],
+                         need=("hash_bucket", "digit_hist")))
+
+    def wide_join():
+        table = ctx.dense_from_numpy(
+            np.arange(P18_KEYS, dtype=np.int32),
+            np.arange(P18_KEYS, dtype=np.float32) * 2.0)
+        node = ctx.dense_range(P18_ROWS).map(
+            lambda x: (x % P18_KEYS, x + P18_BIG)).reduce_by_key(
+                lambda a, b: a + b).join(table)
+        return node.count()
+
+    rows.append(p18_case(
+        torch, ck, ctx, "a_wide_join", wide_join,
+        lambda n: (p18_check(f"a_wide_join: every key joined ({n})",
+                             n == P18_KEYS), f"{n} rows")[1],
+        clock=[(dense_rdd.DenseRDD, "map")],
+        need=("hash_bucket", "digit_hist", "partition_pos")))
+
+    def filt():
+        return ctx.dense_range(P18_ROWS).filter(
+            lambda x: x < P18_BIG).collect_arrays()
+
+    rows.append(p18_case(
+        torch, ck, ctx, "a_filter", filt,
+        lambda got: (p18_check("a_filter: every row kept, in order",
+                               np.array_equal(got["v"], x)),
+                     f"{P18_ROWS} rows kept")[1],
+        clock=[(dense_rdd.DenseRDD, "filter")]))
+
+    def times_2_31():
+        return ctx.dense_from_numpy(k, x).map_values(
+            lambda v: v * 2**31).collect_arrays()
+
+    rows.append(p18_case(
+        torch, ck, ctx, "a_map_values", times_2_31,
+        lambda got: (p18_check(
+            "a_map_values: v * 2^31 int64 exact",
+            got["v"].dtype == np.int64 and np.array_equal(got["k"], k)
+            and np.array_equal(got["v"], x.astype(np.int64) * 2**31)),
+            f"v up to {int(got['v'].max())}")[1],
+        clock=[(dense_rdd.DenseRDD, "map_values")]))
+
+    def float_2_40():
+        return ctx.dense_from_numpy(k, f).map_values(
+            lambda v: v * P18_BIG).collect_arrays()
+
+    rows.append(p18_case(
+        torch, ck, ctx, "a_float64", float_2_40,
+        lambda got: (p18_check(
+            "a_float64: float32 v * 2^40 as float64, exact",
+            got["v"].dtype == np.float64
+            and np.array_equal(got["v"], f.astype(np.float64) * P18_BIG)),
+            "float64 values")[1],
+        clock=[(dense_rdd.DenseRDD, "map_values")]))
+    return rows
+
+
+def p18_part_b(torch, np, ck, vt, ctx, d):
+    """18b: the samplers, each held to numpy's replay of its streams."""
+    from vega_tpu_torch import dense_rdd, host_actions
+
+    k, x = d["k"], d["x"]
+    clock = [(host_actions, "_local_rows"), (dense_rdd, "_host_rows")]
+    rows = []
+
+    def poisson():
+        return ctx.dense_from_numpy(k, x).sample(True, 0.1, 7) \
+            .collect_arrays()
+
+    def poisson_check(got):
+        wk, wv = p18_poisson_rows(np, k, x, 0.1, 7)
+        p18_check("b_poisson: rows and multiplicities equal numpy's replay",
+                  np.array_equal(got["k"], wk)
+                  and np.array_equal(got["v"], wv))
+        return f"{len(wv)} rows"
+
+    rows.append(p18_case(torch, ck, ctx, "b_poisson", poisson,
+                         poisson_check, clock=clock))
+
+    def take_plain():
+        node = ctx.dense_from_numpy(k, x)
+        frac = p18_fraction(1000, P18_ROWS, False)
+        pool = node.sample(False, frac, 7).collect()
+        return node.take_sample(False, 1000, 7), pool
+
+    def take_plain_check(out):
+        got, pool = out
+        rng = np.random.Generator(np.random.PCG64(7))
+        rng.shuffle(pool)
+        p18_check("b_take_sample: the threefry sample shuffled by PCG64(7)",
+                  got == pool[:1000] and len(got) == 1000
+                  and all(v % P18_KEYS == kk for kk, v in got)
+                  and len({v for _, v in got}) == 1000)
+        return f"{len(got)} of a {len(pool)}-row sample"
+
+    rows.append(p18_case(torch, ck, ctx, "b_take_sample", take_plain,
+                         take_plain_check, clock=clock))
+
+    def take_poisson():
+        return ctx.dense_from_numpy(k, x).take_sample(True, 1000, 7)
+
+    def take_poisson_check(got):
+        frac = p18_fraction(1000, P18_ROWS, True)
+        wk, wv = p18_poisson_rows(np, k, x, frac, 7)
+        attempts = 0
+        while len(wv) < 1000 and attempts < 20:
+            attempts += 1
+            wk, wv = p18_poisson_rows(np, k, x, frac, 7 + attempts)
+        pool = list(zip(wk.tolist(), wv.tolist()))
+        np.random.Generator(np.random.PCG64(7)).shuffle(pool)
+        p18_check("b_take_sample_replacement: numpy's Poisson replay, "
+                  "shuffled by PCG64(7)", got == pool[:1000])
+        return f"{len(got)} of {len(pool)}, {attempts} retries"
+
+    rows.append(p18_case(torch, ck, ctx, "b_take_sample_replacement",
+                         take_poisson, take_poisson_check, clock=clock))
+
+    def split():
+        return [b.collect_arrays() for b in ctx.dense_from_numpy(
+            k, x).random_split([0.8, 0.2], 7)]
+
+    def split_check(bands):
+        want = [[], []]
+        for s, (a, b) in enumerate(p18_shards(P18_ROWS)):
+            u = p18_rng(np, 7, s).random(size=b - a)
+            want[0].append(x[a:b][u < 0.8])
+            want[1].append(x[a:b][(u >= 0.8) & (u < 1.0)])
+        want = [np.concatenate(w) for w in want]
+        both = np.concatenate([bands[0]["v"], bands[1]["v"]])
+        p18_check("b_random_split: bands equal numpy's replay, disjoint, "
+                  "covering every row once",
+                  all(np.array_equal(g["v"], w) for g, w in zip(bands, want))
+                  and all(np.array_equal(g["k"], g["v"] % P18_KEYS)
+                          for g in bands)
+                  and len(both) == P18_ROWS
+                  and np.array_equal(np.sort(both), x))
+        return f"bands of {len(want[0])} and {len(want[1])} rows"
+
+    rows.append(p18_case(torch, ck, ctx, "b_random_split", split,
+                         split_check, clock=clock))
+    return rows
+
+
+def p18_part_c(torch, np, ck, vt, ctx, d):
+    """18c: count_approx_distinct over the key and the (k, v) rows."""
+    from vega_tpu_torch import hll
+
+    k, x = d["k"], d["x"]
+    hk, hv = p18_hash_ints(np, k), p18_hash_ints(np, x)
+    hashes = {"key": hk, "pairs": p18_hash_pairs(np, hk, hv)}
+    rows = []
+    for what in ("key", "pairs"):
+        for sd in (0.05, 0.01):
+            def run(what=what, sd=sd):
+                node = ctx.dense_from_numpy(k, x)
+                node = node.keys() if what == "key" else node
+                return node.count_approx_distinct(sd)
+
+            def check(got, what=what, sd=sd):
+                want, p = p18_hll(np, hashes[what], sd)
+                p18_check(f"c_{what} at {sd}: the numpy HLL's estimate "
+                          f"(got {got}, numpy {want})", got == want)
+                return f"p = {p}, estimate {got}"
+
+            rows.append(p18_case(torch, ck, ctx, f"c_{what}_{sd}", run,
+                                 check, clock=[(hll, "estimate")]))
+    return rows
+
+
+def p18_part_d(torch, np, ck, vt, ctx, d):
+    """18d: the approximate actions, final and exact."""
+    from vega_tpu_torch import dense_rdd, host_actions
+
+    k, x, f = d["k"], d["x"], d["f"]
+    rows = []
+
+    def count():
+        return ctx.dense_from_numpy(k, x).count_approx(5.0)
+
+    rows.append(p18_case(
+        torch, ck, ctx, "d_count_approx", count,
+        lambda r: (p18_check("d_count_approx: final, the exact count",
+                             r.is_initial_value_final
+                             and r.get_final_value().mean == P18_ROWS
+                             and r.get_final_value().low == P18_ROWS),
+                   f"{r.get_final_value()}")[1]))
+
+    def mean():
+        return ctx.dense_from_numpy(f).mean_approx(5.0)
+
+    def mean_check(r):
+        want = float(np.mean(f.astype(np.float64)))
+        got = r.get_final_value().mean
+        p18_check(f"d_mean_approx: final, the mean (got {got}, numpy "
+                  f"{want})", r.is_initial_value_final
+                  and abs(got - want) <= 1e-12 * float(np.mean(np.abs(f))))
+        return f"mean {got!r} (numpy {want!r})"
+
+    rows.append(p18_case(torch, ck, ctx, "d_mean_approx", mean, mean_check))
+
+    def by_value():
+        return ctx.dense_from_numpy(k).count_by_value_approx(5.0)
+
+    def by_value_check(r):
+        got = r.get_final_value()
+        cnt = np.bincount(k, minlength=P18_KEYS)
+        p18_check("d_count_by_value_approx: final, every value's count",
+                  r.is_initial_value_final and len(got) == P18_KEYS
+                  and all(got[i].mean == cnt[i] and got[i].confidence == 1.0
+                          for i in range(0, P18_KEYS, 997)))
+        return f"{len(got)} values"
+
+    rows.append(p18_case(torch, ck, ctx, "d_count_by_value_approx",
+                         by_value, by_value_check,
+                         clock=[(dense_rdd, "_host_rows"),
+                                (host_actions, "_finals")]))
+    return rows
+
+
+def p18_part_e(torch, np, ck, vt, ctx, d):
+    """18e: the host-row actions at P18E_ROWS pairs, one shard at a
+    time. The clock times their device reads (Block.shard_rows); the rest
+    is host."""
+    from vega_tpu_torch import block as block_lib
+
+    n = P18E_ROWS
+    k, x = d["k"][:n], d["x"][:n]
+    clock = [(block_lib.Block, "shard_rows")]
+    rows = []
+    peaks = []
+
+    def iterate():
+        base = p18_rss()
+        peak = 0
+        vs = np.empty(n, np.int64)
+        i = 0
+        for kk, v in ctx.dense_from_numpy(k, x).to_local_iterator():
+            vs[i] = v
+            i += 1
+            if i % 1_000_000 == 0:
+                peak = max(peak, p18_rss() - base)
+        peaks.append(max(peak, p18_rss() - base))
+        return i, vs
+
+    def iterate_check(out):
+        i, vs = out
+        p18_check("e_to_local_iterator: the rows of collect(), in order",
+                  i == n and np.array_equal(vs, x))
+        return f"{i} rows, host peak {peaks[-1]} B above the start"
+
+    rows.append(p18_case(torch, ck, ctx, "e_to_local_iterator", iterate,
+                         iterate_check, clock=clock, kind="device"))
+    rows[-1]["host_peak_bytes"] = max(peaks)
+
+    def each():
+        acc = [0, 0]
+
+        def f(row):
+            acc[0] += 1
+            acc[1] += row[1]
+        ctx.dense_from_numpy(k, x).for_each(f)
+        return acc
+
+    rows.append(p18_case(
+        torch, ck, ctx, "e_for_each", each,
+        lambda acc: (p18_check("e_for_each: every row once",
+                               acc == [n, n * (n - 1) // 2]),
+                     f"{acc[0]} rows")[1], clock=clock, kind="device"))
+
+    def each_partition():
+        seen = []
+
+        def f(it):
+            rows = list(it)
+            seen.append((len(rows), rows[0], rows[-1]) if rows else (0,))
+        ctx.dense_from_numpy(k, x).for_each_partition(f)
+        return seen
+
+    def each_partition_check(seen):
+        want = [(b - a, (int(k[a]), int(x[a])), (int(k[b - 1]), int(x[b - 1])))
+                for a, b in p18_shards(n)]
+        p18_check("e_for_each_partition: one iterator a shard, in order",
+                  seen == want)
+        return f"{len(seen)} partitions"
+
+    rows.append(p18_case(torch, ck, ctx, "e_for_each_partition",
+                         each_partition, each_partition_check, clock=clock,
+                         kind="device"))
+
+    def save():
+        shutil.rmtree(P18_TEXT_DIR, ignore_errors=True)
+        ctx.dense_from_numpy(k, x).save_as_text_file(P18_TEXT_DIR)
+        return sorted(os.listdir(P18_TEXT_DIR))
+
+    def save_check(files):
+        ok = files == [f"part-{s:05d}" for s in range(N_SHARDS)]
+        total = 0
+        for s, (a, b) in enumerate(p18_shards(n)):
+            with open(os.path.join(P18_TEXT_DIR, files[s]), "rb") as fh:
+                got = fh.read()
+            total += len(got)
+            ok = ok and got == p18_text(np, k[a:b], x[a:b]).encode()
+        p18_check("e_save_as_text_file: the files' bytes equal numpy's "
+                  "formatting", ok)
+        return f"{len(files)} files, {total} B"
+
+    try:
+        rows.append(p18_case(torch, ck, ctx, "e_save_as_text_file", save,
+                             save_check, clock=clock, kind="device"))
+    finally:
+        shutil.rmtree(P18_TEXT_DIR, ignore_errors=True)
+    return rows
+
+
+def p18_part_f(torch, np, ck, vt, ctx):
+    """18f: the async actions on the main path's lineage, two submitted
+    back to back."""
+    from vega_tpu_torch import dense_rdd
+
+    rows = []
+    xs = np.arange(P18_ROWS, dtype=np.int64)
+    sums = np.bincount(xs % P18_KEYS, weights=xs * 0.5, minlength=P18_KEYS)
+    del xs
+
+    def reduced():
+        return ctx.dense_range(P18_ROWS).map(
+            lambda x: (x % P18_KEYS, x * 0.5)).reduce_by_key(op="add")
+
+    def both():
+        red = reduced()
+        t0 = time.perf_counter()
+        a, b = red.count_async(), red.collect_async()
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        return a.result(600), b.result(600), red, submit_ms
+
+    def both_check(out):
+        n, rows_, red, submit_ms = out
+        kk = np.array([r[0] for r in rows_])
+        vv = np.array([r[1] for r in rows_])
+        o = np.argsort(kk)
+        p18_check("f_count_collect: results equal the synchronous ones and "
+                  "numpy", n == red.count() == P18_KEYS
+                  and rows_ == red.collect()
+                  and np.array_equal(kk[o], np.arange(P18_KEYS))
+                  and np.allclose(vv[o], sums, rtol=1e-5, atol=0))
+        return f"{n} keys, submitted in {submit_ms:.3f} ms"
+
+    rows.append(p18_case(torch, ck, ctx, "f_count_collect_async", both,
+                         both_check, clock=[(dense_rdd, "_host_rows")],
+                         need=("hash_bucket", "digit_hist")))
+
+    def reduce_():
+        red = reduced()
+        return red.values().reduce_async(operator.add).result(600), red
+
+    def reduce_check(out):
+        got, red = out
+        want = red.values().reduce(operator.add)
+        p18_check(f"f_reduce_async: reduce()'s value ({got} vs {want}) "
+                  f"and numpy's sum", got == want
+                  and math.isclose(got, float(sums.sum()), rel_tol=1e-5))
+        return f"sum {got!r}"
+
+    rows.append(p18_case(torch, ck, ctx, "f_reduce_async", reduce_,
+                         reduce_check))
+    return rows
+
+
+def phase_eighteen(torch, np, ck, vt):
+    """Phase 18: the RDD API's host-tier answers on the card, at
+    P18_ROWS pairs (x % K, x) over K keys and a float32 column, 8 shards:
+    (a) closures past int32 in the host tier's row form, (b) Poisson
+    sampling, take_sample and random_split against numpy's replay of the
+    reference's PCG64 streams, (c) count_approx_distinct against a numpy
+    HyperLogLog, (d) the approximate actions, (e) the host-row actions,
+    (f) the async actions. Each case once cold (checked, launches counted)
+    and P18_WARM times warm: median ms, host part apart, step peak."""
+    t0 = time.perf_counter()
+    card = card_line()
+    d = p18_data(np)
+    ctx = vt.Context(n_shards=N_SHARDS)
+    rows = []
+    parts = {}
+    for part, fn in (("a", p18_part_a), ("b", p18_part_b),
+                     ("c", p18_part_c), ("d", p18_part_d),
+                     ("e", p18_part_e)):
+        t1 = time.perf_counter()
+        rows += fn(torch, np, ck, vt, ctx, d)
+        parts[part] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rows += p18_part_f(torch, np, ck, vt, ctx)
+    parts["f"] = time.perf_counter() - t1
+    ctx.stop()
+    del d
+    torch.cuda.empty_cache()
+    launches = {name: sum(r["launches"][name] for r in rows)
+                for name in ck.LAUNCHES}
+    check_launched(launches, "phase 18")
+    wall_s = time.perf_counter() - t0
+    log(f"phase 18 took {wall_s:.1f} s (parts {json.dumps(parts)})")
+    return dict(rows=rows, launches=launches, card=card, wall_s=wall_s,
+                parts_s=parts, e_rows=P18E_ROWS)
 
 
 def main():
@@ -5835,6 +6490,8 @@ def main():
     sixteen = phase_sixteen(torch, np, ck, vt)
     # 17. the reference's literal rule and numpy's integer widths
     seventeen = phase_seventeen(torch, np, ck, vt)
+    # 18. the RDD API's host-tier answers on the card
+    eighteen = phase_eighteen(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -5855,7 +6512,8 @@ def main():
          "phase14_launches": fourteen["launches"][r["name"]],
          "phase15_launches": fifteen["launches"][r["name"]],
          "phase16_launches": sixteen["launches"][r["name"]],
-         "phase17_launches": seventeen["launches"][r["name"]]}
+         "phase17_launches": seventeen["launches"][r["name"]],
+         "phase18_launches": eighteen["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -5870,7 +6528,8 @@ def main():
                    new_ops=new_ops, phase7=seven, phase8=eight,
                    phase9=nine, phase10=ten, phase11=eleven,
                    phase12=twelve, phase13=thirteen, phase14=fourteen,
-                   phase15=fifteen, phase16=sixteen, phase17=seventeen)
+                   phase15=fifteen, phase16=sixteen, phase17=seventeen,
+                   phase18=eighteen)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -6148,7 +6807,7 @@ def main():
           f"{sixteen['wall_s']:.1f} s on {card}", flush=True)
     for r in seventeen["rows"]:
         if r["label"] == "e_rdd":
-            print(f"phase 17 e_rdd: refused at build in "
+            print(f"phase 17 e_rdd: {r['note']}, built in "
                   f"{r['median_ms']:.3f} ms, launches "
                   f"{json.dumps(r['launches'])} on {card}", flush=True)
             continue
@@ -6161,6 +6820,19 @@ def main():
               f"{json.dumps(r['launches'])} on {card}", flush=True)
     print(f"phase 17 launches {json.dumps(seventeen['launches'])}; phase 17 "
           f"{seventeen['wall_s']:.1f} s on {card}", flush=True)
+    for r in eighteen["rows"]:
+        extra = (f", host peak {r['host_peak_bytes']} B above its start"
+                 if "host_peak_bytes" in r else "")
+        print(f"phase 18 {r['label']} ({r['note']}): {r['median_ms']:.3f} ms "
+              f"warm median of {len(r['warm'])}, host part "
+              f"{r['median_host_ms']:.3f} ms, device part "
+              f"{r['median_device_ms']:.3f} ms, cold {r['cold']['ms']:.3f} "
+              f"ms, step peak {r['peak_bytes']} B{extra}, launches "
+              f"{json.dumps(r['launches'])} on {card}", flush=True)
+    print(f"phase 18 launches {json.dumps(eighteen['launches'])}; 18e at "
+          f"{eighteen['e_rows']} rows; parts (s) "
+          f"{json.dumps(eighteen['parts_s'])}; phase 18 "
+          f"{eighteen['wall_s']:.1f} s on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
@@ -6174,7 +6846,8 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-AB_LEGS = ("main", "frame", "frame-profile", "p16-profile")
+AB_LEGS = ("main", "frame", "frame-profile", "p16-profile", "p1516",
+           "f14-profile")
 
 
 def ab_frame_leg(torch, np, ck, vt, cs):
@@ -6252,6 +6925,86 @@ def ab_frame_profile_leg(torch, np, ck, vt, cs):
     ops.sort(reverse=True)
     return dict(kinds, wall_ms=walls, top_device_ops=[
         {"name": nm, "ms": ms, "calls": n} for ms, nm, n in ops[:10]])
+
+
+def ab_p1516_leg(torch, np, ck, vt, cs):
+    """The p1516 leg of --main-path-ab: `cs`'s phases 15 and 16 as
+    chip_smoke runs them (each query once cold, held to numpy, then three
+    times warm); per query the warm medians of the whole, the host build
+    and the rest (ms)."""
+    out = {}
+    for phase in (cs.phase_fifteen, cs.phase_sixteen):
+        for r in phase(torch, np, ck, vt)["rows"]:
+            out[r["label"]] = dict(ms=r["median_ms"],
+                                   host_build_ms=r["median_host_build_ms"],
+                                   device_ms=r["median_device_ms"])
+    return out
+
+
+# the DenseRDD methods every node of a plan calls while it is built and
+# materialized; the f14-profile leg reports their calls and time
+F14_NODE_CHECKS = ("host_rows", "_host_form", "_host_values",
+                   "_check_sortable_key", "_schema", "_fp_extra",
+                   "_fingerprint")
+
+
+def ab_f14_profile_leg(torch, np, ck, vt, cs):
+    """The f14-profile leg of --main-path-ab: phase 16's f14_group and
+    f14_join each once cold, then three warm runs timed plainly, one
+    under cProfile and one under torch.profiler. Per query: the plain
+    runs' wall ms; the cProfile run's host seconds in the package's
+    functions (the twelve with the most own time, and F14_NODE_CHECKS'
+    calls and cumulative seconds); the torch.profiler run's device ms
+    (the device's own records summed) and device op count."""
+    import cProfile
+    import pstats
+
+    fact, dims, _words, _perm = cs.p16_data(np)
+    ctx = vt.Context(n_shards=cs.N_SHARDS)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for q in ("f14_group", "f14_join"):
+        def run(q=q):
+            cs.p16_query(ctx, fact, dims, q).collect_columns()
+            torch.cuda.synchronize()
+
+        run()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prof = cProfile.Profile()
+        prof.runcall(run)
+        stats = pstats.Stats(prof).stats
+        own, checks = [], {}
+        for (path, _line, fn), (_cc, calls, tt, ct, _) in stats.items():
+            if "vega_tpu_torch" not in path:
+                continue
+            own.append((tt, f"{os.path.basename(path)}:{fn}", calls, ct))
+            if fn in F14_NODE_CHECKS:
+                c = checks.setdefault(fn, dict(calls=0, cum_s=0.0))
+                c["calls"] += calls
+                c["cum_s"] += ct
+        own.sort(reverse=True)
+        with torch.profiler.profile(activities=acts) as tprof:
+            run()
+        dev_ms, dev_ops = 0.0, 0
+        for e in tprof.key_averages():
+            if e.device_type.name != "CUDA" or e.is_user_annotation:
+                continue
+            dev_ms += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)) / 1e3
+            dev_ops += e.count
+        out[q] = dict(
+            wall_ms=walls, median_ms=statistics.median(walls),
+            package_own_s=sum(tt for tt, *_ in own), node_checks=checks,
+            top_own=[dict(fn=nm, own_s=tt, calls=n, cum_s=ct)
+                     for tt, nm, n, ct in own[:12]],
+            device_ms=dev_ms, device_ops=dev_ops)
+    ctx.stop()
+    return out
 
 
 def ab_p16_profile_leg(torch, np, ck, vt, cs):
@@ -6354,6 +7107,10 @@ def main_path_leg(leg, checkout):
         res = ab_frame_profile_leg(torch, np, ck, vt, cs)
     elif leg == "p16-profile":
         res = ab_p16_profile_leg(torch, np, ck, vt, cs)
+    elif leg == "p1516":
+        res = ab_p1516_leg(torch, np, ck, vt, cs)
+    elif leg == "f14-profile":
+        res = ab_f14_profile_leg(torch, np, ck, vt, cs)
     else:
         res = cs.phase_main_path(torch, np, ck, vt)
         res = {k: res[k] for k in (

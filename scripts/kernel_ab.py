@@ -1,4 +1,4 @@
-"""digit_hist and partition_pos of two checkouts, timed in turns on one card.
+"""The three CUDA kernels of two checkouts, timed in turns on one card.
 
     python3 scripts/kernel_ab.py DIR_A DIR_B DIR_B DIR_A
 
@@ -58,6 +58,8 @@ def leg(checkout):
         out[f"partition_pos {label}"] = cs.time_ms(
             torch, [lambda bb=bb: ck.partition_pos(bb, nb, st) for bb in bs])
 
+    out["hash_bucket main [8, 3145728]"] = cs.time_ms(
+        torch, lambda: ck.hash_bucket(inp["main_keys"], n))
     hist("main [8, 3145728] bins=9", inp["main_bucket"], n + 1)
     pos("main [8, 131072] bins=9 warm", inp["join_bucket"], n + 1,
         inp["join_starts"])

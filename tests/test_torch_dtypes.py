@@ -454,30 +454,25 @@ UINT32_OPS = {
 
 # ops whose closure holds a Python int past int32: the reference's trace
 # refuses it (its literal rule) and its host tier compares exactly; the
-# port traces under the same rule and refuses the closure at build
-UINT32_REFUSED = ("filter",)
+# port traces it again in the host tier's row form (host_rows.py), whose
+# rows are the reference's
+UINT32_HOST_ROWS = ("filter",)
 
 
 @pytest.mark.parametrize("op", sorted(UINT32_OPS))
 def test_uint32_ops(ctxs, op):
     """The actions and row ops over a uint32 column on both sides of 2^31
-    (2^32 - 1 included) equal the reference's, dtypes included, or, with
-    a constant past int32 in the closure, refuse as the literal rule
-    says."""
+    (2^32 - 1 included) equal the reference's, dtypes included; with a
+    constant past int32 in the closure, the host tier's row form gives
+    the reference's host rows."""
     ref, port = ctxs
     rng = np.random.RandomState(7)
     x = np.concatenate([rng.randint(0, 2**32, 300, dtype=np.int64),
                         [2**32 - 1, U31, U31 - 1, 0, 0]]).astype(np.uint32)
     exp = UINT32_OPS[op](ref, x)
-    if op in UINT32_REFUSED:
-        assert exp == [int(y) for y in x if y > U31]
-        with pytest.raises(VegaError, match="outside int32") as ei:
-            UINT32_OPS[op](port, x)
-        assert str(ei.value).endswith(": the reference hands this to its "
-                                      "host tier, which vega_tpu_torch "
-                                      "does not have")
-        return
     got = UINT32_OPS[op](port, x)
+    if op in UINT32_HOST_ROWS:
+        assert exp == [int(y) for y in x if y > U31]
     if isinstance(exp, dict) and isinstance(next(iter(exp.values())),
                                             np.ndarray):
         assert _dtypes(got) == _dtypes(exp)

@@ -260,13 +260,14 @@ def test_sample_rows_match_reference(ctxs, source):
 
 
 def test_sample_with_replacement_and_seeds(ctxs):
-    """With replacement is the reference's host tier's; seed None is 0; a
-    seed past int32 raises (the reference's PRNGKey takes int32 without
-    x64)."""
-    _ref, port = ctxs
+    """With replacement is the reference's host tier's PoissonSampler
+    stream, which the port replays per shard (the rows equal the
+    reference's); seed None is 0; a seed past int32 raises (the
+    reference's PRNGKey takes int32 without x64)."""
+    ref, port = ctxs
     d = port.dense_range(1_000)
-    with pytest.raises(VegaError, match="host tier"):
-        d.sample(True, 0.5, seed=1)
+    assert d.sample(True, 0.5, seed=1).collect() == \
+        ref.dense_range(1_000).sample(True, 0.5, seed=1).collect()
     assert d.sample(False, 0.3).collect() == \
         d.sample(False, 0.3, seed=0).collect()
     with pytest.raises(VegaError, match="int32"):

@@ -10,7 +10,10 @@ reference's DenseRDD answers on its own device tier (fold_by_key,
 aggregate_by_key, group_by, sort_by, mask_keys, cache, num_partitions,
 dense, id); and seven its host tier answers (full_outer_join,
 subtract_by_key, group_with, partition_by_key / partition_by, fold,
-aggregate). Every other name of that API raises VegaError ending in
+aggregate). Thirteen more that its host tier answers (the samplers,
+count_approx_distinct, the approximate, async, iterator and file
+actions) are held to it in tests/test_torch_host_actions.py. Every other
+name of that API (20 on a DenseRDD) raises VegaError ending in
 HOST_TIER_SUFFIX on a DenseRDD, on a cogroup's result and on a
 right_outer_join's result, never AttributeError, and the reference
 answers each of those on its host tier. Both packages run under the
@@ -321,14 +324,20 @@ def test_fold_by_key_streamed(ctxs):
 
 
 def test_fold_by_key_refusals(ctxs):
-    """What the port's combine_by_key refuses (wide int64 and string
-    values), fold_by_key refuses with the suffix; so does a zero the
-    trace cannot fold (builtin max branches on a value; the reference
-    folds it on its host tier)."""
-    _ref, port = ctxs
+    """What the port's combine_by_key refuses (string values),
+    fold_by_key refuses with the suffix; so does a zero the trace cannot
+    fold (builtin max branches on a value; the reference folds it on its
+    host tier). Wide int64 values take the host tier's row form
+    (host_rows.py) and give the reference's host rows."""
+    ref, port = ctxs
     wide = np.array([2**40, 3], np.int64)
+    # order-free: the reference's host shuffle places rows by its own
+    # hash
+    assert sorted(port.dense_from_numpy(K2, wide).fold_by_key(
+        0, operator.add).collect()) == sorted(ref.dense_from_numpy(
+            K2, wide).fold_by_key(0, operator.add).collect())
     strs = np.array(["a", "b"])
-    for vals in (wide, strs):
+    for vals in (strs,):
         with pytest.raises(VegaError) as info:
             port.dense_from_numpy(K2, vals).fold_by_key(0, operator.add)
         assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
@@ -680,7 +689,12 @@ DEVICE_FORMS = (
     "cache", "num_partitions", "dense", "id",
     # its host tier answers these seven
     "full_outer_join", "subtract_by_key", "group_with", "partition_by_key",
-    "partition_by", "fold", "aggregate")
+    "partition_by", "fold", "aggregate",
+    # and these thirteen, held to it in tests/test_torch_host_actions.py
+    "take_sample", "random_split", "count_approx_distinct", "count_approx",
+    "mean_approx", "count_by_value_approx", "to_local_iterator",
+    "for_each", "for_each_partition", "save_as_text_file",
+    "collect_async", "count_async", "reduce_async")
 
 REFUSALS = (
     [("DenseRDD", n) for n in _refused_names(dense_rdd.DenseRDD)]
@@ -691,26 +705,18 @@ REFUSALS = (
 
 # One small call per name the port's DenseRDD still refuses, as the
 # reference answers it (on a (k, v) DenseRDD of K2 / V2): each runs a host
-# job, a host RNG, a subprocess or reads scheduler metadata there. A name
-# the port refuses with no entry here fails test_host_only_name_refuses.
+# job, a subprocess or reads scheduler metadata there. A name the port
+# refuses with no entry here fails test_host_only_name_refuses.
 def _ref_host_calls(tmp):
     return {
         "cached_splits": lambda r: r.cached_splits(),
         "checkpoint": lambda r: r.checkpoint(os.path.join(tmp, "ck"))
         .glom().collect(),
         "coalesce": lambda r: r.coalesce(2).collect(),
-        "collect_async": lambda r: r.collect_async().result(),
         "compute": lambda r: list(r.compute(r.splits()[0])),
-        "count_approx": lambda r: r.count_approx(5.0),
-        "count_approx_distinct": lambda r: r.count_approx_distinct(),
-        "count_async": lambda r: r.count_async().result(),
-        "count_by_value_approx": lambda r: r.count_by_value_approx(5.0),
         "flat_map": lambda r: r.flat_map(lambda kv: list(kv)).collect(),
         "flat_map_values": lambda r: r.flat_map_values(
             lambda x: [x, x]).collect(),
-        "for_each": lambda r: r.for_each(lambda kv: None),
-        "for_each_partition": lambda r: r.for_each_partition(
-            lambda it: None),
         "get_dependencies": lambda r: r.get_dependencies(),
         "glom": lambda r: r.glom().collect(),
         "is_pinned": lambda r: r.is_pinned,
@@ -719,23 +725,14 @@ def _ref_host_calls(tmp):
             lambda it: [sum(1 for _ in it)]).collect(),
         "map_partitions_with_index": lambda r: r.map_partitions_with_index(
             lambda i, it: [i]).collect(),
-        "mean_approx": lambda r: r.values().mean_approx(5.0),
         "partitioner": lambda r: r.partitioner,
         "pin": lambda r: r.pin().is_pinned,
         "pipe": lambda r: r.pipe("cat").collect(),
         "preferred_locations": lambda r: r.preferred_locations(
             r.splits()[0]),
-        "random_split": lambda r: [p.collect() for p in r.random_split(
-            [0.5, 0.5], seed=1)],
-        "reduce_async": lambda r: r.values().reduce_async(
-            operator.add).result(),
         "repartition": lambda r: r.repartition(2).collect(),
-        "save_as_text_file": lambda r: r.save_as_text_file(
-            os.path.join(tmp, "txt")),
         "splits": lambda r: r.splits(),
-        "take_sample": lambda r: r.take_sample(False, 1, seed=1),
         "to_debug_string": lambda r: r.to_debug_string(),
-        "to_local_iterator": lambda r: list(r.to_local_iterator()),
         "to_rdd": lambda r: r.to_rdd(),
     }
 
@@ -797,7 +794,28 @@ def test_device_forms_and_refusals_cover_the_api(ctxs):
         getattr(node, "no_such_method")
     for name in DEVICE_FORMS:
         assert name not in _refused_names(dense_rdd.DenseRDD)
-    assert len(_refused_names(dense_rdd.DenseRDD)) == 33
+    refused = _refused_names(dense_rdd.DenseRDD)
+    assert len(refused) == 20
+    assert set(refused) == set(dense_rdd.REFUSAL_REASONS)
+    assert set(DEVICE_FORMS) | set(refused) | {
+        n for n in dense_rdd.REFERENCE_RDD_API
+        if hasattr(dense_rdd.DenseRDD, n)} == dense_rdd.REFERENCE_RDD_API
+
+
+@pytest.mark.parametrize("name", sorted(dense_rdd.REFUSAL_REASONS))
+def test_refusal_says_why(ctxs, name):
+    """Each name still refused on a DenseRDD (and on a streamed one)
+    names why in its message: the host scheduler's internals, a Python
+    object per partition or row, or the host shuffle's partition
+    count."""
+    _ref, port = ctxs
+    why = dense_rdd.REFUSAL_REASONS[name]
+    for node in (port.dense_from_numpy(K2, V2),
+                 port.dense_range(1000, chunk_rows=300)):
+        with pytest.raises(dense_rdd.HostTierRefusal) as info:
+            getattr(node, name)
+        assert f"({why})" in str(info.value)
+        assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
 
 
 @pytest.mark.parametrize("obj", ["DenseRDD", "cogroup", "right_outer_join",

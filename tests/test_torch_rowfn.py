@@ -227,22 +227,24 @@ def test_division_by_zero_on_a_valid_row(ctxs):
 
 def test_int64_intermediate_past_int32(ctxs):
     """A Python constant beyond int32 sends the reference's trace to its
-    host tier (exact Python ints); the port traces under the same literal
-    rule and refuses the row function when it is built, never wrapping
-    the value."""
+    host tier (exact Python ints); the port's trace under the same
+    literal rule fails too, and the row function runs in the host tier's
+    row form (host_rows.py): the reference's rows, never a wrapped
+    value."""
     ref, port = ctxs
     big = 3_000_000_000
     exp = ref.dense_from_numpy(A).map(lambda x: (x > 5) * big).collect()
     assert exp[-1] == big
-    with pytest.raises(VegaError, match="outside int32") as ei:
-        port.dense_from_numpy(A).map(lambda x: (x > 5) * big)
-    assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+    got = port.dense_from_numpy(A).map(lambda x: (x > 5) * big)
+    assert got.host_rows
+    assert got.collect() == exp
 
 
 # F18: a Python int past int32 in a closure. The reference's trace refuses
-# it and its host tier computes exact Python ints; the port refuses the
-# closure when the node is built. name -> (build(ctx), the reference's
-# rows or None where its host tier raises too)
+# it and its host tier computes exact Python ints; the port runs the
+# closure in the host tier's row form (host_rows.py), except where the
+# reference's host tier fails too. name -> (build(ctx), the reference's
+# rows or None where its host tier raises)
 R4 = np.arange(4, dtype=np.int32)
 F18_CLOSURES = {
     "filter": (lambda ctx: ctx.dense_range(4).filter(lambda x: x < 2**40),
@@ -265,16 +267,23 @@ F18_CLOSURES = {
 
 @pytest.mark.parametrize("name", sorted(F18_CLOSURES))
 def test_closure_with_a_constant_past_int32_refuses(ctxs, name):
+    """Each closure gives the reference's host rows (order-free: the
+    host's shuffle places rows by its own hash), or, where the
+    reference's host tier fails (flat_map_ragged), refuses with the
+    suffix when built."""
     ref, port = ctxs
     build, want = F18_CLOSURES[name]
     if want is None:
         with pytest.raises(Exception, match="not subscriptable"):
             build(ref).collect()
-    else:
-        assert sorted(build(ref).collect()) == want
-    with pytest.raises(VegaError, match="outside int32") as ei:
-        build(port)
-    assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+        with pytest.raises(VegaError) as ei:
+            build(port)
+        assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+        return
+    assert sorted(build(ref).collect()) == want
+    got = build(port)
+    assert got.host_rows
+    assert sorted(got.collect()) == want
 
 
 def test_stream_closure_with_a_constant_past_int32_refuses(ctxs):

@@ -128,11 +128,15 @@ def test_frame_stages_run_outside_the_rule():
 
 def test_row_function_traced_under_the_rule():
     """The RDD API builds a row function under the rule: a constant past
-    int32 refuses when the node is built, with the host-tier suffix; the
-    same function at int32 constants runs."""
+    int32 fails the device trace, and the node takes the host tier's row
+    form (exact int64, as the reference's host tier computes Python
+    ints); the same function at int32 constants runs on the device
+    trace."""
     with vt.Context(device="cpu", n_shards=4) as ctx:
         d = ctx.dense_range(8)
-        with pytest.raises(VegaError, match="outside int32") as ei:
-            d.map(lambda x: x * 2**33)
-        assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
-        assert d.map(lambda x: x * 2**30).collect()[:2] == [0, 2**30]
+        with pytest.raises(dense_rdd._LiteralRefusal, match="outside int32"):
+            dense_rdd._MapRDD(d, lambda x: x * 2**33)
+        host = d.map(lambda x: x * 2**33)
+        assert host.host_rows and host.collect()[:2] == [0, 2**33]
+        dev = d.map(lambda x: x * 2**30)
+        assert not dev.host_rows and dev.collect()[:2] == [0, 2**30]

@@ -230,18 +230,20 @@ def test_reference_block_with_wide_key_carries_across(port_ctx):
 
 def test_refusals(port_ctx):
     """What the reference hands to its host tier raises VegaError naming
-    it: row functions over a wide key, and keys that cannot meet on the
-    device. Wide values, wide-key reduces and joins, and an int32 key
-    meeting an int64 one run; nothing computes on the high word alone."""
+    it: keys that cannot meet on the device. Row functions over a wide
+    key run in the host tier's row form (host_rows.py), with the host's
+    rows: the key an exact int, the float32 value a Python float. Wide
+    values, wide-key reduces and joins, and an int32 key meeting an int64
+    one run; nothing computes on the high word alone."""
     wide = port_ctx.dense_from_numpy(np.array([2**40, 3], dtype=np.int64),
                                      np.array([1.0, 2.0]))
     narrow = port_ctx.dense_from_numpy(np.array([1, 3], dtype=np.int32),
                                        np.array([1.0, 2.0]))
     host = "host tier"
-    with pytest.raises(VegaError, match=host):
-        wide.map(lambda kv: (kv[0], kv[1] * 2))
-    with pytest.raises(VegaError, match=host):
-        wide.filter(lambda kv: kv[1] > 0)
+    doubled = wide.map(lambda kv: (kv[0], kv[1] * 2))
+    assert doubled.host_rows
+    assert doubled.collect() == [(2**40, 2.0), (3, 4.0)]
+    assert wide.filter(lambda kv: kv[1] > 1).collect() == [(3, 2.0)]
     with pytest.raises(VegaError, match=host):  # float against int64
         wide.join(port_ctx.dense_from_numpy(np.ones(2, np.float32),
                                             np.ones(2)))

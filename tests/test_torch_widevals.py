@@ -330,27 +330,38 @@ def test_keyless_wide_actions(ctxs):
 
 def test_wide_host_tier_requests_raise(ctxs):
     """Where the reference hands a wide column to its host tier, the port
-    raises VegaError naming it."""
-    _ref, port = ctxs
+    runs a closure in the host tier's row form (host_rows.py), with the
+    reference's rows (order-free by key after its host shuffle), and
+    raises VegaError naming the host tier for every other request."""
+    ref, port = ctxs
     keys, vals = _wide_pairs(3, n=100)
     pairs = port.dense_from_numpy(keys, vals)
     bare = port.dense_from_numpy(vals)
     narrow = port.dense_from_numpy(keys, keys)
-    for bad in (lambda: pairs.map(lambda kv: kv),
-                lambda: pairs.filter(lambda kv: kv[1] > 0),
-                lambda: pairs.map_values(lambda x: x + 1),
-                lambda: pairs.reduce_by_key(lambda a, b: a * b),
-                lambda: pairs.reduce_by_key(lambda a, b: a ^ b),
-                lambda: pairs.combine_by_key(lambda x: x, lambda c, x: c + x,
-                                             lambda a, b: a + b),
-                lambda: narrow.left_outer_join(pairs, fill_value=0),
-                lambda: bare.reduce(lambda a, b: a + b),
-                lambda: bare.count_by_value(),
+    for op in (lambda c: c.dense_from_numpy(keys, vals).map(lambda kv: kv),
+               lambda c: c.dense_from_numpy(keys, vals).filter(
+                   lambda kv: kv[1] > 0),
+               lambda c: c.dense_from_numpy(keys, vals).map_values(
+                   lambda x: x + 1),
+               lambda c: c.dense_from_numpy(keys, vals).reduce_by_key(
+                   lambda a, b: a ^ b),
+               lambda c: c.dense_from_numpy(keys, vals).combine_by_key(
+                   lambda x: x, lambda c, x: c + x, lambda a, b: a + b),
+               lambda c: c.dense_from_numpy(vals).map(lambda x: x)):
+        assert sorted(op(port).collect()) == sorted(op(ref).collect())
+    assert bare.reduce(lambda a, b: a + b) == \
+        ref.dense_from_numpy(vals).reduce(lambda a, b: a + b)
+    assert bare.count_by_value() == \
+        ref.dense_from_numpy(vals).count_by_value()
+    # a product of these values leaves int64: the reference keeps the
+    # Python int, the port raises
+    with pytest.raises(VegaError, match="int64"):
+        pairs.reduce_by_key(lambda a, b: a * b).collect()
+    for bad in (lambda: narrow.left_outer_join(pairs, fill_value=0),
                 lambda: bare.stats(),
                 lambda: bare.histogram(3),
                 lambda: bare.zip_with_index(),
-                lambda: bare.distinct(),
-                lambda: bare.map(lambda x: x)):
+                lambda: bare.distinct()):
         with pytest.raises(VegaError, match="host tier"):
             bad()
     with pytest.raises(VegaError, match="prod"):
@@ -446,16 +457,21 @@ def test_mixed_width_sides_widen(ctxs):
 
 def test_wide_key_row_functions_raise(ctxs):
     """map / filter / key_by over a wide key have no device row form: the
-    reference takes its host tier, the port raises; map_values over a
-    narrow value keeps the wide key."""
+    reference takes its host tier, and the port the host tier's row form
+    (host_rows.py), with the reference's rows for map and filter; key_by
+    over pairs makes a (k, v) tuple a value, which no column holds, and
+    still raises. map_values over a narrow value keeps the wide key."""
     ref, port = ctxs
     keys = np.array([2**40, 1, 2**40], np.int64)
     vals = np.array([1, 2, 3], np.int32)
     d = port.dense_from_numpy(keys, vals)
-    for bad in (lambda: d.map(lambda kv: (kv[0], kv[1] * 10)),
-                lambda: d.filter(lambda kv: kv[1] > 1),
-                lambda: d.key_by(lambda kv: kv[1])):
-        with pytest.raises(VegaError, match="host tier"):
-            bad()
+    e = ref.dense_from_numpy(keys, vals)
+    for op in (lambda r: r.map(lambda kv: (kv[0], kv[1] * 10)),
+               lambda r: r.filter(lambda kv: kv[1] > 1)):
+        got = op(d)
+        assert got.host_rows
+        assert sorted(got.collect()) == sorted(op(e).collect())
+    with pytest.raises(VegaError, match="host tier"):
+        d.key_by(lambda kv: kv[1])
     _same(d.map_values(lambda x: x * 10),
           ref.dense_from_numpy(keys, vals).map_values(lambda x: x * 10))

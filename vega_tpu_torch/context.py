@@ -94,6 +94,7 @@ import torch
 
 from vega_tpu_torch import dense_rdd
 from vega_tpu_torch import exchange_plan
+from vega_tpu_torch import jobs
 from vega_tpu_torch import kernels
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame.api import DataFrame
@@ -159,6 +160,8 @@ class Context:
                                          "spill")
         self._spill = DiskStore(os.path.join(
             base, f"session-{uuid.uuid4().hex[:12]}", "cache"))
+        # the FIFO worker of the asynchronous actions (jobs.py)
+        self._jobs = jobs.JobRunner()
         self._stopped = False
 
     @staticmethod
@@ -303,9 +306,11 @@ class Context:
     def stop(self) -> None:
         """Settle the deferred exchanges, so blocks a caller holds stay
         readable and the Context holds no block after it stops; remove
-        the spill directory; then stop. If settlement raises, its
-        leftover blocks raise on read."""
+        the spill directory; then stop. The asynchronous actions'
+        worker drains first. If settlement raises, its leftover blocks
+        raise on read."""
         try:
+            self._jobs.drain()
             dense_rdd._settle_pending(self)
         finally:
             for entry in self._pending:

@@ -245,8 +245,32 @@ class HostTierRefusal(VegaError, AttributeError):
     hasattr() and getattr(obj, name, default) keep their contract."""
 
 
-def _host_name_refused(owner: str, name: str) -> HostTierRefusal:
-    return HostTierRefusal(f"{owner}.{name}" + HOST_TIER_SUFFIX)
+# Why each name of REFERENCE_RDD_API that DenseRDD does not define has no
+# device form (a cogroup's or right_outer_join's result object refuses
+# the rest of the API as its own).
+_SCHEDULER = ("the host scheduler's own splits, dependencies, locations, "
+              "partitioner or pins, which the device tier does not have")
+_PER_PARTITION = ("a Python object per partition or row, an iterator, a "
+                  "list, a subprocess's lines or a host RDD, which no "
+                  "column holds")
+_HOST_SHUFFLE = ("the host shuffle's own partition count, where the device "
+                 "tier keeps one partition per shard")
+REFUSAL_REASONS = {
+    **dict.fromkeys(("cached_splits", "checkpoint", "compute", "iterator",
+                     "splits", "get_dependencies", "preferred_locations",
+                     "partitioner", "pin", "is_pinned", "to_debug_string"),
+                    _SCHEDULER),
+    **dict.fromkeys(("glom", "map_partitions", "map_partitions_with_index",
+                     "flat_map", "flat_map_values", "pipe", "to_rdd"),
+                    _PER_PARTITION),
+    **dict.fromkeys(("coalesce", "repartition"), _HOST_SHUFFLE),
+}
+
+
+def _host_name_refused(owner: str, name: str,
+                       why: Optional[str] = None) -> HostTierRefusal:
+    return HostTierRefusal(f"{owner}.{name}" + (f" ({why})" if why else "")
+                           + HOST_TIER_SUFFIX)
 
 
 class _HostTierRefusals:
@@ -258,7 +282,10 @@ class _HostTierRefusals:
 
     def __getattr__(self, name):
         if name in REFERENCE_RDD_API:
-            raise _host_name_refused(type(self).__name__, name)
+            raise _host_name_refused(
+                type(self).__name__, name,
+                REFUSAL_REASONS.get(name) if isinstance(self, DenseRDD)
+                else None)
         raise AttributeError(f"{type(self).__name__!r} object has no "
                              f"attribute {name!r}")
 
@@ -481,6 +508,8 @@ class DenseRDD(_HostTierRefusals):
     _schema()."""
 
     _storage_level: Optional[StorageLevel] = None
+    # a node built in the reference host tier's row form (host_rows.py)
+    _host_rows_self = False
 
     def __init__(self, ctx, mesh, parents: Sequence["DenseRDD"] = ()):
         self.context = ctx
@@ -624,6 +653,32 @@ class DenseRDD(_HostTierRefusals):
         return self.mesh.n_shards
 
     @property
+    def host_rows(self) -> bool:
+        """Whether the reference runs this node on its host tier: a node
+        built in that tier's row form (host_rows.py), or any node
+        downstream of one. Such a node's closures take the row form too."""
+        memo = self.__dict__.get("_host_rows_memo")
+        if memo is None:
+            memo = self._host_rows_self or any(
+                p.host_rows for p in self._dense_parents)
+            self._host_rows_memo = memo
+        return memo
+
+    def _host_form(self) -> bool:
+        """Whether a row closure over this node takes the host tier's row
+        form before any device trace: on a host-row node, or over a wide
+        int64 column, which the reference's trace does not take."""
+        return self.host_rows or any(block_lib.is_lo(nm)
+                                     for nm in self.columns)
+
+    def _host_values(self) -> bool:
+        """Whether a closure over this node's values (a map_values or a
+        reduce binop) takes the host tier's row form before any device
+        trace: on a host-row node, or over a wide int64 value."""
+        return self.host_rows or bool(
+            block_lib.wide_value_pairs(self.columns))
+
+    @property
     def is_pair(self) -> bool:
         return KEY in dict(self._schema())
 
@@ -643,6 +698,11 @@ class DenseRDD(_HostTierRefusals):
         if any(block_lib.is_lo(nm) for nm in self.columns):
             raise _no_host_tier(f"{op} over a two-column int64 column (no "
                                 "device row form)")
+
+    def _refuse_host_rows(self, op: str, why: str) -> None:
+        """An op with no host-row form, called on a host-row node."""
+        if self.host_rows:
+            raise _no_host_tier(f"{op} over a host-row node ({why})")
 
     @property
     def columns(self) -> List[str]:
@@ -669,8 +729,15 @@ class DenseRDD(_HostTierRefusals):
     def _check_sortable_key(self, op: str) -> None:
         """A bool key has no device exchange: the reference's key sorts
         refuse it (a ValueError from its sentinel of the key dtype), so
-        the port refuses it when the op is built."""
-        if dict(self._schema()).get(KEY) == torch.bool:
+        the port refuses it when the op is built. A float64 key (a float
+        key computed in the host tier's row form) refuses too: the host
+        groups its -0.0 with 0.0 by Python equality, which the key's
+        bits do not."""
+        key = dict(self._schema()).get(KEY)
+        if key == torch.float64:
+            raise _no_host_tier(f"{op} over a float64 key computed in the "
+                                "host tier's row form")
+        if key == torch.bool:
             raise VegaError(f"{op} over a bool key: the reference's device "
                             "sorts refuse a bool key; cast it to int32 "
                             "first")
@@ -682,18 +749,40 @@ class DenseRDD(_HostTierRefusals):
         returns a value or a (key, value) pair, each a tensor of that
         shape or a Python constant (broadcast to a column: int -> int32,
         float -> float32, bool -> bool). int64 / float64 outputs narrow to
-        int32 / float32, as the reference's 32-bit trace gives them."""
-        self._refuse_wide_rows("map")
+        int32 / float32, as the reference's 32-bit trace gives them.
+
+        Where the reference's trace refuses f (a Python int past int32,
+        a wide int64 column) or the node is a host-row one, f runs in the
+        host tier's row form instead (host_rows.HostMapRDD)."""
         self._refuse_dict_rows("map")
-        return _MapRDD(self, f)
+        return self._device_or_host(self._host_form(),
+                                    lambda: _MapRDD(self, f),
+                                    lambda hr: hr.HostMapRDD(self, f))
+
+    def _device_or_host(self, host_first: bool, device: Callable,
+                        host: Callable) -> "DenseRDD":
+        """The tier of a closure site: device() builds the device node,
+        unless host_first (a host-row node, or values only the row form
+        holds) or the reference's trace refuses the closure for a Python
+        int past int32 (_LiteralRefusal); then host(host_rows) builds the
+        node in the host tier's row form."""
+        if not host_first:
+            try:
+                return device()
+            except _LiteralRefusal:
+                pass
+        from vega_tpu_torch import host_rows
+        return host(host_rows)
 
     def filter(self, predicate: Callable) -> "DenseRDD":
         """Keep the rows whose predicate (run on whole column tensors, as
         map's f) is true; each shard compacts stably, so placement and key
-        order pass through."""
-        self._refuse_wide_rows("filter")
+        order pass through. The host tier's row form as map's
+        (host_rows.HostFilterRDD)."""
         self._refuse_dict_rows("filter")
-        return _FilterRDD(self, predicate)
+        return self._device_or_host(
+            self._host_form(), lambda: _FilterRDD(self, predicate),
+            lambda hr: hr.HostFilterRDD(self, predicate))
 
     def map_expand(self, f: Callable, factor: int) -> "DenseRDD":
         """Fixed-arity flat map: f gets the row's columns as map's f does
@@ -701,6 +790,9 @@ class DenseRDD(_HostTierRefusals):
         `factor` (e.g. torch.stack([x, x + 1000], dim=-1)), one such
         tensor or a (key, value) pair of them. Row i's outputs come out
         contiguous and in order, at capacity round(capacity * factor)."""
+        self._refuse_host_rows("map_expand", "the host tier calls f on one "
+                               "Python value a row, which takes no array "
+                               "expansion")
         self._refuse_wide_rows("map_expand")
         self._refuse_dict_rows("map_expand")
         return _MapExpandRDD(self, f, factor)
@@ -712,7 +804,13 @@ class DenseRDD(_HostTierRefusals):
         max_out_per_row and n_valid (a tensor of the row shape, or a
         constant) how many of a row's leading entries are real, clipped
         to [0, max_out_per_row]. Output capacity is capacity *
-        max_out_per_row, so nothing can overflow."""
+        max_out_per_row, so nothing can overflow. A closure the
+        reference's trace refuses, or one over a host-row node, refuses:
+        the reference's host tier calls f on one Python value a row, which
+        takes no array expansion, and its job fails."""
+        self._refuse_host_rows("flat_map_ragged", "the host tier calls f on "
+                               "one Python value a row, which takes no "
+                               "array expansion")
         self._refuse_wide_rows("flat_map_ragged")
         self._refuse_dict_rows("flat_map_ragged")
         return _FlatMapRaggedRDD(self, f, max_out_per_row)
@@ -723,9 +821,12 @@ class DenseRDD(_HostTierRefusals):
         jax.random.uniform(fold_in(PRNGKey(seed), s), ...)[i] < fraction,
         the reference's threefry stream bit for bit (kernels.threefry2x32),
         so the rows kept equal the reference's on every device. Sampling
-        with replacement (Poisson) is the reference's host tier's."""
+        with replacement is the reference's host tier's PoissonSampler
+        stream per shard, each row repeated on the device
+        (host_actions._PoissonSampleRDD)."""
         if with_replacement:
-            raise _no_host_tier("sample(with_replacement=True)")
+            from vega_tpu_torch import host_actions
+            return host_actions._PoissonSampleRDD(self, fraction, seed)
         return _SampleRDD(self, fraction, seed or 0)
 
     def key_by(self, f: Callable) -> "DenseRDD":
@@ -733,22 +834,26 @@ class DenseRDD(_HostTierRefusals):
 
     def map_values(self, f: Callable) -> "DenseRDD":
         """f over the one value column, keys (and a wide key's low word)
-        untouched, so placement and key order pass through."""
+        untouched, so placement and key order pass through. Over a wide
+        value, on a host-row node or where the reference's trace refuses
+        f, the host tier's row form (host_rows.HostMapValuesRDD)."""
         if not self.is_pair:
             raise VegaError("map_values on non-pair DenseRDD")
         value_names = self._value_names()
-        if block_lib.wide_value_pairs(value_names):
-            raise _no_host_tier("map_values over a wide int64 value column "
-                                "(no device row form)")
-        if len(value_names) != 1:
-            raise VegaError(
-                "map_values needs exactly one value column (have "
-                f"{value_names}); use select(...) or a tuple-valued "
-                "reduce_by_key on multi-column blocks")
-        if value_names[0] in self._dicts():
-            raise _no_host_tier("map_values over a string "
-                                "(dictionary-encoded) value column")
-        return _MapValuesRDD(self, f)
+
+        def device():
+            if len(value_names) != 1:
+                raise VegaError(
+                    "map_values needs exactly one value column (have "
+                    f"{value_names}); use select(...) or a tuple-valued "
+                    "reduce_by_key on multi-column blocks")
+            if value_names[0] in self._dicts():
+                raise _no_host_tier("map_values over a string "
+                                    "(dictionary-encoded) value column")
+            return _MapValuesRDD(self, f)
+
+        return self._device_or_host(self._host_values(), device,
+                                    lambda hr: hr.HostMapValuesRDD(self, f))
 
     def select(self, *names: str) -> "DenseRDD":
         """Project a subset of columns, in the order given. Selecting a
@@ -825,7 +930,11 @@ class DenseRDD(_HostTierRefusals):
         (all_to_all, staged, ring) or plans it (auto); None follows the
         Context's dense_exchange. partitioner_or_num is accepted and
         ignored, as the reference's device path does: the output is one
-        partition per shard."""
+        partition per shard. A binop the reference's trace refuses (a
+        Python int past int32, wide values) or one over a host-row node
+        runs in the host tier's row form (host_rows.HostBinop: exact
+        int64, float64); a named add over a host-row node's int32 or
+        float32 values sums in int64 or float64, as the host's."""
         if not self.is_pair:
             raise VegaError("reduce_by_key on non-pair DenseRDD")
         if op is None and func is None:
@@ -842,20 +951,26 @@ class DenseRDD(_HostTierRefusals):
                                 f"(dictionary-encoded) value columns "
                                 f"{dict_vals} with op={op!r} (only min / "
                                 "max have a meaning on the codes)")
-        if op is None or (wide and func is not None and op == "prod"):
-            if wide:
-                raise _no_host_tier("a traced binop over wide int64 values "
-                                    "(no scalar row form)")
-            return _with_exchange(_ReduceByKeyRDD(self, None, func),
-                                  exchange)
+        host = self._host_values()
+        if op is None or (host and func is not None and op == "prod"):
+            return _with_exchange(self._device_or_host(
+                host, lambda: _ReduceByKeyRDD(self, None, func),
+                lambda _: _ReduceByKeyRDD(self, None, func, host=True)),
+                exchange)
         if op not in kernels.SEGMENT_OPS:
             raise VegaError(f"unknown op {op!r}; expected one of "
                             f"{kernels.SEGMENT_OPS}")
+        parent = self
+        from vega_tpu_torch import host_rows
+        if self.host_rows and op in ("add", "prod") \
+                and host_rows.needs_widening(self):
+            parent = host_rows.WidenValuesRDD(self)
+            wide = block_lib.wide_value_pairs(parent.columns)
         if op == "prod" and wide:
             raise VegaError("reduce_by_key(op='prod') over int64 (wide) "
                             "values has no device path; the reference's "
                             "host tier keeps exact products")
-        return _with_exchange(_ReduceByKeyRDD(self, op), exchange)
+        return _with_exchange(_ReduceByKeyRDD(parent, op), exchange)
 
     def sum_by_key(self) -> "DenseRDD":
         return self.reduce_by_key(op="add")
@@ -877,16 +992,26 @@ class DenseRDD(_HostTierRefusals):
         semantics under the combiner contract merge_value(c, v) ==
         merge_combiners(c, create_combiner(v)). partitioner_or_num is
         ignored, as reduce_by_key's."""
+        self._check_combine()
+        return self._device_or_host(
+            self._host_values(),
+            lambda: self._device_combine(create_combiner, merge_combiners,
+                                         exchange),
+            lambda hr: hr.HostMapValuesRDD(self, create_combiner)
+            .reduce_by_key(merge_combiners, exchange=exchange))
+
+    def _check_combine(self) -> None:
         if not self.is_pair:
             raise VegaError("combine_by_key on non-pair DenseRDD")
-        if block_lib.wide_value_pairs(self.columns):
-            raise _no_host_tier("combine_by_key over wide int64 values (no "
-                                "device row form)")
         if any(nm not in (KEY, KEY_LO) for nm in self._dicts()):
             raise _no_host_tier("combine_by_key over string "
                                 "(dictionary-encoded) values")
         if not self._value_names():
             raise VegaError("combine_by_key needs a value column")
+
+    def _device_combine(self, create_combiner, merge_combiners, exchange):
+        """combine_by_key's device form; raises _LiteralRefusal where the
+        reference's trace refuses a closure."""
         mapped = _MapValuesRDD(self, create_combiner)
         op = _infer_named_op(merge_combiners)
         return _with_exchange(
@@ -899,18 +1024,26 @@ class DenseRDD(_HostTierRefusals):
         reference's device path builds it: the zero is folded into every
         ROW, not once per key per partition as on its host tier (the
         comment at vega_tpu/tpu/dense_rdd.py:1210 says there is no device
-        lowering; its combine_by_key is one). Wide and string values
-        refuse as combine_by_key does."""
-        return self.combine_by_key(lambda v: func(zero, v), func, func,
-                                   partitioner_or_num)
+        lowering; its combine_by_key is one). String values refuse as
+        combine_by_key does. Where the host tier's row form takes over
+        (host_rows.py), the zero is folded once per key per shard, as the
+        host tier folds it once per key per partition."""
+        return self._keyed_fold(zero, func, func)
 
     def aggregate_by_key(self, zero, seq_func: Callable,
                          comb_func: Callable,
                          partitioner_or_num=None) -> "DenseRDD":
         """combine_by_key(lambda v: seq_func(zero, v), seq_func,
-        comb_func): the zero folded into every row, as fold_by_key."""
-        return self.combine_by_key(lambda v: seq_func(zero, v), seq_func,
-                                   comb_func, partitioner_or_num)
+        comb_func): the zero folded into every row, as fold_by_key, and
+        once per key per shard in the host tier's row form."""
+        return self._keyed_fold(zero, seq_func, comb_func)
+
+    def _keyed_fold(self, zero, seq: Callable, comb: Callable):
+        self._check_combine()
+        return self._device_or_host(
+            self._host_values(),
+            lambda: self._device_combine(lambda v: seq(zero, v), comb, None),
+            lambda hr: hr.keyed_fold(self, zero, seq, comb))
 
     def _join_sides(self, other, op: str):
         """The checks join, left_outer_join and cogroup share: two dense
@@ -1121,7 +1254,27 @@ class DenseRDD(_HostTierRefusals):
         return self.block().num_rows
 
     def collect(self) -> list:
-        return _host_rows(self.block().to_numpy())
+        return self._collect_block(self.block())
+
+    def _collect_block(self, blk: Block) -> list:
+        """collect()'s rows of this node's materialized block."""
+        return self._rows_of(blk.to_numpy())
+
+    def _rows_of(self, cols: Dict[str, np.ndarray]) -> list:
+        """Rows, as collect() forms them, of host columns of this node
+        (a shard's, or every shard's)."""
+        return _host_rows(cols)
+
+    def _row_tree(self):
+        """The nesting of a row's logical columns as _rows_of forms it: a
+        column name (a wide pair by its base name) or a tuple of trees;
+        None where a row holds a list."""
+        names = [nm for nm in self.columns if not block_lib.is_lo(nm)]
+        if names == [VALUE]:
+            return VALUE
+        if set(names) == {KEY, VALUE}:
+            return (KEY, VALUE)
+        return tuple(names)
 
     def collect_arrays(self) -> Dict[str, np.ndarray]:
         """Columnar collect: no per-row Python objects."""
@@ -1143,7 +1296,7 @@ class DenseRDD(_HostTierRefusals):
         path only once the files are in place, or raises. (The reference
         has every process write the same .tmp and replace it, which
         races on a path the processes share.)"""
-        if type(self).collect is not DenseRDD.collect:
+        if type(self)._rows_of is not DenseRDD._rows_of:
             raise VegaError(
                 "save_npz persists raw columns; this RDD's elements are "
                 "derived from them (grouped/joined) — save an upstream RDD "
@@ -1380,16 +1533,10 @@ class DenseRDD(_HostTierRefusals):
         if self.is_pair:
             raise _no_host_tier(f"{what} over pairs (f would take (k, v) "
                                 "tuples)")
-        self._refuse_wide_rows(what)
         self._refuse_dict_rows(what)
-        self._one_value_column(what)
-        dt = dict(self._schema())[VALUE]
+        vals, dt, blk = self._value_row_tensor(what)
         floating = dt.is_floating_point or isinstance(zero, float)
         wide = torch.float64 if floating else torch.int64
-        blk = self.block()
-        vals = coltypes.to_row(blk.cols[VALUE], dt)
-        if isinstance(vals, coltypes.RowTensor):
-            vals = vals.as_subclass(torch.Tensor)
         vals = vals.to(wide)
         op = _infer_named_op(seq)
         if op is None:
@@ -1404,6 +1551,21 @@ class DenseRDD(_HostTierRefusals):
             acc = comb(acc, seq(copy.deepcopy(zero), part) if full
                        else copy.deepcopy(zero))
         return acc
+
+    def _value_row_tensor(self, what: str):
+        """(the value column's values as a plain tensor, its logical
+        dtype, the block): a wide value as its int64, a logical one in
+        its row form."""
+        wide = self._wide_value()
+        blk = self._value_block(what, wide_ok=True)
+        dt = dict(self._schema())[VALUE]
+        if wide:
+            return kernels.wide_i64(blk.cols[VALUE], blk.cols[
+                block_lib.lo_of(VALUE)]), torch.int64, blk
+        vals = coltypes.to_row(blk.cols[VALUE], dt)
+        if isinstance(vals, coltypes.RowTensor):
+            vals = vals.as_subclass(torch.Tensor)
+        return vals, dt, blk
 
     # --- value actions ------------------------------------------------------
     def _value_block(self, op: str, wide_ok: bool = False) -> Block:
@@ -1438,11 +1600,18 @@ class DenseRDD(_HostTierRefusals):
             return vdict[int(code)].item()
         dt = dict(self._schema())[VALUE]
         col = blk.cols[VALUE]
-        if op == "add" and dt in (torch.uint8, torch.uint16, torch.uint32):
-            # unsigned: int64 partials per shard, summed on the host as
-            # Python ints, exact; the reference's uint32 partial wraps
-            # once a shard's sum passes 2^32 (pinned in
-            # tests/test_torch_dtypes.py)
+        if op == "add" and self.host_rows and dt.is_floating_point:
+            # the host tier adds Python floats: float64
+            parts = mesh_lib.host_get(blk.mesh, torch.where(
+                kernels.valid_mask(col.shape[1], blk.counts),
+                col.to(torch.float64), 0.0).sum(dim=1))
+            return float(sum(parts.tolist()))
+        if op == "add" and (dt in (torch.uint8, torch.uint16, torch.uint32)
+                            or self.host_rows):
+            # unsigned (or any integer of a host-row node): int64 partials
+            # per shard, summed on the host as Python ints, exact; the
+            # reference's uint32 partial wraps once a shard's sum passes
+            # 2^32 (pinned in tests/test_torch_dtypes.py)
             u = coltypes.to_row(col, dt).to(torch.int64)
             parts = mesh_lib.host_get(blk.mesh, torch.where(
                 kernels.valid_mask(u.shape[1], blk.counts), u, 0).sum(dim=1))
@@ -1478,24 +1647,43 @@ class DenseRDD(_HostTierRefusals):
         scan (one segment), the n_shards partials and their non-empty
         flags come back in one fetch, and the host folds them with f on
         CPU tensors. An empty RDD raises."""
+        return self._reduce_launch(f)()
+
+    def _reduce_launch(self, f: Callable):
+        """reduce(f)'s checks and device scan; returns the callable that
+        fetches the partials and folds them on the host."""
         if self.is_pair:
             raise _no_host_tier("reduce(f) over pairs")
-        self._refuse_wide_rows("reduce(f)")
         self._refuse_dict_rows("reduce(f)")
-        dtype = dict(self._schema()).get(VALUE)
-        binop = _check_binop(f, [dtype], "reduce")
+        if not self._host_form():
+            # the reference's own reduce traces f with no host fallback:
+            # a Python int past int32 refuses here too
+            dtype = dict(self._schema()).get(VALUE)
+            return self._device_reduce(_check_binop(f, [dtype], "reduce"),
+                                       dtype)
+        op = _infer_named_op(f)
+        if op in ("add", "min", "max"):
+            value = self._named_reduce(op)
+            return lambda: value
+        from vega_tpu_torch import host_rows
+        return host_rows.reduce_launch(self, f)
+
+    def _device_reduce(self, binop, dtype):
         blk = self._value_block("reduce")
         first, n_out = _scan_partials(blk, blk.cols[VALUE], binop)
-        partials, nonempty = _fetch_words(
-            blk.mesh, [first, (n_out > 0).to(torch.int32)])
-        picked = [torch.from_numpy(partials[s:s + 1])[0]
-                  for s in range(len(nonempty)) if nonempty[s]]
-        if not picked:
-            raise VegaError("reduce() of empty RDD")
-        acc = picked[0]
-        for x in picked[1:]:
-            acc = binop(acc, x)
-        return coltypes.to_numpy(acc.numpy(), dtype).item()
+
+        def finish():
+            partials, nonempty = _fetch_words(
+                blk.mesh, [first, (n_out > 0).to(torch.int32)])
+            picked = [torch.from_numpy(partials[s:s + 1])[0]
+                      for s in range(len(nonempty)) if nonempty[s]]
+            if not picked:
+                raise VegaError("reduce() of empty RDD")
+            acc = picked[0]
+            for x in picked[1:]:
+                acc = binop(acc, x)
+            return coltypes.to_numpy(acc.numpy(), dtype).item()
+        return finish
 
     def stats(self) -> dict:
         """count / mean / stdev / min / max in one pass and one fetch:
@@ -1503,8 +1691,14 @@ class DenseRDD(_HostTierRefusals):
         integer counts, combined on the host as the reference combines
         them."""
         self._refuse_dict_rows("stats")
-        blk = self._value_block("stats")
-        v = coltypes.to_float32(blk.cols[VALUE], dict(self._schema())[VALUE])
+        if self.host_rows:
+            # the host tier adds Python floats: float64, a wide int64 too
+            v, _, blk = self._value_row_tensor("stats")
+            v = v.to(torch.float64)
+        else:
+            blk = self._value_block("stats")
+            v = coltypes.to_float32(blk.cols[VALUE],
+                                    dict(self._schema())[VALUE])
         parts = torch.stack([kernels.masked_reduce(v, blk.counts, "add"),
                              kernels.masked_reduce(v * v, blk.counts, "add"),
                              kernels.masked_reduce(v, blk.counts, "min"),
@@ -1576,7 +1770,10 @@ class DenseRDD(_HostTierRefusals):
         rides it through reduce_by_key(op="add")."""
         if self.is_pair:
             raise _no_host_tier("count_by_value over pairs")
-        self._refuse_wide_rows("count_by_value")
+        if self._host_form():
+            # the host tier's own definition, in its row form
+            return dict(self.map(lambda x: (x, 1)).reduce_by_key(
+                operator.add).collect())
         self._one_value_column("count_by_value")
         return dict(_ReduceByKeyRDD(_value_to_key(self, _value_key_one),
                                     "add").collect())
@@ -1659,6 +1856,87 @@ class DenseRDD(_HostTierRefusals):
             merged, coltypes.logical_of(schema)), self._dicts()).values())
         return [tuple(c[i].item() for c in out_cols)
                 for i in order_host[:n]]
+
+
+    # --- the host tier's answers, on the device (host_actions.py) ---------
+    def take_sample(self, with_replacement: bool, num: int,
+                    seed: Optional[int] = None) -> list:
+        """The reference's take_sample: count, an oversampled sample(...)
+        retried with seed + attempts while short, a PCG64(seed, or 7)
+        shuffle of its rows, the first num."""
+        from vega_tpu_torch import host_actions
+        return host_actions.take_sample(self, with_replacement, num, seed)
+
+    def random_split(self, weights, seed: Optional[int] = None
+                     ) -> List["DenseRDD"]:
+        """One DenseRDD per weight band: shard s keeps a row when its draw
+        in the reference's BernoulliCellSampler stream falls in the band,
+        so the bands are disjoint and cover every row."""
+        from vega_tpu_torch import host_actions
+        return host_actions.random_split(self, weights, seed)
+
+    def count_approx_distinct(self, relative_sd: float = 0.05) -> int:
+        """The reference's HyperLogLog estimate of the distinct rows, its
+        registers built on the device from each row's hash_key."""
+        from vega_tpu_torch import host_actions
+        return host_actions.count_approx_distinct(self, relative_sd)
+
+    def count_approx(self, timeout_s: float, confidence: float = 0.95):
+        """count() as a final PartialResult of BoundedDouble(n, 1.0, n, n):
+        the device answers before any deadline (the reference can return
+        a non-final estimate)."""
+        from vega_tpu_torch import host_actions
+        return host_actions.count_approx(self, timeout_s, confidence)
+
+    def mean_approx(self, timeout_s: float, confidence: float = 0.95):
+        """The mean of the values as a final PartialResult."""
+        from vega_tpu_torch import host_actions
+        return host_actions.mean_approx(self, timeout_s, confidence)
+
+    def count_by_value_approx(self, timeout_s: float,
+                              confidence: float = 0.95):
+        """count_by_value() as a final PartialResult of {value:
+        BoundedDouble}."""
+        from vega_tpu_torch import host_actions
+        return host_actions.count_by_value_approx(self, timeout_s,
+                                                  confidence)
+
+    def to_local_iterator(self):
+        """The rows, as collect() forms them, read one shard at a time."""
+        from vega_tpu_torch import host_actions
+        return host_actions.to_local_iterator(self)
+
+    def for_each(self, f: Callable) -> None:
+        """f(row) for every row, one shard at a time, in shard order."""
+        from vega_tpu_torch import host_actions
+        host_actions.for_each(self, f)
+
+    def for_each_partition(self, f: Callable) -> None:
+        """f(iterator over a shard's rows) for every shard, in order."""
+        from vega_tpu_torch import host_actions
+        host_actions.for_each_partition(self, f)
+
+    def save_as_text_file(self, path: str) -> None:
+        """path/part-NNNNN per shard, one f"{row}\\n" a row, as the
+        reference writes them (process 0 alone across processes)."""
+        from vega_tpu_torch import host_actions
+        host_actions.save_as_text_file(self, path)
+
+    def collect_async(self):
+        """collect() as a JobFuture (jobs.py)."""
+        from vega_tpu_torch import host_actions
+        return host_actions.collect_async(self)
+
+    def count_async(self):
+        """count() as a JobFuture (jobs.py)."""
+        from vega_tpu_torch import host_actions
+        return host_actions.count_async(self)
+
+    def reduce_async(self, f: Callable):
+        """reduce(f) as a JobFuture (jobs.py): what reduce refuses raises
+        here; an empty RDD raises through the future."""
+        from vega_tpu_torch import host_actions
+        return host_actions.reduce_async(self, f)
 
 
 class _SourceRDD(DenseRDD):
@@ -1858,8 +2136,8 @@ def _fetch_words(mesh, tensors) -> List[np.ndarray]:
     """Several per-shard int32 / float32 tensors (other integers as int32)
     over all the shards in ONE device-to-host transfer (mesh.host_get)."""
     return mesh_lib.host_get(mesh, [
-        t if t.dtype in (torch.int32, torch.float32) else t.to(torch.int32)
-        for t in tensors])
+        t if t.dtype in (torch.int32, torch.float32, torch.float64)
+        else t.to(torch.int32) for t in tensors])
 
 
 def _named_reduce_wide(blk: Block, op: str) -> int:
@@ -1984,6 +2262,13 @@ def _row_view(cols, schema):
             if nm in cols}
 
 
+class _LiteralRefusal(VegaError):
+    """A closure the reference's trace refuses only for a Python int past
+    int32 (tracing.LiteralOverflow, or such a constant output): the
+    reference runs it on its host tier, and the port in that tier's row
+    form (host_rows.py)."""
+
+
 def _traced(f, args, what: str, literal_rule: bool = True):
     """f(*args) on probe tensors, under the reference's literal rule
     (tracing.int32_literals: a Python int past int32 raises); a failure
@@ -1994,6 +2279,10 @@ def _traced(f, args, what: str, literal_rule: bool = True):
             return f(*args)
         with tracing.int32_literals():
             return f(*args)
+    except tracing.LiteralOverflow as e:
+        raise _LiteralRefusal(f"{what} {f!r} does not run on column "
+                              f"tensors ({type(e).__name__}: {e})"
+                              + HOST_TIER_SUFFIX) from e
     except Exception as e:  # noqa: BLE001 — any failure means "no trace"
         raise _no_host_tier(f"{what} {f!r} does not run on column tensors "
                             f"({type(e).__name__}: {e})") from e
@@ -2016,7 +2305,8 @@ def _column_dtype(x, shape, what: str) -> torch.dtype:
         dt = torch.bool
     elif isinstance(x, int):
         if not kernels.INT32_MIN <= x <= kernels.INT32_MAX:
-            raise _no_host_tier(f"{what}: constant {x} outside int32")
+            raise _LiteralRefusal(f"{what}: constant {x} outside int32"
+                                  + HOST_TIER_SUFFIX)
         dt = torch.int32
     elif isinstance(x, float):
         dt = torch.float32
@@ -2655,8 +2945,17 @@ class _ExpandRDD(DenseRDD):
         self._width = width
         self._dict_renames = {}  # f mints its outputs
         schema = parent._schema()
-        self._probe_out = _traced(f, (_cols_to_row(_probe_cols(
-            schema, parent.n_shards), schema),), what)
+        try:
+            self._probe_out = _traced(f, (_cols_to_row(_probe_cols(
+                schema, parent.n_shards), schema),), what)
+        except _LiteralRefusal as e:
+            # no host-row form: the reference's host tier calls f on one
+            # Python value a row, which takes no array expansion
+            raise _no_host_tier(
+                f"{what} {f!r} holds a Python int outside int32, which "
+                "sends it to the reference's host tier; there f gets one "
+                "Python value a row, takes no array expansion and fails "
+                f"({e.__cause__})") from e
 
     def _schema(self):
         return self._out_schema
@@ -3290,7 +3589,9 @@ class _ReduceByKeyRDD(_ExchangeRDD):
     _table_plan = False  # whether the last materialization took the table
     _float64 = frozenset()  # reduce_columns' pairs of float64 bits
 
-    def __init__(self, parent: DenseRDD, op, func=None):
+    _host = None  # the host tier's binop (host_rows.HostBinop)
+
+    def __init__(self, parent: DenseRDD, op, func=None, host: bool = False):
         parent._check_sortable_key("reduce_by_key")
         bools = [nm for nm, dt in parent._schema()
                  if dt == torch.bool and nm not in (KEY, KEY_LO)
@@ -3307,7 +3608,15 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         self._op = op
         self._func = func
         self._value_cols = parent._value_names()
-        if func is not None:
+        if host:
+            from vega_tpu_torch import host_rows
+            self._host = host_rows.HostBinop(func, parent._schema(),
+                                             "reduce_by_key")
+            self._func = self._host.combine
+            self._value_cols = self._host.names + [host_rows.BAD]
+            self._user_fn = func
+            self._host_rows_self = True
+        elif func is not None:
             if not self._value_cols:
                 raise VegaError("reduce_by_key(func) needs a value column; "
                                 "count_by_key_dense counts a key-only block")
@@ -3326,7 +3635,7 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         them too, and discards them. A wide key's low word rides with the
         key."""
         lo_name = KEY_LO if KEY_LO in cols else None
-        if self._op is not None:
+        if self._op is not None and self._host is None:
             op = self._op if isinstance(self._op, str) else {
                 nm: _op_of(self._op, nm) for nm in cols
                 if nm not in (KEY, KEY_LO)}
@@ -3342,7 +3651,9 @@ class _ReduceByKeyRDD(_ExchangeRDD):
             return kernels.compact(cols, kernels.valid_mask(
                 cols[KEY].shape[1], count), cols[KEY].shape[1])
         cols = dict(cols, **inputs)
-        if len(names) == 1:
+        if self._host is not None:
+            combine = f  # dicts of working columns
+        elif len(names) == 1:
             nm0 = names[0]
 
             def combine(a, b):
@@ -3366,10 +3677,14 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         self.block_spec()
 
     def _schema(self):
+        if self._host is not None:
+            return self._host.schema(
+                [(nm, dt) for nm, dt in self.parent._schema()
+                 if nm in (KEY, KEY_LO)])
         return self.parent._schema()
 
     def _fp_extra(self):
-        return (self._op or _fp(self._user_fn),)
+        return (self._op or _fp(self._user_fn), self._host is not None)
 
     def _bank_range(self, lo: np.ndarray, hi: np.ndarray) -> None:
         """Remember the observed key range of this lineage and input sizes
@@ -3409,7 +3724,8 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         blk = root.block_spec()  # we register our own pending entry
         source = _chain_source(chain, blk)
         schema = self.parent._schema()
-        names = [nm for nm, _ in schema]
+        names = [nm for nm, _ in self._schema()]
+        host = self._host
         lo_name = KEY_LO if KEY_LO in names else None
         # wide value pairs reduce in their exact working form; logical
         # (narrow, uint32) value columns in 32 bits, wrapped back after
@@ -3417,8 +3733,9 @@ class _ReduceByKeyRDD(_ExchangeRDD):
         logical = ({nm: dt for nm, dt in coltypes.logical_of(schema).items()
                     if nm not in (KEY, KEY_LO)} if op else {})
         key_dt = dict(schema)[KEY]
-        track_range = any(_op_of(op, nm) == "add" for nm in wide
-                          if nm not in self._float64)
+        track_range = host is not None or any(
+            _op_of(op, nm) == "add" for nm in wide
+            if nm not in self._float64)
         # The table plan, and the key-range learning that arms it: named
         # add/min/max over one 32-bit value column with an int32 key.
         vnames = [nm for nm in names if nm != KEY]
@@ -3441,6 +3758,8 @@ class _ReduceByKeyRDD(_ExchangeRDD):
             exchange = (None if elide else
                         self._resolve_exchange((blk,), slot, out_cap))
             cols, count = source()
+            if host is not None:
+                cols = host.working(cols)
             cols = _wide_working_form(cols, wide, op, self._float64)
             cols = _logical_form(cols, logical, op)
             if n > 1 and not elide and plan == "sort_partition":
@@ -3486,8 +3805,11 @@ class _ReduceByKeyRDD(_ExchangeRDD):
             # reduce-side merge
             cols, count = self._segment_reduce(
                 cols, count, presorted=elide_sorted, sort_impl=sort_impl)
-            cols, out_of_range = _wide_stored_form(cols, count, wide, op,
-                                                   self._float64)
+            if host is not None:
+                cols, out_of_range = host.stored(cols, count)
+            else:
+                cols, out_of_range = _wide_stored_form(cols, count, wide, op,
+                                                       self._float64)
             cols = _logical_form(cols, logical, op, back=True)
             extras = [out_of_range] if track_range else []
             if learn_range:
@@ -3520,6 +3842,12 @@ class _ReduceByKeyRDD(_ExchangeRDD):
                 on_success=on_success)
         extra = self._last_extra_host  # None on the deferred path
         if track_range and extra is not None and extra[0].any():
+            if host is not None:
+                raise VegaError(
+                    "reduce_by_key: the binop left the int64 range (or "
+                    "divided by zero) on a row; the reference's host tier "
+                    "computes it on Python ints, which the device cannot "
+                    "hold")
             raise VegaError(
                 "reduce_by_key(op='add'): an exact total of a wide int64 "
                 "column lies outside the int64 range and has no device "
@@ -3812,12 +4140,14 @@ class _JoinRDD(_ExchangeRDD):
             cols=cols, counts=count, capacity=join_cap_used[0],
             mesh=self.mesh, counts_host=self._last_counts_host))
 
-    def collect(self) -> list:
+    def _rows_of(self, cols) -> list:
         if self._named:
-            return super().collect()
-        cols = self.block().to_numpy()  # wide pairs decoded
+            return super()._rows_of(cols)
         return [(k, (lv, rv)) for k, lv, rv in zip(
             cols[KEY].tolist(), cols["lv"].tolist(), cols["rv"].tolist())]
+
+    def _row_tree(self):
+        return super()._row_tree() if self._named else (KEY, ("lv", "rv"))
 
 
 def reduce_columns(node: DenseRDD, ops: Dict[str, str],
@@ -4030,9 +4360,12 @@ class _GroupByKeyRDD(_HashExchangeRDD):
         cols = self.block().to_numpy()
         return _grouped_columnar(cols[KEY], cols[VALUE])
 
-    def collect(self) -> list:
-        cols = self.block().to_numpy()
+    def _rows_of(self, cols) -> list:
+        # a shard holds whole groups (hash-placed, key-sorted runs)
         return list(_sorted_runs(cols[KEY], cols[VALUE]))
+
+    def _row_tree(self):
+        return None  # a row holds its group's list
 
 
 class _PartitionByKeyRDD(_HashExchangeRDD):

@@ -16,3 +16,7 @@ class CollectiveError(VegaError):
     """A collective across processes could not complete (a peer is lost,
     or did not reach it within the group's timeout): a failure of the
     group, never a refusal of the data."""
+
+
+class CancelledError(VegaError):
+    """An asynchronous action was cancelled before it completed."""

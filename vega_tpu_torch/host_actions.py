@@ -1,0 +1,393 @@
+"""Device forms of the RDD API names the reference answers on its host tier.
+
+The reference's DenseRDD inherits these from its host RDD (vega_tpu/rdd/
+base.py), which runs them over the rows of each partition; on the port a
+partition is a shard, and each name computes on the device what the host
+tier computes over those rows:
+
+* sample(True, fraction, seed): the reference's PoissonSampler stream per
+  shard (random.py), each row repeated on the device (_PoissonSampleRDD).
+* random_split(weights, seed): one _CellSampleRDD per weight band, each
+  keeping the rows whose BernoulliCellSampler draw falls in its band.
+* take_sample(with_replacement, num, seed): the reference's algorithm over
+  the port's count, sample and collect, then its PCG64 shuffle.
+* count_approx_distinct(relative_sd): HyperLogLog registers built on the
+  device from the rows' hash_key (hll.py), estimated on the host.
+* count_approx / mean_approx / count_by_value_approx: the exact value on
+  the device as a final PartialResult (partial/).
+* to_local_iterator / for_each / for_each_partition / save_as_text_file:
+  host rows read one shard at a time in shard order (the peak host memory
+  is one shard's rows); across processes the block is read once on the
+  calling thread, and only process 0 writes files.
+* collect_async / count_async / reduce_async: jobs.py.
+
+The draws of the samplers stay on the host (numpy, per shard); only the
+repeat counts or keep masks travel to the device, once."""
+
+from __future__ import annotations
+
+import os
+import uuid
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from vega_tpu_torch import block as block_lib
+from vega_tpu_torch import coltypes
+from vega_tpu_torch import dense_rdd as dr
+from vega_tpu_torch import hll
+from vega_tpu_torch import kernels
+from vega_tpu_torch import mesh as mesh_lib
+from vega_tpu_torch import random as vrandom
+from vega_tpu_torch.block import Block
+from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.partial import BoundedDouble, PartialResult, final
+
+
+# ---------------------------------------------------------------------------
+# samplers
+# ---------------------------------------------------------------------------
+
+
+def _local_rows(mesh, blk: Block, per_shard, dtype) -> np.ndarray:
+    """[n_local, capacity] host array of this process's shards, row i of
+    shard s holding per_shard(s, count)[i] (zeros past the count)."""
+    counts = blk.counts_np
+    out = np.zeros((mesh.n_local, blk.capacity), dtype)
+    for i in range(mesh.n_local):
+        s = mesh.first_shard + i
+        c = int(counts[s])
+        out[i, :c] = per_shard(s, c)
+    return out
+
+
+class _PoissonSampleRDD(dr.DenseRDD):
+    """sample(True, fraction, seed): row i of shard s repeated
+    rng.poisson(fraction) times, its copies adjacent and in row order, as
+    the reference's PoissonSampler yields them. A chain break: the draws
+    need the parent's host counts."""
+
+    def __init__(self, parent: dr.DenseRDD, fraction: float,
+                 seed: Optional[int]):
+        super().__init__(parent.context, parent.mesh, [parent])
+        self.parent = parent
+        self._sampler = vrandom.PoissonSampler(fraction, seed)
+
+    def _schema(self):
+        return self.parent._schema()
+
+    def _fp_extra(self):
+        return ("poisson", self._sampler.fraction, self._sampler.seed)
+
+    def _materialize(self) -> Block:
+        blk = self.parent.block()
+        mesh = self.mesh
+        counts = blk.counts_np
+        # every process draws every shard's stream: the output capacity
+        # (the largest total) is then the same everywhere with no fetch
+        reps = [self._sampler.counts(int(counts[s]), s)
+                for s in range(self.n_shards)]
+        totals = np.array([int(r.sum()) for r in reps], np.int64)
+        if totals.max(initial=0) > kernels.INT32_MAX:
+            raise VegaError("sample(with_replacement=True): a shard's "
+                            "sample passes 2^31 rows")
+        cap = block_lib._round_capacity(max(int(totals.max(initial=0)), 1))
+        local = _local_rows(mesh, blk, lambda s, c: reps[s][:c], np.int64)
+        m = torch.from_numpy(local).to(mesh.device)  # the one copy
+        owner, _, _ = kernels.ragged_expand(m, cap)
+        counts_out = totals.astype(np.int32)
+        cols = {}
+        for nm, c in blk.cols.items():  # a value may have trailing dims
+            idx = owner.view(owner.shape + (1,) * (c.dim() - 2))
+            cols[nm] = torch.gather(c, 1, idx.expand(
+                owner.shape + c.shape[2:]))
+        return Block(cols=cols, counts=mesh_lib.host_put(mesh, counts_out),
+                     capacity=cap, mesh=mesh, counts_host=counts_out)
+
+
+class _CellSampleRDD(dr._NarrowRDD):
+    """One band [lb, ub) of random_split: shard s keeps row i when the
+    i-th draw of its BernoulliCellSampler stream falls in the band, and
+    compacts stably (placement and key order pass through). Every band
+    of a split draws the same streams. A chain break: the draws need the
+    parent's host counts."""
+
+    _keeps_counts = False
+    _keeps_placement = True
+    _chainable = False
+
+    def __init__(self, parent: dr.DenseRDD, lb: float, ub: float,
+                 seed: Optional[int]):
+        super().__init__(parent, parent._schema())
+        self._sampler = vrandom.BernoulliCellSampler(lb, ub, seed=seed)
+
+    def _fp_extra(self):
+        s = self._sampler
+        return ("cell", s.lb, s.ub, s.seed)
+
+    def _materialize(self) -> Block:
+        blk = self.parent.block()
+        mesh = self.mesh
+        sampler = self._sampler
+        keep = _local_rows(mesh, blk, lambda s, c: sampler.keep(
+            sampler.draws(c, s)), bool)
+        keep = torch.from_numpy(keep).to(mesh.device)  # the one copy
+        cols, count = kernels.compact(dict(blk.cols), keep, blk.capacity)
+        return Block(cols=cols, counts=count, capacity=blk.capacity,
+                     mesh=mesh)
+
+
+def random_split(node, weights, seed=None) -> List[dr.DenseRDD]:
+    """The reference's random_split: the weights normalized into bands
+    [0, w0), [w0, w0 + w1), ..., one _CellSampleRDD each."""
+    total = sum(weights)
+    bounds = [0.0]
+    for w in weights:
+        bounds.append(bounds[-1] + w / total)
+    return [_CellSampleRDD(node, lb, ub, seed)
+            for lb, ub in zip(bounds, bounds[1:])]
+
+
+def take_sample(node, with_replacement: bool, num: int, seed=None) -> list:
+    """The reference's take_sample (rdd/base.py): count, then a sample at
+    the oversampling fraction (threefry without replacement, Poisson
+    with), retried with seed + attempts up to 20 times while short, then
+    shuffled by PCG64(seed, or 7) on the host and cut to num."""
+    if num == 0:
+        return []
+    initial_count = node.count()
+    if initial_count == 0:
+        return []
+    rng = np.random.Generator(np.random.PCG64(seed if seed is not None
+                                              else 7))
+    if not with_replacement and num >= initial_count:
+        items = node.collect()
+        rng.shuffle(items)
+        return items
+    fraction = vrandom.compute_fraction_for_sample_size(
+        num, initial_count, with_replacement)
+    samples = node.sample(with_replacement, fraction, seed).collect()
+    attempts = 0
+    while len(samples) < num and attempts < 20:
+        attempts += 1
+        samples = node.sample(with_replacement, fraction,
+                              (seed or 0) + attempts).collect()
+    rng.shuffle(samples)
+    return samples[:num]
+
+
+# ---------------------------------------------------------------------------
+# count_approx_distinct
+# ---------------------------------------------------------------------------
+
+
+def _column_hash(node, blk: Block, name: str) -> torch.Tensor:
+    """hash_key of each value of one logical column (a wide pair by its
+    base name)."""
+    schema = dict(node._schema())
+    dicts = node._dicts()
+    col = blk.cols[name]
+    if col.dim() > 2:
+        raise dr._no_host_tier(f"count_approx_distinct over the column "
+                               f"{name!r} with trailing dims (a row holds a "
+                               "list, which the reference cannot hash)")
+    lo = block_lib.lo_of(name)
+    if name in dicts:
+        table = torch.from_numpy(hll.hash_strings(dicts[name])).to(
+            col.device)
+        return hll.hash_column(col, "str", table)
+    if lo in blk.cols:
+        return hll.hash_column(kernels.wide_i64(col, blk.cols[lo]), "int")
+    dt = schema[name]
+    if dt == torch.bool:
+        return hll.hash_column(col, "bool")
+    row = coltypes.to_row(col, dt)
+    if isinstance(row, coltypes.RowTensor):
+        row = row.as_subclass(torch.Tensor)
+    return hll.hash_column(row, "float" if dt.is_floating_point else "int")
+
+
+def _row_tree(node):
+    """The nesting of a row's logical columns, as collect() forms rows: a
+    name, or a tuple of trees; None where a row holds a list."""
+    tree = node._row_tree()
+    if tree is None:
+        raise dr._no_host_tier(f"count_approx_distinct over the rows of "
+                               f"{type(node).__name__} (a row holds a "
+                               "list, which the reference cannot hash)")
+    return tree
+
+
+def count_approx_distinct(node, relative_sd: float = 0.05) -> int:
+    """The reference's HyperLogLog estimate of the number of distinct
+    rows, its registers built on the device."""
+    p = hll.precision_for(relative_sd)
+    blk = node.block()
+
+    def hashed(tree):
+        if isinstance(tree, tuple):
+            return hll.hash_tuple([hashed(t) for t in tree])
+        return _column_hash(node, blk, tree)
+
+    h = hashed(_row_tree(node))
+    valid = kernels.valid_mask(blk.capacity, blk.counts)
+    reg = hll.registers(h, valid, p).to(torch.uint8)
+    merged = mesh_lib.host_get(blk.mesh, reg).max(axis=0)
+    return hll.estimate(merged)
+
+
+# ---------------------------------------------------------------------------
+# approximate actions: exact on the device, final
+# ---------------------------------------------------------------------------
+
+
+def count_approx(node, timeout_s: float, confidence: float = 0.95):
+    return PartialResult(final(node.count()))
+
+
+def count_by_value_approx(node, timeout_s: float, confidence: float = 0.95):
+    return PartialResult(_finals(node.count_by_value()))
+
+
+def _finals(counts: dict) -> dict:
+    """{value: final BoundedDouble} of exact counts."""
+    return {k: final(v) for k, v in counts.items()}
+
+
+def mean_approx(node, timeout_s: float, confidence: float = 0.95):
+    """The rows' mean: each shard's float64 sum and count in one fetch,
+    summed on the host in shard order (the reference adds the rows as
+    Python floats); no rows give the reference's nan interval."""
+    if node.is_pair:
+        raise dr._no_host_tier("mean_approx over pairs (the reference adds "
+                               "(k, v) tuples)")
+    node._refuse_dict_rows("mean_approx")
+    vals, _, blk = node._value_row_tensor("mean_approx")
+    mask = kernels.valid_mask(blk.capacity, blk.counts)
+    sums = torch.where(mask, vals.to(torch.float64), 0.0).sum(dim=1)
+    sums, counts = mesh_lib.host_get(blk.mesh, [sums, blk.counts])
+    n = int(counts.sum())
+    if n == 0:
+        nan = float("nan")
+        return PartialResult(BoundedDouble(nan, 0.0, nan, nan))
+    return PartialResult(final(float(sum(sums.tolist())) / n))
+
+
+# ---------------------------------------------------------------------------
+# host-row actions: one shard at a time
+# ---------------------------------------------------------------------------
+
+
+def _shard_cols(node) -> Iterator[Dict[str, np.ndarray]]:
+    """Each shard's valid rows as host columns, in shard order. On one
+    process each shard is read when the caller reaches it; across
+    processes every column is read once (one gather) on the calling
+    thread first, so every process dispatches the same collectives."""
+    blk = node.block()
+    if not blk.mesh.collective:
+        for s in range(blk.n_shards):
+            yield blk.shard_rows(s)
+        return
+    counts = blk.counts_np
+    host = blk._host_cols()
+    for s in range(blk.n_shards):
+        yield blk._decode({nm: c[s, :counts[s]] for nm, c in host.items()})
+
+
+def shard_rows(node) -> Iterator[list]:
+    """Each shard's rows, as collect() forms them, in shard order."""
+    if node.mesh.collective:
+        parts = list(_shard_cols(node))  # the gather, on this thread
+        return (node._rows_of(cols) for cols in parts)
+    return (node._rows_of(cols) for cols in _shard_cols(node))
+
+
+def to_local_iterator(node) -> Iterator:
+    for rows in shard_rows(node):
+        yield from rows
+
+
+def for_each(node, f) -> None:
+    for rows in shard_rows(node):
+        for x in rows:
+            f(x)
+
+
+def for_each_partition(node, f) -> None:
+    for rows in shard_rows(node):
+        f(iter(rows))
+
+
+def save_as_text_file(node, path: str) -> None:
+    """One part-NNNNN file a shard under path, one f"{row}\\n" a row,
+    each written to a unique temporary name and replaced into place.
+    Across processes process 0 writes every file, and one host_get tells
+    every process whether it did."""
+    mesh = node.mesh
+    writer = mesh.rank == 0
+    error = None
+    try:
+        if writer:
+            os.makedirs(path, exist_ok=True)
+        for s, rows in enumerate(shard_rows(node)):
+            if not writer:
+                continue
+            out = os.path.join(path, f"part-{s:05d}")
+            tmp = f"{out}.{uuid.uuid4().hex[:12]}.tmp"
+            with open(tmp, "w") as f:
+                f.write("".join(f"{x}\n" for x in rows))
+            os.replace(tmp, out)
+    except Exception as e:  # raised below, after every process knows
+        if not mesh.collective:
+            raise
+        error = e
+    if mesh.collective:
+        ok = mesh_lib.host_get(mesh, torch.tensor(
+            [error is None] * mesh.n_local, device=mesh.device))
+        if error is not None:
+            raise error
+        if not ok.all():
+            raise VegaError("save_as_text_file: process 0 could not write "
+                            f"the files under {path}")
+
+
+# ---------------------------------------------------------------------------
+# asynchronous actions
+# ---------------------------------------------------------------------------
+
+
+def collect_async(node):
+    """The lineage materializes here; the worker reads the block and
+    forms the rows (across processes the rows are read here too)."""
+    blk = node.block()
+    if blk.mesh.collective:
+        rows = node._collect_block(blk)
+        return node.context._jobs.submit(lambda: rows)
+    return node.context._jobs.submit(lambda: node._collect_block(blk))
+
+
+def count_async(node):
+    if type(node).count is not dr.DenseRDD.count or node.mesh.collective:
+        n = node.count()
+        return node.context._jobs.submit(lambda: n)
+    blk = node.block()
+    return node.context._jobs.submit(lambda: blk.num_rows)
+
+
+def reduce_async(node, f):
+    """reduce(f)'s checks and device launch here, its fetch and host fold
+    on the worker (here too across processes); an empty RDD raises
+    VegaError through the future."""
+    finish = node._reduce_launch(f)
+    if node.mesh.collective:
+        try:
+            value = finish()
+        except Exception as e:  # noqa: BLE001 — surfaces via result()
+            err = e
+
+            def fail():
+                raise err
+            return node.context._jobs.submit(fail)
+        return node.context._jobs.submit(lambda: value)
+    return node.context._jobs.submit(finish)

@@ -91,6 +91,23 @@ def planned_chunk_rows(n_rows: int, bytes_per_row: int, budget_bytes: int,
     return max(128, 1 << (rows.bit_length() - 1))
 
 
+def _no_host_rows(apply):
+    """apply, refusing a result the reference runs on its host tier (a
+    closure its trace refuses, such as one holding a Python int past
+    int32, runs there on the stream's resident rows): the port's host-row
+    form (host_rows.py) would run per chunk, where the recorded
+    difference keeps a stream's untraceable closures refused at build."""
+    def checked(chunk):
+        out = apply(chunk)
+        if isinstance(out, dense_rdd.DenseRDD) and out.host_rows:
+            raise dense_rdd._no_host_tier(
+                "a streamed source's closure that the reference runs on "
+                "its host tier (a Python int outside int32, or a wide "
+                "int64 column; the port refuses it when built)")
+        return out
+    return checked
+
+
 class StreamedDenseRDD:
     """A chunked dense dataset: _make_chunks() yields fresh per-chunk
     DenseRDDs (one chunk's device memory is released before the next
@@ -130,11 +147,13 @@ class StreamedDenseRDD:
         if name in dense_rdd.REFERENCE_RDD_API and \
                 not hasattr(dense_rdd.DenseRDD, name):
             # a host-tier name refuses before any chunk is built
-            raise dense_rdd._host_name_refused("StreamedDenseRDD", name)
+            raise dense_rdd._host_name_refused(
+                "StreamedDenseRDD", name, dense_rdd.REFUSAL_REASONS.get(name))
         return getattr(self.resident(), name)
 
     # --- narrow ops: compose per chunk -------------------------------------
     def _per_chunk(self, apply) -> "StreamedDenseRDD":
+        apply = _no_host_rows(apply)
         make = self._make_chunks
         make_probe = self._make_probe
         # the op's build-time checks run on the probe: what has no device
@@ -211,8 +230,9 @@ class StreamedDenseRDD:
         to every reduce; partitioner_or_num is ignored, as
         DenseRDD.reduce_by_key's."""
         probe = self._make_probe()
-        if probe is not None:
-            probe.reduce_by_key(func, op=op, exchange=exchange)  # checks
+        if probe is not None:  # checks
+            _no_host_rows(lambda c: c.reduce_by_key(
+                func, op=op, exchange=exchange))(probe)
         acc = None
         for i, chunk in enumerate(self._make_chunks()):
             partial = chunk.reduce_by_key(func, op=op, exchange=exchange)

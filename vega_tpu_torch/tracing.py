@@ -40,14 +40,21 @@ def _arguments(args, kwargs):
             yield a
 
 
+class LiteralOverflow(OverflowError):
+    """The rule's refusal: a torch call was given a Python int past
+    int32. The RDD API then traces the closure again in the reference
+    host tier's row form (host_rows.py)."""
+
+
 class Int32Literals(TorchFunctionMode):
-    """Raises OverflowError on a torch call with a Python int past int32."""
+    """Raises LiteralOverflow on a torch call with a Python int past
+    int32."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         for a in _arguments(args, kwargs):
             if past_int32(a):
-                raise OverflowError(
+                raise LiteralOverflow(
                     f"Python int {a} is outside int32: the reference's "
                     "trace (64-bit types off) refuses it")
         return func(*args, **kwargs)
