@@ -299,6 +299,25 @@ Phases, in order; any failure exits non-zero before the last line:
      on the main path's reduce, equal to the synchronous results. Each
      case once cold (checked, launches counted from 0) and three times
      warm: median ms, the host part apart, the step peak.
+ 19. the host RDD layer the reference hands off to, at bench-main's
+     dense_range(20M).map(lambda x: (x % K, x * 0.5)) over K = 1M keys, 8
+     shards, each case against numpy: (a) the reduce on the card,
+     .to_rdd().map_partitions(v * 2).dense() and joined to the K-row
+     table (launches by step: the card's reduce and the lifted rows'
+     join); (b) cogroup with the table .map_values((len, sum)).dense()
+     .count(), right_outer_join with a 1.1M-key table filtered to the
+     rows with no left side, and a three-side cogroup (the host
+     CoGroupedRDD: keys, list sizes and HashPartitioner(8) placement);
+     (c) glom sizes against the shard counts, coalesce(2) and
+     repartition(16) (sizes and rows against numpy's replay of the
+     reference's placement); (d) flat_map, flat_map_values and
+     pipe("cat") (lines equal numpy's formatting); (e) splits, compute
+     and to_debug_string on the 20M-row node, checkpoint then glom()
+     .count() on a 2M-row one (cut from 20M, where it took 21-24 s a
+     run; 8 files, lineage cut; removed after) and
+     parallelize(2M Python rows, 8).dense().reduce_by_key(op="add")
+     .count(). Each case once cold and P19_WARM times warm: median ms,
+     the card, host and lift (dense()'s from_numpy) parts apart.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
@@ -306,14 +325,21 @@ line per phase-9 leg and item, one line per phase-10 leg and item, one
 line per phase-11 size, gf256 row and fold op, one line per phase-12
 item, one line per phase-13 leg and rank and per 13d query (one process
 and each rank), one line per phase-14 item and 14c rank, one line per
-phase-15, phase-16 and phase-17 query, one line per phase-18 case, the
-kernel table as one JSON line (with phases 6-18's launches beside the
-main path's), the card line, and
+phase-15, phase-16 and phase-17 query, one line per phase-18 and
+phase-19 case, the kernel table as one JSON line (with phases 6-19's
+launches beside the main path's), the card line, and
 last
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
+
+    python3 chip_smoke.py --phase 19 [--without hash|bucket|gc]
+
+builds the kernels and runs phase 19 alone, as the whole script runs it,
+optionally with one of the host layer's fast paths (P19_PATHS) swapped
+for its plain form; prints one JSON line of each case's times and writes
+chiprun_out/p19_<PATH or all>.json.
 
     python3 chip_smoke.py --main-path-ab [--leg LEG] DIR_A DIR_B DIR_B DIR_A
 
@@ -6417,6 +6443,542 @@ def phase_eighteen(torch, np, ck, vt):
                 parts_s=parts, e_rows=P18E_ROWS)
 
 
+P19_ROWS = N_ROWS              # bench-main's dense_range(20M) (x % K, x * 0.5)
+P19_KEYS = N_KEYS
+P19_WIDE_KEYS = 1_100_000      # 19b's right_outer_join table: 100K keys more
+P19_SRC_ROWS = 2_000_000       # 19e's parallelize source, Python rows
+# 19e's checkpoint, cut from the 20M-row node: there it took 21.4 s cold
+# and 23.5 s warm (20M Python tuples pickled to 317 MB and read back) of
+# phase 19's 177.9 s (NVIDIA H100 80GB HBM3, 700.00 W)
+P19E_CKPT_ROWS = 2_000_000
+P19_WARM = 1
+P19_CKPT_DIR = "p19_ckpt.tmp"  # 19e's checkpoint files, removed after
+
+
+def p19_check(what, ok):
+    if not ok:
+        fail(f"phase 19: {what}")
+
+
+def p19_reduced(np):
+    """numpy's replay of the main path's reduce: the key k's sum of
+    x * 0.5 over x = k (mod K) in [0, N), in float64."""
+    x = np.arange(P19_ROWS, dtype=np.int64)
+    return np.bincount(x % P19_KEYS, weights=x * 0.5,
+                       minlength=P19_KEYS)
+
+
+def p19_close(np, got, exp):
+    """float32 device sums against float64 numpy: rtol 1e-5."""
+    return np.allclose(got, exp, rtol=1e-5, atol=0.0)
+
+
+def p19_hash_mod(np, keys, n):
+    """The reference's HashPartitioner(n) of int keys: splitmix64 % n."""
+    return (p18_hash_ints(np, np.asarray(keys)) % np.uint64(n)).astype(
+        np.int64)
+
+
+def p19_case(torch, ck, label, steps, check, warm=P19_WARM):
+    """One case: steps [(name, part, fn(previous output))], part "card"
+    (device work, to a synchronize), "host" (rows formed and moved on the
+    host; a dense() step's from_numpy lift timed apart by a clock) or
+    "lift". A cold run (launches counted from 0, checked), then `warm`
+    runs: the median of the whole and of each part, and the launches of
+    each step of the cold run."""
+    from vega_tpu_torch import dense_rdd
+
+    def one():
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        parts = {"card": 0.0, "host": 0.0, "lift": 0.0}
+        steps_launches = {}
+        out = None
+        t0 = time.perf_counter()
+        with _P18Clock(torch, ((dense_rdd, "dense_from_numpy"),)) as lift:
+            for name, part, fn in steps:
+                before = dict(ck.LAUNCHES)
+                lift_before = lift.ms
+                t1 = time.perf_counter()
+                out = fn(out)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3
+                lifted = lift.ms - lift_before
+                parts[part] += ms - lifted
+                parts["lift"] += lifted
+                steps_launches[name] = {k: ck.LAUNCHES[k] - before[k]
+                                        for k in ck.LAUNCHES}
+        whole = (time.perf_counter() - t0) * 1e3
+        return out, dict(ms=whole, parts=parts, step_launches=steps_launches,
+                         launches=dict(ck.LAUNCHES))
+
+    out, cold = one()
+    note = check(out)
+    del out
+    runs = [one()[1] for _ in range(warm)]
+    med = statistics.median(r["ms"] for r in runs)
+    r = dict(label=label, note=note, cold=cold, warm=runs, median_ms=med,
+             median_parts={p: statistics.median(x["parts"][p] for x in runs)
+                           for p in ("card", "host", "lift")},
+             launches=cold["launches"], step_launches=cold["step_launches"])
+    log(f"19 {label}: {note}; {med:.3f} ms warm median of {warm} (parts "
+        f"{json.dumps(r['median_parts'])}), cold {cold['ms']:.3f} ms, "
+        f"launches {json.dumps(cold['step_launches'])}")
+    return r
+
+
+def p19_part_a(torch, np, ck, vt, ctx, exp):
+    """19a: the main path's reduce on the card, handed to the host tier
+    (to_rdd().map_partitions), lifted back (dense()) and joined."""
+    table = ctx.dense_from_numpy(np.arange(P19_KEYS, dtype=np.int32),
+                                 np.arange(P19_KEYS, dtype=np.float32) * 2)
+    table.block()
+    state = {}
+
+    def reduce(_):
+        node = ctx.dense_range(P19_ROWS).map(
+            lambda x: (x % P19_KEYS, x * 0.5)).reduce_by_key(op="add")
+        node.block()
+        state["reduced"] = node
+        return node
+
+    def hand_off(node):
+        return node.to_rdd().map_partitions(
+            lambda it: ((k, v * 2) for k, v in it)).dense()
+
+    def join(lifted):
+        state["lifted"] = lifted
+        return lifted.join(table).count()
+
+    def check(n):
+        lifted, reduced = state["lifted"], state["reduced"]
+        p19_check(f"19a lifted is a DenseRDD ({type(lifted).__name__})",
+                  isinstance(lifted, vt.dense_rdd.DenseRDD))
+        got, base = lifted.collect_arrays(), reduced.collect_arrays()
+        p19_check("19a join count == K", n == P19_KEYS)
+        p19_check("19a lifted rows are the reduce's, v * 2 exactly",
+                  np.array_equal(got["k"], base["k"])
+                  and np.array_equal(got["v"], base["v"] * 2))
+        p19_check("19a sums equal numpy (rtol 1e-5)",
+                  p19_close(np, got["v"][np.argsort(got["k"])] / 2, exp))
+        return f"count {n}, {len(got['k'])} rows lifted equal numpy"
+
+    return [p19_case(torch, ck, "a_to_rdd_and_back",
+                     [("reduce", "card", reduce),
+                      ("to_rdd.map_partitions.dense", "host", hand_off),
+                      ("join.count", "card", join)], check)]
+
+
+def p19_part_b(torch, np, ck, vt, ctx, exp):
+    """19b: the result objects as host RDDs: a cogroup's map_values
+    lifted and counted, a right_outer_join filtered and counted, and a
+    cogroup of three sides (the host CoGroupedRDD)."""
+    table = ctx.dense_from_numpy(np.arange(P19_KEYS, dtype=np.int32),
+                                 np.arange(P19_KEYS, dtype=np.float32) * 2)
+    wide = ctx.dense_from_numpy(np.arange(P19_WIDE_KEYS, dtype=np.int32),
+                                np.ones(P19_WIDE_KEYS, np.float32))
+    reduced = ctx.dense_range(P19_ROWS).map(
+        lambda x: (x % P19_KEYS, x * 0.5)).reduce_by_key(op="add")
+    for node in (table, wide, reduced):
+        node.block()
+    rows = []
+    state = {}
+
+    def cogroup(_):
+        cg = reduced.cogroup(table)
+        # the two device group_by_keys, which compute() would otherwise
+        # materialize inside the host step
+        cg.left_grouped.block()
+        cg.right_grouped.block()
+        return cg
+
+    def lift(cg):
+        lifted = cg.map_values(
+            lambda lr: (len(lr[0]), sum(lr[1]))).dense()
+        state["lifted"] = lifted
+        return lifted
+
+    def count(lifted):
+        return lifted.count()
+
+    def check_cg(n):
+        got = state["lifted"].collect_arrays()
+        order = np.argsort(got["k"])
+        p19_check("19b cogroup count == K", n == P19_KEYS)
+        p19_check("19b cogroup rows: (1, 2k) a key",
+                  np.array_equal(got["k"][order], np.arange(P19_KEYS))
+                  and np.array_equal(got["v"][order],
+                                     np.stack([np.ones(P19_KEYS),
+                                               np.arange(P19_KEYS) * 2.0],
+                                              axis=1)))
+        return f"{n} keys, (1, 2k) each"
+
+    rows.append(p19_case(torch, ck, "b_cogroup_map_values_dense",
+                         [("cogroup", "card", cogroup),
+                          ("map_values.dense", "host", lift),
+                          ("count", "card", count)], check_cg))
+
+    def right_outer(_):
+        ro = reduced.right_outer_join(wide)
+        ro.prev.left_grouped.block()  # the device cogroup's two sides
+        ro.prev.right_grouped.block()
+        return ro
+
+    def unmatched(ro):
+        return ro.filter(lambda kv: kv[1][0] is None).count()
+
+    def check_ro(n):
+        p19_check("19b right_outer_join: the 100K keys the left lacks",
+                  n == P19_WIDE_KEYS - P19_KEYS)
+        return f"{n} unmatched rows"
+
+    rows.append(p19_case(torch, ck, "b_right_outer_filter",
+                         [("right_outer_join", "card", right_outer),
+                          ("filter.count", "host", unmatched)], check_ro))
+
+    def three(_):
+        cg = reduced.cogroup(table, wide)
+        state["cg3"] = cg
+        return cg.map_values(
+            lambda g: (len(g[0]), len(g[1]), len(g[2]))).collect()
+
+    def check_three(got):
+        keys = np.array([k for k, _ in got], np.int64)
+        sizes = np.array([s for _, s in got], np.int64)
+        order = np.argsort(keys)
+        exp_sizes = np.ones((P19_WIDE_KEYS, 3), np.int64)
+        exp_sizes[P19_KEYS:, :2] = 0
+        p19_check("19b three-side cogroup: every key once, sizes",
+                  np.array_equal(keys[order], np.arange(P19_WIDE_KEYS))
+                  and np.array_equal(sizes[order], exp_sizes))
+        part = p19_hash_mod(np, np.arange(P19_WIDE_KEYS), N_SHARDS)
+        sizes_by_part = state["cg3"].glom().map(len).collect()
+        p19_check("19b three-side cogroup: HashPartitioner(8) placement",
+                  sizes_by_part == np.bincount(
+                      part, minlength=N_SHARDS).tolist())
+        return f"{len(got)} keys over {sizes_by_part}"
+
+    rows.append(p19_case(torch, ck, "b_cogroup_three_sides",
+                         [("cogroup3.map_values.collect", "host", three)],
+                         check_three))
+    return rows
+
+
+def p19_part_c(torch, np, ck, vt, ctx, exp):
+    """19c: partitions: glom against the shard counts, coalesce(2) and
+    repartition(16) against numpy's replay of the reference's
+    placement."""
+    reduced = ctx.dense_range(P19_ROWS).map(
+        lambda x: (x % P19_KEYS, x * 0.5)).reduce_by_key(op="add")
+    reduced.block()
+    counts = reduced.block().counts_np.tolist()
+    base = reduced.collect_arrays()
+    bk, bv = base["k"], base["v"]
+    rows = []
+
+    def glom(_):
+        return reduced.glom().map(len).collect()
+
+    rows.append(p19_case(torch, ck, "c_glom_sizes",
+                         [("glom.map.collect", "host", glom)],
+                         lambda got: (p19_check("19c glom == counts",
+                                                got == counts),
+                                      f"sizes {got}")[1]))
+
+    def coalesce(_):
+        c2 = reduced.coalesce(2)
+        return c2.glom().map(len).collect(), c2.collect()
+
+    def check_co(out):
+        sizes, got = out
+        p19_check("19c coalesce(2) sizes: shards 0-3 and 4-7",
+                  sizes == [sum(counts[:4]), sum(counts[4:])])
+        p19_check("19c coalesce(2) rows in shard order",
+                  np.array_equal(np.array([k for k, _ in got]), bk)
+                  and np.array_equal(np.array([v for _, v in got]), bv))
+        return f"sizes {sizes}"
+
+    rows.append(p19_case(torch, ck, "c_coalesce_2",
+                         [("coalesce.glom+collect", "host", coalesce)],
+                         check_co))
+
+    def repartition(_):
+        r16 = reduced.repartition(16)
+        return r16.glom().collect()
+
+    def check_re(parts):
+        # row i of shard p is keyed p + i and goes to splitmix64(key) %
+        # 16; a reduce partition's rows come by key ascending (the first
+        # seen order of the map outputs), each key's rows in shard order
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        shard = np.repeat(np.arange(N_SHARDS), counts)
+        key = shard + (np.arange(len(bk)) - starts[shard])
+        dest = p19_hash_mod(np, key, 16)
+        order = np.lexsort((shard, key, dest))
+        sizes = [len(p) for p in parts]
+        p19_check("19c repartition(16) sizes", sizes == np.bincount(
+            dest, minlength=16).tolist())
+        got = [row for p in parts for row in p]
+        p19_check("19c repartition(16) rows in the reference's order",
+                  np.array_equal(np.array([k for k, _ in got]), bk[order])
+                  and np.array_equal(np.array([v for _, v in got]),
+                                     bv[order]))
+        return f"sizes {sizes}"
+
+    rows.append(p19_case(torch, ck, "c_repartition_16",
+                         [("repartition.glom.collect", "host", repartition)],
+                         check_re))
+    return rows
+
+
+def p19_part_d(torch, np, ck, vt, ctx, exp):
+    """19d: Python objects per row: flat_map, flat_map_values, pipe."""
+    reduced = ctx.dense_range(P19_ROWS).map(
+        lambda x: (x % P19_KEYS, x * 0.5)).reduce_by_key(op="add")
+    base = reduced.collect_arrays()
+    bk, bv = base["k"], base["v"]
+    rows = []
+    rows.append(p19_case(
+        torch, ck, "d_flat_map",
+        [("flat_map.count", "host",
+          lambda _: reduced.flat_map(lambda kv: [kv, kv]).count())],
+        lambda n: (p19_check("19d flat_map count", n == 2 * len(bk)),
+                   f"{n} rows")[1]))
+
+    def check_fmv(got):
+        p19_check("19d flat_map_values rows", np.array_equal(
+            np.array([k for k, _ in got]), np.repeat(bk, 2))
+            and np.array_equal(np.array([v for _, v in got]),
+                               np.tile([0, 1], len(bk))))
+        return f"{len(got)} rows"
+
+    rows.append(p19_case(
+        torch, ck, "d_flat_map_values",
+        [("flat_map_values.collect", "host",
+          lambda _: reduced.flat_map_values(lambda v: range(2)).collect())],
+        check_fmv))
+
+    def check_pipe(lines):
+        text = "\n".join(lines) + "\n"
+        p19_check("19d pipe('cat') lines equal numpy's formatting",
+                  text == p18_text(np, bk, bv.astype(np.float64)))
+        return f"{len(lines)} lines"
+
+    rows.append(p19_case(
+        torch, ck, "d_pipe_cat",
+        [("pipe.collect", "host", lambda _: reduced.pipe("cat").collect())],
+        check_pipe))
+    return rows
+
+
+def p19_part_e(torch, np, ck, vt, ctx, exp):
+    """19e: the scheduler's names on the 20M-row node, a checkpoint, and
+    parallelize(...).dense()."""
+    from vega_tpu_torch.split import Split
+
+    rows = []
+    state = {}
+
+    def node():
+        return ctx.dense_range(P19_ROWS).map(
+            lambda x: (x % P19_KEYS, x * 0.5))
+
+    def sched(_):
+        n = node()
+        n.block()
+        state["node"] = n
+        return n.splits(), list(n.compute(Split(0))), n.to_debug_string()
+
+    def check_sched(out):
+        splits, first, text = out
+        per = -(-P19_ROWS // N_SHARDS)
+        x = np.arange(per)
+        p19_check("19e splits", [s.index for s in splits]
+                  == list(range(N_SHARDS)))
+        p19_check("19e compute(Split(0)) == shard 0's rows",
+                  np.array_equal(np.array([k for k, _ in first]),
+                                 x % P19_KEYS)
+                  and np.array_equal(np.array([v for _, v in first]),
+                                     x * 0.5))
+        lines = [ln.split("[")[0] for ln in text.splitlines()]
+        p19_check(f"19e to_debug_string {lines}",
+                  lines == ["(8) _MapRDD", "  | (8) _SourceRDD"])
+        return f"{len(first)} rows in shard 0; {lines}"
+
+    rows.append(p19_case(torch, ck, "e_splits_compute_debug",
+                         [("splits.compute.to_debug_string", "host", sched)],
+                         check_sched))
+
+    def ckpt(_):
+        shutil.rmtree(P19_CKPT_DIR, ignore_errors=True)
+        n = ctx.dense_range(P19E_CKPT_ROWS).map(
+            lambda x: (x % P19_KEYS, x * 0.5)).checkpoint(
+                os.path.abspath(P19_CKPT_DIR))
+        state["ck"] = n
+        return n.glom().count()
+
+    def check_ckpt(n):
+        files = sorted(os.listdir(P19_CKPT_DIR))
+        node_ = state["ck"]
+        p19_check("19e checkpoint: 8 part files, lineage cut",
+                  n == N_SHARDS and files == [f"part-{s:05d}.ckpt"
+                                               for s in range(N_SHARDS)]
+                  and node_.get_dependencies() == []
+                  and node_._checkpointed_rdd is not None)
+        size = sum(os.path.getsize(os.path.join(P19_CKPT_DIR, f))
+                   for f in files)
+        return f"{len(files)} files, {size} B"
+
+    try:
+        rows.append(p19_case(torch, ck, "e_checkpoint_glom",
+                             [("checkpoint.glom.count", "host", ckpt)],
+                             check_ckpt))
+    finally:
+        shutil.rmtree(P19_CKPT_DIR, ignore_errors=True)
+
+    src = [(i % P19_KEYS, i) for i in range(P19_SRC_ROWS)]
+
+    def lift(_):
+        return ctx.parallelize(src, N_SHARDS).dense()
+
+    def reduce(d):
+        state["src_dense"] = d
+        node_ = d.reduce_by_key(op="add")
+        state["src_reduced"] = node_
+        return node_.count()
+
+    def check_src(n):
+        got = state["src_reduced"].collect_arrays()
+        i = np.arange(P19_SRC_ROWS, dtype=np.int64)
+        want = np.bincount(i % P19_KEYS, weights=i, minlength=P19_KEYS)
+        p19_check("19e parallelize.dense is a DenseRDD",
+                  isinstance(state["src_dense"], vt.dense_rdd.DenseRDD))
+        p19_check("19e parallelize.dense.reduce_by_key equals numpy",
+                  n == P19_KEYS and np.array_equal(
+                      got["v"][np.argsort(got["k"])], want))
+        return f"{n} keys"
+
+    rows.append(p19_case(torch, ck, "e_parallelize_dense",
+                         [("parallelize.dense", "host", lift),
+                          ("reduce_by_key.count", "card", reduce)],
+                         check_src))
+    return rows
+
+
+def phase_nineteen(torch, np, ck, vt):
+    """Phase 19: the host RDD layer the reference hands off to, at
+    bench-main's dense_range(20M) over K = 1M keys, 8 shards: (a) the
+    reduce to_rdd().map_partitions(...).dense() and joined, (b) cogroup
+    and right_outer_join results as host RDDs, a cogroup of three sides,
+    (c) glom, coalesce(2), repartition(16), (d) flat_map,
+    flat_map_values, pipe("cat"), (e) splits / compute / to_debug_string,
+    checkpoint, parallelize(2M rows).dense(). Each case once cold
+    (checked against numpy, launches counted from 0 per step) and
+    P19_WARM times warm: median ms, the card, host and lift parts
+    apart."""
+    t0 = time.perf_counter()
+    card = card_line()
+    exp = p19_reduced(np)
+    ctx = vt.Context(n_shards=N_SHARDS)
+    rows = []
+    parts = {}
+    for part, fn in (("a", p19_part_a), ("b", p19_part_b),
+                     ("c", p19_part_c), ("d", p19_part_d),
+                     ("e", p19_part_e)):
+        t1 = time.perf_counter()
+        rows += fn(torch, np, ck, vt, ctx, exp)
+        parts[part] = time.perf_counter() - t1
+    ctx.stop()
+    torch.cuda.empty_cache()
+    launches = {name: sum(r["launches"][name] for r in rows)
+                for name in ck.LAUNCHES}
+    check_launched(launches, "phase 19")
+    a = rows[0]["step_launches"]
+    p19_check("19a: the card's reduce launched hash_bucket and digit_hist",
+              a["reduce"]["hash_bucket"] > 0 and a["reduce"]["digit_hist"] > 0)
+    p19_check("19a: the lifted rows' join launched the kernels",
+              sum(a["join.count"].values()) > 0)
+    wall_s = time.perf_counter() - t0
+    log(f"phase 19 took {wall_s:.1f} s (parts {json.dumps(parts)})")
+    return dict(rows=rows, launches=launches, card=card, wall_s=wall_s,
+                parts_s=parts)
+
+
+# the host layer's fast paths that --phase 19 --without swaps for their
+# plain forms, one per run: hash, HashPartitioner.get_partitions's numpy
+# splitmix64 over plain ints (plain: Partitioner's hash_key per key);
+# bucket, the map side's inlined list-collecting aggregator (plain:
+# create_combiner / merge_value per row); gc, run_job's pause of the
+# cyclic garbage collector (plain: the collector left on)
+P19_PATHS = ("hash", "bucket", "gc")
+
+
+def p19_plain_bucket(dep, rows, buckets):
+    """rdd/shuffled.py's _bucket through the aggregator's own functions
+    for every aggregator."""
+    parts = dep.partitioner.get_partitions([kv[0] for kv in rows])
+    create = dep.aggregator.create_combiner
+    merge = dep.aggregator.merge_value
+    for (k, v), p in zip(rows, parts):
+        bucket = buckets[p]
+        if k in bucket:
+            bucket[k] = merge(bucket[k], v)
+        else:
+            bucket[k] = create(v)
+
+
+def p19_without(path):
+    """Swap one fast path of the host layer (P19_PATHS) for its plain
+    form, for the rest of the process."""
+    import contextlib
+
+    from vega_tpu_torch import context, partitioner
+    from vega_tpu_torch.rdd import shuffled
+
+    if path == "hash":
+        partitioner.HashPartitioner.get_partitions = \
+            partitioner.Partitioner.get_partitions
+    elif path == "bucket":
+        shuffled._bucket = p19_plain_bucket
+    elif path == "gc":
+        context.paused_gc = contextlib.nullcontext
+    else:
+        fail(f"--without takes one of {', '.join(P19_PATHS)}, not {path!r}")
+
+
+def phase19_leg(without=None):
+    """--phase 19 [--without PATH]: the kernels built, then phase 19
+    alone (at the whole script's sizes), with one fast path of the host
+    layer swapped for its plain form. Prints one JSON line (each case's
+    warm median ms and its parts, cold ms, the phase's wall), writes
+    chiprun_out/p19_<PATH or all>.json, and ends with the card line."""
+    import numpy as np
+    import torch
+
+    import vega_tpu_torch as vt
+    from vega_tpu_torch import cuda_kernels as ck
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    card = card_line()
+    ck.build()
+    if without is not None:
+        p19_without(without)
+    res = phase_nineteen(torch, np, ck, vt)
+    out = dict(phase=19, without=without, wall_s=res["wall_s"],
+               parts_s=res["parts_s"], launches=res["launches"], card=card,
+               cases={r["label"]: dict(median_ms=r["median_ms"],
+                                       parts=r["median_parts"],
+                                       cold_ms=r["cold"]["ms"])
+                      for r in res["rows"]})
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", f"p19_{without or 'all'}.json"),
+              "w", encoding="utf-8") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps(out), flush=True)
+    print(f"card: {card}", flush=True)
+
+
 def main():
     try:
         import torch
@@ -6492,6 +7054,8 @@ def main():
     seventeen = phase_seventeen(torch, np, ck, vt)
     # 18. the RDD API's host-tier answers on the card
     eighteen = phase_eighteen(torch, np, ck, vt)
+    # 19. the host RDD layer the reference hands off to
+    nineteen = phase_nineteen(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -6513,7 +7077,8 @@ def main():
          "phase15_launches": fifteen["launches"][r["name"]],
          "phase16_launches": sixteen["launches"][r["name"]],
          "phase17_launches": seventeen["launches"][r["name"]],
-         "phase18_launches": eighteen["launches"][r["name"]]}
+         "phase18_launches": eighteen["launches"][r["name"]],
+         "phase19_launches": nineteen["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -6529,7 +7094,7 @@ def main():
                    phase9=nine, phase10=ten, phase11=eleven,
                    phase12=twelve, phase13=thirteen, phase14=fourteen,
                    phase15=fifteen, phase16=sixteen, phase17=seventeen,
-                   phase18=eighteen)
+                   phase18=eighteen, phase19=nineteen)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -6833,6 +7398,15 @@ def main():
           f"{eighteen['e_rows']} rows; parts (s) "
           f"{json.dumps(eighteen['parts_s'])}; phase 18 "
           f"{eighteen['wall_s']:.1f} s on {card}", flush=True)
+    for r in nineteen["rows"]:
+        print(f"phase 19 {r['label']} ({r['note']}): {r['median_ms']:.3f} ms "
+              f"warm median of {len(r['warm'])}, parts "
+              f"{json.dumps(r['median_parts'])}, cold {r['cold']['ms']:.3f} "
+              f"ms, launches by step {json.dumps(r['step_launches'])} on "
+              f"{card}", flush=True)
+    print(f"phase 19 launches {json.dumps(nineteen['launches'])}; parts (s) "
+          f"{json.dumps(nineteen['parts_s'])}; phase 19 "
+          f"{nineteen['wall_s']:.1f} s on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
@@ -7163,5 +7737,10 @@ if __name__ == "__main__":
         phase14c_rank_leg(int(sys.argv[2]), int(sys.argv[3]))
     elif sys.argv[1:2] == ["--main-path-leg"] and len(sys.argv) == 4:
         main_path_leg(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:3] == ["--phase", "19"] and len(sys.argv) == 3:
+        phase19_leg()
+    elif sys.argv[1:3] == ["--phase", "19"] and len(sys.argv) == 5 \
+            and sys.argv[3] == "--without":
+        phase19_leg(sys.argv[4])
     else:
         main()

@@ -5,8 +5,11 @@ The reference's DenseRDD inherits these from its host RDD
 (vega_tpu/rdd/base.py): sample(True, ...), take_sample, random_split,
 count_approx_distinct, count_approx, mean_approx, count_by_value_approx,
 to_local_iterator, for_each, for_each_partition, save_as_text_file and the
-async actions. The port computes each on the device (host_actions.py,
-random.py, hll.py, partial/, jobs.py). Each lineage runs through a vega_tpu
+async actions. The port computes the samplers, the estimates and the
+async actions on the device (host_actions.py, random.py, hll.py,
+partial/, jobs.py); take_sample, count_approx and the four row actions
+are its host RDD's (rdd/base.py) over those device forms and the shards'
+rows, as the reference's DenseRDD inherits them. Each lineage runs through a vega_tpu
 Context("local") on the 8-device CPU mesh and through vega_tpu_torch's
 Context(device="cpu", n_shards=8), both under the card's plans (xla sorts,
 fused_sort, no table plan), on inputs made from a seed with numpy.

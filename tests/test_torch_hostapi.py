@@ -2,9 +2,9 @@
 the CPU.
 
 A reference DenseRDD inherits the host RDD API (vega_tpu/rdd/base.py's
-RDD and its pair ops, rdd/pair.py). The port has no host tier: 24 of
-those names have device forms here, each held to the reference's result
-on the same data: eight (first, is_empty, keys, values, count_by_key,
+RDD and its pair ops, rdd/pair.py). 24 of those names have device forms
+on the port's DenseRDD, each held to the reference's result on the same
+data: eight (first, is_empty, keys, values, count_by_key,
 collect_as_map, lookup, right_outer_join), nine that the
 reference's DenseRDD answers on its own device tier (fold_by_key,
 aggregate_by_key, group_by, sort_by, mask_keys, cache, num_partitions,
@@ -12,17 +12,17 @@ dense, id); and seven its host tier answers (full_outer_join,
 subtract_by_key, group_with, partition_by_key / partition_by, fold,
 aggregate). Thirteen more that its host tier answers (the samplers,
 count_approx_distinct, the approximate, async, iterator and file
-actions) are held to it in tests/test_torch_host_actions.py. Every other
-name of that API (20 on a DenseRDD) raises VegaError ending in
-HOST_TIER_SUFFIX on a DenseRDD, on a cogroup's result and on a
-right_outer_join's result, never AttributeError, and the reference
-answers each of those on its host tier. Both packages run under the
+actions) are held to it in tests/test_torch_host_actions.py. The other
+20 a DenseRDD inherits from the port's host RDD (vega_tpu_torch/rdd/), as
+the reference's does, and the results of cogroup and right_outer_join are
+host RDDs answering every name: each is held to the reference here
+(test_host_only_name_refuses, with the call of
+tests/test_torch_rdd_host.py's API_CALLS). Both packages run under the
 card's plans on the 8-device CPU mesh (the reference) and
 Context(device="cpu", n_shards=8) (the port).
 """
 
 import operator
-import os
 
 import numpy as np
 import pytest
@@ -34,6 +34,7 @@ from vega_tpu.tpu import dense_rdd as ref_dense
 import vega_tpu_torch as vt
 from vega_tpu_torch import dense_rdd
 from vega_tpu_torch.errors import VegaError
+from test_torch_rdd_host import BAG_OPS, REF_CONF, compare
 
 N_SHARDS = 8
 ACCEL_PLANS = {"dense_rbk_plan": "fused_sort", "dense_table_plan": "off",
@@ -49,8 +50,8 @@ def ctxs():
 
     ref = v.Context("local", num_workers=2)
     conf = Env.get().conf
-    old = {k: getattr(conf, k) for k in ACCEL_PLANS}
-    for k, val in ACCEL_PLANS.items():
+    old = {k: getattr(conf, k) for k in REF_CONF}
+    for k, val in REF_CONF.items():
         setattr(conf, k, val)
     port = vt.Context(device="cpu", n_shards=N_SHARDS, **ACCEL_PLANS)
     try:
@@ -664,13 +665,8 @@ def test_fold_refusals(ctxs):
 
 
 # ---------------------------------------------------------------------------
-# every other name refuses with the suffix
+# every other name: the host RDD layer, held to the reference
 # ---------------------------------------------------------------------------
-
-
-def _refused_names(cls):
-    return sorted(n for n in dense_rdd.REFERENCE_RDD_API
-                  if not hasattr(cls, n))
 
 
 def _port_objects(ctx):
@@ -696,78 +692,44 @@ DEVICE_FORMS = (
     "for_each", "for_each_partition", "save_as_text_file",
     "collect_async", "count_async", "reduce_async")
 
+# The names each object refused before the port had a host RDD layer
+# (a DenseRDD's 20; a cogroup's and a right_outer_join's result every
+# name but collect and count): each case now holds the name's answer to
+# the reference's, through the host layer.
+HANDED_OFF = tuple(sorted((
+    "cached_splits", "checkpoint", "coalesce", "compute", "flat_map",
+    "flat_map_values", "get_dependencies", "glom", "is_pinned",
+    "iterator", "map_partitions", "map_partitions_with_index",
+    "partitioner", "pin", "pipe", "preferred_locations", "repartition",
+    "splits", "to_debug_string", "to_rdd")))
+_RESULT_NAMES = sorted(dense_rdd.REFERENCE_RDD_API - {"collect", "count"})
 REFUSALS = (
-    [("DenseRDD", n) for n in _refused_names(dense_rdd.DenseRDD)]
-    + [("cogroup", n) for n in _refused_names(dense_rdd._DenseCoGroupRDD)]
-    + [("right_outer_join", n)
-       for n in _refused_names(dense_rdd._DenseRightOuterJoin)])
-
-
-# One small call per name the port's DenseRDD still refuses, as the
-# reference answers it (on a (k, v) DenseRDD of K2 / V2): each runs a host
-# job, a subprocess or reads scheduler metadata there. A name the port
-# refuses with no entry here fails test_host_only_name_refuses.
-def _ref_host_calls(tmp):
-    return {
-        "cached_splits": lambda r: r.cached_splits(),
-        "checkpoint": lambda r: r.checkpoint(os.path.join(tmp, "ck"))
-        .glom().collect(),
-        "coalesce": lambda r: r.coalesce(2).collect(),
-        "compute": lambda r: list(r.compute(r.splits()[0])),
-        "flat_map": lambda r: r.flat_map(lambda kv: list(kv)).collect(),
-        "flat_map_values": lambda r: r.flat_map_values(
-            lambda x: [x, x]).collect(),
-        "get_dependencies": lambda r: r.get_dependencies(),
-        "glom": lambda r: r.glom().collect(),
-        "is_pinned": lambda r: r.is_pinned,
-        "iterator": lambda r: list(r.iterator(r.splits()[0])),
-        "map_partitions": lambda r: r.map_partitions(
-            lambda it: [sum(1 for _ in it)]).collect(),
-        "map_partitions_with_index": lambda r: r.map_partitions_with_index(
-            lambda i, it: [i]).collect(),
-        "partitioner": lambda r: r.partitioner,
-        "pin": lambda r: r.pin().is_pinned,
-        "pipe": lambda r: r.pipe("cat").collect(),
-        "preferred_locations": lambda r: r.preferred_locations(
-            r.splits()[0]),
-        "repartition": lambda r: r.repartition(2).collect(),
-        "splits": lambda r: r.splits(),
-        "to_debug_string": lambda r: r.to_debug_string(),
-        "to_rdd": lambda r: r.to_rdd(),
-    }
+    [("DenseRDD", n) for n in HANDED_OFF]
+    + [("cogroup", n) for n in _RESULT_NAMES]
+    + [("right_outer_join", n) for n in _RESULT_NAMES])
 
 
 def _ref_objects(ctx):
     r = ctx.dense_from_numpy(K2, V2)
-    return {"cogroup": r.cogroup(ctx.dense_from_numpy(K2, V2)),
+    return {"DenseRDD": r,
+            "cogroup": r.cogroup(ctx.dense_from_numpy(K2, V2)),
             "right_outer_join": r.right_outer_join(
                 ctx.dense_from_numpy(K2, V2))}
 
 
 @pytest.mark.parametrize("obj,name", REFUSALS)
 def test_host_only_name_refuses(ctxs, obj, name, tmp_path):
-    """The reference answers `name` on its host tier; the port's object
-    raises VegaError ending in HOST_TIER_SUFFIX when it is read. On a
-    DenseRDD the reference runs the name's entry of _ref_host_calls and
-    returns no vega_tpu.tpu node; the reference's cogroup and
-    right_outer_join results are host-tier RDDs (no DenseRDD) that define
-    the name."""
+    """The reference answers `name` on its host tier, and so does the
+    port's object now, through its host RDD layer: the same outcome
+    (tests/test_torch_rdd_host.py's compare: the result's rows and forms,
+    or the same exception class). The K2 / V2 pairs are numeric, so a
+    DenseRDD's shuffled rows compare order-free (the reference's native
+    merge)."""
     ref, port = ctxs
-    if obj == "DenseRDD":
-        calls = _ref_host_calls(str(tmp_path))
-        assert name in calls, f"no reference call recorded for {name!r}"
-        out = calls[name](ref.dense_from_numpy(K2, V2))
-        assert not type(out).__module__.startswith("vega_tpu.tpu"), \
-            (name, type(out))
-    else:
-        ref_obj = _ref_objects(ref)[obj]
-        assert isinstance(ref_obj, RefRDD)
-        assert not isinstance(ref_obj, ref_dense.DenseRDD)
-        # to_rdd lifts a DenseRDD into what this object already is
-        assert hasattr(ref_obj, name) or name == "to_rdd"
-    with pytest.raises(VegaError) as info:
-        getattr(_port_objects(port)[obj], name)
-    assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+    ordered = not (obj == "DenseRDD" and (
+        name in BAG_OPS or name == "repartition"))
+    compare(name, _port_objects(port)[obj], _ref_objects(ref)[obj], port,
+            ref, str(tmp_path), ordered=ordered)
 
 
 def test_reference_api_list_is_the_reference_s():
@@ -780,69 +742,65 @@ def test_reference_api_list_is_the_reference_s():
 
 
 def test_device_forms_and_refusals_cover_the_api(ctxs):
-    """Every reference name on a port DenseRDD is a device form or a
-    VegaError refusal, never a bare AttributeError; a name outside the
-    reference's API still is one."""
+    """Every reference name answers on a port DenseRDD: the device forms
+    its own class defines, and the 20 it inherits from the host RDD
+    (rdd/base.py); a name outside the reference's API is still an
+    AttributeError."""
     _ref, port = ctxs
     node = port.dense_from_numpy(K2, V2)
     for name in dense_rdd.REFERENCE_RDD_API:
-        try:
-            getattr(node, name)
-        except VegaError:
-            pass
+        getattr(node, name)
     with pytest.raises(AttributeError):
         getattr(node, "no_such_method")
-    for name in DEVICE_FORMS:
-        assert name not in _refused_names(dense_rdd.DenseRDD)
-    refused = _refused_names(dense_rdd.DenseRDD)
-    assert len(refused) == 20
-    assert set(refused) == set(dense_rdd.REFUSAL_REASONS)
-    assert set(DEVICE_FORMS) | set(refused) | {
+    inherited = sorted(n for n in dense_rdd.REFERENCE_RDD_API
+                       if n not in vars(dense_rdd.DenseRDD)
+                       and n not in DEVICE_FORMS)
+    assert set(inherited) <= set(HANDED_OFF) | set(DEVICE_FORMS)
+    assert len(HANDED_OFF) == 20
+    assert set(DEVICE_FORMS) | set(HANDED_OFF) | {
         n for n in dense_rdd.REFERENCE_RDD_API
-        if hasattr(dense_rdd.DenseRDD, n)} == dense_rdd.REFERENCE_RDD_API
+        if n in vars(dense_rdd.DenseRDD)} == dense_rdd.REFERENCE_RDD_API
 
 
-@pytest.mark.parametrize("name", sorted(dense_rdd.REFUSAL_REASONS))
-def test_refusal_says_why(ctxs, name):
-    """Each name still refused on a DenseRDD (and on a streamed one)
-    names why in its message: the host scheduler's internals, a Python
-    object per partition or row, or the host shuffle's partition
-    count."""
-    _ref, port = ctxs
-    why = dense_rdd.REFUSAL_REASONS[name]
-    for node in (port.dense_from_numpy(K2, V2),
-                 port.dense_range(1000, chunk_rows=300)):
-        with pytest.raises(dense_rdd.HostTierRefusal) as info:
-            getattr(node, name)
-        assert f"({why})" in str(info.value)
-        assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+@pytest.mark.parametrize("name", HANDED_OFF)
+def test_refusal_says_why(ctxs, name, tmp_path):
+    """Each of the 20 names on a streamed node answers as its resident
+    build does, equal to the reference's streamed node."""
+    ref, port = ctxs
+    compare(name, port.dense_range(1000, chunk_rows=300),
+            ref.dense_range(1000, chunk_rows=300), port, ref,
+            str(tmp_path), ordered=name != "repartition")
 
 
 @pytest.mark.parametrize("obj", ["DenseRDD", "cogroup", "right_outer_join",
                                  "streamed"])
 def test_refusal_keeps_the_attribute_protocol(ctxs, obj):
-    """A refused name is also an AttributeError: hasattr() is False and
-    getattr() with a default returns it, on every port object, while a
-    read still raises the VegaError with the suffix."""
+    """Every port object keeps the attribute protocol: a name of the
+    reference's API is there (hasattr is True), and a misspelt one is a
+    plain AttributeError, not a VegaError, with getattr's default
+    returned."""
     _ref, port = ctxs
     node = (port.dense_range(1000, chunk_rows=300) if obj == "streamed"
             else _port_objects(port)[obj])
-    assert hasattr(node, "glom") is False
-    assert getattr(node, "glom", None) is None
-    with pytest.raises(VegaError) as info:
-        node.glom
-    assert isinstance(info.value, AttributeError)
-    assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+    assert hasattr(node, "glom") is True
+    assert getattr(node, "glom_misspelt", None) is None
+    with pytest.raises(AttributeError) as info:
+        node.glom_misspelt
+    assert not isinstance(info.value, VegaError)
 
 
 def test_streamed_refusal_builds_nothing(ctxs):
-    """A host-tier name on a StreamedDenseRDD refuses before its resident
-    build (the stream delegates every other missing name to it)."""
+    """A host-layer name on a StreamedDenseRDD goes to its resident build
+    (the stream delegates every name it does not define), which is built
+    once; the stream's own narrow ops still build nothing."""
     _ref, port = ctxs
     src = port.dense_range(1000, chunk_rows=300)
-    with pytest.raises(VegaError) as info:
-        src.flat_map_values
-    assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+    mapped = src.map(lambda x: (x % 3, x))
     assert src._resident_memo is None
-    assert src.map(lambda x: (x % 3, x)).first() == \
+    assert mapped.first() == \
         _ref.dense_range(1000).map(lambda x: (x % 3, x)).first()
+    got = src.flat_map_values
+    assert src._resident_memo is not None
+    assert got.__self__ is src._resident_memo
+    assert src.glom().map(len).collect() == \
+        _ref.dense_range(1000).glom().map(len).collect()

@@ -12,7 +12,13 @@ import torch
 import vega_tpu_torch as vt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "vega_tpu")
+FORBIDDEN = ("jax", "jaxlib", "vega_tpu", "cloudpickle")
+# the host RDD layer's modules (each the port's own copy of the
+# reference's pure-Python module of the same name)
+HOST_LAYER = ("split", "partitioner", "dependency", "aggregator",
+              "bounded_priority_queue", "rdd", "rdd.base", "rdd.narrow",
+              "rdd.pair", "rdd.shuffled", "rdd.cogrouped", "rdd.union",
+              "rdd.cartesian", "rdd.coalesced", "rdd.checkpoint")
 
 
 def _port_files():
@@ -60,6 +66,45 @@ with vt.Context(device="cpu", n_shards=8) as ctx:
     assert rows[7] == (sum(x * 0.5 for x in range(7, 5000, 100)), 14.0)
 print("OK")
 """
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=False)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_host_layer_modules_stand_alone():
+    """Every module of the host RDD layer is among the files checked
+    above, and imports and runs a host lineage (a shuffle, a cogroup, a
+    checkpoint, dense()) with jax, vega_tpu and cloudpickle unimportable
+    (rows are pickled with the standard library)."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in HOST_LAYER:
+        path = os.path.join("vega_tpu_torch", *mod.split("."))
+        assert path + ".py" in files or \
+            os.path.join(path, "__init__.py") in files, mod
+    script = """
+import importlib, sys, tempfile
+for name in ("jax", "jaxlib", "vega_tpu", "cloudpickle"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+for mod in %r:
+    importlib.import_module("vega_tpu_torch." + mod)
+import operator
+import vega_tpu_torch as vt
+with vt.Context(device="cpu", n_shards=4) as ctx:
+    rows = [(i %% 7, i) for i in range(200)]
+    red = ctx.parallelize(rows, 3).reduce_by_key(operator.add)
+    assert sorted(red.collect()) == sorted(
+        (k, sum(v for kk, v in rows if kk == k)) for k in range(7))
+    cg = red.cogroup(ctx.range(5).map(lambda x: (x, -x)), red)
+    assert cg.count() == 7
+    with tempfile.TemporaryDirectory() as d:
+        node = red.map_values(str).checkpoint(d)
+        assert node.glom().count() == 3 and node.get_dependencies() == []
+    assert ctx.parallelize(rows, 3).dense().reduce_by_key(
+        op="add").count() == 7
+print("OK")
+""" % (HOST_LAYER,)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=False)

@@ -15,7 +15,15 @@ and without replacement; sample(True) and random_split; to_local_iterator
 (the block read once, on the calling thread, then shard by shard);
 save_as_text_file to one directory, written by process 0 alone; the
 async actions, two of them submitted back to back; a closure past int32
-in the host-row form, whose overflow flags every rank reads.
+in the host-row form, whose overflow flags every rank reads. And the host
+RDD layer (vega_tpu_torch/rdd/), which every rank runs over all shards
+(the replicated program; DenseRDD.splits() reads the block once on the
+calling thread): glom, coalesce, repartition, to_rdd().map_partitions,
+flat_map_values, pipe, compute, the cogroup and outer-join results, a
+cogroup of three sides, parallelize(...).dense() and a checkpoint that
+process 0 writes to one directory and both ranks read back; a checkpoint
+with no directory, which a single process writes under its session
+directory and two processes refuse (no such directory is shared).
 """
 
 import json
@@ -82,6 +90,34 @@ def run_ops(ctx, tmp):
         out["host_rows_overflow"] = None
     except Exception as e:
         out["host_rows_overflow"] = type(e).__name__
+    table = ctx.dense_from_numpy(np.arange(120, dtype=np.int32),
+                                 np.arange(120, dtype=np.float32) * 2)
+    out["host_glom_sizes"] = red.glom().map(len).collect()
+    out["host_coalesce"] = _rows(red.coalesce(3).glom().collect())
+    out["host_repartition"] = _rows(red.repartition(3).glom().collect())
+    out["host_to_rdd"] = _rows(red.to_rdd().map_partitions(
+        lambda it: ((k, v * 2) for k, v in it)).collect())
+    out["host_flat_map_values"] = _rows(red.flat_map_values(
+        lambda v: [v, -v]).collect())
+    out["host_pipe"] = red.pipe("cat").collect()
+    out["host_compute"] = [_rows(red.compute(sp)) for sp in red.splits()]
+    out["host_cogroup"] = _rows(red.cogroup(table).map_values(
+        lambda lr: (len(lr[0]), sum(lr[1]))).collect())
+    out["host_cogroup_count"] = red.cogroup(table).count()
+    out["host_right_outer"] = _rows(red.right_outer_join(table).collect())
+    out["host_cogroup3"] = _rows(red.cogroup(table, pairs).map_values(
+        lambda g: [len(x) for x in g]).collect())
+    out["host_parallelize_dense"] = _rows(ctx.parallelize(
+        [(i % 50, i) for i in range(3000)], 5).dense().reduce_by_key(
+            operator.add).collect())
+    ck = red.map_values(lambda v: v + 1).checkpoint(os.path.join(tmp, "ck"))
+    out["host_checkpoint"] = _rows(ck.glom().collect())
+    out["host_checkpoint_files"] = sorted(os.listdir(os.path.join(tmp, "ck")))
+    try:
+        out["host_checkpoint_no_dir"] = _rows(red.map_values(
+            lambda v: v + 1).checkpoint().glom().collect())
+    except Exception as e:
+        out["host_checkpoint_no_dir"] = type(e).__name__
     return out
 '''
 
@@ -139,7 +175,11 @@ def sessions(tmp_path_factory):
 OPS = ["hll_pairs", "hll_strings", "take_sample", "take_sample_replacement",
        "sample_poisson", "random_split", "to_local_iterator", "text_files",
        "text_bytes", "count_async", "collect_async", "reduce_async",
-       "host_rows", "host_rows_overflow"]
+       "host_rows", "host_rows_overflow", "host_glom_sizes",
+       "host_coalesce", "host_repartition", "host_to_rdd",
+       "host_flat_map_values", "host_pipe", "host_compute", "host_cogroup",
+       "host_cogroup_count", "host_right_outer", "host_cogroup3",
+       "host_parallelize_dense", "host_checkpoint", "host_checkpoint_files"]
 
 
 @pytest.mark.parametrize("op", OPS)
@@ -159,3 +199,15 @@ def test_one_writer_and_the_overflow_on_every_rank(sessions):
         ops = sessions["port"][rank]["ops"]
         assert ops["text_files"] == [f"part-{s:05d}" for s in range(4)]
         assert ops["host_rows_overflow"] == "VegaError"
+
+
+def test_checkpoint_without_a_directory_refuses_across_processes(sessions):
+    """checkpoint() with no directory: world 1 writes it under the
+    Context's session directory and reads back the rows of the named
+    directory's checkpoint; at world 2 every rank raises VegaError before
+    any job (each process's session directory is its own)."""
+    assert sessions["world1"]["host_checkpoint_no_dir"] == \
+        sessions["world1"]["host_checkpoint"]
+    for rank in (0, 1):
+        assert sessions["port"][rank]["ops"]["host_checkpoint_no_dir"] == \
+            "VegaError"

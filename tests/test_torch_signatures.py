@@ -25,9 +25,10 @@ What the port does with each argument, as the reference does:
   group_with (partitioner_or_num). The port runs its device form for a
   partition count, equal to the host's rows order-free by key, and
   refuses a partitioner object with VegaError ending in
-  HOST_TIER_SUFFIX. cogroup / group_with with two or more others (the
-  reference's host CoGroupedRDD) refuse the same way; one other is the
-  device form. StreamedDenseRDD.join with a partition count joins the
+  HOST_TIER_SUFFIX. cogroup / group_with with two or more others is the
+  reference's host CoGroupedRDD on both sides (vega_tpu_torch/rdd/), its
+  rows equal order-free (the reference merges numeric pairs in its native
+  hash map); one other is the device form. StreamedDenseRDD.join with a partition count joins the
   resident build, as the reference's does.
 No repaired call raises TypeError.
 """
@@ -324,11 +325,22 @@ REFUSED = {
 }
 
 
+# cases of REFUSED that the host RDD layer now answers as the reference
+ANSWERED = frozenset(("cogroup(table, table)",))
+
+
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_host_partitioners_refuse_with_the_suffix(ctxs, case):
     """What the port cannot hold to the reference's host result refuses
-    with VegaError ending in HOST_TIER_SUFFIX, never TypeError."""
-    _ref, port = ctxs
+    with VegaError ending in HOST_TIER_SUFFIX, never TypeError; what its
+    host RDD layer answers (ANSWERED) equals the reference's rows."""
+    ref, port = ctxs
+    if case in ANSWERED:
+        got = REFUSED[case](port, _pairs(port)).collect()
+        exp = REFUSED[case](ref, _pairs(ref)).collect()
+        assert _grouped(got) == _grouped(exp)
+        assert len(got) == 450
+        return
     with pytest.raises(VegaError) as info:
         REFUSED[case](port, _pairs(port))
     assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)

@@ -74,6 +74,15 @@ results; a save_npz path that every process passes is written by
 process 0 alone. A persisted node recomputes instead of demoting to the
 disk store.
 
+parallelize(data, num_slices) (alias make_rdd), range(start, stop, step,
+num_slices), union(rdds) and empty_rdd() give host RDDs (rdd/), lazy
+lineages of Python rows run in this process: run_job computes the
+partitions an action asks for in order on the calling thread, and a
+shuffle's map side runs once, in process (rdd/shuffled.py). A host RDD's
+dense() lifts its rows onto this Context's device; a DenseRDD's to_rdd(),
+glom(), map_partitions(), coalesce() and the rest hand its shards' rows
+to this layer. default_parallelism is the shard count.
+
 profiler(log_dir) traces a block of work with torch.profiler (the
 reference's Context.profiler traces with jax.profiler): CPU activity
 always, the card's kernels when the Context runs on CUDA, written on exit
@@ -84,11 +93,14 @@ reads.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import os
+import pickle
+import shutil
 import tempfile
 import uuid
-from typing import Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -154,6 +166,12 @@ class Context:
         # node, bytes at registration) (dense_rdd's block lifetime)
         self._dense_block_lru: dict = {}
         self._rdd_ids = itertools.count()
+        self._shuffle_ids = itertools.count()
+        # the host layer's in-process shuffles: shuffle id -> [reduce
+        # partition][map partition] -> combined rows (rdd/shuffled.py)
+        self._shuffle_outputs: dict = {}
+        # persisted host partitions kept in memory: (rdd_id, index) -> rows
+        self._host_cache: dict = {}
         # the disk tier of persisted nodes (paths only: the store makes its
         # directory at the first demotion)
         base = spill_dir or os.path.join(tempfile.gettempdir(), "vega-tpu",
@@ -189,6 +207,119 @@ class Context:
     @property
     def device(self) -> torch.device:
         return self.mesh.device
+
+    # --- the host RDD layer (rdd/) ------------------------------------------
+    def new_rdd_id(self) -> int:
+        return next(self._rdd_ids)
+
+    def new_shuffle_id(self) -> int:
+        return next(self._shuffle_ids)
+
+    @property
+    def default_parallelism(self) -> int:
+        return self.mesh.n_shards
+
+    def parallelize(self, data: Sequence, num_slices: Optional[int] = None):
+        """A host RDD over an in-memory sequence in num_slices contiguous
+        slices (default: the shard count)."""
+        from vega_tpu_torch.rdd.narrow import ParallelCollectionRDD
+
+        self._check_running()
+        return ParallelCollectionRDD(self, data,
+                                     num_slices or self.default_parallelism)
+
+    make_rdd = parallelize
+
+    def range(self, start: int, stop: Optional[int] = None, step: int = 1,
+              num_slices: Optional[int] = None):
+        """parallelize(range(start, stop, step)), its slices ranges (no
+        rows are held until computed); range(n) is range(0, n)."""
+        if stop is None:
+            start, stop = 0, start
+        return self.parallelize(range(start, stop, step), num_slices)
+
+    def union(self, rdds: List):
+        from vega_tpu_torch.rdd.union import UnionRDD
+
+        self._check_running()
+        return UnionRDD(self, rdds)
+
+    def empty_rdd(self):
+        return self.parallelize([], 1)
+
+    def run_job(self, rdd, func: Callable,
+                partitions: Optional[List[int]] = None) -> list:
+        """func(task_context, rows) of each partition asked for (default:
+        all), computed in order on the calling thread. The lineage's
+        checkpoint-marked nodes are written first. The cyclic garbage
+        collector pauses while partitions compute (paused_gc), user
+        functions included."""
+        self._check_running()
+        if partitions is not None and not partitions:
+            return []
+        rdd._do_checkpoint()
+        splits = rdd.cached_splits()
+        ids = range(len(splits)) if partitions is None else partitions
+        out = []
+        with paused_gc():
+            for i in ids:
+                tc = TaskContext(i)
+                out.append(func(tc, rdd.iterator(splits[i], tc)))
+        return out
+
+    def _submit_host_job(self, rdd, func: Callable, transform: Callable):
+        """An asynchronous host action: a JobFuture (jobs.py) settled with
+        transform(run_job(rdd, func)). The lineage's device work (its
+        checkpoints and every DenseRDD's block) runs here, on the calling
+        thread, and the rows are read on the job worker; across processes
+        the whole job runs here, so every process dispatches its
+        collectives in one order."""
+        self._check_running()
+        rdd._do_checkpoint()
+        if self.mesh.collective:
+            try:
+                value = transform(self.run_job(rdd, func))
+            except Exception as e:  # noqa: BLE001 — surfaces via result()
+                err = e
+
+                def fail():
+                    raise err
+                return self._jobs.submit(fail)
+            return self._jobs.submit(lambda: value)
+        _materialize_dense(rdd)
+        return self._jobs.submit(lambda: transform(self.run_job(rdd, func)))
+
+    def _host_cached(self, rdd, split, task_context):
+        """A persisted host node's partition: computed once, then kept in
+        memory (MEMORY_ONLY, MEMORY_AND_DISK) or in the disk store as a
+        pickled row list (DISK_ONLY)."""
+        from vega_tpu_torch.store import StorageLevel
+
+        if rdd.storage_level is StorageLevel.DISK_ONLY:
+            key = _host_disk_key(rdd.rdd_id, split.index)
+            data = self._spill.get(key)
+            if data is not None:
+                return iter(pickle.loads(data))
+            rows = list(rdd.compute(split, task_context))
+            self._spill.put(key, pickle.dumps(
+                rows, protocol=pickle.HIGHEST_PROTOCOL))
+            return iter(rows)
+        key = (rdd.rdd_id, split.index)
+        rows = self._host_cache.get(key)
+        if rows is None:
+            rows = list(rdd.compute(split, task_context))
+            self._host_cache[key] = rows
+        return iter(rows)
+
+    def _host_uncache(self, rdd) -> None:
+        for i in range(rdd.num_partitions):
+            self._host_cache.pop((rdd.rdd_id, i), None)
+            self._spill.remove(_host_disk_key(rdd.rdd_id, i))
+
+    def _work_dir(self) -> str:
+        """This Context's session directory (the spill store's parent),
+        home of default checkpoint directories; stop() removes it."""
+        return os.path.dirname(self._spill.root)
 
     def _check_running(self) -> None:
         if self._stopped:
@@ -318,7 +449,10 @@ class Context:
             self._pending.clear()
             self._capacity_hints.clear()
             self._key_range_hints.clear()
+            self._shuffle_outputs.clear()
+            self._host_cache.clear()
             self._spill.close()
+            shutil.rmtree(self._work_dir(), ignore_errors=True)
             self._stopped = True
 
     def __enter__(self):
@@ -327,3 +461,48 @@ class Context:
     def __exit__(self, *exc):
         self.stop()
         return False
+
+
+class TaskContext:
+    """What run_job passes each partition's function: the partition's
+    index (and the reference's attempt id, always 0 here)."""
+
+    __slots__ = ("split_index", "attempt_id")
+
+    def __init__(self, split_index: int):
+        self.split_index = split_index
+        self.attempt_id = 0
+
+
+@contextlib.contextmanager
+def paused_gc():
+    """The cyclic garbage collector off for one host job: the host
+    layer's rows, buckets and groups hold no cycles, and at millions of
+    rows the collector's passes over them cost more than the job
+    (PERF.md, PR 19: phase 19 with and without the pause)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+def _host_disk_key(rdd_id: int, index: int) -> str:
+    return f"host-rdd-{rdd_id}-{index}"
+
+
+def _materialize_dense(rdd) -> None:
+    """Materialize every DenseRDD a host lineage reads (each one's own
+    lineage with it)."""
+    stack, seen = [rdd], set()
+    while stack:
+        node = stack.pop()
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        if isinstance(node, dense_rdd.DenseRDD):
+            node.block()
+            continue
+        stack.extend(dep.rdd for dep in node.get_dependencies())

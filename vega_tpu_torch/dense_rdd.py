@@ -14,11 +14,14 @@ subtract), union, zip, zip_with_index, the cartesian product, and the
 actions count / collect / take / take_ordered / top / reduce / sum / min
 / max / mean / stats / histogram / count_by_value. The reference's host
 RDD API has device forms composed of these (fold_by_key, group_by,
-full_outer_join, subtract_by_key, partition_by_key, fold, ...; every
-other name of it refuses, _HostTierRefusals), and each method takes the
-reference's positional parameters. Each node materializes
-once into a Block ([n_shards, capacity] columns on one device). Narrow
-nodes are not materialized in front of an exchange: their chain is
+subtract_by_key, partition_by_key, fold, ...), and each method takes the
+reference's positional parameters. A DenseRDD is also an RDD of the host
+layer (rdd/base.py), one partition per shard: the names with no device
+form (glom, map_partitions, coalesce, pipe, checkpoint, splits, ...) run
+over the rows compute(split) reads off a shard, and the results of
+cogroup and the outer joins are host RDDs over two device group-bys.
+Each node materializes once into a Block ([n_shards, capacity] columns
+on one device). Narrow nodes are not materialized in front of an exchange: their chain is
 applied to the root block's columns inside the exchange, once per
 materialization (program_mints() counts those applications); a chain
 break (_chainable False) materializes through a chain of its own. Nodes
@@ -74,9 +77,10 @@ An int64 column beyond int32, key or value, is the two-column (<name>,
 meeting it in a join or cogroup widens, _WidenKeyRDD); named reduces run
 exactly over wide values, a total outside int64 raising VegaError. Row
 functions over a wide column have no device row form.
-There is no host tier to fall back to: a row function that does not run
-on column tensors raises VegaError, and so does every request the
-reference would hand to its host tier.
+Nothing falls back to the host tier on its own: a row function that does
+not run on column tensors raises VegaError, and so does every request the
+reference hands to its host tier implicitly (to_rdd() is the explicit
+hand-off).
 
 Block lifetime (the reference's LRU): a node that materializes registers
 its block in the Context's LRU; past Context.dense_hbm_budget the least
@@ -126,7 +130,14 @@ from vega_tpu_torch import mesh as mesh_lib
 from vega_tpu_torch import stream
 from vega_tpu_torch import tracing
 from vega_tpu_torch.block import KEY, KEY_LO, VALUE, Block
+from vega_tpu_torch.dependency import OneToOneDependency
 from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.rdd.base import RDD
+from vega_tpu_torch.rdd.narrow import MapPartitionsRDD
+from vega_tpu_torch.rdd.pair import emit_full_outer, emit_right_outer
+# the named op a binop is, recognized soundly; anything else traces
+from vega_tpu_torch.rdd.pair import infer_named_op as _infer_named_op
+from vega_tpu_torch.split import Split
 from vega_tpu_torch.store import StorageLevel
 
 log = logging.getLogger(__name__)
@@ -154,42 +165,9 @@ def _fp(f) -> str:
     return hashlib.sha1(blob.encode()).hexdigest()[:16]
 
 
-def _canonical_monoid_codes():
-    """co_code of the canonical monoid lambdas for this interpreter."""
-    return {
-        (lambda a, b: a + b).__code__.co_code: "add",
-        (lambda a, b: a * b).__code__.co_code: "prod",
-    }
-
-
-_MONOID_CODES = _canonical_monoid_codes()
-
-
-def _infer_named_op(func) -> Optional[str]:
-    """The named op a binop is, recognized soundly (the port's copy of
-    vega_tpu/rdd/pair.py's): operator.add / mul, builtin min / max, and
-    lambdas whose bytecode equals the canonical `lambda a, b: a + b` /
-    `a * b` with no free variables, names or constants. Anything else runs
-    as a traced binop."""
-    if func is operator.add:
-        return "add"
-    if func is operator.mul:
-        return "prod"
-    if func is min:
-        return "min"
-    if func is max:
-        return "max"
-    code = getattr(func, "__code__", None)
-    if (code is not None and code.co_argcount == 2
-            and not code.co_freevars and not code.co_names
-            and code.co_consts in ((), (None,))
-            and getattr(func, "__closure__", None) is None):
-        return _MONOID_CODES.get(code.co_code)
-    return None
-
-
-HOST_TIER_SUFFIX = (": the reference hands this to its host tier, which "
-                    "vega_tpu_torch does not have")
+HOST_TIER_SUFFIX = (": the reference hands this to its host tier on its "
+                    "own, which vega_tpu_torch does not (to_rdd() reaches "
+                    "its host tier)")
 
 
 def _no_host_tier(what: str) -> VegaError:
@@ -214,9 +192,9 @@ def _check_partition_count(op: str, partitioner_or_num) -> None:
 
 
 # The reference's RDD API: the public names of vega_tpu/rdd/base.py's RDD
-# with its pair ops (rdd/pair.py), and its DenseRDD's to_rdd. The port's
-# own copy (it imports nothing of vega_tpu); a name a port object does not
-# define raises VegaError ending in HOST_TIER_SUFFIX (_HostTierRefusals).
+# with its pair ops (rdd/pair.py), and its DenseRDD's to_rdd. Every port
+# RDD answers each of them (a DenseRDD inherits from rdd.base.RDD the ones
+# it has no device form for).
 REFERENCE_RDD_API = frozenset((
     "aggregate", "aggregate_by_key", "cache", "cached_splits", "cartesian",
     "checkpoint", "coalesce", "cogroup", "collect", "collect_as_map",
@@ -237,57 +215,6 @@ REFERENCE_RDD_API = frozenset((
     "subtract", "subtract_by_key", "take", "take_ordered", "take_sample",
     "to_debug_string", "to_local_iterator", "top", "union", "unpersist",
     "values", "zip", "zip_with_index", "to_rdd"))
-
-
-class HostTierRefusal(VegaError, AttributeError):
-    """A reference RDD API name that a port object does not define: a
-    VegaError ending in HOST_TIER_SUFFIX, and an AttributeError too, so
-    hasattr() and getattr(obj, name, default) keep their contract."""
-
-
-# Why each name of REFERENCE_RDD_API that DenseRDD does not define has no
-# device form (a cogroup's or right_outer_join's result object refuses
-# the rest of the API as its own).
-_SCHEDULER = ("the host scheduler's own splits, dependencies, locations, "
-              "partitioner or pins, which the device tier does not have")
-_PER_PARTITION = ("a Python object per partition or row, an iterator, a "
-                  "list, a subprocess's lines or a host RDD, which no "
-                  "column holds")
-_HOST_SHUFFLE = ("the host shuffle's own partition count, where the device "
-                 "tier keeps one partition per shard")
-REFUSAL_REASONS = {
-    **dict.fromkeys(("cached_splits", "checkpoint", "compute", "iterator",
-                     "splits", "get_dependencies", "preferred_locations",
-                     "partitioner", "pin", "is_pinned", "to_debug_string"),
-                    _SCHEDULER),
-    **dict.fromkeys(("glom", "map_partitions", "map_partitions_with_index",
-                     "flat_map", "flat_map_values", "pipe", "to_rdd"),
-                    _PER_PARTITION),
-    **dict.fromkeys(("coalesce", "repartition"), _HOST_SHUFFLE),
-}
-
-
-def _host_name_refused(owner: str, name: str,
-                       why: Optional[str] = None) -> HostTierRefusal:
-    return HostTierRefusal(f"{owner}.{name}" + (f" ({why})" if why else "")
-                           + HOST_TIER_SUFFIX)
-
-
-class _HostTierRefusals:
-    """A reference RDD API name (REFERENCE_RDD_API) that the class does
-    not define raises HostTierRefusal when read, as the reference answers
-    it on its host tier; any other missing name stays a plain
-    AttributeError, so a misspelt name of the port's own still fails as
-    one."""
-
-    def __getattr__(self, name):
-        if name in REFERENCE_RDD_API:
-            raise _host_name_refused(
-                type(self).__name__, name,
-                REFUSAL_REASONS.get(name) if isinstance(self, DenseRDD)
-                else None)
-        raise AttributeError(f"{type(self).__name__!r} object has no "
-                             f"attribute {name!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -503,9 +430,13 @@ def _record_spill_steps(kind: str, rdd, names, stamps) -> None:
               ", ".join(f"{n} {ms:.3f}" for n, ms in steps.items()))
 
 
-class DenseRDD(_HostTierRefusals):
+class DenseRDD(RDD):
     """Base dense node. Subclasses implement _materialize() -> Block and
-    _schema()."""
+    _schema(). An RDD of the host layer (rdd/base.py) too: one partition
+    per shard, whose rows compute() reads off the block, so every name of
+    the RDD API that has no device form here (glom, map_partitions,
+    coalesce, pipe, checkpoint, the scheduler's splits and dependencies,
+    ...) runs over those rows as the reference's DenseRDD inherits it."""
 
     _storage_level: Optional[StorageLevel] = None
     # a node built in the reference host tier's row form (host_rows.py)
@@ -514,9 +445,10 @@ class DenseRDD(_HostTierRefusals):
     def __init__(self, ctx, mesh, parents: Sequence["DenseRDD"] = ()):
         self.context = ctx
         self.mesh = mesh
-        self.rdd_id = next(ctx._rdd_ids)
+        self.rdd_id = ctx.new_rdd_id()
         self._dense_parents = tuple(parents)
         self._block: Optional[Block] = None
+        self._init_host_state([OneToOneDependency(p) for p in parents], None)
 
     # --- device plane -------------------------------------------------------
     def block(self) -> Block:
@@ -581,6 +513,7 @@ class DenseRDD(_HostTierRefusals):
                 blk.settle()
             self._block = None
             _lifetime_forget(self)
+        self.__dict__.pop("_host_stage_rows", None)
         self.context._spill.remove_raw(_dense_spill_key(self))
         return self
 
@@ -1130,14 +1063,27 @@ class DenseRDD(_HostTierRefusals):
     def cogroup(self, *others: "DenseRDD",
                 partitioner_or_num=None) -> "_DenseCoGroupRDD":
         """Dense-dense cogroup of one other side: both sides group by key
-        on the device (equal keys hash to one shard); (k, ([lvs], [rvs]))
-        assembly, or its columnar form, happens on the host. Two or more
-        others (the reference's host CoGroupedRDD) refuse; a partition
-        count as _check_partition_count says."""
+        on the device (equal keys hash to one shard), and the result is a
+        host RDD whose (k, ([lvs], [rvs])) rows each shard assembles
+        (_DenseCoGroupRDD); a partition count as _check_partition_count
+        says. Two or more others are the reference's host CoGroupedRDD
+        over the rows of every side (rdd/cogrouped.py), under
+        partitioner_or_num as the host cogroup takes it (default a
+        HashPartitioner over the shard count). No other refuses."""
+        if len(others) >= 2:
+            others = tuple(_resident(o) for o in others)
+            for side in (self,) + others:
+                if isinstance(side, DenseRDD) and side.is_pair and {
+                        nm for nm in side.columns
+                        if not block_lib.is_lo(nm)} != {KEY, VALUE}:
+                    raise VegaError(
+                        f"cogroup over a named / multi-column DenseRDD "
+                        f"(columns {side.columns}) has no (k, v) row form")
+            return RDD.cogroup(self, *others,
+                               partitioner_or_num=partitioner_or_num)
         _check_partition_count("cogroup", partitioner_or_num)
         if len(others) != 1:
-            raise _no_host_tier(f"cogroup of {len(others)} other RDDs (the "
-                                "device cogroup takes one)")
+            raise _no_host_tier("cogroup of no other RDD")
         return _DenseCoGroupRDD(*self._join_sides(others[0], "cogroup"))
 
     group_with = cogroup
@@ -1146,8 +1092,8 @@ class DenseRDD(_HostTierRefusals):
         """Device cross product of two value RDDs as (left, right) pairs:
         the right side is replicated and each shard ragged-expands its
         left rows against it. A product whose estimated footprint passes
-        the device's free memory raises VegaError (there is no host tier
-        to stream it)."""
+        the device's free memory raises VegaError (the reference streams it
+        on its host tier on its own; to_rdd().cartesian does here)."""
         if not (isinstance(other, DenseRDD) and other.mesh == self.mesh
                 and [n for n, _ in self._schema()] == [VALUE]
                 and [n for n, _ in other._schema()] == [VALUE]):
@@ -1223,7 +1169,10 @@ class DenseRDD(_HostTierRefusals):
         operand as its resident build); string columns of two
         dictionaries meet on their merged one."""
         other = _resident(other)
-        if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
+        if not isinstance(other, DenseRDD):
+            # a host RDD: the reference's fall-through to the host union
+            return RDD.union(self, other)
+        if other.mesh != self.mesh:
             raise VegaError("union needs two dense RDDs on one mesh")
         if dict(self._schema()) != dict(other._schema()):
             raise _no_host_tier(f"union of schemas {self._schema()} and "
@@ -1233,7 +1182,10 @@ class DenseRDD(_HostTierRefusals):
 
     def zip(self, other: "DenseRDD") -> "DenseRDD":
         """(left value, right value) pairs of co-indexed rows: the shards'
-        counts must be equal."""
+        counts must be equal. With a host RDD, the host tier's zip of
+        co-indexed partitions, as the reference falls through to it."""
+        if isinstance(other, RDD) and not isinstance(other, DenseRDD):
+            return RDD.zip(self, other)
         if not (isinstance(other, DenseRDD) and other.mesh == self.mesh
                 and self.columns == [VALUE] and other.columns == [VALUE]):
             raise _no_host_tier("zip of anything but two one-column value "
@@ -1430,21 +1382,19 @@ class DenseRDD(_HostTierRefusals):
 
     def right_outer_join(self, other: "DenseRDD", partitioner_or_num=None
                          ) -> "_DenseRightOuterJoin":
-        """(k, (lv or None, rv)) for every row of other: the device inner
-        join, plus other's rows whose key self lacks, with None on the
-        left. A dense column cannot hold None, so the result is an object
-        in _DenseCoGroupRDD's style whose collect() assembles the rows on
-        the host (count() needs no rows). The device left_outer_join fills
-        a missing side with a value, not None."""
+        """(k, (lv or None, rv)) for every row of other, as the reference
+        composes it: the device cogroup's rows through flat_map_values, a
+        host RDD (a dense column cannot hold None) whose count() stays on
+        the device. The device left_outer_join fills a missing side with
+        a value, not None."""
         _check_partition_count("right_outer_join", partitioner_or_num)
         return _DenseRightOuterJoin(*self._join_sides(other,
                                                       "right_outer_join"))
 
     def full_outer_join(self, other: "DenseRDD", partitioner_or_num=None
                         ) -> "_DenseFullOuterJoin":
-        """right_outer_join's rows plus self's rows whose key other lacks,
-        as (k, (lv, None)): the reference's host full_outer_join, an
-        object with collect() and count() as right_outer_join's."""
+        """right_outer_join's composition with (k, (lv, None)) for self's
+        keys that other lacks."""
         _check_partition_count("full_outer_join", partitioner_or_num)
         return _DenseFullOuterJoin(*self._join_sides(other,
                                                      "full_outer_join"))
@@ -1499,6 +1449,51 @@ class DenseRDD(_HostTierRefusals):
 
     def id(self) -> int:
         return self.rdd_id
+
+    # --- the host layer's view: one partition per shard ---------------------
+    def splits(self) -> List[Split]:
+        """One Split per shard. Across processes the block is read to the
+        host here, once, on the calling thread (every process reads it in
+        the same order), and compute() serves the rows from that copy."""
+        if self.mesh.collective:
+            self._host_stage()
+        return [Split(i) for i in range(self.num_partitions)]
+
+    def _host_stage(self) -> Dict[str, np.ndarray]:
+        """Across processes: every shard's decoded rows, read once."""
+        stage = self.__dict__.get("_host_stage_rows")
+        if stage is None:
+            blk = self.block()
+            counts = blk.counts_np
+            host = blk._host_cols()
+            stage = [blk._decode({nm: c[s, :counts[s]]
+                                  for nm, c in host.items()})
+                     for s in range(blk.n_shards)]
+            self._host_stage_rows = stage
+        return stage
+
+    def _shard_cols(self, shard: int) -> Dict[str, np.ndarray]:
+        """One shard's valid rows as decoded host columns."""
+        if self.mesh.collective:
+            return self._host_stage()[shard]
+        return self.block().shard_rows(shard)
+
+    def compute(self, split: Split, task_context=None):
+        """The shard's rows in the reference's compute form: a value,
+        (k, v), or a tuple of every column's numpy scalar (a wide int64
+        as one int, a string decoded); a grouped or joined node's rows as
+        collect() forms them; a host-row node's as its Python values."""
+        yield from self._compute_rows(self._shard_cols(split.index))
+
+    def _compute_rows(self, cols: Dict[str, np.ndarray]):
+        if self.host_rows:
+            return iter(self._rows_of(cols))
+        return _yield_rows(cols)
+
+    def to_rdd(self) -> RDD:
+        """The explicit hand-off to the host tier: an identity
+        MapPartitionsRDD over the shards' rows."""
+        return MapPartitionsRDD(self, lambda _i, it: it)
 
     def fold(self, zero, f: Callable):
         """The reference's fold: each shard folds its rows seeded with
@@ -1859,14 +1854,6 @@ class DenseRDD(_HostTierRefusals):
 
 
     # --- the host tier's answers, on the device (host_actions.py) ---------
-    def take_sample(self, with_replacement: bool, num: int,
-                    seed: Optional[int] = None) -> list:
-        """The reference's take_sample: count, an oversampled sample(...)
-        retried with seed + attempts while short, a PCG64(seed, or 7)
-        shuffle of its rows, the first num."""
-        from vega_tpu_torch import host_actions
-        return host_actions.take_sample(self, with_replacement, num, seed)
-
     def random_split(self, weights, seed: Optional[int] = None
                      ) -> List["DenseRDD"]:
         """One DenseRDD per weight band: shard s keeps a row when its draw
@@ -1881,13 +1868,6 @@ class DenseRDD(_HostTierRefusals):
         from vega_tpu_torch import host_actions
         return host_actions.count_approx_distinct(self, relative_sd)
 
-    def count_approx(self, timeout_s: float, confidence: float = 0.95):
-        """count() as a final PartialResult of BoundedDouble(n, 1.0, n, n):
-        the device answers before any deadline (the reference can return
-        a non-final estimate)."""
-        from vega_tpu_torch import host_actions
-        return host_actions.count_approx(self, timeout_s, confidence)
-
     def mean_approx(self, timeout_s: float, confidence: float = 0.95):
         """The mean of the values as a final PartialResult."""
         from vega_tpu_torch import host_actions
@@ -1900,27 +1880,6 @@ class DenseRDD(_HostTierRefusals):
         from vega_tpu_torch import host_actions
         return host_actions.count_by_value_approx(self, timeout_s,
                                                   confidence)
-
-    def to_local_iterator(self):
-        """The rows, as collect() forms them, read one shard at a time."""
-        from vega_tpu_torch import host_actions
-        return host_actions.to_local_iterator(self)
-
-    def for_each(self, f: Callable) -> None:
-        """f(row) for every row, one shard at a time, in shard order."""
-        from vega_tpu_torch import host_actions
-        host_actions.for_each(self, f)
-
-    def for_each_partition(self, f: Callable) -> None:
-        """f(iterator over a shard's rows) for every shard, in order."""
-        from vega_tpu_torch import host_actions
-        host_actions.for_each_partition(self, f)
-
-    def save_as_text_file(self, path: str) -> None:
-        """path/part-NNNNN per shard, one f"{row}\\n" a row, as the
-        reference writes them (process 0 alone across processes)."""
-        from vega_tpu_torch import host_actions
-        host_actions.save_as_text_file(self, path)
 
     def collect_async(self):
         """collect() as a JobFuture (jobs.py)."""
@@ -2099,6 +2058,21 @@ def _cols_to_row(cols, schema):
     if names == [VALUE]:
         return cols[VALUE]
     return tuple(cols[n] for n in names)
+
+
+def _yield_rows(cols: Dict[str, np.ndarray]):
+    """One shard's rows as the reference's DenseRDD.compute yields them:
+    values or (k, v) pairs as Python scalars, any other layout as tuples
+    of each column's numpy scalars."""
+    names = list(cols)
+    if names == [VALUE]:
+        yield from cols[VALUE].tolist()
+    elif set(names) == {KEY, VALUE}:
+        yield from zip(cols[KEY].tolist(), cols[VALUE].tolist())
+    else:
+        arrs = [cols[n] for n in names]
+        for i in range(len(arrs[0]) if arrs else 0):
+            yield tuple(c[i] for c in arrs)
 
 
 def _host_rows(cols: Dict[str, np.ndarray]) -> list:
@@ -2407,8 +2381,8 @@ def _trace_row_fn(f, schema, n_shards: int):
     """Trace f once on probe columns to learn its output structure: a
     value or a (key, value) pair, each a column or a constant
     (_column_dtype). Returns (out_schema, cols_fn), where cols_fn maps a
-    column dict to a column dict; anything else raises VegaError (there
-    is no host tier to fall back to)."""
+    column dict to a column dict; anything else raises VegaError (no
+    implicit fall-back to the host tier)."""
     shape = (n_shards, 0)
     out = _traced(f, (_cols_to_row(_probe_cols(schema, n_shards), schema),),
                   "row function")
@@ -4146,6 +4120,11 @@ class _JoinRDD(_ExchangeRDD):
         return [(k, (lv, rv)) for k, lv, rv in zip(
             cols[KEY].tolist(), cols["lv"].tolist(), cols["rv"].tolist())]
 
+    def _compute_rows(self, cols):
+        if self._named:
+            return super()._compute_rows(cols)
+        return iter(self._rows_of(cols))
+
     def _row_tree(self):
         return super()._row_tree() if self._named else (KEY, ("lv", "rv"))
 
@@ -4364,6 +4343,9 @@ class _GroupByKeyRDD(_HashExchangeRDD):
         # a shard holds whole groups (hash-placed, key-sorted runs)
         return list(_sorted_runs(cols[KEY], cols[VALUE]))
 
+    def _compute_rows(self, cols):
+        return _sorted_runs(cols[KEY], cols[VALUE])
+
     def _row_tree(self):
         return None  # a row holds its group's list
 
@@ -4553,7 +4535,7 @@ class _CartesianDenseRDD(DenseRDD):
             raise VegaError(
                 f"cartesian product (~{out_cap} rows per shard, ~{need} "
                 f"bytes) exceeds the device's free memory ({budget} bytes); "
-                "vega_tpu_torch has no host tier to stream it")
+                "to_rdd().cartesian(...) streams it on the host tier")
         super().__init__(left.context, left.mesh, [left, right])
         self.left = left
         self.right = right
@@ -4663,7 +4645,7 @@ class _DenseZipRDD(DenseRDD):
         if not np.array_equal(lb.counts_np, rb.counts_np):
             raise VegaError(
                 "dense zip requires equal per-shard counts; repartition "
-                "first (vega_tpu_torch has no host tier to zip rows)")
+                "first, or zip on the host tier (to_rdd().zip(...))")
         cap = max(lb.capacity, rb.capacity)
 
         def padded(col):
@@ -4720,21 +4702,48 @@ def _sorted_runs(keys: np.ndarray, vals: np.ndarray):
     """(key, [values]) pairs from key-sorted runs: the host view of
     _grouped_columnar, with Python cost per group, never per row."""
     group_keys, offsets, values = _grouped_columnar(keys, vals)
+    offsets, values = offsets.tolist(), values.tolist()
     for i, k in enumerate(group_keys.tolist()):
-        yield k, values[offsets[i]:offsets[i + 1]].tolist()
+        yield k, values[offsets[i]:offsets[i + 1]]
 
 
-class _DenseCoGroupRDD(_HostTierRefusals):
+class _DenseCoGroupRDD(RDD):
     """cogroup over two device group_by_keys (one hash placement, so
-    co-keyed rows share a shard). The reference's node is a host-tier RDD;
-    the port has no host tier, so this object carries its three actions:
-    collect, collect_grouped and count (every other name of the
-    reference's RDD API raises VegaError)."""
+    co-keyed rows share a shard): a host RDD, one partition per shard,
+    whose compute() merges the shard's two key-sorted runs into
+    (k, ([lvs], [rvs])) rows, keys ascending. Every name of the RDD API
+    runs over those rows; collect and collect_grouped read the columns in
+    one pass, and count() counts keys column-wise."""
 
     def __init__(self, left: DenseRDD, right: DenseRDD):
         self.left_grouped = _GroupByKeyRDD(left)
         self.right_grouped = _GroupByKeyRDD(right)
         self.mesh = left.mesh
+        super().__init__(left.context, deps=[
+            OneToOneDependency(self.left_grouped),
+            OneToOneDependency(self.right_grouped)])
+
+    @property
+    def num_partitions(self) -> int:
+        return self.mesh.n_shards
+
+    def compute(self, split: Split, task_context=None):
+        lrows = self.left_grouped._shard_cols(split.index)
+        rrows = self.right_grouped._shard_cols(split.index)
+        lk, loff, lv = _grouped_columnar(lrows[KEY], lrows[VALUE])
+        rk, roff, rv = _grouped_columnar(rrows[KEY], rrows[VALUE])
+        union = np.union1d(lk, rk)
+        # Python lists once, so each key's slices cost list slicing
+        li = np.searchsorted(lk, union).tolist()
+        ri = np.searchsorted(rk, union).tolist()
+        has_l = np.isin(union, lk, assume_unique=True).tolist()
+        has_r = np.isin(union, rk, assume_unique=True).tolist()
+        loff, lv, roff, rv = (loff.tolist(), lv.tolist(), roff.tolist(),
+                              rv.tolist())
+        for j, k in enumerate(union.tolist()):
+            lvs = lv[loff[li[j]]:loff[li[j] + 1]] if has_l[j] else []
+            rvs = rv[roff[ri[j]]:roff[ri[j] + 1]] if has_r[j] else []
+            yield (k, (lvs, rvs))
 
     def collect(self) -> list:
         """(k, ([lvs], [rvs])) per key: shard by shard, keys ascending
@@ -4810,45 +4819,46 @@ def _last_unmarked(row):
     return row[-1] == 0
 
 
-class _DenseRightOuterJoin(_HostTierRefusals):
-    """right_outer_join's result: the device inner join of the two sides,
-    and the right side's rows whose key the left lacks (a left outer join
-    of the right against the left's deduplicated keys, marked 1, kept
-    where the mark is the fill 0). collect() gives (k, (lv, rv)) rows, then
-    (k, (None, rv)) rows; count() sums the two row counts. Every other
-    name of the reference's RDD API raises VegaError."""
+class _DenseRightOuterJoin(MapPartitionsRDD):
+    """right_outer_join's result: the reference's composition,
+    cogroup(other).flat_map_values(emit), over the device cogroup
+    (_DenseCoGroupRDD), so its rows are the reference's, partition by
+    partition (to_debug_string prints the reference's MapPartitionsRDD).
+    count() stays on the device: the inner join's rows plus the right
+    side's rows whose key the left lacks (a left outer join against the
+    other side's deduplicated keys marked 1, kept where the mark is the
+    fill 0), which is the composition's count."""
+
+    _debug_name = "MapPartitionsRDD"
+    _emit = staticmethod(emit_right_outer)
 
     def __init__(self, left: DenseRDD, right: DenseRDD):
-        self.mesh = left.mesh
-        self.inner = _JoinRDD(left, right)
-        self.unmatched = _unmatched_rows(right, left)
+        emit = self._emit
 
-    def collect(self) -> list:
-        cols = self.unmatched.collect_arrays()
-        return self.inner.collect() + [
-            (k, (None, rv)) for k, rv in zip(cols[KEY].tolist(),
-                                             cols["lv"].tolist())]
+        def apply(_idx, it):
+            for k, v in it:
+                for out in emit(v):
+                    yield (k, out)
+
+        super().__init__(_DenseCoGroupRDD(left, right), apply,
+                         preserves_partitioning=True)
+        self._sides = (left, right)
 
     def count(self) -> int:
-        return self.inner.count() + self.unmatched.count()
+        left, right = self._sides
+        return _JoinRDD(left, right).count() + \
+            _unmatched_rows(right, left).count()
 
 
 class _DenseFullOuterJoin(_DenseRightOuterJoin):
-    """full_outer_join's result: right_outer_join's rows, then the left
-    side's rows whose key the right lacks, as (k, (lv, None))."""
+    """full_outer_join's result: the composition with the full outer
+    emit; count() adds the left side's rows whose key the right lacks."""
 
-    def __init__(self, left: DenseRDD, right: DenseRDD):
-        super().__init__(left, right)
-        self.left_unmatched = _unmatched_rows(left, right)
-
-    def collect(self) -> list:
-        cols = self.left_unmatched.collect_arrays()
-        return super().collect() + [
-            (k, (lv, None)) for k, lv in zip(cols[KEY].tolist(),
-                                             cols["lv"].tolist())]
+    _emit = staticmethod(emit_full_outer)
 
     def count(self) -> int:
-        return super().count() + self.left_unmatched.count()
+        left, right = self._sides
+        return super().count() + _unmatched_rows(left, right).count()
 
 
 def _unmatched_rows(side: DenseRDD, other: DenseRDD) -> DenseRDD:

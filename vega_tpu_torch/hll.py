@@ -36,7 +36,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-_MASK = 0xFFFFFFFFFFFFFFFF
+from vega_tpu_torch import partitioner
 
 
 def _signed(x: int) -> int:
@@ -88,22 +88,11 @@ def splitmix64(x: torch.Tensor) -> torch.Tensor:
     return x ^ _lshr(x, 31)
 
 
-def splitmix64_int(x: int) -> int:
-    """splitmix64 of one Python int (the host side of a string)."""
-    x = (x + 0x9E3779B97F4A7C15) & _MASK
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK
-    return x ^ (x >> 31)
-
-
 def hash_strings(dictionary: np.ndarray) -> np.ndarray:
     """int64 hash_key of each entry of a string column's dictionary."""
     out = np.empty(len(dictionary), np.int64)
     for i, s in enumerate(dictionary.tolist()):
-        h = 0xCBF29CE484222325
-        for b in str(s).encode("utf-8"):
-            h = ((h ^ b) * 0x100000001B3) & _MASK
-        out[i] = _signed(splitmix64_int(h))
+        out[i] = _signed(partitioner.hash_key(str(s)))
     return out
 
 
@@ -167,3 +156,18 @@ def registers(h: torch.Tensor, valid: torch.Tensor, p: int) -> torch.Tensor:
     reg = torch.zeros((h.shape[0], 1 << p), dtype=torch.int32,
                       device=h.device)
     return reg.scatter_reduce_(1, idx, rank, "amax")
+
+
+def row_registers(rows, p: int) -> np.ndarray:
+    """The [2^p] registers (uint8) of host rows, one hash_key a row: a
+    host RDD partition's sketch, as the reference's HyperLogLog.add
+    builds it."""
+    reg = np.zeros(1 << p, np.uint8)
+    for x in rows:
+        h = partitioner.hash_key(x)
+        idx = h >> (64 - p)
+        rest = (h << p) & partitioner.MASK
+        rank = 64 - p + 1 if rest == 0 else 64 - rest.bit_length() + 1
+        if rank > reg[idx]:
+            reg[idx] = rank
+    return reg

@@ -9,26 +9,23 @@ tier computes over those rows:
   shard (random.py), each row repeated on the device (_PoissonSampleRDD).
 * random_split(weights, seed): one _CellSampleRDD per weight band, each
   keeping the rows whose BernoulliCellSampler draw falls in its band.
-* take_sample(with_replacement, num, seed): the reference's algorithm over
-  the port's count, sample and collect, then its PCG64 shuffle.
 * count_approx_distinct(relative_sd): HyperLogLog registers built on the
   device from the rows' hash_key (hll.py), estimated on the host.
-* count_approx / mean_approx / count_by_value_approx: the exact value on
-  the device as a final PartialResult (partial/).
-* to_local_iterator / for_each / for_each_partition / save_as_text_file:
-  host rows read one shard at a time in shard order (the peak host memory
-  is one shard's rows); across processes the block is read once on the
-  calling thread, and only process 0 writes files.
+* mean_approx / count_by_value_approx: the exact value on the device as a
+  final PartialResult (partial/).
 * collect_async / count_async / reduce_async: jobs.py.
+
+The other host-tier names (take_sample, count_approx, to_local_iterator,
+for_each, for_each_partition, save_as_text_file, ...) are the host RDD's
+own (rdd/base.py), over the shards' rows (DenseRDD.compute) and the
+device forms above.
 
 The draws of the samplers stay on the host (numpy, per shard); only the
 repeat counts or keep masks travel to the device, once."""
 
 from __future__ import annotations
 
-import os
-import uuid
-from typing import Dict, Iterator, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -149,34 +146,6 @@ def random_split(node, weights, seed=None) -> List[dr.DenseRDD]:
             for lb, ub in zip(bounds, bounds[1:])]
 
 
-def take_sample(node, with_replacement: bool, num: int, seed=None) -> list:
-    """The reference's take_sample (rdd/base.py): count, then a sample at
-    the oversampling fraction (threefry without replacement, Poisson
-    with), retried with seed + attempts up to 20 times while short, then
-    shuffled by PCG64(seed, or 7) on the host and cut to num."""
-    if num == 0:
-        return []
-    initial_count = node.count()
-    if initial_count == 0:
-        return []
-    rng = np.random.Generator(np.random.PCG64(seed if seed is not None
-                                              else 7))
-    if not with_replacement and num >= initial_count:
-        items = node.collect()
-        rng.shuffle(items)
-        return items
-    fraction = vrandom.compute_fraction_for_sample_size(
-        num, initial_count, with_replacement)
-    samples = node.sample(with_replacement, fraction, seed).collect()
-    attempts = 0
-    while len(samples) < num and attempts < 20:
-        attempts += 1
-        samples = node.sample(with_replacement, fraction,
-                              (seed or 0) + attempts).collect()
-    rng.shuffle(samples)
-    return samples[:num]
-
-
 # ---------------------------------------------------------------------------
 # count_approx_distinct
 # ---------------------------------------------------------------------------
@@ -242,10 +211,6 @@ def count_approx_distinct(node, relative_sd: float = 0.05) -> int:
 # ---------------------------------------------------------------------------
 
 
-def count_approx(node, timeout_s: float, confidence: float = 0.95):
-    return PartialResult(final(node.count()))
-
-
 def count_by_value_approx(node, timeout_s: float, confidence: float = 0.95):
     return PartialResult(_finals(node.count_by_value()))
 
@@ -272,84 +237,6 @@ def mean_approx(node, timeout_s: float, confidence: float = 0.95):
         nan = float("nan")
         return PartialResult(BoundedDouble(nan, 0.0, nan, nan))
     return PartialResult(final(float(sum(sums.tolist())) / n))
-
-
-# ---------------------------------------------------------------------------
-# host-row actions: one shard at a time
-# ---------------------------------------------------------------------------
-
-
-def _shard_cols(node) -> Iterator[Dict[str, np.ndarray]]:
-    """Each shard's valid rows as host columns, in shard order. On one
-    process each shard is read when the caller reaches it; across
-    processes every column is read once (one gather) on the calling
-    thread first, so every process dispatches the same collectives."""
-    blk = node.block()
-    if not blk.mesh.collective:
-        for s in range(blk.n_shards):
-            yield blk.shard_rows(s)
-        return
-    counts = blk.counts_np
-    host = blk._host_cols()
-    for s in range(blk.n_shards):
-        yield blk._decode({nm: c[s, :counts[s]] for nm, c in host.items()})
-
-
-def shard_rows(node) -> Iterator[list]:
-    """Each shard's rows, as collect() forms them, in shard order."""
-    if node.mesh.collective:
-        parts = list(_shard_cols(node))  # the gather, on this thread
-        return (node._rows_of(cols) for cols in parts)
-    return (node._rows_of(cols) for cols in _shard_cols(node))
-
-
-def to_local_iterator(node) -> Iterator:
-    for rows in shard_rows(node):
-        yield from rows
-
-
-def for_each(node, f) -> None:
-    for rows in shard_rows(node):
-        for x in rows:
-            f(x)
-
-
-def for_each_partition(node, f) -> None:
-    for rows in shard_rows(node):
-        f(iter(rows))
-
-
-def save_as_text_file(node, path: str) -> None:
-    """One part-NNNNN file a shard under path, one f"{row}\\n" a row,
-    each written to a unique temporary name and replaced into place.
-    Across processes process 0 writes every file, and one host_get tells
-    every process whether it did."""
-    mesh = node.mesh
-    writer = mesh.rank == 0
-    error = None
-    try:
-        if writer:
-            os.makedirs(path, exist_ok=True)
-        for s, rows in enumerate(shard_rows(node)):
-            if not writer:
-                continue
-            out = os.path.join(path, f"part-{s:05d}")
-            tmp = f"{out}.{uuid.uuid4().hex[:12]}.tmp"
-            with open(tmp, "w") as f:
-                f.write("".join(f"{x}\n" for x in rows))
-            os.replace(tmp, out)
-    except Exception as e:  # raised below, after every process knows
-        if not mesh.collective:
-            raise
-        error = e
-    if mesh.collective:
-        ok = mesh_lib.host_get(mesh, torch.tensor(
-            [error is None] * mesh.n_local, device=mesh.device))
-        if error is not None:
-            raise error
-        if not ok.all():
-            raise VegaError("save_as_text_file: process 0 could not write "
-                            f"the files under {path}")
 
 
 # ---------------------------------------------------------------------------

@@ -214,6 +214,7 @@ class HostMapRDD(dr._NarrowRDD):
     (key, value) pair."""
 
     _host_rows_self = True
+    _debug_name = "MapperRDD"  # the reference's host node for this map
 
     def __init__(self, parent: dr.DenseRDD, f):
         refuse_strings(parent, "map")
@@ -258,6 +259,7 @@ class HostFilterRDD(dr._NarrowRDD):
     predicate's value is true (an int or float when non-zero)."""
 
     _host_rows_self = True
+    _debug_name = "MapPartitionsRDD"  # the reference's host filter
     _keeps_counts = False
     _keeps_placement = True
 
@@ -300,6 +302,7 @@ class HostMapValuesRDD(dr._NarrowRDD):
     value column; the key columns pass through."""
 
     _host_rows_self = True
+    _debug_name = "MapPartitionsRDD"  # the reference's host map_values
     _keeps_placement = True
 
     def __init__(self, parent: dr.DenseRDD, f):

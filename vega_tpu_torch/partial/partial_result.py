@@ -1,10 +1,12 @@
 """The result of an approximate action (the reference's
 partial/partial_result.py), final only.
 
-The port's approximate actions finish on the device before they return, so
-every result they give is final: the reference can also hand back a
+The port's approximate actions finish before they return, so every result
+they give is final, or failed: the reference can also hand back a
 non-final estimate when its deadline passes first. This holder therefore
-keeps the reference's surface for a final value only."""
+keeps the reference's surface for a final value, or for a job that failed
+(the reference's set_failure: the initial value None, get_final_value
+raising the job's exception)."""
 
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ R = TypeVar("R")
 
 
 class PartialResult(Generic[R]):
-    def __init__(self, value: R):
+    def __init__(self, value: R, failure: Optional[BaseException] = None):
         self._value = value
+        self._failure = failure
 
     @property
     def initial_value(self) -> R:
@@ -23,22 +26,30 @@ class PartialResult(Generic[R]):
 
     @property
     def is_initial_value_final(self) -> bool:
-        return True
+        return self._failure is None
 
     def get_final_value(self, timeout: Optional[float] = None) -> R:
-        """The final value; it is there already, so timeout is unused."""
+        """The final value, there already (timeout is unused), or the
+        failed job's exception raised."""
+        if self._failure is not None:
+            raise self._failure
         return self._value
 
     def on_complete(self, handler: Callable[[R], None]
                     ) -> "PartialResult[R]":
-        """Calls handler with the final value at once."""
-        handler(self._value)
+        """Calls handler with the final value at once (never on a failed
+        job)."""
+        if self._failure is None:
+            handler(self._value)
         return self
 
     def on_fail(self, handler: Callable[[BaseException], None]
                 ) -> "PartialResult[R]":
-        """A final result has not failed: handler is never called."""
+        """Calls handler with a failed job's exception at once."""
+        if self._failure is not None:
+            handler(self._failure)
         return self
 
     def __repr__(self):
-        return f"PartialResult(final: {self._value})"
+        state = "final" if self._failure is None else "failed"
+        return f"PartialResult({state}: {self._value})"

@@ -11,19 +11,23 @@ draws' values in their order (tests/test_torch_host_actions.py checks
 both distributions), copies the draws to the device once and applies them
 to the column tensors there.
 
-The reference's BernoulliSampler (sampling without replacement, with its
-gap sampling) is not copied: the reference's DenseRDD samples without
-replacement on its device tier (threefry), which the port's _SampleRDD
-reproduces."""
+A host RDD (rdd/) samples its rows through the same samplers' sample()
+(PartitionwiseSampledRDD), and without replacement through
+BernoulliSampler, the reference's with its gap sampling, which draws one
+scalar per kept row or per coin. A DenseRDD samples without replacement on
+the device (the reference's threefry form, dense_rdd._SampleRDD)."""
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
 DEFAULT_SEED = 0xC0FFEE
+# below this fraction BernoulliSampler skips geometric gaps instead of
+# drawing a coin a row (the reference's threshold)
+GAP_SAMPLING_FRACTION_THRESHOLD = 0.4
 
 
 def rng(seed: Optional[int], split_seed: int) -> np.random.Generator:
@@ -48,6 +52,46 @@ class PoissonSampler:
         return rng(self.seed, split_seed).poisson(
             self.fraction, size=n).astype(np.int64)
 
+    def sample(self, items, split_seed: int) -> Iterator:
+        """A host partition's sample: each row repeated its count."""
+        rows = list(items)
+        for item, c in zip(rows, self.counts(len(rows), split_seed).tolist()):
+            for _ in range(c):
+                yield item
+
+
+class BernoulliSampler:
+    """Sampling without replacement, the reference's host form: a row
+    stays with probability fraction; at a fraction up to
+    GAP_SAMPLING_FRACTION_THRESHOLD the stream draws the gap to the next
+    kept row (geometric) instead of a coin a row."""
+
+    def __init__(self, fraction: float, seed: Optional[int] = None):
+        self.fraction = float(fraction)
+        self.seed = seed
+
+    def sample(self, items, split_seed: int) -> Iterator:
+        p = self.fraction
+        if p <= 0.0:
+            return
+        r = rng(self.seed, split_seed)
+        if p >= 1.0:
+            yield from items
+            return
+        if p <= GAP_SAMPLING_FRACTION_THRESHOLD:
+            log1mp = math.log1p(-p)
+            skip = int(math.log(r.random() or 1e-300) / log1mp)
+            for item in items:
+                if skip > 0:
+                    skip -= 1
+                    continue
+                yield item
+                skip = int(math.log(r.random() or 1e-300) / log1mp)
+        else:
+            for item in items:
+                if r.random() < p:
+                    yield item
+
 
 class BernoulliCellSampler:
     """random_split's band: row i stays when its draw x satisfies
@@ -66,6 +110,12 @@ class BernoulliCellSampler:
     def keep(self, draws):
         """Which draws the band keeps (numpy or torch, elementwise)."""
         return (draws >= self.lb) & (draws < self.ub)
+
+    def sample(self, items, split_seed: int) -> Iterator:
+        """A host partition's rows whose draw falls in the band."""
+        rows = list(items)
+        keep = self.keep(self.draws(len(rows), split_seed)).tolist()
+        return (x for x, k in zip(rows, keep) if k)
 
 
 def compute_fraction_for_sample_size(size: int, total: int,

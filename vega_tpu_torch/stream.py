@@ -19,10 +19,11 @@ runs the ordinary device pipelines chunk by chunk:
   take_ordered / top keep the running best n.
 
 Everything else runs on the resident build (resident(), memoized), which
-needs the whole dataset on the device. The reference falls back to its
-host tier when a closure does not trace; the port has none, so the same
-probe (a few-row block of the stream's schema) raises the VegaError of the
-op's build-time checks before any chunk runs.
+needs the whole dataset on the device (the host RDD layer's names too:
+glom, to_rdd, ...). The reference falls back to its host tier when a
+closure does not trace; the port does not fall back on its own, so the
+same probe (a few-row block of the stream's schema) raises the VegaError
+of the op's build-time checks before any chunk runs.
 
 Chunks are sized as the reference sizes them (planned_chunk_rows): by the
 exchange planner under Context(dense_exchange="auto"), so a chunk is the
@@ -144,11 +145,6 @@ class StreamedDenseRDD:
         # recursion when an attribute is probed before __init__ ran
         if name in StreamedDenseRDD._INTERNALS:
             raise AttributeError(name)
-        if name in dense_rdd.REFERENCE_RDD_API and \
-                not hasattr(dense_rdd.DenseRDD, name):
-            # a host-tier name refuses before any chunk is built
-            raise dense_rdd._host_name_refused(
-                "StreamedDenseRDD", name, dense_rdd.REFUSAL_REASONS.get(name))
         return getattr(self.resident(), name)
 
     # --- narrow ops: compose per chunk -------------------------------------
@@ -290,7 +286,7 @@ class StreamedDenseRDD:
         """The n smallest elements: each chunk's device take_ordered gives
         at most n candidates, and the host keeps the running best n. A
         key function runs on the resident build, which refuses it as
-        DenseRDD.take_ordered does (no host tier)."""
+        DenseRDD.take_ordered does (no implicit host tier)."""
         if key is not None:
             return self.resident().take_ordered(n, key)
         return self._stream_best(n, "take_ordered", reverse=False)
