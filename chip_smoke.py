@@ -224,7 +224,9 @@ Phases, in order; any failure exits non-zero before the last line:
      the reference's positional calls reduce_by_key(add, 8),
      sort_by_key(True, 8, 4096) and join(table, 8), each giving the
      keyword call's rows, dense_range(N, 8), left_outer_join(half table,
-     8) filling 0 at the missing keys, and the nine device-tier names:
+     8) filling 0 at the missing keys (the two joins under a partition
+     count the host RDD layer's, 8 partitions, as the reference's; one
+     warm run each), and the nine device-tier names:
      fold_by_key(1, add) (per-key sum plus count: the zero once per row),
      aggregate_by_key(5, add, max), group_by(x % K) and sort_by(-x) of
      dense_range(N), mask_keys, cache() (a second action registers no
@@ -318,6 +320,21 @@ Phases, in order; any failure exits non-zero before the last line:
      parallelize(2M Python rows, 8).dense().reduce_by_key(op="add")
      .count(). Each case once cold and P19_WARM times warm: median ms,
      the card, host and lift (dense()'s from_numpy) parts apart.
+ 20. the reference's implicit host fall-throughs, each case against
+     numpy or a plain Python replay: (a) bench-main's source at 2M rows
+     through map(lambda x: (x % K, math.sqrt(x))) (a host MapperRDD: the
+     trace refuses math.sqrt, as jax's), a host reduce_by_key, dense()
+     and a join with the K-row table on the card (the join must launch
+     all three kernels); (b) a join and a cogroup under
+     HashPartitioner(16) (glom sizes, every key in its partition); (c)
+     left_outer_join(fill_value=None) and a string right value; (d) a
+     chunked dense_range under an untraceable map (no chunk built; the
+     resident build's host answer); (e) dense_from_numpy of an object
+     column (parallelized), reduced on the host, lifted and joined. Each
+     case once cold and P20_WARM times warm: median ms, the card, host
+     and lift parts apart, the step peak. (f) F21: numpy, math, float(),
+     a branch, a hash and .item() on a row: the same tier (a host
+     MapperRDD) and the same rows on the card as on the CPU.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
@@ -325,9 +342,9 @@ line per phase-9 leg and item, one line per phase-10 leg and item, one
 line per phase-11 size, gf256 row and fold op, one line per phase-12
 item, one line per phase-13 leg and rank and per 13d query (one process
 and each rank), one line per phase-14 item and 14c rank, one line per
-phase-15, phase-16 and phase-17 query, one line per phase-18 and
-phase-19 case, the kernel table as one JSON line (with phases 6-19's
-launches beside the main path's), the card line, and
+phase-15, phase-16 and phase-17 query, one line per phase-18,
+phase-19 and phase-20 case, the kernel table as one JSON line (with
+phases 6-20's launches beside the main path's), the card line, and
 last
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
@@ -340,6 +357,11 @@ builds the kernels and runs phase 19 alone, as the whole script runs it,
 optionally with one of the host layer's fast paths (P19_PATHS) swapped
 for its plain form; prints one JSON line of each case's times and writes
 chiprun_out/p19_<PATH or all>.json.
+
+    python3 chip_smoke.py --phase 20
+
+builds the kernels and runs phase 20 alone; prints one JSON line of each
+case's times, step peak and launches, and writes chiprun_out/p20.json.
 
     python3 chip_smoke.py --main-path-ab [--leg LEG] DIR_A DIR_B DIR_B DIR_A
 
@@ -3583,10 +3605,11 @@ def p12_step(torch, ck, fn):
     return out, ms, dict(ck.LAUNCHES), torch.cuda.max_memory_allocated()
 
 
-def p12_timed(torch, ck, label, build, run, check, must=(), phase=12):
+def p12_timed(torch, ck, label, build, run, check, must=(), phase=12,
+              warm_runs=3):
     """One line of 12a-c (and of phase 14): a cold run (build + run,
-    checked), then three warm ones, each its host build (the sources) and
-    its device steps (run, ended by a synchronize) timed apart; the
+    checked), then warm_runs warm ones, each its host build (the sources)
+    and its device steps (run, ended by a synchronize) timed apart; the
     launches of the cold run's steps, which must include `must`, and the
     steps' peak."""
     src, build_ms, _, _ = p12_step(torch, ck, build)
@@ -3596,7 +3619,7 @@ def p12_timed(torch, ck, label, build, run, check, must=(), phase=12):
     p12_check(f"{label}: kernels {missing} not launched ({launches})",
               not missing)
     warm, warm_build = [], []
-    for _ in range(3):
+    for _ in range(warm_runs):
         src, b_ms, _, _ = p12_step(torch, ck, build)
         out, w_ms, _, _ = p12_step(torch, ck, lambda: run(src))
         warm.append(w_ms)
@@ -4667,9 +4690,21 @@ def p14_repairs(torch, np, ck, vt):
     ctx = vt.Context(n_shards=N_SHARDS)
     rows = []
 
-    def item(label, build, run, check):
+    def item(label, build, run, check, warm_runs=3):
         rows.append(p12_timed(torch, ck, "14a " + label, build, run, check,
-                              phase=14))
+                              phase=14, warm_runs=warm_runs))
+
+    def host_arrays(node):
+        """A join under a partition count: the host RDD layer's, as the
+        reference's; its (k, (lv, rv)) rows as int64 columns."""
+        p14_check(f"14a a join under a partition count is not the host "
+                  f"layer's ({type(node).__name__})",
+                  not isinstance(node, dense_rdd.DenseRDD)
+                  and node.num_partitions == 8)
+        k_, lr = zip(*node.collect())
+        lv, rv = zip(*lr)
+        return {nm: np.asarray(c, np.int64) for nm, c in
+                (("k", k_), ("lv", lv), ("rv", rv))}
 
     def pairs():
         return p14_pairs(ctx, n, k)
@@ -4707,14 +4742,17 @@ def p14_repairs(torch, np, ck, vt):
         def same_join(got):
             kk, lv = p14_by_key(np, got, "lv")
             p14_check("14a join(table, 8): rows differ from join(table)'s "
-                      "or numpy", all(np.array_equal(got[c], kw_join[c])
-                                      for c in ("k", "lv", "rv"))
+                      "or numpy", all(np.array_equal(
+                          p14_by_key(np, got, c)[1],
+                          p14_by_key(np, kw_join, c)[1])
+                          for c in ("lv", "rv"))
                       and np.array_equal(kk, keys)
                       and np.array_equal(lv, sums))
+        # the host layer's join of 2M rows: one warm run
         item("reduce_by_key(op='add').join(table, 8)",
              lambda: (pairs(), table()),
-             lambda s: s[0].reduce_by_key(op="add").join(s[1], 8)
-             .collect_arrays(), same_join)
+             lambda s: host_arrays(s[0].reduce_by_key(op="add").join(
+                 s[1], 8)), same_join, warm_runs=1)
 
         total = n * (n - 1) // 2
         item("dense_range(N, 8): count() and fold(0, add)", lambda: None,
@@ -4733,8 +4771,9 @@ def p14_repairs(torch, np, ck, vt):
                           rv, np.where(kk < k // 2, 0, kk * 3)))
         item("reduce_by_key(op='add').left_outer_join(half table, 8)",
              lambda: (pairs(), p14_half_table(ctx, np, k)),
-             lambda s: s[0].reduce_by_key(op="add").left_outer_join(
-                 s[1], 8).collect_arrays(), check_loj)
+             lambda s: host_arrays(s[0].reduce_by_key(op="add")
+                                   .left_outer_join(s[1], 8)), check_loj,
+             warm_runs=1)
 
         def check_fbk(got):
             kk, v = p14_by_key(np, got)
@@ -6479,13 +6518,14 @@ def p19_hash_mod(np, keys, n):
         np.int64)
 
 
-def p19_case(torch, ck, label, steps, check, warm=P19_WARM):
+def p19_case(torch, ck, label, steps, check, warm=P19_WARM, phase=19):
     """One case: steps [(name, part, fn(previous output))], part "card"
     (device work, to a synchronize), "host" (rows formed and moved on the
     host; a dense() step's from_numpy lift timed apart by a clock) or
     "lift". A cold run (launches counted from 0, checked), then `warm`
-    runs: the median of the whole and of each part, and the launches of
-    each step of the cold run."""
+    runs: the median of the whole and of each part, and the launches and
+    the device memory peak of each step of the cold run (the peak above
+    the memory allocated when the step starts is in step_peaks)."""
     from vega_tpu_torch import dense_rdd
 
     def one():
@@ -6493,16 +6533,19 @@ def p19_case(torch, ck, label, steps, check, warm=P19_WARM):
         ck.reset_launches()
         parts = {"card": 0.0, "host": 0.0, "lift": 0.0}
         steps_launches = {}
+        peaks = {}
         out = None
         t0 = time.perf_counter()
         with _P18Clock(torch, ((dense_rdd, "dense_from_numpy"),)) as lift:
             for name, part, fn in steps:
                 before = dict(ck.LAUNCHES)
                 lift_before = lift.ms
+                torch.cuda.reset_peak_memory_stats()
                 t1 = time.perf_counter()
                 out = fn(out)
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t1) * 1e3
+                peaks[name] = torch.cuda.max_memory_allocated()
                 lifted = lift.ms - lift_before
                 parts[part] += ms - lifted
                 parts["lift"] += lifted
@@ -6510,7 +6553,7 @@ def p19_case(torch, ck, label, steps, check, warm=P19_WARM):
                                         for k in ck.LAUNCHES}
         whole = (time.perf_counter() - t0) * 1e3
         return out, dict(ms=whole, parts=parts, step_launches=steps_launches,
-                         launches=dict(ck.LAUNCHES))
+                         launches=dict(ck.LAUNCHES), step_peaks=peaks)
 
     out, cold = one()
     note = check(out)
@@ -6520,10 +6563,12 @@ def p19_case(torch, ck, label, steps, check, warm=P19_WARM):
     r = dict(label=label, note=note, cold=cold, warm=runs, median_ms=med,
              median_parts={p: statistics.median(x["parts"][p] for x in runs)
                            for p in ("card", "host", "lift")},
-             launches=cold["launches"], step_launches=cold["step_launches"])
-    log(f"19 {label}: {note}; {med:.3f} ms warm median of {warm} (parts "
-        f"{json.dumps(r['median_parts'])}), cold {cold['ms']:.3f} ms, "
-        f"launches {json.dumps(cold['step_launches'])}")
+             launches=cold["launches"], step_launches=cold["step_launches"],
+             peak_bytes=max(cold["step_peaks"].values()))
+    log(f"{phase} {label}: {note}; {med:.3f} ms warm median of {warm} "
+        f"(parts {json.dumps(r['median_parts'])}), cold {cold['ms']:.3f} "
+        f"ms, step peak {r['peak_bytes']} B, launches "
+        f"{json.dumps(cold['step_launches'])}")
     return r
 
 
@@ -6979,6 +7024,386 @@ def phase19_leg(without=None):
     print(f"card: {card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 20. the reference's implicit host fall-throughs
+# ---------------------------------------------------------------------------
+P20_ROWS = 2_000_000           # 20a: bench-main's source cut to 2M rows
+P20_KEYS = N_KEYS              # 20a: the main path's K-row table
+P20_PAIRS = 200_000            # 20b / 20c: seeded pairs over 20K keys
+P20_PAIR_KEYS = 20_000
+P20_PARTS = 16                 # 20b: HashPartitioner(16)
+P20_STREAM_ROWS = 1_000_000    # 20d: dense_range in chunks of 250K rows
+P20_CHUNK = 250_000
+P20_STREAM_KEYS = 1_000
+P20_OBJ_ROWS = 100_000         # 20e: an object column over 100 keys
+P20_OBJ_KEYS = 100
+P20_WARM = 1
+
+
+def p20_check(what, ok):
+    if not ok:
+        fail(f"phase 20: {what}")
+
+
+def p20_sqrt_sums(np, n, k):
+    """numpy's replay of a host reduce of (x % k, sqrt(x)) over x in
+    [0, n): float64 sums per key."""
+    x = np.arange(n, dtype=np.int64)
+    return np.bincount(x % k, weights=np.sqrt(x), minlength=k)
+
+
+def p20_part_a(torch, np, ck, vt, ctx):
+    """20a: bench-main's source at P20_ROWS rows through a map whose
+    closure calls math.sqrt (the trace refuses it, as jax's does: the
+    host RDD layer's MapperRDD), the host reduce_by_key, dense() lifting
+    the K reduced rows back, and their join with the K-row table on the
+    card."""
+    table = ctx.dense_from_numpy(np.arange(P20_KEYS, dtype=np.int32),
+                                 np.arange(P20_KEYS, dtype=np.float32) * 2)
+    table.block()
+    exp = p20_sqrt_sums(np, P20_ROWS, P20_KEYS)
+    state = {}
+
+    def host(_):
+        node = ctx.dense_range(P20_ROWS).map(
+            lambda x: (x % P20_KEYS, math.sqrt(x)))
+        state["kind"] = type(node).__name__
+        p20_check(f"20a: the untraceable map is a host node "
+                  f"({state['kind']})",
+                  not isinstance(node, vt.dense_rdd.DenseRDD))
+        return node.reduce_by_key(operator.add).dense()
+
+    def join(lifted):
+        state["lifted"] = lifted
+        return lifted.join(table).count()
+
+    def check(n):
+        lifted = state["lifted"]
+        p20_check("20a: dense() lifted the rows onto the card",
+                  isinstance(lifted, vt.dense_rdd.DenseRDD))
+        got = lifted.collect_arrays()
+        k, v = got["k"], got["v"]
+        p20_check("20a: every key once",
+                  np.array_equal(np.sort(k), np.arange(P20_KEYS)))
+        p20_check("20a: the sums equal numpy's (rtol 1e-6, float32)",
+                  np.allclose(v, exp[k], rtol=1e-6, atol=0.0))
+        p20_check("20a: join count == K", n == P20_KEYS)
+        return (f"map a {state['kind']}, {len(k)} reduced rows lifted, "
+                f"join count {n}")
+
+    r = p19_case(torch, ck, "a_untraceable_map_reduce_join",
+                 [("map.reduce_by_key.dense", "host", host),
+                  ("join.count", "card", join)], check, P20_WARM, 20)
+    jl = r["step_launches"]["join.count"]
+    p20_check(f"20a: the lifted rows' join launched all three kernels "
+              f"({jl})", all(jl[k] > 0 for k in
+                             ("hash_bucket", "digit_hist", "partition_pos")))
+    return [r]
+
+
+def p20_pairs(np):
+    rng = np.random.default_rng(20)
+    k = rng.integers(0, P20_PAIR_KEYS, P20_PAIRS).astype(np.int32)
+    v = rng.integers(-1000, 1000, P20_PAIRS).astype(np.int32)
+    tk = np.arange(0, P20_PAIR_KEYS, 2, dtype=np.int32)
+    return k, v, tk
+
+
+def p20_part_b(torch, np, ck, vt, ctx):
+    """20b: join and cogroup under HashPartitioner(16): the host join and
+    CoGroupedRDD, whose 16 partitions hold each key where the reference's
+    splitmix64 % 16 puts it; rows and sums against numpy."""
+    from vega_tpu_torch.partitioner import HashPartitioner
+
+    k, v, tk = p20_pairs(np)
+    matched = np.isin(k, tk)
+    part = HashPartitioner(P20_PARTS)
+    state = {}
+
+    def sources(_):
+        kv = ctx.dense_from_numpy(k, v)
+        t = ctx.dense_from_numpy(tk, tk * 3)
+        kv.block()
+        t.block()
+        return kv, t
+
+    def join(sides):
+        kv, t = sides
+        state["sides"] = sides
+        return kv.join(t, part).glom().collect()
+
+    def cogroup(joined):
+        state["join"] = joined
+        kv, t = state["sides"]
+        return kv.cogroup(t, partitioner_or_num=part).glom().collect()
+
+    def placed(parts):
+        return all(
+            not p or np.all(p19_hash_mod(np, [r[0] for r in p],
+                                         P20_PARTS) == i)
+            for i, p in enumerate(parts))
+
+    def check(groups):
+        joined = state["join"]
+        rows = [r for p in joined for r in p]
+        p20_check("20b: 16 join partitions, each key in its partition",
+                  len(joined) == P20_PARTS and placed(joined))
+        p20_check("20b: the join's rows equal numpy's",
+                  len(rows) == int(matched.sum())
+                  and sum(lv for _k, (lv, _rv) in rows)
+                  == int(v[matched].sum())
+                  and all(rv == kk * 3 for kk, (_lv, rv) in rows))
+        keys = np.union1d(k, tk)
+        flat = [g for p in groups for g in p]
+        p20_check("20b: 16 cogroup partitions, each key in its partition",
+                  len(groups) == P20_PARTS and placed(groups))
+        p20_check("20b: the cogroup's groups equal numpy's",
+                  len(flat) == len(keys)
+                  and sum(len(lv) for _k, (lv, _rv) in flat) == P20_PAIRS
+                  and sum(len(rv) for _k, (_lv, rv) in flat) == len(tk))
+        return (f"join glom sizes {[len(p) for p in joined]}, cogroup "
+                f"glom sizes {[len(p) for p in groups]}")
+
+    return [p19_case(torch, ck, "b_partitioner_join_cogroup",
+                     [("sources", "card", sources),
+                      ("join(HashPartitioner(16)).glom", "host", join),
+                      ("cogroup(HashPartitioner(16)).glom", "host",
+                       cogroup)], check, P20_WARM, 20)]
+
+
+def p20_part_c(torch, np, ck, vt, ctx):
+    """20c: left_outer_join(fill_value=None) (the host's, None for a
+    missing right side) and a left_outer_join with a string right value
+    (the device cogroup, then the host's rows with the fill 0)."""
+    k, v, tk = p20_pairs(np)
+    words = np.array([f"s{x}" for x in tk])
+    matched = np.isin(k, tk)
+    state = {}
+
+    def sources(_):
+        kv = ctx.dense_from_numpy(k, v)
+        t = ctx.dense_from_numpy(tk, tk * 3)
+        ts = ctx.dense_from_numpy(tk, words)
+        for node in (kv, t, ts):
+            node.block()
+        return kv, t, ts
+
+    def fill_none(sides):
+        kv, t, ts = sides
+        state["ts"] = (kv, ts)
+        return kv.left_outer_join(t, fill_value=None).collect()
+
+    def strings(rows):
+        state["none"] = rows
+        kv, ts = state["ts"]
+        return kv.left_outer_join(ts).collect()
+
+    def check(rows):
+        none = state["none"]
+        p20_check("20c: fill_value=None rows equal numpy's",
+                  len(none) == P20_PAIRS
+                  and sum(rv is None for _k, (_lv, rv) in none)
+                  == int((~matched).sum())
+                  and all(rv is None or rv == kk * 3
+                          for kk, (_lv, rv) in none))
+        p20_check("20c: string right values and fill 0 equal numpy's",
+                  len(rows) == P20_PAIRS
+                  and all(rv == (f"s{kk}" if kk % 2 == 0 else 0)
+                          for kk, (_lv, rv) in rows))
+        return (f"{len(none)} rows, {int((~matched).sum())} None; "
+                f"{len(rows)} string rows")
+
+    return [p19_case(torch, ck, "c_outer_fill_none_and_strings",
+                     [("sources", "card", sources),
+                      ("left_outer_join(fill_value=None)", "host",
+                       fill_none),
+                      ("left_outer_join(string right)", "host", strings)],
+                     check, P20_WARM, 20)]
+
+
+def p20_part_d(torch, np, ck, vt, ctx):
+    """20d: a stream (dense_range in chunks) under an untraceable map: the
+    probe decides before any chunk is built, and the resident build
+    answers through the host RDD layer; its host reduce against numpy."""
+    exp = p20_sqrt_sums(np, P20_STREAM_ROWS, P20_STREAM_KEYS)
+    state = {}
+
+    def host(_):
+        s = ctx.dense_range(P20_STREAM_ROWS, chunk_rows=P20_CHUNK)
+        built = []
+        make = s._make_chunks
+        s._make_chunks = lambda: (built.append(1), make())[1]
+        node = s.map(lambda x: (x % P20_STREAM_KEYS, math.sqrt(x)))
+        state["stream"] = type(s).__name__
+        state["built"] = len(built)
+        state["kind"] = type(node).__name__
+        return node.reduce_by_key(operator.add).collect()
+
+    def check(rows):
+        p20_check(f"20d: a stream ({state['stream']}), no chunk built by "
+                  f"the map ({state['built']}), a host node "
+                  f"({state['kind']})",
+                  state["stream"] == "StreamedDenseRDD"
+                  and state["built"] == 0
+                  and state["kind"] == "MapperRDD")
+        got = dict(rows)
+        p20_check("20d: the sums equal numpy's (rtol 1e-12)",
+                  sorted(got) == list(range(P20_STREAM_KEYS))
+                  and np.allclose([got[i] for i in range(P20_STREAM_KEYS)],
+                                  exp, rtol=1e-12, atol=0.0))
+        return f"{len(rows)} keys from the resident build's host reduce"
+
+    return [p19_case(torch, ck, "d_stream_untraceable",
+                     [("stream.map.reduce_by_key.collect", "host", host)],
+                     check, P20_WARM, 20)]
+
+
+def p20_part_e(torch, np, ck, vt, ctx):
+    """20e: dense_from_numpy of an object column (ints and strings): the
+    host tier's parallelize of its rows, a host map_values and reduce,
+    dense() lifting the sums, and their join with a table on the card;
+    against a plain Python replay."""
+    keys = np.arange(P20_OBJ_ROWS) % P20_OBJ_KEYS
+    obj = np.empty(P20_OBJ_ROWS, dtype=object)
+    obj[:] = [i if i % 3 else f"w{i}" for i in range(P20_OBJ_ROWS)]
+    exp = {}
+    for kk, o in zip(keys.tolist(), obj.tolist()):
+        exp[kk] = exp.get(kk, 0) + len(str(o))
+    state = {}
+
+    def host(_):
+        src = ctx.dense_from_numpy(keys, obj)
+        state["kind"] = type(src).__name__
+        return src.map_values(lambda o: len(str(o))).reduce_by_key(
+            operator.add).dense()
+
+    def join(lifted):
+        t = ctx.dense_from_numpy(np.arange(P20_OBJ_KEYS, dtype=np.int32),
+                                 np.ones(P20_OBJ_KEYS, np.int32))
+        return lifted.join(t).collect()
+
+    def check(rows):
+        p20_check(f"20e: the object source is parallelized "
+                  f"({state['kind']})",
+                  state["kind"] == "ParallelCollectionRDD")
+        p20_check("20e: the joined sums equal the Python replay",
+                  {kk: lv for kk, (lv, _rv) in rows} == exp)
+        return f"{len(rows)} keys joined"
+
+    return [p19_case(torch, ck, "e_object_source",
+                     [("parallelize.map_values.reduce.dense", "host", host),
+                      ("join.collect", "card", join)], check, P20_WARM, 20)]
+
+
+# F21's closures: the tier the reference's trace picks for each (a
+# DenseRDD, or the host RDD layer's node), which must not depend on the
+# device the port runs on
+def p20_tier_closures(np):
+    return {
+        "np_sqrt": lambda x: (x % 3, np.sqrt(x)),
+        "np_where": lambda x: np.where(x > 1, x, 0),
+        "np_int64": lambda x: int(np.int64(x) // 2),
+        "math_sqrt": lambda x: math.sqrt(x),
+        "float": lambda x: float(x),
+        "branch": lambda x: x if x > 3 else 0,
+        "dict_key": lambda x: {0: 1}.get(x, 2),
+        "control": lambda x: (x % 3, x * 2),
+    }
+
+
+def p20_tiers(np, vt):
+    """20f: each of F21's closures over dense_range(40) on the card and
+    on the CPU: the same kind of node (a DenseRDD only for the control)
+    and the same rows, element types included (repr)."""
+    out = {}
+    card = vt.Context(n_shards=N_SHARDS)
+    cpu = vt.Context(device="cpu", n_shards=N_SHARDS)
+    try:
+        for name, f in p20_tier_closures(np).items():
+            kinds, rows = [], []
+            for ctx in (card, cpu):
+                node = ctx.dense_range(40).map(f)
+                kinds.append(type(node).__name__)
+                rows.append(repr(node.collect()))
+            p20_check(f"20f {name}: the card's tier and rows are the CPU's "
+                      f"({kinds})", kinds[0] == kinds[1]
+                      and rows[0] == rows[1])
+            p20_check(f"20f {name}: the tier is jax's ({kinds[0]})",
+                      (kinds[0] == "MapperRDD") == (name != "control"))
+            out[name] = kinds[0]
+    finally:
+        card.stop()
+        cpu.stop()
+    log(f"20f tiers on the card and the CPU: {json.dumps(out)}")
+    return out
+
+
+def phase_twenty(torch, np, ck, vt):
+    """Phase 20: the reference's implicit host fall-throughs on the card:
+    (a) an untraceable map of bench-main's source at 2M rows, a host
+    reduce, lifted and joined with the K-row table, (b) join and cogroup
+    under HashPartitioner(16), (c) left_outer_join(fill_value=None) and a
+    string right value, (d) a stream's untraceable map, (e) an object
+    column's source. Each case once cold (checked against numpy or a
+    Python replay, launches counted from 0 per step) and P20_WARM times
+    warm: median ms, the card, host and lift parts apart, the step
+    peak."""
+    t0 = time.perf_counter()
+    card = card_line()
+    ctx = vt.Context(n_shards=N_SHARDS)
+    rows = []
+    parts = {}
+    for part, fn in (("a", p20_part_a), ("b", p20_part_b),
+                     ("c", p20_part_c), ("d", p20_part_d),
+                     ("e", p20_part_e)):
+        t1 = time.perf_counter()
+        rows += fn(torch, np, ck, vt, ctx)
+        parts[part] = time.perf_counter() - t1
+    ctx.stop()
+    torch.cuda.empty_cache()
+    launches = {name: sum(r["launches"][name] for r in rows)
+                for name in ck.LAUNCHES}
+    check_launched(launches, "phase 20")
+    tiers = p20_tiers(np, vt)
+    wall_s = time.perf_counter() - t0
+    log(f"phase 20 took {wall_s:.1f} s (parts {json.dumps(parts)})")
+    return dict(rows=rows, launches=launches, card=card, wall_s=wall_s,
+                parts_s=parts, tiers=tiers)
+
+
+def phase20_leg():
+    """--phase 20: the kernels built, then phase 20 alone. Prints one
+    JSON line (each case's warm median ms and its parts, cold ms, step
+    peak, launches by step; the phase's wall), writes
+    chiprun_out/p20.json, and ends with the card line."""
+    import numpy as np
+    import torch
+
+    import vega_tpu_torch as vt
+    from vega_tpu_torch import cuda_kernels as ck
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    card = card_line()
+    ck.build()
+    res = phase_twenty(torch, np, ck, vt)
+    out = dict(phase=20, wall_s=res["wall_s"], parts_s=res["parts_s"],
+               launches=res["launches"], card=card, tiers=res["tiers"],
+               cases={r["label"]: dict(note=r["note"],
+                                       median_ms=r["median_ms"],
+                                       parts=r["median_parts"],
+                                       cold_ms=r["cold"]["ms"],
+                                       peak_bytes=r["peak_bytes"],
+                                       step_launches=r["step_launches"])
+                      for r in res["rows"]})
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "p20.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps(out), flush=True)
+    print(f"card: {card}", flush=True)
+
+
 def main():
     try:
         import torch
@@ -7056,6 +7481,8 @@ def main():
     eighteen = phase_eighteen(torch, np, ck, vt)
     # 19. the host RDD layer the reference hands off to
     nineteen = phase_nineteen(torch, np, ck, vt)
+    # 20. the reference's implicit host fall-throughs
+    twenty = phase_twenty(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -7078,7 +7505,8 @@ def main():
          "phase16_launches": sixteen["launches"][r["name"]],
          "phase17_launches": seventeen["launches"][r["name"]],
          "phase18_launches": eighteen["launches"][r["name"]],
-         "phase19_launches": nineteen["launches"][r["name"]]}
+         "phase19_launches": nineteen["launches"][r["name"]],
+         "phase20_launches": twenty["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -7094,7 +7522,7 @@ def main():
                    phase9=nine, phase10=ten, phase11=eleven,
                    phase12=twelve, phase13=thirteen, phase14=fourteen,
                    phase15=fifteen, phase16=sixteen, phase17=seventeen,
-                   phase18=eighteen, phase19=nineteen)
+                   phase18=eighteen, phase19=nineteen, phase20=twenty)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -7407,6 +7835,16 @@ def main():
     print(f"phase 19 launches {json.dumps(nineteen['launches'])}; parts (s) "
           f"{json.dumps(nineteen['parts_s'])}; phase 19 "
           f"{nineteen['wall_s']:.1f} s on {card}", flush=True)
+    for r in twenty["rows"]:
+        print(f"phase 20 {r['label']} ({r['note']}): {r['median_ms']:.3f} ms "
+              f"warm median of {len(r['warm'])}, parts "
+              f"{json.dumps(r['median_parts'])}, cold {r['cold']['ms']:.3f} "
+              f"ms, step peak {r['peak_bytes']} B, launches by step "
+              f"{json.dumps(r['step_launches'])} on {card}", flush=True)
+    print(f"phase 20 launches {json.dumps(twenty['launches'])}; parts (s) "
+          f"{json.dumps(twenty['parts_s'])}; 20f tiers, equal on the card "
+          f"and the CPU: {json.dumps(twenty['tiers'])}; phase 20 "
+          f"{twenty['wall_s']:.1f} s on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
@@ -7739,6 +8177,8 @@ if __name__ == "__main__":
         main_path_leg(sys.argv[2], sys.argv[3])
     elif sys.argv[1:3] == ["--phase", "19"] and len(sys.argv) == 3:
         phase19_leg()
+    elif sys.argv[1:3] == ["--phase", "20"] and len(sys.argv) == 3:
+        phase20_leg()
     elif sys.argv[1:3] == ["--phase", "19"] and len(sys.argv) == 5 \
             and sys.argv[3] == "--without":
         phase19_leg(sys.argv[4])

@@ -5,8 +5,8 @@ kernels.segment_reduce_sorted (the log-step segmented scan) against the
 reference's associative scan; reduce_by_key / combine_by_key with a
 traced binop, _infer_named_op taking the same path in both packages,
 reduce(f); sum / min / max / mean / stats / histogram / count_by_value;
-and the VegaError the port raises for each request the reference hands to
-its host tier. Each runs through a vega_tpu Context("local") on the
+and each request the reference hands to its host tier, which the port
+hands to its host RDD layer (the same outcome). Each runs through a vega_tpu Context("local") on the
 8-device CPU mesh and through vega_tpu_torch's Context(device="cpu",
 n_shards=8), both under the card's plans, on inputs from a numpy seed.
 Integer results are bit-identical, with equal per-shard counts and row
@@ -324,31 +324,64 @@ def test_histogram(ctxs, buckets, source):
     assert one == ref.dense_from_numpy(np.full(9, 3, np.int32)).histogram(4)
 
 
+def _outcome(build):
+    """A request's outcome: its rows (an RDD's sorted by repr) or its
+    exception's class (a reference task's TaskError as its cause)."""
+    try:
+        out = build()
+        if hasattr(out, "collect"):
+            out = sorted(out.collect(), key=repr)
+        return ("ok", repr(out))
+    except Exception as e:  # noqa: BLE001 — the class is the outcome
+        while type(e).__name__ == "TaskError" and e.__cause__ is not None:
+            e = e.__cause__
+        return ("raise", type(e).__name__)
+
+
+# each request the reference hands to its host tier (or refuses):
+# name -> build(ctx)
+HOST_REQUESTS = {
+    "reduce_by_key_to_string": lambda c: c.dense_from_numpy(
+        KEYS, INTS).reduce_by_key(lambda a, b: f"{a}{b}"),
+    "reduce_by_key_changes_dtype": lambda c: c.dense_from_numpy(
+        KEYS, INTS).reduce_by_key(lambda a, b: a + 0.5),
+    "reduce_pairs": lambda c: c.dense_from_numpy(KEYS, INTS).reduce(
+        lambda a, b: a),
+    "distinct_pairs": lambda c: c.dense_from_numpy(KEYS, INTS).distinct(),
+    "intersection_dtypes": lambda c: c.dense_from_numpy(INTS).intersection(
+        c.dense_from_numpy(FLOATS)),
+    "left_outer_join_fill_none": lambda c: c.dense_from_numpy(
+        KEYS, INTS).left_outer_join(c.dense_from_numpy(KEYS, INTS),
+                                    fill_value=None),
+    "keys_dense_wide": lambda c: c.dense_from_numpy(
+        KEYS.astype(np.int64) << 33, INTS).keys_dense(),
+    "count_by_value_pairs": lambda c: c.dense_from_numpy(
+        KEYS, INTS).count_by_value(),
+    "sum_pairs": lambda c: c.dense_from_numpy(KEYS, INTS).sum(),
+    "stats_pairs": lambda c: c.dense_from_numpy(KEYS, INTS).stats(),
+    "histogram_pairs": lambda c: c.dense_from_numpy(KEYS, INTS).histogram(3),
+}
+
+
 def test_host_tier_requests_raise(ctxs):
-    """Each request the reference hands to its host tier raises VegaError
-    in the port, naming the reason; a filter over a wide key runs in the
-    host tier's row form (host_rows.py) and gives the reference's rows."""
+    """Each request the reference hands to its host tier has the
+    reference's outcome in the port (its host RDD layer's rows, or the
+    same exception class where the reference's host tier or device form
+    raises); a filter over a wide key runs in the host tier's row form
+    (host_rows.py) and gives the reference's rows. A binop written for
+    the reference's scalar rows ((a * b).sum()) fails the port's column
+    trace (the sum of a column is no scalar a row), so the port's host
+    RDD layer calls it on Python ints, which fails there."""
     ref, port = ctxs
+    for name, build in HOST_REQUESTS.items():
+        assert _outcome(lambda: build(port)) == \
+            _outcome(lambda: build(ref)), name
     pairs = port.dense_from_numpy(KEYS, INTS)
-    vals = port.dense_from_numpy(INTS)
-    floats = port.dense_from_numpy(FLOATS)
     wide = port.dense_from_numpy(KEYS.astype(np.int64) << 33, INTS)
-    for bad in (
-            lambda: pairs.reduce_by_key(lambda a, b: f"{a}{b}"),
-            lambda: pairs.reduce_by_key(lambda a, b: a + 0.5),  # dtype
-            lambda: pairs.reduce_by_key(lambda a, b: (a * b).sum()),
-            lambda: pairs.reduce(lambda a, b: a),
-            lambda: pairs.distinct(),
-            lambda: vals.intersection(floats),
-            lambda: pairs.left_outer_join(pairs, fill_value=None),
-            lambda: wide.keys_dense(),
-            lambda: pairs.count_by_value()):
-        with pytest.raises(VegaError, match="host tier"):
-            bad()
-    for bad in (lambda: pairs.sum(), lambda: pairs.stats(),
-                lambda: pairs.histogram(3)):
-        with pytest.raises(VegaError):
-            bad()
+    node = pairs.reduce_by_key(lambda a, b: (a * b).sum())
+    assert not isinstance(node, port_dense.DenseRDD)
+    with pytest.raises(AttributeError):
+        node.collect()
     assert wide.filter(lambda r: r[1] > 0).collect() == ref.dense_from_numpy(
         KEYS.astype(np.int64) << 33, INTS).filter(
             lambda r: r[1] > 0).collect()

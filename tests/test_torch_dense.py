@@ -213,7 +213,9 @@ def test_from_reference_arrays_round_trip(port_ctx):
 def test_dtype_contract(port_ctx):
     """int64 narrows to int32 when it fits; beyond int32 a key or a value
     column takes the two-column encoding; float64 narrows to float32; a
-    row function that needs the host raises (no host tier)."""
+    row function that needs the host (int(), str() of a row, a binop
+    whose result no column holds) is the host RDD layer's, over the rows'
+    Python values, as the reference's host tier runs it."""
     r = port_ctx.dense_from_numpy(np.arange(10, dtype=np.int64),
                                   np.arange(10, dtype=np.float64))
     assert dict(r._schema()) == {"k": torch.int32, "v": torch.float32}
@@ -226,10 +228,12 @@ def test_dtype_contract(port_ctx):
     assert dict(wide_v._schema()) == {"k": torch.int32, "v": torch.int32,
                                       "v.lo": torch.int32}
     assert wide_v.collect() == [(0, 0), (0, 2**40)]
-    with pytest.raises(VegaError):
-        port_ctx.dense_range(10).map(lambda x: (int(x), str(x)))
-    with pytest.raises(VegaError):
-        r.reduce_by_key(lambda a, b: f"{a}{b}")  # no tensor result
+    host = port_ctx.dense_range(10).map(lambda x: (int(x), str(x)))
+    assert not isinstance(host, port_dense.DenseRDD)
+    assert host.collect() == [(i, str(i)) for i in range(10)]
+    joined = r.reduce_by_key(lambda a, b: f"{a}{b}")  # no tensor result
+    assert not isinstance(joined, port_dense.DenseRDD)
+    assert sorted(joined.collect()) == [(i, float(i)) for i in range(10)]
     assert port_ctx.dense_range(1_000).map(lambda x: x * 2).collect() == \
         list(range(0, 2_000, 2))
 

@@ -19,7 +19,7 @@ import torch
 
 import vega_tpu as v
 import vega_tpu_torch as vt
-from vega_tpu_torch import kernels
+from vega_tpu_torch import dense_rdd, kernels
 from vega_tpu_torch.errors import VegaError
 
 N_SHARDS = 8
@@ -91,22 +91,34 @@ def test_map_expand_matches_reference(ctxs, case, n):
             sorted(exp.reduce_by_key(op="add").collect())
 
 
+def _host_failure(node, exc=TypeError):
+    """A host RDD (not a DenseRDD) whose job fails (on a TypeError by
+    default): f called on one Python value a row, as the host tier calls
+    it."""
+    assert not isinstance(node, dense_rdd.DenseRDD)
+    with pytest.raises(exc):
+        node.collect()
+
+
 def test_map_expand_checks_at_build(ctxs):
-    """factor <= 0 raises, as in the reference; so does an output without
-    the trailing factor dim (checked on the empty probe, nothing runs)."""
+    """factor <= 0 raises at build, as in the reference. An output without
+    the trailing factor dim (checked on the empty probe, nothing runs on
+    the device) fails the device form, so the op is the host RDD layer's
+    flat_map, as the reference's trace hands it to its host tier: there f
+    gets one Python value a row, and the job fails in both."""
     ref, port = ctxs
     d = port.dense_range(10)
     with pytest.raises(v.VegaError):
         ref.dense_range(10).map_expand(lambda x: jnp.stack([x]), 0)
     with pytest.raises(VegaError, match="positive"):
         d.map_expand(lambda x: x[..., None], 0)
-    with pytest.raises(VegaError, match="trailing dim"):
-        d.map_expand(lambda x: torch.stack([x, x]), 2)  # leading dim
-    with pytest.raises(VegaError, match="trailing dim"):
-        d.map_expand(lambda x: x, 2)
-    with pytest.raises(VegaError, match="host tier"):
-        port.dense_from_numpy(np.array([2**40], np.int64)).map_expand(
-            lambda x: x[..., None], 1)
+    _host_failure(d.map_expand(lambda x: torch.stack([x, x]), 2))
+    for c in (ref, port):  # the same closure in both packages
+        node = c.dense_range(10).map_expand(lambda x: x, 2)
+        with pytest.raises(Exception, match="not iterable"):
+            node.collect()
+    _host_failure(port.dense_from_numpy(np.array([2**40], np.int64))
+                  .map_expand(lambda x: x[..., None], 1))
 
 
 # ---------------------------------------------------------------------------
@@ -142,16 +154,18 @@ def test_flat_map_ragged_matches_reference(ctxs, case, n):
 
 
 def test_flat_map_ragged_checks_at_build(ctxs):
+    """max_out <= 0 raises at build; a closure whose trace fails the
+    device form (no (payload, n_valid) pair, no trailing dim, an n_valid
+    that is not one scalar a row) is the host RDD layer's flat_map of the
+    reference's clamp, whose job fails on one Python value a row."""
     _ref, port = ctxs
     d = port.dense_range(10)
     with pytest.raises(VegaError, match="positive"):
         d.flat_map_ragged(lambda x: (x[..., None], 1), 0)
-    with pytest.raises(VegaError, match="payload, n_valid"):
-        d.flat_map_ragged(lambda x: x[..., None], 1)
-    with pytest.raises(VegaError, match="trailing dim"):
-        d.flat_map_ragged(lambda x: (x, 1), 2)
-    with pytest.raises(VegaError, match="one scalar per row"):
-        d.flat_map_ragged(lambda x: (torch.stack([x, x], -1), x.sum()), 2)
+    _host_failure(d.flat_map_ragged(lambda x: x[..., None], 1))
+    _host_failure(d.flat_map_ragged(lambda x: (x, 1), 2), IndexError)
+    _host_failure(d.flat_map_ragged(
+        lambda x: (torch.stack([x, x], -1), x.sum()), 2))
 
 
 def test_digit_flat_map_then_reduce(ctxs):

@@ -325,11 +325,11 @@ def test_fold_by_key_streamed(ctxs):
 
 
 def test_fold_by_key_refusals(ctxs):
-    """What the port's combine_by_key refuses (string values),
-    fold_by_key refuses with the suffix; so does a zero the trace cannot
-    fold (builtin max branches on a value; the reference folds it on its
-    host tier). Wide int64 values take the host tier's row form
-    (host_rows.py) and give the reference's host rows."""
+    """What the reference folds on its host tier, the port folds on its
+    host RDD layer: string values (whose fold of an int zero fails there
+    as on the reference's host tier) and a zero the trace cannot fold
+    (builtin max branches on a value). Wide int64 values take the host
+    tier's row form (host_rows.py) and give the reference's host rows."""
     ref, port = ctxs
     wide = np.array([2**40, 3], np.int64)
     # order-free: the reference's host shuffle places rows by its own
@@ -338,13 +338,18 @@ def test_fold_by_key_refusals(ctxs):
         0, operator.add).collect()) == sorted(ref.dense_from_numpy(
             K2, wide).fold_by_key(0, operator.add).collect())
     strs = np.array(["a", "b"])
-    for vals in (strs,):
-        with pytest.raises(VegaError) as info:
-            port.dense_from_numpy(K2, vals).fold_by_key(0, operator.add)
-        assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
-    with pytest.raises(VegaError) as info:
-        port.dense_from_numpy(K2, V2).fold_by_key(5, max)
-    assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+    for c in (ref, port):
+        with pytest.raises(Exception) as info:
+            c.dense_from_numpy(K2, strs).fold_by_key(0, operator.add) \
+                .collect()
+        e = info.value
+        while type(e).__name__ == "TaskError" and e.__cause__ is not None:
+            e = e.__cause__
+        assert isinstance(e, TypeError)
+    got = port.dense_from_numpy(K2, V2).fold_by_key(5, max)
+    assert not isinstance(got, dense_rdd.DenseRDD)
+    assert sorted(got.collect()) == sorted(
+        ref.dense_from_numpy(K2, V2).fold_by_key(5, max).collect())
 
 
 @pytest.mark.parametrize("src", ["resident", "streamed"])
@@ -642,18 +647,17 @@ def test_aggregate(ctxs, case):
 
 
 def test_fold_refusals(ctxs):
-    """What has no device fold refuses with the suffix: pairs (f would
-    take tuples), an aggregate whose seq_func is not a named monoid (it
-    need not be associative over values), and a product past int64
-    raises VegaError (the reference keeps exact Python ints)."""
+    """What has no device fold is the host RDD layer's fold, as the
+    reference's: pairs (f takes the (k, v) tuples), an aggregate whose
+    seq_func is not a named monoid (it need not be associative over
+    values); a product past int64 raises VegaError (the reference keeps
+    exact Python ints)."""
     _ref, port = ctxs
-    with pytest.raises(VegaError) as info:
-        port.dense_from_numpy(K2, V2).fold((0, 0), operator.add)
-    assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
-    with pytest.raises(VegaError) as info:
-        port.dense_range(20).aggregate(0, lambda acc, x: acc + 1,
-                                       operator.add)
-    assert str(info.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+    assert port.dense_from_numpy(K2, V2).fold((0, 0), operator.add) == \
+        _ref.dense_from_numpy(K2, V2).fold((0, 0), operator.add)
+    assert port.dense_range(20).aggregate(
+        0, lambda acc, x: acc + 1, operator.add) == _ref.dense_range(
+            20).aggregate(0, lambda acc, x: acc + 1, operator.add) == 20
     with pytest.raises(VegaError, match="passes int64"):
         port.dense_from_numpy(np.full(64, 2**30, np.int32)).fold(
             1, operator.mul)

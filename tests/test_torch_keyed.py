@@ -19,7 +19,6 @@ from vega_tpu.tpu import mesh as ref_mesh
 import vega_tpu_torch as vt
 from vega_tpu_torch import block as port_block
 from vega_tpu_torch import dense_rdd as port_dense_rdd
-from vega_tpu_torch.errors import VegaError
 
 N_SHARDS = 8
 KNOBS = ("dense_sort_impl", "dense_rbk_plan", "dense_table_plan")
@@ -280,10 +279,11 @@ def test_take_ordered_top_match_reference(ref_env, impl):
                     continue
                 _assert_rows_same(got.take_ordered(n), exp.take_ordered(n))
                 _assert_rows_same(got.top(n), exp.top(n))
-        with pytest.raises(VegaError, match="host tier"):
-            got_cases["int pairs"].take_ordered(3, key=lambda kv: kv[1])
-        with pytest.raises(VegaError, match="host tier"):
-            got_cases["int values"].top(3, key=abs)
+        # a key function is the host tier's in both packages
+        assert got_cases["int pairs"].take_ordered(3, key=lambda kv: kv[1]) \
+            == exp_cases["int pairs"].take_ordered(3, key=lambda kv: kv[1])
+        assert got_cases["int values"].top(3, key=abs) == \
+            exp_cases["int values"].top(3, key=abs)
 
 
 def test_take_matches_reference(ref_env):
@@ -358,13 +358,18 @@ def test_cartesian_matches_reference_and_budget_gate(ref_env, monkeypatch):
         assert empty.count() == run(ref_ctx, right[:0]).count() == 0
         assert empty.collect() == []
     # the gate at 16 MiB: 20,000 x 10 needs 8 shards x 32,768 slots x 40 B
-    # (10 MiB) and runs; 20,000 x 5,000 needs ~4.4 GB and raises
+    # (10 MiB) and runs on the device; 20,000 x 5,000 needs ~4.4 GB: the
+    # host tier's lazy product, as the reference's past its budget
     monkeypatch.setattr(port_dense_rdd, "CPU_CARTESIAN_BUDGET", 16 << 20)
     with vt.Context(device="cpu", n_shards=N_SHARDS) as small:
         a = small.dense_range(20_000)
-        with pytest.raises(VegaError, match="free memory"):
-            a.cartesian(small.dense_range(5_000))
-        assert a.cartesian(small.dense_range(10)).count() == 200_000
+        lazy = a.cartesian(small.dense_range(5_000))
+        assert not isinstance(lazy, port_dense_rdd.DenseRDD)
+        assert lazy.take(3) == [(0, 0), (0, 1), (0, 2)]
+        assert lazy.num_partitions == N_SHARDS * N_SHARDS
+        dense = a.cartesian(small.dense_range(10))
+        assert isinstance(dense, port_dense_rdd.DenseRDD)
+        assert dense.count() == 200_000
 
 
 # ---------------------------------------------------------------------------

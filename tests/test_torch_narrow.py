@@ -20,6 +20,7 @@ import pytest
 import vega_tpu as v
 from vega_tpu.errors import VegaError as RefVegaError
 import vega_tpu_torch as vt
+from vega_tpu_torch import dense_rdd as port_dense
 from vega_tpu_torch.errors import VegaError
 
 N_SHARDS = 8
@@ -185,8 +186,9 @@ def test_select_and_rename_checks(ctxs):
 
 def test_wide_key_select_and_keys(ctxs):
     """Selecting a wide key keeps its low word, the low word alone is
-    refused; keys_dense of a wide key goes to the reference's host tier,
-    so the port raises."""
+    refused; keys_dense of a wide key goes to the reference's host tier
+    (to_rdd().map of each row's first element), and to the port's host
+    RDD layer, with the reference's rows."""
     ref, port = ctxs
     keys = (np.arange(2_000, dtype=np.int64) % 37) * (1 << 40) - 5
     vals = np.arange(2_000, dtype=np.int32)
@@ -202,8 +204,9 @@ def test_wide_key_select_and_keys(ctxs):
         exp.select("k.lo")
     with pytest.raises(VegaError):
         got.select("k.lo")
-    with pytest.raises(VegaError, match="host tier"):
-        got.keys_dense()
+    keys_got = got.keys_dense()
+    assert not isinstance(keys_got, port_dense.DenseRDD)
+    assert repr(keys_got.collect()) == repr(exp.keys_dense().collect())
     # map_values keeps the wide key
     _same(got.rename({"w": "v"}).map_values(lambda x: x * 3),
           exp.rename({"w": "v"}).map_values(lambda x: x * 3))

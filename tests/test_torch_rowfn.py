@@ -5,7 +5,8 @@ The port traces row functions and binops once on empty probe columns
 (dtypes, no values), as the reference traces on abstract values: constants
 broadcast to columns of the reference's weak types, bool columns are
 carried, 64-bit outputs narrow to 32 bits, and control flow on a value
-raises VegaError when the op is built. NaN keys survive every exchange,
+hands the op to the host RDD layer when it is built, as the reference's
+trace hands it to its host tier. NaN keys survive every exchange,
 each a key of its own. Each lineage runs through a vega_tpu
 Context("local") on the 8-device CPU mesh and through vega_tpu_torch's
 Context(device="cpu", n_shards=8), both under the card's plans (xla sorts,
@@ -269,16 +270,17 @@ F18_CLOSURES = {
 def test_closure_with_a_constant_past_int32_refuses(ctxs, name):
     """Each closure gives the reference's host rows (order-free: the
     host's shuffle places rows by its own hash), or, where the
-    reference's host tier fails (flat_map_ragged), refuses with the
-    suffix when built."""
+    reference's host tier fails (flat_map_ragged), the port hands it to
+    its host RDD layer too, whose job fails as the reference's."""
     ref, port = ctxs
     build, want = F18_CLOSURES[name]
     if want is None:
         with pytest.raises(Exception, match="not subscriptable"):
             build(ref).collect()
-        with pytest.raises(VegaError) as ei:
-            build(port)
-        assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+        node = build(port)
+        assert not isinstance(node, dense_rdd.DenseRDD)
+        with pytest.raises(TypeError, match="not subscriptable"):
+            node.collect()
         return
     assert sorted(build(ref).collect()) == want
     got = build(port)
@@ -288,17 +290,19 @@ def test_closure_with_a_constant_past_int32_refuses(ctxs, name):
 
 def test_stream_closure_with_a_constant_past_int32_refuses(ctxs):
     """A streamed source's closure: the reference hands it to its host
-    tier (exact Python ints); the port refuses it at build, before any
-    chunk runs."""
+    tier over the stream's resident build (exact Python ints); so does
+    the port, its probe deciding before any chunk runs (the resident
+    build's host-row form, host_rows.py)."""
     ref, port = ctxs
-    r = ref.dense_range(10_000, chunk_rows=2_000).map(lambda x: x * 2**31)
-    assert r.take(3) == [0, 2**31, 2**32]
+    r = ref.dense_range(10_000, chunk_rows=2_000)
     s = port.dense_range(10_000, chunk_rows=2_000)
-    for build in (lambda: s.map(lambda x: x * 2**31),
-                  lambda: s.filter(lambda x: x < 2**40)):
-        with pytest.raises(VegaError, match="outside int32") as ei:
-            build()
-        assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+    for build in (lambda c: c.map(lambda x: x * 2**31),
+                  lambda c: c.filter(lambda x: x < 2**40)):
+        exp = build(r).take(3)
+        got = build(s)
+        assert isinstance(got, dense_rdd.DenseRDD) and got.host_rows
+        assert got.take(3) == exp
+    assert build(r).count() == build(s).count() == 10_000
 
 
 # ---------------------------------------------------------------------------
@@ -307,8 +311,9 @@ def test_stream_closure_with_a_constant_past_int32_refuses(ctxs):
 
 
 def test_control_flow_binop_raises_when_built(ctxs):
-    """The reference hands a branching binop to its host tier; the port
-    raises VegaError when the op is built, never at materialization."""
+    """The reference hands a branching binop to its host tier; so does the
+    port when the op is built (its trace refuses the branch), to its host
+    RDD layer, whose rows are the reference's."""
     ref, port = ctxs
 
     def pick(x, y):
@@ -316,29 +321,37 @@ def test_control_flow_binop_raises_when_built(ctxs):
 
     exp = ref.dense_from_numpy(A % 3, A).reduce_by_key(pick).collect()
     assert sorted(exp) == [(0, 39), (1, 37), (2, 38)]
-    with pytest.raises(VegaError, match="host tier"):
-        port.dense_from_numpy(A % 3, A).reduce_by_key(pick)
+    got = port.dense_from_numpy(A % 3, A).reduce_by_key(pick)
+    assert not isinstance(got, dense_rdd.DenseRDD)
+    assert sorted(got.collect()) == sorted(exp)
 
 
 def test_reduce_max_error_type(ctxs):
     """Recorded difference: reduce(lambda x, y: max(x, y)) raises
-    ValueError in the reference and VegaError in the port."""
+    ValueError in the reference (its reduce traces f with no host
+    fallback) and its trace's refusal in the port (tracing.TraceRefusal,
+    a TypeError: max() asks for a truth value)."""
+    from vega_tpu_torch import tracing
+
     ref, port = ctxs
     with pytest.raises(ValueError):
         ref.dense_from_numpy(A).reduce(lambda x, y: max(x, y))
-    with pytest.raises(VegaError, match="host tier"):
+    with pytest.raises(tracing.TraceRefusal):
         port.dense_from_numpy(A).reduce(lambda x, y: max(x, y))
 
 
 def test_branching_row_function_raises_at_one_shard():
     """With one shard the old (1, 1) probe let an `if` pass; a probe with
-    no values raises at every shape."""
+    no values refuses the branch at every shape, so the row function is
+    the host RDD layer's, over the rows' Python values."""
     with vt.Context(device="cpu", n_shards=1) as port:
         d = port.dense_from_numpy(A)
-        with pytest.raises(VegaError, match="host tier"):
-            d.map(lambda x: x if x > 5 else 0)
-        with pytest.raises(VegaError, match="host tier"):
-            d.filter(lambda x: bool(x > 5))
+        m = d.map(lambda x: x if x > 5 else 0)
+        f = d.filter(lambda x: bool(x > 5))
+        for node in (m, f):
+            assert not isinstance(node, dense_rdd.DenseRDD)
+        assert m.collect() == [x if x > 5 else 0 for x in A.tolist()]
+        assert f.collect() == [x for x in A.tolist() if x > 5]
 
 
 # ---------------------------------------------------------------------------

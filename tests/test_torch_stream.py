@@ -9,10 +9,9 @@ default dense_exchange="auto", so chunks are sized by the exchange planner
 in both; the legacy 6x rule is held under a forced all_to_all. Integers
 are bit-identical, floats within rtol 1e-5.
 
-Recorded differences, pinned here: an untraceable closure on a stream
-falls back to the reference's host tier and raises VegaError in the port
-when the op is built (it has no host tier); a key function in
-take_ordered / top likewise.
+An untraceable closure on a stream, and a key function in take_ordered /
+top, take the resident build's answer in both packages, which the host
+tier gives (the port's host RDD layer), decided before any chunk runs.
 """
 
 import jax.numpy as jnp
@@ -23,7 +22,7 @@ import torch
 import vega_tpu as v
 from vega_tpu.tpu import stream as ref_stream
 import vega_tpu_torch as vt
-from vega_tpu_torch import stream
+from vega_tpu_torch import dense_rdd, stream
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.stream import StreamedDenseRDD
 
@@ -282,24 +281,27 @@ def test_streamed_narrow_ops_and_folds(ctxs):
 
 
 def test_streamed_untraceable_map_raises_when_built(ctxs):
-    """Pinned difference (tests/test_stream.py::
-    test_streamed_untraceable_map_falls_back): the reference hands the
-    closure to its host tier; the port raises at build, before any
-    chunk runs."""
+    """As tests/test_stream.py::test_streamed_untraceable_map_falls_back:
+    the reference hands the closure to its host tier over the stream's
+    resident build; the port decides on the same probe, before any chunk
+    runs, and its host RDD layer gives the reference's rows."""
     ref, port = ctxs
     r = ref.dense_range(10_000, chunk_rows=2_000).map(
         lambda x: f"row-{int(x)}")
     assert not isinstance(r, ref_stream.StreamedDenseRDD)
     assert r.take(2) == ["row-0", "row-1"]
     s = port.dense_range(10_000, chunk_rows=2_000)
-    with pytest.raises(VegaError):
-        s.map(lambda x: f"row-{int(x)}")
+    got = s.map(lambda x: f"row-{int(x)}")
+    assert not isinstance(got, (stream.StreamedDenseRDD, dense_rdd.DenseRDD))
+    assert got.take(2) == ["row-0", "row-1"]
+    assert got.collect() == r.collect()
 
 
 def test_streamed_untraceable_reduce_raises_when_built(ctxs):
-    """Pinned difference (::test_streamed_untraceable_reduce_falls_back):
-    a combiner that branches on values reduces on the reference's host
-    tier and raises VegaError in the port, before any chunk runs."""
+    """As ::test_streamed_untraceable_reduce_falls_back: a combiner that
+    branches on values reduces on the reference's host tier over the
+    resident build, and on the port's host RDD layer, decided before any
+    chunk runs; the rows are the reference's."""
     ref, port = ctxs
     exp = dict(ref.dense_range(5_000, chunk_rows=1_000)
                .map(lambda x: (x % 3, x))
@@ -309,9 +311,10 @@ def test_streamed_untraceable_reduce_raises_when_built(ctxs):
     chunks_built = []
     orig = s._make_chunks
     s._make_chunks = lambda: (chunks_built.append(c) or c for c in orig())
-    with pytest.raises(VegaError):
-        s.reduce_by_key(lambda a, b: max(int(a), int(b)))
+    got = s.reduce_by_key(lambda a, b: max(int(a), int(b)))
     assert chunks_built == []
+    assert not isinstance(got, dense_rdd.DenseRDD)
+    assert dict(got.collect()) == exp
 
 
 def test_streamed_unsupported_op_delegates_to_resident(ctxs):
@@ -450,13 +453,12 @@ def test_streamed_take_ordered_and_top(ctxs):
     assert sp.take_ordered(9) == rp.take_ordered(9) == exp[:9]
     assert sp.top(9) == rp.top(9) == sorted(exp, reverse=True)[:9]
 
-    # pinned difference: a key function is the reference's host tier's
-    assert r.take_ordered(3, key=lambda x: -x) == \
+    # a key function is the host tier's, over the resident build
+    assert s.take_ordered(3, key=lambda x: -x) == \
+        r.take_ordered(3, key=lambda x: -x) == \
         sorted(vals.tolist(), reverse=True)[:3]
-    with pytest.raises(VegaError, match="host tier"):
-        s.take_ordered(3, key=lambda x: -x)
-    with pytest.raises(VegaError, match="host tier"):
-        s.top(3, key=lambda x: -x)
+    assert s.top(3, key=lambda x: -x) == r.top(3, key=lambda x: -x) == \
+        sorted(vals.tolist())[:3]
 
 
 def test_streamed_range_order_statistics_under_small_budget():

@@ -11,9 +11,9 @@ value actions, each exchange program) and the string query of
 benchmarks/strings_ab.py at a small size. Inputs are made from numpy
 seeds; every result is exact (strings and integers).
 
-Recorded differences, pinned here: where the reference hands an op over
-strings to its host tier (a row function, a sum of string values,
-distinct over pairs), the port raises VegaError.
+Where the reference hands an op over strings to its host tier (a row
+function, a fold of string values but min / max, distinct over pairs), so
+does the port, to its host RDD layer, which sees the decoded strings.
 """
 
 import numpy as np
@@ -162,11 +162,10 @@ def test_dense_string_sort_distinct_topk_parity(ctxs):
     assert col.top(4) == rcol.top(4)
     assert col.min() == rcol.min() == min(keys.tolist())
     assert col.max() == rcol.max() == max(keys.tolist())
-    # pinned difference: distinct over pairs is the reference's host tier
+    # distinct over pairs is the host tier's in both
     assert sorted(rdev.distinct().collect()) == \
+        sorted(dev.distinct().collect()) == \
         sorted(set(zip(keys.tolist(), vals.tolist())))
-    with pytest.raises(VegaError, match="host tier"):
-        dev.distinct()
 
 
 def test_dense_string_join_cross_dict_parity(ctxs):
@@ -221,16 +220,19 @@ def test_dense_string_dict_overflow_grows_capacity():
 
 
 def test_dict_disabled_raises():
-    """Context(dense_dict_enabled=False): a string column raises the
-    reference's error (the reference degrades to its host tier on it)."""
+    """Context(dense_dict_enabled=False): no block holds a string column,
+    so a (k, v) source degrades to the host tier's rows, as the
+    reference's; a named block has no row form and raises the
+    reference's error."""
     from vega_tpu.env import Env
 
     with vt.Context(device="cpu", dense_dict_enabled=False) as ctx:
+        pairs = ctx.dense_from_numpy(np.array(["a", "b"]),
+                                     np.arange(2, dtype=np.int32))
+        assert not isinstance(pairs, dense_rdd.DenseRDD)
+        assert pairs.collect() == [("a", 0), ("b", 1)]
         with pytest.raises(VegaError) as err:
-            ctx.dense_from_numpy(np.array(["a", "b"]),
-                                 np.arange(2, dtype=np.int32))
-        with pytest.raises(VegaError):
-            ctx.dense_from_columns({"w": np.array(["a"])})
+            ctx.dense_from_columns({"k": np.array(["a", "b"])})
         # a numeric source is unaffected
         assert ctx.dense_from_numpy(np.arange(3)).count() == 3
     ref = v.Context("local", num_workers=2, dense_dict_enabled=False)
@@ -320,36 +322,53 @@ def test_string_columns_through_narrow_nodes(ctxs):
     assert all(isinstance(k, str) for k, _ in blk)
 
 
+def _outcome(build):
+    """Rows (an RDD's sorted by repr) or the exception's class (a
+    reference task's TaskError as its cause)."""
+    try:
+        out = build()
+        if hasattr(out, "collect"):
+            out = sorted(out.collect(), key=repr)
+        return ("ok", repr(out))
+    except Exception as e:  # noqa: BLE001 — the class is the outcome
+        while type(e).__name__ == "TaskError" and e.__cause__ is not None:
+            e = e.__cause__
+        return ("raise", type(e).__name__)
+
+
 def test_string_row_functions_raise_where_the_reference_falls_back(ctxs):
-    """Pinned differences: a row function over a string column would see
-    int32 codes, so the reference runs it on its host tier (on the
-    strings); the port has none and raises when the op is built. So do
-    a sum of string values and the other folds with no meaning on codes."""
+    """A row function over a string column would see int32 codes, so the
+    reference runs it on its host tier (on the strings), and the port on
+    its host RDD layer: the same rows, or the same exception class where
+    the host tier fails (stats of strings). So do a fold of string values
+    (add concatenates there) and a join of a string key with an int one.
+    A sum() of strings has no meaning and raises in both."""
     ref, port = ctxs
     keys, vals = _string_pairs(seed=1, n=50)
-    rdev = ref.dense_from_numpy(keys, vals)
-    assert sorted(rdev.map(lambda kv: (kv[0] + "!", kv[1])).collect())[0][0] \
-        .endswith("!")
-    dev = port.dense_from_numpy(keys, vals)
-    col = port.dense_from_numpy(keys)
-    for build in (lambda: dev.map(lambda kv: kv),
-                  lambda: dev.filter(lambda kv: kv[1] > 0),
-                  lambda: col.map_expand(lambda x: x, 2),
-                  lambda: port.dense_from_numpy(vals, keys).map_values(
-                      lambda w: w),
-                  lambda: port.dense_from_numpy(vals, keys).reduce_by_key(
-                      op="add"),
-                  lambda: port.dense_from_numpy(vals, keys).combine_by_key(
-                      lambda x: x, lambda a, x: a, lambda a, b: a),
-                  lambda: col.reduce(lambda a, b: a),
-                  lambda: col.cartesian(col),
-                  lambda: col.stats(),
-                  lambda: dev.join(port.dense_from_numpy(
-                      np.arange(3, dtype=np.int32), np.arange(3)))):
-        with pytest.raises(VegaError, match="host tier"):
-            build()
+    builds = (
+        lambda c: c.dense_from_numpy(keys, vals).map(
+            lambda kv: (kv[0] + "!", kv[1])),
+        lambda c: c.dense_from_numpy(keys, vals).filter(
+            lambda kv: kv[1] > 0),
+        lambda c: c.dense_from_numpy(keys).map_expand(lambda x: x, 2),
+        lambda c: c.dense_from_numpy(vals, keys).map_values(
+            lambda w: w.upper()),
+        lambda c: c.dense_from_numpy(vals, keys).reduce_by_key(op="add"),
+        lambda c: c.dense_from_numpy(vals, keys).combine_by_key(
+            lambda x: x, lambda a, x: a, lambda a, b: a),
+        lambda c: c.dense_from_numpy(keys).reduce(lambda a, b: a),
+        lambda c: c.dense_from_numpy(keys[:8]).cartesian(
+            c.dense_from_numpy(keys[:5])),
+        lambda c: c.dense_from_numpy(keys).stats(),
+        lambda c: c.dense_from_numpy(keys, vals).join(c.dense_from_numpy(
+            np.arange(3, dtype=np.int32), np.arange(3))))
+    for build in builds:
+        got = _outcome(lambda: build(port))
+        assert got == _outcome(lambda: build(ref))
+        node = build(port) if got[0] == "ok" else None
+        assert not isinstance(node, dense_rdd.DenseRDD)
     with pytest.raises(VegaError, match="no meaning"):
-        col.sum()
+        port.dense_from_numpy(keys).sum()
 
 
 @pytest.mark.parametrize("mode", ["all_to_all", "staged", "ring"])

@@ -6,9 +6,10 @@ directions, int32 / float32 / wide keys) must be bit-identical to the
 vega_tpu.tpu functions on random words that include 0, -1, INT32_MIN and
 INT32_MAX; the wide sort_by_column equal to the reference's under every
 sort form. A reference Block with a wide key carries across and groups
-equal. What the reference runs on a wide key and this slice does not
-(map, reduce_by_key, join, a cogroup against an int32 key, wide value
-columns) raises VegaError, never computing on the high word alone.
+equal. What the reference hands to its host tier over a wide key (a
+join with a float key, a cartesian of a pair side, a source no block
+holds) is the port's host RDD layer's; nothing computes on the high word
+alone.
 """
 
 import jax.numpy as jnp
@@ -229,8 +230,10 @@ def test_reference_block_with_wide_key_carries_across(port_ctx):
 
 
 def test_refusals(port_ctx):
-    """What the reference hands to its host tier raises VegaError naming
-    it: keys that cannot meet on the device. Row functions over a wide
+    """What the reference hands to its host tier is the port's host RDD
+    layer's (keys that cannot meet on the device, a source no block
+    holds, a cartesian of a pair side), with the host's rows; what its
+    device forms refuse raises VegaError. Row functions over a wide
     key run in the host tier's row form (host_rows.py), with the host's
     rows: the key an exact int, the float32 value a Python float. Wide
     values, wide-key reduces and joins, and an int32 key meeting an int64
@@ -239,14 +242,15 @@ def test_refusals(port_ctx):
                                      np.array([1.0, 2.0]))
     narrow = port_ctx.dense_from_numpy(np.array([1, 3], dtype=np.int32),
                                        np.array([1.0, 2.0]))
-    host = "host tier"
     doubled = wide.map(lambda kv: (kv[0], kv[1] * 2))
     assert doubled.host_rows
     assert doubled.collect() == [(2**40, 2.0), (3, 4.0)]
     assert wide.filter(lambda kv: kv[1] > 1).collect() == [(3, 2.0)]
-    with pytest.raises(VegaError, match=host):  # float against int64
-        wide.join(port_ctx.dense_from_numpy(np.ones(2, np.float32),
-                                            np.ones(2)))
+    floats = port_ctx.dense_from_numpy(np.array([3.0, 1.0], np.float32),
+                                       np.ones(2))
+    got = wide.join(floats)  # float against int64: Python's equality
+    assert not isinstance(got, port_dense.DenseRDD)
+    assert got.collect() == [(3, (2.0, 1.0))]
     assert dict(wide.reduce_by_key(op="add").collect()) == {2**40: 1.0,
                                                             3: 2.0}
     assert wide.join(narrow).collect() == [(3, (2.0, 2.0))]
@@ -258,16 +262,16 @@ def test_refusals(port_ctx):
     assert wide_v.collect() == [(1, 2**40), (2, 1)]
     with pytest.raises(VegaError, match="reserved"):
         port_block.from_numpy({"k.lo": np.zeros(3, np.int64)}, port_ctx.mesh)
-    with pytest.raises(VegaError, match="uint64"):
-        port_ctx.dense_from_numpy(np.array([2**63], dtype=np.uint64),
-                                  np.zeros(1))
+    u64 = port_ctx.dense_from_numpy(np.array([2**63], dtype=np.uint64),
+                                    np.zeros(1))  # no block holds it
+    assert not isinstance(u64, port_dense.DenseRDD)
+    assert u64.collect() == [(2**63, 0.0)]
     with pytest.raises(VegaError, match="canonical"):
         narrow.join(narrow).group_by_key()
-    with pytest.raises(VegaError, match="key dtypes differ"):
-        narrow.cogroup(port_ctx.dense_from_numpy(np.ones(2, np.float32),
-                                                 np.ones(2)))
-    with pytest.raises(VegaError, match="value RDDs"):
-        narrow.cartesian(port_ctx.dense_range(3))
+    assert sorted(narrow.cogroup(floats).collect()) == [
+        (1, ([1.0], [1.0])), (3, ([2.0], [1.0]))]
+    assert narrow.cartesian(port_ctx.dense_range(2)).collect() == [
+        ((1, 1.0), 0), ((1, 1.0), 1), ((3, 2.0), 0), ((3, 2.0), 1)]
     # what runs on a wide key does not touch the high word alone: keys
     # equal in the high word stay apart
     same_hi = port_ctx.dense_from_numpy(

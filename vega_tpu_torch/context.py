@@ -339,9 +339,11 @@ class Context:
 
     def dense_from_numpy(self, *columns,
                          num_partitions: Optional[int] = None):
-        """Dense source from host arrays: (values) or (keys, values)."""
+        """Dense source from host arrays: (values) or (keys, values);
+        arrays no block holds are parallelized into num_partitions
+        slices (dense_rdd.dense_from_numpy)."""
         self._check_running()
-        return dense_rdd.dense_from_numpy(self, columns)
+        return dense_rdd.dense_from_numpy(self, columns, num_partitions)
 
     def dense_from_columns(self, columns: Optional[dict] = None,
                            key: Optional[str] = None, **kwcolumns):

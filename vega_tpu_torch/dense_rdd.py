@@ -70,17 +70,26 @@ A string column is int32 rank codes plus a host dictionary (_dicts, known
 from the lineage; block.dicts once materialized), decoded at host reads.
 Binary ops put two sides' dictionaries onto their merged one first
 (_unify_dict_cols: _DictUnifyRDD's remap gather, its table doubled and
-retried on overflow); a row function over a string column raises.
+retried on overflow); a row function over a string column is the host
+RDD layer's, over the decoded strings.
 
 An int64 column beyond int32, key or value, is the two-column (<name>,
 <name>.lo) encoding. Every keyed op runs on a wide key (an int32 key
 meeting it in a join or cogroup widens, _WidenKeyRDD); named reduces run
 exactly over wide values, a total outside int64 raising VegaError. Row
-functions over a wide column have no device row form.
-Nothing falls back to the host tier on its own: a row function that does
-not run on column tensors raises VegaError, and so does every request the
-reference hands to its host tier implicitly (to_rdd() is the explicit
-hand-off).
+functions over a wide column have no device row form (host_rows.py
+runs them in the host tier's row form).
+
+Where the reference hands an op to its host tier on its own, so does the
+port, to its host RDD layer (rdd/), whose nodes run the same Python over
+compute()'s rows: a closure jax's trace refuses (the port traces under
+tracing.reference_trace, which refuses what jax's does, on every device;
+_NotTraceable), a keyed fold whose binop does not trace, a join or
+cogroup under an explicit partitioner or of sides the device cannot
+match, left_outer_join(fill_value=None), a set op of mismatched sides, an
+action over pairs or strings, a source no block holds. The choice is the
+reference's, decided when the op is built; a device op that fails stays a
+failure. to_rdd() is the explicit hand-off.
 
 Block lifetime (the reference's LRU): a node that materializes registers
 its block in the Context's LRU; past Context.dense_hbm_budget the least
@@ -134,6 +143,7 @@ from vega_tpu_torch.dependency import OneToOneDependency
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.rdd.base import RDD
 from vega_tpu_torch.rdd.narrow import MapPartitionsRDD
+from vega_tpu_torch.rdd.pair import PairOpsMixin
 from vega_tpu_torch.rdd.pair import emit_full_outer, emit_right_outer
 # the named op a binop is, recognized soundly; anything else traces
 from vega_tpu_torch.rdd.pair import infer_named_op as _infer_named_op
@@ -175,20 +185,12 @@ def _no_host_tier(what: str) -> VegaError:
     return VegaError(what + HOST_TIER_SUFFIX)
 
 
-def _check_partition_count(op: str, partitioner_or_num) -> None:
-    """The partitioner_or_num of an op whose explicit partitioner the
-    reference hands to its host tier (the joins, cogroup, subtract_by_key):
-    the host's rows equal the device form's, order-free by key, so a
-    partition count runs the device form (one partition per shard). A
-    partitioner object, which would place rows by its own function,
-    refuses."""
-    p = partitioner_or_num
-    if p is None or (isinstance(p, (int, np.integer))
-                     and not isinstance(p, (bool, np.bool_)) and p > 0):
-        return
-    raise _no_host_tier(f"{op} with partitioner_or_num={p!r} (the port "
-                        "places rows by its own hash, one partition per "
-                        "shard)")
+class _NotTraceable(VegaError):
+    """A closure or an operand the reference's device form does not take
+    (its trace refuses the closure, or the op has no device form for the
+    operands): the reference hands the op to its host tier, and the port
+    to its host RDD layer (rdd/), over the same compute() rows. Raised
+    only while an op is built, and caught there."""
 
 
 # The reference's RDD API: the public names of vega_tpu/rdd/base.py's RDD
@@ -553,14 +555,17 @@ class DenseRDD(RDD):
         self._dicts_memo = res
         return res
 
-    def _refuse_dict_rows(self, op: str) -> None:
-        """A row function over a string column would see its int32 codes,
-        not the strings: the reference hands it to its host tier, where
-        it sees the strings."""
-        d = self._dicts()
-        if d:
-            raise _no_host_tier(f"{op} over the string (dictionary-encoded) "
-                                f"columns {sorted(d)}")
+    def _value_rows(self) -> bool:
+        """Whether the rows are single values: one value column (a wide
+        one as its two words)."""
+        return self.columns in ([VALUE], [VALUE, block_lib.lo_of(VALUE)])
+
+    def _canonical(self) -> bool:
+        """A pair block in the canonical (k, v) layout (a wide key or
+        value as its two words): the one layout whose rows the host tier
+        reads as (k, v) pairs."""
+        return {nm for nm in self.columns
+                if not block_lib.is_lo(nm)} == {KEY, VALUE}
 
     def _lineage_fp(self):
         """Structural identity of the lineage (node types and parameters,
@@ -625,17 +630,10 @@ class DenseRDD(RDD):
         return block_lib.lo_of(VALUE) in dict(self._schema())
 
     def _refuse_wide_rows(self, op: str) -> None:
-        """A row function has no row form over a wide key or value (an
-        int64 scalar, which the reference's 32-bit trace cannot hold): the
-        reference hands it to its host tier."""
+        """An op with no device form over a wide key or value column."""
         if any(block_lib.is_lo(nm) for nm in self.columns):
             raise _no_host_tier(f"{op} over a two-column int64 column (no "
                                 "device row form)")
-
-    def _refuse_host_rows(self, op: str, why: str) -> None:
-        """An op with no host-row form, called on a host-row node."""
-        if self.host_rows:
-            raise _no_host_tier(f"{op} over a host-row node ({why})")
 
     @property
     def columns(self) -> List[str]:
@@ -663,12 +661,12 @@ class DenseRDD(RDD):
         """A bool key has no device exchange: the reference's key sorts
         refuse it (a ValueError from its sentinel of the key dtype), so
         the port refuses it when the op is built. A float64 key (a float
-        key computed in the host tier's row form) refuses too: the host
-        groups its -0.0 with 0.0 by Python equality, which the key's
-        bits do not."""
+        key computed in the host tier's row form) has none either: the
+        host groups its -0.0 with 0.0 by Python equality, which the key's
+        bits do not, so the op is the host RDD layer's (_NotTraceable)."""
         key = dict(self._schema()).get(KEY)
         if key == torch.float64:
-            raise _no_host_tier(f"{op} over a float64 key computed in the "
+            raise _NotTraceable(f"{op} over a float64 key computed in the "
                                 "host tier's row form")
         if key == torch.bool:
             raise VegaError(f"{op} over a bool key: the reference's device "
@@ -676,7 +674,7 @@ class DenseRDD(RDD):
                             "first")
 
     # --- transformations ----------------------------------------------------
-    def map(self, f: Callable) -> "DenseRDD":
+    def map(self, f: Callable) -> RDD:
         """Row map run on whole column tensors: f gets the row's columns
         (x, or (k, v) for a pair) as [n_shards, capacity] tensors and
         returns a value or a (key, value) pair, each a tensor of that
@@ -684,69 +682,89 @@ class DenseRDD(RDD):
         float -> float32, bool -> bool). int64 / float64 outputs narrow to
         int32 / float32, as the reference's 32-bit trace gives them.
 
-        Where the reference's trace refuses f (a Python int past int32,
-        a wide int64 column) or the node is a host-row one, f runs in the
-        host tier's row form instead (host_rows.HostMapRDD)."""
-        self._refuse_dict_rows("map")
-        return self._device_or_host(self._host_form(),
-                                    lambda: _MapRDD(self, f),
-                                    lambda hr: hr.HostMapRDD(self, f))
+        Where the reference's trace refuses f only for a Python int past
+        int32, over a wide int64 column, or on a host-row node, f runs in
+        the host tier's row form instead (host_rows.HostMapRDD). Where it
+        refuses f otherwise (numpy or a Python conversion of the row, a
+        branch on a value, an output that is no column: tracing.py), or
+        over a string column, the result is the host RDD layer's
+        MapperRDD over compute()'s rows, as the reference's."""
+        return self._device_or_host(
+            self._host_form(), lambda: _MapRDD(self, f),
+            lambda hr: hr.HostMapRDD(self, f), lambda: RDD.map(self, f))
 
     def _device_or_host(self, host_first: bool, device: Callable,
-                        host: Callable) -> "DenseRDD":
-        """The tier of a closure site: device() builds the device node,
-        unless host_first (a host-row node, or values only the row form
-        holds) or the reference's trace refuses the closure for a Python
-        int past int32 (_LiteralRefusal); then host(host_rows) builds the
-        node in the host tier's row form."""
+                        host: Callable, host_rdd: Callable,
+                        strings: Optional[bool] = None) -> RDD:
+        """The tier of a closure site, as the reference picks it. Over a
+        string column the closure sees (strings; by default any string
+        column of the node) host_rdd() builds the host RDD layer's node.
+        Otherwise device() builds the device node, unless host_first (a
+        host-row node, or values only the row form holds) or the
+        reference's trace refuses the closure for a Python int past int32
+        alone (_LiteralRefusal): then host(host_rows) builds the node in
+        the host tier's row form. Where a trace refuses the closure
+        otherwise (_NotTraceable), host_rdd()."""
+        if self._dicts() if strings is None else strings:
+            return host_rdd()
         if not host_first:
             try:
                 return device()
             except _LiteralRefusal:
                 pass
+            except _NotTraceable as e:
+                log.info("dense op fell back to the host RDD layer: %s", e)
+                return host_rdd()
         from vega_tpu_torch import host_rows
-        return host(host_rows)
+        try:
+            return host(host_rows)
+        except _NotTraceable as e:
+            log.info("dense op fell back to the host RDD layer: %s", e)
+            return host_rdd()
 
-    def filter(self, predicate: Callable) -> "DenseRDD":
+    def filter(self, predicate: Callable) -> RDD:
         """Keep the rows whose predicate (run on whole column tensors, as
         map's f) is true; each shard compacts stably, so placement and key
-        order pass through. The host tier's row form as map's
-        (host_rows.HostFilterRDD)."""
-        self._refuse_dict_rows("filter")
+        order pass through. The host tier's row form and the host RDD
+        layer as map's (host_rows.HostFilterRDD, the host filter)."""
         return self._device_or_host(
             self._host_form(), lambda: _FilterRDD(self, predicate),
-            lambda hr: hr.HostFilterRDD(self, predicate))
+            lambda hr: hr.HostFilterRDD(self, predicate),
+            lambda: RDD.filter(self, predicate))
 
-    def map_expand(self, f: Callable, factor: int) -> "DenseRDD":
+    def map_expand(self, f: Callable, factor: int) -> RDD:
         """Fixed-arity flat map: f gets the row's columns as map's f does
         and returns `factor` outputs per row with a trailing dim of
         `factor` (e.g. torch.stack([x, x + 1000], dim=-1)), one such
         tensor or a (key, value) pair of them. Row i's outputs come out
-        contiguous and in order, at capacity round(capacity * factor)."""
-        self._refuse_host_rows("map_expand", "the host tier calls f on one "
-                               "Python value a row, which takes no array "
-                               "expansion")
-        self._refuse_wide_rows("map_expand")
-        self._refuse_dict_rows("map_expand")
-        return _MapExpandRDD(self, f, factor)
+        contiguous and in order, at capacity round(capacity * factor).
+        Where the reference's trace refuses f (also over a string or wide
+        column, or on a host-row node), the host RDD layer's flat_map of
+        f's outputs (the reference's expand wrapper, _host_expand)."""
+        return self._expand_or_host(lambda: _MapExpandRDD(self, f, factor),
+                                    _host_expand(f))
 
-    def flat_map_ragged(self, f: Callable,
-                        max_out_per_row: int) -> "DenseRDD":
+    def _expand_or_host(self, device: Callable, expand: Callable) -> RDD:
+        if not (self._dicts() or self._host_form()):
+            try:
+                return device()
+            except _NotTraceable as e:
+                log.info("dense expansion fell back to the host RDD "
+                         "layer: %s", e)
+        return RDD.flat_map(self, expand)
+
+    def flat_map_ragged(self, f: Callable, max_out_per_row: int) -> RDD:
         """Variable-arity flat map with a bound: f returns (payload,
         n_valid), the payload as map_expand's with a trailing dim of
         max_out_per_row and n_valid (a tensor of the row shape, or a
         constant) how many of a row's leading entries are real, clipped
         to [0, max_out_per_row]. Output capacity is capacity *
-        max_out_per_row, so nothing can overflow. A closure the
-        reference's trace refuses, or one over a host-row node, refuses:
-        the reference's host tier calls f on one Python value a row, which
-        takes no array expansion, and its job fails."""
-        self._refuse_host_rows("flat_map_ragged", "the host tier calls f on "
-                               "one Python value a row, which takes no "
-                               "array expansion")
-        self._refuse_wide_rows("flat_map_ragged")
-        self._refuse_dict_rows("flat_map_ragged")
-        return _FlatMapRaggedRDD(self, f, max_out_per_row)
+        max_out_per_row, so nothing can overflow. Where the reference's
+        trace refuses f, the host RDD layer's flat_map of the same clamp
+        (_host_ragged)."""
+        return self._expand_or_host(
+            lambda: _FlatMapRaggedRDD(self, f, max_out_per_row),
+            _host_ragged(f, max_out_per_row))
 
     def sample(self, with_replacement: bool, fraction: float,
                seed: Optional[int] = None) -> "DenseRDD":
@@ -762,31 +780,45 @@ class DenseRDD(RDD):
             return host_actions._PoissonSampleRDD(self, fraction, seed)
         return _SampleRDD(self, fraction, seed or 0)
 
-    def key_by(self, f: Callable) -> "DenseRDD":
+    def key_by(self, f: Callable) -> RDD:
         return self.map(lambda x: (f(x), x))
 
-    def map_values(self, f: Callable) -> "DenseRDD":
+    def map_values(self, f: Callable) -> RDD:
         """f over the one value column, keys (and a wide key's low word)
         untouched, so placement and key order pass through. Over a wide
         value, on a host-row node or where the reference's trace refuses
-        f, the host tier's row form (host_rows.HostMapValuesRDD)."""
+        f for a Python int past int32, the host tier's row form
+        (host_rows.HostMapValuesRDD); over a string value, or where the
+        trace refuses f otherwise, the host RDD layer's map_values. A
+        named block's string or wide column has neither form and raises,
+        as the reference's."""
         if not self.is_pair:
             raise VegaError("map_values on non-pair DenseRDD")
-        value_names = self._value_names()
-
-        def device():
-            if len(value_names) != 1:
-                raise VegaError(
-                    "map_values needs exactly one value column (have "
-                    f"{value_names}); use select(...) or a tuple-valued "
-                    "reduce_by_key on multi-column blocks")
-            if value_names[0] in self._dicts():
-                raise _no_host_tier("map_values over a string "
-                                    "(dictionary-encoded) value column")
-            return _MapValuesRDD(self, f)
-
-        return self._device_or_host(self._host_values(), device,
-                                    lambda hr: hr.HostMapValuesRDD(self, f))
+        wide = block_lib.wide_value_pairs(self.columns)
+        value_names = [nm for nm in self._value_names()
+                       if nm not in wide.values()]
+        if len(value_names) != 1:
+            raise VegaError(
+                "map_values needs exactly one value column (have "
+                f"{value_names}); use select(...) or a tuple-valued "
+                "reduce_by_key on multi-column blocks")
+        (vname,) = value_names
+        if vname != VALUE and vname in self._dicts():
+            raise VegaError(
+                f"map_values over dictionary-encoded (string) column "
+                f"{vname!r} on a named block has no device trace or host "
+                f"row form; rename({{{vname!r}: {VALUE!r}}}) to the "
+                "canonical layout for the host fallback")
+        if vname != VALUE and vname in wide:
+            raise VegaError(
+                f"map_values over wide int64 column {vname!r} on a named "
+                "block has no device trace or host row form; "
+                f"rename({{{vname!r}: {VALUE!r}}}) to the canonical layout "
+                "for the host fallback")
+        return self._device_or_host(
+            self._host_values(), lambda: _MapValuesRDD(self, f),
+            lambda hr: hr.HostMapValuesRDD(self, f),
+            lambda: RDD.map_values(self, f), vname in self._dicts())
 
     def select(self, *names: str) -> "DenseRDD":
         """Project a subset of columns, in the order given. Selecting a
@@ -835,11 +867,12 @@ class DenseRDD(RDD):
             raise VegaError(f"rename would collide columns: {out_names}")
         return _RenameRDD(self, full)
 
-    def keys_dense(self) -> "DenseRDD":
-        """The key column as a value RDD."""
+    def keys_dense(self) -> RDD:
+        """The key column as a value RDD. A two-column int64 key, which
+        one value column cannot hold, is the host tier's: the keys of the
+        decoded rows (to_rdd().map), as the reference hands it off."""
         if self.wide_key:
-            raise _no_host_tier("keys_dense of a two-column int64 key (one "
-                                "value column cannot hold it)")
+            return self.to_rdd().map(_first)
         return _ProjectRDD(self, KEY)
 
     def values_dense(self) -> "DenseRDD":
@@ -850,7 +883,7 @@ class DenseRDD(RDD):
 
     def reduce_by_key(self, func=None, partitioner_or_num=None, *,
                       op: Optional[str] = None,
-                      exchange: Optional[str] = None):
+                      exchange: Optional[str] = None) -> RDD:
         """Device shuffle: map-side combine, exchange, reduce-side merge of
         every value column per key (a wide key's two words are the key).
         A named op (add/min/max/prod, or a binop _infer_named_op
@@ -863,11 +896,16 @@ class DenseRDD(RDD):
         (all_to_all, staged, ring) or plans it (auto); None follows the
         Context's dense_exchange. partitioner_or_num is accepted and
         ignored, as the reference's device path does: the output is one
-        partition per shard. A binop the reference's trace refuses (a
-        Python int past int32, wide values) or one over a host-row node
-        runs in the host tier's row form (host_rows.HostBinop: exact
-        int64, float64); a named add over a host-row node's int32 or
-        float32 values sums in int64 or float64, as the host's."""
+        partition per shard. A binop the reference's trace refuses for a
+        Python int past int32 (or over wide values), or one over a
+        host-row node, runs in the host tier's row form
+        (host_rows.HostBinop: exact int64, float64); a named add over a
+        host-row node's int32 or float32 values sums in int64 or float64,
+        as the host's. A binop that does not trace otherwise, any fold of
+        string values but min / max ('+' concatenates them there), and a
+        float64 key of the row form are the host RDD layer's
+        reduce_by_key under partitioner_or_num, as the reference's; over
+        a named block they raise VegaError, as there."""
         if not self.is_pair:
             raise VegaError("reduce_by_key on non-pair DenseRDD")
         if op is None and func is None:
@@ -879,17 +917,28 @@ class DenseRDD(RDD):
                            if nm not in (KEY, KEY_LO))
         if dict_vals and op not in ("min", "max"):
             # rank codes: min / max of codes are those of the strings; any
-            # other fold would compute on code values
-            raise _no_host_tier(f"reduce_by_key over the string "
-                                f"(dictionary-encoded) value columns "
-                                f"{dict_vals} with op={op!r} (only min / "
-                                "max have a meaning on the codes)")
+            # other fold is the host tier's, over the strings
+            if not self._canonical():
+                raise VegaError(
+                    "reduce_by_key over dictionary-encoded (string) value "
+                    f"columns {dict_vals} needs op='min'/'max', and a "
+                    "named/multi-column block has no host row form to fall "
+                    "back on")
+            return RDD.reduce_by_key(self, func or _NAMED_FUNCS[op],
+                                     partitioner_or_num)
         host = self._host_values()
         if op is None or (host and func is not None and op == "prod"):
+            def host_rdd():
+                if not self._canonical():
+                    raise VegaError(
+                        "reduce_by_key over a named/multi-column block "
+                        "needs a traceable binop; use op='add'/'min'/'max'/"
+                        "'prod' or a traceable tuple binop")
+                return RDD.reduce_by_key(self, func, partitioner_or_num)
             return _with_exchange(self._device_or_host(
                 host, lambda: _ReduceByKeyRDD(self, None, func),
-                lambda _: _ReduceByKeyRDD(self, None, func, host=True)),
-                exchange)
+                lambda _: _ReduceByKeyRDD(self, None, func, host=True),
+                host_rdd, False), exchange)
         if op not in kernels.SEGMENT_OPS:
             raise VegaError(f"unknown op {op!r}; expected one of "
                             f"{kernels.SEGMENT_OPS}")
@@ -903,7 +952,11 @@ class DenseRDD(RDD):
             raise VegaError("reduce_by_key(op='prod') over int64 (wide) "
                             "values has no device path; the reference's "
                             "host tier keeps exact products")
-        return _with_exchange(_ReduceByKeyRDD(parent, op), exchange)
+        try:
+            return _with_exchange(_ReduceByKeyRDD(parent, op), exchange)
+        except _NotTraceable:  # a float64 key of the row form
+            return RDD.reduce_by_key(self, func or _NAMED_FUNCS[op],
+                                     partitioner_or_num)
 
     def sum_by_key(self) -> "DenseRDD":
         return self.reduce_by_key(op="add")
@@ -919,26 +972,42 @@ class DenseRDD(RDD):
     def combine_by_key(self, create_combiner: Callable,
                        merge_value: Callable, merge_combiners: Callable,
                        partitioner_or_num=None, *,
-                       exchange: Optional[str] = None) -> "DenseRDD":
+                       exchange: Optional[str] = None) -> RDD:
         """map_values(create_combiner), then a reduce by merge_combiners
         (named when _infer_named_op recognizes it, else traced): the host
         semantics under the combiner contract merge_value(c, v) ==
         merge_combiners(c, create_combiner(v)). partitioner_or_num is
-        ignored, as reduce_by_key's."""
+        ignored, as reduce_by_key's. Over string values, or where a
+        combiner does not trace (in the row form too), the host RDD
+        layer's combine_by_key of the three functions, as the
+        reference's."""
         self._check_combine()
         return self._device_or_host(
             self._host_values(),
             lambda: self._device_combine(create_combiner, merge_combiners,
                                          exchange),
-            lambda hr: hr.HostMapValuesRDD(self, create_combiner)
-            .reduce_by_key(merge_combiners, exchange=exchange))
+            lambda hr: _dense_or_refuse(hr.HostMapValuesRDD(
+                self, create_combiner).reduce_by_key(
+                    merge_combiners, exchange=exchange)),
+            lambda: PairOpsMixin.combine_by_key(
+                self, create_combiner, merge_value, merge_combiners,
+                partitioner_or_num),
+            self._host_combine())
+
+    def _string_values(self) -> bool:
+        return any(nm not in (KEY, KEY_LO) for nm in self._dicts())
+
+    def _host_combine(self) -> bool:
+        """Whether a keyed combine is the host RDD layer's before any
+        trace: over string values (the combiners see the strings), or
+        over a float64 key of the row form (the host groups -0.0 with
+        0.0)."""
+        return self._string_values() or \
+            dict(self._schema()).get(KEY) == torch.float64
 
     def _check_combine(self) -> None:
         if not self.is_pair:
             raise VegaError("combine_by_key on non-pair DenseRDD")
-        if any(nm not in (KEY, KEY_LO) for nm in self._dicts()):
-            raise _no_host_tier("combine_by_key over string "
-                                "(dictionary-encoded) values")
         if not self._value_names():
             raise VegaError("combine_by_key needs a value column")
 
@@ -952,80 +1021,124 @@ class DenseRDD(RDD):
             exchange)
 
     def fold_by_key(self, zero, func: Callable,
-                    partitioner_or_num=None) -> "DenseRDD":
+                    partitioner_or_num=None) -> RDD:
         """combine_by_key(lambda v: func(zero, v), func, func), as the
         reference's device path builds it: the zero is folded into every
         ROW, not once per key per partition as on its host tier (the
         comment at vega_tpu/tpu/dense_rdd.py:1210 says there is no device
-        lowering; its combine_by_key is one). String values refuse as
-        combine_by_key does. Where the host tier's row form takes over
-        (host_rows.py), the zero is folded once per key per shard, as the
-        host tier folds it once per key per partition."""
-        return self._keyed_fold(zero, func, func)
+        lowering; its combine_by_key is one). Where the host tier's row
+        form takes over (host_rows.py), the zero is folded once per key
+        per shard, as the host tier folds it once per key per partition;
+        over string values, or where func does not trace, the host RDD
+        layer's fold (once per key per partition), as the reference's."""
+        return self._keyed_fold(zero, func, func, partitioner_or_num)
 
     def aggregate_by_key(self, zero, seq_func: Callable,
                          comb_func: Callable,
-                         partitioner_or_num=None) -> "DenseRDD":
+                         partitioner_or_num=None) -> RDD:
         """combine_by_key(lambda v: seq_func(zero, v), seq_func,
-        comb_func): the zero folded into every row, as fold_by_key, and
-        once per key per shard in the host tier's row form."""
-        return self._keyed_fold(zero, seq_func, comb_func)
+        comb_func): the zero folded as fold_by_key's."""
+        return self._keyed_fold(zero, seq_func, comb_func,
+                                partitioner_or_num)
 
-    def _keyed_fold(self, zero, seq: Callable, comb: Callable):
+    def _keyed_fold(self, zero, seq: Callable, comb: Callable,
+                    partitioner_or_num):
         self._check_combine()
         return self._device_or_host(
             self._host_values(),
             lambda: self._device_combine(lambda v: seq(zero, v), comb, None),
-            lambda hr: hr.keyed_fold(self, zero, seq, comb))
+            lambda hr: hr.keyed_fold(self, zero, seq, comb),
+            lambda: PairOpsMixin.combine_by_key(
+                self, lambda v: seq(copy.deepcopy(zero), v), seq, comb,
+                partitioner_or_num),
+            self._host_combine())
 
-    def _join_sides(self, other, op: str):
-        """The checks join, left_outer_join and cogroup share: two dense
-        pair RDDs on one mesh, each in the canonical (k, v) layout (the
-        join names its outputs lv / rv); returns the sides _align_keys
-        makes key-compatible. A streamed operand joins as its resident
-        build."""
-        other = _resident(other)
-        if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
-            raise VegaError(f"{op} needs two dense pair RDDs on one mesh")
-        for side in (self, other):
-            side._check_keyed(op)
-        return _align_keys(self, other, op)
+    def _dense_join_pair(self, other, partitioner_or_num, op: str):
+        """The two sides of a device join or cogroup made key-compatible
+        (_align_keys), or None where the reference takes its host join:
+        other not a dense pair RDD on this mesh, a side not in the
+        canonical (k, v) layout (the join names its outputs lv / rv), an
+        explicit partitioner_or_num, or keys that do not align."""
+        if not (isinstance(other, DenseRDD) and self.is_pair
+                and other.is_pair and partitioner_or_num is None
+                and other.mesh == self.mesh and self._canonical()
+                and other._canonical()):
+            return None
+        try:
+            return _align_keys(self, other, op)
+        except _NotTraceable:
+            return None
 
-    def join(self, other: "DenseRDD", partitioner_or_num=None,
-             exchange: Optional[str] = None) -> "DenseRDD":
+    def _reject_named_join(self, others, op: str) -> None:
+        """A named / multi-column pair side has neither the device join's
+        (k, (lv, rv)) rows nor a host (k, v) row form: VegaError, as the
+        reference's."""
+        for label, side in [("left", self)] + [("right", o)
+                                               for o in others]:
+            if isinstance(side, DenseRDD) and side.is_pair \
+                    and not side._canonical():
+                raise VegaError(
+                    f"{op} over a named/multi-column DenseRDD ({label} side"
+                    f" columns {side.columns}) has no (k, v) row form on "
+                    "either tier; select(...) down to one value column and "
+                    f"rename(...) it to {VALUE!r} first")
+
+    def _device_join(self, other, partitioner_or_num, op: str, build):
+        """build(*sides) over the aligned sides, or None where the
+        reference joins on its host tier (_dense_join_pair, or a float64
+        key of the row form)."""
+        pair = self._dense_join_pair(other, partitioner_or_num, op)
+        if pair is None:
+            return None
+        try:
+            return build(*pair)
+        except _NotTraceable:
+            return None
+
+    def join(self, other, partitioner_or_num=None,
+             exchange: Optional[str] = None) -> RDD:
         """Device sort-merge inner join with full duplicate-key semantics:
         (k, (lv, rv)) rows. An int32 key meeting an int64 one widens;
         string keys of two dictionaries meet on their merged one.
-        exchange= as reduce_by_key's; a partition count as
-        _check_partition_count says."""
-        _check_partition_count("join", partitioner_or_num)
-        return _with_exchange(_JoinRDD(*self._join_sides(other, "join")),
-                              exchange)
+        exchange= as reduce_by_key's. An explicit partitioner_or_num, a
+        side that is not a dense pair RDD or keys of two kinds are the
+        host RDD layer's join (cogroup, then flat_map_values), as the
+        reference's; a streamed side joins as its resident build."""
+        other = _resident(other)
+        node = self._device_join(other, partitioner_or_num, "join",
+                                 _JoinRDD)
+        if node is not None:
+            return _with_exchange(node, exchange)
+        self._reject_named_join([other], "join")
+        return RDD.join(self, other, partitioner_or_num)
 
-    def left_outer_join(self, other: "DenseRDD", partitioner_or_num=None,
+    def left_outer_join(self, other, partitioner_or_num=None,
                         fill_value=0,
-                        exchange: Optional[str] = None) -> "DenseRDD":
+                        exchange: Optional[str] = None) -> RDD:
         """Device left-outer join (duplicate keys on both sides): a left
         row with no match keeps fill_value, cast to the right column's
-        dtype, in rv. exchange= as reduce_by_key's; a partition count as
-        _check_partition_count says (the reference's host path fills
-        fill_value too)."""
-        _check_partition_count("left_outer_join", partitioner_or_num)
-        if fill_value is None:
-            raise _no_host_tier("left_outer_join with fill_value=None (a "
-                                "dense column cannot hold None)")
+        dtype, in rv. exchange= as reduce_by_key's. Where the device join
+        does not apply (as join's), or the right value is wide or a
+        string (the fill would land in its words or codes), the
+        reference's host form: cogroup, then each key's rows with
+        fill_value for a missing right side; fill_value=None is the host
+        tier's left_outer_join."""
         other = _resident(other)
-        if isinstance(other, DenseRDD) and other._wide_value():
-            raise _no_host_tier("left_outer_join with a wide int64 right "
-                                "value (the fill would land in its encoded "
-                                "words)")
-        if isinstance(other, DenseRDD) and any(
-                nm not in (KEY, KEY_LO) for nm in other._dicts()):
-            raise _no_host_tier("left_outer_join with a string right value "
-                                "(the fill would land in its codes)")
-        return _with_exchange(
-            _JoinRDD(*self._join_sides(other, "left_outer_join"),
-                     outer=True, fill_value=fill_value), exchange)
+        plain_right = not (isinstance(other, DenseRDD) and other.is_pair
+                           and (other._wide_value()
+                                or other._string_values()))
+        if fill_value is not None and plain_right:
+            node = self._device_join(
+                other, partitioner_or_num, "left_outer_join",
+                lambda a, b: _JoinRDD(a, b, outer=True,
+                                      fill_value=fill_value))
+            if node is not None:
+                return _with_exchange(node, exchange)
+        self._reject_named_join([other], "left_outer_join")
+        if fill_value is None:
+            return RDD.left_outer_join(self, other, partitioner_or_num)
+        return self.cogroup(other, partitioner_or_num=partitioner_or_num
+                            ).flat_map_values(_fill_emit(fill_value))
 
     def _check_keyed(self, op: str) -> None:
         if not self.is_pair:
@@ -1044,7 +1157,10 @@ class DenseRDD(RDD):
         collect_grouped() returns the columnar form. exchange= as
         reduce_by_key's; partitioner_or_num ignored, as there."""
         self._check_keyed("group_by_key")
-        return _with_exchange(_GroupByKeyRDD(self), exchange)
+        try:
+            return _with_exchange(_GroupByKeyRDD(self), exchange)
+        except _NotTraceable:  # a float64 key of the row form
+            return RDD.group_by_key(self, partitioner_or_num)
 
     def sort_by_key(self, ascending: bool = True, num_partitions=None,
                     sample_size_hint: int = _SORT_SAMPLE,
@@ -1057,147 +1173,151 @@ class DenseRDD(RDD):
         as the reference's device path does (one range per shard)."""
         if not self.is_pair:
             raise VegaError("sort_by_key on non-pair DenseRDD")
-        return _with_exchange(
-            _SortByKeyRDD(self, ascending, sample_size_hint), exchange)
+        try:
+            return _with_exchange(
+                _SortByKeyRDD(self, ascending, sample_size_hint), exchange)
+        except _NotTraceable:  # a float64 key of the row form
+            return RDD.sort_by_key(self, ascending, num_partitions)
 
-    def cogroup(self, *others: "DenseRDD",
-                partitioner_or_num=None) -> "_DenseCoGroupRDD":
+    def cogroup(self, *others, partitioner_or_num=None) -> RDD:
         """Dense-dense cogroup of one other side: both sides group by key
         on the device (equal keys hash to one shard), and the result is a
         host RDD whose (k, ([lvs], [rvs])) rows each shard assembles
-        (_DenseCoGroupRDD); a partition count as _check_partition_count
-        says. Two or more others are the reference's host CoGroupedRDD
-        over the rows of every side (rdd/cogrouped.py), under
-        partitioner_or_num as the host cogroup takes it (default a
-        HashPartitioner over the shard count). No other refuses."""
-        if len(others) >= 2:
-            others = tuple(_resident(o) for o in others)
-            for side in (self,) + others:
-                if isinstance(side, DenseRDD) and side.is_pair and {
-                        nm for nm in side.columns
-                        if not block_lib.is_lo(nm)} != {KEY, VALUE}:
-                    raise VegaError(
-                        f"cogroup over a named / multi-column DenseRDD "
-                        f"(columns {side.columns}) has no (k, v) row form")
-            return RDD.cogroup(self, *others,
-                               partitioner_or_num=partitioner_or_num)
-        _check_partition_count("cogroup", partitioner_or_num)
-        if len(others) != 1:
-            raise _no_host_tier("cogroup of no other RDD")
-        return _DenseCoGroupRDD(*self._join_sides(others[0], "cogroup"))
+        (_DenseCoGroupRDD). Anything else (no other or several, a side
+        that is not a dense pair RDD, an explicit partitioner_or_num, keys
+        of two kinds) is the reference's host CoGroupedRDD over the rows
+        of every side (rdd/cogrouped.py)."""
+        others = tuple(_resident(o) for o in others)
+        if len(others) == 1:
+            node = self._device_join(others[0], partitioner_or_num,
+                                     "cogroup", _DenseCoGroupRDD)
+            if node is not None:
+                return node
+        self._reject_named_join(others, "cogroup")
+        return RDD.cogroup(self, *others,
+                           partitioner_or_num=partitioner_or_num)
 
     group_with = cogroup
 
-    def cartesian(self, other: "DenseRDD") -> "DenseRDD":
+    def cartesian(self, other) -> RDD:
         """Device cross product of two value RDDs as (left, right) pairs:
         the right side is replicated and each shard ragged-expands its
-        left rows against it. A product whose estimated footprint passes
-        the device's free memory raises VegaError (the reference streams it
-        on its host tier on its own; to_rdd().cartesian does here)."""
-        if not (isinstance(other, DenseRDD) and other.mesh == self.mesh
-                and [n for n, _ in self._schema()] == [VALUE]
-                and [n for n, _ in other._schema()] == [VALUE]):
-            raise VegaError("cartesian needs two dense value RDDs (one "
-                            "column each) on one mesh")
-        if self._dicts() or other._dicts():
-            raise _no_host_tier("cartesian of string (dictionary-encoded) "
-                                "values")
-        return _CartesianDenseRDD(self, other)
+        left rows against it. Other operands (a pair or string side, a
+        host RDD) and a product whose estimated footprint passes the
+        device's free memory are the host tier's lazy CartesianRDD, as
+        the reference's."""
+        if (isinstance(other, DenseRDD) and other.mesh == self.mesh
+                and self.columns == [VALUE] and other.columns == [VALUE]
+                and not self._dicts() and not other._dicts()):
+            try:
+                return _CartesianDenseRDD(self, other)
+            except _NotTraceable as e:
+                log.info("dense cartesian fell back to the host RDD layer: "
+                         "%s", e)
+        return RDD.cartesian(self, other)
 
     def _one_value_column(self, op: str) -> None:
         if self.columns != [VALUE]:
             raise VegaError(f"{op} needs a value RDD of one {VALUE!r} column "
                             f"(columns: {self.columns})")
 
-    def distinct(self, num_partitions=None) -> "DenseRDD":
+    def distinct(self, num_partitions=None) -> RDD:
         """Each value once: the value moves to the key, a keyed
         min-reduce dedups it, the keys come back as values.
         num_partitions is ignored, as the reference's device path does
-        (so in intersection and subtract)."""
+        (so in intersection and subtract). Over pairs, the host RDD
+        layer's distinct, as the reference's."""
         if self.is_pair:
-            raise _no_host_tier("distinct over pairs")
+            return RDD.distinct(self, num_partitions)
         self._refuse_wide_rows("distinct")
         self._one_value_column("distinct")
         return _ReduceByKeyRDD(_value_to_key(self, _value_key_zero),
                                "min").keys_dense()
 
     def _set_op_sides(self, other, op: str):
-        """Value RDDs on one mesh with equal value dtypes: an int32 2 and
-        a float32 2.0 hash apart on the device but compare equal on the
-        host, so a mismatch is the host tier's. Returns the two sides,
-        string values put onto one dictionary (_unify_dict_cols)."""
-        if not isinstance(other, DenseRDD) or other.mesh != self.mesh:
-            raise VegaError(f"{op} needs two dense RDDs on one mesh")
-        if self.is_pair or other.is_pair:
-            raise _no_host_tier(f"{op} over pairs")
+        """Value RDDs on one mesh with equal value dtypes, string values
+        put onto one dictionary (_unify_dict_cols); None where the
+        reference takes its host set op: a pair or host side, dtypes that
+        differ (an int32 2 and a float32 2.0 hash apart on the device but
+        compare equal on the host), a string side against plain values."""
+        if not (isinstance(other, DenseRDD) and other.mesh == self.mesh
+                and not self.is_pair and not other.is_pair):
+            return None
         self._refuse_wide_rows(op)
         other._refuse_wide_rows(op)
         self._one_value_column(op)
         other._one_value_column(op)
-        ld, rd = dict(self._schema())[VALUE], dict(other._schema())[VALUE]
-        if ld != rd:
-            raise _no_host_tier(f"{op} of value dtypes {ld} and {rd}")
-        return _unify_or_refuse(self, other, (VALUE,), op)
+        if dict(self._schema())[VALUE] != dict(other._schema())[VALUE]:
+            return None
+        return _unify_dict_cols(self, other, (VALUE,))
 
-    def intersection(self, other: "DenseRDD",
-                     num_partitions=None) -> "DenseRDD":
+    def intersection(self, other, num_partitions=None) -> RDD:
         """The values of both, each once: both sides dedup through a keyed
         reduce (hash-placed and key-sorted, so the join elides both
         exchanges and sorts), then the joined keys. String values meet on
-        their merged dictionary."""
-        left, right = self._set_op_sides(other, "intersection")
+        their merged dictionary. Other operands: the host RDD layer's
+        intersection, as the reference's."""
+        sides = self._set_op_sides(other, "intersection")
+        if sides is None:
+            return RDD.intersection(self, other, num_partitions)
+        left, right = sides
 
         def dedup(side):
             return _ReduceByKeyRDD(_value_to_key(side, _value_key_zero),
                                    "min")
         return _JoinRDD(dedup(left), dedup(right)).keys_dense()
 
-    def subtract(self, other: "DenseRDD",
-                 num_partitions=None) -> "DenseRDD":
+    def subtract(self, other, num_partitions=None) -> RDD:
         """self's values (duplicates kept) that never occur in other: a
         left outer join against other's deduped values marked 1 (fill 0),
         filtered on the mark; the marks side is a reduce output, so its
-        exchange is elided."""
-        left, right = self._set_op_sides(other, "subtract")
+        exchange is elided. Other operands as intersection's."""
+        sides = self._set_op_sides(other, "subtract")
+        if sides is None:
+            return RDD.subtract(self, other, num_partitions)
+        left, right = sides
         keyed = _value_to_key(left, _value_key_one)
         marks = _ReduceByKeyRDD(_value_to_key(right, _value_key_one), "min")
         joined = _JoinRDD(keyed, marks, outer=True, fill_value=0)
         return _FilterRDD(joined.select(KEY, "rv"), _unmarked).keys_dense()
 
-    def union(self, other: "DenseRDD") -> "DenseRDD":
+    def union(self, other) -> RDD:
         """Per-shard concatenation of two RDDs of one schema (a streamed
         operand as its resident build); string columns of two
-        dictionaries meet on their merged one."""
+        dictionaries meet on their merged one. A host RDD, another
+        schema, or a string column against plain values: the host
+        UnionRDD, as the reference's."""
         other = _resident(other)
-        if not isinstance(other, DenseRDD):
-            # a host RDD: the reference's fall-through to the host union
+        if not isinstance(other, DenseRDD) or \
+                dict(self._schema()) != dict(other._schema()):
             return RDD.union(self, other)
         if other.mesh != self.mesh:
             raise VegaError("union needs two dense RDDs on one mesh")
-        if dict(self._schema()) != dict(other._schema()):
-            raise _no_host_tier(f"union of schemas {self._schema()} and "
-                                f"{other._schema()}")
-        return _DenseUnionRDD(*_unify_or_refuse(
-            self, other, self.columns, "union"))
+        pair = _unify_dict_cols(self, other, self.columns)
+        if pair is None:
+            return RDD.union(self, other)
+        return _DenseUnionRDD(*pair)
 
-    def zip(self, other: "DenseRDD") -> "DenseRDD":
+    def zip(self, other) -> RDD:
         """(left value, right value) pairs of co-indexed rows: the shards'
-        counts must be equal. With a host RDD, the host tier's zip of
-        co-indexed partitions, as the reference falls through to it."""
-        if isinstance(other, RDD) and not isinstance(other, DenseRDD):
-            return RDD.zip(self, other)
-        if not (isinstance(other, DenseRDD) and other.mesh == self.mesh
+        counts must be equal. Any other operands (a host RDD, pairs, a
+        named block) are the host tier's zip of co-indexed partitions, as
+        the reference's."""
+        if (isinstance(other, DenseRDD) and other.mesh == self.mesh
                 and self.columns == [VALUE] and other.columns == [VALUE]):
-            raise _no_host_tier("zip of anything but two one-column value "
-                                "RDDs on one mesh")
-        return _DenseZipRDD(self, other)
+            return _DenseZipRDD(self, other)
+        return RDD.zip(self, other)
 
-    def zip_with_index(self) -> "DenseRDD":
+
+    def zip_with_index(self) -> RDD:
         """(value, global index) pairs: each shard's offset is the count
-        of the shards before it, on the device."""
+        of the shards before it, on the device. A wide value (the device
+        pair would read as a wide key) is the host tier's zip_with_index,
+        as the reference's."""
         if self.is_pair:
             raise VegaError("zip_with_index on pair DenseRDD — use values()")
-        self._refuse_wide_rows("zip_with_index")
+        if self._wide_value():
+            return RDD.zip_with_index(self)
         self._one_value_column("zip_with_index")
         return _ZipWithIndexRDD(self)
 
@@ -1386,27 +1506,40 @@ class DenseRDD(RDD):
         composes it: the device cogroup's rows through flat_map_values, a
         host RDD (a dense column cannot hold None) whose count() stays on
         the device. The device left_outer_join fills a missing side with
-        a value, not None."""
-        _check_partition_count("right_outer_join", partitioner_or_num)
-        return _DenseRightOuterJoin(*self._join_sides(other,
-                                                      "right_outer_join"))
+        a value, not None. Where the device cogroup does not apply (as
+        cogroup's), the host cogroup's, as the reference's."""
+        other = _resident(other)
+        node = self._device_join(other, partitioner_or_num,
+                                 "right_outer_join", _DenseRightOuterJoin)
+        if node is not None:
+            return node
+        return RDD.right_outer_join(self, other, partitioner_or_num)
 
     def full_outer_join(self, other: "DenseRDD", partitioner_or_num=None
                         ) -> "_DenseFullOuterJoin":
         """right_outer_join's composition with (k, (lv, None)) for self's
         keys that other lacks."""
-        _check_partition_count("full_outer_join", partitioner_or_num)
-        return _DenseFullOuterJoin(*self._join_sides(other,
-                                                     "full_outer_join"))
+        other = _resident(other)
+        node = self._device_join(other, partitioner_or_num,
+                                 "full_outer_join", _DenseFullOuterJoin)
+        if node is not None:
+            return node
+        return RDD.full_outer_join(self, other, partitioner_or_num)
 
     def subtract_by_key(self, other: "DenseRDD", partitioner_or_num=None
                         ) -> "DenseRDD":
         """self's (k, v) rows, duplicates kept, whose key other lacks:
         subtract's marked left outer join, on the key (other's keys
-        deduplicated and marked 1, the fill 0 kept)."""
-        _check_partition_count("subtract_by_key", partitioner_or_num)
-        left, right = self._join_sides(other, "subtract_by_key")
-        return _unmatched_rows(left, right).rename({"lv": VALUE})
+        deduplicated and marked 1, the fill 0 kept). Where the device
+        cogroup does not apply (as cogroup's), the host cogroup's, as the
+        reference's."""
+        other = _resident(other)
+        node = self._device_join(
+            other, partitioner_or_num, "subtract_by_key",
+            lambda a, b: _unmatched_rows(a, b).rename({"lv": VALUE}))
+        if node is not None:
+            return node
+        return RDD.subtract_by_key(self, other, partitioner_or_num)
 
     def partition_by_key(self, partitioner_or_num=None) -> "DenseRDD":
         """The same rows, placed by one hash exchange with no combine and
@@ -1414,7 +1547,10 @@ class DenseRDD(RDD):
         group_by_key ignores partitioner_or_num: one partition per
         shard)."""
         self._check_keyed("partition_by_key")
-        return _PartitionByKeyRDD(self)
+        try:
+            return _PartitionByKeyRDD(self)
+        except _NotTraceable:  # a float64 key of the row form
+            return RDD.partition_by_key(self, partitioner_or_num)
 
     partition_by = partition_by_key
 
@@ -1505,38 +1641,44 @@ class DenseRDD(RDD):
         (add / prod / min / max) through one masked reduce, any other f
         traced through the segmented scan (f associative, as the
         reference's fold requires). The host then computes f(zero,
-        shard fold) and the fold of the shards on Python numbers."""
-        return self._fold_shards("fold", zero, f, f)
+        shard fold) and the fold of the shards on Python numbers. Over
+        pairs, strings or a named block, or where f does not trace, the
+        host RDD layer's fold, as the reference's."""
+        return self._fold_shards("fold", zero, f, f, RDD.fold)
 
     def aggregate(self, zero, seq_func: Callable, comb_func: Callable):
         """The reference's aggregate: each shard folds its rows with
         seq_func seeded with zero, then the host folds zero and the
         shard results with comb_func (on Python numbers, as the
-        reference does). seq_func must be a named monoid (add / prod
-        / min / max): an arbitrary seq_func need not be associative over
-        values (lambda acc, x: acc + 1), so it has no device scan and
-        refuses."""
+        reference does). On the device seq_func must be a named monoid
+        (add / prod / min / max): an arbitrary seq_func need not be
+        associative over values (lambda acc, x: acc + 1), so it has no
+        device scan, and the aggregate is the host RDD layer's, as are
+        fold's other operands."""
         if _infer_named_op(seq_func) is None:
-            raise _no_host_tier(f"aggregate with seq_func {seq_func!r}, "
-                                "which is not a named monoid (add / prod / "
-                                "min / max)")
-        return self._fold_shards("aggregate", zero, seq_func, comb_func)
+            return RDD.aggregate(self, zero, seq_func, comb_func)
+        return self._fold_shards("aggregate", zero, seq_func, comb_func,
+                                 lambda r, z, f: RDD.aggregate(
+                                     r, z, seq_func, comb_func))
 
-    def _fold_shards(self, what: str, zero, seq: Callable, comb: Callable):
+    def _fold_shards(self, what: str, zero, seq: Callable, comb: Callable,
+                     host):
         """zero folded with comb over each shard's seq-fold of zero and
-        its rows (an empty shard: zero)."""
-        if self.is_pair:
-            raise _no_host_tier(f"{what} over pairs (f would take (k, v) "
-                                "tuples)")
-        self._refuse_dict_rows(what)
+        its rows (an empty shard: zero); host(self, zero, seq) where the
+        reference's host fold answers."""
+        if self.is_pair or self._dicts() or not self._value_rows():
+            return host(self, zero, seq)
         vals, dt, blk = self._value_row_tensor(what)
         floating = dt.is_floating_point or isinstance(zero, float)
         wide = torch.float64 if floating else torch.int64
         vals = vals.to(wide)
         op = _infer_named_op(seq)
         if op is None:
-            first, n_out = _scan_partials(blk, vals,
-                                          _wide_binop(seq, wide, what))
+            try:
+                binop = _wide_binop(seq, wide, what)
+            except _NotTraceable:
+                return host(self, zero, seq)
+            first, n_out = _scan_partials(blk, vals, binop)
             partials, nonempty = mesh_lib.host_get(blk.mesh,
                                                    [first, n_out > 0])
         else:
@@ -1641,27 +1783,41 @@ class DenseRDD(RDD):
         """A traced binop: each shard folds its rows through the segmented
         scan (one segment), the n_shards partials and their non-empty
         flags come back in one fetch, and the host folds them with f on
-        CPU tensors. An empty RDD raises."""
+        CPU tensors. An empty RDD raises. Over pairs, strings or a named
+        block, and where f has no row form, the host RDD layer's reduce,
+        as the reference's."""
         return self._reduce_launch(f)()
 
-    def _reduce_launch(self, f: Callable):
+    def _reduce_launch(self, f: Callable, traced: bool = True):
         """reduce(f)'s checks and device scan; returns the callable that
-        fetches the partials and folds them on the host."""
-        if self.is_pair:
-            raise _no_host_tier("reduce(f) over pairs")
-        self._refuse_dict_rows("reduce(f)")
+        fetches the partials and folds them on the host. traced: f must
+        trace, as the reference's own reduce traces it (else the host RDD
+        layer's reduce, as the reference's reduce_async, a host job)."""
+        if self.is_pair or self._dicts() or not self._value_rows():
+            return lambda: RDD.reduce(self, f)
         if not self._host_form():
-            # the reference's own reduce traces f with no host fallback:
-            # a Python int past int32 refuses here too
+            # the reference's own reduce traces f with no host fallback,
+            # and raises what its trace raises (OverflowError for a
+            # Python int past int32)
             dtype = dict(self._schema()).get(VALUE)
-            return self._device_reduce(_check_binop(f, [dtype], "reduce"),
-                                       dtype)
+            try:
+                binop = _check_binop(f, [dtype], "reduce")
+            except _NotTraceable as e:
+                if not traced:
+                    return lambda: RDD.reduce(self, f)
+                if isinstance(e, _LiteralRefusal):
+                    raise OverflowError(str(e)) from e
+                raise (e.__cause__ or e)
+            return self._device_reduce(binop, dtype)
         op = _infer_named_op(f)
         if op in ("add", "min", "max"):
             value = self._named_reduce(op)
             return lambda: value
         from vega_tpu_torch import host_rows
-        return host_rows.reduce_launch(self, f)
+        try:
+            return host_rows.reduce_launch(self, f)
+        except _NotTraceable:
+            return lambda: RDD.reduce(self, f)
 
     def _device_reduce(self, binop, dtype):
         blk = self._value_block("reduce")
@@ -1684,8 +1840,10 @@ class DenseRDD(RDD):
         """count / mean / stdev / min / max in one pass and one fetch:
         float32 partials (sum, sum of squares, min, max) per shard and the
         integer counts, combined on the host as the reference combines
-        them."""
-        self._refuse_dict_rows("stats")
+        them. Over pairs, strings or a wide value (off the host-row form),
+        the host RDD layer's stats, as the reference's."""
+        if self._host_stats():
+            return RDD.stats(self)
         if self.host_rows:
             # the host tier adds Python floats: float64, a wide int64 too
             v, _, blk = self._value_row_tensor("stats")
@@ -1712,6 +1870,14 @@ class DenseRDD(RDD):
                 "stdev": math.sqrt(var) if n else float("nan"),
                 "min": mn, "max": mx}
 
+    def _host_stats(self) -> bool:
+        """Whether stats / histogram are the host tier's: over pairs,
+        strings, a named block or a wide value outside the host-row form
+        (float32 would mangle its int64s)."""
+        return (self.is_pair or bool(self._dicts())
+                or not self._value_rows()
+                or (self._wide_value() and not self.host_rows))
+
     def _min_max(self):
         """min and max in one pass and one fetch."""
         blk = self._value_block("histogram")
@@ -1731,8 +1897,11 @@ class DenseRDD(RDD):
         between min and max. Values and edges compare in float32, a value
         lands in searchsorted(edges, v, right) - 1, clipped to the last
         bucket, and values outside [edges[0], edges[-1]] are dropped; the
-        per-shard counts are summed on the card and fetched once."""
-        self._refuse_dict_rows("histogram")
+        per-shard counts are summed on the card and fetched once. Other
+        operands as stats', and a wide value on a host-row node too (its
+        edges compare in float32 here), the host RDD layer's."""
+        if self._host_stats() or self._wide_value():
+            return RDD.histogram(self, buckets)
         blk = self._value_block("histogram")
         if isinstance(buckets, int):
             lo, hi = self._min_max()
@@ -1762,9 +1931,10 @@ class DenseRDD(RDD):
 
     def count_by_value(self) -> dict:
         """{value: occurrences}: the value moves to the key, a ones column
-        rides it through reduce_by_key(op="add")."""
+        rides it through reduce_by_key(op="add"). Over pairs, the host
+        RDD layer's, as the reference's."""
         if self.is_pair:
-            raise _no_host_tier("count_by_value over pairs")
+            return RDD.count_by_value(self)
         if self._host_form():
             # the host tier's own definition, in its row form
             return dict(self.map(lambda x: (x, 1)).reduce_by_key(
@@ -1776,17 +1946,16 @@ class DenseRDD(RDD):
     def take_ordered(self, n: int, key=None) -> list:
         """The n smallest elements: a per-shard top-k (values) or row sort
         (pairs, ordered like host tuples: key, then value), then a merge
-        of the n_shards * n survivors on the host."""
+        of the n_shards * n survivors on the host. With a key function,
+        the host RDD layer's, as the reference's."""
         if key is not None:
-            raise VegaError("take_ordered(key=...) needs the host tier, "
-                            "which vega_tpu_torch does not have")
+            return RDD.take_ordered(self, n, key)
         return self._device_topk(n, largest=False)
 
     def top(self, n: int, key=None) -> list:
         """The n largest elements, as take_ordered orders them, reversed."""
         if key is not None:
-            raise VegaError("top(key=...) needs the host tier, which "
-                            "vega_tpu_torch does not have")
+            return RDD.top(self, n, key)
         return self._device_topk(n, largest=True)
 
     def _device_topk(self, n: int, largest: bool) -> list:
@@ -1892,8 +2061,10 @@ class DenseRDD(RDD):
         return host_actions.count_async(self)
 
     def reduce_async(self, f: Callable):
-        """reduce(f) as a JobFuture (jobs.py): what reduce refuses raises
-        here; an empty RDD raises through the future."""
+        """reduce(f) as a JobFuture (jobs.py): its device launch here, its
+        host fold on the job worker; an f that does not trace is the host
+        RDD layer's reduce there, as the reference's reduce_async (a host
+        job) takes it. An empty RDD raises through the future."""
         from vega_tpu_torch import host_actions
         return host_actions.reduce_async(self, f)
 
@@ -1955,17 +2126,29 @@ def dense_range(ctx, n: int, dtype=torch.int32,
     return _SourceRDD(ctx, block_lib.block_range(n, ctx.mesh, dtype))
 
 
-def dense_from_numpy(ctx, columns) -> DenseRDD:
+def dense_from_numpy(ctx, columns, num_partitions=None) -> RDD:
     """columns: one array (values), two arrays (keys, values), or three
-    and more, named c0, c1, ... (an un-keyed named block)."""
+    and more, named c0, c1, ... (an un-keyed named block). Arrays no block
+    holds (an object column, uint64 past int64, ...) are the host tier's
+    rows instead: ctx.parallelize of the values, (k, v) pairs or tuples
+    into num_partitions slices, as the reference degrades them."""
     if len(columns) == 1:
         cols = {VALUE: np.asarray(columns[0])}
     elif len(columns) == 2:
         cols = {KEY: np.asarray(columns[0]), VALUE: np.asarray(columns[1])}
     else:
         cols = {f"c{i}": np.asarray(c) for i, c in enumerate(columns)}
-    return _SourceRDD(ctx, block_lib.from_numpy(
-        cols, ctx.mesh, dict_enabled=ctx.dense_dict_enabled))
+    try:
+        blk = block_lib.from_numpy(cols, ctx.mesh,
+                                   dict_enabled=ctx.dense_dict_enabled)
+    except VegaError as e:
+        if KEY in cols and cols[KEY].ndim != 1:
+            raise  # the reference's block holds it; its exchange raises
+        log.info("dense_from_numpy fell back to the host RDD layer: %s", e)
+        lists = [np.asarray(c).tolist() for c in columns]
+        rows = lists[0] if len(lists) == 1 else list(zip(*lists))
+        return ctx.parallelize(rows, num_partitions)
+    return _SourceRDD(ctx, blk)
 
 
 def dense_from_columns(ctx, columns: Optional[dict] = None,
@@ -1999,8 +2182,18 @@ def dense_from_columns(ctx, columns: Optional[dict] = None,
             raise VegaError(f"column {KEY!r} already exists; key={key!r} "
                             "would overwrite it — rename one of them")
         named[KEY] = named.pop(key)
-    return _SourceRDD(ctx, block_lib.from_numpy(
-        named, ctx.mesh, dict_enabled=ctx.dense_dict_enabled))
+    try:
+        blk = block_lib.from_numpy(named, ctx.mesh,
+                                   dict_enabled=ctx.dense_dict_enabled)
+    except VegaError as e:
+        if set(named) != {KEY, VALUE} or named[KEY].ndim != 1:
+            raise  # a named block has no host row form to degrade to
+        # the canonical pair layout degrades as dense_from_numpy's
+        log.info("dense_from_columns fell back to the host RDD layer: %s",
+                 e)
+        return ctx.parallelize(list(zip(named[KEY].tolist(),
+                                        named[VALUE].tolist())))
+    return _SourceRDD(ctx, blk)
 
 
 def dense_from_block(ctx, blk: Block, hash_placed: bool = False
@@ -2063,14 +2256,16 @@ def _cols_to_row(cols, schema):
 def _yield_rows(cols: Dict[str, np.ndarray]):
     """One shard's rows as the reference's DenseRDD.compute yields them:
     values or (k, v) pairs as Python scalars, any other layout as tuples
-    of each column's numpy scalars."""
+    of each column's numpy scalars in the order of the column names (the
+    reference reads a shard's columns through jax.device_get, whose dict
+    comes back ordered by key)."""
     names = list(cols)
     if names == [VALUE]:
         yield from cols[VALUE].tolist()
     elif set(names) == {KEY, VALUE}:
         yield from zip(cols[KEY].tolist(), cols[VALUE].tolist())
     else:
-        arrs = [cols[n] for n in names]
+        arrs = [cols[n] for n in sorted(names)]
         for i in range(len(arrs[0]) if arrs else 0):
             yield tuple(c[i] for c in arrs)
 
@@ -2084,6 +2279,62 @@ def _host_rows(cols: Dict[str, np.ndarray]) -> list:
     if set(names) == {KEY, VALUE}:
         return list(zip(cols[KEY].tolist(), cols[VALUE].tolist()))
     return list(zip(*[cols[n].tolist() for n in names]))
+
+
+# a named op's function, where a named fold runs on the host tier
+_NAMED_FUNCS = {"add": operator.add, "prod": operator.mul, "min": min,
+                "max": max}
+
+
+def _host_expand(f):
+    """map_expand's f as the reference's host tier runs it (a flat_map):
+    f's outputs of one row as a list of rows."""
+
+    def expand(x):
+        out = f(x)
+        if isinstance(out, tuple):
+            return list(zip(*[np.asarray(o).tolist() for o in out]))
+        return np.asarray(out).tolist()
+    return expand
+
+
+def _host_ragged(f, max_out: int):
+    """flat_map_ragged's f as the reference's host tier runs it: the
+    leading n entries of its payload, n clamped to [0, max_out] as on the
+    device."""
+
+    def expand(x):
+        out, n = f(x)
+        n = max(0, min(int(n), max_out))
+        if isinstance(out, tuple):
+            ks, vs = (np.asarray(o)[:n] for o in out)
+            return list(zip(ks.tolist(), vs.tolist()))
+        return np.asarray(out)[:n].tolist()
+    return expand
+
+
+def _first(kv):
+    return kv[0]
+
+
+def _fill_emit(fill_value):
+    """A cogroup's (lvs, rvs) as left-outer rows, fill_value where no
+    right row matched (per group, so a None right value is a value)."""
+
+    def emit(groups):
+        lvs, rvs = groups
+        if not rvs:
+            return [(lv, fill_value) for lv in lvs]
+        return [(lv, rv) for lv in lvs for rv in rvs]
+    return emit
+
+
+def _dense_or_refuse(node):
+    """node where it is still a DenseRDD; _NotTraceable where a step fell
+    to the host RDD layer, so the whole op does, as the reference's."""
+    if not isinstance(node, DenseRDD):
+        raise _NotTraceable("a step of the op does not trace")
+    return node
 
 
 def _value_to_key(side: DenseRDD, f) -> "_MapRDD":
@@ -2167,7 +2418,7 @@ def _wide_binop(f, wide: torch.dtype, what: str):
     out = _traced(f, (p, p), f"{what} binop", literal_rule=False)
     if not isinstance(out, torch.Tensor) or out.shape != p.shape \
             or out.dtype != wide:
-        raise _no_host_tier(f"{what} binop {f!r} must map two {wide} "
+        raise _NotTraceable(f"{what} binop {f!r} must map two {wide} "
                             f"columns to one {wide} column")
     return f
 
@@ -2236,29 +2487,28 @@ def _row_view(cols, schema):
             if nm in cols}
 
 
-class _LiteralRefusal(VegaError):
+class _LiteralRefusal(_NotTraceable):
     """A closure the reference's trace refuses only for a Python int past
     int32 (tracing.LiteralOverflow, or such a constant output): the
     reference runs it on its host tier, and the port in that tier's row
-    form (host_rows.py)."""
+    form on the device (host_rows.py) where that form holds the op, else
+    on its host RDD layer."""
 
 
 def _traced(f, args, what: str, literal_rule: bool = True):
-    """f(*args) on probe tensors, under the reference's literal rule
-    (tracing.int32_literals: a Python int past int32 raises); a failure
-    means f does not run on column tensors: the reference would hand it
-    to its host tier."""
+    """f(*args) on probe tensors under tracing.reference_trace: what
+    jax's trace refuses (numpy or Python conversions of the row, a hash
+    of it, and with literal_rule a Python int past int32) raises here on
+    every device. Any failure means f does not trace: _LiteralRefusal for
+    the literal rule alone, else _NotTraceable."""
     try:
-        if not literal_rule:
-            return f(*args)
-        with tracing.int32_literals():
+        with tracing.reference_trace(literals=literal_rule):
             return f(*args)
     except tracing.LiteralOverflow as e:
         raise _LiteralRefusal(f"{what} {f!r} does not run on column "
-                              f"tensors ({type(e).__name__}: {e})"
-                              + HOST_TIER_SUFFIX) from e
+                              f"tensors ({type(e).__name__}: {e})") from e
     except Exception as e:  # noqa: BLE001 — any failure means "no trace"
-        raise _no_host_tier(f"{what} {f!r} does not run on column tensors "
+        raise _NotTraceable(f"{what} {f!r} does not run on column tensors "
                             f"({type(e).__name__}: {e})") from e
 
 
@@ -2271,23 +2521,22 @@ def _column_dtype(x, shape, what: str) -> torch.dtype:
     float32, bool -> bool."""
     if isinstance(x, torch.Tensor):
         if tuple(x.shape) != tuple(shape):
-            raise VegaError(f"{what} must be one scalar per row, got shape "
-                            f"{tuple(x.shape)} for rows {tuple(shape)} (a "
-                            "constant is a Python scalar)")
+            raise _NotTraceable(f"{what} must be one scalar per row, got "
+                                f"shape {tuple(x.shape)} for rows "
+                                f"{tuple(shape)}")
         dt = coltypes.logical_dtype(x)
     elif isinstance(x, (bool, np.bool_)):
         dt = torch.bool
     elif isinstance(x, int):
         if not kernels.INT32_MIN <= x <= kernels.INT32_MAX:
-            raise _LiteralRefusal(f"{what}: constant {x} outside int32"
-                                  + HOST_TIER_SUFFIX)
+            raise _LiteralRefusal(f"{what}: constant {x} outside int32")
         dt = torch.int32
     elif isinstance(x, float):
         dt = torch.float32
     elif isinstance(x, np.generic):
         dt = torch.from_numpy(np.asarray(x)).dtype
     else:
-        raise _no_host_tier(f"{what} of type {type(x).__name__} (neither a "
+        raise _NotTraceable(f"{what} of type {type(x).__name__} (neither a "
                             "tensor nor a constant)")
     if dt not in _COLUMN_DTYPES:
         raise VegaError(f"{what} has dtype {dt}; the block dtype contract "
@@ -2346,7 +2595,7 @@ def _check_binop(func, dtypes, what: str):
     Returns the binop over stored columns: a logical column's values go
     in as the row form (coltypes.to_row) and the result comes back stored,
     wrapped to its dtype. A binop that fails the checks, or branches on a
-    value, raises VegaError when the op is built. (A traced + of two bool
+    value, raises _NotTraceable when the op is built. (A traced + of two bool
     columns is a logical or, as jnp's; the NAMED add / prod over bool is
     what the reference refuses: _ReduceByKeyRDD.)"""
     probe = [_probe(dt, (1, 0)) for dt in dtypes]
@@ -2354,14 +2603,14 @@ def _check_binop(func, dtypes, what: str):
     out = _traced(func, (arg, arg), f"{what} binop")
     outs = [out] if len(probe) == 1 else out
     if not isinstance(outs, (tuple, list)) or len(outs) != len(probe):
-        raise _no_host_tier(f"{what} binop over {len(probe)} value columns "
+        raise _NotTraceable(f"{what} binop over {len(probe)} value columns "
                             f"must return a {len(probe)}-tuple")
     for p, o, dt in zip(probe, outs, dtypes):
         if not isinstance(o, torch.Tensor) or o.shape != p.shape:
-            raise _no_host_tier(f"{what} binop must return one scalar per "
+            raise _NotTraceable(f"{what} binop must return one scalar per "
                                 "value column")
         if coltypes.logical_dtype(o) != dt:
-            raise _no_host_tier(
+            raise _NotTraceable(
                 f"{what} binop changes the value dtype ({dt} -> "
                 f"{coltypes.logical_dtype(o)}); cast the column first so the block schema "
                 "stays truthful")
@@ -2381,12 +2630,19 @@ def _trace_row_fn(f, schema, n_shards: int):
     """Trace f once on probe columns to learn its output structure: a
     value or a (key, value) pair, each a column or a constant
     (_column_dtype). Returns (out_schema, cols_fn), where cols_fn maps a
-    column dict to a column dict; anything else raises VegaError (no
-    implicit fall-back to the host tier)."""
+    column dict to a column dict; anything else raises _NotTraceable."""
     shape = (n_shards, 0)
     out = _traced(f, (_cols_to_row(_probe_cols(schema, n_shards), schema),),
                   "row function")
     pair = isinstance(out, tuple) and len(out) == 2
+    if pair:
+        for x in out:
+            if x is None or isinstance(x, (tuple, list, dict)):
+                # jax's trace gives a container no shape, and the
+                # reference's scalar check of a pair's outputs raises
+                # AttributeError reading it: so does the port
+                raise AttributeError(f"{type(x).__name__!r} object has no "
+                                     "attribute 'shape'")
     names = (KEY, VALUE) if pair else (VALUE,)
     out_schema = tuple(
         (nm, _column_dtype(x, shape, f"row function output {nm!r}"))
@@ -2445,6 +2701,7 @@ class _NarrowRDD(DenseRDD):
 
 
 class _MapRDD(_NarrowRDD):
+
     def __init__(self, parent: DenseRDD, f):
         out_schema, cols_fn = _trace_row_fn(f, parent._schema(),
                                             parent.n_shards)
@@ -2569,11 +2826,15 @@ def _align_keys(a: DenseRDD, b: DenseRDD, op: str):
     hash to one shard and compare equal in the merge. String keys of two
     dictionaries are remapped onto their merged one (_unify_dict_cols).
     Sides of one key dtype and width pass as they are; an int32 key
-    meeting a two-column int64 key widens (_WidenKeyRDD). Any other mix
-    raises: an int32 2 and a float32 2.0 hash apart on the device but
-    compare equal on the host, so the reference hands it to its host
-    tier."""
-    a, b = _unify_or_refuse(a, b, (KEY,), op)
+    meeting a two-column int64 key widens (_WidenKeyRDD). Any other mix,
+    or a string key against plain values, raises _NotTraceable: an int32
+    2 and a float32 2.0 hash apart on the device but compare equal on the
+    host, so the reference hands it to its host tier."""
+    pair = _unify_dict_cols(a, b, (KEY,))
+    if pair is None:
+        raise _NotTraceable(f"{op} of a string (dictionary-encoded) key "
+                            "against plain values")
+    a, b = pair
     sa, sb = dict(a._schema()), dict(b._schema())
     if a.wide_key == b.wide_key:
         if sa[KEY] == sb[KEY]:
@@ -2584,7 +2845,7 @@ def _align_keys(a: DenseRDD, b: DenseRDD, op: str):
             widened = _WidenKeyRDD(narrow)
             return (a, widened) if a.wide_key else (widened, b)
     describe = {True: "two-column int64"}
-    raise _no_host_tier(
+    raise _NotTraceable(
         f"{op}: key dtypes differ ({describe.get(a.wide_key, sa[KEY])} vs "
         f"{describe.get(b.wide_key, sb[KEY])}), and equal keys would hash "
         "apart on the device")
@@ -2722,16 +2983,6 @@ def _unify_dict_cols(a: DenseRDD, b: DenseRDD, names):
     return _DictUnifyRDD(a, unif, 0), _DictUnifyRDD(b, unif, 1)
 
 
-def _unify_or_refuse(a: DenseRDD, b: DenseRDD, names, op: str):
-    """_unify_dict_cols, raising where the reference hands the op to its
-    host tier (a string column against plain values)."""
-    pair = _unify_dict_cols(a, b, names)
-    if pair is None:
-        raise _no_host_tier(f"{op} of a string (dictionary-encoded) column "
-                            "against plain values")
-    return pair
-
-
 class _SampleRDD(_NarrowRDD):
     """Per-shard Bernoulli sampling on the reference's stream: shard s
     keys threefry with fold_in(PRNGKey(seed), s), row i keeps when
@@ -2761,6 +3012,7 @@ class _SampleRDD(_NarrowRDD):
 
 
 class _SelectRDD(_NarrowRDD):
+
     def __init__(self, parent: DenseRDD, names):
         pschema = dict(parent._schema())
         super().__init__(parent, tuple((n, pschema[n]) for n in names))
@@ -2895,7 +3147,7 @@ def _payload_schema(payload, n_shards: int, width: int, what: str):
     for nm, x in zip((KEY, VALUE) if pair else (VALUE,),
                      payload if pair else (payload,)):
         if not (isinstance(x, torch.Tensor) and tuple(x.shape) == shape):
-            raise _no_host_tier(
+            raise _NotTraceable(
                 f"{what} output {nm!r} must be a tensor computed from the "
                 f"row with a trailing dim of {width} (e.g. torch.stack(..., "
                 "dim=-1))")
@@ -2919,17 +3171,8 @@ class _ExpandRDD(DenseRDD):
         self._width = width
         self._dict_renames = {}  # f mints its outputs
         schema = parent._schema()
-        try:
-            self._probe_out = _traced(f, (_cols_to_row(_probe_cols(
-                schema, parent.n_shards), schema),), what)
-        except _LiteralRefusal as e:
-            # no host-row form: the reference's host tier calls f on one
-            # Python value a row, which takes no array expansion
-            raise _no_host_tier(
-                f"{what} {f!r} holds a Python int outside int32, which "
-                "sends it to the reference's host tier; there f gets one "
-                "Python value a row, takes no array expansion and fails "
-                f"({e.__cause__})") from e
+        self._probe_out = _traced(f, (_cols_to_row(_probe_cols(
+            schema, parent.n_shards), schema),), what)
 
     def _schema(self):
         return self._out_schema
@@ -3005,7 +3248,7 @@ class _FlatMapRaggedRDD(_ExpandRDD):
         super().__init__(parent, f, max_out, "flat_map_ragged")
         out = self._probe_out
         if not (isinstance(out, tuple) and len(out) == 2):
-            raise _no_host_tier("flat_map_ragged function must return "
+            raise _NotTraceable("flat_map_ragged function must return "
                                 "(payload, n_valid)")
         self._out_schema = _payload_schema(
             out[0], parent.n_shards, max_out, "flat_map_ragged")
@@ -3369,8 +3612,9 @@ def _unrepaired_raise():
 
 def _with_exchange(node, exchange: Optional[str]):
     """An op's exchange= keyword: forces (or, 'auto', plans) the node's
-    exchange program; None keeps the Context's dense_exchange."""
-    if exchange is not None:
+    exchange program; None keeps the Context's dense_exchange. A host RDD
+    (the op fell to the host tier) has no exchange and takes none."""
+    if exchange is not None and isinstance(node, DenseRDD):
         node.exchange_mode = exchange_plan.check_mode(exchange)
     return node
 
@@ -4233,7 +4477,10 @@ def frame_join(left: DenseRDD, right: DenseRDD, outer: bool = False,
         rnames + ["r_" + nm for nm in rnames])  # merge_join_expand's names
     if overlap:
         raise VegaError(f"frame_join: both sides carry {sorted(overlap)}")
-    left, right = _align_keys(left, right, "join")
+    try:
+        left, right = _align_keys(left, right, "join")
+    except _NotTraceable as e:
+        raise _no_host_tier(str(e)) from e
     if outer:
         if fill_value is None:
             raise _no_host_tier("a left join with fill_value=None (a dense "
@@ -4532,10 +4779,10 @@ class _CartesianDenseRDD(DenseRDD):
                 [budget], dtype=torch.int64, device=left.mesh.device),
                 "min").item())
         if need > budget:
-            raise VegaError(
+            raise _NotTraceable(
                 f"cartesian product (~{out_cap} rows per shard, ~{need} "
-                f"bytes) exceeds the device's free memory ({budget} bytes); "
-                "to_rdd().cartesian(...) streams it on the host tier")
+                f"bytes) exceeds the device's free memory ({budget} bytes): "
+                "the host tier's lazy product streams it")
         super().__init__(left.context, left.mesh, [left, right])
         self.left = left
         self.right = right

@@ -40,6 +40,7 @@ from vega_tpu_torch import random as vrandom
 from vega_tpu_torch.block import Block
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.partial import BoundedDouble, PartialResult, final
+from vega_tpu_torch.rdd.base import RDD
 
 
 # ---------------------------------------------------------------------------
@@ -157,10 +158,6 @@ def _column_hash(node, blk: Block, name: str) -> torch.Tensor:
     schema = dict(node._schema())
     dicts = node._dicts()
     col = blk.cols[name]
-    if col.dim() > 2:
-        raise dr._no_host_tier(f"count_approx_distinct over the column "
-                               f"{name!r} with trailing dims (a row holds a "
-                               "list, which the reference cannot hash)")
     lo = block_lib.lo_of(name)
     if name in dicts:
         table = torch.from_numpy(hll.hash_strings(dicts[name])).to(
@@ -177,29 +174,23 @@ def _column_hash(node, blk: Block, name: str) -> torch.Tensor:
     return hll.hash_column(row, "float" if dt.is_floating_point else "int")
 
 
-def _row_tree(node):
-    """The nesting of a row's logical columns, as collect() forms rows: a
-    name, or a tuple of trees; None where a row holds a list."""
-    tree = node._row_tree()
-    if tree is None:
-        raise dr._no_host_tier(f"count_approx_distinct over the rows of "
-                               f"{type(node).__name__} (a row holds a "
-                               "list, which the reference cannot hash)")
-    return tree
-
-
 def count_approx_distinct(node, relative_sd: float = 0.05) -> int:
     """The reference's HyperLogLog estimate of the number of distinct
-    rows, its registers built on the device."""
+    rows, its registers built on the device. Where a row holds a list (a
+    grouped node, a column with trailing dims), the host RDD layer's,
+    which fails hashing it as the reference's does."""
     p = hll.precision_for(relative_sd)
+    tree = node._row_tree()
     blk = node.block()
+    if tree is None or any(c.dim() > 2 for c in blk.cols.values()):
+        return RDD.count_approx_distinct(node, relative_sd)
 
     def hashed(tree):
         if isinstance(tree, tuple):
             return hll.hash_tuple([hashed(t) for t in tree])
         return _column_hash(node, blk, tree)
 
-    h = hashed(_row_tree(node))
+    h = hashed(tree)
     valid = kernels.valid_mask(blk.capacity, blk.counts)
     reg = hll.registers(h, valid, p).to(torch.uint8)
     merged = mesh_lib.host_get(blk.mesh, reg).max(axis=0)
@@ -223,11 +214,11 @@ def _finals(counts: dict) -> dict:
 def mean_approx(node, timeout_s: float, confidence: float = 0.95):
     """The rows' mean: each shard's float64 sum and count in one fetch,
     summed on the host in shard order (the reference adds the rows as
-    Python floats); no rows give the reference's nan interval."""
-    if node.is_pair:
-        raise dr._no_host_tier("mean_approx over pairs (the reference adds "
-                               "(k, v) tuples)")
-    node._refuse_dict_rows("mean_approx")
+    Python floats); no rows give the reference's nan interval. Over
+    pairs, strings or a named block, the host RDD layer's, which adds the
+    rows as the reference's does."""
+    if node.is_pair or node._dicts() or not node._value_rows():
+        return RDD.mean_approx(node, timeout_s, confidence)
     vals, _, blk = node._value_row_tensor("mean_approx")
     mask = kernels.valid_mask(blk.capacity, blk.counts)
     sums = torch.where(mask, vals.to(torch.float64), 0.0).sum(dim=1)
@@ -266,7 +257,7 @@ def reduce_async(node, f):
     """reduce(f)'s checks and device launch here, its fetch and host fold
     on the worker (here too across processes); an empty RDD raises
     VegaError through the future."""
-    finish = node._reduce_launch(f)
+    finish = node._reduce_launch(f, traced=False)
     if node.mesh.collective:
         try:
             value = finish()

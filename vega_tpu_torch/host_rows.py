@@ -43,6 +43,7 @@ from vega_tpu_torch import coltypes
 from vega_tpu_torch import dense_rdd as dr
 from vega_tpu_torch import kernels
 from vega_tpu_torch import mesh as mesh_lib
+from vega_tpu_torch import tracing
 from vega_tpu_torch.block import KEY, KEY_LO, VALUE
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.wideint import I32_MAX, I32_MIN, I64_MAX, I64_MIN, WideInt
@@ -101,7 +102,7 @@ def _probe_cols(schema, n_shards: int):
 def refuse_strings(node, op: str) -> None:
     d = node._dicts()
     if d:
-        raise dr._no_host_tier(
+        raise dr._NotTraceable(
             f"{op} over the string (dictionary-encoded) columns "
             f"{sorted(d)} (the host tier's closure sees the strings)")
 
@@ -109,13 +110,17 @@ def refuse_strings(node, op: str) -> None:
 def _traced(what: str, f, sink: list, *args):
     """f(*args) on probe columns in the row form, whose operations record
     their overflow flags in sink; (output, flagged): flagged when one
-    was recorded."""
+    was recorded. It traces under tracing.reference_trace (no literal
+    rule: the row form holds exact int64), so what jax's trace refuses
+    (numpy or a Python conversion of the row, a hash of it) fails here
+    too, and the op is the host RDD layer's (dr._NotTraceable)."""
     try:
-        out = f(*args)
+        with tracing.reference_trace(literals=False):
+            out = f(*args)
     except VegaError:
         raise
     except Exception as e:  # noqa: BLE001 — any failure means "no form"
-        raise dr._no_host_tier(
+        raise dr._NotTraceable(
             f"{what} {f!r} does not run on the host tier's row form "
             f"({type(e).__name__}: {e})") from e
     return out, _flagged(sink)
@@ -163,11 +168,12 @@ def out_kind(x, shape, what: str) -> str:
             return "int32" if I32_MIN <= x <= I32_MAX else "wide"
         if isinstance(x, float):
             return "float64"
-        raise dr._no_host_tier(f"{what} of type {type(x).__name__} (neither "
-                               "a column nor a constant)")
+        raise dr._NotTraceable(f"{what} of type {type(x).__name__} "
+                               "(neither a column nor a constant)")
     if tuple(x.shape) != tuple(shape):
-        raise VegaError(f"{what} must be one scalar per row, got shape "
-                        f"{tuple(x.shape)} for rows {tuple(shape)}")
+        raise dr._NotTraceable(f"{what} must be one scalar per row, got "
+                               f"shape {tuple(x.shape)} for rows "
+                               f"{tuple(shape)}")
     return kind
 
 
@@ -314,7 +320,7 @@ class HostMapValuesRDD(dr._NarrowRDD):
                 f"{[c[0] for c in logical]})")
         self._vcol = logical[0]
         if self._vcol[0] in parent._dicts():
-            raise dr._no_host_tier("map_values over a string "
+            raise dr._NotTraceable("map_values over a string "
                                    "(dictionary-encoded) value column")
         vschema = [(nm, dt) for nm, dt in parent._schema()
                    if nm in (self._vcol[0], block_lib.lo_of(self._vcol[0]))]
@@ -439,7 +445,7 @@ class HostBinop:
         out, _ = _traced(f"{what} binop", f, sink, arg, arg)
         outs = [out] if len(probe) == 1 else out
         if not isinstance(outs, (tuple, list)) or len(outs) != len(probe):
-            raise dr._no_host_tier(f"{what} binop over {len(probe)} value "
+            raise dr._NotTraceable(f"{what} binop over {len(probe)} value "
                                    f"columns must return a {len(probe)}-"
                                    "tuple")
         for nm, o in zip(self.names, outs):
@@ -465,7 +471,7 @@ class HostBinop:
         if not isinstance(o, torch.Tensor) or o.dim() != 2 or (
                 (o.dtype == torch.bool) != (kind == "bool")) or (
                 o.dtype.is_floating_point != (kind == "float")):
-            raise dr._no_host_tier(
+            raise dr._NotTraceable(
                 f"{self.what} binop must map the value column {nm!r} to "
                 f"one {kind} per row (the kind a column holds stays)")
         return o.to(self._dtype(nm))
@@ -600,8 +606,9 @@ def keyed_fold(node: dr.DenseRDD, zero, seq, comb) -> dr.DenseRDD:
     seq(zero, seq-reduce of them). So each shard reduces its rows by key
     with seq (ShardFoldRDD), each result becomes seq(zero, c), and comb
     reduces them across shards."""
-    return ShardFoldRDD(node, seq).map_values(
-        _zero_first(seq, zero)).reduce_by_key(comb)
+    folded = dr._dense_or_refuse(ShardFoldRDD(node, seq).map_values(
+        _zero_first(seq, zero)))
+    return dr._dense_or_refuse(folded.reduce_by_key(comb))
 
 
 def _zero_first(seq, zero):

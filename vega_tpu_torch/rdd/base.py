@@ -364,10 +364,12 @@ class RDD(PairOpsMixin):
                         np.asarray([v for _k, v in rows]))
             else:
                 cols = (np.asarray(rows),)
-            return dense_rdd.dense_from_numpy(self.context, cols)
+            lifted = dense_rdd.dense_from_numpy(self.context, cols)
         except VegaError as e:
             log.info("dense() stays on the host tier: %s", e)
             return self
+        # rows no block holds come back parallelized: this RDD stays
+        return lifted if isinstance(lifted, dense_rdd.DenseRDD) else self
 
     def pipe(self, command):
         """Each partition through an external command (argv list, or a

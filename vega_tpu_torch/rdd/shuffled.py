@@ -16,8 +16,11 @@ a reduce partition is that hash map's, otherwise it is this one."""
 
 from __future__ import annotations
 
+import copy
 import weakref
 from typing import Iterator, List
+
+import numpy as np
 
 from vega_tpu_torch.aggregator import Aggregator
 from vega_tpu_torch.dependency import ShuffleDependency
@@ -95,13 +98,28 @@ class ShuffledRDD(RDD):
         return self.partitioner.num_partitions
 
     def compute(self, split: Split, task_context=None) -> Iterator:
+        """The partition's buckets merged in map-partition order. Each
+        read merges copies of the stored combiners (the reference reads
+        unpickled copies), so a merge_combiners that extends its first
+        argument, or a caller that mutates a row, leaves the map outputs
+        as they were for the next read."""
         merge_combiners = self.aggregator.merge_combiners
+        fresh = list if self.aggregator.is_group else _fresh
         combiners: dict = {}
         buckets = map_outputs(self.shuffle_dep)[split.index]
         for rows in buckets:
             for k, c in rows:
                 if k in combiners:
-                    combiners[k] = merge_combiners(combiners[k], c)
+                    combiners[k] = merge_combiners(combiners[k], fresh(c))
                 else:
-                    combiners[k] = c
+                    combiners[k] = fresh(c)
         return iter(combiners.items())
+
+
+_ATOMS = (int, float, complex, str, bytes, bool, type(None), np.generic)
+
+
+def _fresh(c):
+    """A stored combiner as a new object: immutable values as they are,
+    anything else deep-copied."""
+    return c if isinstance(c, _ATOMS) else copy.deepcopy(c)

@@ -32,6 +32,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from vega_tpu_torch import dense_rdd
 from vega_tpu_torch.errors import CollectiveError, KernelError, VegaError
 
 log = logging.getLogger(__name__)
@@ -54,8 +55,11 @@ def fold_pairs_device(ctx, pairs, op: str) -> Optional[Dict]:
         # non-integer keys or non-numeric values have no dense encoding
         return None
     try:
-        reduced = ctx.dense_from_numpy(keys, vals).reduce_by_key(op=op)
-        out = dict(reduced.collect())
+        rdd = ctx.dense_from_numpy(keys, vals)
+        if not isinstance(rdd, dense_rdd.DenseRDD):
+            # keys no block holds came back as the host tier's rows
+            return None
+        out = dict(rdd.reduce_by_key(op=op).collect())
     except (KernelError, CollectiveError):
         raise
     except VegaError as e:

@@ -21,9 +21,12 @@ runs the ordinary device pipelines chunk by chunk:
 Everything else runs on the resident build (resident(), memoized), which
 needs the whole dataset on the device (the host RDD layer's names too:
 glom, to_rdd, ...). The reference falls back to its host tier when a
-closure does not trace; the port does not fall back on its own, so the
-same probe (a few-row block of the stream's schema) raises the VegaError
-of the op's build-time checks before any chunk runs.
+closure does not trace, by a probe (a few-row block of the stream's
+schema) before any chunk runs: the op then runs on the resident build,
+which hands it to the host tier. The port decides on the same probe: the
+op's build-time checks raise there, and a closure that does not stay on
+the device (the host RDD layer's node, or the host tier's row form of
+host_rows.py) runs on the resident build, as the reference's.
 
 Chunks are sized as the reference sizes them (planned_chunk_rows): by the
 exchange planner under Context(dense_exchange="auto"), so a chunk is the
@@ -92,21 +95,12 @@ def planned_chunk_rows(n_rows: int, bytes_per_row: int, budget_bytes: int,
     return max(128, 1 << (rows.bit_length() - 1))
 
 
-def _no_host_rows(apply):
-    """apply, refusing a result the reference runs on its host tier (a
-    closure its trace refuses, such as one holding a Python int past
-    int32, runs there on the stream's resident rows): the port's host-row
-    form (host_rows.py) would run per chunk, where the recorded
-    difference keeps a stream's untraceable closures refused at build."""
-    def checked(chunk):
-        out = apply(chunk)
-        if isinstance(out, dense_rdd.DenseRDD) and out.host_rows:
-            raise dense_rdd._no_host_tier(
-                "a streamed source's closure that the reference runs on "
-                "its host tier (a Python int outside int32, or a wide "
-                "int64 column; the port refuses it when built)")
-        return out
-    return checked
+def _on_the_device(node) -> bool:
+    """Whether a probe's result stays on the device as the reference's
+    stream would stream it: a DenseRDD not in the host tier's row form
+    (host_rows.py). Anything else is what the reference hands to its host
+    tier, which it runs on the stream's resident build."""
+    return isinstance(node, dense_rdd.DenseRDD) and not node.host_rows
 
 
 class StreamedDenseRDD:
@@ -148,16 +142,17 @@ class StreamedDenseRDD:
         return getattr(self.resident(), name)
 
     # --- narrow ops: compose per chunk -------------------------------------
-    def _per_chunk(self, apply) -> "StreamedDenseRDD":
-        apply = _no_host_rows(apply)
+    def _per_chunk(self, apply):
         make = self._make_chunks
         make_probe = self._make_probe
-        # the op's build-time checks run on the probe: what has no device
-        # form raises here, before any chunk runs (the reference's resident
-        # fallback to its host tier)
+        # the op's build-time checks run on the probe, before any chunk:
+        # what has no device form raises here, and a closure the
+        # reference's trace refuses takes the resident build's answer
+        # (which falls to the host tier there), as the reference's does
         probe = make_probe()
-        if probe is not None:
-            apply(probe)
+        if probe is not None and not _on_the_device(apply(probe)):
+            log.info("streamed op: closure not traceable, resident build")
+            return apply(self.resident())
 
         def chunks():
             for chunk in make():
@@ -226,9 +221,12 @@ class StreamedDenseRDD:
         to every reduce; partitioner_or_num is ignored, as
         DenseRDD.reduce_by_key's."""
         probe = self._make_probe()
-        if probe is not None:  # checks
-            _no_host_rows(lambda c: c.reduce_by_key(
-                func, op=op, exchange=exchange))(probe)
+        if probe is not None and not _on_the_device(probe.reduce_by_key(
+                func, op=op, exchange=exchange)):
+            log.info("streamed reduce_by_key: combiner not traceable, "
+                     "resident build")
+            return self.resident().reduce_by_key(
+                func, partitioner_or_num, op=op, exchange=exchange)
         acc = None
         for i, chunk in enumerate(self._make_chunks()):
             partial = chunk.reduce_by_key(func, op=op, exchange=exchange)
@@ -285,8 +283,8 @@ class StreamedDenseRDD:
     def take_ordered(self, n: int, key=None) -> list:
         """The n smallest elements: each chunk's device take_ordered gives
         at most n candidates, and the host keeps the running best n. A
-        key function runs on the resident build, which refuses it as
-        DenseRDD.take_ordered does (no implicit host tier)."""
+        key function runs on the resident build, whose host RDD layer
+        takes it, as DenseRDD.take_ordered does."""
         if key is not None:
             return self.resident().take_ordered(n, key)
         return self._stream_best(n, "take_ordered", reverse=False)
