@@ -144,8 +144,9 @@ Phases, in order; any failure exits non-zero before the last line:
      within rtol 1e-5);
      (c) 2M rows of sku-%06d string keys grouped and joined to a
      100,000-row dims frame on the key, exact, the host encode apart;
-     (d) an untraceable UDF raising VegaError at explain() before any
-     device work. All on create_frame: the card's machine has no pyarrow,
+     (d) an untraceable UDF: the plan compiles on the host tier at
+     explain() with no device work, and its rows equal numpy's. All on
+     create_frame: the card's machine has no pyarrow,
      so the parquet scan is held against the reference on the CPU only;
  11. persist(level), the GF(256) decode and the streaming fold: (a)
      bench-main's reduce persist("MEMORY_AND_DISK") at K = 1M and K = 20M
@@ -335,6 +336,20 @@ Phases, in order; any failure exits non-zero before the last line:
      and lift parts apart, the step peak. (f) F21: numpy, math, float(),
      a branch, a hash and .item() on a row: the same tier (a host
      MapperRDD) and the same rows on the card as on the CPU.
+ 21. the row view and the frame planner's host tier, each case against
+     numpy: (a) bench-main's chain (20M rows, 1M keys) with the value
+     round(x.astype(np.float32) * 0.5, 1), reduced, joined with the
+     K-row table and counted (a device _MapRDD; all three kernels), and
+     the x.ndim / x.size and divmod(x, 7) closures at 2M rows, reduced
+     by key, and round(x.astype(np.float32) * 0.37, 1) at 2M rows,
+     equal to numpy's float32 replay bit for bit; (b) five frame queries on the host tier over a 400K-row
+     fact frame and a 100K-row sku-%06d dimension: a string
+     concatenation's group-by, a numpy UDF, a left join filling None, a
+     string fill over a number column, the frame query under
+     hint(tier="host"); (c) to_rdd() of a 20M-row device group-by to 1M
+     keys, lifted back by dense() and counted. Each case once cold and
+     P21_WARM times warm: median ms, the card, host and lift parts
+     apart, the step peak.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
@@ -343,8 +358,8 @@ line per phase-11 size, gf256 row and fold op, one line per phase-12
 item, one line per phase-13 leg and rank and per 13d query (one process
 and each rank), one line per phase-14 item and 14c rank, one line per
 phase-15, phase-16 and phase-17 query, one line per phase-18,
-phase-19 and phase-20 case, the kernel table as one JSON line (with
-phases 6-20's launches beside the main path's), the card line, and
+phase-19, phase-20 and phase-21 case, the kernel table as one JSON line
+(with phases 6-21's launches beside the main path's), the card line, and
 last
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
@@ -362,6 +377,10 @@ chiprun_out/p19_<PATH or all>.json.
 
 builds the kernels and runs phase 20 alone; prints one JSON line of each
 case's times, step peak and launches, and writes chiprun_out/p20.json.
+
+    python3 chip_smoke.py --phase 21
+
+the same for phase 21, writing chiprun_out/p21.json.
 
     python3 chip_smoke.py --main-path-ab [--leg LEG] DIR_A DIR_B DIR_B DIR_A
 
@@ -3143,34 +3162,37 @@ def p10_strings(torch, np, ck, vt):
 
 
 def p10_untraceable(torch, np, ck, vt, dense_rdd):
-    """(d) an untraceable UDF raises VegaError at explain(), before any
-    device work: no chain applied, no kernel launched, nothing
-    allocated."""
+    """(d) an untraceable UDF: the plan compiles on the host tier at
+    explain(), with the reason, before any device work (no chain
+    applied, no kernel launched, nothing allocated), and collects
+    numpy's rows there, still launching nothing."""
     from vega_tpu_torch.frame import col, udf
 
     ctx = vt.Context(n_shards=N_SHARDS)
-    df = ctx.create_frame(k=np.arange(1000) % 7, x=np.arange(1000))
+    x = np.arange(1000)
+    df = ctx.create_frame(k=x % 7, x=x)
     q = df.with_column("m", udf(lambda c: np.asarray(c) + 1, col("x")))
     torch.cuda.synchronize()
     ck.reset_launches()
     mints = dense_rdd.program_mints()
     allocated = torch.cuda.memory_allocated()
-    try:
-        q.explain()
-        raised = None
-    except vt.VegaError as e:
-        raised = str(e)
+    text = q.explain()
+    p10_check(f"10d: an untraceable UDF compiles on the host tier "
+              f"({text.splitlines()[0]})",
+              text.startswith("== physical: host tier ==")
+              and "stage does not trace" in text)
+    got = q.collect_columns()
     torch.cuda.synchronize()
-    p10_check(f"10d: explain() of an untraceable UDF raises VegaError "
-              f"({raised})", raised is not None
-              and "stage does not trace" in raised)
-    p10_check("10d: no device work before the error",
+    p10_check("10d: the host tier's rows equal numpy's",
+              np.array_equal(got["x"], x) and np.array_equal(got["m"], x + 1))
+    p10_check("10d: no device work",
               dense_rdd.program_mints() == mints
               and all(c == 0 for c in ck.LAUNCHES.values())
               and torch.cuda.memory_allocated() == allocated)
     ctx.stop()
-    log(f"10d untraceable UDF: {raised}")
-    return dict(raised=raised)
+    reason = text.splitlines()[-1]
+    log(f"10d untraceable UDF: {reason}")
+    return dict(tier="host", reason=reason)
 
 
 def phase_ten(torch, np, ck, vt):
@@ -7404,6 +7426,420 @@ def phase20_leg():
     print(f"card: {card}", flush=True)
 
 
+P21_ROWS = N_ROWS              # 21a: bench-main's chain, row-view methods
+P21_KEYS = N_KEYS
+P21_SMALL = 2_000_000          # 21a: the ndim / divmod closures
+P21_SMALL_KEYS = 1_000
+P21_FACT = 400_000             # 21b: the fact frame, cut from 20M rows
+                               # (at 2M, 21b took 140.5 s of the phase)
+P21_DIM = 100_000              # 21b: the sku-%06d dimension
+P21_THRESHOLD = 500            # 21b: the frame query's filter
+P21_C_ROWS = N_ROWS            # 21c: the device group-by handed to to_rdd
+P21_C_KEYS = N_KEYS
+P21_WARM = 1
+
+
+def p21_check(what, ok):
+    if not ok:
+        fail(f"phase 21: {what}")
+
+
+def p21_close(np, got, exp, rtol):
+    return got.shape == exp.shape and np.allclose(got, exp, rtol=rtol,
+                                                  atol=0.0)
+
+
+def p21_round(np, x, scale):
+    """numpy's replay of round(x.astype(float32) * scale, 1) as the row
+    view computes it (jnp.round's float32 rescale, a multiply by the
+    float32 reciprocal of 10)."""
+    h = x.astype(np.float32) * np.float32(scale)
+    return np.round(h * np.float32(10)) * (np.float32(1) / np.float32(10))
+
+
+def p21_part_a(torch, np, ck, vt, ctx):
+    """21a: F24-F26 on the card. bench-main's chain at P21_ROWS rows with
+    a closure over the row view's astype and round(), reduced, joined
+    with the K-row table and counted (all three kernels); then the ndim /
+    size and the divmod closures at P21_SMALL rows, reduced by key, and
+    round(x * 0.37, 1) at P21_SMALL rows, whose rows (which the rounding
+    changes) must equal numpy's float32 replay bit for bit. Each closure
+    must build a device _MapRDD, as the reference's vmap traces it."""
+    rows = []
+    table = ctx.dense_from_numpy(np.arange(P21_KEYS, dtype=np.int32),
+                                 np.arange(P21_KEYS, dtype=np.float32) * 2)
+    table.block()
+    x = np.arange(P21_ROWS, dtype=np.int64)
+    exp = np.bincount(x % P21_KEYS, weights=p21_round(np, x, 0.5),
+                      minlength=P21_KEYS)
+    del x
+    state = {}
+
+    def build(_):
+        node = ctx.dense_range(P21_ROWS).map(
+            lambda x: (x % P21_KEYS, round(x.astype(np.float32) * 0.5, 1)))
+        p21_check(f"21a: the round / astype map is a device _MapRDD "
+                  f"({type(node).__name__})",
+                  type(node).__name__ == "_MapRDD")
+        return node
+
+    def reduce_join(node):
+        reduced = node.reduce_by_key(op="add")
+        state["reduced"] = reduced
+        return reduced.join(table).count()
+
+    def check(n):
+        got = state.pop("reduced").collect_arrays()
+        k, v = got["k"], got["v"]
+        p21_check("21a: join count == K", n == P21_KEYS)
+        p21_check("21a: every key once",
+                  np.array_equal(np.sort(k), np.arange(P21_KEYS)))
+        p21_check("21a: float32 sums of round(x * 0.5, 1) equal numpy's "
+                  "(rtol 1e-5)", v.dtype == np.float32
+                  and p21_close(np, v.astype(np.float64), exp[k], 1e-5))
+        return f"join count {n}, {len(k)} sums equal numpy"
+
+    r = p19_case(torch, ck, "a_round_astype_reduce_join",
+                 [("map (trace)", "host", build),
+                  ("reduce_by_key.join.count", "card", reduce_join)],
+                 check, P21_WARM, 21)
+    jl = r["step_launches"]["reduce_by_key.join.count"]
+    p21_check(f"21a: the chain launched all three kernels ({jl})",
+              all(jl[k] > 0 for k in ("hash_bucket", "digit_hist",
+                                      "partition_pos")))
+    rows.append(r)
+
+    xs = np.arange(P21_SMALL, dtype=np.int64)
+    small = {
+        "a_ndim_size": (
+            lambda x: (x % P21_SMALL_KEYS, x % 97 + x.ndim + x.size),
+            xs % P21_SMALL_KEYS, xs % 97 + 1, P21_SMALL_KEYS),
+        "a_divmod": (lambda x: divmod(x, 7), xs // 7, xs % 7,
+                     -(-P21_SMALL // 7)),
+    }
+    for label, (f, keys, vals, n_keys) in small.items():
+        exp_s = np.bincount(keys, weights=vals, minlength=n_keys)
+
+        def build_s(_, f=f, label=label):
+            node = ctx.dense_range(P21_SMALL).map(f)
+            p21_check(f"21a {label}: a device _MapRDD "
+                      f"({type(node).__name__})",
+                      type(node).__name__ == "_MapRDD")
+            return node
+
+        def run_s(node):
+            return node.reduce_by_key(op="add").collect_arrays()
+
+        def check_s(got, exp_s=exp_s, label=label):
+            k, v = got["k"], got["v"]
+            p21_check(f"21a {label}: int32 sums by key equal numpy's",
+                      v.dtype == np.int32 and len(k) == len(exp_s)
+                      and np.array_equal(v, exp_s[k].astype(np.int64)))
+            return f"{len(k)} keys, sums equal numpy"
+
+        rows.append(p19_case(torch, ck, label,
+                             [("map (trace)", "host", build_s),
+                              ("reduce_by_key.collect", "card", run_s)],
+                             check_s, P21_WARM, 21))
+
+    exp_r = p21_round(np, xs, 0.37)
+    p21_check("21a a_round_digits: round(., 1) changes the rows",
+              not np.array_equal(exp_r, xs.astype(np.float32)
+                                 * np.float32(0.37)))
+
+    def build_r(_):
+        node = ctx.dense_range(P21_SMALL).map(
+            lambda x: (x, round(x.astype(np.float32) * 0.37, 1)))
+        p21_check(f"21a a_round_digits: a device _MapRDD "
+                  f"({type(node).__name__})",
+                  type(node).__name__ == "_MapRDD")
+        return node
+
+    def check_r(got):
+        k, v = got["k"], got["v"]
+        p21_check("21a a_round_digits: every row once",
+                  np.array_equal(np.sort(k), xs))
+        p21_check("21a a_round_digits: float32 rows equal numpy's float32 "
+                  "replay bit for bit", v.dtype == np.float32
+                  and np.array_equal(v, exp_r[k]))
+        return f"{len(k)} rounded rows equal numpy's bit for bit"
+
+    rows.append(p19_case(torch, ck, "a_round_digits",
+                         [("map (trace)", "host", build_r),
+                          ("collect_arrays", "card",
+                           lambda node: node.collect_arrays())],
+                         check_r, P21_WARM, 21))
+    return rows
+
+
+def p21_data(np):
+    """21b's tables: a P21_FACT-row fact (k uniform over the dimension's
+    keys, x in [0, 1000), s the sku of k) and the P21_DIM-row dimension
+    (k, sku-%06d, w = k % 97); the strings are Python str objects, which
+    any numpy adds."""
+    rng = np.random.default_rng(21)
+    k = rng.integers(0, P21_DIM, P21_FACT)
+    sku = np.array([f"sku-{i:06d}" for i in range(P21_DIM)], dtype=object)
+    fact = dict(k=k, x=rng.integers(0, 1000, P21_FACT), s=sku[k])
+    dk = np.arange(P21_DIM)
+    return fact, dict(k=dk, sku=sku, w=dk % 97)
+
+
+def p21_frame_cases(np, vt, fact, dim):
+    """21b: (label, build(ctx), check(columns) -> note) per query; every
+    query compiles on the host tier (a string concatenation, a numpy UDF,
+    a None fill, a string fill over a number column, hint(tier="host"))."""
+    from vega_tpu_torch.frame import F, col, lit, udf
+
+    k, x = fact["k"], fact["x"]
+    counts = np.bincount(k, minlength=P21_DIM)
+    sums = np.bincount(k, weights=x, minlength=P21_DIM).astype(np.int64)
+    keys = np.flatnonzero(counts)
+
+    def by(cols, name):
+        order = np.argsort(cols[name], kind="stable")
+        return {nm: np.asarray(c)[order] for nm, c in cols.items()}
+
+    def concat(ctx):
+        return ctx.create_frame(fact).with_column(
+            "tag", col("s") + lit("/x")).group_by("tag").agg(
+                F.sum("x", "sx"), F.count("n"))
+
+    def concat_check(cols):
+        got = by(cols, "tag")
+        tags = np.array([f"sku-{i:06d}/x" for i in keys])
+        p21_check("21b concat: tags, sums and counts equal numpy",
+                  np.array_equal(got["tag"], tags)
+                  and np.array_equal(got["sx"], sums[keys])
+                  and np.array_equal(got["n"], counts[keys]))
+        return f"{len(tags)} tags"
+
+    def numpy_udf(ctx):
+        return ctx.create_frame(fact).with_column(
+            "r", udf(lambda a: np.sqrt(np.asarray(a, dtype=np.float64)),
+                     col("x"))).group_by("k").agg(F.sum("r", "sr"))
+
+    def numpy_udf_check(cols):
+        got = by(cols, "k")
+        exp = np.bincount(k, weights=np.sqrt(x.astype(np.float64)),
+                          minlength=P21_DIM)
+        p21_check("21b numpy udf: float64 sums of sqrt(x) equal numpy's "
+                  "(rtol 1e-9)", np.array_equal(got["k"], keys)
+                  and p21_close(np, got["sr"], exp[keys], 1e-9))
+        return f"{len(keys)} keys"
+
+    def fill_none(ctx):
+        agg = ctx.create_frame(fact).filter(col("k") % 3 != 0).group_by(
+            "k").agg(F.sum("x", "sx"))
+        return ctx.create_frame(dict(k=dim["k"], w=dim["w"])).join(
+            agg, on="k", how="left", fill_value=None)
+
+    def fill_none_check(cols):
+        got = by(cols, "k")
+        sx = got["sx"]
+        third = got["k"] % 3 == 0
+        present = ~third & (counts[got["k"]] > 0)
+        p21_check("21b fill None: None where no fact row, numpy's sums "
+                  "elsewhere", np.array_equal(got["k"], dim["k"])
+                  and all(v is None for v in sx[~present])
+                  and np.array_equal(sx[present].astype(np.int64),
+                                     sums[got["k"][present]]))
+        return f"{int((~present).sum())} rows filled None"
+
+    def string_fill(ctx):
+        agg = ctx.create_frame(fact).group_by("k").agg(F.count("n"))
+        return agg.join(ctx.create_frame(dim).filter(col("k") % 2 == 0),
+                        on="k", how="left", fill_value="none")
+
+    def string_fill_check(cols):
+        got = by(cols, "k")
+        kk = got["k"]
+        even = kk % 2 == 0
+        w = got["w"]
+        p21_check("21b string fill: 'none' in w and sku for odd keys, "
+                  "the dimension's values for even ones",
+                  np.array_equal(kk, keys)
+                  and np.array_equal(got["n"], counts[kk])
+                  and all(str(v) == "none" for v in w[~even])
+                  and all(str(v) == "none" for v in got["sku"][~even])
+                  and np.array_equal(w[even].astype(np.int64),
+                                     dim["w"][kk[even]])
+                  and np.array_equal(got["sku"][even], dim["sku"][kk[even]]))
+        return f"{int((~even).sum())} rows filled 'none'"
+
+    def tier_host(ctx):
+        e = ctx.create_frame(dict(k=k, x=x))
+        d = ctx.create_frame(dict(k=dim["k"], w=dim["w"]))
+        return (e.filter(col("x") < P21_THRESHOLD)
+                .group_by("k").agg(F.sum("x", "sx"))
+                .join(d.group_by("k").agg(F.sum("w", "sw")), on="k")
+                .sort("k").hint(tier="host"))
+
+    def tier_host_check(cols):
+        keep = x < P21_THRESHOLD
+        c2 = np.bincount(k[keep], minlength=P21_DIM)
+        s2 = np.bincount(k[keep], weights=x[keep],
+                         minlength=P21_DIM).astype(np.int64)
+        kk = np.flatnonzero(c2)
+        p21_check("21b tier host: the frame query's columns equal numpy "
+                  "(in key order)", np.array_equal(cols["k"], kk)
+                  and np.array_equal(cols["sx"], s2[kk])
+                  and np.array_equal(cols["sw"], dim["w"][kk]))
+        return f"{len(kk)} keys"
+
+    return [("b_string_concat_group_by", concat, concat_check),
+            ("b_numpy_udf", numpy_udf, numpy_udf_check),
+            ("b_left_join_fill_none", fill_none, fill_none_check),
+            ("b_string_fill_over_numbers", string_fill, string_fill_check),
+            ("b_frame_query_tier_host", tier_host, tier_host_check)]
+
+
+def p21_part_b(torch, np, ck, vt, ctx):
+    """21b: the frame planner's host tier on the card's machine: five
+    queries over the fact and dimension, each compiled on the host tier
+    (checked in explain()), its columns against numpy."""
+    fact, dim = p21_data(np)
+    rows = []
+    for label, build, check in p21_frame_cases(np, vt, fact, dim):
+        def compile_(_, build=build, label=label):
+            q = build(ctx)
+            text = q.explain()
+            p21_check(f"21b {label}: compiled on the host tier "
+                      f"({text.splitlines()[0]})",
+                      text.startswith("== physical: host tier =="))
+            return q
+
+        rows.append(p19_case(torch, ck, label,
+                             [("compile", "host", compile_),
+                              ("collect_columns", "host",
+                               lambda q: q.collect_columns())],
+                             check, P21_WARM, 21))
+    return rows
+
+
+def p21_dense_of(vt, rdd):
+    """The DenseRDD under a to_rdd() lineage."""
+    while not isinstance(rdd, vt.dense_rdd.DenseRDD):
+        rdd = rdd.prev
+    return rdd
+
+
+def p21_part_c(torch, np, ck, vt, ctx):
+    """21c: to_rdd() of a P21_C_ROWS-row device group-by to P21_C_KEYS
+    keys (the frame's rows in frame order as Python values), then
+    .dense() lifting them back onto the card."""
+    from vega_tpu_torch.frame import F
+
+    x = np.arange(P21_C_ROWS, dtype=np.int32)
+    k = x % P21_C_KEYS
+    v = (x % 1000).astype(np.float32) * np.float32(0.5)
+    exp = np.bincount(k, weights=v, minlength=P21_C_KEYS)
+    state = {}
+
+    def group(_):
+        q = ctx.create_frame(dict(k=k, v=v)).group_by("k").agg(
+            F.sum("v", "sv"))
+        rdd = q.to_rdd()
+        node = p21_dense_of(vt, rdd)
+        p21_check("21c: the group-by is a device plan",
+                  q._compiled().kind == "device")
+        node.block()
+        return rdd
+
+    def lift(rdd):
+        lifted = rdd.dense()
+        state["lifted"] = lifted
+        return lifted
+
+    def count(lifted):
+        return lifted.count()
+
+    def check(n):
+        lifted = state.pop("lifted")
+        p21_check("21c: dense() lifted the rows onto the card",
+                  isinstance(lifted, vt.dense_rdd.DenseRDD))
+        got = lifted.collect_arrays()
+        kk, sv = got["k"], got["v"]
+        p21_check("21c: every key once, count == K",
+                  n == P21_C_KEYS
+                  and np.array_equal(np.sort(kk), np.arange(P21_C_KEYS)))
+        p21_check("21c: the sums equal numpy's (rtol 1e-5)",
+                  p21_close(np, sv.astype(np.float64), exp[kk], 1e-5))
+        return f"{n} rows through to_rdd() and back"
+
+    r = p19_case(torch, ck, "c_to_rdd_and_dense",
+                 [("group_by (device)", "card", group),
+                  ("to_rdd.dense", "host", lift),
+                  ("count", "card", count)], check, P21_WARM, 21)
+    gl = r["step_launches"]["group_by (device)"]
+    p21_check(f"21c: the device group-by launched hash_bucket and "
+              f"digit_hist ({gl})",
+              gl["hash_bucket"] > 0 and gl["digit_hist"] > 0)
+    return [r]
+
+
+def phase_twentyone(torch, np, ck, vt):
+    """Phase 21: (a) F24-F26's row view on the card at bench-main's size
+    and at 2M rows, (b) the frame planner's host tier over a 400K-row fact
+    frame (cut from 20M rows: the host layer's row rate) and a 100K-row
+    dimension, (c) to_rdd() of a 20M-row device group-by and back. Each
+    case once cold (checked against numpy,
+    launches counted from 0 per step) and P21_WARM times warm: median ms,
+    the card, host and lift parts apart, the step peak."""
+    t0 = time.perf_counter()
+    card = card_line()
+    ctx = vt.Context(n_shards=N_SHARDS)
+    rows = []
+    parts = {}
+    for part, fn in (("a", p21_part_a), ("b", p21_part_b),
+                     ("c", p21_part_c)):
+        t1 = time.perf_counter()
+        rows += fn(torch, np, ck, vt, ctx)
+        parts[part] = time.perf_counter() - t1
+    ctx.stop()
+    torch.cuda.empty_cache()
+    launches = {name: sum(r["launches"][name] for r in rows)
+                for name in ck.LAUNCHES}
+    check_launched(launches, "phase 21")
+    wall_s = time.perf_counter() - t0
+    log(f"phase 21 took {wall_s:.1f} s (parts {json.dumps(parts)})")
+    return dict(rows=rows, launches=launches, card=card, wall_s=wall_s,
+                parts_s=parts)
+
+
+def phase21_leg():
+    """--phase 21: the kernels built, then phase 21 alone. Prints one
+    JSON line (each case's warm median ms and its parts, cold ms, step
+    peak, launches by step; the phase's wall), writes
+    chiprun_out/p21.json, and ends with the card line."""
+    import numpy as np
+    import torch
+
+    import vega_tpu_torch as vt
+    from vega_tpu_torch import cuda_kernels as ck
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    card = card_line()
+    ck.build()
+    res = phase_twentyone(torch, np, ck, vt)
+    out = dict(phase=21, wall_s=res["wall_s"], parts_s=res["parts_s"],
+               launches=res["launches"], card=card,
+               cases={r["label"]: dict(note=r["note"],
+                                       median_ms=r["median_ms"],
+                                       parts=r["median_parts"],
+                                       cold_ms=r["cold"]["ms"],
+                                       peak_bytes=r["peak_bytes"],
+                                       step_launches=r["step_launches"])
+                      for r in res["rows"]})
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "p21.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps(out), flush=True)
+    print(f"card: {card}", flush=True)
+
+
 def main():
     try:
         import torch
@@ -7483,6 +7919,8 @@ def main():
     nineteen = phase_nineteen(torch, np, ck, vt)
     # 20. the reference's implicit host fall-throughs
     twenty = phase_twenty(torch, np, ck, vt)
+    # 21. the row view (F24-F26), the frame planner's host tier, to_rdd()
+    twentyone = phase_twentyone(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -7506,7 +7944,8 @@ def main():
          "phase17_launches": seventeen["launches"][r["name"]],
          "phase18_launches": eighteen["launches"][r["name"]],
          "phase19_launches": nineteen["launches"][r["name"]],
-         "phase20_launches": twenty["launches"][r["name"]]}
+         "phase20_launches": twenty["launches"][r["name"]],
+         "phase21_launches": twentyone["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -7522,7 +7961,8 @@ def main():
                    phase9=nine, phase10=ten, phase11=eleven,
                    phase12=twelve, phase13=thirteen, phase14=fourteen,
                    phase15=fifteen, phase16=sixteen, phase17=seventeen,
-                   phase18=eighteen, phase19=nineteen, phase20=twenty)
+                   phase18=eighteen, phase19=nineteen, phase20=twenty,
+                   phase21=twentyone)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -7648,8 +8088,8 @@ def main():
           f"{r['median_host_build_ms']:.3f} ms, device steps "
           f"{r['median_device_ms']:.3f} ms, cold {r['cold']['ms']:.3f} ms, "
           f"launches {json.dumps(r['launches'])} on {card}", flush=True)
-    print(f"phase 10d untraceable UDF raised at explain(): "
-          f"{ten['untraceable']['raised']}", flush=True)
+    print(f"phase 10d untraceable UDF on the host tier: "
+          f"{ten['untraceable']['reason']}", flush=True)
     for r in eleven["persist"]:
         print(f"phase 11a persist K={r['keys']} (block {r['shape']}, "
               f"{r['block_bytes']} B): spill {r['spill_ms']:.3f} ms "
@@ -7845,6 +8285,15 @@ def main():
           f"{json.dumps(twenty['parts_s'])}; 20f tiers, equal on the card "
           f"and the CPU: {json.dumps(twenty['tiers'])}; phase 20 "
           f"{twenty['wall_s']:.1f} s on {card}", flush=True)
+    for r in twentyone["rows"]:
+        print(f"phase 21 {r['label']} ({r['note']}): {r['median_ms']:.3f} ms "
+              f"warm median of {len(r['warm'])}, parts "
+              f"{json.dumps(r['median_parts'])}, cold {r['cold']['ms']:.3f} "
+              f"ms, step peak {r['peak_bytes']} B, launches by step "
+              f"{json.dumps(r['step_launches'])} on {card}", flush=True)
+    print(f"phase 21 launches {json.dumps(twentyone['launches'])}; parts (s) "
+          f"{json.dumps(twentyone['parts_s'])}; phase 21 "
+          f"{twentyone['wall_s']:.1f} s on {card}", flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
@@ -8179,6 +8628,8 @@ if __name__ == "__main__":
         phase19_leg()
     elif sys.argv[1:3] == ["--phase", "20"] and len(sys.argv) == 3:
         phase20_leg()
+    elif sys.argv[1:3] == ["--phase", "21"] and len(sys.argv) == 3:
+        phase21_leg()
     elif sys.argv[1:3] == ["--phase", "19"] and len(sys.argv) == 5 \
             and sys.argv[3] == "--without":
         phase19_leg(sys.argv[4])

@@ -101,18 +101,23 @@ def _host_failure(node, exc=TypeError):
 
 
 def test_map_expand_checks_at_build(ctxs):
-    """factor <= 0 raises at build, as in the reference. An output without
-    the trailing factor dim (checked on the empty probe, nothing runs on
-    the device) fails the device form, so the op is the host RDD layer's
-    flat_map, as the reference's trace hands it to its host tier: there f
-    gets one Python value a row, and the job fails in both."""
+    """factor <= 0 raises at build, as in the reference. f sees one row
+    (coltypes.RowView), so a stack of two rows has the trailing dim of 2
+    as jnp.stack's has, and runs on the device with the reference's rows.
+    An output without a trailing dim of the factor (checked on the empty
+    probe, nothing runs on the device) fails the device form, so the op
+    is the host RDD layer's flat_map, as the reference's trace hands it
+    to its host tier: there f gets one Python value a row, and the job
+    fails in both."""
     ref, port = ctxs
     d = port.dense_range(10)
     with pytest.raises(v.VegaError):
         ref.dense_range(10).map_expand(lambda x: jnp.stack([x]), 0)
     with pytest.raises(VegaError, match="positive"):
         d.map_expand(lambda x: x[..., None], 0)
-    _host_failure(d.map_expand(lambda x: torch.stack([x, x]), 2))
+    _same(d.map_expand(lambda x: torch.stack([x, x + 1]), 2),
+          ref.dense_range(10).map_expand(lambda x: jnp.stack([x, x + 1]), 2))
+    _host_failure(d.map_expand(lambda x: torch.stack([x, x, x]), 2))
     for c in (ref, port):  # the same closure in both packages
         node = c.dense_range(10).map_expand(lambda x: x, 2)
         with pytest.raises(Exception, match="not iterable"):
@@ -157,15 +162,21 @@ def test_flat_map_ragged_checks_at_build(ctxs):
     """max_out <= 0 raises at build; a closure whose trace fails the
     device form (no (payload, n_valid) pair, no trailing dim, an n_valid
     that is not one scalar a row) is the host RDD layer's flat_map of the
-    reference's clamp, whose job fails on one Python value a row."""
-    _ref, port = ctxs
+    reference's clamp, whose job fails on one Python value a row. The
+    sum of one row is that row (coltypes.RowView), so an n_valid of
+    x.sum() is one scalar a row and runs on the device, as jnp's."""
+    ref, port = ctxs
     d = port.dense_range(10)
     with pytest.raises(VegaError, match="positive"):
         d.flat_map_ragged(lambda x: (x[..., None], 1), 0)
     _host_failure(d.flat_map_ragged(lambda x: x[..., None], 1))
     _host_failure(d.flat_map_ragged(lambda x: (x, 1), 2), IndexError)
     _host_failure(d.flat_map_ragged(
-        lambda x: (torch.stack([x, x], -1), x.sum()), 2))
+        lambda x: (torch.stack([x, x], -1), x.reshape(1)), 2))
+    _same(d.flat_map_ragged(lambda x: (torch.stack([x, x], -1),
+                                       x.sum() % 3), 2),
+          ref.dense_range(10).flat_map_ragged(
+              lambda x: (jnp.stack([x, x]), x.sum() % 3), 2))
 
 
 def test_digit_flat_map_then_reduce(ctxs):

@@ -788,8 +788,9 @@ def test_all_add_bool_sum_refused_by_both(ctxs):
 def test_string_fill_over_a_number_column_is_refused(ctxs):
     """A string fill over an int column beside a string column: the
     reference's host tier turns the int column into strings ('0', '1',
-    'none'); the port refuses the plan, since no device column holds
-    strings and numbers in one."""
+    'none') in collect() (its to_rdd() rows keep the ints beside the
+    fill); no device column holds strings and numbers in one, so the port
+    compiles the plan on its host tier too, with the same rows."""
     ref, port = ctxs
 
     def build(ctx, fr):
@@ -800,15 +801,17 @@ def test_string_fill_over_a_number_column_is_refused(ctxs):
 
     rq = build(ref, ref_frame)
     assert _ref_tier(rq) == "host"
-    assert rq.collect() == [(0, 0, "0", "a"), (1, 1, "1", "b"),
-                            (2, 2, "none", "none"), (3, 3, "none", "none")]
+    rows = [(0, 0, "0", "a"), (1, 1, "1", "b"), (2, 2, "none", "none"),
+            (3, 3, "none", "none")]
+    assert rq.collect() == rows
     q = build(port, port_frame)
-    for action in (q.collect, q.count, q.explain):
-        with pytest.raises(VegaError) as ei:
-            action()
-        assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
-        assert "string fill 'none' over the number column 'w'" in \
-            str(ei.value)
+    text = q.explain()
+    assert text.startswith("== physical: host tier ==")
+    assert "string fill 'none' over the number column 'w'" in text
+    assert q.collect() == rows and q.count() == 4
+    assert q.to_rdd().collect() == rq.to_rdd().collect() == [
+        (0, 0, 0, "a"), (1, 1, 1, "b"), (2, 2, "none", "none"),
+        (3, 3, "none", "none")]
 
 
 def test_tier_device_on_a_host_plan_raises_as_the_reference(ctxs):
@@ -889,8 +892,8 @@ def test_float_join_key_across_zeros(ctxs):
 
 def test_left_join_fill_none(ctxs):
     """A frame left join with fill_value=None: the reference's host tier
-    fills None; the port raises VegaError ending in HOST_TIER_SUFFIX (a
-    device column cannot hold None)."""
+    fills None; a device column cannot hold None, so the port compiles
+    the plan on its host tier and fills None too."""
     ref, port = ctxs
 
     def build(ctx, fr):
@@ -901,9 +904,10 @@ def test_left_join_fill_none(ctxs):
     rq = build(ref, ref_frame)
     assert _ref_tier(rq) == "host"
     assert rq.collect() == [(0, 0, 0), (1, 1, 7), (2, 2, None)]
-    with pytest.raises(VegaError) as ei:
-        build(port, port_frame).collect()
-    assert str(ei.value).endswith(dense_rdd.HOST_TIER_SUFFIX)
+    q = build(port, port_frame)
+    assert q.explain().startswith("== physical: host tier ==")
+    assert q.collect() == [(0, 0, 0), (1, 1, 7), (2, 2, None)]
+    assert q.count() == 3
 
 
 # ------------------------------------------------------------ the tier

@@ -143,6 +143,22 @@ def test_bool_key_is_refused_as_the_reference_refuses_it(ctxs, op):
     assert pairs(port).take_ordered(3) == pairs(ref).take_ordered(3)
 
 
+@pytest.mark.parametrize("op", ["max", "min", "count_by_value"])
+def test_bool_rows_max_and_count_by_value_error_types(ctxs, op):
+    """Pinned: max() / min() and count_by_value() over bool rows raise in
+    both packages with different classes. The reference's masked reduce
+    and key sort ask numpy for the iinfo of a bool and raise ValueError;
+    the port's masked reduce asks torch.iinfo (TypeError), and its keyed
+    exchange refuses a bool key when the op is built (VegaError, as the
+    bool-key test above)."""
+    ref, port = ctxs
+    port_error = VegaError if op == "count_by_value" else TypeError
+    with pytest.raises(ValueError):
+        getattr(ref.dense_from_numpy(A).map(lambda x: x > 5), op)()
+    with pytest.raises(port_error):
+        getattr(port.dense_from_numpy(A).map(lambda x: x > 5), op)()
+
+
 def test_bool_values_through_a_join(ctxs):
     """A bool column rides a join on either side."""
     ref, port = ctxs

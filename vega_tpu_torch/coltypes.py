@@ -39,6 +39,13 @@ carry their logical dtype and follow jnp's promotion op by op (wrapping
 an unsigned result at once, and a mixed one to int32, as jax with 64-bit
 types off does). An output's logical dtype (logical_dtype) is what that
 promotion gave it, and to_physical stores it back.
+
+A row closure sees every column through a RowView (row_view): the
+column as stored, or its RowTensor, with its leading [n_shards, capacity]
+dims hidden, so the closure sees one row as the reference's jax.vmap
+shows it (ndim 0, shape (), jnp's astype, copy, reductions, round() and
+divmod()); a binop sees 1-D operands. The view wraps the column without
+a copy, and to_physical takes the stored tensor back out of it.
 """
 
 from __future__ import annotations
@@ -93,8 +100,7 @@ def to_physical(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """A tensor (a row function's output) as the stored column of logical
     dtype dt, wrapping mod 2^width as a cast to dt would; a plain
     tensor, never a RowTensor."""
-    if isinstance(x, RowTensor):
-        x = x.as_subclass(torch.Tensor)
+    x = plain(x)
     if dt == torch.uint32:
         return (x.to(torch.int64) ^ 0x80000000).to(torch.int32)
     if dt == torch.uint16:
@@ -105,13 +111,15 @@ def to_physical(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 
 def logical_dtype(x: torch.Tensor) -> torch.dtype:
-    """The logical dtype of a traced output: a RowTensor's own; a 64-bit
-    dtype narrows to 32 bits, as jax's with 64-bit types off; anything
-    else is its own."""
-    if isinstance(x, RowTensor):
-        return x._ldt
+    """The logical dtype of a traced output: a RowTensor's (or its row
+    view's) own; a 64-bit dtype narrows to 32 bits, as jax's with 64-bit
+    types off; anything else is its own."""
+    ldt = getattr(x, "_ldt", None)
+    if ldt is not None:
+        return ldt
+    dt = plain(x).dtype
     return {torch.int64: torch.int32, torch.float64: torch.float32
-            }.get(x.dtype, x.dtype)
+            }.get(dt, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +241,311 @@ def _row_op(func, op, args, kwargs):
     if isinstance(out, tuple) and hasattr(out, "indices"):
         return type(out)((_finish(out.values, ldt), out.indices))
     return _pytree.tree_map(lambda r: _finish(r, ldt), out)
+
+
+# ---------------------------------------------------------------------------
+# RowView: one row, as the reference's vmap shows it to a row closure
+# ---------------------------------------------------------------------------
+# the reductions a row view takes whole (_reduce_row)
+_REDUCTIONS = frozenset(("sum", "prod", "mean", "max", "min", "amax",
+                         "amin", "any", "all"))
+# where a dim argument sits (positional index; keywords by name) in the
+# ops a row view translates: a dim counts from the row's first dim
+_DIM_AT = dict.fromkeys((
+    "sum", "prod", "mean", "max", "min", "amax", "amin", "any", "all",
+    "cumsum", "cumprod", "argmax", "argmin", "sort", "argsort", "softmax",
+    "log_softmax", "unsqueeze", "squeeze", "stack", "cat", "concat",
+    "concatenate", "flip", "unbind", "select", "narrow", "index_select",
+    "gather", "std", "var", "logsumexp", "nansum", "count_nonzero"), (1,))
+_DIM_AT.update(dict.fromkeys(("transpose", "swapaxes", "movedim",
+                              "moveaxis"), (1, 2)))
+_DIM_AT.update(dict.fromkeys(("roll", "take_along_dim", "diff", "split",
+                              "chunk"), (2,)))
+_DIM_AT["topk"] = (2,)
+_DIM_KWARGS = ("dim", "dims", "dim0", "dim1", "source", "destination",
+               "axis")
+# ops whose omitted dim is 0: the row's first dim under a view
+_DIM_ZERO = frozenset(("stack", "cat", "concat", "concatenate", "unbind",
+                       "split", "chunk"))
+_IN_PLACE = {"__iadd__": "__add__", "__isub__": "__sub__",
+             "__imul__": "__mul__", "__itruediv__": "__truediv__",
+             "__ifloordiv__": "__floordiv__", "__imod__": "__mod__",
+             "__ipow__": "__pow__", "__iand__": "__and__",
+             "__ior__": "__or__", "__ixor__": "__xor__",
+             "__ilshift__": "__lshift__", "__irshift__": "__rshift__",
+             "__imatmul__": "__matmul__"}
+
+
+class RowView(torch.Tensor):
+    """A column as a row closure sees it. The reference runs every row
+    closure under jax.vmap, so the closure sees one row: a scalar for a
+    map / filter / key_by / map_values / expansion closure, a 1-D array
+    for a binop. The view is the stored column itself ([n_shards,
+    capacity], no copy: as_subclass) with its leading `_nb` dims hidden,
+    and gives what jax's row gives:
+
+    - ndim, shape, size (an int), dim(), numel() and T are the row's;
+    - sum / prod / mean / max / min / any / all with no dim reduce the
+      row's own dims (a scalar row is its own reduction) in jnp's result
+      dtype (an integer sum int32 or uint32, a mean float32);
+    - astype(dtype) and copy() as jnp's (64-bit dtypes narrow to 32);
+    - round(x), round(x, n) and divmod(x, y) with jnp's dtypes;
+    - a dim argument, a reshape, a stack and an index count from the
+      row's first dim; in-place operators compute a new row, as jax's
+      immutable arrays do, and the trailing-underscore methods raise.
+
+    Every op over a view gives a view. A uint16 / uint32 column's view
+    carries its RowTensor's logical dtype (`_ldt`), and its ops follow
+    RowTensor's promotion. Traced under tracing.reference_trace, a view
+    is refused what jax's tracer is refused."""
+
+    _nb = 2
+    _ldt: Optional[torch.dtype] = None
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        if name == "__get__":
+            with torch._C.DisableTorchFunctionSubclass():
+                return func(*args, **kwargs)
+        view = next((a for a in _pytree.tree_leaves((args, kwargs))
+                     if isinstance(a, RowView)), None)
+        if view is None:
+            return func(*args, **kwargs)
+        nb = view._nb
+        if name in _IN_PLACE:
+            name = _IN_PLACE[name]
+            func = getattr(torch.Tensor, name)
+        elif name == "__setitem__" or (name.endswith("_")
+                                       and not name.startswith("__")):
+            raise TypeError(f"{name}: a row is immutable, as jax's arrays "
+                            "are")
+        op = name.strip("_")
+        if op in _REDUCTIONS and len(args) == 1 and not kwargs:
+            return _reduce_row(op, args[0])
+        if op == "len":
+            if args[0].ndim == 0:
+                raise TypeError("len() of a 0-d row (jax's scalar row has "
+                                "no length)")
+            return args[0].shape[0]
+        batch = tuple(plain(view).shape[:nb])
+        if op == "flatten" and nb:
+            x = args[0]
+            start = args[1] if len(args) > 1 else kwargs.get("start_dim", 0)
+            end = args[2] if len(args) > 2 else kwargs.get("end_dim", -1)
+            out = (_inner(x).reshape(batch + (1,)) if x.ndim == 0 else
+                   _inner(x).flatten(_shift(start, nb), _shift(end, nb)))
+            return _rewrap(out, nb, batch)
+        args, kwargs = _row_args(op, name, args, kwargs, view, batch)
+        out = func(*_pytree.tree_map(_inner, args),
+                   **_pytree.tree_map(_inner, kwargs))
+        return _rewrap(out, nb, batch)
+
+    @property
+    def ndim(self) -> int:
+        return plain(self).dim() - self._nb
+
+    @property
+    def shape(self) -> torch.Size:
+        return plain(self).shape[self._nb:]
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    def dim(self) -> int:
+        return self.ndim
+
+    def numel(self) -> int:
+        return self.size
+
+    @property
+    def T(self) -> "RowView":
+        return self.permute(*range(self.ndim - 1, -1, -1)) \
+            if self.ndim > 1 else self
+
+    def astype(self, dtype) -> "RowView":
+        dt = jnp_dtype(dtype)
+        if dt in _MASK:
+            with torch._C.DisableTorchFunction():
+                v = plain(self).to(torch.int64) & _MASK[dt]
+            return _view(v, self._nb, dt)
+        return self.to(dt)
+
+    def copy(self) -> "RowView":
+        return self.clone()
+
+    def __round__(self, ndigits=None):
+        ldt = logical_dtype(self)
+        if ldt == torch.bool:
+            raise ValueError("round() of a bool row: jnp.round refuses a "
+                             "bool (not inexact)")
+        if ndigits is None:
+            # jax's __round__: jnp.round, then an int32
+            return (torch.round(self) if ldt.is_floating_point
+                    else self).to(torch.int32)
+        if not ldt.is_floating_point:
+            if ndigits < 0:
+                raise NotImplementedError("integer np.round not "
+                                          "implemented for decimals < 0")
+            return self
+        if ndigits == 0:
+            return torch.round(self)
+        # jnp.round's rescaling in float32; the reference's compiler
+        # divides by the factor as a multiply by its float32 reciprocal
+        x = self.to(torch.float32) if ldt == torch.float16 else self
+        factor = np.float32(10.0 ** ndigits)
+        out = torch.round(x * float(factor)) * float(np.float32(1) / factor)
+        return out.to(torch.float16) if ldt == torch.float16 else out
+
+    def __divmod__(self, other):
+        x = self.to(torch.int32) if logical_dtype(self) == torch.bool \
+            else self
+        return torch.floor_divide(x, other), torch.remainder(x, other)
+
+    def __rdivmod__(self, other):
+        x = self.to(torch.int32) if logical_dtype(self) == torch.bool \
+            else self
+        return x.__rfloordiv__(other), x.__rmod__(other)
+
+
+def plain(x: torch.Tensor) -> torch.Tensor:
+    """The stored tensor of a RowView or RowTensor (no copy)."""
+    return x.as_subclass(torch.Tensor) if type(x) is not torch.Tensor else x
+
+
+def _view(x: torch.Tensor, nb: int, ldt=None) -> RowView:
+    r = x.as_subclass(RowView)
+    if nb != RowView._nb:
+        r._nb = nb
+    if ldt is not None:
+        r._ldt = ldt
+    return r
+
+
+def row_view(x: torch.Tensor, nb: int = 2) -> RowView:
+    """A row-form column (to_row) as its row view, hiding its leading nb
+    dims: 2 for a row closure's [n_shards, capacity] column, 1 for a
+    binop's [n_shards, m] operand, 0 for one value."""
+    return _view(x, nb, x._ldt if isinstance(x, RowTensor) else None)
+
+
+def _inner(a):
+    """A view's column as the op computes on it: a RowTensor for an
+    emulated dtype, else the plain tensor."""
+    if not isinstance(a, RowView):
+        return a
+    return _tagged(plain(a), a._ldt) if a._ldt is not None else plain(a)
+
+
+def _rewrap(out, nb: int, batch: tuple):
+    """Each tensor result that keeps the rows' leading dims, as a view."""
+    if type(out) is torch.Tensor:
+        if out.dim() >= nb and tuple(out.shape[:nb]) == batch:
+            return _view(out, nb)
+        return out
+
+    def wrap(r):
+        if not isinstance(r, torch.Tensor):
+            return r
+        p = plain(r)
+        if p.dim() >= nb and tuple(p.shape[:nb]) == batch:
+            return _view(p, nb, r._ldt if isinstance(r, RowTensor) else None)
+        return r
+    if isinstance(out, tuple) and hasattr(out, "indices"):
+        return type(out)((wrap(out.values), wrap(out.indices)))
+    return _pytree.tree_map(wrap, out)
+
+
+def _shift(d, nb: int):
+    """A row dim (an int, or a tuple / list of them) as the column's."""
+    if isinstance(d, (tuple, list)):
+        return type(d)(_shift(x, nb) for x in d)
+    if isinstance(d, int) and not isinstance(d, bool) and d >= 0:
+        return d + nb
+    return d
+
+
+def _row_args(op: str, name: str, args, kwargs, view, batch: tuple):
+    """args / kwargs of an op over views with the row's dims, shapes and
+    indices as the column's."""
+    nb = view._nb
+    if nb == 0:
+        return args, kwargs
+    if name == "__getitem__":
+        idx = args[1] if isinstance(args[1], tuple) else (args[1],)
+        return (args[0], (slice(None),) * nb + idx), kwargs
+    if op in ("reshape", "view") and args[0] is view and not any(
+            isinstance(a, torch.dtype) for a in args[1:]):
+        shape = args[1] if len(args) == 2 and isinstance(
+            args[1], (tuple, list)) else args[1:]
+        shape = kwargs.pop("shape", shape)
+        return (args[0], batch + tuple(shape)), kwargs
+    if op == "permute":
+        dims = args[1] if len(args) == 2 and isinstance(
+            args[1], (tuple, list)) else args[1:]
+        dims = kwargs.pop("dims", dims)
+        return (args[0], tuple(range(nb)) + _shift(tuple(dims), nb)), kwargs
+    if op == "squeeze" and len(args) == 1 and not kwargs:
+        dims = tuple(d for d, s in enumerate(args[0].shape) if s == 1)
+        return (args[0], _shift(dims, nb)), kwargs
+    at = _DIM_AT.get(op)
+    if at is None:
+        return args, kwargs
+    args = list(args)
+    if op in _DIM_ZERO and len(args) <= at[0] and \
+            not any(k in kwargs for k in _DIM_KWARGS):
+        args += [None] * (at[0] - len(args)) + [0]
+    for i in at:
+        if i < len(args):
+            args[i] = _shift(args[i], nb)
+    for k in _DIM_KWARGS:
+        if k in kwargs:
+            kwargs[k] = _shift(kwargs[k], nb)
+    return tuple(args), kwargs
+
+
+def _reduce_row(op: str, v: RowView) -> RowView:
+    """A whole-row reduction of a view in jnp's result dtype: a scalar
+    row is its own (no copy where the dtype stays)."""
+    nb, ldt = v._nb, logical_dtype(v)
+    s = plain(v)
+    if s.dim() > nb:
+        flat = s.reshape(s.shape[:nb] + (-1,))
+        if op == "mean":
+            s = flat.to(_reduced_dtype(op, ldt)).mean(-1)
+        else:
+            s = getattr(flat, {"max": "amax", "min": "amin"}.get(op, op))(-1)
+    dt = _reduced_dtype(op, ldt)
+    if dt in _MASK:
+        with torch._C.DisableTorchFunction():
+            return _view(s.to(torch.int64) & _MASK[dt], nb, dt)
+    return _view(s if s.dtype == dt else s.to(dt), nb)
+
+
+def _reduced_dtype(op: str, ldt: torch.dtype) -> torch.dtype:
+    if op in ("any", "all"):
+        return torch.bool
+    if op == "mean":
+        return ldt if ldt.is_floating_point else torch.float32
+    if op in ("sum", "prod") and not ldt.is_floating_point:
+        unsigned = ldt in (torch.uint8, torch.uint16, torch.uint32)
+        return torch.uint32 if unsigned else torch.int32
+    return ldt
+
+
+def jnp_dtype(dtype) -> torch.dtype:
+    """The torch dtype of an astype() argument (a numpy dtype or type, a
+    Python type, a string, a torch dtype) as jax with 64-bit types off
+    gives it: int64 -> int32, uint64 -> uint32, float64 -> float32."""
+    if isinstance(dtype, torch.dtype):
+        return logical_dtype(torch.empty(0, dtype=dtype))
+    nd = np.dtype(dtype)
+    nd = {np.dtype(np.int64): np.dtype(np.int32),
+          np.dtype(np.uint64): np.dtype(np.uint32),
+          np.dtype(np.float64): np.dtype(np.float32)}.get(nd, nd)
+    return _OF_NUMPY.get(nd) or torch.from_numpy(np.zeros(0, nd)).dtype
 
 
 def reduce_form(col: torch.Tensor, dt: torch.dtype) -> torch.Tensor:

@@ -364,23 +364,26 @@ class Context:
                      num_partitions: Optional[int] = None, **kwcolumns):
         """In-memory columns (a dict and / or keywords) -> DataFrame
         (frame/api.py), the frame-layer sibling of dense_from_columns.
-        Nothing is coerced or copied to the device until an action."""
+        Nothing is coerced or copied to the device until an action.
+        num_partitions: the host tier's partitions (default the shard
+        count); the device tier holds the shards."""
         self._check_running()
         data = dict(columns or {})
         for name, c in kwcolumns.items():
             if name in data:
                 raise VegaError(f"duplicate column {name!r}")
             data[name] = c
-        return DataFrame.from_columns(self, data)
+        return DataFrame.from_columns(self, data, num_partitions)
 
     def read_parquet(self, path: str, columns: Optional[list] = None,
                      num_partitions: Optional[int] = None):
         """Parquet -> DataFrame: the planner pushes column pruning and
         supported predicates into the reader (frame/parquet.py, which
         needs pyarrow) and applies each narrow verb chain as one stage.
-        columns= pre-prunes at the entry point."""
+        columns= pre-prunes at the entry point; num_partitions: the host
+        tier's groups of files (default the shard count)."""
         self._check_running()
-        return DataFrame.from_parquet(self, path, columns)
+        return DataFrame.from_parquet(self, path, columns, num_partitions)
 
     def exchange_plans(self) -> dict:
         """The exchange launches this Context planned: per program

@@ -676,11 +676,14 @@ class DenseRDD(RDD):
     # --- transformations ----------------------------------------------------
     def map(self, f: Callable) -> RDD:
         """Row map run on whole column tensors: f gets the row's columns
-        (x, or (k, v) for a pair) as [n_shards, capacity] tensors and
-        returns a value or a (key, value) pair, each a tensor of that
-        shape or a Python constant (broadcast to a column: int -> int32,
-        float -> float32, bool -> bool). int64 / float64 outputs narrow to
-        int32 / float32, as the reference's 32-bit trace gives them.
+        (x, or (k, v) for a pair) through the row view (coltypes.RowView:
+        the [n_shards, capacity] column, uncopied, shown as one scalar row
+        with jax's ndim, shape, size, astype, copy, reductions, round()
+        and divmod(), as the reference's vmap shows it) and returns a
+        value or a (key, value) pair, each a row computed from it or a
+        Python constant (broadcast to a column: int -> int32, float ->
+        float32, bool -> bool). int64 / float64 outputs narrow to int32 /
+        float32, as the reference's 32-bit trace gives them.
 
         Where the reference's trace refuses f only for a Python int past
         int32, over a wide int64 column, or on a host-row node, f runs in
@@ -1631,6 +1634,12 @@ class DenseRDD(RDD):
         MapPartitionsRDD over the shards' rows."""
         return MapPartitionsRDD(self, lambda _i, it: it)
 
+    def row_names(self) -> List[str]:
+        """The columns of a row that compute / to_rdd() yields, in its
+        order (a wide column by its base name)."""
+        return row_names(nm for nm, _dt in self._schema()
+                         if not block_lib.is_lo(nm))
+
     def fold(self, zero, f: Callable):
         """The reference's fold: each shard folds its rows seeded with
         zero, then the host folds zero and the num_partitions shard
@@ -2253,19 +2262,30 @@ def _cols_to_row(cols, schema):
     return tuple(cols[n] for n in names)
 
 
+def row_names(names) -> List[str]:
+    """The decoded columns (names) in the order of the row that
+    DenseRDD.compute yields: the one value, (k, v), or every column in
+    name order (the reference reads a shard's columns through
+    jax.device_get, whose dict comes back ordered by key)."""
+    names = list(names)
+    if names == [VALUE]:
+        return names
+    if set(names) == {KEY, VALUE}:
+        return [KEY, VALUE]
+    return sorted(names)
+
+
 def _yield_rows(cols: Dict[str, np.ndarray]):
     """One shard's rows as the reference's DenseRDD.compute yields them:
     values or (k, v) pairs as Python scalars, any other layout as tuples
-    of each column's numpy scalars in the order of the column names (the
-    reference reads a shard's columns through jax.device_get, whose dict
-    comes back ordered by key)."""
-    names = list(cols)
+    of each column's numpy scalars in row_names' order."""
+    names = row_names(cols)
     if names == [VALUE]:
         yield from cols[VALUE].tolist()
     elif set(names) == {KEY, VALUE}:
         yield from zip(cols[KEY].tolist(), cols[VALUE].tolist())
     else:
-        arrs = [cols[n] for n in sorted(names)]
+        arrs = [cols[n] for n in names]
         for i in range(len(arrs[0]) if arrs else 0):
             yield tuple(c[i] for c in arrs)
 
@@ -2471,7 +2491,9 @@ def _probe_cols(schema, n_shards: int):
     with no values does. Empty tensors rather than the meta device: the
     first meta op of a process imports torch's meta registrations, which
     took seconds on the card's machine (PERF.md section 6). A logical
-    column probes in its row form (coltypes.to_row)."""
+    column probes in its row form (coltypes.to_row). A row closure
+    traces on them through the row view (_probe_row: one scalar row,
+    coltypes.RowView); the frame planner's stages see the columns."""
     return {n: _probe(dt, (n_shards, 0)) for n, dt in schema}
 
 
@@ -2480,11 +2502,20 @@ def _probe(dt: torch.dtype, shape) -> torch.Tensor:
                            dt)
 
 
+def _probe_row(schema, n_shards: int):
+    """The row a row closure is traced on: the probe columns' row views
+    in the reference's row form (_cols_to_row)."""
+    return _cols_to_row({nm: coltypes.row_view(c) for nm, c in
+                         _probe_cols(schema, n_shards).items()}, schema)
+
+
 def _row_view(cols, schema):
-    """Stored columns as row functions see them (coltypes.to_row): the
-    logical columns converted, the rest as they are."""
-    return {nm: coltypes.to_row(cols[nm], dt) for nm, dt in schema
-            if nm in cols}
+    """Stored columns as row closures see them: each in its row form
+    (coltypes.to_row) as its row view (coltypes.row_view), which shows
+    one row of the column with jax's scalar semantics and copies nothing
+    (a uint16 / uint32 column's row form is a copy in int64)."""
+    return {nm: coltypes.row_view(coltypes.to_row(cols[nm], dt))
+            for nm, dt in schema if nm in cols}
 
 
 class _LiteralRefusal(_NotTraceable):
@@ -2520,10 +2551,10 @@ def _column_dtype(x, shape, what: str) -> torch.dtype:
     broadcasts with the reference's weak type: int -> int32, float ->
     float32, bool -> bool."""
     if isinstance(x, torch.Tensor):
-        if tuple(x.shape) != tuple(shape):
+        stored = tuple(coltypes.plain(x).shape)
+        if stored != tuple(shape):
             raise _NotTraceable(f"{what} must be one scalar per row, got "
-                                f"shape {tuple(x.shape)} for rows "
-                                f"{tuple(shape)}")
+                                f"shape {stored} for rows {tuple(shape)}")
         dt = coltypes.logical_dtype(x)
     elif isinstance(x, (bool, np.bool_)):
         dt = torch.bool
@@ -2557,13 +2588,16 @@ def _as_column(x, dtype: torch.dtype, like: torch.Tensor) -> torch.Tensor:
 
 
 def _row_inputs(cols, count):
-    """The columns a row function runs on. On the CPU, where torch raises
-    on integer division by zero, each padded row takes a valid row's
-    values (its shard's first row, or the first non-empty shard's for an
-    empty shard); valid rows keep theirs. None when no shard holds a
-    valid row: the caller emits zero columns without calling the
-    function. The card computes padded rows without trapping, and every
-    caller masks them out after, so it gets the columns as they are."""
+    """The columns a row function runs on, which it sees through the row
+    view (_row_view; a binop's operands through coltypes.row_view with
+    one hidden dim). On the CPU, where torch raises on integer division
+    by zero, each padded row takes a valid row's values (its shard's
+    first row, or the first non-empty shard's for an empty shard); valid
+    rows keep theirs. None when no shard holds a valid row: the caller
+    emits zero columns without calling the function. The card computes
+    padded rows without trapping, and every caller masks them out after,
+    so it gets the columns as they are: the view over them is an
+    as_subclass, no copy and no sync."""
     like = next(iter(cols.values()))
     if like.device.type != "cpu":
         return cols
@@ -2593,20 +2627,25 @@ def _check_binop(func, dtypes, what: str):
     the same dtype; over several, two tuples of them to a tuple with one
     such tensor per column (64-bit outputs narrow, as in row functions).
     Returns the binop over stored columns: a logical column's values go
-    in as the row form (coltypes.to_row) and the result comes back stored,
-    wrapped to its dtype. A binop that fails the checks, or branches on a
-    value, raises _NotTraceable when the op is built. (A traced + of two bool
-    columns is a logical or, as jnp's; the NAMED add / prod over bool is
-    what the reference refuses: _ReduceByKeyRDD.)"""
+    in as the row form (coltypes.to_row) seen through a row view with one
+    hidden dim (1-D operands, as the reference's binop sees; a single
+    value, as its host fold of the shard partials sees, none), and the
+    result comes back stored, wrapped to its dtype. A binop that fails
+    the checks, or branches on a value, raises _NotTraceable when the op
+    is built. (A traced + of two bool columns is a logical or, as jnp's;
+    the NAMED add / prod over bool is what the reference refuses:
+    _ReduceByKeyRDD.)"""
     probe = [_probe(dt, (1, 0)) for dt in dtypes]
-    arg = probe[0] if len(probe) == 1 else tuple(probe)
+    views = [coltypes.row_view(p, 1) for p in probe]
+    arg = views[0] if len(probe) == 1 else tuple(views)
     out = _traced(func, (arg, arg), f"{what} binop")
     outs = [out] if len(probe) == 1 else out
     if not isinstance(outs, (tuple, list)) or len(outs) != len(probe):
         raise _NotTraceable(f"{what} binop over {len(probe)} value columns "
                             f"must return a {len(probe)}-tuple")
     for p, o, dt in zip(probe, outs, dtypes):
-        if not isinstance(o, torch.Tensor) or o.shape != p.shape:
+        if not isinstance(o, torch.Tensor) or \
+                coltypes.plain(o).shape != p.shape:
             raise _NotTraceable(f"{what} binop must return one scalar per "
                                 "value column")
         if coltypes.logical_dtype(o) != dt:
@@ -2615,14 +2654,17 @@ def _check_binop(func, dtypes, what: str):
                 f"{coltypes.logical_dtype(o)}); cast the column first so the block schema "
                 "stays truthful")
 
+    def operand(c, dt):
+        return coltypes.row_view(coltypes.to_row(c, dt), max(c.dim() - 1, 0))
+
     if len(dtypes) == 1:
         dt0 = dtypes[0]
         return lambda a, b: coltypes.to_physical(
-            func(coltypes.to_row(a, dt0), coltypes.to_row(b, dt0)), dt0)
+            func(operand(a, dt0), operand(b, dt0)), dt0)
     return lambda a, b: tuple(
         coltypes.to_physical(x, dt) for x, dt in zip(
-            func(tuple(coltypes.to_row(c, dt) for c, dt in zip(a, dtypes)),
-                 tuple(coltypes.to_row(c, dt) for c, dt in zip(b, dtypes))),
+            func(tuple(operand(c, dt) for c, dt in zip(a, dtypes)),
+                 tuple(operand(c, dt) for c, dt in zip(b, dtypes))),
             dtypes))
 
 
@@ -2632,8 +2674,7 @@ def _trace_row_fn(f, schema, n_shards: int):
     (_column_dtype). Returns (out_schema, cols_fn), where cols_fn maps a
     column dict to a column dict; anything else raises _NotTraceable."""
     shape = (n_shards, 0)
-    out = _traced(f, (_cols_to_row(_probe_cols(schema, n_shards), schema),),
-                  "row function")
+    out = _traced(f, (_probe_row(schema, n_shards),), "row function")
     pair = isinstance(out, tuple) and len(out) == 2
     if pair:
         for x in out:
@@ -2733,8 +2774,7 @@ class _FilterRDD(_NarrowRDD):
     def __init__(self, parent: DenseRDD, pred):
         schema = parent._schema()
         n = parent.n_shards
-        _column_dtype(_traced(pred, (_cols_to_row(_probe_cols(schema, n),
-                                                  schema),),
+        _column_dtype(_traced(pred, (_probe_row(schema, n),),
                               "filter predicate"),
                       (n, 0), "filter predicate")
         super().__init__(parent, schema)
@@ -2766,9 +2806,9 @@ class _MapValuesRDD(_NarrowRDD):
         self._vname = parent._value_names()[0]
         n = parent.n_shards
         self._in_dtype = pschema[self._vname]
-        probe = _probe_cols([(self._vname, self._in_dtype)], n)
+        probe = _probe_row([(self._vname, self._in_dtype)], n)
         self._dtype = _column_dtype(
-            _traced(f, (probe[self._vname],), "map_values function"),
+            _traced(f, (probe,), "map_values function"),
             (n, 0), "map_values output")
         key_schema = tuple((nm, pschema[nm]) for nm in (KEY, KEY_LO)
                            if nm in pschema)
@@ -2788,8 +2828,8 @@ class _MapValuesRDD(_NarrowRDD):
             torch.zeros(col.shape[:2], dtype=coltypes.physical(self._dtype),
                         device=col.device)
             if inputs is None else
-            _as_column(self._f(coltypes.to_row(inputs[self._vname],
-                                               self._in_dtype)),
+            _as_column(self._f(coltypes.row_view(coltypes.to_row(
+                inputs[self._vname], self._in_dtype))),
                        self._dtype, col).contiguous())
         return out, count
 
@@ -3146,7 +3186,8 @@ def _payload_schema(payload, n_shards: int, width: int, what: str):
     out = []
     for nm, x in zip((KEY, VALUE) if pair else (VALUE,),
                      payload if pair else (payload,)):
-        if not (isinstance(x, torch.Tensor) and tuple(x.shape) == shape):
+        if not (isinstance(x, torch.Tensor)
+                and tuple(coltypes.plain(x).shape) == shape):
             raise _NotTraceable(
                 f"{what} output {nm!r} must be a tensor computed from the "
                 f"row with a trailing dim of {width} (e.g. torch.stack(..., "
@@ -3171,8 +3212,8 @@ class _ExpandRDD(DenseRDD):
         self._width = width
         self._dict_renames = {}  # f mints its outputs
         schema = parent._schema()
-        self._probe_out = _traced(f, (_cols_to_row(_probe_cols(
-            schema, parent.n_shards), schema),), what)
+        self._probe_out = _traced(f, (_probe_row(schema, parent.n_shards),),
+                                  what)
 
     def _schema(self):
         return self._out_schema
@@ -3197,9 +3238,10 @@ class _ExpandRDD(DenseRDD):
         of the traced dtypes, row i's outputs at [i * width, (i+1) *
         width)."""
         pair = len(self._out_schema) == 2
-        return {nm: coltypes.to_physical(x, dt).reshape(x.shape[0], -1)
-                for (nm, dt), x in zip(self._out_schema,
-                                       payload if pair else (payload,))}
+        stored = [coltypes.to_physical(x, dt) for (_nm, dt), x in zip(
+            self._out_schema, payload if pair else (payload,))]
+        return {nm: x.reshape(x.shape[0], -1)
+                for (nm, _dt), x in zip(self._out_schema, stored)}
 
     def _empty(self, blk: Block, cap_out: int) -> Block:
         like = next(iter(blk.cols.values()))
@@ -4468,7 +4510,9 @@ def frame_join(left: DenseRDD, right: DenseRDD, outer: bool = False,
     gains that word; the right pairs named in float64 hold float64 bits
     and take the bits of float(fill_value). Keys meet as join's do
     (_align_keys); a float32 key's -0.0 and 0.0 match, as on the
-    reference's host tier."""
+    reference's host tier. Where no device form joins the sides (keys
+    _align_keys cannot meet, a fill of None) it raises _NotTraceable, and
+    the frame planner compiles the plan on the host tier."""
     for side in (left, right):
         if not side.is_pair:
             raise VegaError("frame_join on non-pair DenseRDD")
@@ -4477,13 +4521,10 @@ def frame_join(left: DenseRDD, right: DenseRDD, outer: bool = False,
         rnames + ["r_" + nm for nm in rnames])  # merge_join_expand's names
     if overlap:
         raise VegaError(f"frame_join: both sides carry {sorted(overlap)}")
-    try:
-        left, right = _align_keys(left, right, "join")
-    except _NotTraceable as e:
-        raise _no_host_tier(str(e)) from e
+    left, right = _align_keys(left, right, "join")
     if outer:
         if fill_value is None:
-            raise _no_host_tier("a left join with fill_value=None (a dense "
+            raise _NotTraceable("a left join with fill_value=None (a dense "
                                 "column cannot hold None)")
         strings = {nm: str(fill_value) for nm in right._dicts()
                    if nm not in (KEY, KEY_LO)}

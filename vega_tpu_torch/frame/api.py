@@ -15,11 +15,13 @@ This module is the one place in vega_tpu_torch/frame/ that materializes.
              .collect())
 
 Fusion, pushdown and per-exchange policy live in planner.py; `hint()`
-exposes the knobs (fuse / pushdown / tier / exchange / shuffle_plan). The
-port has only the device tier: tier="host" and to_rdd() raise VegaError,
-tier="device" raises as the reference's does on a plan it compiles on
-its host tier, and shuffle_plan (the host tier's) is accepted and changes
-nothing, as on the reference's device plans."""
+exposes the knobs (fuse / pushdown / tier / exchange / shuffle_plan).
+tier="host" compiles the plan on the host tier (the reference's host
+lowering over the port's host RDD layer), tier="device" raises as the
+reference's does on a plan it compiles on its host tier, and
+shuffle_plan (the host tier's shuffle plan across processes) is accepted
+and changes nothing: the port's host layer runs in one process.
+to_rdd() hands the frame's rows to the RDD API."""
 
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import numpy as np
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame import logical as L
 from vega_tpu_torch.frame import parquet as parquet_lib
+from vega_tpu_torch.frame import physical as P
 from vega_tpu_torch.frame import planner as planner_lib
 from vega_tpu_torch.frame.expr import F, Agg, Col, Expr, _as_expr
 
@@ -43,10 +46,11 @@ class DataFrame:
 
     # ------------------------------------------------------- constructors
     @staticmethod
-    def from_parquet(ctx, path: str,
-                     columns: Optional[List[str]] = None) -> "DataFrame":
+    def from_parquet(ctx, path: str, columns: Optional[List[str]] = None,
+                     num_partitions: Optional[int] = None) -> "DataFrame":
         all_cols = list(parquet_lib.parquet_schema(path))
-        plan: L.LogicalPlan = L.ParquetScan(path, all_cols)
+        plan: L.LogicalPlan = L.ParquetScan(path, all_cols,
+                                            num_partitions=num_partitions)
         if columns is not None:
             missing = [c for c in columns if c not in all_cols]
             if missing:
@@ -57,14 +61,15 @@ class DataFrame:
         return DataFrame(ctx, plan)
 
     @staticmethod
-    def from_columns(ctx, data: dict) -> "DataFrame":
+    def from_columns(ctx, data: dict,
+                     num_partitions: Optional[int] = None) -> "DataFrame":
         if not data:
             raise VegaError("create_frame needs at least one column")
         arrays = {nm: np.asarray(c) for nm, c in data.items()}
         lens = {nm: len(c) for nm, c in arrays.items()}
         if len(set(lens.values())) > 1:
             raise VegaError(f"columns have unequal lengths: {lens}")
-        return DataFrame(ctx, L.ColumnsScan(arrays))
+        return DataFrame(ctx, L.ColumnsScan(arrays, num_partitions))
 
     # --------------------------------------------------------------- verbs
     def _derive(self, plan: L.LogicalPlan) -> "DataFrame":
@@ -176,8 +181,8 @@ class DataFrame:
 
     def hint(self, **hints) -> "DataFrame":
         """Planner knobs: fuse=, pushdown=, tier=('auto'|'device': the
-        reference's error where it would compile its host tier; 'host'
-        raises: the port has no host tier),
+        reference's error where it would compile its host tier; 'host':
+        the host tier for every plan),
         exchange=('auto'|'all_to_all'|'ring'|'staged') — 'auto' routes
         through the exchange planner — and shuffle_plan=('pull'|'push'),
         the host tier's, accepted and without effect."""
@@ -192,9 +197,6 @@ class DataFrame:
                     and hints[key] not in allowed:
                 raise VegaError(
                     f"hint {key}={hints[key]!r} — valid values: {allowed}")
-        if hints.get("tier") == "host":
-            raise VegaError("hint tier='host': vega_tpu_torch has no host "
-                            "tier (the device tier serves every frame)")
         for key in ("fuse", "pushdown"):
             if key in hints and not isinstance(hints[key], bool):
                 raise VegaError(f"hint {key}= takes a bool, got "
@@ -220,22 +222,44 @@ class DataFrame:
         return [tuple(_pyval(a[i]) for a in arrays) for i in range(n)]
 
     def collect_columns(self) -> dict:
-        """Columnar collect: {name: numpy array}, no per-row Python
-        objects (DenseRDD.collect_arrays; strings decoded)."""
+        """Columnar collect: {name: numpy array}. A device plan gives its
+        block's columns (DenseRDD.collect_arrays; strings decoded), a
+        host plan its numpy blocks concatenated or its rows pivoted."""
         compiled = self._compiled()
-        blk_cols = compiled.rdd.collect_arrays()
-        out = {fn: np.asarray(blk_cols[bn]) for fn, bn in compiled.out}
-        for fn in compiled.float64:  # decoded as int64: the float64 bits
-            out[fn] = out[fn].view(np.float64)
-        for fn in compiled.bools:  # 0 / 1 int32 words
-            out[fn] = out[fn] != 0
+        if compiled.kind == "device":
+            blk_cols = compiled.rdd.collect_arrays()
+            out = {fn: np.asarray(blk_cols[bn]) for fn, bn in compiled.out}
+            for fn in compiled.float64:  # decoded as int64: float64 bits
+                out[fn] = out[fn].view(np.float64)
+            for fn in compiled.bools:  # 0 / 1 int32 words
+                out[fn] = out[fn] != 0
+        elif compiled.layout == "blocks":
+            blocks = compiled.rdd.collect()
+            out = {}
+            for nm in compiled.cols:
+                parts = [np.asarray(b[nm]) for b in blocks]
+                out[nm] = (np.concatenate(parts) if parts
+                           else np.empty((0,)))
+        else:
+            # a limit over rows pulls partitions one by one through
+            # take() (a sorted layout is ordered across partitions, so
+            # the prefix is the answer)
+            rows = (compiled.rdd.take(compiled.limit)
+                    if compiled.limit is not None
+                    else compiled.rdd.collect())
+            out = {nm: np.asarray([r[i] for r in rows])
+                   for i, nm in enumerate(compiled.cols)}
         if compiled.limit is not None:
             out = {nm: c[:compiled.limit] for nm, c in out.items()}
         return out
 
     def count(self) -> int:
         compiled = self._compiled()
-        n = compiled.rdd.count()
+        if compiled.kind == "host" and compiled.layout == "blocks":
+            # the blocks' lengths, not the blocks
+            n = sum(compiled.rdd.map(P.host_block_len).collect())
+        else:
+            n = compiled.rdd.count()
         if compiled.limit is not None:
             n = min(n, compiled.limit)
         return n
@@ -244,16 +268,52 @@ class DataFrame:
         return self.limit(n).collect()
 
     def to_rdd(self):
-        """The reference's escape hatch to its host-tier RDD API: the port
-        has no host tier (ROADMAP queue 1, item 7), so this raises."""
-        raise VegaError("to_rdd(): the reference hands the frame to the "
-                        "RDD API of its host tier, which vega_tpu_torch "
-                        "does not have; use collect() / collect_columns()")
+        """The compiled lineage as an RDD of frame-ordered row tuples of
+        Python values, the escape hatch to the RDD API. A device plan
+        gives its DenseRDD's host rows (DenseRDD.to_rdd()) reordered to
+        frame order, a float64 column's bits and a bool key's words read
+        back as their values; a host plan its row lineage. A limited
+        frame collects its (small, by intent) rows and parallelizes
+        them, so the limit is never dropped."""
+        compiled = self._compiled()
+        if compiled.limit is not None:
+            return self._ctx.parallelize(self.collect())
+        if compiled.kind == "device":
+            names = compiled.rdd.row_names()
+            idx = [names.index(bn) for _fn, bn in compiled.out]
+            kinds = [("float64" if fn in compiled.float64 else
+                      "bool" if fn in compiled.bools else None)
+                     for fn, _bn in compiled.out]
+            return compiled.rdd.to_rdd().map(_frame_row(idx, kinds))
+        if compiled.layout == "blocks":
+            return compiled.rdd.flat_map(P.host_block_rows(compiled.cols))
+        return compiled.rdd
 
 
 def _pyval(x):
     """numpy scalar -> Python native; object-column values pass through."""
     return x.item() if hasattr(x, "item") else x
+
+
+def _frame_row(idx: List[int], kinds: List[Optional[str]]):
+    """A device plan's host row -> the frame's row: its columns at idx,
+    as Python values (a float64 column's int64 bits as the float64, a
+    bool key's 0 / 1 word as a bool)."""
+
+    def run(row):
+        if not isinstance(row, tuple):
+            row = (row,)
+        out = []
+        for i, kind in zip(idx, kinds):
+            x = row[i]
+            if kind == "float64":
+                x = np.int64(x).view(np.float64)
+            elif kind == "bool":
+                x = bool(x)
+            out.append(_pyval(x))
+        return tuple(out)
+
+    return run
 
 
 class GroupedFrame:

@@ -8,9 +8,11 @@ column with plain Python operators. The planner decides traceability by
 running the whole stage once on empty probe columns (planner._flush),
 never by value probing. `Udf` wraps a Python callable applied to whole
 columns: a torch-vectorized callable fuses into the stage like any
-operator; anything else fails the probe and the plan raises VegaError
-(the reference compiles it on its host tier, which the port does not
-have).
+operator; anything else fails the probe and the plan compiles on the
+host tier, as the reference's does. There `evaluate(expr, env,
+host=True)` runs the same tree over numpy columns (a block) or Python
+values (a row), and a Udf is called on numpy arrays, then element by
+element where it does not take arrays.
 
 Aggregates (`F.sum/min/max/count/mean`) are descriptors, not expressions:
 the planner lowers them onto the named-op reduce or a traced tuple
@@ -193,10 +195,12 @@ class UnaryOp(Expr):
 
 class Udf(Expr):
     """Opaque columnwise callable: fn receives the evaluated argument
-    COLUMN(s) (torch tensors) and must return a same-shape column or a
-    Python constant. The stage probe decides: torch-vectorized callables
-    fuse like any operator; anything else raises VegaError when the plan
-    compiles."""
+    COLUMN(s) and must return a same-length column or a Python constant.
+    On the device tier (torch tensors) the stage probe decides:
+    torch-vectorized callables fuse like any operator; anything else
+    sends the plan to the host tier, where fn runs over numpy columns,
+    with a per-element fallback for scalar-only callables
+    (_eval_host)."""
 
     def __init__(self, fn: Callable, *args: Expr, name: Optional[str] = None):
         self.fn = fn
@@ -205,6 +209,34 @@ class Udf(Expr):
 
     def _eval(self, env: dict):
         return self.fn(*[a._eval(env) for a in self.args])
+
+    def _eval_host(self, env: dict):
+        """Host evaluation with the scalar-callable fallback: the
+        columnwise contract first; a callable that fails on arrays (dict
+        lookups, object methods) or does not give one value per row is
+        applied per element instead."""
+        import numpy as np
+
+        cols = [a._eval(env) for a in self.args]
+        try:
+            out = self.fn(*cols)
+            first = next((c for c in cols if hasattr(c, "__len__")), None)
+            if first is not None and (not hasattr(out, "__len__")
+                                      or len(out) != len(first)):
+                raise TypeError("not columnwise")
+            return out
+        except Exception:  # noqa: BLE001 — scalar fallback, same contract
+            arrays = [np.asarray(c) for c in cols]
+            # the loop's length is the first ARRAY argument's, wherever
+            # it sits: a literal first argument must not shrink the column
+            ref = next((a for a in arrays if a.ndim), None)
+            if ref is None:  # all-scalar call
+                return self.fn(*[a.item() for a in arrays])
+            return np.asarray([
+                self.fn(*[a[i].item() if a.ndim else a.item()
+                          for a in arrays])
+                for i in range(len(ref))
+            ])
 
     def references(self, out: set) -> None:
         for a in self.args:
@@ -240,8 +272,25 @@ def _render(e: Expr) -> str:
     return object.__repr__(e)
 
 
-def evaluate(expr: Expr, env: dict):
-    """Columnwise evaluation against {name: column}."""
+def evaluate(expr: Expr, env: dict, host: bool = False):
+    """Columnwise evaluation against {name: column}. host=True routes Udf
+    nodes through the host tier's scalar fallback (Udf._eval_host)."""
+    if host:
+        return _eval_host(expr, env)
+    return expr._eval(env)
+
+
+def _eval_host(expr: Expr, env: dict):
+    if isinstance(expr, Udf):
+        # sub-arguments on the host path too (nested udfs)
+        hosted = Udf(expr.fn, *[Lit(_eval_host(a, env)) for a in expr.args],
+                     name=expr.name)
+        return hosted._eval_host(env)
+    if isinstance(expr, BinOp):
+        return _BIN_OPS[expr.op](_eval_host(expr.left, env),
+                                 _eval_host(expr.right, env))
+    if isinstance(expr, UnaryOp):
+        return _UNARY_OPS[expr.op](_eval_host(expr.operand, env))
     return expr._eval(env)
 
 

@@ -35,11 +35,14 @@ class LogicalPlan:
 class ParquetScan(LogicalPlan):
     def __init__(self, path: str, all_columns: Sequence[str],
                  columns: Optional[Sequence[str]] = None,
-                 predicate: Sequence[tuple] = ()):
+                 predicate: Sequence[tuple] = (),
+                 num_partitions: Optional[int] = None):
         self.path = path
         self.all_columns = list(all_columns)
         self.columns_kept = list(columns) if columns is not None else None
         self.predicate = list(predicate)
+        # the host tier's partitions (the device tier's are the shards)
+        self.num_partitions = num_partitions
 
     def columns(self) -> List[str]:
         return list(self.columns_kept if self.columns_kept is not None
@@ -56,8 +59,9 @@ class ParquetScan(LogicalPlan):
 class ColumnsScan(LogicalPlan):
     """In-memory columnar source (ctx.create_frame)."""
 
-    def __init__(self, data: dict):
+    def __init__(self, data: dict, num_partitions: Optional[int] = None):
         self.data = {nm: c for nm, c in data.items()}
+        self.num_partitions = num_partitions
 
     def columns(self) -> List[str]:
         return list(self.data)
@@ -262,7 +266,7 @@ def prune_columns(plan: LogicalPlan,
                 f"unknown column(s) {sorted(missing)} — parquet file "
                 f"{plan.path!r} has {plan.all_columns}")
         return ParquetScan(plan.path, plan.all_columns, kept,
-                           plan.predicate)
+                           plan.predicate, plan.num_partitions)
     if isinstance(plan, ColumnsScan):
         if required is None:
             return plan
@@ -274,7 +278,7 @@ def prune_columns(plan: LogicalPlan,
         if not required and plan.data:
             required = {next(iter(plan.data))}  # row count survives
         return ColumnsScan({nm: c for nm, c in plan.data.items()
-                            if nm in required})
+                            if nm in required}, plan.num_partitions)
     raise VegaError(f"unknown plan node {type(plan).__name__}")
 
 
@@ -371,7 +375,8 @@ def push_predicates(plan: LogicalPlan) -> LogicalPlan:
             if pushed:
                 new_scan = ParquetScan(scan.path, scan.all_columns,
                                        scan.columns_kept,
-                                       list(scan.predicate) + pushed)
+                                       list(scan.predicate) + pushed,
+                                       scan.num_partitions)
                 child = rebuild(new_scan)
             if not residual:
                 return child

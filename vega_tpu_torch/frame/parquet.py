@@ -73,6 +73,26 @@ def discover_parquet_files(path: str) -> List[str]:
     return matched
 
 
+def assign_files_to_partitions(files: List[str],
+                               num_partitions: int) -> List[List[str]]:
+    """Size-balanced greedy packing of files into partitions: the biggest
+    file to the least-loaded partition (the host tier's file splits)."""
+    import heapq
+
+    num_partitions = max(1, min(num_partitions, max(len(files), 1)))
+    sized = sorted(((os.path.getsize(f), f) for f in files), reverse=True)
+    heap = [(0, i, []) for i in range(num_partitions)]
+    heapq.heapify(heap)
+    for size, f in sized:
+        load, i, bucket = heapq.heappop(heap)
+        bucket.append(f)
+        heapq.heappush(heap, (load + size, i, bucket))
+    buckets = [[] for _ in range(num_partitions)]
+    for _load, i, bucket in heap:
+        buckets[i] = bucket
+    return [b for b in buckets if b] or [[]]
+
+
 def _row_group_may_match(meta_rg, col_index: dict, predicate) -> bool:
     """False only when the row group's column statistics PROVE no row can
     satisfy the conjunct — missing/partial statistics keep the group."""

@@ -1,5 +1,6 @@
-"""Frame physical building blocks: the lazy device sources (the port's
-copy of the device half of vega_tpu/frame/physical.py).
+"""Frame physical building blocks (the port's copy of
+vega_tpu/frame/physical.py): the lazy device sources, and the host tier's
+per-partition closures over numpy blocks and row tuples.
 
 Plan compilation builds the source node and checks the dtypes; the first
 block() reads the file or coerces the arrays and shards them onto the
@@ -20,10 +21,15 @@ a pair like the wide one), a bool column stays a bool (0 / 1 int32
 words read back as bools), and an integer column of 32 bits or fewer
 keeps its numpy dtype beside its int32 words (ScanForms.np_ints), which
 numpy computes in before the first exchange. Anything else (object
-columns of anything but strings, uint64 beyond int64) raises VegaError
-when the plan compiles: the reference compiles such a plan on its host
-tier, which the port does not have. What a stage computes from these
-columns follows the same tier (planner._Stage)."""
+columns of anything but strings, uint64 beyond int64) has no device
+form: the plan compiles onto the host tier (NoDeviceLowering, caught by
+planner.compile_plan), as the reference's does. What a stage computes
+from these columns follows the same tier (planner._Stage).
+
+The host tier's closures (host_block_stage to host_left_join_emit) are
+the reference's: columnar blocks {name: numpy column} until the first
+exchange, row tuples of Python values after it, evaluated with numpy
+and Python operators (expr.evaluate(..., host=True))."""
 
 from __future__ import annotations
 
@@ -37,18 +43,23 @@ from vega_tpu_torch import dense_rdd
 from vega_tpu_torch import dict_encoding
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame import parquet as parquet_lib
+from vega_tpu_torch.frame.expr import evaluate
+from vega_tpu_torch.rdd.base import RDD
+from vega_tpu_torch.split import Split
 
 _TORCH_DTYPES = {"int32": torch.int32, "float32": torch.float32}
 # the stored words of a pair: the wide int64 and the float64 bits
 _PAIRS = ("wide", "float64")
 
 
-def no_device_lowering(reason: str) -> VegaError:
-    """The error for a plan the reference compiles on its host tier (its
-    HostFallback), carrying the reference's reason."""
-    return VegaError(f"the plan has no device lowering: {reason} (the "
-                     "reference compiles it on its host tier, which "
-                     "vega_tpu_torch does not have)")
+class NoDeviceLowering(VegaError):
+    """A plan with no device form in the port (the reference's
+    HostFallback): planner.compile_plan compiles it on the host tier, or
+    raises it under hint(tier="device"). reason is the reference's."""
+
+    def __init__(self, reason: str):
+        super().__init__(f"the plan has no device lowering: {reason}")
+        self.reason = reason
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +155,7 @@ def _forms(checked) -> ScanForms:
         kinds[fn] = kind
         reference = reference or why
         if error is None and refusal:
-            error = no_device_lowering(refusal)
+            error = NoDeviceLowering(refusal)
     return ScanForms(kinds, reference, error)
 
 
@@ -460,3 +471,251 @@ def make_parquet_source(ctx, path: str, columns: List[str], predicate,
     return _ParquetSource(ctx, parquet_lib.discover_parquet_files(path),
                           columns, predicate, names, forms.kinds, host,
                           dtypes, forms.np_ints)
+
+
+# ---------------------------------------------------------------------------
+# host-tier per-partition closures
+# ---------------------------------------------------------------------------
+
+
+def host_block_stage(colmap: List[Tuple[str, str]], steps,
+                     emit: List[Tuple[str, object]]):
+    """Columnar host stage over one {name: np column} block: the same
+    project / filter step list the device stage fuses, evaluated with
+    numpy. Returns a new {out_name: column} block."""
+
+    def run(block: dict) -> dict:
+        env = {fn: block[bn] for fn, bn in colmap}
+        n = len(next(iter(env.values()))) if env else 0
+        for kind, payload in steps:
+            if kind == "project":
+                env = {nm: _host_broadcast(evaluate(e, env, host=True), n)
+                       for nm, e in payload}
+            else:  # filter
+                keep = np.asarray(_host_broadcast(
+                    evaluate(payload, env, host=True), n), dtype=bool)
+                env = {nm: c[keep] for nm, c in env.items()}
+                n = len(next(iter(env.values()))) if env else 0
+        return {bn: _host_broadcast(evaluate(e, env, host=True), n)
+                for bn, e in emit}
+
+    return run
+
+
+def _host_broadcast(v, n: int):
+    arr = np.asarray(v)
+    if arr.ndim == 0:
+        return np.full(n, arr[()])
+    return arr
+
+
+def host_block_to_pairs(key_name: str, specs: List[Tuple[str, object]],
+                        scalar: bool = False):
+    """A columnar block pivoted into (key, value) rows for the host
+    group-agg: specs are (alias, Expr) in output order; scalar=True
+    (single-aggregate plans) emits the bare value instead of a 1-tuple.
+    Keys become Python natives, so hashing and equality match the device
+    collect's tolist view."""
+
+    def run(block: dict):
+        env = dict(block)
+        n = len(next(iter(env.values()))) if env else 0
+        keys = np.asarray(env[key_name])
+        vals = [_host_broadcast(evaluate(e, env, host=True), n)
+                for _alias, e in specs]
+        if scalar:
+            v0 = np.asarray(vals[0])
+            for i in range(n):
+                yield (_item(keys[i]), _item(v0[i]))
+            return
+        arrays = [np.asarray(v) for v in vals]
+        for i in range(n):
+            yield (_item(keys[i]), tuple(_item(a[i]) for a in arrays))
+
+    return run
+
+
+def _item(x):
+    """Element -> Python native; object-column elements (str, ...) pass
+    through."""
+    return x.item() if hasattr(x, "item") else x
+
+
+_HOST_OPS = {
+    "add": lambda a, b: a + b,
+    "min": min,
+    "max": max,
+}
+
+
+def host_tuple_combiner(ops: List[str]):
+    """Elementwise tuple monoid combine for the host reduce."""
+
+    def combine(a, b):
+        return tuple(_HOST_OPS[op](x, y) for op, x, y in zip(ops, a, b))
+
+    return combine
+
+
+def host_rows_stage(cols: List[str], steps,
+                    emit: List[Tuple[str, object]]):
+    """Rowwise host stage over (c0, c1, ...) tuples (the post-exchange
+    layout): evaluates the same expression trees per row."""
+
+    def run(row: tuple):
+        env = dict(zip(cols, row))
+        for kind, payload in steps:
+            if kind == "project":
+                env = {nm: evaluate(e, env, host=True)
+                       for nm, e in payload}
+            else:
+                raise AssertionError("row-layout filters lower via filter()")
+        return tuple(_native(evaluate(e, env, host=True))
+                     for _nm, e in emit)
+
+    return run
+
+
+def host_rows_filter(cols: List[str], predicate):
+    def run(row: tuple) -> bool:
+        env = dict(zip(cols, row))
+        return bool(evaluate(predicate, env, host=True))
+
+    return run
+
+
+def _native(v):
+    arr = np.asarray(v)
+    if arr.ndim == 0:
+        return arr[()].item() if hasattr(arr[()], "item") else arr[()]
+    return v
+
+
+def host_rows_to_pairs(cols: List[str], key_name: str,
+                       specs: List[Tuple[str, object]],
+                       scalar: bool = False):
+    """Rowwise pivot to (key, value[-tuple]) for a group-agg over the
+    post-exchange row layout (scalar: see host_block_to_pairs)."""
+
+    def run(row: tuple):
+        env = dict(zip(cols, row))
+        k = _native(env[key_name])
+        if scalar:
+            return (k, _native(evaluate(specs[0][1], env, host=True)))
+        return (k, tuple(_native(evaluate(e, env, host=True))
+                         for _alias, e in specs))
+
+    return run
+
+
+def host_pair_to_row():
+    """(k, v) -> (k, v) row tuple (scalar single-aggregate finalize)."""
+
+    def run(pair):
+        return (pair[0], pair[1])
+
+    return run
+
+
+def host_finalize_slots(slots: List[tuple]):
+    """(key, value-tuple) -> row. slots: ('v', i) picks vals[i];
+    ('mean', i, j) emits vals[i] / vals[j]."""
+
+    def run(pair):
+        k, vals = pair
+        out = [k]
+        for slot in slots:
+            if slot[0] == "v":
+                out.append(vals[slot[1]])
+            else:
+                out.append(vals[slot[1]] / vals[slot[2]])
+        return tuple(out)
+
+    return run
+
+
+def host_block_rows(cols: List[str]):
+    """Columnar block -> row tuples (cols order), Python natives."""
+
+    def run(block: dict):
+        arrays = [np.asarray(block[c]) for c in cols]
+        n = len(arrays[0]) if arrays else 0
+        for i in range(n):
+            yield tuple(_item(a[i]) for a in arrays)
+
+    return run
+
+
+def host_block_len(block: dict) -> int:
+    """Row count of one columnar block: count() sums these instead of
+    collecting the blocks."""
+    return len(next(iter(block.values()))) if block else 0
+
+
+def host_row_to_pair(idx: int):
+    """Row tuple -> (key, rest-tuple) keyed on column index idx."""
+
+    def run(row: tuple):
+        return (row[idx], row[:idx] + row[idx + 1:])
+
+    return run
+
+
+def host_join_rows():
+    """(k, (lrest, rrest)) -> (k, *lrest, *rrest)."""
+
+    def run(pair):
+        k, (lrest, rrest) = pair
+        return (k,) + tuple(lrest) + tuple(rrest)
+
+    return run
+
+
+def host_left_join_emit(r_arity: int, fill_value):
+    """Cogroup groups -> left-outer rows with an explicit fill (the device
+    join's fill_value semantics, so results do not depend on the tier)."""
+
+    def run(pair):
+        k, (lvs, rvs) = pair
+        if not rvs:
+            fill = (fill_value,) * r_arity
+            return [(k,) + tuple(lv) + fill for lv in lvs]
+        return [(k,) + tuple(lv) + tuple(rv) for lv in lvs for rv in rvs]
+
+    return run
+
+
+class _FileListRDD(RDD):
+    """The host tier's parquet scan: one partition per group of files,
+    each yielding the reader's {name: numpy column} blocks."""
+
+    def __init__(self, ctx, groups: List[List[str]],
+                 columns: Optional[List[str]], predicate):
+        super().__init__(ctx)
+        self._groups = groups
+        self._columns = columns
+        self._predicate = predicate
+
+    @property
+    def num_partitions(self) -> int:
+        return len(self._groups)
+
+    def splits(self) -> List[Split]:
+        return [Split(i, payload=g) for i, g in enumerate(self._groups)]
+
+    def compute(self, split: Split, task_context=None):
+        paths = split.payload if split.payload is not None \
+            else self._groups[split.index]
+        return parquet_lib.iter_parquet_batches(paths, self._columns,
+                                                self._predicate)
+
+
+def host_parquet_source(ctx, path: str, columns: Optional[List[str]],
+                        predicate, num_partitions: int) -> _FileListRDD:
+    """The host tier's parquet scan over the reference's file splits
+    (parquet.assign_files_to_partitions), with the columns pruned and the
+    predicate's conjuncts applied in the reader
+    (parquet.iter_parquet_batches)."""
+    groups = parquet_lib.assign_files_to_partitions(
+        parquet_lib.discover_parquet_files(path), num_partitions)
+    return _FileListRDD(ctx, groups, columns, list(predicate or ()))

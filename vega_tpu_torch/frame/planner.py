@@ -1,5 +1,5 @@
-"""Frame logical -> physical compiler: the device lowering of
-vega_tpu/frame/planner.py (its host lowering has no counterpart here).
+"""Frame logical -> physical compiler: the port's copy of
+vega_tpu/frame/planner.py, with its two lowerings of one optimized plan.
 
 Scans become lazy dense sources (pruned columns and pushed predicates
 reach the parquet reader, so unneeded data never leaves the file); every
@@ -55,9 +55,15 @@ comparisons, min / max of a string column beside other aggregates, wide
 int64 columns, float group and join keys, bool keys) run here on the
 device. Where no device form gives the host tier's rows (a stage that
 does not trace, a source dtype with no device form, arithmetic or a sum
-over a string column, a string fill over a number column) the port
-raises VegaError carrying the reference's reason, when the plan
-compiles: at explain(), collect() or count(), before any device work.
+over a string column, a string fill over a number column, a left join
+filling None) the device lowering raises physical.NoDeviceLowering and
+the plan compiles on the host tier (_compile_host): the reference's host
+lowering, copied, over the port's host RDD layer (vega_tpu_torch/rdd/):
+columnar numpy blocks until the first exchange, row tuples after it.
+hint(tier="host") compiles every plan there. A device plan that fails
+when it runs raises; it is never run again on the host.
+fallback_count() / last_fallback() count the reference's own decision
+(reference_tier), so they read as the reference's do.
 
 Compilation is plan algebra, metadata reads and one probe of each stage
 on empty CPU columns (dense_rdd._probe_cols): no source is read, no
@@ -65,6 +71,7 @@ block materialized and no chain applied until an action runs (api.py)."""
 
 from __future__ import annotations
 
+import operator
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -82,16 +89,34 @@ from vega_tpu_torch.frame import logical as L
 from vega_tpu_torch.frame import parquet as parquet_lib
 from vega_tpu_torch.frame import physical as P
 from vega_tpu_torch.frame.expr import _AGG_MONOID, Col, Expr, Lit, evaluate
-from vega_tpu_torch.frame.physical import no_device_lowering
+from vega_tpu_torch.frame.physical import NoDeviceLowering
 
 DEFAULT_OPTIONS = {
     "fuse": True,        # whole-stage fusion (False: one chain per verb)
     "pushdown": True,    # column pruning + predicate pushdown into scans
     "tier": "auto",      # auto | device (raises where the reference
-                         # would compile the host tier); host raises
+                         # would compile the host tier) | host
     "exchange": None,    # exchange override (auto|all_to_all|ring|staged)
-    "shuffle_plan": None,  # the host tier's shuffle plan: no effect here
+    "shuffle_plan": None,  # the host tier's shuffle plan: one process
+                           # here, so no effect
 }
+
+# The reference's device -> host fallbacks: every compile whose plan the
+# reference's device lowering refuses (reference_tier) bumps the count and
+# records why, whichever tier the port runs it on, so a test's deltas read
+# the same on both packages.
+_FALLBACKS = {"count": 0, "last": None}
+
+
+def fallback_count() -> int:
+    """Compiles in this process that the reference sends from its device
+    tier to its host tier."""
+    return _FALLBACKS["count"]
+
+
+def last_fallback() -> Optional[str]:
+    """The reference's reason for the most recent such compile."""
+    return _FALLBACKS["last"]
 
 # The companions of a float64 exchange key, as block and frame names: a
 # group-by's wide column whose low bit is the sign of its first row's key
@@ -102,14 +127,19 @@ K_RAW = "k~raw"
 
 
 class Compiled:
-    """Physical plan handle: a lazy dense node plus what the action
-    surface (api.py) needs to give frame-shaped results."""
+    """Physical plan handle: a lazy node (a dense node on the device tier,
+    a host RDD on the host tier) plus what the action surface (api.py)
+    needs to give frame-shaped results."""
 
     def __init__(self, rdd, cols: List[str], out: List[Tuple[str, str]],
                  limit: Optional[int], plan, notes: List[str],
                  float64=frozenset(), bools=frozenset(),
-                 reference: Tuple[str, Optional[str]] = ("device", None)):
+                 reference: Tuple[str, Optional[str]] = ("device", None),
+                 kind: str = "device", layout: str = "block"):
+        self.kind = kind    # "device" | "host": the tier that runs it
         self.rdd = rdd
+        # device: "block"; host: "blocks" (numpy column dicts) | "rows"
+        self.layout = layout
         self.cols = cols    # frame output columns, in order
         self.out = out      # (frame name, block name)
         # frame columns whose block pair holds float64 bits (_flush)
@@ -123,7 +153,7 @@ class Compiled:
         self.notes = notes
 
     def explain(self) -> str:
-        head = "== physical: device tier =="
+        head = f"== physical: {self.kind} tier =="
         body = L.explain_tree(self.plan)
         tier, why = self.reference
         ref = f"\n-- reference tier: {tier}" + (f" ({why})" if why else "")
@@ -134,21 +164,37 @@ class Compiled:
 
 def compile_plan(ctx, plan: L.LogicalPlan, options: dict) -> Compiled:
     options = {**DEFAULT_OPTIONS, **(options or {})}
-    if options["tier"] == "host":
-        raise VegaError("tier='host' requested: vega_tpu_torch has no host "
-                        "tier (the device tier serves every frame)")
     limit = None
     while isinstance(plan, L.Limit):
         limit = plan.n if limit is None else min(limit, plan.n)
         plan = plan.child
     opt = L.optimize(plan) if options["pushdown"] else plan
+    tier = options["tier"]
+    if tier == "host":
+        return _compile_host(ctx, opt, limit,
+                             ["host tier: requested via hint"],
+                             ("host", "requested via hint"))
     sources = scan_sources(ctx, opt)
     reference = reference_tier(opt, sources, options)
-    if options["tier"] == "device" and reference[0] == "host":
-        # the reference's words: it raises where its device lowering
-        # falls back
-        raise VegaError("tier='device' requested but the plan has no "
-                        f"device lowering: {reference[1]}")
+    if reference[0] == "host":
+        if tier == "device":
+            # the reference's words: it raises where its device lowering
+            # falls back
+            raise VegaError("tier='device' requested but the plan has no "
+                            f"device lowering: {reference[1]}")
+        _FALLBACKS["count"] += 1
+        _FALLBACKS["last"] = reference[1]
+    try:
+        return _compile_device(ctx, opt, options, limit, sources, reference)
+    except NoDeviceLowering as e:
+        if tier == "device":
+            raise
+        return _compile_host(ctx, opt, limit, [f"host tier: {e.reason}"],
+                             reference)
+
+
+def _compile_device(ctx, opt: L.LogicalPlan, options: dict,
+                    limit: Optional[int], sources, reference) -> Compiled:
     lw = _Lowering(ctx, options, sources, reference[0] == "host")
     st = _lower(lw, opt)
     cols = opt.columns()
@@ -536,7 +582,7 @@ def _column(x, like: torch.Tensor, what: str) -> torch.Tensor:
 
 
 def _string_error(kind: str, cols) -> VegaError:
-    return no_device_lowering(
+    return NoDeviceLowering(
         f"{kind} over string column(s) {sorted(cols)} computes on "
         "dictionary codes; host tier evaluates it")
 
@@ -685,7 +731,7 @@ class _Stage:
             why = (str(e).split(dr.HOST_TIER_SUFFIX)[0]
                    if isinstance(e, VegaError)
                    else f"{type(e).__name__}: {e}")
-            raise no_device_lowering(f"stage does not trace: {why}") from e
+            raise NoDeviceLowering(f"stage does not trace: {why}") from e
         # whether the stage records overflow flags, read at each run
         self.flagged = bool(bad)
         self._probe = (vals, like)
@@ -940,7 +986,7 @@ def _check_key(node) -> None:
     schema = dict(node._schema())
     dt = schema["k"]
     if dr.KEY_LO not in schema and dt not in (torch.int32, torch.float32):
-        raise no_device_lowering(
+        raise NoDeviceLowering(
             "device exchange key must be int32, float32 or int64, got "
             f"{str(dt).replace('torch.', '')}")
 
@@ -1030,7 +1076,7 @@ def _lower(lw: _Lowering, plan: L.LogicalPlan) -> _DState:
                                      {plan.by} if "k" in f.bools else set()))
         out.est_rows = st.est_rows
         return out
-    raise no_device_lowering(f"no device lowering for {type(plan).__name__}")
+    raise NoDeviceLowering(f"no device lowering for {type(plan).__name__}")
 
 
 def _lower_group_agg(lw: _Lowering, plan: L.GroupAgg) -> _DState:
@@ -1043,7 +1089,7 @@ def _lower_group_agg(lw: _Lowering, plan: L.GroupAgg) -> _DState:
             # rank codes make min / max of a string column sound on the
             # device; every other monoid would fold dictionary codes
             if m not in ("min", "max"):
-                raise no_device_lowering(
+                raise NoDeviceLowering(
                     f"aggregate '{m}' over string column(s) "
                     f"{[e.name]} folds dictionary codes; host tier "
                     "aggregates it")
@@ -1123,7 +1169,7 @@ def _host_fill_casts(kinds: Dict[str, torch.dtype], rvals: List[str], fill,
         if c in strings:
             continue
         if isinstance(fill, str):
-            raise dr._no_host_tier(f"a left join's string fill {fill!r} "
+            raise NoDeviceLowering(f"a left join's string fill {fill!r} "
                                    f"over the number column {c!r}")
         dt = kinds[bn]
         if dt == torch.float64:
@@ -1161,8 +1207,8 @@ def _lower_join(lw: _Lowering, plan: L.Join) -> _DState:
     rlive = _dicts_after(rst, plan.right.columns())
     key_f64 = torch.float64 in (ls.kinds["k"], rs.kinds["k"])
     if key_f64 and (plan.on in llive or plan.on in rlive):
-        raise dr._no_host_tier(f"a join of a string key with a float64 key "
-                               f"on {plan.on!r}")
+        raise NoDeviceLowering(f"a join of a string key with a float64 "
+                               f"key on {plan.on!r}")
     casts = {}
     if lw.host and plan.how == "left":
         casts = _host_fill_casts(rs.kinds, rvals, plan.fill_value,
@@ -1172,9 +1218,12 @@ def _lower_join(lw: _Lowering, plan: L.Join) -> _DState:
     _check_key(lf.node)
     _check_key(rf.node)
     exchange = _pick_exchange(lw, lst, len(lpairs))
-    joined = dr.frame_join(lf.node, rf.node, outer=plan.how == "left",
-                           fill_value=plan.fill_value, exchange=exchange,
-                           float64=rf.f64)
+    try:
+        joined = dr.frame_join(lf.node, rf.node, outer=plan.how == "left",
+                               fill_value=plan.fill_value, exchange=exchange,
+                               float64=rf.f64)
+    except dr._NotTraceable as e:
+        raise NoDeviceLowering(str(e)) from e
     lw.notes.append(f"join: device sort-merge ({plan.how})")
     lkey = K_RAW if lf.f64_key else "k"
     out = _DState(joined, [(plan.on, lkey)]
@@ -1210,3 +1259,122 @@ def _unfused_break(lw: _Lowering, st: _DState, cols: List[str]) -> _DState:
                       cols, pairs) if bn in f.np_ints})
     out.est_rows = st.est_rows
     return out
+
+
+# ---------------------------------------------------------------------------
+# host lowering (the reference's, over the port's host RDD layer)
+# ---------------------------------------------------------------------------
+
+
+class _HState:
+    def __init__(self, rdd, layout: str, cols: List[str]):
+        self.rdd = rdd
+        self.layout = layout  # "blocks" | "rows"
+        self.cols = list(cols)
+        self.input_cols = list(cols)
+        self.steps: List[tuple] = []  # pending, blocks layout only
+
+
+def _host_flush_blocks(st: _HState) -> _HState:
+    if not st.steps:
+        return st
+    emit = [(c, Col(c)) for c in st.cols]
+    fn = P.host_block_stage([(c, c) for c in st.input_cols], st.steps, emit)
+    return _HState(st.rdd.map(fn), "blocks", st.cols)
+
+
+def _host_to_rows(st: _HState) -> _HState:
+    st = _host_flush_blocks(st)
+    if st.layout == "rows":
+        return st
+    return _HState(st.rdd.flat_map(P.host_block_rows(st.cols)), "rows",
+                   st.cols)
+
+
+def _lower_host(ctx, plan: L.LogicalPlan) -> _HState:
+    if isinstance(plan, L.ColumnsScan):
+        data = {nm: np.asarray(c) for nm, c in plan.data.items()}
+        cols = list(data)
+        n = len(data[cols[0]]) if cols else 0
+        parts = plan.num_partitions or ctx.default_parallelism
+        per = -(-n // parts) if n else 1
+        chunks = [{nm: c[i * per:(i + 1) * per] for nm, c in data.items()}
+                  for i in range(max(1, -(-n // per) if n else 1))]
+        return _HState(ctx.parallelize(chunks, len(chunks)), "blocks", cols)
+    if isinstance(plan, L.ParquetScan):
+        cols = plan.columns()
+        rdd = P.host_parquet_source(
+            ctx, plan.path, None if plan.columns_kept is None else cols,
+            plan.predicate, plan.num_partitions or ctx.default_parallelism)
+        return _HState(rdd, "blocks", cols)
+    if isinstance(plan, L.Project):
+        st = _lower_host(ctx, plan.child)
+        if st.layout == "blocks":
+            st.steps.append(("project", list(plan.outputs)))
+            st.cols = plan.columns()
+            return st
+        fn = P.host_rows_stage(st.cols, [], list(plan.outputs))
+        return _HState(st.rdd.map(fn), "rows", plan.columns())
+    if isinstance(plan, L.Filter):
+        st = _lower_host(ctx, plan.child)
+        if st.layout == "blocks":
+            st.steps.append(("filter", plan.predicate))
+            return st
+        return _HState(
+            st.rdd.filter(P.host_rows_filter(st.cols, plan.predicate)),
+            "rows", st.cols)
+    if isinstance(plan, L.GroupAgg):
+        st = _lower_host(ctx, plan.child)
+        specs, slots = _agg_specs(plan)
+        spec_pairs = [(bn, e) for bn, e, _m in specs]
+        ops = [m for _bn, _e, m in specs]
+        # a single add / min / max shuffles bare scalars with the monoid
+        # callable, as the reference's (its shuffle merges them natively)
+        scalar = len(specs) == 1 and ops[0] in ("add", "min", "max")
+        if st.layout == "blocks":
+            st = _host_flush_blocks(st)
+            pairs = st.rdd.flat_map(
+                P.host_block_to_pairs(plan.key, spec_pairs, scalar=scalar))
+        else:
+            pairs = st.rdd.map(P.host_rows_to_pairs(
+                st.cols, plan.key, spec_pairs, scalar=scalar))
+        if scalar:
+            monoid = {"add": operator.add, "min": min, "max": max}[ops[0]]
+            rows = pairs.reduce_by_key(monoid).map(P.host_pair_to_row())
+        else:
+            reduced = pairs.reduce_by_key(P.host_tuple_combiner(ops))
+            rows = reduced.map(P.host_finalize_slots(slots))
+        return _HState(rows, "rows", plan.columns())
+    if isinstance(plan, L.Join):
+        lst = _host_to_rows(_lower_host(ctx, plan.left))
+        rst = _host_to_rows(_lower_host(ctx, plan.right))
+        lp = lst.rdd.map(P.host_row_to_pair(lst.cols.index(plan.on)))
+        rp = rst.rdd.map(P.host_row_to_pair(rst.cols.index(plan.on)))
+        if plan.how == "inner":
+            rows = lp.join(rp).map(P.host_join_rows())
+        else:
+            rows = lp.cogroup(rp).flat_map(
+                P.host_left_join_emit(len(rst.cols) - 1, plan.fill_value))
+        return _HState(rows, "rows", plan.columns())
+    if isinstance(plan, L.Sort):
+        st = _host_to_rows(_lower_host(ctx, plan.child))
+        rows = st.rdd.sort_by(_row_key(st.cols.index(plan.by)),
+                              ascending=plan.ascending)
+        return _HState(rows, "rows", st.cols)
+    raise VegaError(f"no host lowering for {type(plan).__name__}")
+
+
+def _row_key(idx: int):
+    def key(row):
+        return row[idx]
+
+    return key
+
+
+def _compile_host(ctx, plan: L.LogicalPlan, limit: Optional[int],
+                  notes: List[str], reference) -> Compiled:
+    st = _host_flush_blocks(_lower_host(ctx, plan))
+    cols = plan.columns()
+    return Compiled(st.rdd, cols, [(c, c) for c in cols], limit, plan,
+                    notes, reference=reference, kind="host",
+                    layout=st.layout)
