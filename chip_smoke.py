@@ -350,6 +350,25 @@ Phases, in order; any failure exits non-zero before the last line:
      keys, lifted back by dense() and counted. Each case once cold and
      P21_WARM times warm: median ms, the card, host and lift parts
      apart, the step peak.
+ 22. the streaming plane and the file sources: (a) a Spark Streaming
+     event counter over 1M user ids at the reference's defaults (0.5 s
+     interval, 10,000-record blocks, a 64-block queue, block
+     backpressure): 2M generator events through
+     update_state_by_key(op="add"), each batch folded on the card
+     (state_fold.fold_pairs_device, wrapped to count its calls and None
+     returns and to time its host build apart from the card part), the
+     state equal to numpy's exact int64 sums with Python ints; (b) a
+     second Context on the same checkpoint directory, the source
+     extended to 2.5M, resumed at offset 2,000,000, no record folded
+     twice; (c) 8 files of 250,000 "k,v" lines: text_file's 8 partitions
+     (assign_files_to_partitions' groups), .map(parse).dense()
+     .reduce_by_key(op="add").join(1M-row table).count() equal to numpy
+     (all three kernels), cold and 3 warm, the host part (read, parse,
+     lift) apart; whole_text_files equal to the files; (d) a file tail
+     appended with 4 chunks of 250,000 lines while it runs, folded on
+     the card, and a localhost socket's 200,000 lines through
+     foreach_rdd, each once in order. Records/s, batches, batch walls,
+     the rate controller's depth, peaks and launches.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
@@ -358,9 +377,9 @@ line per phase-11 size, gf256 row and fold op, one line per phase-12
 item, one line per phase-13 leg and rank and per 13d query (one process
 and each rank), one line per phase-14 item and 14c rank, one line per
 phase-15, phase-16 and phase-17 query, one line per phase-18,
-phase-19, phase-20 and phase-21 case, the kernel table as one JSON line
-(with phases 6-21's launches beside the main path's), the card line, and
-last
+phase-19, phase-20 and phase-21 case, phase 22's lines, the kernel
+table as one JSON line (with phases 6-22's launches beside the main
+path's), the card line, and last
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 
@@ -381,6 +400,11 @@ case's times, step peak and launches, and writes chiprun_out/p20.json.
     python3 chip_smoke.py --phase 21
 
 the same for phase 21, writing chiprun_out/p21.json.
+
+    python3 chip_smoke.py --phase 22
+
+builds the kernels and runs phase 22 alone; prints its lines and one
+JSON line, and writes chiprun_out/p22.json.
 
     python3 chip_smoke.py --main-path-ab [--leg LEG] DIR_A DIR_B DIR_B DIR_A
 
@@ -7840,6 +7864,533 @@ def phase21_leg():
     print(f"card: {card}", flush=True)
 
 
+P22_RECORDS = 2_000_000        # 22a: a stateful generator stream
+P22_RECOVER_RECORDS = 2_500_000  # 22b: the same source, extended
+P22_KEYS = 1_000_000           # user ids
+P22_WAIT_S = 120.0             # every offset committed within this
+P22_FILES = 8                  # 22c: 8 files of 250,000 "k,v" lines (2M
+P22_FILE_LINES = 250_000       # rows: the host layer's 0.3-0.4M rows/s)
+P22_WARM = 3
+P22_TAIL_CHUNKS = 4            # 22d: a file tail appended in 4 chunks
+P22_TAIL_CHUNK = 250_000
+P22_SOCKET_LINES = 200_000     # 22d: lines over a localhost socket
+P22_DIR = os.path.join("chiprun_out", "phase22")
+
+
+def p22_check(what, ok):
+    if not ok:
+        fail(f"phase 22: {what}")
+
+
+class P22Events:
+    """A bus listener: the stream's batch walls, commits (their times)
+    and receiver starts."""
+
+    def __init__(self, vt_events):
+        self.ev = vt_events
+        self.walls = []
+        self.commit_times = []
+        self.starts = []
+
+    def on_event(self, e):
+        if isinstance(e, self.ev.BatchCompleted) and e.succeeded:
+            self.walls.append(e.wall_s)
+        elif isinstance(e, self.ev.StateCheckpointed) and not e.duplicate:
+            self.commit_times.append(e.time)
+        elif isinstance(e, self.ev.ReceiverStarted):
+            self.starts.append((e.kind, e.attempt, e.from_offset))
+
+
+def p22_event(i):
+    """Offset i's record of the event counter: (user id, value)."""
+    return (i * 2654435761 % 2**32 % P22_KEYS, i % 1000 - 500)
+
+
+class P22Source:
+    """The generator source: offsets below n, then dry (picklable)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __call__(self, i):
+        return p22_event(i) if i < self.n else None
+
+
+def p22_sums(np, keys, vals):
+    """numpy's exact int64 sums by key: {key: sum}."""
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(len(uniq), np.int64)
+    np.add.at(sums, inv, vals)
+    return dict(zip(uniq.tolist(), sums.tolist()))
+
+
+def p22_expected(np, n):
+    i = np.arange(n, dtype=np.int64)
+    return p22_sums(np, i * 2654435761 % 2**32 % P22_KEYS, i % 1000 - 500)
+
+
+class P22Fold:
+    """state_fold.fold_pairs_device wrapped while installed: its calls,
+    its None returns, the pairs it was given, and each call's host build
+    (to the Context's dense_from_numpy) apart from the card part (the
+    rest: reduce, collect, Python scalars), as 11c times them."""
+
+    def __init__(self, torch, state_fold):
+        self.torch = torch
+        self.mod = state_fold
+        self.real = state_fold.fold_pairs_device
+        self.calls = []
+
+    def __enter__(self):
+        torch = self.torch
+
+        def wrapped(ctx, pairs, op):
+            marks = {}
+            built = ctx.dense_from_numpy
+
+            def marked(*cols, **kw):
+                marks["built"] = time.perf_counter()
+                return built(*cols, **kw)
+            ctx.dense_from_numpy = marked
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = self.real(ctx, pairs, op)
+                torch.cuda.synchronize()
+            finally:
+                del ctx.dense_from_numpy
+            t1 = time.perf_counter()
+            b = marks.get("built", t1)
+            self.calls.append(dict(pairs=len(pairs), none=out is None,
+                                   keys=None if out is None else len(out),
+                                   host_build_ms=(b - t0) * 1e3,
+                                   card_ms=(t1 - b) * 1e3))
+            return out
+        self.mod.fold_pairs_device = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.fold_pairs_device = self.real
+        return False
+
+
+def p22_stream_state(torch, np, ck, vt, ctx, n, ckpt, state_fold, label):
+    """One stateful generator stream to its end: started, waited for
+    until offset n is committed (within P22_WAIT_S), stopped. Launches
+    counted from 0 at start(), the device peak from there."""
+    from vega_tpu_torch import events as vt_events
+
+    seen = P22Events(vt_events)
+    ctx.bus.add_listener(seen)
+    stream = ctx.stream_from_generator(P22Source(n), checkpoint_dir=ckpt)
+    handle = stream.update_state_by_key(op="add")
+    sctx = ctx.streaming()
+    with P22Fold(torch, state_fold) as fold:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launches()
+        t0 = time.time()
+        sctx.start()
+        deadline = time.monotonic() + P22_WAIT_S
+        while True:
+            rec = handle.store.log.latest()
+            if rec is not None and rec["offsets"].get("0") == n:
+                break
+            p22_check(f"{label}: the stream failed: {sctx.failed}",
+                      sctx.failed is None)
+            p22_check(f"{label}: offset {n} not committed within "
+                      f"{P22_WAIT_S} s (status {sctx.status()})",
+                      time.monotonic() < deadline)
+            time.sleep(0.05)
+        launches = dict(ck.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        status = sctx.status()
+        sctx.stop()
+    wall_s = seen.commit_times[-1] - t0
+    return dict(handle=handle, fold=fold.calls, events=seen, status=status,
+                launches=launches, peak_bytes=peak, wall_s=wall_s)
+
+
+def p22_state_checks(np, label, handle, want, fold_calls, commits):
+    got = handle.snapshot()
+    p22_check(f"{label}: the state differs from numpy's exact sums",
+              got == want)
+    p22_check(f"{label}: a key or value is not a Python int",
+              all(type(k) is int and type(x) is int
+                  for k, x in got.items()))
+    p22_check(f"{label}: a fold returned None (a host fold)",
+              not any(c["none"] for c in fold_calls))
+    p22_check(f"{label}: {len(fold_calls)} folds on the card for "
+              f"{commits} commits", len(fold_calls) >= commits >= 1)
+    p22_check(f"{label}: duplicate commits",
+              handle.store.duplicate_commits == 0)
+
+
+def p22_stream_row(label, n_records, run, ctx):
+    """The printed figures of one stateful stream run."""
+    ev = run["events"]
+    calls = run["fold"]
+    lat = ctx.metrics.pool_latency().get("streaming", {})
+    ctl = run["status"]["controller"]
+    return dict(
+        label=label, records=n_records, wall_s=run["wall_s"],
+        records_per_s=n_records / run["wall_s"],
+        batches=run["handle"].store.commits,
+        batch_wall_median_s=statistics.median(ev.walls),
+        batch_wall_max_s=max(ev.walls), pool_latency=lat,
+        folds=len(calls),
+        fold_pairs=[c["pairs"] for c in calls],
+        fold_host_build_ms=[round(c["host_build_ms"], 3) for c in calls],
+        fold_card_ms=[round(c["card_ms"], 3) for c in calls],
+        max_depth_seen=ctl["max_depth_seen"],
+        throttled_offers=ctl["throttled_offers"],
+        peak_bytes=run["peak_bytes"], launches=run["launches"],
+        receiver_starts=ev.starts)
+
+
+def p22_part_ab(torch, np, ck, vt):
+    """22a: the generator stream of P22_RECORDS events into
+    update_state_by_key(op="add") at the reference's defaults; 22b: a
+    second Context on the same checkpoint directory with the source
+    extended to P22_RECOVER_RECORDS, resumed at the committed offset."""
+    from vega_tpu_torch import state_fold
+
+    ckpt = os.path.join(P22_DIR, "ckpt")
+    ctx = vt.Context(n_shards=N_SHARDS)
+    try:
+        run = p22_stream_state(torch, np, ck, vt, ctx, P22_RECORDS, ckpt,
+                               state_fold, "22a")
+        want = p22_expected(np, P22_RECORDS)
+        h = run["handle"]
+        p22_state_checks(np, "22a", h, want, run["fold"], h.store.commits)
+        fired = [k for k, c in run["launches"].items() if c]
+        p22_check("22a: the fold launched no kernel", fired)
+        a = p22_stream_row("22a", P22_RECORDS, run, ctx)
+        a["kernels_fired"] = fired
+        a["keys"] = len(want)
+    finally:
+        ctx.stop()
+    log(f"22 {json.dumps({k: v for k, v in a.items() if 'fold_' not in k})}")
+    ctx = vt.Context(n_shards=N_SHARDS)
+    try:
+        run = p22_stream_state(torch, np, ck, vt, ctx, P22_RECOVER_RECORDS,
+                               ckpt, state_fold, "22b")
+        h = run["handle"]
+        starts = run["events"].starts
+        p22_check(f"22b: resumed at {starts}, not {P22_RECORDS}",
+                  starts == [("generator", 0, P22_RECORDS)])
+        want = p22_expected(np, P22_RECOVER_RECORDS)
+        p22_state_checks(np, "22b", h, want, run["fold"], h.store.commits)
+        folded = sum(c["pairs"] for c in run["fold"])
+        p22_check(f"22b: {folded} pairs folded, not the "
+                  f"{P22_RECOVER_RECORDS - P22_RECORDS} new ones",
+                  folded == P22_RECOVER_RECORDS - P22_RECORDS)
+        b = p22_stream_row("22b", P22_RECOVER_RECORDS - P22_RECORDS, run,
+                           ctx)
+        b["resumed_at"] = starts[0][2]
+        b["duplicate_commits"] = h.store.duplicate_commits
+        b["keys"] = len(want)
+        c = p22_part_c(torch, np, ck, vt, ctx)
+    finally:
+        ctx.stop()
+    log(f"22 {json.dumps({k: v for k, v in b.items() if 'fold_' not in k})}")
+    return a, b, c
+
+
+def p22_parse(line):
+    k, x = line.split(",")
+    return (int(k), int(x))
+
+
+def p22_write_lines(np, path, keys, vals, mode="w"):
+    with open(path, mode) as fh:
+        fh.write("".join(f"{k},{x}\n" for k, x in zip(keys.tolist(),
+                                                     vals.tolist())))
+
+
+def p22_part_c(torch, np, ck, vt, ctx):
+    """22c: P22_FILES files of P22_FILE_LINES "k,v" lines through
+    text_file(dir).map(parse).dense().reduce_by_key(op="add") joined with
+    the P22_KEYS-row table and counted; whole_text_files(dir)."""
+    from vega_tpu_torch.io import readers
+
+    d = os.path.join(P22_DIR, "files")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(22)
+    keys = rng.randint(0, P22_KEYS, P22_FILES * P22_FILE_LINES)
+    vals = rng.randint(-1000, 1000, P22_FILES * P22_FILE_LINES)
+    paths = []
+    for f in range(P22_FILES):
+        sl = slice(f * P22_FILE_LINES, (f + 1) * P22_FILE_LINES)
+        paths.append(os.path.join(d, f"part-{f:05d}.txt"))
+        p22_write_lines(np, paths[-1], keys[sl], vals[sl])
+    src = ctx.text_file(d)
+    groups = [s.payload for s in src.splits()]
+    p22_check(f"22c: {src.num_partitions} partitions, not {P22_FILES}",
+              src.num_partitions == P22_FILES)
+    p22_check("22c: the file groups are not assign_files_to_partitions'",
+              groups == readers.assign_files_to_partitions(
+                  readers._discover(d), P22_FILES)
+              and sorted(g[0] for g in groups) == sorted(paths))
+    want = p22_sums(np, keys, vals)
+    table = ctx.dense_from_numpy(np.arange(P22_KEYS, dtype=np.int32),
+                                 np.arange(P22_KEYS, dtype=np.float32))
+
+    def reduced(lifted):
+        return lifted.reduce_by_key(op="add")
+
+    # the sums first, once: the reduce's rows equal numpy's exactly
+    red = reduced(ctx.text_file(d).map(p22_parse).dense())
+    got = dict(red.collect())
+    p22_check("22c: the reduce differs from numpy", got == want)
+    del red, got
+
+    def check(count):
+        p22_check(f"22c: count {count}, numpy {len(want)}",
+                  count == len(want))
+        return f"count {count} equal to numpy"
+
+    steps = [("read_parse_lift", "host",
+              lambda _: ctx.text_file(d).map(p22_parse).dense()),
+             ("reduce_join_count", "card",
+              lambda lifted: reduced(lifted).join(table).count())]
+    row = p19_case(torch, ck, "22c text_file reduce join", steps, check,
+                   warm=P22_WARM, phase=22)
+    check_launched(row["launches"], "22c")
+    whole = ctx.whole_text_files(d).collect()
+    p22_check("22c: whole_text_files differs from the files",
+              len(whole) == P22_FILES and all(
+                  open(p, "rb").read() == data for p, data in whole)
+              and sorted(p for p, _ in whole) == sorted(paths))
+    row["whole_text_files"] = len(whole)
+    return row
+
+
+class P22LineServer:
+    """A localhost server that sends lines to the first connection, then
+    holds it open until closed."""
+
+    def __init__(self, lines):
+        import socket
+        import threading
+
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(1)
+        self.port = self.sock.getsockname()[1]
+        self.data = "".join(f"{x}\n" for x in lines).encode()
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _serve(self):
+        conn, _ = self.sock.accept()
+        with conn:
+            conn.sendall(self.data)
+            self.done.wait(120)
+
+    def close(self):
+        self.done.set()
+        self.thread.join(10)
+        self.sock.close()
+
+
+def p22_part_d(torch, np, ck, vt):
+    """22d: a file tail appended with P22_TAIL_CHUNKS chunks while it runs,
+    folded by key on the card; a localhost socket's lines collected in
+    foreach_rdd."""
+    import threading
+
+    from vega_tpu_torch import state_fold
+
+    tail = os.path.join(P22_DIR, "tail.log")
+    open(tail, "w").close()
+    rng = np.random.RandomState(23)
+    n_tail = P22_TAIL_CHUNKS * P22_TAIL_CHUNK
+    keys = rng.randint(0, P22_KEYS, n_tail)
+    vals = rng.randint(-1000, 1000, n_tail)
+    server = P22LineServer(range(P22_SOCKET_LINES))
+    got_lines = []
+    ctx = vt.Context(n_shards=N_SHARDS)
+    try:
+        ck.reset_launches()
+        handle = ctx.stream_from_file_tail(
+            tail, checkpoint_dir=os.path.join(P22_DIR, "ckpt_tail")).map(
+                p22_parse).update_state_by_key(op="add")
+        ctx.stream_from_socket("127.0.0.1", server.port).foreach_rdd(
+            lambda rdd, bid: got_lines.extend(rdd.collect()))
+        sctx = ctx.streaming()
+
+        def append():
+            for c in range(P22_TAIL_CHUNKS):
+                sl = slice(c * P22_TAIL_CHUNK, (c + 1) * P22_TAIL_CHUNK)
+                p22_write_lines(np, tail, keys[sl], vals[sl], mode="a")
+                time.sleep(0.2)
+
+        with P22Fold(torch, state_fold) as fold:
+            t0 = time.monotonic()
+            sctx.start()
+            writer = threading.Thread(target=append)
+            writer.start()
+            size = None
+            tail_s = sock_s = None
+            deadline = time.monotonic() + P22_WAIT_S
+            while tail_s is None or sock_s is None:
+                p22_check(f"22d: the stream failed: {sctx.failed}",
+                          sctx.failed is None)
+                p22_check(f"22d: not done within {P22_WAIT_S} s "
+                          f"({len(got_lines)} lines, status "
+                          f"{sctx.status()})", time.monotonic() < deadline)
+                if size is None and not writer.is_alive():
+                    size = os.path.getsize(tail)
+                rec = handle.store.log.latest()
+                if tail_s is None and size is not None and rec is not None \
+                        and rec["offsets"].get("0") == size:
+                    tail_s = time.monotonic() - t0
+                if sock_s is None and len(got_lines) >= P22_SOCKET_LINES:
+                    sock_s = time.monotonic() - t0
+                time.sleep(0.05)
+            writer.join()
+            sctx.stop()
+        launches = dict(ck.LAUNCHES)
+        want = p22_sums(np, keys, vals)
+        p22_check("22d: the file tail's state differs from numpy",
+                  handle.snapshot() == want)
+        p22_check("22d: a file tail fold returned None",
+                  fold.calls and not any(c["none"] for c in fold.calls))
+        p22_check("22d: the socket's lines are not each once in order",
+                  got_lines == [str(i) for i in range(P22_SOCKET_LINES)])
+        return dict(tail_records=n_tail, tail_s=tail_s,
+                    tail_records_per_s=n_tail / tail_s,
+                    tail_batches=handle.store.commits,
+                    tail_folds=len(fold.calls),
+                    socket_lines=P22_SOCKET_LINES, socket_s=sock_s,
+                    socket_records_per_s=P22_SOCKET_LINES / sock_s,
+                    launches=launches)
+    finally:
+        ctx.stop()
+        server.close()
+
+
+def phase_twentytwo(torch, np, ck, vt):
+    """Phase 22: the streaming plane and the file sources on the card. (a)
+    a Spark Streaming event counter over P22_KEYS user ids at the
+    reference's defaults (0.5 s interval, 10,000-record blocks, a 64-block
+    queue, block backpressure): P22_RECORDS generator events folded by key
+    on the card through update_state_by_key(op="add"), equal to numpy's
+    exact sums; (b) its recovery in a second Context, extended to
+    P22_RECOVER_RECORDS, resumed at the committed offset, no record
+    folded twice; (c) text_file over P22_FILES files lifted, reduced,
+    joined and counted (all three kernels), cold and P22_WARM warm, and
+    whole_text_files; (d) a file tail and a localhost socket."""
+    t0 = time.perf_counter()
+    card = card_line()
+    shutil.rmtree(P22_DIR, ignore_errors=True)
+    os.makedirs(P22_DIR)
+    parts = {}
+    try:
+        t1 = time.perf_counter()
+        a, b, c = p22_part_ab(torch, np, ck, vt)
+        parts["abc"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        d = p22_part_d(torch, np, ck, vt)
+        parts["d"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(P22_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = {name: a["launches"][name] + b["launches"][name]
+                + c["launches"][name] + d["launches"][name]
+                for name in ck.LAUNCHES}
+    check_launched(launches, "phase 22")
+    wall_s = time.perf_counter() - t0
+    log(f"phase 22 took {wall_s:.1f} s (parts {json.dumps(parts)})")
+    return dict(a=a, b=b, c=c, d=d, launches=launches, card=card,
+                wall_s=wall_s, parts_s=parts)
+
+
+def p22_lines(r, card):
+    """The printed lines of phase 22."""
+    out = []
+    for x in (r["a"], r["b"]):
+        out.append(
+            f"phase {x['label']} ({x['records']} records, {x['keys']} keys"
+            f"{', resumed at ' + str(x['resumed_at']) if 'resumed_at' in x else ''}"
+            f"): {x['records_per_s']:.1f} records/s from start() to the "
+            f"last commit ({x['wall_s']:.3f} s), {x['batches']} batches, "
+            f"batch wall median {x['batch_wall_median_s']:.3f} s max "
+            f"{x['batch_wall_max_s']:.3f} s, pool latency "
+            f"{json.dumps(x['pool_latency'])}, folds on the card "
+            f"{x['folds']} (pairs {json.dumps(x['fold_pairs'])}, host build "
+            f"ms {json.dumps(x['fold_host_build_ms'])}, card ms "
+            f"{json.dumps(x['fold_card_ms'])}), max depth "
+            f"{x['max_depth_seen']}, throttled offers "
+            f"{x['throttled_offers']}, peak {x['peak_bytes']} B, launches "
+            f"{json.dumps(x['launches'])}, equal to numpy on {card}")
+    x = r["c"]
+    out.append(
+        f"phase 22c ({x['note']}; {P22_FILES} files of {P22_FILE_LINES} "
+        f"lines): {x['median_ms']:.3f} ms warm median of {len(x['warm'])}, "
+        f"parts {json.dumps(x['median_parts'])}, cold "
+        f"{x['cold']['ms']:.3f} ms (parts {json.dumps(x['cold']['parts'])})"
+        f", step peak {x['peak_bytes']} B, launches by step "
+        f"{json.dumps(x['step_launches'])}, whole_text_files "
+        f"{x['whole_text_files']} files equal on {card}")
+    x = r["d"]
+    out.append(
+        f"phase 22d file tail: {x['tail_records_per_s']:.1f} records/s "
+        f"({x['tail_records']} lines in {x['tail_s']:.3f} s, "
+        f"{x['tail_batches']} batches, {x['tail_folds']} folds on the "
+        f"card, equal to numpy); socket: {x['socket_records_per_s']:.1f} "
+        f"records/s ({x['socket_lines']} lines in {x['socket_s']:.3f} s, "
+        f"each once in order); launches {json.dumps(x['launches'])} on "
+        f"{card}")
+    out.append(f"phase 22 launches {json.dumps(r['launches'])}; parts (s) "
+               f"{json.dumps(r['parts_s'])}; phase 22 {r['wall_s']:.1f} s "
+               f"on {card}")
+    return out
+
+
+def phase22_leg():
+    """--phase 22: the kernels built, then phase 22 alone. Prints its
+    lines and one JSON line, writes chiprun_out/p22.json, and ends with
+    the card line."""
+    import numpy as np
+    import torch
+
+    import vega_tpu_torch as vt
+    from vega_tpu_torch import cuda_kernels as ck
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    card = card_line()
+    ck.build()
+    res = phase_twentytwo(torch, np, ck, vt)
+    out = p22_summary(res)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "p22.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(out, fh, indent=1)
+    for line in p22_lines(res, card):
+        print(line, flush=True)
+    print(json.dumps(out), flush=True)
+    print(f"card: {card}", flush=True)
+
+
+def p22_summary(res):
+    """Phase 22's figures as JSON (22c without its per-run records)."""
+    c = res["c"]
+    return dict(phase=22, wall_s=res["wall_s"], parts_s=res["parts_s"],
+                launches=res["launches"], card=res["card"], a=res["a"],
+                b=res["b"], d=res["d"],
+                c=dict(note=c["note"], median_ms=c["median_ms"],
+                       parts=c["median_parts"], cold_ms=c["cold"]["ms"],
+                       cold_parts=c["cold"]["parts"],
+                       warm_ms=[w["ms"] for w in c["warm"]],
+                       peak_bytes=c["peak_bytes"],
+                       step_launches=c["step_launches"],
+                       whole_text_files=c["whole_text_files"]))
+
+
 def main():
     try:
         import torch
@@ -7921,6 +8472,8 @@ def main():
     twenty = phase_twenty(torch, np, ck, vt)
     # 21. the row view (F24-F26), the frame planner's host tier, to_rdd()
     twentyone = phase_twentyone(torch, np, ck, vt)
+    # 22. the streaming plane's fold on the card, the file sources
+    twentytwo = phase_twentytwo(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -7945,7 +8498,8 @@ def main():
          "phase18_launches": eighteen["launches"][r["name"]],
          "phase19_launches": nineteen["launches"][r["name"]],
          "phase20_launches": twenty["launches"][r["name"]],
-         "phase21_launches": twentyone["launches"][r["name"]]}
+         "phase21_launches": twentyone["launches"][r["name"]],
+         "phase22_launches": twentytwo["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -7962,7 +8516,7 @@ def main():
                    phase12=twelve, phase13=thirteen, phase14=fourteen,
                    phase15=fifteen, phase16=sixteen, phase17=seventeen,
                    phase18=eighteen, phase19=nineteen, phase20=twenty,
-                   phase21=twentyone)
+                   phase21=twentyone, phase22=p22_summary(twentytwo))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -8294,6 +8848,8 @@ def main():
     print(f"phase 21 launches {json.dumps(twentyone['launches'])}; parts (s) "
           f"{json.dumps(twentyone['parts_s'])}; phase 21 "
           f"{twentyone['wall_s']:.1f} s on {card}", flush=True)
+    for line in p22_lines(twentytwo, card):
+        print(line, flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
@@ -8630,6 +9186,8 @@ if __name__ == "__main__":
         phase20_leg()
     elif sys.argv[1:3] == ["--phase", "21"] and len(sys.argv) == 3:
         phase21_leg()
+    elif sys.argv[1:3] == ["--phase", "22"] and len(sys.argv) == 3:
+        phase22_leg()
     elif sys.argv[1:3] == ["--phase", "19"] and len(sys.argv) == 5 \
             and sys.argv[3] == "--without":
         phase19_leg(sys.argv[4])

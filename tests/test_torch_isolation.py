@@ -18,7 +18,10 @@ FORBIDDEN = ("jax", "jaxlib", "vega_tpu", "cloudpickle")
 HOST_LAYER = ("split", "partitioner", "dependency", "aggregator",
               "bounded_priority_queue", "rdd", "rdd.base", "rdd.narrow",
               "rdd.pair", "rdd.shuffled", "rdd.cogrouped", "rdd.union",
-              "rdd.cartesian", "rdd.coalesced", "rdd.checkpoint")
+              "rdd.cartesian", "rdd.coalesced", "rdd.checkpoint",
+              "events", "broadcast", "io", "io.readers", "streaming",
+              "streaming.context", "streaming.dstream", "streaming.source",
+              "streaming.state", "streaming.controller")
 
 
 def _port_files():
@@ -103,6 +106,28 @@ with vt.Context(device="cpu", n_shards=4) as ctx:
         assert node.glom().count() == 3 and node.get_dependencies() == []
     assert ctx.parallelize(rows, 3).dense().reduce_by_key(
         op="add").count() == 7
+    with tempfile.TemporaryDirectory() as d:
+        with open(d + "/a.txt", "w") as fh:
+            fh.write("".join(f"{i %% 7},{i}\\n" for i in range(200)))
+        lines = ctx.text_file(d).map(
+            lambda s: tuple(int(x) for x in s.split(",")))
+        assert sorted(lines.dense().reduce_by_key(op="add").collect()) == \
+            sorted(red.collect())
+        assert ctx.broadcast([1]).value == [1]
+        assert ctx.submit_job(red, lambda tc, it: 1).result(30) == [1] * 3
+        stream = ctx.stream_from_generator(
+            lambda i: (i %% 7, i) if i < 200 else None,
+            checkpoint_dir=d + "/ckpt")
+        handle = stream.update_state_by_key(op="add")
+        sctx = ctx.streaming()
+        sctx.start()
+        assert sctx.await_batches(1, 30)
+        while sctx.status()["receivers"][0]["next_offset"] < 200 or \
+                sctx._offsets.get(0, 0) < 200:
+            import time
+            time.sleep(0.02)
+        sctx.stop()
+        assert handle.snapshot() == dict(red.collect())
 print("OK")
 """ % (HOST_LAYER,)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

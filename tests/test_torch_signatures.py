@@ -46,6 +46,10 @@ import vega_tpu_torch as vt
 from vega_tpu_torch import context as port_context
 from vega_tpu_torch import dense_rdd
 from vega_tpu_torch import stream as port_stream
+import vega_tpu.streaming.context as ref_streaming
+import vega_tpu.streaming.dstream as ref_dstream
+from vega_tpu_torch.streaming import context as port_streaming
+from vega_tpu_torch.streaming import dstream as port_dstream
 
 N_SHARDS = 8
 ACCEL_PLANS = {"dense_rbk_plan": "fused_sort", "dense_table_plan": "off",
@@ -57,6 +61,9 @@ CLASSES = {
     "StreamedDenseRDD": (ref_stream.StreamedDenseRDD,
                          port_stream.StreamedDenseRDD),
     "Context": (ref_context.Context, port_context.Context),
+    "StreamingContext": (ref_streaming.StreamingContext,
+                         port_streaming.StreamingContext),
+    "DStream": (ref_dstream.DStream, port_dstream.DStream),
 }
 
 
@@ -85,6 +92,20 @@ def test_shared_names_cover_the_repaired_api():
             "group_by", "sort_by"} <= names
     assert {"dense_range", "create_frame", "read_parquet",
             "dense_from_numpy"} <= {n for c, n in SHARED if c == "Context"}
+    # the job server, the file sources and streaming
+    assert {"active", "set_local_property", "get_local_property",
+            "set_pool", "submit_job", "run_approximate_job",
+            "metrics_summary", "storage_status", "broadcast",
+            "read_source", "text_file", "whole_text_files", "parquet_file",
+            "streaming", "stream_from_generator", "stream_from_file_tail",
+            "stream_from_socket"} <= {n for c, n in SHARED
+                                      if c == "Context"}
+    ref_sctx, port_sctx = CLASSES["StreamingContext"]
+    assert {n for n in dir(ref_sctx) if not n.startswith("_")} == \
+        {n for c, n in SHARED if c == "StreamingContext"}
+    ref_ds, _port_ds = CLASSES["DStream"]
+    assert {n for n in dir(ref_ds) if not n.startswith("_")} == \
+        {n for c, n in SHARED if c == "DStream"}
 
 
 @pytest.mark.parametrize("cls,name", SHARED)

@@ -83,6 +83,39 @@ dense() lifts its rows onto this Context's device; a DenseRDD's to_rdd(),
 glom(), map_partitions(), coalesce() and the rest hand its shards' rows
 to this layer. default_parallelism is the shard count.
 
+The host tier's job server (the reference's, over jobs.py's one FIFO
+worker): submit_job(rdd, func, partitions, pool, transform) runs a job
+asynchronously in a pool (set_pool; the thread's "pool" property,
+set_local_property, by default), admitted by the reference's check
+(admission_mode "reject" or "block", pool_max_queued or a pool's
+max_queued; 0 is no bound); run_approximate_job, broadcast(value),
+metrics_summary() (the event bus's MetricsListener: jobs, rejections,
+the streaming counters, pool_latency; plus exchange_plans) and
+storage_status() (the disk store's counters). Context.active() is the
+newest Context of the process not yet stopped (the port allows several
+at once; the reference refuses a second).
+
+read_source(config, decoder), text_file(path, num_partitions),
+whole_text_files(path) and parquet_file(path, columns, num_partitions)
+give host RDDs over whole files (io/readers.py), one partition per group
+of files, default_parallelism groups by default.
+
+streaming(batch_interval_s, checkpoint_dir) is the Context's one
+StreamingContext (streaming/), and stream_from_generator /
+stream_from_file_tail / stream_from_socket its sources; a stateful
+stream's update_state_by_key(op=...) folds each micro-batch on this
+Context's device. The stream_* settings are the reference's
+Configuration fields with its defaults: stream_batch_interval_s 0.5,
+stream_block_max_records 10,000, stream_queue_max_blocks 64,
+stream_backpressure_mode "block" | "shed", stream_pool "streaming" of
+weight stream_pool_weight 4, stream_storage_level "memory_and_disk" (a
+StorageLevel value), stream_socket_timeout_s 5.0, stream_checkpoint_dir
+"" (the default directory: streaming/context.py). A stream's loop runs
+device jobs on its own thread, so the dense tier runs under one
+re-entrant lock per Context (_dense_lock): a node's materialization and
+every settlement. Streaming refuses a multi-process Context. stop()
+stops the streaming plane first.
+
 profiler(log_dir) traces a block of work with torch.profiler (the
 reference's Context.profiler traces with jax.profiler): CPU activity
 always, the card's kernels when the Context runs on CUDA, written on exit
@@ -95,16 +128,19 @@ from __future__ import annotations
 import contextlib
 import gc
 import itertools
+import logging
 import os
 import pickle
 import shutil
 import tempfile
+import threading
 import uuid
-from typing import Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
 from vega_tpu_torch import dense_rdd
+from vega_tpu_torch import events
 from vega_tpu_torch import exchange_plan
 from vega_tpu_torch import jobs
 from vega_tpu_torch import kernels
@@ -112,7 +148,19 @@ from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame.api import DataFrame
 from vega_tpu_torch import mesh as mesh_lib
 from vega_tpu_torch.mesh import make_mesh
-from vega_tpu_torch.store import DiskStore
+from vega_tpu_torch.store import DiskStore, StorageLevel
+
+log = logging.getLogger(__name__)
+
+# the live Contexts of the process, oldest first (Context.active)
+_live_contexts: list = []
+_live_lock = threading.Lock()
+
+
+def _check_setting(name: str, value, ok: bool, allowed: str):
+    if not ok:
+        raise VegaError(f"{name} must be {allowed}, got {value!r}")
+    return value
 
 
 class Context:
@@ -124,7 +172,23 @@ class Context:
                  dense_dict_enabled: bool = True,
                  dense_dict_capacity: int = 65536,
                  spill_dir: Optional[str] = None,
-                 multihost: Optional[dict] = None):
+                 multihost: Optional[dict] = None,
+                 admission_mode: str = "reject", pool_max_queued: int = 0,
+                 stream_batch_interval_s: float = 0.5,
+                 stream_block_max_records: int = 10_000,
+                 stream_queue_max_blocks: int = 64,
+                 stream_backpressure_mode: str = "block",
+                 stream_pool: str = "streaming",
+                 stream_pool_weight: int = 4,
+                 stream_storage_level: str = "memory_and_disk",
+                 stream_socket_timeout_s: float = 5.0,
+                 stream_checkpoint_dir: str = ""):
+        self._check_job_settings(
+            admission_mode, pool_max_queued, stream_batch_interval_s,
+            stream_block_max_records, stream_queue_max_blocks,
+            stream_backpressure_mode, stream_pool, stream_pool_weight,
+            stream_storage_level, stream_socket_timeout_s,
+            stream_checkpoint_dir)
         if dense_hbm_budget < 0:
             raise VegaError(f"dense_hbm_budget must be >= 0 bytes, got "
                             f"{dense_hbm_budget}")
@@ -178,9 +242,85 @@ class Context:
                                          "spill")
         self._spill = DiskStore(os.path.join(
             base, f"session-{uuid.uuid4().hex[:12]}", "cache"))
-        # the FIFO worker of the asynchronous actions (jobs.py)
-        self._jobs = jobs.JobRunner()
+        # the dense tier's lock: a node's materialization and every
+        # settlement, so a stream's loop thread and the caller's thread
+        # never interleave device jobs
+        self._dense_lock = threading.RLock()
+        # the event bus and its metrics (events.py)
+        self.bus = events.LiveListenerBus()
+        self.metrics = events.MetricsListener()
+        self.bus.add_listener(self.metrics)
+        # thread-local job properties ("pool")
+        self._local_props = threading.local()
+        # the FIFO worker of the asynchronous jobs, behind the pools'
+        # admission (jobs.py)
+        self._jobs = jobs.JobRunner(
+            bus=self.bus, admission_mode=self.admission_mode,
+            pool_max_queued=self.pool_max_queued,
+            default_pool=lambda: self.get_local_property("pool"))
+        # the streaming plane's landed blocks and the plane itself,
+        # made at the first streaming() call
+        from vega_tpu_torch.streaming.source import BlockStore
+
+        self._stream_blocks = BlockStore(self._spill)
+        self._streaming = None
         self._stopped = False
+        with _live_lock:
+            _live_contexts.append(self)
+
+    def _check_job_settings(self, admission_mode, pool_max_queued,
+                            interval_s, block_max_records, queue_max_blocks,
+                            backpressure_mode, pool, pool_weight,
+                            storage_level, socket_timeout_s,
+                            checkpoint_dir) -> None:
+        """The job server's and the streaming plane's settings, each
+        checked; a bad one raises VegaError naming what it takes."""
+        self.admission_mode = jobs.check_admission_mode(admission_mode)
+        self.pool_max_queued = _check_setting(
+            "pool_max_queued", pool_max_queued,
+            isinstance(pool_max_queued, int) and pool_max_queued >= 0,
+            "an int >= 0 (0: no bound)")
+        self.stream_batch_interval_s = float(_check_setting(
+            "stream_batch_interval_s", interval_s,
+            isinstance(interval_s, (int, float)) and interval_s > 0,
+            "seconds > 0"))
+        self.stream_block_max_records = _check_setting(
+            "stream_block_max_records", block_max_records,
+            isinstance(block_max_records, int) and block_max_records >= 1,
+            "an int >= 1")
+        self.stream_queue_max_blocks = _check_setting(
+            "stream_queue_max_blocks", queue_max_blocks,
+            isinstance(queue_max_blocks, int) and queue_max_blocks >= 1,
+            "an int >= 1")
+        self.stream_backpressure_mode = _check_setting(
+            "stream_backpressure_mode", backpressure_mode,
+            backpressure_mode in ("block", "shed"), "'block' or 'shed'")
+        self.stream_pool = _check_setting(
+            "stream_pool", pool, isinstance(pool, str) and bool(pool),
+            "a pool name")
+        self.stream_pool_weight = _check_setting(
+            "stream_pool_weight", pool_weight,
+            isinstance(pool_weight, int) and pool_weight >= 1,
+            "an int >= 1")
+        levels = [lv.value for lv in StorageLevel]
+        self.stream_storage_level = _check_setting(
+            "stream_storage_level", storage_level,
+            isinstance(storage_level, str)
+            and storage_level.lower() in levels,
+            f"one of {levels}")
+        self.stream_socket_timeout_s = float(_check_setting(
+            "stream_socket_timeout_s", socket_timeout_s,
+            isinstance(socket_timeout_s, (int, float))
+            and socket_timeout_s > 0, "seconds > 0"))
+        self.stream_checkpoint_dir = _check_setting(
+            "stream_checkpoint_dir", checkpoint_dir,
+            isinstance(checkpoint_dir, str), "a path or ''")
+
+    @staticmethod
+    def active() -> Optional["Context"]:
+        """The live Context of this process: the newest not stopped."""
+        with _live_lock:
+            return _live_contexts[-1] if _live_contexts else None
 
     @staticmethod
     def _join(multihost: dict, device):
@@ -250,44 +390,225 @@ class Context:
     def run_job(self, rdd, func: Callable,
                 partitions: Optional[List[int]] = None) -> list:
         """func(task_context, rows) of each partition asked for (default:
-        all), computed in order on the calling thread. The lineage's
-        checkpoint-marked nodes are written first. The cyclic garbage
+        all), computed in order on the calling thread, as one job of the
+        thread's pool (admitted and posted as submit_job's are; inside
+        another job, part of it). The lineage's checkpoint-marked nodes
+        are written first. The cyclic garbage
         collector pauses while partitions compute (paused_gc), user
         functions included."""
         self._check_running()
         if partitions is not None and not partitions:
             return []
-        rdd._do_checkpoint()
-        splits = rdd.cached_splits()
-        ids = range(len(splits)) if partitions is None else partitions
-        out = []
-        with paused_gc():
-            for i in ids:
-                tc = TaskContext(i)
-                out.append(func(tc, rdd.iterator(splits[i], tc)))
-        return out
 
-    def _submit_host_job(self, rdd, func: Callable, transform: Callable):
-        """An asynchronous host action: a JobFuture (jobs.py) settled with
-        transform(run_job(rdd, func)). The lineage's device work (its
-        checkpoints and every DenseRDD's block) runs here, on the calling
-        thread, and the rows are read on the job worker; across processes
-        the whole job runs here, so every process dispatches its
-        collectives in one order."""
+        def run():
+            rdd._do_checkpoint()
+            splits = rdd.cached_splits()
+            ids = range(len(splits)) if partitions is None else partitions
+            out = []
+            with paused_gc():
+                for i in ids:
+                    tc = TaskContext(i)
+                    out.append(func(tc, rdd.iterator(splits[i], tc)))
+            return out
+
+        return self._jobs.run_blocking(run)
+
+    def _submit_host_job(self, rdd, func: Callable,
+                         transform: Optional[Callable] = None,
+                         partitions: Optional[List[int]] = None,
+                         pool: Optional[str] = None):
+        """An asynchronous host job: a JobFuture (jobs.py) settled with
+        transform(run_job(rdd, func, partitions)) (the partition results
+        themselves with no transform), admitted into pool (default: the
+        thread's "pool" property). After admission the lineage's device
+        work (its checkpoints and every DenseRDD's block) runs here, on
+        the calling thread, and the rows are read on the job worker;
+        across processes the whole job runs here, so every process
+        dispatches its collectives in one order."""
         self._check_running()
-        rdd._do_checkpoint()
-        if self.mesh.collective:
-            try:
-                value = transform(self.run_job(rdd, func))
-            except Exception as e:  # noqa: BLE001 — surfaces via result()
-                err = e
+        transform = transform or (lambda parts: parts)
+        box: dict = {}
 
-                def fail():
-                    raise err
-                return self._jobs.submit(fail)
-            return self._jobs.submit(lambda: value)
-        _materialize_dense(rdd)
-        return self._jobs.submit(lambda: transform(self.run_job(rdd, func)))
+        def prepare():
+            rdd._do_checkpoint()
+            if not self.mesh.collective:
+                _materialize_dense(rdd)
+                return
+            try:
+                box["value"] = transform(self.run_job(rdd, func,
+                                                      partitions))
+            except Exception as e:  # noqa: BLE001 — surfaces via result()
+                box["error"] = e
+
+        def finish():
+            if "error" in box:
+                raise box["error"]
+            if "value" in box:
+                return box["value"]
+            return transform(self.run_job(rdd, func, partitions))
+
+        return self._jobs.submit(finish, pool=pool, prepare=prepare)
+
+    # --- the job server's names ---------------------------------------------
+    def set_local_property(self, key: str, value) -> None:
+        """A thread-local job property; "pool" picks the pool of the jobs
+        this thread submits. None clears the key."""
+        props = getattr(self._local_props, "props", None)
+        if props is None:
+            props = self._local_props.props = {}
+        if value is None:
+            props.pop(key, None)
+        else:
+            props[key] = value
+
+    def get_local_property(self, key: str, default=None):
+        props = getattr(self._local_props, "props", None)
+        return default if props is None else props.get(key, default)
+
+    def set_pool(self, name: str, weight: int = 1,
+                 max_concurrent_tasks: Optional[int] = None,
+                 max_queued: Optional[int] = None):
+        """Declare or configure a job pool (jobs.PoolConfig): max_queued
+        bounds its jobs in flight (admission_mode decides what a full
+        pool does); weight and max_concurrent_tasks are recorded, the one
+        FIFO worker reorders nothing."""
+        return self._jobs.set_pool(name, weight, max_concurrent_tasks,
+                                   max_queued)
+
+    def submit_job(self, rdd, func: Callable,
+                   partitions: Optional[List[int]] = None,
+                   pool: Optional[str] = None,
+                   transform: Optional[Callable[[list], Any]] = None):
+        """func(task_context, rows) of each partition asked for (default:
+        all) as an asynchronous job: a JobFuture settled with the list of
+        partition results, or with transform(that list). The pool
+        defaults to the thread's "pool" property."""
+        self._check_running()
+        if pool is None:
+            pool = self.get_local_property("pool")
+        return self._submit_host_job(rdd, func, transform, partitions, pool)
+
+    def run_approximate_job(self, rdd, func: Callable, evaluator,
+                            timeout_s: float):
+        """func over every partition, each result merged into evaluator
+        (merge(index, result)) as its partition finishes. The job's end
+        within timeout_s gives a final PartialResult of
+        evaluator.current_result(); else the current estimate, not final,
+        whose final value comes when the job ends. A failed job gives a
+        failed result."""
+        from vega_tpu_torch.partial import PartialResult
+
+        self._check_running()
+
+        def merging(tc, it):
+            evaluator.merge(tc.split_index, func(tc, it))
+
+        try:
+            future = self._submit_host_job(
+                rdd, merging, pool=self.get_local_property("pool"))
+            future.result(timeout_s)
+        except TimeoutError:
+            result = PartialResult(evaluator.current_result(),
+                                   is_final=False)
+
+            def finisher(fut):
+                exc = fut.exception()
+                if exc is not None:
+                    result.set_failure(exc)
+                else:
+                    result.set_final_value(evaluator.current_result())
+
+            future.add_done_callback(finisher)
+            return result
+        except Exception as exc:  # noqa: BLE001 — folded into the result
+            return PartialResult(None, failure=exc)
+        return PartialResult(evaluator.current_result())
+
+    def broadcast(self, value: Any):
+        """A broadcast variable (broadcast.py): in one process a holder
+        shared by reference."""
+        from vega_tpu_torch.broadcast import Broadcast
+
+        return Broadcast(self, value)
+
+    def metrics_summary(self) -> dict:
+        """The event bus's metrics (events.MetricsListener.summary: jobs,
+        jobs_cancelled, jobs_rejected, streaming, pool_latency) and
+        exchange_plans (exchange_plans())."""
+        self.bus.flush()
+        return {**self.metrics.summary(),
+                "exchange_plans": self.exchange_plans()}
+
+    def storage_status(self) -> dict:
+        """The block stores' counters: the disk store's under "cache"
+        (the reference's cache status keys it has)."""
+        return {"cache": self._spill.status()}
+
+    # --- file sources (io/readers.py) ---------------------------------------
+    def read_source(self, config, decoder: Optional[Callable] = None):
+        """config.make_reader(self), mapped through decoder if given."""
+        self._check_running()
+        rdd = config.make_reader(self)
+        if decoder is not None:
+            rdd = rdd.map(decoder)
+        return rdd
+
+    def text_file(self, path: str, num_partitions: Optional[int] = None):
+        """One str per line of the files under path (a directory, a glob
+        or a file), in num_partitions groups of whole files."""
+        from vega_tpu_torch.io.readers import TextFileReaderConfig
+
+        return self.read_source(TextFileReaderConfig(
+            path, num_partitions or self.default_parallelism))
+
+    def whole_text_files(self, path: str):
+        """(path, bytes) per file."""
+        from vega_tpu_torch.io.readers import WholeFileReaderConfig
+
+        return self.read_source(WholeFileReaderConfig(path))
+
+    def parquet_file(self, path: str, columns: Optional[List[str]] = None,
+                     num_partitions: Optional[int] = None):
+        """The {name: numpy column} blocks of the parquet files under path
+        (pyarrow), columns pruned in the reader."""
+        from vega_tpu_torch.io.readers import ParquetColumnReader
+
+        return self.read_source(ParquetColumnReader(
+            path, columns, num_partitions or self.default_parallelism))
+
+    # --- streaming (streaming/) ---------------------------------------------
+    def streaming(self, batch_interval_s: Optional[float] = None,
+                  checkpoint_dir: Optional[str] = None):
+        """The Context's StreamingContext, made at the first call (whose
+        interval and checkpoint directory it keeps). Refused across
+        processes: a timer thread cannot run collectives in one order
+        on every rank."""
+        self._check_running()
+        if self.mesh.collective:
+            raise VegaError(
+                "streaming() across processes is not supported: the batch "
+                "loop's timer thread cannot run collectives in one order "
+                "on every process")
+        if self._streaming is None:
+            from vega_tpu_torch.streaming.context import StreamingContext
+
+            self._streaming = StreamingContext(
+                self, batch_interval_s=batch_interval_s,
+                checkpoint_dir=checkpoint_dir)
+        return self._streaming
+
+    def stream_from_generator(self, fn, **kwargs):
+        """A DStream over fn(offset) -> record | None (deterministic: the
+        replay path)."""
+        return self.streaming(**kwargs).generator_stream(fn)
+
+    def stream_from_file_tail(self, path: str, **kwargs):
+        """A DStream tailing an append-only line file (byte offsets)."""
+        return self.streaming(**kwargs).file_tail_stream(path)
+
+    def stream_from_socket(self, host: str, port: int, **kwargs):
+        """A DStream over line-delimited TCP."""
+        return self.streaming(**kwargs).socket_stream(host, port)
 
     def _host_cached(self, rdd, split, task_context):
         """A persisted host node's partition: computed once, then kept in
@@ -440,15 +761,24 @@ class Context:
                 prof.stop()  # writes the trace (on_trace_ready)
 
     def stop(self) -> None:
-        """Settle the deferred exchanges, so blocks a caller holds stay
-        readable and the Context holds no block after it stops; remove
-        the spill directory; then stop. The asynchronous actions'
-        worker drains first. If settlement raises, its leftover blocks
-        raise on read."""
+        """Stop the streaming plane (its receivers, its loop, its blocks;
+        committed state stays), drain the job worker (refusing later
+        jobs), settle the deferred exchanges, so blocks a caller holds
+        stay readable and the Context holds no block after it stops;
+        remove the spill directory; then stop. If settlement raises, its
+        leftover blocks raise on read."""
         try:
-            self._jobs.drain()
+            if self._streaming is not None:
+                try:
+                    self._streaming.stop()
+                except Exception:  # noqa: BLE001 — the rest still stops
+                    log.warning("streaming stop failed", exc_info=True)
+            self._jobs.drain(close=True)
             dense_rdd._settle_pending(self)
         finally:
+            with _live_lock:
+                if self in _live_contexts:
+                    _live_contexts.remove(self)
             for entry in self._pending:
                 entry["block"].settle = dense_rdd._unrepaired_raise
             self._pending.clear()

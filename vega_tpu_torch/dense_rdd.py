@@ -456,17 +456,24 @@ class DenseRDD(RDD):
     def block(self) -> Block:
         """This node's Block, materialized once and SETTLED: a pending
         deferred exchange is verified (and repaired on overflow) before the
-        block is handed out."""
-        blk = self.block_spec()
-        if blk.settle is not None:
-            blk.settle()
-        return blk
+        block is handed out. Both under the Context's dense lock, so two
+        threads (a stream's batch loop and the caller's) never interleave
+        device jobs."""
+        with self.context._dense_lock:
+            blk = self.block_spec()
+            if blk.settle is not None:
+                blk.settle()
+            return blk
 
     def block_spec(self) -> Block:
         """block() without settlement: the Block may still carry an
         unverified overflow flag. Only for exchange materializers, which
         register their own pending entry, so a failed speculation
         invalidates and repairs them too; everything else uses block()."""
+        with self.context._dense_lock:
+            return self._block_spec()
+
+    def _block_spec(self) -> Block:
         blk = self._block
         if blk is None:
             # a demoted block promotes from the disk store (a disk hit,
@@ -3564,6 +3571,11 @@ def _settle_pending(ctx) -> None:
     into the SAME Block object, so every reference a caller holds sees the
     repair. If settlement dies part-way (a validator's hard error), every
     entry not yet committed goes back on the backlog, in order."""
+    with ctx._dense_lock:
+        _settle_pending_locked(ctx)
+
+
+def _settle_pending_locked(ctx) -> None:
     pend = ctx._pending
     if not pend:
         return

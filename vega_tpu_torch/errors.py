@@ -20,3 +20,21 @@ class CollectiveError(VegaError):
 
 class CancelledError(VegaError):
     """An asynchronous action was cancelled before it completed."""
+
+
+class JobRejectedError(VegaError):
+    """Admission refused a job at submission: its pool already holds its
+    bound of jobs in flight under admission_mode="reject" (jobs.py). The
+    reference's fields: pool, queued, bound."""
+
+    def __init__(self, pool, queued, bound):
+        self.pool = pool
+        self.queued = queued
+        self.bound = bound
+        super().__init__(
+            f"pool {pool!r} is full: {queued} jobs in flight >= "
+            f"pool_max_queued={bound} (admission_mode=reject)")
+
+
+class PartialJobError(VegaError):
+    """An approximate job's final value did not come within the wait."""

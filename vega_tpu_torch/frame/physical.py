@@ -44,8 +44,6 @@ from vega_tpu_torch import dict_encoding
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame import parquet as parquet_lib
 from vega_tpu_torch.frame.expr import evaluate
-from vega_tpu_torch.rdd.base import RDD
-from vega_tpu_torch.split import Split
 
 _TORCH_DTYPES = {"int32": torch.int32, "float32": torch.float32}
 # the stored words of a pair: the wide int64 and the float64 bits
@@ -685,37 +683,13 @@ def host_left_join_emit(r_arity: int, fill_value):
     return run
 
 
-class _FileListRDD(RDD):
-    """The host tier's parquet scan: one partition per group of files,
-    each yielding the reader's {name: numpy column} blocks."""
-
-    def __init__(self, ctx, groups: List[List[str]],
-                 columns: Optional[List[str]], predicate):
-        super().__init__(ctx)
-        self._groups = groups
-        self._columns = columns
-        self._predicate = predicate
-
-    @property
-    def num_partitions(self) -> int:
-        return len(self._groups)
-
-    def splits(self) -> List[Split]:
-        return [Split(i, payload=g) for i, g in enumerate(self._groups)]
-
-    def compute(self, split: Split, task_context=None):
-        paths = split.payload if split.payload is not None \
-            else self._groups[split.index]
-        return parquet_lib.iter_parquet_batches(paths, self._columns,
-                                                self._predicate)
-
-
 def host_parquet_source(ctx, path: str, columns: Optional[List[str]],
-                        predicate, num_partitions: int) -> _FileListRDD:
+                        predicate, num_partitions: int):
     """The host tier's parquet scan over the reference's file splits
-    (parquet.assign_files_to_partitions), with the columns pruned and the
-    predicate's conjuncts applied in the reader
-    (parquet.iter_parquet_batches)."""
-    groups = parquet_lib.assign_files_to_partitions(
-        parquet_lib.discover_parquet_files(path), num_partitions)
-    return _FileListRDD(ctx, groups, columns, list(predicate or ()))
+    (io/readers.py's ParquetColumnReader: one partition per group of
+    files), with the columns pruned and the predicate's conjuncts applied
+    in the reader (parquet.iter_parquet_batches)."""
+    from vega_tpu_torch.io.readers import ParquetColumnReader
+
+    return ParquetColumnReader(path, columns, num_partitions,
+                               predicate=predicate).make_reader(ctx)

@@ -1,24 +1,37 @@
-"""The result of an approximate action (the reference's
-partial/partial_result.py), final only.
+"""The result of an approximate action: the port's copy of the
+reference's partial/partial_result.py.
 
-The port's approximate actions finish before they return, so every result
-they give is final, or failed: the reference can also hand back a
-non-final estimate when its deadline passes first. This holder therefore
-keeps the reference's surface for a final value, or for a job that failed
-(the reference's set_failure: the initial value None, get_final_value
-raising the job's exception)."""
+The approximate actions of the RDD API finish before they return, so
+their results are final, or failed (the reference's set_failure: the
+initial value None, get_final_value raising the job's exception).
+Context.run_approximate_job can also return the current estimate, not
+final, when its deadline passes first: the job goes on, and
+set_final_value / set_failure settle the result when it ends, calling
+the on_complete / on_fail handler then."""
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Generic, Optional, TypeVar
+
+from vega_tpu_torch.errors import PartialJobError
 
 R = TypeVar("R")
 
 
 class PartialResult(Generic[R]):
-    def __init__(self, value: R, failure: Optional[BaseException] = None):
+    def __init__(self, value: R, failure: Optional[BaseException] = None,
+                 is_final: bool = True):
         self._value = value
         self._failure = failure
+        self._final = is_final and failure is None
+        self._event = threading.Event()
+        self._completion_handler: Optional[Callable[[R], None]] = None
+        self._failure_handler: Optional[
+            Callable[[BaseException], None]] = None
+        self._lock = threading.Lock()
+        if is_final or failure is not None:
+            self._event.set()
 
     @property
     def initial_value(self) -> R:
@@ -26,30 +39,58 @@ class PartialResult(Generic[R]):
 
     @property
     def is_initial_value_final(self) -> bool:
-        return self._failure is None
+        return self._final
 
     def get_final_value(self, timeout: Optional[float] = None) -> R:
-        """The final value, there already (timeout is unused), or the
-        failed job's exception raised."""
+        """The final value, once there (PartialJobError if timeout passes
+        first), or the failed job's exception raised."""
+        if not self._event.wait(timeout):
+            raise PartialJobError("timed out waiting for final value")
         if self._failure is not None:
             raise self._failure
         return self._value
 
     def on_complete(self, handler: Callable[[R], None]
                     ) -> "PartialResult[R]":
-        """Calls handler with the final value at once (never on a failed
-        job)."""
-        if self._failure is None:
+        """Calls handler with the final value: at once when final, else
+        when it comes (never on a failed job)."""
+        with self._lock:
+            self._completion_handler = handler
+            final = self._final
+        if final:
             handler(self._value)
         return self
 
     def on_fail(self, handler: Callable[[BaseException], None]
                 ) -> "PartialResult[R]":
-        """Calls handler with a failed job's exception at once."""
-        if self._failure is not None:
-            handler(self._failure)
+        """Calls handler with a failed job's exception, at once or when
+        it fails."""
+        with self._lock:
+            self._failure_handler = handler
+            failure = self._failure
+        if failure is not None:
+            handler(failure)
         return self
 
+    # --- the producer's side ------------------------------------------------
+    def set_final_value(self, value: R) -> None:
+        with self._lock:
+            self._value = value
+            self._final = True
+            handler = self._completion_handler
+        self._event.set()
+        if handler:
+            handler(value)
+
+    def set_failure(self, exc: BaseException) -> None:
+        with self._lock:
+            self._failure = exc
+            handler = self._failure_handler
+        self._event.set()
+        if handler:
+            handler(exc)
+
     def __repr__(self):
-        state = "final" if self._failure is None else "failed"
+        state = ("failed" if self._failure is not None
+                 else "final" if self._final else "partial")
         return f"PartialResult({state}: {self._value})"

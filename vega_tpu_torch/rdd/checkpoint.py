@@ -8,13 +8,18 @@ with cloudpickle, which reads these files too; the port's files are plain
 pickle and cannot hold a closure.) Across processes (Context(multihost=))
 every process computes the partitions and process 0 alone writes them; the
 others wait for it and then read the same files, so the directory must be
-one they all see."""
+one they all see.
+
+CommitLog (streaming/state.py's exactly-once seam) publishes one JSON
+record per committed batch and repoints latest.commit, each written to a
+temporary name and replaced into place, as the reference's does."""
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
-from typing import Iterator
+from typing import Any, Dict, Iterator, Optional
 
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.rdd.base import RDD
@@ -79,3 +84,41 @@ class CheckpointRDD(RDD):
         path = os.path.join(self.directory, f"part-{split.index:05d}.ckpt")
         with open(path, "rb") as f:
             return iter(pickle.load(f))
+
+
+class CommitLog:
+    """Atomic, monotone commit records over checkpointed artifacts.
+
+    The state parts are written first (CheckpointRDD.write), then one
+    record naming (batch_id, source offsets, state directory), so a crash
+    at any point leaves the previous commit or the new one, never a torn
+    record. Recovery reads the one latest record."""
+
+    LATEST = "latest.commit"
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+
+    def commit(self, batch_id: int, payload: Dict[str, Any]) -> str:
+        """Publish payload as batch_id's record: the per-batch file (kept
+        as the audit trail), then latest.commit. Returns the per-batch
+        path."""
+        record = dict(payload, batch_id=batch_id)
+        data = json.dumps(record, sort_keys=True)
+        path = os.path.join(self.directory, f"commit-{batch_id:010d}.json")
+        for target in (path, os.path.join(self.directory, self.LATEST)):
+            tmp = target + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(data)
+            os.replace(tmp, target)
+        return path
+
+    def latest(self) -> Optional[Dict[str, Any]]:
+        """The last committed record; None before any commit (a missing
+        or torn latest.commit reads as none)."""
+        try:
+            with open(os.path.join(self.directory, self.LATEST)) as f:
+                return json.loads(f.read())
+        except (OSError, ValueError):
+            return None

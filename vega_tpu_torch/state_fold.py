@@ -71,7 +71,7 @@ def fold_pairs_device(ctx, pairs, op: str) -> Optional[Dict]:
 
 
 def _pyval(x):
-    try:
-        return x.item()
-    except AttributeError:
-        return x
+    # a lookup, not a caught AttributeError: collect() already gives
+    # Python scalars, and a raise a value costs more than the fold's reduce
+    item = getattr(x, "item", None)
+    return x if item is None else item()
