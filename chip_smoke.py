@@ -293,8 +293,12 @@ Phases, in order; any failure exits non-zero before the last line:
      reference's PCG64 streams (the bands disjoint and covering); (c)
      count_approx_distinct at relative_sd 0.05 and 0.01 over the key and
      the (k, v) rows, equal to a numpy HyperLogLog of splitmix64 hashes;
-     (d) count_approx, mean_approx, count_by_value_approx: final and
-     exact; (e) to_local_iterator (rows in order, the host peak sampled),
+     (d) count_approx, mean_approx, count_by_value_approx at P18D_ROWS =
+     2M (cut from 20M: a DenseRDD's run through the host RDD's
+     evaluators, one task a shard), final and exact under a long
+     deadline, then count_approx with one shard slowed by
+     faults.maybe_slow_task past a 0.3 s deadline: the estimate, not
+     final, then the exact count; (e) to_local_iterator (rows in order, the host peak sampled),
      for_each, for_each_partition and save_as_text_file (bytes equal to
      numpy's formatting; the files removed after) at P18E_ROWS = 2M pairs
      (cut from 20M, where 18e alone took 233 s); (f)
@@ -385,7 +389,7 @@ Details go to chiprun_out/chip_smoke.json.
 
 Exits non-zero without a result when no CUDA card is visible.
 
-    python3 chip_smoke.py --phase 19 [--without hash|bucket|gc]
+    python3 chip_smoke.py --phase 19 [--without hash|bucket|gc|pickle|threads]
 
 builds the kernels and runs phase 19 alone, as the whole script runs it,
 optionally with one of the host layer's fast paths (P19_PATHS) swapped
@@ -5903,6 +5907,13 @@ P18_KEYS = N_KEYS
 # phase 18's 291 s (NVIDIA H100 80GB HBM3, 700.00 W), past its 150 s
 P18E_ROWS = 2_000_000
 P18_WARM = 3
+# 18d's approximate actions, cut from 20M rows: a DenseRDD's are the host
+# RDD's (one task a shard, every row a Python value), as the reference's
+P18D_ROWS = 2_000_000
+P18D_WARM = 1
+P18D_DEADLINE_S = 120.0
+P18D_PARTIAL_DEADLINE_S = 0.3
+P18D_STRAGGLE_S = 2.0
 P18_BIG = 1 << 40
 P18_TEXT_DIR = "p18_text.tmp"  # 18e's files, removed after the phase
 P18_MASK = (1 << 64) - 1
@@ -5914,16 +5925,19 @@ def p18_check(what, ok):
 
 
 class _P18Clock:
-    """While installed, adds the host-clock time of each call of the
-    wrapped functions (from a synchronize to a synchronize, so device
-    work queued before is not counted) to ms: a case's host part (the
-    samplers' numpy draws, row formation, the HLL estimate), or, for the
-    host-row actions, their device reads (Block.shard_rows)."""
+    """While installed, times each call of the wrapped functions (from a
+    synchronize to a synchronize, so device work queued before is not
+    counted); ms, set on exit, is the host-clock time during which at
+    least one call was in progress (calls on concurrent task threads
+    overlap and count once): a case's host part (the samplers' numpy
+    draws, row formation, the HLL estimate), or, for the host-row
+    actions, their device reads (Block.shard_rows)."""
 
     def __init__(self, torch, targets):
         self.torch = torch
         self.targets = targets
         self.ms = 0.0
+        self._spans = []
         self._saved = []
 
     def __enter__(self):
@@ -5938,7 +5952,7 @@ class _P18Clock:
                     return _orig(*a, **kw)
                 finally:
                     torch.cuda.synchronize()
-                    self.ms += (time.perf_counter() - t0) * 1e3
+                    self._spans.append((t0, time.perf_counter()))
             setattr(owner, name, timed)
             self._saved.append((owner, name, orig))
         return self
@@ -5946,6 +5960,12 @@ class _P18Clock:
     def __exit__(self, *exc):
         for owner, name, orig in reversed(self._saved):
             setattr(owner, name, orig)
+        covered, end = 0.0, float("-inf")
+        for t0, t1 in sorted(self._spans):
+            if t1 > end:
+                covered += t1 - max(t0, end)
+                end = t1
+        self.ms = covered * 1e3
         return False
 
 
@@ -6055,7 +6075,7 @@ def p18_text(np, k, v):
 
 
 def p18_case(torch, ck, ctx, label, run, check, clock=(), kind="host",
-             need=()):
+             need=(), warm=P18_WARM):
     """One case: a cold run (launches counted from 0, checked), then warm
     runs: their median ms, the host part apart (the time in `clock`'s
     functions, or for kind "device" the time outside them), the step
@@ -6078,7 +6098,6 @@ def p18_case(torch, ck, ctx, label, run, check, clock=(), kind="host",
     for name in need:
         p18_check(f"{label} launched {name} ({cold['launches']})",
                   cold["launches"][name] > 0)
-    warm = P18_WARM
     runs = [one()[1] for _ in range(warm)]
     med = statistics.median(r["ms"] for r in runs)
     r = dict(label=label, note=note, cold=cold, warm=runs, median_ms=med,
@@ -6294,25 +6313,33 @@ def p18_part_c(torch, np, ck, vt, ctx, d):
 
 
 def p18_part_d(torch, np, ck, vt, ctx, d):
-    """18d: the approximate actions, final and exact."""
-    from vega_tpu_torch import dense_rdd, host_actions
+    """18d: the approximate actions at P18D_ROWS, one host task a shard
+    through the evaluators: final and exact under a long deadline, then
+    count_approx with one straggling shard (faults.maybe_slow_task): the
+    estimate first, not final, then the exact count."""
+    from vega_tpu_torch import block as block_lib
+    from vega_tpu_torch import faults
 
-    k, x, f = d["k"], d["x"], d["f"]
+    n = P18D_ROWS
+    # the device reads of the tasks' shards
+    clock = [(block_lib.Block, "shard_rows")]
+    k, x, f = d["k"][:n], d["x"][:n], d["f"][:n]
     rows = []
 
     def count():
-        return ctx.dense_from_numpy(k, x).count_approx(5.0)
+        return ctx.dense_from_numpy(k, x).count_approx(P18D_DEADLINE_S)
 
     rows.append(p18_case(
         torch, ck, ctx, "d_count_approx", count,
         lambda r: (p18_check("d_count_approx: final, the exact count",
                              r.is_initial_value_final
-                             and r.get_final_value().mean == P18_ROWS
-                             and r.get_final_value().low == P18_ROWS),
-                   f"{r.get_final_value()}")[1]))
+                             and r.get_final_value().mean == n
+                             and r.get_final_value().low == n),
+                   f"{r.get_final_value()}")[1],
+        clock=clock, kind="device", warm=P18D_WARM))
 
     def mean():
-        return ctx.dense_from_numpy(f).mean_approx(5.0)
+        return ctx.dense_from_numpy(f).mean_approx(P18D_DEADLINE_S)
 
     def mean_check(r):
         want = float(np.mean(f.astype(np.float64)))
@@ -6322,24 +6349,51 @@ def p18_part_d(torch, np, ck, vt, ctx, d):
                   and abs(got - want) <= 1e-12 * float(np.mean(np.abs(f))))
         return f"mean {got!r} (numpy {want!r})"
 
-    rows.append(p18_case(torch, ck, ctx, "d_mean_approx", mean, mean_check))
+    rows.append(p18_case(torch, ck, ctx, "d_mean_approx", mean, mean_check,
+                         clock=clock, kind="device",
+                         warm=P18D_WARM))
 
     def by_value():
-        return ctx.dense_from_numpy(k).count_by_value_approx(5.0)
+        return ctx.dense_from_numpy(k).count_by_value_approx(
+            P18D_DEADLINE_S)
 
     def by_value_check(r):
         got = r.get_final_value()
         cnt = np.bincount(k, minlength=P18_KEYS)
+        want_values = int(np.count_nonzero(cnt))
         p18_check("d_count_by_value_approx: final, every value's count",
-                  r.is_initial_value_final and len(got) == P18_KEYS
+                  r.is_initial_value_final and len(got) == want_values
                   and all(got[i].mean == cnt[i] and got[i].confidence == 1.0
-                          for i in range(0, P18_KEYS, 997)))
+                          for i in range(0, want_values, 997)))
         return f"{len(got)} values"
 
     rows.append(p18_case(torch, ck, ctx, "d_count_by_value_approx",
                          by_value, by_value_check,
-                         clock=[(dense_rdd, "_host_rows"),
-                                (host_actions, "_finals")]))
+                         clock=clock, kind="device",
+                         warm=P18D_WARM))
+
+    node = ctx.dense_from_numpy(k, x)
+    faults.configure(slow_tasks=1, slow_task_s=P18D_STRAGGLE_S)
+    try:
+        t0 = time.perf_counter()
+        r = node.count_approx(P18D_PARTIAL_DEADLINE_S)
+        first_s = time.perf_counter() - t0
+        first, first_final = r.initial_value, r.is_initial_value_final
+        last = r.get_final_value(P18D_DEADLINE_S)
+        last_s = time.perf_counter() - t0
+    finally:
+        faults.reset()
+    p18_check(f"d_count_approx with a straggler: the estimate {first} "
+              f"first, not final, then the exact count {last}",
+              not first_final and first.low <= n <= first.high
+              and last.mean == n and last.confidence == 1.0)
+    log(f"18 d_count_approx_partial: estimate {first} after "
+        f"{first_s * 1e3:.3f} ms, final {last} after {last_s * 1e3:.3f} "
+        f"ms (one shard slowed {P18D_STRAGGLE_S} s)")
+    rows.append(dict(label="d_count_approx_partial", note=str(first),
+                     final=str(last), first_ms=first_s * 1e3,
+                     final_ms=last_s * 1e3,
+                     launches={name: 0 for name in ck.LAUNCHES}))
     return rows
 
 
@@ -6405,8 +6459,9 @@ def p18_part_e(torch, np, ck, vt, ctx, d):
     def each_partition_check(seen):
         want = [(b - a, (int(k[a]), int(x[a])), (int(k[b - 1]), int(x[b - 1])))
                 for a, b in p18_shards(n)]
-        p18_check("e_for_each_partition: one iterator a shard, in order",
-                  seen == want)
+        p18_check("e_for_each_partition: one iterator a shard (in the "
+                  "order the tasks ran, as the reference's)",
+                  sorted(seen) == sorted(want))
         return f"{len(seen)} partitions"
 
     rows.append(p18_case(torch, ck, ctx, "e_for_each_partition",
@@ -7000,12 +7055,21 @@ def phase_nineteen(torch, np, ck, vt):
 # splitmix64 over plain ints (plain: Partitioner's hash_key per key);
 # bucket, the map side's inlined list-collecting aggregator (plain:
 # create_combiner / merge_value per row); gc, run_job's pause of the
-# cyclic garbage collector (plain: the collector left on)
-P19_PATHS = ("hash", "bucket", "gc")
+# cyclic garbage collector (plain: the collector left on); and two costs
+# of the local runtime, to split a slowdown between them: pickle, the map
+# side's pickling of each bucket into the shuffle store and the reduce
+# side's unpickling (without: the bucket object itself is stored, as
+# zero bytes, so nothing spills), and threads, the local backend's eight
+# task threads (without: one)
+P19_PATHS = ("hash", "bucket", "gc", "pickle", "threads")
+
+
+class _P19Held(bytes):
+    """A bucket stored as itself (--without pickle): zero bytes long."""
 
 
 def p19_plain_bucket(dep, rows, buckets):
-    """rdd/shuffled.py's _bucket through the aggregator's own functions
+    """dependency.py's _bucket through the aggregator's own functions
     for every aggregator."""
     parts = dep.partitioner.get_partitions([kv[0] for kv in rows])
     create = dep.aggregator.create_combiner
@@ -7023,16 +7087,40 @@ def p19_without(path):
     form, for the rest of the process."""
     import contextlib
 
-    from vega_tpu_torch import context, partitioner
-    from vega_tpu_torch.rdd import shuffled
+    from vega_tpu_torch import dependency, partitioner
+    from vega_tpu_torch.scheduler import dag
 
     if path == "hash":
         partitioner.HashPartitioner.get_partitions = \
             partitioner.Partitioner.get_partitions
     elif path == "bucket":
-        shuffled._bucket = p19_plain_bucket
+        dependency._bucket = p19_plain_bucket
     elif path == "gc":
-        context.paused_gc = contextlib.nullcontext
+        dag.paused_gc = contextlib.nullcontext
+    elif path == "pickle":
+        import types
+
+        from vega_tpu_torch import serialization
+        from vega_tpu_torch.shuffle import fetcher
+
+        def held(obj):
+            blob = _P19Held()
+            blob.obj = obj
+            return blob
+
+        dependency.serialization = types.SimpleNamespace(dumps=held)
+        fetcher.serialization = types.SimpleNamespace(
+            loads=lambda b: b.obj if isinstance(b, _P19Held)
+            else serialization.loads(b))
+    elif path == "threads":
+        import vega_tpu_torch as vt
+
+        init = vt.Context.__init__
+
+        def one_thread(self, *a, **kw):
+            kw.setdefault("num_workers", 1)
+            init(self, *a, **kw)
+        vt.Context.__init__ = one_thread
     else:
         fail(f"--without takes one of {', '.join(P19_PATHS)}, not {path!r}")
 
@@ -7978,7 +8066,7 @@ def p22_stream_state(torch, np, ck, vt, ctx, n, ckpt, state_fold, label):
     """One stateful generator stream to its end: started, waited for
     until offset n is committed (within P22_WAIT_S), stopped. Launches
     counted from 0 at start(), the device peak from there."""
-    from vega_tpu_torch import events as vt_events
+    from vega_tpu_torch.scheduler import events as vt_events
 
     seen = P22Events(vt_events)
     ctx.bus.add_listener(seen)
@@ -8391,6 +8479,403 @@ def p22_summary(res):
                        whole_text_files=c["whole_text_files"]))
 
 
+P23_ROWS = 2_000_000           # 23a: bench-main's lineage cut to 2M rows
+                               # (phase 20a's cut: the host layer's rate)
+P23_KEYS = N_KEYS              # the card's reduce: 1M keys
+P23_HOST_KEYS = 1_000          # the host shuffles' keys, the table's rows
+P23_WORKERS = (1, 8)           # 23a: num_workers, one Context each
+P23_SPILL_BUDGET = 16 << 20    # 23d: shuffle_memory_budget
+P23_SMALL = 200_000            # 23e-f: the host jobs' rows
+P23_WARM = 1
+
+
+def p23_check(what, ok):
+    if not ok:
+        fail(f"phase 23: {what}")
+
+
+class _P23Events:
+    """A bus listener keeping the scheduler's events of one Context."""
+
+    def __init__(self):
+        self.events = []
+
+    def on_event(self, event):
+        self.events.append(event)
+
+    def stage_walls(self, start, end):
+        """[(stage_id, kind, tasks, wall s)] of the stages submitted in
+        events[start:end]: a map stage's wall to its StageCompleted, the
+        result stage's to its job's end."""
+        from vega_tpu_torch.scheduler import events as ev
+
+        window = self.events[start:end]
+        done = {e.stage_id: e.time for e in window
+                if isinstance(e, ev.StageCompleted)}
+        job_end = {e.job_id: e.time for e in window
+                   if isinstance(e, ev.JobEnd)}
+        out = []
+        for e in window:
+            if isinstance(e, ev.StageSubmitted):
+                t_end = done.get(e.stage_id, job_end.get(e.job_id, e.time))
+                out.append((e.stage_id,
+                            "map" if e.is_shuffle_map else "result",
+                            e.num_tasks, round(t_end - e.time, 6)))
+        return out
+
+
+def p23_expected(np):
+    """numpy's replay of 23a: the sum of x * 0.5 over x = k (mod 1,000)
+    in [0, P23_ROWS), float64 (P23_KEYS is a multiple of 1,000)."""
+    x = np.arange(P23_ROWS, dtype=np.int64)
+    return np.bincount(x % P23_HOST_KEYS, weights=x * 0.5,
+                       minlength=P23_HOST_KEYS)
+
+
+def p23_host_part(node):
+    """The two host shuffles of 23a over a node's rows: 8 partitions by
+    key % 1,000, then 4."""
+    return (node.map(lambda kv: (kv[0] % P23_HOST_KEYS, kv[1]))
+            .reduce_by_key(operator.add, 8)
+            .map(lambda kv: (kv[0] % P23_HOST_KEYS, kv[1]))
+            .reduce_by_key(operator.add, 4))
+
+
+def p23_part_a(torch, np, ck, vt, ctx, workers, exp):
+    """23a: bench-main's lineage at P23_ROWS rows: reduce_by_key on the
+    card, to_rdd(), two host shuffles through the scheduler, dense()
+    and a join with the 1,000-row table on the card, counted."""
+    table = ctx.dense_from_numpy(
+        np.arange(P23_HOST_KEYS, dtype=np.int32),
+        np.arange(P23_HOST_KEYS, dtype=np.float32) * 2)
+    table.block()
+    rec = _P23Events()
+    ctx.bus.add_listener(rec)
+    state = {}
+
+    def card(_):
+        node = ctx.dense_range(P23_ROWS).map(
+            lambda x: (x % P23_KEYS, x * 0.5)).reduce_by_key(op="add")
+        node.block()
+        return node
+
+    def host(node):
+        ctx.bus.flush()
+        start = len(rec.events)
+        lifted = p23_host_part(node.to_rdd()).dense()
+        ctx.bus.flush()
+        state["stages"] = rec.stage_walls(start, len(rec.events))
+        state["lifted"] = lifted
+        return lifted
+
+    def join(lifted):
+        return lifted.join(table).count()
+
+    def check(n):
+        got = state["lifted"].collect_arrays()
+        k, v = got["k"], got["v"]
+        p23_check("23a: every key once",
+                  np.array_equal(np.sort(k), np.arange(P23_HOST_KEYS)))
+        p23_check("23a: the sums equal numpy's (rtol 1e-5)",
+                  np.allclose(v, exp[k], rtol=1e-5, atol=0.0))
+        p23_check("23a: join count == 1,000", n == P23_HOST_KEYS)
+        stages = state["stages"]
+        p23_check(f"23a: the host job ran at least 3 stages ({stages})",
+                  len(stages) >= 3)
+        return (f"num_workers={workers}, {len(stages)} host stages, join "
+                f"count {n}")
+
+    r = p19_case(torch, ck, f"a_workers{workers}",
+                 [("reduce_by_key", "card", card),
+                  ("to_rdd.shuffles.dense", "host", host),
+                  ("join.count", "card", join)], check, P23_WARM, 23)
+    r["stages"] = state["stages"]
+    r["tasks"] = sum(s[2] for s in state["stages"])
+    launched = {k: sum(r["step_launches"][st][k]
+                       for st in ("reduce_by_key", "join.count"))
+                for k in ck.LAUNCHES}
+    p23_check(f"23a: the card's steps launched all three kernels "
+              f"({launched})", all(launched[k] > 0 for k in
+                                   ("hash_bucket", "digit_hist",
+                                    "partition_pos")))
+    return r
+
+
+def p23_part_b(vt, ctx):
+    """23b: a partition that fails twice succeeds on its third attempt;
+    a closure that always fails aborts its job with TaskError."""
+    from vega_tpu_torch.errors import TaskError
+
+    attempts = {}
+
+    def flaky(idx, it):
+        attempts[idx] = attempts.get(idx, 0) + 1
+        if idx == 1 and attempts[idx] < 3:
+            raise RuntimeError("transient")
+        return it
+
+    before = ctx.metrics_summary()["task_failures"]
+    total = sum(ctx.parallelize(range(P23_SMALL), 4)
+                .map_partitions_with_index(flaky).collect())
+    failures = ctx.metrics_summary()["task_failures"] - before
+    p23_check("23b: the retried job's rows", total == sum(range(P23_SMALL)))
+    p23_check(f"23b: partition 1 ran 3 times ({attempts})",
+              attempts[1] == 3 and failures == 2)
+    try:
+        ctx.parallelize(range(100), 2).map(lambda x: 1 // 0).collect()
+    except TaskError as e:
+        cause = type(e.__cause__).__name__
+    else:
+        cause = None
+    p23_check(f"23b: TaskError from ZeroDivisionError ({cause})",
+              cause == "ZeroDivisionError")
+    return dict(attempts=attempts[1], task_failures=failures,
+                aborted_by=f"TaskError from {cause}")
+
+
+def p23_part_c(np, ctx, exp):
+    """23c: one bucket of the second host shuffle dropped from the store
+    between two collects: the fetch fails, the map output is
+    unregistered and its stage resubmitted, and the rows are equal."""
+    node = p23_host_part(ctx.dense_range(P23_ROWS).map(
+        lambda x: (x % P23_KEYS, x * 0.5)).reduce_by_key(op="add").to_rdd())
+    first = sorted(node.collect())
+    before = ctx.metrics_summary()["stages_resubmitted"]
+    dropped = ctx.env.shuffle_store._mem.pop((node.shuffle_id, 0, 1), None)
+    p23_check("23c: the bucket was in the store", dropped is not None)
+    t0 = time.perf_counter()
+    second = sorted(node.collect())
+    ms = (time.perf_counter() - t0) * 1e3
+    resubmitted = ctx.metrics_summary()["stages_resubmitted"] - before
+    p23_check("23c: equal rows after the resubmission", first == second)
+    p23_check(f"23c: StageResubmitted posted ({resubmitted})",
+              resubmitted >= 1)
+    k = np.array([kv[0] for kv in second])
+    v = np.array([kv[1] for kv in second])
+    p23_check("23c: the sums equal numpy's",
+              np.allclose(v, exp[k], rtol=1e-5, atol=0.0))
+    return dict(stages_resubmitted=resubmitted, recovery_ms=ms)
+
+
+def p23_part_d(np, vt, exp):
+    """23d: the card's reduce moved to the host (to_rdd() of the 2M
+    mapped rows, a host reduce_by_key over their 1M keys: no map-side
+    combine, about 34 MB of buckets), then 23a's two host shuffles, under
+    shuffle_memory_budget = 16 MB: the oldest buckets spill to disk and
+    read back, rows equal."""
+    with vt.Context(n_shards=N_SHARDS, num_workers=8,
+                    shuffle_memory_budget=P23_SPILL_BUDGET) as ctx:
+        t0 = time.perf_counter()
+        rows = p23_host_part(ctx.dense_range(P23_ROWS).map(
+            lambda x: (x % P23_KEYS, x * 0.5)).to_rdd().reduce_by_key(
+                operator.add, 8)).collect()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = ctx.storage_status()["shuffle"]
+        summary = ctx.metrics_summary()
+    k = np.array([kv[0] for kv in rows])
+    v = np.array([kv[1] for kv in rows])
+    p23_check("23d: every key once",
+              np.array_equal(np.sort(k), np.arange(P23_HOST_KEYS)))
+    p23_check("23d: the sums equal numpy's",
+              np.allclose(v, exp[k], rtol=1e-5, atol=0.0))
+    p23_check(f"23d: buckets spilled ({st['spill_count']})",
+              st["spill_count"] > 0)
+    return dict(ms=ms, spill_count=st["spill_count"],
+                spilled_bytes=st["spilled_bytes"],
+                disk_entries=st["disk_entries"],
+                fetch=summary["fetch"])
+
+
+def p23_part_e(ctx):
+    """23e: a shuffle's map stage reused by a second job; a persisted
+    node computed once and served from the cache through the tracker;
+    count_approx with one slow partition: a partial value at the
+    deadline, then the final count."""
+    import threading
+
+    shuffled = ctx.parallelize(range(P23_SMALL), 8).map(
+        lambda x: (x % 1000, x)).reduce_by_key(operator.add, 8)
+    first = sorted(shuffled.collect())
+    s0 = ctx.metrics_summary()
+    second = sorted(shuffled.collect())
+    s1 = ctx.metrics_summary()
+    reuse = dict(stages=s1["stages"] - s0["stages"],
+                 tasks=s1["tasks"] - s0["tasks"])
+    p23_check(f"23e: the second job ran its result stage alone ({reuse})",
+              first == second and reuse == dict(stages=1, tasks=8))
+    seen = []
+    cached = ctx.parallelize(range(P23_SMALL), 8).map(
+        lambda x: (seen.append(1), x * 2)[1]).persist()
+    counts = (cached.count(), cached.count())
+    locs = ctx.env.cache_tracker.get_location_snapshot().get(
+        cached.rdd_id, {})
+    p23_check(f"23e: computed once, 8 partitions tracked ({len(seen)}, "
+              f"{len(locs)})", counts == (P23_SMALL, P23_SMALL)
+              and len(seen) == P23_SMALL and len(locs) == 8)
+    gate = threading.Event()
+
+    def slow(idx, it):
+        if idx == 7:
+            gate.wait(10.0)
+        return it
+
+    res = ctx.parallelize(range(P23_SMALL), 8).map_partitions_with_index(
+        slow).count_approx(timeout_s=0.5, confidence=0.95)
+    partial = res.initial_value
+    p23_check("23e: a partial value at the deadline",
+              not res.is_initial_value_final
+              and partial.low <= partial.mean <= partial.high)
+    gate.set()
+    final = res.get_final_value(timeout=30.0)
+    p23_check("23e: the final count", final.mean == P23_SMALL)
+    cache = ctx.storage_status()["cache"]
+    return dict(reuse=reuse, persisted_computed=len(seen),
+                tracked_partitions=len(locs), cache_mem_bytes=cache[
+                    "mem_bytes"],
+                approx_partial=[partial.mean, partial.low, partial.high],
+                approx_final=final.mean)
+
+
+def p23_part_f(vt):
+    """23f: two pools of weights 4 and 1 under scheduler_mode "fair" on
+    two task threads, four jobs each submitted together; each pool's job
+    walls (pool_latency)."""
+    with vt.Context(n_shards=N_SHARDS, num_workers=2,
+                    scheduler_mode="fair") as ctx:
+        ctx.set_pool("heavy", weight=4)
+        ctx.set_pool("light", weight=1)
+        want = None
+        futures = []
+        for i in range(4):
+            for pool in ("light", "heavy"):
+                node = ctx.parallelize(range(P23_SMALL), 8).map(
+                    lambda x: (x % 100, x)).reduce_by_key(operator.add, 4)
+                futures.append(ctx.submit_job(
+                    node, lambda _tc, it: sorted(it), pool=pool,
+                    transform=lambda parts: sorted(
+                        r for p in parts for r in p)))
+        for f in futures:
+            got = f.result(120)
+            want = got if want is None else want
+            p23_check("23f: every job's rows equal", got == want)
+        latency = ctx.metrics_summary()["pool_latency"]
+    p23_check(f"23f: both pools' walls ({latency})",
+              set(latency) >= {"heavy", "light"})
+    return dict(pool_latency={p: latency[p] for p in ("heavy", "light")})
+
+
+def phase_twentythree(torch, np, ck, vt):
+    """Phase 23: the local runtime (the DAG scheduler, the thread-pool
+    backend, the shuffle store and fetcher, the cache and its tracker,
+    the job server) on the card: (a) bench-main's lineage at P23_ROWS
+    rows, reduced on the card, two host shuffles through the scheduler,
+    lifted and joined on the card, at num_workers 1 and 8; (b) retry,
+    then TaskError; (c) a fetch failure and its resubmission; (d) the
+    shuffle store spilling past a 16 MB budget; (e) map-stage reuse, a
+    persisted node through the tracker, count_approx partial then final;
+    (f) two pools of weights 4 and 1."""
+    t0 = time.perf_counter()
+    card = card_line()
+    exp = p23_expected(np)
+    rows = []
+    parts = {}
+    out = {}
+    for workers in P23_WORKERS:
+        t1 = time.perf_counter()
+        ctx = vt.Context(n_shards=N_SHARDS, num_workers=workers)
+        rows.append(p23_part_a(torch, np, ck, vt, ctx, workers, exp))
+        if workers == P23_WORKERS[-1]:
+            parts["a"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            out["b"] = p23_part_b(vt, ctx)
+            out["c"] = p23_part_c(np, ctx, exp)
+            out["e"] = p23_part_e(ctx)
+            parts["bce"] = time.perf_counter() - t1
+            out["summary"] = {k: v for k, v in ctx.metrics_summary().items()
+                              if k in ("jobs", "stages", "tasks",
+                                       "task_failures", "stages_resubmitted",
+                                       "spills", "fetch")}
+        ctx.stop()
+    t1 = time.perf_counter()
+    out["d"] = p23_part_d(np, vt, exp)
+    out["f"] = p23_part_f(vt)
+    parts["df"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    launches = {name: sum(r["launches"][name] for r in rows)
+                for name in ck.LAUNCHES}
+    check_launched(launches, "phase 23")
+    wall_s = time.perf_counter() - t0
+    log(f"phase 23 took {wall_s:.1f} s (parts {json.dumps(parts)})")
+    return dict(rows=rows, launches=launches, card=card, wall_s=wall_s,
+                parts_s=parts, **out)
+
+
+def p23_lines(r, card):
+    """The printed lines of phase 23."""
+    out = []
+    for x in r["rows"]:
+        out.append(
+            f"phase 23{x['label']} ({x['note']}; {P23_ROWS} rows): "
+            f"{x['median_ms']:.3f} ms warm median of {len(x['warm'])}, "
+            f"parts {json.dumps(x['median_parts'])}, cold "
+            f"{x['cold']['ms']:.3f} ms, {len(x['stages'])} host stages, "
+            f"{x['tasks']} tasks, stage walls (id, kind, tasks, s) "
+            f"{json.dumps(x['stages'])}, launches by step "
+            f"{json.dumps(x['step_launches'])} on {card}")
+    out.append(f"phase 23b: {json.dumps(r['b'])} on {card}")
+    out.append(f"phase 23c: {json.dumps(r['c'])} on {card}")
+    out.append(f"phase 23d (shuffle_memory_budget {P23_SPILL_BUDGET} B): "
+               f"{json.dumps(r['d'])} on {card}")
+    out.append(f"phase 23e: {json.dumps(r['e'])} on {card}")
+    out.append(f"phase 23f (weights 4 / 1, fair): {json.dumps(r['f'])} on "
+               f"{card}")
+    out.append(f"phase 23 runtime summary {json.dumps(r['summary'])}; "
+               f"launches {json.dumps(r['launches'])}; parts (s) "
+               f"{json.dumps(r['parts_s'])}; phase 23 {r['wall_s']:.1f} s "
+               f"on {card}")
+    return out
+
+
+def p23_summary(res):
+    """Phase 23's figures as JSON (23a without its per-run records)."""
+    return dict(phase=23, wall_s=res["wall_s"], parts_s=res["parts_s"],
+                launches=res["launches"], card=res["card"],
+                a={x["label"]: dict(note=x["note"], median_ms=x["median_ms"],
+                                    parts=x["median_parts"],
+                                    cold_ms=x["cold"]["ms"],
+                                    stages=x["stages"], tasks=x["tasks"],
+                                    peak_bytes=x["peak_bytes"],
+                                    step_launches=x["step_launches"])
+                   for x in res["rows"]},
+                **{k: res[k] for k in ("b", "c", "d", "e", "f", "summary")})
+
+
+def phase23_leg():
+    """--phase 23: the kernels built, then phase 23 alone. Prints its
+    lines and one JSON line, writes chiprun_out/p23.json, and ends with
+    the card line."""
+    import numpy as np
+    import torch
+
+    import vega_tpu_torch as vt
+    from vega_tpu_torch import cuda_kernels as ck
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    card = card_line()
+    ck.build()
+    res = phase_twentythree(torch, np, ck, vt)
+    out = p23_summary(res)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "p23.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(out, fh, indent=1)
+    for line in p23_lines(res, card):
+        print(line, flush=True)
+    print(json.dumps(out), flush=True)
+    print(f"card: {card}", flush=True)
+
+
 def main():
     try:
         import torch
@@ -8474,6 +8959,8 @@ def main():
     twentyone = phase_twentyone(torch, np, ck, vt)
     # 22. the streaming plane's fold on the card, the file sources
     twentytwo = phase_twentytwo(torch, np, ck, vt)
+    # 23. the local runtime: stages, tasks, retries, the shuffle store
+    twentythree = phase_twentythree(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -8499,7 +8986,8 @@ def main():
          "phase19_launches": nineteen["launches"][r["name"]],
          "phase20_launches": twenty["launches"][r["name"]],
          "phase21_launches": twentyone["launches"][r["name"]],
-         "phase22_launches": twentytwo["launches"][r["name"]]}
+         "phase22_launches": twentytwo["launches"][r["name"]],
+         "phase23_launches": twentythree["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -8516,7 +9004,8 @@ def main():
                    phase12=twelve, phase13=thirteen, phase14=fourteen,
                    phase15=fifteen, phase16=sixteen, phase17=seventeen,
                    phase18=eighteen, phase19=nineteen, phase20=twenty,
-                   phase21=twentyone, phase22=p22_summary(twentytwo))
+                   phase21=twentyone, phase22=p22_summary(twentytwo),
+                   phase23=p23_summary(twentythree))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -8808,6 +9297,11 @@ def main():
     print(f"phase 17 launches {json.dumps(seventeen['launches'])}; phase 17 "
           f"{seventeen['wall_s']:.1f} s on {card}", flush=True)
     for r in eighteen["rows"]:
+        if "first_ms" in r:
+            print(f"phase 18 {r['label']}: the estimate {r['note']} after "
+                  f"{r['first_ms']:.3f} ms, then {r['final']} after "
+                  f"{r['final_ms']:.3f} ms on {card}", flush=True)
+            continue
         extra = (f", host peak {r['host_peak_bytes']} B above its start"
                  if "host_peak_bytes" in r else "")
         print(f"phase 18 {r['label']} ({r['note']}): {r['median_ms']:.3f} ms "
@@ -8849,6 +9343,8 @@ def main():
           f"{json.dumps(twentyone['parts_s'])}; phase 21 "
           f"{twentyone['wall_s']:.1f} s on {card}", flush=True)
     for line in p22_lines(twentytwo, card):
+        print(line, flush=True)
+    for line in p23_lines(twentythree, card):
         print(line, flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
@@ -9188,6 +9684,8 @@ if __name__ == "__main__":
         phase21_leg()
     elif sys.argv[1:3] == ["--phase", "22"] and len(sys.argv) == 3:
         phase22_leg()
+    elif sys.argv[1:3] == ["--phase", "23"] and len(sys.argv) == 3:
+        phase23_leg()
     elif sys.argv[1:3] == ["--phase", "19"] and len(sys.argv) == 5 \
             and sys.argv[3] == "--without":
         phase19_leg(sys.argv[4])

@@ -31,7 +31,7 @@ from vega_tpu.tpu import kernels as ref_kernels
 import vega_tpu_torch as vt
 from vega_tpu_torch import dense_rdd as port_dense
 from vega_tpu_torch import kernels as port_kernels
-from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.errors import TaskError, VegaError
 
 N_SHARDS = 8
 ACCEL_PLANS = {"dense_rbk_plan": "fused_sort", "dense_table_plan": "off",
@@ -371,7 +371,8 @@ def test_host_tier_requests_raise(ctxs):
     (host_rows.py) and gives the reference's rows. A binop written for
     the reference's scalar rows ((a * b).sum()) fails the port's column
     trace (the sum of a column is no scalar a row), so the port's host
-    RDD layer calls it on Python ints, which fails there."""
+    RDD layer calls it on Python ints, which fails there: the job raises
+    TaskError from the AttributeError, as the reference's jobs do."""
     ref, port = ctxs
     for name, build in HOST_REQUESTS.items():
         assert _outcome(lambda: build(port)) == \
@@ -380,8 +381,9 @@ def test_host_tier_requests_raise(ctxs):
     wide = port.dense_from_numpy(KEYS.astype(np.int64) << 33, INTS)
     node = pairs.reduce_by_key(lambda a, b: (a * b).sum())
     assert not isinstance(node, port_dense.DenseRDD)
-    with pytest.raises(AttributeError):
+    with pytest.raises(TaskError) as info:
         node.collect()
+    assert isinstance(info.value.__cause__, AttributeError)
     assert wide.filter(lambda r: r[1] > 0).collect() == ref.dense_from_numpy(
         KEYS.astype(np.int64) << 33, INTS).filter(
             lambda r: r[1] > 0).collect()

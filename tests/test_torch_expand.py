@@ -20,7 +20,7 @@ import torch
 import vega_tpu as v
 import vega_tpu_torch as vt
 from vega_tpu_torch import dense_rdd, kernels
-from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.errors import TaskError, VegaError
 
 N_SHARDS = 8
 ACCEL_PLANS = {"dense_rbk_plan": "fused_sort", "dense_table_plan": "off",
@@ -94,10 +94,11 @@ def test_map_expand_matches_reference(ctxs, case, n):
 def _host_failure(node, exc=TypeError):
     """A host RDD (not a DenseRDD) whose job fails (on a TypeError by
     default): f called on one Python value a row, as the host tier calls
-    it."""
+    it, and the job raising TaskError from it, as the reference's."""
     assert not isinstance(node, dense_rdd.DenseRDD)
-    with pytest.raises(exc):
+    with pytest.raises(TaskError) as info:
         node.collect()
+    assert isinstance(info.value.__cause__, exc)
 
 
 def test_map_expand_checks_at_build(ctxs):

@@ -7,9 +7,10 @@ count_approx_distinct, count_approx, mean_approx, count_by_value_approx,
 to_local_iterator, for_each, for_each_partition, save_as_text_file and the
 async actions. The port computes the samplers, the estimates and the
 async actions on the device (host_actions.py, random.py, hll.py,
-partial/, jobs.py); take_sample, count_approx and the four row actions
-are its host RDD's (rdd/base.py) over those device forms and the shards'
-rows, as the reference's DenseRDD inherits them. Each lineage runs through a vega_tpu
+partial/, scheduler/jobserver.py); take_sample and the four row
+actions are its host RDD's (rdd/base.py) over those device forms
+and the shards' rows, as the reference's DenseRDD inherits them. Each
+lineage runs through a vega_tpu
 Context("local") on the 8-device CPU mesh and through vega_tpu_torch's
 Context(device="cpu", n_shards=8), both under the card's plans (xla sorts,
 fused_sort, no table plan), on inputs made from a seed with numpy.
@@ -18,9 +19,10 @@ Integers, rows, sample rows (in the reference's shard order: both sides
 place a source's rows alike), file bytes and count_approx_distinct are
 compared bit for bit; a mean at rtol 1e-5 (the reference adds the rows as
 Python floats in order, the port per shard in float64). The approximate
-results are final on both sides here (the reference's deadline is long):
-the port's are always final, the reference's not when its deadline
-passes first (a recorded difference).
+actions of a DenseRDD are its host RDD's on both sides, one task a
+shard through the evaluators (partial/): final here where the deadline
+is long, the estimate and then the final value where a straggling shard
+outlasts it (test_approx_partial_then_final).
 """
 
 import dataclasses
@@ -40,7 +42,7 @@ from vega_tpu_torch import block as block_lib
 from vega_tpu_torch import dense_rdd
 from vega_tpu_torch import hll
 from vega_tpu_torch import random as vrandom
-from vega_tpu_torch.errors import CancelledError, VegaError
+from vega_tpu_torch.errors import CancelledError, TaskError, VegaError
 from vega_tpu_torch.partial import BoundedDouble, PartialResult
 
 N_SHARDS = 8
@@ -242,7 +244,8 @@ def test_vector_values(ctxs):
     """A value column with a trailing dim (a list a row on the host):
     sample(True) and random_split give the reference's rows;
     count_approx_distinct is the host RDD layer's, whose job fails on the
-    unhashable list as the reference's does."""
+    unhashable list as the reference's does: TaskError raised from the
+    task's TypeError."""
     ref, port = ctxs
     vec = np.stack([D["v"], D["k"]], axis=1)
     for build in (lambda c: c.dense_from_numpy(D["k"], vec).sample(
@@ -252,21 +255,23 @@ def test_vector_values(ctxs):
         assert build(port).collect() == build(ref).collect()
     with pytest.raises(Exception, match="unhashable type"):
         ref.dense_from_numpy(D["k"], vec).count_approx_distinct()
-    with pytest.raises(TypeError, match="unhashable type"):
+    with pytest.raises(TaskError, match="unhashable type") as info:
         port.dense_from_numpy(D["k"], vec).count_approx_distinct()
+    assert isinstance(info.value.__cause__, TypeError)
 
 
 def test_count_approx_distinct_refuses_grouped_rows(ctxs):
     """A group_by_key row holds a list, which the reference cannot hash
-    (its job fails on a TypeError); the port's host RDD layer fails the
-    same way."""
+    (its job fails with TaskError raised from a TypeError); the port's
+    host RDD layer fails the same way."""
     ref, port = ctxs
     with pytest.raises(Exception, match="unhashable type"):
         ref.dense_from_numpy(D["k"], D["v"]).group_by_key() \
             .count_approx_distinct()
-    with pytest.raises(TypeError, match="unhashable type"):
+    with pytest.raises(TaskError, match="unhashable type") as info:
         port.dense_from_numpy(D["k"], D["v"]).group_by_key() \
             .count_approx_distinct()
+    assert isinstance(info.value.__cause__, TypeError)
 
 
 HASH_FORMS = {
@@ -346,7 +351,7 @@ def test_hll_registers_and_estimate(p):
 
 
 # ---------------------------------------------------------------------------
-# approximate actions: exact, final
+# approximate actions: the evaluators', one task a shard
 # ---------------------------------------------------------------------------
 
 
@@ -396,6 +401,40 @@ def test_count_by_value_approx(ctxs, source):
     g = {k: _bd(b) for k, b in got.get_final_value().items()}
     e = {k: _bd(b) for k, b in exp.get_final_value(60.0).items()}
     assert g == e
+
+
+@pytest.mark.parametrize("action", ["count", "mean", "count_by_value"])
+def test_approx_partial_then_final(ctxs, action):
+    """One straggling shard (faults.maybe_slow_task, armed alike on both
+    sides) outlasts the deadline: the first value is the evaluator's
+    estimate over the shards that finished, not final, and the final
+    value is the exact one."""
+    from vega_tpu import faults as ref_faults
+    from vega_tpu_torch import faults as port_faults
+
+    ref, port = ctxs
+    call = {"count": lambda n: n.count_approx(0.5),
+            "mean": lambda n: n.mean_approx(0.5, 0.9),
+            "count_by_value": lambda n: n.count_by_value_approx(0.5)}[action]
+    sides = []
+    for faults, ctx in ((ref_faults, ref), (port_faults, port)):
+        faults.configure(slow_tasks=1, slow_task_s=1.5)
+        try:
+            res = call(ctx.dense_from_numpy(D["v"] % 7))
+            first_final = res.is_initial_value_final
+            last = res.get_final_value(10.0)
+        finally:
+            faults.reset()
+        if action == "count_by_value":
+            last = {k: _bd(b) for k, b in sorted(last.items())}
+        else:
+            last = _bd(last)
+        sides.append((first_final, last))
+    assert sides[0][0] is sides[1][0] is False
+    if action == "mean":
+        np.testing.assert_allclose(sides[1][1], sides[0][1], rtol=1e-5)
+    else:
+        assert sides[1][1] == sides[0][1]
 
 
 def test_partial_result_surface(ctxs):
@@ -476,14 +515,15 @@ def test_to_local_iterator_reads_one_shard_at_a_time(ctxs, monkeypatch):
 
 @pytest.mark.parametrize("source", sorted(SOURCES))
 def test_for_each_and_for_each_partition(ctxs, source):
-    """for_each sees every row once in shard order; for_each_partition one
-    iterator a shard, in order, with the reference's partition sizes."""
+    """for_each sees every row once and for_each_partition one iterator a
+    shard, with the reference's partition sizes; both in the order the
+    tasks run, as the reference's."""
     ref, port = ctxs
     rows, parts = [], []
     node = SOURCES[source](port)
     assert node.for_each(rows.append) is None
     node.for_each_partition(lambda it: parts.append(len(list(it))))
-    assert rows == node.collect()
+    assert sorted(rows, key=repr) == sorted(node.collect(), key=repr)
     lock = threading.Lock()
     ref_parts = {}
 
@@ -494,7 +534,8 @@ def test_for_each_and_for_each_partition(ctxs, source):
 
     SOURCES[source](ref).for_each_partition(record)
     if source != "reduced":  # the reference's host shuffle places rows
-        assert parts == [int(c) for c in node.block().counts_np]
+        assert sorted(parts) == sorted(int(c)
+                                       for c in node.block().counts_np)
     assert sorted(parts) == sorted(ref_parts.values())
 
 
@@ -600,30 +641,31 @@ def test_reduce_async_refuses_at_the_call(ctxs):
 
 
 def test_async_fifo_order_and_cancellation():
-    """Jobs run on one worker in submission order; one cancelled before
-    it runs is skipped and raises CancelledError; cancel() of a finished
-    job returns False; stop() drains the worker."""
+    """Each job runs on a driver thread of its own (the reference's job
+    server): a job submitted behind a held one finishes first; a job
+    cancelled while it runs raises CancelledError; cancel() of a finished
+    job returns False; stop() settles the jobs still in flight."""
     with vt.Context(device="cpu", n_shards=4) as ctx:
         gate = threading.Event()
-        order = []
-        first = ctx._jobs.submit(lambda: gate.wait(30) and order.append(1))
+        first = ctx._submit_call(lambda: gate.wait(30))
         node = ctx.dense_range(100)
         second = node.count_async()
-        second.add_done_callback(lambda f: order.append(2))
-        third = node.collect_async()
-        assert third.cancel("not needed") and third.cancelled()
-        fourth = node.reduce_async(operator.add)
-        fourth.add_done_callback(lambda f: order.append(4))
-        gate.set()
-        assert fourth.result(60) == sum(range(100))
-        assert second.result(60) == 100 and order == [1, 2, 4]
+        assert second.result(60) == 100 and not first.done()
+        third = ctx.submit_job(node, lambda _tc, it: gate.wait(30))
+        assert third.cancel("not needed")
         with pytest.raises(CancelledError, match="not needed"):
-            third.result()
+            third.result(30)
+        assert third.cancelled()
+        fourth = node.reduce_async(operator.add)
+        assert fourth.result(60) == sum(range(100))
         assert not second.cancel()
-        late = []
-        fifth = node.count_async()
-        fifth.add_done_callback(lambda f: late.append(f.result()))
-    assert fifth.done() and late == [100]
+        gate.set()
+        assert first.result(30) is True
+        held = threading.Event()
+        late = ctx.submit_job(node, lambda _tc, it: held.wait(30))
+    with pytest.raises(CancelledError):
+        late.result(30)
+    held.set()
 
 
 def test_two_futures_back_to_back(ctxs):
@@ -638,22 +680,20 @@ def test_two_futures_back_to_back(ctxs):
 def test_async_stress_settles_each_future_once():
     """Many threads submit and cancel at once, with a short switch
     interval: every future settles exactly once (its value or
-    CancelledError), each done-callback runs once, and the worker runs
-    jobs in submission order."""
+    CancelledError), each done-callback runs once, and every job that was
+    not cancelled ran once."""
     import sys
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        from vega_tpu_torch.jobs import JobRunner
-
-        runner = JobRunner()
+        ctx = vt.Context(device="cpu", n_shards=4)
         ran, futures, calls = [], [], []
         lock = threading.Lock()
 
         def submit(t):
             for i in range(50):
-                f = runner.submit(lambda t=t, i=i: ran.append((t, i)) or i)
+                f = ctx._submit_call(lambda t=t, i=i: ran.append((t, i)) or i)
                 f.add_done_callback(lambda f: calls.append(f))
                 if i % 7 == 0:
                     f.cancel()
@@ -667,17 +707,16 @@ def test_async_stress_settles_each_future_once():
         for th in threads:
             th.join(60)
         assert not any(th.is_alive() for th in threads)
-        runner.drain()
+        for _t, _i, f in futures:
+            f.exception(60)
+        ctx.stop()
         assert len(futures) == 16 * 50 and len(calls) == 16 * 50
         for t, i, f in futures:
             assert f.done()
             if f.cancelled():
                 assert isinstance(f.exception(0), CancelledError)
             else:
-                assert f.result(0) == i
-        for t in range(16):  # one thread's jobs ran in its order
-            mine = [i for tt, i in ran if tt == t]
-            assert mine == sorted(mine)
+                assert f.result(0) == i and (t, i) in ran
         assert len(set(ran)) == len(ran)
     finally:
         sys.setswitchinterval(old)

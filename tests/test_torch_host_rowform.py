@@ -29,7 +29,7 @@ import vega_tpu as v
 import vega_tpu_torch as vt
 from vega_tpu_torch import dense_rdd
 from vega_tpu_torch import host_rows
-from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.errors import TaskError, VegaError
 
 N_SHARDS = 8
 ACCEL_PLANS = {"dense_rbk_plan": "fused_sort", "dense_table_plan": "off",
@@ -287,9 +287,10 @@ def test_refused_by_both(ctxs):
     with pytest.raises(AttributeError):
         ref.dense_range(4).map(lambda x: x * 2**40).map_expand(
             lambda x: x[..., None], 1)
-    with pytest.raises(TypeError, match="not subscriptable"):
+    with pytest.raises(TaskError, match="not subscriptable") as info:
         port.dense_range(4).map(lambda x: x * 2**40).map_expand(
             lambda x: x[..., None], 1).collect()
+    assert isinstance(info.value.__cause__, TypeError)
     streamed = [
         lambda c: c.dense_range(1000, chunk_rows=300).map(
             lambda x: x * 2**40),

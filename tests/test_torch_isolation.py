@@ -19,9 +19,17 @@ HOST_LAYER = ("split", "partitioner", "dependency", "aggregator",
               "bounded_priority_queue", "rdd", "rdd.base", "rdd.narrow",
               "rdd.pair", "rdd.shuffled", "rdd.cogrouped", "rdd.union",
               "rdd.cartesian", "rdd.coalesced", "rdd.checkpoint",
-              "events", "broadcast", "io", "io.readers", "streaming",
+              "broadcast", "io", "io.readers", "streaming",
               "streaming.context", "streaming.dstream", "streaming.source",
-              "streaming.state", "streaming.controller")
+              "streaming.state", "streaming.controller",
+              # the local runtime
+              "env", "serialization", "cache", "cache_tracker", "faults",
+              "store.tiered", "map_output_tracker", "shuffle",
+              "shuffle.store", "shuffle.fetcher", "scheduler",
+              "scheduler.stage", "scheduler.task", "scheduler.dag",
+              "scheduler.local_backend", "scheduler.events",
+              "scheduler.jobserver", "partial.count_evaluator",
+              "partial.grouped_count_evaluator", "partial.mean_evaluator")
 
 
 def _port_files():

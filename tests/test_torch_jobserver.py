@@ -6,21 +6,21 @@ thread scoping of set_local_property, admission under max_queued
 (reject: JobRejectedError with the reference's fields; block: the
 submitter parks until a job of the pool settles), cancel,
 run_approximate_job (final, and an estimate that becomes final),
-active(), storage_status, the pinned subset of metrics_summary's keys,
-the settings' checks and broadcast's value, unpersist and pickling.
-Each holds the port (device="cpu") against the reference on the same
-seeded inputs.
+active(), storage_status, metrics_summary's keys, the task arbiter's
+pick order by pool weight, the settings' checks and broadcast's value,
+unpersist and pickling. Each holds the port (device="cpu") against the
+reference on the same seeded inputs.
+
+Every job, blocking or not, runs its event loop on a driver thread of its
+own behind the job server's admission, as the reference's; a job started
+inside another (on its driver thread or a task's) is part of it.
 
 Recorded differences, pinned here:
-- the port's job worker is one FIFO queue: a pool's weight is recorded
-  and reorders nothing, and max_concurrent_tasks binds trivially;
-- metrics_summary() holds a subset of the reference's keys, with equal
-  meanings (the port has no tasks, stages, executors, fetch or push
-  planes);
-- blocking host actions (collect, count, run_job) run on the calling
-  thread, each one job of the thread's pool, admitted and posted as the
-  reference's are; a job run inside another is part of it;
-- several port Contexts may live at once; active() is the newest.
+- metrics_summary() holds the reference's keys for what the local
+  runtime runs (no executor, elastic, locality, push or dispatch
+  sections: those are the distributed backend's), with equal meanings;
+- several port Contexts may live at once, each with its own Env;
+  active() is the newest.
 """
 
 import pickle
@@ -35,9 +35,10 @@ from vega_tpu.errors import JobRejectedError as RefJobRejectedError
 from vega_tpu.scheduler import events as ref_events
 import vega_tpu_torch as vt
 from vega_tpu_torch import broadcast as port_broadcast
-from vega_tpu_torch import events as port_events
-from vega_tpu_torch.errors import (CancelledError, JobRejectedError,
-                                   PartialJobError, VegaError)
+from vega_tpu_torch.errors import (JobRejectedError,
+                                   PartialJobError, TaskError, VegaError)
+from vega_tpu_torch.scheduler import events as port_events
+from vega_tpu_torch.scheduler import jobserver as port_jobserver
 
 N_SHARDS = 4
 
@@ -53,7 +54,7 @@ def _port(**kw):
 
 
 def _ref(**kw):
-    return v.Context("local", num_workers=2, **kw)
+    return v.Context("local", **{"num_workers": 2, **kw})
 
 
 def _sum_values(_tc, it):
@@ -205,64 +206,115 @@ def test_unknown_admission_mode_raises():
     with _ref(admission_mode="drop") as ref:
         with pytest.raises(Exception, match="'reject' or 'block'"):
             ref.submit_job(ref.parallelize([1], 1), lambda _tc, it: 1)
-    from vega_tpu_torch.jobs import JobRunner
-
-    runner = JobRunner(admission_mode="drop")
     with pytest.raises(VegaError, match="unknown admission_mode"):
-        runner.submit(lambda: 1)
+        port_jobserver.check_admission_mode("drop")
 
 
 def test_admission_status_and_pool_settings():
-    with _port(pool_max_queued=3) as ctx:
-        cfg = ctx.set_pool("a", weight=0, max_concurrent_tasks=2,
-                           max_queued=5)
-        assert (cfg.name, cfg.weight, cfg.max_concurrent_tasks,
-                cfg.max_queued) == ("a", 1, 2, 5)
-        gate, fut = _hold_pool(ctx, "a")
-        st = ctx._jobs.admission_status()
-        assert st["mode"] == "reject" and st["default_max_queued"] == 3
-        assert st["pools"] == {"a": {"in_flight": 1, "max_queued": 5}}
-        gate.set()
-        fut.result(30)
-        deadline = time.monotonic() + 10
-        while ctx._jobs.admission_status()["pools"] and \
-                time.monotonic() < deadline:
-            time.sleep(0.01)
-        assert ctx._jobs.admission_status()["pools"] == {}
+    got = []
+    for make in (_ref, _port):
+        with make(pool_max_queued=3) as ctx:
+            cfg = ctx.set_pool("a", weight=0, max_concurrent_tasks=2,
+                               max_queued=5)
+            gate, fut = _hold_pool(ctx, "a")
+            st = ctx.job_server.admission_status()
+            gate.set()
+            fut.result(30)
+            deadline = time.monotonic() + 10
+            while ctx.job_server.admission_status()["pools"] and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            got.append(((cfg.name, cfg.weight, cfg.max_concurrent_tasks,
+                         cfg.max_queued), st,
+                        ctx.job_server.admission_status()["pools"]))
+    assert got[1] == got[0]
+    assert got[1] == (("a", 1, 2, 5),
+                      {"mode": "reject", "default_max_queued": 3,
+                       "pools": {"a": {"in_flight": 1, "max_queued": 5}}},
+                      {})
+
+
+class _HeldBackend:
+    """A backend that records what the arbiter dispatches and completes
+    a task only when told (its callbacks kept)."""
+
+    def __init__(self):
+        self.parallelism = 1
+        self.order = []
+        self.callbacks = []
+
+    def submit(self, task, callback):
+        self.order.append(task.name)
+        self.callbacks.append((task, callback))
+
+
+class _Task:
+    def __init__(self, name):
+        self.name = name
+
+
+class _JobOf:
+    def __init__(self, job_id, pool):
+        self.job_id = job_id
+        self.pool = pool
 
 
 def test_pool_weight_does_not_reorder_the_fifo_worker():
-    """Recorded difference: one FIFO worker; a heavier pool's job waits
-    for the jobs submitted before it."""
-    with _port() as ctx:
-        ctx.set_pool("light", weight=1)
-        ctx.set_pool("heavy", weight=100)
-        order = []
-        gate = threading.Event()
-        ctx._jobs.submit(lambda: gate.wait(30), pool="light")
-        futs = [ctx.submit_job(ctx.parallelize([i], 1),
-                               lambda _tc, it, i=i: order.append(i),
-                               pool=pool)
-                for i, pool in enumerate(["light", "heavy", "light",
-                                          "heavy"])]
-        gate.set()
-        for f in futs:
-            f.result(30)
-        assert order == [0, 1, 2, 3]
+    """The arbiter's pick order, the reference's in both modes: four
+    tasks of a weight-1 pool, then four of a weight-3 pool, wait behind
+    one slot; when four slots free, "fifo" dispatches in submission order
+    whatever the weights, and "fair" gives each slot to the pool of the
+    smallest running / weight share, so the weight-3 pool takes three."""
+    from vega_tpu.scheduler.jobserver import TaskArbiter as RefArbiter
+
+    orders = {}
+    for name, arbiter_cls in (("ref", RefArbiter),
+                              ("port", port_jobserver.TaskArbiter)):
+        for mode in ("fifo", "fair"):
+            backend = _HeldBackend()
+            arbiter = arbiter_cls(backend, mode)
+            arbiter.set_pool("light", weight=1)
+            arbiter.set_pool("heavy", weight=3)
+            for i in range(4):
+                arbiter.submit(_Task(f"L{i}"), lambda e: None,
+                               _JobOf(1, "light"))
+            for i in range(4):
+                arbiter.submit(_Task(f"H{i}"), lambda e: None,
+                               _JobOf(2, "heavy"))
+            first = list(backend.order)
+            backend.parallelism = 4
+            task, done = backend.callbacks[0]
+            done(type("E", (), {"task": task})())
+            orders[(name, mode)] = (first, backend.order[1:])
+    assert orders[("port", "fifo")] == orders[("ref", "fifo")] == (
+        ["L0"], ["L1", "L2", "L3", "H0"])
+    assert orders[("port", "fair")] == orders[("ref", "fair")] == (
+        ["L0"], ["L1", "H0", "H1", "H2"])
 
 
 def test_cancel_before_it_runs():
-    with _port() as ctx:
-        gate, first = _hold_pool(ctx, None)
-        second = ctx.submit_job(ctx.parallelize([1], 1), lambda _tc, it: 1)
-        assert second.cancel("not needed") and second.cancelled()
-        gate.set()
-        assert first.result(30) == [True]
-        with pytest.raises(CancelledError, match="not needed"):
-            second.result(30)
-        assert not first.cancel()
-        summary = ctx.metrics_summary()
-        assert summary["jobs_cancelled"] == 1 and summary["jobs"] == 2
+    """A job whose tasks wait in the arbiter behind another job's (one
+    task slot) is cancelled before any of them runs: its result raises
+    CancelledError, the first job finishes, the summary counts both."""
+    got = []
+    for make in (_ref, _port):
+        with make(num_workers=1) as ctx:
+            gate = threading.Event()
+            first = ctx.submit_job(ctx.parallelize([0, 1], 2),
+                                   lambda _tc, it: gate.wait(30))
+            ran = []
+            second = ctx.submit_job(ctx.parallelize([1, 2], 2),
+                                    lambda _tc, it: ran.append(1))
+            time.sleep(0.1)
+            assert second.cancel("not needed")
+            with pytest.raises(Exception, match="not needed"):
+                second.result(30)
+            gate.set()
+            out = (first.result(30), second.cancelled(), ran,
+                   first.cancel())
+            summary = ctx.metrics_summary()
+            got.append(out + (summary["jobs_cancelled"], summary["jobs"]))
+    assert got[1] == got[0] == ([True, True], True, [], False, 1, 2)
 
 
 class _SumEvaluator:
@@ -319,9 +371,8 @@ def test_run_approximate_job_deadline_then_final():
 
 
 def test_run_approximate_job_failure():
-    """A failed job gives a failed result (the reference's raises its
-    TaskError around the task's error, the port's the error itself, as
-    every host job of the port does)."""
+    """A failed job gives a failed result: TaskError raised from the
+    task's error, in both packages."""
     for make in (_ref, _port):
         with make() as ctx:
             def boom(_tc, _it):
@@ -333,7 +384,9 @@ def test_run_approximate_job_failure():
             assert res.initial_value is None
             with pytest.raises(Exception, match="bad partition") as info:
                 res.get_final_value(1)
-            assert make is _ref or isinstance(info.value, ValueError)
+            assert type(info.value).__name__ == "TaskError"
+            assert isinstance(info.value.__cause__, ValueError)
+            assert make is _ref or isinstance(info.value, TaskError)
             failures = []
             res.on_fail(failures.append)
             assert len(failures) == 1
@@ -364,32 +417,38 @@ def test_active():
 
 def test_storage_status_keys_are_the_references():
     with _ref() as ref:
-        ref_keys = set(ref.storage_status()["cache"])
+        ref_keys = {k: set(v) for k, v in ref.storage_status().items()}
     with _port() as ctx:
         st = ctx.storage_status()
-        assert set(st) == {"cache"}
-        assert set(st["cache"]) <= ref_keys
-        assert st["cache"] == ctx.spill_status()
+        assert set(st) == set(ref_keys) == {"cache", "shuffle"}
+        for k in st:
+            assert set(st[k]) <= ref_keys[k], k
+        spill = ctx.spill_status()
+        assert {k: st["cache"][k] for k in spill} == spill
 
 
-PORT_SUMMARY_KEYS = {"jobs", "jobs_cancelled", "jobs_rejected",
-                     "streaming", "pool_latency", "exchange_plans"}
-
-
-def test_metrics_summary_is_a_pinned_subset():
+def test_metrics_summary_keys_are_the_references():
+    """The port's summary keys are the reference's for what runs here,
+    and the jobs, stages and tasks of the same jobs count equal."""
     rows = _rows()
-    with _ref() as ref:
-        ref.submit_job(ref.parallelize(rows, 2), _sum_values).result(30)
-        want = ref.metrics_summary()
-    with _port() as ctx:
-        ctx.submit_job(ctx.parallelize(rows, 2), _sum_values).result(30)
-        ctx.parallelize(rows, 2).collect()  # one blocking job
-        got = ctx.metrics_summary()
-    assert set(got) == PORT_SUMMARY_KEYS and PORT_SUMMARY_KEYS <= set(want)
-    assert set(got["streaming"]) == set(want["streaming"])
-    assert set(got["exchange_plans"]) == set(want["exchange_plans"])
-    assert got["jobs"] == 2 and got["jobs_rejected"] == 0
-    assert set(got["pool_latency"]) == {"default"}
+    got = []
+    for make in (_ref, _port):
+        with make() as ctx:
+            ctx.submit_job(ctx.parallelize(rows, 2), _sum_values).result(30)
+            ctx.parallelize(rows, 2).reduce_by_key(lambda a, b: a + b,
+                                                   3).collect()
+            got.append(ctx.metrics_summary())
+    want, port = got
+    assert set(port) - {"exchange_plans"} <= set(want)
+    assert set(port["exchange_plans"]) == set(want["exchange_plans"])
+    assert set(port["streaming"]) == set(want["streaming"])
+    assert set(port["fetch"]) <= set(want["fetch"])
+    assert set(port["speculation"]) == set(want["speculation"])
+    for key in ("jobs", "stages", "tasks", "task_failures",
+                "stages_resubmitted", "jobs_rejected", "jobs_cancelled"):
+        assert port[key] == want[key], key
+    assert port["fetch"]["streams"] == want["fetch"]["streams"] == 3
+    assert set(port["pool_latency"]) == {"default"}
 
 
 def test_metrics_listener_pool_latency_equals_reference():
@@ -425,7 +484,12 @@ def test_listener_bus_survives_a_raising_listener():
 
     bus.add_listener(Bad())
     bus.add_listener(Good())
+    bus.post(port_events.JobRejected(pool="p"))  # not started: dropped
+    bus.start()
     bus.post(port_events.JobRejected(pool="p"))
+    assert bus.flush() and len(seen) == 1
+    bus.stop()
+    bus.post(port_events.JobRejected(pool="p"))  # stopped: dropped
     assert bus.flush() and len(seen) == 1
 
 
@@ -444,12 +508,41 @@ BAD_SETTINGS = [
 ]
 
 
-@pytest.mark.parametrize("name,value,allowed", BAD_SETTINGS,
-                         ids=[b[0] for b in BAD_SETTINGS])
+# the local runtime's settings (env.py), held in ctx.conf
+RUNTIME_BAD = [
+    ("num_workers", 0, "an int >= 1"),
+    ("serialize_tasks_locally", 1, "a bool"),
+    ("cache_capacity_bytes", 0, "bytes >= 1"),
+    ("shuffle_memory_budget", -1, "bytes >= 1"),
+    ("shuffle_spill_threshold", 0, "bytes >= 1"),
+    ("resubmit_timeout_s", -1, "seconds >= 0"),
+    ("poll_timeout_s", 0, "seconds > 0"),
+    ("max_failures", 0, "an int >= 1"),
+    ("scheduler_mode", "lifo", "'fifo' or 'fair'"),
+    ("task_binary_cache_entries", 0, "an int >= 1"),
+    ("speculation_enabled", 1, "a bool"),
+    ("speculation_multiplier", 0, "a number > 0"),
+    ("speculation_min_s", -1, "seconds >= 0"),
+    ("speculation_quorum", 2, "a fraction"),
+]
+
+
+@pytest.mark.parametrize("name,value,allowed", BAD_SETTINGS + RUNTIME_BAD,
+                         ids=[b[0] for b in BAD_SETTINGS + RUNTIME_BAD])
 def test_settings_are_checked(name, value, allowed):
     with pytest.raises(VegaError, match=allowed) as info:
         _port(**{name: value})
     assert name in str(info.value)
+
+
+def test_distributed_backend_settings_are_not_taken():
+    """task_binary_dedup is read only by the reference's distributed
+    backend, which the port does not have: the port's Context does not
+    take it, where the reference's does."""
+    ref = v.Context("local", num_workers=1, task_binary_dedup=False)
+    ref.stop()
+    with pytest.raises(TypeError, match="task_binary_dedup"):
+        _port(task_binary_dedup=False)
 
 
 def test_settings_defaults_are_the_references():
@@ -460,6 +553,9 @@ def test_settings_defaults_are_the_references():
         for name, _v, _a in BAD_SETTINGS:
             want = getattr(conf, name)
             assert getattr(ctx, name) == want, name
+        for name, _v, _a in RUNTIME_BAD:
+            if name != "num_workers":  # the reference's: the host's cores
+                assert getattr(ctx.conf, name) == getattr(conf, name), name
 
 
 # --- broadcast --------------------------------------------------------------

@@ -40,9 +40,10 @@ from vega_tpu_torch.rdd.base import RDD as PortRDD
 N_SHARDS = 8
 ACCEL_PLANS = {"dense_rbk_plan": "fused_sort", "dense_table_plan": "off",
                "dense_sort_impl": "xla"}
-# the reference's scheduler retries a failing task max_failures times
-# before its TaskError; the port runs no scheduler and raises at once
-REF_CONF = dict(ACCEL_PLANS, max_failures=1)
+# the reference's Configuration settings these tests set: the card's
+# plans (both packages retry a failing task max_failures times, then
+# raise TaskError from its exception)
+REF_CONF = dict(ACCEL_PLANS)
 
 
 @pytest.fixture(scope="module")
@@ -110,10 +111,11 @@ def norm(x, obj=None):
 
 
 def outcome(call, obj, *args):
-    """("ok", repr(norm(result))) or ("raise", exception class name). The
-    reference's scheduler wraps a task's exception in a TaskError raised
-    from it; the port raises the task's own (a recorded difference), so
-    the cause's class is the outcome."""
+    """("ok", repr(norm(result))) or ("raise", exception class name). A
+    host job's failure is TaskError raised from the task's exception in
+    both packages (tests/test_torch_scheduler.py holds the wrapping), and
+    a check that one package makes on its device tier raises the
+    exception itself, so the innermost class is the outcome."""
     try:
         out = call(obj, *args)
         return ("ok", repr(norm(out, obj)))
@@ -444,8 +446,8 @@ def test_bernoulli_sampler_is_the_reference_s(fraction):
 
 
 def test_shuffle_map_side_runs_once(ctxs):
-    """A shuffle's map side runs once per shuffle: two actions over one
-    ShuffledRDD read its parent once."""
+    """A shuffle's map stage runs once: two actions over one ShuffledRDD
+    read its parent once, the second reusing the registered outputs."""
     _ref, port = ctxs
     seen = []
     src = port.parallelize(list(range(40)), 4).map(
@@ -453,23 +455,45 @@ def test_shuffle_map_side_runs_once(ctxs):
     red = src.reduce_by_key(operator.add)
     assert sorted(red.collect()) == sorted(red.collect())
     assert len(seen) == 40
-    assert red.shuffle_id in port._shuffle_outputs
+    assert port.env.map_output_tracker.has_outputs(red.shuffle_id)
+    assert port.env.shuffle_store.contains(red.shuffle_id, 0, 0)
 
 
 @pytest.mark.parametrize("op", ["reduce_by_key", "cogroup"])
-def test_dropped_shuffle_frees_its_outputs(ctxs, op):
-    """A shuffle's map outputs live while the node that reads them does:
-    once it is collected, the Context holds none of them."""
-    _ref, port = ctxs
-    src = port.parallelize([(x % 5, x) for x in range(40)], 4)
-    node = (src.reduce_by_key(operator.add) if op == "reduce_by_key"
-            else src.cogroup(port.parallelize([(1, "a")], 2)))
-    ids = [dep.shuffle_id for dep in node.get_dependencies()]
-    node.collect()
-    assert all(i in port._shuffle_outputs for i in ids)
+def test_dropped_shuffle_frees_its_outputs(op):
+    """A shuffle's map outputs stay in the shuffle store, registered,
+    while the node that reads them lives; once it is collected, the next
+    job drops its buckets and its tracker entry, and the Context's stop
+    drops the rest."""
+    port = vt.Context(device="cpu", n_shards=N_SHARDS)
+
+    def build():
+        src = port.parallelize([(x % 5, x) for x in range(40)], 4)
+        return (src.reduce_by_key(operator.add) if op == "reduce_by_key"
+                else src.cogroup(port.parallelize([(1, "a")], 2)))
+
+    def shuffle_ids(node):
+        return [dep.shuffle_id for dep in node.get_dependencies()
+                if type(dep).__name__ == "ShuffleDependency"]
+
+    node, kept = build(), build()
+    ids, kept_ids = shuffle_ids(node), shuffle_ids(kept)
+    want = sorted(node.collect())
+    assert sorted(kept.collect()) == want
+    env = port.env
+    assert ids and all(env.map_output_tracker.has_outputs(i)
+                       for i in ids + kept_ids)
     del node
     gc.collect()
-    assert not any(i in port._shuffle_outputs for i in ids)
+    port.parallelize([1], 1).count()
+    assert not any(env.shuffle_store.contains(i, 0, 0)
+                   or env.map_output_tracker.has_outputs(i) for i in ids)
+    assert all(env.shuffle_store.contains(i, 0, 0)
+               and env.map_output_tracker.has_outputs(i) for i in kept_ids)
+    assert sorted(kept.collect()) == want
+    assert port.metrics_summary()["stages_resubmitted"] == 0
+    port.stop()
+    assert len(env.shuffle_store) == 0
 
 
 def test_exact_python_ints_through_the_shuffle(ctxs):
@@ -505,20 +529,21 @@ def test_combine_narrow_when_copartitioned(ctxs):
 @pytest.mark.parametrize("level", ["MEMORY_ONLY", "MEMORY_AND_DISK",
                                    "DISK_ONLY"])
 def test_persist_computes_once(ctxs, level):
-    """A persisted host node computes each partition once; DISK_ONLY
-    keeps them in the Context's disk store; unpersist drops them."""
+    """A persisted host node computes each partition once through the
+    cache tracker; DISK_ONLY keeps them in the Context's disk store (the
+    tiered cache's disk tier); unpersist drops them."""
     _ref, port = ctxs
     seen = []
     node = port.parallelize(list(range(20)), 4).map(
         lambda x: (seen.append(x), x * 2)[1]).persist(level)
     assert node.collect() == node.collect() == [x * 2 for x in range(20)]
     assert len(seen) == 20
-    on_disk = port._spill.contains("host-rdd-%d-0" % node.rdd_id)
+    on_disk = port._spill.contains("cache-rdd-%d-0" % node.rdd_id)
     assert on_disk == (level == "DISK_ONLY")
     node.unpersist()
     assert node.collect() == [x * 2 for x in range(20)]
     assert len(seen) == 40
-    assert not port._spill.contains("host-rdd-%d-0" % node.rdd_id)
+    assert not port._spill.contains("cache-rdd-%d-0" % node.rdd_id)
 
 
 def test_checkpoint_files_and_lineage(ctxs, tmp_path):

@@ -23,7 +23,7 @@ import torch
 import vega_tpu as v
 import vega_tpu_torch as vt
 from vega_tpu_torch import dense_rdd
-from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.errors import TaskError, VegaError
 
 N_SHARDS = 8
 ACCEL_PLANS = {"dense_rbk_plan": "fused_sort", "dense_table_plan": "off",
@@ -295,8 +295,9 @@ def test_closure_with_a_constant_past_int32_refuses(ctxs, name):
             build(ref).collect()
         node = build(port)
         assert not isinstance(node, dense_rdd.DenseRDD)
-        with pytest.raises(TypeError, match="not subscriptable"):
+        with pytest.raises(TaskError, match="not subscriptable") as info:
             node.collect()
+        assert isinstance(info.value.__cause__, TypeError)
         return
     assert sorted(build(ref).collect()) == want
     got = build(port)

@@ -30,6 +30,7 @@ from vega_tpu.streaming.source import FileTailReplay as RefFileTailReplay
 import vega_tpu_torch as vt
 from vega_tpu_torch import state_fold
 from vega_tpu_torch.errors import KernelError, VegaError
+from vega_tpu_torch.scheduler import events as port_events
 from vega_tpu_torch.streaming import context as port_sctx
 from vega_tpu_torch.streaming.controller import RateController
 from vega_tpu_torch.streaming.source import (FileTailReplay,
@@ -434,7 +435,7 @@ def test_rate_controller_bound_halves_when_behind(tmp_path):
         stream_queue_max_blocks = 8
 
     out = []
-    for mod, rc in ((ref_events, RefRC), (vt.events, RateController)):
+    for mod, rc in ((ref_events, RefRC), (port_events, RateController)):
         m = mod.MetricsListener()
         ctl = rc(Conf, m, "streaming", 0.5)
         before = ctl._effective_bound()
@@ -448,7 +449,7 @@ def test_rate_controller_bound_halves_when_behind(tmp_path):
     bad = Conf()
     bad.stream_backpressure_mode = "drop"
     with pytest.raises(VegaError, match="'block' or 'shed'"):
-        RateController(bad, vt.events.MetricsListener(), "s", 0.5)
+        RateController(bad, port_events.MetricsListener(), "s", 0.5)
 
 
 def test_rate_controller_load_signal_and_pool_latency(tmp_path):
@@ -580,6 +581,37 @@ def test_receiver_crash_midingest_replays_bit_identical(tmp_path,
         assert handle.snapshot() == want == _expected_sums(range(50))
         assert handle.store.duplicate_commits == 0
         assert ctx.metrics_summary()["streaming"]["receiver_restarts"] >= 1
+
+
+def test_injected_receiver_crash_replays_bit_identical(tmp_path):
+    """The fault seam faults.maybe_crash_receiver, armed alike in both
+    packages, crashes the receiver once after its second block; the
+    restart resumes from the landed frontier, and the final state equals
+    the reference's under the same injection, with no duplicate
+    commit."""
+    from vega_tpu import faults as ref_faults
+    from vega_tpu_torch import faults as port_faults
+
+    got = {}
+    for (name, make), faults in zip(BOTH, (ref_faults, port_faults)):
+        faults.configure(receiver_crash_after_blocks=2)
+        try:
+            with make() as ctx:
+                stream = ctx.stream_from_generator(
+                    _bounded_gen(50), checkpoint_dir=str(tmp_path / name))
+                handle = stream.map(lambda x: (x % 3, x)) \
+                               .update_state_by_key(op="add")
+                sctx = ctx.streaming()
+                sctx.start()
+                assert _drained(sctx, 50), name
+                sctx.stop()
+                summary = ctx.metrics_summary()["streaming"]
+                got[name] = (handle.snapshot(),
+                             summary["receiver_restarts"] >= 1,
+                             summary["duplicate_commits"])
+        finally:
+            faults.reset()
+    assert got["port"] == got["ref"] == (_expected_sums(range(50)), True, 0)
 
 
 def test_a_crash_with_records_buffered_rereads_them(tmp_path, monkeypatch):

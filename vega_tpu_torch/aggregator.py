@@ -4,7 +4,9 @@ create_combiner / merge_value / merge_combiners as in the reference;
 default() is group_by_key's list-collecting aggregator. op_name names a
 recognized monoid (add / min / max / prod) and is_group marks the
 list-collecting one: the reference picks its native C++ merge by them, the
-port's in-process shuffle only records them."""
+port's shuffle inlines the list collecting (dependency.py). The combiner
+functions the port makes itself are module-level, so a stage binary
+pickles with the standard library (serialization.py)."""
 
 from __future__ import annotations
 
@@ -27,9 +29,17 @@ class Aggregator:
     @staticmethod
     def default() -> "Aggregator":
         """The list-collecting aggregator of group_by_key and cogroup."""
-        return Aggregator(create_combiner=lambda v: [v],
+        return Aggregator(create_combiner=singleton,
                           merge_value=_append, merge_combiners=_extend,
                           is_group=True)
+
+
+def identity(v):
+    return v
+
+
+def singleton(v):
+    return [v]
 
 
 def _append(c, v):

@@ -76,24 +76,45 @@ disk store.
 
 parallelize(data, num_slices) (alias make_rdd), range(start, stop, step,
 num_slices), union(rdds) and empty_rdd() give host RDDs (rdd/), lazy
-lineages of Python rows run in this process: run_job computes the
-partitions an action asks for in order on the calling thread, and a
-shuffle's map side runs once, in process (rdd/shuffled.py). A host RDD's
-dense() lifts its rows onto this Context's device; a DenseRDD's to_rdd(),
+lineages of Python rows run in this process by the reference's local
+runtime (env.py: one Env per Context, ctx.env): run_job submits a job
+to the job server (scheduler/jobserver.py), whose driver thread runs the
+DAG scheduler's event loop (scheduler/dag.py): stages cut at shuffles,
+tasks on the thread pool of the local backend (num_workers threads),
+retried up to max_failures attempts before the job raises TaskError; a
+map task pickles its buckets into the shuffle store (shuffle/store.py,
+spilling past shuffle_memory_budget) and a reduce task reads them
+through the fetcher, whose missing bucket (FetchFailedError) resubmits
+the map stage; persisted partitions live in the tiered cache
+(store/tiered.py, cache_capacity_bytes in memory). A host RDD's dense()
+lifts its rows onto this Context's device; a DenseRDD's to_rdd(),
 glom(), map_partitions(), coalesce() and the rest hand its shards' rows
-to this layer. default_parallelism is the shard count.
+to this layer. default_parallelism is the shard count. The runtime's
+settings are the reference's Configuration fields with its defaults
+(env.py): num_workers, serialize_tasks_locally, cache_capacity_bytes,
+shuffle_memory_budget, shuffle_spill_threshold, resubmit_timeout_s,
+poll_timeout_s, max_failures, scheduler_mode,
+task_binary_cache_entries, speculation_enabled / _multiplier / _min_s /
+_quorum. The reference's task_binary_dedup is read only by its
+distributed backend, and comes with the port's.
 
-The host tier's job server (the reference's, over jobs.py's one FIFO
-worker): submit_job(rdd, func, partitions, pool, transform) runs a job
-asynchronously in a pool (set_pool; the thread's "pool" property,
+The job server's names: submit_job(rdd, func, partitions, pool,
+transform) runs a job asynchronously in a pool (set_pool: weight,
+max_concurrent_tasks, max_queued; the thread's "pool" property,
 set_local_property, by default), admitted by the reference's check
 (admission_mode "reject" or "block", pool_max_queued or a pool's
-max_queued; 0 is no bound); run_approximate_job, broadcast(value),
-metrics_summary() (the event bus's MetricsListener: jobs, rejections,
-the streaming counters, pool_latency; plus exchange_plans) and
-storage_status() (the disk store's counters). Context.active() is the
-newest Context of the process not yet stopped (the port allows several
-at once; the reference refuses a second).
+max_queued; 0 is no bound); run_approximate_job (an evaluator's estimate
+at the deadline, its final value later), broadcast(value),
+metrics_summary() (the event bus's MetricsListener: jobs, stages, tasks,
+failures, resubmissions, spills, speculation, fetch, the streaming
+counters, pool_latency; plus exchange_plans) and storage_status() (the
+partition cache's and the shuffle store's counters). Across processes a
+host job runs on the submitting thread, one at a time, and its tasks one
+at a time in submission order (num_workers 1, no speculation), so every
+rank issues the collectives its tasks reach in one order.
+Context.active()
+is the newest Context of the process not yet stopped (the port allows
+several at once; the reference refuses a second).
 
 read_source(config, decoder), text_file(path, num_partitions),
 whole_text_files(path) and parquet_file(path, columns, num_partitions)
@@ -126,11 +147,9 @@ reads.
 from __future__ import annotations
 
 import contextlib
-import gc
 import itertools
 import logging
 import os
-import pickle
 import shutil
 import tempfile
 import threading
@@ -140,14 +159,17 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 
 from vega_tpu_torch import dense_rdd
-from vega_tpu_torch import events
 from vega_tpu_torch import exchange_plan
-from vega_tpu_torch import jobs
 from vega_tpu_torch import kernels
+from vega_tpu_torch.env import Configuration, Env, check_runtime_settings
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame.api import DataFrame
 from vega_tpu_torch import mesh as mesh_lib
 from vega_tpu_torch.mesh import make_mesh
+from vega_tpu_torch.scheduler import events
+from vega_tpu_torch.scheduler import jobserver
+from vega_tpu_torch.scheduler.dag import DAGScheduler
+from vega_tpu_torch.scheduler.local_backend import LocalBackend, in_task
 from vega_tpu_torch.store import DiskStore, StorageLevel
 
 log = logging.getLogger(__name__)
@@ -155,6 +177,7 @@ log = logging.getLogger(__name__)
 # the live Contexts of the process, oldest first (Context.active)
 _live_contexts: list = []
 _live_lock = threading.Lock()
+_ctx_ids = itertools.count()
 
 
 def _check_setting(name: str, value, ok: bool, allowed: str):
@@ -182,7 +205,39 @@ class Context:
                  stream_pool_weight: int = 4,
                  stream_storage_level: str = "memory_and_disk",
                  stream_socket_timeout_s: float = 5.0,
-                 stream_checkpoint_dir: str = ""):
+                 stream_checkpoint_dir: str = "",
+                 num_workers: Optional[int] = None,
+                 serialize_tasks_locally: bool = False,
+                 cache_capacity_bytes: int = 2_000 * 1024 * 1024,
+                 shuffle_memory_budget: int = 1 << 30,
+                 shuffle_spill_threshold: int = 64 * 1024 * 1024,
+                 resubmit_timeout_s: float = 2.0,
+                 poll_timeout_s: float = 0.05,
+                 max_failures: int = 4,
+                 scheduler_mode: str = "fifo",
+                 task_binary_cache_entries: int = 32,
+                 speculation_enabled: bool = False,
+                 speculation_multiplier: float = 3.0,
+                 speculation_min_s: float = 1.0,
+                 speculation_quorum: float = 0.75):
+        runtime = dict(
+            serialize_tasks_locally=serialize_tasks_locally,
+            cache_capacity_bytes=cache_capacity_bytes,
+            shuffle_memory_budget=shuffle_memory_budget,
+            shuffle_spill_threshold=shuffle_spill_threshold,
+            resubmit_timeout_s=resubmit_timeout_s,
+            poll_timeout_s=poll_timeout_s, max_failures=max_failures,
+            scheduler_mode=scheduler_mode,
+            task_binary_cache_entries=task_binary_cache_entries,
+            speculation_enabled=speculation_enabled,
+            speculation_multiplier=speculation_multiplier,
+            speculation_min_s=speculation_min_s,
+            speculation_quorum=speculation_quorum)
+        if num_workers is not None:
+            runtime["num_workers"] = num_workers
+        # the local runtime's Configuration (env.py), each setting checked
+        self.conf: Configuration = check_runtime_settings(runtime)
+        self.conf.spill_dir = spill_dir
         self._check_job_settings(
             admission_mode, pool_max_queued, stream_batch_interval_s,
             stream_block_max_records, stream_queue_max_blocks,
@@ -231,33 +286,44 @@ class Context:
         self._dense_block_lru: dict = {}
         self._rdd_ids = itertools.count()
         self._shuffle_ids = itertools.count()
-        # the host layer's in-process shuffles: shuffle id -> [reduce
-        # partition][map partition] -> combined rows (rdd/shuffled.py)
-        self._shuffle_outputs: dict = {}
-        # persisted host partitions kept in memory: (rdd_id, index) -> rows
-        self._host_cache: dict = {}
-        # the disk tier of persisted nodes (paths only: the store makes its
-        # directory at the first demotion)
+        # the session directory (paths only: each store makes its own
+        # directory at its first write); the disk tier of persisted nodes,
+        # dense and host, is its cache/ store
         base = spill_dir or os.path.join(tempfile.gettempdir(), "vega-tpu",
                                          "spill")
-        self._spill = DiskStore(os.path.join(
-            base, f"session-{uuid.uuid4().hex[:12]}", "cache"))
+        session = os.path.join(base, f"session-{uuid.uuid4().hex[:12]}")
+        self._spill = DiskStore(os.path.join(session, "cache"))
         # the dense tier's lock: a node's materialization and every
-        # settlement, so a stream's loop thread and the caller's thread
-        # never interleave device jobs
+        # settlement, so a stream's loop thread, a job's driver thread and
+        # a task thread never interleave device jobs
         self._dense_lock = threading.RLock()
-        # the event bus and its metrics (events.py)
+        # the event bus and its metrics (scheduler/events.py)
         self.bus = events.LiveListenerBus()
         self.metrics = events.MetricsListener()
         self.bus.add_listener(self.metrics)
+        self.bus.start()
+        # the local runtime (env.py): the shuffle store, the tiered
+        # partition cache over the disk store, the trackers
+        self.env = Env(self.conf, session, self._spill)
+        self.env.cache.event_sink = self.bus.post
+        self.env.shuffle_store.event_sink = self.bus.post
+        self.env.fetch_event_sink = self.bus.post
+        if self.mesh.collective:
+            # every rank runs a job's tasks one at a time, in submission
+            # order (one task thread, no duplicate attempts), so each
+            # collective a task reaches is issued in one order everywhere
+            self.conf.num_workers = 1
+            self.conf.speculation_enabled = False
+        # the DAG scheduler over the thread-pool backend, behind the job
+        # server (scheduler/)
+        self.scheduler = DAGScheduler(LocalBackend(self.conf), self.env,
+                                      self.bus)
+        self.scheduler.prepare = _materialize_dense
+        self.job_server = jobserver.JobServer(
+            self.scheduler, self.conf, admission_mode=self.admission_mode,
+            pool_max_queued=self.pool_max_queued)
         # thread-local job properties ("pool")
         self._local_props = threading.local()
-        # the FIFO worker of the asynchronous jobs, behind the pools'
-        # admission (jobs.py)
-        self._jobs = jobs.JobRunner(
-            bus=self.bus, admission_mode=self.admission_mode,
-            pool_max_queued=self.pool_max_queued,
-            default_pool=lambda: self.get_local_property("pool"))
         # the streaming plane's landed blocks and the plane itself,
         # made at the first streaming() call
         from vega_tpu_torch.streaming.source import BlockStore
@@ -265,6 +331,7 @@ class Context:
         self._stream_blocks = BlockStore(self._spill)
         self._streaming = None
         self._stopped = False
+        self._ctx_id = next(_ctx_ids)
         with _live_lock:
             _live_contexts.append(self)
 
@@ -275,7 +342,7 @@ class Context:
                             checkpoint_dir) -> None:
         """The job server's and the streaming plane's settings, each
         checked; a bad one raises VegaError naming what it takes."""
-        self.admission_mode = jobs.check_admission_mode(admission_mode)
+        self.admission_mode = jobserver.check_admission_mode(admission_mode)
         self.pool_max_queued = _check_setting(
             "pool_max_queued", pool_max_queued,
             isinstance(pool_max_queued, int) and pool_max_queued >= 0,
@@ -390,64 +457,21 @@ class Context:
     def run_job(self, rdd, func: Callable,
                 partitions: Optional[List[int]] = None) -> list:
         """func(task_context, rows) of each partition asked for (default:
-        all), computed in order on the calling thread, as one job of the
-        thread's pool (admitted and posted as submit_job's are; inside
-        another job, part of it). The lineage's checkpoint-marked nodes
-        are written first. The cyclic garbage
-        collector pauses while partitions compute (paused_gc), user
-        functions included."""
+        all) as one job of the thread's pool: submit_job, then its result
+        (a caller unwinding cancels the job). A job started inside
+        another (on a job's driver thread or a task thread) is part of
+        it: its event loop runs on the calling thread, not admitted."""
         self._check_running()
         if partitions is not None and not partitions:
             return []
-
-        def run():
-            rdd._do_checkpoint()
-            splits = rdd.cached_splits()
-            ids = range(len(splits)) if partitions is None else partitions
-            out = []
-            with paused_gc():
-                for i in ids:
-                    tc = TaskContext(i)
-                    out.append(func(tc, rdd.iterator(splits[i], tc)))
-            return out
-
-        return self._jobs.run_blocking(run)
-
-    def _submit_host_job(self, rdd, func: Callable,
-                         transform: Optional[Callable] = None,
-                         partitions: Optional[List[int]] = None,
-                         pool: Optional[str] = None):
-        """An asynchronous host job: a JobFuture (jobs.py) settled with
-        transform(run_job(rdd, func, partitions)) (the partition results
-        themselves with no transform), admitted into pool (default: the
-        thread's "pool" property). After admission the lineage's device
-        work (its checkpoints and every DenseRDD's block) runs here, on
-        the calling thread, and the rows are read on the job worker;
-        across processes the whole job runs here, so every process
-        dispatches its collectives in one order."""
-        self._check_running()
-        transform = transform or (lambda parts: parts)
-        box: dict = {}
-
-        def prepare():
-            rdd._do_checkpoint()
-            if not self.mesh.collective:
-                _materialize_dense(rdd)
-                return
-            try:
-                box["value"] = transform(self.run_job(rdd, func,
-                                                      partitions))
-            except Exception as e:  # noqa: BLE001 — surfaces via result()
-                box["error"] = e
-
-        def finish():
-            if "error" in box:
-                raise box["error"]
-            if "value" in box:
-                return box["value"]
-            return transform(self.run_job(rdd, func, partitions))
-
-        return self._jobs.submit(finish, pool=pool, prepare=prepare)
+        if in_task() or jobserver.in_job():
+            return self.scheduler.run_job(rdd, func, partitions)
+        future = self.submit_job(rdd, func, partitions)
+        try:
+            return future.result()
+        except BaseException:
+            future.cancel("blocking caller interrupted")
+            raise
 
     # --- the job server's names ---------------------------------------------
     def set_local_property(self, key: str, value) -> None:
@@ -468,12 +492,13 @@ class Context:
     def set_pool(self, name: str, weight: int = 1,
                  max_concurrent_tasks: Optional[int] = None,
                  max_queued: Optional[int] = None):
-        """Declare or configure a job pool (jobs.PoolConfig): max_queued
-        bounds its jobs in flight (admission_mode decides what a full
-        pool does); weight and max_concurrent_tasks are recorded, the one
-        FIFO worker reorders nothing."""
-        return self._jobs.set_pool(name, weight, max_concurrent_tasks,
-                                   max_queued)
+        """Declare or configure a pool (scheduler/jobserver.py
+        PoolConfig): weight skews the fair share of task slots under
+        scheduler_mode "fair", max_concurrent_tasks caps its running
+        tasks, max_queued bounds its jobs in flight (admission_mode
+        decides what a full pool does)."""
+        return self.job_server.set_pool(name, weight, max_concurrent_tasks,
+                                        max_queued)
 
     def submit_job(self, rdd, func: Callable,
                    partitions: Optional[List[int]] = None,
@@ -482,16 +507,29 @@ class Context:
         """func(task_context, rows) of each partition asked for (default:
         all) as an asynchronous job: a JobFuture settled with the list of
         partition results, or with transform(that list). The pool
-        defaults to the thread's "pool" property."""
+        defaults to the thread's "pool" property. The job's event loop
+        runs on a driver thread of its own, concurrently with other jobs;
+        across processes it runs here, before this returns, so every
+        process runs its host jobs one at a time in one order."""
         self._check_running()
         if pool is None:
             pool = self.get_local_property("pool")
-        return self._submit_host_job(rdd, func, transform, partitions, pool)
+        return self.job_server.submit(rdd, func, partitions, pool=pool,
+                                      transform=transform,
+                                      inline=self.mesh.collective)
+
+    def _submit_call(self, finish: Callable[[], Any]):
+        """finish() as a job of the thread's pool on a thread of its own
+        (the dense tier's asynchronous actions: their device work ran
+        before)."""
+        self._check_running()
+        return self.job_server.submit_call(
+            finish, pool=self.get_local_property("pool"))
 
     def run_approximate_job(self, rdd, func: Callable, evaluator,
                             timeout_s: float):
         """func over every partition, each result merged into evaluator
-        (merge(index, result)) as its partition finishes. The job's end
+        (merge(index, result)) as its task finishes. The job's end
         within timeout_s gives a final PartialResult of
         evaluator.current_result(); else the current estimate, not final,
         whose final value comes when the job ends. A failed job gives a
@@ -499,13 +537,11 @@ class Context:
         from vega_tpu_torch.partial import PartialResult
 
         self._check_running()
-
-        def merging(tc, it):
-            evaluator.merge(tc.split_index, func(tc, it))
-
+        future = self.job_server.submit(
+            rdd, func, list(range(rdd.num_partitions)),
+            pool=self.get_local_property("pool"),
+            on_task_success=evaluator.merge, inline=self.mesh.collective)
         try:
-            future = self._submit_host_job(
-                rdd, merging, pool=self.get_local_property("pool"))
             future.result(timeout_s)
         except TimeoutError:
             result = PartialResult(evaluator.current_result(),
@@ -532,17 +568,21 @@ class Context:
         return Broadcast(self, value)
 
     def metrics_summary(self) -> dict:
-        """The event bus's metrics (events.MetricsListener.summary: jobs,
-        jobs_cancelled, jobs_rejected, streaming, pool_latency) and
-        exchange_plans (exchange_plans())."""
+        """The event bus's metrics (scheduler/events.py
+        MetricsListener.summary: jobs, stages, tasks, failures,
+        resubmissions, spills, speculation, fetch, streaming,
+        pool_latency) and exchange_plans (exchange_plans())."""
         self.bus.flush()
         return {**self.metrics.summary(),
                 "exchange_plans": self.exchange_plans()}
 
     def storage_status(self) -> dict:
-        """The block stores' counters: the disk store's under "cache"
-        (the reference's cache status keys it has)."""
-        return {"cache": self._spill.status()}
+        """The block stores' counters under the reference's keys: the
+        partition cache's ("cache": its memory tier, then the disk
+        store's, which the dense tier's demotions count in too) and the
+        shuffle store's ("shuffle")."""
+        return {"cache": self.env.cache.status(),
+                "shuffle": self.env.shuffle_store.status()}
 
     # --- file sources (io/readers.py) ---------------------------------------
     def read_source(self, config, decoder: Optional[Callable] = None):
@@ -609,33 +649,6 @@ class Context:
     def stream_from_socket(self, host: str, port: int, **kwargs):
         """A DStream over line-delimited TCP."""
         return self.streaming(**kwargs).socket_stream(host, port)
-
-    def _host_cached(self, rdd, split, task_context):
-        """A persisted host node's partition: computed once, then kept in
-        memory (MEMORY_ONLY, MEMORY_AND_DISK) or in the disk store as a
-        pickled row list (DISK_ONLY)."""
-        from vega_tpu_torch.store import StorageLevel
-
-        if rdd.storage_level is StorageLevel.DISK_ONLY:
-            key = _host_disk_key(rdd.rdd_id, split.index)
-            data = self._spill.get(key)
-            if data is not None:
-                return iter(pickle.loads(data))
-            rows = list(rdd.compute(split, task_context))
-            self._spill.put(key, pickle.dumps(
-                rows, protocol=pickle.HIGHEST_PROTOCOL))
-            return iter(rows)
-        key = (rdd.rdd_id, split.index)
-        rows = self._host_cache.get(key)
-        if rows is None:
-            rows = list(rdd.compute(split, task_context))
-            self._host_cache[key] = rows
-        return iter(rows)
-
-    def _host_uncache(self, rdd) -> None:
-        for i in range(rdd.num_partitions):
-            self._host_cache.pop((rdd.rdd_id, i), None)
-            self._spill.remove(_host_disk_key(rdd.rdd_id, i))
 
     def _work_dir(self) -> str:
         """This Context's session directory (the spill store's parent),
@@ -762,10 +775,12 @@ class Context:
 
     def stop(self) -> None:
         """Stop the streaming plane (its receivers, its loop, its blocks;
-        committed state stays), drain the job worker (refusing later
-        jobs), settle the deferred exchanges, so blocks a caller holds
-        stay readable and the Context holds no block after it stops;
-        remove the spill directory; then stop. If settlement raises, its
+        committed state stays), stop the job server (every job in flight
+        cancelled, its future settled, later jobs refused), settle the
+        deferred exchanges, so blocks a caller holds stay readable and the
+        Context holds no block after it stops; stop the scheduler's
+        backend and bus, close the shuffle store and the cache and remove
+        the session directory; then stop. If settlement raises, its
         leftover blocks raise on read."""
         try:
             if self._streaming is not None:
@@ -773,7 +788,7 @@ class Context:
                     self._streaming.stop()
                 except Exception:  # noqa: BLE001 — the rest still stops
                     log.warning("streaming stop failed", exc_info=True)
-            self._jobs.drain(close=True)
+            self.job_server.stop()
             dense_rdd._settle_pending(self)
         finally:
             with _live_lock:
@@ -784,9 +799,8 @@ class Context:
             self._pending.clear()
             self._capacity_hints.clear()
             self._key_range_hints.clear()
-            self._shuffle_outputs.clear()
-            self._host_cache.clear()
-            self._spill.close()
+            self.scheduler.stop()
+            self.env.close()
             shutil.rmtree(self._work_dir(), ignore_errors=True)
             self._stopped = True
 
@@ -797,40 +811,26 @@ class Context:
         self.stop()
         return False
 
-
-class TaskContext:
-    """What run_job passes each partition's function: the partition's
-    index (and the reference's attempt id, always 0 here)."""
-
-    __slots__ = ("split_index", "attempt_id")
-
-    def __init__(self, split_index: int):
-        self.split_index = split_index
-        self.attempt_id = 0
+    def __reduce__(self):
+        """A serialized lineage (serialize_tasks_locally) carries its
+        Context as a handle to this live one, never its state."""
+        return (_live_context, (self._ctx_id,))
 
 
-@contextlib.contextmanager
-def paused_gc():
-    """The cyclic garbage collector off for one host job: the host
-    layer's rows, buckets and groups hold no cycles, and at millions of
-    rows the collector's passes over them cost more than the job
-    (PERF.md, PR 19: phase 19 with and without the pause)."""
-    was = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if was:
-            gc.enable()
-
-
-def _host_disk_key(rdd_id: int, index: int) -> str:
-    return f"host-rdd-{rdd_id}-{index}"
+def _live_context(ctx_id: int) -> "Context":
+    with _live_lock:
+        for ctx in _live_contexts:
+            if ctx._ctx_id == ctx_id:
+                return ctx
+    raise VegaError(f"Context {ctx_id} is not live in this process")
 
 
 def _materialize_dense(rdd) -> None:
-    """Materialize every DenseRDD a host lineage reads (each one's own
-    lineage with it)."""
+    """The device work of a host job, on its driver thread before its
+    stages are cut (DAGScheduler.prepare): every DenseRDD the lineage
+    reads materialized (each one's own lineage with it), in one
+    depth-first order; across processes each one's rows are read to the
+    host here too, so task threads dispatch no collective."""
     stack, seen = [rdd], set()
     while stack:
         node = stack.pop()
@@ -838,6 +838,9 @@ def _materialize_dense(rdd) -> None:
             continue
         seen.add(id(node))
         if isinstance(node, dense_rdd.DenseRDD):
-            node.block()
+            if node.mesh.collective:
+                node._host_stage()
+            else:
+                node.block()
             continue
-        stack.extend(dep.rdd for dep in node.get_dependencies())
+        stack.extend(reversed([dep.rdd for dep in node.get_dependencies()]))

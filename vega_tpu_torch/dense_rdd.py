@@ -2053,32 +2053,19 @@ class DenseRDD(RDD):
         from vega_tpu_torch import host_actions
         return host_actions.count_approx_distinct(self, relative_sd)
 
-    def mean_approx(self, timeout_s: float, confidence: float = 0.95):
-        """The mean of the values as a final PartialResult."""
-        from vega_tpu_torch import host_actions
-        return host_actions.mean_approx(self, timeout_s, confidence)
-
-    def count_by_value_approx(self, timeout_s: float,
-                              confidence: float = 0.95):
-        """count_by_value() as a final PartialResult of {value:
-        BoundedDouble}."""
-        from vega_tpu_torch import host_actions
-        return host_actions.count_by_value_approx(self, timeout_s,
-                                                  confidence)
-
     def collect_async(self):
-        """collect() as a JobFuture (jobs.py)."""
+        """collect() as a JobFuture (scheduler/jobserver.py)."""
         from vega_tpu_torch import host_actions
         return host_actions.collect_async(self)
 
     def count_async(self):
-        """count() as a JobFuture (jobs.py)."""
+        """count() as a JobFuture (scheduler/jobserver.py)."""
         from vega_tpu_torch import host_actions
         return host_actions.count_async(self)
 
     def reduce_async(self, f: Callable):
-        """reduce(f) as a JobFuture (jobs.py): its device launch here, its
-        host fold on the job worker; an f that does not trace is the host
+        """reduce(f) as a JobFuture (scheduler/jobserver.py): its device
+        launch here, its host fold on the job's thread; an f that does not trace is the host
         RDD layer's reduce there, as the reference's reduce_async (a host
         job) takes it. An empty RDD raises through the future."""
         from vega_tpu_torch import host_actions

@@ -4,15 +4,19 @@ vega_tpu/dependency.py.
 A narrow dependency names the parent partitions one child partition reads
 (OneToOne, Range for union, ManyToOne for coalesce and cartesian); a
 ShuffleDependency is a stage boundary holding the parent, the aggregator
-of the map-side combine and the output partitioner. The reference's
-map-side writers (its native encodings, shuffle store, push and parity
-planes) are not copied: the port's shuffle runs in process
-(rdd/shuffled.py, shuffle_buckets)."""
+of the map-side combine and the output partitioner; its do_shuffle_task
+is a map task's body (scheduler/task.py ShuffleMapTask): the parent
+partition bucketed by the partitioner, combined per bucket, each bucket
+pickled into the Context's shuffle store (shuffle/store.py). This is the
+reference's pure-Python path, the one it takes without its native
+library; its native encodings and its push, replica and parity planes
+belong to its distributed backend."""
 
 from __future__ import annotations
 
 from typing import TYPE_CHECKING, List
 
+from vega_tpu_torch import serialization
 from vega_tpu_torch.aggregator import Aggregator
 from vega_tpu_torch.partitioner import Partitioner
 
@@ -85,3 +89,49 @@ class ShuffleDependency(Dependency):
         self.aggregator = aggregator
         self.partitioner = partitioner
         self.is_cogroup = is_cogroup
+
+    def do_shuffle_task(self, split, task_context=None) -> tuple:
+        """Map-side combine of one parent partition: bucket its rows by
+        the partitioner (hashed in one numpy pass for int keys,
+        partitioner.get_partitions), combine each bucket (first-seen key
+        order), pickle each bucket into the shuffle store under
+        (shuffle_id, map id, reduce id). Returns the map task's result:
+        ("local", per-reduce bucket bytes)."""
+        env = self.rdd.context.env
+        rows = list(self.rdd.iterator(split, task_context))
+        buckets = [dict() for _ in range(self.partitioner.num_partitions)]
+        _bucket(self, rows, buckets)
+        row = [serialization.dumps(list(bucket.items()))
+               for bucket in buckets]
+        store = env.shuffle_store
+        for reduce_id, blob in enumerate(row):
+            store.put(self.shuffle_id, split.index, reduce_id, blob)
+        return self._publish(env, split.index, row)
+
+    def _publish(self, env, map_id: int, row: list) -> tuple:
+        """The stored bucket row as the map task's result: its location
+        (this process's store) and each bucket's bytes."""
+        return ("local", [len(b) for b in row])
+
+
+def _bucket(dep: ShuffleDependency, rows: list, buckets: List[dict]) -> None:
+    """One map partition's rows into its buckets, combined."""
+    parts = dep.partitioner.get_partitions([kv[0] for kv in rows])
+    if dep.aggregator.is_group:
+        # the list-collecting aggregator's create / merge, inlined
+        for (k, v), p in zip(rows, parts):
+            bucket = buckets[p]
+            got = bucket.get(k)
+            if got is None:
+                bucket[k] = [v]
+            else:
+                got.append(v)
+        return
+    create = dep.aggregator.create_combiner
+    merge = dep.aggregator.merge_value
+    for (k, v), p in zip(rows, parts):
+        bucket = buckets[p]
+        if k in bucket:
+            bucket[k] = merge(bucket[k], v)
+        else:
+            bucket[k] = create(v)

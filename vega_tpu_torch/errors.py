@@ -24,7 +24,8 @@ class CancelledError(VegaError):
 
 class JobRejectedError(VegaError):
     """Admission refused a job at submission: its pool already holds its
-    bound of jobs in flight under admission_mode="reject" (jobs.py). The
+    bound of jobs in flight under admission_mode="reject"
+    (scheduler/jobserver.py). The
     reference's fields: pool, queued, bound."""
 
     def __init__(self, pool, queued, bound):
@@ -38,3 +39,50 @@ class JobRejectedError(VegaError):
 
 class PartialJobError(VegaError):
     """An approximate job's final value did not come within the wait."""
+
+
+class ShuffleError(VegaError):
+    """The shuffle plane could not serve a reduce task its buckets."""
+
+
+class FetchFailedError(ShuffleError):
+    """A reduce task could not read one map output's bucket: the DAG
+    scheduler unregisters that output and resubmits its map stage
+    (scheduler/dag.py). The reference's fields: server_uri, shuffle_id,
+    map_id, reduce_id."""
+
+    def __init__(self, server_uri, shuffle_id, map_id, reduce_id,
+                 message=""):
+        self.server_uri = server_uri
+        self.shuffle_id = shuffle_id
+        self.map_id = map_id
+        self.reduce_id = reduce_id
+        self.message = message
+        super().__init__(
+            message or f"fetch failed: shuffle={shuffle_id} map={map_id} "
+            f"reduce={reduce_id} from {server_uri}")
+
+    def __reduce__(self):
+        return (FetchFailedError, (self.server_uri, self.shuffle_id,
+                                   self.map_id, self.reduce_id,
+                                   self.message))
+
+
+class MapOutputError(VegaError):
+    """The map-output tracker could not answer (an unknown shuffle, or
+    outputs that did not register within the wait)."""
+
+
+class TaskError(VegaError):
+    """A task failed max_failures times: the job aborts with this error,
+    raised from the task's last exception."""
+
+    def __init__(self, message, remote_traceback=None):
+        super().__init__(message)
+        self.remote_traceback = remote_traceback
+
+
+class TaskCancelledError(VegaError):
+    """A task attempt was cancelled before it ran (the losing copy of a
+    speculated pair, or an attempt of a cancelled job); it never counts
+    against max_failures."""

@@ -11,11 +11,11 @@ tier computes over those rows:
   keeping the rows whose BernoulliCellSampler draw falls in its band.
 * count_approx_distinct(relative_sd): HyperLogLog registers built on the
   device from the rows' hash_key (hll.py), estimated on the host.
-* mean_approx / count_by_value_approx: the exact value on the device as a
-  final PartialResult (partial/).
-* collect_async / count_async / reduce_async: jobs.py.
+* collect_async / count_async / reduce_async: the device work here, the
+  read on a job of the job server (scheduler/jobserver.py submit_call).
 
-The other host-tier names (take_sample, count_approx, to_local_iterator,
+The other host-tier names (take_sample, count_approx, mean_approx,
+count_by_value_approx, to_local_iterator,
 for_each, for_each_partition, save_as_text_file, ...) are the host RDD's
 own (rdd/base.py), over the shards' rows (DenseRDD.compute) and the
 device forms above.
@@ -39,7 +39,6 @@ from vega_tpu_torch import mesh as mesh_lib
 from vega_tpu_torch import random as vrandom
 from vega_tpu_torch.block import Block
 from vega_tpu_torch.errors import VegaError
-from vega_tpu_torch.partial import BoundedDouble, PartialResult, final
 from vega_tpu_torch.rdd.base import RDD
 
 
@@ -198,64 +197,31 @@ def count_approx_distinct(node, relative_sd: float = 0.05) -> int:
 
 
 # ---------------------------------------------------------------------------
-# approximate actions: exact on the device, final
-# ---------------------------------------------------------------------------
-
-
-def count_by_value_approx(node, timeout_s: float, confidence: float = 0.95):
-    return PartialResult(_finals(node.count_by_value()))
-
-
-def _finals(counts: dict) -> dict:
-    """{value: final BoundedDouble} of exact counts."""
-    return {k: final(v) for k, v in counts.items()}
-
-
-def mean_approx(node, timeout_s: float, confidence: float = 0.95):
-    """The rows' mean: each shard's float64 sum and count in one fetch,
-    summed on the host in shard order (the reference adds the rows as
-    Python floats); no rows give the reference's nan interval. Over
-    pairs, strings or a named block, the host RDD layer's, which adds the
-    rows as the reference's does."""
-    if node.is_pair or node._dicts() or not node._value_rows():
-        return RDD.mean_approx(node, timeout_s, confidence)
-    vals, _, blk = node._value_row_tensor("mean_approx")
-    mask = kernels.valid_mask(blk.capacity, blk.counts)
-    sums = torch.where(mask, vals.to(torch.float64), 0.0).sum(dim=1)
-    sums, counts = mesh_lib.host_get(blk.mesh, [sums, blk.counts])
-    n = int(counts.sum())
-    if n == 0:
-        nan = float("nan")
-        return PartialResult(BoundedDouble(nan, 0.0, nan, nan))
-    return PartialResult(final(float(sum(sums.tolist())) / n))
-
-
-# ---------------------------------------------------------------------------
 # asynchronous actions
 # ---------------------------------------------------------------------------
 
 
 def collect_async(node):
-    """The lineage materializes here; the worker reads the block and
-    forms the rows (across processes the rows are read here too)."""
+    """The lineage materializes here; the job's thread reads the block
+    and forms the rows (across processes the rows are read here too)."""
     blk = node.block()
     if blk.mesh.collective:
         rows = node._collect_block(blk)
-        return node.context._jobs.submit(lambda: rows)
-    return node.context._jobs.submit(lambda: node._collect_block(blk))
+        return node.context._submit_call(lambda: rows)
+    return node.context._submit_call(lambda: node._collect_block(blk))
 
 
 def count_async(node):
     if type(node).count is not dr.DenseRDD.count or node.mesh.collective:
         n = node.count()
-        return node.context._jobs.submit(lambda: n)
+        return node.context._submit_call(lambda: n)
     blk = node.block()
-    return node.context._jobs.submit(lambda: blk.num_rows)
+    return node.context._submit_call(lambda: blk.num_rows)
 
 
 def reduce_async(node, f):
     """reduce(f)'s checks and device launch here, its fetch and host fold
-    on the worker (here too across processes); an empty RDD raises
+    on the job's thread (here too across processes); an empty RDD raises
     VegaError through the future."""
     finish = node._reduce_launch(f, traced=False)
     if node.mesh.collective:
@@ -266,6 +232,6 @@ def reduce_async(node, f):
 
             def fail():
                 raise err
-            return node.context._jobs.submit(fail)
-        return node.context._jobs.submit(lambda: value)
-    return node.context._jobs.submit(finish)
+            return node.context._submit_call(fail)
+        return node.context._submit_call(lambda: value)
+    return node.context._submit_call(finish)

@@ -1,13 +1,12 @@
 """The result of an approximate action: the port's copy of the
 reference's partial/partial_result.py.
 
-The approximate actions of the RDD API finish before they return, so
-their results are final, or failed (the reference's set_failure: the
-initial value None, get_final_value raising the job's exception).
-Context.run_approximate_job can also return the current estimate, not
-final, when its deadline passes first: the job goes on, and
-set_final_value / set_failure settle the result when it ends, calling
-the on_complete / on_fail handler then."""
+A result is final, or failed (the reference's set_failure: the initial
+value None, get_final_value raising the job's exception), or, when
+Context.run_approximate_job's deadline passes first, the current
+estimate, not final: the job goes on, and set_final_value / set_failure
+settle the result when it ends, calling the on_complete / on_fail
+handler then."""
 
 from __future__ import annotations
 

@@ -3,21 +3,23 @@ of vega_tpu/rdd/base.py.
 
 Every transformation and action of the reference's RDD is here, with the
 reference's results. A partition is a list of Python rows computed on
-demand from its parents; actions run through Context.run_job, which
-computes the partitions asked for in order on the calling thread (there
-is no scheduler, no executor and no network: one process runs the whole
-lineage). A DenseRDD (dense_rdd.py) is an RDD too, one partition per
-shard, whose rows come off its block shard by shard; this class gives it
-the names it has no device form for, and dense() lifts host rows back
-onto the device.
+demand from its parents; actions run through Context.run_job, a job of
+the local runtime: the DAG scheduler (scheduler/dag.py) cuts the lineage
+into stages at its shuffles and runs each stage's tasks on the local
+backend's threads (scheduler/local_backend.py). A DenseRDD
+(dense_rdd.py) is an RDD too, one partition per shard, whose rows come
+off its block shard by shard; this class gives it the names it has no
+device form for, and dense() lifts host rows back onto the device.
 
-Persistence: persist(level) keeps computed partitions in the Context
-(MEMORY_ONLY and MEMORY_AND_DISK in memory, the host tier having no
-budget to demote under; DISK_ONLY in the Context's disk store, store/, as
-pickled row lists). checkpoint(dir) marks the node: the next job writes
-its partitions under dir (checkpoint.py) and reads them back from there
-with no lineage. Rows are pickled with the standard library's pickle,
-which the reference's cloudpickle reads too; closures are never pickled.
+Persistence: persist(level) keeps computed partitions in the Context's
+tiered cache (store/tiered.py) through cache_tracker.get_or_compute:
+MEMORY_ONLY in the bounded memory tier, MEMORY_AND_DISK demoted to the
+disk store when evicted, DISK_ONLY in the disk store alone, as pickled
+row lists. checkpoint(dir) marks the node: the next job writes its
+partitions under dir (checkpoint.py) and reads them back from there with
+no lineage. Rows are pickled with the standard library's pickle, which
+the reference's cloudpickle reads too; closures are pickled only under
+serialize_tasks_locally (serialization.py).
 """
 
 from __future__ import annotations
@@ -126,12 +128,14 @@ class RDD(PairOpsMixin):
         raise NotImplementedError
 
     def iterator(self, split: Split, task_context=None) -> Iterator:
-        """compute(), read from the checkpoint once written and from the
-        Context's partition cache when persisted."""
+        """compute(), read from the checkpoint once written and through
+        the cache tracker when persisted."""
         if self._checkpointed_rdd is not None:
             return self._checkpointed_rdd.iterator(split, task_context)
         if self.should_cache:
-            return self.context._host_cached(self, split, task_context)
+            from vega_tpu_torch.cache_tracker import get_or_compute
+
+            return get_or_compute(self, split, task_context)
         return self.compute(split, task_context)
 
     def preferred_locations(self, split: Split) -> List[str]:
@@ -161,8 +165,12 @@ class RDD(PairOpsMixin):
         return self
 
     def unpersist(self):
+        from vega_tpu_torch.cache import KeySpace
+
         self.should_cache = False
-        self.context._host_uncache(self)
+        env = self.context.env
+        env.cache.remove_datum(KeySpace.RDD, self.rdd_id)
+        env.cache_tracker.unregister_rdd(self.rdd_id)
         return self
 
     def checkpoint(self, directory: Optional[str] = None):
@@ -397,24 +405,27 @@ class RDD(PairOpsMixin):
         return sum(self.context.run_job(self, _count_partition))
 
     def collect_async(self):
-        """collect() on the Context's FIFO job worker (jobs.py); the
-        future's result() is collect()'s."""
-        return self.context._submit_host_job(
+        """collect() as a job of the job server
+        (scheduler/jobserver.py): a JobFuture whose result() is
+        collect()'s."""
+        return self.context.submit_job(
             self, _collect_partition,
-            lambda parts: list(itertools.chain.from_iterable(parts)))
+            transform=lambda parts: list(itertools.chain.from_iterable(
+                parts)))
 
     def count_async(self):
-        return self.context._submit_host_job(self, _count_partition, sum)
+        return self.context.submit_job(self, _count_partition, transform=sum)
 
     def reduce(self, f: Callable):
         reduce_partition, merge = _reduce_plan(f)
         return merge(self.context.run_job(self, reduce_partition))
 
     def reduce_async(self, f: Callable):
-        """reduce() on the job worker; an empty RDD raises VegaError
-        through the future."""
+        """reduce() as a job of the job server; an empty RDD raises
+        VegaError through the future."""
         reduce_partition, merge = _reduce_plan(f)
-        return self.context._submit_host_job(self, reduce_partition, merge)
+        return self.context.submit_job(self, reduce_partition,
+                                       transform=merge)
 
     def fold(self, zero, f: Callable):
         def fold_partition(_tc, it):
@@ -628,18 +639,20 @@ class RDD(PairOpsMixin):
                 "min": mn, "max": mx}
 
     # ----------------------------------------------------- approximate actions
-    # The job runs to its end before the call returns, so each result is
-    # the reference's evaluator's value once every partition has merged:
-    # final, BoundedDouble(x, 1.0, x, x); a job that raises gives a failed
-    # result, as the reference folds the exception into it.
+    # Each merges every finished partition into its evaluator (partial/)
+    # through run_approximate_job: the estimate when timeout_s passes
+    # first, the final value once the job ends.
     def count_approx(self, timeout_s: float, confidence: float = 0.95):
-        from vega_tpu_torch.partial import final
+        from vega_tpu_torch.partial.count_evaluator import CountEvaluator
 
-        return _approximate(lambda: final(self.count()))
+        evaluator = CountEvaluator(self.num_partitions, confidence)
+        return self.context.run_approximate_job(
+            self, _count_partition, evaluator, timeout_s)
 
     def count_by_value_approx(self, timeout_s: float,
                               confidence: float = 0.95):
-        from vega_tpu_torch.partial import final
+        from vega_tpu_torch.partial.grouped_count_evaluator import \
+            GroupedCountEvaluator
 
         def count_partition(_tc, it):
             counts: dict = {}
@@ -647,37 +660,26 @@ class RDD(PairOpsMixin):
                 counts[x] = counts.get(x, 0) + 1
             return counts
 
-        def run():
-            sums: dict = {}
-            for part in self.context.run_job(self, count_partition):
-                for k, v in part.items():
-                    sums[k] = sums.get(k, 0) + v
-            return {k: final(v) for k, v in sums.items()}
-
-        return _approximate(run)
+        evaluator = GroupedCountEvaluator(self.num_partitions, confidence)
+        return self.context.run_approximate_job(
+            self, count_partition, evaluator, timeout_s)
 
     def mean_approx(self, timeout_s: float, confidence: float = 0.95):
-        from vega_tpu_torch.partial import BoundedDouble, final
+        from vega_tpu_torch.partial.mean_evaluator import MeanEvaluator
 
         def sum_partition(_tc, it):
             n = 0
             s = 0.0
+            ss = 0.0
             for x in it:
                 n += 1
                 s += x
-            return (n, s)
+                ss += x * x
+            return (n, s, ss)
 
-        def run():
-            n, s = 0, 0.0
-            for pn, ps in self.context.run_job(self, sum_partition):
-                n += pn
-                s += ps
-            if n == 0:
-                nan = float("nan")
-                return BoundedDouble(nan, 0.0, nan, nan)
-            return final(s / n)
-
-        return _approximate(run)
+        evaluator = MeanEvaluator(self.num_partitions, confidence)
+        return self.context.run_approximate_job(
+            self, sum_partition, evaluator, timeout_s)
 
     def count_approx_distinct(self, relative_sd: float = 0.05) -> int:
         """HyperLogLog of hash_key over the rows, one register array a
@@ -728,17 +730,6 @@ class RDD(PairOpsMixin):
     def __repr__(self):
         return (f"{type(self).__name__}(id={self.rdd_id}, "
                 f"partitions={self.num_partitions})")
-
-
-def _approximate(run: Callable):
-    """A final PartialResult of run()'s value, or a failed one holding
-    its exception."""
-    from vega_tpu_torch.partial import PartialResult
-
-    try:
-        return PartialResult(run())
-    except Exception as e:  # noqa: BLE001 — folded into the result
-        return PartialResult(None, failure=e)
 
 
 class _Neg:

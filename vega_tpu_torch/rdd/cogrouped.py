@@ -2,8 +2,9 @@
 
 A parent placed by the output partitioner is read narrow, partition by
 partition; any other parent shuffles with the list-collecting aggregator
-(rdd/shuffled.py's map_outputs). Rows are (k, (list_0, ..., list_n-1)),
-keys in first-seen order over the parents in order."""
+and is read through the fetcher (shuffle/fetcher.py). Rows are
+(k, (list_0, ..., list_n-1)), keys in first-seen order over the parents
+in order."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from vega_tpu_torch.dependency import (Dependency, OneToOneDependency,
                                        ShuffleDependency)
 from vega_tpu_torch.partitioner import Partitioner
 from vega_tpu_torch.rdd.base import RDD
-from vega_tpu_torch.rdd.shuffled import map_outputs, release_on_drop
+from vega_tpu_torch.shuffle.fetcher import ShuffleFetcher
 from vega_tpu_torch.split import Split
 
 
@@ -35,7 +36,7 @@ class CoGroupedRDD(RDD):
         self._edges = list(deps)
         for dep in deps:
             if isinstance(dep, ShuffleDependency):
-                release_on_drop(self, dep)
+                ctx.env.track_shuffle(self, dep.shuffle_id)
 
     @property
     def num_partitions(self) -> int:
@@ -47,12 +48,12 @@ class CoGroupedRDD(RDD):
         get = groups.get
         for i, (parent, dep) in enumerate(zip(self.parents, self._edges)):
             if isinstance(dep, ShuffleDependency):
-                for rows in map_outputs(dep)[split.index]:
-                    for k, vs in rows:
-                        entry = get(k)
-                        if entry is None:
-                            entry = groups[k] = tuple([[] for _ in sides])
-                        entry[i].extend(vs)
+                for k, vs in ShuffleFetcher.fetch(
+                        self.context.env, dep.shuffle_id, split.index):
+                    entry = get(k)
+                    if entry is None:
+                        entry = groups[k] = tuple([[] for _ in sides])
+                    entry[i].extend(vs)
             else:
                 for k, v in parent.iterator(split, task_context):
                     entry = get(k)

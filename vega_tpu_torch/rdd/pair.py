@@ -13,7 +13,7 @@ from __future__ import annotations
 import copy
 from typing import Any, Callable, List, Optional
 
-from vega_tpu_torch.aggregator import Aggregator
+from vega_tpu_torch.aggregator import Aggregator, identity
 from vega_tpu_torch.partitioner import (HashPartitioner, Partitioner,
                                         RangePartitioner)
 
@@ -55,9 +55,9 @@ class PairOpsMixin:
                 and self.partitioner == partitioner):
             op_name = infer_named_op(func)
             if op_name is not None:
-                agg = Aggregator(lambda v: v, func, func, op_name=op_name)
+                agg = Aggregator(identity, func, func, op_name=op_name)
                 return ShuffledRDD(self, agg, partitioner)
-        return self.combine_by_key(lambda v: v, func, func, partitioner)
+        return self.combine_by_key(identity, func, func, partitioner)
 
     def fold_by_key(self, zero, func: Callable,
                     partitioner_or_num: Any = None):

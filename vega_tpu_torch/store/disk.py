@@ -8,10 +8,10 @@ and the checksum: a corrupt, truncated or missing file is a miss, counted
 in read_errors (missing: dropped silently), and its file is removed, so the
 caller recomputes; a read never returns wrong bytes.
 
-Beside put / get go the raw-block counters the dense tier uses from the
-reference's TieredCache (vega_tpu/store/tiered.py: spill_raw, read_raw,
-contains_raw, remove_raw, status). The port has no memory tier and no
-event bus, so there is nothing else to it.
+Beside put / get go the raw-block counters of the reference's
+TieredCache (vega_tpu/store/tiered.py: spill_raw, read_raw, contains_raw,
+remove_raw, status), which the dense tier's demotions and the host
+partition cache (store/tiered.py) count their moves in.
 """
 
 from __future__ import annotations
@@ -141,6 +141,25 @@ class DiskStore:
         except OSError:
             pass
         return entry[1]
+
+    def remove_prefix(self, prefix: str) -> int:
+        """Delete every block whose key starts with prefix (unpersist,
+        remove_shuffle); returns the payload bytes freed."""
+        with self._lock:
+            doomed = [k for k in self._index if k.startswith(prefix)]
+        return sum(self.remove(k) for k in doomed)
+
+    def clear(self) -> None:
+        """Delete every block; the directory stays."""
+        with self._lock:
+            paths = [p for p, _ in self._index.values()]
+            self._index.clear()
+            self._used = 0
+        for path in paths:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
 
     @property
     def used_bytes(self) -> int:

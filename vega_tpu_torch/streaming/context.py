@@ -42,7 +42,7 @@ import time
 import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from vega_tpu_torch import events
+from vega_tpu_torch.scheduler import events
 from vega_tpu_torch import state_fold
 from vega_tpu_torch.streaming.controller import RateController
 from vega_tpu_torch.streaming.dstream import DStream, StreamBlockRDD

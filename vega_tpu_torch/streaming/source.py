@@ -21,8 +21,8 @@ Backpressure: before landing a block the receiver asks the
 RateController (controller.py): "block" parks the thread until batches
 drain the queue; "shed" drops the block and still advances the offsets.
 
-The reference's fault seam (faults.maybe_crash_receiver) is not ported:
-a receiver crashes when its source raises.
+A receiver crashes when its source raises, or at the fault seam
+faults.maybe_crash_receiver after it lands a block (the reference's).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from vega_tpu_torch import faults
 from vega_tpu_torch.store import StorageLevel
 
 log = logging.getLogger(__name__)
@@ -273,6 +274,7 @@ class Receiver:
         self._buf_start = end
         self.blocks_landed += 1
         self.controller.block_landed()
+        faults.get().maybe_crash_receiver(self.blocks_landed)
 
     def flush(self, wait_s: float = 0.25) -> None:
         """The batch tick seals the partial block, so slow streams make

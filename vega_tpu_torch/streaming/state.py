@@ -24,7 +24,7 @@ import shutil
 import time
 from typing import Any, Dict, Optional
 
-from vega_tpu_torch import events
+from vega_tpu_torch.scheduler import events
 from vega_tpu_torch.rdd.checkpoint import CheckpointRDD, CommitLog
 
 log = logging.getLogger(__name__)
