@@ -4378,7 +4378,8 @@ def p13_spawn(args_list):
 P13D_ROWS_FILE = os.path.join("chiprun_out", "phase13d_rows.npz")
 P13D_NPZ_PATH = os.path.join("chiprun_out", "phase13d_npz", "reduced.npz")
 P13D_RELOAD_CHUNK_ROWS = 131_072  # 8 chunks of bench-main's 1M reduced pairs
-P13D_WARM = {"frame": 3, "strings": 2, "npz": 3, "fold": 3}
+P13D_WARM = {"frame": 1, "strings": 1, "npz": 1, "fold": 1}  # cut from
+# 3 / 2 / 3 / 3: the script's time limit
 P13D_FOLD_OPS = ("add", "min", "max", "prod")
 
 
@@ -5173,6 +5174,8 @@ def phase_fourteen(torch, np, ck, vt):
 
 
 P15_ROWS = 20_000_000          # frame_ab.py's events rows at bench-main's size
+P15_WARM = 1                   # phases 15-17: warm runs a query (cut from 3
+                               # to keep the script inside its time limit)
 P15_KEYS = 1_000_000           # fact k uniform in [0, P15_KEYS)
 P15_DIMS = 1_000_000           # dimension rows, keys 2 * i: half the fact keys
 #                                match, and half the dimension keys never occur
@@ -5422,7 +5425,8 @@ def phase_fifteen(torch, np, ck, vt):
                       cold["launches"][name] > 0)
         for name in launches:
             launches[name] += cold["launches"][name]
-        warm = [p10_run(torch, ck, ctx, q, run)[1] for _ in range(3)]
+        warm = [p10_run(torch, ck, ctx, q, run)[1]
+                for _ in range(P15_WARM)]
         med = statistics.median(r["ms"] for r in warm)
         r = dict(label=q, note=note, cold=cold, warm=warm, median_ms=med,
                  median_host_build_ms=statistics.median(
@@ -5432,7 +5436,8 @@ def phase_fifteen(torch, np, ck, vt):
                  peak_bytes=max(x["peak_bytes"] for x in warm + [cold]),
                  launches=cold["launches"])
         rows.append(r)
-        log(f"15 {q}: {note}; {med:.3f} ms warm median of 3, host build "
+        log(f"15 {q}: {note}; {med:.3f} ms warm median of {P15_WARM}, "
+            f"host build "
             f"{r['median_host_build_ms']:.3f} ms, cold {cold['ms']:.3f} ms, "
             f"peak {r['peak_bytes']} B, launches "
             f"{json.dumps(cold['launches'])} on {card}")
@@ -5672,7 +5677,8 @@ def phase_sixteen(torch, np, ck, vt):
                       cold["launches"][name] > 0)
         for name in launches:
             launches[name] += cold["launches"][name]
-        warm = [p10_run(torch, ck, ctx, q, run)[1] for _ in range(3)]
+        warm = [p10_run(torch, ck, ctx, q, run)[1]
+                for _ in range(P15_WARM)]
         med = statistics.median(r["ms"] for r in warm)
         r = dict(label=q, tier=tier, note=note, cold=cold, warm=warm,
                  median_ms=med,
@@ -5684,7 +5690,7 @@ def phase_sixteen(torch, np, ck, vt):
                  launches=cold["launches"])
         rows.append(r)
         log(f"16 {q} (reference tier {tier}): {note}; {med:.3f} ms warm "
-            f"median of 3, host build {r['median_host_build_ms']:.3f} ms, "
+            f"median of {P15_WARM}, host build {r['median_host_build_ms']:.3f} ms, "
             f"cold {cold['ms']:.3f} ms, peak {r['peak_bytes']} B, launches "
             f"{json.dumps(cold['launches'])} on {card}")
     explain = p16_query(ctx, fact, dims, "f12_count").explain().replace(
@@ -5861,7 +5867,8 @@ def phase_seventeen(torch, np, ck, vt):
                       cold["launches"][name] > 0)
         for name in launches:
             launches[name] += cold["launches"][name]
-        warm = [p10_run(torch, ck, ctx, q, run)[1] for _ in range(3)]
+        warm = [p10_run(torch, ck, ctx, q, run)[1]
+                for _ in range(P15_WARM)]
         med = statistics.median(r["ms"] for r in warm)
         r = dict(label=q, tier=tier, why=why, note=note, cold=cold,
                  warm=warm, median_ms=med,
@@ -5873,7 +5880,7 @@ def phase_seventeen(torch, np, ck, vt):
                  launches=cold["launches"])
         rows.append(r)
         log(f"17 {q} (reference tier {tier}: {why}): {note}; {med:.3f} ms "
-            f"warm median of 3, host build "
+            f"warm median of {P15_WARM}, host build "
             f"{r['median_host_build_ms']:.3f} ms, cold {cold['ms']:.3f} ms, "
             f"peak {r['peak_bytes']} B, launches "
             f"{json.dumps(cold['launches'])} on {card}")
@@ -5906,7 +5913,7 @@ P18_KEYS = N_KEYS
 # 18e's host-row actions, cut from 20M rows: at 20M they took 233 s of
 # phase 18's 291 s (NVIDIA H100 80GB HBM3, 700.00 W), past its 150 s
 P18E_ROWS = 2_000_000
-P18_WARM = 3
+P18_WARM = 1                   # cut from 3: the script's time limit
 # 18d's approximate actions, cut from 20M rows: a DenseRDD's are the host
 # RDD's (one task a shard, every row a Python value), as the reference's
 P18D_ROWS = 2_000_000
@@ -8876,6 +8883,406 @@ def phase23_leg():
     print(f"card: {card}", flush=True)
 
 
+P24_ROWS = N_ROWS              # 24a: bench-main's lineage at full width
+P24_KEYS = N_KEYS              # the card's reduce: 1M keys
+P24_EXECUTORS = (1, 4)         # 24a: num_executors, one Context each
+P24_LOCAL_WORKERS = 8          # 24a beside it: the local runtime (23a's)
+P24_SMALL = 200_000            # 24b-e: the host jobs' rows
+P24_WARM = 3
+# 24's fleets: a lost executor is declared within a second
+P24_FLEET = dict(executor_reap_interval_s=0.5, executor_restart_backoff_s=0.5,
+                 resubmit_timeout_s=0.5, fetch_retries=2,
+                 fetch_retry_interval_s=0.05)
+
+
+def p24_check(what, ok):
+    if not ok:
+        fail(f"phase 24: {what}")
+
+
+def p24_expected(np):
+    """numpy's replay of 24a: the sum of x * 0.5 over x = k (mod 1,000)
+    in [0, P24_ROWS), float64."""
+    x = np.arange(P24_ROWS, dtype=np.int64)
+    return np.bincount(x % P23_HOST_KEYS, weights=x * 0.5,
+                       minlength=P23_HOST_KEYS)
+
+
+def p24_fleet_counters(ctx):
+    """The driver's dispatch counters and the executors' fetch counters
+    (summed over the fleet)."""
+    dispatch = ctx.metrics_summary()["dispatch"]
+    fetch = {"round_trips": 0, "bytes": 0, "buckets": 0, "streams": 0}
+    backend = getattr(ctx, "_backend", None)
+    stats = backend.worker_stats() if hasattr(backend, "worker_stats") \
+        else {}
+    for s in stats.values():
+        for k in fetch:
+            fetch[k] += s["fetch"][k]
+    return dict(dispatch), fetch
+
+
+def p24_part_a(torch, np, ck, vt, ctx, label, exp):
+    """24a on one Context: the 20M-row reduce on the card, to_rdd(), two
+    host shuffles (on the executors under mode="distributed"), dense()
+    and the join with the 1,000-row table on the card, counted; cold,
+    then P24_WARM warm runs."""
+    table = ctx.dense_from_numpy(
+        np.arange(P23_HOST_KEYS, dtype=np.int32),
+        np.arange(P23_HOST_KEYS, dtype=np.float32) * 2)
+    table.block()
+    rec = _P23Events()
+    ctx.bus.add_listener(rec)
+    state = {}
+
+    def card(_):
+        node = ctx.dense_range(P24_ROWS).map(
+            lambda x: (x % P24_KEYS, x * 0.5)).reduce_by_key(op="add")
+        node.block()
+        return node
+
+    def host(node):
+        ctx.bus.flush()
+        start = len(rec.events)
+        lifted = p23_host_part(node.to_rdd()).dense()
+        ctx.bus.flush()
+        state["stages"] = rec.stage_walls(start, len(rec.events))
+        state.setdefault("all_stages", []).append(state["stages"])
+        state["lifted"] = lifted
+        return lifted
+
+    def join(lifted):
+        return lifted.join(table).count()
+
+    def check(n):
+        got = state["lifted"].collect_arrays()
+        k, v = got["k"], got["v"]
+        p24_check(f"24a {label}: every key once",
+                  np.array_equal(np.sort(k), np.arange(P23_HOST_KEYS)))
+        p24_check(f"24a {label}: the sums equal numpy's (rtol 1e-5)",
+                  np.allclose(v, exp[k], rtol=1e-5, atol=0.0))
+        p24_check(f"24a {label}: join count == 1,000", n == P23_HOST_KEYS)
+        p24_check(f"24a {label}: at least 3 host stages "
+                  f"({state['stages']})", len(state["stages"]) >= 3)
+        return f"{label}, {len(state['stages'])} host stages, count {n}"
+
+    d0, f0 = p24_fleet_counters(ctx)
+    r = p19_case(torch, ck, f"a_{label}",
+                 [("reduce_by_key", "card", card),
+                  ("to_rdd.shuffles.dense", "host", host),
+                  ("join.count", "card", join)], check, P24_WARM, 24)
+    d1, f1 = p24_fleet_counters(ctx)
+    runs = 1 + P24_WARM
+    r["stages"] = state["stages"]
+    r["run_stages"] = state["all_stages"]
+    r["tasks"] = sum(s[2] for s in state["stages"])
+    r["per_run"] = dict(
+        tasks_dispatched=(d1["tasks_v2"] + d1["tasks_legacy"]
+                          - d0["tasks_v2"] - d0["tasks_legacy"]) / runs,
+        need_binary=(d1["need_binary"] - d0["need_binary"]) / runs,
+        binaries_shipped=(d1["binaries_shipped"]
+                          - d0["binaries_shipped"]) / runs,
+        stage_binary_bytes=(d1["binary_bytes"] - d0["binary_bytes"]) / runs,
+        result_bytes=(d1["result_bytes"] - d0["result_bytes"]) / runs,
+        fetch_round_trips=(f1["round_trips"] - f0["round_trips"]) / runs,
+        fetch_bytes=(f1["bytes"] - f0["bytes"]) / runs,
+        fetch_buckets=(f1["buckets"] - f0["buckets"]) / runs)
+    launched = {k: sum(r["step_launches"][st][k]
+                       for st in ("reduce_by_key", "join.count"))
+                for k in ck.LAUNCHES}
+    p24_check(f"24a {label}: the card's steps launched all three kernels "
+              f"({launched})", all(launched[k] > 0 for k in
+                                   ("hash_bucket", "digit_hist",
+                                    "partition_pos")))
+    return r
+
+
+def p24_part_b(ctx):
+    """24b: one executor killed between two collects over one shuffle:
+    the second fetch-fails (or meets the reaper's scrub), its map stage
+    is resubmitted on the survivors or the respawned executor, the rows
+    are equal; ExecutorLost and ExecutorRestarted posted."""
+    shuffled = ctx.parallelize(range(P24_SMALL), 8).map(
+        lambda x: (x % 1000, x)).reduce_by_key(operator.add, 8)
+    first = sorted(shuffled.collect())
+    s0 = ctx.metrics_summary()
+    uri = ctx.env.map_output_tracker.get_server_uris(shuffled.shuffle_id)[0]
+    victim = next(ex for ex in ctx._backend._executors.values()
+                  if ex.alive and ctx._backend._match_tier(ex, [uri]) == 0)
+    t0 = time.perf_counter()
+    victim.process.kill()
+    victim.process.wait()
+    second = sorted(shuffled.collect())
+    recovery_ms = (time.perf_counter() - t0) * 1e3
+    deadline = time.time() + 30.0
+    while time.time() < deadline:
+        s1 = ctx.metrics_summary()
+        if s1["executors_lost"] > s0["executors_lost"] and \
+                s1["executors_restarted"] > s0["executors_restarted"]:
+            break
+        time.sleep(0.2)
+    out = {k: s1[k] - s0[k] for k in ("executors_lost",
+                                      "executors_restarted",
+                                      "stages_resubmitted", "task_failures")}
+    p24_check("24b: equal rows after the loss", first == second)
+    p24_check(f"24b: ExecutorLost and ExecutorRestarted posted ({out})",
+              out["executors_lost"] >= 1 and out["executors_restarted"] >= 1)
+    p24_check(f"24b: the lost map outputs recomputed ({out})",
+              out["stages_resubmitted"] >= 1)
+    n = ctx.parallelize(range(1000), 8).map(lambda x: x + 1).count()
+    p24_check("24b: new work runs on the fleet", n == 1000)
+    return dict(victim=victim.executor_id, recovery_ms=recovery_ms, **out)
+
+
+def p24_part_c(ctx):
+    """24c: a task that raises on an executor: TaskError carrying the
+    executor's traceback."""
+    from vega_tpu_torch.errors import TaskError
+
+    def boom(x):
+        raise ValueError(f"bad item {x}")
+
+    try:
+        ctx.parallelize(range(100), 4).map(boom).collect()
+    except TaskError as e:
+        err = e
+    else:
+        err = None
+    p24_check("24c: TaskError raised", err is not None)
+    tb = err.remote_traceback or ""
+    p24_check("24c: the remote traceback names the function and its error",
+              "boom" in tb and "bad item" in tb
+              and isinstance(err.__cause__, ValueError))
+    return dict(cause=type(err.__cause__).__name__,
+                traceback_lines=len(tb.splitlines()))
+
+
+def p24_part_d(vt, ctx):
+    """24d: one shuffle's buckets read on the driver through batched
+    get_many and through per-bucket get (equal, and each one's round
+    trips); then shuffle_replication=2 with the primary holder killed
+    after the map stage: the reduce reads the replicas, no stage
+    resubmitted, rows equal."""
+    from vega_tpu_torch.shuffle import fetcher
+
+    shuffled = ctx.parallelize(range(P24_SMALL), 8).map(
+        lambda x: (x % 1000, x)).reduce_by_key(operator.add, 4)
+    rows = sorted(shuffled.collect())
+    env = ctx.env
+    legs = {}
+    for batched in (True, False):
+        env.conf.fetch_batch_enabled = batched
+        try:
+            fetcher.reset_stats()
+            t0 = time.perf_counter()
+            blobs = [sorted(fetcher.ShuffleFetcher.fetch_blobs(
+                env, shuffled.shuffle_id, r)) for r in range(4)]
+            ms = (time.perf_counter() - t0) * 1e3
+            st = fetcher.stats_snapshot()
+        finally:
+            env.conf.fetch_batch_enabled = True
+        legs["batched" if batched else "per_bucket"] = dict(
+            blobs=blobs, ms=ms, round_trips=st["round_trips"],
+            bytes=st["bytes"])
+    servers = len(set(env.map_output_tracker.get_server_uris(
+        shuffled.shuffle_id)))
+    p24_check("24d: batched and per-bucket buckets equal",
+              legs["batched"]["blobs"] == legs["per_bucket"]["blobs"])
+    p24_check(f"24d: round trips 4 x servers ({servers}) against 4 x 8 "
+              f"({legs['batched']['round_trips']}, "
+              f"{legs['per_bucket']['round_trips']})",
+              legs["batched"]["round_trips"] == 4 * servers
+              and legs["per_bucket"]["round_trips"] == 32)
+    out = {k: {f: x[f] for f in ("ms", "round_trips", "bytes")}
+           for k, x in legs.items()}
+    with vt.Context(mode="distributed", n_shards=N_SHARDS, num_executors=2,
+                    shuffle_replication=2, **P24_FLEET) as rctx:
+        node = rctx.parallelize(range(P24_SMALL), 8).map(
+            lambda x: (x % 1000, x)).reduce_by_key(operator.add, 4)
+        first = sorted(node.collect())
+        lists = rctx.env.map_output_tracker.get_server_uri_lists(
+            node.shuffle_id)
+        p24_check(f"24d: two locations per map output ({lists})",
+                  all(len(lst) == 2 and lst[0] != lst[1] for lst in lists))
+        s0 = rctx.metrics_summary()
+        before = rctx._backend.worker_stats()
+        victim = next(ex for ex in rctx._backend._executors.values()
+                      if rctx._backend._match_tier(ex, [lists[0][0]]) == 0)
+        victim.process.kill()
+        victim.process.wait()
+        t0 = time.perf_counter()
+        second = sorted(node.collect())
+        ms = (time.perf_counter() - t0) * 1e3
+        s1 = rctx.metrics_summary()
+        after = rctx._backend.worker_stats()
+        resubmitted = s1["stages_resubmitted"] - s0["stages_resubmitted"]
+        failovers = sum(after[e]["fetch"]["failover_buckets"]
+                        - before.get(e, after[e])["fetch"]
+                        ["failover_buckets"] for e in after)
+        p24_check("24d: equal rows after the primary's loss",
+                  first == second == rows)
+        p24_check(f"24d: no stage resubmitted ({resubmitted})",
+                  resubmitted == 0)
+    out["replicated"] = dict(recovery_ms=ms, stages_resubmitted=resubmitted,
+                             failover_buckets=failovers)
+    return out
+
+
+def p24_part_e(ctx):
+    """24e: the fleet's own report: a job returns each executor's
+    sys.modules entries under jax / jaxlib / vega_tpu / cloudpickle and
+    torch.cuda.is_initialized(); nvidia-smi lists no executor's pid."""
+    def report(_it):
+        import os
+        import sys
+
+        import torch
+
+        return [(os.getpid(),
+                 sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "vega_tpu",
+                                               "cloudpickle")),
+                 torch.cuda.is_initialized())]
+
+    pids = {ex.process.pid for ex in ctx._backend._executors.values()
+            if ex.alive}
+    seen = {}
+    for _ in range(3):
+        for pid, mods, cuda in ctx.parallelize(range(64), 64) \
+                .map_partitions(report).collect():
+            seen[pid] = (mods, cuda)
+        if set(seen) >= pids:
+            break
+    p24_check(f"24e: every executor reported ({sorted(seen)} of "
+              f"{sorted(pids)})", set(seen) >= pids)
+    p24_check(f"24e: no executor imported jax, vega_tpu or cloudpickle "
+              f"({seen})", all(not mods for mods, _ in seen.values()))
+    p24_check("24e: no executor initialized CUDA",
+              not any(cuda for _, cuda in seen.values()))
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=False)
+    apps = {int(x) for x in res.stdout.split() if x.strip().isdigit()}
+    p24_check(f"24e: nvidia-smi lists no executor ({apps & pids})",
+              res.returncode == 0 and not apps & pids)
+    return dict(executors=len(pids), compute_apps=sorted(apps),
+                executor_pids=sorted(pids))
+
+
+def phase_twentyfour(torch, np, ck, vt):
+    """Phase 24: the distributed backend, its executors on the CPU and
+    the dense tier on the card: (a) bench-main's lineage at 20M rows,
+    reduced on the card, two host shuffles on 1 and then 4 executor
+    processes, lifted and joined on the card, beside the local runtime
+    at 8 task threads; (b) an executor killed between two collects; (c)
+    a remote TaskError; (d) batched against per-bucket fetch, and a
+    replicated shuffle read after its primary is killed; (e) the fleet
+    holds no card and imports no jax."""
+    t0 = time.perf_counter()
+    card = card_line()
+    exp = p24_expected(np)
+    rows, parts, out, spawn = [], {}, {}, {}
+    for executors in P24_EXECUTORS:
+        t1 = time.perf_counter()
+        ctx = vt.Context(mode="distributed", n_shards=N_SHARDS,
+                         num_executors=executors, **P24_FLEET)
+        try:
+            spawn[executors] = dict(
+                context_s=time.perf_counter() - t1,
+                ready_s=max(ctx._backend.spawn_s.values()))
+            rows.append(p24_part_a(torch, np, ck, vt, ctx,
+                                   f"executors{executors}", exp))
+            parts[f"a{executors}"] = time.perf_counter() - t1
+            if executors == P24_EXECUTORS[-1]:
+                t1 = time.perf_counter()
+                out["e"] = p24_part_e(ctx)
+                out["c"] = p24_part_c(ctx)
+                out["d"] = p24_part_d(vt, ctx)
+                out["b"] = p24_part_b(ctx)
+                parts["bcde"] = time.perf_counter() - t1
+        finally:
+            ctx.stop()
+    t1 = time.perf_counter()
+    with vt.Context(n_shards=N_SHARDS, num_workers=P24_LOCAL_WORKERS) as ctx:
+        rows.append(p24_part_a(torch, np, ck, vt, ctx,
+                               f"local_workers{P24_LOCAL_WORKERS}", exp))
+    parts["a_local"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    launches = {name: sum(r["launches"][name] for r in rows)
+                for name in ck.LAUNCHES}
+    check_launched(launches, "phase 24")
+    wall_s = time.perf_counter() - t0
+    log(f"phase 24 took {wall_s:.1f} s (parts {json.dumps(parts)})")
+    return dict(rows=rows, launches=launches, card=card, wall_s=wall_s,
+                parts_s=parts, spawn=spawn, **out)
+
+
+def p24_lines(r, card):
+    """The printed lines of phase 24."""
+    out = []
+    for x in r["rows"]:
+        out.append(
+            f"phase 24{x['label']} ({x['note']}; {P24_ROWS} rows, "
+            f"{P24_KEYS} keys): {x['median_ms']:.3f} ms warm median of "
+            f"{len(x['warm'])}, parts {json.dumps(x['median_parts'])}, "
+            f"cold {x['cold']['ms']:.3f} ms, {x['tasks']} tasks, stage "
+            f"walls (id, kind, tasks, s) {json.dumps(x['stages'])}, per "
+            f"run {json.dumps(x['per_run'])}, launches by step "
+            f"{json.dumps(x['step_launches'])} on {card}")
+    out.append(f"phase 24 executor spawn to ready (s) "
+               f"{json.dumps(r['spawn'])} on {card}")
+    for part in ("b", "c", "d", "e"):
+        out.append(f"phase 24{part}: {json.dumps(r[part])} on {card}")
+    out.append(f"phase 24 launches {json.dumps(r['launches'])}; parts (s) "
+               f"{json.dumps(r['parts_s'])}; phase 24 {r['wall_s']:.1f} s "
+               f"on {card}")
+    return out
+
+
+def p24_summary(res):
+    """Phase 24's figures as JSON (24a without its per-run records)."""
+    return dict(phase=24, wall_s=res["wall_s"], parts_s=res["parts_s"],
+                launches=res["launches"], card=res["card"],
+                spawn=res["spawn"],
+                a={x["label"]: dict(note=x["note"], median_ms=x["median_ms"],
+                                    parts=x["median_parts"],
+                                    cold_ms=x["cold"]["ms"],
+                                    warm_ms=[w["ms"] for w in x["warm"]],
+                                    stages=x["stages"], tasks=x["tasks"],
+                                    run_stages=x["run_stages"],
+                                    per_run=x["per_run"],
+                                    peak_bytes=x["peak_bytes"],
+                                    step_launches=x["step_launches"])
+                   for x in res["rows"]},
+                **{k: res[k] for k in ("b", "c", "d", "e")})
+
+
+def phase24_leg():
+    """--phase 24: the kernels built, then phase 24 alone. Prints its
+    lines and one JSON line, writes chiprun_out/p24.json, and ends with
+    the card line."""
+    import numpy as np
+    import torch
+
+    import vega_tpu_torch as vt
+    from vega_tpu_torch import cuda_kernels as ck
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    card = card_line()
+    ck.build()
+    res = phase_twentyfour(torch, np, ck, vt)
+    out = p24_summary(res)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "p24.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(out, fh, indent=1)
+    for line in p24_lines(res, card):
+        print(line, flush=True)
+    print(json.dumps(out), flush=True)
+    print(f"card: {card}", flush=True)
+
+
 def main():
     try:
         import torch
@@ -8961,6 +9368,8 @@ def main():
     twentytwo = phase_twentytwo(torch, np, ck, vt)
     # 23. the local runtime: stages, tasks, retries, the shuffle store
     twentythree = phase_twentythree(torch, np, ck, vt)
+    # 24. the distributed backend: executor processes, remote fetch
+    twentyfour = phase_twentyfour(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -8987,7 +9396,8 @@ def main():
          "phase20_launches": twenty["launches"][r["name"]],
          "phase21_launches": twentyone["launches"][r["name"]],
          "phase22_launches": twentytwo["launches"][r["name"]],
-         "phase23_launches": twentythree["launches"][r["name"]]}
+         "phase23_launches": twentythree["launches"][r["name"]],
+         "phase24_launches": twentyfour["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -9005,7 +9415,8 @@ def main():
                    phase15=fifteen, phase16=sixteen, phase17=seventeen,
                    phase18=eighteen, phase19=nineteen, phase20=twenty,
                    phase21=twentyone, phase22=p22_summary(twentytwo),
-                   phase23=p23_summary(twentythree))
+                   phase23=p23_summary(twentythree),
+                   phase24=p24_summary(twentyfour))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -9263,7 +9674,7 @@ def main():
     for r in fifteen["rows"]:
         print(f"phase 15 {r['label']} ({P15_ROWS} fact rows, {P15_DIMS} "
               f"dimension rows; {r['note']}): {r['median_ms']:.3f} ms warm "
-              f"median of 3, host build {r['median_host_build_ms']:.3f} ms, "
+              f"median of {len(r['warm'])}, host build {r['median_host_build_ms']:.3f} ms, "
               f"device steps {r['median_device_ms']:.3f} ms, cold "
               f"{r['cold']['ms']:.3f} ms, step peak {r['peak_bytes']} B, "
               f"launches {json.dumps(r['launches'])} on {card}", flush=True)
@@ -9273,7 +9684,8 @@ def main():
     for r in sixteen["rows"]:
         print(f"phase 16 {r['label']} ({P15_ROWS} fact rows, {P15_DIMS} "
               f"dimension rows; reference tier {r['tier']}; {r['note']}): "
-              f"{r['median_ms']:.3f} ms warm median of 3, host build "
+              f"{r['median_ms']:.3f} ms warm median of {len(r['warm'])}, "
+              f"host build "
               f"{r['median_host_build_ms']:.3f} ms, device steps "
               f"{r['median_device_ms']:.3f} ms, cold {r['cold']['ms']:.3f} "
               f"ms, step peak {r['peak_bytes']} B, launches "
@@ -9289,7 +9701,8 @@ def main():
             continue
         print(f"phase 17 {r['label']} ({P15_ROWS} fact rows; reference "
               f"tier {r['tier']}: {r['why']}; {r['note']}): "
-              f"{r['median_ms']:.3f} ms warm median of 3, host build "
+              f"{r['median_ms']:.3f} ms warm median of {len(r['warm'])}, "
+              f"host build "
               f"{r['median_host_build_ms']:.3f} ms, device steps "
               f"{r['median_device_ms']:.3f} ms, cold {r['cold']['ms']:.3f} "
               f"ms, step peak {r['peak_bytes']} B, launches "
@@ -9345,6 +9758,8 @@ def main():
     for line in p22_lines(twentytwo, card):
         print(line, flush=True)
     for line in p23_lines(twentythree, card):
+        print(line, flush=True)
+    for line in p24_lines(twentyfour, card):
         print(line, flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
@@ -9686,6 +10101,8 @@ if __name__ == "__main__":
         phase22_leg()
     elif sys.argv[1:3] == ["--phase", "23"] and len(sys.argv) == 3:
         phase23_leg()
+    elif sys.argv[1:3] == ["--phase", "24"] and len(sys.argv) == 3:
+        phase24_leg()
     elif sys.argv[1:3] == ["--phase", "19"] and len(sys.argv) == 5 \
             and sys.argv[3] == "--without":
         phase19_leg(sys.argv[4])

@@ -29,7 +29,11 @@ HOST_LAYER = ("split", "partitioner", "dependency", "aggregator",
               "scheduler.stage", "scheduler.task", "scheduler.dag",
               "scheduler.local_backend", "scheduler.events",
               "scheduler.jobserver", "partial.count_evaluator",
-              "partial.grouped_count_evaluator", "partial.mean_evaluator")
+              "partial.grouped_count_evaluator", "partial.mean_evaluator",
+              # the distributed backend
+              "distributed", "distributed.protocol",
+              "distributed.driver_service", "distributed.shuffle_server",
+              "distributed.worker", "distributed.backend")
 
 
 def _port_files():
@@ -208,6 +212,41 @@ with vt.Context(device="cpu", n_shards=8) as ctx:
 out = kernels.gf256_accumulate(np.array([[1, 2], [3, 4]], np.uint8),
                                np.array([1, 1], np.uint8), device="cpu")
 assert out.tolist() == [2, 6]
+print("OK")
+"""
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=False)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_distributed_backend_and_executors_stand_alone():
+    """A distributed Context runs with jax, vega_tpu and cloudpickle
+    unimportable in the driver, and its executor processes import none of
+    them (nor initialize CUDA): a lambda, a DenseRDD's rows and a shuffle
+    cross the wire with the standard library's pickle alone."""
+    script = """
+import sys
+for name in ("jax", "jaxlib", "vega_tpu", "cloudpickle"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import vega_tpu_torch as vt
+
+def report(_it):
+    import sys
+    import torch
+    return [(sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "jaxlib", "vega_tpu", "cloudpickle")),
+             torch.cuda.is_initialized())]
+
+with vt.Context(mode="distributed", device="cpu", n_shards=4,
+                num_executors=1, num_workers=2) as ctx:
+    assert ctx.parallelize(range(4), 2).map_partitions(report).collect() \
+        == [([], False)] * 2
+    red = ctx.dense_range(400).map(lambda x: (x % 5, x)).to_rdd() \
+        .reduce_by_key(lambda a, b: a + b, 3)
+    assert sorted(red.collect()) == [(k, sum(range(k, 400, 5)))
+                                     for k in range(5)]
 print("OK")
 """
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -524,6 +524,27 @@ RUNTIME_BAD = [
     ("speculation_multiplier", 0, "a number > 0"),
     ("speculation_min_s", -1, "seconds >= 0"),
     ("speculation_quorum", 2, "a fraction"),
+    # the distributed backend's
+    ("num_executors", 0, "an int >= 1 or None"),
+    ("locality_wait_s", -1, "seconds >= 0"),
+    ("heartbeat_interval_s", 0, "seconds > 0"),
+    ("executor_liveness_timeout_s", 0, "seconds > 0"),
+    ("executor_reap_interval_s", 0, "seconds > 0"),
+    ("executor_max_restarts", -1, "an int >= 0"),
+    ("executor_restart_backoff_s", -1, "seconds >= 0"),
+    ("executor_blacklist_threshold", 0, "an int >= 1"),
+    ("fetch_retries", 0, "an int >= 1"),
+    ("fetch_retry_interval_s", -1, "seconds >= 0"),
+    ("fetch_batch_enabled", 1, "a bool"),
+    ("fetch_queue_buckets", 0, "an int >= 1"),
+    ("task_binary_dedup", 1, "a bool"),
+    ("shuffle_replication", 0, "an int >= 1"),
+    ("fetch_slow_server_s", -1, "seconds >= 0"),
+    ("decommission_timeout_s", -1, "seconds >= 0"),
+    ("blacklist_decay_s", -1, "seconds >= 0"),
+    ("local_dir", "", "a path"),
+    ("log_level", None, "a logging level"),
+    ("log_cleanup", 1, "a bool"),
 ]
 
 
@@ -536,13 +557,36 @@ def test_settings_are_checked(name, value, allowed):
 
 
 def test_distributed_backend_settings_are_not_taken():
-    """task_binary_dedup is read only by the reference's distributed
-    backend, which the port does not have: the port's Context does not
-    take it, where the reference's does."""
+    """task_binary_dedup, the reference's distributed backend's setting,
+    is taken (checked like the rest) and reaches the executors' dispatch:
+    both values give the reference's rows (the reference's
+    test_task_binary_dedup_legacy_parity)."""
+    with pytest.raises(VegaError, match="a bool"):
+        _port(task_binary_dedup=1)
+    rows = [(i % 7, i) for i in range(140)]
+    want = None
+    for dedup in (True, False):
+        ctx = vt.Context(mode="distributed", device="cpu", n_shards=4,
+                         num_executors=1, num_workers=2,
+                         task_binary_dedup=dedup)
+        try:
+            assert ctx._backend._worker_knobs(ctx.conf)[
+                "VEGA_TPU_TASK_BINARY_DEDUP"] == ("1" if dedup else "0")
+            got = sorted(ctx.parallelize(rows, 8).reduce_by_key(
+                lambda a, b: a + b, 4).collect())
+            dispatch = ctx.metrics_summary()["dispatch"]
+        finally:
+            ctx.stop()
+        assert dispatch["tasks_v2" if dedup else "tasks_legacy"] == 12
+        assert dispatch["tasks_legacy" if dedup else "tasks_v2"] == 0
+        want = want or got
+        assert got == want
     ref = v.Context("local", num_workers=1, task_binary_dedup=False)
-    ref.stop()
-    with pytest.raises(TypeError, match="task_binary_dedup"):
-        _port(task_binary_dedup=False)
+    try:
+        assert sorted(ref.parallelize(rows, 8).reduce_by_key(
+            lambda a, b: a + b, 4).collect()) == want
+    finally:
+        ref.stop()
 
 
 def test_settings_defaults_are_the_references():

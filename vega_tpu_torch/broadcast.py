@@ -8,8 +8,9 @@ unpickles the value on first use and keeps it (the reference keeps it in
 its BROADCAST cache key space). unpersist() drops both. As in the
 reference, .value after unpersist() of a broadcast never pickled raises
 TypeError (there is no payload to read), and a pickled one still gives
-its payload's value. Stdlib pickle takes the place of cloudpickle, so a
-broadcast value cannot be a closure.
+its payload's value. The payload is pickled by serialization.py, which
+sends functions by value as the reference's cloudpickle does; an
+executor process (mode="distributed") unpickles it once and keeps it.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import itertools
 import pickle
 import threading
 from typing import Any
+
+from vega_tpu_torch import serialization
 
 _next_id = itertools.count(0)
 _local_values: dict = {}
@@ -54,8 +57,7 @@ class Broadcast:
         if self._payload is None:
             with _lock:
                 value = _local_values.get(self.id)
-            self._payload = pickle.dumps(value,
-                                         protocol=pickle.HIGHEST_PROTOCOL)
+            self._payload = serialization.dumps(value)
         return {"id": self.id, "_payload": self._payload}
 
     def __setstate__(self, state):

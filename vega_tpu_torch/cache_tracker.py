@@ -5,7 +5,9 @@ RDD.iterator calls get_or_compute for a persisted node: the partition is
 read from the Context's tiered cache (store/tiered.py) or computed once,
 under a per-partition lock so two tasks never compute the same cached
 partition twice, put into the cache at the node's StorageLevel and its
-location ("local") registered with the CacheTracker."""
+location (the executor's id, "local" in the driver's process)
+registered with the CacheTracker (from an executor over the driver
+service, distributed/driver_service.py)."""
 
 from __future__ import annotations
 
@@ -37,6 +39,18 @@ class CacheTracker:
                                                                  [])
             if host not in hosts:
                 hosts.insert(0, host)
+
+    def drop_executor(self, executor_id: str) -> int:
+        """A lost executor dropped from every cached partition's
+        locations; returns the entries removed."""
+        removed = 0
+        with self._lock:
+            for parts in self._locs.values():
+                for p, hosts in parts.items():
+                    if executor_id in hosts:
+                        parts[p] = [h for h in hosts if h != executor_id]
+                        removed += 1
+        return removed
 
     def get_location_snapshot(self) -> Dict[int, Dict[int, List[str]]]:
         with self._lock:

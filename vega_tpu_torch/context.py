@@ -95,8 +95,26 @@ settings are the reference's Configuration fields with its defaults
 shuffle_memory_budget, shuffle_spill_threshold, resubmit_timeout_s,
 poll_timeout_s, max_failures, scheduler_mode,
 task_binary_cache_entries, speculation_enabled / _multiplier / _min_s /
-_quorum. The reference's task_binary_dedup is read only by its
-distributed backend, and comes with the port's.
+_quorum.
+
+mode="distributed" runs every host job's tasks on num_executors
+executor processes over TCP instead (distributed/backend.py; the
+reference's Context("distributed")): each an executor of its own with
+its shuffle store served by its shuffle server, the driver's trackers
+served to them (distributed/driver_service.py), the dense tier on this
+Context's device; executors run on the CPU and a DenseRDD a task reads
+reaches them as its rows (dense_rdd._HostDenseView). Its settings are
+the reference's with its defaults: num_executors (2), locality_wait_s,
+heartbeat_interval_s, executor_liveness_timeout_s,
+executor_reap_interval_s, executor_max_restarts,
+executor_restart_backoff_s, executor_blacklist_threshold, fetch_retries,
+fetch_retry_interval_s, fetch_batch_enabled, fetch_queue_buckets,
+task_binary_dedup, shuffle_replication, fetch_slow_server_s,
+decommission_timeout_s, blacklist_decay_s, and the session logs'
+local_dir, log_level, log_cleanup. shuffle_plan, shuffle_coding,
+hosts_file and elastic_enabled are taken only at their defaults, and
+fleet_status() and mode="distributed" with multihost= are refused, each
+VegaError naming the ROADMAP item that brings it.
 
 The job server's names: submit_job(rdd, func, partitions, pool,
 transform) runs a job asynchronously in a pool (set_pool: weight,
@@ -161,7 +179,10 @@ import torch
 from vega_tpu_torch import dense_rdd
 from vega_tpu_torch import exchange_plan
 from vega_tpu_torch import kernels
-from vega_tpu_torch.env import Configuration, Env, check_runtime_settings
+from vega_tpu_torch.env import (REFUSED_SETTINGS, Configuration,
+                                DeploymentMode, Env, attach_session_logger,
+                                check_runtime_settings,
+                                detach_session_logger)
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame.api import DataFrame
 from vega_tpu_torch import mesh as mesh_lib
@@ -219,7 +240,52 @@ class Context:
                  speculation_enabled: bool = False,
                  speculation_multiplier: float = 3.0,
                  speculation_min_s: float = 1.0,
-                 speculation_quorum: float = 0.75):
+                 speculation_quorum: float = 0.75,
+                 mode: str = "local",
+                 num_executors: Optional[int] = None,
+                 locality_wait_s: float = 0.3,
+                 heartbeat_interval_s: float = 2.0,
+                 executor_liveness_timeout_s: float = 30.0,
+                 executor_reap_interval_s: float = 5.0,
+                 executor_max_restarts: int = 3,
+                 executor_restart_backoff_s: float = 1.0,
+                 executor_blacklist_threshold: int = 5,
+                 fetch_retries: int = 3,
+                 fetch_retry_interval_s: float = 0.2,
+                 fetch_batch_enabled: bool = True,
+                 fetch_queue_buckets: int = 32,
+                 task_binary_dedup: bool = True,
+                 shuffle_replication: int = 1,
+                 fetch_slow_server_s: float = 0.0,
+                 decommission_timeout_s: float = 10.0,
+                 blacklist_decay_s: float = 60.0,
+                 local_dir: Optional[str] = None,
+                 log_level: str = "WARNING",
+                 log_cleanup: bool = True,
+                 shuffle_plan: str = "pull",
+                 shuffle_coding: str = "none",
+                 hosts_file: Optional[str] = None,
+                 elastic_enabled: bool = False):
+        refused = dict(shuffle_plan=shuffle_plan,
+                       shuffle_coding=shuffle_coding, hosts_file=hosts_file,
+                       elastic_enabled=elastic_enabled)
+        for name, value in refused.items():
+            default, item = REFUSED_SETTINGS[name]
+            if value != default:
+                raise VegaError(
+                    f"{name}={value!r} is not ported yet: only "
+                    f"{default!r} is taken until ROADMAP {item}")
+        mode = _check_setting("mode", mode, mode in ("local", "distributed"),
+                              "'local' or 'distributed'")
+        if mode == "distributed":
+            from vega_tpu_torch import faults
+
+            faults.check_environ()
+        if mode == "distributed" and multihost is not None:
+            raise VegaError(
+                "mode='distributed' together with multihost= is not ported "
+                "yet: ROADMAP queue 1 item 12 (a fleet per rank, with the "
+                "ranks' collective order kept)")
         runtime = dict(
             serialize_tasks_locally=serialize_tasks_locally,
             cache_capacity_bytes=cache_capacity_bytes,
@@ -235,9 +301,30 @@ class Context:
             speculation_quorum=speculation_quorum)
         if num_workers is not None:
             runtime["num_workers"] = num_workers
-        # the local runtime's Configuration (env.py), each setting checked
+        runtime.update(
+            num_executors=num_executors, locality_wait_s=locality_wait_s,
+            heartbeat_interval_s=heartbeat_interval_s,
+            executor_liveness_timeout_s=executor_liveness_timeout_s,
+            executor_reap_interval_s=executor_reap_interval_s,
+            executor_max_restarts=executor_max_restarts,
+            executor_restart_backoff_s=executor_restart_backoff_s,
+            executor_blacklist_threshold=executor_blacklist_threshold,
+            fetch_retries=fetch_retries,
+            fetch_retry_interval_s=fetch_retry_interval_s,
+            fetch_batch_enabled=fetch_batch_enabled,
+            fetch_queue_buckets=fetch_queue_buckets,
+            task_binary_dedup=task_binary_dedup,
+            shuffle_replication=shuffle_replication,
+            fetch_slow_server_s=fetch_slow_server_s,
+            decommission_timeout_s=decommission_timeout_s,
+            blacklist_decay_s=blacklist_decay_s, log_level=log_level,
+            log_cleanup=log_cleanup)
+        if local_dir is not None:
+            runtime["local_dir"] = local_dir
+        # the runtime's Configuration (env.py), each setting checked
         self.conf: Configuration = check_runtime_settings(runtime)
         self.conf.spill_dir = spill_dir
+        self.conf.deployment_mode = DeploymentMode(mode)
         self._check_job_settings(
             admission_mode, pool_max_queued, stream_batch_interval_s,
             stream_block_max_records, stream_queue_max_blocks,
@@ -314,10 +401,31 @@ class Context:
             # collective a task reaches is issued in one order everywhere
             self.conf.num_workers = 1
             self.conf.speculation_enabled = False
-        # the DAG scheduler over the thread-pool backend, behind the job
-        # server (scheduler/)
-        self.scheduler = DAGScheduler(LocalBackend(self.conf), self.env,
-                                      self.bus)
+        # the DAG scheduler over the thread-pool backend or the executor
+        # fleet, behind the job server (scheduler/)
+        self._log_handler = None
+        self._log_dir = None
+        if mode == "distributed":
+            from vega_tpu_torch.distributed.backend import DistributedBackend
+
+            self._log_dir = os.path.join(
+                self.conf.local_dir, f"session-{uuid.uuid4().hex[:12]}")
+            self._log_handler = attach_session_logger(
+                self._log_dir, "driver", self.conf.log_level)
+            try:
+                self._backend = DistributedBackend(self.conf, self.env)
+            except BaseException:
+                self._close_session_log()
+                self.bus.stop()
+                self.env.close()
+                raise
+            self._backend.event_sink = self.bus.post
+        else:
+            self._backend = LocalBackend(self.conf)
+        self.scheduler = DAGScheduler(self._backend, self.env, self.bus)
+        if mode == "distributed":
+            self._backend.add_executor_lost_listener(
+                self.scheduler._on_executor_lost)
         self.scheduler.prepare = _materialize_dense
         self.job_server = jobserver.JobServer(
             self.scheduler, self.conf, admission_mode=self.admission_mode,
@@ -570,11 +678,17 @@ class Context:
     def metrics_summary(self) -> dict:
         """The event bus's metrics (scheduler/events.py
         MetricsListener.summary: jobs, stages, tasks, failures,
-        resubmissions, spills, speculation, fetch, streaming,
-        pool_latency) and exchange_plans (exchange_plans())."""
+        resubmissions, executors lost and restarted, spills, speculation,
+        fetch, locality, dispatch, streaming, pool_latency) and
+        exchange_plans (exchange_plans())."""
         self.bus.flush()
         return {**self.metrics.summary(),
                 "exchange_plans": self.exchange_plans()}
+
+    def fleet_status(self):
+        """The reference's fleet report belongs to its elastic plane."""
+        raise VegaError("fleet_status() is not ported yet: ROADMAP "
+                        "queue 1 item 10 (the elastic fleet)")
 
     def storage_status(self) -> dict:
         """The block stores' counters under the reference's keys: the
@@ -802,7 +916,14 @@ class Context:
             self.scheduler.stop()
             self.env.close()
             shutil.rmtree(self._work_dir(), ignore_errors=True)
+            self._close_session_log()
             self._stopped = True
+
+    def _close_session_log(self) -> None:
+        detach_session_logger(self._log_handler)
+        self._log_handler = None
+        if self._log_dir is not None and self.conf.log_cleanup:
+            shutil.rmtree(self._log_dir, ignore_errors=True)
 
     def __enter__(self):
         return self
@@ -818,11 +939,50 @@ class Context:
 
 
 def _live_context(ctx_id: int) -> "Context":
+    """The Context a lineage names: the live one of that id, else, in an
+    executor process, its _StubContext."""
     with _live_lock:
         for ctx in _live_contexts:
             if ctx._ctx_id == ctx_id:
                 return ctx
+    if _stub_context is not None:
+        return _stub_context
     raise VegaError(f"Context {ctx_id} is not live in this process")
+
+
+class _StubContext:
+    """What a lineage's Context is inside an executor process (the
+    reference's _StubContext): id counters from 1 << 40, so ids made here
+    never meet the driver's, and the executor's Env; a job cannot start
+    here."""
+
+    def __init__(self, env):
+        self.env = env
+        self._rdd_ids = itertools.count(1 << 40)
+        self._shuffle_ids = itertools.count(1 << 40)
+
+    def new_rdd_id(self) -> int:
+        return next(self._rdd_ids)
+
+    def new_shuffle_id(self) -> int:
+        return next(self._shuffle_ids)
+
+    def run_job(self, *_a, **_k):
+        raise RuntimeError("run_job is driver-only; executors compute "
+                           "partitions")
+
+    def __reduce__(self):
+        return (_live_context, (-1,))
+
+
+_stub_context: Optional[_StubContext] = None
+
+
+def _install_executor_env(env) -> None:
+    """Make this process an executor's: lineages it unpickles get a
+    _StubContext over env (distributed/worker.py)."""
+    global _stub_context
+    _stub_context = _StubContext(env)
 
 
 def _materialize_dense(rdd) -> None:
@@ -831,6 +991,9 @@ def _materialize_dense(rdd) -> None:
     reads materialized (each one's own lineage with it), in one
     depth-first order; across processes each one's rows are read to the
     host here too, so task threads dispatch no collective."""
+    ctx = rdd.context
+    ships = ctx.scheduler.backend.preserialize_stage_binaries or \
+        ctx.conf.deployment_mode is DeploymentMode.DISTRIBUTED
     stack, seen = [rdd], set()
     while stack:
         node = stack.pop()
@@ -842,5 +1005,9 @@ def _materialize_dense(rdd) -> None:
                 node._host_stage()
             else:
                 node.block()
+            if ships:
+                # the node's rows as they will be pickled, taken here
+                # under the dense lock (never on a dispatch thread)
+                node._pickle_memo()
             continue
         stack.extend(reversed([dep.rdd for dep in node.get_dependencies()]))

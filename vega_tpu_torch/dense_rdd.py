@@ -1636,6 +1636,48 @@ class DenseRDD(RDD):
             return iter(self._rows_of(cols))
         return _yield_rows(cols)
 
+    # --- across processes ---------------------------------------------------
+    def _pickle_memo(self) -> dict:
+        """What this node pickles as (the reference's memoized
+        __getstate__): its shards' rows on the host, read once under the
+        Context's dense lock: decoded numpy columns where compute yields
+        _yield_rows of them, else the rows compute yields."""
+        memo = self.__dict__.get("_pickle_state_memo")
+        if memo is not None:
+            return memo
+        with self.context._dense_lock:
+            memo = self.__dict__.get("_pickle_state_memo")
+            if memo is None:
+                n = self.num_partitions
+                cls = type(self)
+                if cls.compute is DenseRDD.compute \
+                        and cls._compute_rows is DenseRDD._compute_rows \
+                        and not self.host_rows:
+                    shards = [("cols", self._shard_cols(i))
+                              for i in range(n)]
+                else:
+                    shards = [("rows", list(self.compute(Split(i))))
+                              for i in range(n)]
+                memo = {"context": self.context, "rdd_id": self.rdd_id,
+                        "_pinned": self._pinned, "shards": shards}
+                self._pickle_state_memo = memo
+        return memo
+
+    def __getstate__(self):
+        """A dense node crosses a process boundary as its rows on the host
+        (tensors, the mesh and traced programs are this process's): it
+        unpickles as a _HostDenseView that only iterates. A stage binary
+        carries the whole block, once per stage and executor."""
+        return self._pickle_memo()
+
+    def __setstate__(self, state):
+        self.__class__ = _HostDenseView
+        self.context = state["context"]
+        self.rdd_id = state["rdd_id"]
+        self._init_host_state([], None)
+        self._pinned = state["_pinned"]
+        self._shards = state["shards"]
+
     def to_rdd(self) -> RDD:
         """The explicit hand-off to the host tier: an identity
         MapPartitionsRDD over the shards' rows."""
@@ -2070,6 +2112,32 @@ class DenseRDD(RDD):
         job) takes it. An empty RDD raises through the future."""
         from vega_tpu_torch import host_actions
         return host_actions.reduce_async(self, f)
+
+
+class _HostDenseView(RDD):
+    """What an unpickled DenseRDD is (an executor's copy): its shards'
+    rows on the host, one partition per shard, compute only; no device
+    op runs on it."""
+
+    def __init__(self, *a, **kw):
+        raise TypeError("_HostDenseView is made by unpickling a DenseRDD")
+
+    @property
+    def num_partitions(self) -> int:
+        return len(self._shards)
+
+    def __getstate__(self):
+        return {"context": self.context, "rdd_id": self.rdd_id,
+                "_pinned": self._pinned, "shards": self._shards}
+
+    def __setstate__(self, state):
+        DenseRDD.__setstate__(self, state)
+
+    def compute(self, split: Split, task_context=None):
+        kind, data = self._shards[split.index]
+        if kind == "cols":
+            return _yield_rows(data)
+        return iter(data)
 
 
 class _SourceRDD(DenseRDD):

@@ -7,13 +7,20 @@ ShuffleDependency is a stage boundary holding the parent, the aggregator
 of the map-side combine and the output partitioner; its do_shuffle_task
 is a map task's body (scheduler/task.py ShuffleMapTask): the parent
 partition bucketed by the partitioner, combined per bucket, each bucket
-pickled into the Context's shuffle store (shuffle/store.py). This is the
-reference's pure-Python path, the one it takes without its native
-library; its native encodings and its push, replica and parity planes
-belong to its distributed backend."""
+pickled into the Context's shuffle store (shuffle/store.py) (an
+executor's own store in mode="distributed"). This is the reference's
+pure-Python path, the one it takes without its native library. Under
+shuffle_replication = k > 1 an executor's map task also pushes its bucket
+row to k - 1 live peers (one put_many round trip each, peers rotated by
+map id) and returns the ordered location list, the primary first; a
+failed push leaves fewer replicas and never fails the task. The
+reference's push and parity planes wait for ROADMAP queue 1 items 7-8."""
 
 from __future__ import annotations
 
+import logging
+import threading
+import time
 from typing import TYPE_CHECKING, List
 
 from vega_tpu_torch import serialization
@@ -22,6 +29,37 @@ from vega_tpu_torch.partitioner import Partitioner
 
 if TYPE_CHECKING:
     from vega_tpu_torch.rdd.base import RDD
+
+log = logging.getLogger(__name__)
+
+# the live peers' shuffle servers, per process and tracker: a map stage
+# asks the driver once per _PEER_CACHE_TTL_S, not once per task; a failed
+# push drops it
+_PEER_CACHE_TTL_S = 5.0
+_peer_cache: dict = {"tracker": None, "peers": None, "expires": 0.0}
+
+# replica bytes pushed by this process (an executor's worker_stats)
+_push_lock = threading.Lock()
+_REDUNDANCY = {"replica_pushes": 0, "replica_push_bytes": 0}
+
+
+def redundancy_stats_snapshot() -> dict:
+    with _push_lock:
+        return dict(_REDUNDANCY)
+
+
+def _live_shuffle_peers(tracker) -> List[str]:
+    now = time.monotonic()
+    if _peer_cache["tracker"] is tracker and now < _peer_cache["expires"]:
+        return _peer_cache["peers"]
+    peers = [u for u in tracker.list_shuffle_peers().values() if u]
+    _peer_cache.update(tracker=tracker, peers=peers,
+                       expires=now + _PEER_CACHE_TTL_S)
+    return peers
+
+
+def _invalidate_peer_cache() -> None:
+    _peer_cache["expires"] = 0.0
 
 
 class Dependency:
@@ -101,7 +139,7 @@ class ShuffleDependency(Dependency):
         rows = list(self.rdd.iterator(split, task_context))
         buckets = [dict() for _ in range(self.partitioner.num_partitions)]
         _bucket(self, rows, buckets)
-        row = [serialization.dumps(list(bucket.items()))
+        row = [serialization.dumps_data(list(bucket.items()))
                for bucket in buckets]
         store = env.shuffle_store
         for reduce_id, blob in enumerate(row):
@@ -109,9 +147,56 @@ class ShuffleDependency(Dependency):
         return self._publish(env, split.index, row)
 
     def _publish(self, env, map_id: int, row: list) -> tuple:
-        """The stored bucket row as the map task's result: its location
-        (this process's store) and each bucket's bytes."""
-        return ("local", [len(b) for b in row])
+        """The stored bucket row as the map task's result: its
+        location(s) and each bucket's bytes."""
+        return (self._publish_locs(env, map_id, row), [len(b) for b in row])
+
+    def _publish_locs(self, env, map_id: int, row: list):
+        """This output's location: "local" in a driver's process, the
+        executor's shuffle server in mode="distributed", and with
+        shuffle_replication = k > 1 the list of it and up to k - 1 peers
+        the row was pushed to."""
+        server = env.shuffle_server
+        if server is None:
+            return "local"
+        primary = server.uri
+        k = int(env.conf.shuffle_replication)
+        peers_fn = getattr(env.map_output_tracker, "list_shuffle_peers",
+                           None)
+        if k <= 1 or peers_fn is None:
+            return primary
+        from vega_tpu_torch.distributed.shuffle_server import (
+            push_buckets_remote)
+        from vega_tpu_torch.errors import NetworkError
+
+        try:
+            peers = sorted(u for u in
+                           _live_shuffle_peers(env.map_output_tracker)
+                           if u != primary)
+        except NetworkError as e:
+            log.warning("replica peer discovery failed (%s); the map "
+                        "output keeps its primary only", e)
+            return primary
+        locs = [primary]
+        row_bytes = sum(len(b) for b in row)
+        for i in range(len(peers)):
+            if len(locs) >= k:
+                break
+            uri = peers[(map_id + i) % len(peers)]
+            try:
+                push_buckets_remote(uri, self.shuffle_id, map_id, row)
+            except NetworkError as e:
+                log.warning("replica push of shuffle %d map %d to %s "
+                            "failed (%s); %d cop%s kept", self.shuffle_id,
+                            map_id, uri, e, len(locs),
+                            "y" if len(locs) == 1 else "ies")
+                _invalidate_peer_cache()
+                continue
+            with _push_lock:
+                _REDUNDANCY["replica_pushes"] += 1
+                _REDUNDANCY["replica_push_bytes"] += row_bytes
+            locs.append(uri)
+        return locs if len(locs) > 1 else primary
 
 
 def _bucket(dep: ShuffleDependency, rows: list, buckets: List[dict]) -> None:

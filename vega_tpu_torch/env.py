@@ -25,7 +25,9 @@ from __future__ import annotations
 import collections
 import dataclasses
 import enum
+import logging
 import os
+import tempfile
 import weakref
 from typing import List, Optional
 
@@ -76,6 +78,97 @@ class Configuration:
     speculation_multiplier: float = 3.0
     speculation_min_s: float = 1.0
     speculation_quorum: float = 0.75
+    # --- the distributed backend (distributed/) ---
+    # executor processes of mode="distributed" (None: 2)
+    num_executors: Optional[int] = None
+    # > 0: reduce tasks prefer the servers holding most of their input and
+    # placement scores PROCESS_LOCAL > HOST_LOCAL > ANY; a task whose
+    # preferred host has its executor respawning waits up to this long
+    locality_wait_s: float = 0.3
+    # worker -> driver heartbeat period
+    heartbeat_interval_s: float = 2.0
+    # an executor silent this long is declared lost
+    executor_liveness_timeout_s: float = 30.0
+    # the liveness reaper's sweep period
+    executor_reap_interval_s: float = 5.0
+    # respawns of a dead executor slot, attempt k after backoff * 2**k
+    executor_max_restarts: int = 3
+    executor_restart_backoff_s: float = 1.0
+    # consecutive dispatch failures before an executor is passed over
+    executor_blacklist_threshold: int = 5
+    # a dropped fetch connection retried in place this many times, with
+    # linear backoff, before FetchFailedError
+    fetch_retries: int = 3
+    fetch_retry_interval_s: float = 0.2
+    # one batched get_many round trip per (reducer, server); False: one
+    # get per bucket
+    fetch_batch_enabled: bool = True
+    # fetched-but-unmerged buckets a reduce task holds at most
+    fetch_queue_buckets: int = 32
+    # task_v2: a stage's binary shipped once per executor and a small
+    # header per task; False: the whole task per task
+    task_binary_dedup: bool = True
+    # executors holding each map output (1: the primary only)
+    shuffle_replication: int = 1
+    # > 0: a server whose every requested bucket has a replica is given
+    # up after this long and its buckets read from the replicas
+    fetch_slow_server_s: float = 0.0
+    # a decommissioned executor's drain bound before it is declared lost
+    decommission_timeout_s: float = 10.0
+    # a dispatch-failure count older than this is forgiven (0: never)
+    blacklist_decay_s: float = 60.0
+    # the session log files of mode="distributed": <local_dir>/session-*/
+    # driver.log and executor-<id>.log, at log_level, removed at stop
+    # unless log_cleanup is False
+    local_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(),
+                                             "vega-tpu"))
+    log_level: str = "WARNING"
+    log_cleanup: bool = True
+
+    @staticmethod
+    def from_environ(environ=None) -> "Configuration":
+        """A Configuration from the VEGA_TPU_* variables an executor is
+        started with (backend._worker_knobs), the rest at their
+        defaults."""
+        env = os.environ if environ is None else environ
+        cfg = Configuration()
+        pref = "VEGA_TPU_"
+        if env.get(pref + "DEPLOYMENT_MODE"):
+            cfg.deployment_mode = DeploymentMode(env[pref + "DEPLOYMENT_MODE"])
+        for name in _ENV_STR:
+            if env.get(pref + name):
+                setattr(cfg, name.lower(), env[pref + name])
+        for name in _ENV_INT:
+            if env.get(pref + name):
+                setattr(cfg, name.lower(), int(env[pref + name]))
+        for name in _ENV_BOOL:
+            if env.get(pref + name):
+                setattr(cfg, name.lower(),
+                        env[pref + name].lower() in ("1", "true"))
+        for name in _ENV_FLOAT:
+            if env.get(pref + name):
+                setattr(cfg, name.lower(), float(env[pref + name]))
+        return cfg
+
+
+_ENV_STR = ("LOCAL_DIR", "LOG_LEVEL", "SPILL_DIR", "SCHEDULER_MODE")
+_ENV_INT = ("NUM_WORKERS", "NUM_EXECUTORS", "CACHE_CAPACITY_BYTES",
+            "MAX_FAILURES", "SHUFFLE_MEMORY_BUDGET",
+            "SHUFFLE_SPILL_THRESHOLD", "EXECUTOR_MAX_RESTARTS",
+            "EXECUTOR_BLACKLIST_THRESHOLD", "FETCH_RETRIES",
+            "FETCH_QUEUE_BUCKETS", "TASK_BINARY_CACHE_ENTRIES",
+            "SHUFFLE_REPLICATION")
+_ENV_BOOL = ("LOG_CLEANUP", "SERIALIZE_TASKS_LOCALLY",
+             "SPECULATION_ENABLED", "FETCH_BATCH_ENABLED",
+             "TASK_BINARY_DEDUP")
+_ENV_FLOAT = ("RESUBMIT_TIMEOUT_S", "POLL_TIMEOUT_S",
+              "SPECULATION_MULTIPLIER", "SPECULATION_MIN_S",
+              "SPECULATION_QUORUM", "HEARTBEAT_INTERVAL_S",
+              "EXECUTOR_LIVENESS_TIMEOUT_S", "EXECUTOR_REAP_INTERVAL_S",
+              "EXECUTOR_RESTART_BACKOFF_S", "FETCH_RETRY_INTERVAL_S",
+              "FETCH_SLOW_SERVER_S", "LOCALITY_WAIT_S",
+              "DECOMMISSION_TIMEOUT_S", "BLACKLIST_DECAY_S")
 
 
 def _positive_int(v) -> bool:
@@ -106,6 +199,43 @@ _CHECKS = {
     "speculation_min_s": (_seconds, "seconds >= 0"),
     "speculation_quorum": (lambda v: _seconds(v) and v <= 1,
                            "a fraction in [0, 1]"),
+    "num_executors": (lambda v: v is None or _positive_int(v),
+                      "an int >= 1 or None"),
+    "locality_wait_s": (_seconds, "seconds >= 0"),
+    "heartbeat_interval_s": (lambda v: _seconds(v) and v > 0,
+                             "seconds > 0"),
+    "executor_liveness_timeout_s": (lambda v: _seconds(v) and v > 0,
+                                    "seconds > 0"),
+    "executor_reap_interval_s": (lambda v: _seconds(v) and v > 0,
+                                 "seconds > 0"),
+    "executor_max_restarts": (lambda v: isinstance(v, int)
+                              and not isinstance(v, bool) and v >= 0,
+                              "an int >= 0"),
+    "executor_restart_backoff_s": (_seconds, "seconds >= 0"),
+    "executor_blacklist_threshold": (_positive_int, "an int >= 1"),
+    "fetch_retries": (_positive_int, "an int >= 1"),
+    "fetch_retry_interval_s": (_seconds, "seconds >= 0"),
+    "fetch_batch_enabled": (lambda v: isinstance(v, bool), "a bool"),
+    "fetch_queue_buckets": (_positive_int, "an int >= 1"),
+    "task_binary_dedup": (lambda v: isinstance(v, bool), "a bool"),
+    "shuffle_replication": (_positive_int, "an int >= 1"),
+    "fetch_slow_server_s": (_seconds, "seconds >= 0"),
+    "decommission_timeout_s": (_seconds, "seconds >= 0"),
+    "blacklist_decay_s": (_seconds, "seconds >= 0"),
+    "local_dir": (lambda v: isinstance(v, str) and bool(v), "a path"),
+    "log_level": (lambda v: isinstance(v, (str, int))
+                  and not isinstance(v, bool), "a logging level"),
+    "log_cleanup": (lambda v: isinstance(v, bool), "a bool"),
+}
+
+# settings of the reference that this port takes only at their default,
+# each with the queue item of ROADMAP.md that brings it
+REFUSED_SETTINGS = {
+    "shuffle_plan": ("pull", "queue 1 item 7 (the push plan)"),
+    "shuffle_coding": ("none", "queue 1 item 8 (the coded shuffle)"),
+    "hosts_file": (None, "queue 1 item 9 (hosts files, ssh hosts and "
+                         "the native framing)"),
+    "elastic_enabled": (False, "queue 1 item 10 (the elastic fleet)"),
 }
 
 RUNTIME_SETTINGS = tuple(_CHECKS)
@@ -153,6 +283,9 @@ class Env:
         # ShuffleFetchCompleted per reduce stream
         self.fetch_event_sink = None
         self.executor_id: Optional[str] = None
+        # an executor's own shuffle server (distributed/worker.py); None
+        # on a driver, which serves no shuffle data
+        self.shuffle_server = None
         # shuffle ids whose reading node was collected, not yet dropped
         self._released_shuffles: collections.deque = collections.deque()
 
@@ -176,3 +309,37 @@ class Env:
     def close(self) -> None:
         self.shuffle_store.close()
         self.cache.close()
+
+
+def normalize_log_level(level) -> int:
+    """'info', 'INFO' or 20 -> 20; an unknown name -> WARNING."""
+    if isinstance(level, int):
+        return level
+    resolved = logging.getLevelName(str(level).upper())
+    return resolved if isinstance(resolved, int) else logging.WARNING
+
+
+def attach_session_logger(session_dir: str, role: str, level):
+    """A log file <session_dir>/<role>.log on the package's logger at
+    level; the handler, or None when the directory is not writable."""
+    try:
+        os.makedirs(session_dir, exist_ok=True)
+        handler = logging.FileHandler(os.path.join(session_dir,
+                                                   f"{role}.log"))
+    except OSError:
+        return None
+    handler.setFormatter(logging.Formatter(
+        "%(asctime)s %(levelname)s %(name)s %(message)s"))
+    level = normalize_log_level(level)
+    handler.setLevel(level)
+    pkg_log = logging.getLogger("vega_tpu_torch")
+    pkg_log.addHandler(handler)
+    if level < pkg_log.getEffectiveLevel():
+        pkg_log.setLevel(level)
+    return handler
+
+
+def detach_session_logger(handler) -> None:
+    if handler is not None:
+        logging.getLogger("vega_tpu_torch").removeHandler(handler)
+        handler.close()

@@ -86,3 +86,8 @@ class TaskCancelledError(VegaError):
     """A task attempt was cancelled before it ran (the losing copy of a
     speculated pair, or an attempt of a cancelled job); it never counts
     against max_failures."""
+
+
+class NetworkError(VegaError):
+    """A connection of the distributed backend failed: a connect refused
+    or timed out, a peer that hung up mid-message, an error reply."""

@@ -16,7 +16,10 @@ streaming receivers consult.
 Each is armed in process by configure(field=value) (the reference also
 reads VEGA_TPU_FAULT_* environment variables, for its worker processes);
 every decision counts down (the first N), none is random. The
-reference's other hooks belong to its distributed backend."""
+reference's hooks of its executors and shuffle servers, and its
+VEGA_TPU_FAULT_* variables, wait for ROADMAP queue 1 item 11:
+configure() with one of them, and a distributed Context started with
+one of the variables set, raise VegaError naming the item."""
 
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import os
 import threading
 import time
 from typing import Optional
+
+from vega_tpu_torch.errors import VegaError
 
 log = logging.getLogger(__name__)
 
@@ -87,6 +92,25 @@ class FaultInjector:
         log.warning("FAULT: corrupted spilled bucket %s", key)
 
 
+# the reference's executor and shuffle-server hooks (not ported yet)
+REFERENCE_ONLY_FIELDS = (
+    "kill_after_tasks", "hang_tasks", "suppress_heartbeats",
+    "fetch_drop_n", "fetch_delay_s", "fetch_stream_drop_n",
+    "fetch_drop_after_buckets", "push_drop_n", "merged_delay_s",
+    "parity_corrupt_n", "drop_binary_n", "decommission_hang_s",
+    "stats_dir")
+_NOT_PORTED = ("is not ported yet: ROADMAP queue 1 item 11 (the worker, "
+               "shuffle-server and elastic fault hooks)")
+
+
+def check_environ(environ=None) -> None:
+    """VegaError when a VEGA_TPU_FAULT_* variable is set."""
+    env = os.environ if environ is None else environ
+    names = sorted(k for k in env if k.startswith("VEGA_TPU_FAULT_"))
+    if names:
+        raise VegaError(f"{', '.join(names)} {_NOT_PORTED}")
+
+
 _injector: Optional[FaultInjector] = None
 _injector_lock = threading.Lock()
 
@@ -107,6 +131,8 @@ def configure(**fields) -> FaultInjector:
     with _injector_lock:
         inj = FaultInjector()
         for name, value in fields.items():
+            if name in REFERENCE_ONLY_FIELDS:
+                raise VegaError(f"fault field {name} {_NOT_PORTED}")
             if not hasattr(inj, name):
                 raise AttributeError(f"unknown fault field: {name}")
             setattr(inj, name, value)

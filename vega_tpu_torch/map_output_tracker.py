@@ -1,14 +1,19 @@
-"""Map-output locations: the port's copy of vega_tpu/map_output_tracker.py
-for the local runtime.
+"""Map-output locations: the port's copy of vega_tpu/map_output_tracker.py.
 
-Per shuffle, one ordered location list per map output ("local" in this
-process); an output is available while its list holds a location. The
-DAG scheduler registers a map stage's outputs when the stage completes
-and unregisters one on a fetch failure, which bumps the generation;
-reduce tasks read the lists through get_server_uri_lists, which waits on
-a condition until every output of the shuffle has a location. The
-reference's replica, parity and per-bucket-size accounting belong to its
-distributed backend and are not here."""
+Per shuffle, one ordered location list per map output: "local" (this
+process's store), or executors' shuffle-server URIs, the primary first
+and then the replicas written under shuffle_replication > 1; an output
+is available while its list holds a location. The DAG scheduler
+registers a map stage's outputs when the stage completes and unregisters
+one on a fetch failure, which bumps the generation; a lost executor's
+server is dropped from every list in one sweep
+(unregister_server_outputs). Reduce tasks read the lists through
+get_server_uri_lists, which waits on a condition until every output of
+the shuffle has a location; executors ask over the driver service
+(distributed/driver_service.py). Per-bucket sizes (register_map_sizes)
+rank the servers a reduce task prefers (top_reduce_locations). The
+reference's parity-group and coded-location methods wait for the coded
+shuffle (ROADMAP queue 1 item 8)."""
 
 from __future__ import annotations
 
@@ -32,6 +37,9 @@ class MapOutputTracker:
     def __init__(self):
         # shuffle_id -> per-map_id ordered location list (empty: missing)
         self._outputs: Dict[int, List[List[str]]] = {}
+        # shuffle_id -> map_id -> per-reduce bucket bytes (advisory:
+        # reduce-side placement only)
+        self._sizes: Dict[int, Dict[int, List[int]]] = {}
         self._generation = 0
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -59,9 +67,91 @@ class MapOutputTracker:
             self._generation += 1
             self._cond.notify_all()
 
+    def unregister_server_outputs(self, uri: str) -> int:
+        """A lost executor: uri dropped from every location list of every
+        shuffle, the generation bumped once; returns the entries it was
+        dropped from (an output with a replica left stays available)."""
+        removed = 0
+        with self._cond:
+            for locs in self._outputs.values():
+                for i, lst in enumerate(locs):
+                    if uri in lst:
+                        removed += 1
+                        locs[i] = [u for u in lst if u != uri]
+            if removed:
+                self._generation += 1
+                self._cond.notify_all()
+        return removed
+
     def unregister_shuffle(self, shuffle_id: int) -> None:
         with self._lock:
             self._outputs.pop(shuffle_id, None)
+            self._sizes.pop(shuffle_id, None)
+
+    def outputs_on_server(self, uri: str):
+        """(shuffle_id, map_id, location list, per-reduce sizes or None)
+        of every output uri holds."""
+        with self._lock:
+            out = []
+            for shuffle_id, locs in self._outputs.items():
+                sizes = self._sizes.get(shuffle_id, {})
+                for map_id, lst in enumerate(locs):
+                    if uri in lst:
+                        row = sizes.get(map_id)
+                        out.append((shuffle_id, map_id, list(lst),
+                                    list(row) if row else None))
+            return out
+
+    def server_bytes(self, uri: str) -> int:
+        """The registered bucket bytes uri holds."""
+        total = 0
+        with self._lock:
+            for shuffle_id, locs in self._outputs.items():
+                sizes = self._sizes.get(shuffle_id, {})
+                for map_id, lst in enumerate(locs):
+                    if uri in lst:
+                        total += sum(sizes.get(map_id, ()))
+        return total
+
+    def replace_location(self, shuffle_id: int, map_id: int,
+                         old_uri: str, new_uri: str) -> None:
+        """old_uri swapped for new_uri in one output's list, in place
+        (order kept, duplicates collapsed); no generation bump."""
+        with self._cond:
+            locs = self._outputs.get(shuffle_id)
+            if locs is None or map_id >= len(locs):
+                return
+            replaced = [new_uri if u == old_uri else u for u in locs[map_id]]
+            locs[map_id] = list(dict.fromkeys(replaced))
+            self._cond.notify_all()
+
+    def register_map_sizes(self, shuffle_id: int,
+                           sizes_by_map: Dict[int, List[int]]) -> None:
+        """Per-reduce bucket bytes of some map outputs (overwritten when
+        a map output is recomputed)."""
+        with self._lock:
+            dst = self._sizes.setdefault(shuffle_id, {})
+            for map_id, sizes in sizes_by_map.items():
+                dst[map_id] = list(sizes)
+
+    def top_reduce_locations(self, shuffle_id: int, reduce_id: int,
+                             limit: int = 2) -> List[str]:
+        """The servers holding most of reduce_id's input bytes, most
+        first (every location of an output holds its whole bucket row);
+        empty when no sizes were registered."""
+        totals: Dict[str, int] = {}
+        with self._lock:
+            sizes = self._sizes.get(shuffle_id)
+            locs = self._outputs.get(shuffle_id)
+            if not sizes or locs is None:
+                return []
+            for map_id, row in sizes.items():
+                if not (0 <= map_id < len(locs)) or reduce_id >= len(row):
+                    continue
+                for uri in locs[map_id]:
+                    totals[uri] = totals.get(uri, 0) + row[reduce_id]
+        ranked = sorted(totals.items(), key=lambda kv: (-kv[1], kv[0]))
+        return [uri for uri, nbytes in ranked[:limit] if nbytes > 0]
 
     def _wait_complete(self, shuffle_id: int, timeout: float) -> None:
         ok = self._cond.wait_for(
@@ -70,6 +160,13 @@ class MapOutputTracker:
         if not ok:
             raise MapOutputError(
                 f"timed out waiting for map outputs of shuffle {shuffle_id}")
+
+    def get_server_uris(self, shuffle_id: int,
+                        timeout: float = 60.0) -> List[str]:
+        """Each output's primary (first) location, once all have one."""
+        with self._cond:
+            self._wait_complete(shuffle_id, timeout)
+            return [lst[0] for lst in self._outputs[shuffle_id]]
 
     def get_server_uri_lists(self, shuffle_id: int,
                              timeout: float = 60.0) -> List[List[str]]:
@@ -86,3 +183,7 @@ class MapOutputTracker:
     def generation(self) -> int:
         with self._lock:
             return self._generation
+
+    def increment_generation(self) -> None:
+        with self._lock:
+            self._generation += 1

@@ -29,9 +29,16 @@ Before its stages are cut, a job writes its lineage's checkpoints and
 runs the prepare hook (the Context's: every DenseRDD of the lineage
 materialized on the device), both on the job's driver thread, so task
 threads touch no device work of their own making; the cyclic garbage
-collector is paused for the job's run (paused_gc). The reference's
-executor loss, decommission and reduce-side placement belong to its
-distributed backend.
+collector is paused for the job's run (paused_gc).
+
+Placement (distributed/backend.py): a task's preferred locations are its
+partition's cached locations, else its RDD's own, else its narrow
+parents', else, past a shuffle, the servers holding most of its reduce
+partition's input bytes (with locality_wait_s > 0). A lost executor
+(_on_executor_lost, the backend's listener) has its server scrubbed from
+every map stage's outputs and its cached partitions dropped, and every
+running job whose lineage reads a stage that lost outputs resubmits it
+at once; apply_decommission is the gentle form for a drained executor.
 """
 
 from __future__ import annotations
@@ -108,6 +115,22 @@ def _lineage_token(rdd) -> tuple:
     return tuple(sorted(token))
 
 
+def _lineage_shuffle_ids(rdd) -> Set[int]:
+    out: Set[int] = set()
+    seen: Set[int] = set()
+    stack = [rdd]
+    while stack:
+        r = stack.pop()
+        if r.rdd_id in seen:
+            continue
+        seen.add(r.rdd_id)
+        for dep in r.get_dependencies():
+            if isinstance(dep, ShuffleDependency):
+                out.add(dep.shuffle_id)
+            stack.append(dep.rdd)
+    return out
+
+
 class TaskBackend:
     """Runs tasks and reports each one's TaskEndEvent to its callback."""
 
@@ -166,6 +189,11 @@ class _Job:
         self.cancel_reason: Optional[str] = None
         self.submitted_stages: Set[Stage] = set()
         self.stage_starts: Dict[int, float] = {}
+        # every shuffle the final RDD's lineage reads (an executor loss
+        # resubmits their stages in this job)
+        self.lineage_shuffle_ids: Set[int] = (
+            _lineage_shuffle_ids(final_rdd) if final_rdd is not None
+            else set())
 
     def live_copies(self, key: tuple) -> int:
         return len(self.inflight.get(key, ()))
@@ -316,7 +344,21 @@ class DAGScheduler:
                                                     depth + 1, memo)
                     if locs:
                         return locs
+            elif isinstance(dep, ShuffleDependency):
+                locs = self._reduce_side_prefs(dep, partition)
+                if locs:
+                    return locs
         return []
+
+    def _reduce_side_prefs(self, dep: ShuffleDependency,
+                           reduce_id: int) -> List[str]:
+        """The shuffle servers holding most of reduce_id's input bytes
+        (the tracker's per-bucket sizes): hints, empty with
+        locality_wait_s 0 or no sizes, and never "local"."""
+        if float(self.env.conf.locality_wait_s or 0.0) <= 0:
+            return []
+        return [u for u in self.env.map_output_tracker.top_reduce_locations(
+                    dep.shuffle_id, reduce_id) if u and u != "local"]
 
     # --- stage ownership between concurrent jobs ----------------------------
     def _try_claim_stage(self, stage: Stage, job: _Job) -> bool:
@@ -716,6 +758,75 @@ class DAGScheduler:
             raise
 
     # --- internals ----------------------------------------------------------
+    def _on_executor_lost(self, executor_id: str, host: str,
+                          shuffle_uri: Optional[str], reason: str) -> None:
+        """The backend's listener (its reaper's thread): the executor's
+        cached partitions dropped from the cache tracker, its server from
+        every map stage's outputs (the tracker was swept already), and
+        every stage that lost outputs marked failed in each running job
+        whose lineage reads it, so its event loop resubmits it at once
+        instead of waiting for a reduce task's fetch to fail."""
+        from vega_tpu_torch import dependency
+
+        dependency._invalidate_peer_cache()
+        dropped = self.env.cache_tracker.drop_executor(executor_id)
+        if dropped:
+            log.info("dropped %d cached-partition locations of lost "
+                     "executor %s", dropped, executor_id)
+        if not shuffle_uri:
+            return
+        with self._stages_lock:
+            stages = list(self._shuffle_to_map_stage.values())
+            jobs = list(self._running_jobs.values())
+        lost_stages = []
+        for stage in stages:
+            before = stage.num_available_outputs
+            stage.remove_outputs_on_server(shuffle_uri)
+            if stage.num_available_outputs < before:
+                lost_stages.append(stage)
+        for job in jobs:
+            for stage in lost_stages:
+                if stage.shuffle_dep.shuffle_id in job.lineage_shuffle_ids:
+                    job.running.discard(stage)
+                    job.failed.add(stage)
+                    job.last_fetch_failure = time.time()
+            q = job.event_queue
+            if lost_stages and q is not None:
+                q.put(_WAKE)
+
+    def apply_decommission(self, shuffle_uri: str, rebind: Dict[tuple, str],
+                           lost: Set[tuple]) -> None:
+        """A drained executor's server leaves every map stage's outputs:
+        the (shuffle_id, map_id) entries in rebind (copied to a survivor)
+        take the survivor's uri in place, the rest are removed, and the
+        running jobs whose lineage reads a lost shuffle resubmit its
+        stage."""
+        with self._stages_lock:
+            stages = list(self._shuffle_to_map_stage.values())
+            jobs = list(self._running_jobs.values())
+        lost_shuffles = {shuffle_id for shuffle_id, _ in lost}
+        for stage in stages:
+            shuffle_id = stage.shuffle_dep.shuffle_id
+            for p in range(stage.num_partitions):
+                new_uri = rebind.get((shuffle_id, p))
+                locs = stage.output_locs[p]
+                if new_uri and shuffle_uri in locs:
+                    swapped = [new_uri if u == shuffle_uri else u
+                               for u in locs]
+                    stage.output_locs[p] = list(dict.fromkeys(swapped))
+            stage.remove_outputs_on_server(shuffle_uri)
+        if not lost_shuffles:
+            return
+        for job in jobs:
+            for stage in stages:
+                if stage.shuffle_dep.shuffle_id in lost_shuffles \
+                        and stage.shuffle_dep.shuffle_id \
+                        in job.lineage_shuffle_ids \
+                        and not stage.is_available:
+                    job.running.discard(stage)
+                    job.failed.add(stage)
+                    job.last_fetch_failure = time.time()
+
     def _stage_by_id(self, stage_id: int) -> Optional[Stage]:
         with self._stages_lock:
             stages = list(self._shuffle_to_map_stage.values())
@@ -731,9 +842,13 @@ class DAGScheduler:
         if stage.is_available:
             job.running.discard(stage)
             job.failed.discard(stage)
-            self.env.map_output_tracker.register_map_outputs(
+            tracker = self.env.map_output_tracker
+            tracker.register_map_outputs(
                 stage.shuffle_dep.shuffle_id,
                 [list(locs) if locs else None for locs in stage.output_locs])
+            if stage.bucket_sizes:
+                tracker.register_map_sizes(stage.shuffle_dep.shuffle_id,
+                                           stage.bucket_sizes)
             self._release_stage_ownership(stage, job)
             self.bus.post(ev.StageCompleted(
                 stage_id=stage.id, job_id=job.job_id,

@@ -8,17 +8,20 @@ waits until every posted event has been dispatched. A listener that
 raises is logged and the others still see the event. Per-job listeners
 (add_job_listener) see only the events of their job.
 
-The events are those the local runtime posts: the scheduler's (jobs,
-stages, tasks, resubmissions, speculation), the stores' (spills and
-promotions of the partition cache and the shuffle store), the fetcher's
-(ShuffleFetchCompleted), the job server's (JobRejected) and the streaming
-plane's. MetricsListener.summary() gives the reference's keys for what
-runs here: jobs, stages, tasks and their failures and seconds, stage
-resubmissions, rejections, cancellations, spills and promotions,
-speculation, the fetch counters, the streaming counters and per-pool
-job-wall percentiles (pool_latency, which the streaming rate controller
-steers by). The reference's executor, elastic, locality, push and
-dispatch sections come from its distributed backend and are not here.
+The events are the scheduler's (jobs, stages, tasks, resubmissions,
+speculation), the distributed backend's (ExecutorLost,
+ExecutorRestarted, ExecutorAdded), the stores' (spills and promotions of
+the partition cache and the shuffle store), the fetcher's
+(ShuffleFetchCompleted, FetchFailedOver), the job server's (JobRejected)
+and the streaming plane's. MetricsListener.summary() gives the
+reference's keys: jobs, stages, tasks and their failures and seconds,
+executors lost and restarted, stage resubmissions, rejections,
+cancellations, spills and promotions, speculation, the fetch counters,
+locality (placements by tier), dispatch (the task plane's bytes and
+binary shipments), the streaming counters and per-pool job-wall
+percentiles (pool_latency, which the streaming rate controller steers
+by). The reference's elastic and push sections wait for ROADMAP queue 1
+items 7 and 10.
 """
 
 from __future__ import annotations
@@ -87,6 +90,45 @@ class TaskEnd(Event):
     dispatch: Optional[Dict[str, Any]] = None
     job_id: int = -1
     locality: str = ""
+
+
+@dataclasses.dataclass
+class ExecutorLost(Event):
+    """The reaper declared an executor gone: its map outputs were
+    unregistered and its dispatches failed over."""
+
+    executor_id: str = ""
+    host: str = ""
+    reason: str = ""  # "process exited" | "heartbeat timeout" | ...
+
+
+@dataclasses.dataclass
+class ExecutorRestarted(Event):
+    """A dead executor slot was respawned; attempt counts from 1."""
+
+    executor_id: str = ""
+    host: str = ""
+    attempt: int = 0
+
+
+@dataclasses.dataclass
+class ExecutorAdded(Event):
+    """A new executor slot joined the fleet (fleet_size after it)."""
+
+    executor_id: str = ""
+    host: str = ""
+    fleet_size: int = 0
+
+
+@dataclasses.dataclass
+class FetchFailedOver(Event):
+    """A reduce task moved its undelivered buckets from a failed or slow
+    server to their replicas (no resubmission)."""
+
+    shuffle_id: int = -1
+    reduce_id: int = -1
+    from_uri: str = ""
+    buckets: int = 0
 
 
 @dataclasses.dataclass
@@ -330,7 +372,20 @@ class MetricsListener(Listener):
         }
         self.fetch: Dict[str, Any] = {
             "streams": 0, "buckets": 0, "bytes": 0, "round_trips": 0,
-            "wall_s": 0.0,
+            "wall_s": 0.0, "failovers": 0, "failover_buckets": 0,
+        }
+        self.executors_lost = 0
+        self.executors_restarted = 0
+        # placements by locality tier (TaskEnd.locality; empty while
+        # placement is unscored)
+        self.locality: Dict[str, int] = {"process": 0, "host": 0, "any": 0}
+        # the task plane's counters (TaskEnd.dispatch)
+        self.dispatch: Dict[str, int] = {
+            "tasks_v2": 0, "tasks_legacy": 0, "header_bytes": 0,
+            "binary_bytes": 0, "binaries_shipped": 0,
+            "binary_cache_hits": 0, "need_binary": 0,
+            "legacy_task_bytes": 0, "result_bytes": 0,
+            "driver_serialized_bytes": 0,
         }
         self.streaming: Dict[str, Any] = {
             "receivers_started": 0, "receiver_restarts": 0,
@@ -395,6 +450,21 @@ class MetricsListener(Listener):
                 info["task_time_s"] += event.duration_s
                 if not event.success:
                     info["task_failures"] += 1
+            if event.locality:
+                self.locality[event.locality] = \
+                    self.locality.get(event.locality, 0) + 1
+                hist = self.stages.setdefault(event.stage_id, {}) \
+                    .setdefault("locality", {})
+                hist[event.locality] = hist.get(event.locality, 0) + 1
+            if event.dispatch:
+                self._fold_dispatch(event.dispatch)
+        elif isinstance(event, ExecutorLost):
+            self.executors_lost += 1
+        elif isinstance(event, ExecutorRestarted):
+            self.executors_restarted += 1
+        elif isinstance(event, FetchFailedOver):
+            self.fetch["failovers"] += 1
+            self.fetch["failover_buckets"] += event.buckets
         elif isinstance(event, SpeculativeLaunched):
             self.speculation["launched"] += 1
         elif isinstance(event, SpeculativeWon):
@@ -441,6 +511,23 @@ class MetricsListener(Listener):
                 self.streaming["duplicate_commits"] += 1
             else:
                 self.streaming["state_checkpoints"] += 1
+
+    def _fold_dispatch(self, d: Dict[str, Any]) -> None:
+        dd = self.dispatch
+        if d.get("mode") == "v2":
+            dd["tasks_v2"] += 1
+            dd["header_bytes"] += d.get("header_bytes", 0)
+            dd["binary_bytes"] += d.get("binary_bytes", 0)
+            dd["binaries_shipped"] += d.get("binaries_shipped", 0)
+            dd["binary_cache_hits"] += d.get("cache_hit", 0)
+            dd["need_binary"] += d.get("need_binary", 0)
+            dd["driver_serialized_bytes"] += (d.get("header_bytes", 0)
+                                              + d.get("binary_bytes", 0))
+        else:
+            dd["tasks_legacy"] += 1
+            dd["legacy_task_bytes"] += d.get("task_bytes", 0)
+            dd["driver_serialized_bytes"] += d.get("task_bytes", 0)
+        dd["result_bytes"] += d.get("result_bytes", 0)
 
     @staticmethod
     def _percentile(ordered: list, q: float) -> float:
@@ -489,6 +576,8 @@ class MetricsListener(Listener):
                 "tasks": self.task_count,
                 "task_failures": self.task_failures,
                 "total_task_time_s": round(self.total_task_time_s, 6),
+                "executors_lost": self.executors_lost,
+                "executors_restarted": self.executors_restarted,
                 "stages_resubmitted": self.stages_resubmitted,
                 "jobs_rejected": self.jobs_rejected,
                 "spills": self.spill_count,
@@ -498,6 +587,8 @@ class MetricsListener(Listener):
                 "speculation": dict(self.speculation),
                 "fetch": {**self.fetch,
                           "wall_s": round(self.fetch["wall_s"], 6)},
+                "locality": dict(self.locality),
+                "dispatch": dict(self.dispatch),
                 "streaming": {**self.streaming,
                               "batch_wall_s": round(
                                   self.streaming["batch_wall_s"], 6)},

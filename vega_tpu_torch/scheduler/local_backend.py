@@ -5,8 +5,8 @@ Tasks run on a ThreadPoolExecutor of num_workers threads. With
 serialize_tasks_locally, each task's stage binary (task.py) is
 serialized once per stage and deserialized once per stage through a
 TaskBinaryCache, and the task's header makes the round trip per task, as
-a distributed run would ship them; a lineage the standard library's
-pickle cannot carry fails there (serialization.py). A task cancelled
+a distributed run ships them (serialization.py: functions by value; a
+lineage it cannot carry fails there). A task cancelled
 before a thread picks it up fails with TaskCancelledError instead of
 running (a running thread cannot be interrupted). The chaos hook
 faults.maybe_slow_task runs inside each task's timed window."""

@@ -59,6 +59,13 @@ class Stage:
         self.output_locs[partition] = [
             u for u in self.output_locs[partition] if u != uri]
 
+    def remove_outputs_on_server(self, uri: str) -> None:
+        """A lost executor's server out of every partition's locations
+        (one list replaced at a time)."""
+        for p in range(self.num_partitions):
+            if uri in self.output_locs[p]:
+                self.remove_output_loc(p, uri)
+
     def __repr__(self):
         kind = "shuffle" if self.is_shuffle_map else "result"
         return f"Stage(id={self.id}, {kind}, rdd={self.rdd.rdd_id})"

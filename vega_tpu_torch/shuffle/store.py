@@ -84,6 +84,12 @@ class ShuffleStore:
             return self._disk.get(_disk_key(*key))
         return None
 
+    def iter_buckets(self, shuffle_id: int, map_ids, reduce_id: int):
+        """(map_id, bucket or None) for each map id in order, each read
+        when the caller asks for it (a shuffle server streams them)."""
+        for map_id in map_ids:
+            yield map_id, self.get(shuffle_id, map_id, reduce_id)
+
     def contains(self, shuffle_id: int, map_id: int, reduce_id: int) -> bool:
         key = (shuffle_id, map_id, reduce_id)
         with self._lock:
