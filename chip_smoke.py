@@ -436,6 +436,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 N_ROWS = 20_000_000
@@ -8922,7 +8923,7 @@ def p24_fleet_counters(ctx):
     return dict(dispatch), fetch
 
 
-def p24_part_a(torch, np, ck, vt, ctx, label, exp):
+def p24_part_a(torch, np, ck, vt, ctx, label, exp, warm=P24_WARM):
     """24a on one Context: the 20M-row reduce on the card, to_rdd(), two
     host shuffles (on the executors under mode="distributed"), dense()
     and the join with the 1,000-row table on the card, counted; cold,
@@ -8970,9 +8971,9 @@ def p24_part_a(torch, np, ck, vt, ctx, label, exp):
     r = p19_case(torch, ck, f"a_{label}",
                  [("reduce_by_key", "card", card),
                   ("to_rdd.shuffles.dense", "host", host),
-                  ("join.count", "card", join)], check, P24_WARM, 24)
+                  ("join.count", "card", join)], check, warm, 24)
     d1, f1 = p24_fleet_counters(ctx)
-    runs = 1 + P24_WARM
+    runs = 1 + warm
     r["stages"] = state["stages"]
     r["run_stages"] = state["all_stages"]
     r["tasks"] = sum(s[2] for s in state["stages"])
@@ -9283,6 +9284,416 @@ def phase24_leg():
     print(f"card: {card}", flush=True)
 
 
+P25_EXECUTORS = 4              # 25a-c: the fleets' executors
+P25_WARM = 1                   # 25a: warm runs after the cold one
+P25_CODING = "rs(4,2)"         # 25b
+P25_ELASTIC = dict(elastic_enabled=True, elastic_min_executors=1,
+                   elastic_max_executors=P25_EXECUTORS,
+                   elastic_scale_up_threshold=2.0,
+                   elastic_scale_down_threshold=0.25,
+                   elastic_decision_interval_s=0.5,
+                   decommission_timeout_s=10.0)
+P25_BACKLOG = 48               # 25c: the backlog's slow tasks, on one
+P25_TASK_S = 0.5               # task slot longer than an executor's spawn
+
+
+def p25_check(what, ok):
+    if not ok:
+        fail(f"phase 25: {what}")
+
+
+def p25_worker_counters(ctx):
+    """The executors' push and fetch counters, summed over the fleet."""
+    out = dict.fromkeys(("pushes", "merged", "duplicates", "failed",
+                         "premerged", "local_blob_reads", "merged_rtts",
+                         "fetch_buckets", "coded_failovers",
+                         "parity_decodes", "parity_pushes"), 0)
+    for s in ctx._backend.worker_stats().values():
+        for k in ("pushes", "merged", "duplicates", "failed"):
+            out[k] += s["push"][k]
+        for k in ("premerged", "local_blob_reads", "merged_rtts",
+                  "coded_failovers", "parity_decodes"):
+            out[k] += s["fetch"][k]
+        out["fetch_buckets"] += s["fetch"]["buckets"]
+        out["parity_pushes"] += s["redundancy"]["parity_pushes"]
+    return out
+
+
+def p25_part_a(torch, np, ck, vt, exp):
+    """25a: 24a's lineage at full width on P25_EXECUTORS executors, one
+    fleet under shuffle_plan="pull" and one under "push": the card's
+    reduce, to_rdd(), the two host shuffles (the native runtime's VN01
+    rows; under push each bucket pre-merged on its reduce partition's
+    owner), dense(), the join and count(). Equal rows; per run the host
+    and card parts and the stage walls; the executors' push and fetch
+    counters over the runs."""
+    rows, counters, spawn = {}, {}, {}
+    for plan in ("pull", "push"):
+        t0 = time.perf_counter()
+        ctx = vt.Context(mode="distributed", n_shards=N_SHARDS,
+                         num_executors=P25_EXECUTORS, shuffle_plan=plan,
+                         **P24_FLEET)
+        try:
+            spawn[plan] = time.perf_counter() - t0
+            c0 = p25_worker_counters(ctx)
+            r = p24_part_a(torch, np, ck, vt, ctx,
+                           f"{plan}_executors{P25_EXECUTORS}", exp,
+                           warm=P25_WARM)
+            c1 = p25_worker_counters(ctx)
+            rows[plan] = r
+            counters[plan] = {k: c1[k] - c0[k] for k in c1}
+        finally:
+            ctx.stop()
+    runs = 1 + P25_WARM
+    push = counters["push"]
+    p25_check(f"25a push: every bucket of both host shuffles read "
+              f"pre-merged ({push})",
+              push["premerged"] == push["fetch_buckets"]
+              == runs * N_SHARDS * (8 + 4))
+    p25_check(f"25a push: every map task pushed, nothing failed ({push})",
+              push["pushes"] == runs * 2 * N_SHARDS and push["failed"] == 0
+              and push["duplicates"] == 0
+              and push["merged"] == push["premerged"])
+    p25_check(f"25a pull: nothing pushed ({counters['pull']})",
+              counters["pull"]["pushes"] == 0
+              and counters["pull"]["premerged"] == 0)
+    return dict(rows=[rows["pull"], rows["push"]], counters=counters,
+                spawn_s=spawn)
+
+
+def p25_part_b(torch, np, vt):
+    """25b: shuffle_coding="rs(4,2)" on P25_EXECUTORS executors: a host
+    shuffle's map outputs each folded into a parity group; one executor
+    holding outputs is killed after the map stage; the second read
+    decodes its buckets with no map stage resubmitted. Then one decode
+    on the driver (its Context's device, the card): its
+    gf256_accumulate held bit for bit against _accumulate_np, its ms."""
+    from vega_tpu_torch.shuffle import coding, fetcher
+
+    ctx = vt.Context(mode="distributed", n_shards=N_SHARDS,
+                     num_executors=P25_EXECUTORS, shuffle_coding=P25_CODING,
+                     **P24_FLEET)
+    try:
+        node = ctx.parallelize(range(P24_SMALL), 8).map(
+            lambda x: (x % 1000, x)).reduce_by_key(operator.add, 4)
+        first = sorted(node.collect())
+        c0 = p25_worker_counters(ctx)
+        p25_check(f"25b: every map output's row folded into a group ({c0})",
+                  c0["parity_pushes"] == 8)
+        tracker = ctx.env.map_output_tracker
+        lists = tracker.get_server_uri_lists(node.shuffle_id)
+        victim_uri = lists[0][0]
+        victim = next(ex for ex in ctx._backend._executors.values()
+                      if ctx._backend._match_tier(ex, [victim_uri]) == 0)
+        s0 = ctx.metrics_summary()
+        victim.process.kill()
+        victim.process.wait()
+        deadline = time.time() + 30.0
+        while ctx.metrics_summary()["executors_lost"] == \
+                s0["executors_lost"] and time.time() < deadline:
+            time.sleep(0.1)
+        coded = tracker.coded_locations(node.shuffle_id)
+        p25_check(f"25b: the victim's outputs decodable ({coded})",
+                  coded and all(m in coded for m, lst in enumerate(lists)
+                                if lst == [victim_uri]))
+        t0 = time.perf_counter()
+        second = sorted(node.collect())
+        recovery_ms = (time.perf_counter() - t0) * 1e3
+        s1 = ctx.metrics_summary()
+        c1 = p25_worker_counters(ctx)
+        resubmitted = s1["stages_resubmitted"] - s0["stages_resubmitted"]
+        decoded = c1["parity_decodes"] - c0["parity_decodes"]
+        p25_check("25b: equal rows after the loss", first == second)
+        p25_check(f"25b: no map stage resubmitted ({resubmitted})",
+                  resubmitted == 0)
+        p25_check(f"25b: the reducers decoded the lost buckets ({c1})",
+                  c1["coded_failovers"] > c0["coded_failovers"]
+                  and decoded >= 4 * len(coded))
+        # one decode on the driver, its accumulation held against numpy
+        held = []
+        real = coding.accumulate
+
+        def accumulate(blocks, coeffs, device):
+            out = real(blocks, coeffs, device)
+            held.append((str(device), out,
+                         coding._accumulate_np(blocks, coeffs)))
+            return out
+
+        coding.accumulate = accumulate
+        try:
+            lists = tracker.get_server_uri_lists(node.shuffle_id)
+            stats = {"round_trips": 0, "parity_decodes": 0,
+                     "decode_bytes": 0}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, failed = fetcher._reconstruct(
+                ctx.env, tracker, lists, node.shuffle_id, 0, sorted(coded),
+                {victim_uri}, stats)
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            coding.accumulate = real
+        p25_check(f"25b: the driver's decode of reduce 0 ({failed})",
+                  not failed and all(m in got for m in coded))
+        p25_check(f"25b: the card's gf256_accumulate equals _accumulate_np "
+                  f"bit for bit ({[(d, o.shape) for d, o, _ in held]})",
+                  held and all(d.startswith("cuda") and o.dtype == w.dtype
+                               and np.array_equal(o, w)
+                               for d, o, w in held))
+        return dict(victim=victim.executor_id, decodable=len(coded),
+                    recovery_ms=recovery_ms, stages_resubmitted=resubmitted,
+                    reconstructed_buckets=decoded,
+                    coded_failovers=c1["coded_failovers"]
+                    - c0["coded_failovers"],
+                    driver_decode=dict(ms=decode_ms,
+                                       buckets=stats["parity_decodes"],
+                                       bytes=stats["decode_bytes"],
+                                       round_trips=stats["round_trips"],
+                                       accumulations=len(held)))
+    finally:
+        ctx.stop()
+
+
+def p25_part_c(vt):
+    """25c: the elastic fleet from one executor: P25_BACKLOG slow tasks
+    queued scale it up to P25_EXECUTORS, idle time scales it down again
+    by decommissions that migrate the shuffle outputs the executors hold;
+    a second read of that shuffle gives the same rows with no stage
+    resubmitted. fleet_status() before, at the peak and after."""
+    ctx = vt.Context(mode="distributed", n_shards=N_SHARDS, num_executors=1,
+                     num_workers=1, **P24_FLEET, **P25_ELASTIC)
+    try:
+        before = ctx.fleet_status()
+        task_s = P25_TASK_S
+        node = ctx.parallelize(range(P25_BACKLOG), P25_BACKLOG).map(
+            lambda x: (time.sleep(task_s), (x % 7, x))[1]) \
+            .reduce_by_key(operator.add, 4)
+        peak = {"live": 0, "status": None}
+        done = threading.Event()
+
+        def sample():
+            while not done.is_set():
+                st = ctx.fleet_status()
+                live = sum(1 for r in st["fleet"]
+                           if r["alive"] and not r["draining"])
+                if live > peak["live"]:
+                    peak.update(live=live, status=st)
+                time.sleep(0.05)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        t0 = time.perf_counter()
+        first = sorted(node.collect())
+        job_s = time.perf_counter() - t0
+        # until the last decommission has reaped its slot
+        deadline = time.time() + 90.0
+        while (ctx.elastic.counters["scale_downs"] < P25_EXECUTORS - 1
+               or len(ctx._backend.fleet_snapshot()) > 1) \
+                and time.time() < deadline:
+            time.sleep(0.1)
+        scale_down_s = time.perf_counter() - t0 - job_s
+        ctx.elastic.stop()
+        done.set()
+        sampler.join(timeout=10)
+        after = ctx.fleet_status()
+        s0 = ctx.metrics_summary()
+        second = sorted(node.collect())
+        s1 = ctx.metrics_summary()
+        want = sorted({k: sum(range(k, P25_BACKLOG, 7))
+                       for k in range(7)}.items())
+        el = s1["elastic"]
+        p25_check("25c: the rows", first == second == want)
+        p25_check(f"25c: scaled up to {P25_EXECUTORS} ({peak['live']})",
+                  peak["live"] == P25_EXECUTORS)
+        p25_check(f"25c: scaled back down to 1 ({after['fleet']})",
+                  len(after["fleet"]) == 1)
+        p25_check(f"25c: decommissions migrated outputs ({el})",
+                  el["executors_decommissioned"] == P25_EXECUTORS - 1
+                  and el["decommissions_forced"] == 0
+                  and el["migrated_outputs"] >= 1
+                  and el["recomputed_outputs"] == 0)
+        p25_check("25c: the second read resubmitted nothing",
+                  s1["stages_resubmitted"] == s0["stages_resubmitted"])
+
+        def brief(st):
+            return dict(fleet=[(r["executor_id"], r["alive"],
+                                r["draining"], r["inflight"])
+                               for r in st["fleet"]],
+                        scheduler={k: st["scheduler"][k]
+                                   for k in ("running", "queued")},
+                        elastic={k: st["elastic"][k]
+                                 for k in ("live_executors", "scale_ups",
+                                           "scale_downs",
+                                           "executor_seconds")})
+
+        return dict(job_s=job_s, scale_down_s=scale_down_s,
+                    before=brief(before), peak=brief(peak["status"]),
+                    after=brief(after), elastic=el)
+    finally:
+        ctx.stop()
+
+
+def p25_part_d(vt):
+    """25d: one executor spawned with VEGA_TPU_FAULT_KILL_AFTER_TASKS=2
+    (aimed at exec-0 by VEGA_TPU_FAULT_EXECUTOR): it SIGKILLs itself
+    after its second task, before that result is sent; the job recovers
+    to the same rows, the loss is declared and the slot respawned (its
+    hooks disarmed)."""
+    import tempfile
+
+    from vega_tpu_torch import faults
+
+    stats_dir = tempfile.mkdtemp(prefix="p25d-")
+    fault_env = {"VEGA_TPU_FAULT_KILL_AFTER_TASKS": "2",
+                 "VEGA_TPU_FAULT_EXECUTOR": "exec-0",
+                 "VEGA_TPU_FAULT_STATS_DIR": stats_dir}
+    os.environ.update(fault_env)
+    faults.reset()
+    try:
+        ctx = vt.Context(mode="distributed", n_shards=N_SHARDS,
+                         num_executors=2, **P24_FLEET)
+    finally:
+        for k in fault_env:
+            os.environ.pop(k, None)
+        faults.reset()
+    try:
+        want = sorted({k: sum(range(k, P24_SMALL, 1000))
+                       for k in range(1000)}.items())
+        t0 = time.perf_counter()
+        got = sorted(ctx.parallelize(range(P24_SMALL), 8).map(
+            lambda x: (x % 1000, x)).reduce_by_key(operator.add, 4)
+            .collect())
+        ms = (time.perf_counter() - t0) * 1e3
+        deadline = time.time() + 30.0
+        while time.time() < deadline:
+            s = ctx.metrics_summary()
+            if s["executors_lost"] >= 1 and s["executors_restarted"] >= 1:
+                break
+            time.sleep(0.2)
+        stats = faults.read_stats(stats_dir)
+        fired = [x["fault"] for x in stats]
+        p25_check("25d: the rows", got == want)
+        # two tasks finishing together may both reach the count: one
+        # process, one SIGKILL
+        p25_check(f"25d: the kill fired in one process ({stats})",
+                  fired and set(fired) == {"kill_worker"}
+                  and len({x["pid"] for x in stats}) == 1)
+        p25_check(f"25d: the loss declared and the slot respawned ({s})",
+                  s["executors_lost"] >= 1 and s["executors_restarted"] >= 1)
+        n = ctx.parallelize(range(1000), 8).map(lambda x: x + 1).count()
+        p25_check("25d: the respawned fleet runs new work", n == 1000)
+        return dict(ms=ms, fired=fired,
+                    executors_lost=s["executors_lost"],
+                    executors_restarted=s["executors_restarted"],
+                    stages_resubmitted=s["stages_resubmitted"],
+                    task_failures=s["task_failures"])
+    finally:
+        ctx.stop()
+        shutil.rmtree(stats_dir, ignore_errors=True)
+
+
+def phase_twentyfive(torch, np, ck, vt):
+    """Phase 25: the native runtime, the push plan, the coded shuffle,
+    the elastic fleet and the executors' fault hooks: (a) 24a's lineage
+    at 20M rows on 4 executors under the pull and the push plan; (b)
+    rs(4,2) parity and a decode after an executor's loss; (c) a fleet
+    scaled up by a backlog and down by idle time; (d) an executor that
+    SIGKILLs itself by its fault hook."""
+    t0 = time.perf_counter()
+    card = card_line()
+    exp = p24_expected(np)
+    parts = {}
+    t1 = time.perf_counter()
+    a = p25_part_a(torch, np, ck, vt, exp)
+    parts["a"] = time.perf_counter() - t1
+    out = {}
+    for name, fn in (("b", lambda: p25_part_b(torch, np, vt)),
+                     ("c", lambda: p25_part_c(vt)),
+                     ("d", lambda: p25_part_d(vt))):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        parts[name] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    launches = {name: sum(r["launches"][name] for r in a["rows"])
+                for name in ck.LAUNCHES}
+    check_launched(launches, "phase 25")
+    wall_s = time.perf_counter() - t0
+    log(f"phase 25 took {wall_s:.1f} s (parts {json.dumps(parts)})")
+    return dict(rows=a["rows"], counters=a["counters"], spawn_s=a["spawn_s"],
+                launches=launches, card=card, wall_s=wall_s, parts_s=parts,
+                **out)
+
+
+def p25_lines(r, card):
+    """The printed lines of phase 25."""
+    out = []
+    for x in r["rows"]:
+        plan = x["label"].split("_")[1]  # a_<plan>_executors<n>
+        runs = [dict(ms=round(w["ms"], 3),
+                     parts={k: round(v, 3) for k, v in w["parts"].items()})
+                for w in [x["cold"]] + x["warm"]]
+        out.append(
+            f"phase 25a {x['label']} ({x['note']}; {P24_ROWS} rows, "
+            f"{P24_KEYS} keys): {x['median_ms']:.3f} ms warm median of "
+            f"{len(x['warm'])}, per run (cold first) {json.dumps(runs)}, "
+            f"stage walls per run (id, kind, tasks, s) "
+            f"{json.dumps(x['run_stages'])}, executors' push and fetch "
+            f"counters over the runs {json.dumps(r['counters'][plan])}, "
+            f"launches by step {json.dumps(x['step_launches'])} on {card}")
+    out.append(f"phase 25a fleet spawn (s) {json.dumps(r['spawn_s'])} on "
+               f"{card}")
+    for part in ("b", "c", "d"):
+        out.append(f"phase 25{part}: {json.dumps(r[part])} on {card}")
+    out.append(f"phase 25 launches {json.dumps(r['launches'])}; parts (s) "
+               f"{json.dumps(r['parts_s'])}; phase 25 {r['wall_s']:.1f} s "
+               f"on {card}")
+    return out
+
+
+def p25_summary(res):
+    """Phase 25's figures as JSON."""
+    return dict(phase=25, wall_s=res["wall_s"], parts_s=res["parts_s"],
+                launches=res["launches"], card=res["card"],
+                spawn_s=res["spawn_s"], counters=res["counters"],
+                a={x["label"]: dict(note=x["note"], median_ms=x["median_ms"],
+                                    parts=x["median_parts"],
+                                    cold_ms=x["cold"]["ms"],
+                                    cold_parts=x["cold"]["parts"],
+                                    warm=[dict(ms=w["ms"], parts=w["parts"])
+                                          for w in x["warm"]],
+                                    run_stages=x["run_stages"],
+                                    per_run=x["per_run"],
+                                    step_launches=x["step_launches"])
+                   for x in res["rows"]},
+                **{k: res[k] for k in ("b", "c", "d")})
+
+
+def phase25_leg():
+    """--phase 25: the kernels built, then phase 25 alone. Prints its
+    lines and one JSON line, writes chiprun_out/p25.json, and ends with
+    the card line."""
+    import numpy as np
+    import torch
+
+    import vega_tpu_torch as vt
+    from vega_tpu_torch import cuda_kernels as ck
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    card = card_line()
+    ck.build()
+    res = phase_twentyfive(torch, np, ck, vt)
+    out = p25_summary(res)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "p25.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(out, fh, indent=1)
+    for line in p25_lines(res, card):
+        print(line, flush=True)
+    print(json.dumps(out), flush=True)
+    print(f"card: {card}", flush=True)
+
+
 def main():
     try:
         import torch
@@ -9370,6 +9781,8 @@ def main():
     twentythree = phase_twentythree(torch, np, ck, vt)
     # 24. the distributed backend: executor processes, remote fetch
     twentyfour = phase_twentyfour(torch, np, ck, vt)
+    # 25. the push plan, the coded shuffle, the elastic fleet, fault hooks
+    twentyfive = phase_twentyfive(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -9397,7 +9810,8 @@ def main():
          "phase21_launches": twentyone["launches"][r["name"]],
          "phase22_launches": twentytwo["launches"][r["name"]],
          "phase23_launches": twentythree["launches"][r["name"]],
-         "phase24_launches": twentyfour["launches"][r["name"]]}
+         "phase24_launches": twentyfour["launches"][r["name"]],
+         "phase25_launches": twentyfive["launches"][r["name"]]}
         for r in table]}
     kind = torch.cuda.get_device_name(0)
     details = dict(card=card, kind=kind, torch=torch.__version__,
@@ -9416,7 +9830,8 @@ def main():
                    phase18=eighteen, phase19=nineteen, phase20=twenty,
                    phase21=twentyone, phase22=p22_summary(twentytwo),
                    phase23=p23_summary(twentythree),
-                   phase24=p24_summary(twentyfour))
+                   phase24=p24_summary(twentyfour),
+                   phase25=p25_summary(twentyfive))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -9761,6 +10176,8 @@ def main():
         print(line, flush=True)
     for line in p24_lines(twentyfour, card):
         print(line, flush=True)
+    for line in p25_lines(twentyfive, card):
+        print(line, flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
@@ -10103,6 +10520,8 @@ if __name__ == "__main__":
         phase23_leg()
     elif sys.argv[1:3] == ["--phase", "24"] and len(sys.argv) == 3:
         phase24_leg()
+    elif sys.argv[1:3] == ["--phase", "25"] and len(sys.argv) == 3:
+        phase25_leg()
     elif sys.argv[1:3] == ["--phase", "19"] and len(sys.argv) == 5 \
             and sys.argv[3] == "--without":
         phase19_leg(sys.argv[4])

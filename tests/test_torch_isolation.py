@@ -33,7 +33,11 @@ HOST_LAYER = ("split", "partitioner", "dependency", "aggregator",
               # the distributed backend
               "distributed", "distributed.protocol",
               "distributed.driver_service", "distributed.shuffle_server",
-              "distributed.worker", "distributed.backend")
+              "distributed.worker", "distributed.backend",
+              # the native runtime, the push plan, the coded shuffle,
+              # hosts files and the elastic fleet
+              "native", "shuffle.premerge", "shuffle.coding", "hosts",
+              "scheduler.elastic")
 
 
 def _port_files():

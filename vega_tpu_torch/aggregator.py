@@ -3,8 +3,8 @@
 create_combiner / merge_value / merge_combiners as in the reference;
 default() is group_by_key's list-collecting aggregator. op_name names a
 recognized monoid (add / min / max / prod) and is_group marks the
-list-collecting one: the reference picks its native C++ merge by them, the
-port's shuffle inlines the list collecting (dependency.py). The combiner
+list-collecting one: the shuffle picks the native runtime's C++ combine
+and merge by them (dependency.py, native.py). The combiner
 functions the port makes itself are module-level, so a stage binary
 pickles with the standard library (serialization.py)."""
 

@@ -110,11 +110,15 @@ executor_reap_interval_s, executor_max_restarts,
 executor_restart_backoff_s, executor_blacklist_threshold, fetch_retries,
 fetch_retry_interval_s, fetch_batch_enabled, fetch_queue_buckets,
 task_binary_dedup, shuffle_replication, fetch_slow_server_s,
-decommission_timeout_s, blacklist_decay_s, and the session logs'
-local_dir, log_level, log_cleanup. shuffle_plan, shuffle_coding,
-hosts_file and elastic_enabled are taken only at their defaults, and
-fleet_status() and mode="distributed" with multihost= are refused, each
-VegaError naming the ROADMAP item that brings it.
+decommission_timeout_s, blacklist_decay_s, the session logs'
+local_dir, log_level, log_cleanup, and shuffle_plan ("pull" / "push":
+shuffle/premerge.py), shuffle_coding ("none" / "xor" / "rs(k,m)",
+coding_group_k, coding_parity_m: shuffle/coding.py), hosts_file
+(hosts.py: executors over ssh), elastic_enabled with
+elastic_min_executors / _max_executors / _scale_up_threshold /
+_scale_down_threshold / _decision_interval_s (scheduler/elastic.py;
+self.elastic, fleet_status()). mode="distributed" with multihost= is
+refused, VegaError naming the ROADMAP item that brings it.
 
 The job server's names: submit_job(rdd, func, partitions, pool,
 transform) runs a job asynchronously in a pool (set_pool: weight,
@@ -179,7 +183,7 @@ import torch
 from vega_tpu_torch import dense_rdd
 from vega_tpu_torch import exchange_plan
 from vega_tpu_torch import kernels
-from vega_tpu_torch.env import (REFUSED_SETTINGS, Configuration,
+from vega_tpu_torch.env import (Configuration,
                                 DeploymentMode, Env, attach_session_logger,
                                 check_runtime_settings,
                                 detach_session_logger)
@@ -264,23 +268,17 @@ class Context:
                  log_cleanup: bool = True,
                  shuffle_plan: str = "pull",
                  shuffle_coding: str = "none",
+                 coding_group_k: int = 4,
+                 coding_parity_m: int = 1,
                  hosts_file: Optional[str] = None,
-                 elastic_enabled: bool = False):
-        refused = dict(shuffle_plan=shuffle_plan,
-                       shuffle_coding=shuffle_coding, hosts_file=hosts_file,
-                       elastic_enabled=elastic_enabled)
-        for name, value in refused.items():
-            default, item = REFUSED_SETTINGS[name]
-            if value != default:
-                raise VegaError(
-                    f"{name}={value!r} is not ported yet: only "
-                    f"{default!r} is taken until ROADMAP {item}")
+                 elastic_enabled: bool = False,
+                 elastic_min_executors: int = 1,
+                 elastic_max_executors: int = 8,
+                 elastic_scale_up_threshold: float = 2.0,
+                 elastic_scale_down_threshold: float = 0.25,
+                 elastic_decision_interval_s: float = 1.0):
         mode = _check_setting("mode", mode, mode in ("local", "distributed"),
                               "'local' or 'distributed'")
-        if mode == "distributed":
-            from vega_tpu_torch import faults
-
-            faults.check_environ()
         if mode == "distributed" and multihost is not None:
             raise VegaError(
                 "mode='distributed' together with multihost= is not ported "
@@ -318,7 +316,15 @@ class Context:
             fetch_slow_server_s=fetch_slow_server_s,
             decommission_timeout_s=decommission_timeout_s,
             blacklist_decay_s=blacklist_decay_s, log_level=log_level,
-            log_cleanup=log_cleanup)
+            log_cleanup=log_cleanup, shuffle_plan=shuffle_plan,
+            shuffle_coding=shuffle_coding, coding_group_k=coding_group_k,
+            coding_parity_m=coding_parity_m, hosts_file=hosts_file,
+            elastic_enabled=elastic_enabled,
+            elastic_min_executors=elastic_min_executors,
+            elastic_max_executors=elastic_max_executors,
+            elastic_scale_up_threshold=elastic_scale_up_threshold,
+            elastic_scale_down_threshold=elastic_scale_down_threshold,
+            elastic_decision_interval_s=elastic_decision_interval_s)
         if local_dir is not None:
             runtime["local_dir"] = local_dir
         # the runtime's Configuration (env.py), each setting checked
@@ -395,6 +401,8 @@ class Context:
         self.env.cache.event_sink = self.bus.post
         self.env.shuffle_store.event_sink = self.bus.post
         self.env.fetch_event_sink = self.bus.post
+        # a decode on this driver (the coded shuffle) runs on its device
+        self.env.decode_device = dev
         if self.mesh.collective:
             # every rank runs a job's tasks one at a time, in submission
             # order (one task thread, no duplicate attempts), so each
@@ -430,6 +438,18 @@ class Context:
         self.job_server = jobserver.JobServer(
             self.scheduler, self.conf, admission_mode=self.admission_mode,
             pool_max_queued=self.pool_max_queued)
+        # the elastic fleet's controller (scheduler/elastic.py), over an
+        # executor fleet: decommission and fleet_status work with its
+        # loop off; the loop runs under elastic_enabled
+        self.elastic = None
+        if mode == "distributed":
+            from vega_tpu_torch.scheduler.elastic import ElasticController
+
+            self.elastic = ElasticController(
+                self._backend, self.job_server.arbiter, self.scheduler,
+                self.conf, self.bus, self.env)
+            if self.conf.elastic_enabled:
+                self.elastic.start()
         # thread-local job properties ("pool")
         self._local_props = threading.local()
         # the streaming plane's landed blocks and the plane itself,
@@ -685,10 +705,24 @@ class Context:
         return {**self.metrics.summary(),
                 "exchange_plans": self.exchange_plans()}
 
-    def fleet_status(self):
-        """The reference's fleet report belongs to its elastic plane."""
-        raise VegaError("fleet_status() is not ported yet: ROADMAP "
-                        "queue 1 item 10 (the elastic fleet)")
+    def fleet_status(self) -> dict:
+        """The serving plane in one view: the fleet (a row per executor
+        slot: alive, draining, in flight, restarts; empty in local mode),
+        the arbiter's running and queued tasks, each pool's admission,
+        the elastic controller's state, the pools' latency and the
+        streaming plane's status."""
+        backend = self._backend
+        return {
+            "fleet": backend.fleet_snapshot()
+            if hasattr(backend, "fleet_snapshot") else [],
+            "scheduler": self.job_server.arbiter.stats(),
+            "admission": self.job_server.admission_status(),
+            "elastic": self.elastic.status() if self.elastic is not None
+            else {"enabled": False},
+            "pool_latency": self.metrics.pool_latency(),
+            "streaming": self._streaming.status()
+            if self._streaming is not None else {"active": False},
+        }
 
     def storage_status(self) -> dict:
         """The block stores' counters under the reference's keys: the
@@ -902,6 +936,9 @@ class Context:
                     self._streaming.stop()
                 except Exception:  # noqa: BLE001 — the rest still stops
                     log.warning("streaming stop failed", exc_info=True)
+            # the autoscaler first: no decision against a stopping fleet
+            if getattr(self, "elastic", None) is not None:
+                self.elastic.stop(teardown=True)
             self.job_server.stop()
             dense_rdd._settle_pending(self)
         finally:

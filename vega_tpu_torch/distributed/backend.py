@@ -30,10 +30,20 @@ over TCP, one connection per task (protocol.py):
   executor_max_restarts times with exponential backoff
   (ExecutorRestarted).
 
-The reference's ssh launch from a hosts file, and its elastic control
-loop, wait for ROADMAP queue 1 items 9-10; add_executor,
-claim_decommission / release_decommission / remove_executor and
-declare_lost are here for them."""
+- hosts: with hosts_file (or VEGA_TPU_HOSTS_FILE) the executors run on
+  its slaves, a "host:N" entry N times; a remote host's executor is
+  started over ssh with its settings on the command line (env K=V ...),
+  and killed over ssh by the pid it registered when it is lost. New
+  slots of the elastic fleet go to the host with the least executors
+  per entry.
+- the fleet's shape, for scheduler/elastic.py: add_executor,
+  claim_decommission / release_decommission / remove_executor,
+  declare_lost, fleet_snapshot, executor_inflight, shuffle_peer_uris.
+
+Before it spawns executors the backend builds the native shuffle runtime
+(native.py) and hands them its path (VEGA_TPU_NATIVE_LIB); a respawned
+executor gets VEGA_TPU_FAULT_INCARNATION, which disarms its fault hooks
+(faults.py)."""
 
 from __future__ import annotations
 
@@ -60,6 +70,28 @@ log = logging.getLogger(__name__)
 # seconds an executor has from its spawn to its READY line
 READY_DEADLINE_S = 30.0
 
+_LOCAL_HOSTS = ("127.0.0.1", "localhost")
+
+
+def _weighted_scale_host(weights: Dict[str, int],
+                         live_by_host: Dict[str, int]) -> str:
+    """The host a new slot goes to: the lowest (live + 1) / weight, ties
+    to the larger weight, then the name."""
+    if not weights:
+        return "127.0.0.1"
+    return min(weights, key=lambda h: ((live_by_host.get(h, 0) + 1)
+                                       / weights[h], -weights[h], h))
+
+
+def _remote_kill(host: str, pid: int) -> None:
+    """kill -9 of a remote executor over ssh, best effort."""
+    try:
+        subprocess.run(["ssh", host, "kill", "-9", str(pid)], timeout=15.0,
+                       stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+                       stderr=subprocess.DEVNULL)
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+
 
 class _Executor:
     def __init__(self, executor_id: str, task_uri: str, host: str,
@@ -84,6 +116,10 @@ class _Executor:
 
 class DistributedBackend(TaskBackend):
     def __init__(self, conf, env, num_executors: Optional[int] = None):
+        from vega_tpu_torch import native
+
+        # built here, once: executors load this file and never compile
+        self.native_lib = native.build()
         self.service = DriverService(
             env.map_output_tracker, env.cache_tracker,
             liveness_timeout_s=conf.executor_liveness_timeout_s)
@@ -103,12 +139,29 @@ class DistributedBackend(TaskBackend):
         # ExecutorAdded
         self.event_sink: Optional[Callable] = None
         self._executor_lost_listeners: List[Callable] = []
+        # a hosts file only when one is named: a stray ~/hosts.conf never
+        # overrides num_executors
+        hosts = None
+        explicit = conf.hosts_file or os.environ.get("VEGA_TPU_HOSTS_FILE")
+        if explicit:
+            from vega_tpu_torch.hosts import Hosts
+
+            if not os.path.exists(explicit):
+                self.service.stop()
+                raise NetworkError(
+                    f"configured hosts file does not exist: {explicit}")
+            hosts = Hosts.load(explicit).slaves or None
         n = num_executors or conf.num_executors or 2
-        self._slot_ids = itertools.count(n)
+        hosts = hosts or ["127.0.0.1"] * n
+        self._slot_ids = itertools.count(len(hosts))
+        # each host's entries in the hosts file: its capacity
+        self._host_weights: Dict[str, int] = {}
+        for h in hosts:
+            self._host_weights[h] = self._host_weights.get(h, 0) + 1
         # spawn to ready of each executor of the first fleet (seconds)
         self.spawn_s: Dict[str, float] = {}
         try:
-            self._spawn_workers(["127.0.0.1"] * n)
+            self._spawn_workers(hosts)
         except BaseException:
             self.stop()
             raise
@@ -126,7 +179,8 @@ class DistributedBackend(TaskBackend):
     def _worker_knobs(conf) -> Dict[str, str]:
         """Every setting an executor reads, as the VEGA_TPU_* variables
         Configuration.from_environ takes: the one source of an executor's
-        settings."""
+        settings, a local spawn's environment and an ssh command line
+        alike."""
         return {
             "VEGA_TPU_DEPLOYMENT_MODE": "distributed",
             "VEGA_TPU_NUM_WORKERS": str(conf.num_workers),
@@ -152,10 +206,54 @@ class DistributedBackend(TaskBackend):
             "VEGA_TPU_DECOMMISSION_TIMEOUT_S": str(
                 conf.decommission_timeout_s),
             "VEGA_TPU_BLACKLIST_DECAY_S": str(conf.blacklist_decay_s),
+            "VEGA_TPU_SHUFFLE_PLAN": str(conf.shuffle_plan),
+            "VEGA_TPU_SHUFFLE_CODING": str(conf.shuffle_coding),
+            "VEGA_TPU_CODING_GROUP_K": str(conf.coding_group_k),
+            "VEGA_TPU_CODING_PARITY_M": str(conf.coding_parity_m),
+            "VEGA_TPU_ELASTIC_ENABLED":
+                "1" if conf.elastic_enabled else "0",
+            "VEGA_TPU_ELASTIC_MIN_EXECUTORS": str(
+                conf.elastic_min_executors),
+            "VEGA_TPU_ELASTIC_MAX_EXECUTORS": str(
+                conf.elastic_max_executors),
+            "VEGA_TPU_ELASTIC_SCALE_UP_THRESHOLD": str(
+                conf.elastic_scale_up_threshold),
+            "VEGA_TPU_ELASTIC_SCALE_DOWN_THRESHOLD": str(
+                conf.elastic_scale_down_threshold),
+            "VEGA_TPU_ELASTIC_DECISION_INTERVAL_S": str(
+                conf.elastic_decision_interval_s),
         }
 
-    def _launch(self, executor_id: str) -> subprocess.Popen:
-        """One executor process on this host, off the card."""
+    @staticmethod
+    def _fault_knobs(incarnation: int = 0) -> Dict[str, str]:
+        """The driver's VEGA_TPU_FAULT_* variables, which arm an
+        executor's fault hooks (faults.py), and its incarnation: a
+        respawned executor's (incarnation > 0) hooks are disarmed unless
+        VEGA_TPU_FAULT_ALL_INCARNATIONS is set."""
+        knobs = {k: v for k, v in os.environ.items()
+                 if k.startswith("VEGA_TPU_FAULT_")}
+        knobs["VEGA_TPU_FAULT_INCARNATION"] = str(incarnation)
+        return knobs
+
+    def _launch(self, executor_id: str, host: str = "127.0.0.1",
+                incarnation: int = 0) -> subprocess.Popen:
+        """One executor process, off the card: on this host a child with
+        the settings in its environment, on another host over ssh with
+        them on the remote command line (the package must be importable
+        there, and the native library at the same path)."""
+        knobs = dict(self._worker_knobs(self.conf),
+                     **self._fault_knobs(incarnation),
+                     VEGA_TPU_NATIVE_LIB=self.native_lib)
+        if host not in _LOCAL_HOSTS:
+            cmd = ["ssh", host, "env",
+                   *[f"{k}={v}" for k, v in sorted(knobs.items())],
+                   sys.executable, "-m", "vega_tpu_torch.distributed.worker",
+                   "--driver", self.service.uri, "--executor-id",
+                   executor_id, "--host", host, "--log-level",
+                   str(self.conf.log_level)]
+            return subprocess.Popen(cmd, stdin=subprocess.DEVNULL,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.DEVNULL, text=True)
         cmd = [sys.executable, "-m", "vega_tpu_torch.distributed.worker",
                "--driver", self.service.uri, "--executor-id", executor_id,
                "--log-level", str(self.conf.log_level)]
@@ -163,8 +261,7 @@ class DistributedBackend(TaskBackend):
             os.environ, CUDA_VISIBLE_DEVICES="",
             VEGA_TPU_LOG_LEVEL=str(self.conf.log_level),
             VEGA_TPU_LOG_CLEANUP="true" if self.conf.log_cleanup else "false",
-            VEGA_TPU_LOCAL_DIR=self.conf.local_dir,
-            **self._worker_knobs(self.conf))
+            VEGA_TPU_LOCAL_DIR=self.conf.local_dir, **knobs)
         if self.conf.spill_dir:
             worker_env["VEGA_TPU_SPILL_DIR"] = self.conf.spill_dir
         # the executor imports this package from where the driver does
@@ -253,7 +350,7 @@ class DistributedBackend(TaskBackend):
                 self._executors[executor_id] = _Executor(
                     executor_id, "", host, None)
                 self._executors[executor_id].alive = False
-            proc = self._launch(executor_id)
+            proc = self._launch(executor_id, host)
             self._executors[executor_id].process = proc
             procs.append((executor_id, host, proc))
         deadline = time.time() + READY_DEADLINE_S
@@ -314,6 +411,12 @@ class DistributedBackend(TaskBackend):
         # a wedged worker holds its ports: killed so the slot respawns
         if ex.process is not None and ex.process.poll() is None:
             ex.process.kill()
+        # an ssh slot's process is the local ssh client: the remote worker
+        # is killed by the pid it registered, off this thread
+        if ex.host not in _LOCAL_HOSTS and info.get("pid"):
+            threading.Thread(target=_remote_kill,
+                             args=(ex.host, info["pid"]), daemon=True,
+                             name=f"remote-kill-{ex.executor_id}").start()
         # dispatch threads blocked on it re-dispatch to survivors
         for sock in inflight:
             try:
@@ -377,7 +480,7 @@ class DistributedBackend(TaskBackend):
         log.warning("respawning executor %s (restart %d/%d)",
                     ex.executor_id, attempt, self.conf.executor_max_restarts)
         try:
-            proc = self._launch(ex.executor_id)
+            proc = self._launch(ex.executor_id, ex.host, incarnation=attempt)
             wid, task_uri = self._ready(ex.executor_id, proc,
                                         time.time() + READY_DEADLINE_S)
         except (NetworkError, ValueError) as e:
@@ -408,22 +511,26 @@ class DistributedBackend(TaskBackend):
             if self._stopped:
                 raise NetworkError("backend is stopped; cannot scale up")
             idx = next(self._slot_ids)
+            live_by_host: Dict[str, int] = {}
+            for e in self._executors.values():
+                if e.alive and not e.draining:
+                    live_by_host[e.host] = live_by_host.get(e.host, 0) + 1
         executor_id = f"exec-{idx}"
-        proc = self._launch(executor_id)
+        host = _weighted_scale_host(self._host_weights, live_by_host)
+        proc = self._launch(executor_id, host)
         wid, task_uri = self._ready(executor_id, proc,
                                     time.time() + READY_DEADLINE_S)
         with self._lock:
             if self._stopped:
                 proc.kill()
                 raise NetworkError("backend stopped during scale-up")
-            self._executors[wid] = _Executor(wid, task_uri, "127.0.0.1",
-                                             proc)
+            self._executors[wid] = _Executor(wid, task_uri, host, proc)
             fleet = len([e for e in self._executors.values()
                          if e.alive and not e.draining])
         self._drain_stdout(wid, proc)
         sink = self.event_sink
         if sink is not None:
-            sink(ev.ExecutorAdded(executor_id=wid, host="127.0.0.1",
+            sink(ev.ExecutorAdded(executor_id=wid, host=host,
                                   fleet_size=fleet))
         return wid
 

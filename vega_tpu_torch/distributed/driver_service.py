@@ -5,7 +5,8 @@ One framed-TCP server (protocol.py) answers the executors' tracker
 queries (map-output locations, waited for on the driver's condition, not
 polled), their cached-partition registrations and lookups, their
 registration and heartbeats, and the live shuffle peers a map task
-replicates to. RemoteTrackerClient is the executor's side: the
+replicates to, and the coded shuffle's parity registrations.
+RemoteTrackerClient is the executor's side: the
 map-output and cache trackers' interface over one cached connection per
 thread, reconnected once when it broke."""
 
@@ -98,6 +99,11 @@ class DriverService:
             return {wid: info["shuffle_uri"]
                     for wid, info in self.live_workers().items()
                     if info.get("shuffle_uri") and wid not in draining}
+        if msg_type == "register_parity":
+            self.map_output_tracker.register_parity(*payload)
+            return True
+        if msg_type == "get_parity_map":
+            return self.map_output_tracker.get_parity_map(payload)
         if msg_type == "has_outputs":
             return self.map_output_tracker.has_outputs(payload)
         if msg_type == "generation":
@@ -181,6 +187,15 @@ class RemoteTrackerClient:
 
     def list_shuffle_peers(self) -> dict:
         return self._call("list_shuffle_peers")
+
+    def register_parity(self, shuffle_id: int, parity_uri: str,
+                        group_id: int, map_id: int, idx: int, scheme: str,
+                        k: int, m: int) -> None:
+        self._call("register_parity", (shuffle_id, parity_uri, group_id,
+                                       map_id, idx, scheme, k, m))
+
+    def get_parity_map(self, shuffle_id: int) -> dict:
+        return self._call("get_parity_map", shuffle_id)
 
     def has_outputs(self, shuffle_id: int) -> bool:
         return self._call("has_outputs", shuffle_id)

@@ -8,7 +8,12 @@ jobs run), then writes the result back on the same connection
 (protocol.py: task, task_v2 with the stage-binary cache, cancel_task,
 ping, worker_stats, shutdown). The worker registers with
 the driver service, heartbeats every heartbeat_interval_s and serves its
-shuffle buckets through its own ShuffleServer.
+shuffle buckets through its own ShuffleServer, whose pre-merge tier
+takes a quarter of shuffle_memory_budget. The VEGA_TPU_FAULT_* hooks
+(faults.py) sit before a task (hang, a dropped binary), inside its timed
+window (slow), after it and before its result (kill) and in the
+heartbeat loop. worker_stats answers this process's fetch, push,
+redundancy and wire counters.
 
 An executor runs host work on the CPU: the backend starts it with
 CUDA_VISIBLE_DEVICES empty, and no lineage it receives reaches the card
@@ -39,7 +44,7 @@ import traceback
 import uuid
 from collections import OrderedDict
 
-from vega_tpu_torch import serialization
+from vega_tpu_torch import faults, serialization
 from vega_tpu_torch.distributed import protocol
 from vega_tpu_torch.distributed.driver_service import RemoteTrackerClient
 from vega_tpu_torch.distributed.shuffle_server import ShuffleServer
@@ -89,17 +94,21 @@ class _TaskHandler(socketserver.BaseRequestHandler):
             protocol.send_msg(sock, "error", f"unknown {msg_type}")
             return
         try:
+            faults.get().maybe_hang_task()
             task = serialization.loads(payload)
             cancel_event = worker.begin_task(task.task_id)
             try:
                 _pre_run_cancel_gate(cancel_event)
                 # the wall starts after the decode: the task's own cost
                 t0 = time.monotonic()
+                faults.get().maybe_slow_task(cancel_event)
                 with paused_gc():
                     result = task.run()
                 duration = time.monotonic() - t0
             finally:
                 worker.end_task(task.task_id)
+            # computed, not yet acknowledged: the loss the driver recovers
+            faults.get().maybe_kill_worker()
             reply = serialization.dumps(("success", result, duration))
             protocol.send_msg(sock, "result", None)
             protocol.send_bytes(sock, reply)
@@ -131,6 +140,9 @@ class _TaskHandler(socketserver.BaseRequestHandler):
             worker.binaries.abandon(sha, claim)
             return
         try:
+            faults.get().maybe_hang_task()
+            if marker == "binary_cached" and faults.get().maybe_drop_binary():
+                worker.binaries.drop(sha)
             binary = None
             if raw is None:
                 binary = worker.binaries.wait_for(sha)
@@ -154,11 +166,13 @@ class _TaskHandler(socketserver.BaseRequestHandler):
                 _pre_run_cancel_gate(cancel_event)
                 # the wall starts after the binary's transfer and decode
                 t0 = time.monotonic()
+                faults.get().maybe_slow_task(cancel_event)
                 with paused_gc():
                     result = run_from_header(header, binary)
                 duration = time.monotonic() - t0
             finally:
                 worker.end_task(header.task_id)
+            faults.get().maybe_kill_worker()
             head, buffers = serialization.dumps_oob(
                 ("success", result, duration))
         except BaseException as exc:  # noqa: BLE001 — shipped to the driver
@@ -191,6 +205,7 @@ class Worker:
         from vega_tpu_torch.store import DiskStore
 
         self.executor_id = executor_id or f"exec-{os.getpid()}"
+        faults.set_executor_id(self.executor_id)
         conf = Configuration.from_environ()
         conf.deployment_mode = DeploymentMode.DISTRIBUTED
         base = conf.spill_dir or os.path.join(tempfile.gettempdir(),
@@ -203,7 +218,9 @@ class Worker:
         tracker = RemoteTrackerClient(driver_uri)
         env.map_output_tracker = tracker
         env.cache_tracker = tracker
-        env.shuffle_server = ShuffleServer(env.shuffle_store, host)
+        env.shuffle_server = ShuffleServer(
+            env.shuffle_store, host,
+            premerge_budget=conf.shuffle_memory_budget // 4)
         self.env = env
         context_mod._install_executor_env(env)
         self.tracker = tracker
@@ -237,14 +254,16 @@ class Worker:
         return f"{self.host}:{self.port}"
 
     def stats(self) -> dict:
-        """This process's fetch, replica and wire counters."""
+        """This process's fetch, push, redundancy and wire counters."""
         from vega_tpu_torch import dependency
         from vega_tpu_torch.distributed import shuffle_server
         from vega_tpu_torch.shuffle import fetcher
 
         return {"executor_id": self.executor_id,
                 "fetch": fetcher.stats_snapshot(),
+                "push": dependency.push_stats_snapshot(),
                 "redundancy": dependency.redundancy_stats_snapshot(),
+                "premerge": self.env.shuffle_server.premerge.status(),
                 "wire": shuffle_server.wire_snapshot()}
 
     def begin_task(self, task_id: int) -> threading.Event:
@@ -282,6 +301,8 @@ class Worker:
         threading.Thread(target=self._server.serve_forever,
                          name="task-server", daemon=True).start()
         while not self._shutdown.wait(self.env.conf.heartbeat_interval_s):
+            if faults.get().suppress_heartbeat():
+                continue
             try:
                 self.tracker.heartbeat(self.executor_id)
             except NetworkError:

@@ -113,6 +113,29 @@ class Configuration:
     # > 0: a server whose every requested bucket has a replica is given
     # up after this long and its buckets read from the replicas
     fetch_slow_server_s: float = 0.0
+    # "pull", or "push": map tasks push a named monoid's buckets to their
+    # reduce partition's owner, which pre-merges them (shuffle/premerge.py)
+    shuffle_plan: str = "pull"
+    # "none", "xor" or "rs" / "rs(k,m)": each map output's row folded into
+    # a peer's parity group of up to coding_group_k members with
+    # coding_parity_m units (xor: 1), so a lost server's buckets decode
+    # (shuffle/coding.py)
+    shuffle_coding: str = "none"
+    coding_group_k: int = 4
+    coding_parity_m: int = 1
+    # the executors' hosts (hosts.py; None: VEGA_TPU_HOSTS_FILE, else
+    # num_executors on this host); a remote host is started over ssh
+    hosts_file: Optional[str] = None
+    # the elastic fleet (scheduler/elastic.py): the fleet grows when
+    # demand per slot holds above scale_up_threshold for a decision
+    # interval and shrinks (graceful decommission) below
+    # scale_down_threshold with an empty queue, within [min, max]
+    elastic_enabled: bool = False
+    elastic_min_executors: int = 1
+    elastic_max_executors: int = 8
+    elastic_scale_up_threshold: float = 2.0
+    elastic_scale_down_threshold: float = 0.25
+    elastic_decision_interval_s: float = 1.0
     # a decommissioned executor's drain bound before it is declared lost
     decommission_timeout_s: float = 10.0
     # a dispatch-failure count older than this is forgiven (0: never)
@@ -152,23 +175,41 @@ class Configuration:
         return cfg
 
 
-_ENV_STR = ("LOCAL_DIR", "LOG_LEVEL", "SPILL_DIR", "SCHEDULER_MODE")
+_ENV_STR = ("LOCAL_DIR", "LOG_LEVEL", "SPILL_DIR", "SCHEDULER_MODE",
+            "SHUFFLE_PLAN", "SHUFFLE_CODING", "HOSTS_FILE")
 _ENV_INT = ("NUM_WORKERS", "NUM_EXECUTORS", "CACHE_CAPACITY_BYTES",
             "MAX_FAILURES", "SHUFFLE_MEMORY_BUDGET",
             "SHUFFLE_SPILL_THRESHOLD", "EXECUTOR_MAX_RESTARTS",
             "EXECUTOR_BLACKLIST_THRESHOLD", "FETCH_RETRIES",
             "FETCH_QUEUE_BUCKETS", "TASK_BINARY_CACHE_ENTRIES",
-            "SHUFFLE_REPLICATION")
+            "SHUFFLE_REPLICATION", "CODING_GROUP_K", "CODING_PARITY_M",
+            "ELASTIC_MIN_EXECUTORS", "ELASTIC_MAX_EXECUTORS")
 _ENV_BOOL = ("LOG_CLEANUP", "SERIALIZE_TASKS_LOCALLY",
              "SPECULATION_ENABLED", "FETCH_BATCH_ENABLED",
-             "TASK_BINARY_DEDUP")
+             "TASK_BINARY_DEDUP", "ELASTIC_ENABLED")
 _ENV_FLOAT = ("RESUBMIT_TIMEOUT_S", "POLL_TIMEOUT_S",
               "SPECULATION_MULTIPLIER", "SPECULATION_MIN_S",
               "SPECULATION_QUORUM", "HEARTBEAT_INTERVAL_S",
               "EXECUTOR_LIVENESS_TIMEOUT_S", "EXECUTOR_REAP_INTERVAL_S",
               "EXECUTOR_RESTART_BACKOFF_S", "FETCH_RETRY_INTERVAL_S",
               "FETCH_SLOW_SERVER_S", "LOCALITY_WAIT_S",
-              "DECOMMISSION_TIMEOUT_S", "BLACKLIST_DECAY_S")
+              "DECOMMISSION_TIMEOUT_S", "BLACKLIST_DECAY_S",
+              "ELASTIC_SCALE_UP_THRESHOLD", "ELASTIC_SCALE_DOWN_THRESHOLD",
+              "ELASTIC_DECISION_INTERVAL_S")
+
+
+def _coding_spec(v) -> bool:
+    """A shuffle_coding value coding.spec_from_conf reads: none / off /
+    xor / rs / rs(k,m)."""
+    if not isinstance(v, str):
+        return False
+    raw = v.strip().lower()
+    if raw in ("", "none", "off", "0", "xor", "rs"):
+        return True
+    if raw.startswith("rs(") and raw.endswith(")"):
+        parts = raw[3:-1].split(",")
+        return len(parts) == 2 and all(p.strip().isdigit() for p in parts)
+    return False
 
 
 def _positive_int(v) -> bool:
@@ -222,20 +263,28 @@ _CHECKS = {
     "fetch_slow_server_s": (_seconds, "seconds >= 0"),
     "decommission_timeout_s": (_seconds, "seconds >= 0"),
     "blacklist_decay_s": (_seconds, "seconds >= 0"),
+    "shuffle_plan": (lambda v: isinstance(v, str)
+                     and v.lower() in ("pull", "push"), "'pull' or 'push'"),
+    "shuffle_coding": (_coding_spec, "'none', 'xor', 'rs' or 'rs(k,m)'"),
+    "coding_group_k": (lambda v: _positive_int(v) and v >= 2,
+                       "an int >= 2"),
+    "coding_parity_m": (_positive_int, "an int >= 1"),
+    "hosts_file": (lambda v: v is None or (isinstance(v, str) and bool(v)),
+                   "a path or None"),
+    "elastic_enabled": (lambda v: isinstance(v, bool), "a bool"),
+    "elastic_min_executors": (lambda v: isinstance(v, int)
+                              and not isinstance(v, bool) and v >= 0,
+                              "an int >= 0"),
+    "elastic_max_executors": (_positive_int, "an int >= 1"),
+    "elastic_scale_up_threshold": (lambda v: _seconds(v) and v > 0,
+                                   "a number > 0"),
+    "elastic_scale_down_threshold": (_seconds, "a number >= 0"),
+    "elastic_decision_interval_s": (lambda v: _seconds(v) and v > 0,
+                                    "seconds > 0"),
     "local_dir": (lambda v: isinstance(v, str) and bool(v), "a path"),
     "log_level": (lambda v: isinstance(v, (str, int))
                   and not isinstance(v, bool), "a logging level"),
     "log_cleanup": (lambda v: isinstance(v, bool), "a bool"),
-}
-
-# settings of the reference that this port takes only at their default,
-# each with the queue item of ROADMAP.md that brings it
-REFUSED_SETTINGS = {
-    "shuffle_plan": ("pull", "queue 1 item 7 (the push plan)"),
-    "shuffle_coding": ("none", "queue 1 item 8 (the coded shuffle)"),
-    "hosts_file": (None, "queue 1 item 9 (hosts files, ssh hosts and "
-                         "the native framing)"),
-    "elastic_enabled": (False, "queue 1 item 10 (the elastic fleet)"),
 }
 
 RUNTIME_SETTINGS = tuple(_CHECKS)
@@ -286,6 +335,9 @@ class Env:
         # an executor's own shuffle server (distributed/worker.py); None
         # on a driver, which serves no shuffle data
         self.shuffle_server = None
+        # where a driver's coded-shuffle decode runs (its Context's
+        # device; an executor's decode runs on the CPU)
+        self.decode_device = None
         # shuffle ids whose reading node was collected, not yet dropped
         self._released_shuffles: collections.deque = collections.deque()
 

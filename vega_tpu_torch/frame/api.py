@@ -19,16 +19,20 @@ exposes the knobs (fuse / pushdown / tier / exchange / shuffle_plan).
 tier="host" compiles the plan on the host tier (the reference's host
 lowering over the port's host RDD layer), tier="device" raises as the
 reference's does on a plan it compiles on its host tier, and
-shuffle_plan (the host tier's shuffle plan across processes) is accepted
-and changes nothing: the port's host layer runs in one process.
+shuffle_plan sets the host tier's shuffle plan for the frame's actions
+(ignored, with a warning, where the executors were spawned with
+another plan, as the reference's).
 to_rdd() hands the frame's rows to the RDD API."""
 
 from __future__ import annotations
 
+import contextlib
+import logging
 from typing import List, Optional
 
 import numpy as np
 
+from vega_tpu_torch.env import DeploymentMode
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame import logical as L
 from vega_tpu_torch.frame import parquet as parquet_lib
@@ -185,7 +189,10 @@ class DataFrame:
         the host tier for every plan),
         exchange=('auto'|'all_to_all'|'ring'|'staged') — 'auto' routes
         through the exchange planner — and shuffle_plan=('pull'|'push'),
-        the host tier's, accepted and without effect."""
+        the host tier's shuffle plan for this frame's actions (in one
+        process; across processes the executors keep the plan they were
+        spawned with and the hint is ignored with a warning, as the
+        reference's)."""
         unknown = set(hints) - set(planner_lib.DEFAULT_OPTIONS)
         if unknown:
             raise VegaError(
@@ -221,10 +228,41 @@ class DataFrame:
         n = len(arrays[0]) if arrays else 0
         return [tuple(_pyval(a[i]) for a in arrays) for i in range(n)]
 
+    def _shuffle_plan_override(self):
+        """hint(shuffle_plan=) around an action: the Context's plan
+        swapped for the hint's while it runs; a no-op (warned) when the
+        Context's executors were spawned with another plan."""
+        plan = self._options.get("shuffle_plan")
+        if plan is None:
+            return contextlib.nullcontext()
+        conf = self._ctx.conf
+        if conf.deployment_mode is not DeploymentMode.LOCAL \
+                and str(conf.shuffle_plan).lower() != str(plan).lower():
+            logging.getLogger(__name__).warning(
+                "hint(shuffle_plan=%r) ignored: the executors were spawned "
+                "with shuffle_plan=%r and read it at spawn; set it on the "
+                "Context instead", plan, conf.shuffle_plan)
+            return contextlib.nullcontext()
+
+        @contextlib.contextmanager
+        def override():
+            saved = conf.shuffle_plan
+            conf.shuffle_plan = plan
+            try:
+                yield
+            finally:
+                conf.shuffle_plan = saved
+
+        return override()
+
     def collect_columns(self) -> dict:
         """Columnar collect: {name: numpy array}. A device plan gives its
         block's columns (DenseRDD.collect_arrays; strings decoded), a
         host plan its numpy blocks concatenated or its rows pivoted."""
+        with self._shuffle_plan_override():
+            return self._collect_columns()
+
+    def _collect_columns(self) -> dict:
         compiled = self._compiled()
         if compiled.kind == "device":
             blk_cols = compiled.rdd.collect_arrays()
@@ -255,11 +293,12 @@ class DataFrame:
 
     def count(self) -> int:
         compiled = self._compiled()
-        if compiled.kind == "host" and compiled.layout == "blocks":
-            # the blocks' lengths, not the blocks
-            n = sum(compiled.rdd.map(P.host_block_len).collect())
-        else:
-            n = compiled.rdd.count()
+        with self._shuffle_plan_override():
+            if compiled.kind == "host" and compiled.layout == "blocks":
+                # the blocks' lengths, not the blocks
+                n = sum(compiled.rdd.map(P.host_block_len).collect())
+            else:
+                n = compiled.rdd.count()
         if compiled.limit is not None:
             n = min(n, compiled.limit)
         return n

@@ -1329,7 +1329,7 @@ def _lower_host(ctx, plan: L.LogicalPlan) -> _HState:
         spec_pairs = [(bn, e) for bn, e, _m in specs]
         ops = [m for _bn, _e, m in specs]
         # a single add / min / max shuffles bare scalars with the monoid
-        # callable, as the reference's (its shuffle merges them natively)
+        # callable, as the reference's (the shuffle merges them natively)
         scalar = len(specs) == 1 and ops[0] in ("add", "min", "max")
         if st.layout == "blocks":
             st = _host_flush_blocks(st)

@@ -11,9 +11,16 @@ server is dropped from every list in one sweep
 get_server_uri_lists, which waits on a condition until every output of
 the shuffle has a location; executors ask over the driver service
 (distributed/driver_service.py). Per-bucket sizes (register_map_sizes)
-rank the servers a reduce task prefers (top_reduce_locations). The
-reference's parity-group and coded-location methods wait for the coded
-shuffle (ROADMAP queue 1 item 8)."""
+rank the servers a reduce task prefers (top_reduce_locations).
+
+Under shuffle_coding the tracker also keeps each shuffle's parity groups
+(register_parity: which parity server folded which map output into which
+group, at which index). When a lost server would leave an output with
+no location but a group held elsewhere can still decode it (no more
+than m of its members lost), unregister_server_outputs puts the
+pseudo-location "coded:<parity server>/<group>" there instead: the
+output stays available and the fetcher decodes it. A pseudo-location
+serves no bytes, and it goes with the parity server behind it."""
 
 from __future__ import annotations
 
@@ -40,6 +47,10 @@ class MapOutputTracker:
         # shuffle_id -> map_id -> per-reduce bucket bytes (advisory:
         # reduce-side placement only)
         self._sizes: Dict[int, Dict[int, List[int]]] = {}
+        # shuffle_id -> (parity_uri, group_id) -> {"scheme", "k", "m",
+        # "members": {map_id: index}} (registered by the map tasks, maybe
+        # before their stage's outputs are)
+        self._parity: Dict[int, Dict[tuple, dict]] = {}
         self._generation = 0
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -70,14 +81,29 @@ class MapOutputTracker:
     def unregister_server_outputs(self, uri: str) -> int:
         """A lost executor: uri dropped from every location list of every
         shuffle, the generation bumped once; returns the entries it was
-        dropped from (an output with a replica left stays available)."""
+        dropped from (an output with a replica left stays available). The
+        parity groups uri held go with it, and so do their coded:
+        locations; an output left with none that a surviving group
+        decodes gets that group's coded: location."""
         removed = 0
+        dead_prefix = f"coded:{uri}/"
         with self._cond:
-            for locs in self._outputs.values():
+            for groups in self._parity.values():
+                for key in [k for k in groups if k[0] == uri]:
+                    del groups[key]
+            covered = self._covered_if_lost(uri)
+            for shuffle_id, locs in self._outputs.items():
                 for i, lst in enumerate(locs):
                     if uri in lst:
                         removed += 1
-                        locs[i] = [u for u in lst if u != uri]
+                    kept = [u for u in lst
+                            if u != uri and not u.startswith(dead_prefix)]
+                    if not kept and lst:
+                        pseudo = covered.get((shuffle_id, i))
+                        if pseudo is not None:
+                            kept = [pseudo]
+                    if kept != lst:
+                        locs[i] = kept
             if removed:
                 self._generation += 1
                 self._cond.notify_all()
@@ -87,6 +113,7 @@ class MapOutputTracker:
         with self._lock:
             self._outputs.pop(shuffle_id, None)
             self._sizes.pop(shuffle_id, None)
+            self._parity.pop(shuffle_id, None)
 
     def outputs_on_server(self, uri: str):
         """(shuffle_id, map_id, location list, per-reduce sizes or None)
@@ -124,6 +151,73 @@ class MapOutputTracker:
             replaced = [new_uri if u == old_uri else u for u in locs[map_id]]
             locs[map_id] = list(dict.fromkeys(replaced))
             self._cond.notify_all()
+
+    # --- the coded shuffle (shuffle/coding.py) ------------------------------
+    def register_parity(self, shuffle_id: int, parity_uri: str,
+                        group_id: int, map_id: int, idx: int,
+                        scheme: str, k: int, m: int) -> None:
+        """parity_uri folded map_id into group_id at index idx (a repeat
+        of the same assignment changes nothing)."""
+        with self._lock:
+            groups = self._parity.setdefault(shuffle_id, {})
+            g = groups.setdefault((parity_uri, group_id),
+                                  {"scheme": scheme, "k": k, "m": m,
+                                   "members": {}})
+            g["members"][map_id] = idx
+
+    def get_parity_map(self, shuffle_id: int) -> Dict:
+        """{(parity_uri, group_id): {"scheme", "k", "m", "members":
+        {map_id: index}}} of the shuffle, a copy; empty without coding."""
+        with self._lock:
+            groups = self._parity.get(shuffle_id, {})
+            return {key: {"scheme": g["scheme"], "k": g["k"], "m": g["m"],
+                          "members": dict(g["members"])}
+                    for key, g in groups.items()}
+
+    def decodable_without(self, uri: str) -> Dict:
+        """{(shuffle_id, map_id): coded location} of every output whose
+        only real location is uri and that a group held elsewhere would
+        decode (the elastic fleet's decommission counts these)."""
+        with self._lock:
+            return self._covered_if_lost(uri)
+
+    def coded_locations(self, shuffle_id: int) -> Dict[int, str]:
+        """{map_id: coded location} of the outputs that only a decode
+        serves now (the DAG scheduler keeps them available)."""
+        with self._lock:
+            locs = self._outputs.get(shuffle_id)
+            if locs is None:
+                return {}
+            return {i: lst[0] for i, lst in enumerate(locs)
+                    if lst and all(u.startswith("coded:") for u in lst)}
+
+    def _covered_if_lost(self, uri: str) -> Dict:
+        """Under self._lock: for each group not held on uri, the members
+        with no real location but uri; when there are between 1 and m of
+        them, each is covered by the group's coded location."""
+        covered: Dict = {}
+        for shuffle_id, groups in self._parity.items():
+            locs = self._outputs.get(shuffle_id)
+            if locs is None:
+                continue
+            for (puri, gid), g in groups.items():
+                if puri == uri:
+                    continue
+                missing = []
+                in_range = True
+                for mid in g["members"]:
+                    if not 0 <= mid < len(locs):
+                        in_range = False
+                        break
+                    real = [u for u in locs[mid]
+                            if u != uri and not u.startswith("coded:")]
+                    if not real and locs[mid]:
+                        missing.append(mid)
+                if in_range and missing and len(missing) <= g["m"]:
+                    pseudo = f"coded:{puri}/{gid}"
+                    for mid in missing:
+                        covered[(shuffle_id, mid)] = pseudo
+        return covered
 
     def register_map_sizes(self, shuffle_id: int,
                            sizes_by_map: Dict[int, List[int]]) -> None:

@@ -352,11 +352,25 @@ class DAGScheduler:
 
     def _reduce_side_prefs(self, dep: ShuffleDependency,
                            reduce_id: int) -> List[str]:
-        """The shuffle servers holding most of reduce_id's input bytes
-        (the tracker's per-bucket sizes): hints, empty with
-        locality_wait_s 0 or no sizes, and never "local"."""
-        if float(self.env.conf.locality_wait_s or 0.0) <= 0:
+        """Where a reduce task prefers to run: under shuffle_plan="push"
+        a named monoid's reduce partition on its pre-merge owner (the
+        mappers' rotation over the backend's live peers, so the fetcher
+        reads the frozen blob in process), else the shuffle servers
+        holding most of reduce_id's input bytes (the tracker's per-bucket
+        sizes). Hints: empty with locality_wait_s 0 or no sizes, never
+        "local"."""
+        conf = self.env.conf
+        if float(conf.locality_wait_s or 0.0) <= 0:
             return []
+        from vega_tpu_torch.dependency import (is_mergeable, is_push_plan,
+                                               push_owner_for_peers)
+
+        if is_push_plan(conf) and is_mergeable(dep.aggregator):
+            peers_fn = getattr(self.backend, "shuffle_peer_uris", None)
+            if peers_fn is not None:
+                owner = push_owner_for_peers(peers_fn(), reduce_id)
+                if owner:
+                    return [owner]
         return [u for u in self.env.map_output_tracker.top_reduce_locations(
                     dep.shuffle_id, reduce_id) if u and u != "local"]
 
@@ -778,10 +792,27 @@ class DAGScheduler:
         with self._stages_lock:
             stages = list(self._shuffle_to_map_stage.values())
             jobs = list(self._running_jobs.values())
+        # the tracker's sweep ran first and put coded: locations where a
+        # surviving parity group decodes an output; the stages take them
+        # in, so those outputs stay available, and drop the coded:
+        # locations whose parity died with the server
+        tracker = self.env.map_output_tracker
+        dead_prefix = f"coded:{shuffle_uri}/"
         lost_stages = []
         for stage in stages:
             before = stage.num_available_outputs
             stage.remove_outputs_on_server(shuffle_uri)
+            for p in range(stage.num_partitions):
+                if any(u.startswith(dead_prefix)
+                       for u in stage.output_locs[p]):
+                    stage.output_locs[p] = [
+                        u for u in stage.output_locs[p]
+                        if not u.startswith(dead_prefix)]
+            for p, pseudo in tracker.coded_locations(
+                    stage.shuffle_dep.shuffle_id).items():
+                if 0 <= p < stage.num_partitions \
+                        and not stage.output_locs[p]:
+                    stage.output_locs[p] = [pseudo]
             if stage.num_available_outputs < before:
                 lost_stages.append(stage)
         for job in jobs:

@@ -10,7 +10,8 @@ raises is logged and the others still see the event. Per-job listeners
 
 The events are the scheduler's (jobs, stages, tasks, resubmissions,
 speculation), the distributed backend's (ExecutorLost,
-ExecutorRestarted, ExecutorAdded), the stores' (spills and promotions of
+ExecutorRestarted, ExecutorAdded, ExecutorDecommissioned), the push
+plan's (ShufflePushCompleted), the stores' (spills and promotions of
 the partition cache and the shuffle store), the fetcher's
 (ShuffleFetchCompleted, FetchFailedOver), the job server's (JobRejected)
 and the streaming plane's. MetricsListener.summary() gives the
@@ -20,8 +21,8 @@ cancellations, spills and promotions, speculation, the fetch counters,
 locality (placements by tier), dispatch (the task plane's bytes and
 binary shipments), the streaming counters and per-pool job-wall
 percentiles (pool_latency, which the streaming rate controller steers
-by). The reference's elastic and push sections wait for ROADMAP queue 1
-items 7 and 10.
+by). The elastic section counts the fleet's moves and what decommissions
+migrated, and shuffle_push the push plan's map-side pushes.
 """
 
 from __future__ import annotations
@@ -121,6 +122,24 @@ class ExecutorAdded(Event):
 
 
 @dataclasses.dataclass
+class ExecutorDecommissioned(Event):
+    """The elastic fleet retired an executor: it drained, its shuffle
+    outputs were migrated (a sole copy pushed to a survivor), left to
+    their replicas or parity, or scrubbed for recompute, and it was
+    reaped. forced: the drain timed out and the executor-lost path took
+    over."""
+
+    executor_id: str = ""
+    host: str = ""
+    migrated_outputs: int = 0
+    migrated_bytes: int = 0
+    replica_covered: int = 0
+    recomputed_outputs: int = 0
+    forced: bool = False
+    duration_s: float = 0.0
+
+
+@dataclasses.dataclass
 class FetchFailedOver(Event):
     """A reduce task moved its undelivered buckets from a failed or slow
     server to their replicas (no resubmission)."""
@@ -207,6 +226,36 @@ class ShuffleFetchCompleted(Event):
     buckets: int = 0
     nbytes: int = 0
     round_trips: int = 0
+    wall_s: float = 0.0
+    net_s: float = 0.0
+    overlap_s: float = 0.0
+    batched: bool = True
+    # the push plan: buckets read pre-merged, and how the blob was read
+    premerged_buckets: int = 0
+    local_blob_reads: int = 0
+    merged_rtts: int = 0
+    # the coded shuffle: decode incidents, buckets decoded, their bytes
+    coded_failovers: int = 0
+    parity_decodes: int = 0
+    decode_bytes: int = 0
+
+
+@dataclasses.dataclass
+class ShufflePushCompleted(Event):
+    """One map task pushed its row to the owning servers
+    (shuffle_plan="push"): merged buckets fed a pre-merge state, stored
+    ones were kept raw, duplicates were dropped by map id, failed ones
+    are left to the pull plan; targets is the owners contacted."""
+
+    shuffle_id: int = -1
+    map_id: int = -1
+    buckets: int = 0
+    nbytes: int = 0
+    merged: int = 0
+    stored: int = 0
+    duplicates: int = 0
+    failed: int = 0
+    targets: int = 0
     wall_s: float = 0.0
 
 
@@ -372,10 +421,26 @@ class MetricsListener(Listener):
         }
         self.fetch: Dict[str, Any] = {
             "streams": 0, "buckets": 0, "bytes": 0, "round_trips": 0,
-            "wall_s": 0.0, "failovers": 0, "failover_buckets": 0,
+            "wall_s": 0.0, "net_s": 0.0, "overlap_s": 0.0, "failovers": 0,
+            "failover_buckets": 0, "premerged_buckets": 0,
+            "local_blob_reads": 0, "merged_rtts": 0, "coded_failovers": 0,
+            "parity_decodes": 0, "decode_bytes": 0,
         }
         self.executors_lost = 0
         self.executors_restarted = 0
+        # the elastic fleet's moves and what its decommissions cost
+        self.elastic: Dict[str, int] = {
+            "executors_added": 0, "executors_decommissioned": 0,
+            "decommissions_forced": 0, "migrated_outputs": 0,
+            "migrated_bytes": 0, "replica_covered": 0,
+            "recomputed_outputs": 0,
+        }
+        # the push plan's map-side pushes (ShufflePushCompleted)
+        self.shuffle_push: Dict[str, Any] = {
+            "pushes": 0, "buckets": 0, "bytes": 0, "merged": 0,
+            "stored": 0, "duplicates": 0, "failed": 0, "targets": 0,
+            "wall_s": 0.0,
+        }
         # placements by locality tier (TaskEnd.locality; empty while
         # placement is unscored)
         self.locality: Dict[str, int] = {"process": 0, "host": 0, "any": 0}
@@ -462,6 +527,24 @@ class MetricsListener(Listener):
             self.executors_lost += 1
         elif isinstance(event, ExecutorRestarted):
             self.executors_restarted += 1
+        elif isinstance(event, ExecutorAdded):
+            self.elastic["executors_added"] += 1
+        elif isinstance(event, ExecutorDecommissioned):
+            el = self.elastic
+            el["executors_decommissioned"] += 1
+            if event.forced:
+                el["decommissions_forced"] += 1
+            for key in ("migrated_outputs", "migrated_bytes",
+                        "replica_covered", "recomputed_outputs"):
+                el[key] += getattr(event, key)
+        elif isinstance(event, ShufflePushCompleted):
+            sp = self.shuffle_push
+            sp["pushes"] += 1
+            sp["buckets"] += event.buckets
+            sp["bytes"] += event.nbytes
+            for key in ("merged", "stored", "duplicates", "failed",
+                        "targets", "wall_s"):
+                sp[key] += getattr(event, key)
         elif isinstance(event, FetchFailedOver):
             self.fetch["failovers"] += 1
             self.fetch["failover_buckets"] += event.buckets
@@ -481,7 +564,10 @@ class MetricsListener(Listener):
             f["buckets"] += event.buckets
             f["bytes"] += event.nbytes
             f["round_trips"] += event.round_trips
-            f["wall_s"] += event.wall_s
+            for key in ("wall_s", "net_s", "overlap_s", "premerged_buckets",
+                        "local_blob_reads", "merged_rtts", "coded_failovers",
+                        "parity_decodes", "decode_bytes"):
+                f[key] += getattr(event, key)
         elif isinstance(event, BlockSpilled):
             self.spill_count += 1
             self.spilled_bytes[event.store] = (
@@ -579,6 +665,7 @@ class MetricsListener(Listener):
                 "executors_lost": self.executors_lost,
                 "executors_restarted": self.executors_restarted,
                 "stages_resubmitted": self.stages_resubmitted,
+                "elastic": dict(self.elastic),
                 "jobs_rejected": self.jobs_rejected,
                 "spills": self.spill_count,
                 "promotes": self.promote_count,
@@ -586,8 +673,12 @@ class MetricsListener(Listener):
                 "promoted_bytes": dict(self.promoted_bytes),
                 "speculation": dict(self.speculation),
                 "fetch": {**self.fetch,
-                          "wall_s": round(self.fetch["wall_s"], 6)},
+                          **{k: round(self.fetch[k], 6)
+                             for k in ("wall_s", "net_s", "overlap_s")}},
                 "locality": dict(self.locality),
+                "shuffle_push": {**self.shuffle_push,
+                                 "wall_s": round(
+                                     self.shuffle_push["wall_s"], 6)},
                 "dispatch": dict(self.dispatch),
                 "streaming": {**self.streaming,
                               "batch_wall_s": round(

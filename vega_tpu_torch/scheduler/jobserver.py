@@ -118,6 +118,20 @@ class TaskArbiter:
             self._pending.setdefault(entry.pool, deque()).append(entry)
         self._pump()
 
+    def stats(self) -> Dict[str, Any]:
+        """Running and queued tasks, in all and per pool (the elastic
+        fleet's load signal, and fleet_status's scheduler section)."""
+        with self._lock:
+            return {
+                "mode": self._mode,
+                "running": self._running_total,
+                "queued": sum(len(dq) for dq in self._pending.values()),
+                "running_by_pool": dict(self._running_by_pool),
+                "queued_by_pool": {name: len(dq)
+                                   for name, dq in self._pending.items()
+                                   if dq},
+            }
+
     def purge(self, job_id: int) -> int:
         """Drop a finished or cancelled job's queued tasks (their
         callbacks are not called); returns how many."""

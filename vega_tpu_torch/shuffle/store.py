@@ -1,8 +1,10 @@
 """Shuffle bucket store, RAM first and disk under pressure: the port's
 copy of vega_tpu/shuffle/store.py.
 
-Buckets are keyed (shuffle_id, map_id, reduce_id) and hold the pickled
-rows a map task wrote for one reduce partition. A bucket larger than
+Buckets are keyed (shuffle_id, map_id, reduce_id) and hold the rows a
+map task wrote for one reduce partition (pickled, or the native
+runtime's VN01 / VG01 frames); the coded shuffle's parity frames live
+under reserved negative map ids (fold_parity). A bucket larger than
 spill_threshold goes straight to disk; past memory_budget in-RAM bytes
 the oldest buckets spill (each written before it leaves memory, so a
 reader always finds it in one tier). Disk reads go through the disk
@@ -45,6 +47,12 @@ class ShuffleStore:
         self._memory_budget = memory_budget
         self.spill_count = 0
         self.spilled_bytes = 0
+        # the coded shuffle's parity frames folded here, and their bytes
+        self.parity_folds = 0
+        self.parity_bytes = 0
+        # serializes fold_parity's read-modify-write; taken before _lock
+        # (through get / put), never after
+        self._parity_lock = threading.Lock()
         # set by the Context to its bus's post (BlockSpilled)
         self.event_sink = None
 
@@ -89,6 +97,24 @@ class ShuffleStore:
         when the caller asks for it (a shuffle server streams them)."""
         for map_id in map_ids:
             yield map_id, self.get(shuffle_id, map_id, reduce_id)
+
+    def fold_parity(self, shuffle_id: int, group_id: int, unit: int,
+                    reduce_id: int, map_id: int, idx: int, scheme: str,
+                    k: int, raw: bytes) -> None:
+        """One member bucket folded into the (group, unit, reduce) parity
+        frame under its reserved map id (coding.parity_map_id). ValueError
+        when the stored frame fails its checks: the server then refuses
+        the push."""
+        from vega_tpu_torch.shuffle import coding
+
+        pkey = coding.parity_map_id(group_id, unit)
+        with self._parity_lock:
+            old = self.get(shuffle_id, pkey, reduce_id)
+            frame = coding.fold_frame(old, scheme, k, unit, map_id, idx, raw)
+            self.put(shuffle_id, pkey, reduce_id, frame)
+            with self._lock:
+                self.parity_folds += 1
+                self.parity_bytes += len(frame) - (len(old) if old else 0)
 
     def contains(self, shuffle_id: int, map_id: int, reduce_id: int) -> bool:
         key = (shuffle_id, map_id, reduce_id)
@@ -141,6 +167,8 @@ class ShuffleStore:
             "disk_bytes": disk.used_bytes if disk else 0,
             "spill_count": self.spill_count,
             "spilled_bytes": self.spilled_bytes,
+            "parity_folds": self.parity_folds,
+            "parity_bytes": self.parity_bytes,
             # checksum failures read as misses: corruption caught, not
             # served
             "read_errors": disk.read_errors if disk else 0,

@@ -142,6 +142,9 @@ class StreamingContext:
         ctx.set_pool(self.pool, weight=conf.stream_pool_weight)
         self.controller = RateController(conf, ctx.metrics, self.pool,
                                          self.interval_s)
+        # pending blocks count as queued demand for the elastic fleet
+        if getattr(ctx, "elastic", None) is not None:
+            ctx.elastic.add_load_signal(self.controller.load_signal)
         self.checkpoint_dir = (
             checkpoint_dir or conf.stream_checkpoint_dir
             or os.path.join(_SESSION_DIR, "streaming"))

@@ -8,8 +8,8 @@ above the batch interval) the bound halves. At the bound a receiver
 parks until a batch drains blocks ("block": lossless) or drops the block
 while advancing its offsets ("shed": counted).
 
-load_signal() is kept with the reference's meaning (pending blocks as
-queued demand); the port has no elastic controller to read it.
+load_signal() gives the pending blocks as queued demand to the elastic
+fleet's controller (scheduler/elastic.py), as the reference's.
 """
 
 from __future__ import annotations
