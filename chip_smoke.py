@@ -387,6 +387,15 @@ Phases, in order; any failure exits non-zero before the last line:
      rows equal (a digest each), every kernel launched; per rank the
      card, host and lift parts, the fleet's spawn, stage-binary bytes,
      host_get calls and the lift's agreement (bytes, ms) a run.
+ 27. the lock-order witness (vega_tpu_torch.lint.sync_witness): in a
+     fresh process under VEGA_TPU_DEBUG_SYNC=1 (--phase27-leg), 23a's
+     lineage on 8 task threads (all three kernels), three committed
+     batches of 22a's stateful fold against numpy and one job in each of
+     two pools, then check_clean(); the same case in the script's own
+     process, without the flag. The witness's named locks, edges and
+     roles observed, and the two cases' warm parts (23a's warm median,
+     27b, 27c) beside each other; their walls hold cold runs in unlike
+     processes and are printed apart.
 Prints the radix-shape rows, the main path's rows/s, each plan's line,
 each keyed config's line, config 3's line, one line per new op, one line
 per phase-7 line and phase 7's summary, one line per phase-8 item, one
@@ -395,7 +404,7 @@ line per phase-11 size, gf256 row and fold op, one line per phase-12
 item, one line per phase-13 leg and rank and per 13d query (one process
 and each rank), one line per phase-14 item and 14c rank, one line per
 phase-15, phase-16 and phase-17 query, one line per phase-18,
-phase-19, phase-20 and phase-21 case, phases 22-26's lines, the kernel
+phase-19, phase-20 and phase-21 case, phases 22-27's lines, the kernel
 table as one JSON line (with phases 6-26's launches beside the main
 path's), the card line, and last
 {"ok": true, "device": {...}}.
@@ -424,9 +433,9 @@ the same for phase 21, writing chiprun_out/p21.json.
 builds the kernels and runs phase 22 alone; prints its lines and one
 JSON line, and writes chiprun_out/p22.json.
 
-    python3 chip_smoke.py --phase 23|24|25|26
+    python3 chip_smoke.py --phase 23|24|25|26|27
 
-the same for each of phases 23-26, writing chiprun_out/p<N>.json.
+the same for each of phases 23-27, writing chiprun_out/p<N>.json.
 
     python3 chip_smoke.py --main-path-ab [--leg LEG] DIR_A DIR_B DIR_B DIR_A
 
@@ -9895,6 +9904,297 @@ def phase26_leg():
     print(f"card: {card}", flush=True)
 
 
+P27_WORKERS = 8                # 27a: 23a's lineage on 8 task threads
+P27_BATCHES = 3                # 27b: three committed batches of 22a's fold
+P27_BATCH_S = 0.2              # 27b: the batch interval (22a: 0.5 s)
+P27_POOLS = ("heavy", "light")  # 27c: one job in each of two pools
+P27_LEG_TIMEOUT_S = 300.0      # the witness leg's limit
+P27_BUDGET_S = 45.0            # the phase's target wall (logged, not held)
+P27_DIR = os.path.join("chiprun_out", "phase27")
+
+
+def p27_check(what, ok):
+    if not ok:
+        fail(f"phase 27: {what}")
+
+
+def p27_stream(torch, np, ck, vt):
+    """27b: 22a's generator stream into update_state_by_key(op="add"),
+    batches every P27_BATCH_S, stopped after P27_BATCHES commits; the
+    state equals numpy's exact sums up to the committed offset."""
+    ckpt = os.path.join(P27_DIR, f"ckpt-{os.getpid()}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ctx = vt.Context(n_shards=N_SHARDS, stream_batch_interval_s=P27_BATCH_S)
+    try:
+        stream = ctx.stream_from_generator(P22Source(P22_RECORDS),
+                                           checkpoint_dir=ckpt)
+        handle = stream.update_state_by_key(op="add")
+        sctx = ctx.streaming()
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        sctx.start()
+        deadline = time.monotonic() + P22_WAIT_S
+        while handle.store.commits < P27_BATCHES:
+            p27_check(f"27b: the stream failed: {sctx.failed}",
+                      sctx.failed is None)
+            p27_check(f"27b: {P27_BATCHES} batches not committed within "
+                      f"{P22_WAIT_S} s ({sctx.status()})",
+                      time.monotonic() < deadline)
+            time.sleep(0.02)
+        sctx.stop()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        rec = handle.store.log.latest()
+        n = rec["offsets"]["0"]
+        p27_check(f"27b: the state differs from numpy's sums over the "
+                  f"{n} committed records",
+                  n > 0 and handle.snapshot() == p22_expected(np, n))
+        p27_check("27b: duplicate commits",
+                  handle.store.duplicate_commits == 0)
+        commits = handle.store.commits
+    finally:
+        ctx.stop()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(records=n, commits=commits, wall_s=wall_s,
+                launches=launches)
+
+
+def p27_pools(ck, vt):
+    """27c: one job in each of two pools (weights 4 and 1, fair) of the
+    job server, submitted together; both equal Python's sums."""
+    want = {}
+    for x in range(P23_SMALL):
+        want[x % 100] = want.get(x % 100, 0) + x
+    want = sorted(want.items())
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    with vt.Context(n_shards=N_SHARDS, num_workers=2,
+                    scheduler_mode="fair") as ctx:
+        ctx.set_pool(P27_POOLS[0], weight=4)
+        ctx.set_pool(P27_POOLS[1], weight=1)
+        futures = [ctx.submit_job(
+            ctx.parallelize(range(P23_SMALL), 8).map(
+                lambda x: (x % 100, x)).reduce_by_key(operator.add, 4),
+            lambda _tc, it: sorted(it), pool=pool,
+            transform=lambda parts: sorted(r for p in parts for r in p))
+            for pool in P27_POOLS]
+        for pool, f in zip(P27_POOLS, futures):
+            p27_check(f"27c: pool {pool}'s job differs from Python's sums",
+                      f.result(120) == want)
+        latency = ctx.metrics_summary()["pool_latency"]
+    p27_check(f"27c: both pools' walls ({latency})",
+              set(latency) >= set(P27_POOLS))
+    return dict(wall_s=time.perf_counter() - t0,
+                launches=dict(ck.LAUNCHES))
+
+
+def p27_case(torch, np, ck, vt, on):
+    """The witness case: (a) 23a's lineage at P23_ROWS rows on
+    P27_WORKERS task threads, (b) 27b's batches of 22a's fold, (c) 27c's
+    two pools, under the witness (on) or not; its walls, launches and the
+    kinds of a Context's locks."""
+    exp = p23_expected(np)
+    parts = {}
+    t0 = time.perf_counter()
+    ctx = vt.Context(n_shards=N_SHARDS, num_workers=P27_WORKERS)
+    try:
+        kinds = [type(ctx._dense_lock).__name__,
+                 type(ctx.job_server._lock).__name__,
+                 type(ctx.env.shuffle_store._lock).__name__]
+        want_kinds = (["WitnessRLock", "WitnessLock", "WitnessLock"] if on
+                      else [type(threading.RLock()).__name__,
+                            type(threading.Lock()).__name__,
+                            type(threading.Lock()).__name__])
+        p27_check(f"the Context's locks are {kinds}, not {want_kinds}",
+                  kinds == want_kinds)
+        a = p23_part_a(torch, np, ck, vt, ctx, P27_WORKERS, exp)
+    finally:
+        ctx.stop()
+    parts["a"] = time.perf_counter() - t0
+    b = p27_stream(torch, np, ck, vt)
+    parts["b"] = b["wall_s"]
+    c = p27_pools(ck, vt)
+    parts["c"] = c["wall_s"]
+    return dict(
+        witness=on, wall_s=time.perf_counter() - t0, parts_s=parts,
+        launches={k: a["launches"][k] + b["launches"][k] + c["launches"][k]
+                  for k in ck.LAUNCHES},
+        lock_kinds=kinds,
+        a=dict(cold_ms=a["cold"]["ms"], median_ms=a["median_ms"],
+               median_parts=a["median_parts"], stages=a["stages"],
+               tasks=a["tasks"]),
+        b={k: b[k] for k in ("records", "commits", "wall_s")},
+        c={"wall_s": c["wall_s"]})
+
+
+def phase27_leg():
+    """--phase27-leg: the witness case in a fresh process, its parent
+    having set VEGA_TPU_DEBUG_SYNC=1 before any lock was built, then the
+    witness's record and check_clean() (an inversion or a role breach
+    raises, and the leg fails). Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    import vega_tpu_torch as vt
+    from vega_tpu_torch import cuda_kernels as ck
+    from vega_tpu_torch.lint import sync_witness
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    p27_check("the witness leg runs without VEGA_TPU_DEBUG_SYNC=1",
+              sync_witness.enabled())
+    ck.build()
+    case = p27_case(torch, np, ck, vt, True)
+    st = sync_witness.witness().stats()
+    sync_witness.check_clean()
+    p27_check(f"the witness observed no order edge ({st})",
+              st["names"] and st["edges"] > 0)
+    want_roles = {"dag-loop", "listener-bus", "stream-receiver",
+                  "batch-driver"}
+    p27_check(f"roles observed {sorted(st['roles'])}, not "
+              f"{sorted(want_roles)}", want_roles <= set(st["roles"]))
+    case["witness"] = dict(
+        names=st["names"], locks=st["locks"], edges=st["edges"],
+        inversions=len(st["inversions"]),
+        role_violations=len(st["role_violations"]),
+        roles={r: len(t) for r, t in st["roles"].items()})
+    print(json.dumps(case), flush=True)
+
+
+def p27_spawn():
+    """The witness leg in a process of its own, VEGA_TPU_DEBUG_SYNC=1 in
+    its environment; its JSON line and its process wall, or the script
+    fails with its stderr."""
+    env = dict(os.environ, VEGA_TPU_DEBUG_SYNC="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase27-leg"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=P27_LEG_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0 or not out.strip():
+        fail(f"phase 27's witness leg failed ({proc.returncode}):\n"
+             f"{err[-4000:]}")
+    leg = json.loads(out.strip().splitlines()[-1])
+    leg["process_s"] = time.perf_counter() - t0
+    return leg
+
+
+def phase_twentyseven(torch, np, ck, vt):
+    """Phase 27: the lock-order witness on the card. 23a's lineage on 8
+    task threads, three batches of 22a's stateful fold and two jobs in
+    two pools run in a fresh process under VEGA_TPU_DEBUG_SYNC=1 (every
+    named lock a witness lock, check_clean() at its end), then the same
+    case in this process, whose locks are plain; each case's wall beside
+    the other's."""
+    from vega_tpu_torch.lint import sync_witness
+
+    t0 = time.perf_counter()
+    card = card_line()
+    p27_check("run chip_smoke.py without VEGA_TPU_DEBUG_SYNC: phase 27 "
+              "sets it for its witness leg alone", not sync_witness.enabled())
+    torch.cuda.empty_cache()
+    on = p27_spawn()
+    off = p27_case(torch, np, ck, vt, False)
+    for leg in (on, off):
+        check_launched(leg["launches"], "phase 27 (the witness leg)"
+                       if leg["witness"] else "phase 27 (without it)")
+    p27_check(f"the witness recorded {on['witness']['inversions']} "
+              f"inversions and {on['witness']['role_violations']} role "
+              "violations", on["witness"]["inversions"] == 0
+              and on["witness"]["role_violations"] == 0)
+    torch.cuda.empty_cache()
+    wall_s = time.perf_counter() - t0
+    log(f"phase 27 took {wall_s:.1f} s (target {P27_BUDGET_S:.0f} s)")
+    launches = {k: on["launches"][k] + off["launches"][k]
+                for k in ck.LAUNCHES}
+    return dict(on=on, off=off, launches=launches, card=card,
+                wall_s=wall_s)
+
+
+def p27_warm_s(leg):
+    """A case's warm parts: 23a's warm median, 27b and 27c, each run after
+    27a's cold run in its process. The two cases' cold runs are not alike
+    (the witness leg's process is fresh, the other is the script's), so
+    only these parts compare the witness's cost."""
+    return leg["a"]["median_ms"] / 1000.0 + leg["parts_s"]["b"] \
+        + leg["parts_s"]["c"]
+
+
+def p27_lines(r, card):
+    """The printed lines of phase 27."""
+    out = []
+    for leg in (r["on"], r["off"]):
+        where = ("under VEGA_TPU_DEBUG_SYNC=1, a process of its own "
+                 f"({leg['process_s']:.1f} s)" if leg["witness"]
+                 else "without the flag, in the script's process")
+        a = leg["a"]
+        out.append(
+            f"phase 27 {where}: case {leg['wall_s']:.3f} s (parts (s) "
+            f"{json.dumps({k: round(v, 3) for k, v in leg['parts_s'].items()})}"
+            f"; 27a 23a's lineage at {P23_ROWS} rows on {P27_WORKERS} task "
+            f"threads cold {a['cold_ms']:.3f} ms, warm {a['median_ms']:.3f} "
+            f"ms, {a['tasks']} tasks; 27b {leg['b']['commits']} batches, "
+            f"{leg['b']['records']} records; 27c pools "
+            f"{'/'.join(P27_POOLS)}), locks "
+            f"{json.dumps(leg['lock_kinds'])}, launches "
+            f"{json.dumps(leg['launches'])} on {card}")
+    w = r["on"]["witness"]
+    out.append(
+        f"phase 27 witness: {len(w['names'])} named locks "
+        f"{json.dumps(w['names'])}, {w['locks']} in order edges, "
+        f"{w['edges']} edges, roles observed (threads) "
+        f"{json.dumps(w['roles'])}, {w['inversions']} inversions, "
+        f"{w['role_violations']} role violations; warm parts (23a's "
+        f"warm median + 27b + 27c) {p27_warm_s(r['on']):.3f} s under the "
+        f"witness beside {p27_warm_s(r['off']):.3f} s without "
+        f"({p27_warm_s(r['on']) / p27_warm_s(r['off']):.3f}x; the cases' "
+        f"walls, cold runs in unlike processes, {r['on']['wall_s']:.3f} "
+        f"and {r['off']['wall_s']:.3f} s); phase 27 "
+        f"{r['wall_s']:.1f} s on {card}")
+    return out
+
+
+def p27_summary(res):
+    """Phase 27's figures as JSON."""
+    return dict(phase=27, wall_s=res["wall_s"], launches=res["launches"],
+                card=res["card"], on=res["on"], off=res["off"],
+                warm_s=dict(on=p27_warm_s(res["on"]),
+                            off=p27_warm_s(res["off"])))
+
+
+def phase27_main():
+    """--phase 27: the kernels built, then phase 27 alone. Prints its
+    lines and one JSON line, writes chiprun_out/p27.json, and ends with
+    the card line."""
+    import numpy as np
+    import torch
+
+    import vega_tpu_torch as vt
+    from vega_tpu_torch import cuda_kernels as ck
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    card = card_line()
+    ck.build()
+    res = phase_twentyseven(torch, np, ck, vt)
+    out = p27_summary(res)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "p27.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(out, fh, indent=1)
+    for line in p27_lines(res, card):
+        print(line, flush=True)
+    print(json.dumps(out), flush=True)
+    print(f"card: {card}", flush=True)
+
+
 def main():
     try:
         import torch
@@ -9986,6 +10286,8 @@ def main():
     twentyfive = phase_twentyfive(torch, np, ck, vt)
     # 26. a fleet per rank: mode="distributed" with multihost=
     twentysix = phase_twentysix(torch, np, ck, vt)
+    # 27. the lock-order witness: the local runtime under it and without
+    twentyseven = phase_twentyseven(torch, np, ck, vt)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCE,
@@ -10036,7 +10338,8 @@ def main():
                    phase23=p23_summary(twentythree),
                    phase24=p24_summary(twentyfour),
                    phase25=p25_summary(twentyfive),
-                   phase26=p26_summary(twentysix))
+                   phase26=p26_summary(twentysix),
+                   phase27=p27_summary(twentyseven))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -10386,6 +10689,8 @@ def main():
         print(line, flush=True)
     for line in p26_lines(twentysix, card):
         print(line, flush=True)
+    for line in p27_lines(twentyseven, card):
+        print(line, flush=True)
     print("radix and cold rows: " + json.dumps([
         {k: r.get(k) for k in ("name", "shape", "n_bins", "input", "ms",
                                "ms_min", "ms_max", "bound_ms", "bound_share",
@@ -10734,6 +11039,10 @@ if __name__ == "__main__":
         phase25_leg()
     elif sys.argv[1:3] == ["--phase", "26"] and len(sys.argv) == 3:
         phase26_leg()
+    elif sys.argv[1:3] == ["--phase", "27"] and len(sys.argv) == 3:
+        phase27_main()
+    elif sys.argv[1:] == ["--phase27-leg"]:
+        phase27_leg()
     elif sys.argv[1:3] == ["--phase", "19"] and len(sys.argv) == 5 \
             and sys.argv[3] == "--without":
         phase19_leg(sys.argv[4])

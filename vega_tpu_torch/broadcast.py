@@ -17,16 +17,16 @@ from __future__ import annotations
 
 import itertools
 import pickle
-import threading
 from typing import Any
 
 from vega_tpu_torch import serialization
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 _next_id = itertools.count(0)
 _local_values: dict = {}
 # values unpickled from a payload, by id
 _loaded: dict = {}
-_lock = threading.Lock()
+_lock = named_lock("broadcast._lock")
 
 
 class Broadcast:

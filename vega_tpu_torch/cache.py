@@ -12,9 +12,9 @@ from __future__ import annotations
 import enum
 import logging
 import sys
-import threading
 from collections import OrderedDict
 from typing import Any, Callable, List, Optional, Tuple
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 log = logging.getLogger(__name__)
 
@@ -74,7 +74,7 @@ class BoundedMemoryCache:
         self._capacity = capacity_bytes
         self._entries: "OrderedDict[Key, Tuple[Any, int]]" = OrderedDict()
         self._used = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("cache.BoundedMemoryCache._lock")
         self.evictions = 0
         # (key, value, size) of each victim, called outside the lock while
         # the victim is still readable (TieredCache demotes it)

@@ -15,14 +15,19 @@ import threading
 from typing import Dict, List
 
 from vega_tpu_torch.cache import KeySpace
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 
 class CacheTracker:
     def __init__(self):
         # rdd_id -> partition -> [locations]
         self._locs: Dict[int, Dict[int, List[str]]] = {}
-        self._lock = threading.Lock()
-        # per-partition materialization locks (get_or_compute)
+        # also the guard of the per-partition locks (vega_tpu's
+        # cache_tracker._loading_guard)
+        self._lock = named_lock("cache_tracker.CacheTracker._lock")
+        # per-partition materialization locks (get_or_compute): plain, as
+        # vega_tpu's are — one name for all of them would read a nested
+        # get_or_compute of another partition as a self-deadlock
         self._loading: Dict[tuple, threading.Lock] = {}
 
     def register_rdd(self, rdd_id: int, num_partitions: int) -> None:

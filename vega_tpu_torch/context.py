@@ -198,6 +198,7 @@ from vega_tpu_torch.env import (Configuration,
 from vega_tpu_torch.errors import VegaError
 from vega_tpu_torch.frame.api import DataFrame
 from vega_tpu_torch import mesh as mesh_lib
+from vega_tpu_torch.lint.sync_witness import assert_role, named_lock
 from vega_tpu_torch.mesh import make_mesh
 from vega_tpu_torch.scheduler import events
 from vega_tpu_torch.scheduler import jobserver
@@ -209,7 +210,7 @@ log = logging.getLogger(__name__)
 
 # the live Contexts of the process, oldest first (Context.active)
 _live_contexts: list = []
-_live_lock = threading.Lock()
+_live_lock = named_lock("context._active_context_lock")
 _ctx_ids = itertools.count()
 
 
@@ -391,8 +392,12 @@ class Context:
         self._spill = DiskStore(os.path.join(session, "cache"))
         # the dense tier's lock: a node's materialization and every
         # settlement, so a stream's loop thread, a job's driver thread and
-        # a task thread never interleave device jobs
-        self._dense_lock = threading.RLock()
+        # a task thread never interleave device jobs. It stands where
+        # vega_tpu's device-read locks stand (tpu.block._host_cache_lock,
+        # tpu.mesh._lock and tpu.mesh._device_door): the port's blocks
+        # read to the host inside it
+        self._dense_lock = named_lock("context.Context._dense_lock",
+                                      reentrant=True)
         # the event bus and its metrics (scheduler/events.py)
         self.bus = events.LiveListenerBus()
         self.metrics = events.MetricsListener()
@@ -936,6 +941,7 @@ class Context:
         backend and bus, close the shuffle store and the cache and remove
         the session directory; then stop. If settlement raises, its
         leftover blocks raise on read."""
+        assert_role()  # driver teardown — never from a confined thread
         try:
             if self._streaming is not None:
                 try:

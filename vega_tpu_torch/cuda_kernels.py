@@ -27,13 +27,14 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import signal
 import subprocess
-import threading
 from typing import Optional
 
 import torch
 
 from vega_tpu_torch.errors import KernelError
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "csrc", "shuffle_kernels.cu")
@@ -43,12 +44,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 MAX_BINS = 256  # the kernels' shared-memory histograms hold 256 bins
+# nvcc's limit, as native.BUILD_TIMEOUT_S is g++'s: a build runs on the
+# first job's driver thread, so a hung compiler must not hold it forever
+BUILD_TIMEOUT_S = 300.0
 
 # Kernel launches per wrapper: one per call on a CUDA tensor, none on CPU.
 LAUNCHES = {"hash_bucket": 0, "digit_hist": 0, "partition_pos": 0}
 
 _lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
+_lib_lock = named_lock("cuda_kernels._lib_lock")
 
 
 def reset_launches() -> None:
@@ -72,7 +76,9 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> str:
     """Compile csrc/shuffle_kernels.cu into BUILD_DIR unless an up-to-date
     library is already there; returns the library's path. With verbose,
-    ptxas reports each kernel's registers and shared memory."""
+    ptxas reports each kernel's registers and shared memory. A compile
+    that outlasts BUILD_TIMEOUT_S is killed with its whole process group and
+    raises KernelError naming the command; nothing falls back."""
     if os.path.exists(LIBRARY) and \
             os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE):
         return LIBRARY
@@ -80,11 +86,24 @@ def build(verbose: bool = False) -> str:
     tmp = f"{LIBRARY}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
            "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise KernelError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
+    # a session of its own: on expiry the kill reaches nvcc's children
+    # (cicc, ptxas), which would otherwise hold the pipes open
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        _out, err = proc.communicate(timeout=BUILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate(timeout=30.0)
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise KernelError(f"nvcc did not finish within {BUILD_TIMEOUT_S:g} s: "
+                          f"{' '.join(cmd)}") from None
+    if proc.returncode != 0:
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n{err}")
+    if verbose and err:
+        print(err)
     os.replace(tmp, LIBRARY)  # atomic: a concurrent loader never sees half
     return LIBRARY
 

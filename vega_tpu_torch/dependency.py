@@ -38,12 +38,12 @@ from __future__ import annotations
 
 import itertools
 import logging
-import threading
 import time
 from typing import TYPE_CHECKING, List
 
 from vega_tpu_torch import serialization
 from vega_tpu_torch.aggregator import Aggregator
+from vega_tpu_torch.lint.sync_witness import named_lock
 from vega_tpu_torch.partitioner import HashPartitioner, Partitioner
 
 if TYPE_CHECKING:
@@ -65,7 +65,7 @@ _peer_cache: dict = {"tracker": None, "peers": None, "expires": 0.0}
 
 # this process's push-plan and redundancy counters (an executor's
 # worker_stats)
-_push_lock = threading.Lock()
+_push_lock = named_lock("dependency._push_lock")
 _PUSH_TOTALS = {
     "pushes": 0, "buckets": 0, "bytes": 0, "merged": 0, "stored": 0,
     "duplicates": 0, "failed": 0, "wall_s": 0.0,

@@ -63,6 +63,11 @@ from vega_tpu_torch import serialization
 from vega_tpu_torch.distributed import protocol
 from vega_tpu_torch.distributed.driver_service import DriverService
 from vega_tpu_torch.errors import NetworkError, TaskError
+from vega_tpu_torch.lint.sync_witness import (
+    assert_role,
+    named_lock,
+    note_thread_role,
+)
 from vega_tpu_torch.scheduler import events as ev
 from vega_tpu_torch.scheduler.dag import TaskBackend
 from vega_tpu_torch.scheduler.task import Task, TaskEndEvent
@@ -141,7 +146,7 @@ class DistributedBackend(TaskBackend):
         self._rr = itertools.count(0)
         # task_id -> the executor running it (cancel_task's target)
         self._running_on: Dict[int, str] = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("distributed.backend.DistributedBackend._lock")
         self._stopped = False
         self._stop_event = threading.Event()
         # the Context's bus.post, for ExecutorLost / ExecutorRestarted /
@@ -388,6 +393,7 @@ class DistributedBackend(TaskBackend):
 
     # --- liveness -----------------------------------------------------------
     def _reaper_loop(self) -> None:
+        note_thread_role("reaper")
         while not self._stop_event.wait(self.conf.executor_reap_interval_s):
             try:
                 self._sweep()
@@ -519,6 +525,7 @@ class DistributedBackend(TaskBackend):
     def add_executor(self) -> str:
         """One new executor slot, spawned, confirmed and in rotation;
         ExecutorAdded posted. NetworkError when it never serves."""
+        assert_role("elastic")  # fleet mutation: driver-side control only
         with self._lock:
             if self._stopped:
                 raise NetworkError("backend is stopped; cannot scale up")
@@ -598,6 +605,7 @@ class DistributedBackend(TaskBackend):
                         graceful: bool = True) -> None:
         """A decommissioned slot out of the table and the registry first
         (its exit is no loss), then shut down."""
+        assert_role("elastic")  # fleet mutation: driver-side control only
         with self._lock:
             ex = self._executors.pop(executor_id, None)
             self._known_hashes.pop(executor_id, None)
@@ -802,7 +810,8 @@ class DistributedBackend(TaskBackend):
         with self._lock:
             executors = [e for e in self._executors.values() if e.alive]
         out: Dict[str, dict] = {}
-        out_lock = threading.Lock()
+        out_lock = named_lock(
+            "distributed.backend.DistributedBackend.worker_stats.out_lock")
 
         def probe(ex: _Executor) -> None:
             try:
@@ -958,6 +967,7 @@ class DistributedBackend(TaskBackend):
                             _send_task(sock, executor)
                             # a task may run for hours: no IO deadline;
                             # the reaper or the OS ends a dead one
+                            # vegalint: ignore[VG012] — deliberately unbounded: tasks may run for hours; executor death unblocks via the reaper's socket shutdown / OS keepalive
                             sock.settimeout(None)
                             sock.setsockopt(socket.SOL_SOCKET,
                                             socket.SO_KEEPALIVE, 1)

@@ -21,6 +21,7 @@ from typing import Dict, Optional
 
 from vega_tpu_torch.distributed import protocol
 from vega_tpu_torch.errors import NetworkError
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 log = logging.getLogger(__name__)
 
@@ -57,7 +58,8 @@ class DriverService:
         # executors being decommissioned: still live, but no new replica
         # lands on them
         self.draining: set = set()
-        self._lock = threading.Lock()
+        self._lock = named_lock(
+            "distributed.driver_service.DriverService._lock")
         self._server = protocol.ThreadingServer(
             (host, port), _Handler, bind_and_activate=True)
         self._server.service = self  # type: ignore[attr-defined]
@@ -152,8 +154,11 @@ class RemoteTrackerClient:
         self._local = threading.local()
         # per-partition locks of get_or_compute (cache_tracker.py), local
         # to this executor
+        # (plain, as cache_tracker's are: one name for every partition
+        # would read a nested get_or_compute as a self-deadlock)
         self._loading: Dict[tuple, threading.Lock] = {}
-        self._loading_lock = threading.Lock()
+        self._loading_lock = named_lock(
+            "distributed.driver_service.RemoteTrackerClient._loading_lock")
 
     def _sock(self) -> socket.socket:
         sock = getattr(self._local, "sock", None)

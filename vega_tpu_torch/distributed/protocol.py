@@ -97,6 +97,11 @@ class _SockStream:
 
     def read(self, n: int) -> bytes:
         try:
+            # Client sockets arrive here with CONNECT/IO_TIMEOUT or a
+            # caller-set deadline already applied by connect()/settimeout;
+            # server handler sockets idle in recv between requests by
+            # design (the client hanging up ends the loop with EOF).
+            # vegalint: ignore[VG012] — deadline is set on the socket by connect()/the caller; handler sockets idle between requests by design
             return self.sock.recv(min(n, 1 << 20))
         except OSError as e:
             raise NetworkError(f"socket read failed: {e}") from e
@@ -156,6 +161,7 @@ def recv_buffer(sock: socket.socket) -> bytearray:
     got = 0
     while got < n:
         try:
+            # vegalint: ignore[VG012] — same contract as _SockStream.read: the socket's deadline (IO_TIMEOUT or the caller's) is already set and recv_into inherits it
             r = sock.recv_into(view[got:], n - got)
         except OSError as e:
             raise NetworkError(f"socket read failed: {e}") from e

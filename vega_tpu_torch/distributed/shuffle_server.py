@@ -42,6 +42,7 @@ from zlib import error as zlib_error
 from vega_tpu_torch import faults
 from vega_tpu_torch.distributed import protocol
 from vega_tpu_torch.errors import FetchFailedError, NetworkError
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 log = logging.getLogger(__name__)
 
@@ -187,7 +188,7 @@ class ShuffleServer:
         self._server.owner = self  # type: ignore[attr-defined]
         # the coded shuffle's parity groups held here: shuffle_id ->
         # {"next_gid", "by_map": {map_id: (gid, idx)}, "groups"}
-        self._parity_lock = threading.Lock()
+        self._parity_lock = named_lock("shuffle_server.parity_groups")
         self._parity_groups: dict = {}
         self.host = host
         self.port = self._server.server_address[1]
@@ -248,7 +249,7 @@ _pool = threading.local()
 
 # the fetch counters of this process (the worker_stats reply):
 # round trips of each kind
-_wire_lock = threading.Lock()
+_wire_lock = named_lock("distributed.shuffle_server._wire_lock")
 _WIRE = {"gets": 0, "get_many": 0, "put_many": 0, "push_merged": 0,
          "get_merged": 0, "put_parity": 0, "get_parity": 0}
 

@@ -52,6 +52,7 @@ from vega_tpu_torch.env import (Configuration, DeploymentMode, Env,
                                 attach_session_logger,
                                 detach_session_logger, normalize_log_level)
 from vega_tpu_torch.errors import NetworkError, TaskCancelledError
+from vega_tpu_torch.lint.sync_witness import named_lock, note_thread_role
 from vega_tpu_torch.scheduler.dag import paused_gc
 from vega_tpu_torch.scheduler.task import TaskBinaryCache, run_from_header
 
@@ -67,6 +68,7 @@ def _pre_run_cancel_gate(cancel_event) -> None:
 
 class _TaskHandler(socketserver.BaseRequestHandler):
     def handle(self):
+        note_thread_role("worker-task")
         sock = self.request
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         worker: Worker = self.server.worker  # type: ignore[attr-defined]
@@ -157,6 +159,7 @@ class _TaskHandler(socketserver.BaseRequestHandler):
                                 f"expected binary re-ship, got {reply_type}")
                         raw = protocol.recv_bytes(sock)
                     finally:
+                        # vegalint: ignore[VG012] — restores the handler socket's normal no-deadline idle state after the bounded re-ship window
                         sock.settimeout(None)
             if binary is None:
                 binary = worker.binaries.load(sha, raw, claim)
@@ -234,7 +237,8 @@ class Worker:
         self._shutdown = threading.Event()
         # running attempts' cancel events, and the ids cancelled before
         # their attempt arrived
-        self._cancel_lock = threading.Lock()
+        self._cancel_lock = named_lock(
+            "distributed.worker.Worker._cancel_lock")
         self._cancel_events: dict = {}
         self._cancelled_recently: "OrderedDict[int, float]" = OrderedDict()
         self._log_dir = os.path.join(conf.local_dir,

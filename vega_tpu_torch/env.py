@@ -32,6 +32,7 @@ import weakref
 from typing import List, Optional
 
 from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.lint.sync_witness import assert_role
 
 
 class DeploymentMode(enum.Enum):
@@ -359,6 +360,9 @@ class Env:
         return done
 
     def close(self) -> None:
+        # the teardown of this Env's store and cache under every task
+        # that reads them: the driver's or an executor's main thread
+        assert_role()
         self.shuffle_store.close()
         self.cache.close()
 

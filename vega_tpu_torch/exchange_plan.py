@@ -41,12 +41,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
-import threading
 from typing import Dict, Optional
 
 import numpy as np
 
 from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 log = logging.getLogger(__name__)
 
@@ -238,7 +238,7 @@ def exchange_callable(plan: ExchangePlan):
 # aggregates per Context (new_plan_summary / add_to_summary)
 # ---------------------------------------------------------------------------
 
-_counters_lock = threading.Lock()
+_counters_lock = named_lock("exchange_plan._counters_lock")
 _PLAN_COUNTS: Dict[str, int] = {}
 _LAST_PLAN: Optional[ExchangePlan] = None
 

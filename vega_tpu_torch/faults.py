@@ -65,8 +65,8 @@ import logging
 import os
 import signal
 import time
-import threading
 from typing import Optional
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 log = logging.getLogger(__name__)
 
@@ -127,7 +127,7 @@ class FaultInjector:
         self.stats_dir = env.get(pref + "STATS_DIR") or None
 
         self._tasks_done = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("faults.FaultInjector._lock")
 
     # ------------------------------------------------------------- targeting
     @property
@@ -393,7 +393,7 @@ class FaultInjector:
 
 
 _injector: Optional[FaultInjector] = None
-_injector_lock = threading.Lock()
+_injector_lock = named_lock("faults._injector_lock")
 
 
 def get() -> FaultInjector:

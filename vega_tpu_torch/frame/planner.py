@@ -934,6 +934,7 @@ class _Stage:
             if self.flagged:
                 flag = (torch.stack(bad).any() if bad else torch.zeros(
                     (), dtype=torch.bool, device=like.device))
+                # vegalint: ignore[VG013] — inside the lowered stage callable: the read runs when the stage executes, not when the plan is compiled
                 if bool(np.asarray(mesh_lib.host_get(node.mesh,
                                                      flag)).any()):
                     raise VegaError(

@@ -52,6 +52,8 @@ class MapOutputTracker:
         # before their stage's outputs are)
         self._parity: Dict[int, Dict[tuple, dict]] = {}
         self._generation = 0
+        # plain, as vega_tpu's is: the witness does not wrap a Condition's
+        # lock (wait() releases and re-acquires it behind the wrapper)
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
 

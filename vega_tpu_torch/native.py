@@ -39,6 +39,7 @@ import threading
 from typing import Optional
 
 from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 log = logging.getLogger(__name__)
 
@@ -57,6 +58,7 @@ SOURCE = os.path.join(_HERE, "csrc", "vega_native.cpp")
 BUILD_DIR = os.path.join(_HERE, "_build")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 # the executors' variable: the driver's built library, loaded as it is
+# vegalint: ignore[VG010] — not a Configuration knob: the path of the library the driver built, which a backend hands each executor it spawns
 LIB_ENV = "VEGA_TPU_NATIVE_LIB"
 BUILD_TIMEOUT_S = 300.0
 
@@ -118,7 +120,7 @@ class StreamingMerge:
         return list(self._acc.items())
 
 
-_lock = threading.Lock()
+_lock = named_lock("native._lock")
 _native = None
 
 

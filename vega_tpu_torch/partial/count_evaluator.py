@@ -8,8 +8,8 @@ approximation; once every output merged, the exact count."""
 from __future__ import annotations
 
 import math
-import threading
 
+from vega_tpu_torch.lint.sync_witness import named_lock
 from vega_tpu_torch.partial.bounded_double import BoundedDouble
 
 
@@ -29,7 +29,7 @@ class CountEvaluator:
         self.confidence = confidence
         self.outputs_merged = 0
         self.sum = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("partial.count_evaluator.CountEvaluator._lock")
 
     def merge(self, _output_id: int, task_result: int) -> None:
         with self._lock:

@@ -5,9 +5,9 @@ extrapolated as CountEvaluator extrapolates the total)."""
 from __future__ import annotations
 
 import math
-import threading
 from typing import Dict
 
+from vega_tpu_torch.lint.sync_witness import named_lock
 from vega_tpu_torch.partial.bounded_double import BoundedDouble
 from vega_tpu_torch.partial.count_evaluator import _z_for_confidence
 
@@ -18,7 +18,8 @@ class GroupedCountEvaluator:
         self.confidence = confidence
         self.outputs_merged = 0
         self.sums: Dict = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock(
+            "partial.grouped_count_evaluator.GroupedCountEvaluator._lock")
 
     def merge(self, _output_id: int, task_result: Dict) -> None:
         with self._lock:

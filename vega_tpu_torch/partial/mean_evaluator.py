@@ -5,8 +5,8 @@ squares); the interval is the normal one of the sample mean."""
 from __future__ import annotations
 
 import math
-import threading
 
+from vega_tpu_torch.lint.sync_witness import named_lock
 from vega_tpu_torch.partial.bounded_double import BoundedDouble
 from vega_tpu_torch.partial.count_evaluator import _z_for_confidence
 
@@ -19,7 +19,7 @@ class MeanEvaluator:
         self.count = 0
         self.sum = 0.0
         self.sum_sq = 0.0
-        self._lock = threading.Lock()
+        self._lock = named_lock("partial.mean_evaluator.MeanEvaluator._lock")
 
     def merge(self, _output_id: int, task_result) -> None:
         n, s, ss = task_result

@@ -14,6 +14,7 @@ import threading
 from typing import Callable, Generic, Optional, TypeVar
 
 from vega_tpu_torch.errors import PartialJobError
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 R = TypeVar("R")
 
@@ -28,7 +29,7 @@ class PartialResult(Generic[R]):
         self._completion_handler: Optional[Callable[[R], None]] = None
         self._failure_handler: Optional[
             Callable[[BaseException], None]] = None
-        self._lock = threading.Lock()
+        self._lock = named_lock("partial.partial_result.PartialResult._lock")
         if is_final or failure is not None:
             self._event.set()
 

@@ -34,11 +34,18 @@ from typing import Callable, Iterator, List, Optional
 from vega_tpu_torch.bounded_priority_queue import BoundedPriorityQueue
 from vega_tpu_torch.dependency import Dependency, ShuffleDependency
 from vega_tpu_torch.errors import VegaError
+from vega_tpu_torch.lint.sync_witness import named_lock
 from vega_tpu_torch.partitioner import Partitioner
 from vega_tpu_torch.rdd.pair import PairOpsMixin
 from vega_tpu_torch.split import Split
 
 log = logging.getLogger(__name__)
+
+# Claims a node's checkpoint write: held only across the check and the
+# flag flip, never across the write job itself (that job re-enters
+# _do_checkpoint on its own driver thread — holding a lock across it
+# would deadlock the nested submission).
+_checkpoint_claim_lock = named_lock("rdd.base._checkpoint_claim_lock")
 
 
 def _collect_partition(_tc, it) -> list:
@@ -194,12 +201,14 @@ class RDD(PairOpsMixin):
         first (run_job walks it before a job)."""
         for dep in self.get_dependencies():
             dep.rdd._do_checkpoint()
-        if self._checkpoint_dir is None or self._checkpointed_rdd is not None \
-                or self.__dict__.get("_checkpointing"):
-            return
+        with _checkpoint_claim_lock:
+            if self._checkpoint_dir is None \
+                    or self._checkpointed_rdd is not None \
+                    or self.__dict__.get("_checkpointing"):
+                return
+            self._checkpointing = True
         from vega_tpu_torch.rdd.checkpoint import CheckpointRDD
 
-        self._checkpointing = True
         try:
             self._checkpointed_rdd = CheckpointRDD.write(
                 self, self._checkpoint_dir)

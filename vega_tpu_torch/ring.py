@@ -53,6 +53,9 @@ def ring_exchange(cols: Cols, count: torch.Tensor, bucket: torch.Tensor,
                   mesh=None) -> Tuple[Cols, torch.Tensor, torch.Tensor]:
     """kernels.bucket_exchange's drop-in at one slot per round: the
     staged exchange at group = 1, n - 1 rounds."""
+    if n_shards == 1:
+        return kernels.passthrough_exchange(cols, count, bucket.shape[1],
+                                            out_capacity)
     return staged_exchange(cols, count, bucket, n_shards, slot_capacity,
                            out_capacity, pregrouped=pregrouped,
                            sort_impl=sort_impl, group=1, mesh=mesh)
@@ -86,8 +89,9 @@ def staged_exchange(cols: Cols, count: torch.Tensor, bucket: torch.Tensor,
     counts_to = counts_to.to(torch.int64).clamp_(max=slot_capacity)
     starts = starts.to(torch.int64)
     if mesh is not None and mesh.collective:
-        return _rounds_across(mesh, cols, grouped, counts_to, starts,
-                              overflow, slot_capacity, out_capacity, group)
+        return _rounds_across_exchange(mesh, cols, grouped, counts_to,
+                                       starts, overflow, slot_capacity,
+                                       out_capacity, group)
 
     dev = bucket.device
     recv = torch.arange(n_shards, device=dev)            # receiver j
@@ -165,8 +169,9 @@ def _round_wire(n, n_local, rank, world, shifts) -> _RoundWire:
     return _RoundWire(n, n_local, rank, world, shifts)
 
 
-def _rounds_across(mesh, cols, grouped, counts_to, starts, overflow,
-                   slot_capacity: int, out_capacity: int, group: int):
+def _rounds_across_exchange(mesh, cols, grouped, counts_to, starts,
+                            overflow, slot_capacity: int,
+                            out_capacity: int, group: int):
     """staged_exchange's rounds on a multi-process mesh: per round, each
     local shard cuts the slots bound for its shifted targets, one
     all_to_all_single per column (and one for the slot counts) moves them

@@ -48,13 +48,13 @@ import gc
 import itertools
 import logging
 import queue
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Set
 
 from vega_tpu_torch.dependency import NarrowDependency, ShuffleDependency
 from vega_tpu_torch.errors import CancelledError, FetchFailedError, \
     TaskError, VegaError
+from vega_tpu_torch.lint.sync_witness import named_lock
 from vega_tpu_torch.scheduler import events as ev
 from vega_tpu_torch.scheduler.stage import Stage
 from vega_tpu_torch.scheduler.task import (ResultTask, ShuffleMapTask,
@@ -67,7 +67,7 @@ log = logging.getLogger(__name__)
 # scheduler stop)
 _WAKE = object()
 
-_gc_lock = threading.Lock()
+_gc_lock = named_lock("scheduler.dag._gc_lock")
 _gc_holders = 0
 _gc_was_enabled = False
 
@@ -207,7 +207,8 @@ class DAGScheduler:
         self.bus = bus or ev.LiveListenerBus()
         self._next_stage_id = itertools.count(0)
         self._shuffle_to_map_stage: Dict[int, Stage] = {}
-        self._stages_lock = threading.RLock()
+        self._stages_lock = named_lock(
+            "scheduler.dag.DAGScheduler._stages_lock", reentrant=True)
         self._running_jobs: Dict[int, _Job] = {}
         self._stage_owners: Dict[int, int] = {}
         self._stage_users: Dict[int, int] = {}

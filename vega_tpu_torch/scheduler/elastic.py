@@ -35,6 +35,11 @@ from typing import Dict, List, Optional, Set, Tuple
 
 from vega_tpu_torch import faults
 from vega_tpu_torch.errors import FetchFailedError, NetworkError, VegaError
+from vega_tpu_torch.lint.sync_witness import (
+    assert_role,
+    named_lock,
+    note_thread_role,
+)
 from vega_tpu_torch.scheduler import events as ev
 
 log = logging.getLogger(__name__)
@@ -57,7 +62,7 @@ class ElasticController:
         self.conf = conf
         self.bus = bus
         self.env = env  # the driver's Env: its trackers
-        self._lock = threading.Lock()
+        self._lock = named_lock("scheduler.elastic.ElasticController._lock")
         self._stop_event = threading.Event()
         # Context teardown (as opposed to merely pausing the control
         # loop): a mid-ladder decommission abandons itself on THIS flag
@@ -154,6 +159,7 @@ class ElasticController:
 
     # ---------------------------------------------------------- decisions
     def _loop(self) -> None:
+        note_thread_role("elastic")
         interval = max(0.05,
                        float(self.conf.elastic_decision_interval_s))
         while not self._stop_event.wait(max(0.05, interval / 4.0)):
@@ -298,6 +304,7 @@ class ElasticController:
         would ever add capacity back (lower the bound first to retire the
         last executors on purpose). An unexpected error mid-ladder
         releases the drain claim so the slot is not stranded draining."""
+        assert_role("elastic")  # fleet mutation: driver-side control only
         backend = self.backend
         conf = self.conf
         t0 = time.time()

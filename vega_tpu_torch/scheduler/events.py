@@ -33,6 +33,7 @@ import queue
 import threading
 import time
 from typing import Any, Dict, List, Optional
+from vega_tpu_torch.lint.sync_witness import named_lock, note_thread_role
 
 log = logging.getLogger(__name__)
 
@@ -320,7 +321,7 @@ class LiveListenerBus:
         self._job_listeners: Dict[int, List[Listener]] = {}
         self._thread: Optional[threading.Thread] = None
         self._started = False
-        self._lock = threading.Lock()
+        self._lock = named_lock("scheduler.events.EventBus._lock")
 
     def add_listener(self, listener: Listener) -> None:
         with self._lock:
@@ -380,6 +381,7 @@ class LiveListenerBus:
             self._thread.join(timeout=5)
 
     def _dispatch_loop(self) -> None:
+        note_thread_role("listener-bus")
         while True:
             event = self._queue.get()
             try:
@@ -462,7 +464,7 @@ class MetricsListener(Listener):
         # per-pool walls of jobs that succeeded (a bounded ring, newest
         # kept): the source of pool_latency()
         self._pool_walls: Dict[str, list] = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("scheduler.events.MetricsListener._lock")
 
     def _job(self, job_id: int) -> Dict[str, Any]:
         return self.jobs.setdefault(job_id, {

@@ -36,6 +36,7 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
 from vega_tpu_torch.errors import CancelledError, JobRejectedError, VegaError
+from vega_tpu_torch.lint.sync_witness import named_lock, note_thread_role
 from vega_tpu_torch.scheduler import events as ev
 from vega_tpu_torch.scheduler.dag import _WAKE, DAGScheduler, _Job
 from vega_tpu_torch.scheduler.task import Task, TaskEndEvent
@@ -93,7 +94,7 @@ class TaskArbiter:
         self._running_total = 0
         self._running_by_pool: Dict[str, int] = {}
         self._running_by_job: Dict[int, int] = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("scheduler.jobserver.TaskArbiter._lock")
 
     def set_pool(self, name: str, weight: int = 1,
                  max_concurrent_tasks: Optional[int] = None,
@@ -233,7 +234,7 @@ class JobFuture:
         self._exception: Optional[BaseException] = None
         self._was_cancelled = False
         self._callbacks: List[Callable[["JobFuture"], None]] = []
-        self._lock = threading.Lock()
+        self._lock = named_lock("scheduler.jobserver.JobFuture._lock")
 
     @property
     def job_id(self) -> int:
@@ -287,6 +288,8 @@ class JobFuture:
             try:
                 value = self._transform(partition_results)
             except BaseException as exc:  # noqa: BLE001 — via result()
+                log.debug("job %d result transform failed", self.job_id,
+                          exc_info=True)
                 self._fail(exc)
                 return
         else:
@@ -327,9 +330,11 @@ class JobServer:
         scheduler.task_router = self.arbiter
         self._live: Dict[int, JobFuture] = {}
         self._stopped = False
-        self._lock = threading.Lock()
+        self._lock = named_lock("scheduler.jobserver.JobServer._lock")
         # in-flight jobs per pool, under a condition the parked
-        # submitters (admission_mode="block") wait on
+        # submitters (admission_mode="block") wait on; a Condition stays
+        # a plain lock (the witness does not wrap one: wait() releases
+        # and re-acquires it behind the wrapper's back)
         self._admission = threading.Condition()
         self._pool_live: Dict[str, int] = {}
 
@@ -428,7 +433,8 @@ class JobServer:
                 if partitions:
                     self._live[job.job_id] = future
             if partitions and not inline:
-                threading.Thread(target=self._drive, args=(job, future),
+                threading.Thread(target=self._drive_thread,
+                                 args=(job, future),
                                  name=f"vega-job-{job.job_id}",
                                  daemon=True).start()
         except BaseException:
@@ -445,6 +451,10 @@ class JobServer:
         elif inline:
             self._drive(job, future)
         return future
+
+    def _drive_thread(self, job: _Job, future: JobFuture) -> None:
+        note_thread_role("dag-loop")
+        self._drive(job, future)
 
     def _drive(self, job: _Job, future: JobFuture) -> None:
         was = in_job()
@@ -490,6 +500,7 @@ class JobServer:
                 else:
                     future._settle(result=finish())
             except BaseException as exc:  # noqa: BLE001 — via the future
+                log.debug("job %d failed", job.job_id, exc_info=True)
                 future._fail(exc)
             finally:
                 with self._lock:

@@ -22,6 +22,7 @@ from typing import Callable
 
 from vega_tpu_torch import faults, serialization
 from vega_tpu_torch.errors import TaskCancelledError
+from vega_tpu_torch.lint.sync_witness import named_lock
 from vega_tpu_torch.scheduler.dag import TaskBackend
 from vega_tpu_torch.scheduler.task import (Task, TaskBinaryCache,
                                            TaskEndEvent, run_from_header)
@@ -45,7 +46,8 @@ class LocalBackend(TaskBackend):
                                         thread_name_prefix="vega-task")
         # task ids cancelled before a thread picked them up (bounded)
         self._cancelled: "OrderedDict[int, float]" = OrderedDict()
-        self._cancel_lock = threading.Lock()
+        self._cancel_lock = named_lock(
+            "scheduler.local_backend.LocalBackend._cancel_lock")
 
     @property
     def parallelism(self) -> int:

@@ -23,6 +23,7 @@ from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from vega_tpu_torch.dependency import ShuffleDependency
+from vega_tpu_torch.lint.sync_witness import named_lock
 from vega_tpu_torch.split import Split
 
 
@@ -42,7 +43,7 @@ class StageBinary:
     # every lineage serialization of this process (the once-per-stage
     # contract's observation point)
     total_serializations = 0
-    _count_lock = threading.Lock()
+    _count_lock = named_lock("scheduler.task.StageBinary._count_lock")
 
     def __init__(self, kind: str, rdd, aux):
         assert kind in ("result", "shuffle")
@@ -51,7 +52,7 @@ class StageBinary:
         self.aux = aux  # func (result) | ShuffleDependency (shuffle)
         # (payload, sha) swapped as one tuple
         self._frozen: Optional[Tuple[bytes, str]] = None
-        self._lock = threading.Lock()
+        self._lock = named_lock("scheduler.task.StageBinary._lock")
 
     def _materialize(self) -> Tuple[bytes, str]:
         """Serialize once (a lineage that cannot pickle raises here,
@@ -126,7 +127,7 @@ class TaskBinaryCache:
         self._capacity = max(1, int(capacity))
         self._entries: "OrderedDict[str, tuple]" = OrderedDict()
         self._pending: Dict[str, threading.Event] = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("scheduler.task.TaskBinaryCache._lock")
 
     def __len__(self) -> int:
         with self._lock:

@@ -45,6 +45,7 @@ from typing import Iterator, List
 from vega_tpu_torch import serialization
 from vega_tpu_torch.dependency import is_push_plan
 from vega_tpu_torch.errors import FetchFailedError, ShuffleError, VegaError
+from vega_tpu_torch.lint.sync_witness import named_lock, note_thread_role
 
 log = logging.getLogger(__name__)
 
@@ -57,7 +58,7 @@ class _AbandonedStream(Exception):
 # ends with the last of them
 _PRODUCER_DONE = object()
 
-_totals_lock = threading.Lock()
+_totals_lock = named_lock("shuffle.fetcher._totals_lock")
 _TOTALS = {
     "streams": 0, "buckets": 0, "bytes": 0, "round_trips": 0,
     "net_s": 0.0, "wait_s": 0.0, "overlap_s": 0.0, "wall_s": 0.0,
@@ -179,7 +180,7 @@ class ShuffleFetcher:
         # it to the next replica)
         cursor = [0] * total
         abandoned = {"flag": False}
-        counter_lock = threading.Lock()
+        counter_lock = named_lock("shuffle.fetcher.stream_counters")
         resolved_once = False
         # buckets whose decode failed since the last resolve: not tried
         # again until the locations are resolved anew
@@ -258,6 +259,7 @@ class ShuffleFetcher:
 
                 def produce(assignments, failures=failures,
                             deadline_for=deadline_for, queued=queued):
+                    note_thread_role("fetch-producer")
                     t0 = time.monotonic()
 
                     def deliver(map_id, data):

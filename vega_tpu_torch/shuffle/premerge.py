@@ -26,10 +26,10 @@ from __future__ import annotations
 
 import logging
 import struct
-import threading
 from typing import Dict, List, Optional, Tuple
 
 from vega_tpu_torch import native
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 log = logging.getLogger(__name__)
 
@@ -77,7 +77,7 @@ class _State:
                  "frozen_ids", "fed_bytes")
 
     def __init__(self):
-        self.lock = threading.Lock()
+        self.lock = named_lock("shuffle.premerge._State.lock")
         self.merger = None          # lazy native.StreamingMerge
         self.is_int = None          # flag of the first fed blob
         self.merged: set = set()    # map_ids fed into the merger
@@ -97,7 +97,7 @@ class PreMergeTier:
         # true footprint is <=). Feeds past it store-and-forward instead.
         self._budget = budget_bytes
         self._states: Dict[Tuple[int, int], _State] = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("shuffle.premerge.PreMergeTier._lock")
         self.counters = {
             "merged_buckets": 0, "raw_buckets": 0, "duplicates": 0,
             "frozen": 0, "overflow_freezes": 0, "fed_bytes": 0,

@@ -16,11 +16,11 @@ scheduler recomputes the map output; wrong bytes are never served.
 from __future__ import annotations
 
 import logging
-import threading
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
 from vega_tpu_torch import faults
+from vega_tpu_torch.lint.sync_witness import named_lock
 from vega_tpu_torch.store.disk import DiskStore
 
 log = logging.getLogger(__name__)
@@ -41,7 +41,7 @@ class ShuffleStore:
                  memory_budget: int = MEMORY_BUDGET):
         self._mem: "OrderedDict[Key, bytes]" = OrderedDict()
         self._mem_bytes = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("shuffle.store.ShuffleStore._lock")
         self._disk = DiskStore(spill_dir) if spill_dir else None
         self._spill_threshold = spill_threshold
         self._memory_budget = memory_budget
@@ -52,7 +52,7 @@ class ShuffleStore:
         self.parity_bytes = 0
         # serializes fold_parity's read-modify-write; taken before _lock
         # (through get / put), never after
-        self._parity_lock = threading.Lock()
+        self._parity_lock = named_lock("shuffle.store.parity_fold")
         # set by the Context to its bus's post (BlockSpilled)
         self.event_sink = None
 

@@ -24,6 +24,7 @@ import struct
 import threading
 import zlib
 from typing import Dict, Optional, Tuple
+from vega_tpu_torch.lint.sync_witness import named_lock
 
 log = logging.getLogger(__name__)
 
@@ -52,7 +53,7 @@ class DiskStore:
         self._root = root
         self._index: Dict[str, Tuple[str, int]] = {}
         self._used = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("store.disk.DiskStore._lock")
         self.read_errors = 0  # checksum / format failures read as misses
         self.spill_count = 0
         self.spilled_bytes = 0

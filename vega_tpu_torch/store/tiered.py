@@ -15,10 +15,10 @@ from __future__ import annotations
 
 import logging
 import pickle
-import threading
 from typing import Any, Dict, Optional, Tuple
 
 from vega_tpu_torch.cache import BoundedMemoryCache, KeySpace
+from vega_tpu_torch.lint.sync_witness import named_lock
 from vega_tpu_torch.store.disk import DiskStore
 from vega_tpu_torch.store.level import StorageLevel
 
@@ -35,7 +35,7 @@ class TieredCache:
         self.disk = disk
         memory.on_evict = self._on_memory_evict
         self._levels: Dict[Tuple[KeySpace, int], StorageLevel] = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("store.tiered.TieredCache._lock")
         self.event_sink = None
         self._oversize_logged = False
 

@@ -42,6 +42,7 @@ import time
 import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from vega_tpu_torch.lint.sync_witness import note_thread_role
 from vega_tpu_torch.scheduler import events
 from vega_tpu_torch import state_fold
 from vega_tpu_torch.streaming.controller import RateController
@@ -312,6 +313,7 @@ class StreamingContext:
 
     # --- internals ----------------------------------------------------------
     def _loop(self) -> None:
+        note_thread_role("batch-driver")
         while not self._stop_evt.wait(self.interval_s):
             try:
                 self._tick()

@@ -33,6 +33,8 @@ class RateController:
         self.metrics = metrics
         self.pool = pool
         self.interval_s = interval_s
+        # a plain Condition: the witness does not wrap one (wait() releases
+        # and re-acquires it behind the wrapper's back)
         self._cond = threading.Condition()
         self._pending = 0
         self.max_depth_seen = 0

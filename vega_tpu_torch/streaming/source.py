@@ -36,6 +36,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from vega_tpu_torch import faults
+from vega_tpu_torch.lint.sync_witness import named_lock, note_thread_role
 from vega_tpu_torch.store import StorageLevel
 
 log = logging.getLogger(__name__)
@@ -53,7 +54,7 @@ class BlockStore:
         self._disk = disk
         self._mem: Dict[Tuple[int, int], List[Any]] = {}
         self._on_disk: set = set()
-        self._lock = threading.Lock()
+        self._lock = named_lock("streaming.source.BlockStore._lock")
 
     @staticmethod
     def _disk_key(stream_id: int, seq: int) -> str:
@@ -192,7 +193,7 @@ class Receiver:
         self._pending: List[Block] = []
         self._buf: List[Any] = []  # records ingested, not yet in a block
         self._buf_start = 0        # source offset of _buf[0]
-        self._lock = threading.Lock()
+        self._lock = named_lock("streaming.source.Receiver._lock")
         self._stop = threading.Event()
         self._flush_req = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -222,6 +223,7 @@ class Receiver:
             self._thread.join(timeout=5.0)
 
     def _run(self) -> None:
+        note_thread_role("stream-receiver")
         try:
             self._open()
             while not self._stop.is_set():
